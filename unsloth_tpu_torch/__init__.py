@@ -1,0 +1,18 @@
+"""unsloth_tpu_torch — the PyTorch/CUDA port of unsloth_tpu for NVIDIA Hopper.
+
+The JAX package ``unsloth_tpu`` is the reference; this package mirrors its
+layout (``ops/``, ``models/``, ``inference/``) so that each module's
+counterpart is easy to find, and imports no JAX. Plain tensor code is
+PyTorch; the kernels that the JAX package wrote in Pallas are CUDA C++
+in ``csrc/``, built on first use (``kernels.py``).
+
+Ported so far: the serving slice (load -> NF4 quantize -> generate ->
+OpenAI-compatible HTTP server) for the llama-family dense decoder.
+"""
+
+__version__ = "0.1.0"
+
+
+from .models.loader import FastLanguageModel, LanguageModel  # noqa: E402,F401
+from .inference.generate import SamplingParams, generate  # noqa: E402,F401
+from .inference.server import InferenceServer  # noqa: E402,F401

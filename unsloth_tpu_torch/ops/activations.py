@@ -1,0 +1,66 @@
+"""Gated-MLP activations (SwiGLU / GEGLU) and plain activations, in PyTorch.
+
+Counterpart of unsloth_tpu/ops/activations.py: ``act(e)`` in fp32, cast
+back to e's dtype, times the up projection ``g``. Serving takes no
+gradients, so there is no recompute backward yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _make_glu(act_fn):
+    def glu(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        return act_fn(e.to(torch.float32)).to(e.dtype) * g
+
+    return glu
+
+
+def _silu(e):
+    return e * torch.sigmoid(e)
+
+
+swiglu = _make_glu(_silu)
+geglu_exact = _make_glu(lambda e: F.gelu(e, approximate="none"))
+geglu_approx = _make_glu(lambda e: F.gelu(e, approximate="tanh"))
+
+ACT2GLU = {
+    "silu": swiglu,
+    "swish": swiglu,
+    "gelu": geglu_exact,
+    "gelu_new": geglu_approx,
+    "gelu_tanh": geglu_approx,
+    "gelu_pytorch_tanh": geglu_approx,
+}
+
+
+def glu_for(act_name: str):
+    try:
+        return ACT2GLU[act_name]
+    except KeyError:
+        raise ValueError(f"Unsupported gated activation: {act_name!r}") from None
+
+
+def _relu2(x):
+    r = torch.relu(x.to(torch.float32))
+    return (r * r).to(x.dtype)
+
+
+_ACT = {
+    "silu": lambda x: F.silu(x.to(torch.float32)).to(x.dtype),
+    "gelu": lambda x: F.gelu(x.to(torch.float32)).to(x.dtype),
+    "gelu_tanh": lambda x: F.gelu(x.to(torch.float32),
+                                  approximate="tanh").to(x.dtype),
+    "relu": torch.relu,
+    "relu2": _relu2,
+}
+
+
+def act_for(act_name: str):
+    """Plain (non-gated) activation."""
+    try:
+        return _ACT[act_name]
+    except KeyError:
+        raise ValueError(f"Unsupported activation: {act_name!r}") from None

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA H100.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -8,23 +9,41 @@ exits non-zero without printing a result:
 
   1. device    card name, capability (must be 9.0), CUDA and nvcc versions,
                the card's name and power limit from nvidia-smi;
-  2. build     compile the package's CUDA kernels from csrc/ (timed);
+  2. build     compile the package's CUDA kernels from csrc/, one nvcc per
+               source in parallel (timed);
   3. kernels   each kernel against its plain PyTorch version on the card at
-               every Llama-3.1-8B projection shape, with median times;
+               the main paths' shapes, with median times: the NF4 matmul
+               (K1) and its backward (K2) at every Llama-3.1-8B projection
+               shape, RMSNorm forward (K3) and backward (K4), and packed
+               flash attention forward and backward (K9-K11) on an 8K row;
   4. parity    Llama-3.1-8B cut to 2 layers, random NF4 weights: prefill 64
                tokens + 8 decode steps on the card (kernels) and on the CPU
                (plain versions, same weights), logits compared;
-  5. main path a random-init bf16 Llama-3.1-8B checkpoint (full width, all
-               32 layers) is written as index-sharded safetensors, loaded
-               with FastLanguageModel.from_pretrained(load_in_4bit=True),
-               served by InferenceServer over HTTP (3 requests) and run
-               through model.generate on 4 prompts of 1,000 tokens.
+  4b. train parity  the same 2-layer cut with nonzero LoRA: loss and every
+               LoRA gradient of one packed 2,048-token row on the card and
+               on the CPU, compared;
+  5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
+               width, all 32 layers) is written as index-sharded
+               safetensors, loaded with FastLanguageModel.from_pretrained(
+               load_in_4bit=True), served by InferenceServer over HTTP (3
+               requests) and run through model.generate on 4 prompts;
+  6. main path (training) the same checkpoint, get_peft_model(r=16, all
+               seven projections, use_gradient_checkpointing="unsloth"),
+               SFTTrainer on synthetic documents packed into 8,192-token
+               rows: batch 1, accumulation 2, 6 steps; losses finite and
+               falling; step time, real tokens/s and peak memory.
 
-Then one JSON line with each kernel's launches on the main path, its
-largest error against its plain version, and its time beside the plain
-version's; the nvidia-smi line; and last the result line
-{"ok": true, "device": {...}}. It needs one CUDA card and exits non-zero
-without it.
+Then one JSON line with each kernel's launches on the training path (and
+K1/K3's on the serving path), its largest error against its plain
+version, and its time beside the plain version's; the nvidia-smi line; and
+last the result line {"ok": true, "device": {...}}. It needs one CUDA card
+and exits non-zero without it.
+
+    python3 chip_smoke.py --profile-train
+
+runs phases 1, 2 and 6 only, then one more training step under
+torch.profiler, and prints that step's device time by kernel, its device
+busy share and its MFU/HFU (no result line).
 """
 
 from __future__ import annotations
@@ -75,6 +94,9 @@ PROJ_SHAPES = [("q/o", 4096, 4096), ("k/v", 1024, 4096),
                ("gate/up", 14336, 4096), ("down", 4096, 14336)]
 DECODE_ROWS = (1, 4, 7)
 PREFILL_ROWS = 4096
+TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
+DOC_LENGTHS = (64, 1024)   # synthetic document lengths, inclusive
+SUB_VOCAB = 512            # documents draw ids from this many token ids
 SEED = 0
 DEVICE = "cuda:0"
 
@@ -204,7 +226,7 @@ def phase_kernels():
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
         del w
-        for m in DECODE_ROWS + (PREFILL_ROWS,):
+        for m in DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS):
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             y = nf4_matmul(x, q)
             ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
@@ -225,7 +247,7 @@ def phase_kernels():
             if not ok:
                 raise RuntimeError(f"nf4_matmul disagrees at {name} M={m}: "
                                    f"max|d| {err} > 1e-2 * {scale}")
-    for shape in ((4096, 4096), (4, 4096)):
+    for shape in ((TRAIN_ROWS, 4096), (4096, 4096), (4, 4096)):
         for dtype in (torch.bfloat16, torch.float32):
             for gemma in (False, True):
                 x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -251,8 +273,170 @@ def phase_kernels():
                 if not (bool(torch.isfinite(y).all()) and ulps <= limit):
                     raise RuntimeError(f"rms_norm disagrees at {shape} {dtype}"
                                        f" gemma={gemma}: {ulps} ulp")
+    rows.update(_training_kernels(dev, g, flush))
     del flush
     torch.cuda.empty_cache()
+    return rows
+
+
+def _packed_segments(rng, t):
+    """Segment ids [1, t]: documents of DOC_LENGTHS tokens laid end to end
+    while they fit, then a pad tail (id 0)."""
+    import numpy as np
+
+    seg = np.zeros((1, t), np.int32)
+    pos, sid = 0, 1
+    while True:
+        n = int(rng.integers(DOC_LENGTHS[0], DOC_LENGTHS[1] + 1))
+        if pos + n > t - 1:
+            break
+        seg[0, pos:pos + n] = sid
+        pos, sid = pos + n, sid + 1
+    return seg
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _training_kernels(dev, g, flush):
+    """K2 at every projection shape at M = 8192; K4 at [8192, 4096] bf16,
+    plain and Gemma; packed attention forward and backward on one 8K row
+    of Llama-3.1-8B attention (32/8 heads, head dim 128).
+
+    Tolerances. K2: max|dx - ref| <= 1e-2 max|ref| (as K1: the same bf16
+    weights, fp32 sums in another order, one bf16 rounding). K4: dx
+    within 2 bf16 ulps plus 1e-5 of max|dx| (the fp32 result differs in
+    its last bits before rounding; the floor covers values that cancel
+    to near zero), dW within one bf16 ulp of max|dW| (an fp32 sum over
+    8,192 rows in another order, then rounded to bf16). Attention, at positions
+    with segment id != 0 (pad outputs are unspecified): out, dq, dk, dv
+    within 2e-2 of the largest value (the kernels round P and dS to bf16
+    before their products, the plain version keeps fp32), lse within
+    1e-3; the backward pair is fed the kernel forward's (out, lse) on both
+    sides."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import max_segment_length
+    from unsloth_tpu_torch.ops import packed_attention as tpa
+    from unsloth_tpu_torch.ops.nf4 import quantize_nf4
+    from unsloth_tpu_torch.ops.qlora_matmul import (nf4_matmul_dx,
+                                                    nf4_matmul_dx_ref)
+    from unsloth_tpu_torch.ops.rms_norm import rms_norm_bwd, rms_norm_bwd_ref
+
+    rows = {"nf4_matmul_dx": [], "rms_norm_bwd": [], "packed_attn_fwd": [],
+            "packed_attn_bwd": []}
+    m = TRAIN_ROWS
+    for name, n, k in PROJ_SHAPES:
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        q = quantize_nf4(w, dtype=torch.bfloat16)
+        del w
+        gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+        dx = nf4_matmul_dx(gy, q)
+        ref = nf4_matmul_dx_ref(gy, q)
+        torch.cuda.synchronize()
+        err = (dx.float() - ref.float()).abs().max().item()
+        tol = 1e-2 * ref.float().abs().max().item()
+        ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush=flush)
+        plain_ms = time_ms(lambda: nf4_matmul_dx_ref(gy, q), flush=flush)
+        rows["nf4_matmul_dx"].append(dict(
+            shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
+            plain_ms=plain_ms))
+        log(f"[kernels] nf4_matmul_dx {name:8s} M={m} N={n:<6d} K={k:<6d} "
+            f"max|d|={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms")
+        if not (bool(torch.isfinite(dx).all()) and err <= tol):
+            raise RuntimeError(f"nf4_matmul_dx disagrees at {name}: {err}")
+        del q, gy, dx, ref
+
+    for gemma in (False, True):
+        x = torch.randn((m, 4096), generator=g, device=dev).to(torch.bfloat16)
+        w = (1.0 + 0.1 * torch.randn((4096,), generator=g, device=dev)
+             ).to(torch.bfloat16)
+        gy = torch.randn((m, 4096), generator=g, device=dev).to(torch.bfloat16)
+        dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
+        rdx, rdw = rms_norm_bwd_ref(x, w, gy, 1e-5, gemma)
+        torch.cuda.synchronize()
+        d = (dx.float() - rdx.float()).abs()
+        dx_ulps = ulps_bf16_or_f32(d, rdx, torch.bfloat16)
+        dx_ok = bool((d <= 2.0 ** -7 * rdx.float().abs()
+                      + 1e-5 * rdx.float().abs().max()).all())
+        dw_err = (dw.float() - rdw.float()).abs().max().item()
+        dw_tol = 2.0 ** -7 * rdw.float().abs().max().item()
+        ms = time_ms(lambda: rms_norm_bwd(x, w, gy, 1e-5, gemma), flush=flush)
+        plain_ms = time_ms(lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma),
+                           flush=flush)
+        rows["rms_norm_bwd"].append(dict(
+            shape=f"[{m}, 4096] bfloat16 gemma={gemma}",
+            err=max(d.max().item(), dw_err),
+            ulps=dx_ulps, ms=ms, plain_ms=plain_ms))
+        log(f"[kernels] rms_norm_bwd [{m}, 4096] bfloat16 gemma={gemma!s:5s} "
+            f"dx max {dx_ulps:.2f} ulp (limit 2 + 1e-5 max|dx|: "
+            f"{'ok' if dx_ok else 'FAIL'}), max|d dW|={dw_err:.3e} (tol "
+            f"{dw_tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if not (bool(torch.isfinite(dx).all()) and dx_ok
+                and dw_err <= dw_tol):
+            raise RuntimeError(f"rms_norm_bwd disagrees (gemma={gemma})")
+        del x, gy, dx, rdx, d
+
+    c = LLAMA_31_8B_CONFIG
+    hq, hkv, d = (c["num_attention_heads"], c["num_key_value_heads"],
+                  c["head_dim"])
+    seg = torch.from_numpy(_packed_segments(np.random.default_rng(SEED), m)
+                           ).to(dev)
+    max_len = int(max_segment_length(seg.cpu().numpy()))
+    q, k, v, dout = (torch.randn((1, m, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    scale = d ** -0.5
+    n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
+    kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
+    real = seg[0] != 0
+    out, lse = tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
+                                        n_kv=n_kv)
+    rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
+    dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out, lse,
+                                          dout, scale=scale, n_kv=n_kv)
+    rdq, rdk, rdv = tpa.packed_attention_bwd_ref(q, k, v, seg, out, lse, dout,
+                                                 scale)
+    torch.cuda.synchronize()
+    n_docs = int(seg.max().item())
+    shape = (f"B=1 T={m} Hq={hq} Hkv={hkv} D={d} bf16, {n_docs} segments "
+             f"of {DOC_LENGTHS[0]}-{DOC_LENGTHS[1]} + pad tail "
+             f"{int((~real).sum())}")
+    errs = {}
+    for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        got, ref = got[:, real].float(), ref[:, real].float()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"packed attention {name} is not finite")
+        errs[name] = ((got - ref).abs().max().item(),
+                      2e-2 * ref.abs().max().item())
+    errs["lse"] = ((lse - rlse)[..., real].abs().max().item(), 1e-3)
+    fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(
+        q, k, v, seg, kv_lo, scale=scale, n_kv=n_kv), runs=10, flush=flush)
+    fwd_plain = time_ms(lambda: tpa.packed_attention_fwd_ref(
+        q, k, v, seg, scale), runs=5, warmup=1, flush=flush)
+    bwd_ms = time_ms(lambda: tpa.packed_attention_bwd(
+        q, k, v, seg, kv_lo, q_hi, out, lse, dout, scale=scale, n_kv=n_kv),
+        runs=10, flush=flush)
+    bwd_plain = time_ms(lambda: tpa.packed_attention_bwd_ref(
+        q, k, v, seg, out, lse, dout, scale), runs=5, warmup=1, flush=flush)
+    rows["packed_attn_fwd"].append(dict(
+        shape=shape, err=max(errs["out"][0], errs["lse"][0]), ms=fwd_ms,
+        plain_ms=fwd_plain))
+    rows["packed_attn_bwd"].append(dict(
+        shape=shape, err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+        ms=bwd_ms, plain_ms=bwd_plain))
+    log(f"[kernels] packed attention {shape}: " + ", ".join(
+        f"{n} max|d|={e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items()))
+    log(f"[kernels] packed attention fwd kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_plain:.4f} ms; bwd (dq + dk/dv) kernel {bwd_ms:.4f} ms plain "
+        f"{bwd_plain:.4f} ms")
+    bad = [n for n, (e, t) in errs.items() if not e <= t]
+    if bad:
+        raise RuntimeError(f"packed attention disagrees in {bad}: {errs}")
     return rows
 
 
@@ -341,6 +525,105 @@ def phase_slice_parity():
     torch.cuda.empty_cache()
 
 
+def _synthetic_docs(rng, vocab, n_tokens):
+    """Pre-tokenized documents of DOC_LENGTHS tokens, about ``n_tokens`` in
+    all, drawn from a SUB_VOCAB-id sub-vocabulary (so the loss has
+    something to learn)."""
+    sub = rng.choice(vocab, SUB_VOCAB, replace=False)
+    docs, total = [], 0
+    while True:
+        n = int(rng.integers(DOC_LENGTHS[0], DOC_LENGTHS[1] + 1))
+        if total + n > n_tokens:
+            return docs
+        docs.append({"input_ids": sub[rng.integers(0, SUB_VOCAB, n)].tolist()})
+        total += n
+
+
+def _lora_leaves(lora):
+    return [(f"layer{i}.{name}.{part}", getattr(lw, part))
+            for i, layer in enumerate(lora["layers"])
+            for name, lw in sorted(layer.items()) for part in ("a", "b")]
+
+
+def phase_train_parity():
+    """Llama-3.1-8B at full width cut to 2 layers, random NF4 weights and
+    LoRA (r=16, all seven projections, B nonzero) from the seed: the
+    packed-row loss and every LoRA gradient of one 2,048-token row, on the
+    card (the kernels) and on the CPU (the plain versions), from the same
+    weights, both in bf16 and both through the chunked fused CE (the
+    route the card takes; the CPU's full-logits CE would round the logits
+    to bf16 where the chunked one keeps them in fp32).
+
+    Tolerance: loss within 1e-2 relative and each gradient leaf within
+    5e-2 relative L2. Both round bf16 activations at every op, but at
+    other places and with fp32 sums in other orders through two layers and
+    their backward; a wrong kernel gives errors of the order of the
+    gradient itself."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import pack_sequences
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.decoder import loss_fn
+    from unsloth_tpu_torch.models.params import (init_lora_tree,
+                                                 init_params, quantize_params,
+                                                 tree_to)
+    from unsloth_tpu_torch.ops.attention import packed_segment_bound
+
+    hf = dict(LLAMA_31_8B_CONFIG, num_hidden_layers=2)
+    cfg = ModelConfig.from_hf_config(hf)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             cfg, dtype=torch.bfloat16)
+    lora = init_lora_tree(cfg, gen, r=16, alpha=16.0)
+    for layer in lora["layers"]:
+        for lw in layer.values():
+            lw.b = torch.randn(lw.b.shape, generator=gen, device=DEVICE) * 0.01
+    rng = np.random.default_rng(SEED + 1)
+    docs = _synthetic_docs(rng, cfg.vocab_size, 2 * 2048)
+    row = pack_sequences(docs, 2048)[0].as_dict()
+    bound = max(len(d["input_ids"]) for d in docs)
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        p = params if dev == DEVICE else tree_to(params, "cpu")
+        lo = lora if dev == DEVICE else tree_to(lora, "cpu")
+        leaves = _lora_leaves(lo)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in row.items()}
+        t0 = time.perf_counter()
+        with packed_segment_bound(bound):
+            loss = loss_fn(p, lo, batch, cfg, fused_ce=True, remat=False)
+        loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] = (float(loss.detach()), {n: t.grad.float().cpu()
+                                              for n, t in leaves},
+                        time.perf_counter() - t0)
+        for _, t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = results[DEVICE], \
+        results["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(rels, key=rels.get)
+    n_real = int((row["segment_ids"] != 0).sum())
+    log(f"[train parity] 2-layer Llama-3.1-8B NF4 + LoRA r=16, one packed "
+        f"row of 2048 ({n_real} real tokens, bound {bound}): loss card "
+        f"{l_card:.6f} cpu {l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-2); "
+        f"{len(rels)} LoRA grads, worst rel L2 {rels[worst]:.3e} ({worst}), "
+        f"median {statistics.median(rels.values()):.3e} (tol 5e-2); card "
+        f"{t_card:.1f} s, cpu {t_cpu:.1f} s")
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise RuntimeError("card and CPU training loss/grads disagree")
+    del params, lora
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_max=rels[worst])
+
+
 def write_checkpoint(path):
     """Random-init bf16 checkpoint with the published Llama-3.1-8B shapes:
     config.json plus index-sharded safetensors, one tensor at a time."""
@@ -387,9 +670,10 @@ def _http(method, url, body=None):
         return r.status, json.loads(r.read())
 
 
-def phase_main_path():
-    """The user's path at full width and depth: load + quantize, serve three
-    greedy requests over HTTP, then one batch-4 generate."""
+def phase_main_path(tmp):
+    """The user's serving path at full width and depth from the checkpoint
+    in ``tmp``: load + quantize, serve three greedy requests over HTTP,
+    then one batch-4 generate."""
     import numpy as np
     import torch
 
@@ -397,122 +681,262 @@ def phase_main_path():
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
     from unsloth_tpu_torch.ops.rms_norm import rms_norm
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_llama31_8b_")
+    nf4_matmul.launches = 0
+    rms_norm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, load_in_4bit=True, dtype=torch.bfloat16, device=DEVICE)
+    model = model.for_inference()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    log(f"[main] from_pretrained(load_in_4bit=True) on {DEVICE}: "
+        f"{t_load:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+
+    tok = ByteTokenizer()
+    server = InferenceServer(model, tokenizer=tok,
+                             model_name="llama-3.1-8b-random-nf4")
+    httpd = server.serve("127.0.0.1", 0, background=True)
     try:
-        t0 = time.perf_counter()
-        write_checkpoint(tmp)
-        size = sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
-        n_files = sum(n.endswith(".safetensors") for n in os.listdir(tmp))
-        log(f"[main] wrote {n_files} safetensors files, "
-            f"{size / 1e9:.2f} GB, in {time.perf_counter() - t0:.1f} s")
-
-        nf4_matmul.launches = 0
-        rms_norm.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model, _ = FastLanguageModel.from_pretrained(
-            tmp, load_in_4bit=True, dtype=torch.bfloat16, device=DEVICE)
-        model = model.for_inference()
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        log(f"[main] from_pretrained(load_in_4bit=True) on {DEVICE}: "
-            f"{t_load:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-            f"allocated")
-
-        tok = ByteTokenizer()
-        server = InferenceServer(model, tokenizer=tok,
-                                 model_name="llama-3.1-8b-random-nf4")
-        httpd = server.serve("127.0.0.1", 0, background=True)
-        try:
-            base = f"http://127.0.0.1:{httpd.server_address[1]}"
-            for route in ("/health", "/v1/models"):
-                status, _ = _http("GET", base + route)
-                if status != 200:
-                    raise RuntimeError(f"GET {route}: HTTP {status}")
-            long_msg = ("The quick brown fox jumps over the lazy dog. " * 35)[:1500]
-            requests = [
-                ("/v1/chat/completions", {"messages": [
-                    {"role": "user", "content": long_msg}],
-                    "max_tokens": 32, "temperature": 0.0}),
-                ("/v1/chat/completions", {"messages": [
-                    {"role": "system", "content": "You are terse."},
-                    {"role": "user", "content": "Name three colours."}],
-                    "max_tokens": 32, "temperature": 0.0}),
-                ("/v1/completions", {"prompt": "Once upon a time",
-                                     "max_tokens": 32, "temperature": 0.0}),
-            ]
-            for route, body in requests:
-                t0 = time.perf_counter()
-                status, resp = _http("POST", base + route, body)
-                dt = time.perf_counter() - t0
-                if status != 200:
-                    raise RuntimeError(f"POST {route}: HTTP {status} {resp}")
-                choice = resp["choices"][0]
-                if route == "/v1/chat/completions":
-                    text = choice["message"]["content"]
-                    n_prompt = resp["usage"]["prompt_tokens"]
-                    n_out = resp["usage"]["completion_tokens"]
-                    if resp["object"] != "chat.completion" or \
-                            choice["message"]["role"] != "assistant":
-                        raise RuntimeError(f"bad chat response {resp}")
-                else:
-                    text = choice["text"]
-                    n_prompt = len(tok(body["prompt"])["input_ids"])
-                    n_out = len(tok(text)["input_ids"])
-                    if resp["object"] != "text_completion":
-                        raise RuntimeError(f"bad completion response {resp}")
-                if n_out <= 0:
-                    raise RuntimeError(f"POST {route}: no completion tokens")
-                log(f"[main] POST {route}: 200, prompt {n_prompt} tokens, "
-                    f"completion {n_out} tokens ({len(text)} chars), "
-                    f"{dt:.2f} s")
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-
-        rng = np.random.default_rng(SEED)
-        prompts = rng.integers(0, model.cfg.vocab_size, (4, 1000)).tolist()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.generate(prompts, max_new_tokens=1, temperature=0.0,
-                       return_token_ids=True)
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = model.generate(prompts, max_new_tokens=64, temperature=0.0,
-                             return_token_ids=True)
-        torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
-        launches = {"nf4_matmul": nf4_matmul.launches,
-                    "rms_norm": rms_norm.launches}
-        peak = torch.cuda.max_memory_allocated()
-        n_new = sum(len(r) for r in out)
-        decode_tps = (n_new - len(out)) / max(t_gen - t_prefill, 1e-9)
-        log(f"[main] generate B=4, prompt 1000 tokens (bucketed to 1024), 64 "
-            f"new: prefill {t_prefill:.3f} s (M = 4096 rows), total "
-            f"{t_gen:.3f} s, {n_new} new tokens, decode {decode_tps:.1f} "
-            f"tokens/s ({decode_tps / 4:.1f} per row)")
-        log(f"[main] peak memory allocated {peak / 1e9:.2f} GB; launches on "
-            f"the main path: {launches}")
-        if any(len(r) == 0 or not all(0 <= t < model.cfg.vocab_size for t in r)
-               for r in out):
-            raise RuntimeError("generate returned empty rows or bad ids")
-        for name, n in launches.items():
-            if n <= 0:
-                raise RuntimeError(f"{name} kernel never launched on the main "
-                                   "path")
-
-        # the served model's logits are finite and of the expected shape
-        ids = torch.tensor(prompts, device=DEVICE)[:, :64]
-        logits, _ = _prefill_decode_logits(model.params, model.cfg, ids,
-                                           torch.ones_like(ids), 1)
-        if logits.shape != (2, 4, model.cfg.vocab_size) or \
-                not torch.isfinite(logits).all():
-            raise RuntimeError(f"bad logits {tuple(logits.shape)}")
-        return launches, dict(load_s=t_load, prefill_s=t_prefill,
-                              decode_tps=decode_tps, peak_bytes=peak)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for route in ("/health", "/v1/models"):
+            status, _ = _http("GET", base + route)
+            if status != 200:
+                raise RuntimeError(f"GET {route}: HTTP {status}")
+        long_msg = ("The quick brown fox jumps over the lazy dog. " * 35)[:1500]
+        requests = [
+            ("/v1/chat/completions", {"messages": [
+                {"role": "user", "content": long_msg}],
+                "max_tokens": 32, "temperature": 0.0}),
+            ("/v1/chat/completions", {"messages": [
+                {"role": "system", "content": "You are terse."},
+                {"role": "user", "content": "Name three colours."}],
+                "max_tokens": 32, "temperature": 0.0}),
+            ("/v1/completions", {"prompt": "Once upon a time",
+                                 "max_tokens": 32, "temperature": 0.0}),
+        ]
+        for route, body in requests:
+            t0 = time.perf_counter()
+            status, resp = _http("POST", base + route, body)
+            dt = time.perf_counter() - t0
+            if status != 200:
+                raise RuntimeError(f"POST {route}: HTTP {status} {resp}")
+            choice = resp["choices"][0]
+            if route == "/v1/chat/completions":
+                text = choice["message"]["content"]
+                n_prompt = resp["usage"]["prompt_tokens"]
+                n_out = resp["usage"]["completion_tokens"]
+                if resp["object"] != "chat.completion" or \
+                        choice["message"]["role"] != "assistant":
+                    raise RuntimeError(f"bad chat response {resp}")
+            else:
+                text = choice["text"]
+                n_prompt = len(tok(body["prompt"])["input_ids"])
+                n_out = len(tok(text)["input_ids"])
+                if resp["object"] != "text_completion":
+                    raise RuntimeError(f"bad completion response {resp}")
+            if n_out <= 0:
+                raise RuntimeError(f"POST {route}: no completion tokens")
+            log(f"[main] POST {route}: 200, prompt {n_prompt} tokens, "
+                f"completion {n_out} tokens ({len(text)} chars), "
+                f"{dt:.2f} s")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        httpd.shutdown()
+        httpd.server_close()
+
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, model.cfg.vocab_size, (4, 1000)).tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.generate(prompts, max_new_tokens=1, temperature=0.0,
+                   return_token_ids=True)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=64, temperature=0.0,
+                         return_token_ids=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = {"nf4_matmul": nf4_matmul.launches,
+                "rms_norm": rms_norm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_new = sum(len(r) for r in out)
+    decode_tps = (n_new - len(out)) / max(t_gen - t_prefill, 1e-9)
+    log(f"[main] generate B=4, prompt 1000 tokens (bucketed to 1024), 64 "
+        f"new: prefill {t_prefill:.3f} s (M = 4096 rows), total "
+        f"{t_gen:.3f} s, {n_new} new tokens, decode {decode_tps:.1f} "
+        f"tokens/s ({decode_tps / 4:.1f} per row)")
+    log(f"[main] peak memory allocated {peak / 1e9:.2f} GB; launches on "
+        f"the main path: {launches}")
+    if any(len(r) == 0 or not all(0 <= t < model.cfg.vocab_size for t in r)
+           for r in out):
+        raise RuntimeError("generate returned empty rows or bad ids")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{name} kernel never launched on the main "
+                               "path")
+
+    # the served model's logits are finite and of the expected shape
+    ids = torch.tensor(prompts, device=DEVICE)[:, :64]
+    logits, _ = _prefill_decode_logits(model.params, model.cfg, ids,
+                                       torch.ones_like(ids), 1)
+    if logits.shape != (2, 4, model.cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError(f"bad logits {tuple(logits.shape)}")
+    return launches, dict(load_s=t_load, prefill_s=t_prefill,
+                          decode_tps=decode_tps, peak_bytes=peak)
+
+
+def phase_train_main(tmp, profile=False):
+    """The user's training path at full width and depth from the checkpoint
+    in ``tmp``: from_pretrained(load_in_4bit=True), get_peft_model(r=16,
+    all seven projections, use_gradient_checkpointing="unsloth"), and
+    SFTTrainer on synthetic documents packed into 8,192-token rows,
+    batch 1, accumulation 2, 6 steps of the same data. Every loss must be
+    finite and the last below the first, and every kernel of the path must
+    have launched. With ``profile``, one more step runs under the
+    profiler (:func:`_profile_train_step`)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel, SFTConfig, SFTTrainer
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, max_seq_length=TRAIN_ROWS, load_in_4bit=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    model = FastLanguageModel.get_peft_model(
+        model, r=16, lora_alpha=16,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth").for_training()
+    torch.cuda.synchronize()
+    log(f"[train] from_pretrained + get_peft_model(r=16, gc "
+        f"{model.gc_mode!r}) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(SEED + 2)
+    docs = _synthetic_docs(rng, model.cfg.vocab_size, 2 * TRAIN_ROWS - 600)
+    out_dir = os.path.join(tmp, "sft_out")
+    trainer = SFTTrainer(model, train_dataset=docs, args=SFTConfig(
+        output_dir=out_dir, max_seq_length=TRAIN_ROWS, packing=True,
+        per_device_train_batch_size=1, gradient_accumulation_steps=2,
+        max_steps=6, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
+        report_to="none"))
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches[:2]]
+    log(f"[train] {len(docs)} documents of {DOC_LENGTHS[0]}-"
+        f"{DOC_LENGTHS[1]} tokens from {SUB_VOCAB} ids packed into "
+        f"{len(batches)} rows of {TRAIN_ROWS} (real tokens {real}), "
+        f"segment bound {trainer._segment_bound}")
+    result = trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    steady = statistics.median(times[1:])
+    tokens = sum(real)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"[train] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}")
+    log(f"[train] steady step (median of steps 2-{len(times)}) "
+        f"{steady:.3f} s for {tokens} real tokens = {tokens / steady:.1f} "
+        f"real tokens/s; first step {times[0]:.3f} s; peak memory allocated "
+        f"{peak / 1e9:.2f} GB; launches on the training path: {launches}")
+    if len(losses) != 6 or not all(np.isfinite(losses)):
+        raise RuntimeError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{name} kernel never launched on the training "
+                               "path")
+    for lname, t in _lora_leaves(model.lora):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"trained LoRA {lname} is not finite")
+    if profile:
+        _profile_train_step(trainer, batches[:2])
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, step_s=steady, first_step_s=times[0],
+                          real_tokens_per_s=tokens / steady, peak_bytes=peak,
+                          runtime_s=result.metrics["train_runtime"])
+
+
+def _profile_train_step(trainer, rows, top=25):
+    """One more optimizer step of ``trainer`` (fresh AdamW state, the same
+    ``rows``) under ``torch.profiler``. From the chrome trace's device
+    events (cat "kernel", "gpu_memcpy", "gpu_memset") it prints the device
+    time by kernel name, and the device busy share: the union of those
+    events' intervals over the step's wall time (host clock, ending in a
+    sync). MFU counts 4N FLOPs per real token (forward and dx through N
+    matmul weights: the projections and lm_head; the NF4 base is frozen,
+    so no dW) and HFU 6N per row token (the offloaded checkpointing and
+    the chunked CE run each forward product a second time in backward);
+    attention FLOPs are left out of both. Peak: 989 TFLOP/s dense bf16."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.args.max_steps = 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train()
+    wall_us = trainer.step_times[-1] * 1e6
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name = {}
+    for e in dev:
+        us, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + float(e["dur"]), n + 1)
+    busy, end = 0.0, float("-inf")
+    for s, f in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in dev):
+        if f > end:
+            busy, end = busy + f - max(s, end), f
+    total = sum(us for us, _ in by_name.values())
+    c = trainer.model.cfg
+    hd = c.head_dim or c.hidden_size // c.num_heads
+    per_layer = (2 * c.num_heads * hd * c.hidden_size
+                 + 2 * c.num_kv_heads * hd * c.hidden_size
+                 + 3 * c.hidden_size * c.intermediate_size)
+    n_matmul = c.num_layers * per_layer + c.vocab_size * c.hidden_size
+    real = sum(int((b.segment_ids != 0).sum()) for b in rows)
+    row_tokens = sum(int(b.segment_ids.size) for b in rows)
+    wall = wall_us / 1e6
+    log(f"[profile] one step, {len(rows)} rows, {real} real tokens: wall "
+        f"{wall:.3f} s, device events {len(dev)}, summed {total / 1e3:.1f} "
+        f"ms, busy (union) {busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% "
+        f"of wall (idle {100 - 100 * busy / wall_us:.1f}%)")
+    log(f"[profile] N = {n_matmul / 1e9:.3f}e9 matmul weights: MFU "
+        f"{100 * 4 * n_matmul * real / wall / 989e12:.2f}%, HFU "
+        f"{100 * 6 * n_matmul * row_tokens / wall / 989e12:.2f}%")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:top]:
+        log(f"[profile] {us / 1e3:10.1f} ms {100 * us / total:5.1f}% "
+            f"{n:6d}  {name[:110]}")
+
+
+def _kernel_fns():
+    """Each kernel's wrapper (its ``launches`` counter) by name."""
+    from unsloth_tpu_torch.ops import packed_attention as tpa
+    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
+    from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd
+
+    return {"nf4_matmul": nf4_matmul, "nf4_matmul_dx": nf4_matmul_dx,
+            "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
+            "packed_attn_fwd": tpa.packed_attention_fwd,
+            "packed_attn_bwd": tpa.packed_attention_bwd}
 
 
 def main() -> int:
@@ -526,26 +950,66 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    profile = sys.argv[1:] == ["--profile-train"]
+    if sys.argv[1:] and not profile:
+        print(f"usage: {sys.argv[0]} [--profile-train]", file=sys.stderr)
+        return 2
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels()
-    phase_slice_parity()
-    launches, _ = phase_main_path()
+    if not profile:
+        rows = phase_kernels()
+        phase_slice_parity()
+        phase_train_parity()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_llama31_8b_")
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(tmp)
+        size = sum(os.path.getsize(os.path.join(tmp, n))
+                   for n in os.listdir(tmp))
+        n_files = sum(n.endswith(".safetensors") for n in os.listdir(tmp))
+        log(f"[main] wrote {n_files} safetensors files, {size / 1e9:.2f} GB, "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if profile:
+            # phases 1, 2 and 6 only, then a profiled step; no result line
+            phase_train_main(tmp, profile=True)
+            return 0
+        serve_launches, _ = phase_main_path(tmp)
+        train_launches, _ = phase_train_main(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
+    # each kernel's time at a shape of the training path, whose launches
+    # the line reports
     picks = {"nf4_matmul": ("unsloth_tpu_torch/csrc/nf4_matmul.cu",
                             "unsloth_tpu/ops/qlora_matmul.py:155",
-                            "gate/up M=1 N=14336 K=4096"),
+                            "gate/up M=8192 N=14336 K=4096"),
+             "nf4_matmul_dx": ("unsloth_tpu_torch/csrc/nf4_matmul.cu",
+                               "unsloth_tpu/ops/qlora_matmul.py:267",
+                               "gate/up M=8192 N=14336 K=4096"),
              "rms_norm": ("unsloth_tpu_torch/csrc/rms_norm.cu",
                           "unsloth_tpu/ops/rms_norm.py:70",
-                          "[4, 4096] bfloat16 gemma=False")}
+                          "[8192, 4096] bfloat16 gemma=False"),
+             "rms_norm_bwd": ("unsloth_tpu_torch/csrc/rms_norm.cu",
+                              "unsloth_tpu/ops/rms_norm.py:80",
+                              "[8192, 4096] bfloat16 gemma=False"),
+             "packed_attn_fwd": ("unsloth_tpu_torch/csrc/packed_attention.cu",
+                                 "unsloth_tpu/ops/packed_attention.py:109",
+                                 None),
+             "packed_attn_bwd": ("unsloth_tpu_torch/csrc/packed_attention.cu",
+                                 "unsloth_tpu/ops/packed_attention.py:224 "
+                                 "and :316", None)}
     kernels_line = []
     for kname, (src, replaces, shape) in picks.items():
-        row = next(r for r in rows[kname] if r["shape"] == shape)
-        kernels_line.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": max(r["err"] for r in rows[kname]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "shape": shape})
+        row = next(r for r in rows[kname]
+                   if shape is None or r["shape"] == shape)
+        entry = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": train_launches[kname],
+                 "max_abs_err": max(r["err"] for r in rows[kname]),
+                 "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "shape": row["shape"]}
+        if kname in serve_launches:
+            entry["serving_launches"] = serve_launches[kname]
+        kernels_line.append(entry)
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

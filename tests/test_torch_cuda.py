@@ -59,3 +59,132 @@ def test_rms_norm_kernel_matches_plain(dev, dtype, gemma):
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
     assert ((y.float() - ref.float()).abs()
             <= tol * ref.float().abs() + 1e-6).all()
+
+
+# ---------------------------------------------------------------------------
+# the training slice's kernels
+# ---------------------------------------------------------------------------
+
+from unsloth_tpu_torch.ops import packed_attention as tpa  # noqa: E402
+from unsloth_tpu_torch.ops.qlora_matmul import (  # noqa: E402
+    nf4_matmul_dx, nf4_matmul_dx_ref)
+from unsloth_tpu_torch.ops.rms_norm import (  # noqa: E402
+    rms_norm_bwd, rms_norm_bwd_ref)
+
+
+@pytest.mark.parametrize("m,n,k", [(5, 256, 512), (300, 1024, 4096),
+                                   (130, 4096, 1024)])
+def test_nf4_matmul_dx_kernel_matches_plain(dev, m, n, k):
+    """dx = g @ W: same bf16 weights, fp32 sums in another order, one bf16
+    rounding: within 1e-2 of max|ref|."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
+    gr = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    before = nf4_matmul_dx.launches
+    dx = nf4_matmul_dx(gr, q)
+    ref = nf4_matmul_dx_ref(gr, q)
+    torch.cuda.synchronize()
+    assert nf4_matmul_dx.launches == before + 1
+    assert dx.shape == (m, k) and dx.dtype == torch.bfloat16
+    assert (dx.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+
+
+def test_nf4_matmul_backward_launches_dx_kernel(dev):
+    q = quantize_nf4(torch.randn((256, 512), device=dev) * 0.05)
+    x = torch.randn((4, 512), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = nf4_matmul_dx.launches
+    nf4_matmul(x, q).float().sum().backward()
+    assert nf4_matmul_dx.launches == before + 1
+    ref = nf4_matmul_dx_ref(torch.ones((4, 256), device=dev,
+                                       dtype=torch.bfloat16), q)
+    assert (x.grad.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gemma", [False, True])
+def test_rms_norm_bwd_kernel_matches_plain(dev, dtype, gemma):
+    """dx within 2 output ulps (the fp32 result differs in its last bits,
+    then rounds); dW, an fp32 sum over 700 rows in another order, within
+    1e-3 of max|dW| (bf16: one bf16 ulp, 2^-7, of max|dW|)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((7, 100, 4096), generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    gy = torch.randn((7, 100, 4096), generator=g, device=dev).to(dtype)
+    before = rms_norm_bwd.launches
+    dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
+    rdx, rdw = rms_norm_bwd_ref(x, w, gy, 1e-5, gemma)
+    torch.cuda.synchronize()
+    assert rms_norm_bwd.launches == before + 1
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert ((dx.float() - rdx.float()).abs()
+            <= 2 * ulp * rdx.float().abs() + 1e-5).all()
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-3
+    assert (dw.float() - rdw.float()).abs().max() <= \
+        tol * rdw.float().abs().max()
+
+
+def _segments(t, lo, hi, seed):
+    rng = torch.Generator().manual_seed(seed)
+    seg = torch.zeros((1, t), dtype=torch.int32)
+    pos, sid = 0, 1
+    while pos < t - 100:
+        n = int(torch.randint(lo, hi + 1, (1,), generator=rng))
+        n = min(n, t - 100 - pos)
+        seg[0, pos:pos + n] = sid
+        pos += n
+        sid += 1
+    return seg   # the last 100 tokens are a pad tail (id 0)
+
+
+def test_packed_attention_kernels_match_plain(dev):
+    """Forward (out, lse) and backward (dq, dk, dv) of the kernels against
+    the plain per-segment fp32 versions on the same bf16 inputs and the
+    same saved (out, lse), at real positions: out/dq/dk/dv within 2e-2 of
+    the largest value (bf16 P and dS, bf16 outputs), lse within 1e-3."""
+    t, hq, hkv, d, max_len = 1024, 8, 2, 128, 300
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = _segments(t, 40, max_len, seed=5).to(dev)
+    scale = d ** -0.5
+    n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
+    kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
+    before = (tpa.packed_attention_fwd.launches,
+              tpa.packed_attention_bwd.launches)
+    out, lse = tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
+                                        n_kv=n_kv)
+    dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out,
+                                          lse, dout, scale=scale, n_kv=n_kv)
+    rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
+    rdq, rdk, rdv = tpa.packed_attention_bwd_ref(q, k, v, seg, out, lse,
+                                                 dout, scale)
+    torch.cuda.synchronize()
+    assert (tpa.packed_attention_fwd.launches,
+            tpa.packed_attention_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    real = (seg[0] != 0)
+    assert ((lse - rlse)[..., real]).abs().max() <= 1e-3
+    for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
+        got, ref = got[:, real].float(), ref[:, real].float()
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_attention_dispatch_on_cuda(dev):
+    """With a declared bound the packed kernels run; without one the CUDA
+    route raises naming K16."""
+    from unsloth_tpu_torch.ops.attention import attention, packed_segment_bound
+
+    q = torch.randn((1, 256, 4, 128), device=dev, dtype=torch.bfloat16)
+    k = torch.randn((1, 256, 2, 128), device=dev, dtype=torch.bfloat16)
+    seg = _segments(356, 20, 60, seed=6)[:, :256].to(dev)
+    before = tpa.packed_attention_fwd.launches
+    with packed_segment_bound(60):
+        out = attention(q, k, k, segment_ids=seg)
+    assert tpa.packed_attention_fwd.launches == before + 1
+    assert out.shape == q.shape
+    with pytest.raises(NotImplementedError, match="K16"):
+        attention(q, k, k, segment_ids=seg)

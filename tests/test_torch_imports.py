@@ -1,5 +1,6 @@
 """The PyTorch port imports no JAX: importing the package and every one of
-its submodules in a fresh interpreter leaves "jax" out of sys.modules."""
+its submodules (the serving and the training slice alike) in a fresh
+interpreter leaves "jax" out of sys.modules."""
 
 import os
 import subprocess
@@ -13,9 +14,14 @@ mods = [m.name for m in pkgutil.walk_packages(unsloth_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "jaxlib", "unsloth_tpu.")) or k == "unsloth_tpu")
-print(len(mods), bad)
+print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
+
+# the training slice's modules, which must be among those imported
+TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
+            "ops.fused_ce_linear", "ops.packed_attention", "trainer.sft",
+            "utils.logging")
 
 
 def test_port_imports_no_jax():
@@ -26,4 +32,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 18, r.stdout
+    assert n_modules >= 31, r.stdout
+    imported = set(r.stdout.split())
+    for name in TRAINING:
+        assert f"unsloth_tpu_torch.{name}" in imported, name

@@ -6,8 +6,10 @@ counterpart is easy to find, and imports no JAX. Plain tensor code is
 PyTorch; the kernels that the JAX package wrote in Pallas are CUDA C++
 in ``csrc/``, built on first use (``kernels.py``).
 
-Ported so far: the serving slice (load -> NF4 quantize -> generate ->
-OpenAI-compatible HTTP server) for the llama-family dense decoder.
+Ported so far, for the llama-family dense decoder: the serving slice
+(load -> NF4 quantize -> generate -> OpenAI-compatible HTTP server) and the
+training slice (get_peft_model -> packed rows -> QLoRA SFT with offloaded
+gradient checkpointing and a chunked fused CE).
 """
 
 __version__ = "0.1.0"
@@ -16,3 +18,4 @@ __version__ = "0.1.0"
 from .models.loader import FastLanguageModel, LanguageModel  # noqa: E402,F401
 from .inference.generate import SamplingParams, generate  # noqa: E402,F401
 from .inference.server import InferenceServer  # noqa: E402,F401
+from .trainer.sft import SFTConfig, SFTTrainer  # noqa: E402,F401

@@ -1,15 +1,19 @@
-"""Carry the JAX package's parameter and LoRA trees into this package.
+"""Carry the JAX package's parameter and LoRA trees into this package, and
+LoRA trees back out.
 
-Both functions take a tree as ``jax.tree_util.tree_map(np.asarray, tree)``
+The ``*_from_numpy`` functions take a tree as
+``jax.tree_util.tree_map(np.asarray, tree)``
 leaves it: dicts and lists of numpy arrays, NF4 objects with
 ``packed/absmax/absmax_scale/absmax_offset/shape/block_size/
 double_block_size`` and LoRA objects with ``a/b/scale``. They return the
 port's tree with every array on ``device``; NF4 bytes and codes are copied
-unchanged. JAX imports nothing here: the trees arrive as numpy.
+unchanged. :func:`lora_to_numpy` goes the other way for trained adapters.
+JAX imports nothing here: the trees travel as numpy.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Any, Optional
 
 import numpy as np
@@ -71,3 +75,27 @@ def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None
 def lora_from_numpy(tree: Any, device) -> Any:
     """The JAX LoRA tree (numpy leaves) as the port's, on ``device``."""
     return _convert(tree, device, None)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def lora_to_numpy(tree: Any) -> Any:
+    """The port's LoRA tree with numpy leaves: dicts and lists as they are,
+    each ``LoRAWeights`` as an object with numpy ``a``/``b`` (bf16 widened
+    to fp32) and float ``scale``, which :func:`lora_from_numpy` takes
+    back."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: lora_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lora_to_numpy(v) for v in tree]
+    if isinstance(tree, LoRAWeights):
+        return types.SimpleNamespace(a=_to_numpy(tree.a), b=_to_numpy(tree.b),
+                                     scale=float(tree.scale))
+    return _to_numpy(tree)

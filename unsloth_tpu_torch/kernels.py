@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled on first use by one ``nvcc`` call into a shared
-library with a plain C interface, and loaded with ``ctypes``. The library
+The kernels are compiled on first use, one ``nvcc`` process per source,
+all started together, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library
 goes to ``<repo>/build/unsloth_tpu_torch/`` under a name keyed by a hash of
 the sources and flags, so an edited source builds anew and an unchanged
 one is loaded as it is. Nothing is prebuilt or downloaded.
@@ -26,9 +27,10 @@ from typing import Optional
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
-SOURCES = ("nf4_matmul.cu", "rms_norm.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -60,22 +62,38 @@ def _library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if no library with their hash exists yet."""
+    """Compile the sources if no library with their hash exists yet: one
+    ``nvcc -c`` per source in parallel, then one link."""
     global build_seconds, build_log
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in SOURCES]]
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [(c, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(link, capture_output=True, text=True)
+        build_log += r.stdout + r.stderr
+        if r.returncode:
+            failed = [(link, r.stdout + r.stderr)]
+    for o in objs:
+        o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{build_log}")
+    if failed:
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     (BUILD_DIR / (out.stem + ".log")).write_text(build_log)
     return out
@@ -92,6 +110,19 @@ def library() -> ctypes.CDLL:
         lib.unsloth_rms_norm.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                          i, p]
         lib.unsloth_rms_norm.restype = i
+        lib.unsloth_nf4_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, p]
+        lib.unsloth_nf4_matmul_dx_bf16.restype = i
+        lib.unsloth_rms_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
+                                             ctypes.c_float, i, i, i, p]
+        lib.unsloth_rms_norm_bwd.restype = i
+        f = ctypes.c_float
+        lib.unsloth_packed_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                                i, i, f, p]
+        lib.unsloth_packed_attn_fwd.restype = i
+        lib.unsloth_packed_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                p, p, p, i, i, i, i, i, f, f,
+                                                p]
+        lib.unsloth_packed_attn_bwd.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

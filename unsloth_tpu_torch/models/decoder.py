@@ -1,9 +1,12 @@
-"""Decoder building blocks used by KV-cache decoding, in PyTorch.
+"""The llama-family dense decoder in PyTorch: the training forward, the
+SFT loss and the blocks that KV-cache decoding shares.
 
-Counterpart of the parts of unsloth_tpu/models/decoder.py that
-``inference/decode.py`` imports: ``_norm``, ``_proj``, ``mlp_block`` (the
-dense gated MLP) and ``_rope_tables`` (1-D positions). The training
-forward, the loss and the attention dispatch come with the training slice.
+Counterpart of unsloth_tpu/models/decoder.py: ``_norm``, ``_proj``,
+``mlp_block`` and ``_rope_tables`` (shared with ``inference/decode.py``),
+``attention_block``, ``decoder_layer``, ``forward`` (with per-layer
+rematerialization, optionally offloading the layer boundaries to pinned
+host memory), ``loss_fn`` / ``_loss_from_hidden`` (shifted labels, global
+``n_items``, chunked fused CE) and ``logits_fn``.
 
 Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
 
@@ -23,14 +26,22 @@ other architecture.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import ACT2GLU, glu_for
-from ..ops.lora import lora_matmul
+from ..ops.attention import attention
+from ..ops.cross_entropy import fast_cross_entropy_loss
+from ..ops.fused_ce_linear import fused_ce_loss_mean
+from ..ops.lora import base_matmul, lora_matmul
+from ..ops.nf4 import NF4Tensor, dequantize_nf4
 from ..ops.rms_norm import rms_norm
-from ..ops.rope import rope_inv_freq, rope_table, yarn_attention_factor
+from ..ops.rope import (apply_rope_qk, rope_inv_freq, rope_table,
+                        yarn_attention_factor)
 from .config import ModelConfig
 
 # ModelConfig knobs whose code paths are not ported yet: (field, test).
@@ -107,3 +118,208 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
                               rotary_dim=rotary_dim)
         cos_local, sin_local = rope_table(positions, inv_l)
     return cos, sin, cos_local, sin_local
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def attention_block(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
+                    layer_idx: int, cos, sin, cos_local, sin_local,
+                    segment_ids: Optional[torch.Tensor],
+                    positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """q/k/v projections, qk-norm, RoPE, attention (ops/attention.py
+    dispatch) and the o projection."""
+    b, t, _ = x.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _proj(x, layer_p, lora_p, "q").reshape(b, t, hq, dh)
+    k = _proj(x, layer_p, lora_p, "k").reshape(b, t, hkv, dh)
+    v = _proj(x, layer_p, lora_p, "v").reshape(b, t, hkv, dh)
+    if cfg.qk_norm is True:
+        q = rms_norm(q, layer_p["q_norm"], cfg.rms_norm_eps, cfg.gemma_norm)
+        k = rms_norm(k, layer_p["k_norm"], cfg.rms_norm_eps, cfg.gemma_norm)
+    kind = cfg.layer_kind(layer_idx)
+    if cfg.layer_uses_rope(layer_idx):
+        if kind == "sliding" and cos_local is not None:
+            q, k = apply_rope_qk(q, k, cos_local, sin_local)
+        else:
+            q, k = apply_rope_qk(q, k, cos, sin)
+    out = attention(q, k, v, causal=cfg.causal, segment_ids=segment_ids,
+                    window=cfg.sliding_window if kind == "sliding" else None,
+                    softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale,
+                    positions=positions, sinks=layer_p.get("sinks"))
+    return _proj(out.reshape(b, t, hq * dh), layer_p, lora_p, "o")
+
+
+def decoder_layer(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
+                  layer_idx: int, cos, sin, cos_local, sin_local,
+                  segment_ids: Optional[torch.Tensor],
+                  positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Pre-norm residual block: x + attn(norm(x)), then + mlp(norm(x))
+    (with Gemma-2/3's extra post norms where the layer has them)."""
+    h = _norm(x, layer_p["input_norm"], cfg)
+    attn = attention_block(h, layer_p, lora_p, cfg, layer_idx, cos, sin,
+                           cos_local, sin_local, segment_ids, positions)
+    if cfg.use_post_norms and "post_attn_out_norm" in layer_p:
+        attn = _norm(attn, layer_p["post_attn_out_norm"], cfg)
+    rm = cfg.residual_multiplier
+    x = x + (attn * rm if rm is not None else attn)
+    if cfg.use_post_norms and "pre_ffw_norm" in layer_p:
+        h = _norm(x, layer_p["pre_ffw_norm"], cfg)
+    else:
+        h = _norm(x, layer_p["post_attn_norm"], cfg)
+    mlp = mlp_block(h, layer_p, lora_p, cfg, layer_idx)
+    if cfg.use_post_norms and "post_ffw_norm" in layer_p:
+        mlp = _norm(mlp, layer_p["post_ffw_norm"], cfg)
+    return x + (mlp * rm if rm is not None else mlp)
+
+
+_REMAT = (False, True, "layer", "offload")
+
+
+def forward(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
+            input_ids: torch.Tensor, cfg: ModelConfig, *,
+            positions: Optional[torch.Tensor] = None,
+            segment_ids: Optional[torch.Tensor] = None,
+            remat: Any = True) -> torch.Tensor:
+    """Run the decoder stack on input_ids [B, T]; returns the final-norm
+    hidden states [B, T, D].
+
+    remat:
+      False          no rematerialization;
+      True, "layer"  per-layer ``torch.utils.checkpoint`` (non-reentrant):
+                     only each layer's input survives the forward, the
+                     rest is recomputed in the backward;
+      "offload"      the same, with each layer's input saved to pinned
+                     host memory (``save_on_cpu``) and brought back for
+                     its recompute: the port's form of the JAX package's
+                     offload policy and of the reference's "unsloth"
+                     gradient checkpointing.
+    Everything else the layers read (rope tables, segment ids, weights)
+    is shared and stays where it is."""
+    if remat not in _REMAT:
+        raise ValueError(f"forward: remat={remat!r}; expected one of "
+                         f"{_REMAT}")
+    check_supported(cfg)
+    b, t = input_ids.shape
+    if positions is None:
+        positions = torch.arange(t, device=input_ids.device)[None].expand(b, t)
+    embed_w = (lora or {}).get("embed")
+    if embed_w is None:
+        embed_w = params["embed"]
+    x = F.embedding(input_ids, embed_w)
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    cos, sin, cos_local, sin_local = _rope_tables(cfg, positions)
+    lora_layers = (lora or {}).get("layers")
+    for i, layer_p in enumerate(params["layers"]):
+        layer = functools.partial(
+            decoder_layer, layer_p=layer_p,
+            lora_p=lora_layers[i] if lora_layers else None, cfg=cfg,
+            layer_idx=i, cos=cos, sin=sin, cos_local=cos_local,
+            sin_local=sin_local, segment_ids=segment_ids,
+            positions=positions)
+        if remat == "offload":
+            with torch.autograd.graph.save_on_cpu(pin_memory=x.is_cuda):
+                x = checkpoint(layer, x, use_reentrant=False,
+                               preserve_rng_state=False)
+        elif remat:
+            x = checkpoint(layer, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x)
+    return _norm(x, params["final_norm"], cfg)
+
+
+def _head_weight(params, lora):
+    """(head weight [V, D] (dense or NF4), trainable?): a trainable head or
+    embed in the LoRA tree shadows the frozen one; tied models use embed."""
+    for tree, name, trainable in ((lora or {}, "lm_head", True),
+                                  (params, "lm_head", False),
+                                  (lora or {}, "embed", True),
+                                  (params, "embed", False)):
+        w = tree.get(name)
+        if w is not None:
+            return w, trainable
+    raise KeyError("params has neither lm_head nor embed")
+
+
+def logits_fn(params, lora, input_ids, cfg: ModelConfig,
+              **kw) -> torch.Tensor:
+    """Full logits [B, T, V] (inference / small-batch path)."""
+    h = forward(params, lora, input_ids, cfg, **kw)
+    w, _ = _head_weight(params, None)
+    logits = base_matmul(h, w)
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def loss_fn(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
+            batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            n_items: Optional[torch.Tensor] = None,
+            lm_head_trainable: bool = False, fused_ce: Any = "auto",
+            chunk_size: Optional[int] = None,
+            remat: Any = True) -> torch.Tensor:
+    """SFT loss. batch: input_ids [B, T], labels [B, T] (-100 = ignore),
+    optional positions / segment_ids. Labels are shifted here (next-token
+    prediction); the sum of token losses is divided by ``n_items`` when
+    given (the global count under gradient accumulation), else by this
+    batch's valid-token count."""
+    h = forward(params, lora, batch["input_ids"], cfg,
+                positions=batch.get("positions"),
+                segment_ids=batch.get("segment_ids"), remat=remat)
+    return _loss_from_hidden(params, lora, h, batch["labels"], cfg,
+                             n_items=n_items,
+                             lm_head_trainable=lm_head_trainable,
+                             fused_ce=fused_ce, chunk_size=chunk_size)
+
+
+def _resolve_fused_ce(h2d: torch.Tensor) -> bool:
+    """The ``fused_ce="auto"`` gate.
+
+    On a CUDA tensor it resolves to the chunked fused path
+    (ops/fused_ce_linear.py) at every size: the full-logits CE there
+    needs TPU kernels K7/K8, which are not ported yet. That is also the
+    route the JAX package takes on its own chip at the training shape
+    (8K rows x 128K vocab: 4.2 GB of fp32 logits against its 13.5 GB
+    budget). When K7/K8 land, the gate is re-derived for 80 GB.
+
+    Off CUDA it is the JAX package's gate as it runs off the TPU, where
+    its memory budget has no limit: always the full logits."""
+    return h2d.is_cuda
+
+
+def _loss_from_hidden(params, lora, h: torch.Tensor, labels: torch.Tensor,
+                      cfg: ModelConfig, *,
+                      n_items: Optional[torch.Tensor] = None,
+                      lm_head_trainable: bool = False,
+                      fused_ce: Any = "auto",
+                      chunk_size: Optional[int] = None) -> torch.Tensor:
+    """Shift + lm_head + CE from final hidden states [B, T, D]."""
+    d = h.shape[-1]
+    h2d = h[:, :-1].reshape(-1, d)
+    lb = labels[:, 1:].reshape(-1)
+    if fused_ce == "auto":
+        fused_ce = _resolve_fused_ce(h2d)
+    w, trainable = _head_weight(params, lora)
+    lm_head_trainable = lm_head_trainable or trainable
+    if chunk_size is None:
+        # fewer, larger chunks, as long as one chunk's fp32 logits stay
+        # near 2 GiB (the JAX package's choice)
+        per_row = cfg.vocab_size * 4
+        chunk_size = max(1024, min(h2d.shape[0],
+                                   (2 << 30) // per_row // 1024 * 1024))
+    if fused_ce:
+        wd = dequantize_nf4(w, dtype=h.dtype) if isinstance(w, NF4Tensor) \
+            else w.to(h.dtype)
+        return fused_ce_loss_mean(
+            h2d, wd.t(), lb, n_items=n_items, softcap=cfg.final_softcap,
+            logit_scale=cfg.logit_scale, chunk_size=chunk_size,
+            w_trainable=lm_head_trainable)
+    logits = base_matmul(h2d, w)
+    return fast_cross_entropy_loss(logits, lb, n_items=n_items,
+                                   softcap=cfg.final_softcap,
+                                   logit_scale=cfg.logit_scale)

@@ -6,6 +6,10 @@ model is a handle over functional state (config + frozen param tree +
 LoRA tree) on one explicit ``device``; ``load_in_4bit`` quantizes to NF4 on
 that device as the checkpoint is read.
 
+``get_peft_model(use_gradient_checkpointing=...)`` sets ``gc_mode``, the
+``remat`` that training passes to ``decoder.forward`` (JAX mapping:
+"unsloth" -> "offload", True/"layer" -> True, False -> False).
+
 Not ported yet: vision/audio checkpoints and DoRA (both raise
 ``NotImplementedError``), GGUF files, 8-bit loading, QAT, LoftQ,
 ``modules_to_save``, the decode-time dequant cache and saving.
@@ -41,6 +45,7 @@ class LanguageModel:
     model_path: Optional[str] = None
     hf_config: Optional[Dict[str, Any]] = None
     lora_config: Optional[Dict[str, Any]] = None
+    gc_mode: Any = True
     _mode: str = "training"
 
     @property
@@ -115,6 +120,9 @@ class FastLanguageModel:
         if use_dora:
             raise NotImplementedError("get_peft_model(use_dora=True) is not "
                                       "ported yet")
+        model.gc_mode = {"unsloth": "offload", True: True, False: False,
+                         "layer": True, "offload": "offload"}.get(
+            use_gradient_checkpointing, True)
         gen = torch.Generator(device=model.device).manual_seed(random_state)
         model.lora = init_lora_tree(model.cfg, gen, r=r, alpha=lora_alpha,
                                     target_modules=target_modules,

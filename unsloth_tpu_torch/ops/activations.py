@@ -1,8 +1,10 @@
 """Gated-MLP activations (SwiGLU / GEGLU) and plain activations, in PyTorch.
 
 Counterpart of unsloth_tpu/ops/activations.py: ``act(e)`` in fp32, cast
-back to e's dtype, times the up projection ``g``. Serving takes no
-gradients, so there is no recompute backward yet.
+back to e's dtype, times the up projection ``g``. The gated forms carry the
+JAX package's custom backward: it saves only (e, g) and recomputes the
+activation in fp32 (de = act'(e) * dh * g, dg = dh * act(e), each rounded
+once to its input's dtype).
 """
 
 from __future__ import annotations
@@ -12,7 +14,25 @@ import torch.nn.functional as F
 
 
 def _make_glu(act_fn):
+    class _Glu(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, e, g):
+            ctx.save_for_backward(e, g)
+            return act_fn(e.to(torch.float32)).to(e.dtype) * g
+
+        @staticmethod
+        def backward(ctx, dh):
+            e, g = ctx.saved_tensors
+            with torch.enable_grad():
+                ef = e.detach().to(torch.float32).requires_grad_(True)
+                f = act_fn(ef)
+            dhf = dh.to(torch.float32)
+            (de,) = torch.autograd.grad(f, ef, dhf * g.to(torch.float32))
+            return de.to(e.dtype), (dhf * f.detach()).to(g.dtype)
+
     def glu(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (e.requires_grad or g.requires_grad):
+            return _Glu.apply(e, g)
         return act_fn(e.to(torch.float32)).to(e.dtype) * g
 
     return glu

@@ -14,36 +14,56 @@ exits non-zero without printing a result:
   3. kernels   each kernel against its plain PyTorch version on the card at
                the main paths' shapes, with median times: the NF4 matmul
                (K1) and its backward (K2) at every Llama-3.1-8B projection
-               shape, RMSNorm forward (K3) and backward (K4), and packed
-               flash attention forward and backward (K9-K11) on an 8K row;
+               shape, RMSNorm forward (K3) and backward (K4), packed flash
+               attention forward and backward (K9-K11) on an 8K row, the
+               full-logits CE forward (K7) and backward (K8) at 4,094 rows
+               of the 128,256 vocabulary, and unpacked flash attention
+               (K16: forward, dq, dk/dv) on a padded [2, 2048] batch; for
+               each, its bound (the least time the card could take) and the
+               time of the one PyTorch call that computes the same function,
+               where there is one;
+  3b. CE routes  full logits (cuBLAS + K7/K8) against the chunked fused CE,
+               forward + backward time and peak memory, at 4,094 and 8,191
+               rows;
   4. parity    Llama-3.1-8B cut to 2 layers, random NF4 weights: prefill 64
                tokens + 8 decode steps on the card (kernels) and on the CPU
                (plain versions, same weights), logits compared;
   4b. train parity  the same 2-layer cut with nonzero LoRA: loss and every
-               LoRA gradient of one packed 2,048-token row on the card and
-               on the CPU, compared;
+               LoRA gradient of one packed 2,048-token row, and of one
+               padded [2, 2048] batch (K16 and K7/K8 on the card), on the
+               card and on the CPU, compared;
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
                load_in_4bit=True), served by InferenceServer over HTTP (3
                requests) and run through model.generate on 4 prompts;
-  6. main path (training) the same checkpoint, get_peft_model(r=16, all
-               seven projections, use_gradient_checkpointing="unsloth"),
+  6. main path (packed training) the same checkpoint, get_peft_model(r=16,
+               all seven projections, use_gradient_checkpointing="unsloth"),
                SFTTrainer on synthetic documents packed into 8,192-token
                rows: batch 1, accumulation 2, 6 steps; losses finite and
-               falling; step time, real tokens/s and peak memory.
+               falling; step time, real tokens/s and peak memory;
+  7. main path (SFT without packing, the Llama-3.1 Alpaca notebook's
+               recipe) the same checkpoint at max_seq_length 2048, r=16 on
+               seven projections, "unsloth" checkpointing, synthetic
+               Alpaca-format texts with train_on_responses_only, padded
+               rows, batch 2 x accumulation 4, 6 steps; then evaluate,
+               save_lora -> a fresh adapter -> load_lora -> evaluate
+               (equal losses), and
+               save_pretrained_merged reloaded with load_in_4bit=False
+               (logits against the LoRA model's).
 
-Then one JSON line with each kernel's launches on the training path (and
-K1/K3's on the serving path), its largest error against its plain
-version, and its time beside the plain version's; the nvidia-smi line; and
-last the result line {"ok": true, "device": {...}}. It needs one CUDA card
-and exits non-zero without it.
+Then one JSON line with each kernel's launches on its main path, its
+largest error against its plain version, its time beside the plain
+version's, its bound and the library call's time; the nvidia-smi line;
+and last the result line {"ok": true, "device": {...}}. It needs one CUDA
+card and exits non-zero without it.
 
     python3 chip_smoke.py --profile-train
+    python3 chip_smoke.py --profile-train-unpacked
 
-runs phases 1, 2 and 6 only, then one more training step under
-torch.profiler, and prints that step's device time by kernel, its device
-busy share and its MFU/HFU (no result line).
+run phases 1, 2 and 6 (or 7, without evaluate and the saves) only, then
+one more training step under torch.profiler, and print that step's device
+time by kernel, its device busy share and its MFU/HFU (no result line).
 """
 
 from __future__ import annotations
@@ -97,8 +117,15 @@ PREFILL_ROWS = 4096
 TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
 DOC_LENGTHS = (64, 1024)   # synthetic document lengths, inclusive
 SUB_VOCAB = 512            # documents draw ids from this many token ids
+UNPACKED_ROWS = 2048       # max_seq_length of the notebook recipe
+CE_ROWS = (4094, 8191)     # CE rows: 2 x 2,048 and 1 x 8,192, shifted
 SEED = 0
 DEVICE = "cuda:0"
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
+PEAK_BF16 = 989e12         # FLOP/s, tensor cores
+PEAK_FP32 = 67e12          # FLOP/s, outside the tensor cores
+PEAK_BYTES = 3.35e12       # bytes/s of device memory
 
 
 class ByteTokenizer:
@@ -154,6 +181,19 @@ def time_ms(fn, runs: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for ``flops`` operations at ``peak`` and ``nbytes`` of device memory
+    traffic, and which of the two sets it."""
+    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_mem),
+            "operations" if t_ops > t_mem else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def ulps_bf16_or_f32(err, ref, dtype):
     """|err| in units of the last place of ref in ``dtype``."""
     import torch
@@ -163,6 +203,69 @@ def ulps_bf16_or_f32(err, ref, dtype):
     ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - mant)
     ulp = torch.where(ref == 0, torch.full_like(ulp, 2.0 ** -133), ulp)
     return (err.abs() / ulp).max().item()
+
+
+#: the attention kernels' check: every element within 2^-6 of its reference
+#: value plus ATTN_ROW_TOL of its row's scale (see attn_row_err). The
+#: kernels measure 0.007-0.010 at the main paths' shapes on an H100
+#: (PERF.md), the faults of attn_fault_errs 0.35 and up.
+ATTN_ROW_TOL = 2.0 ** -4
+
+
+def attn_row_err(got, ref) -> float:
+    """Worst (|got - ref| - 2^-6 |ref|) / scale over every element, where
+    a row is one token's head vector (the last dim) and its scale the rms
+    of the reference row plus 1e-2 of the whole reference's rms (a floor
+    for rows that are zero, as dq of a query that attends only itself).
+    Each (token, head) is held on its own scale: a tolerance set by the
+    largest value of an attention output lets through errors larger than
+    the typical value of a query with a thousand keys. Passes at <=
+    ATTN_ROW_TOL."""
+    g, r = got.float(), ref.float()
+    sq = r.square()
+    scale = sq.mean(-1, keepdim=True).sqrt() + 1e-2 * sq.mean().sqrt()
+    return (((g - r).abs() - 2.0 ** -6 * r.abs()) / scale).max().item()
+
+
+def attn_fault_errs(q, k, v, seg, dout, scale, want):
+    """The power of :func:`attn_row_err`: K16's results under faults a
+    wrong kernel could make, held against ``want`` (the right out, dq,
+    dk, dv). Faults: the plain versions with the 64-token kv tile at the
+    middle of the last row (tokens 1,024-1,087 of 2,048) made a segment
+    of its own, so the queries after it miss those keys; the plain
+    versions with the pad mask ignored (every query attends every key
+    before it); and ``want`` 10% off in the second half of the last row,
+    as a wrong online-softmax rescale in the late tiles would leave it.
+    Returns {fault: {tensor: (row-wise error, whether the old check,
+    max|d| <= 2e-2 max|ref|, passes it)}}; every row-wise error must
+    exceed ATTN_ROW_TOL."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+
+    mid = seg.shape[1] // 128 * 64
+    dropped = seg.clone()
+    dropped[-1, mid:mid + 64] = seg.max() + 1
+    faults = {}
+    for fault, fseg in (("kv tile dropped", dropped),
+                        ("pad mask ignored", torch.ones_like(seg))):
+        fout, flse = tfa.flash_attention_fwd_ref(q, k, v, fseg, scale)
+        faults[fault] = (fout,) + tuple(tfa.flash_attention_bwd_ref(
+            q, k, v, fseg, fout, flse, dout, scale))
+    late = []
+    for ref in want:
+        got = ref.clone()
+        got[-1, seg.shape[1] // 2:] *= 0.9
+        late.append(got)
+    faults["late half 10% off"] = late
+    res = {}
+    for fault, gots in faults.items():
+        res[fault] = {}
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
+            old = ((got.float() - ref.float()).abs().max()
+                   <= 2e-2 * ref.float().abs().max())
+            res[fault][name] = (attn_row_err(got, ref), bool(old))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +313,14 @@ def phase_kernels():
     round the output to bf16: one output ulp is <= 2^-8 of the value).
     RMSNorm: <= 1 ulp of the output dtype for bf16 (the fp32 result differs
     in the last fp32 bits, then rounds); <= 8 fp32 ulp for fp32 (another
-    sum order and rsqrtf)."""
+    sum order and rsqrtf).
+
+    Beside each kernel's time: its bound (:func:`bound`, from the bytes and
+    operations these inputs need) and the time of the one PyTorch call that
+    computes the same function (``library_ms``; none for the NF4 matmuls,
+    which no single call dequantizes and multiplies)."""
     import torch
+    import torch.nn.functional as F
 
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
@@ -238,9 +347,12 @@ def phase_kernels():
                 x, dequantize_nf4(q, torch.bfloat16).t())
             ms = time_ms(lambda: nf4_matmul(x, q), flush=flush)
             plain_ms = time_ms(plain, flush=flush)
+            b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
             rows["nf4_matmul"].append(dict(shape=f"{name} M={m} N={n} K={k}",
                                            err=err, tol=1e-2 * scale,
-                                           ms=ms, plain_ms=plain_ms))
+                                           ms=ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=None))
             log(f"[kernels] nf4_matmul {name:8s} M={m:<5d} N={n:<6d} K={k:<6d}"
                 f" max|d|={err:.3e} (tol {1e-2 * scale:.3e})"
                 f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
@@ -262,10 +374,16 @@ def phase_kernels():
                 ms = time_ms(lambda: rms_norm(x, w, 1e-5, gemma), flush=flush)
                 plain_ms = time_ms(lambda: rms_norm_ref(x, w, 1e-5, gemma),
                                    flush=flush)
+                # F.rms_norm computes the plain (not Gemma) form
+                lib_ms = None if gemma else time_ms(
+                    lambda: F.rms_norm(x, (shape[-1],), w, 1e-5), flush=flush)
+                b_ms, b_by = bound(4 * x.numel(), 2 * nbytes(x) + nbytes(w),
+                                   PEAK_FP32)
                 rows["rms_norm"].append(dict(
                     shape=f"{list(shape)} {str(dtype)[6:]} gemma={gemma}",
                     err=d.abs().max().item(), ulps=ulps, ms=ms,
-                    plain_ms=plain_ms))
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms))
                 log(f"[kernels] rms_norm {list(shape)} {str(dtype)[6:]:8s} "
                     f"gemma={gemma!s:5s} max|d|={d.abs().max().item():.3e} "
                     f"({ulps:.2f} ulp, limit {limit}) kernel {ms:.4f} ms "
@@ -274,6 +392,7 @@ def phase_kernels():
                     raise RuntimeError(f"rms_norm disagrees at {shape} {dtype}"
                                        f" gemma={gemma}: {ulps} ulp")
     rows.update(_training_kernels(dev, g, flush))
+    rows.update(_unpacked_kernels(dev, g, flush))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -299,6 +418,47 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def _autograd_ms(fn, inputs, grad_out, flush, runs=10):
+    """Median ms of the autograd backward of ``fn(*inputs)`` alone: the
+    graph is built once and its backward run again and again."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    y = fn(*leaves)
+    ms = time_ms(lambda: torch.autograd.grad(y, leaves, grad_out,
+                                             retain_graph=True),
+                 runs=runs, flush=flush)
+    del y, leaves
+    return ms
+
+
+def _sdpa_ms(q, k, v, segment_ids, dout, flush):
+    """(forward ms, backward ms) of the one PyTorch call that computes the
+    attention kernels' function: ``F.scaled_dot_product_attention`` with a
+    boolean mask (causal and equal segment ids) and ``enable_gqa=True``,
+    in its [B, H, T, D] layout. A yardstick only; the port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+
+    t = q.shape[1]
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    mask = (causal[None] & (segment_ids[:, :, None]
+                            == segment_ids[:, None, :]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              enable_gqa=True)
+
+    fwd = time_ms(lambda: sdpa(qt, kt, vt), runs=5, warmup=1, flush=flush)
+    bwd = _autograd_ms(sdpa, (qt, kt, vt), dout.transpose(1, 2), flush,
+                       runs=5)
+    del mask
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def _training_kernels(dev, g, flush):
     """K2 at every projection shape at M = 8192; K4 at [8192, 4096] bf16,
     plain and Gemma; packed attention forward and backward on one 8K row
@@ -311,12 +471,13 @@ def _training_kernels(dev, g, flush):
     to near zero), dW within one bf16 ulp of max|dW| (an fp32 sum over
     8,192 rows in another order, then rounded to bf16). Attention, at positions
     with segment id != 0 (pad outputs are unspecified): out, dq, dk, dv
-    within 2e-2 of the largest value (the kernels round P and dS to bf16
+    row by row (:func:`attn_row_err`; the kernels round P and dS to bf16
     before their products, the plain version keeps fp32), lse within
     1e-3; the backward pair is fed the kernel forward's (out, lse) on both
     sides."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from unsloth_tpu_torch.data.packing import max_segment_length
     from unsloth_tpu_torch.ops import packed_attention as tpa
@@ -341,9 +502,11 @@ def _training_kernels(dev, g, flush):
         tol = 1e-2 * ref.float().abs().max().item()
         ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush=flush)
         plain_ms = time_ms(lambda: nf4_matmul_dx_ref(gy, q), flush=flush)
+        b_ms, b_by = bound(2 * m * n * k, nbytes(gy) + q.nbytes + m * k * 2)
         rows["nf4_matmul_dx"].append(dict(
             shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
-            plain_ms=plain_ms))
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
         log(f"[kernels] nf4_matmul_dx {name:8s} M={m} N={n:<6d} K={k:<6d} "
             f"max|d|={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms")
@@ -368,10 +531,15 @@ def _training_kernels(dev, g, flush):
         ms = time_ms(lambda: rms_norm_bwd(x, w, gy, 1e-5, gemma), flush=flush)
         plain_ms = time_ms(lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma),
                            flush=flush)
+        lib_ms = None if gemma else _autograd_ms(
+            lambda a, b: F.rms_norm(a, (4096,), b, 1e-5), (x, w), gy, flush)
+        b_ms, b_by = bound(8 * x.numel(), 3 * nbytes(x) + 2 * nbytes(w),
+                           PEAK_FP32)
         rows["rms_norm_bwd"].append(dict(
             shape=f"[{m}, 4096] bfloat16 gemma={gemma}",
             err=max(d.max().item(), dw_err),
-            ulps=dx_ulps, ms=ms, plain_ms=plain_ms))
+            ulps=dx_ulps, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms))
         log(f"[kernels] rms_norm_bwd [{m}, 4096] bfloat16 gemma={gemma!s:5s} "
             f"dx max {dx_ulps:.2f} ulp (limit 2 + 1e-5 max|dx|: "
             f"{'ok' if dx_ok else 'FAIL'}), max|d dW|={dw_err:.3e} (tol "
@@ -412,8 +580,8 @@ def _training_kernels(dev, g, flush):
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"packed attention {name} is not finite")
         errs[name] = ((got - ref).abs().max().item(),
-                      2e-2 * ref.abs().max().item())
-    errs["lse"] = ((lse - rlse)[..., real].abs().max().item(), 1e-3)
+                      attn_row_err(got, ref))
+    lse_err = (lse - rlse)[..., real].abs().max().item()
     fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(
         q, k, v, seg, kv_lo, scale=scale, n_kv=n_kv), runs=10, flush=flush)
     fwd_plain = time_ms(lambda: tpa.packed_attention_fwd_ref(
@@ -423,21 +591,281 @@ def _training_kernels(dev, g, flush):
         runs=10, flush=flush)
     bwd_plain = time_ms(lambda: tpa.packed_attention_bwd_ref(
         q, k, v, seg, out, lse, dout, scale), runs=5, warmup=1, flush=flush)
+    # the work the real tokens need: each segment's causal pairs
+    seg_np = seg[0].cpu().numpy()
+    lens = np.bincount(seg_np[seg_np != 0])
+    pairs = int((lens * (lens + 1) // 2).sum())
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, seg, dout, flush)
+    fb = bound(4 * d * hq * pairs, nbytes(q, k, v, out, lse))
+    bb = bound(10 * d * hq * pairs,
+               nbytes(q, k, v, out, dout, lse, q, k, v))
     rows["packed_attn_fwd"].append(dict(
-        shape=shape, err=max(errs["out"][0], errs["lse"][0]), ms=fwd_ms,
-        plain_ms=fwd_plain))
+        shape=shape, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+        plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+        library_ms=lib_fwd))
     rows["packed_attn_bwd"].append(dict(
         shape=shape, err=max(errs[n][0] for n in ("dq", "dk", "dv")),
-        ms=bwd_ms, plain_ms=bwd_plain))
+        ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
+        library_ms=lib_bwd))
     log(f"[kernels] packed attention {shape}: " + ", ".join(
-        f"{n} max|d|={e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items()))
+        f"{n} max|d|={e:.3e} row-wise {r:.3e}" for n, (e, r) in errs.items())
+        + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
+        "(tol 1e-3)")
     log(f"[kernels] packed attention fwd kernel {fwd_ms:.4f} ms plain "
-        f"{fwd_plain:.4f} ms; bwd (dq + dk/dv) kernel {bwd_ms:.4f} ms plain "
-        f"{bwd_plain:.4f} ms")
-    bad = [n for n, (e, t) in errs.items() if not e <= t]
-    if bad:
-        raise RuntimeError(f"packed attention disagrees in {bad}: {errs}")
+        f"{fwd_plain:.4f} ms SDPA {lib_fwd:.4f} ms bound {fb[0]:.4f} ms "
+        f"({fb[1]}); bwd (dq + dk/dv) kernel {bwd_ms:.4f} ms plain "
+        f"{bwd_plain:.4f} ms SDPA {lib_bwd:.4f} ms bound {bb[0]:.4f} ms "
+        f"({bb[1]}); {pairs} causal pairs per head")
+    bad = [n for n, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad or not lse_err <= 1e-3:
+        raise RuntimeError(f"packed attention disagrees in {bad}: {errs}, "
+                           f"lse {lse_err}")
     return rows
+
+
+def _unpacked_kernels(dev, g, flush):
+    """The kernels of SFT without packing at the notebook recipe's shapes:
+    K7/K8 on 4,094 rows (2 x 2,048, shifted) of the 128,256 vocabulary,
+    bf16, about 30% of the rows ignored (-100), without and with a softcap;
+    K16 forward, dq and dk/dv on a padded [2, 2048] batch of Llama-3.1-8B
+    attention (32/8 heads, head dim 128): one row of 1,500 real tokens and
+    a pad tail, one row full.
+
+    Tolerances. K7: loss and lse within 1e-4 relative plus 1e-4 (fp32 sums
+    of 128,256 exponentials in another order). K8: dlogits within 2 bf16
+    ulps plus 1e-6 of max|ref| (the same fp32 formula, expf against
+    torch.exp, one rounding to bf16). K16 at every position, pad queries
+    included: out, dq, dk, dv row by row (:func:`attn_row_err`: each
+    element within 2^-6 of its value plus 2^-4 of its (token, head) row's
+    rms; the kernels round P and dS to bf16, the plain version keeps
+    fp32), lse within 1e-3; the backward gets the kernel forward's (out,
+    lse) on both sides. Then the check must reject the plain versions
+    under a dropped kv tile and under an ignored pad mask
+    (:func:`attn_fault_errs`)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unsloth_tpu_torch.ops import cross_entropy as tce
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+
+    rows = {name: [] for name in ("cross_entropy_fwd", "cross_entropy_bwd",
+                                  "flash_attn_fwd", "flash_attn_dq",
+                                  "flash_attn_dkv")}
+    n, v = CE_ROWS[0], LLAMA_31_8B_CONFIG["vocab_size"]
+    for softcap in (None, 30.0):
+        logits = (torch.randn((n, v), generator=g, device=dev) * 2
+                  ).to(torch.bfloat16)
+        labels = torch.randint(0, v, (n,), generator=g, device=dev)
+        labels[torch.rand(n, generator=g, device=dev) < 0.3] = -100
+        n_valid = int((labels != -100).sum())
+        gr = torch.full((n,), 1.0 / n_valid, device=dev)  # d mean / d row
+        loss, lse = tce.cross_entropy_fwd(logits, labels, softcap)
+        dx = tce.cross_entropy_bwd(logits, labels, lse, gr, softcap)
+        rloss, rlse = tce.cross_entropy_ref(logits, labels, softcap)
+        rdx = tce.cross_entropy_bwd_ref(logits, labels, lse, gr, softcap)
+        torch.cuda.synchronize()
+        fwd_err = max((loss - rloss).abs().max().item(),
+                      (lse - rlse).abs().max().item())
+        fwd_ok = bool(((loss - rloss).abs() <= 1e-4 * rloss.abs() + 1e-4).all()
+                      and ((lse - rlse).abs() <= 1e-4 * rlse.abs() + 1e-4).all())
+        d = (dx.float() - rdx.float()).abs()
+        bwd_ok = bool((d <= 2.0 ** -7 * rdx.float().abs()
+                       + 1e-6 * rdx.float().abs().max()).all())
+        fwd_ms = time_ms(lambda: tce.cross_entropy_fwd(logits, labels, softcap),
+                         flush=flush)
+        bwd_ms = time_ms(lambda: tce.cross_entropy_bwd(logits, labels, lse, gr,
+                                                       softcap), flush=flush)
+        fwd_plain = time_ms(lambda: tce.cross_entropy_ref(
+            logits, labels, softcap), runs=5, flush=flush)
+        bwd_plain = time_ms(lambda: tce.cross_entropy_bwd_ref(
+            logits, labels, lse, gr, softcap), runs=5, flush=flush)
+        lib_fwd = lib_bwd = None
+        if softcap is None:   # F.cross_entropy has no softcap
+            lib_fwd = time_ms(lambda: F.cross_entropy(
+                logits, labels, ignore_index=-100, reduction="none"),
+                flush=flush)
+            lib_bwd = _autograd_ms(lambda x: F.cross_entropy(
+                x, labels, ignore_index=-100, reduction="none"), (logits,),
+                gr, flush)
+        ops = (8 if softcap else 4) * n * v
+        fb = bound(ops, nbytes(logits, labels, loss, lse), PEAK_FP32)
+        bb = bound(2 * ops, nbytes(logits, labels, lse, gr, dx), PEAK_FP32)
+        shape = f"N={n} V={v} bf16 softcap={softcap}"
+        rows["cross_entropy_fwd"].append(dict(
+            shape=shape, err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
+            bound_ms=fb[0], bound_by=fb[1], library_ms=lib_fwd))
+        rows["cross_entropy_bwd"].append(dict(
+            shape=shape, err=d.max().item(), ms=bwd_ms, plain_ms=bwd_plain,
+            bound_ms=bb[0], bound_by=bb[1], library_ms=lib_bwd))
+        log(f"[kernels] cross_entropy {shape}, {n - n_valid} rows ignored: "
+            f"K7 max|d|={fwd_err:.3e} (1e-4 rel + 1e-4: "
+            f"{'ok' if fwd_ok else 'FAIL'}) kernel {fwd_ms:.4f} ms plain "
+            f"{fwd_plain:.4f} ms F.cross_entropy {lib_fwd} ms bound "
+            f"{fb[0]:.4f} ms ({fb[1]}); K8 max|d|={d.max().item():.3e} "
+            f"(2 bf16 ulps + 1e-6 max: {'ok' if bwd_ok else 'FAIL'}) kernel "
+            f"{bwd_ms:.4f} ms plain {bwd_plain:.4f} ms backward {lib_bwd} ms "
+            f"bound {bb[0]:.4f} ms ({bb[1]})")
+        if not (fwd_ok and bwd_ok and bool(torch.isfinite(dx).all())):
+            raise RuntimeError(f"cross_entropy kernels disagree at {shape}")
+        del logits, dx, rdx, d
+        torch.cuda.empty_cache()
+
+    c = LLAMA_31_8B_CONFIG
+    hq, hkv, hd = (c["num_attention_heads"], c["num_key_value_heads"],
+                   c["head_dim"])
+    b, t = 2, UNPACKED_ROWS
+    q, k, vv, dout = (torch.randn((b, t, h, hd), generator=g, device=dev)
+                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = torch.ones((b, t), dtype=torch.int32, device=dev)
+    seg[0, 1500:] = 0                      # pad_batch: 1 real, 0 pad
+    lo, hi = tfa.tile_segment_ranges(seg)
+    scale = hd ** -0.5
+    out, lse = tfa.flash_attention_fwd(q, k, vv, seg, lo, hi, scale=scale)
+    dq, di = tfa.flash_attention_dq(q, k, vv, seg, lo, hi, out, lse, dout,
+                                    scale=scale)
+    dk, dv = tfa.flash_attention_dkv(q, k, vv, seg, lo, hi, lse, di, dout,
+                                     scale=scale)
+    rout, rlse = tfa.flash_attention_fwd_ref(q, k, vv, seg, scale)
+    rdq, rdk, rdv = tfa.flash_attention_bwd_ref(q, k, vv, seg, out, lse,
+                                                dout, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"flash attention {name} is not finite")
+        errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                      attn_row_err(got, ref))
+    lse_err = (lse - rlse).abs().max().item()
+    faults = attn_fault_errs(q, k, vv, seg, dout, scale,
+                             (rout, rdq, rdk, rdv))
+    fwd_ms = time_ms(lambda: tfa.flash_attention_fwd(
+        q, k, vv, seg, lo, hi, scale=scale), runs=10, flush=flush)
+    dq_ms = time_ms(lambda: tfa.flash_attention_dq(
+        q, k, vv, seg, lo, hi, out, lse, dout, scale=scale), runs=10,
+        flush=flush)
+    dkv_ms = time_ms(lambda: tfa.flash_attention_dkv(
+        q, k, vv, seg, lo, hi, lse, di, dout, scale=scale), runs=10,
+        flush=flush)
+    fwd_plain = time_ms(lambda: tfa.flash_attention_fwd_ref(
+        q, k, vv, seg, scale), runs=5, warmup=1, flush=flush)
+    bwd_plain = time_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, vv, seg, out, lse, dout, scale), runs=5, warmup=1, flush=flush)
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, vv, seg, dout, flush)
+    # every output is defined, so the work is every valid pair: the real
+    # tokens' causal pairs and the pad tail's among its own
+    counts = [int((seg[i] == s_).sum()) for i in range(b) for s_ in (0, 1)]
+    pairs = sum(x * (x + 1) // 2 for x in counts)
+    fb = bound(4 * hd * hq * pairs, nbytes(q, k, vv, seg, out, lse))
+    qb = bound(6 * hd * hq * pairs, nbytes(q, k, vv, seg, out, dout, lse, q,
+                                           di))
+    kb = bound(8 * hd * hq * pairs, nbytes(q, k, vv, seg, dout, lse, di, k,
+                                           vv))
+    shape = (f"B=2 T={t} Hq={hq} Hkv={hkv} D={hd} bf16, rows of 1500 (+ "
+             f"{t - 1500} pad) and {t} real tokens")
+    common = dict(shape=shape)
+    rows["flash_attn_fwd"].append(dict(
+        common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+        plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+        library_ms=lib_fwd))
+    rows["flash_attn_dq"].append(dict(
+        common, err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
+        bound_ms=qb[0], bound_by=qb[1], library_ms=lib_bwd))
+    rows["flash_attn_dkv"].append(dict(
+        common, err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+        plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
+        library_ms=lib_bwd))
+    log(f"[kernels] flash attention (K16) {shape}, every position: " +
+        ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
+                  for n_, (e, r) in errs.items())
+        + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
+        "(tol 1e-3)")
+    for fault, res in faults.items():
+        log(f"[kernels] flash attention check against a fault, {fault}: " +
+            ", ".join(f"{n_} row-wise {r:.3e} (old max-scaled check "
+                      f"{'passes' if old else 'fails'})"
+                      for n_, (r, old) in res.items()))
+    log(f"[kernels] flash attention fwd kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_plain:.4f} ms SDPA {lib_fwd:.4f} ms bound {fb[0]:.4f} ms "
+        f"({fb[1]}); dq kernel {dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv "
+        f"kernel {dkv_ms:.4f} ms bound {kb[0]:.4f} ms; plain backward "
+        f"{bwd_plain:.4f} ms, SDPA backward (dq, dk, dv) {lib_bwd:.4f} ms; "
+        f"{pairs} valid pairs per head, pad {100 * counts[0] / (2 * t):.1f}% "
+        "of the batch")
+    bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad or not lse_err <= 1e-3:
+        raise RuntimeError(f"flash attention disagrees in {bad}: {errs}, "
+                           f"lse {lse_err}")
+    missed = [(f, n_) for f, res in faults.items()
+              for n_, (r, _) in res.items() if not r > ATTN_ROW_TOL]
+    if missed:
+        raise RuntimeError(f"the attention check lets faults through: "
+                           f"{missed}")
+    return rows
+
+
+def phase_ce_routes():
+    """The two CE routes of the training loss at the training shapes:
+    full logits (a cuBLAS product into bf16 [N, V] logits, then K7/K8) and
+    the chunked fused CE (fp32 chunk logits, recomputed in the backward),
+    each forward + backward to the hidden states (a frozen lm_head, as
+    under LoRA), at N = 4,094 (2 x 2,048) and 8,191 (1 x 8,192) rows.
+    Median time of 5 runs and the peak memory above the inputs; the two
+    losses agree within 1e-2 relative (the full route rounds the logits to
+    bf16). These are the numbers the fused_ce="auto" gate can be re-derived
+    from."""
+    import torch
+
+    from unsloth_tpu_torch.ops.cross_entropy import fast_cross_entropy_loss
+    from unsloth_tpu_torch.ops.fused_ce_linear import fused_ce_loss_mean
+    from unsloth_tpu_torch.ops.lora import base_matmul
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    d, v = LLAMA_31_8B_CONFIG["hidden_size"], LLAMA_31_8B_CONFIG["vocab_size"]
+    w = (torch.randn((v, d), generator=g, device=dev) * 0.02
+         ).to(torch.bfloat16)
+    chunk = max(1024, (2 << 30) // (v * 4) // 1024 * 1024)  # decoder's
+    out = {}
+    for n in CE_ROWS:
+        h = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+        h.requires_grad_(True)
+        lb = torch.randint(0, v, (n,), generator=g, device=dev)
+
+        def full():
+            loss = fast_cross_entropy_loss(base_matmul(h, w), lb)
+            return loss, torch.autograd.grad(loss, h)[0]
+
+        def chunked():
+            loss = fused_ce_loss_mean(h, w.t(), lb, chunk_size=min(chunk, n),
+                                      w_trainable=False)
+            return loss, torch.autograd.grad(loss, h)[0]
+
+        res = {}
+        for name, fn in (("full", full), ("chunked", chunked)):
+            ms = time_ms(fn, runs=5, warmup=1)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = fn()
+            torch.cuda.synchronize()
+            res[name] = (ms, (torch.cuda.max_memory_allocated() - base) / 1e9,
+                         float(loss.detach()))
+            del loss
+        rel = abs(res["full"][2] - res["chunked"][2]) / abs(res["chunked"][2])
+        log(f"[ce routes] N={n} V={v}: full (cuBLAS + K7/K8) "
+            f"{res['full'][0]:.2f} ms, peak +{res['full'][1]:.2f} GB; chunked "
+            f"({chunk}-row chunks) {res['chunked'][0]:.2f} ms, peak "
+            f"+{res['chunked'][1]:.2f} GB; losses {res['full'][2]:.6f} / "
+            f"{res['chunked'][2]:.6f} (rel {rel:.2e}, tol 1e-2)")
+        if not rel <= 1e-2:
+            raise RuntimeError(f"CE routes disagree at N={n}: {res}")
+        out[n] = res
+        del h
+    del w
+    torch.cuda.empty_cache()
+    return out
 
 
 def _prefill_decode_logits(params, cfg, ids, mask, steps, feed=None):
@@ -624,6 +1052,107 @@ def phase_train_parity():
     return dict(loss_rel=loss_rel, grad_rel_max=rels[worst])
 
 
+def _tree_f32(tree):
+    """A param tree with every dense float tensor in fp32 and every NF4
+    weight dequantizing to fp32 (the same codes and scales)."""
+    import dataclasses
+
+    import torch
+
+    from unsloth_tpu_torch.ops.nf4 import NF4Tensor
+
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_f32(v) for v in tree]
+    if isinstance(tree, NF4Tensor):
+        return dataclasses.replace(tree, dtype=torch.float32)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(torch.float32)
+    return tree
+
+
+def phase_train_parity_padded():
+    """SFT without packing on the 2-layer cut: the loss and every LoRA
+    gradient of one padded [2, 2048] batch (a row of 1,500 real tokens and
+    a pad tail, a full row), fused_ce="auto", on the card in bf16 (K16
+    attention over the whole causal range, the full-logits CE through
+    K7/K8: 4,094 rows pass the gate) and on the CPU through the plain
+    versions in fp32 (attention_ref, the plain CE), from the same weights
+    and NF4 codes. Tolerance as in phase 4b: loss within 1e-2 relative,
+    each gradient leaf within 5e-2 relative L2 (the card rounds to bf16 at
+    every op; a wrong kernel gives errors of the order of the gradient)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import pad_batch
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.decoder import loss_fn
+    from unsloth_tpu_torch.models.params import (init_lora_tree,
+                                                 init_params, quantize_params,
+                                                 tree_to)
+
+    hf = dict(LLAMA_31_8B_CONFIG, num_hidden_layers=2)
+    cfg = ModelConfig.from_hf_config(hf)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             cfg, dtype=torch.bfloat16)
+    lora = init_lora_tree(cfg, gen, r=16, alpha=16.0)
+    for layer in lora["layers"]:
+        for lw in layer.values():
+            lw.b = torch.randn(lw.b.shape, generator=gen, device=DEVICE) * 0.01
+    rng = np.random.default_rng(SEED + 3)
+    sub = rng.choice(cfg.vocab_size, SUB_VOCAB, replace=False)
+    rows = [{"input_ids": sub[rng.integers(0, SUB_VOCAB, n)].tolist()}
+            for n in (1500, UNPACKED_ROWS)]
+    batch_np = pad_batch(rows, UNPACKED_ROWS).as_dict()
+    kernels = _kernel_fns()
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        p = params if dev == DEVICE else _tree_f32(tree_to(params, "cpu"))
+        lo = lora if dev == DEVICE else tree_to(lora, "cpu")
+        leaves = _lora_leaves(lo)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        before = {n: fn.launches for n, fn in kernels.items()}
+        t0 = time.perf_counter()
+        loss = loss_fn(p, lo, batch, cfg, remat=False)
+        loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] = (float(loss.detach()), {n: t.grad.float().cpu()
+                                              for n, t in leaves},
+                        time.perf_counter() - t0,
+                        {n: fn.launches - before[n]
+                         for n, fn in kernels.items()})
+        for _, t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    (l_card, g_card, t_card, launches), (l_cpu, g_cpu, t_cpu, _) = \
+        results[DEVICE], results["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(rels, key=rels.get)
+    log(f"[train parity] 2-layer Llama-3.1-8B NF4 + LoRA r=16, padded "
+        f"[2, {UNPACKED_ROWS}] (1500 and {UNPACKED_ROWS} real tokens): loss "
+        f"card {l_card:.6f} cpu (fp32) {l_cpu:.6f} (rel {loss_rel:.2e}, tol "
+        f"1e-2); {len(rels)} LoRA grads, worst rel L2 {rels[worst]:.3e} "
+        f"({worst}), median {statistics.median(rels.values()):.3e} (tol "
+        f"5e-2); card {t_card:.1f} s, cpu {t_cpu:.1f} s; card launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise RuntimeError("card and CPU padded-batch loss/grads disagree")
+    for name in UNPACKED_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} did not launch on the padded batch")
+    del params, lora
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_max=rels[worst])
+
+
 def write_checkpoint(path):
     """Random-init bf16 checkpoint with the published Llama-3.1-8B shapes:
     config.json plus index-sharded safetensors, one tensor at a time."""
@@ -772,10 +1301,7 @@ def phase_main_path(tmp):
     if any(len(r) == 0 or not all(0 <= t < model.cfg.vocab_size for t in r)
            for r in out):
         raise RuntimeError("generate returned empty rows or bad ids")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"{name} kernel never launched on the main "
-                               "path")
+    _check_launched(launches, SERVING_KERNELS, "serving")
 
     # the served model's logits are finite and of the expected shape
     ids = torch.tensor(prompts, device=DEVICE)[:, :64]
@@ -850,10 +1376,7 @@ def phase_train_main(tmp, profile=False):
         raise RuntimeError(f"training losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"training loss did not fall: {losses}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"{name} kernel never launched on the training "
-                               "path")
+    _check_launched(launches, PACKED_KERNELS, "packed training")
     for lname, t in _lora_leaves(model.lora):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"trained LoRA {lname} is not finite")
@@ -866,6 +1389,191 @@ def phase_train_main(tmp, profile=False):
                           runtime_s=result.metrics["train_runtime"])
 
 
+INSTRUCTION, RESPONSE = "### Instruction:\n", "### Response:\n"
+
+
+def _alpaca_texts(rng, n):
+    """Synthetic Alpaca-format texts: the instruction marker, 32-512
+    random printable bytes, a newline, the response marker, 64-1,536
+    random printable bytes. With the byte tokenizer they make rows of
+    128-2,079 tokens; every eighth text takes both maxima, so its row is
+    cut at 2,048."""
+    import numpy as np
+
+    def printable(lo, hi, longest):
+        size = hi if longest else int(rng.integers(lo, hi + 1))
+        return bytes(rng.integers(32, 127, size).astype(np.uint8)).decode()
+
+    return [{"text": INSTRUCTION + printable(32, 512, i % 8 == 0) + "\n"
+             + RESPONSE + printable(64, 1536, i % 8 == 0)} for i in range(n)]
+
+
+def phase_unpacked_sft(tmp, profile=False):
+    """The notebook recipe at full width and depth from the checkpoint in
+    ``tmp``: from_pretrained(max_seq_length=2048, load_in_4bit=True),
+    get_peft_model(r=16, seven projections, "unsloth" checkpointing),
+    SFTTrainer(packing=False) on 48 synthetic Alpaca texts with
+    train_on_responses_only, batch 2 x accumulation 4, 6 steps (one epoch:
+    every step sees other rows), warmup 0. Losses finite and falling; every
+    kernel of the path launched. Then evaluate on 8 held-out texts,
+    save_lora, a fresh adapter of another rank and scale in the trained
+    one's place (its loss must differ), load_lora -> evaluate again (the
+    two losses equal), and save_pretrained_merged (its peak device memory
+    above the resident model at most 2 GB: it merges one projection at a
+    time, where the whole merged tree is 16 GB) reloaded with
+    load_in_4bit=False: its logits on a held-out row against the LoRA
+    model's, within 5e-2 relative L2 (the merged weights are rounded to
+    bf16 once, where the LoRA model adds the adapter in its own bf16
+    products). With ``profile``, one more step
+    runs under the profiler (:func:`_profile_train_step`) in place of
+    evaluate and the saves."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import (FastLanguageModel, SFTConfig, SFTTrainer,
+                                   train_on_responses_only)
+    from unsloth_tpu_torch.models.decoder import logits_fn
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, max_seq_length=UNPACKED_ROWS, load_in_4bit=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    model = FastLanguageModel.get_peft_model(
+        model, r=16, lora_alpha=16,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth").for_training()
+    texts = _alpaca_texts(np.random.default_rng(SEED + 4), 56)
+    train, held_out = texts[:48], texts[48:]
+    args = SFTConfig(
+        output_dir=os.path.join(tmp, "sft_unpacked"),
+        max_seq_length=UNPACKED_ROWS, packing=False,
+        per_device_train_batch_size=2, gradient_accumulation_steps=4,
+        max_steps=6, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
+        report_to="none")
+    trainer = SFTTrainer(model, tokenizer=ByteTokenizer(),
+                         train_dataset=train, args=args)
+    train_on_responses_only(trainer, instruction_part=INSTRUCTION,
+                            response_part=RESPONSE)
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches]
+    trained = [int((b.labels[:, 1:] != -100).sum()) for b in batches]
+    padded = [int(b.segment_ids.size) for b in batches]
+    lengths = [int(n) for b in batches for n in (b.segment_ids != 0).sum(1)]
+    log(f"[unpacked] {len(train)} texts -> {len(batches)} padded batches of "
+        f"[2, {UNPACKED_ROWS}]: rows of {min(lengths)}-{max(lengths)} tokens "
+        f"({sum(n == UNPACKED_ROWS for n in lengths)} cut at "
+        f"{UNPACKED_ROWS}); real {sum(real)} of {sum(padded)} row tokens "
+        f"({100 * (1 - sum(real) / sum(padded)):.1f}% pad), trained "
+        f"(response) tokens {sum(trained)}")
+    result = trainer.train()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    # the trainer's group order for epoch 0 (SFTTrainer.train)
+    accum = args.gradient_accumulation_steps
+    order = list(range(0, len(batches) - accum + 1, accum))
+    np.random.RandomState(args.seed).shuffle(order)
+    per_step = [[sum(c[i:i + accum]) for i in order]
+                for c in (real, trained, padded)]
+    steady_s = sum(times[1:])
+    rates = [sum(c[1:]) / steady_s for c in per_step]
+    steps = len(times)
+    log(f"[unpacked] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}")
+    log(f"[unpacked] steady step (median of steps 2-{steps}) "
+        f"{statistics.median(times[1:]):.3f} s; over steps 2-{steps}: "
+        f"{rates[0]:.1f} real tokens/s, {rates[1]:.1f} trained tokens/s, "
+        f"{rates[2]:.1f} padded tokens/s; first step {times[0]:.3f} s; peak "
+        f"memory allocated {peak / 1e9:.2f} GB")
+    expect = {"flash_attn_fwd": 256, "flash_attn_dq": 128,
+              "flash_attn_dkv": 128, "cross_entropy_fwd": 4,
+              "cross_entropy_bwd": 4}
+    log(f"[unpacked] launches on the path: {launches}; per step "
+        f"{ {n: launches[n] / steps for n in expect} } (expected {expect})")
+    if len(losses) != 6 or not all(np.isfinite(losses)):
+        raise RuntimeError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    _check_launched(launches, UNPACKED_KERNELS, "unpacked training")
+    if profile:
+        _profile_train_step(trainer, batches[order[0]:order[0] + accum])
+        return launches, None
+
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(held_out)
+    t_eval = time.perf_counter() - t0
+    lora_dir = os.path.join(tmp, "lora_adapter")
+    model.save_lora(lora_dir)
+    # a fresh adapter of another rank, scale and seed (B = 0) in its place:
+    # equal losses after load_lora can then only come from the files
+    FastLanguageModel.get_peft_model(
+        model, r=8, lora_alpha=64, random_state=SEED + 6,
+        use_gradient_checkpointing="unsloth")
+    ev_fresh = trainer.evaluate(held_out)
+    model.load_lora(lora_dir)
+    ev2 = trainer.evaluate(held_out)
+    log(f"[unpacked] evaluate on {len(held_out)} texts: {ev} in {t_eval:.1f} "
+        f"s; with a fresh adapter: {ev_fresh}; after save_lora -> fresh "
+        f"adapter -> load_lora: {ev2} ({sorted(os.listdir(lora_dir))})")
+    if not (np.isfinite(ev["eval_loss"]) and ev["eval_tokens"] > 0):
+        raise RuntimeError(f"bad eval metrics {ev}")
+    if ev_fresh["eval_loss"] == ev["eval_loss"]:
+        raise RuntimeError("the fresh adapter evaluates as the trained one")
+    if ev2["eval_loss"] != ev["eval_loss"]:
+        raise RuntimeError(f"eval loss changed across the adapter round "
+                           f"trip: {ev['eval_loss']} -> {ev2['eval_loss']}")
+
+    ids = torch.tensor([list(held_out[0]["text"].encode())[:256]],
+                       device=DEVICE)
+    with torch.no_grad():
+        want = logits_fn(model.params, model.lora, ids, model.cfg,
+                         remat=False).float()
+    merged_dir = os.path.join(tmp, "merged_16bit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model.save_pretrained_merged(merged_dir)
+    t_save = time.perf_counter() - t0
+    save_peak = torch.cuda.max_memory_allocated() - resident
+    size = sum(os.path.getsize(os.path.join(merged_dir, n))
+               for n in os.listdir(merged_dir))
+    del trainer, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    merged, _ = FastLanguageModel.from_pretrained(
+        merged_dir, load_in_4bit=False, dtype=torch.bfloat16, device=DEVICE)
+    t_load = time.perf_counter() - t0
+    with torch.no_grad():
+        got = logits_fn(merged.params, None, ids, merged.cfg,
+                        remat=False).float()
+    rel = ((got - want).norm() / want.norm()).item()
+    log(f"[unpacked] save_pretrained_merged: {size / 1e9:.2f} GB in "
+        f"{t_save:.1f} s, peak device memory {save_peak / 1e9:.3f} GB above "
+        f"the resident {resident / 1e9:.2f} GB (limit 2 GB: one dense "
+        f"projection at a time); reloaded (load_in_4bit=False) in "
+        f"{t_load:.1f} s; logits on a {ids.shape[1]}-token row against the "
+        f"LoRA model's: rel L2 {rel:.3e} (tol 5e-2)")
+    if not (bool(torch.isfinite(got).all()) and rel <= 5e-2):
+        raise RuntimeError(f"merged model's logits disagree: rel {rel}")
+    if save_peak > 2e9:
+        raise RuntimeError(f"the merged save held {save_peak / 1e9:.2f} GB "
+                           "more than the model at once")
+    del merged
+    shutil.rmtree(merged_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, step_s=statistics.median(times[1:]),
+                          real_tokens_per_s=rates[0],
+                          trained_tokens_per_s=rates[1],
+                          padded_tokens_per_s=rates[2], peak_bytes=peak,
+                          eval=ev, runtime_s=result.metrics["train_runtime"])
+
+
 def _profile_train_step(trainer, rows, top=25):
     """One more optimizer step of ``trainer`` (fresh AdamW state, the same
     ``rows``) under ``torch.profiler``. From the chrome trace's device
@@ -874,9 +1582,11 @@ def _profile_train_step(trainer, rows, top=25):
     events' intervals over the step's wall time (host clock, ending in a
     sync). MFU counts 4N FLOPs per real token (forward and dx through N
     matmul weights: the projections and lm_head; the NF4 base is frozen,
-    so no dW) and HFU 6N per row token (the offloaded checkpointing and
-    the chunked CE run each forward product a second time in backward);
-    attention FLOPs are left out of both. Peak: 989 TFLOP/s dense bf16."""
+    so no dW) and HFU per row token 6 FLOPs per projection weight (the
+    offloaded checkpointing runs each layer's forward a second time in
+    backward) and 4 per lm_head weight (the full-logits CE, which both
+    training shapes take on an 80 GB card, runs it once); attention FLOPs
+    are left out of both. Peak: 989 TFLOP/s dense bf16."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -910,17 +1620,20 @@ def _profile_train_step(trainer, rows, top=25):
     per_layer = (2 * c.num_heads * hd * c.hidden_size
                  + 2 * c.num_kv_heads * hd * c.hidden_size
                  + 3 * c.hidden_size * c.intermediate_size)
-    n_matmul = c.num_layers * per_layer + c.vocab_size * c.hidden_size
+    n_head = c.vocab_size * c.hidden_size
+    n_matmul = c.num_layers * per_layer + n_head
     real = sum(int((b.segment_ids != 0).sum()) for b in rows)
     row_tokens = sum(int(b.segment_ids.size) for b in rows)
     wall = wall_us / 1e6
-    log(f"[profile] one step, {len(rows)} rows, {real} real tokens: wall "
-        f"{wall:.3f} s, device events {len(dev)}, summed {total / 1e3:.1f} "
+    log(f"[profile] one step, {len(rows)} micro-batches, {row_tokens} row "
+        f"tokens, {real} real: wall {wall:.3f} s, device events "
+        f"{len(dev)}, summed {total / 1e3:.1f} "
         f"ms, busy (union) {busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% "
         f"of wall (idle {100 - 100 * busy / wall_us:.1f}%)")
+    hfu_flops = (6 * (n_matmul - n_head) + 4 * n_head) * row_tokens
     log(f"[profile] N = {n_matmul / 1e9:.3f}e9 matmul weights: MFU "
         f"{100 * 4 * n_matmul * real / wall / 989e12:.2f}%, HFU "
-        f"{100 * 6 * n_matmul * row_tokens / wall / 989e12:.2f}%")
+        f"{100 * hfu_flops / wall / 989e12:.2f}%")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:top]:
         log(f"[profile] {us / 1e3:10.1f} ms {100 * us / total:5.1f}% "
@@ -929,14 +1642,37 @@ def _profile_train_step(trainer, rows, top=25):
 
 def _kernel_fns():
     """Each kernel's wrapper (its ``launches`` counter) by name."""
+    from unsloth_tpu_torch.ops import cross_entropy as tce
+    from unsloth_tpu_torch.ops import flash_attention as tfa
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
     from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd
 
     return {"nf4_matmul": nf4_matmul, "nf4_matmul_dx": nf4_matmul_dx,
             "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
+            "cross_entropy_fwd": tce.cross_entropy_fwd,
+            "cross_entropy_bwd": tce.cross_entropy_bwd,
             "packed_attn_fwd": tpa.packed_attention_fwd,
-            "packed_attn_bwd": tpa.packed_attention_bwd}
+            "packed_attn_bwd": tpa.packed_attention_bwd,
+            "flash_attn_fwd": tfa.flash_attention_fwd,
+            "flash_attn_dq": tfa.flash_attention_dq,
+            "flash_attn_dkv": tfa.flash_attention_dkv}
+
+
+# the kernels each main path must launch
+SERVING_KERNELS = ("nf4_matmul", "rms_norm")
+TRAIN_KERNELS = ("nf4_matmul", "nf4_matmul_dx", "rms_norm", "rms_norm_bwd",
+                 "cross_entropy_fwd", "cross_entropy_bwd")
+PACKED_KERNELS = TRAIN_KERNELS + ("packed_attn_fwd", "packed_attn_bwd")
+UNPACKED_KERNELS = TRAIN_KERNELS + ("flash_attn_fwd", "flash_attn_dq",
+                                    "flash_attn_dkv")
+
+
+def _check_launched(launches, names, path):
+    for name in names:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} kernel never launched on the {path} "
+                               "path")
 
 
 def main() -> int:
@@ -950,16 +1686,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    profile = sys.argv[1:] == ["--profile-train"]
-    if sys.argv[1:] and not profile:
-        print(f"usage: {sys.argv[0]} [--profile-train]", file=sys.stderr)
+    profiles = {(): None, ("--profile-train",): phase_train_main,
+                ("--profile-train-unpacked",): phase_unpacked_sft}
+    if tuple(sys.argv[1:]) not in profiles:
+        print(f"usage: {sys.argv[0]} [--profile-train | "
+              "--profile-train-unpacked]", file=sys.stderr)
         return 2
+    profile = profiles[tuple(sys.argv[1:])]
     name, smi = phase_device()
     phase_build()
     if not profile:
         rows = phase_kernels()
+        phase_ce_routes()
         phase_slice_parity()
         phase_train_parity()
+        phase_train_parity_padded()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_llama31_8b_")
     try:
         t0 = time.perf_counter()
@@ -970,46 +1711,65 @@ def main() -> int:
         log(f"[main] wrote {n_files} safetensors files, {size / 1e9:.2f} GB, "
             f"in {time.perf_counter() - t0:.1f} s")
         if profile:
-            # phases 1, 2 and 6 only, then a profiled step; no result line
-            phase_train_main(tmp, profile=True)
+            # phases 1, 2 and 6 (or 7) only, then a profiled step; no
+            # result line
+            profile(tmp, profile=True)
             return 0
         serve_launches, _ = phase_main_path(tmp)
-        train_launches, _ = phase_train_main(tmp)
+        packed_launches, _ = phase_train_main(tmp)
+        unpacked_launches, _ = phase_unpacked_sft(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # each kernel's time at a shape of the training path, whose launches
-    # the line reports
-    picks = {"nf4_matmul": ("unsloth_tpu_torch/csrc/nf4_matmul.cu",
-                            "unsloth_tpu/ops/qlora_matmul.py:155",
-                            "gate/up M=8192 N=14336 K=4096"),
-             "nf4_matmul_dx": ("unsloth_tpu_torch/csrc/nf4_matmul.cu",
-                               "unsloth_tpu/ops/qlora_matmul.py:267",
-                               "gate/up M=8192 N=14336 K=4096"),
-             "rms_norm": ("unsloth_tpu_torch/csrc/rms_norm.cu",
-                          "unsloth_tpu/ops/rms_norm.py:70",
-                          "[8192, 4096] bfloat16 gemma=False"),
-             "rms_norm_bwd": ("unsloth_tpu_torch/csrc/rms_norm.cu",
-                              "unsloth_tpu/ops/rms_norm.py:80",
-                              "[8192, 4096] bfloat16 gemma=False"),
-             "packed_attn_fwd": ("unsloth_tpu_torch/csrc/packed_attention.cu",
-                                 "unsloth_tpu/ops/packed_attention.py:109",
-                                 None),
-             "packed_attn_bwd": ("unsloth_tpu_torch/csrc/packed_attention.cu",
-                                 "unsloth_tpu/ops/packed_attention.py:224 "
-                                 "and :316", None)}
+    # each kernel at a shape of the path whose launches the line reports:
+    # (source, TPU kernel it replaces, shape in phase 3, launches by path)
+    by_path = {"serving": serve_launches, "packed_training": packed_launches,
+               "unpacked_training": unpacked_launches}
+    picks = {
+        "nf4_matmul": ("nf4_matmul.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
+                       "gate/up M=8192 N=14336 K=4096"),
+        "nf4_matmul_dx": ("nf4_matmul.cu",
+                          "unsloth_tpu/ops/qlora_matmul.py:267",
+                          "gate/up M=8192 N=14336 K=4096"),
+        "rms_norm": ("rms_norm.cu", "unsloth_tpu/ops/rms_norm.py:70",
+                     "[8192, 4096] bfloat16 gemma=False"),
+        "rms_norm_bwd": ("rms_norm.cu", "unsloth_tpu/ops/rms_norm.py:80",
+                         "[8192, 4096] bfloat16 gemma=False"),
+        "cross_entropy_fwd": ("cross_entropy.cu",
+                              "unsloth_tpu/ops/cross_entropy.py:66", None),
+        "cross_entropy_bwd": ("cross_entropy.cu",
+                              "unsloth_tpu/ops/cross_entropy.py:111", None),
+        "packed_attn_fwd": ("packed_attention.cu",
+                            "unsloth_tpu/ops/packed_attention.py:109", None),
+        "packed_attn_bwd": ("packed_attention.cu",
+                            "unsloth_tpu/ops/packed_attention.py:224 and "
+                            ":316", None),
+        "flash_attn_fwd": ("flash_attention.cu",
+                           "unsloth_tpu/ops/attention.py:415 (bundled "
+                           "flash_attention forward)", None),
+        "flash_attn_dq": ("flash_attention.cu",
+                          "unsloth_tpu/ops/attention.py:415 (bundled "
+                          "_flash_attention_bwd_dq)", None),
+        "flash_attn_dkv": ("flash_attention.cu",
+                           "unsloth_tpu/ops/attention.py:415 (bundled "
+                           "_flash_attention_bwd_dkv)", None),
+    }
     kernels_line = []
     for kname, (src, replaces, shape) in picks.items():
         row = next(r for r in rows[kname]
                    if shape is None or r["shape"] == shape)
-        entry = {"name": kname, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": train_launches[kname],
-                 "max_abs_err": max(r["err"] for r in rows[kname]),
-                 "ms": row["ms"], "plain_ms": row["plain_ms"],
-                 "shape": row["shape"]}
-        if kname in serve_launches:
-            entry["serving_launches"] = serve_launches[kname]
-        kernels_line.append(entry)
+        path = ("packed_training" if kname.startswith("packed")
+                else "unpacked_training")
+        kernels_line.append({
+            "name": kname, "route": "cuda",
+            "source": f"unsloth_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": by_path[path][kname],
+            "max_abs_err": max(r["err"] for r in rows[kname]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "launches_by_path": {p_: n[kname] for p_, n in by_path.items()
+                                 if kname in n}})
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

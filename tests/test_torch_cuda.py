@@ -8,6 +8,7 @@ These need an NVIDIA GPU and nvcc; without one they skip. On the card:
 import pytest
 import torch
 
+from chip_smoke import ATTN_ROW_TOL, attn_row_err
 from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
 from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
 from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_ref
@@ -142,8 +143,10 @@ def _segments(t, lo, hi, seed):
 def test_packed_attention_kernels_match_plain(dev):
     """Forward (out, lse) and backward (dq, dk, dv) of the kernels against
     the plain per-segment fp32 versions on the same bf16 inputs and the
-    same saved (out, lse), at real positions: out/dq/dk/dv within 2e-2 of
-    the largest value (bf16 P and dS, bf16 outputs), lse within 1e-3."""
+    same saved (out, lse), at real positions: out/dq/dk/dv row by row
+    (``chip_smoke.attn_row_err``: each element within 2^-6 of its value
+    plus 2^-4 of its (token, head) row's rms; bf16 P and dS, bf16
+    outputs), lse within 1e-3."""
     t, hq, hkv, d, max_len = 1024, 8, 2, 128, 300
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
@@ -170,21 +173,102 @@ def test_packed_attention_kernels_match_plain(dev):
     for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
         got, ref = got[:, real].float(), ref[:, real].float()
         assert torch.isfinite(got).all()
-        assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
 
 
 def test_attention_dispatch_on_cuda(dev):
-    """With a declared bound the packed kernels run; without one the CUDA
-    route raises naming K16."""
+    """With a declared bound the packed kernels run; without one the flash
+    kernels over the whole causal range (K16) run."""
     from unsloth_tpu_torch.ops.attention import attention, packed_segment_bound
 
     q = torch.randn((1, 256, 4, 128), device=dev, dtype=torch.bfloat16)
     k = torch.randn((1, 256, 2, 128), device=dev, dtype=torch.bfloat16)
     seg = _segments(356, 20, 60, seed=6)[:, :256].to(dev)
-    before = tpa.packed_attention_fwd.launches
+    before = (tpa.packed_attention_fwd.launches, tfa.flash_attention_fwd.launches)
     with packed_segment_bound(60):
         out = attention(q, k, k, segment_ids=seg)
-    assert tpa.packed_attention_fwd.launches == before + 1
+    assert tpa.packed_attention_fwd.launches == before[0] + 1
     assert out.shape == q.shape
-    with pytest.raises(NotImplementedError, match="K16"):
-        attention(q, k, k, segment_ids=seg)
+    out2 = attention(q, k, k, segment_ids=seg)
+    assert tfa.flash_attention_fwd.launches == before[1] + 1
+    real = seg[0] != 0   # the packed kernels leave pad outputs unspecified
+    assert attn_row_err(out2[:, real], out[:, real]) <= ATTN_ROW_TOL
+
+
+# ---------------------------------------------------------------------------
+# SFT without packing: full-logits CE (K7/K8), unpacked flash (K16)
+# ---------------------------------------------------------------------------
+
+from unsloth_tpu_torch.ops import cross_entropy as tce  # noqa: E402
+from unsloth_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+
+@pytest.mark.parametrize("n,v,dtype", [(300, 2500, torch.bfloat16),
+                                       (257, 4099, torch.float32),
+                                       (64, 128256, torch.bfloat16)])
+@pytest.mark.parametrize("softcap,scale", [(None, None), (30.0, 0.5)])
+def test_cross_entropy_kernels_match_plain(dev, n, v, dtype, softcap, scale):
+    """K7 (loss, lse) and K8 (dlogits) against the plain twins on the same
+    inputs, a ragged V (not a multiple of 8, which the vectorized loop
+    masks) among them, 30% ignored rows. loss/lse within 1e-4 relative (fp32
+    sums in another order); dlogits within 2 ulps of its dtype plus 1e-6
+    of the largest value (fp32 math in another order, one rounding)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    logits = (torch.randn((n, v), generator=g, device=dev) * 4).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev)
+    labels[torch.rand(n, generator=g, device=dev) < 0.3] = -100
+    gr = torch.rand(n, generator=g, device=dev)
+    before = (tce.cross_entropy_fwd.launches, tce.cross_entropy_bwd.launches)
+    loss, lse = tce.cross_entropy_fwd(logits, labels, softcap, scale)
+    dx = tce.cross_entropy_bwd(logits, labels, lse, gr, softcap, scale)
+    rloss, rlse = tce.cross_entropy_ref(logits, labels, softcap, scale)
+    rdx = tce.cross_entropy_bwd_ref(logits, labels, lse, gr, softcap, scale)
+    torch.cuda.synchronize()
+    assert (tce.cross_entropy_fwd.launches,
+            tce.cross_entropy_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(loss, rloss, rtol=1e-4, atol=1e-4)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert dx.dtype == dtype
+    assert ((dx.float() - rdx.float()).abs() <= 2 * ulp * rdx.float().abs()
+            + 1e-6 * rdx.float().abs().max()).all()
+
+
+@pytest.mark.parametrize("t", [256, 200])
+def test_flash_attention_kernels_match_plain(dev, t):
+    """K16 forward (out, lse) and backward (dq, dk, dv) against the plain
+    fp32 twins on the same bf16 inputs, one full row and one padded row
+    (pad queries included), a ragged T among them: every position row by
+    row (``chip_smoke.attn_row_err``: each element within 2^-6 of its
+    value plus 2^-4 of its (token, head) row's rms; the kernels round P
+    and dS to bf16), lse within 1e-3; the backward pair gets the kernel
+    forward's (out, lse)."""
+    hq, hkv, d = 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = torch.ones((2, t), dtype=torch.int32, device=dev)
+    seg[1, t - 70:] = 0
+    lo, hi = tfa.tile_segment_ranges(seg)
+    scale = d ** -0.5
+    before = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+              tfa.flash_attention_dkv.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, seg, lo, hi, scale=scale)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, seg, lo, hi, out, lse, dout,
+                                         scale=scale)
+    rout, rlse = tfa.flash_attention_fwd_ref(q, k, v, seg, scale)
+    rdq, rdk, rdv = tfa.flash_attention_bwd_ref(q, k, v, seg, out, lse, dout,
+                                                scale)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
+            tfa.flash_attention_dkv.launches) == tuple(x + 1 for x in before)
+    assert (lse - rlse).abs().max() <= 1e-3
+    for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got).all()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+
+
+def test_flash_attention_refuses_other_head_dims(dev):
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim 128"):
+        tfa.flash_attention(q, q, q)

@@ -244,5 +244,3 @@ def test_trainer_refuses_unported_options(model_pair, tmp_path):
                                                  max_seq_length=T, **kw))
         with pytest.raises(NotImplementedError):
             tr.train()
-    with pytest.raises(NotImplementedError):
-        tr.evaluate()

@@ -2,8 +2,8 @@
 the same numpy inputs, on the CPU: the plain twins of the NF4 backward
 (K2), the RMSNorm backward (K4) and packed attention (K9-K11) against the
 JAX Pallas kernels in interpret mode, the autograd of each against
-``jax.grad``, the chunked fused CE, packing, and the CUDA routes that
-still raise."""
+``jax.grad``, the chunked fused CE, packing, and the CUDA routes: those
+with kernels reach their wrappers, the others raise."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,8 @@ from unsloth_tpu.ops.rms_norm import rms_norm as jrms_norm
 from unsloth_tpu_torch.data import packing as tpack
 from unsloth_tpu_torch.interop import params_from_numpy
 from unsloth_tpu_torch.ops import attention as tatt
+from unsloth_tpu_torch.ops import cross_entropy as tce_full
+from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.ops import fused_ce_linear as tce
 from unsloth_tpu_torch.ops import packed_attention as tpa
 from unsloth_tpu_torch.ops.cross_entropy import fast_cross_entropy_loss
@@ -243,7 +245,6 @@ def test_attention_ref_matches_jax():
     ("window", dict(window=8), "K18"),
     ("softcap", dict(softcap=30.0), "K18"),
     ("sinks", dict(sinks=torch.zeros(4, device="meta")), "K17"),
-    ("unpacked", dict(), "K16"),
 ])
 def test_unported_device_routes_raise(route, kw, kernel):
     """Off the CPU every route without a kernel raises and names the TPU
@@ -255,11 +256,57 @@ def test_unported_device_routes_raise(route, kw, kernel):
         tatt.attention(q, k, k, segment_ids=seg, **kw)
 
 
-def test_full_logits_ce_off_cpu_raises():
-    logits = torch.empty((4, 32), device="meta")
+def _recorder(calls, name, result):
+    def launch(*args, **kw):
+        calls.append(name)
+        return result(*args)
+    return launch
+
+
+@pytest.mark.parametrize("with_segments", [True, False])
+def test_unpacked_device_route_reaches_k16(monkeypatch, with_segments):
+    """Off the CPU, causal attention without a declared segment bound (a
+    padded row, or no segment ids) goes to the K16 kernel wrappers: the
+    forward, then dq and dk/dv in the backward, at a ragged T (a meta
+    tensor stands in for a CUDA one; the launchers are recorded)."""
+    b, t, hq, hkv, d = 2, 100, 4, 2, 128
+    calls = []
+    meta = dict(device="meta")
+    monkeypatch.setattr(tfa, "flash_attention_fwd", _recorder(
+        calls, "fwd", lambda q, *_: (torch.empty_like(q),
+                                     torch.empty((b, hq, t), **meta))))
+    monkeypatch.setattr(tfa, "flash_attention_dq", _recorder(
+        calls, "dq", lambda q, *_: (torch.empty_like(q),
+                                    torch.empty((b, hq, t), **meta))))
+    monkeypatch.setattr(tfa, "flash_attention_dkv", _recorder(
+        calls, "dkv", lambda q, k, v, *_: (torch.empty_like(k),
+                                           torch.empty_like(v))))
+    q = torch.empty((b, t, hq, d), requires_grad=True, **meta)
+    k = torch.empty((b, t, hkv, d), requires_grad=True, **meta)
+    seg = torch.ones((b, t), dtype=torch.int32, **meta) if with_segments \
+        else None
+    out = tatt.attention(q, k, k, segment_ids=seg)
+    assert calls == ["fwd"] and out.shape == q.shape
+    out.sum().backward()
+    assert calls == ["fwd", "dq", "dkv"]
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+
+def test_full_logits_ce_off_cpu_reaches_k7_k8(monkeypatch):
+    """Off the CPU the full-logits CE goes to the K7 wrapper forward and
+    the K8 wrapper backward (a meta tensor stands in for a CUDA one)."""
+    calls = []
+    monkeypatch.setattr(tce_full, "cross_entropy_fwd", _recorder(
+        calls, "K7", lambda x, *_: (torch.empty(x.shape[:1], device="meta"),
+                                    torch.empty(x.shape[:1], device="meta"))))
+    monkeypatch.setattr(tce_full, "cross_entropy_bwd", _recorder(
+        calls, "K8", lambda x, *_: torch.empty_like(x)))
+    logits = torch.empty((4, 32), device="meta", requires_grad=True)
     labels = torch.empty((4,), dtype=torch.int64, device="meta")
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        fast_cross_entropy_loss(logits, labels)
+    loss = fast_cross_entropy_loss(logits, labels)
+    assert calls == ["K7"]
+    loss.backward()
+    assert calls == ["K7", "K8"] and logits.grad.shape == logits.shape
 
 
 def test_segment_bound_context_nests():

@@ -9,7 +9,9 @@ in ``csrc/``, built on first use (``kernels.py``).
 Ported so far, for the llama-family dense decoder: the serving slice
 (load -> NF4 quantize -> generate -> OpenAI-compatible HTTP server) and the
 training slice (get_peft_model -> packed rows -> QLoRA SFT with offloaded
-gradient checkpointing and a chunked fused CE).
+gradient checkpointing and a chunked fused CE), and SFT without packing
+(padded rows through the flash kernels, the full-logits CE, evaluate,
+response-only labels, merged and LoRA saves).
 """
 
 __version__ = "0.1.0"
@@ -18,4 +20,5 @@ __version__ = "0.1.0"
 from .models.loader import FastLanguageModel, LanguageModel  # noqa: E402,F401
 from .inference.generate import SamplingParams, generate  # noqa: E402,F401
 from .inference.server import InferenceServer  # noqa: E402,F401
-from .trainer.sft import SFTConfig, SFTTrainer  # noqa: E402,F401
+from .trainer.sft import (SFTConfig, SFTTrainer,  # noqa: E402,F401
+                          train_on_responses_only, unsloth_train)

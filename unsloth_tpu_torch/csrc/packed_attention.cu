@@ -1,459 +1,44 @@
 // Segment-block-sparse causal flash attention for packed rows, GQA, bf16.
 //
 // Replaces the TPU kernels of unsloth_tpu/ops/packed_attention.py:
-//   packed_attn_fwd_kernel  <- _fwd_kernel  (forward: out and an fp32 lse)
-//   packed_attn_dq_kernel   <- _dq_kernel   (dq; also di = sum(dout * out))
-//   packed_attn_dkv_kernel  <- _dkv_kernel  (dk, dv summed over the query
-//                                            heads that share a kv head)
-// Same semantics: token i of a row attends to token j iff both carry the
-// same segment id and j <= i. Query block iq (64 tokens) visits kv blocks
-// [kv_lo, min(kv_lo + n_kv - 1, iq)], kv block j visits query blocks
-// [j, min(j + n_kv - 1, q_hi)], where kv_lo / q_hi come from
-// segment_block_metadata and n_kv is the packer's segment-length bound in
-// blocks. q is pre-scaled in bf16 inside the kernels (q * bf16(scale), the
-// rounding point of the JAX wrapper) and dq gets the factor `scale` back.
-// P is rounded to bf16 before P @ V and P^T @ dO, dS before dS @ K and
-// dS^T @ Q, as in the TPU kernels; row statistics stay fp32.
-//
-// Layouts (the model's, no transposes): q, out, dout, dq [B, T, Hq, D];
-// k, v, dk, dv [B, T, Hkv, D]; segment ids [B, T] int32; lse, di
-// [B, Hq, T] fp32. D is 128; T is a multiple of 64.
+//   attn_fwd_kernel<PackedRange>  <- _fwd_kernel  (forward: out and an fp32 lse)
+//   attn_dq_kernel<PackedRange>   <- _dq_kernel   (dq; also di = sum(dout * out))
+//   attn_dkv_kernel<PackedRange>  <- _dkv_kernel  (dk, dv summed over the
+//                                                  query heads that share a kv head)
+// The kernel bodies live in attention_tiles.cuh, shared with the unpacked
+// flash kernels of flash_attention.cu; this file supplies the packed range.
+// Same semantics as the TPU kernels: token i of a row attends to token j
+// iff both carry the same segment id and j <= i. Query block iq (64
+// tokens) visits kv blocks [kv_lo, min(kv_lo + n_kv - 1, iq)], kv block j
+// visits query blocks [j, min(j + n_kv - 1, q_hi)], where kv_lo / q_hi come
+// from segment_block_metadata and n_kv is the packer's segment-length bound
+// in blocks. That skip assumes contiguous segments; outputs at pad
+// positions are then unspecified. q is pre-scaled in bf16 inside the
+// kernels (q * bf16(scale), the rounding point of the JAX wrapper) and dq
+// gets the factor `scale` back. T is a multiple of 64.
 //
 // What bounds it on an H100: tensor-core work over the visited tiles,
-// O(sum of segment lengths squared) rather than O(T^2). Design, kept
-// simple: one block of four warps per (64-query tile, head) for the
-// forward and dq, per (64-key tile, kv head) for dk/dv; tiles are staged
-// in shared memory and multiplied with nvcuda::wmma 16x16x16 bf16 MMAs in
-// fp32. Each warp owns 16 query rows for QK^T and the softmax, so the row
-// statistics need only warp shuffles. The forward keeps its running output
-// in shared memory (fp32) so a row can be rescaled; dq, dk and dv
-// accumulate in registers. The TPU's sequential grid axis becomes a loop
-// inside the block, and dq and dk/dv are separate kernels, so there are no
-// atomics and the result is the same on every run. wgmma, TMA and
-// pipelining are later work.
+// O(sum of segment lengths squared) rather than O(T^2); see the header
+// for the tile design.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kD = 128;          // head dim
-constexpr int kBlk = 64;         // tokens per tile
-constexpr int kThreads = 128;    // four warps, 16 query rows each
-constexpr int kLd = kD + 8;      // bf16 [64][kD] tile row stride
-constexpr int kLds = kBlk + 4;   // fp32 [64][64] score tile row stride
-constexpr int kLdp = kBlk + 8;   // bf16 [64][64] probability tile row stride
-constexpr int kLdo = kD + 4;     // fp32 [64][kD] output tile row stride
-constexpr float kNegInf = -1e30f;
-constexpr float kEmptyLse = 1e30f;
-
-constexpr int kTileBf16 = kBlk * kLd * 2;   // bytes
-constexpr int kTileS = kBlk * kLds * 4;
-constexpr int kTileP = kBlk * kLdp * 2;
-constexpr int kTileO = kBlk * kLdo * 4;
-constexpr int kRowVecs = 4 * kBlk * 4;      // four [64] fp32/int32 arrays
-
-constexpr int kFwdSmem = 3 * kTileBf16 + kTileS + kTileP + kTileO + kRowVecs;
-constexpr int kDqSmem = 4 * kTileBf16 + 2 * kTileS + kTileP + kRowVecs;
-constexpr int kDkvSmem = 4 * kTileBf16 + 2 * kTileS + 2 * kTileP + kRowVecs;
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// 64 rows (tokens t0..t0+63 of head h) of a [B, T, H, kD] tensor into a
-// shared [64][kLd] tile; with `scale` each value is multiplied in fp32 and
-// rounded back to bf16.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int T,
-                                          int H, int h, int t0, bool do_scale, float scale) {
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 v = *reinterpret_cast<const uint4*>(src + (((size_t)b * T + t0 + r) * H + h) * kD + col);
-    if (do_scale) {
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + col) = v;
+struct PackedRange {
+  const int* kv_lo;  // [B, T/64]
+  const int* q_hi;   // [B, T/64]
+  int nq, n_kv;
+  __device__ int kv_begin(int b, int iq) const { return kv_lo[(size_t)b * nq + iq]; }
+  __device__ int kv_end(int b, int iq) const { return min(kv_begin(b, iq) + n_kv - 1, iq); }
+  __device__ int q_end(int b, int j) const {
+    return min(j + n_kv - 1, q_hi[(size_t)b * nq + j]);
   }
-}
+  __device__ bool skip(int, int, int) const { return false; }
+};
 
-// S[r][c] = sum_d A[r][d] * B[c][d] for the warp's 16 rows r, all 64 c.
-__device__ __forceinline__ void rows_times_tile_t(float* S, const bf16* A, const bf16* B,
-                                                  int warp) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBlk / 16];
-#pragma unroll
-  for (int nf = 0; nf < kBlk / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < kD; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-    for (int nf = 0; nf < kBlk / 16; ++nf) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(bt, B + nf * 16 * kLd + kk, kLd);
-      wmma::mma_sync(acc[nf], a, bt, acc[nf]);
-    }
-  }
-#pragma unroll
-  for (int nf = 0; nf < kBlk / 16; ++nf)
-    wmma::store_matrix_sync(S + warp * 16 * kLds + nf * 16, acc[nf], kLds, wmma::mem_row_major);
-}
-
-// Writes a fp32 [64][kLdo] staging tile as bf16 rows (times `scale`) of a
-// [B, T, H, kD] tensor.
-__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const float* stage, int b,
-                                           int T, int H, int h, int t0, float scale) {
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const float* s = stage + r * kLdo + col;
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(s[2 * e] * scale, s[2 * e + 1] * scale);
-    *reinterpret_cast<uint4*>(dst + (((size_t)b * T + t0 + r) * H + h) * kD + col) = o;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (T/64, Hq, B)
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-packed_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const int* __restrict__ seg,
-                       const int* __restrict__ kv_lo, bf16* __restrict__ out,
-                       float* __restrict__ lse, int T, int Hq, int Hkv, int n_kv, float scale_q) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBlk * kLd;
-  bf16* Vs = Ks + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBlk * kLd);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + kBlk * kLds);
-  float* Os = reinterpret_cast<float*>(Ps + kBlk * kLdp);
-  float* m_s = Os + kBlk * kLdo;
-  float* l_s = m_s + kBlk;
-  int* qseg = reinterpret_cast<int*>(l_s + kBlk);
-  int* kseg = qseg + kBlk;
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nq = T / kBlk;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tile(Qs, q, b, T, Hq, h, iq * kBlk, true, scale_q);
-  for (int i = threadIdx.x; i < kBlk; i += kThreads) {
-    qseg[i] = seg[(size_t)b * T + iq * kBlk + i];
-    m_s[i] = kNegInf;
-    l_s[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < kBlk * kLdo; i += kThreads) Os[i] = 0.0f;
-
-  const int lo = kv_lo[(size_t)b * nq + iq];
-  const int hi = min(lo + n_kv - 1, iq);
-  for (int j = lo; j <= hi; ++j) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, k, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-    load_tile(Vs, v, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-    for (int i = threadIdx.x; i < kBlk; i += kThreads) kseg[i] = seg[(size_t)b * T + j * kBlk + i];
-    __syncthreads();
-
-    rows_times_tile_t(Ss, Qs, Ks, warp);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qpos = iq * kBlk + r;
-      const int qs = qseg[r];
-      const float s0 = Ss[r * kLds + lane], s1 = Ss[r * kLds + lane + 32];
-      const bool v0 = kseg[lane] == qs && j * kBlk + lane <= qpos;
-      const bool v1 = kseg[lane + 32] == qs && j * kBlk + lane + 32 <= qpos;
-      const float mx = warp_max(fmaxf(v0 ? s0 : kNegInf, v1 ? s1 : kNegInf));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      const float p0 = v0 ? expf(s0 - m_new) : 0.0f;
-      const float p1 = v1 ? expf(s1 - m_new) : 0.0f;
-      const float sum = warp_sum(p0 + p1);
-      Ps[r * kLdp + lane] = __float2bfloat16(p0);
-      Ps[r * kLdp + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < kD; d += 32) Os[r * kLdo + d] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-      }
-    }
-    __syncwarp();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
-#pragma unroll
-    for (int nf = 0; nf < kD / 16; ++nf)
-      wmma::load_matrix_sync(o[nf], Os + warp * 16 * kLdo + nf * 16, kLdo, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBlk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ps + warp * 16 * kLdp + kk, kLdp);
-#pragma unroll
-      for (int nf = 0; nf < kD / 16; ++nf) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * kLd + nf * 16, kLd);
-        wmma::mma_sync(o[nf], a, bv, o[nf]);
-      }
-    }
-#pragma unroll
-    for (int nf = 0; nf < kD / 16; ++nf)
-      wmma::store_matrix_sync(Os + warp * 16 * kLdo + nf * 16, o[nf], kLdo, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const float l = l_s[r];
-    const float* s = Os + r * kLdo + col;
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o2[e] = __floats2bfloat162_rn(l > 0.0f ? s[2 * e] / l : 0.0f,
-                                    l > 0.0f ? s[2 * e + 1] / l : 0.0f);
-    *reinterpret_cast<uint4*>(out + (((size_t)b * T + iq * kBlk + r) * Hq + h) * kD + col) = o;
-  }
-  for (int r = threadIdx.x; r < kBlk; r += kThreads) {
-    const float l = l_s[r];
-    lse[((size_t)b * Hq + h) * T + iq * kBlk + r] = l > 0.0f ? m_s[r] + logf(l) : kEmptyLse;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dq (and di): grid (T/64, Hq, B)
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-packed_attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const int* __restrict__ seg,
-                      const int* __restrict__ kv_lo, const bf16* __restrict__ out,
-                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                      float* __restrict__ di, bf16* __restrict__ dq, int T, int Hq, int Hkv,
-                      int n_kv, float scale_q, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBlk * kLd;
-  bf16* Ks = dOs + kBlk * kLd;
-  bf16* Vs = Ks + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBlk * kLd);
-  float* dPs = Ss + kBlk * kLds;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + kBlk * kLds);
-  float* lse_s = reinterpret_cast<float*>(dSs + kBlk * kLdp);
-  float* di_s = lse_s + kBlk;
-  int* qseg = reinterpret_cast<int*>(di_s + kBlk);
-  int* kseg = qseg + kBlk;
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nq = T / kBlk;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t row0 = ((size_t)b * Hq + h) * T + iq * kBlk;  // into lse / di
-
-  load_tile(Qs, q, b, T, Hq, h, iq * kBlk, true, scale_q);
-  load_tile(dOs, dout, b, T, Hq, h, iq * kBlk, false, 1.0f);
-  for (int i = threadIdx.x; i < kBlk; i += kThreads) {
-    qseg[i] = seg[(size_t)b * T + iq * kBlk + i];
-    lse_s[i] = lse[row0 + i];
-  }
-  // di = sum_d dout * out in fp32, one warp per row
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const size_t off = (((size_t)b * T + iq * kBlk + r) * Hq + h) * kD;
-    float acc = 0.0f;
-    for (int d = lane; d < kD; d += 32)
-      acc += __bfloat162float(dout[off + d]) * __bfloat162float(out[off + d]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      di_s[r] = acc;
-      di[row0 + r] = acc;
-    }
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kD / 16];
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
-
-  const int lo = kv_lo[(size_t)b * nq + iq];
-  const int hi = min(lo + n_kv - 1, iq);
-  for (int j = lo; j <= hi; ++j) {
-    __syncthreads();
-    load_tile(Ks, k, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-    load_tile(Vs, v, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-    for (int i = threadIdx.x; i < kBlk; i += kThreads) kseg[i] = seg[(size_t)b * T + j * kBlk + i];
-    __syncthreads();
-
-    rows_times_tile_t(Ss, Qs, Ks, warp);
-    rows_times_tile_t(dPs, dOs, Vs, warp);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qpos = iq * kBlk + r;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const bool valid = kseg[c] == qseg[r] && j * kBlk + c <= qpos;
-        const float p = valid ? expf(Ss[r * kLds + c] - lse_s[r]) : 0.0f;
-        dSs[r * kLdp + c] = __float2bfloat16(p * (dPs[r * kLds + c] - di_s[r]));
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kBlk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, dSs + warp * 16 * kLdp + kk, kLdp);
-#pragma unroll
-      for (int nf = 0; nf < kD / 16; ++nf) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-        wmma::load_matrix_sync(bk, Ks + kk * kLd + nf * 16, kLd);
-        wmma::mma_sync(acc[nf], a, bk, acc[nf]);
-      }
-    }
-  }
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf)
-    wmma::store_matrix_sync(stage + warp * 16 * kLdo + nf * 16, acc[nf], kLdo, wmma::mem_row_major);
-  __syncthreads();
-  store_tile(dq, stage, b, T, Hq, h, iq * kBlk, scale);
-}
-
-// ---------------------------------------------------------------------------
-// dk, dv: grid (T/64, Hkv, B); loops over the Hq/Hkv query heads of the kv
-// head and the query tiles [j, min(j + n_kv - 1, q_hi)].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-packed_attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const int* __restrict__ seg,
-                       const int* __restrict__ q_hi, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ di,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Hq, int Hkv,
-                       int n_kv, float scale_q) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBlk * kLd;
-  bf16* Qs = Vs + kBlk * kLd;
-  bf16* dOs = Qs + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(dOs + kBlk * kLd);
-  float* dPs = Ss + kBlk * kLds;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + kBlk * kLds);
-  bf16* dSs = Ps + kBlk * kLdp;
-  float* lse_s = reinterpret_cast<float*>(dSs + kBlk * kLdp);
-  float* di_s = lse_s + kBlk;
-  int* qseg = reinterpret_cast<int*>(di_s + kBlk);
-  int* kseg = qseg + kBlk;
-
-  const int j = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int nk = T / kBlk;
-  const int group = Hq / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tile(Ks, k, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-  load_tile(Vs, v, b, T, Hkv, hk, j * kBlk, false, 1.0f);
-  for (int i = threadIdx.x; i < kBlk; i += kThreads) kseg[i] = seg[(size_t)b * T + j * kBlk + i];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[kD / 16], dv_acc[kD / 16];
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf) {
-    wmma::fill_fragment(dk_acc[nf], 0.0f);
-    wmma::fill_fragment(dv_acc[nf], 0.0f);
-  }
-
-  const int last = min(j + n_kv - 1, q_hi[(size_t)b * nk + j]);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    for (int iq = j; iq <= last; ++iq) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile(Qs, q, b, T, Hq, h, iq * kBlk, true, scale_q);
-      load_tile(dOs, dout, b, T, Hq, h, iq * kBlk, false, 1.0f);
-      const size_t row0 = ((size_t)b * Hq + h) * T + iq * kBlk;
-      for (int i = threadIdx.x; i < kBlk; i += kThreads) {
-        qseg[i] = seg[(size_t)b * T + iq * kBlk + i];
-        lse_s[i] = lse[row0 + i];
-        di_s[i] = di[row0 + i];
-      }
-      __syncthreads();
-
-      rows_times_tile_t(Ss, Qs, Ks, warp);    // S[q][c]
-      rows_times_tile_t(dPs, dOs, Vs, warp);  // dP[q][c]
-      __syncwarp();
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        const int qpos = iq * kBlk + r;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const bool valid = kseg[c] == qseg[r] && j * kBlk + c <= qpos;
-          const float p = valid ? expf(Ss[r * kLds + c] - lse_s[r]) : 0.0f;
-          Ps[r * kLdp + c] = __float2bfloat16(p);
-          dSs[r * kLdp + c] = __float2bfloat16(p * (dPs[r * kLds + c] - di_s[r]));
-        }
-      }
-      __syncthreads();  // every query row of P and dS is written
-
-      // warp w owns key rows 16w..16w+15: dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < kBlk; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, sa;
-        wmma::load_matrix_sync(pa, Ps + kk * kLdp + warp * 16, kLdp);
-        wmma::load_matrix_sync(sa, dSs + kk * kLdp + warp * 16, kLdp);
-#pragma unroll
-        for (int nf = 0; nf < kD / 16; ++nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bo, bq;
-          wmma::load_matrix_sync(bo, dOs + kk * kLd + nf * 16, kLd);
-          wmma::mma_sync(dv_acc[nf], pa, bo, dv_acc[nf]);
-          wmma::load_matrix_sync(bq, Qs + kk * kLd + nf * 16, kLd);
-          wmma::mma_sync(dk_acc[nf], sa, bq, dk_acc[nf]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf)
-    wmma::store_matrix_sync(stage + warp * 16 * kLdo + nf * 16, dk_acc[nf], kLdo,
-                            wmma::mem_row_major);
-  __syncthreads();
-  store_tile(dk, stage, b, T, Hkv, hk, j * kBlk, 1.0f);
-  __syncthreads();
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf)
-    wmma::store_matrix_sync(stage + warp * 16 * kLdo + nf * 16, dv_acc[nf], kLdo,
-                            wmma::mem_row_major);
-  __syncthreads();
-  store_tile(dv, stage, b, T, Hkv, hk, j * kBlk, 1.0f);
-}
-
-int set_smem(const void* fn, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+AttnArgs packed_args(int T, int Hq, int Hkv, float scale_q, float scale) {
+  return AttnArgs{T, Hq, Hkv, true, scale_q, 1.0f, 1.0f, scale};
 }
 
 }  // namespace
@@ -466,13 +51,14 @@ extern "C" int unsloth_packed_attn_fwd(const void* q, const void* k, const void*
                                        const void* seg, const void* kv_lo, void* out, void* lse,
                                        int B, int T, int Hq, int Hkv, int n_kv, float scale_q,
                                        void* stream) {
-  int e = set_smem(reinterpret_cast<const void*>(packed_attn_fwd_kernel), kFwdSmem);
+  int e = set_smem(reinterpret_cast<const void*>(attn_fwd_kernel<PackedRange>), kFwdSmem);
   if (e) return e;
-  const dim3 grid(T / kBlk, Hq, B);
-  packed_attn_fwd_kernel<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  const PackedRange range{static_cast<const int*>(kv_lo), nullptr, T / kBlk, n_kv};
+  attn_fwd_kernel<PackedRange><<<dim3(T / kBlk, Hq, B), kThreads, kFwdSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<const int*>(kv_lo), static_cast<bf16*>(out),
-      static_cast<float*>(lse), T, Hq, Hkv, n_kv, scale_q);
+      static_cast<const int*>(seg), range, static_cast<bf16*>(out), static_cast<float*>(lse),
+      packed_args(T, Hq, Hkv, scale_q, 1.0f));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -486,23 +72,24 @@ extern "C" int unsloth_packed_attn_bwd(const void* q, const void* k, const void*
                                        int Hq, int Hkv, int n_kv, float scale_q, float scale,
                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = set_smem(reinterpret_cast<const void*>(packed_attn_dq_kernel), kDqSmem);
+  int e = set_smem(reinterpret_cast<const void*>(attn_dq_kernel<PackedRange>), kDqSmem);
   if (e) return e;
-  e = set_smem(reinterpret_cast<const void*>(packed_attn_dkv_kernel), kDkvSmem);
+  e = set_smem(reinterpret_cast<const void*>(attn_dkv_kernel<PackedRange>), kDkvSmem);
   if (e) return e;
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
   const auto* sp = static_cast<const int*>(seg);
-  packed_attn_dq_kernel<<<dim3(T / kBlk, Hq, B), kThreads, kDqSmem, s>>>(
-      qp, kp, vp, sp, static_cast<const int*>(kv_lo), static_cast<const bf16*>(out),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<float*>(di),
-      static_cast<bf16*>(dq), T, Hq, Hkv, n_kv, scale_q, scale);
+  const PackedRange range{static_cast<const int*>(kv_lo), static_cast<const int*>(q_hi),
+                          T / kBlk, n_kv};
+  const AttnArgs a = packed_args(T, Hq, Hkv, scale_q, scale);
+  attn_dq_kernel<PackedRange><<<dim3(T / kBlk, Hq, B), kThreads, kDqSmem, s>>>(
+      qp, kp, vp, sp, range, static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(di), static_cast<bf16*>(dq), a);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  packed_attn_dkv_kernel<<<dim3(T / kBlk, Hkv, B), kThreads, kDkvSmem, s>>>(
-      qp, kp, vp, sp, static_cast<const int*>(q_hi), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, Hq, Hkv, n_kv, scale_q);
+  attn_dkv_kernel<PackedRange><<<dim3(T / kBlk, Hkv, B), kThreads, kDkvSmem, s>>>(
+      qp, kp, vp, sp, range, static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
   return static_cast<int>(cudaGetLastError());
 }

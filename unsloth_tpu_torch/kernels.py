@@ -27,7 +27,10 @@ from typing import Optional
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
-SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu")
+SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
+           "flash_attention.cu", "cross_entropy.cu")
+#: headers the sources include; part of the library's hash
+HEADERS = ("attention_tiles.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -55,7 +58,7 @@ def find_nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libunsloth_kernels-{h.hexdigest()[:16]}.so"
@@ -123,6 +126,19 @@ def library() -> ctypes.CDLL:
                                                 p, p, p, i, i, i, i, i, f, f,
                                                 p]
         lib.unsloth_packed_attn_bwd.restype = i
+        lib.unsloth_flash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                               i, i, f, p]
+        lib.unsloth_flash_attn_fwd.restype = i
+        lib.unsloth_flash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                              p, i, i, i, i, f, p]
+        lib.unsloth_flash_attn_dq.restype = i
+        lib.unsloth_flash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                               p, i, i, i, i, f, p]
+        lib.unsloth_flash_attn_dkv.restype = i
+        lib.unsloth_ce_fwd.argtypes = [p, p, p, p, i, i, f, f, i, p]
+        lib.unsloth_ce_fwd.restype = i
+        lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
+        lib.unsloth_ce_bwd.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -6,7 +6,8 @@ Counterpart of unsloth_tpu/models/decoder.py: ``_norm``, ``_proj``,
 ``attention_block``, ``decoder_layer``, ``forward`` (with per-layer
 rematerialization, optionally offloading the layer boundaries to pinned
 host memory), ``loss_fn`` / ``_loss_from_hidden`` (shifted labels, global
-``n_items``, chunked fused CE) and ``logits_fn``.
+``n_items``, the full-logits CE through the K7/K8 kernels or the
+chunked fused CE, chosen by :func:`fused_ce_gate`) and ``logits_fn``.
 
 Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
 
@@ -277,19 +278,55 @@ def loss_fn(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
                              fused_ce=fused_ce, chunk_size=chunk_size)
 
 
-def _resolve_fused_ce(h2d: torch.Tensor) -> bool:
-    """The ``fused_ce="auto"`` gate.
+#: share of device memory the full-logits CE may plan for: the JAX
+#: package's 13.5 GB budget on its 16 GiB chip (27/32)
+CE_MEMORY_SHARE = 27 / 32
 
-    On a CUDA tensor it resolves to the chunked fused path
-    (ops/fused_ce_linear.py) at every size: the full-logits CE there
-    needs TPU kernels K7/K8, which are not ported yet. That is also the
-    route the JAX package takes on its own chip at the training shape
-    (8K rows x 128K vocab: 4.2 GB of fp32 logits against its 13.5 GB
-    budget). When K7/K8 land, the gate is re-derived for 80 GB.
 
-    Off CUDA it is the JAX package's gate as it runs off the TPU, where
-    its memory budget has no limit: always the full logits."""
-    return h2d.is_cuda
+def fused_ce_gate(n_rows: int, vocab: int, param_bytes: int, num_layers: int,
+                  hidden: int, total_memory: int) -> bool:
+    """The ``fused_ce="auto"`` gate on a card with ``total_memory`` bytes:
+    True for the chunked fused CE, False for the full logits.
+
+    The JAX gate's form (unsloth_tpu/models/decoder.py:_loss_from_hidden):
+    full logits when their fp32 bytes are at most 1.5 GiB, else full only
+    while the weights, one bf16 layer boundary per layer (per-layer
+    checkpointing) and two fp32 logits buffers fit the budget, which is
+    the same share of the card's memory that the JAX package allots on its
+    chip."""
+    logits_bytes = n_rows * vocab * 4
+    if logits_bytes <= 1536 * 1024 * 1024:
+        return False
+    resid_bytes = num_layers * n_rows * hidden * 2
+    return (param_bytes + resid_bytes + 2 * logits_bytes
+            > CE_MEMORY_SHARE * total_memory)
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of every tensor in a param tree (NF4 weights by their packed
+    codes and scales)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, NF4Tensor):
+        return sum(tree_bytes(t) for t in (tree.packed, tree.absmax,
+                                           tree.absmax_scale,
+                                           tree.absmax_offset))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def _resolve_fused_ce(params, h2d: torch.Tensor, cfg: ModelConfig) -> bool:
+    """``fused_ce="auto"``: on a CUDA tensor :func:`fused_ce_gate` with the
+    card's memory; off CUDA the JAX package's gate as it runs off the TPU,
+    where its budget has no limit: always the full logits."""
+    if not h2d.is_cuda:
+        return False
+    return fused_ce_gate(
+        h2d.shape[0], cfg.vocab_size, tree_bytes(params), cfg.num_layers,
+        h2d.shape[1], torch.cuda.get_device_properties(h2d.device).total_memory)
 
 
 def _loss_from_hidden(params, lora, h: torch.Tensor, labels: torch.Tensor,
@@ -303,7 +340,7 @@ def _loss_from_hidden(params, lora, h: torch.Tensor, labels: torch.Tensor,
     h2d = h[:, :-1].reshape(-1, d)
     lb = labels[:, 1:].reshape(-1)
     if fused_ce == "auto":
-        fused_ce = _resolve_fused_ce(h2d)
+        fused_ce = _resolve_fused_ce(params, h2d, cfg)
     w, trainable = _head_weight(params, lora)
     lm_head_trainable = lm_head_trainable or trainable
     if chunk_size is None:

@@ -1,11 +1,14 @@
 """HF safetensors checkpoint -> parameter tree, in PyTorch.
 
-Counterpart of unsloth_tpu/models/hf_loader.py:load_params for the
-llama-family dense decoder: single-file or index-sharded checkpoints, read
+Counterpart of unsloth_tpu/models/hf_loader.py (``load_params``,
+``save_params``) for the llama-family dense decoder: single-file or
+index-sharded checkpoints, read
 one tensor at a time with the package's own safetensors reader
 (``io_safetensors``), moved to the target device, cast to ``dtype`` and,
 with ``load_in_4bit``, NF4-quantized there as it arrives (so the dense
 bf16 copy of a projection exists only while it is being quantized).
+:func:`save_params` writes a tree back with HF names, one tensor at a time
+(``io_safetensors.save_sharded``).
 
 Not ported yet: pre-quantized bitsandbytes checkpoints, fused
 qkv_proj/gate_up_proj checkpoints, expert weights and
@@ -20,8 +23,9 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
-from ..io_safetensors import SafetensorsFile
-from ..ops.nf4 import quantize_nf4
+from ..io_safetensors import SafetensorsFile, save_sharded
+from ..ops.lora import merge_lora
+from ..ops.nf4 import NF4Tensor, dequantize_nf4, quantize_nf4
 from . import hf_names
 from .config import ModelConfig, load_hf_config
 
@@ -97,3 +101,45 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, *,
             for ours, hf in hf_names.layer_name_map(cfg, i).items()
             if hf in reader})
     return params
+
+
+def save_params(params: Dict[str, Any], cfg: ModelConfig, path: str, *,
+                dtype: torch.dtype = torch.bfloat16,
+                max_shard_bytes: int = 4 * 1024**3,
+                hf_config: Optional[Dict[str, Any]] = None,
+                lora: Optional[Dict[str, Any]] = None) -> None:
+    """Write the param tree as an HF-layout safetensors checkpoint: HF
+    names, shards of at most ``max_shard_bytes`` with an index when there
+    are several, every weight in ``dtype`` (NF4 weights dequantized), plus
+    ``config.json`` when ``hf_config`` is given. With ``lora`` (a LoRA
+    tree), each adapted projection is written merged with its adapter
+    (:func:`merge_lora`: fp32, then ``dtype``). Each tensor is made on its
+    own device when its turn comes, so one dense weight at a time is
+    alive, and copied to the host."""
+    os.makedirs(path, exist_ok=True)
+    lora_layers = (lora or {}).get("layers") or []
+    tensors = {}   # HF name -> (weight, its adapter or None)
+    for ours, hf in hf_names.top_level_map(cfg).items():
+        if ours in params:
+            tensors[hf] = (params[ours], None)
+    for i, layer in enumerate(params["layers"]):
+        adapters = lora_layers[i] if lora_layers else {}
+        for ours, hf in hf_names.layer_name_map(cfg, i).items():
+            if ours in layer:
+                tensors[hf] = (layer[ours], adapters.get(ours))
+
+    def produce(name: str) -> torch.Tensor:
+        w, adapter = tensors[name]
+        if adapter is not None:
+            with torch.no_grad():
+                return merge_lora(w, adapter, dtype=dtype)
+        if isinstance(w, NF4Tensor):
+            return dequantize_nf4(w, dtype)
+        return w.detach().to(dtype)
+
+    save_sharded(path, [(name, dtype, tuple(w.shape))
+                        for name, (w, _) in tensors.items()], produce,
+                 max_shard_bytes=max_shard_bytes, metadata={"format": "pt"})
+    if hf_config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf_config, f, indent=2)

@@ -10,9 +10,11 @@ that device as the checkpoint is read.
 ``remat`` that training passes to ``decoder.forward`` (JAX mapping:
 "unsloth" -> "offload", True/"layer" -> True, False -> False).
 
-Not ported yet: vision/audio checkpoints and DoRA (both raise
-``NotImplementedError``), GGUF files, 8-bit loading, QAT, LoftQ,
-``modules_to_save``, the decode-time dequant cache and saving.
+``save_pretrained_merged``, ``save_lora`` and ``load_lora`` go through
+``export/save.py``. Not ported yet: vision/audio checkpoints and DoRA
+(both raise ``NotImplementedError``), GGUF files and export, Hub pushes,
+8-bit loading, QAT, LoftQ, ``modules_to_save`` and the decode-time dequant
+cache.
 """
 
 from __future__ import annotations
@@ -72,6 +74,25 @@ class LanguageModel:
         from ..inference.generate import generate
 
         return generate(self, *args, **kw)
+
+    # -- persistence ----------------------------------------------------
+    def save_pretrained_merged(self, path: str, tokenizer=None,
+                               save_method: str = "merged_16bit", **kw):
+        from ..export.save import save_pretrained_merged
+
+        return save_pretrained_merged(self, path, tokenizer=tokenizer,
+                                      save_method=save_method, **kw)
+
+    def save_lora(self, path: str):
+        from ..export.save import save_lora
+
+        return save_lora(self, path)
+
+    def load_lora(self, path: str):
+        """Load a peft adapter into the LoRA tree."""
+        from ..export.save import load_lora
+
+        return load_lora(self, path)
 
 
 class FastLanguageModel:

@@ -7,14 +7,17 @@ its layout: q [B, T, Hq, Dh]; k, v [B, T, Hkv, Dh]; segment_ids [B, T]
 * :func:`attention_ref` — masked SDPA in fp32: causal, segment ids,
   sliding window, softcap, GQA. The parity oracle and the CPU path.
 * :func:`attention` — the dispatcher. A CPU tensor takes
-  :func:`attention_ref`. A CUDA tensor with a declared segment bound
-  (:class:`packed_segment_bound`, set by the trainer when it packs),
-  causal, no softcap, window or sinks, ``T % 64 == 0`` and
-  ``Dh % 128 == 0`` launches the packed flash kernels
-  (``ops/packed_attention.py``). Every other CUDA route raises
-  ``NotImplementedError`` naming the TPU kernel it still needs: K16
-  (flash for unpacked rows), K17 (sinks), K18 (window, softcap). There is
-  no fallback from the card to the plain version.
+  :func:`attention_ref`. A CUDA tensor, causal, with no softcap, window or
+  sinks and k/v over the same T (``Hq % Hkv == 0``) launches a kernel:
+  with a declared segment bound (:class:`packed_segment_bound`, set by the
+  trainer when it packs), segment ids, ``T % 64 == 0`` and
+  ``Dh % 128 == 0``, the packed flash kernels (``ops/packed_attention.py``,
+  K9-K11); otherwise (unpacked or padded rows, no segment ids) the flash
+  kernels over the whole causal range (``ops/flash_attention.py``, K16),
+  which take any T and raise for a head dim other than 128. Every other
+  CUDA route raises ``NotImplementedError`` naming the TPU kernel it still
+  needs: K17 (sinks), K18 (window, softcap). There is no fallback from the
+  card to the plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention
 from .packed_attention import BLOCK, packed_flash_attention
 
 _SEGMENT_BOUND: Optional[int] = None
@@ -130,13 +134,16 @@ def attention(q, k, v, *, causal: bool = True,
             "attention on CUDA with a sliding window or softcap needs the "
             "port of TPU kernel K18 (splash, unsloth_tpu/ops/attention.py:"
             "_splash_kernel)")
+    self_attn = k.shape[1] == t and hq % k.shape[2] == 0
     bound = current_segment_bound() if segment_ids is not None else None
     if (bound is not None and causal and t % BLOCK == 0 and dh % 128 == 0
-            and k.shape[1] == t and hq % k.shape[2] == 0):
+            and self_attn):
         return packed_flash_attention(q, k, v, segment_ids,
                                       max_segment_len=bound, scale=scale)
+    if causal and self_attn:
+        return flash_attention(q, k, v, segment_ids, scale=scale)
     raise NotImplementedError(
-        "attention on CUDA without a declared segment bound (unpacked or "
-        f"padded rows), non-causal, or at T={t} (T % {BLOCK}) / Dh={dh} "
-        "(Dh % 128) needs the port of TPU kernel K16 (flash attention, "
-        "unsloth_tpu/ops/attention.py:_tpu_flash)")
+        f"attention on CUDA: non-causal (causal={causal}) or cross attention "
+        f"(q {tuple(q.shape)}, k {tuple(k.shape)}) has no kernel; the port "
+        "of the bundled flash kernel (K16, unsloth_tpu/ops/attention.py:"
+        "_tpu_flash) covers causal self-attention")

@@ -5,7 +5,8 @@ lora_A [r, in]; lora_B [out, r]; scale = lora_alpha / r (rslora:
 lora_alpha / sqrt(r)). An NF4 base goes through the fused kernel
 (``qlora_matmul.nf4_matmul``) on every row count; a dense base is one
 ``torch.matmul``. The LoRA epilogue is two plain matmuls, as in JAX.
-DoRA waits for a later slice.
+:func:`merge_lora` folds an adapter into its base weight for a merged
+save. DoRA waits for a later slice.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional, Union
 
 import torch
 
-from .nf4 import NF4Tensor
+from .nf4 import NF4Tensor, dequantize_nf4
 from .qlora_matmul import nf4_matmul
 
 
@@ -69,3 +70,17 @@ def init_lora(generator: torch.Generator, in_features: int,
     b = torch.zeros((out_features, r), dtype=dtype, device=device)
     scale = alpha / (r ** 0.5) if use_rslora else alpha / r
     return LoRAWeights(a=a.to(dtype), b=b, scale=scale)
+
+
+def merge_lora(w: BaseWeight, lora: LoRAWeights,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """W' = W + scale * B @ A, dequantizing an NF4 base first, all in fp32,
+    then cast to ``dtype`` (JAX ``merge_lora``)."""
+    if not isinstance(lora, LoRAWeights):
+        raise NotImplementedError(
+            f"merge_lora: adapter type {type(lora).__name__} (DoRA) is not "
+            "ported yet")
+    wd = dequantize_nf4(w, torch.float32) if isinstance(w, NF4Tensor) \
+        else w.to(torch.float32)
+    delta = torch.matmul(lora.b.to(torch.float32), lora.a.to(torch.float32))
+    return (wd + lora.scale * delta.to(wd.device)).to(dtype)

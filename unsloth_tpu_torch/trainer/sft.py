@@ -6,13 +6,17 @@ for text-only causal LMs, and then the longest document declares the
 attention kernel's segment bound), gradient accumulation whose micro
 losses are each divided by the *global* valid-token count of the whole
 accumulation group, and the update ``optax.chain(clip_by_global_norm,
-adamw(schedule))`` written out by hand (:class:`ClippedAdamW`).
+adamw(schedule))`` written out by hand (:class:`ClippedAdamW`). Without
+packing, each example is one row padded to ``max_seq_length`` (segment 1
+real, 0 pad). ``evaluate`` gives the token-weighted loss and perplexity
+over padded batches; :func:`train_on_responses_only` masks the labels
+outside the responses; :func:`unsloth_train` is ``trainer.train()``.
 
 Divergences by design: the loop runs on the host, one micro-batch at a
 time (JAX scans the micro-batches inside one jitted step), and the LoRA
 tensors are updated in place (JAX returns a new tree). Not ported yet,
 and raising when asked for: full fine-tuning, GaLore, a separate
-embedding learning rate, checkpoint saves and resume, and ``evaluate``.
+embedding learning rate, and checkpoint saves and resume.
 Meshes and pipelines are not ported either: the port's model carries
 none.
 """
@@ -220,6 +224,9 @@ class SFTTrainer:
         self.eval_dataset = eval_dataset
         self._batches: Optional[List[PackedBatch]] = None
         self._segment_bound: Optional[int] = None
+        #: applied to each tokenized training example
+        #: (:func:`train_on_responses_only` installs one)
+        self._post_tokenize_fn: Optional[Callable] = None
         self.state_log: List[Dict[str, Any]] = []
         #: wall seconds of each optimizer step, ending in a device sync
         self.step_times: List[float] = []
@@ -248,15 +255,20 @@ class SFTTrainer:
         return {"input_ids":
                 self.tokenizer(text, add_special_tokens=True)["input_ids"]}
 
+    def _pad_id(self) -> int:
+        if self.tokenizer is None:
+            return 0
+        return (getattr(self.tokenizer, "pad_token_id", None)
+                or getattr(self.tokenizer, "eos_token_id", 0) or 0)
+
     def prepare_batches(self) -> List[PackedBatch]:
         if self._batches is not None:
             return self._batches
         args = self.args
         examples = [self._tokenize_example(ex) for ex in self.train_dataset]
-        pad_id = 0
-        if self.tokenizer is not None:
-            pad_id = (getattr(self.tokenizer, "pad_token_id", None)
-                      or getattr(self.tokenizer, "eos_token_id", 0) or 0)
+        if self._post_tokenize_fn is not None:
+            examples = [self._post_tokenize_fn(ex) for ex in examples]
+        pad_id = self._pad_id()
         bsz = args.per_device_train_batch_size
         packing = args.packing
         if packing == "auto":
@@ -379,5 +391,94 @@ class SFTTrainer:
                            metrics)
 
     def evaluate(self, eval_dataset=None) -> Dict[str, float]:
-        raise NotImplementedError("SFTTrainer.evaluate is not ported yet")
+        """Loss and perplexity over ``eval_dataset`` (else the trainer's):
+        padded batches of ``per_device_train_batch_size`` rows (a short
+        last batch is filled with copies whose labels are ignored), no
+        rematerialization, no gradients; each batch's mean loss weighted by
+        its valid-token count. Returns ``eval_loss``, ``eval_perplexity``
+        (exp of the loss, capped at exp(20)) and ``eval_tokens``."""
+        ds = eval_dataset if eval_dataset is not None else self.eval_dataset
+        if ds is None:
+            raise ValueError("SFTTrainer.evaluate: no eval dataset")
+        args = self.args
+        model = self.model
+        examples = [self._tokenize_example(ex) for ex in ds]
+        pad_id = self._pad_id()
+        bsz = args.per_device_train_batch_size
+        losses: List[torch.Tensor] = []
+        n_toks: List[int] = []
+        with torch.no_grad():
+            for i in range(0, len(examples), bsz):
+                chunk = examples[i:i + bsz]
+                n_real = len(chunk)
+                chunk = chunk + [chunk[-1]] * (bsz - n_real)
+                pb = pad_batch(chunk, args.max_seq_length, pad_id)
+                labels = pb.labels.copy()
+                labels[n_real:] = -100   # batch-fill rows don't count
+                micro = {k: torch.from_numpy(v).to(model.device)
+                         for k, v in dict(pb.as_dict(), labels=labels).items()}
+                n_toks.append(int((labels[:n_real, 1:] != -100).sum()))
+                losses.append(model_loss_fn(model.params, model.lora, micro,
+                                            model.cfg, remat=False))
+            total_loss = 0.0
+            if losses:
+                weights = torch.tensor([max(t, 1) for t in n_toks],
+                                       dtype=torch.float32,
+                                       device=model.device)
+                total_loss = float(torch.sum(
+                    torch.stack(losses).to(torch.float32) * weights))
+        total_tokens = sum(n_toks)
+        mean = total_loss / max(total_tokens, 1)
+        metrics = {"eval_loss": mean,
+                   "eval_perplexity": float(np.exp(min(mean, 20.0))),
+                   "eval_tokens": total_tokens}
+        self.metrics_logger.log(metrics)
+        return metrics
 
+
+def unsloth_train(trainer, *args, **kwargs):
+    """``trainer.train()``: the training step already divides each
+    micro-batch by the global token count of its accumulation group, so
+    gradient accumulation needs no further fix."""
+    return trainer.train(*args, **kwargs)
+
+
+def train_on_responses_only(example_or_trainer=None, *,
+                            instruction_part: str, response_part: str,
+                            tokenizer=None):
+    """Mask labels so that only the responses count in the loss.
+
+    With ``tokenizer``: returns a function that maps a tokenized example
+    ({"input_ids": ...}) to one whose "labels" are -100 except inside
+    response spans, found by the token patterns of the two markers (a
+    response runs from the end of ``response_part`` to the next
+    ``instruction_part``). Otherwise the argument is a trainer: the masking
+    is installed on its training examples and the trainer is returned."""
+    def mask_example(ex, tok):
+        ids = list(ex["input_ids"])
+        instr = tok(instruction_part, add_special_tokens=False)["input_ids"]
+        resp = tok(response_part, add_special_tokens=False)["input_ids"]
+        labels = [-100] * len(ids)
+        i = 0
+        in_response = False
+        while i < len(ids):
+            if ids[i:i + len(resp)] == resp:
+                in_response = True
+                i += len(resp)
+                continue
+            if ids[i:i + len(instr)] == instr:
+                in_response = False
+                i += len(instr)
+                continue
+            if in_response:
+                labels[i] = ids[i]
+            i += 1
+        return dict(ex, labels=labels)
+
+    if tokenizer is not None:
+        return lambda ex: mask_example(ex, tokenizer)
+    trainer = example_or_trainer
+    tok = trainer.tokenizer
+    trainer._post_tokenize_fn = lambda ex: mask_example(ex, tok)
+    trainer._batches = None
+    return trainer

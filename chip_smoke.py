@@ -18,10 +18,23 @@ exits non-zero without printing a result:
                attention forward and backward (K9-K11) on an 8K row, the
                full-logits CE forward (K7) and backward (K8) at 4,094 rows
                of the 128,256 vocabulary, and unpacked flash attention
-               (K16: forward, dq, dk/dv) on a padded [2, 2048] batch; for
-               each, its bound (the least time the card could take) and the
-               time of the one PyTorch call that computes the same function,
-               where there is one;
+               (K16: forward, dq, dk/dv) on a padded [2, 2048] batch; then
+               the Gemma-2-9B path's: K1/K2 at its five projection shapes
+               (M = 4,096), K3/K4 with gemma=True at [4096, 3584], K7/K8
+               over 256,000 logits with softcap 30, and splash attention
+               (K18: forward, dq, dk/dv) with softcap 50 at (a) the path's
+               padded [2, 2048] batch, 16/8 heads, head dim 256, with and
+               without the window of 4,096, (b) one 8K row where the window
+               bites, (c) Gemma-2-27B's heads (32/16, head dim 128), (d)
+               a packed 8K row and (e), without window or softcap, at
+               K16's shape; the check must reject injected faults (K16:
+               a dropped kv tile, an ignored pad mask, a late-half error;
+               K18 also: the window ignored, the softcap's derivative
+               dropped). For each kernel, its bound (the least time the
+               card could take) and the time of the one PyTorch call that
+               computes the same function, where there is one (K18: the
+               compiled flex_attention with the softcap as its score_mod;
+               SDPA with the same mask and no softcap is timed beside it);
   3b. CE routes  full logits (cuBLAS + K7/K8) against the chunked fused CE,
                forward + backward time and peak memory, at 4,094 and 8,191
                rows;
@@ -32,6 +45,10 @@ exits non-zero without printing a result:
                LoRA gradient of one packed 2,048-token row, and of one
                padded [2, 2048] batch (K16 and K7/K8 on the card), on the
                card and on the CPU, compared;
+  4c. Gemma-2 train parity  the padded batch of 4b on Gemma-2-9B cut to 2
+               layers (one sliding, one global), random NF4 weights,
+               nonzero LoRA: K18 and K7/K8 with the softcaps on the card
+               against the plain versions in fp32 on the CPU;
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -50,7 +67,18 @@ exits non-zero without printing a result:
                save_lora -> a fresh adapter -> load_lora -> evaluate
                (equal losses), and
                save_pretrained_merged reloaded with load_in_4bit=False
-               (logits against the LoRA model's).
+               (logits against the LoRA model's);
+  8. main path (Gemma-2 SFT, the notebook recipe) a random-init bf16
+               Gemma-2-9B checkpoint (its published config: 42 layers,
+               hidden 3584, 16/8 heads of 256, vocabulary 256,000, softcaps
+               50/30, window 4,096 on the even layers, tied embedding) in
+               place of the Llama one: from_pretrained(load_in_4bit=True),
+               get_peft_model(r=16, seven projections, "unsloth"),
+               SFTTrainer(packing=False) with train_on_responses_only,
+               batch 2 x accumulation 4, 4 steps: losses finite and
+               falling, step time, tokens/s, peak memory, K18 launched on
+               every layer and K9-K11/K16 never; then evaluate and a
+               greedy generate of 16 tokens for 2 prompts.
 
 Then one JSON line with each kernel's launches on its main path, its
 largest error against its plain version, its time beside the plain
@@ -60,10 +88,12 @@ card and exits non-zero without it.
 
     python3 chip_smoke.py --profile-train
     python3 chip_smoke.py --profile-train-unpacked
+    python3 chip_smoke.py --profile-train-gemma2
 
-run phases 1, 2 and 6 (or 7, without evaluate and the saves) only, then
-one more training step under torch.profiler, and print that step's device
-time by kernel, its device busy share and its MFU/HFU (no result line).
+run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8 without
+evaluate and generate) only, then one more training step under
+torch.profiler, and print that step's device time by kernel, its device
+busy share and its MFU/HFU (no result line).
 """
 
 from __future__ import annotations
@@ -109,9 +139,46 @@ LLAMA_31_8B_CONFIG = {
     "vocab_size": 128256,
 }
 
+GEMMA2_9B_CONFIG = {
+    # google/gemma-2-9b config.json (published values; written in bf16)
+    "architectures": ["Gemma2ForCausalLM"],
+    "attention_bias": False,
+    "attention_dropout": 0.0,
+    "attn_logit_softcapping": 50.0,
+    "bos_token_id": 2,
+    "cache_implementation": "hybrid",
+    "eos_token_id": 1,
+    "final_logit_softcapping": 30.0,
+    "head_dim": 256,
+    "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh",
+    "hidden_size": 3584,
+    "initializer_range": 0.02,
+    "intermediate_size": 14336,
+    "max_position_embeddings": 8192,
+    "model_type": "gemma2",
+    "num_attention_heads": 16,
+    "num_hidden_layers": 42,
+    "num_key_value_heads": 8,
+    "pad_token_id": 0,
+    "query_pre_attn_scalar": 256,
+    "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "sliding_window_size": 4096,
+    "torch_dtype": "bfloat16",
+    "use_cache": True,
+    "vocab_size": 256000,
+}
+
 # (name, N = out features, K = in features) of every Llama-3.1-8B projection
 PROJ_SHAPES = [("q/o", 4096, 4096), ("k/v", 1024, 4096),
                ("gate/up", 14336, 4096), ("down", 4096, 14336)]
+# and of every Gemma-2-9B projection
+GEMMA2_PROJ_SHAPES = [("q", 4096, 3584), ("k/v", 2048, 3584),
+                      ("o", 3584, 4096), ("gate/up", 14336, 3584),
+                      ("down", 3584, 14336)]
+GEMMA2_STEPS = 4           # optimizer steps of the Gemma-2 recipe (phase 8)
 DECODE_ROWS = (1, 4, 7)
 PREFILL_ROWS = 4096
 TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
@@ -227,45 +294,94 @@ def attn_row_err(got, ref) -> float:
     return (((g - r).abs() - 2.0 ** -6 * r.abs()) / scale).max().item()
 
 
-def attn_fault_errs(q, k, v, seg, dout, scale, want):
-    """The power of :func:`attn_row_err`: K16's results under faults a
-    wrong kernel could make, held against ``want`` (the right out, dq,
-    dk, dv). Faults: the plain versions with the 64-token kv tile at the
-    middle of the last row (tokens 1,024-1,087 of 2,048) made a segment
-    of its own, so the queries after it miss those keys; the plain
+def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
+                    softcap=None):
+    """The power of :func:`attn_row_err`: K16's results (or, with a
+    ``window`` or ``softcap``, K18's) under faults a wrong kernel could
+    make, held against ``want`` (the right out, dq, dk, dv). Faults: the
+    plain versions with the 64-token kv tile at the middle of the last row
+    (tokens 1,024-1,087 of 2,048) made a segment of its own, so the
+    queries after it miss those keys; where a row has pad, the plain
     versions with the pad mask ignored (every query attends every key
-    before it); and ``want`` 10% off in the second half of the last row,
-    as a wrong online-softmax rescale in the late tiles would leave it.
-    Returns {fault: {tensor: (row-wise error, whether the old check,
-    max|d| <= 2e-2 max|ref|, passes it)}}; every row-wise error must
-    exceed ATTN_ROW_TOL."""
+    before it); ``want`` 10% off in the second half of the last row, as a
+    wrong online-softmax rescale in the late tiles would leave it; with a
+    window, the plain versions with the window ignored; with a softcap,
+    the plain backward with the softcap's 1 - tanh^2 factor left out of dS
+    (dq and dk only: the forward and dv do not use dS). Returns {fault:
+    {tensor: (row-wise error, whether the old check, max|d| <= 2e-2
+    max|ref|, passes it)}}; every row-wise error must exceed
+    ATTN_ROW_TOL."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    splash = window is not None or softcap is not None
+
+    def plain(fseg, fwindow=window):
+        if not splash:
+            fout, flse = tfa.flash_attention_fwd_ref(q, k, v, fseg, scale)
+            return (fout,) + tuple(tfa.flash_attention_bwd_ref(
+                q, k, v, fseg, fout, flse, dout, scale))
+        opts = dict(window=fwindow, softcap=softcap, scale=scale)
+        fout, flse = tsa.splash_attention_fwd_ref(q, k, v, fseg, **opts)
+        return (fout,) + tuple(tsa.splash_attention_bwd_ref(
+            q, k, v, fseg, fout, flse, dout, **opts))
 
     mid = seg.shape[1] // 128 * 64
     dropped = seg.clone()
     dropped[-1, mid:mid + 64] = seg.max() + 1
-    faults = {}
-    for fault, fseg in (("kv tile dropped", dropped),
-                        ("pad mask ignored", torch.ones_like(seg))):
-        fout, flse = tfa.flash_attention_fwd_ref(q, k, v, fseg, scale)
-        faults[fault] = (fout,) + tuple(tfa.flash_attention_bwd_ref(
-            q, k, v, fseg, fout, flse, dout, scale))
+    faults = {"kv tile dropped": plain(dropped)}
+    if bool((seg == 0).any()):
+        faults["pad mask ignored"] = plain(torch.ones_like(seg))
     late = []
     for ref in want:
         got = ref.clone()
         got[-1, seg.shape[1] // 2:] *= 0.9
         late.append(got)
     faults["late half 10% off"] = late
+    if window is not None:
+        faults["window ignored"] = plain(seg, fwindow=None)
+    if softcap is not None:
+        faults["softcap derivative dropped"] = (None,) + _grads_without_dtanh(
+            q, k, v, seg, dout, window, softcap, scale) + (None,)
     res = {}
     for fault, gots in faults.items():
         res[fault] = {}
         for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
+            if got is None:
+                continue
             old = ((got.float() - ref.float()).abs().max()
                    <= 2e-2 * ref.float().abs().max())
             res[fault][name] = (attn_row_err(got, ref), bool(old))
     return res
+
+
+def _grads_without_dtanh(q, k, v, seg, dout, window, softcap, scale):
+    """(dq, dk) of capped attention as a kernel that leaves the softcap's
+    1 - tanh^2 factor out of dS would give them: autograd through the
+    capped scores with the cap's derivative taken as 1, one kv head (and
+    its query heads) at a time, in fp32."""
+    import torch
+
+    from unsloth_tpu_torch.ops.flash_attention import _mask
+
+    b, t, hq, _ = q.shape
+    n_rep = hq // k.shape[2]
+    mask = _mask(seg, b, t, q.device, window)[:, None]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    for h in range(k.shape[2]):
+        grp = slice(h * n_rep, (h + 1) * n_rep)
+        qh = q[:, :, grp].float().requires_grad_(True)
+        kh = k[:, :, h].float().requires_grad_(True)
+        s = torch.einsum("btgd,bsd->bgts", qh * scale, kh)
+        s = s + (softcap * torch.tanh(s / softcap) - s).detach()
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out = torch.einsum("bgts,bsd->btgd", p, v[:, :, h].float())
+        dq[:, :, grp], dk[:, :, h] = torch.autograd.grad(
+            out, (qh, kh), dout[:, :, grp].float())
+    return dq.to(q.dtype), dk.to(k.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +422,10 @@ def phase_build():
 
 
 def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes.
+    """Each kernel against its plain version at the main paths' shapes: the
+    Llama-3.1-8B ones and, for K1-K4, K7/K8 and K18, Gemma-2-9B's (K1 and
+    K2 at its five projection shapes at M = 4,096, one [2, 2048]
+    micro-batch; K3/K4 at [4096, 3584]).
 
     Tolerances: NF4 matmul in bf16, max|y - ref| <= 1e-2 * max|ref| (both
     round the same bf16 weights and sum in fp32, in another order, then
@@ -330,12 +449,16 @@ def phase_kernels():
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = {"nf4_matmul": [], "rms_norm": []}
-    for name, n, k in PROJ_SHAPES:
+    for name, n, k, row_counts in (
+            [(name, n, k, DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS))
+             for name, n, k in PROJ_SHAPES]
+            + [("gemma2 " + name, n, k, (2 * UNPACKED_ROWS,))
+               for name, n, k in GEMMA2_PROJ_SHAPES]):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
         del w
-        for m in DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS):
+        for m in row_counts:
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             y = nf4_matmul(x, q)
             ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
@@ -353,13 +476,15 @@ def phase_kernels():
                                            ms=ms, plain_ms=plain_ms,
                                            bound_ms=b_ms, bound_by=b_by,
                                            library_ms=None))
-            log(f"[kernels] nf4_matmul {name:8s} M={m:<5d} N={n:<6d} K={k:<6d}"
+            log(f"[kernels] nf4_matmul {name:15s} M={m:<5d} N={n:<6d} "
+                f"K={k:<6d}"
                 f" max|d|={err:.3e} (tol {1e-2 * scale:.3e})"
                 f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
             if not ok:
                 raise RuntimeError(f"nf4_matmul disagrees at {name} M={m}: "
                                    f"max|d| {err} > 1e-2 * {scale}")
-    for shape in ((TRAIN_ROWS, 4096), (4096, 4096), (4, 4096)):
+    for shape in ((TRAIN_ROWS, 4096), (4096, 4096), (4, 4096),
+                  (2 * UNPACKED_ROWS, GEMMA2_9B_CONFIG["hidden_size"])):
         for dtype in (torch.bfloat16, torch.float32):
             for gemma in (False, True):
                 x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -393,6 +518,7 @@ def phase_kernels():
                                        f" gemma={gemma}: {ulps} ulp")
     rows.update(_training_kernels(dev, g, flush))
     rows.update(_unpacked_kernels(dev, g, flush))
+    rows.update(_splash_kernels(dev, g, flush))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -432,19 +558,19 @@ def _autograd_ms(fn, inputs, grad_out, flush, runs=10):
     return ms
 
 
-def _sdpa_ms(q, k, v, segment_ids, dout, flush):
+def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None):
     """(forward ms, backward ms) of the one PyTorch call that computes the
     attention kernels' function: ``F.scaled_dot_product_attention`` with a
-    boolean mask (causal and equal segment ids) and ``enable_gqa=True``,
-    in its [B, H, T, D] layout. A yardstick only; the port never calls
-    it."""
+    boolean mask (causal, equal segment ids and, where given, within the
+    window) and ``enable_gqa=True``, in its [B, H, T, D] layout. A
+    yardstick only; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
-    t = q.shape[1]
-    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-    mask = (causal[None] & (segment_ids[:, :, None]
-                            == segment_ids[:, None, :]))[:, None]
+    from unsloth_tpu_torch.ops.flash_attention import _mask
+
+    mask = _mask(segment_ids, q.shape[0], q.shape[1], q.device,
+                 window)[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa(a, b, c):
@@ -459,10 +585,67 @@ def _sdpa_ms(q, k, v, segment_ids, dout, flush):
     return fwd, bwd
 
 
+def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
+             scale):
+    """(forward ms, backward ms, row-wise error of its out against
+    ``want``) of the one PyTorch call that computes the splash kernels'
+    function: ``torch.compile``d ``flex_attention`` in its [B, H, T, D]
+    layout, with the softcap c * tanh(s / c) as its ``score_mod``, a block
+    mask of causal, within the window and equal segment ids, and
+    ``enable_gqa=True``, on q * scale rounded to q's dtype (what the kernels
+    and the JAX wrapper score; the timed call includes that product). The
+    window and segment ids reach the mask as
+    tensors, so cases of one shape share a compiled kernel. A yardstick
+    only; the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    global _FLEX
+    if _FLEX is None:
+        # forward and forward-for-backward of several shapes; a backward
+        # timed again and again on one graph (retain_graph) must not donate
+        # its buffers
+        torch._dynamo.config.recompile_limit = 64
+        torch._functorch.config.donated_buffer = False
+        _FLEX = torch.compile(flex_attention)
+    b, t = segment_ids.shape
+    seg = segment_ids.to(torch.int32)
+    win = torch.tensor(window or t, device=q.device)
+
+    def mask_mod(bi, h, qi, ki):
+        return (ki <= qi) & (qi - ki < win) & (seg[bi, qi] == seg[bi, ki])
+
+    def score_mod(s, bi, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    mask = create_block_mask(mask_mod, b, None, t, t, device=q.device)
+
+    def flex(a, b_, c):
+        # q scaled and rounded in its dtype first, as the kernels take it
+        return _FLEX((a * scale).to(a.dtype), b_, c,
+                     score_mod=score_mod if softcap else None,
+                     block_mask=mask, scale=1.0, enable_gqa=True)
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    err = attn_row_err(flex(qt, kt, vt).transpose(1, 2), want)
+    fwd = time_ms(lambda: flex(qt, kt, vt), runs=5, warmup=1, flush=flush)
+    bwd = _autograd_ms(flex, (qt, kt, vt), dout.transpose(1, 2), flush,
+                       runs=5)
+    del mask
+    torch.cuda.empty_cache()
+    return fwd, bwd, err
+
+
+#: the compiled flex_attention of :func:`_flex_ms`, made at its first call
+_FLEX = None
+
+
 def _training_kernels(dev, g, flush):
-    """K2 at every projection shape at M = 8192; K4 at [8192, 4096] bf16,
-    plain and Gemma; packed attention forward and backward on one 8K row
-    of Llama-3.1-8B attention (32/8 heads, head dim 128).
+    """K2 at every Llama-3.1-8B projection shape at M = 8192 and every
+    Gemma-2-9B one at M = 4096; K4 at [8192, 4096] bf16, plain and Gemma,
+    and at Gemma-2-9B's [4096, 3584]; packed attention forward and backward
+    on one 8K row of Llama-3.1-8B attention (32/8 heads, head dim 128).
 
     Tolerances. K2: max|dx - ref| <= 1e-2 max|ref| (as K1: the same bf16
     weights, fp32 sums in another order, one bf16 rounding). K4: dx
@@ -488,8 +671,10 @@ def _training_kernels(dev, g, flush):
 
     rows = {"nf4_matmul_dx": [], "rms_norm_bwd": [], "packed_attn_fwd": [],
             "packed_attn_bwd": []}
-    m = TRAIN_ROWS
-    for name, n, k in PROJ_SHAPES:
+    for name, n, k, m in (
+            [(name, n, k, TRAIN_ROWS) for name, n, k in PROJ_SHAPES]
+            + [("gemma2 " + name, n, k, 2 * UNPACKED_ROWS)
+               for name, n, k in GEMMA2_PROJ_SHAPES]):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
@@ -507,18 +692,22 @@ def _training_kernels(dev, g, flush):
             shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
-        log(f"[kernels] nf4_matmul_dx {name:8s} M={m} N={n:<6d} K={k:<6d} "
+        log(f"[kernels] nf4_matmul_dx {name:15s} M={m} N={n:<6d} K={k:<6d} "
             f"max|d|={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms")
         if not (bool(torch.isfinite(dx).all()) and err <= tol):
             raise RuntimeError(f"nf4_matmul_dx disagrees at {name}: {err}")
         del q, gy, dx, ref
 
-    for gemma in (False, True):
-        x = torch.randn((m, 4096), generator=g, device=dev).to(torch.bfloat16)
-        w = (1.0 + 0.1 * torch.randn((4096,), generator=g, device=dev)
+    m = TRAIN_ROWS
+    for n_rows, hidden, gemma in (
+            (m, 4096, False), (m, 4096, True),
+            (2 * UNPACKED_ROWS, GEMMA2_9B_CONFIG["hidden_size"], True)):
+        shape = (n_rows, hidden)
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = (1.0 + 0.1 * torch.randn((hidden,), generator=g, device=dev)
              ).to(torch.bfloat16)
-        gy = torch.randn((m, 4096), generator=g, device=dev).to(torch.bfloat16)
+        gy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
         rdx, rdw = rms_norm_bwd_ref(x, w, gy, 1e-5, gemma)
         torch.cuda.synchronize()
@@ -532,21 +721,23 @@ def _training_kernels(dev, g, flush):
         plain_ms = time_ms(lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma),
                            flush=flush)
         lib_ms = None if gemma else _autograd_ms(
-            lambda a, b: F.rms_norm(a, (4096,), b, 1e-5), (x, w), gy, flush)
+            lambda a, b: F.rms_norm(a, (hidden,), b, 1e-5), (x, w), gy, flush)
         b_ms, b_by = bound(8 * x.numel(), 3 * nbytes(x) + 2 * nbytes(w),
                            PEAK_FP32)
         rows["rms_norm_bwd"].append(dict(
-            shape=f"[{m}, 4096] bfloat16 gemma={gemma}",
+            shape=f"{list(shape)} bfloat16 gemma={gemma}",
             err=max(d.max().item(), dw_err),
             ulps=dx_ulps, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms))
-        log(f"[kernels] rms_norm_bwd [{m}, 4096] bfloat16 gemma={gemma!s:5s} "
+        log(f"[kernels] rms_norm_bwd {list(shape)} bfloat16 "
+            f"gemma={gemma!s:5s} "
             f"dx max {dx_ulps:.2f} ulp (limit 2 + 1e-5 max|dx|: "
             f"{'ok' if dx_ok else 'FAIL'}), max|d dW|={dw_err:.3e} (tol "
             f"{dw_tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if not (bool(torch.isfinite(dx).all()) and dx_ok
                 and dw_err <= dw_tol):
-            raise RuntimeError(f"rms_norm_bwd disagrees (gemma={gemma})")
+            raise RuntimeError(f"rms_norm_bwd disagrees at {shape} "
+                               f"(gemma={gemma})")
         del x, gy, dx, rdx, d
 
     c = LLAMA_31_8B_CONFIG
@@ -626,7 +817,8 @@ def _training_kernels(dev, g, flush):
 def _unpacked_kernels(dev, g, flush):
     """The kernels of SFT without packing at the notebook recipe's shapes:
     K7/K8 on 4,094 rows (2 x 2,048, shifted) of the 128,256 vocabulary,
-    bf16, about 30% of the rows ignored (-100), without and with a softcap;
+    bf16, about 30% of the rows ignored (-100), without and with a softcap,
+    and of Gemma-2's 256,000 with its final softcap of 30;
     K16 forward, dq and dk/dv on a padded [2, 2048] batch of Llama-3.1-8B
     attention (32/8 heads, head dim 128): one row of 1,500 real tokens and
     a pad tail, one row full.
@@ -652,8 +844,10 @@ def _unpacked_kernels(dev, g, flush):
     rows = {name: [] for name in ("cross_entropy_fwd", "cross_entropy_bwd",
                                   "flash_attn_fwd", "flash_attn_dq",
                                   "flash_attn_dkv")}
-    n, v = CE_ROWS[0], LLAMA_31_8B_CONFIG["vocab_size"]
-    for softcap in (None, 30.0):
+    n, llama_v = CE_ROWS[0], LLAMA_31_8B_CONFIG["vocab_size"]
+    for v, softcap in ((llama_v, None), (llama_v, 30.0),
+                       (GEMMA2_9B_CONFIG["vocab_size"],
+                        GEMMA2_9B_CONFIG["final_logit_softcapping"])):
         logits = (torch.randn((n, v), generator=g, device=dev) * 2
                   ).to(torch.bfloat16)
         labels = torch.randint(0, v, (n,), generator=g, device=dev)
@@ -803,6 +997,174 @@ def _unpacked_kernels(dev, g, flush):
         raise RuntimeError(f"the attention check lets faults through: "
                            f"{missed}")
     return rows
+
+
+def _splash_kernels(dev, g, flush):
+    """Splash attention (K18: forward, dq, dk/dv) with Gemma-2-9B's softcap
+    of 50 (:func:`_splash_case`) at (a) the Gemma-2 path's shape, [2,
+    2048], 16/8 heads, head dim 256, scale 1/16, a row of 1,500 real tokens
+    and a pad tail, with the sliding layers' window of 4,096 (which masks
+    nothing at 2,048) and without (the global layers); (b) [1, 8192], one
+    segment, window 4,096 (it bites); (c) Gemma-2-27B's heads, 32/16 at
+    head dim 128, scale 144^-0.5, window 4,096, [1, 8192]; (d) a packed 8K
+    row of segments of 64-1,024 tokens and a pad tail, window 4,096; (e)
+    K16's shape in this phase (Llama-3.1-8B's 32/8 heads of 128, [2,
+    2048], a row of 1,500 real tokens) with neither window nor softcap,
+    K16's function, to time the two kernel families on one function. At (b)
+    the check must also reject the faults of :func:`attn_fault_errs`, the
+    window ignored and the softcap's derivative dropped among them."""
+    import numpy as np
+    import torch
+
+    c = GEMMA2_9B_CONFIG
+    hq, hkv, hd = (c["num_attention_heads"], c["num_key_value_heads"],
+                   c["head_dim"])
+    scale = c["query_pre_attn_scalar"] ** -0.5
+    cap = c["attn_logit_softcapping"]
+    window = c["sliding_window"]
+    padded = torch.ones((2, UNPACKED_ROWS), dtype=torch.int32, device=dev)
+    padded[0, 1500:] = 0                      # pad_batch: 1 real, 0 pad
+    one = torch.ones((1, TRAIN_ROWS), dtype=torch.int32, device=dev)
+    packed = torch.from_numpy(_packed_segments(np.random.default_rng(SEED),
+                                               TRAIN_ROWS)).to(dev)
+    rows = {name: [] for name in ("splash_attn_fwd", "splash_attn_dq",
+                                  "splash_attn_dkv")}
+    llama = LLAMA_31_8B_CONFIG
+    for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults in (
+            ("(a) sliding", padded, hq, hkv, hd, scale, window, cap, False),
+            ("(a) global", padded, hq, hkv, hd, scale, None, cap, False),
+            ("(b)", one, hq, hkv, hd, scale, window, cap, True),
+            ("(c) Gemma-2-27B heads", one, 32, 16, 128, 144 ** -0.5, window,
+             cap, False),
+            ("(d) packed", packed, hq, hkv, hd, scale, window, cap, False),
+            ("(e) K16's shape", padded, llama["num_attention_heads"],
+             llama["num_key_value_heads"], llama["head_dim"],
+             llama["head_dim"] ** -0.5, None, None, False)):
+        res = _splash_case(dev, g, flush, label, seg, h_q, h_kv, dh, sc, win,
+                           sc_cap, faults)
+        for name, row in res.items():
+            rows[name].append(row)
+    return rows
+
+
+def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
+                 softcap, faults):
+    """K18 forward, dq and dk/dv at one shape against the plain versions,
+    every position row by row (:func:`attn_row_err`), lse within 1e-3, the
+    backward fed the kernel forward's (out, lse) on both sides. q and k
+    are N(0, 4^2), so the scores are of the order of the softcap and its
+    tanh bites. With ``faults`` the check must also reject each fault of
+    :func:`attn_fault_errs`. Times: the kernels, the plain versions, the
+    library call that computes the same function (:func:`_flex_ms`, whose
+    out must agree with the plain version's as the kernel's does) and,
+    beside it, SDPA with the same boolean mask and no softcap. Returns a
+    row per kernel."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    b, t = seg.shape
+    q, k = ((torch.randn((b, t, h, d), generator=g, device=dev) * 4)
+            .to(torch.bfloat16) for h in (hq, hkv))
+    v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (hkv, hq))
+    lo, hi = tfa.tile_segment_ranges(seg)
+    opts = dict(window=window, softcap=softcap, scale=scale)
+    out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+    dq, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                     **opts)
+    dk, dv = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                      **opts)
+    rout, rlse = tsa.splash_attention_fwd_ref(q, k, v, seg, **opts)
+    rdq, rdk, rdv = tsa.splash_attention_bwd_ref(q, k, v, seg, out, lse,
+                                                 dout, **opts)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"splash attention {label} {name} is not "
+                               "finite")
+        errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                      attn_row_err(got, ref))
+    lse_err = (lse - rlse).abs().max().item()
+    fault_res = attn_fault_errs(q, k, v, seg, dout, scale,
+                                (rout, rdq, rdk, rdv), window=window,
+                                softcap=softcap) if faults else {}
+    del rdq, rdk, rdv
+    flex_fwd, flex_bwd, flex_err = _flex_ms(q, k, v, seg, dout, flush, rout,
+                                            **opts)
+    del rout
+    fwd_ms = time_ms(lambda: tsa.splash_attention_fwd(
+        q, k, v, seg, lo, hi, **opts), runs=10, flush=flush)
+    dq_ms = time_ms(lambda: tsa.splash_attention_dq(
+        q, k, v, seg, lo, hi, out, lse, dout, **opts), runs=10, flush=flush)
+    dkv_ms = time_ms(lambda: tsa.splash_attention_dkv(
+        q, k, v, seg, lo, hi, lse, di, dout, **opts), runs=10, flush=flush)
+    fwd_plain = time_ms(lambda: tsa.splash_attention_fwd_ref(
+        q, k, v, seg, **opts), runs=3, warmup=1, flush=flush)
+    bwd_plain = time_ms(lambda: tsa.splash_attention_bwd_ref(
+        q, k, v, seg, out, lse, dout, **opts), runs=3, warmup=1, flush=flush)
+    sdpa_fwd, sdpa_bwd = _sdpa_ms(q, k, v, seg, dout, flush, window=window)
+    # the valid (query, key) pairs of this data: the work the kernels need
+    pairs = int(tfa._mask(seg, b, t, dev, window).sum())
+    fb = bound(4 * d * hq * pairs, nbytes(q, k, v, seg, out, lse))
+    qb = bound(6 * d * hq * pairs, nbytes(q, k, v, seg, out, dout, lse, q,
+                                          di))
+    kb = bound(8 * d * hq * pairs, nbytes(q, k, v, seg, dout, lse, di, k, v))
+    n_seg = len(torch.unique(seg[seg != 0]))
+    shape = (f"{label}: B={b} T={t} Hq={hq} Hkv={hkv} D={d} bf16 scale="
+             f"{scale:.5f} softcap={softcap} window={window}, {n_seg} "
+             f"segment(s), {int((seg == 0).sum())} pad")
+    common = dict(shape=shape)
+    res = {
+        "splash_attn_fwd": dict(
+            common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+            plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+            library_ms=flex_fwd, sdpa_no_softcap_ms=sdpa_fwd),
+        "splash_attn_dq": dict(
+            common, err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
+            bound_ms=qb[0], bound_by=qb[1], library_ms=flex_bwd,
+            sdpa_no_softcap_ms=sdpa_bwd),
+        "splash_attn_dkv": dict(
+            common, err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+            plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
+            library_ms=flex_bwd, sdpa_no_softcap_ms=sdpa_bwd)}
+    log(f"[kernels] splash attention (K18) {shape}, every position: " +
+        ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
+                  for n_, (e, r) in errs.items())
+        + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
+        "(tol 1e-3)")
+    for fault, fres in fault_res.items():
+        log(f"[kernels] splash attention check against a fault, {fault}: " +
+            ", ".join(f"{n_} row-wise {r:.3e} (old max-scaled check "
+                      f"{'passes' if old else 'fails'})"
+                      for n_, (r, old) in fres.items()))
+    log(f"[kernels] splash attention {label} fwd kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_plain:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); dq kernel "
+        f"{dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv kernel {dkv_ms:.4f} ms "
+        f"bound {kb[0]:.4f} ms; plain backward {bwd_plain:.4f} ms; compiled "
+        f"flex_attention (the same function): fwd {flex_fwd:.4f} ms, "
+        f"backward (dq, dk, dv) {flex_bwd:.4f} ms, out row-wise "
+        f"{flex_err:.3e} from the plain version; SDPA with the same mask and "
+        f"no softcap: fwd {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms; "
+        f"{pairs} valid pairs per head")
+    bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad or not lse_err <= 1e-3:
+        raise RuntimeError(f"splash attention {label} disagrees in {bad}: "
+                           f"{errs}, lse {lse_err}")
+    if not flex_err <= ATTN_ROW_TOL:
+        raise RuntimeError(f"flex_attention, the library time of {label}, "
+                           f"computes another function: {flex_err}")
+    missed = [(f, n_) for f, fres in fault_res.items()
+              for n_, (r, _) in fres.items() if not r > ATTN_ROW_TOL]
+    if missed:
+        raise RuntimeError(f"the splash attention check lets faults "
+                           f"through: {missed}")
+    del q, k, v, dout, out, lse, dq, dk, dv, di
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_ce_routes():
@@ -1072,16 +1434,20 @@ def _tree_f32(tree):
     return tree
 
 
-def phase_train_parity_padded():
-    """SFT without packing on the 2-layer cut: the loss and every LoRA
-    gradient of one padded [2, 2048] batch (a row of 1,500 real tokens and
-    a pad tail, a full row), fused_ce="auto", on the card in bf16 (K16
-    attention over the whole causal range, the full-logits CE through
-    K7/K8: 4,094 rows pass the gate) and on the CPU through the plain
-    versions in fp32 (attention_ref, the plain CE), from the same weights
-    and NF4 codes. Tolerance as in phase 4b: loss within 1e-2 relative,
-    each gradient leaf within 5e-2 relative L2 (the card rounds to bf16 at
-    every op; a wrong kernel gives errors of the order of the gradient)."""
+def phase_train_parity_padded(hf=LLAMA_31_8B_CONFIG, expect=None,
+                              absent=(), label="Llama-3.1-8B", seed=SEED + 3):
+    """SFT without packing on the 2-layer cut of ``hf``: the loss and every
+    LoRA gradient of one padded [2, 2048] batch (a row of 1,500 real tokens
+    and a pad tail, a full row), fused_ce="auto", on the card in bf16
+    (the attention kernels: K16 for Llama-3.1-8B, K18 with the softcap,
+    and the window on the sliding layer, for Gemma-2-9B; the full-logits
+    CE through K7/K8: 4,094 rows pass the gate) and on the CPU through the
+    plain versions in fp32 (attention_ref, the plain CE), from the same
+    weights and NF4 codes. Tolerance as in phase 4b: loss within 1e-2
+    relative, each gradient leaf within 5e-2 relative L2 (the card rounds
+    to bf16 at every op; a wrong kernel gives errors of the order of the
+    gradient). Every kernel of ``expect`` (default: the Llama path's) must
+    launch, none of ``absent``."""
     import numpy as np
     import torch
 
@@ -1092,16 +1458,15 @@ def phase_train_parity_padded():
                                                  init_params, quantize_params,
                                                  tree_to)
 
-    hf = dict(LLAMA_31_8B_CONFIG, num_hidden_layers=2)
-    cfg = ModelConfig.from_hf_config(hf)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    cfg = ModelConfig.from_hf_config(dict(hf, num_hidden_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
                              cfg, dtype=torch.bfloat16)
     lora = init_lora_tree(cfg, gen, r=16, alpha=16.0)
     for layer in lora["layers"]:
         for lw in layer.values():
             lw.b = torch.randn(lw.b.shape, generator=gen, device=DEVICE) * 0.01
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(seed)
     sub = rng.choice(cfg.vocab_size, SUB_VOCAB, replace=False)
     rows = [{"input_ids": sub[rng.integers(0, SUB_VOCAB, n)].tolist()}
             for n in (1500, UNPACKED_ROWS)]
@@ -1134,7 +1499,7 @@ def phase_train_parity_padded():
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
     worst = max(rels, key=rels.get)
-    log(f"[train parity] 2-layer Llama-3.1-8B NF4 + LoRA r=16, padded "
+    log(f"[train parity] 2-layer {label} NF4 + LoRA r=16, padded "
         f"[2, {UNPACKED_ROWS}] (1500 and {UNPACKED_ROWS} real tokens): loss "
         f"card {l_card:.6f} cpu (fp32) {l_cpu:.6f} (rel {loss_rel:.2e}, tol "
         f"1e-2); {len(rels)} LoRA grads, worst rel L2 {rels[worst]:.3e} "
@@ -1145,50 +1510,78 @@ def phase_train_parity_padded():
         bool(torch.isfinite(g).all()) for g in g_card.values())
     if not (finite and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
         raise RuntimeError("card and CPU padded-batch loss/grads disagree")
-    for name in UNPACKED_KERNELS:
+    for name in expect or UNPACKED_KERNELS:
         if launches[name] <= 0:
             raise RuntimeError(f"{name} did not launch on the padded batch")
+    for name in absent:
+        if launches[name]:
+            raise RuntimeError(f"{name} launched on the padded {label} "
+                               "batch")
     del params, lora
     torch.cuda.empty_cache()
     return dict(loss_rel=loss_rel, grad_rel_max=rels[worst])
 
 
-def write_checkpoint(path):
-    """Random-init bf16 checkpoint with the published Llama-3.1-8B shapes:
-    config.json plus index-sharded safetensors, one tensor at a time."""
+def write_checkpoint(path, config):
+    """Random-init bf16 checkpoint of the HF ``config`` (a llama-family
+    dense decoder: Llama-3.1-8B, Gemma-2-9B) at its published shapes:
+    config.json plus index-sharded safetensors, one tensor at a time.
+    Projections are N(0, 0.02); norm weights are ones, or zeros where the
+    model applies them as (1 + w) (Gemma, as HF initializes them); Gemma-2's
+    sandwich norms are written, and no lm_head where the embedding is
+    tied."""
     import torch
 
     from unsloth_tpu_torch.io_safetensors import save_sharded
+    from unsloth_tpu_torch.models.config import ModelConfig
 
-    c = LLAMA_31_8B_CONFIG
-    d, f, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
-    dkv = c["num_key_value_heads"] * c["head_dim"]
+    cfg = ModelConfig.from_hf_config(config)
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    dq, dkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    norms = ["input_layernorm", "post_attention_layernorm"]
+    if cfg.use_post_norms:
+        norms += ["pre_feedforward_layernorm", "post_feedforward_layernorm"]
     entries = [("model.embed_tokens.weight", (v, d))]
-    for i in range(c["num_hidden_layers"]):
+    for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
-        entries += [(p + "input_layernorm.weight", (d,)),
-                    (p + "self_attn.q_proj.weight", (d, d)),
+        entries += [(p + n + ".weight", (d,)) for n in norms]
+        entries += [(p + "self_attn.q_proj.weight", (dq, d)),
                     (p + "self_attn.k_proj.weight", (dkv, d)),
                     (p + "self_attn.v_proj.weight", (dkv, d)),
-                    (p + "self_attn.o_proj.weight", (d, d)),
-                    (p + "post_attention_layernorm.weight", (d,)),
+                    (p + "self_attn.o_proj.weight", (d, dq)),
                     (p + "mlp.gate_proj.weight", (f, d)),
                     (p + "mlp.up_proj.weight", (f, d)),
                     (p + "mlp.down_proj.weight", (d, f))]
-    entries += [("model.norm.weight", (d,)), ("lm_head.weight", (v, d))]
+    entries += [("model.norm.weight", (d,))]
+    if not cfg.tie_word_embeddings:
+        entries += [("lm_head.weight", (v, d))]
     index = {name: i for i, (name, _) in enumerate(entries)}
     shapes = dict(entries)
 
     def produce(name):
         if name.endswith("norm.weight"):
-            return torch.ones(shapes[name], dtype=torch.bfloat16)
+            fill = torch.zeros if cfg.gemma_norm else torch.ones
+            return fill(shapes[name], dtype=torch.bfloat16)
         g = torch.Generator(device=DEVICE).manual_seed(SEED * 1000 + index[name])
         w = torch.randn(shapes[name], generator=g, device=DEVICE) * 0.02
         return w.to(torch.bfloat16).cpu()
 
     save_sharded(path, [(n, torch.bfloat16, s) for n, s in entries], produce)
     with open(os.path.join(path, "config.json"), "w") as fh:
-        json.dump(c, fh, indent=2)
+        json.dump(config, fh, indent=2)
+
+
+def _write_model(path, config):
+    """:func:`write_checkpoint` into ``path``, logged; returns ``path``."""
+    t0 = time.perf_counter()
+    write_checkpoint(path, config)
+    size = sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+    n_files = sum(n.endswith(".safetensors") for n in os.listdir(path))
+    log(f"[main] wrote {config['model_type']} checkpoint: {n_files} "
+        f"safetensors files, {size / 1e9:.2f} GB, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
 
 
 def _http(method, url, body=None):
@@ -1408,6 +1801,100 @@ def _alpaca_texts(rng, n):
              + RESPONSE + printable(64, 1536, i % 8 == 0)} for i in range(n)]
 
 
+def _notebook_recipe(tmp, tag, train, steps, out_name):
+    """The notebook recipe's training at full width and depth from the
+    checkpoint in ``tmp`` (phases 7 and 8), with every kernel's launch
+    count and the peak memory reset first: from_pretrained(max_seq_length
+    2048, load_in_4bit=True), get_peft_model(r=16, seven projections,
+    "unsloth" checkpointing), SFTTrainer(packing=False) on the Alpaca
+    texts ``train`` with train_on_responses_only, batch 2 x accumulation 4,
+    ``steps`` steps (one epoch: every step sees other rows), warmup 0. The
+    losses must be finite and falling. Returns a dict: the model, trainer,
+    batches, the epoch's group order and accumulation, launches, peak
+    memory, losses, step times, real / trained / padded tokens/s over the
+    steps after the first, and the train result."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import (FastLanguageModel, SFTConfig, SFTTrainer,
+                                   train_on_responses_only)
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, max_seq_length=UNPACKED_ROWS, load_in_4bit=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    model = FastLanguageModel.get_peft_model(
+        model, r=16, lora_alpha=16,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth").for_training()
+    torch.cuda.synchronize()
+    log(f"[{tag}] from_pretrained(load_in_4bit=True) + get_peft_model(r=16) "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    args = SFTConfig(
+        output_dir=os.path.join(tmp, out_name),
+        max_seq_length=UNPACKED_ROWS, packing=False,
+        per_device_train_batch_size=2, gradient_accumulation_steps=4,
+        max_steps=steps, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
+        report_to="none")
+    trainer = SFTTrainer(model, tokenizer=ByteTokenizer(),
+                         train_dataset=train, args=args)
+    train_on_responses_only(trainer, instruction_part=INSTRUCTION,
+                            response_part=RESPONSE)
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches]
+    trained = [int((b.labels[:, 1:] != -100).sum()) for b in batches]
+    padded = [int(b.segment_ids.size) for b in batches]
+    lengths = [int(n) for b in batches for n in (b.segment_ids != 0).sum(1)]
+    log(f"[{tag}] {len(train)} texts -> {len(batches)} padded batches of "
+        f"[2, {UNPACKED_ROWS}]: rows of {min(lengths)}-{max(lengths)} tokens "
+        f"({sum(n == UNPACKED_ROWS for n in lengths)} cut at "
+        f"{UNPACKED_ROWS}); real {sum(real)} of {sum(padded)} row tokens "
+        f"({100 * (1 - sum(real) / sum(padded)):.1f}% pad), trained "
+        f"(response) tokens {sum(trained)}")
+    result = trainer.train()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    # the trainer's group order for epoch 0 (SFTTrainer.train)
+    accum = args.gradient_accumulation_steps
+    order = list(range(0, len(batches) - accum + 1, accum))
+    np.random.RandomState(args.seed).shuffle(order)
+    per_step = [[sum(c[i:i + accum]) for i in order]
+                for c in (real, trained, padded)]
+    steady_s = sum(times[1:])
+    rates = [sum(c[1:]) / steady_s for c in per_step]
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}")
+    log(f"[{tag}] steady step (median of steps 2-{steps}) "
+        f"{statistics.median(times[1:]):.3f} s; over steps 2-{steps}: "
+        f"{rates[0]:.1f} real tokens/s, {rates[1]:.1f} trained tokens/s, "
+        f"{rates[2]:.1f} padded tokens/s; first step {times[0]:.3f} s; peak "
+        f"memory allocated {peak / 1e9:.2f} GB")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag} training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{tag} training loss did not fall: {losses}")
+    return dict(model=model, trainer=trainer, batches=batches, order=order,
+                accum=accum, launches=launches, peak=peak, losses=losses,
+                times=times, rates=rates, result=result)
+
+
+def _recipe_metrics(run):
+    """What phases 7 and 8 return of :func:`_notebook_recipe`'s run."""
+    return dict(losses=run["losses"], step_s=statistics.median(
+        run["times"][1:]), real_tokens_per_s=run["rates"][0],
+        trained_tokens_per_s=run["rates"][1],
+        padded_tokens_per_s=run["rates"][2], peak_bytes=run["peak"],
+        runtime_s=run["result"].metrics["train_runtime"])
+
+
 def phase_unpacked_sft(tmp, profile=False):
     """The notebook recipe at full width and depth from the checkpoint in
     ``tmp``: from_pretrained(max_seq_length=2048, load_in_4bit=True),
@@ -1430,78 +1917,27 @@ def phase_unpacked_sft(tmp, profile=False):
     import numpy as np
     import torch
 
-    from unsloth_tpu_torch import (FastLanguageModel, SFTConfig, SFTTrainer,
-                                   train_on_responses_only)
+    from unsloth_tpu_torch import FastLanguageModel
     from unsloth_tpu_torch.models.decoder import logits_fn
 
-    kernels = _kernel_fns()
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    model, _ = FastLanguageModel.from_pretrained(
-        tmp, max_seq_length=UNPACKED_ROWS, load_in_4bit=True,
-        dtype=torch.bfloat16, device=DEVICE)
-    model = FastLanguageModel.get_peft_model(
-        model, r=16, lora_alpha=16,
-        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                        "up_proj", "down_proj"],
-        use_gradient_checkpointing="unsloth").for_training()
     texts = _alpaca_texts(np.random.default_rng(SEED + 4), 56)
-    train, held_out = texts[:48], texts[48:]
-    args = SFTConfig(
-        output_dir=os.path.join(tmp, "sft_unpacked"),
-        max_seq_length=UNPACKED_ROWS, packing=False,
-        per_device_train_batch_size=2, gradient_accumulation_steps=4,
-        max_steps=6, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
-        report_to="none")
-    trainer = SFTTrainer(model, tokenizer=ByteTokenizer(),
-                         train_dataset=train, args=args)
-    train_on_responses_only(trainer, instruction_part=INSTRUCTION,
-                            response_part=RESPONSE)
-    batches = trainer.prepare_batches()
-    real = [int((b.segment_ids != 0).sum()) for b in batches]
-    trained = [int((b.labels[:, 1:] != -100).sum()) for b in batches]
-    padded = [int(b.segment_ids.size) for b in batches]
-    lengths = [int(n) for b in batches for n in (b.segment_ids != 0).sum(1)]
-    log(f"[unpacked] {len(train)} texts -> {len(batches)} padded batches of "
-        f"[2, {UNPACKED_ROWS}]: rows of {min(lengths)}-{max(lengths)} tokens "
-        f"({sum(n == UNPACKED_ROWS for n in lengths)} cut at "
-        f"{UNPACKED_ROWS}); real {sum(real)} of {sum(padded)} row tokens "
-        f"({100 * (1 - sum(real) / sum(padded)):.1f}% pad), trained "
-        f"(response) tokens {sum(trained)}")
-    result = trainer.train()
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [e["loss"] for e in trainer.state_log]
-    times = trainer.step_times
-    # the trainer's group order for epoch 0 (SFTTrainer.train)
-    accum = args.gradient_accumulation_steps
-    order = list(range(0, len(batches) - accum + 1, accum))
-    np.random.RandomState(args.seed).shuffle(order)
-    per_step = [[sum(c[i:i + accum]) for i in order]
-                for c in (real, trained, padded)]
-    steady_s = sum(times[1:])
-    rates = [sum(c[1:]) / steady_s for c in per_step]
-    steps = len(times)
-    log(f"[unpacked] losses {[round(x, 4) for x in losses]}; step times (s) "
-        f"{[round(x, 3) for x in times]}")
-    log(f"[unpacked] steady step (median of steps 2-{steps}) "
-        f"{statistics.median(times[1:]):.3f} s; over steps 2-{steps}: "
-        f"{rates[0]:.1f} real tokens/s, {rates[1]:.1f} trained tokens/s, "
-        f"{rates[2]:.1f} padded tokens/s; first step {times[0]:.3f} s; peak "
-        f"memory allocated {peak / 1e9:.2f} GB")
-    expect = {"flash_attn_fwd": 256, "flash_attn_dq": 128,
-              "flash_attn_dkv": 128, "cross_entropy_fwd": 4,
-              "cross_entropy_bwd": 4}
+    held_out = texts[48:]
+    run = _notebook_recipe(tmp, "unpacked", texts[:48], 6, "sft_unpacked")
+    model, trainer, launches = run["model"], run["trainer"], run["launches"]
+    metrics = _recipe_metrics(run)
+    n_layers, accum, steps = (model.cfg.num_layers, run["accum"],
+                              len(run["times"]))
+    expect = {"flash_attn_fwd": 2 * n_layers * accum,    # forward + remat
+              "flash_attn_dq": n_layers * accum,
+              "flash_attn_dkv": n_layers * accum,
+              "cross_entropy_fwd": accum, "cross_entropy_bwd": accum}
     log(f"[unpacked] launches on the path: {launches}; per step "
         f"{ {n: launches[n] / steps for n in expect} } (expected {expect})")
-    if len(losses) != 6 or not all(np.isfinite(losses)):
-        raise RuntimeError(f"training losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"training loss did not fall: {losses}")
-    _check_launched(launches, UNPACKED_KERNELS, "unpacked training")
+    _check_launched(launches, UNPACKED_KERNELS, "unpacked training", expect,
+                    steps)
     if profile:
-        _profile_train_step(trainer, batches[order[0]:order[0] + accum])
+        i = run["order"][0]
+        _profile_train_step(trainer, run["batches"][i:i + run["accum"]])
         return launches, None
 
     t0 = time.perf_counter()
@@ -1543,7 +1979,7 @@ def phase_unpacked_sft(tmp, profile=False):
     save_peak = torch.cuda.max_memory_allocated() - resident
     size = sum(os.path.getsize(os.path.join(merged_dir, n))
                for n in os.listdir(merged_dir))
-    del trainer, model
+    del trainer, model, run
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     merged, _ = FastLanguageModel.from_pretrained(
@@ -1567,11 +2003,77 @@ def phase_unpacked_sft(tmp, profile=False):
     del merged
     shutil.rmtree(merged_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, dict(losses=losses, step_s=statistics.median(times[1:]),
-                          real_tokens_per_s=rates[0],
-                          trained_tokens_per_s=rates[1],
-                          padded_tokens_per_s=rates[2], peak_bytes=peak,
-                          eval=ev, runtime_s=result.metrics["train_runtime"])
+    return launches, dict(metrics, eval=ev)
+
+
+def phase_gemma2_sft(tmp, profile=False):
+    """Gemma-2 QLoRA SFT, the notebook recipe, at full width and depth from
+    the Gemma-2-9B checkpoint in ``tmp``: from_pretrained(max_seq_length
+    2048, load_in_4bit=True), get_peft_model(r=16, seven projections,
+    "unsloth" checkpointing), SFTTrainer(packing=False) on synthetic
+    Alpaca texts with train_on_responses_only, batch 2 x accumulation 4,
+    GEMMA2_STEPS steps (one epoch). Every layer's attention runs K18 (the
+    softcap of 50 on all, the window of 4,096 on the sliding ones), the
+    loss K7/K8 with the final softcap of 30 over 256,000 logits. Losses
+    finite and falling; every kernel of the path launched, and none of the
+    attention kernels without a softcap (K9-K11, K16). Then evaluate on 8
+    held-out texts and a greedy generate of 16 new tokens for 2 prompts
+    (the decode attention is plain PyTorch, as in the JAX package). With
+    ``profile``, one more step runs under the profiler
+    (:func:`_profile_train_step`) in place of evaluate and generate."""
+    import numpy as np
+    import torch
+
+    texts = _alpaca_texts(np.random.default_rng(SEED + 7),
+                          GEMMA2_STEPS * 8 + 8)
+    held_out = texts[-8:]
+    run = _notebook_recipe(tmp, "gemma2", texts[:-8], GEMMA2_STEPS,
+                           "sft_gemma2")
+    model, trainer, launches = run["model"], run["trainer"], run["launches"]
+    metrics = _recipe_metrics(run)
+    n_layers, accum, steps = (model.cfg.num_layers, run["accum"],
+                              len(run["times"]))
+    expect = {"splash_attn_fwd": 2 * n_layers * accum,   # forward + remat
+              "splash_attn_dq": n_layers * accum,
+              "splash_attn_dkv": n_layers * accum,
+              "cross_entropy_fwd": accum, "cross_entropy_bwd": accum}
+    log(f"[gemma2] launches on the path: {launches}; per step "
+        f"{ {n: launches[n] / steps for n in expect} } (expected {expect})")
+    _check_launched(launches, GEMMA2_KERNELS, "Gemma-2 training", expect,
+                    steps)
+    stray = {n: launches[n] for n in ("packed_attn_fwd", "packed_attn_bwd",
+                                      "flash_attn_fwd", "flash_attn_dq",
+                                      "flash_attn_dkv") if launches[n]}
+    if stray:
+        raise RuntimeError(f"kernels without a softcap ran on the Gemma-2 "
+                           f"path: {stray}")
+    if profile:
+        i = run["order"][0]
+        _profile_train_step(trainer, run["batches"][i:i + accum])
+        return launches, None
+
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(held_out)
+    t_eval = time.perf_counter() - t0
+    prompts = [list(text["text"].encode())[:64] for text in held_out[:2]]
+    model.for_inference()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=16, temperature=0.0,
+                         return_token_ids=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    log(f"[gemma2] evaluate on {len(held_out)} texts: {ev} in {t_eval:.1f} s;"
+        f" generate 2 prompts of {[len(p_) for p_ in prompts]} tokens, 16 "
+        f"new: {[len(r) for r in out]} tokens in {t_gen:.2f} s")
+    if not (np.isfinite(ev["eval_loss"]) and ev["eval_tokens"] > 0):
+        raise RuntimeError(f"bad eval metrics {ev}")
+    if len(out) != 2 or any(
+            len(r) == 0 or not all(0 <= t_ < model.cfg.vocab_size for t_ in r)
+            for r in out):
+        raise RuntimeError(f"generate returned empty rows or bad ids: {out}")
+    del trainer, model, run
+    torch.cuda.empty_cache()
+    return launches, dict(metrics, eval=ev)
 
 
 def _profile_train_step(trainer, rows, top=25):
@@ -1645,6 +2147,7 @@ def _kernel_fns():
     from unsloth_tpu_torch.ops import cross_entropy as tce
     from unsloth_tpu_torch.ops import flash_attention as tfa
     from unsloth_tpu_torch.ops import packed_attention as tpa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
     from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd
 
@@ -1656,7 +2159,10 @@ def _kernel_fns():
             "packed_attn_bwd": tpa.packed_attention_bwd,
             "flash_attn_fwd": tfa.flash_attention_fwd,
             "flash_attn_dq": tfa.flash_attention_dq,
-            "flash_attn_dkv": tfa.flash_attention_dkv}
+            "flash_attn_dkv": tfa.flash_attention_dkv,
+            "splash_attn_fwd": tsa.splash_attention_fwd,
+            "splash_attn_dq": tsa.splash_attention_dq,
+            "splash_attn_dkv": tsa.splash_attention_dkv}
 
 
 # the kernels each main path must launch
@@ -1666,13 +2172,22 @@ TRAIN_KERNELS = ("nf4_matmul", "nf4_matmul_dx", "rms_norm", "rms_norm_bwd",
 PACKED_KERNELS = TRAIN_KERNELS + ("packed_attn_fwd", "packed_attn_bwd")
 UNPACKED_KERNELS = TRAIN_KERNELS + ("flash_attn_fwd", "flash_attn_dq",
                                     "flash_attn_dkv")
+GEMMA2_KERNELS = TRAIN_KERNELS + ("splash_attn_fwd", "splash_attn_dq",
+                                  "splash_attn_dkv")
 
 
-def _check_launched(launches, names, path):
+def _check_launched(launches, names, path, per_step=None, steps=0):
+    """Every kernel of ``names`` launched on the path, and each of
+    ``per_step`` exactly that many times a step over ``steps`` steps."""
     for name in names:
         if launches[name] <= 0:
             raise RuntimeError(f"{name} kernel never launched on the {path} "
                                "path")
+    wrong = {n: launches[n] for n, k in (per_step or {}).items()
+             if launches[n] != k * steps}
+    if wrong:
+        raise RuntimeError(f"launches on the {path} path over {steps} steps "
+                           f"are {wrong}, not {per_step} a step")
 
 
 def main() -> int:
@@ -1686,11 +2201,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    profiles = {(): None, ("--profile-train",): phase_train_main,
-                ("--profile-train-unpacked",): phase_unpacked_sft}
+    profiles = {
+        (): None,
+        ("--profile-train",): (phase_train_main, LLAMA_31_8B_CONFIG),
+        ("--profile-train-unpacked",): (phase_unpacked_sft,
+                                        LLAMA_31_8B_CONFIG),
+        ("--profile-train-gemma2",): (phase_gemma2_sft, GEMMA2_9B_CONFIG)}
     if tuple(sys.argv[1:]) not in profiles:
         print(f"usage: {sys.argv[0]} [--profile-train | "
-              "--profile-train-unpacked]", file=sys.stderr)
+              "--profile-train-unpacked | --profile-train-gemma2]",
+              file=sys.stderr)
         return 2
     profile = profiles[tuple(sys.argv[1:])]
     name, smi = phase_device()
@@ -1701,30 +2221,36 @@ def main() -> int:
         phase_slice_parity()
         phase_train_parity()
         phase_train_parity_padded()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_llama31_8b_")
+        phase_train_parity_padded(
+            GEMMA2_9B_CONFIG, expect=GEMMA2_KERNELS,
+            absent=("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                    "packed_attn_fwd", "packed_attn_bwd"),
+            label="Gemma-2-9B (a sliding and a global layer)", seed=SEED + 8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        t0 = time.perf_counter()
-        write_checkpoint(tmp)
-        size = sum(os.path.getsize(os.path.join(tmp, n))
-                   for n in os.listdir(tmp))
-        n_files = sum(n.endswith(".safetensors") for n in os.listdir(tmp))
-        log(f"[main] wrote {n_files} safetensors files, {size / 1e9:.2f} GB, "
-            f"in {time.perf_counter() - t0:.1f} s")
         if profile:
-            # phases 1, 2 and 6 (or 7) only, then a profiled step; no
+            # phases 1, 2 and 6, 7 or 8 only, then a profiled step; no
             # result line
-            profile(tmp, profile=True)
+            fn, config = profile
+            fn(_write_model(os.path.join(tmp, "model"), config),
+               profile=True)
             return 0
-        serve_launches, _ = phase_main_path(tmp)
-        packed_launches, _ = phase_train_main(tmp)
-        unpacked_launches, _ = phase_unpacked_sft(tmp)
+        llama = _write_model(os.path.join(tmp, "llama31_8b"),
+                             LLAMA_31_8B_CONFIG)
+        serve_launches, _ = phase_main_path(llama)
+        packed_launches, _ = phase_train_main(llama)
+        unpacked_launches, _ = phase_unpacked_sft(llama)
+        shutil.rmtree(llama)   # the disk holds one checkpoint at a time
+        gemma2_launches, _ = phase_gemma2_sft(_write_model(
+            os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # each kernel at a shape of the path whose launches the line reports:
     # (source, TPU kernel it replaces, shape in phase 3, launches by path)
     by_path = {"serving": serve_launches, "packed_training": packed_launches,
-               "unpacked_training": unpacked_launches}
+               "unpacked_training": unpacked_launches,
+               "gemma2_training": gemma2_launches}
     picks = {
         "nf4_matmul": ("nf4_matmul.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
@@ -1753,13 +2279,27 @@ def main() -> int:
         "flash_attn_dkv": ("flash_attention.cu",
                            "unsloth_tpu/ops/attention.py:415 (bundled "
                            "_flash_attention_bwd_dkv)", None),
+        "splash_attn_fwd": ("splash_attention.cu",
+                            "unsloth_tpu/ops/attention.py:231 (_splash_kernel"
+                            ": bundled splash forward)", "(a) sliding"),
+        "splash_attn_dq": ("splash_attention.cu",
+                           "unsloth_tpu/ops/attention.py:231 (_splash_kernel"
+                           ": bundled splash dq)", "(a) sliding"),
+        "splash_attn_dkv": ("splash_attention.cu",
+                            "unsloth_tpu/ops/attention.py:231 (_splash_kernel"
+                            ": bundled splash dk/dv)", "(a) sliding"),
     }
+    # the main path each kernel's "launches" comes from
+    main_path = {"packed_attn_fwd": "packed_training",
+                 "packed_attn_bwd": "packed_training",
+                 "splash_attn_fwd": "gemma2_training",
+                 "splash_attn_dq": "gemma2_training",
+                 "splash_attn_dkv": "gemma2_training"}
     kernels_line = []
     for kname, (src, replaces, shape) in picks.items():
         row = next(r for r in rows[kname]
-                   if shape is None or r["shape"] == shape)
-        path = ("packed_training" if kname.startswith("packed")
-                else "unpacked_training")
+                   if shape is None or r["shape"].startswith(shape))
+        path = main_path.get(kname, "unpacked_training")
         kernels_line.append({
             "name": kname, "route": "cuda",
             "source": f"unsloth_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -1769,7 +2309,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": {p_: n[kname] for p_, n in by_path.items()
-                                 if kname in n}})
+                                 if kname in n},
+            **({"sdpa_no_softcap_ms": row["sdpa_no_softcap_ms"]}
+               if "sdpa_no_softcap_ms" in row else {})})
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

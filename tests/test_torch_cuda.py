@@ -272,3 +272,118 @@ def test_flash_attention_refuses_other_head_dims(dev):
     q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim 128"):
         tfa.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# Gemma-2 training: splash attention (K18), and K1/K3/K7 at Gemma-2 shapes
+# ---------------------------------------------------------------------------
+
+from unsloth_tpu_torch.ops import splash_attention as tsa  # noqa: E402
+
+
+def _splash_segments(t, dev):
+    """Row 0 padded (1 real, 0 pad from token 230), row 1 packed: segments
+    of 37, 150 and the rest."""
+    seg = torch.ones((2, t), dtype=torch.int32)
+    seg[0, 230:] = 0
+    seg[1, 37:187] = 2
+    seg[1, 187:] = 3
+    return seg.to(dev)
+
+
+@pytest.mark.parametrize("d,hq,hkv,window,softcap,scale", [
+    (256, 4, 2, None, None, 256 ** -0.5),
+    (256, 4, 2, 64, 50.0, 256 ** -0.5),
+    (256, 8, 4, None, 50.0, 256 ** -0.5),
+    (128, 8, 2, 100, None, 128 ** -0.5),
+    (128, 4, 2, 64, 50.0, 144 ** -0.5),
+])
+def test_splash_attention_kernels_match_plain(dev, d, hq, hkv, window,
+                                              softcap, scale):
+    """K18 forward (out, lse), dq and dk/dv against the plain fp32 versions
+    on the same bf16 inputs, a padded and a packed row at a ragged T = 300,
+    with and without a window (64 and 100 tokens: it bites) and the softcap:
+    every position row by row (``chip_smoke.attn_row_err``; the kernels
+    round P and dS to bf16), lse within 1e-3; the backward pair gets the
+    kernel forward's (out, lse)."""
+    t = 300
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = _splash_segments(t, dev)
+    lo, hi = tfa.tile_segment_ranges(seg)
+    opts = dict(window=window, softcap=softcap, scale=scale)
+    before = (tsa.splash_attention_fwd.launches,
+              tsa.splash_attention_dq.launches,
+              tsa.splash_attention_dkv.launches)
+    out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+    dq, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                     **opts)
+    dk, dv = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                      **opts)
+    rout, rlse = tsa.splash_attention_fwd_ref(q, k, v, seg, **opts)
+    rdq, rdk, rdv = tsa.splash_attention_bwd_ref(q, k, v, seg, out, lse,
+                                                 dout, **opts)
+    torch.cuda.synchronize()
+    assert (tsa.splash_attention_fwd.launches,
+            tsa.splash_attention_dq.launches,
+            tsa.splash_attention_dkv.launches) == tuple(x + 1 for x in before)
+    assert (lse - rlse).abs().max() <= 1e-3
+    for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got).all()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+
+
+def test_attention_dispatch_reaches_splash_on_cuda(dev):
+    """A window or a softcap sends causal attention to K18, under a declared
+    segment bound too; its gradients come from the dq and dk/dv kernels."""
+    from unsloth_tpu_torch.ops.attention import attention, packed_segment_bound
+
+    q = torch.randn((2, 128, 4, 256), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn((2, 128, 2, 256), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    seg = _splash_segments(128, dev)
+    before = (tsa.splash_attention_fwd.launches,
+              tsa.splash_attention_dq.launches,
+              tsa.splash_attention_dkv.launches)
+    with packed_segment_bound(128):
+        out = attention(q, k, k, segment_ids=seg, window=32, softcap=50.0,
+                        scale=0.0625)
+    out.float().sum().backward()
+    assert (tsa.splash_attention_fwd.launches,
+            tsa.splash_attention_dq.launches,
+            tsa.splash_attention_dkv.launches) == tuple(x + 1 for x in before)
+    assert q.grad.shape == q.shape and torch.isfinite(k.grad).all()
+
+
+def test_splash_attention_refuses_other_head_dims(dev):
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tsa.splash_attention(q, q, q, window=16)
+
+
+def test_gemma2_shapes_nf4_rms_norm_ce(dev):
+    """K1 at Gemma-2-9B's q projection (N 4096, K 3584), K3 with gemma=True
+    at hidden 3584, K7 over the 256,000-token vocabulary with softcap 30,
+    each against its plain version with the tolerances above."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = quantize_nf4(torch.randn((4096, 3584), generator=g, device=dev) * 0.02)
+    x = torch.randn((64, 3584), generator=g, device=dev).to(torch.bfloat16)
+    y = nf4_matmul(x, q)
+    ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
+    assert (y.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+    w = (0.1 * torch.randn(3584, generator=g, device=dev)).to(torch.bfloat16)
+    y = rms_norm(x, w, 1e-6, True)
+    ref = rms_norm_ref(x, w, 1e-6, True)
+    assert ((y.float() - ref.float()).abs()
+            <= 2.0 ** -7 * ref.float().abs() + 1e-6).all()
+    logits = (torch.randn((64, 256000), generator=g, device=dev) * 4
+              ).to(torch.bfloat16)
+    labels = torch.randint(0, 256000, (64,), generator=g, device=dev)
+    loss, lse = tce.cross_entropy_fwd(logits, labels, 30.0)
+    rloss, rlse = tce.cross_entropy_ref(logits, labels, 30.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(loss, rloss, rtol=1e-4, atol=1e-4)

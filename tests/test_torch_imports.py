@@ -21,8 +21,8 @@ assert not bad, bad
 # the training slice's modules, which must be among those imported
 TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
             "ops.flash_attention", "ops.fused_ce_linear",
-            "ops.packed_attention", "trainer.sft", "utils.logging",
-            "export.save")
+            "ops.packed_attention", "ops.splash_attention", "trainer.sft",
+            "utils.logging", "export.save")
 
 
 def test_port_imports_no_jax():

@@ -242,13 +242,15 @@ def test_attention_ref_matches_jax():
 
 
 @pytest.mark.parametrize("route,kw,kernel", [
-    ("window", dict(window=8), "K18"),
-    ("softcap", dict(softcap=30.0), "K18"),
+    ("window", dict(window=8, causal=False), "K18"),
+    ("softcap", dict(softcap=30.0, causal=False), "K18"),
     ("sinks", dict(sinks=torch.zeros(4, device="meta")), "K17"),
 ])
 def test_unported_device_routes_raise(route, kw, kernel):
     """Off the CPU every route without a kernel raises and names the TPU
-    kernel it waits for (a meta tensor stands in for a CUDA one)."""
+    kernel it waits for (a meta tensor stands in for a CUDA one): sinks
+    (K17), and a window or softcap without causality (K18's non-causal
+    form; the causal one is ported)."""
     q = torch.empty((1, 128, 4, 128), device="meta")
     k = torch.empty((1, 128, 2, 128), device="meta")
     seg = torch.empty((1, 128), dtype=torch.int32, device="meta")
@@ -289,6 +291,50 @@ def test_unpacked_device_route_reaches_k16(monkeypatch, with_segments):
     assert calls == ["fwd"] and out.shape == q.shape
     out.sum().backward()
     assert calls == ["fwd", "dq", "dkv"]
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+
+@pytest.mark.parametrize("window,softcap,bound", [
+    (8, None, None), (None, 30.0, None), (4096, 50.0, None),
+    (8, 50.0, 64)])
+def test_window_softcap_device_route_reaches_k18(monkeypatch, window,
+                                                 softcap, bound):
+    """Off the CPU, causal attention with a sliding window or a softcap goes
+    to the K18 kernel wrappers (the forward, then dq and dk/dv in the
+    backward) with its window, softcap and scale, at head dim 256 and a
+    ragged T, packed rows under a declared segment bound included (a meta
+    tensor stands in for a CUDA one; the launchers are recorded)."""
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    b, t, hq, hkv, d = 2, 100, 4, 2, 256
+    calls = []
+    meta = dict(device="meta")
+
+    def record(name, result):
+        def launch(*args, **kw):
+            calls.append((name, kw["window"], kw["softcap"], kw["scale"]))
+            return result(*args)
+        return launch
+
+    monkeypatch.setattr(tsa, "splash_attention_fwd", record(
+        "fwd", lambda q, *_: (torch.empty_like(q),
+                              torch.empty((b, hq, t), **meta))))
+    monkeypatch.setattr(tsa, "splash_attention_dq", record(
+        "dq", lambda q, *_: (torch.empty_like(q),
+                             torch.empty((b, hq, t), **meta))))
+    monkeypatch.setattr(tsa, "splash_attention_dkv", record(
+        "dkv", lambda q, k, v, *_: (torch.empty_like(k),
+                                    torch.empty_like(v))))
+    q = torch.empty((b, t, hq, d), requires_grad=True, **meta)
+    k = torch.empty((b, t, hkv, d), requires_grad=True, **meta)
+    seg = torch.ones((b, t), dtype=torch.int32, **meta)
+    with tatt.packed_segment_bound(bound):
+        out = tatt.attention(q, k, k, segment_ids=seg, window=window,
+                             softcap=softcap, scale=0.0625)
+    assert calls == [("fwd", window, softcap, 0.0625)]
+    out.sum().backward()
+    assert [c[0] for c in calls] == ["fwd", "dq", "dkv"]
+    assert len(set(c[1:] for c in calls)) == 1
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
 
 

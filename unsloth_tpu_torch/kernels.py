@@ -28,7 +28,7 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
-           "flash_attention.cu", "cross_entropy.cu")
+           "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("attention_tiles.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -135,6 +135,15 @@ def library() -> ctypes.CDLL:
         lib.unsloth_flash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                p, i, i, i, i, f, p]
         lib.unsloth_flash_attn_dkv.restype = i
+        lib.unsloth_splash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                                i, i, i, f, i, f, p]
+        lib.unsloth_splash_attn_fwd.restype = i
+        lib.unsloth_splash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                               p, i, i, i, i, i, f, i, f, p]
+        lib.unsloth_splash_attn_dq.restype = i
+        lib.unsloth_splash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                p, i, i, i, i, i, f, i, f, p]
+        lib.unsloth_splash_attn_dkv.restype = i
         lib.unsloth_ce_fwd.argtypes = [p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_fwd.restype = i
         lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]

@@ -7,17 +7,20 @@ its layout: q [B, T, Hq, Dh]; k, v [B, T, Hkv, Dh]; segment_ids [B, T]
 * :func:`attention_ref` — masked SDPA in fp32: causal, segment ids,
   sliding window, softcap, GQA. The parity oracle and the CPU path.
 * :func:`attention` — the dispatcher. A CPU tensor takes
-  :func:`attention_ref`. A CUDA tensor, causal, with no softcap, window or
-  sinks and k/v over the same T (``Hq % Hkv == 0``) launches a kernel:
-  with a declared segment bound (:class:`packed_segment_bound`, set by the
-  trainer when it packs), segment ids, ``T % 64 == 0`` and
-  ``Dh % 128 == 0``, the packed flash kernels (``ops/packed_attention.py``,
-  K9-K11); otherwise (unpacked or padded rows, no segment ids) the flash
-  kernels over the whole causal range (``ops/flash_attention.py``, K16),
-  which take any T and raise for a head dim other than 128. Every other
-  CUDA route raises ``NotImplementedError`` naming the TPU kernel it still
-  needs: K17 (sinks), K18 (window, softcap). There is no fallback from the
-  card to the plain version.
+  :func:`attention_ref`. A CUDA tensor, causal, with k/v over the same T
+  (``Hq % Hkv == 0``) and no sinks, launches a kernel: with a sliding
+  window or a logit softcap, the splash kernels
+  (``ops/splash_attention.py``, K18), padded and packed rows alike, head
+  dim 128 or 256; otherwise, with a declared segment bound
+  (:class:`packed_segment_bound`, set by the trainer when it packs),
+  segment ids, ``T % 64 == 0`` and ``Dh % 128 == 0``, the packed flash
+  kernels (``ops/packed_attention.py``, K9-K11); otherwise (unpacked or
+  padded rows, no segment ids) the flash kernels over the whole causal
+  range (``ops/flash_attention.py``, K16), which take any T and raise for
+  a head dim other than 128. Every other CUDA route raises
+  ``NotImplementedError`` naming the TPU kernel it still needs: K17
+  (sinks), K18's non-causal form (a window or softcap without
+  causality). There is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .packed_attention import BLOCK, packed_flash_attention
+from .splash_attention import splash_attention
 
 _SEGMENT_BOUND: Optional[int] = None
 
@@ -129,12 +133,17 @@ def attention(q, k, v, *, causal: bool = True,
         raise NotImplementedError(
             "attention on CUDA with sinks needs the port of TPU kernel K17 "
             "(unsloth_tpu/ops/attention.py:_tpu_flash_sinks)")
-    if window is not None or softcap is not None:
-        raise NotImplementedError(
-            "attention on CUDA with a sliding window or softcap needs the "
-            "port of TPU kernel K18 (splash, unsloth_tpu/ops/attention.py:"
-            "_splash_kernel)")
     self_attn = k.shape[1] == t and hq % k.shape[2] == 0
+    if window is not None or softcap is not None:
+        if causal and self_attn:
+            return splash_attention(q, k, v, segment_ids, window=window,
+                                    softcap=softcap, scale=scale)
+        raise NotImplementedError(
+            f"attention on CUDA with a sliding window or softcap, non-causal "
+            f"(causal={causal}) or cross attention (q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}), needs the non-causal form of TPU kernel K18 "
+            "(splash FullMask, unsloth_tpu/ops/attention.py:_splash_kernel); "
+            "the port covers causal self-attention")
     bound = current_segment_bound() if segment_ids is not None else None
     if (bound is not None and causal and t % BLOCK == 0 and dh % 128 == 0
             and self_attn):

@@ -38,13 +38,18 @@ BLOCK = 64
 KERNEL_HEAD_DIM = 128
 
 
-def _mask(segment_ids: Optional[torch.Tensor], b: int, t: int,
-          device) -> torch.Tensor:
-    """[B, T, T] bool: causal, and equal segment ids when given."""
-    causal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
+def _mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
+          window: Optional[int] = None) -> torch.Tensor:
+    """[B, T, T] bool: causal, within the window (i - j < window) and with
+    equal segment ids, where given."""
+    pos = torch.arange(t, device=device)
+    diff = pos[:, None] - pos[None, :]
+    mask = diff >= 0
+    if window is not None:
+        mask = mask & (diff < window)
     if segment_ids is None:
-        return causal[None].expand(b, t, t)
-    return causal[None] & (segment_ids[:, :, None] == segment_ids[:, None, :])
+        return mask[None].expand(b, t, t)
+    return mask[None] & (segment_ids[:, :, None] == segment_ids[:, None, :])
 
 
 def _expand_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
@@ -116,7 +121,8 @@ def tile_segment_ranges(segment_ids: torch.Tensor, block: int = BLOCK
     return (tiles.amin(-1).contiguous(), tiles.amax(-1).contiguous())
 
 
-def _check_kernel_inputs(name, q, k, v, segment_ids):
+def _check_kernel_inputs(name, q, k, v, segment_ids,
+                         head_dims=(KERNEL_HEAD_DIM,)):
     if q.device.type != "cuda":
         raise NotImplementedError(f"{name}: no kernel for device {q.device}")
     b, t, hq, d = q.shape
@@ -124,10 +130,11 @@ def _check_kernel_inputs(name, q, k, v, segment_ids):
         raise NotImplementedError(
             f"{name} CUDA kernel takes bfloat16 q/k/v, got {q.dtype}, "
             f"{k.dtype}, {v.dtype}")
-    if d != KERNEL_HEAD_DIM or k.shape[3] != d or v.shape != k.shape:
+    if d not in head_dims or k.shape[3] != d or v.shape != k.shape:
         raise NotImplementedError(
-            f"{name} CUDA kernel is built for head_dim {KERNEL_HEAD_DIM}; "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+            f"{name} CUDA kernel is built for head_dim "
+            f"{' or '.join(map(str, head_dims))}; got q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if k.shape[:2] != (b, t) or hq % k.shape[2]:
         raise ValueError(f"{name}: needs k/v over the same [B, T] as q and "
                          f"Hq % Hkv == 0; got q {tuple(q.shape)}, k "

@@ -27,14 +27,28 @@ exits non-zero without printing a result:
                without the window of 4,096, (b) one 8K row where the window
                bites, (c) Gemma-2-27B's heads (32/16, head dim 128), (d)
                a packed 8K row and (e), without window or softcap, at
-               K16's shape; the check must reject injected faults (K16:
-               a dropped kv tile, an ignored pad mask, a late-half error;
-               K18 also: the window ignored, the softcap's derivative
-               dropped). For each kernel, its bound (the least time the
-               card could take) and the time of the one PyTorch call that
-               computes the same function, where there is one (K18: the
-               compiled flex_attention with the softcap as its score_mod;
-               SDPA with the same mask and no softcap is timed beside it);
+               K16's shape; then the gpt-oss-20b path's: K1/K2 at its
+               three attention projection shapes (M = 4,096; K = 2,880
+               for q/k/v, whose K/2 is not a multiple of 64), the grouped
+               NF4 expert kernels K14 (with the bias epilogue) and K15 at
+               the path's 16,384 rows routed top-4 over 32 experts (N = K
+               = 2,880, block 32), a skewed routing and the 8 rows of a
+               decode step, and flash attention with sinks (K17: forward,
+               dq, dk/dv, dsinks; 64/8 heads of 64) on the path's packed
+               4,096-token row and a padded [2, 2048] batch; the check
+               must reject injected faults (K16: a dropped kv tile, an
+               ignored pad mask, a late-half error; K18 also: the window
+               ignored, the softcap's derivative dropped; K14/K15: one
+               expert's rows through the next expert's weights, the bias
+               dropped; K17: the sink ignored, dsinks dropped). For each
+               kernel, its bound (the least time the card could take) and
+               the time of the one PyTorch call that computes the same
+               function, where there is one (K18: the compiled
+               flex_attention with the softcap as its score_mod; SDPA with
+               the same mask and no softcap is timed beside it; K14/K15,
+               labelled: dequantize + torch._grouped_mm; K17, labelled:
+               compiled flex_attention with return_lse and the sink
+               rescale);
   3b. CE routes  full logits (cuBLAS + K7/K8) against the chunked fused CE,
                forward + backward time and peak memory, at 4,094 and 8,191
                rows;
@@ -49,6 +63,12 @@ exits non-zero without printing a result:
                layers (one sliding, one global), random NF4 weights,
                nonzero LoRA: K18 and K7/K8 with the softcaps on the card
                against the plain versions in fp32 on the CPU;
+  4d. gpt-oss train parity  gpt-oss-20b cut to 2 layers (one sliding, one
+               global) at full width with all 32 experts, NF4 attention
+               and stacked-NF4 experts, nonzero LoRA on q/k/v/o: the loss
+               and every LoRA gradient of one packed 2,048-token row, the
+               card (K1/K2, K14/K15, K17, K7/K8) against the CPU (plain
+               versions, fp32);
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -57,7 +77,7 @@ exits non-zero without printing a result:
   6. main path (packed training) the same checkpoint, get_peft_model(r=16,
                all seven projections, use_gradient_checkpointing="unsloth"),
                SFTTrainer on synthetic documents packed into 8,192-token
-               rows: batch 1, accumulation 2, 6 steps; losses finite and
+               rows: batch 1, accumulation 2, 4 steps; losses finite and
                falling; step time, real tokens/s and peak memory;
   7. main path (SFT without packing, the Llama-3.1 Alpaca notebook's
                recipe) the same checkpoint at max_seq_length 2048, r=16 on
@@ -78,7 +98,22 @@ exits non-zero without printing a result:
                batch 2 x accumulation 4, 4 steps: losses finite and
                falling, step time, tokens/s, peak memory, K18 launched on
                every layer and K9-K11/K16 never; then evaluate and a
-               greedy generate of 16 tokens for 2 prompts.
+               greedy generate of 16 tokens for 2 prompts;
+  9. main path (MoE QLoRA SFT on gpt-oss-20b) a random-init bf16
+               gpt-oss-20b checkpoint (its published config: 24 layers,
+               hidden 2,880, 64/8 heads of 64, 32 experts, 4 a token,
+               vocabulary 201,088, sliding window 128 on the even layers,
+               sinks, biases; HF's GptOss tensor names, gate and up
+               interleaved) in place of the Gemma-2 one, after a check of
+               the free disk: from_pretrained(load_in_4bit=True) (experts
+               as bf16 stacks, as in the JAX loader), quantize_params
+               (stacked NF4 at block 32), get_peft_model(r=16, "unsloth"),
+               SFTTrainer with packing into 4,096-token rows, batch 1 x
+               accumulation 2, 4 steps: losses finite and falling, step
+               time, tokens/s, peak memory, MFU over active parameters,
+               launches per step exactly K14 288, K15 144, K17 48/24/24 and
+               K9-K11/K16/K18 never; evaluate, the adapter round trip, and
+               a greedy generate of 16 tokens for 2 prompts.
 
 Then one JSON line with each kernel's launches on its main path, its
 largest error against its plain version, its time beside the plain
@@ -89,16 +124,20 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train
     python3 chip_smoke.py --profile-train-unpacked
     python3 chip_smoke.py --profile-train-gemma2
+    python3 chip_smoke.py --profile-train-gpt-oss
 
-run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8 without
-evaluate and generate) only, then one more training step under
-torch.profiler, and print that step's device time by kernel, its device
-busy share and its MFU/HFU (no result line).
+run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8 or 9
+without evaluate and generate) only, then one more training step under
+torch.profiler, and print that step's device time by kernel and by kernel
+family, the device spans of the port's profiler ranges (the MoE routing
+glue, the banded attention), its device busy share and its MFU/HFU (no
+result line). Every phase prints its time ("[time]").
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -171,6 +210,44 @@ GEMMA2_9B_CONFIG = {
     "vocab_size": 256000,
 }
 
+GPT_OSS_20B_CONFIG = {
+    # openai/gpt-oss-20b config.json (published values) without its
+    # quantization_config: the bf16 layout unsloth/gpt-oss-20b-BF16 publishes
+    "architectures": ["GptOssForCausalLM"],
+    "attention_bias": True,
+    "attention_dropout": 0.0,
+    "eos_token_id": 200002,
+    "experts_per_token": 4,
+    "head_dim": 64,
+    "hidden_act": "silu",
+    "hidden_size": 2880,
+    "initial_context_length": 4096,
+    "initializer_range": 0.02,
+    "intermediate_size": 2880,
+    "layer_types": ["sliding_attention", "full_attention"] * 12,
+    "max_position_embeddings": 131072,
+    "model_type": "gpt_oss",
+    "num_attention_heads": 64,
+    "num_experts_per_tok": 4,
+    "num_hidden_layers": 24,
+    "num_key_value_heads": 8,
+    "num_local_experts": 32,
+    "output_router_logits": False,
+    "pad_token_id": 199999,
+    "rms_norm_eps": 1e-05,
+    "rope_scaling": {"beta_fast": 32.0, "beta_slow": 1.0, "factor": 32.0,
+                     "original_max_position_embeddings": 4096,
+                     "rope_type": "yarn", "truncate": False},
+    "rope_theta": 150000,
+    "router_aux_loss_coef": 0.9,
+    "sliding_window": 128,
+    "swiglu_limit": 7.0,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "use_cache": True,
+    "vocab_size": 201088,
+}
+
 # (name, N = out features, K = in features) of every Llama-3.1-8B projection
 PROJ_SHAPES = [("q/o", 4096, 4096), ("k/v", 1024, 4096),
                ("gate/up", 14336, 4096), ("down", 4096, 14336)]
@@ -178,7 +255,14 @@ PROJ_SHAPES = [("q/o", 4096, 4096), ("k/v", 1024, 4096),
 GEMMA2_PROJ_SHAPES = [("q", 4096, 3584), ("k/v", 2048, 3584),
                       ("o", 3584, 4096), ("gate/up", 14336, 3584),
                       ("down", 3584, 14336)]
+# and of every gpt-oss-20b attention projection (K/2 = 1,440 for q/k/v)
+GPT_OSS_PROJ_SHAPES = [("q", 4096, 2880), ("k/v", 512, 2880),
+                       ("o", 2880, 4096)]
+PACKED_STEPS = 4           # optimizer steps of packed Llama training (phase 6)
+UNPACKED_STEPS = 6         # and of the Llama notebook recipe (phase 7)
 GEMMA2_STEPS = 4           # optimizer steps of the Gemma-2 recipe (phase 8)
+GPT_OSS_STEPS = 4          # optimizer steps of gpt-oss-20b training (phase 9)
+GPT_OSS_ROWS = 4096        # packed row of phase 9 (bench.py's first rung)
 DECODE_ROWS = (1, 4, 7)
 PREFILL_ROWS = 4096
 TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
@@ -453,7 +537,9 @@ def phase_kernels():
             [(name, n, k, DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS))
              for name, n, k in PROJ_SHAPES]
             + [("gemma2 " + name, n, k, (2 * UNPACKED_ROWS,))
-               for name, n, k in GEMMA2_PROJ_SHAPES]):
+               for name, n, k in GEMMA2_PROJ_SHAPES]
+            + [("gpt-oss " + name, n, k, (GPT_OSS_ROWS,))
+               for name, n, k in GPT_OSS_PROJ_SHAPES]):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
@@ -519,6 +605,7 @@ def phase_kernels():
     rows.update(_training_kernels(dev, g, flush))
     rows.update(_unpacked_kernels(dev, g, flush))
     rows.update(_splash_kernels(dev, g, flush))
+    rows.update(_gpt_oss_kernels(dev, g, flush))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -598,17 +685,9 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
     tensors, so cases of one shape share a compiled kernel. A yardstick
     only; the port never calls it."""
     import torch
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
+    from torch.nn.attention.flex_attention import create_block_mask
 
-    global _FLEX
-    if _FLEX is None:
-        # forward and forward-for-backward of several shapes; a backward
-        # timed again and again on one graph (retain_graph) must not donate
-        # its buffers
-        torch._dynamo.config.recompile_limit = 64
-        torch._functorch.config.donated_buffer = False
-        _FLEX = torch.compile(flex_attention)
+    flex_compiled = _compiled_flex()
     b, t = segment_ids.shape
     seg = segment_ids.to(torch.int32)
     win = torch.tensor(window or t, device=q.device)
@@ -623,7 +702,7 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
 
     def flex(a, b_, c):
         # q scaled and rounded in its dtype first, as the kernels take it
-        return _FLEX((a * scale).to(a.dtype), b_, c,
+        return flex_compiled((a * scale).to(a.dtype), b_, c,
                      score_mod=score_mod if softcap else None,
                      block_mask=mask, scale=1.0, enable_gqa=True)
 
@@ -637,8 +716,24 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
     return fwd, bwd, err
 
 
-#: the compiled flex_attention of :func:`_flex_ms`, made at its first call
+#: the compiled flex_attention of the yardsticks, made at first use
 _FLEX = None
+
+
+def _compiled_flex():
+    """``torch.compile``d ``flex_attention``, compiled once for the
+    yardsticks (:func:`_flex_ms`, :func:`_flex_sinks_ms`): forward and
+    forward-for-backward of several shapes; a backward timed again and
+    again on one graph (retain_graph) must not donate its buffers."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    global _FLEX
+    if _FLEX is None:
+        torch._dynamo.config.recompile_limit = 64
+        torch._functorch.config.donated_buffer = False
+        _FLEX = torch.compile(flex_attention)
+    return _FLEX
 
 
 def _training_kernels(dev, g, flush):
@@ -674,7 +769,9 @@ def _training_kernels(dev, g, flush):
     for name, n, k, m in (
             [(name, n, k, TRAIN_ROWS) for name, n, k in PROJ_SHAPES]
             + [("gemma2 " + name, n, k, 2 * UNPACKED_ROWS)
-               for name, n, k in GEMMA2_PROJ_SHAPES]):
+               for name, n, k in GEMMA2_PROJ_SHAPES]
+            + [("gpt-oss " + name, n, k, GPT_OSS_ROWS)
+               for name, n, k in GPT_OSS_PROJ_SHAPES]):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
@@ -1167,6 +1264,364 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     return res
 
 
+def _gpt_oss_kernels(dev, g, flush):
+    """The gpt-oss path's own kernels at its shapes: K14 and K15
+    (:func:`_gmm_case`) at (a) the path's 16,384 sorted rows (a real top-4
+    routing of 4,096 random tokens over 32 experts by a random router),
+    N = K = 2,880, block 32, with bias; (b) a skewed routing of as many
+    rows (one expert half of them, three more the rest, 28 none); (c) the
+    8 rows of a decode step (a top-4 routing of 2 tokens); and K17
+    (:func:`_sinks_case`) on (a) the path's packed 4,096-token row and
+    (b) a padded [2, 2048] batch, 64/8 heads of 64."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.ops.moe import _route
+    from unsloth_tpu_torch.ops.nf4 import quantize_nf4_stacked
+
+    c = GPT_OSS_20B_CONFIG
+    d, e, k = c["hidden_size"], c["num_local_experts"], c["num_experts_per_tok"]
+    f = c["intermediate_size"]
+    router = torch.randn((e, d), generator=g, device=dev) * 0.02
+    w = torch.randn((e, f, d), generator=g, device=dev) * 0.02
+    q = quantize_nf4_stacked(w.to(torch.bfloat16), block_size=32)
+    del w
+    bias = (torch.randn((e, f), generator=g, device=dev) * 0.5
+            ).to(torch.bfloat16)
+
+    def routed_rows(n_tokens):
+        x = torch.randn((n_tokens, d), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        _, sel = _route(x.float() @ router.t(), k, True)
+        flat = sel.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = torch.zeros(e, dtype=torch.int32, device=dev).index_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.int32))
+        return x[order // k], sizes
+
+    rows = {name: [] for name in ("nf4_gmm", "nf4_gmm_dx", "flash_sinks_fwd",
+                                  "flash_sinks_dq", "flash_sinks_dkv")}
+    m = GPT_OSS_ROWS * k
+    skew = torch.zeros(e, dtype=torch.int32)
+    skew[3] = m // 2
+    skew[[0, e // 2 + 1, e - 1]] = torch.tensor([m // 6, m // 6, m - m // 2
+                                          - 2 * (m // 6)], dtype=torch.int32)
+    x_path, sizes_path = routed_rows(GPT_OSS_ROWS)
+    x_dec, sizes_dec = routed_rows(2)
+    for label, x, sizes in (
+            ("(a) path", x_path, sizes_path),
+            ("(b) skewed", torch.randn((m, d), generator=g, device=dev
+                                       ).to(torch.bfloat16), skew.to(dev)),
+            ("(c) decode", x_dec, sizes_dec)):
+        res = _gmm_case(dev, g, flush, label, x, q, sizes, bias)
+        for name, row in res.items():
+            rows[name].append(row)
+    del q, x_path, x_dec
+    torch.cuda.empty_cache()
+
+    hq, hkv, hd = (c["num_attention_heads"], c["num_key_value_heads"],
+                   c["head_dim"])
+    packed = torch.from_numpy(_packed_segments(np.random.default_rng(SEED + 9),
+                                               GPT_OSS_ROWS)).to(dev)
+    padded = torch.ones((2, UNPACKED_ROWS), dtype=torch.int32, device=dev)
+    padded[0, 1500:] = 0
+    for label, seg, lib in (("(a) packed row", packed, True),
+                            ("(b) padded", padded, False)):
+        res = _sinks_case(dev, g, flush, label, seg, hq, hkv, hd, hd ** -0.5,
+                          lib)
+        for name, row in res.items():
+            rows[name].append(row)
+    return rows
+
+
+def _row_faults(want, faults):
+    """{fault: row-wise error (:func:`attn_row_err`) of the faulty result
+    against ``want``}; each must exceed ATTN_ROW_TOL."""
+    return {name: attn_row_err(got, want) for name, got in faults.items()}
+
+
+def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
+    """K14 (with the bias epilogue) and K15 at one routing against
+    nf4_gmm_ref, row by row (:func:`attn_row_err`: each output row on its
+    own rms; the kernels round each weight to bf16, the plain version keeps
+    fp32, both sum in fp32), and max|d| beside it. The check must reject
+    the rows of one expert multiplied by the next expert's weights (in both
+    kernels) and the bias dropped (K14). Times: the kernels, the plain
+    versions, and the library yardstick, which dequantizes the whole stack
+    to bf16 and runs ``torch._grouped_mm`` (where the card's torch has
+    it; labelled: it is dequantize + a grouped product, not one call).
+    Bound: 2 m N K operations; bytes of the rows, of the experts this
+    routing visits (packed and absmax) and of the output."""
+    import torch
+
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import dequantize_nf4_stacked
+
+    e, n, k = q.shape
+    m = x.shape[0]
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    y = tng.nf4_gmm(x, q, sizes, bias)
+    dx = tng.nf4_gmm_dx(gy, q, sizes)
+    ref = tng.nf4_gmm_ref(x, q, sizes, bias)
+    rdx = tng.nf4_gmm_ref(gy, q, sizes, transpose=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("nf4_gmm", y, ref), ("nf4_gmm_dx", dx, rdx)):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{name} {label} is not finite")
+        errs[name] = ((got.float() - want.float()).abs().max().item(),
+                      attn_row_err(got, want))
+    # faults: one expert's rows through the next live expert's weights
+    sz = sizes.tolist()
+    live = [i for i, s_ in enumerate(sz) if s_]
+    ends = torch.tensor(sz).cumsum(0).tolist()
+    g0 = live[0]
+    g1 = live[1] if len(live) > 1 else (g0 + 1) % e
+    r0, r1 = ends[g0] - sz[g0], ends[g0]
+    w1 = dequantize_nf4_stacked(q, torch.float32)[g1]
+    wrong_y = ref.clone()
+    wrong_y[r0:r1] = (x[r0:r1].float() @ w1.t() + bias[g0].float()
+                      ).to(ref.dtype)
+    wrong_dx = rdx.clone()
+    wrong_dx[r0:r1] = (gy[r0:r1].float() @ w1).to(rdx.dtype)
+    del w1
+    faults = {"nf4_gmm": _row_faults(ref, {
+        "next expert's weights": wrong_y,
+        "bias dropped": tng.nf4_gmm_ref(x, q, sizes)}),
+        "nf4_gmm_dx": _row_faults(rdx, {"next expert's weights": wrong_dx})}
+    lib = {"nf4_gmm": None, "nf4_gmm_dx": None}
+    lib_err = {}
+    if hasattr(torch, "_grouped_mm"):
+        offs = sizes.cumsum(0).to(torch.int32)
+
+        def lib_fwd():
+            wd = dequantize_nf4_stacked(q, torch.bfloat16)
+            return torch._grouped_mm(x, wd.transpose(1, 2), offs=offs) \
+                + bias[torch.repeat_interleave(
+                    torch.arange(e, device=dev), sizes.long(),
+                    output_size=m)]
+
+        def lib_dx():
+            wd = dequantize_nf4_stacked(q, torch.bfloat16)
+            return torch._grouped_mm(
+                gy, wd.transpose(1, 2).contiguous().transpose(1, 2),
+                offs=offs)
+
+        for name, fn, want in (("nf4_gmm", lib_fwd, ref),
+                               ("nf4_gmm_dx", lib_dx, rdx)):
+            try:
+                lib_err[name] = attn_row_err(fn(), want)
+                lib[name] = time_ms(fn, runs=10, flush=flush)
+            except Exception as exc:  # the yardstick only; logged
+                lib_err[name] = f"torch._grouped_mm failed: {exc!r}"[:200]
+    times = {
+        "nf4_gmm": (time_ms(lambda: tng.nf4_gmm(x, q, sizes, bias),
+                            flush=flush),
+                    time_ms(lambda: tng.nf4_gmm_ref(x, q, sizes, bias),
+                            runs=3, warmup=1, flush=flush)),
+        "nf4_gmm_dx": (time_ms(lambda: tng.nf4_gmm_dx(gy, q, sizes),
+                               flush=flush),
+                       time_ms(lambda: tng.nf4_gmm_ref(
+                           gy, q, sizes, transpose=True), runs=3, warmup=1,
+                           flush=flush))}
+    n_live = len(live)
+    w_bytes = n_live * (n * k // 2 + n * k // q.block_size * 4)
+    b_fwd = bound(2 * m * n * k, m * k * 2 + w_bytes + n_live * n * 2
+                  + m * n * 2 + 4 * e)
+    b_dx = bound(2 * m * n * k, m * n * 2 + w_bytes + m * k * 2 + 4 * e)
+    shape = (f"{label}: m={m} E={e} N={n} K={k} block {q.block_size}, "
+             f"{n_live} experts with rows (largest {max(sz)})")
+    res = {}
+    for name, b_ in (("nf4_gmm", b_fwd), ("nf4_gmm_dx", b_dx)):
+        ms, plain_ms = times[name]
+        res[name] = dict(shape=shape, err=errs[name][0], row_err=errs[name][1],
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_[0],
+                         bound_by=b_[1], library_ms=lib[name],
+                         library="dequantize + torch._grouped_mm"
+                         + (" + bias gather" if name == "nf4_gmm" else ""))
+        log(f"[kernels] {name} {shape}: max|d|={errs[name][0]:.3e} row-wise "
+            f"{errs[name][1]:.3e} (tol {ATTN_ROW_TOL:.3e}); faults "
+            + ", ".join(f"{f_} {r:.3e}" for f_, r in faults[name].items())
+            + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{b_[0]:.4f} ms ({b_[1]}); dequantize + torch._grouped_mm "
+            f"{lib[name]} ms (row-wise {lib_err.get(name)})")
+    bad = [n_ for n_, (_, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad:
+        raise RuntimeError(f"grouped NF4 kernels {label} disagree: {errs}")
+    missed = [(n_, f_) for n_, fs in faults.items() for f_, r in fs.items()
+              if not r > ATTN_ROW_TOL]
+    if missed:
+        raise RuntimeError(f"the grouped NF4 check lets faults through: "
+                           f"{missed}")
+    del y, dx, ref, rdx, wrong_y, wrong_dx, gy
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
+    """K17 forward, dq, dk/dv and dsinks at one shape against the plain
+    versions: out, dq, dk, dv at every position row by row
+    (:func:`attn_row_err`), lse' within 1e-3, dsinks within 1e-2 of its
+    largest value (a sum over 4,096 tokens of fp32 terms from the kernels'
+    di); the backward fed the kernel forward's (out, lse') on both sides.
+    Sinks are N(0, 2^2), so they weigh against a few keys and little
+    against a thousand. The check must reject the sink ignored (the plain
+    versions without it) and dsinks dropped. With ``lib``, the library
+    yardstick: ``torch.compile``d ``flex_attention`` (block mask of causal
+    and equal segment ids, GQA) with ``return_lse``, rescaled by
+    sigmoid(lse - sink), forward and backward (labelled: flex plus the
+    rescale)."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import flash_sinks as tfs
+
+    b, t = seg.shape
+    q, k, v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    sinks = torch.randn((hq,), generator=g, device=dev) * 2
+    lo, hi = tfa.tile_segment_ranges(seg)
+    out, lse = tfs.flash_sinks_fwd(q, k, v, seg, lo, hi, sinks, scale=scale)
+    dq, di = tfs.flash_sinks_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                scale=scale)
+    dk, dv = tfs.flash_sinks_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                 scale=scale)
+    dsk = tfs.sinks_grad(sinks, lse, di)
+    rout, rlse = tfs.flash_sinks_fwd_ref(q, k, v, seg, sinks, scale)
+    rdq, rdk, rdv, rdsk = tfs.flash_sinks_bwd_ref(q, k, v, seg, out, lse,
+                                                  dout, sinks, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"flash sinks {label} {name} is not finite")
+        errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                      attn_row_err(got, ref))
+    lse_err = (lse - rlse).abs().max().item()
+    dsk_err = (dsk - rdsk).abs().max().item()
+    dsk_tol = 1e-2 * rdsk.abs().max().item()
+    # faults: the sink ignored (plain K16 math on the same inputs), dsinks
+    # dropped
+    nout, nlse = tfa.flash_attention_fwd_ref(q, k, v, seg, scale)
+    ndq, ndk, ndv = tfa.flash_attention_bwd_ref(q, k, v, seg, nout, nlse,
+                                                dout, scale)
+    faults = {n_: attn_row_err(got, ref) for n_, got, ref in (
+        ("out", nout, rout), ("dq", ndq, rdq), ("dk", ndk, rdk),
+        ("dv", ndv, rdv))}
+    dsk_dropped = rdsk.abs().max().item()
+    del nout, nlse, ndq, ndk, ndv, rdq, rdk, rdv
+    fwd_ms = time_ms(lambda: tfs.flash_sinks_fwd(
+        q, k, v, seg, lo, hi, sinks, scale=scale), runs=10, flush=flush)
+    dq_ms = time_ms(lambda: tfs.flash_sinks_dq(
+        q, k, v, seg, lo, hi, out, lse, dout, scale=scale), runs=10,
+        flush=flush)
+    dkv_ms = time_ms(lambda: tfs.flash_sinks_dkv(
+        q, k, v, seg, lo, hi, lse, di, dout, scale=scale), runs=10,
+        flush=flush)
+    fwd_plain = time_ms(lambda: tfs.flash_sinks_fwd_ref(
+        q, k, v, seg, sinks, scale), runs=3, warmup=1, flush=flush)
+    bwd_plain = time_ms(lambda: tfs.flash_sinks_bwd_ref(
+        q, k, v, seg, out, lse, dout, sinks, scale), runs=3, warmup=1,
+        flush=flush)
+    flex_fwd = flex_bwd = flex_err = None
+    if lib:
+        flex_fwd, flex_bwd, flex_err = _flex_sinks_ms(q, k, v, seg, sinks,
+                                                      dout, flush, rout,
+                                                      scale)
+    pairs = int(tfa._mask(seg, b, t, dev).sum())
+    fb = bound(4 * d * hq * pairs, nbytes(q, k, v, seg, out, lse, sinks))
+    qb = bound(6 * d * hq * pairs, nbytes(q, k, v, seg, out, dout, lse, q,
+                                          di))
+    kb = bound(8 * d * hq * pairs, nbytes(q, k, v, seg, dout, lse, di, k, v))
+    n_seg = len(torch.unique(seg[seg != 0]))
+    shape = (f"{label}: B={b} T={t} Hq={hq} Hkv={hkv} D={d} bf16, {n_seg} "
+             f"segment(s), {int((seg == 0).sum())} pad")
+    common = dict(shape=shape, library="compiled flex_attention(return_lse)"
+                  " + sigmoid(lse - sink) rescale")
+    res = {
+        "flash_sinks_fwd": dict(common, err=max(errs["out"][0], lse_err),
+                                ms=fwd_ms, plain_ms=fwd_plain,
+                                bound_ms=fb[0], bound_by=fb[1],
+                                library_ms=flex_fwd),
+        "flash_sinks_dq": dict(common, err=max(errs["dq"][0], dsk_err),
+                               ms=dq_ms, plain_ms=bwd_plain, bound_ms=qb[0],
+                               bound_by=qb[1], library_ms=flex_bwd),
+        "flash_sinks_dkv": dict(common, err=max(errs["dk"][0],
+                                                errs["dv"][0]),
+                                ms=dkv_ms, plain_ms=bwd_plain,
+                                bound_ms=kb[0], bound_by=kb[1],
+                                library_ms=flex_bwd)}
+    log(f"[kernels] flash sinks (K17) {shape}, every position: " +
+        ", ".join(f"{n_} max|d|={e_:.3e} row-wise {r:.3e}"
+                  for n_, (e_, r) in errs.items())
+        + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse' max|d|={lse_err:.3e} "
+        f"(tol 1e-3); dsinks max|d|={dsk_err:.3e} (tol {dsk_tol:.3e})")
+    log(f"[kernels] flash sinks check against faults: sink ignored " +
+        ", ".join(f"{n_} row-wise {r:.3e}" for n_, r in faults.items())
+        + f"; dsinks dropped max|d|={dsk_dropped:.3e}")
+    log(f"[kernels] flash sinks {label} fwd kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_plain:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); dq kernel "
+        f"{dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv kernel {dkv_ms:.4f} ms "
+        f"bound {kb[0]:.4f} ms; plain backward {bwd_plain:.4f} ms; compiled "
+        f"flex_attention(return_lse) + rescale: fwd {flex_fwd} ms, backward "
+        f"{flex_bwd} ms, out row-wise {flex_err} from the plain version; "
+        f"{pairs} valid pairs per head")
+    bad = [n_ for n_, (_, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad or not lse_err <= 1e-3 or not dsk_err <= dsk_tol:
+        raise RuntimeError(f"flash sinks {label} disagrees in {bad}: {errs}, "
+                           f"lse {lse_err}, dsinks {dsk_err}")
+    missed = [n_ for n_, r in faults.items() if not r > ATTN_ROW_TOL]
+    if missed or not dsk_dropped > dsk_tol:
+        raise RuntimeError(f"the flash sinks check lets faults through: "
+                           f"sink ignored in {missed}, dsinks dropped "
+                           f"{dsk_dropped} vs {dsk_tol}")
+    del q, k, v, dout, out, lse, dq, dk, dv, di, rout
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flex_sinks_ms(q, k, v, segment_ids, sinks, dout, flush, want, scale):
+    """(forward ms, backward ms, row-wise error of its out against
+    ``want``) of the library yardstick of K17: ``torch.compile``d
+    ``flex_attention`` with ``return_lse`` (block mask of causal and equal
+    segment ids, GQA, ``scale``) times sigmoid(lse - sink), in its [B, H, T,
+    D] layout; the backward through both. A yardstick only, never called
+    by the port; where flex refuses (an lse without a gradient), the
+    failure is logged in place of the time."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    flex_compiled = _compiled_flex()
+    b, t = segment_ids.shape
+    seg = segment_ids.to(torch.int32)
+
+    def mask_mod(bi, h, qi, ki):
+        return (ki <= qi) & (seg[bi, qi] == seg[bi, ki])
+
+    mask = create_block_mask(mask_mod, b, None, t, t, device=q.device)
+
+    def flex(a, b_, c):
+        out, lse = flex_compiled(a, b_, c, block_mask=mask, scale=scale,
+                         enable_gqa=True, return_lse=True)
+        rescale = torch.sigmoid(lse - sinks.float()[None, :, None])
+        return (out.float() * rescale[..., None]).to(a.dtype)
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        err = attn_row_err(flex(qt, kt, vt).transpose(1, 2), want)
+        fwd = time_ms(lambda: flex(qt, kt, vt), runs=5, warmup=1,
+                      flush=flush)
+        bwd = _autograd_ms(flex, (qt, kt, vt), dout.transpose(1, 2), flush,
+                           runs=5)
+    except Exception as exc:  # the yardstick only; logged
+        log(f"[kernels] flex_attention with return_lse failed: {exc!r}"[:300])
+        return None, None, None
+    del mask
+    torch.cuda.empty_cache()
+    return fwd, bwd, err
+
+
 def phase_ce_routes():
     """The two CE routes of the training loss at the training shapes:
     full logits (a cuBLAS product into bf16 [N, V] logits, then K7/K8) and
@@ -1421,13 +1876,13 @@ def _tree_f32(tree):
 
     import torch
 
-    from unsloth_tpu_torch.ops.nf4 import NF4Tensor
+    from unsloth_tpu_torch.ops.nf4 import NF4Stacked, NF4Tensor
 
     if isinstance(tree, dict):
         return {k: _tree_f32(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_f32(v) for v in tree]
-    if isinstance(tree, NF4Tensor):
+    if isinstance(tree, (NF4Tensor, NF4Stacked)):
         return dataclasses.replace(tree, dtype=torch.float32)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(torch.float32)
@@ -1522,20 +1977,14 @@ def phase_train_parity_padded(hf=LLAMA_31_8B_CONFIG, expect=None,
     return dict(loss_rel=loss_rel, grad_rel_max=rels[worst])
 
 
-def write_checkpoint(path, config):
-    """Random-init bf16 checkpoint of the HF ``config`` (a llama-family
-    dense decoder: Llama-3.1-8B, Gemma-2-9B) at its published shapes:
-    config.json plus index-sharded safetensors, one tensor at a time.
-    Projections are N(0, 0.02); norm weights are ones, or zeros where the
-    model applies them as (1 + w) (Gemma, as HF initializes them); Gemma-2's
-    sandwich norms are written, and no lm_head where the embedding is
-    tied."""
-    import torch
-
-    from unsloth_tpu_torch.io_safetensors import save_sharded
-    from unsloth_tpu_torch.models.config import ModelConfig
-
-    cfg = ModelConfig.from_hf_config(config)
+def checkpoint_entries(cfg):
+    """(HF tensor name, shape) of every tensor of a checkpoint of ``cfg``: a
+    llama-family dense decoder (Llama-3.1-8B, Gemma-2-9B: Gemma-2's
+    sandwich norms, no lm_head where the embedding is tied) or gpt-oss
+    (biased q/k/v/o, sinks, the router and its bias, and the experts as
+    HF's GptOss stores them: gate_up_proj [E, D, 2F] with gate and up
+    interleaved on the last dim and its bias [E, 2F], down_proj [E, F, D]
+    and its bias [E, D])."""
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     dq, dkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     norms = ["input_layernorm", "post_attention_layernorm"]
@@ -1548,15 +1997,56 @@ def write_checkpoint(path, config):
         entries += [(p + "self_attn.q_proj.weight", (dq, d)),
                     (p + "self_attn.k_proj.weight", (dkv, d)),
                     (p + "self_attn.v_proj.weight", (dkv, d)),
-                    (p + "self_attn.o_proj.weight", (d, dq)),
-                    (p + "mlp.gate_proj.weight", (f, d)),
-                    (p + "mlp.up_proj.weight", (f, d)),
-                    (p + "mlp.down_proj.weight", (d, f))]
+                    (p + "self_attn.o_proj.weight", (d, dq))]
+        if cfg.model_type == "gpt_oss":
+            e, fe = cfg.num_experts, cfg.moe_intermediate_size
+            entries += [(p + "self_attn.q_proj.bias", (dq,)),
+                        (p + "self_attn.k_proj.bias", (dkv,)),
+                        (p + "self_attn.v_proj.bias", (dkv,)),
+                        (p + "self_attn.o_proj.bias", (d,)),
+                        (p + "self_attn.sinks", (cfg.num_heads,)),
+                        (p + "mlp.router.weight", (e, d)),
+                        (p + "mlp.router.bias", (e,)),
+                        (p + "mlp.experts.gate_up_proj", (e, d, 2 * fe)),
+                        (p + "mlp.experts.gate_up_proj_bias", (e, 2 * fe)),
+                        (p + "mlp.experts.down_proj", (e, fe, d)),
+                        (p + "mlp.experts.down_proj_bias", (e, d))]
+        else:
+            entries += [(p + "mlp.gate_proj.weight", (f, d)),
+                        (p + "mlp.up_proj.weight", (f, d)),
+                        (p + "mlp.down_proj.weight", (d, f))]
     entries += [("model.norm.weight", (d,))]
     if not cfg.tie_word_embeddings:
         entries += [("lm_head.weight", (v, d))]
+    return entries
+
+
+def write_checkpoint(path, config):
+    """Random-init bf16 checkpoint of the HF ``config`` (Llama-3.1-8B,
+    Gemma-2-9B, gpt-oss-20b) at its published shapes
+    (:func:`checkpoint_entries`): config.json plus index-sharded
+    safetensors, one tensor at a time, after a check that the disk holds
+    it. Every tensor but the norms is N(0, 0.02) (biases, sinks and router
+    included); norm weights are ones, or zeros where the model applies
+    them as (1 + w) (Gemma, as HF initializes them)."""
+    import torch
+
+    from unsloth_tpu_torch.io_safetensors import save_sharded
+    from unsloth_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(config)
+    entries = checkpoint_entries(cfg)
     index = {name: i for i, (name, _) in enumerate(entries)}
     shapes = dict(entries)
+    need = 2 * sum(math.prod(s_) for _, s_ in entries)
+    free = shutil.disk_usage(path if os.path.isdir(path)
+                             else os.path.dirname(path) or ".").free
+    log(f"[main] {config['model_type']} checkpoint: {need / 1e9:.2f} GB to "
+        f"write, {free / 1e9:.2f} GB free on disk")
+    if need > free:
+        raise RuntimeError(f"the {config['model_type']} checkpoint needs "
+                           f"{need / 1e9:.2f} GB; the disk has {free / 1e9:.2f}"
+                           " GB free")
 
     def produce(name):
         if name.endswith("norm.weight"):
@@ -1712,7 +2202,7 @@ def phase_train_main(tmp, profile=False):
     in ``tmp``: from_pretrained(load_in_4bit=True), get_peft_model(r=16,
     all seven projections, use_gradient_checkpointing="unsloth"), and
     SFTTrainer on synthetic documents packed into 8,192-token rows,
-    batch 1, accumulation 2, 6 steps of the same data. Every loss must be
+    batch 1, accumulation 2, PACKED_STEPS steps of the same data. Every loss must be
     finite and the last below the first, and every kernel of the path must
     have launched. With ``profile``, one more step runs under the
     profiler (:func:`_profile_train_step`)."""
@@ -1744,7 +2234,8 @@ def phase_train_main(tmp, profile=False):
     trainer = SFTTrainer(model, train_dataset=docs, args=SFTConfig(
         output_dir=out_dir, max_seq_length=TRAIN_ROWS, packing=True,
         per_device_train_batch_size=1, gradient_accumulation_steps=2,
-        max_steps=6, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
+        max_steps=PACKED_STEPS, learning_rate=1e-3, warmup_steps=0,
+        logging_steps=1,
         report_to="none"))
     batches = trainer.prepare_batches()
     real = [int((b.segment_ids != 0).sum()) for b in batches[:2]]
@@ -1765,7 +2256,7 @@ def phase_train_main(tmp, profile=False):
         f"{steady:.3f} s for {tokens} real tokens = {tokens / steady:.1f} "
         f"real tokens/s; first step {times[0]:.3f} s; peak memory allocated "
         f"{peak / 1e9:.2f} GB; launches on the training path: {launches}")
-    if len(losses) != 6 or not all(np.isfinite(losses)):
+    if len(losses) != PACKED_STEPS or not all(np.isfinite(losses)):
         raise RuntimeError(f"training losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"training loss did not fall: {losses}")
@@ -1899,9 +2390,9 @@ def phase_unpacked_sft(tmp, profile=False):
     """The notebook recipe at full width and depth from the checkpoint in
     ``tmp``: from_pretrained(max_seq_length=2048, load_in_4bit=True),
     get_peft_model(r=16, seven projections, "unsloth" checkpointing),
-    SFTTrainer(packing=False) on 48 synthetic Alpaca texts with
-    train_on_responses_only, batch 2 x accumulation 4, 6 steps (one epoch:
-    every step sees other rows), warmup 0. Losses finite and falling; every
+    SFTTrainer(packing=False) on 8 * UNPACKED_STEPS synthetic Alpaca texts
+    with train_on_responses_only, batch 2 x accumulation 4, UNPACKED_STEPS
+    steps (one epoch: every step sees other rows), warmup 0. Losses finite and falling; every
     kernel of the path launched. Then evaluate on 8 held-out texts,
     save_lora, a fresh adapter of another rank and scale in the trained
     one's place (its loss must differ), load_lora -> evaluate again (the
@@ -1920,9 +2411,11 @@ def phase_unpacked_sft(tmp, profile=False):
     from unsloth_tpu_torch import FastLanguageModel
     from unsloth_tpu_torch.models.decoder import logits_fn
 
-    texts = _alpaca_texts(np.random.default_rng(SEED + 4), 56)
-    held_out = texts[48:]
-    run = _notebook_recipe(tmp, "unpacked", texts[:48], 6, "sft_unpacked")
+    n_train = 8 * UNPACKED_STEPS
+    texts = _alpaca_texts(np.random.default_rng(SEED + 4), n_train + 8)
+    held_out = texts[n_train:]
+    run = _notebook_recipe(tmp, "unpacked", texts[:n_train], UNPACKED_STEPS,
+                           "sft_unpacked")
     model, trainer, launches = run["model"], run["trainer"], run["launches"]
     metrics = _recipe_metrics(run)
     n_layers, accum, steps = (model.cfg.num_layers, run["accum"],
@@ -2076,6 +2569,300 @@ def phase_gemma2_sft(tmp, profile=False):
     return launches, dict(metrics, eval=ev)
 
 
+def phase_train_parity_gpt_oss(seed=SEED + 10):
+    """gpt-oss-20b at full width cut to 2 layers (one sliding, one global),
+    all 32 experts, random weights from the seed, quantize_params (NF4
+    attention at block 64, stacked-NF4 experts at block 32), LoRA r=16 on
+    q/k/v/o with B nonzero: the loss and every LoRA gradient of one packed
+    2,048-token row, on the card in bf16 (K1/K2, K14/K15, K17 on the global
+    layer, the banded form on the sliding one, K7/K8 over the full logits)
+    and on the CPU through the plain versions in fp32 and in bf16, from the
+    same weights and NF4 codes.
+
+    Tolerance: loss within 1e-2 relative, as in phases 4b/4c. The LoRA
+    gradients cannot be held to fp32 as closely as there: the top-4 routing
+    is not continuous, a token whose 4th and 5th router logits lie within
+    bf16 rounding of each other takes other experts in bf16 than in fp32,
+    and at random init a gradient is a sum of incoherent per-token terms,
+    so a few such tokens move it by a fifth (on an H100 at full width the
+    plain versions in bf16 on the CPU sit 0.15-0.20 from fp32, as the card
+    does).
+    So each leaf's relative L2 distance from fp32 must stay within 1.25x
+    that of the plain bf16 computation plus 0.02, and below 0.5; a wrong
+    kernel in the backward gives errors of the order of the gradient
+    (1 and up), and phase 3 holds each kernel on its own. Every gpt-oss
+    kernel must launch, no other attention kernel."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import pack_sequences
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.decoder import loss_fn
+    from unsloth_tpu_torch.models.params import (init_lora_tree,
+                                                 init_params, quantize_params,
+                                                 tree_to)
+
+    cfg = ModelConfig.from_hf_config(dict(GPT_OSS_20B_CONFIG,
+                                          num_hidden_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             cfg, dtype=torch.bfloat16)
+    lora = init_lora_tree(cfg, gen, r=16, alpha=16.0)
+    for layer in lora["layers"]:
+        for lw in layer.values():
+            lw.b = torch.randn(lw.b.shape, generator=gen, device=DEVICE) * 0.01
+    rng = np.random.default_rng(seed)
+    docs = _synthetic_docs(rng, cfg.vocab_size, 2 * 2048)
+    row = pack_sequences(docs, 2048)[0].as_dict()
+    kernels = _kernel_fns()
+    results = {}
+    for side, dev, f32 in (("card", DEVICE, False), ("cpu", "cpu", True),
+                           ("cpu bf16", "cpu", False)):
+        p = params if dev == DEVICE else tree_to(params, "cpu")
+        p = _tree_f32(p) if f32 else p
+        lo = lora if dev == DEVICE else tree_to(lora, "cpu")
+        leaves = _lora_leaves(lo)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in row.items()}
+        before = {n: fn.launches for n, fn in kernels.items()}
+        t0 = time.perf_counter()
+        loss = loss_fn(p, lo, batch, cfg, fused_ce=False, remat=False)
+        loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[side] = (float(loss.detach()), {n: t.grad.float().cpu()
+                                               for n, t in leaves},
+                         time.perf_counter() - t0,
+                         {n: fn.launches - before[n]
+                          for n, fn in kernels.items()})
+        for _, t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        del p
+    (l_card, g_card, t_card, launches), (l_cpu, g_cpu, t_cpu, _), \
+        (l_bf, g_bf, t_bf, _) = (results[k] for k in ("card", "cpu",
+                                                      "cpu bf16"))
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    plain = {n: _rel(g_bf[n], g_cpu[n]) for n in g_cpu}
+    over = {n: (rels[n], plain[n]) for n in rels
+            if not (rels[n] <= 1.25 * plain[n] + 0.02 and rels[n] < 0.5)}
+    worst = max(rels, key=rels.get)
+    n_real = int((row["segment_ids"] != 0).sum())
+    log(f"[train parity] 2-layer gpt-oss-20b (sliding + global, 32 experts, "
+        f"NF4) + LoRA r=16 on q/k/v/o, one packed row of 2048 ({n_real} real "
+        f"tokens): loss card {l_card:.6f} cpu (fp32) {l_cpu:.6f} (rel "
+        f"{loss_rel:.2e}, tol 1e-2), plain bf16 {l_bf:.6f}; {len(rels)} LoRA "
+        f"grads against fp32: card worst rel L2 {rels[worst]:.3e} ({worst}; "
+        f"plain bf16 {plain[worst]:.3e}), median card "
+        f"{statistics.median(rels.values()):.3e}, plain bf16 "
+        f"{statistics.median(plain.values()):.3e} (tol 1.25 x plain bf16 + "
+        f"0.02, < 0.5); card {t_card:.1f} s, cpu fp32 {t_cpu:.1f} s, bf16 "
+        f"{t_bf:.1f} s; card launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and loss_rel <= 1e-2) or over:
+        raise RuntimeError(f"card and CPU gpt-oss loss/grads disagree: loss "
+                           f"rel {loss_rel}, (card, plain bf16) {over}")
+    for name in GPT_OSS_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} did not launch on the gpt-oss row")
+    stray = {n: launches[n] for n in GPT_OSS_ABSENT if launches[n]}
+    if stray:
+        raise RuntimeError(f"other attention kernels ran on the gpt-oss "
+                           f"row: {stray}")
+    del params, lora
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_max=rels[worst],
+                plain_bf16_rel_max=max(plain.values()))
+
+
+def _active_flops_per_token(cfg, seq):
+    """Forward FLOPs per token as bench.py's flops_per_token counts them for
+    an MoE model: 2 per weight of q/k/v/o and of the active experts (top-k
+    of gate/up/down), causal attention's 2 * seq * Hq * Dh per layer, and
+    the lm_head."""
+    dh = cfg.head_dim
+    attn_p = cfg.hidden_size * dh * (cfg.num_heads * 2 + cfg.num_kv_heads * 2)
+    moe_p = cfg.num_experts_per_tok * 3 * cfg.hidden_size * (
+        cfg.moe_intermediate_size or cfg.intermediate_size)
+    per_layer = 2 * (attn_p + moe_p) + 2 * seq * cfg.num_heads * dh
+    return cfg.num_layers * per_layer + 2 * cfg.vocab_size * cfg.hidden_size
+
+
+def phase_gpt_oss_sft(tmp, profile=False):
+    """MoE QLoRA SFT on gpt-oss-20b at full width and depth from the
+    checkpoint in ``tmp`` (bench.py's main_gpt_oss path, first rung):
+    from_pretrained(max_seq_length 4096, load_in_4bit=True), which loads
+    the experts as bf16 stacks as the JAX loader does, then quantize_params
+    (stacked NF4 at block 32), get_peft_model(r=16, the seven target names:
+    q/k/v/o get adapters, the experts none, "unsloth" checkpointing),
+    SFTTrainer with packing on synthetic documents of 64-1,024 tokens into
+    4,096-token rows, batch 1 x accumulation 2, GPT_OSS_STEPS steps. Losses
+    finite and falling; step time, real tokens/s, peak memory, MFU over
+    active parameters (:func:`_active_flops_per_token`, x3 for forward and
+    backward, at 989 TFLOP/s). Launches per step exactly: K14 3 x 24 x 2
+    (the offloaded remat runs each forward twice) x 2, K15 3 x 24 x 2, K17
+    forward 48, dq 24, dk/dv 24 (12 global layers), K7/K8 2; K9-K11, K16
+    and K18 never. Then evaluate on held-out documents, save_lora -> a
+    fresh adapter -> load_lora -> evaluate (equal losses), and a greedy
+    generate of 16 tokens for 2 prompts (K14 at decode row counts, the
+    cached attention with sinks and the window). With ``profile``, one more
+    step runs under the profiler (:func:`_profile_train_step`) in place of
+    evaluate and generate."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel, SFTConfig, SFTTrainer
+    from unsloth_tpu_torch.models.params import quantize_params
+    from unsloth_tpu_torch.ops.nf4 import NF4Stacked
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, max_seq_length=GPT_OSS_ROWS, load_in_4bit=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    loaded = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model.params = quantize_params(model.params, model.cfg)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    experts = model.params["layers"][0]["experts"]
+    blocks = {n: w.block_size for n, w in experts.items()
+              if isinstance(w, NF4Stacked)}
+    model = FastLanguageModel.get_peft_model(
+        model, r=16, lora_alpha=16,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth").for_training()
+    resident = torch.cuda.memory_allocated()
+    load_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[gpt-oss] from_pretrained(load_in_4bit=True) in {t_load:.1f} s, "
+        f"{loaded / 1e9:.2f} GB allocated (bf16 experts); quantize_params "
+        f"in {t_quant:.1f} s (expert blocks {blocks}); with LoRA "
+        f"{resident / 1e9:.2f} GB; peak while loading and quantizing "
+        f"{load_peak / 1e9:.2f} GB; adapters on "
+        f"{sorted(model.lora['layers'][0])}")
+    if set(blocks) != {"gate", "up", "down"} or \
+            set(model.lora["layers"][0]) != {"q", "k", "v", "o"}:
+        raise RuntimeError(f"expected NF4 experts and q/k/v/o adapters: "
+                           f"{blocks}, {sorted(model.lora['layers'][0])}")
+    rng = np.random.default_rng(SEED + 11)
+    docs = _synthetic_docs(rng, model.cfg.vocab_size, 2 * GPT_OSS_ROWS - 300)
+    held_out = _synthetic_docs(rng, model.cfg.vocab_size, 1500)[:2]
+    trainer = SFTTrainer(model, train_dataset=docs, args=SFTConfig(
+        output_dir=os.path.join(tmp, "sft_gpt_oss"),
+        max_seq_length=GPT_OSS_ROWS, packing=True,
+        per_device_train_batch_size=1, gradient_accumulation_steps=2,
+        max_steps=GPT_OSS_STEPS, learning_rate=1e-3, warmup_steps=0,
+        logging_steps=1, report_to="none"))
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches[:2]]
+    log(f"[gpt-oss] {len(docs)} documents of {DOC_LENGTHS[0]}-"
+        f"{DOC_LENGTHS[1]} tokens packed into {len(batches)} rows of "
+        f"{GPT_OSS_ROWS} (real tokens {real}), segment bound "
+        f"{trainer._segment_bound}")
+    result = trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    steady = statistics.median(times[1:])
+    tokens = sum(real)
+    cfg = model.cfg
+    mfu = 3 * _active_flops_per_token(cfg, GPT_OSS_ROWS) * tokens / steady \
+        / PEAK_BF16
+    n_global = sum(cfg.layer_kind(i) == "global"
+                   for i in range(cfg.num_layers))
+    accum = 2
+    expect = {"nf4_gmm": 3 * cfg.num_layers * 2 * accum,
+              "nf4_gmm_dx": 3 * cfg.num_layers * accum,
+              "flash_sinks_fwd": n_global * 2 * accum,
+              "flash_sinks_dq": n_global * accum,
+              "flash_sinks_dkv": n_global * accum,
+              "cross_entropy_fwd": accum, "cross_entropy_bwd": accum}
+    steps = len(times)
+    log(f"[gpt-oss] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}")
+    log(f"[gpt-oss] steady step (median of steps 2-{steps}) {steady:.3f} s "
+        f"for {tokens} real tokens = {tokens / steady:.1f} real tokens/s; "
+        f"first step {times[0]:.3f} s; peak memory allocated in training "
+        f"{peak / 1e9:.2f} GB; MFU over active parameters "
+        f"{100 * mfu:.2f}% (bench.py's count, x3, 989 TFLOP/s)")
+    log(f"[gpt-oss] launches on the path: {launches}; per step "
+        f"{ {n: launches[n] / steps for n in expect} } (expected {expect})")
+    if len(losses) != GPT_OSS_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"gpt-oss training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"gpt-oss training loss did not fall: {losses}")
+    _check_launched(launches, GPT_OSS_KERNELS, "gpt-oss training", expect,
+                    steps)
+    stray = {n: launches[n] for n in GPT_OSS_ABSENT if launches[n]}
+    if stray:
+        raise RuntimeError(f"other attention kernels ran on the gpt-oss "
+                           f"path: {stray}")
+    metrics = dict(losses=losses, step_s=steady, first_step_s=times[0],
+                   real_tokens_per_s=tokens / steady, peak_bytes=peak,
+                   mfu=mfu, runtime_s=result.metrics["train_runtime"],
+                   load_s=t_load, quantize_s=t_quant, load_peak=load_peak,
+                   resident=resident)
+    if profile:
+        _profile_train_step(trainer, batches[:2])
+        return launches, None
+
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(held_out)
+    t_eval = time.perf_counter() - t0
+    lora_dir = os.path.join(tmp, "lora_gpt_oss")
+    model.save_lora(lora_dir)
+    FastLanguageModel.get_peft_model(
+        model, r=8, lora_alpha=64, random_state=SEED + 12,
+        use_gradient_checkpointing="unsloth")
+    ev_fresh = trainer.evaluate(held_out)
+    model.load_lora(lora_dir)
+    ev2 = trainer.evaluate(held_out)
+    log(f"[gpt-oss] evaluate on {len(held_out)} documents: {ev} in "
+        f"{t_eval:.1f} s; with a fresh adapter: {ev_fresh}; after save_lora "
+        f"-> fresh adapter -> load_lora: {ev2}")
+    if not (np.isfinite(ev["eval_loss"]) and ev["eval_tokens"] > 0):
+        raise RuntimeError(f"bad eval metrics {ev}")
+    if ev_fresh["eval_loss"] == ev["eval_loss"]:
+        raise RuntimeError("the fresh adapter evaluates as the trained one")
+    if ev2["eval_loss"] != ev["eval_loss"]:
+        raise RuntimeError(f"eval loss changed across the adapter round "
+                           f"trip: {ev['eval_loss']} -> {ev2['eval_loss']}")
+    prompts = [d_["input_ids"][:64] for d_ in held_out[:2]]
+    before = {n: fn.launches for n, fn in kernels.items()}
+    model.for_inference()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=16, temperature=0.0,
+                         return_token_ids=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen_k14 = kernels["nf4_gmm"].launches - before["nf4_gmm"]
+    log(f"[gpt-oss] generate 2 prompts of {[len(p_) for p_ in prompts]} "
+        f"tokens, 16 new: {[len(r) for r in out]} tokens in {t_gen:.2f} s; "
+        f"K14 launches {gen_k14}")
+    if len(out) != 2 or any(
+            len(r) != 16 or not all(0 <= t_ < cfg.vocab_size for t_ in r)
+            for r in out):
+        raise RuntimeError(f"generate did not return 2 x 16 tokens: {out}")
+    if gen_k14 <= 0:
+        raise RuntimeError("generate ran the experts without K14")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches, dict(metrics, eval=ev, generate_s=t_gen)
+
+
 def _profile_train_step(trainer, rows, top=25):
     """One more optimizer step of ``trainer`` (fresh AdamW state, the same
     ``rows``) under ``torch.profiler``. From the chrome trace's device
@@ -2119,9 +2906,12 @@ def _profile_train_step(trainer, rows, top=25):
     total = sum(us for us, _ in by_name.values())
     c = trainer.model.cfg
     hd = c.head_dim or c.hidden_size // c.num_heads
+    # MoE: the active experts' weights (top-k of gate/up/down)
+    mlp = (c.num_experts_per_tok * 3 * c.hidden_size
+           * (c.moe_intermediate_size or c.intermediate_size)
+           if c.is_moe else 3 * c.hidden_size * c.intermediate_size)
     per_layer = (2 * c.num_heads * hd * c.hidden_size
-                 + 2 * c.num_kv_heads * hd * c.hidden_size
-                 + 3 * c.hidden_size * c.intermediate_size)
+                 + 2 * c.num_kv_heads * hd * c.hidden_size + mlp)
     n_head = c.vocab_size * c.hidden_size
     n_matmul = c.num_layers * per_layer + n_head
     real = sum(int((b.segment_ids != 0).sum()) for b in rows)
@@ -2140,12 +2930,39 @@ def _profile_train_step(trainer, rows, top=25):
                                 )[:top]:
         log(f"[profile] {us / 1e3:10.1f} ms {100 * us / total:5.1f}% "
             f"{n:6d}  {name[:110]}")
+    # device time by kernel family (wrapper kernel names), and under the
+    # port's profiler ranges (record_function: the MoE routing and
+    # permutation glue, the banded attention), from their device spans
+    families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K1/K2 nf4_matmul":
+                ("nf4_matmul",), "K17 flash sinks": ("sinks_",),
+                "K18 splash": ("splash_",), "K16 flash": ("attn_fwd_kernel",
+                                                           "attn_dq_kernel",
+                                                           "attn_dkv_kernel"),
+                "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
+                ("rms_norm",)}
+    fam = {f_: sum(us for name, (us, _) in by_name.items()
+                   if any(key in name for key in keys))
+           for f_, keys in families.items()}
+    log("[profile] by family: " + ", ".join(
+        f"{f_} {us / 1e3:.1f} ms ({100 * us / total:.1f}%)"
+        for f_, us in fam.items() if us))
+    spans = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + float(e["dur"])
+    if spans:
+        log("[profile] device spans of the port's ranges: " + ", ".join(
+            f"{n} {us / 1e3:.1f} ms ({100 * us / wall_us:.1f}% of wall)"
+            for n, us in sorted(spans.items(), key=lambda kv: -kv[1])
+            if n.startswith("unsloth.")))
 
 
 def _kernel_fns():
     """Each kernel's wrapper (its ``launches`` counter) by name."""
     from unsloth_tpu_torch.ops import cross_entropy as tce
     from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import flash_sinks as tfs
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops import splash_attention as tsa
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
@@ -2162,7 +2979,11 @@ def _kernel_fns():
             "flash_attn_dkv": tfa.flash_attention_dkv,
             "splash_attn_fwd": tsa.splash_attention_fwd,
             "splash_attn_dq": tsa.splash_attention_dq,
-            "splash_attn_dkv": tsa.splash_attention_dkv}
+            "splash_attn_dkv": tsa.splash_attention_dkv,
+            "nf4_gmm": tng.nf4_gmm, "nf4_gmm_dx": tng.nf4_gmm_dx,
+            "flash_sinks_fwd": tfs.flash_sinks_fwd,
+            "flash_sinks_dq": tfs.flash_sinks_dq,
+            "flash_sinks_dkv": tfs.flash_sinks_dkv}
 
 
 # the kernels each main path must launch
@@ -2174,6 +2995,13 @@ UNPACKED_KERNELS = TRAIN_KERNELS + ("flash_attn_fwd", "flash_attn_dq",
                                     "flash_attn_dkv")
 GEMMA2_KERNELS = TRAIN_KERNELS + ("splash_attn_fwd", "splash_attn_dq",
                                   "splash_attn_dkv")
+GPT_OSS_KERNELS = TRAIN_KERNELS + ("nf4_gmm", "nf4_gmm_dx", "flash_sinks_fwd",
+                                   "flash_sinks_dq", "flash_sinks_dkv")
+#: attention kernels the gpt-oss path must never launch: its global layers
+#: take K17, its sliding ones the banded form
+GPT_OSS_ABSENT = ("packed_attn_fwd", "packed_attn_bwd", "flash_attn_fwd",
+                  "flash_attn_dq", "flash_attn_dkv", "splash_attn_fwd",
+                  "splash_attn_dq", "splash_attn_dkv")
 
 
 def _check_launched(launches, names, path, per_step=None, steps=0):
@@ -2206,43 +3034,64 @@ def main() -> int:
         ("--profile-train",): (phase_train_main, LLAMA_31_8B_CONFIG),
         ("--profile-train-unpacked",): (phase_unpacked_sft,
                                         LLAMA_31_8B_CONFIG),
-        ("--profile-train-gemma2",): (phase_gemma2_sft, GEMMA2_9B_CONFIG)}
+        ("--profile-train-gemma2",): (phase_gemma2_sft, GEMMA2_9B_CONFIG),
+        ("--profile-train-gpt-oss",): (phase_gpt_oss_sft,
+                                       GPT_OSS_20B_CONFIG)}
     if tuple(sys.argv[1:]) not in profiles:
         print(f"usage: {sys.argv[0]} [--profile-train | "
-              "--profile-train-unpacked | --profile-train-gemma2]",
-              file=sys.stderr)
+              "--profile-train-unpacked | --profile-train-gemma2 | "
+              "--profile-train-gpt-oss]", file=sys.stderr)
         return 2
     profile = profiles[tuple(sys.argv[1:])]
-    name, smi = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[time] {phase}: {time.perf_counter() - t0:.1f} s (script "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    name, smi = timed("1 device", phase_device)
+    timed("2 build", phase_build)
     if not profile:
-        rows = phase_kernels()
-        phase_ce_routes()
-        phase_slice_parity()
-        phase_train_parity()
-        phase_train_parity_padded()
-        phase_train_parity_padded(
-            GEMMA2_9B_CONFIG, expect=GEMMA2_KERNELS,
-            absent=("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
-                    "packed_attn_fwd", "packed_attn_bwd"),
-            label="Gemma-2-9B (a sliding and a global layer)", seed=SEED + 8)
+        rows = timed("3 kernels", phase_kernels)
+        timed("3b CE routes", phase_ce_routes)
+        timed("4 parity", phase_slice_parity)
+        timed("4b train parity", phase_train_parity)
+        timed("4b train parity padded", phase_train_parity_padded)
+        timed("4c Gemma-2 train parity", phase_train_parity_padded,
+              GEMMA2_9B_CONFIG, expect=GEMMA2_KERNELS,
+              absent=("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                      "packed_attn_fwd", "packed_attn_bwd"),
+              label="Gemma-2-9B (a sliding and a global layer)",
+              seed=SEED + 8)
+        timed("4d gpt-oss train parity", phase_train_parity_gpt_oss)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if profile:
-            # phases 1, 2 and 6, 7 or 8 only, then a profiled step; no
+            # phases 1, 2 and 6, 7, 8 or 9 only, then a profiled step; no
             # result line
             fn, config = profile
             fn(_write_model(os.path.join(tmp, "model"), config),
                profile=True)
             return 0
-        llama = _write_model(os.path.join(tmp, "llama31_8b"),
-                             LLAMA_31_8B_CONFIG)
-        serve_launches, _ = phase_main_path(llama)
-        packed_launches, _ = phase_train_main(llama)
-        unpacked_launches, _ = phase_unpacked_sft(llama)
+        llama = timed("5 write Llama", _write_model,
+                      os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
+        serve_launches, _ = timed("5 serving", phase_main_path, llama)
+        packed_launches, _ = timed("6 packed training", phase_train_main,
+                                   llama)
+        unpacked_launches, _ = timed("7 unpacked SFT", phase_unpacked_sft,
+                                     llama)
         shutil.rmtree(llama)   # the disk holds one checkpoint at a time
-        gemma2_launches, _ = phase_gemma2_sft(_write_model(
-            os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG))
+        gemma2 = timed("8 write Gemma-2", _write_model,
+                       os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG)
+        gemma2_launches, _ = timed("8 Gemma-2 SFT", phase_gemma2_sft, gemma2)
+        shutil.rmtree(gemma2)
+        gpt_oss = timed("9 write gpt-oss", _write_model,
+                        os.path.join(tmp, "gpt_oss_20b"), GPT_OSS_20B_CONFIG)
+        gpt_oss_launches, _ = timed("9 gpt-oss SFT", phase_gpt_oss_sft,
+                                    gpt_oss)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2250,7 +3099,8 @@ def main() -> int:
     # (source, TPU kernel it replaces, shape in phase 3, launches by path)
     by_path = {"serving": serve_launches, "packed_training": packed_launches,
                "unpacked_training": unpacked_launches,
-               "gemma2_training": gemma2_launches}
+               "gemma2_training": gemma2_launches,
+               "gpt_oss_training": gpt_oss_launches}
     picks = {
         "nf4_matmul": ("nf4_matmul.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
@@ -2288,13 +3138,32 @@ def main() -> int:
         "splash_attn_dkv": ("splash_attention.cu",
                             "unsloth_tpu/ops/attention.py:231 (_splash_kernel"
                             ": bundled splash dk/dv)", "(a) sliding"),
+        "nf4_gmm": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:86", "(a) path"),
+        "nf4_gmm_dx": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:135",
+                       "(a) path"),
+        "flash_sinks_fwd": ("flash_sinks.cu",
+                            "unsloth_tpu/ops/attention.py:456 (_tpu_flash_"
+                            "sinks: bundled _flash_attention_impl)",
+                            "(a) packed row"),
+        "flash_sinks_dq": ("flash_sinks.cu",
+                           "unsloth_tpu/ops/attention.py:487 (_tpu_flash_"
+                           "sinks: bundled _flash_attention_bwd_dq)",
+                           "(a) packed row"),
+        "flash_sinks_dkv": ("flash_sinks.cu",
+                            "unsloth_tpu/ops/attention.py:480 (_tpu_flash_"
+                            "sinks: bundled _flash_attention_bwd_dkv)",
+                            "(a) packed row"),
     }
     # the main path each kernel's "launches" comes from
     main_path = {"packed_attn_fwd": "packed_training",
                  "packed_attn_bwd": "packed_training",
                  "splash_attn_fwd": "gemma2_training",
                  "splash_attn_dq": "gemma2_training",
-                 "splash_attn_dkv": "gemma2_training"}
+                 "splash_attn_dkv": "gemma2_training",
+                 **{k_: "gpt_oss_training" for k_ in (
+                     "nf4_gmm", "nf4_gmm_dx", "flash_sinks_fwd",
+                     "flash_sinks_dq", "flash_sinks_dkv")}}
+    log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = []
     for kname, (src, replaces, shape) in picks.items():
         row = next(r for r in rows[kname]
@@ -2310,8 +3179,8 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": {p_: n[kname] for p_, n in by_path.items()
                                  if kname in n},
-            **({"sdpa_no_softcap_ms": row["sdpa_no_softcap_ms"]}
-               if "sdpa_no_softcap_ms" in row else {})})
+            **{key: row[key] for key in ("sdpa_no_softcap_ms", "library")
+               if key in row}})
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -387,3 +387,144 @@ def test_gemma2_shapes_nf4_rms_norm_ce(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(loss, rloss, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice's kernels: K1/K2 at gpt-oss's widths, K14/K15, K17
+# ---------------------------------------------------------------------------
+
+from unsloth_tpu_torch.ops import flash_sinks as tfs  # noqa: E402
+from unsloth_tpu_torch.ops import nf4_gmm as tng  # noqa: E402
+from unsloth_tpu_torch.ops.nf4 import quantize_nf4_stacked  # noqa: E402
+
+
+@pytest.mark.parametrize("m,n,k", [(5, 4096, 2880), (300, 512, 2880),
+                                   (70, 2880, 4096), (260, 320, 2880)])
+def test_nf4_kernels_at_gpt_oss_widths(dev, m, n, k):
+    """K1 and K2 where in/2 is a multiple of 32 but not of 64 (gpt-oss's
+    q/k/v: in = 2,880, so a 64-block straddles the split-half boundary),
+    and at its o projection: within 1e-2 of max|ref| as above."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    y = nf4_matmul(x, q)
+    ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
+    gr = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    dx = nf4_matmul_dx(gr, q)
+    rdx = nf4_matmul_dx_ref(gr, q)
+    torch.cuda.synchronize()
+    for got, want in ((y, ref), (dx, rdx)):
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max() <= \
+            1e-2 * want.float().abs().max()
+
+
+def _group_sizes(kind, e, m, g, dev):
+    """Group sizes [E] int32 summing to m: "random" (a real top-k routing's
+    spread), "skewed" (one expert half the rows, several none)."""
+    if kind == "skewed":
+        sizes = torch.zeros(e, dtype=torch.int64)
+        sizes[3] = m // 2
+        rest = m - m // 2
+        live = [0, 5, e - 1]
+        for i, ex in enumerate(live):
+            sizes[ex] = rest // len(live) + (1 if i < rest % len(live) else 0)
+        return sizes.to(torch.int32).to(dev)
+    ids = torch.randint(0, e, (m,), generator=g, device=dev)
+    return torch.bincount(ids, minlength=e).to(torch.int32)
+
+
+@pytest.mark.parametrize("e,n,k,bs,m,kind", [
+    (8, 2880, 2880, 32, 700, "random"),     # gpt-oss widths, block 32
+    (8, 768, 2048, 64, 513, "random"),      # qwen3-moe's, block 64
+    (16, 320, 192, 32, 900, "skewed"),
+    (32, 2880, 2880, 32, 8, "random"),      # decode rows
+])
+def test_nf4_gmm_kernels_match_plain(dev, e, n, k, bs, m, kind):
+    """K14 (with and without the bias epilogue) and K15 against
+    nf4_gmm_ref on the same bf16 inputs: within 1e-2 of max|ref| (the
+    kernels round each weight to bf16, the plain version keeps fp32, both
+    sum in fp32), every row; the backward of nf4_gmm launches K15."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = quantize_nf4_stacked(
+        torch.randn((e, n, k), generator=g, device=dev) * 0.05, bs)
+    sizes = _group_sizes(kind, e, m, g, dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((e, n), generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    before = (tng.nf4_gmm.launches, tng.nf4_gmm_dx.launches)
+    outs = [tng.nf4_gmm(x, q, sizes), tng.nf4_gmm(x, q, sizes, bias=bias),
+            tng.nf4_gmm_dx(gy, q, sizes)]
+    refs = [tng.nf4_gmm_ref(x, q, sizes), tng.nf4_gmm_ref(x, q, sizes, bias),
+            tng.nf4_gmm_ref(gy, q, sizes, transpose=True)]
+    torch.cuda.synchronize()
+    assert (tng.nf4_gmm.launches, tng.nf4_gmm_dx.launches) == \
+        (before[0] + 2, before[1] + 1)
+    for got, ref in zip(outs, refs):
+        assert torch.isfinite(got).all() and got.dtype == torch.bfloat16
+        assert (got.float() - ref.float()).abs().max() <= \
+            1e-2 * ref.float().abs().max()
+    xr = x.clone().requires_grad_(True)
+    tng.nf4_gmm(xr, q, sizes, bias=bias).backward(gy)
+    assert tng.nf4_gmm_dx.launches == before[1] + 2
+    assert (xr.grad.float() - refs[2].float()).abs().max() <= \
+        1e-2 * refs[2].float().abs().max()
+
+
+@pytest.mark.parametrize("t,hq,hkv", [(300, 8, 1), (256, 64, 8)])
+def test_flash_sinks_kernels_match_plain(dev, t, hq, hkv):
+    """K17 forward (out, lse'), dq and dk/dv at head dim 64 with GQA (8
+    query heads a kv head) against the plain fp32 versions on the same
+    bf16 inputs, a padded and a packed row: every position row by row
+    (``chip_smoke.attn_row_err``), lse' within 1e-3, dsinks within 1e-2 of
+    its largest value (a sum over tokens of the kernels' di)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, dout = (torch.randn((2, t, h, 64), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    sinks = torch.randn((hq,), generator=g, device=dev) * 2
+    seg = _splash_segments(t, dev)
+    lo, hi = tfa.tile_segment_ranges(seg)
+    scale = 0.125
+    before = (tfs.flash_sinks_fwd.launches, tfs.flash_sinks_dq.launches,
+              tfs.flash_sinks_dkv.launches)
+    out, lse = tfs.flash_sinks_fwd(q, k, v, seg, lo, hi, sinks, scale=scale)
+    dq, di = tfs.flash_sinks_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                scale=scale)
+    dk, dv = tfs.flash_sinks_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                 scale=scale)
+    dsk = tfs.sinks_grad(sinks, lse, di)
+    rout, rlse = tfs.flash_sinks_fwd_ref(q, k, v, seg, sinks, scale)
+    rdq, rdk, rdv, rdsk = tfs.flash_sinks_bwd_ref(q, k, v, seg, out, lse,
+                                                  dout, sinks, scale)
+    torch.cuda.synchronize()
+    assert (tfs.flash_sinks_fwd.launches, tfs.flash_sinks_dq.launches,
+            tfs.flash_sinks_dkv.launches) == tuple(x + 1 for x in before)
+    assert (lse - rlse).abs().max() <= 1e-3
+    for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got).all()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+    assert (dsk - rdsk).abs().max() <= 1e-2 * rdsk.abs().max()
+
+
+def test_attention_dispatch_with_sinks_on_cuda(dev):
+    """Plain causal rows with sinks launch K17 (its gradient through dq and
+    dk/dv); a narrow window takes the banded form, no kernel; head dim 128
+    with sinks raises naming K17."""
+    from unsloth_tpu_torch.ops.attention import attention
+
+    q = torch.randn((1, 512, 8, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn((1, 512, 2, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    sinks = torch.zeros(8, device=dev)
+    before = (tfs.flash_sinks_fwd.launches, tfs.flash_sinks_dq.launches,
+              tfs.flash_sinks_dkv.launches)
+    attention(q, k, k, sinks=sinks).float().sum().backward()
+    assert (tfs.flash_sinks_fwd.launches, tfs.flash_sinks_dq.launches,
+            tfs.flash_sinks_dkv.launches) == tuple(x + 1 for x in before)
+    banded = attention(q, k, k, sinks=sinks, window=128)
+    assert tfs.flash_sinks_fwd.launches == before[0] + 1
+    assert torch.isfinite(banded).all()
+    q128 = torch.zeros((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K17"):
+        attention(q128, q128, q128, sinks=torch.zeros(2, device=dev))

@@ -142,8 +142,10 @@ def test_forward_with_cache_matches_jax(variant, quant, with_lora):
 
 def test_unported_knob_raises():
     _, tcfg = configs("llama")
-    moe = dataclasses.replace(tcfg, num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="num_experts"):
+    # MoE under softmax-top-k routing is ported; DeepSeek's routing is not
+    moe = dataclasses.replace(tcfg, num_experts=4, num_experts_per_tok=2,
+                              moe_routing="deepseek")
+    with pytest.raises(NotImplementedError, match="moe_routing"):
         tdec.forward_with_cache({"layers": []}, None,
                                 torch.zeros((1, 1), dtype=torch.int64), moe,
                                 tdec.init_cache(moe, 1, 2),

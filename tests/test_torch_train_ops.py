@@ -249,8 +249,9 @@ def test_attention_ref_matches_jax():
 def test_unported_device_routes_raise(route, kw, kernel):
     """Off the CPU every route without a kernel raises and names the TPU
     kernel it waits for (a meta tensor stands in for a CUDA one): sinks
-    (K17), and a window or softcap without causality (K18's non-causal
-    form; the causal one is ported)."""
+    at a head dim K17 is not built for (it takes gpt-oss's 64, these
+    tensors have 128), and a window or softcap without causality (K18's
+    non-causal form; the causal one is ported)."""
     q = torch.empty((1, 128, 4, 128), device="meta")
     k = torch.empty((1, 128, 2, 128), device="meta")
     seg = torch.empty((1, 128), dtype=torch.int32, device="meta")

@@ -9,7 +9,13 @@
 // uint8 [N, K/2] weight holds element [n, j] in its high nibble and element
 // [n, j + K/2] in its low nibble. absmax is fp32 [N * K/64], one scale per
 // 64 consecutive elements of a row; the wrapper decodes double-quantized
-// codes to fp32 before the launch, as the TPU launcher does.
+// codes to fp32 before the launch, as the TPU launcher does. K/2 need only
+// be a multiple of 32 (gpt-oss's K = 2,880: K/2 = 1,440 = 22.5 blocks of
+// 64, so a block straddles the split-half boundary): each 16-byte chunk
+// looks up its own absmax, from the element index of its first column, and
+// the last 64-byte step of a row is masked past K/2. The TPU kernel takes
+// only K/2 % 64 == 0 (qlora_matmul.py:_shapes_ok) and dequantizes in XLA
+// otherwise; this kernel runs at every such shape.
 //
 // What bounds it on an H100:
 //   * decode (M <= 8 rows): the bytes of weight read, 0.5 B/param plus
@@ -99,7 +105,7 @@ nf4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
       const int col = (c % (kStep / 8)) * 8;
       const int m = m0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M)
+      if (m < M && j + col < half)
         v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + side * half + j + col);
       *reinterpret_cast<uint4*>(xs + (side * BM + r) * kLds + col) = v;
     }
@@ -111,10 +117,10 @@ nf4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
       const int n = n0 + r;
       uint4 hi_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
       uint4 lo_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-      if (n < N) {
+      if (n < N && j + col < half) {
         const uint4 v = *reinterpret_cast<const uint4*>(packed + (size_t)n * half + j + col);
-        const float a_hi = absmax[(size_t)n * blocks_per_row + j / kQuantBlock];
-        const float a_lo = absmax[(size_t)n * blocks_per_row + (half + j) / kQuantBlock];
+        const float a_hi = absmax[(size_t)n * blocks_per_row + (j + col) / kQuantBlock];
+        const float a_lo = absmax[(size_t)n * blocks_per_row + (half + j + col) / kQuantBlock];
         const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
         __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(hi_out);
         __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(lo_out);
@@ -251,18 +257,21 @@ nf4_matmul_dx_kernel(const __nv_bfloat16* __restrict__ g,
       const int r = c / (kStep / 16);
       const int col = (c % (kStep / 16)) * 16;
       const int n = n0 + r;
-      const uint4 v = *reinterpret_cast<const uint4*>(packed + (size_t)n * half + j0 + col);
-      const float a_hi = absmax[(size_t)n * blocks_per_row + j0 / kQuantBlock];
-      const float a_lo = absmax[(size_t)n * blocks_per_row + (half + j0) / kQuantBlock];
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-      uint4 hi_out[2], lo_out[2];
-      __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(hi_out);
-      __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(lo_out);
+      uint4 hi_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+      uint4 lo_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+      if (j0 + col < half) {
+        const uint4 v = *reinterpret_cast<const uint4*>(packed + (size_t)n * half + j0 + col);
+        const float a_hi = absmax[(size_t)n * blocks_per_row + (j0 + col) / kQuantBlock];
+        const float a_lo = absmax[(size_t)n * blocks_per_row + (half + j0 + col) / kQuantBlock];
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+        __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(hi_out);
+        __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(lo_out);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const uint8_t b0 = b[2 * e], b1 = b[2 * e + 1];
-        hi2[e] = __floats2bfloat162_rn(code[b0 >> 4] * a_hi, code[b1 >> 4] * a_hi);
-        lo2[e] = __floats2bfloat162_rn(code[b0 & 15] * a_lo, code[b1 & 15] * a_lo);
+        for (int e = 0; e < 8; ++e) {
+          const uint8_t b0 = b[2 * e], b1 = b[2 * e + 1];
+          hi2[e] = __floats2bfloat162_rn(code[b0 >> 4] * a_hi, code[b1 >> 4] * a_hi);
+          lo2[e] = __floats2bfloat162_rn(code[b0 & 15] * a_lo, code[b1 & 15] * a_lo);
+        }
       }
       uint4* whi = reinterpret_cast<uint4*>(ws + r * kDxLdw + col);
       uint4* wlo = reinterpret_cast<uint4*>(ws + (kDxBK + r) * kDxLdw + col);
@@ -303,7 +312,7 @@ nf4_matmul_dx_kernel(const __nv_bfloat16* __restrict__ g,
     const int r = c / (2 * kStep / 8);
     const int col = (c % (2 * kStep / 8)) * 8;
     const int m = m0 + r;
-    if (m >= M) continue;
+    if (m >= M || j0 + col % kStep >= half) continue;
     const int out_col = col < kStep ? j0 + col : half + j0 + (col - kStep);
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
@@ -318,11 +327,11 @@ nf4_matmul_dx_kernel(const __nv_bfloat16* __restrict__ g,
 
 // dx = g @ dequant(W) on `stream`. Shapes: g [M, N] bf16 row-major, packed
 // [N, K/2] u8, absmax [N * K/64] f32, dx [M, K] bf16. N must be a multiple
-// of 64, K/2 a multiple of 64 and every pointer 16-byte aligned (the
+// of 64, K/2 a multiple of 32 and every pointer 16-byte aligned (the
 // wrapper checks). Returns cudaGetLastError() after the launch.
 extern "C" int unsloth_nf4_matmul_dx_bf16(const void* g, const void* packed, const void* absmax,
                                           void* dx, int M, int N, int K, void* stream) {
-  const dim3 grid(K / 2 / kStep, (M + 63) / 64);
+  const dim3 grid((K / 2 + kStep - 1) / kStep, (M + 63) / 64);
   nf4_matmul_dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(absmax), static_cast<__nv_bfloat16*>(dx), M, N, K);
@@ -331,7 +340,7 @@ extern "C" int unsloth_nf4_matmul_dx_bf16(const void* g, const void* packed, con
 
 // y = x @ dequant(W)^T on `stream`. Shapes: x [M, K] bf16 row-major,
 // packed [N, K/2] u8, absmax [N * K/64] f32, y [M, N] bf16. K/2 must be a
-// multiple of 64 and every pointer 16-byte aligned (the wrapper checks).
+// multiple of 32 and every pointer 16-byte aligned (the wrapper checks).
 // Returns cudaGetLastError() after the launch; allocates nothing.
 extern "C" int unsloth_nf4_matmul_bf16(const void* x, const void* packed, const void* absmax,
                                        void* y, int M, int N, int K, void* stream) {

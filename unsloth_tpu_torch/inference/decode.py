@@ -1,7 +1,8 @@
 """KV-cache decoding: prefill and single-token steps, in PyTorch.
 
 Counterpart of unsloth_tpu/inference/decode.py for the plain-attention
-llama-family path. The cache holds one preallocated [B, S, Hkv, Dh] tensor
+llama-family path, dense or MoE (the MLP through ``mlp_block``), with
+gpt-oss's sinks. The cache holds one preallocated [B, S, Hkv, Dh] tensor
 per layer for k and for v. Where JAX returns a new cache from
 ``dynamic_update_slice``, :func:`forward_with_cache` writes the new k/v
 **in place** into slots [length, length + T) and returns a cache object
@@ -48,12 +49,15 @@ def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, *, q_slots: torch.Tensor,
                    kv_len_mask: torch.Tensor, window: Optional[int],
                    softcap: Optional[float],
-                   scale: Optional[float]) -> torch.Tensor:
+                   scale: Optional[float],
+                   sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, Tq, Hq, Dh]; caches [B, S, Hkv, Dh]; kv_len_mask [B, S] marks
     valid slots; q_slots [B, Tq] are the query tokens' cache slots
     (causality is slot order). fp32 scores and softmax. A query row that
     sees no valid slot (a left-pad token) gets zero output: its softmax
-    over all -inf would be NaN and spread through later layers."""
+    over all -inf would be NaN and spread through later layers. sinks
+    [Hq] (gpt-oss): a per-head logit that joins the softmax denominator
+    and carries no value (such a row then gets zeros too)."""
     dh, hq, hkv = q.shape[-1], q.shape[2], k_cache.shape[2]
     s = k_cache.shape[1]
     if scale is None:
@@ -72,9 +76,16 @@ def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor,
     if window is not None:
         mask &= (qp - kv_pos) < window
     scores = scores.masked_fill(~mask[:, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    probs = torch.where(mask.any(dim=-1, keepdim=True)[:, None], probs,
-                        torch.zeros((), device=q.device))
+    if sinks is not None:
+        b, tq = q.shape[:2]
+        sink_col = sinks.to(torch.float32)[None, :, None, None].expand(
+            b, hq, tq, 1)
+        probs = torch.softmax(torch.cat([scores, sink_col], dim=-1),
+                              dim=-1)[..., :-1]
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        probs = torch.where(mask.any(dim=-1, keepdim=True)[:, None], probs,
+                            torch.zeros((), device=q.device))
     out = torch.einsum("bhts,bshd->bthd", probs, v)
     return out.to(q.dtype)
 
@@ -136,7 +147,8 @@ def forward_with_cache(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
         attn = _attend_cached(
             q, cache.k[i], cache.v[i], q_slots=q_slots, kv_len_mask=kv_valid,
             window=cfg.sliding_window if kind == "sliding" else None,
-            softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale)
+            softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale,
+            sinks=layer_p.get("sinks"))
         attn = _proj(attn.reshape(b, t, hq * dh), layer_p, lora_p, "o")
         if cfg.use_post_norms and "post_attn_out_norm" in layer_p:
             attn = _norm(attn, layer_p["post_attn_out_norm"], cfg)

@@ -5,7 +5,9 @@ The ``*_from_numpy`` functions take a tree as
 ``jax.tree_util.tree_map(np.asarray, tree)``
 leaves it: dicts and lists of numpy arrays, NF4 objects with
 ``packed/absmax/absmax_scale/absmax_offset/shape/block_size/
-double_block_size`` and LoRA objects with ``a/b/scale``. They return the
+double_block_size``, stacked-expert NF4 objects with
+``packed/absmax/shape/block_size`` (3-D shape) and LoRA objects with
+``a/b/scale``. They return the
 port's tree with every array on ``device``; NF4 bytes and codes are copied
 unchanged. :func:`lora_to_numpy` goes the other way for trained adapters.
 JAX imports nothing here: the trees travel as numpy.
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .ops.lora import LoRAWeights
-from .ops.nf4 import NF4Tensor
+from .ops.nf4 import NF4Stacked, NF4Tensor
 
 _FLOAT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                  "float16": torch.float16}
@@ -46,6 +48,14 @@ def _convert(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
         return {k: _convert(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, device, dtype) for v in tree]
+    if hasattr(tree, "packed") and len(getattr(tree, "shape", ())) == 3:
+        e = int(tree.shape[0])
+        return NF4Stacked(
+            packed=to_tensor(tree.packed, device),
+            absmax=to_tensor(tree.absmax, device).reshape(e, -1),
+            shape=tuple(int(s) for s in tree.shape),
+            block_size=int(tree.block_size),
+            dtype=dtype or _FLOAT_DTYPES[np.dtype(tree.dtype).name])
     if hasattr(tree, "packed") and hasattr(tree, "absmax"):
         opt = (lambda v: None if v is None else to_tensor(v, device))
         return NF4Tensor(

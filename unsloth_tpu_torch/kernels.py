@@ -28,7 +28,8 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
-           "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu")
+           "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu",
+           "nf4_gmm.cu", "flash_sinks.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("attention_tiles.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -148,6 +149,21 @@ def library() -> ctypes.CDLL:
         lib.unsloth_ce_fwd.restype = i
         lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_bwd.restype = i
+        lib.unsloth_nf4_gmm_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                             p]
+        lib.unsloth_nf4_gmm_bf16.restype = i
+        lib.unsloth_nf4_gmm_dx_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                p]
+        lib.unsloth_nf4_gmm_dx_bf16.restype = i
+        lib.unsloth_flash_sinks_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
+                                                i, i, i, f, p]
+        lib.unsloth_flash_sinks_fwd.restype = i
+        lib.unsloth_flash_sinks_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                               p, i, i, i, i, f, p]
+        lib.unsloth_flash_sinks_dq.restype = i
+        lib.unsloth_flash_sinks_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                                p, i, i, i, i, f, p]
+        lib.unsloth_flash_sinks_dkv.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

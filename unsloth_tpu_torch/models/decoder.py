@@ -1,9 +1,11 @@
-"""The llama-family dense decoder in PyTorch: the training forward, the
-SFT loss and the blocks that KV-cache decoding shares.
+"""The llama-family decoder in PyTorch, dense or with softmax-top-k MoE
+layers (gpt-oss, qwen3-moe, mixtral): the training forward, the SFT loss
+and the blocks that KV-cache decoding shares.
 
 Counterpart of unsloth_tpu/models/decoder.py: ``_norm``, ``_proj``,
 ``mlp_block`` and ``_rope_tables`` (shared with ``inference/decode.py``),
-``attention_block``, ``decoder_layer``, ``forward`` (with per-layer
+``moe_block``, ``attention_block`` (with gpt-oss's sinks),
+``decoder_layer``, ``forward`` (with per-layer
 rematerialization, optionally offloading the layer boundaries to pinned
 host memory), ``loss_fn`` / ``_loss_from_hidden`` (shifted labels, global
 ``n_items``, the full-logits CE through the K7/K8 kernels or the
@@ -16,13 +18,18 @@ Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
     "layers": [{"input_norm": [D], "post_attn_norm": [D],
                 "q": W|NF4, "k": ..., "v": ..., "o": ...,
                 "gate": W|NF4, "up": W|NF4, "down": W|NF4, ...}, ...],
+                (MoE layers: "router": [E, D], "router_bias": [E],
+                 "experts": {"gate"/"up": [E, F, D], "down": [E, D, F]
+                 (dense or NF4Stacked), "gate_bias"/"up_bias": [E, F],
+                 "down_bias": [E, D]}; gpt-oss: "sinks": [Hq])
     "final_norm": [D],
     "lm_head": [V, D] (absent when tied to embed),
   }
 
-Only the llama-family dense decoder is ported; :func:`check_supported`
-raises ``NotImplementedError`` naming the first ``ModelConfig`` knob of any
-other architecture.
+Only the llama-family decoder is ported, dense or with MoE layers routed
+by softmax-top-k without a shared expert; :func:`check_supported` raises
+``NotImplementedError`` naming the first ``ModelConfig`` knob of any other
+architecture.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..ops.attention import attention
 from ..ops.cross_entropy import fast_cross_entropy_loss
 from ..ops.fused_ce_linear import fused_ce_loss_mean
 from ..ops.lora import base_matmul, lora_matmul
+from ..ops.moe import moe_mlp
 from ..ops.nf4 import NF4Tensor, dequantize_nf4
 from ..ops.rms_norm import rms_norm
 from ..ops.rope import (apply_rope_qk, rope_inv_freq, rope_table,
@@ -53,7 +61,11 @@ _UNPORTED = (
     ("lightning", lambda c: c.lightning is not None),
     ("gdn", lambda c: c.gdn is not None),
     ("zamba", lambda c: c.zamba is not None),
-    ("num_experts (MoE)", lambda c: c.num_experts > 0),
+    ("moe_routing", lambda c: c.num_experts > 0
+     and c.moe_routing != "softmax_topk"),
+    ("moe_shared_expert", lambda c: c.moe_shared_expert),
+    ("moe_shared_gate", lambda c: c.moe_shared_gate),
+    ("moe_act", lambda c: c.moe_act is not None and c.moe_act not in ACT2GLU),
     ("short_conv_l", lambda c: c.short_conv_l > 0),
     ("norm_type", lambda c: c.norm_type != "rmsnorm"),
     ("norm_bias", lambda c: c.norm_bias),
@@ -61,7 +73,6 @@ _UNPORTED = (
     ("hidden_act", lambda c: c.hidden_act not in ACT2GLU),
     ("gated_attention", lambda c: c.gated_attention),
     ("qk_norm", lambda c: c.qk_norm not in (False, True)),
-    ("attn_sinks", lambda c: c.attn_sinks),
     ("rope_interleaved", lambda c: c.rope_interleaved),
     ("rope_layers", lambda c: c.rope_layers is not None),
     ("attn_temperature_tuning", lambda c: c.attn_temperature_tuning),
@@ -82,7 +93,8 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"unsloth_tpu_torch: ModelConfig.{knob} "
                 f"({cfg.model_type!r}) is not ported yet; only the "
-                "llama-family dense decoder is")
+                "llama-family decoder is, dense or with softmax-top-k MoE "
+                "layers")
 
 
 def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -97,11 +109,31 @@ def _proj(x: torch.Tensor, layer_p, lora_p, name: str) -> torch.Tensor:
 
 def mlp_block(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
               layer_idx: int) -> torch.Tensor:
-    """Dense gated MLP: down(act(gate(x)) * up(x))."""
+    """Dense gated MLP, down(act(gate(x)) * up(x)), or the layer's MoE
+    block."""
+    if cfg.layer_is_moe(layer_idx) and "experts" in layer_p:
+        return moe_block(x, layer_p, cfg)
     glu = glu_for(cfg.hidden_act)
     e = _proj(x, layer_p, lora_p, "gate")
     g = _proj(x, layer_p, lora_p, "up")
     return _proj(glu(e, g), layer_p, lora_p, "down")
+
+
+def moe_block(x: torch.Tensor, layer_p, cfg: ModelConfig) -> torch.Tensor:
+    """Token-choice top-k MoE on x [..., D]: router logits in fp32 (plus
+    the router bias), then ``ops.moe.moe_mlp`` (the grouped route: the
+    NF4 expert kernels K14/K15 on a CUDA tensor)."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    router_logits = xf.to(torch.float32) @ layer_p["router"].to(
+        torch.float32).t()
+    if layer_p.get("router_bias") is not None:
+        router_logits = router_logits + layer_p["router_bias"].to(
+            torch.float32)
+    out = moe_mlp(xf, router_logits, layer_p["experts"],
+                  cfg.num_experts_per_tok, cfg.moe_act or cfg.hidden_act,
+                  cfg.norm_topk_prob, routing=cfg.moe_routing)
+    return out.reshape(x.shape)
 
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):

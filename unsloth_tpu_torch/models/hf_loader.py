@@ -1,7 +1,8 @@
 """HF safetensors checkpoint -> parameter tree, in PyTorch.
 
 Counterpart of unsloth_tpu/models/hf_loader.py (``load_params``,
-``save_params``) for the llama-family dense decoder: single-file or
+``save_params``) for the llama-family decoder, dense or with MoE layers:
+single-file or
 index-sharded checkpoints, read
 one tensor at a time with the package's own safetensors reader
 (``io_safetensors``), moved to the target device, cast to ``dtype`` and,
@@ -10,9 +11,18 @@ bf16 copy of a projection exists only while it is being quantized).
 :func:`save_params` writes a tree back with HF names, one tensor at a time
 (``io_safetensors.save_sharded``).
 
-Not ported yet: pre-quantized bitsandbytes checkpoints, fused
-qkv_proj/gate_up_proj checkpoints, expert weights and
-``validate_checkpoint``; each raises ``NotImplementedError``.
+Experts load as dense stacks in ``dtype`` (gate/up [E, F, D], down
+[E, D, F]), as the JAX loader loads them, also with ``load_in_4bit``:
+``params.quantize_params`` stacks them as NF4 afterwards. Layouts read:
+per-expert tensors (qwen3-moe ``mlp.experts.{e}.{gate,up,down}_proj``,
+mixtral ``block_sparse_moe.experts.{e}.{w1,w3,w2}`` with its router
+``block_sparse_moe.gate``) and gpt-oss's stacked tensors (gate and up
+interleaved on the last dim, input-major, with biases).
+
+Not ported yet: pre-quantized bitsandbytes checkpoints, MXFP4 expert
+checkpoints (JAX ``models/mxfp4.py``), fused qkv_proj/gate_up_proj
+checkpoints of dense models, other expert layouts, saving MoE checkpoints
+and ``validate_checkpoint``; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,8 +41,8 @@ from .config import ModelConfig, load_hf_config
 
 _QUANTIZABLE = ("q", "k", "v", "o", "gate", "up", "down")
 _UNPORTED_SUFFIXES = (".quant_state.bitsandbytes__nf4", ".absmax",
-                      "qkv_proj.weight", "gate_up_proj.weight",
-                      ".experts.0.gate_proj.weight")
+                      "qkv_proj.weight", "gate_up_proj.weight")
+_MXFP4_SUFFIXES = ("_blocks", "_scales")
 
 
 class CheckpointReader:
@@ -81,7 +91,12 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, *,
         if name.endswith(_UNPORTED_SUFFIXES):
             raise NotImplementedError(
                 f"{path}: tensor {name!r} belongs to a checkpoint layout "
-                "(bnb 4-bit, fused projections or experts) not ported yet")
+                "(bnb 4-bit or fused projections) not ported yet")
+        if ".experts." in name and name.endswith(_MXFP4_SUFFIXES):
+            raise NotImplementedError(
+                f"{path}: tensor {name!r} is an MXFP4-quantized expert "
+                "weight (the JAX package's models/mxfp4.py); MXFP4 loading "
+                "is not ported yet: use a bf16 checkpoint")
 
     def load_one(hf_name: str, quantize: bool):
         arr = reader.get(hf_name).to(device).to(dtype)
@@ -96,11 +111,55 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, *,
             continue  # some checkpoints tie without setting the flag
         params[ours] = load_one(hf, quantize=False)
     for i in range(cfg.num_layers):
-        params["layers"].append({
-            ours: load_one(hf, load_in_4bit and ours in _QUANTIZABLE)
-            for ours, hf in hf_names.layer_name_map(cfg, i).items()
-            if hf in reader})
+        layer = {ours: load_one(hf, load_in_4bit and ours in _QUANTIZABLE)
+                 for ours, hf in hf_names.layer_name_map(cfg, i).items()
+                 if hf in reader}
+        if cfg.layer_is_moe(i):
+            if "router" not in layer:   # mixtral: block_sparse_moe.gate
+                alt = f"model.layers.{i}.block_sparse_moe.gate.weight"
+                if alt in reader:
+                    layer["router"] = load_one(alt, quantize=False)
+            layer["experts"] = _load_experts(reader, cfg, i, dtype, device)
+        params["layers"].append(layer)
     return params
+
+
+def _load_experts(reader: CheckpointReader, cfg: ModelConfig, layer_idx: int,
+                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The experts of one layer as dense [E, ...] stacks on ``device``:
+    gate/up [E, F, D], down [E, D, F], gpt-oss's biases gate_bias/up_bias
+    [E, F] and down_bias [E, D]."""
+    def get(name):
+        return reader.get(name).to(device).to(dtype)
+
+    p = f"model.layers.{layer_idx}.mlp.experts."
+    if p + "gate_up_proj" in reader and cfg.model_type == "gpt_oss":
+        # HF GptOssExperts: gate_up_proj [E, D, 2F] used as x @ W, gate and
+        # up interleaved on the last dim; down_proj [E, F, D]; biases
+        # [E, 2F] (interleaved) and [E, D]
+        gup = get(p + "gate_up_proj")
+        out = {"gate": gup[:, :, 0::2].transpose(1, 2).contiguous(),
+               "up": gup[:, :, 1::2].transpose(1, 2).contiguous(),
+               "down": get(p + "down_proj").transpose(1, 2).contiguous()}
+        del gup
+        if p + "gate_up_proj_bias" in reader:
+            gub = get(p + "gate_up_proj_bias")
+            out["gate_bias"] = gub[:, 0::2].contiguous()
+            out["up_bias"] = gub[:, 1::2].contiguous()
+        if p + "down_proj_bias" in reader:
+            out["down_bias"] = get(p + "down_proj_bias")
+        return out
+    namer = hf_names.expert_name
+    if hf_names.mixtral_expert_name(layer_idx, 0, "gate") in reader:
+        namer = hf_names.mixtral_expert_name
+    if namer(layer_idx, 0, "gate") not in reader:
+        raise NotImplementedError(
+            f"{reader.path}: layer {layer_idx}'s experts are in a layout "
+            "not ported yet (ported: per-expert qwen3-moe/mixtral tensors "
+            "and gpt-oss's stacked bf16 tensors)")
+    return {proj: torch.stack([get(namer(layer_idx, e, proj))
+                               for e in range(cfg.num_experts)])
+            for proj in ("gate", "up", "down")}
 
 
 def save_params(params: Dict[str, Any], cfg: ModelConfig, path: str, *,
@@ -116,6 +175,10 @@ def save_params(params: Dict[str, Any], cfg: ModelConfig, path: str, *,
     (:func:`merge_lora`: fp32, then ``dtype``). Each tensor is made on its
     own device when its turn comes, so one dense weight at a time is
     alive, and copied to the host."""
+    if any("experts" in layer for layer in params["layers"]):
+        raise NotImplementedError(
+            "save_params: writing MoE expert weights (the JAX package's "
+            "merged MoE save) is not ported yet")
     os.makedirs(path, exist_ok=True)
     lora_layers = (lora or {}).get("layers") or []
     tensors = {}   # HF name -> (weight, its adapter or None)

@@ -1,8 +1,12 @@
 """HF checkpoint name mapping: safetensors tensor names <-> the param tree.
 
-Counterpart of unsloth_tpu/models/hf_names.py for the llama-family dense
-decoder (other families raise through ``decoder.check_supported``). All
-weights keep the HF [out, in] orientation; nothing is transposed.
+Counterpart of unsloth_tpu/models/hf_names.py for the llama-family
+decoder, dense or with softmax-top-k MoE layers (gpt-oss, qwen3-moe,
+mixtral); other families raise through ``decoder.check_supported``. All
+weights keep the HF [out, in] orientation; nothing is transposed. Expert
+weights are not in the per-layer map: ``hf_loader`` reads each layout
+(:func:`expert_name`, :func:`mixtral_expert_name`, gpt-oss's stacked
+tensors).
 """
 
 from __future__ import annotations
@@ -43,6 +47,11 @@ _PLAIN_NORM_MAP = {
     "post_attn_norm": "post_attention_layernorm.weight",
 }
 
+# MoE router (qwen3-moe / qwen2-moe style; mixtral's block_sparse_moe.gate
+# is found by the loader)
+_MOE_ROUTER = "mlp.gate.weight"
+_MOE_ROUTER_BIAS = "mlp.gate.bias"
+
 _TOP_MAP = {
     "embed": "model.embed_tokens.weight",
     "final_norm": "model.norm.weight",
@@ -56,7 +65,37 @@ def layer_name_map(cfg: ModelConfig, layer_idx: int) -> Dict[str, str]:
     m = dict(_LAYER_MAP)
     m.update(_POST_NORM_MAP if cfg.use_post_norms else _PLAIN_NORM_MAP)
     prefix = f"model.layers.{layer_idx}."
-    return {ours: prefix + hf for ours, hf in m.items()}
+    out = {ours: prefix + hf for ours, hf in m.items()}
+    if cfg.attn_sinks:
+        out["sinks"] = prefix + "self_attn.sinks"
+    if cfg.layer_is_moe(layer_idx):
+        if cfg.model_type == "gpt_oss":
+            out["router"] = prefix + "mlp.router.weight"
+            out["router_bias"] = prefix + "mlp.router.bias"
+        else:
+            out["router"] = prefix + _MOE_ROUTER
+            out["router_bias"] = prefix + _MOE_ROUTER_BIAS
+        for name in ("gate", "up", "down", "gate_bias", "up_bias",
+                     "down_bias"):
+            out.pop(name, None)
+    return out
+
+
+def expert_name(layer_idx: int, expert_idx: int, proj: str) -> str:
+    """HF name of one expert projection, qwen3-moe layout:
+    mlp.experts.{e}.{gate,up,down}_proj.weight."""
+    return (f"model.layers.{layer_idx}.mlp.experts.{expert_idx}."
+            f"{proj}_proj.weight")
+
+
+_MIXTRAL_PROJ = {"gate": "w1", "up": "w3", "down": "w2"}
+
+
+def mixtral_expert_name(layer_idx: int, expert_idx: int, proj: str) -> str:
+    """HF name of one expert projection, mixtral layout:
+    block_sparse_moe.experts.{e}.{w1,w3,w2}.weight."""
+    return (f"model.layers.{layer_idx}.block_sparse_moe.experts."
+            f"{expert_idx}.{_MIXTRAL_PROJ[proj]}.weight")
 
 
 def top_level_map(cfg: ModelConfig) -> Dict[str, str]:

@@ -1,7 +1,8 @@
 """Parameter-tree construction: random init, LoRA injection, quantization.
 
-Counterpart of unsloth_tpu/models/params.py for the llama-family dense
-decoder. Random numbers come from a ``torch.Generator`` (they differ from
+Counterpart of unsloth_tpu/models/params.py for the llama-family
+decoder, dense or with softmax-top-k MoE layers (stacked experts, NF4 as
+:class:`~unsloth_tpu_torch.ops.nf4.NF4Stacked` once quantized). Random numbers come from a ``torch.Generator`` (they differ from
 ``jax.random``'s; tests hand both packages the same numpy arrays instead).
 """
 
@@ -12,7 +13,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..ops.lora import LoRAWeights, init_lora
-from ..ops.nf4 import quantize_nf4
+from ..ops.nf4 import quantize_nf4, quantize_nf4_stacked
 from .config import ModelConfig
 from .decoder import check_supported
 
@@ -49,9 +50,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     check_supported(cfg)
     device = device if device is not None else generator.device
 
-    def rand(shape):
+    def rand(shape, scale=init_scale):
         return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * init_scale).to(dtype)
+                            dtype=torch.float32) * scale).to(dtype)
 
     def norm_init(n=cfg.hidden_size):
         fill = torch.zeros if cfg.gemma_norm else torch.ones
@@ -68,7 +69,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = rand((cfg.vocab_size, d))
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         layer: Dict[str, Any] = {"input_norm": norm_init(),
                                  "post_attn_norm": norm_init()}
         if cfg.use_post_norms:
@@ -84,10 +85,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.qk_norm:
             layer["q_norm"] = norm_init(cfg.head_dim)
             layer["k_norm"] = norm_init(cfg.head_dim)
-        for name in ("gate", "up", "down"):
-            layer[name] = rand(_linear_dims(cfg, name))
-            if cfg.mlp_bias:
-                layer[f"{name}_bias"] = zeros(_linear_dims(cfg, name)[0])
+        if cfg.attn_sinks:
+            layer["sinks"] = rand((cfg.num_heads,), scale=1.0)
+        if cfg.layer_is_moe(i):
+            e = cfg.num_experts
+            f = cfg.moe_intermediate_size or cfg.intermediate_size
+            layer["router"] = rand((e, d))
+            if cfg.router_bias:
+                layer["router_bias"] = zeros(e)
+            layer["experts"] = {"gate": rand((e, f, d)),
+                                "up": rand((e, f, d)),
+                                "down": rand((e, d, f))}
+            if cfg.moe_mlp_bias:
+                layer["experts"].update(
+                    gate_bias=torch.zeros((e, f), dtype=dtype, device=device),
+                    up_bias=torch.zeros((e, f), dtype=dtype, device=device),
+                    down_bias=torch.zeros((e, d), dtype=dtype,
+                                          device=device))
+        else:
+            for name in ("gate", "up", "down"):
+                layer[name] = rand(_linear_dims(cfg, name))
+                if cfg.mlp_bias:
+                    layer[f"{name}_bias"] = zeros(_linear_dims(cfg, name)[0])
         params["layers"].append(layer)
     return params
 
@@ -97,16 +116,36 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
                     skip: Sequence[str] = ()) -> Dict[str, Any]:
     """Quantize the q/k/v/o/gate/up/down weights to NF4 (the QLoRA base),
-    each on its own device. Norms, biases, embed and lm_head stay dense."""
+    each on its own device, and stacked experts to NF4Stacked (fp32
+    absmax, ``block_size``, or 32 where in/2 is not a multiple of it: the
+    grouped kernels need blocks aligned to the split-half boundary, and
+    gpt-oss's in = 2,880 has in/2 = 1,440 = 45 x 32). Weights already in
+    NF4 stay as they are. Norms, biases, routers, sinks, embed and
+    lm_head stay dense."""
+
+    def expert_block(in_f: int) -> int:
+        for b in (block_size, 32):
+            if in_f % b == 0 and (in_f // 2) % b == 0:
+                return b
+        return 0
+
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for layer in params["layers"]:
-        out["layers"].append({
-            name: (quantize_nf4(w, block_size=block_size,
-                                double_quant=double_quant, dtype=dtype)
-                   if name in _QUANTIZABLE and name not in skip
-                   and isinstance(w, torch.Tensor) and w.ndim == 2 else w)
-            for name, w in layer.items()})
+        new_layer = {}
+        for name, w in layer.items():
+            if (name in _QUANTIZABLE and name not in skip
+                    and isinstance(w, torch.Tensor) and w.ndim == 2):
+                w = quantize_nf4(w, block_size=block_size,
+                                 double_quant=double_quant, dtype=dtype)
+            elif name == "experts" and name not in skip:
+                w = {en: quantize_nf4_stacked(ew, expert_block(ew.shape[-1]),
+                                              dtype=dtype)
+                     if isinstance(ew, torch.Tensor) and ew.ndim == 3
+                     and expert_block(ew.shape[-1]) else ew
+                     for en, ew in w.items()}
+            new_layer[name] = w
+        out["layers"].append(new_layer)
     return out
 
 
@@ -117,13 +156,16 @@ def init_lora_tree(cfg: ModelConfig, generator: torch.Generator, r: int = 16,
                    use_rslora: bool = False,
                    device=None) -> Dict[str, Any]:
     """The LoRA tree matching the params schema: {"layers": [{name:
-    LoRAWeights}]} with Kaiming-uniform A and zero B."""
+    LoRAWeights}]} with Kaiming-uniform A and zero B. MoE layers get no
+    gate/up/down adapters (expert LoRA is not in the JAX package either)."""
     check_supported(cfg)
     targets = set(normalize_target_modules(target_modules))
     layers: List[Dict[str, Optional[LoRAWeights]]] = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         layer = {}
         for name in DEFAULT_TARGET_MODULES:
+            if name in ("gate", "up", "down") and cfg.layer_is_moe(i):
+                continue
             if name in targets:
                 out_f, in_f = _linear_dims(cfg, name)
                 layer[name] = init_lora(generator, in_f, out_f, r, alpha,

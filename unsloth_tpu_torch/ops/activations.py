@@ -4,7 +4,8 @@ Counterpart of unsloth_tpu/ops/activations.py: ``act(e)`` in fp32, cast
 back to e's dtype, times the up projection ``g``. The gated forms carry the
 JAX package's custom backward: it saves only (e, g) and recomputes the
 activation in fp32 (de = act'(e) * dh * g, dg = dh * act(e), each rounded
-once to its input's dtype).
+once to its input's dtype). gpt-oss's clamped GLU, :func:`gpt_oss_glu`,
+has no custom backward, as in JAX: autograd through the fp32 formula.
 """
 
 from __future__ import annotations
@@ -46,6 +47,20 @@ swiglu = _make_glu(_silu)
 geglu_exact = _make_glu(lambda e: F.gelu(e, approximate="none"))
 geglu_approx = _make_glu(lambda e: F.gelu(e, approximate="tanh"))
 
+def _gpt_oss_act(e, g, alpha: float = 1.702, limit: float = 7.0):
+    """gpt-oss GLU (HF GptOssExperts): gate clamped above at ``limit``, up
+    clamped to [-limit, limit], gated swish with the (g + 1) linear term."""
+    e = torch.clamp(e, max=limit)
+    g = torch.clamp(g, min=-limit, max=limit)
+    return (e * torch.sigmoid(alpha * e)) * (g + 1.0)
+
+
+def gpt_oss_glu(e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gpt-oss expert activation in fp32, cast to e's dtype."""
+    return _gpt_oss_act(e.to(torch.float32),
+                        g.to(torch.float32)).to(e.dtype)
+
+
 ACT2GLU = {
     "silu": swiglu,
     "swish": swiglu,
@@ -53,6 +68,7 @@ ACT2GLU = {
     "gelu_new": geglu_approx,
     "gelu_tanh": geglu_approx,
     "gelu_pytorch_tanh": geglu_approx,
+    "gpt_oss_glu": gpt_oss_glu,
 }
 
 

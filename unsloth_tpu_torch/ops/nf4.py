@@ -148,6 +148,60 @@ def dequantize_nf4(q: NF4Tensor, dtype: Optional[torch.dtype] = None
     return (vals * absmax.repeat_interleave(q.block_size, dim=-1)).to(dtype)
 
 
+@dataclasses.dataclass
+class NF4Stacked:
+    """Stacked per-expert NF4 weights [E, out, in] (the MoE QLoRA base):
+    the split-half packing of :class:`NF4Tensor` with a leading expert
+    axis and plain fp32 absmax (no double quantization), one scale per
+    ``block_size`` elements of each expert's row-major weight."""
+
+    packed: torch.Tensor            # uint8 [E, out, in//2]
+    absmax: torch.Tensor            # fp32 [E, out * in // block_size]
+    shape: Tuple[int, int, int]
+    block_size: int = DEFAULT_BLOCK
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def ndim(self) -> int:
+        return 3
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.numel() + self.absmax.numel() * 4
+
+    def to(self, device) -> "NF4Stacked":
+        return dataclasses.replace(self, packed=self.packed.to(device),
+                                   absmax=self.absmax.to(device))
+
+
+def quantize_nf4_stacked(w: torch.Tensor, block_size: int = DEFAULT_BLOCK,
+                         dtype: torch.dtype = torch.bfloat16) -> NF4Stacked:
+    """[E, out, in] -> stacked NF4: the experts flattened into rows and
+    quantized as one 2-D weight (row-major blocks make the layouts equal),
+    as the JAX package does."""
+    e, out_f, in_f = w.shape
+    q = quantize_nf4(w.reshape(e * out_f, in_f), block_size=block_size,
+                     double_quant=False, dtype=dtype)
+    return NF4Stacked(q.packed.reshape(e, out_f, in_f // 2),
+                      q.absmax.reshape(e, -1), (e, out_f, in_f), block_size,
+                      dtype)
+
+
+def dequantize_nf4_stacked(q: NF4Stacked, dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """Full dequantization [E, out, in]: fp32 code * fp32 scale, one cast."""
+    dtype = dtype or q.dtype
+    e, out_f, in_f = q.shape
+    flat = NF4Tensor(q.packed.reshape(e * out_f, in_f // 2),
+                     q.absmax.reshape(-1), None, None, (e * out_f, in_f),
+                     q.block_size, dtype)
+    return dequantize_nf4(flat, dtype).reshape(e, out_f, in_f)
+
+
 def nf4_matmul_ref(x: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     """x @ W^T with W stored NF4 (W [out, in], x [..., in]): dequantize to
     x.dtype, then one matmul whose output is in x.dtype.

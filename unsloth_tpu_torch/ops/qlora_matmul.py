@@ -27,8 +27,10 @@ def nf4_matmul(x: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     """y = x @ dequant(W)^T; x [..., in], W [out, in] NF4; y in x.dtype.
     Differentiable in x (the backward is :func:`nf4_matmul_dx`).
 
-    CUDA: bf16 x only, ``in/2`` a multiple of 64 and ``block_size`` 64
-    (one absmax block per kernel step); anything else raises."""
+    CUDA: bf16 x only, ``in/2`` a multiple of 32 and ``block_size`` 64
+    (each 16-column chunk looks up its own absmax, so a block may straddle
+    the split-half boundary, as at gpt-oss's in = 2,880); anything else
+    raises."""
     if isinstance(x, torch.Tensor) and x.requires_grad \
             and torch.is_grad_enabled():
         return _NF4Matmul.apply(x, q)
@@ -46,9 +48,9 @@ def _check_cuda(name: str, t: torch.Tensor, q: NF4Tensor, inner: int,
     if t.shape[-1] != inner:
         raise ValueError(f"{name}: input has {t.shape[-1]} features, "
                          f"W expects {inner} ({inner_name})")
-    if q.block_size != 64 or (in_f // 2) % 64:
+    if q.block_size != 64 or (in_f // 2) % 32:
         raise NotImplementedError(
-            f"{name} CUDA kernel needs block_size 64 and in/2 % 64 == 0,"
+            f"{name} CUDA kernel needs block_size 64 and in/2 % 32 == 0,"
             f" got block_size {q.block_size}, in {in_f}")
     if q.packed.device != t.device:
         raise ValueError(f"{name}: input on {t.device}, W on "
@@ -97,7 +99,7 @@ def nf4_matmul_dx(g: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     g.dtype. The backward of :func:`nf4_matmul` with respect to x.
 
     CUDA: bf16 g only, ``out`` a multiple of 64 (the kernel's reduction
-    step), ``in/2`` a multiple of 64 and ``block_size`` 64."""
+    step), ``in/2`` a multiple of 32 and ``block_size`` 64."""
     if g.device.type == "cpu":
         return nf4_matmul_dx_ref(g, q)
     _check_cuda("nf4_matmul_dx", g, q, q.shape[0], "out")

@@ -528,3 +528,53 @@ def test_attention_dispatch_with_sinks_on_cuda(dev):
     q128 = torch.zeros((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="K17"):
         attention(q128, q128, q128, sinks=torch.zeros(2, device=dev))
+
+
+from unsloth_tpu_torch.ops import gmm as tgmm  # noqa: E402
+
+
+@pytest.mark.parametrize("e,n,k,m,kind", [
+    (32, 2880, 2880, 2048, "random"),   # gpt-oss widths: 22.5 x 128
+    (8, 768, 2048, 513, "random"),      # qwen3-moe's; m not a tile multiple
+    (16, 320, 200, 900, "skewed"),      # empty experts, K % 64 != 0
+    (4, 136, 72, 300, "one"),           # every row routed to one expert
+    (32, 2880, 2880, 8, "random"),      # decode rows
+])
+def test_gmm_kernels_match_plain(dev, e, n, k, m, kind):
+    """K19 forward (with and without the bias epilogue) and dx against
+    gmm_ref on the same bf16 inputs: every row on its own scale
+    (``chip_smoke.attn_row_err``; both round the same fp32 sums once, in
+    another order) and max|d| within 1e-2 of max|ref|; the backward of gmm
+    launches the dx kernel; f32 and a strided W raise."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    w = (torch.randn((e, n, k), generator=g, device=dev) * 0.05
+         ).to(torch.bfloat16)
+    if kind == "one":
+        sizes = torch.zeros(e, dtype=torch.int32, device=dev)
+        sizes[e - 1] = m
+    else:
+        sizes = _group_sizes(kind, e, m, g, dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((e, n), generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    before = (tgmm.gmm.launches, tgmm.gmm_dx.launches)
+    outs = [tgmm.gmm(x, w, sizes), tgmm.gmm(x, w, sizes, bias),
+            tgmm.gmm_dx(gy, w, sizes)]
+    refs = [tgmm.gmm_ref(x, w, sizes), tgmm.gmm_ref(x, w, sizes, bias),
+            tgmm.gmm_ref(gy, w, sizes, transpose=True)]
+    torch.cuda.synchronize()
+    assert (tgmm.gmm.launches, tgmm.gmm_dx.launches) == \
+        (before[0] + 2, before[1] + 1)
+    for got, ref in zip(outs, refs):
+        assert torch.isfinite(got).all() and got.dtype == torch.bfloat16
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+        assert (got.float() - ref.float()).abs().max() <= \
+            1e-2 * ref.float().abs().max()
+    xr = x.clone().requires_grad_(True)
+    tgmm.gmm(xr, w, sizes, bias).backward(gy)
+    assert tgmm.gmm_dx.launches == before[1] + 2
+    assert attn_row_err(xr.grad, refs[2]) <= ATTN_ROW_TOL
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tgmm.gmm(x.float(), w, sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgmm.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)

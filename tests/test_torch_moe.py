@@ -3,7 +3,9 @@ inputs, on the CPU: stacked-NF4 quantization byte for byte, the plain twin
 of the grouped NF4 kernels (K14 forward with its bias epilogue, K15 dx)
 against the JAX Pallas kernels in interpret mode, the four routings, and
 the grouped MoE MLP (values and input gradients) against JAX's grouped
-implementation (megablox ``gmm`` in interpret mode) and its dense oracle.
+implementation (megablox ``gmm`` in interpret mode) and its dense oracle,
+with NF4 experts (K14/K15's plain twin) and with dense ones (K19's plain
+version, ``ops/gmm.py``), and the dispatch of dense experts off the CPU.
 
 Tolerance, unless a test says otherwise: 1e-5 relative plus 1e-5 absolute
 in fp32 (the same fp32 products summed in another order)."""
@@ -162,11 +164,14 @@ def _experts(e, f, d, seed, bias):
 
 
 #: id -> (activation, expert biases, NF4 experts): gpt-oss's (clamped GLU,
-#: biases, NF4 at block 32 for in = 96) and a qwen3-moe-like (SwiGLU)
+#: biases, NF4 at block 32 for in = 96) and a qwen3-moe-like (SwiGLU), each
+#: also with dense experts, which JAX runs through megablox gmm (F = 96 and
+#: D = 64 are not multiples of 128: its route pads them)
 MLP_CASES = {
     "gpt-oss-nf4": ("gpt_oss_glu", True, True),
     "swiglu-nf4": ("silu", False, True),
     "gpt-oss-dense": ("gpt_oss_glu", True, False),
+    "swiglu-dense": ("silu", False, False),
 }
 
 
@@ -246,11 +251,30 @@ def test_gpt_oss_glu_matches_jax():
                                                jnp.asarray(g))), **TOL)
 
 
-def test_dense_experts_raise_on_device():
-    """Dense bf16 experts off the CPU need K19 (megablox gmm): the grouped
-    route names it (a meta tensor stands in for a CUDA one)."""
-    x = torch.empty((4, 64), device="meta")
-    w = torch.empty((2, 96, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="K19"):
-        tmoe._dense_gmm(x, w, torch.zeros(2, dtype=torch.int32,
-                                          device="meta"), None)
+def test_dense_experts_raise_on_device(monkeypatch):
+    """Dense experts off the CPU (a meta tensor stands in for a CUDA one)
+    take the grouped route to K19's wrapper, which raises for a device
+    without a kernel, and never reach the plain version gmm_ref."""
+    from unsloth_tpu_torch.ops import gmm as tgmm
+
+    def no_plain(*a, **kw):
+        raise AssertionError("gmm_ref ran on a tensor off the CPU")
+
+    monkeypatch.setattr(tgmm, "gmm_ref", no_plain)
+    reached = []
+    real_fwd = tgmm.gmm_fwd
+
+    def fwd(*a, **kw):
+        reached.append(a[0].device.type)
+        return real_fwd(*a, **kw)
+
+    monkeypatch.setattr(tgmm, "gmm_fwd", fwd)
+    e, f, d = 2, 96, 64
+    experts = {"gate": torch.empty((e, f, d), device="meta"),
+               "up": torch.empty((e, f, d), device="meta"),
+               "down": torch.empty((e, d, f), device="meta")}
+    x = torch.empty((4, d), device="meta")
+    logits = torch.empty((4, e), device="meta")
+    with pytest.raises(NotImplementedError, match="no kernel for device meta"):
+        tmoe.moe_mlp(x, logits, experts, 1, "silu", True)
+    assert reached == ["meta"]

@@ -23,13 +23,14 @@
 // K/2 (gpt-oss: K = 2,880, K/2 = 1,440 = 22.5 steps of 64). N is masked at
 // its ragged edge where the TPU launcher pads it in memory.
 //
-// Schedule (megablox's group metadata, made inside the block): the grid's
-// second axis runs over tile visits, at most ceil(m / BM) + E of them. A
-// BM-row tile that straddles two experts is visited once per expert, each
-// visit loading and storing only its expert's rows; empty experts have no
-// visit; blocks past the last visit exit at once. Each block finds its
-// visit with one walk over the E group sizes (thread 0, E <= 1024), so the
-// launch needs no metadata from the host.
+// Schedule (megablox's group metadata, made inside the block; shared with
+// gmm.cu in expert_visits.cuh): the grid's second axis runs over tile
+// visits, at most ceil(m / BM) + E of them. A BM-row tile that straddles
+// two experts is visited once per expert, each visit loading and storing
+// only its expert's rows; empty experts have no visit; blocks past the
+// last visit exit at once. Each block finds its visit with one walk over
+// the E group sizes (thread 0), so the launch needs no metadata from the
+// host.
 //
 // What bounds it on an H100: at training row counts (m = 16,384 sorted
 // rows, N = K = 2,880) tensor-core throughput, 2 m N K operations; each
@@ -47,6 +48,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "expert_visits.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -62,39 +65,6 @@ constexpr int kBN = 64;          // output columns (weight rows) per block
 constexpr int kStep = 64;        // packed bytes per row per step
 constexpr int kLds = kStep + 8;  // shared-memory row stride in bf16, padded
 constexpr int kThreads = 128;    // four warps
-
-// The tile visit of this block: its expert and the rows [lo, hi) of that
-// expert within the BM-row tile; expert -1 past the last visit.
-struct Visit {
-  int expert, lo, hi;
-};
-
-template <int BM>
-__device__ __forceinline__ Visit find_visit(const int* __restrict__ group_sizes, int E, int v) {
-  __shared__ Visit s;
-  if (threadIdx.x == 0) {
-    Visit out{-1, 0, 0};
-    int off = 0, visits = 0;
-    for (int g = 0; g < E; ++g) {
-      const int size = group_sizes[g];
-      if (size > 0) {
-        const int first = off / BM, last = (off + size - 1) / BM;
-        if (v < visits + last - first + 1) {
-          const int t0 = (first + v - visits) * BM;
-          out.expert = g;
-          out.lo = off > t0 ? off : t0;
-          out.hi = off + size < t0 + BM ? off + size : t0 + BM;
-          break;
-        }
-        visits += last - first + 1;
-      }
-      off += size;
-    }
-    s = out;
-  }
-  __syncthreads();
-  return s;
-}
 
 // Decode 16 packed bytes of weight row `n` at byte column `c` into the 16
 // high-nibble weights (columns c..) and the 16 low-nibble ones (columns

@@ -1,9 +1,11 @@
 """Save and merge, in PyTorch.
 
 Counterpart of unsloth_tpu/export/save.py: :func:`merged_params` (every
-adapted projection merged in fp32 and cast to bf16, every other NF4 weight
-dequantized), :func:`save_pretrained_merged` (an HF-layout bf16 checkpoint;
-``save_method="lora"`` writes the adapter instead), and the peft adapter
+adapted projection merged in fp32 and cast to bf16, every other NF4 weight,
+stacked NF4 experts included, dequantized), :func:`save_pretrained_merged`
+(an HF-layout bf16 checkpoint, MoE experts written one tensor per expert
+as the JAX package writes them; ``save_method="lora"`` writes the adapter
+instead), and the peft adapter
 format: :func:`save_lora` writes ``adapter_model.safetensors`` (fp32
 lora_A / lora_B under peft's names) and ``adapter_config.json``,
 :func:`load_lora_tree` / :func:`load_lora` read them back. Files go through
@@ -26,7 +28,8 @@ import torch
 from ..io_safetensors import SafetensorsFile, save_file
 from ..models.hf_loader import save_params
 from ..ops.lora import LoRAWeights, merge_lora
-from ..ops.nf4 import NF4Tensor, dequantize_nf4
+from ..ops.nf4 import (NF4Stacked, NF4Tensor, dequantize_nf4,
+                       dequantize_nf4_stacked)
 
 _TOKENIZER_FILES = (
     "tokenizer.json", "tokenizer_config.json", "special_tokens_map.json",
@@ -53,7 +56,8 @@ def _copy_assets(src: Optional[str], dst: str) -> None:
 
 def merged_params(model) -> Dict[str, Any]:
     """The param tree with each adapter merged into its projection (fp32,
-    then bf16) and every other NF4 weight dequantized to bf16."""
+    then bf16) and every other NF4 weight dequantized to bf16: stacked NF4
+    experts too; dense expert stacks and their biases as they are."""
     lora_layers = (model.lora or {}).get("layers")
     out = {k: v for k, v in model.params.items() if k != "layers"}
     out["layers"] = []
@@ -66,6 +70,11 @@ def merged_params(model) -> Dict[str, Any]:
                 new_layer[name] = merge_lora(w, lw, dtype=torch.bfloat16)
             elif isinstance(w, NF4Tensor):
                 new_layer[name] = dequantize_nf4(w, torch.bfloat16)
+            elif name == "experts" and isinstance(w, dict):
+                new_layer[name] = {
+                    k: dequantize_nf4_stacked(v, torch.bfloat16)
+                    if isinstance(v, NF4Stacked) else v
+                    for k, v in w.items()}
             else:
                 new_layer[name] = w
         out["layers"].append(new_layer)

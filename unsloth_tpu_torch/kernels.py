@@ -29,9 +29,9 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
            "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu",
-           "nf4_gmm.cu", "flash_sinks.cu")
+           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("attention_tiles.cuh",)
+HEADERS = ("attention_tiles.cuh", "expert_visits.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -164,6 +164,10 @@ def library() -> ctypes.CDLL:
         lib.unsloth_flash_sinks_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, f, p]
         lib.unsloth_flash_sinks_dkv.restype = i
+        lib.unsloth_gmm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.unsloth_gmm_bf16.restype = i
+        lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_gmm_dx_bf16.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -47,7 +47,7 @@ from ..ops.cross_entropy import fast_cross_entropy_loss
 from ..ops.fused_ce_linear import fused_ce_loss_mean
 from ..ops.lora import base_matmul, lora_matmul
 from ..ops.moe import moe_mlp
-from ..ops.nf4 import NF4Tensor, dequantize_nf4
+from ..ops.nf4 import NF4Stacked, NF4Tensor, dequantize_nf4
 from ..ops.rms_norm import rms_norm
 from ..ops.rope import (apply_rope_qk, rope_inv_freq, rope_table,
                         yarn_attention_factor)
@@ -335,8 +335,9 @@ def fused_ce_gate(n_rows: int, vocab: int, param_bytes: int, num_layers: int,
 
 
 def tree_bytes(tree: Any) -> int:
-    """Bytes of every tensor in a param tree (NF4 weights by their packed
-    codes and scales)."""
+    """Bytes of every tensor in a param tree (NF4 weights, stacked NF4
+    experts among them, by their packed codes and scales), as the JAX gate
+    sums the tree's leaves."""
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
@@ -345,6 +346,8 @@ def tree_bytes(tree: Any) -> int:
         return sum(tree_bytes(t) for t in (tree.packed, tree.absmax,
                                            tree.absmax_scale,
                                            tree.absmax_offset))
+    if isinstance(tree, NF4Stacked):
+        return tree_bytes(tree.packed) + tree_bytes(tree.absmax)
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0

@@ -6,7 +6,8 @@ mixtral); other families raise through ``decoder.check_supported``. All
 weights keep the HF [out, in] orientation; nothing is transposed. Expert
 weights are not in the per-layer map: ``hf_loader`` reads each layout
 (:func:`expert_name`, :func:`mixtral_expert_name`, gpt-oss's stacked
-tensors).
+tensors) and writes every family's experts under :func:`expert_name`, as
+the JAX package does.
 """
 
 from __future__ import annotations

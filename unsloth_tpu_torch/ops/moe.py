@@ -12,10 +12,13 @@ biases gate_bias/up_bias [E, F] and down_bias [E, D] (gpt-oss).
 * :func:`moe_mlp_grouped` — tokens sorted by expert (one stable argsort),
   three grouped products with the bias in their epilogue, the GLU, and an
   inverse-permutation gather with the weighted sum over the k slots. NF4
-  experts go through :func:`~unsloth_tpu_torch.ops.nf4_gmm.nf4_gmm` (K14,
-  its backward K15, on a CUDA tensor). Dense bf16 experts need the port of
-  megablox ``gmm`` (K19): on CUDA they raise; on the CPU they run the
-  plain grouped product. Group sizes stay on the device: no host sync.
+  experts whose blocks align go through
+  :func:`~unsloth_tpu_torch.ops.nf4_gmm.nf4_gmm` (K14, its backward K15,
+  on a CUDA tensor); dense experts (the bf16 stacks that
+  ``from_pretrained`` loads), and NF4 stacks whose blocks do not align
+  (dequantized first, as in JAX), go through
+  :func:`~unsloth_tpu_torch.ops.gmm.gmm` (K19, megablox ``gmm``, and its
+  dx). Group sizes stay on the device: no host sync.
   The routing and permutation glue and the un-permute run under profiler
   ranges ("unsloth.moe_route_permute", "unsloth.moe_unpermute").
 * :func:`moe_mlp` — chooses by ``impl``.
@@ -23,12 +26,13 @@ biases gate_bias/up_bias [E, F] and down_bias [E, D] (gpt-oss).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch.profiler import record_function
 
 from .activations import glu_for
+from .gmm import gmm
 from .nf4 import NF4Stacked, dequantize_nf4_stacked
 from .nf4_gmm import nf4_gmm, use_nf4_gmm
 
@@ -160,33 +164,6 @@ def moe_mlp_expert_loop(x: torch.Tensor, router_logits: torch.Tensor,
     return out
 
 
-def _dense_gmm(lhs: torch.Tensor, w: torch.Tensor,
-               group_sizes: torch.Tensor, bias: Optional[torch.Tensor]
-               ) -> torch.Tensor:
-    """Plain grouped lhs @ W_g^T (+ bias[g]) for dense experts, on the
-    CPU: the function of megablox ``gmm``, whose port (K19) CUDA waits
-    for."""
-    if lhs.device.type != "cpu":
-        raise NotImplementedError(
-            "moe_mlp_grouped on CUDA with dense (bf16) experts needs the port "
-            "of TPU kernel K19, megablox gmm (unsloth_tpu/ops/moe.py:177); "
-            "quantize the experts (quantize_params) for the NF4 kernels")
-    ends = torch.cumsum(group_sizes, 0).tolist()
-    out = torch.zeros((lhs.shape[0], w.shape[1]), dtype=torch.float32)
-    start = 0
-    for g, end in enumerate(ends):
-        if end > start:
-            y = lhs[start:end].to(torch.float32) @ w[g].to(torch.float32).t()
-            out[start:end] = y
-        start = end
-    out = out.to(lhs.dtype)
-    if bias is not None:
-        expert_of_row = torch.repeat_interleave(
-            torch.arange(w.shape[0]), group_sizes.to(torch.int64))
-        out = out + bias[expert_of_row].to(lhs.dtype)
-    return out
-
-
 def moe_mlp_grouped(x: torch.Tensor, router_logits: torch.Tensor,
                     experts: Dict[str, torch.Tensor],
                     num_experts_per_tok: int, act: str,
@@ -221,7 +198,7 @@ def moe_mlp_grouped(x: torch.Tensor, router_logits: torch.Tensor,
         b = experts.get(name + "_bias")
         if fused[name]:
             return nf4_gmm(lhs, w, group_sizes, bias=b).to(x.dtype)
-        return _dense_gmm(lhs, w, group_sizes, b)
+        return gmm(lhs, w, group_sizes, b)
 
     e = gmm_(xs, "gate")
     g = gmm_(xs, "up")

@@ -234,16 +234,21 @@ def test_cross_entropy_kernels_match_plain(dev, n, v, dtype, softcap, scale):
             + 1e-6 * rdx.float().abs().max()).all()
 
 
-@pytest.mark.parametrize("t", [256, 200])
-def test_flash_attention_kernels_match_plain(dev, t):
+@pytest.mark.parametrize("t,d,hq,hkv", [
+    (256, 128, 8, 2), (200, 128, 8, 2),
+    (200, 64, 14, 2),     # Qwen2.5-0.5B's heads: 7 query heads a kv head
+    (256, 64, 32, 8),     # Llama-3.2-1B's
+    (200, 256, 4, 4),     # Gemma-1's head dim, no GQA
+    (256, 256, 8, 2),
+])
+def test_flash_attention_kernels_match_plain(dev, t, d, hq, hkv):
     """K16 forward (out, lse) and backward (dq, dk, dv) against the plain
-    fp32 twins on the same bf16 inputs, one full row and one padded row
-    (pad queries included), a ragged T among them: every position row by
-    row (``chip_smoke.attn_row_err``: each element within 2^-6 of its
-    value plus 2^-4 of its (token, head) row's rms; the kernels round P
-    and dS to bf16), lse within 1e-3; the backward pair gets the kernel
-    forward's (out, lse)."""
-    hq, hkv, d = 8, 2, 128
+    fp32 twins on the same bf16 inputs at head dims 64, 128 and 256, one
+    full row and one padded row (pad queries included), a ragged T among
+    them: every position row by row (``chip_smoke.attn_row_err``: each
+    element within 2^-6 of its value plus 2^-4 of its (token, head) row's
+    rms; the kernels round P and dS to bf16), lse within 1e-3; the
+    backward pair gets the kernel forward's (out, lse)."""
     g = torch.Generator(device=dev).manual_seed(8)
     q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
@@ -269,8 +274,8 @@ def test_flash_attention_kernels_match_plain(dev, t):
 
 
 def test_flash_attention_refuses_other_head_dims(dev):
-    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
+    q = torch.zeros((1, 64, 2, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim 64 or 128 or 256"):
         tfa.flash_attention(q, q, q)
 
 
@@ -297,12 +302,16 @@ def _splash_segments(t, dev):
     (256, 8, 4, None, 50.0, 256 ** -0.5),
     (128, 8, 2, 100, None, 128 ** -0.5),
     (128, 4, 2, 64, 50.0, 144 ** -0.5),
+    (64, 16, 2, 128, None, 0.125),     # gpt-oss's sliding layers' form
+    (64, 8, 1, 64, 50.0, 0.125),
+    (64, 14, 2, None, 30.0, 0.125),
 ])
 def test_splash_attention_kernels_match_plain(dev, d, hq, hkv, window,
                                               softcap, scale):
     """K18 forward (out, lse), dq and dk/dv against the plain fp32 versions
-    on the same bf16 inputs, a padded and a packed row at a ragged T = 300,
-    with and without a window (64 and 100 tokens: it bites) and the softcap:
+    on the same bf16 inputs at head dims 64, 128 and 256, a padded and a
+    packed row at a ragged T = 300, with and without a window (64, 100 and
+    128 tokens: it bites) and the softcap:
     every position row by row (``chip_smoke.attn_row_err``; the kernels
     round P and dS to bf16), lse within 1e-3; the backward pair gets the
     kernel forward's (out, lse)."""
@@ -358,7 +367,7 @@ def test_attention_dispatch_reaches_splash_on_cuda(dev):
 
 
 def test_splash_attention_refuses_other_head_dims(dev):
-    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    q = torch.zeros((1, 64, 2, 96), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim"):
         tsa.splash_attention(q, q, q, window=16)
 
@@ -508,8 +517,10 @@ def test_flash_sinks_kernels_match_plain(dev, t, hq, hkv):
 
 def test_attention_dispatch_with_sinks_on_cuda(dev):
     """Plain causal rows with sinks launch K17 (its gradient through dq and
-    dk/dv); a narrow window takes the banded form, no kernel; head dim 128
-    with sinks raises naming K17."""
+    dk/dv); a narrow window takes the banded form, no kernel; a window that
+    is not narrow (T = 384) takes K18 at head dim 64, then the chunked lse
+    and the sink rescale, against the reference; head dim 128 with sinks
+    raises naming K17."""
     from unsloth_tpu_torch.ops.attention import attention
 
     q = torch.randn((1, 512, 8, 64), device=dev, dtype=torch.bfloat16,
@@ -525,6 +536,14 @@ def test_attention_dispatch_with_sinks_on_cuda(dev):
     banded = attention(q, k, k, sinks=sinks, window=128)
     assert tfs.flash_sinks_fwd.launches == before[0] + 1
     assert torch.isfinite(banded).all()
+    from unsloth_tpu_torch.ops.attention import attention_ref
+    q3, k3 = q[:, :384].detach(), k[:, :384].detach()
+    sinks3 = torch.randn(8, device=dev)
+    n_splash = tsa.splash_attention_fwd.launches
+    got = attention(q3, k3, k3, sinks=sinks3, window=128)
+    assert tsa.splash_attention_fwd.launches == n_splash + 1
+    want = attention_ref(q3, k3, k3, window=128, sinks=sinks3)
+    assert attn_row_err(got, want) <= ATTN_ROW_TOL
     q128 = torch.zeros((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="K17"):
         attention(q128, q128, q128, sinks=torch.zeros(2, device=dev))

@@ -1,7 +1,7 @@
 """The PyTorch port imports no JAX: importing the package and every one of
 its submodules (the serving and the training slices alike, the MoE ops
-and the MXFP4 loader among them) in a fresh interpreter leaves "jax" out
-of sys.modules."""
+and the MXFP4 and bnb-4bit loaders among them) in a fresh interpreter
+leaves "jax" out of sys.modules."""
 
 import os
 import subprocess
@@ -24,7 +24,7 @@ TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
             "ops.flash_attention", "ops.fused_ce_linear",
             "ops.packed_attention", "ops.splash_attention", "trainer.sft",
             "utils.logging", "export.save", "ops.moe", "ops.nf4_gmm",
-            "ops.flash_sinks", "ops.gmm", "models.mxfp4")
+            "ops.flash_sinks", "ops.gmm", "models.mxfp4", "models.bnb")
 
 
 def test_port_imports_no_jax():
@@ -35,7 +35,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 36, r.stdout
+    assert n_modules >= 37, r.stdout
     imported = set(r.stdout.split())
     for name in TRAINING:
         assert f"unsloth_tpu_torch.{name}" in imported, name

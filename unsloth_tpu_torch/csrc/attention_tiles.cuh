@@ -4,8 +4,9 @@
 // causal range, unpacked or padded rows; the bundled Pallas flash kernels
 // that unsloth_tpu/ops/attention.py:_tpu_flash calls).
 //
-// Each source instantiates the three kernels below with a *range policy*,
-// which alone decides which (query tile, kv tile) pairs a block visits:
+// Each source instantiates the three kernels below with a head dim D and a
+// *range policy*, which alone decides which (query tile, kv tile) pairs a
+// block visits:
 //   kv_begin(b, iq) .. kv_end(b, iq)  kv tiles of query tile iq;
 //   q_end(b, j)                       last query tile of kv tile j
 //                                     (the first is j: causality);
@@ -27,21 +28,30 @@
 //
 // Layouts (the model's, no transposes): q, out, dout, dq [B, T, Hq, D];
 // k, v, dk, dv [B, T, Hkv, D]; segment ids [B, T] int32; lse, di
-// [B, Hq, T] fp32. D is 128. T need not be a multiple of 64: rows past T
-// load as zeros with segment ids that match nothing (a query past T gets
-// one sentinel, a key past T another), and are never stored.
+// [B, Hq, T] fp32. D is 64, 128 or 256 (Tiles<D>). T need not be a
+// multiple of 64: rows past T load as zeros with segment ids that match
+// nothing (a query past T gets one sentinel, a key past T another), and are
+// never stored.
 //
-// Design, kept simple: one block of four warps per (64-query tile, head)
-// for the forward and dq, per (64-key tile, kv head) for dk/dv; tiles are
-// staged in shared memory and multiplied with nvcuda::wmma 16x16x16 bf16
-// MMAs in fp32. Each warp owns 16 query rows for QK^T and the softmax, so
-// the row statistics need only warp shuffles. The forward keeps its
-// running output in shared memory (fp32) so a row can be rescaled; dq, dk
-// and dv accumulate in registers. The TPU's sequential grid axis becomes a
-// loop inside the block; dq and dk/dv are separate kernels and dk/dv loops
-// over the query heads of its kv head itself, so there are no atomics and
-// the result is the same on every run. wgmma, TMA and pipelining are later
-// work.
+// Design, kept simple: one block per (64-query tile, head) for the forward
+// and dq, per (64-key tile, kv head) for dk/dv; tiles are staged in shared
+// memory and multiplied with nvcuda::wmma 16x16x16 bf16 MMAs in fp32. The
+// block has four row groups of 16 rows times D / kSlice column groups of
+// warps (kSlice = min(D, 128)): every warp accumulates a 16 x kSlice slice
+// of a D-wide output, so the dk/dv kernel's accumulators stay at the
+// D = 128 count at D = 256 (8 warps) and halve at D = 64 (4 warps). The
+// score tiles are split the same way; the softmax and the masks run one
+// warp per row, 2 columns a lane, so the row statistics need only warp
+// shuffles. With one column group a warp reads only the score rows it
+// wrote, and a warp barrier suffices between the products and the softmax
+// (sync_rows). The forward keeps its running output in shared memory
+// (fp32) so a row can be rescaled; dq, dk and dv accumulate in registers.
+// The TPU's sequential grid axis becomes a loop inside the block; dq and
+// dk/dv are separate kernels and dk/dv loops over the query heads of its
+// kv head itself, so there are no atomics and the result is the same on
+// every run. At D = 256 a block takes 176-191 KB of shared memory (opted
+// in per instantiation), so one block runs per SM. wgmma, TMA and
+// pipelining are later work.
 
 #pragma once
 
@@ -55,28 +65,37 @@ namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int kD = 128;          // head dim
 constexpr int kBlk = 64;         // tokens per tile
-constexpr int kThreads = 128;    // four warps, 16 query rows each
-constexpr int kLd = kD + 8;      // bf16 [64][kD] tile row stride
 constexpr int kLds = kBlk + 4;   // fp32 [64][64] score tile row stride
 constexpr int kLdp = kBlk + 8;   // bf16 [64][64] probability tile row stride
-constexpr int kLdo = kD + 4;     // fp32 [64][kD] output tile row stride
 constexpr float kNegInf = -1e30f;
 constexpr float kEmptyLse = 1e30f;
 constexpr int kQueryPastEnd = INT_MIN;    // segment id of a query row >= T
 constexpr int kKeyPastEnd = INT_MIN + 1;  // segment id of a key row >= T
 
-constexpr int kTileBf16 = kBlk * kLd * 2;   // bytes
-constexpr int kTileS = kBlk * kLds * 4;
-constexpr int kTileP = kBlk * kLdp * 2;
-constexpr int kTileO = kBlk * kLdo * 4;
-constexpr int kRowVecs = 4 * kBlk * 4;      // four [64] fp32/int32 arrays
-
-constexpr int kFwdSmem = 3 * kTileBf16 + kTileS + kTileP + kTileO + kRowVecs;
-constexpr int kDqSmem = 4 * kTileBf16 + 2 * kTileS + kTileP + kRowVecs;
-constexpr int kDkvSmem = 4 * kTileBf16 + 2 * kTileS + 2 * kTileP + kRowVecs;
+template <int D>
+struct Tiles {
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static constexpr int kSlice = D < 128 ? D : 128;      // output columns a warp accumulates
+  static constexpr int kColGroups = D / kSlice;
+  static constexpr int kWarps = 4 * kColGroups;         // 4 row groups x column groups
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kScoreCols = kBlk / kColGroups;  // score columns a warp computes
+  static constexpr int kRows = kBlk / kWarps;           // softmax rows a warp handles
+  static constexpr int kLd = D + 8;                     // bf16 [64][D] tile row stride
+  static constexpr int kLdo = D + 4;                    // fp32 [64][D] tile row stride
+  static constexpr int kTileBf16 = kBlk * kLd * 2;      // bytes
+  static constexpr int kTileS = kBlk * kLds * 4;
+  static constexpr int kTileP = kBlk * kLdp * 2;
+  static constexpr int kTileO = kBlk * kLdo * 4;
+  static constexpr int kRowVecs = 4 * kBlk * 4;         // four [64] fp32/int32 arrays
+  static constexpr int kFwdSmem = 3 * kTileBf16 + kTileS + kTileP + kTileO + kRowVecs;
+  static constexpr int kDqSmem = 4 * kTileBf16 + 2 * kTileS + kTileP + kRowVecs;
+  static constexpr int kDkvSmem = 4 * kTileBf16 + 2 * kTileS + 2 * kTileP + kRowVecs;
+  static_assert(kDqSmem >= kTileO && kDkvSmem >= kTileO, "the store stage fits");
+};
 
 // Per-call scalars of the three kernels.
 struct AttnArgs {
@@ -97,18 +116,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 64 rows (tokens t0..t0+63 of head h) of a [B, T, H, kD] tensor into a
+// The barrier between a score product and the per-row softmax that reads
+// it (and between that and the products that read P or dS): with one
+// column group warp w writes and reads rows 16w..16w+15 only.
+template <int D>
+__device__ __forceinline__ void sync_rows() {
+  if constexpr (Tiles<D>::kColGroups == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// 64 rows (tokens t0..t0+63 of head h) of a [B, T, H, D] tensor into a
 // shared [64][kLd] tile, zeros past T; with `do_scale` each value is
 // multiplied in fp32 and rounded back to bf16.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int T,
                                           int H, int h, int t0, bool do_scale, float scale) {
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kBlk * kChunks; c += Tiles<D>::kThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (t0 + r < T) {
-      v = *reinterpret_cast<const uint4*>(src + (((size_t)b * T + t0 + r) * H + h) * kD + col);
+      v = *reinterpret_cast<const uint4*>(src + (((size_t)b * T + t0 + r) * H + h) * D + col);
       if (do_scale) {
         __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
@@ -118,86 +150,91 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
         }
       }
     }
-    *reinterpret_cast<uint4*>(dst + r * kLd + col) = v;
+    *reinterpret_cast<uint4*>(dst + r * Tiles<D>::kLd + col) = v;
   }
 }
 
 // Segment ids of tokens t0..t0+63 of row b into dst, `past_end` past T.
+template <int D>
 __device__ __forceinline__ void load_seg(int* dst, const int* __restrict__ seg, int b, int T,
                                          int t0, int past_end) {
-  for (int i = threadIdx.x; i < kBlk; i += kThreads)
+  for (int i = threadIdx.x; i < kBlk; i += Tiles<D>::kThreads)
     dst[i] = t0 + i < T ? seg[(size_t)b * T + t0 + i] : past_end;
 }
 
-// S[r][c] = sum_d A[r][d] * B[c][d] for the warp's 16 rows r, all 64 c.
-__device__ __forceinline__ void rows_times_tile_t(float* S, const bf16* A, const bf16* B,
+// S[r][c] = sum_d A[r][d] * B[c][d] over a 64 x 64 tile: warp (wr, wc)
+// computes rows 16 wr .. 16 wr + 15, columns wc * kScoreCols onward.
+template <int D>
+__device__ __forceinline__ void tile_times_tile_t(float* S, const bf16* A, const bf16* B,
                                                   int warp) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBlk / 16];
+  using C = Tiles<D>;
+  constexpr int kFr = C::kScoreCols / 16;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kScoreCols;
+  Frag acc[kFr];
 #pragma unroll
-  for (int nf = 0; nf < kBlk / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
+  for (int nf = 0; nf < kFr; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
 #pragma unroll
-  for (int kk = 0; kk < kD; kk += 16) {
+  for (int kk = 0; kk < D; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + warp * 16 * kLd + kk, kLd);
+    wmma::load_matrix_sync(a, A + wr * 16 * C::kLd + kk, C::kLd);
 #pragma unroll
-    for (int nf = 0; nf < kBlk / 16; ++nf) {
+    for (int nf = 0; nf < kFr; ++nf) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(bt, B + nf * 16 * kLd + kk, kLd);
+      wmma::load_matrix_sync(bt, B + (c0 + nf * 16) * C::kLd + kk, C::kLd);
       wmma::mma_sync(acc[nf], a, bt, acc[nf]);
     }
   }
 #pragma unroll
-  for (int nf = 0; nf < kBlk / 16; ++nf)
-    wmma::store_matrix_sync(S + warp * 16 * kLds + nf * 16, acc[nf], kLds, wmma::mem_row_major);
+  for (int nf = 0; nf < kFr; ++nf)
+    wmma::store_matrix_sync(S + wr * 16 * kLds + c0 + nf * 16, acc[nf], kLds,
+                            wmma::mem_row_major);
 }
 
-// Writes a fp32 [64][kLdo] staging tile as bf16 rows (times `scale`) of a
-// [B, T, H, kD] tensor, rows before T only.
-__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const float* stage, int b,
-                                           int T, int H, int h, int t0, float scale) {
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
+// The warps' 16 x kSlice accumulator slices through a shared fp32
+// [64][kLdo] stage into bf16 rows (times `scale`) of tile t0 of head h of
+// a [B, T, H, D] tensor, rows before T only.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* __restrict__ dst, float* stage,
+                                          Frag (&acc)[Tiles<D>::kSlice / 16], int warp, int b,
+                                          int T, int H, int h, int t0, float scale) {
+  using C = Tiles<D>;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
+#pragma unroll
+  for (int nf = 0; nf < C::kSlice / 16; ++nf)
+    wmma::store_matrix_sync(stage + wr * 16 * C::kLdo + c0 + nf * 16, acc[nf], C::kLdo,
+                            wmma::mem_row_major);
+  __syncthreads();
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kBlk * kChunks; c += C::kThreads) {
     const int r = c / kChunks;
     if (t0 + r >= T) continue;
     const int col = (c % kChunks) * 8;
-    const float* s = stage + r * kLdo + col;
+    const float* s = stage + r * C::kLdo + col;
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
     for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(s[2 * e] * scale, s[2 * e + 1] * scale);
-    *reinterpret_cast<uint4*>(dst + (((size_t)b * T + t0 + r) * H + h) * kD + col) = o;
+    *reinterpret_cast<uint4*>(dst + (((size_t)b * T + t0 + r) * H + h) * D + col) = o;
   }
-}
-
-// Stages the warps' 16-row accumulators through shared memory and stores
-// them as tile t0 of head h.
-__device__ __forceinline__ void store_acc(
-    bf16* __restrict__ dst, float* stage,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[kD / 16], int warp, int b, int T,
-    int H, int h, int t0, float scale) {
-#pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf)
-    wmma::store_matrix_sync(stage + warp * 16 * kLdo + nf * 16, acc[nf], kLdo, wmma::mem_row_major);
-  __syncthreads();
-  store_tile(dst, stage, b, T, H, h, t0, scale);
 }
 
 // ---------------------------------------------------------------------------
 // forward: grid (ceil(T/64), Hq, B)
 // ---------------------------------------------------------------------------
-template <class Range>
-__global__ void __launch_bounds__(kThreads)
+template <int D, class Range>
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ seg, Range range,
                 bf16* __restrict__ out, float* __restrict__ lse, AttnArgs a) {
+  using C = Tiles<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBlk * kLd;
-  bf16* Vs = Ks + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBlk * kLd);
+  bf16* Ks = Qs + kBlk * C::kLd;
+  bf16* Vs = Ks + kBlk * C::kLd;
+  float* Ss = reinterpret_cast<float*>(Vs + kBlk * C::kLd);
   bf16* Ps = reinterpret_cast<bf16*>(Ss + kBlk * kLds);
   float* Os = reinterpret_cast<float*>(Ps + kBlk * kLdp);
-  float* m_s = Os + kBlk * kLdo;
+  float* m_s = Os + kBlk * C::kLdo;
   float* l_s = m_s + kBlk;
   int* qseg = reinterpret_cast<int*>(l_s + kBlk);
   int* kseg = qseg + kBlk;
@@ -206,28 +243,29 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int hk = h / (a.Hq / a.Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
 
-  load_tile(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
-  load_seg(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
-  for (int i = threadIdx.x; i < kBlk; i += kThreads) {
+  load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
+  load_seg<D>(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
+  for (int i = threadIdx.x; i < kBlk; i += C::kThreads) {
     m_s[i] = kNegInf;
     l_s[i] = 0.0f;
   }
-  for (int i = threadIdx.x; i < kBlk * kLdo; i += kThreads) Os[i] = 0.0f;
+  for (int i = threadIdx.x; i < kBlk * C::kLdo; i += C::kThreads) Os[i] = 0.0f;
 
   const int hi = range.kv_end(b, iq);
   for (int j = range.kv_begin(b, iq); j <= hi; ++j) {
     if (range.skip(b, iq, j)) continue;  // uniform over the block
     __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_tile(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_seg(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
+    load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+    load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+    load_seg<D>(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
     __syncthreads();
 
-    rows_times_tile_t(Ss, Qs, Ks, warp);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
+    tile_times_tile_t<D>(Ss, Qs, Ks, warp);
+    sync_rows<D>();
+    for (int rr = 0; rr < C::kRows; ++rr) {
+      const int r = warp * C::kRows + rr;
       const int qpos = iq * kBlk + r;
       const int qs = qseg[r];
       const float s0 = Ss[r * kLds + lane] * a.s_scale;
@@ -243,52 +281,54 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float sum = warp_sum(p0 + p1);
       Ps[r * kLdp + lane] = __float2bfloat16(p0);
       Ps[r * kLdp + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < kD; d += 32) Os[r * kLdo + d] *= alpha;
+      for (int d = lane; d < D; d += 32) Os[r * C::kLdo + d] *= alpha;
       __syncwarp();
       if (lane == 0) {
         m_s[r] = m_new;
         l_s[r] = alpha * l_s[r] + sum;
       }
     }
-    __syncwarp();
+    sync_rows<D>();  // P and the rescaled rows are in place
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
+    Frag o[C::kSlice / 16];
 #pragma unroll
-    for (int nf = 0; nf < kD / 16; ++nf)
-      wmma::load_matrix_sync(o[nf], Os + warp * 16 * kLdo + nf * 16, kLdo, wmma::mem_row_major);
+    for (int nf = 0; nf < C::kSlice / 16; ++nf)
+      wmma::load_matrix_sync(o[nf], Os + wr * 16 * C::kLdo + c0 + nf * 16, C::kLdo,
+                             wmma::mem_row_major);
 #pragma unroll
     for (int kk = 0; kk < kBlk; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Ps + warp * 16 * kLdp + kk, kLdp);
+      wmma::load_matrix_sync(pa, Ps + wr * 16 * kLdp + kk, kLdp);
 #pragma unroll
-      for (int nf = 0; nf < kD / 16; ++nf) {
+      for (int nf = 0; nf < C::kSlice / 16; ++nf) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * kLd + nf * 16, kLd);
+        wmma::load_matrix_sync(bv, Vs + kk * C::kLd + c0 + nf * 16, C::kLd);
         wmma::mma_sync(o[nf], pa, bv, o[nf]);
       }
     }
 #pragma unroll
-    for (int nf = 0; nf < kD / 16; ++nf)
-      wmma::store_matrix_sync(Os + warp * 16 * kLdo + nf * 16, o[nf], kLdo, wmma::mem_row_major);
+    for (int nf = 0; nf < C::kSlice / 16; ++nf)
+      wmma::store_matrix_sync(Os + wr * 16 * C::kLdo + c0 + nf * 16, o[nf], C::kLdo,
+                              wmma::mem_row_major);
   }
   __syncthreads();
 
-  constexpr int kChunks = kD / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += kThreads) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kBlk * kChunks; c += C::kThreads) {
     const int r = c / kChunks;
     if (iq * kBlk + r >= T) continue;
     const int col = (c % kChunks) * 8;
     const float l = l_s[r];
-    const float* s = Os + r * kLdo + col;
+    const float* s = Os + r * C::kLdo + col;
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       o2[e] = __floats2bfloat162_rn(l > 0.0f ? s[2 * e] / l : 0.0f,
                                     l > 0.0f ? s[2 * e + 1] / l : 0.0f);
-    *reinterpret_cast<uint4*>(out + (((size_t)b * T + iq * kBlk + r) * a.Hq + h) * kD + col) = o;
+    *reinterpret_cast<uint4*>(out + (((size_t)b * T + iq * kBlk + r) * a.Hq + h) * D + col) = o;
   }
-  for (int r = threadIdx.x; r < kBlk; r += kThreads) {
+  for (int r = threadIdx.x; r < kBlk; r += C::kThreads) {
     if (iq * kBlk + r >= T) continue;
     const float l = l_s[r];
     lse[((size_t)b * a.Hq + h) * T + iq * kBlk + r] = l > 0.0f ? m_s[r] + logf(l) : kEmptyLse;
@@ -298,19 +338,20 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // dq (and di = sum(dout * out)): grid (ceil(T/64), Hq, B)
 // ---------------------------------------------------------------------------
-template <class Range>
-__global__ void __launch_bounds__(kThreads)
+template <int D, class Range>
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ seg, Range range,
                const bf16* __restrict__ out, const bf16* __restrict__ dout,
                const float* __restrict__ lse, float* __restrict__ di, bf16* __restrict__ dq,
                AttnArgs a) {
+  using C = Tiles<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBlk * kLd;
-  bf16* Ks = dOs + kBlk * kLd;
-  bf16* Vs = Ks + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBlk * kLd);
+  bf16* dOs = Qs + kBlk * C::kLd;
+  bf16* Ks = dOs + kBlk * C::kLd;
+  bf16* Vs = Ks + kBlk * C::kLd;
+  float* Ss = reinterpret_cast<float*>(Vs + kBlk * C::kLd);
   float* dPs = Ss + kBlk * kLds;
   bf16* dSs = reinterpret_cast<bf16*>(dPs + kBlk * kLds);
   float* lse_s = reinterpret_cast<float*>(dSs + kBlk * kLdp);
@@ -322,20 +363,21 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int hk = h / (a.Hq / a.Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
   const size_t row0 = ((size_t)b * a.Hq + h) * T + iq * kBlk;  // into lse / di
 
-  load_tile(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
-  load_tile(dOs, dout, b, T, a.Hq, h, iq * kBlk, false, 1.0f);
-  load_seg(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
-  for (int i = threadIdx.x; i < kBlk; i += kThreads)
+  load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
+  load_tile<D>(dOs, dout, b, T, a.Hq, h, iq * kBlk, false, 1.0f);
+  load_seg<D>(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
+  for (int i = threadIdx.x; i < kBlk; i += C::kThreads)
     lse_s[i] = iq * kBlk + i < T ? lse[row0 + i] : 0.0f;
   // di = sum_d dout * out in fp32, one warp per row
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
+  for (int rr = 0; rr < C::kRows; ++rr) {
+    const int r = warp * C::kRows + rr;
     float acc = 0.0f;
     if (iq * kBlk + r < T) {
-      const size_t off = (((size_t)b * T + iq * kBlk + r) * a.Hq + h) * kD;
-      for (int d = lane; d < kD; d += 32)
+      const size_t off = (((size_t)b * T + iq * kBlk + r) * a.Hq + h) * D;
+      for (int d = lane; d < D; d += 32)
         acc += __bfloat162float(dout[off + d]) * __bfloat162float(out[off + d]);
     }
     acc = warp_sum(acc);
@@ -345,24 +387,24 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kD / 16];
+  Frag acc[C::kSlice / 16];
 #pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
+  for (int nf = 0; nf < C::kSlice / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
 
   const int hi = range.kv_end(b, iq);
   for (int j = range.kv_begin(b, iq); j <= hi; ++j) {
     if (range.skip(b, iq, j)) continue;  // uniform over the block
     __syncthreads();
-    load_tile(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_tile(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_seg(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
+    load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+    load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+    load_seg<D>(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
     __syncthreads();
 
-    rows_times_tile_t(Ss, Qs, Ks, warp);
-    rows_times_tile_t(dPs, dOs, Vs, warp);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
+    tile_times_tile_t<D>(Ss, Qs, Ks, warp);
+    tile_times_tile_t<D>(dPs, dOs, Vs, warp);
+    sync_rows<D>();
+    for (int rr = 0; rr < C::kRows; ++rr) {
+      const int r = warp * C::kRows + rr;
       const int qpos = iq * kBlk + r;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -372,40 +414,42 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dSs[r * kLdp + c] = __float2bfloat16(p * (dPs[r * kLds + c] - di_s[r]) * a.ds_scale);
       }
     }
-    __syncwarp();
+    sync_rows<D>();
 #pragma unroll
     for (int kk = 0; kk < kBlk; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sa;
-      wmma::load_matrix_sync(sa, dSs + warp * 16 * kLdp + kk, kLdp);
+      wmma::load_matrix_sync(sa, dSs + wr * 16 * kLdp + kk, kLdp);
 #pragma unroll
-      for (int nf = 0; nf < kD / 16; ++nf) {
+      for (int nf = 0; nf < C::kSlice / 16; ++nf) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-        wmma::load_matrix_sync(bk, Ks + kk * kLd + nf * 16, kLd);
+        wmma::load_matrix_sync(bk, Ks + kk * C::kLd + c0 + nf * 16, C::kLd);
         wmma::mma_sync(acc[nf], sa, bk, acc[nf]);
       }
     }
   }
   __syncthreads();
-  store_acc(dq, reinterpret_cast<float*>(smem), acc, warp, b, T, a.Hq, h, iq * kBlk, a.dq_scale);
+  store_acc<D>(dq, reinterpret_cast<float*>(smem), acc, warp, b, T, a.Hq, h, iq * kBlk,
+               a.dq_scale);
 }
 
 // ---------------------------------------------------------------------------
 // dk, dv: grid (ceil(T/64), Hkv, B); loops over the Hq/Hkv query heads of
 // the kv head and the query tiles j .. q_end(j).
 // ---------------------------------------------------------------------------
-template <class Range>
-__global__ void __launch_bounds__(kThreads)
+template <int D, class Range>
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ seg, Range range,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
                 AttnArgs a) {
+  using C = Tiles<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBlk * kLd;
-  bf16* Qs = Vs + kBlk * kLd;
-  bf16* dOs = Qs + kBlk * kLd;
-  float* Ss = reinterpret_cast<float*>(dOs + kBlk * kLd);
+  bf16* Vs = Ks + kBlk * C::kLd;
+  bf16* Qs = Vs + kBlk * C::kLd;
+  bf16* dOs = Qs + kBlk * C::kLd;
+  float* Ss = reinterpret_cast<float*>(dOs + kBlk * C::kLd);
   float* dPs = Ss + kBlk * kLds;
   bf16* Ps = reinterpret_cast<bf16*>(dPs + kBlk * kLds);
   bf16* dSs = Ps + kBlk * kLdp;
@@ -418,14 +462,15 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int group = a.Hq / a.Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
 
-  load_tile(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-  load_tile(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-  load_seg(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
+  load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+  load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
+  load_seg<D>(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[kD / 16], dv_acc[kD / 16];
+  Frag dk_acc[C::kSlice / 16], dv_acc[C::kSlice / 16];
 #pragma unroll
-  for (int nf = 0; nf < kD / 16; ++nf) {
+  for (int nf = 0; nf < C::kSlice / 16; ++nf) {
     wmma::fill_fragment(dk_acc[nf], 0.0f);
     wmma::fill_fragment(dv_acc[nf], 0.0f);
   }
@@ -436,22 +481,22 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int iq = j; iq <= last; ++iq) {
       if (range.skip(b, iq, j)) continue;  // uniform over the block
       __syncthreads();  // the previous tile's readers are done
-      load_tile(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
-      load_tile(dOs, dout, b, T, a.Hq, h, iq * kBlk, false, 1.0f);
-      load_seg(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
+      load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
+      load_tile<D>(dOs, dout, b, T, a.Hq, h, iq * kBlk, false, 1.0f);
+      load_seg<D>(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
       const size_t row0 = ((size_t)b * a.Hq + h) * T + iq * kBlk;
-      for (int i = threadIdx.x; i < kBlk; i += kThreads) {
+      for (int i = threadIdx.x; i < kBlk; i += C::kThreads) {
         const bool in = iq * kBlk + i < T;
         lse_s[i] = in ? lse[row0 + i] : 0.0f;
         di_s[i] = in ? di[row0 + i] : 0.0f;
       }
       __syncthreads();
 
-      rows_times_tile_t(Ss, Qs, Ks, warp);    // S[q][c]
-      rows_times_tile_t(dPs, dOs, Vs, warp);  // dP[q][c]
-      __syncwarp();
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
+      tile_times_tile_t<D>(Ss, Qs, Ks, warp);    // S[q][c]
+      tile_times_tile_t<D>(dPs, dOs, Vs, warp);  // dP[q][c]
+      sync_rows<D>();
+      for (int rr = 0; rr < C::kRows; ++rr) {
+        const int r = warp * C::kRows + rr;
         const int qpos = iq * kBlk + r;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -464,18 +509,19 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       __syncthreads();  // every query row of P and dS is written
 
-      // warp w owns key rows 16w..16w+15: dV += P^T dO, dK += dS^T Q
+      // warp (wr, wc) owns key rows 16 wr.. and columns c0..: dV += P^T dO,
+      // dK += dS^T Q
 #pragma unroll
       for (int kk = 0; kk < kBlk; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, sa;
-        wmma::load_matrix_sync(pa, Ps + kk * kLdp + warp * 16, kLdp);
-        wmma::load_matrix_sync(sa, dSs + kk * kLdp + warp * 16, kLdp);
+        wmma::load_matrix_sync(pa, Ps + kk * kLdp + wr * 16, kLdp);
+        wmma::load_matrix_sync(sa, dSs + kk * kLdp + wr * 16, kLdp);
 #pragma unroll
-        for (int nf = 0; nf < kD / 16; ++nf) {
+        for (int nf = 0; nf < C::kSlice / 16; ++nf) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bo, bq;
-          wmma::load_matrix_sync(bo, dOs + kk * kLd + nf * 16, kLd);
+          wmma::load_matrix_sync(bo, dOs + kk * C::kLd + c0 + nf * 16, C::kLd);
           wmma::mma_sync(dv_acc[nf], pa, bo, dv_acc[nf]);
-          wmma::load_matrix_sync(bq, Qs + kk * kLd + nf * 16, kLd);
+          wmma::load_matrix_sync(bq, Qs + kk * C::kLd + c0 + nf * 16, C::kLd);
           wmma::mma_sync(dk_acc[nf], sa, bq, dk_acc[nf]);
         }
       }
@@ -483,9 +529,9 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
   float* stage = reinterpret_cast<float*>(smem);
-  store_acc(dk, stage, dk_acc, warp, b, T, a.Hkv, hk, j * kBlk, 1.0f);
+  store_acc<D>(dk, stage, dk_acc, warp, b, T, a.Hkv, hk, j * kBlk, 1.0f);
   __syncthreads();
-  store_acc(dv, stage, dv_acc, warp, b, T, a.Hkv, hk, j * kBlk, 1.0f);
+  store_acc<D>(dv, stage, dv_acc, warp, b, T, a.Hkv, hk, j * kBlk, 1.0f);
 }
 
 inline int set_smem(const void* fn, int bytes) {

@@ -1,10 +1,13 @@
 // Segment-block-sparse causal flash attention for packed rows, GQA, bf16.
 //
 // Replaces the TPU kernels of unsloth_tpu/ops/packed_attention.py:
-//   attn_fwd_kernel<PackedRange>  <- _fwd_kernel  (forward: out and an fp32 lse)
-//   attn_dq_kernel<PackedRange>   <- _dq_kernel   (dq; also di = sum(dout * out))
-//   attn_dkv_kernel<PackedRange>  <- _dkv_kernel  (dk, dv summed over the
-//                                                  query heads that share a kv head)
+//   attn_fwd_kernel<128, PackedRange>  <- _fwd_kernel  (forward: out and an
+//                                                       fp32 lse)
+//   attn_dq_kernel<128, PackedRange>   <- _dq_kernel   (dq; also
+//                                                       di = sum(dout * out))
+//   attn_dkv_kernel<128, PackedRange>  <- _dkv_kernel  (dk, dv summed over
+//                                                       the query heads that
+//                                                       share a kv head)
 // The kernel bodies live in attention_tiles.cuh, shared with the unpacked
 // flash kernels of flash_attention.cu; this file supplies the packed range.
 // Same semantics as the TPU kernels: token i of a row attends to token j
@@ -15,7 +18,8 @@
 // in blocks. That skip assumes contiguous segments; outputs at pad
 // positions are then unspecified. q is pre-scaled in bf16 inside the
 // kernels (q * bf16(scale), the rounding point of the JAX wrapper) and dq
-// gets the factor `scale` back. T is a multiple of 64.
+// gets the factor `scale` back. T is a multiple of 64; D is 128, as in the
+// JAX package, which takes this kernel at dh % 128 == 0 only.
 //
 // What bounds it on an H100: tensor-core work over the visited tiles,
 // O(sum of segment lengths squared) rather than O(T^2); see the header
@@ -37,6 +41,9 @@ struct PackedRange {
   __device__ bool skip(int, int, int) const { return false; }
 };
 
+constexpr int kD = 128;
+using C = Tiles<kD>;
+
 AttnArgs packed_args(int T, int Hq, int Hkv, float scale_q, float scale) {
   return AttnArgs{T, Hq, Hkv, true, scale_q, 1.0f, 1.0f, scale};
 }
@@ -51,10 +58,10 @@ extern "C" int unsloth_packed_attn_fwd(const void* q, const void* k, const void*
                                        const void* seg, const void* kv_lo, void* out, void* lse,
                                        int B, int T, int Hq, int Hkv, int n_kv, float scale_q,
                                        void* stream) {
-  int e = set_smem(reinterpret_cast<const void*>(attn_fwd_kernel<PackedRange>), kFwdSmem);
+  int e = set_smem(reinterpret_cast<const void*>(attn_fwd_kernel<kD, PackedRange>), C::kFwdSmem);
   if (e) return e;
   const PackedRange range{static_cast<const int*>(kv_lo), nullptr, T / kBlk, n_kv};
-  attn_fwd_kernel<PackedRange><<<dim3(T / kBlk, Hq, B), kThreads, kFwdSmem,
+  attn_fwd_kernel<kD, PackedRange><<<dim3(T / kBlk, Hq, B), C::kThreads, C::kFwdSmem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), range, static_cast<bf16*>(out), static_cast<float*>(lse),
@@ -72,9 +79,9 @@ extern "C" int unsloth_packed_attn_bwd(const void* q, const void* k, const void*
                                        int Hq, int Hkv, int n_kv, float scale_q, float scale,
                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = set_smem(reinterpret_cast<const void*>(attn_dq_kernel<PackedRange>), kDqSmem);
+  int e = set_smem(reinterpret_cast<const void*>(attn_dq_kernel<kD, PackedRange>), C::kDqSmem);
   if (e) return e;
-  e = set_smem(reinterpret_cast<const void*>(attn_dkv_kernel<PackedRange>), kDkvSmem);
+  e = set_smem(reinterpret_cast<const void*>(attn_dkv_kernel<kD, PackedRange>), C::kDkvSmem);
   if (e) return e;
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
@@ -83,12 +90,12 @@ extern "C" int unsloth_packed_attn_bwd(const void* q, const void* k, const void*
   const PackedRange range{static_cast<const int*>(kv_lo), static_cast<const int*>(q_hi),
                           T / kBlk, n_kv};
   const AttnArgs a = packed_args(T, Hq, Hkv, scale_q, scale);
-  attn_dq_kernel<PackedRange><<<dim3(T / kBlk, Hq, B), kThreads, kDqSmem, s>>>(
+  attn_dq_kernel<kD, PackedRange><<<dim3(T / kBlk, Hq, B), C::kThreads, C::kDqSmem, s>>>(
       qp, kp, vp, sp, range, static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(di), static_cast<bf16*>(dq), a);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  attn_dkv_kernel<PackedRange><<<dim3(T / kBlk, Hkv, B), kThreads, kDkvSmem, s>>>(
+  attn_dkv_kernel<kD, PackedRange><<<dim3(T / kBlk, Hkv, B), C::kThreads, C::kDkvSmem, s>>>(
       qp, kp, vp, sp, range, static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
 // Splash attention: causal self-attention with a sliding window, a logit
-// softcap, segment ids and GQA, bf16, head dim 128 or 256 (K18).
+// softcap, segment ids and GQA, bf16, head dim 64, 128 or 256 (K18).
 //
 // Replaces the bundled Pallas TPU splash kernels that
 // unsloth_tpu/ops/attention.py:_tpu_splash builds in _splash_kernel
@@ -37,15 +37,18 @@
 // packed and flash kernels share and this file leaves as it is): 64-token
 // tiles staged in shared memory, nvcuda::wmma 16x16x16 bf16 MMAs in fp32,
 // one block per (64-query tile, head) for the forward and dq and per
-// (64-key tile, kv head) for dk/dv. The block has D / 32 warps: four row
-// groups of 16 rows times D / 128 column groups, so every warp accumulates
-// a 16 x 128 slice of a D-wide output (8 fragments; dk and dv 16), which
-// keeps the dk/dv kernel's accumulators at the Dh-128 kernel's count at
-// D = 256. The score tiles are split the same way; the softmax and the
-// masks run one warp per row with 2 columns a lane. The forward keeps its
-// running output in shared memory (fp32) so a row can be rescaled. At
-// D = 256 a block uses 176-191 KB of shared memory (dynamic, opted in),
-// so one block runs per SM. wgmma, TMA and pipelining are later work.
+// (64-key tile, kv head) for dk/dv. The block has four row groups of 16
+// rows times D / kSlice column groups of warps, kSlice = min(D, 128), so
+// every warp accumulates a 16 x kSlice slice of a D-wide output: at
+// D = 128 and 256, 16 x 128 (8 fragments; dk and dv 16), which keeps the
+// dk/dv kernel's accumulators at the Dh-128 kernel's count at D = 256; at
+// D = 64 (gpt-oss's sliding layers), four warps that each own all 64
+// columns of their 16 rows (4 fragments; dk and dv 8). The score tiles
+// are split the same way; the softmax and the masks run one warp per row
+// with 2 columns a lane. The forward keeps its running output in shared
+// memory (fp32) so a row can be rescaled. At D = 256 a block uses 176-191
+// KB of shared memory (dynamic, opted in), so one block runs per SM; at
+// D = 64, 71-89 KB. wgmma, TMA and pipelining are later work.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -62,7 +65,6 @@ using Frag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 constexpr int kBlk = 64;                  // tokens per tile
 constexpr int kLds = kBlk + 4;            // fp32 [64][64] score tile row stride
 constexpr int kLdp = kBlk + 8;            // bf16 [64][64] probability tile row stride
-constexpr int kSlice = 128;               // output columns a warp accumulates
 constexpr float kNegInf = -1e30f;
 constexpr float kEmptyLse = 1e30f;
 constexpr int kQueryPastEnd = INT_MIN;    // segment id of a query row >= T
@@ -70,9 +72,11 @@ constexpr int kKeyPastEnd = INT_MIN + 1;  // segment id of a key row >= T
 
 template <int D>
 struct Cfg {
-  static constexpr int kWarps = D / 32;            // 4 row groups x D/128 column groups
-  static constexpr int kThreads = 32 * kWarps;
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static constexpr int kSlice = D < 128 ? D : 128;      // output columns a warp accumulates
   static constexpr int kColGroups = D / kSlice;
+  static constexpr int kWarps = 4 * kColGroups;         // 4 row groups x column groups
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kScoreCols = kBlk / kColGroups;  // score columns a warp computes
   static constexpr int kRows = kBlk / kWarps;           // softmax rows a warp handles
   static constexpr int kLd = D + 8;                     // bf16 [64][D] tile row stride
@@ -198,17 +202,17 @@ __device__ __forceinline__ void tile_times_tile_t(float* S, const bf16* A, const
                             wmma::mem_row_major);
 }
 
-// The warps' 16 x 128 accumulator slices through a shared fp32 [64][kLdo]
+// The warps' 16 x kSlice accumulator slices through a shared fp32 [64][kLdo]
 // stage into bf16 rows (times `scale`) of tile t0 of head h of a
 // [B, T, H, D] tensor, rows before T only.
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, float* stage,
-                                          Frag (&acc)[kSlice / 16], int warp, int b, int T,
-                                          int H, int h, int t0, float scale) {
+                                          Frag (&acc)[Cfg<D>::kSlice / 16], int warp, int b,
+                                          int T, int H, int h, int t0, float scale) {
   using C = Cfg<D>;
-  const int wr = warp % 4, c0 = (warp / 4) * kSlice;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
 #pragma unroll
-  for (int nf = 0; nf < kSlice / 16; ++nf)
+  for (int nf = 0; nf < C::kSlice / 16; ++nf)
     wmma::store_matrix_sync(stage + wr * 16 * C::kLdo + c0 + nf * 16, acc[nf], C::kLdo,
                             wmma::mem_row_major);
   __syncthreads();
@@ -252,7 +256,7 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int hk = h / (a.Hq / a.Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, c0 = (warp / 4) * kSlice;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
 
   load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, true, a.scale);
   load_seg<D>(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
@@ -303,9 +307,9 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // P and the rescaled rows are in place
 
-    Frag o[kSlice / 16];
+    Frag o[C::kSlice / 16];
 #pragma unroll
-    for (int nf = 0; nf < kSlice / 16; ++nf)
+    for (int nf = 0; nf < C::kSlice / 16; ++nf)
       wmma::load_matrix_sync(o[nf], Os + wr * 16 * C::kLdo + c0 + nf * 16, C::kLdo,
                              wmma::mem_row_major);
 #pragma unroll
@@ -313,14 +317,14 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
       wmma::load_matrix_sync(pa, Ps + wr * 16 * kLdp + kk, kLdp);
 #pragma unroll
-      for (int nf = 0; nf < kSlice / 16; ++nf) {
+      for (int nf = 0; nf < C::kSlice / 16; ++nf) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
         wmma::load_matrix_sync(bv, Vs + kk * C::kLd + c0 + nf * 16, C::kLd);
         wmma::mma_sync(o[nf], pa, bv, o[nf]);
       }
     }
 #pragma unroll
-    for (int nf = 0; nf < kSlice / 16; ++nf)
+    for (int nf = 0; nf < C::kSlice / 16; ++nf)
       wmma::store_matrix_sync(Os + wr * 16 * C::kLdo + c0 + nf * 16, o[nf], C::kLdo,
                               wmma::mem_row_major);
   }
@@ -392,7 +396,7 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int hk = h / (a.Hq / a.Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, c0 = (warp / 4) * kSlice;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
   const size_t row0 = ((size_t)b * a.Hq + h) * T + iq * kBlk;  // into lse / di
 
   load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, true, a.scale);
@@ -416,9 +420,9 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  Frag acc[kSlice / 16];
+  Frag acc[C::kSlice / 16];
 #pragma unroll
-  for (int nf = 0; nf < kSlice / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
+  for (int nf = 0; nf < C::kSlice / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
 
   for (int j = kv_first(a, iq); j <= iq; ++j) {
     if (disjoint(a, b, iq, j)) continue;  // uniform over the block
@@ -449,7 +453,7 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sa;
       wmma::load_matrix_sync(sa, dSs + wr * 16 * kLdp + kk, kLdp);
 #pragma unroll
-      for (int nf = 0; nf < kSlice / 16; ++nf) {
+      for (int nf = 0; nf < C::kSlice / 16; ++nf) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
         wmma::load_matrix_sync(bk, Ks + kk * C::kLd + c0 + nf * 16, C::kLd);
         wmma::mma_sync(acc[nf], sa, bk, acc[nf]);
@@ -490,15 +494,15 @@ splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int T = a.T;
   const int group = a.Hq / a.Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, c0 = (warp / 4) * kSlice;
+  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
 
   load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
   load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
   load_seg<D>(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
 
-  Frag dk_acc[kSlice / 16], dv_acc[kSlice / 16];
+  Frag dk_acc[C::kSlice / 16], dv_acc[C::kSlice / 16];
 #pragma unroll
-  for (int nf = 0; nf < kSlice / 16; ++nf) {
+  for (int nf = 0; nf < C::kSlice / 16; ++nf) {
     wmma::fill_fragment(dk_acc[nf], 0.0f);
     wmma::fill_fragment(dv_acc[nf], 0.0f);
   }
@@ -546,7 +550,7 @@ splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wmma::load_matrix_sync(pa, Ps + kk * kLdp + wr * 16, kLdp);
         wmma::load_matrix_sync(sa, dSs + kk * kLdp + wr * 16, kLdp);
 #pragma unroll
-        for (int nf = 0; nf < kSlice / 16; ++nf) {
+        for (int nf = 0; nf < C::kSlice / 16; ++nf) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bo, bq;
           wmma::load_matrix_sync(bo, dOs + kk * C::kLd + c0 + nf * 16, C::kLd);
           wmma::mma_sync(dv_acc[nf], pa, bo, dv_acc[nf]);
@@ -618,7 +622,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg, con
 
 // Forward on `stream`: out [B, T, Hq, D] bf16 and lse [B, Hq, T] fp32 from
 // q [B, T, Hq, D], k, v [B, T, Hkv, D] bf16, segment ids [B, T] int32 and
-// their per-64-token-tile min / max [B, ceil(T/64)] int32. D is 128 or 256,
+// their per-64-token-tile min / max [B, ceil(T/64)] int32. D is 64, 128 or 256,
 // Hq % Hkv == 0, pointers 16-byte aligned (the wrapper checks); window <= 0
 // and softcap <= 0 mean none. Returns the CUDA error code (0 if none).
 extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void* v,
@@ -628,6 +632,7 @@ extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void*
                                        float softcap, void* stream) {
   const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_fwd<64>(q, k, v, seg, out, lse, B, a, s);
   if (D == 128) return launch_fwd<128>(q, k, v, seg, out, lse, B, a, s);
   if (D == 256) return launch_fwd<256>(q, k, v, seg, out, lse, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -642,6 +647,7 @@ extern "C" int unsloth_splash_attn_dq(const void* q, const void* k, const void* 
                                       float scale, int window, float softcap, void* stream) {
   const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_dq<64>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
   if (D == 128) return launch_dq<128>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
   if (D == 256) return launch_dq<256>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -657,6 +663,7 @@ extern "C" int unsloth_splash_attn_dkv(const void* q, const void* k, const void*
                                        void* stream) {
   const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_dkv<64>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
   if (D == 128) return launch_dkv<128>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
   if (D == 256) return launch_dkv<256>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -128,13 +128,13 @@ def library() -> ctypes.CDLL:
                                                 p]
         lib.unsloth_packed_attn_bwd.restype = i
         lib.unsloth_flash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                               i, i, f, p]
+                                               i, i, i, f, p]
         lib.unsloth_flash_attn_fwd.restype = i
         lib.unsloth_flash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                              p, i, i, i, i, f, p]
+                                              p, i, i, i, i, i, f, p]
         lib.unsloth_flash_attn_dq.restype = i
         lib.unsloth_flash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               p, i, i, i, i, f, p]
+                                               p, i, i, i, i, i, f, p]
         lib.unsloth_flash_attn_dkv.restype = i
         lib.unsloth_splash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                                 i, i, i, f, i, f, p]

@@ -24,9 +24,14 @@ published gpt-oss checkpoints ship them, MXFP4 (``*_blocks`` /
 tensor per expert and projection under the qwen3-moe names
 (``hf_names.expert_name``) for every MoE family, and no expert biases.
 
-Not ported yet: pre-quantized bitsandbytes checkpoints, fused
-qkv_proj/gate_up_proj checkpoints of dense models, other expert layouts
-and ``validate_checkpoint``; each raises ``NotImplementedError``.
+Pre-quantized bitsandbytes 4-bit checkpoints (``unsloth/*-bnb-4bit``):
+every tensor with bnb companion tensors loads through :mod:`.bnb` as an
+NF4 weight, before any cast and whatever ``load_in_4bit`` says, as in the
+JAX loader; nothing is quantized again.
+
+Not ported yet: fused qkv_proj/gate_up_proj checkpoints of dense models,
+other expert layouts and ``validate_checkpoint``; the first two raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,12 +46,12 @@ from ..io_safetensors import SafetensorsFile, save_sharded
 from ..ops.lora import merge_lora
 from ..ops.nf4 import NF4Stacked, NF4Tensor, dequantize_nf4, quantize_nf4
 from . import hf_names
+from .bnb import is_bnb_quantized, load_bnb_tensor
 from .config import ModelConfig, load_hf_config
 from .mxfp4 import is_mxfp4_quantized, load_mxfp4_tensor
 
 _QUANTIZABLE = ("q", "k", "v", "o", "gate", "up", "down")
-_UNPORTED_SUFFIXES = (".quant_state.bitsandbytes__nf4", ".absmax",
-                      "qkv_proj.weight", "gate_up_proj.weight")
+_UNPORTED_SUFFIXES = ("qkv_proj.weight", "gate_up_proj.weight")
 
 
 class CheckpointReader:
@@ -87,7 +92,8 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, *,
                 double_quant: bool = True, device="cpu") -> Dict[str, Any]:
     """Load an HF causal-LM checkpoint directory into the param tree on
     ``device``. Each tensor is cast to ``dtype`` before quantization, as in
-    the JAX loader, so both packages quantize the same values."""
+    the JAX loader, so both packages quantize the same values; a bnb 4-bit
+    tensor set becomes an NF4 weight as it is stored."""
     if cfg is None:
         cfg = ModelConfig.from_hf_config(load_hf_config(path))
     reader = CheckpointReader(path)
@@ -95,9 +101,12 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, *,
         if name.endswith(_UNPORTED_SUFFIXES):
             raise NotImplementedError(
                 f"{path}: tensor {name!r} belongs to a checkpoint layout "
-                "(bnb 4-bit or fused projections) not ported yet")
+                "(fused projections) not ported yet")
 
     def load_one(hf_name: str, quantize: bool):
+        if is_bnb_quantized(reader, hf_name):
+            return load_bnb_tensor(reader, hf_name, dtype=dtype,
+                                   device=device)
         arr = reader.get(hf_name).to(device).to(dtype)
         if quantize and arr.ndim == 2:
             return quantize_nf4(arr, block_size=quant_block_size,

@@ -4,7 +4,10 @@ Counterpart of unsloth_tpu/models/loader.py: the same method names and the
 load -> get_peft_model -> generate flow, returning (model, tokenizer). The
 model is a handle over functional state (config + frozen param tree +
 LoRA tree) on one explicit ``device``; ``load_in_4bit`` quantizes to NF4 on
-that device as the checkpoint is read.
+that device as the checkpoint is read. A pre-quantized bitsandbytes 4-bit
+directory (the ``unsloth/*-bnb-4bit`` repos the notebooks load) gives its
+NF4 projections as they are stored, decoded on the device, without
+quantizing anything (``models/bnb.py``).
 
 ``get_peft_model(use_gradient_checkpointing=...)`` sets ``gc_mode``, the
 ``remat`` that training passes to ``decoder.forward`` (JAX mapping:
@@ -104,7 +107,9 @@ class FastLanguageModel:
                         full_finetuning: bool = False, *,
                         device="cuda") -> Tuple[LanguageModel, Any]:
         """Load a model and tokenizer from a local HF checkpoint directory
-        onto ``device``."""
+        onto ``device``. The projections of a bnb-4bit directory arrive as
+        NF4 weights without quantize_nf4, whatever ``load_in_4bit`` says,
+        as in the JAX package."""
         path = _resolve_model_path(model_name)
         hf_config = load_hf_config(path)
         if "vision_config" in hf_config or hf_config.get("model_type") in (

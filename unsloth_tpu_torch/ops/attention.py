@@ -14,23 +14,26 @@ carries no value).
 * :func:`attention` — the dispatcher. With sinks it takes JAX's order:
   plain causal rows launch K17 (``ops/flash_sinks.py``, head dim 64) on a
   CUDA tensor; a narrow window (4 bands fit in T) takes the banded form;
-  otherwise, on CUDA, the window or softcap kernel (K18) plus a chunked
-  logsumexp and the exact rescale out * sigmoid(lse - sink) (which raises
-  at a head dim K18 is not built for, 64 among them); on the CPU,
-  :func:`attention_ref`. Without sinks a CPU tensor takes
-  :func:`attention_ref`; a CUDA tensor, causal, with k/v over the same T
-  (``Hq % Hkv == 0``), launches a kernel: with a sliding window or a logit
-  softcap, the splash kernels (``ops/splash_attention.py``, K18), padded
-  and packed rows alike, head dim 128 or 256; otherwise, with a declared
-  segment bound (:class:`packed_segment_bound`, set by the trainer when it
-  packs), segment ids, ``T % 64 == 0`` and ``Dh % 128 == 0``, the packed
-  flash kernels (``ops/packed_attention.py``, K9-K11); otherwise (unpacked
-  or padded rows, no segment ids) the flash kernels over the whole causal
-  range (``ops/flash_attention.py``, K16), which take any T and raise for
-  a head dim other than 128. Every other CUDA route raises
-  ``NotImplementedError`` naming the TPU kernel it still needs: K18's
-  non-causal form (a window or softcap without causality). There is no
-  fallback from the card to the plain version.
+  otherwise, on CUDA, the window or softcap kernel (K18, head dim 64, 128
+  or 256) plus a chunked logsumexp and the exact rescale
+  out * sigmoid(lse - sink); on the CPU, :func:`attention_ref`. Without
+  sinks a CPU tensor takes :func:`attention_ref`; a CUDA tensor, causal,
+  with k/v over the same T (``Hq % Hkv == 0``), launches a kernel: with a
+  sliding window or a logit softcap, the splash kernels
+  (``ops/splash_attention.py``, K18), padded and packed rows alike, head
+  dim 64, 128 or 256; otherwise, with a declared segment bound
+  (:class:`packed_segment_bound`, set by the trainer when it packs),
+  segment ids, ``T % 64 == 0`` and head dim 128, the packed flash kernels
+  (``ops/packed_attention.py``, K9-K11); otherwise the flash kernels over
+  the whole causal range (``ops/flash_attention.py``, K16: any T, head dim
+  64, 128 or 256): unpacked or padded rows, no segment ids, and packed
+  rows at head dim 64 or 256 (JAX's packed kernel takes ``Dh % 128 ==
+  0``; the port's is built for 128 only, and K16 computes the same
+  function over more tile pairs). Every other CUDA route raises
+  ``NotImplementedError`` naming the TPU kernel it still needs: the
+  non-causal forms of K16 and K18 (no causality, or cross attention); a
+  head dim the kernels are not built for raises in the kernel wrapper.
+  There is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from torch.utils.checkpoint import checkpoint
 from .flash_attention import flash_attention
 from .flash_sinks import KERNEL_HEAD_DIM as SINKS_HEAD_DIM
 from .flash_sinks import flash_sinks
-from .packed_attention import BLOCK, packed_flash_attention
+from .packed_attention import BLOCK
+from .packed_attention import KERNEL_HEAD_DIM as PACKED_HEAD_DIM
+from .packed_attention import packed_flash_attention
 from .splash_attention import KERNEL_HEAD_DIMS as SPLASH_HEAD_DIMS
 from .splash_attention import splash_attention
 
@@ -296,17 +301,18 @@ def attention(q, k, v, *, causal: bool = True,
             "(splash FullMask, unsloth_tpu/ops/attention.py:_splash_kernel); "
             "the port covers causal self-attention")
     bound = current_segment_bound() if segment_ids is not None else None
-    if (bound is not None and causal and t % BLOCK == 0 and dh % 128 == 0
-            and self_attn):
+    if (bound is not None and causal and t % BLOCK == 0
+            and dh == PACKED_HEAD_DIM and self_attn):
         return packed_flash_attention(q, k, v, segment_ids,
                                       max_segment_len=bound, scale=scale)
     if causal and self_attn:
         return flash_attention(q, k, v, segment_ids, scale=scale)
     raise NotImplementedError(
-        f"attention on CUDA: non-causal (causal={causal}) or cross attention "
-        f"(q {tuple(q.shape)}, k {tuple(k.shape)}) has no kernel; the port "
-        "of the bundled flash kernel (K16, unsloth_tpu/ops/attention.py:"
-        "_tpu_flash) covers causal self-attention")
+        f"attention on CUDA, non-causal (causal={causal}) or cross attention "
+        f"(q {tuple(q.shape)}, k {tuple(k.shape)}), needs the non-causal "
+        "form of TPU kernel K16 (bundled flash with causal=False, "
+        "unsloth_tpu/ops/attention.py:_tpu_flash); the port covers causal "
+        "self-attention")
 
 
 def _attention_sinks(q, k, v, sinks, *, causal, segment_ids, window,

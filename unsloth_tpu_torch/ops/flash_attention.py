@@ -20,8 +20,9 @@ versions :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`
 in fp32. The device of q is the only thing that chooses.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
-[B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 128, any T; anything else
-raises.
+[B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256 (JAX runs the
+bundled kernel at any head dim that is a multiple of 64; the models the
+port loads have 64, 128 or 256), any T; anything else raises.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from .. import kernels
 
 #: tokens per kernel tile (query and kv)
 BLOCK = 64
-#: head dim the CUDA kernels are built for
-KERNEL_HEAD_DIM = 128
+#: head dims the CUDA kernels are built for
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
@@ -122,7 +123,7 @@ def tile_segment_ranges(segment_ids: torch.Tensor, block: int = BLOCK
 
 
 def _check_kernel_inputs(name, q, k, v, segment_ids,
-                         head_dims=(KERNEL_HEAD_DIM,)):
+                         head_dims=KERNEL_HEAD_DIMS):
     if q.device.type != "cuda":
         raise NotImplementedError(f"{name}: no kernel for device {q.device}")
     b, t, hq, d = q.shape
@@ -152,7 +153,7 @@ def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
                         scale: float):
     """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32)."""
     _check_kernel_inputs("flash_attention_fwd", q, k, v, segment_ids)
-    b, t, hq, _ = q.shape
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -160,7 +161,7 @@ def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
     rc = kernels.library().unsloth_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, t, hq, k.shape[2], float(scale), _stream(q))
+        lse.data_ptr(), b, t, hq, k.shape[2], d, float(scale), _stream(q))
     kernels.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -174,7 +175,7 @@ def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
                        dout, *, scale: float):
     """Kernel dq: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
     _check_kernel_inputs("flash_attention_dq", q, k, v, segment_ids)
-    b, t, hq, _ = q.shape
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -185,7 +186,7 @@ def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, t,
-        hq, k.shape[2], float(scale), _stream(q))
+        hq, k.shape[2], d, float(scale), _stream(q))
     kernels.check(rc, "flash_attention_dq")
     flash_attention_dq.launches += 1
     return dq, di
@@ -200,7 +201,7 @@ def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
     """Kernel dk/dv: (dk, dv) [B, T, Hkv, D] bf16, from the dq kernel's
     di."""
     _check_kernel_inputs("flash_attention_dkv", q, k, v, segment_ids)
-    b, t, hq, _ = q.shape
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -211,7 +212,7 @@ def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        hq, k.shape[2], float(scale), _stream(q))
+        hq, k.shape[2], d, float(scale), _stream(q))
     kernels.check(rc, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
     return dk, dv

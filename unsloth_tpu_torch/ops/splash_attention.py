@@ -26,8 +26,8 @@ and :func:`splash_attention_bwd_ref` in fp32. The device of q is the only
 thing that chooses.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
-[B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 128 or 256, any T; anything
-else raises. Not ported: the shared-prefix (GRPO) mask and the non-causal
+[B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256, any T;
+anything else raises. Not ported: the shared-prefix (GRPO) mask and the non-causal
 ``FullMask`` forms of the same kernels.
 """
 
@@ -42,7 +42,7 @@ from .flash_attention import (_check_kernel_inputs, _mask, _stream,
                               tile_segment_ranges)
 
 #: head dims the CUDA kernels are built for
-KERNEL_HEAD_DIMS = (128, 256)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:

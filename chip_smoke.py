@@ -42,13 +42,20 @@ exits non-zero without printing a result:
                64 on the padded [2, 2048] batch with Llama-3.2-1B's 32/8
                and Qwen2.5-0.5B's 14/2 heads, at head dim 256 with
                Gemma-7B's 16/16, and K18 at head dim 64 on a packed
-               384-token row with gpt-oss's 64/8 heads and window 128; the
+               384-token row with gpt-oss's 64/8 heads and window 128;
+               then the GRPO path's: K18's shared-prefix form (forward, dq,
+               dk/dv) at Llama-3.1-8B's 32/8 heads of 128 on one row of
+               the layout (256, 6, 896) (T = 5,632; a left-padded prompt,
+               short completions), with the tile pairs each kernel
+               visited, read back from its counter, held to the tile
+               rule's count and printed beside causal's; the
                check must reject injected faults (K16: a dropped kv tile,
                an ignored pad mask, a late-half error; K18 also: the
                window ignored, the softcap's derivative dropped; K14/K15:
                one expert's rows through the next expert's weights, the
                bias dropped; K19 the same; K17: the sink ignored, dsinks
-               dropped). For each
+               dropped; K18's prefix form: the region rule dropped, the
+               prefix dropped). For each
                kernel, its bound (the least time the card could take) and
                the time of the one PyTorch call that computes the same
                function, where there is one (K18: the compiled
@@ -58,7 +65,9 @@ exits non-zero without printing a result:
                compiled flex_attention with return_lse and the sink
                rescale; K19, labelled: torch._grouped_mm + a bias gather;
                K18 at head dim 64, labelled: SDPA with the causal, window
-               and segment mask, which has no softcap to miss);
+               and segment mask, which has no softcap to miss; K18's prefix
+               form: compiled flex_attention with the layout's block mask,
+               SDPA with the dense [T, T] mask beside it);
   3b. CE routes  full logits (cuBLAS + K7/K8) against the chunked fused CE,
                forward + backward time and peak memory, at 4,094 and 8,191
                rows;
@@ -86,6 +95,11 @@ exits non-zero without printing a result:
                256) on short padded batches, and gpt-oss-20b's on a packed
                384-token row (its sliding layer K18 at head dim 64, the
                chunked lse and the sink rescale; its global layer K17);
+  4f. GRPO train parity  Llama-3.1-8B cut to 2 layers, random NF4 weights,
+               LoRA r=32 with a random B: the grouped GRPO loss (the
+               reference pass with LoRA off) and every LoRA gradient of one
+               fixed rollout batch in the layout (128, 6, 128), the card
+               (K18's prefix form) against the CPU in fp32;
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -159,7 +173,22 @@ exits non-zero without printing a result:
                from_pretrained(load_in_4bit=False), LoRA r=16, padded
                2,048-token Alpaca rows, batch 2 x accumulation 4, 4 steps:
                no K1/K2 launch (the bf16 base stays torch.matmul), K16
-               launches exactly; evaluate and a greedy generate.
+               launches exactly; evaluate and a greedy generate;
+ 12. main path (GRPO, the Llama 3.1 (8B) GRPO notebook's recipe; run right
+               after phase 7, on its checkpoint) from_pretrained(
+               max_seq_length=1024, load_in_4bit=True), get_peft_model(
+               r=32, lora_alpha=32, seven projections, "unsloth"),
+               GRPOTrainer(prefix_grouping=True): 6 generations of up to
+               768 tokens from prompts of up to 256, batch 1, learning
+               rate 5e-6, max_grad_norm 0.1, beta 0.04, a reward from the
+               completion text, 2 steps: each round prefills its prompt
+               once and decodes 6 streams; launches per step exactly K18
+               prefix forward 96, dq 32, dk/dv 32 and K16 none; losses
+               finite, the LoRA moved; rollout and step times, tokens/s,
+               peak memory; then on the last rollouts the grouped loss and
+               LoRA gradients against the unpacked ones (K16 on [6, 1024]
+               rows), within fixed limits that the region rule dropped
+               must fail.
 
 Then one JSON line with each kernel's launches on its main path, its
 largest error against its plain version, its time beside the plain
@@ -174,12 +203,15 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train-gpt-oss
     python3 chip_smoke.py --profile-train-gpt-oss-bf16
     python3 chip_smoke.py --profile-train-llama32
+    python3 chip_smoke.py --profile-train-grpo
 
 run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8, or 9's
 NF4 part, or 9's bf16-expert part, or 10, each without evaluate, generate
-and the saves) only, then one more training step under
-torch.profiler, and print that step's device time by kernel and by kernel
-family, the device spans of the port's profiler ranges (the MoE routing
+and the saves, or 12 without its layout comparison) only, then one more
+training step under torch.profiler (for GRPO: the reference pass, the
+grouped loss, its backward and the update, on the last rollouts), and
+print that step's device time by kernel and by kernel family, the device
+spans of the port's profiler ranges (the MoE routing
 glue, the banded attention), its device busy share and its MFU/HFU (no
 result line). Every phase prints its time ("[time]").
 """
@@ -586,6 +618,119 @@ def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
     return res
 
 
+def prefix_segments(layout, prompt_len, completion_lens, device="cpu"):
+    """Segment ids [1, T] of one row of the shared-prefix layout (P, G, L)
+    as GRPOTrainer builds it: 1 on the prompt, right-aligned in its P
+    slots, and on each completion from its region's start; 0 on the pad
+    between."""
+    import torch
+
+    P, G, L = layout
+    seg = torch.zeros((1, P + G * L), dtype=torch.int32)
+    seg[0, P - prompt_len:P] = 1
+    for r, n in enumerate(completion_lens):
+        seg[0, P + r * L:P + r * L + n] = 1
+    return seg.to(device)
+
+
+#: tokens per tile of K18's kernels (kBlk in csrc/splash_attention.cu)
+TILE = 64
+
+
+def layout_skips(P, L, iq, j):
+    """The rule of ``layout_skips`` in csrc/splash_attention.cu: the prefix
+    layout (P, G, L) masks the whole (query tile iq, kv tile j <= iq)
+    pair: kv tile j lies past the prompt's last tile and before the tile
+    that holds the start of the region of query tile iq's first query."""
+    if j * TILE < P:
+        return False
+    q0 = max(iq * TILE, P)
+    return j < (P + (q0 - P) // L * L) // TILE
+
+
+def visited_tile_pairs(t, prefix_layout=None, segment_ids=None):
+    """The (query tile, kv tile) pairs of 64 tokens that K18's kernels must
+    visit at T = ``t``, counted by their rules: every j <= iq, less those
+    a prefix layout masks whole (:func:`layout_skips`) and, given the
+    segment ids of one row, those whose tiles' segment-id ranges do not
+    overlap (the kernels' ``disjoint``)."""
+    nq = -(-t // TILE)
+    pairs = [(iq, j) for iq in range(nq) for j in range(iq + 1)]
+    if prefix_layout is not None:
+        P, _, L = prefix_layout
+        pairs = [(iq, j) for iq, j in pairs if not layout_skips(P, L, iq, j)]
+    if segment_ids is not None:
+        seg = [int(x) for x in segment_ids.reshape(-1).tolist()]
+        lo = [min(seg[i * TILE:(i + 1) * TILE]) for i in range(nq)]
+        hi = [max(seg[i * TILE:(i + 1) * TILE]) for i in range(nq)]
+        pairs = [(iq, j) for iq, j in pairs
+                 if not (hi[j] < lo[iq] or lo[j] > hi[iq])]
+    return len(pairs)
+
+
+def kernel_tile_pairs(q, k, v, seg, dout, scale, layout):
+    """{"fwd", "dq", "dkv": the (query tile, kv tile) pairs of 64 tokens
+    that K18's kernel visited a query head}, read back from the kernels'
+    counters (``tile_visits``) on these inputs, with the prefix ``layout``
+    (None: causal) and no window or softcap."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    lo, hi = tfa.tile_segment_ranges(seg)
+    opts = dict(window=None, softcap=None, scale=scale, prefix_layout=layout)
+    n = {w: torch.zeros(1, dtype=torch.int64, device=q.device)
+         for w in ("fwd", "dq", "dkv")}
+    out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi,
+                                        tile_visits=n["fwd"], **opts)
+    _, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                    tile_visits=n["dq"], **opts)
+    tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                             tile_visits=n["dkv"], **opts)
+    heads = q.shape[0] * q.shape[2]
+    counts = {w: int(c.item()) for w, c in n.items()}
+    if any(c % heads for c in counts.values()):
+        raise RuntimeError(f"K18's visit counts {counts} are not a whole "
+                           f"number a head ({heads} heads)")
+    return {w: c // heads for w, c in counts.items()}
+
+
+def prefix_fault_errs(q, k, v, seg, dout, scale, layout, want):
+    """The power of :func:`attn_row_err` over K18's prefix form: the plain
+    versions under two faults a wrong layout mask would make, held
+    against ``want`` (the right out, dq, dk, dv): the region rule dropped
+    (plain causal over the row, so each completion sees the ones before
+    it) and the prefix dropped (each completion sees itself only: every
+    region made a segment of its own). Returns {fault: {tensor: (row-wise
+    error, whether the old check, max|d| <= 2e-2 max|ref|, passes it)}};
+    every row-wise error must exceed ATTN_ROW_TOL."""
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    P, G, L = layout
+    opts = dict(window=None, softcap=None, scale=scale)
+
+    def plain(fseg, flayout):
+        fout, flse = tsa.splash_attention_fwd_ref(
+            q, k, v, fseg, prefix_layout=flayout, **opts)
+        return (fout,) + tuple(tsa.splash_attention_bwd_ref(
+            q, k, v, fseg, fout, flse, dout, prefix_layout=flayout, **opts))
+
+    own = seg.clone()
+    for r in range(G):
+        own[:, P + r * L:P + (r + 1) * L] += (r + 1) * (int(seg.max()) + 1)
+    faults = {"region rule dropped": plain(seg, None),
+              "prefix dropped": plain(own, None)}
+    res = {}
+    for fault, gots in faults.items():
+        res[fault] = {}
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
+            old = ((got.float() - ref.float()).abs().max()
+                   <= 2e-2 * ref.float().abs().max())
+            res[fault][name] = (attn_row_err(got, ref), bool(old))
+    return res
+
+
 def _grads_without_dtanh(q, k, v, seg, dout, window, softcap, scale):
     """(dq, dk) of capped attention as a kernel that leaves the softcap's
     1 - tanh^2 factor out of dS would give them: autograd through the
@@ -750,6 +895,8 @@ def phase_kernels():
     rows.update(_training_kernels(dev, g, flush))
     rows.update(_unpacked_kernels(dev, g, flush))
     rows.update(_splash_kernels(dev, g, flush))
+    for name, extra in _grpo_kernels(dev, g, flush).items():
+        rows[name] += extra
     rows.update(_gpt_oss_kernels(dev, g, flush))
     for name, extra in _small_model_kernels(dev, g, flush).items():
         rows[name] += extra
@@ -792,19 +939,21 @@ def _autograd_ms(fn, inputs, grad_out, flush, runs=10):
     return ms
 
 
-def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None):
+def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None,
+             prefix_layout=None):
     """(forward ms, backward ms) of the one PyTorch call that computes the
     attention kernels' function: ``F.scaled_dot_product_attention`` with a
     boolean mask (causal, equal segment ids and, where given, within the
-    window) and ``enable_gqa=True``, in its [B, H, T, D] layout. A
-    yardstick only; the port never calls it."""
+    window or the prefix layout's dense [T, T] mask) and
+    ``enable_gqa=True``, in its [B, H, T, D] layout. A yardstick only; the
+    port never calls it."""
     import torch
     import torch.nn.functional as F
 
-    from unsloth_tpu_torch.ops.flash_attention import _mask
+    from unsloth_tpu_torch.ops.splash_attention import _splash_mask
 
-    mask = _mask(segment_ids, q.shape[0], q.shape[1], q.device,
-                 window)[:, None]
+    mask = _splash_mask(segment_ids, q.shape[0], q.shape[1], q.device,
+                        window, prefix_layout)[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa(a, b, c):
@@ -820,12 +969,14 @@ def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None):
 
 
 def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
-             scale):
+             scale, prefix_layout=None):
     """(forward ms, backward ms, row-wise error of its out against
     ``want``) of the one PyTorch call that computes the splash kernels'
     function: ``torch.compile``d ``flex_attention`` in its [B, H, T, D]
     layout, with the softcap c * tanh(s / c) as its ``score_mod``, a block
-    mask of causal, within the window and equal segment ids, and
+    mask of causal, within the window (or, with a prefix layout (P, G, L),
+    key in the prompt or in the query's region: the reference's own
+    PrefixGrouper block mask) and equal segment ids, and
     ``enable_gqa=True``, on q * scale rounded to q's dtype (what the kernels
     and the JAX wrapper score; the timed call includes that product). The
     window and segment ids reach the mask as
@@ -838,9 +989,15 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
     b, t = segment_ids.shape
     seg = segment_ids.to(torch.int32)
     win = torch.tensor(window or t, device=q.device)
+    P, _, L = prefix_layout or (t, 1, 1)
 
     def mask_mod(bi, h, qi, ki):
-        return (ki <= qi) & (qi - ki < win) & (seg[bi, qi] == seg[bi, ki])
+        if prefix_layout is not None:
+            # ki >= P implies qi >= P: both regions are defined there
+            near = (ki < P) | ((qi - P) // L == (ki - P) // L)
+        else:
+            near = qi - ki < win
+        return (ki <= qi) & near & (seg[bi, qi] == seg[bi, ki])
 
     def score_mod(s, bi, h, qi, ki):
         return softcap * torch.tanh(s / softcap)
@@ -1316,7 +1473,7 @@ def _splash_kernels(dev, g, flush):
 
 
 def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
-                 softcap, faults, flex=True, form=None):
+                 softcap, faults, flex=True, form=None, prefix_layout=None):
     """K18 forward, dq and dk/dv at one shape against the plain versions,
     every position row by row (:func:`attn_row_err`), lse within 1e-3, the
     backward fed the kernel forward's (out, lse) on both sides. q and k
@@ -1327,9 +1484,14 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     out must agree with the plain version's as the kernel's does) and,
     beside it, SDPA with the same boolean mask and no softcap; without
     ``flex`` (no softcap), that SDPA call is the library call, which
-    computes the same function, and flex_attention is not compiled.
-    Returns a row per kernel, tagged with ``form`` (the head-dim form of
-    the kernels line)."""
+    computes the same function, and flex_attention is not compiled. With a
+    ``prefix_layout`` the kernels take GRPO's shared-prefix form, the
+    faults are :func:`prefix_fault_errs`', and the tile pairs each kernel
+    visited, read back from it (:func:`kernel_tile_pairs`) with one
+    segment, with this row's segments and causal, must be what the tile
+    rules count (:func:`visited_tile_pairs`).
+    Returns a row per kernel, tagged with ``form`` (the kernels line's form
+    of the kernel), with those counts where there are any."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
@@ -1341,7 +1503,8 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
                .to(torch.bfloat16) for h in (hkv, hq))
     lo, hi = tfa.tile_segment_ranges(seg)
-    opts = dict(window=window, softcap=softcap, scale=scale)
+    opts = dict(window=window, softcap=softcap, scale=scale,
+                prefix_layout=prefix_layout)
     out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
     dq, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
                                      **opts)
@@ -1360,10 +1523,16 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
         errs[name] = ((got.float() - ref.float()).abs().max().item(),
                       attn_row_err(got, ref))
     lse_err = (lse - rlse).abs().max().item()
-    fault_res = attn_fault_errs(q, k, v, seg, dout, scale,
-                                (rout, rdq, rdk, rdv), window=window,
-                                softcap=softcap) if faults else {}
-    del rdq, rdk, rdv
+    want = (rout, rdq, rdk, rdv)
+    if not faults:
+        fault_res = {}
+    elif prefix_layout is not None:
+        fault_res = prefix_fault_errs(q, k, v, seg, dout, scale,
+                                      prefix_layout, want)
+    else:
+        fault_res = attn_fault_errs(q, k, v, seg, dout, scale, want,
+                                    window=window, softcap=softcap)
+    del rdq, rdk, rdv, want
     flex_fwd = flex_bwd = flex_err = None
     if flex:
         flex_fwd, flex_bwd, flex_err = _flex_ms(q, k, v, seg, dout, flush,
@@ -1382,33 +1551,67 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
         q, k, v, seg, **opts), runs=3, warmup=1, flush=flush)
     bwd_plain = time_ms(lambda: tsa.splash_attention_bwd_ref(
         q, k, v, seg, out, lse, dout, **opts), runs=3, warmup=1, flush=flush)
-    sdpa_fwd, sdpa_bwd = _sdpa_ms(q, k, v, seg, dout, flush, window=window)
+    sdpa_fwd, sdpa_bwd = _sdpa_ms(q, k, v, seg, dout, flush, window=window,
+                                  prefix_layout=prefix_layout)
     # the valid (query, key) pairs of this data: the work the kernels need
-    pairs = int(tfa._mask(seg, b, t, dev, window).sum())
+    pairs = int(tsa._splash_mask(seg, b, t, dev, window,
+                                 prefix_layout).sum())
     fb = bound(4 * d * hq * pairs, nbytes(q, k, v, seg, out, lse))
     qb = bound(6 * d * hq * pairs, nbytes(q, k, v, seg, out, dout, lse, q,
                                           di))
     kb = bound(8 * d * hq * pairs, nbytes(q, k, v, seg, dout, lse, di, k, v))
     n_seg = len(torch.unique(seg[seg != 0]))
+    layout_text = ("" if prefix_layout is None else
+                   f" prefix layout (P, G, L)={tuple(prefix_layout)}")
     shape = (f"{label}: B={b} T={t} Hq={hq} Hkv={hkv} D={d} bf16 scale="
-             f"{scale:.5f} softcap={softcap} window={window}, {n_seg} "
-             f"segment(s), {int((seg == 0).sum())} pad")
+             f"{scale:.5f} softcap={softcap} window={window}{layout_text}, "
+             f"{n_seg} segment(s), {int((seg == 0).sum())} pad")
     common = dict(shape=shape, form=form)
+    visits = {}
+    if prefix_layout is not None:
+        # read back from the kernels: one segment (the layout's skips
+        # alone), this row's segment ids, and causal over one segment
+        one = torch.ones_like(seg)
+        visits = {what: kernel_tile_pairs(q, k, v, s_, dout, scale, lay)
+                  for what, s_, lay in (
+                      ("tile_pairs", one, prefix_layout),
+                      ("tile_pairs_segments", seg, prefix_layout),
+                      ("causal_tile_pairs", one, None))}
+        rule = {"tile_pairs": visited_tile_pairs(t, prefix_layout),
+                "tile_pairs_segments": visited_tile_pairs(
+                    t, prefix_layout, seg),
+                "causal_tile_pairs": visited_tile_pairs(t)}
+        log(f"[kernels] splash attention {label}: (query, kv) tile pairs of "
+            f"64 tokens a head that the kernels (forward / dq / dk/dv) "
+            f"visited, read back from them: with the layout and one segment "
+            f"{visits['tile_pairs']}, with this row's segment ids "
+            f"{visits['tile_pairs_segments']}, causal with one segment "
+            f"{visits['causal_tile_pairs']}; the tile rules count "
+            f"{rule['tile_pairs']}, {rule['tile_pairs_segments']} and "
+            f"{rule['causal_tile_pairs']}")
+        wrong = [(what, w) for what, want in rule.items()
+                 for w, n_ in visits[what].items() if n_ != want]
+        if wrong:
+            raise RuntimeError(f"K18's prefix form visits other tile pairs "
+                               f"than its rule: {wrong}, {visits}, {rule}")
     lib = {} if flex else dict(library="SDPA with the causal, window and "
                                "segment mask (no softcap: the same function)")
     res = {
         "splash_attn_fwd": dict(
-            common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+            common, **{what: n_["fwd"] for what, n_ in visits.items()},
+            err=max(errs["out"][0], lse_err), ms=fwd_ms,
             plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
             library_ms=flex_fwd if flex else sdpa_fwd,
             sdpa_no_softcap_ms=sdpa_fwd, **lib),
         "splash_attn_dq": dict(
-            common, err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
+            common, **{what: n_["dq"] for what, n_ in visits.items()},
+            err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
             bound_ms=qb[0], bound_by=qb[1],
             library_ms=flex_bwd if flex else sdpa_bwd,
             sdpa_no_softcap_ms=sdpa_bwd, **lib),
         "splash_attn_dkv": dict(
-            common, err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+            common, **{what: n_["dkv"] for what, n_ in visits.items()},
+            err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
             plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
             library_ms=flex_bwd if flex else sdpa_bwd,
             sdpa_no_softcap_ms=sdpa_bwd, **lib)}
@@ -1448,6 +1651,32 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     del q, k, v, dout, out, lse, dq, dk, dv, di
     torch.cuda.empty_cache()
     return res
+
+
+#: GRPO's shared-prefix layout on phase 12's path (the notebook's 256
+#: prompt and 768 completion tokens: P = 256, L = roundup(769, 128))
+GRPO_LAYOUT = (256, 6, 896)
+#: phase 3's prompt and completion lengths in that layout
+GRPO_PROMPT_LEN = 173
+GRPO_COMPLETION_LENS = (768, 412, 57, 768, 230, 600)
+
+
+def _grpo_kernels(dev, g, flush):
+    """K18's prefix form (:func:`_splash_case` with the layout) at phase
+    12's shape: Llama-3.1-8B's 32/8 heads of 128, scale 128^-0.5, one row
+    of GRPO_LAYOUT (T = 5,632), a prompt of GRPO_PROMPT_LEN tokens
+    right-aligned in its 256 slots and completions of GRPO_COMPLETION_LENS
+    tokens, no softcap; the check must reject the region rule dropped and
+    the prefix dropped. Library call: compiled flex_attention with the
+    layout's block mask; SDPA with the dense [T, T] mask beside it."""
+    c = LLAMA_31_8B_CONFIG
+    seg = prefix_segments(GRPO_LAYOUT, GRPO_PROMPT_LEN, GRPO_COMPLETION_LENS,
+                          dev)
+    res = _splash_case(dev, g, flush, "GRPO prefix layout", seg,
+                       c["num_attention_heads"], c["num_key_value_heads"],
+                       c["head_dim"], c["head_dim"] ** -0.5, None, None,
+                       True, form="prefix", prefix_layout=GRPO_LAYOUT)
+    return {name: [row] for name, row in res.items()}
 
 
 def _small_model_kernels(dev, g, flush):
@@ -3247,6 +3476,501 @@ def phase_qwen25_sft(tmp, profile=False):
     return launches, dict(metrics, eval=ev, generate_s=t_gen)
 
 
+# ---------------------------------------------------------------------------
+# GRPO: phase 4f (2 layers, card against CPU) and phase 12 (the notebook)
+# ---------------------------------------------------------------------------
+
+#: the Llama 3.1 (8B) GRPO notebook's recipe (phase 12)
+GRPO_RECIPE = dict(learning_rate=5e-6, adam_beta1=0.9, adam_beta2=0.99,
+                   weight_decay=0.1, warmup_steps=0, warmup_ratio=0.1,
+                   lr_scheduler_type="cosine", logging_steps=1,
+                   per_device_train_batch_size=1,
+                   gradient_accumulation_steps=1, num_generations=6,
+                   max_prompt_length=256, max_completion_length=768,
+                   max_grad_norm=0.1, beta=0.04, prefix_grouping=True,
+                   report_to="none")
+GRPO_STEPS = 2             # optimizer steps (rollout rounds) of phase 12
+GRPO_LORA_R = 32           # the notebook's lora_rank (and lora_alpha)
+#: phase 12's bounds on the grouped LoRA gradients' relative L2 distance
+#: from the unpacked ones at 32 layers in bf16: all leaves together, and
+#: the worst leaf. On an H100 the two correct layouts differ there by
+#: 0.086 together and 0.176 at the worst leaf (moving the unpacked rows
+#: one slot gives 0.084 / 0.151), the region rule dropped by 0.69 / 0.83;
+#: in fp32 the layouts agree to 1e-4 (tests/test_torch_grpo.py). Phase 12
+#: checks that the fault fails them.
+GRPO_GRAD_TOL = 0.15
+GRPO_LEAF_TOL = 0.3
+#: the kernels the grouped GRPO step runs, and those it must never launch
+GRPO_KERNELS = ("nf4_matmul", "nf4_matmul_dx", "rms_norm", "rms_norm_bwd",
+                "splash_attn_fwd", "splash_attn_dq", "splash_attn_dkv")
+GRPO_ABSENT = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+               "packed_attn_fwd", "packed_attn_bwd", "cross_entropy_fwd",
+               "cross_entropy_bwd")
+
+
+def _grpo_trainer(model, out_dir, reward_funcs=(), **kw):
+    """A GRPOTrainer over ``model`` with the byte tokenizer: the recipe's
+    arguments, updated by ``kw``."""
+    from unsloth_tpu_torch.trainer.grpo import GRPOConfig, GRPOTrainer
+
+    args = GRPOConfig(output_dir=out_dir, **dict(GRPO_RECIPE, **kw))
+    return GRPOTrainer(model, reward_funcs=list(reward_funcs), args=args,
+                       train_dataset=[], processing_class=ByteTokenizer())
+
+
+def _random_b(lora, gen, std=0.02):
+    """The LoRA tree with the same A and a random B (std ``std``), so that
+    every adapter's gradient is live."""
+    import torch
+
+    from unsloth_tpu_torch.ops.lora import LoRAWeights
+
+    return {"layers": [{name: LoRAWeights(
+        a=lw.a, b=torch.randn(lw.b.shape, generator=gen,
+                              device=lw.b.device).to(lw.b.dtype) * std,
+        scale=lw.scale) for name, lw in layer.items()}
+        for layer in lora["layers"]]}
+
+
+def _grpo_loss_grads(trainer, batch):
+    """(loss, {leaf: fp32 grad on the CPU}, launches) of one GRPO loss on
+    ``batch`` with the trainer's model's LoRA tree: the reference pass
+    with LoRA off, then the policy's forward and backward, the old policy
+    the current one, detached."""
+    import torch
+
+    kernels = _kernel_fns()
+    leaves = _lora_leaves(trainer.model.lora)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    before = {n: fn.launches for n, fn in kernels.items()}
+    with torch.no_grad():
+        ref = trainer._logps(batch, None)
+    loss = trainer._loss(batch, None, ref)
+    loss.backward()
+    grads = {n: t.grad.float().cpu() for n, t in leaves}
+    for _, t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return (float(loss.detach()), grads,
+            {n: fn.launches - before[n] for n, fn in kernels.items()})
+
+
+def _shifted_rows(batch, n_seq, shift):
+    """The unpacked GRPO batch as a packed one (the same loss for
+    loss_type "grpo": each scored token weighted 1 / (its sequence's
+    length * n_seq)) with every row moved ``shift`` slots right behind pad
+    of segment 0, positions unchanged: the same function, attended in
+    another alignment of the kernels' 64-token tiles."""
+    import torch
+
+    from unsloth_tpu_torch.trainer.grpo import PackedGRPOBatch
+
+    n, t = batch.input_ids.shape
+    dev = batch.input_ids.device
+
+    def moved(x, fill=0):
+        out = torch.full((n, t + shift), fill, dtype=x.dtype, device=dev)
+        out[:, shift:] = x
+        return out
+
+    mask = batch.completion_mask.to(torch.float32)
+    w = mask / (mask.sum(-1, keepdim=True).clamp(min=1.0) * n_seq)
+    return PackedGRPOBatch(
+        input_ids=moved(batch.input_ids),
+        segment_ids=moved(torch.ones_like(batch.input_ids)),
+        positions=moved(torch.arange(t, dtype=torch.int32, device=dev)[
+            None].expand(n, t)),
+        logp_targets=moved(batch.logp_targets, -100),
+        adv_tok=moved(batch.advantages[:, None] * mask),
+        w_tok=moved(w))
+
+
+def _grad_distance(got, want):
+    """((worst leaf, its relative L2), the median leaf's, the relative L2
+    of all leaves together) of two {leaf: gradient} dicts."""
+    rels = {n: _rel(got[n], want[n]) for n in want}
+    worst = max(rels, key=rels.get)
+    num = sum(float((got[n].float() - want[n].float()).norm() ** 2)
+              for n in want)
+    den = sum(float(want[n].float().norm() ** 2) for n in want)
+    return ((worst, rels[worst]), statistics.median(rels.values()),
+            (num / den) ** 0.5)
+
+
+def phase_train_parity_grpo(tmp, seed=SEED + 17):
+    """Phase 4f: the grouped GRPO loss and every LoRA gradient at
+    Llama-3.1-8B's width in a 2-layer cut, on the card (K1/K2, K3/K4 and
+    K18's prefix form, bf16) against the CPU (the plain versions, fp32)
+    from the same weights and NF4 codes: random ones from the seed, LoRA
+    r=32 with a random B, one fixed rollout batch of the recipe's six
+    generations in the layout (128, 6, 128) (max_prompt_length 128,
+    max_completion_length 127): a prompt of 100 tokens, completions of
+    127, 90, 13, 127, 64 and 40, the reference pass with LoRA off, beta
+    0.04. Tolerances as in phase 4e: loss within 1e-2 relative, each
+    gradient leaf within 5e-2 relative L2. The card must launch K18 (2
+    forward launches for the reference pass, 2 for the policy's forward
+    and 2 for its recompute; 2 dq, 2 dk/dv) and none of GRPO_ABSENT.
+    Returns the distances and the card's launches."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.loader import LanguageModel
+    from unsloth_tpu_torch.models.params import (init_lora_tree, init_params,
+                                                 quantize_params, tree_to)
+    from unsloth_tpu_torch.trainer.grpo import group_advantages
+
+    cfg = ModelConfig.from_hf_config(dict(LLAMA_31_8B_CONFIG,
+                                          num_hidden_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             cfg, dtype=torch.bfloat16)
+    lora = _random_b(init_lora_tree(cfg, gen, r=GRPO_LORA_R,
+                                    alpha=float(GRPO_LORA_R)), gen)
+    rng = np.random.default_rng(seed)
+    sub = rng.choice(cfg.vocab_size, SUB_VOCAB, replace=False)
+    prompt = sub[rng.integers(0, SUB_VOCAB, 100)].tolist()
+    completions = [sub[rng.integers(0, SUB_VOCAB, n)].tolist()
+                   for n in (127, 90, 13, 127, 64, 40)]
+    adv = group_advantages(rng.standard_normal(6), 6)
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        p = params if dev == DEVICE else _tree_f32(tree_to(params, "cpu"))
+        lo = lora if dev == DEVICE else tree_to(lora, "cpu")
+        trainer = _grpo_trainer(
+            LanguageModel(cfg=cfg, params=p, lora=lo),
+            os.path.join(tmp, "grpo_parity"), max_prompt_length=128,
+            max_completion_length=127)
+        batch = trainer._build_grouped_batch([prompt] * 6, completions, adv)
+        t0 = time.perf_counter()
+        results[dev] = _grpo_loss_grads(trainer, batch)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] += (time.perf_counter() - t0, batch.layout)
+    (l_card, g_card, launches, t_card, layout), (l_cpu, g_cpu, _, t_cpu, _) \
+        = results[DEVICE], results["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(rels, key=rels.get)
+    log(f"[grpo parity] 2-layer Llama-3.1-8B NF4 + LoRA r={GRPO_LORA_R}, "
+        f"grouped GRPO loss in the layout {layout}: loss card "
+        f"{l_card:.6e} cpu (fp32) {l_cpu:.6e} (rel {loss_rel:.2e}, tol "
+        f"1e-2); {len(rels)} LoRA grads, worst rel L2 {rels[worst]:.3e} "
+        f"({worst}), median {statistics.median(rels.values()):.3e} (tol "
+        f"5e-2); card {t_card:.1f} s, cpu {t_cpu:.1f} s; card launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise RuntimeError("card and CPU grouped GRPO loss/grads disagree")
+    _check_launched(launches, GRPO_KERNELS, "2-layer GRPO",
+                    {"splash_attn_fwd": 6, "splash_attn_dq": 2,
+                     "splash_attn_dkv": 2}, steps=1)
+    for name in GRPO_ABSENT:
+        if launches[name]:
+            raise RuntimeError(f"{name} launched on the grouped GRPO loss")
+    del params, lora
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_max=rels[worst],
+                launches=launches)
+
+
+def _grpo_prompts(rng, n):
+    """Synthetic GSM8K-style prompts for the byte tokenizer, 200-256 bytes:
+    the notebook's system prompt's gist and a word problem of random
+    numbers."""
+    out = []
+    for _ in range(n):
+        a, b, c = (int(x) for x in rng.integers(2, 999, 3))
+        text = (f"Respond in the format <reasoning>...</reasoning>"
+                f"<answer>...</answer>. Question: A shop sells {a} apples "
+                f"on Monday and {b} apples on Tuesday. Each crate holds {c} "
+                "apples. How many crates does the shop fill, and how many "
+                "apples are left?")
+        out.append(text[:256])
+    return out
+
+
+def _even_digit_reward(prompts=None, completions=None, **kw):
+    """A reward computed from the completion text alone: the share of its
+    characters that are even digits."""
+    return [sum(ch in "02468" for ch in c) / max(len(c), 1)
+            for c in completions]
+
+
+def phase_grpo(tmp, profile=False):
+    """Phase 12: GRPO on full-width, full-depth Llama-3.1-8B by the Llama
+    3.1 (8B) GRPO notebook's recipe, from the checkpoint in ``tmp``:
+    from_pretrained(max_seq_length=1024, load_in_4bit=True),
+    get_peft_model(r=32, lora_alpha=32, seven projections, "unsloth"),
+    GRPOTrainer(prefix_grouping=True) with GRPO_RECIPE (6 generations,
+    prompts up to 256 tokens, completions up to 768, batch 1, learning
+    rate 5e-6, cosine, max_grad_norm 0.1, beta 0.04) for GRPO_STEPS steps,
+    the reward :func:`_even_digit_reward`. Each round must prefill its
+    prompt once and decode 6 streams; each step must launch K18's prefix
+    form exactly 96 times forward (32 layers: the reference pass, the
+    policy's forward, its recompute), 32 dq and 32 dk/dv, and K16 never;
+    losses finite, the LoRA moved. Then, on the last round's rollouts, with
+    a random B in the LoRA: the grouped loss against the unpacked one (K16
+    on [6, 1024] rows), within 2e-2 relative, and the LoRA gradients within
+    GRPO_GRAD_TOL (all leaves together, relative L2) and GRPO_LEAF_TOL
+    (the worst leaf); the same comparison with the region rule dropped from
+    the grouped pass (K18 given the layout (P, 1, G L), so that each
+    completion sees the ones before it) must fail those limits. Printed
+    beside them, not gated: the unpacked loss again with its rows moved
+    one slot right (:func:`_shifted_rows`), the same function in another
+    tile alignment. Prints the rollout seconds and completion tokens/s, the
+    reference log-probability pass and the step time, trained tokens/s and
+    the peak memory, each time between two device syncs that this phase
+    adds around the trainer's own calls. With ``profile``, one more grouped
+    step (the reference pass, the loss, its backward and an AdamW update on
+    the last batch) runs under the profiler instead of the comparison."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel
+    from unsloth_tpu_torch.inference import generate as tgen
+    from unsloth_tpu_torch.trainer import grpo as tgrpo
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, max_seq_length=1024, load_in_4bit=True, dtype=torch.bfloat16,
+        device=DEVICE)
+    model = FastLanguageModel.get_peft_model(
+        model, r=GRPO_LORA_R, lora_alpha=GRPO_LORA_R,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth", random_state=3407)
+    torch.cuda.synchronize()
+    log(f"[grpo] from_pretrained + get_peft_model(r={GRPO_LORA_R}) in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    trainer = _grpo_trainer(model, os.path.join(tmp, "grpo_out"),
+                            [_even_digit_reward], max_steps=GRPO_STEPS)
+    trainer.train_dataset = [
+        {"prompt": p} for p in _grpo_prompts(np.random.default_rng(SEED + 18),
+                                              GRPO_STEPS)]
+    calls, rollouts = [], []
+    # seconds between two device syncs: each round's rollout and reference
+    # pass, each optimizer step (from the loss's call to its logged entry,
+    # which reads the loss after the update)
+    spans = {"rollout": [], "logps": [], "step": []}
+    cache_fn = tgen.forward_with_cache
+    generate_batch, logps_fn, loss_fn, log_fn = (
+        trainer._generate_batch, trainer._logps, trainer._loss,
+        trainer.metrics_logger.log)
+
+    def counted(params, lora, ids, *a, **kw):
+        calls.append(tuple(ids.shape))
+        return cache_fn(params, lora, ids, *a, **kw)
+
+    def timed(what, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        spans[what].append(time.perf_counter() - t0)
+        return out
+
+    def kept(prompts):
+        rollouts.append(timed("rollout", generate_batch, prompts))
+        return rollouts[-1]
+
+    def ref_timed(batch, lora):
+        # the loss's own policy pass runs with grad and is left untimed
+        if torch.is_grad_enabled():
+            return logps_fn(batch, lora)
+        return timed("logps", logps_fn, batch, lora)
+
+    def step_started(*a):
+        torch.cuda.synchronize()
+        step_t0.append(time.perf_counter())
+        return loss_fn(*a)
+
+    def step_logged(entry):
+        torch.cuda.synchronize()
+        spans["step"].append(time.perf_counter() - step_t0[-1])
+        return log_fn(entry)
+
+    step_t0 = []
+    b0 = {n: t.clone() for n, t in _lora_leaves(model.lora) if
+          n.endswith(".b")}
+    tgen.forward_with_cache = counted
+    trainer._generate_batch, trainer._logps, trainer._loss = (
+        kept, ref_timed, step_started)
+    trainer.metrics_logger.log = step_logged
+    try:
+        result = trainer.train()
+    finally:
+        tgen.forward_with_cache = cache_fn
+        trainer._generate_batch, trainer._logps, trainer._loss = (
+            generate_batch, logps_fn, loss_fn)
+        trainer.metrics_logger.log = log_fn
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    g = GRPO_RECIPE["num_generations"]
+    prefills = [c for c in calls if c[1] > 1]
+    decodes = [c for c in calls if c[1] == 1]
+    log(f"[grpo] losses {losses}; rewards "
+        f"{[round(e['reward'], 4) for e in trainer.state_log]}; cache calls: "
+        f"prefill {prefills}, decode {len(decodes)} at batch "
+        f"{sorted(set(c[0] for c in decodes))}")
+    rounds = []
+    for i, (prompt_ids, completion_ids) in enumerate(rollouts):
+        rollout, lp, step = (spans[w][i] for w in ("rollout", "logps",
+                                                    "step"))
+        scored = sum(map(len, completion_ids))
+        trained = len(prompt_ids[0]) + scored
+        rounds.append(dict(rollout_s=rollout, logps_s=lp, step_s=step,
+                           completion_tokens=scored))
+        log(f"[grpo] round {i + 1}: rollout {rollout:.3f} s for {scored} "
+            f"completion tokens ({scored / rollout:.1f} tokens/s, "
+            f"{len(prompt_ids[0])}-token prompt, "
+            f"{rollout / max(map(len, completion_ids)) * 1e3:.1f} ms a "
+            f"decode step); reference log-probability pass {lp:.3f} s; "
+            f"training step {step:.3f} s for {trained} trained tokens "
+            f"({trained / step:.1f} tokens/s, {scored / step:.1f} scored "
+            "tokens/s)")
+    log(f"[grpo] peak memory allocated {peak / 1e9:.2f} GB; launches on the "
+        f"GRPO path: {launches}")
+    if len(losses) != GRPO_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"GRPO losses not finite: {losses}")
+    if len(prefills) != GRPO_STEPS or any(c[0] != 1 for c in prefills) or \
+            any(c[0] != g for c in decodes) or not decodes:
+        raise RuntimeError(f"the rollouts did not prefill each prompt once "
+                           f"and decode {g} streams: {prefills}, "
+                           f"{sorted(set(decodes))}")
+    n_layers = model.cfg.num_layers
+    _check_launched(launches, GRPO_KERNELS, "GRPO",
+                    {"splash_attn_fwd": 3 * n_layers,
+                     "splash_attn_dq": n_layers,
+                     "splash_attn_dkv": n_layers}, steps=GRPO_STEPS)
+    for name in GRPO_ABSENT:
+        if launches[name]:
+            raise RuntimeError(f"{name} launched on the grouped GRPO steps")
+    moved = [n for n, t in _lora_leaves(model.lora)
+             if n in b0 and not torch.equal(t, b0[n])]
+    if len(moved) != len(b0) or not all(
+            bool(torch.isfinite(t).all()) for _, t in
+            _lora_leaves(model.lora)):
+        raise RuntimeError(f"the LoRA B did not all move ({len(moved)} of "
+                           f"{len(b0)}) or is not finite")
+    prompt_ids, completion_ids = rollouts[-1]
+    adv = tgrpo.group_advantages(np.asarray(_even_digit_reward(completions=[
+        trainer.tokenizer.decode(c) for c in completion_ids])), g)
+    grouped = trainer._build_grouped_batch(prompt_ids, completion_ids, adv)
+    stats = dict(losses=losses, peak_bytes=peak,
+                 rounds=rounds,
+                 runtime_s=result.metrics["train_runtime"])
+    if profile:
+        _profile_grpo_step(trainer, grouped)
+        return launches, stats
+    model.lora = _random_b(model.lora, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 19))
+    unpacked = trainer._build_batch(prompt_ids, completion_ids, adv)
+    l_g, g_g, n_g = _grpo_loss_grads(trainer, grouped)
+    l_u, g_u, n_u = _grpo_loss_grads(trainer, unpacked)
+    l_s, g_s, _ = _grpo_loss_grads(trainer, _shifted_rows(
+        unpacked, len(completion_ids), 1))
+    # the fault: K18 given one region for all completions, on the same path
+    P, G, L = grouped.layout
+    layout_cm = tgrpo.prefix_attention
+    tgrpo.prefix_attention = lambda layout: layout_cm((P, 1, G * L))
+    try:
+        l_f, g_f, n_f = _grpo_loss_grads(trainer, grouped)
+    finally:
+        tgrpo.prefix_attention = layout_cm
+    rel = {what: (abs(loss - l_u) / abs(l_u), *_grad_distance(g, g_u))
+           for what, loss, g in (("grouped", l_g, g_g), ("shifted", l_s, g_s),
+                                 ("fault", l_f, g_f))}
+
+    def reading(what):
+        loss_rel, worst, median, whole = rel[what]
+        return (f"loss rel {loss_rel:.2e}; LoRA grads worst rel L2 "
+                f"{worst[1]:.3e} ({worst[0]}), median {median:.3e}, all "
+                f"together {whole:.3e}")
+
+    def passes(what):
+        loss_rel, worst, _, whole = rel[what]
+        return (loss_rel <= 2e-2, worst[1] <= GRPO_LEAF_TOL and
+                whole <= GRPO_GRAD_TOL)
+
+    log(f"[grpo] the last round's rollouts, LoRA with a random B: grouped "
+        f"{tuple(grouped.input_ids.shape)} in {grouped.layout} loss "
+        f"{l_g:.6e} (K18 prefix launches {n_g['splash_attn_fwd']} / "
+        f"{n_g['splash_attn_dq']} / {n_g['splash_attn_dkv']}) against "
+        f"unpacked {tuple(unpacked.input_ids.shape)} loss {l_u:.6e} (K16 "
+        f"launches {n_u['flash_attn_fwd']} / {n_u['flash_attn_dq']} / "
+        f"{n_u['flash_attn_dkv']}): {reading('grouped')} (tol 2e-2 on the "
+        f"loss, {GRPO_LEAF_TOL} a leaf, {GRPO_GRAD_TOL} all together); "
+        f"{len(g_u)} leaves")
+    log(f"[grpo] not gated, the unpacked rows moved one slot (loss "
+        f"{l_s:.6e}): {reading('shifted')}")
+    log(f"[grpo] the fault, the region rule dropped (layout {(P, 1, G * L)}"
+        f", K18 prefix launches {n_f['splash_attn_fwd']} / "
+        f"{n_f['splash_attn_dq']} / {n_f['splash_attn_dkv']}; loss "
+        f"{l_f:.6e}): {reading('fault')}")
+    if not (np.isfinite(l_g) and all(passes("grouped"))):
+        raise RuntimeError("the grouped GRPO loss/grads disagree with the "
+                           "unpacked ones")
+    if passes("fault")[1] or not n_f["splash_attn_fwd"]:
+        raise RuntimeError("the GRPO gradient check lets the region rule "
+                           "dropped through")
+    _check_launched(n_g, GRPO_KERNELS, "grouped GRPO loss")
+    _check_launched(n_u, ("flash_attn_fwd", "flash_attn_dq",
+                          "flash_attn_dkv"), "unpacked GRPO loss")
+    if n_g["flash_attn_fwd"] or n_u["splash_attn_fwd"]:
+        raise RuntimeError(f"the layouts took each other's attention "
+                           f"kernels: {n_g}, {n_u}")
+    stats.update(compared=rel)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def _profile_grpo_step(trainer, batch, top=25):
+    """One grouped GRPO step on ``batch`` under ``torch.profiler``: the
+    reference pass, the loss and its backward, and a ClippedAdamW update
+    (fresh state) of the LoRA; the device time by kernel and family, the
+    busy share, and MFU as :func:`_profile_train_step` counts it (4N FLOPs
+    a real token: N matmul weights, the row's real slots)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unsloth_tpu_torch.trainer.sft import build_optimizer, lora_leaves
+
+    params = lora_leaves(trainer.model.lora)
+    tx, _ = build_optimizer(trainer.args, 1, params)
+    for p in params:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = trainer._logps(batch, None)
+        trainer._loss(batch, None, ref).backward()
+        tx.step()
+        tx.zero_grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for p in params:
+        p.requires_grad_(False)
+    real = int((batch.segment_ids != 0).sum())
+    log(f"[profile] one grouped GRPO step, layout {batch.layout}, "
+        f"{batch.input_ids.numel()} row tokens, {real} real:")
+    _device_report(prof, wall * 1e6, top)
+    n_matmul, _ = _matmul_weights(trainer.model.cfg)
+    log(f"[profile] N = {n_matmul / 1e9:.3f}e9 matmul weights: MFU "
+        f"{100 * 4 * n_matmul * real / wall / 989e12:.2f}%")
+
+
 #: phase 4d's bound on each LoRA gradient leaf's relative L2 distance
 #: from fp32 (see :func:`phase_train_parity_gpt_oss`)
 GPT_OSS_GRAD_TOL = 0.3
@@ -3740,6 +4464,24 @@ def _profile_train_step(trainer, rows, top=25):
                              ProfilerActivity.CUDA]) as prof:
         trainer.train()
     wall_us = trainer.step_times[-1] * 1e6
+    n_matmul, n_head = _matmul_weights(trainer.model.cfg)
+    real = sum(int((b.segment_ids != 0).sum()) for b in rows)
+    row_tokens = sum(int(b.segment_ids.size) for b in rows)
+    wall = wall_us / 1e6
+    log(f"[profile] one step, {len(rows)} micro-batches, {row_tokens} row "
+        f"tokens, {real} real:")
+    _device_report(prof, wall_us, top)
+    hfu_flops = (6 * (n_matmul - n_head) + 4 * n_head) * row_tokens
+    log(f"[profile] N = {n_matmul / 1e9:.3f}e9 matmul weights: MFU "
+        f"{100 * 4 * n_matmul * real / wall / 989e12:.2f}%, HFU "
+        f"{100 * hfu_flops / wall / 989e12:.2f}%")
+
+
+def _device_report(prof, wall_us, top):
+    """From a profile's chrome trace, the device events (cat "kernel",
+    "gpu_memcpy", "gpu_memset"): the device time by kernel name and by
+    kernel family, the busy share (the union of the events' intervals over
+    ``wall_us``) and the device spans of the port's profiler ranges."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -3760,19 +4502,10 @@ def _profile_train_step(trainer, rows, top=25):
         if f > end:
             busy, end = busy + f - max(s, end), f
     total = sum(us for us, _ in by_name.values())
-    n_matmul, n_head = _matmul_weights(trainer.model.cfg)
-    real = sum(int((b.segment_ids != 0).sum()) for b in rows)
-    row_tokens = sum(int(b.segment_ids.size) for b in rows)
-    wall = wall_us / 1e6
-    log(f"[profile] one step, {len(rows)} micro-batches, {row_tokens} row "
-        f"tokens, {real} real: wall {wall:.3f} s, device events "
+    log(f"[profile] wall {wall_us / 1e6:.3f} s, device events "
         f"{len(dev)}, summed {total / 1e3:.1f} "
         f"ms, busy (union) {busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% "
         f"of wall (idle {100 - 100 * busy / wall_us:.1f}%)")
-    hfu_flops = (6 * (n_matmul - n_head) + 4 * n_head) * row_tokens
-    log(f"[profile] N = {n_matmul / 1e9:.3f}e9 matmul weights: MFU "
-        f"{100 * 4 * n_matmul * real / wall / 989e12:.2f}%, HFU "
-        f"{100 * hfu_flops / wall / 989e12:.2f}%")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:top]:
         log(f"[profile] {us / 1e3:10.1f} ms {100 * us / total:5.1f}% "
@@ -3956,10 +4689,20 @@ def _kernels_line(rows, by_path):
                                "gpt_oss_sinks_row_parity"),
         "splash_attn_dkv_d64": ("splash_attn_dkv", "d64", "gpt-oss sliding",
                                 "gpt_oss_sinks_row_parity"),
+        "splash_attn_fwd_prefix": ("splash_attn_fwd", "prefix",
+                                   "GRPO prefix layout", "grpo_training"),
+        "splash_attn_dq_prefix": ("splash_attn_dq", "prefix",
+                                  "GRPO prefix layout", "grpo_training"),
+        "splash_attn_dkv_prefix": ("splash_attn_dkv", "prefix",
+                                   "GRPO prefix layout", "grpo_training"),
     }
+    # the TPU kernel a form replaces, where it is not the base form's
+    form_replaces = {"prefix": "unsloth_tpu/ops/attention.py:246-247 "
+                     "(_splash_kernel with NumpyMask(prefix_mask_array(P, G, "
+                     "L)), from attention :600-617 under prefix_attention)"}
     has_forms = {k_ for k_, *_ in forms.values()}
-    form_paths = {p_ for *_, p_ in forms.values()} | {"qwen25_training",
-                                                       "llama32_2layer_parity"}
+    form_paths = {p_ for *_, p_ in forms.values()} | {
+        "qwen25_training", "llama32_2layer_parity", "grpo_2layer_parity"}
     entries = [(k_, k_, None, shape, main_path.get(k_, "unpacked_training"))
                for k_, (_, _, shape) in picks.items()]
     entries += [(n_, k_, form, shape, path)
@@ -3967,6 +4710,7 @@ def _kernels_line(rows, by_path):
     kernels_line = []
     for name_, kname, form, shape, path in entries:
         src, replaces, _ = picks[kname]
+        replaces = form_replaces.get(form, replaces)
         of_form = [r for r in rows[kname] if r.get("form") == form]
         row = next(r for r in of_form
                    if shape is None or r["shape"].startswith(shape))
@@ -3977,6 +4721,9 @@ def _kernels_line(rows, by_path):
                    if form is None else {path: by_path[path][kname]})
         if form == "d64" and kname.startswith("flash"):
             by_form["qwen25_training"] = by_path["qwen25_training"][kname]
+        if form == "prefix":
+            by_form["grpo_2layer_parity"] = \
+                by_path["grpo_2layer_parity"][kname]
         kernels_line.append({
             "name": name_, "route": "cuda",
             "source": f"unsloth_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -3986,7 +4733,9 @@ def _kernels_line(rows, by_path):
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": by_form,
-            **{key: row[key] for key in ("sdpa_no_softcap_ms", "library")
+            **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
+                                         "tile_pairs", "tile_pairs_segments",
+                                         "causal_tile_pairs")
                if key in row}})
     return kernels_line
 
@@ -4014,12 +4763,14 @@ def main() -> int:
             lambda path, profile: phase_gpt_oss_sft(path, profile="bf16"),
             GPT_OSS_20B_CONFIG),
         ("--profile-train-llama32",): (phase_llama32_sft, LLAMA_32_1B_CONFIG,
-                                       True)}
+                                       True),
+        ("--profile-train-grpo",): (phase_grpo, LLAMA_31_8B_CONFIG)}
     if tuple(sys.argv[1:]) not in profiles:
         print(f"usage: {sys.argv[0]} [--profile-train | "
               "--profile-train-unpacked | --profile-train-gemma2 | "
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
-              "--profile-train-llama32]", file=sys.stderr)
+              "--profile-train-llama32 | --profile-train-grpo]",
+              file=sys.stderr)
         return 2
     profile = profiles[tuple(sys.argv[1:])]
     t_start = time.perf_counter()
@@ -4036,8 +4787,8 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if profile:
-            # phases 1, 2 and 6, 7, 8, 9 or 10 only, then a profiled step;
-            # no result line
+            # phases 1, 2 and 6, 7, 8, 9, 10 or 12 only, then a profiled
+            # step; no result line
             fn, config, *bnb4 = profile
             fn(_write_model(os.path.join(tmp, "model"), config, *bnb4),
                profile=True)
@@ -4056,6 +4807,8 @@ def main() -> int:
         timed("4d gpt-oss train parity", phase_train_parity_gpt_oss)
         small = timed("4e small-model train parity",
                       phase_train_parity_small, tmp)
+        grpo_parity = timed("4f GRPO train parity", phase_train_parity_grpo,
+                            tmp)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -4063,6 +4816,8 @@ def main() -> int:
                                    llama)
         unpacked_launches, _ = timed("7 unpacked SFT", phase_unpacked_sft,
                                      llama)
+        # phase 12 runs on the Llama-3.1-8B checkpoint while it is written
+        grpo_launches, _ = timed("12 GRPO", phase_grpo, llama)
         shutil.rmtree(llama)   # the disk holds one checkpoint at a time
         gemma2 = timed("8 write Gemma-2", _write_model,
                        os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG)
@@ -4095,7 +4850,9 @@ def main() -> int:
                "qwen25_training": qwen_launches,
                "llama32_2layer_parity": small["llama32"],
                "gemma7b_2layer_parity": small["gemma"],
-               "gpt_oss_sinks_row_parity": small["gpt_oss"]}
+               "gpt_oss_sinks_row_parity": small["gpt_oss"],
+               "grpo_training": grpo_launches,
+               "grpo_2layer_parity": grpo_parity["launches"]}
     log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))

@@ -597,3 +597,115 @@ def test_gmm_kernels_match_plain(dev, e, n, k, m, kind):
         tgmm.gmm(x.float(), w, sizes)
     with pytest.raises(ValueError, match="contiguous"):
         tgmm.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
+
+
+# ---------------------------------------------------------------------------
+# GRPO: K18's shared-prefix form
+# ---------------------------------------------------------------------------
+
+from chip_smoke import (kernel_tile_pairs, prefix_fault_errs,  # noqa: E402
+                        prefix_segments, visited_tile_pairs)
+
+
+@pytest.mark.parametrize("layout,prompt_len,completion_lens,d,hq,hkv", [
+    ((128, 3, 128), 90, (128, 40, 101), 128, 8, 2),    # tile-aligned edges
+    ((100, 3, 70), 57, (70, 13, 66), 128, 8, 2),       # edges inside tiles
+    ((37, 4, 20), 37, (20, 3, 11, 20), 64, 4, 1),      # regions < one tile
+    ((256, 2, 128), 200, (128, 77), 256, 4, 2),
+])
+def test_splash_prefix_kernels_match_plain(dev, layout, prompt_len,
+                                           completion_lens, d, hq, hkv):
+    """K18's prefix form (forward, dq, dk/dv) against the plain versions
+    with the same layout on bf16 inputs, a left-padded prompt and
+    completions shorter than their regions: every position row by row
+    (``chip_smoke.attn_row_err``), lse within 1e-3; layouts whose P and L
+    are and are not multiples of the 64-token tile, and regions shorter
+    than a tile. The check rejects the region rule dropped and the prefix
+    dropped; a window beside the layout raises. The tile pairs each kernel
+    visits, read back from its counter, are the tile rules' count, with
+    one segment and with the row's segment ids (and causal's without the
+    layout)."""
+    P, G, L = layout
+    t = P + G * L
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = prefix_segments(layout, prompt_len, completion_lens, dev)
+    lo, hi = tfa.tile_segment_ranges(seg)
+    opts = dict(window=None, softcap=None, scale=d ** -0.5,
+                prefix_layout=layout)
+    before = (tsa.splash_attention_fwd.launches,
+              tsa.splash_attention_dq.launches,
+              tsa.splash_attention_dkv.launches)
+    out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+    dq, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                     **opts)
+    dk, dv = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                      **opts)
+    rout, rlse = tsa.splash_attention_fwd_ref(q, k, v, seg, **opts)
+    rdq, rdk, rdv = tsa.splash_attention_bwd_ref(q, k, v, seg, out, lse,
+                                                 dout, **opts)
+    torch.cuda.synchronize()
+    assert (tsa.splash_attention_fwd.launches,
+            tsa.splash_attention_dq.launches,
+            tsa.splash_attention_dkv.launches) == tuple(x + 1 for x in before)
+    assert (lse - rlse).abs().max() <= 1e-3
+    want = (rout, rdq, rdk, rdv)
+    for got, ref in zip((out, dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+    res = prefix_fault_errs(q, k, v, seg, dout, d ** -0.5, layout, want)
+    for fault, errs in res.items():
+        for name, (err, _) in errs.items():
+            assert err > ATTN_ROW_TOL, (fault, name, err)
+    with pytest.raises(ValueError, match="window"):
+        tsa.splash_attention_fwd(q, k, v, seg, lo, hi, window=64,
+                                 softcap=None, scale=0.1,
+                                 prefix_layout=layout)
+    one = torch.ones_like(seg)
+    rule = visited_tile_pairs(t, layout)
+    assert kernel_tile_pairs(q, k, v, one, dout, d ** -0.5, layout) == \
+        dict(fwd=rule, dq=rule, dkv=rule)
+    causal = visited_tile_pairs(t)
+    assert kernel_tile_pairs(q, k, v, one, dout, d ** -0.5, None) == \
+        dict(fwd=causal, dq=causal, dkv=causal)
+    seen = visited_tile_pairs(t, layout, seg)
+    assert seen <= rule
+    assert kernel_tile_pairs(q, k, v, seg, dout, d ** -0.5, layout) == \
+        dict(fwd=seen, dq=seen, dkv=seen)
+    with pytest.raises(ValueError, match="tile_visits"):
+        tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts,
+                                 tile_visits=torch.zeros(1, device=dev))
+
+
+def test_attention_prefix_route_on_cuda(dev):
+    """Under prefix_attention a row of T = P + G * L launches K18's prefix
+    form (forward, then dq and dk/dv), not K16; a softcap or sinks with
+    the layout raise."""
+    from unsloth_tpu_torch.ops.attention import attention, prefix_attention
+
+    layout = (64, 2, 96)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 256, 8, 128), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    k = torch.randn((1, 256, 2, 128), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    seg = prefix_segments(layout, 50, (96, 30), dev)
+    before = (tsa.splash_attention_fwd.launches,
+              tsa.splash_attention_dq.launches,
+              tsa.splash_attention_dkv.launches,
+              tfa.flash_attention_fwd.launches)
+    with prefix_attention(layout):
+        out = attention(q, k, k, segment_ids=seg)
+    out.float().sum().backward()
+    assert (tsa.splash_attention_fwd.launches,
+            tsa.splash_attention_dq.launches,
+            tsa.splash_attention_dkv.launches,
+            tfa.flash_attention_fwd.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    with pytest.raises(NotImplementedError, match="masked reference"):
+        attention(q, k, k, segment_ids=seg, softcap=30.0,
+                  prefix_layout=layout)
+    with pytest.raises(NotImplementedError, match="masked reference"):
+        attention(q, k, k, segment_ids=seg, prefix_layout=layout,
+                  sinks=torch.zeros(8, device=dev))

@@ -92,7 +92,7 @@ def test_top_k_one_is_greedy(dense):
 
 
 @pytest.mark.parametrize("kw", [dict(speculative=True),
-                                dict(num_return_sequences=2),
+                                dict(kv_cache_dtype="fp8_e5m2"),
                                 dict(kv_cache_dtype="fp8_e4m3")])
 def test_unported_options_raise(dense, kw):
     _, tm = dense

@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX: importing the package and every one of
-its submodules (the serving and the training slices alike, the MoE ops
-and the MXFP4 and bnb-4bit loaders among them) in a fresh interpreter
+its submodules (the serving and the training slices alike, the MoE ops,
+the MXFP4 and bnb-4bit loaders and the GRPO trainer among them) in a fresh interpreter
 leaves "jax" out of sys.modules."""
 
 import os
@@ -24,7 +24,8 @@ TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
             "ops.flash_attention", "ops.fused_ce_linear",
             "ops.packed_attention", "ops.splash_attention", "trainer.sft",
             "utils.logging", "export.save", "ops.moe", "ops.nf4_gmm",
-            "ops.flash_sinks", "ops.gmm", "models.mxfp4", "models.bnb")
+            "ops.flash_sinks", "ops.gmm", "models.mxfp4", "models.bnb",
+            "trainer.grpo", "inference.generate")
 
 
 def test_port_imports_no_jax():

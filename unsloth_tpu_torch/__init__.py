@@ -11,7 +11,9 @@ Ported so far, for the llama-family dense decoder: the serving slice
 training slice (get_peft_model -> packed rows -> QLoRA SFT with offloaded
 gradient checkpointing and a chunked fused CE), and SFT without packing
 (padded rows through the flash kernels, the full-logits CE, evaluate,
-response-only labels, merged and LoRA saves).
+response-only labels, merged and LoRA saves); GRPO and RLOO (fanned-out
+rollouts, the reference pass on the frozen base, the chunked selective
+log-softmax, and the shared-prefix layout through the splash kernels).
 """
 
 __version__ = "0.1.0"
@@ -22,3 +24,5 @@ from .inference.generate import SamplingParams, generate  # noqa: E402,F401
 from .inference.server import InferenceServer  # noqa: E402,F401
 from .trainer.sft import (SFTConfig, SFTTrainer,  # noqa: E402,F401
                           train_on_responses_only, unsloth_train)
+from .trainer.grpo import (GRPOConfig, GRPOTrainer,  # noqa: E402,F401
+                           PatchFastRL, RLOOConfig, RLOOTrainer)

@@ -1,10 +1,12 @@
 // Splash attention: causal self-attention with a sliding window, a logit
-// softcap, segment ids and GQA, bf16, head dim 64, 128 or 256 (K18).
+// softcap, segment ids, GQA and GRPO's shared-prefix layout, bf16, head
+// dim 64, 128 or 256 (K18).
 //
 // Replaces the bundled Pallas TPU splash kernels that
 // unsloth_tpu/ops/attention.py:_tpu_splash builds in _splash_kernel
-// (jax.experimental.pallas.ops.tpu.splash_attention, a CausalMask or a
-// LocalMask(window_size=(window - 1, 0)) per kv head):
+// (jax.experimental.pallas.ops.tpu.splash_attention, a CausalMask, a
+// LocalMask(window_size=(window - 1, 0)) or, under prefix_attention, a
+// NumpyMask(prefix_mask_array(P, G, L)) per kv head):
 //   splash_fwd_kernel<D>  <- the forward kernel (out and an fp32
 //                            lse = m + log l)
 //   splash_dq_kernel<D>   <- the dq kernel (dq; also di = sum(dout * out),
@@ -17,7 +19,13 @@
 // output is defined (a token always sees itself). In the backward
 // dS' = P * (dP - di), and with a softcap dS = dS' * (1 - tanh^2(s / c));
 // dq = scale * (dS @ K), dk = dS^T @ q_scaled, dv = P^T @ dO. The window
-// (<= 0: none) and the softcap (<= 0: none) are runtime arguments.
+// (<= 0: none) and the softcap (<= 0: none) are runtime arguments, and so
+// is the prefix layout (G = 0: none): the row is [P prompt slots | G
+// completion regions of L slots], T = P + G L, and token i attends to
+// token j iff j <= i, seg[i] == seg[j], and j < P or i and j lie in the
+// same region (each completion sees the shared prompt and itself, never
+// another completion). The layout replaces the window (the wrapper refuses
+// both at once).
 // GQA: JAX runs the kernel per kv head with its query heads stacked; here
 // a block reads kv head h / (Hq / Hkv), and the dk/dv block sums its query
 // heads in a loop, so the sum is deterministic.
@@ -30,8 +38,18 @@
 // (4 D flops per valid (query, key) pair forward, 10 D backward). A query
 // tile visits the kv tiles from the first one its window reaches up to its
 // own (causality); a visited pair is skipped when the segment-id ranges of
-// its two tiles do not overlap. Both skips are exact: no (query, key) pair
-// in a skipped tile pair is valid.
+// its two tiles do not overlap. With a prefix layout a query tile visits
+// the kv tiles that overlap the prompt [0, P) and those from the tile that
+// holds the start of its first query's region up to its own, and a kv tile
+// of a completion region is visited only by the query tiles up to the end
+// of its last key's region: what PrefixGrouper saves is these skipped
+// tiles (at P = 256, G = 6, L = 896: 976 tile pairs of causal's 3,916).
+// A tile that straddles the prompt's or a region's edge is visited, so
+// any P, G, L is exact. All skips are exact: no (query, key) pair in a
+// skipped tile pair is valid, and every visited tile pair holds one (up
+// to the segment ids). Given a counter, every kernel adds one to it for
+// each (query tile, kv tile, query head) it visits, so that a caller can
+// read back what the skips left.
 //
 // Design, kept simple, in the form of attention_tiles.cuh (which the
 // packed and flash kernels share and this file leaves as it is): 64-token
@@ -99,8 +117,10 @@ struct SplashArgs {
   int window;           // <= 0: no window
   float softcap;        // <= 0: no softcap
   float inv_softcap;
+  int P, G, L;          // prefix layout; G = 0: none
   const int* seg_min;   // [B, nq] per-tile min segment id
   const int* seg_max;   // [B, nq] per-tile max segment id
+  unsigned long long* visits;  // or null: the visited tile-pair counter
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -115,6 +135,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Region of slot t >= P of the prefix layout.
+__device__ __forceinline__ int region(const SplashArgs& a, int t) { return (t - a.P) / a.L; }
+
+// A (query tile, kv tile) pair, j <= iq, that the prefix layout masks
+// whole: kv tile j lies past the prompt's last tile and before the tile
+// that holds the start of the region of query tile iq's first query.
+__device__ __forceinline__ bool layout_skips(const SplashArgs& a, int iq, int j) {
+  if (a.G <= 0 || (long long)j * kBlk < a.P) return false;
+  const int q0 = iq * kBlk > a.P ? iq * kBlk : a.P;
+  return j < (a.P + region(a, q0) * a.L) / kBlk;
+}
+
+// One visited (query tile, kv tile, query head) into the counter, if any.
+__device__ __forceinline__ void count_visit(const SplashArgs& a) {
+  if (a.visits != nullptr && threadIdx.x == 0) atomicAdd(a.visits, 1ULL);
+}
+
 // First kv tile that query tile iq can see: its window's reach.
 __device__ __forceinline__ int kv_first(const SplashArgs& a, int iq) {
   if (a.window <= 0) return 0;
@@ -123,8 +160,14 @@ __device__ __forceinline__ int kv_first(const SplashArgs& a, int iq) {
 }
 
 // Last query tile that sees kv tile j: the reach of the window of its last
-// key, or the end.
+// key, or the end; with a prefix layout, the end for a tile that overlaps
+// the prompt, else the tile of the end of its last key's region.
 __device__ __forceinline__ int q_last(const SplashArgs& a, int j) {
+  if (a.G > 0 && (long long)j * kBlk >= a.P) {
+    const int klast = j * kBlk + kBlk - 1 < a.T - 1 ? j * kBlk + kBlk - 1 : a.T - 1;
+    const int end = a.P + (region(a, klast) + 1) * a.L - 1;
+    return end / kBlk < a.nq - 1 ? end / kBlk : a.nq - 1;
+  }
   if (a.window <= 0) return a.nq - 1;
   const long long hi = ((long long)j * kBlk + kBlk - 1 + a.window - 1) / kBlk;
   return hi < a.nq - 1 ? (int)hi : a.nq - 1;
@@ -137,7 +180,9 @@ __device__ __forceinline__ bool disjoint(const SplashArgs& a, int b, int iq, int
 }
 
 __device__ __forceinline__ bool attends(const SplashArgs& a, int qs, int ks, int qpos, int kpos) {
-  return ks == qs && kpos <= qpos && (a.window <= 0 || qpos - kpos < a.window);
+  if (ks != qs || kpos > qpos) return false;
+  if (a.G > 0) return kpos < a.P || region(a, qpos) == region(a, kpos);
+  return a.window <= 0 || qpos - kpos < a.window;
 }
 
 // 64 rows (tokens t0..t0+63 of head h) of a [B, T, H, D] tensor into a
@@ -267,7 +312,8 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = threadIdx.x; i < kBlk * C::kLdo; i += C::kThreads) Os[i] = 0.0f;
 
   for (int j = kv_first(a, iq); j <= iq; ++j) {
-    if (disjoint(a, b, iq, j)) continue;  // uniform over the block
+    if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
+    count_visit(a);
     __syncthreads();  // the previous tile's readers are done
     load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
     load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
@@ -425,7 +471,8 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int nf = 0; nf < C::kSlice / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
 
   for (int j = kv_first(a, iq); j <= iq; ++j) {
-    if (disjoint(a, b, iq, j)) continue;  // uniform over the block
+    if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
+    count_visit(a);
     __syncthreads();
     load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
     load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
@@ -511,7 +558,8 @@ splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
     for (int iq = j; iq <= last; ++iq) {
-      if (disjoint(a, b, iq, j)) continue;  // uniform over the block
+      if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
+      count_visit(a);
       __syncthreads();  // the previous tile's readers are done
       load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, true, a.scale);
       load_tile<D>(dOs, dout, b, T, a.Hq, h, iq * kBlk, false, 1.0f);
@@ -572,11 +620,23 @@ inline int set_smem(const void* fn, int bytes) {
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-SplashArgs splash_args(int T, int Hq, int Hkv, float scale, int window, float softcap,
-                       const void* seg_min, const void* seg_max) {
-  return SplashArgs{T, Hq, Hkv, (T + kBlk - 1) / kBlk, scale, window, softcap,
+SplashArgs splash_args(int P, int G, int L, int T, int Hq, int Hkv, float scale, int window,
+                       float softcap, const void* seg_min, const void* seg_max,
+                       void* visits) {
+  return SplashArgs{T,
+                    Hq,
+                    Hkv,
+                    (T + kBlk - 1) / kBlk,
+                    scale,
+                    window,
+                    softcap,
                     softcap > 0.0f ? 1.0f / softcap : 0.0f,
-                    static_cast<const int*>(seg_min), static_cast<const int*>(seg_max)};
+                    P,
+                    G,
+                    L,
+                    static_cast<const int*>(seg_min),
+                    static_cast<const int*>(seg_max),
+                    static_cast<unsigned long long*>(visits)};
 }
 
 template <int D>
@@ -624,13 +684,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg, con
 // q [B, T, Hq, D], k, v [B, T, Hkv, D] bf16, segment ids [B, T] int32 and
 // their per-64-token-tile min / max [B, ceil(T/64)] int32. D is 64, 128 or 256,
 // Hq % Hkv == 0, pointers 16-byte aligned (the wrapper checks); window <= 0
-// and softcap <= 0 mean none. Returns the CUDA error code (0 if none).
+// and softcap <= 0 mean none; the prefix layout (P, G, L) has T = P + G L,
+// L > 0 and no window, and G = 0 means none. visits is null or a uint64 to
+// which each kernel adds the (query tile, kv tile, query head) triples it
+// visits. Returns the CUDA error code (0 if none).
 extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* seg, const void* seg_min,
-                                       const void* seg_max, void* out, void* lse, int B, int T,
-                                       int Hq, int Hkv, int D, float scale, int window,
-                                       float softcap, void* stream) {
-  const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
+                                       const void* seg_max, void* out, void* lse, int P, int G,
+                                       int L, int B, int T, int Hq, int Hkv, int D, float scale,
+                                       int window, float softcap, void* visits, void* stream) {
+  const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
+                                   visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_fwd<64>(q, k, v, seg, out, lse, B, a, s);
   if (D == 128) return launch_fwd<128>(q, k, v, seg, out, lse, B, a, s);
@@ -643,9 +707,11 @@ extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void*
 extern "C" int unsloth_splash_attn_dq(const void* q, const void* k, const void* v,
                                       const void* seg, const void* seg_min, const void* seg_max,
                                       const void* out, const void* dout, const void* lse,
-                                      void* di, void* dq, int B, int T, int Hq, int Hkv, int D,
-                                      float scale, int window, float softcap, void* stream) {
-  const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
+                                      void* di, void* dq, int P, int G, int L, int B, int T,
+                                      int Hq, int Hkv, int D, float scale, int window,
+                                      float softcap, void* visits, void* stream) {
+  const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
+                                   visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_dq<64>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
   if (D == 128) return launch_dq<128>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
@@ -658,10 +724,11 @@ extern "C" int unsloth_splash_attn_dq(const void* q, const void* k, const void* 
 extern "C" int unsloth_splash_attn_dkv(const void* q, const void* k, const void* v,
                                        const void* seg, const void* seg_min,
                                        const void* seg_max, const void* dout, const void* lse,
-                                       const void* di, void* dk, void* dv, int B, int T, int Hq,
-                                       int Hkv, int D, float scale, int window, float softcap,
-                                       void* stream) {
-  const SplashArgs a = splash_args(T, Hq, Hkv, scale, window, softcap, seg_min, seg_max);
+                                       const void* di, void* dk, void* dv, int P, int G, int L,
+                                       int B, int T, int Hq, int Hkv, int D, float scale,
+                                       int window, float softcap, void* visits, void* stream) {
+  const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
+                                   visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_dkv<64>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
   if (D == 128) return launch_dkv<128>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);

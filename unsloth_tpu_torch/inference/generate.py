@@ -7,10 +7,14 @@ top-p sampling from a seeded ``torch.Generator`` on the model's device.
 Where JAX keeps the whole loop on the device (``lax.while_loop``), the
 port's loop runs on the host and reads ``done.all()`` once per step to stop
 early when every row has emitted an EOS id; that one sync per token is
-accepted here (CUDA graphs are later work).
+accepted here (CUDA graphs are later work). ``num_return_sequences=G``
+(JAX ``n_fanout``) prefills each prompt once, then repeats its k/v cache,
+last logits, next position and slot mask G times along the batch
+(``repeat_interleave``), so the G decode streams of a prompt are
+consecutive in the output, as GRPO's rollouts group them.
 
-Not ported yet (each raises ``NotImplementedError``): speculative decoding,
-``num_return_sequences`` > 1 (shared-prefix fan-out) and fp8 KV caches.
+Not ported yet (each raises ``NotImplementedError``): speculative decoding
+and fp8 KV caches.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from .decode import forward_with_cache, init_cache, logits_from_hidden
+from .decode import KVCache, forward_with_cache, init_cache, \
+    logits_from_hidden
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +63,17 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
 
 
+@torch.no_grad()
 def _generate_ids(params: Dict[str, Any], lora, prompt_ids: torch.Tensor,
                   prompt_mask: torch.Tensor, cfg: ModelConfig,
                   max_new_tokens: int, eos_ids: torch.Tensor,
-                  sampling: SamplingParams) -> torch.Tensor:
-    """[B, T] left-padded prompts -> [B, max_new_tokens] new ids; rows that
-    have emitted an EOS id are filled with 0 from then on."""
+                  sampling: SamplingParams, n_fanout: int = 1
+                  ) -> torch.Tensor:
+    """[B, T] left-padded prompts -> [B * n_fanout, max_new_tokens] new
+    ids, the n_fanout streams of a prompt consecutive; rows that have
+    emitted an EOS id are filled with 0 from then on. No autograd graph is
+    built, even while the LoRA tensors require gradients (GRPO's rollouts
+    run inside its training loop)."""
     dev = prompt_ids.device
     b, t_prompt = prompt_ids.shape
     cache = init_cache(cfg, b, t_prompt + max_new_tokens,
@@ -81,6 +91,16 @@ def _generate_ids(params: Dict[str, Any], lora, prompt_ids: torch.Tensor,
                                   kv_valid_extra=kv_valid_extra)
     logits = logits_from_hidden(params, h[:, -1, :], cfg, lora)
     pos = positions[:, -1] + 1
+    if n_fanout > 1:
+        # each prompt prefilled once; its cache fans out to n_fanout streams
+        def tile(x):
+            return x.repeat_interleave(n_fanout, dim=0)
+
+        cache = KVCache(k=[tile(x) for x in cache.k],
+                        v=[tile(x) for x in cache.v], length=cache.length)
+        logits, pos, kv_valid_extra = tile(logits), tile(pos), \
+            tile(kv_valid_extra)
+        b = b * n_fanout
     gen = torch.Generator(device=dev).manual_seed(sampling.seed)
     tok = _sample(logits, gen, sampling)
     out = torch.zeros((b, max_new_tokens), dtype=torch.int64, device=dev)
@@ -112,14 +132,14 @@ def generate(model, prompts: Union[str, Sequence[str], np.ndarray,
              kv_cache_dtype: str = "bf16"):
     """Strings or token-id lists in, strings (or id lists) out.
 
-    lora: an adapter tree to use instead of ``model.lora``, or None for the
-    bare base model."""
+    num_return_sequences=G gives G completions a prompt, grouped
+    consecutively, the prompt prefilled once. lora: an adapter tree to use
+    instead of ``model.lora``, or None for the bare base model."""
     if speculative:
         raise NotImplementedError("speculative decoding is not ported yet")
-    if num_return_sequences != 1:
-        raise NotImplementedError(
-            "num_return_sequences > 1 (shared-prefix fan-out) is not ported "
-            "yet")
+    if num_return_sequences < 1:
+        raise ValueError(f"num_return_sequences={num_return_sequences} must "
+                         "be >= 1")
     if kv_cache_dtype != "bf16":
         raise NotImplementedError(f"kv_cache_dtype={kv_cache_dtype!r} is not "
                                   "ported yet; only 'bf16'")
@@ -162,7 +182,7 @@ def generate(model, prompts: Union[str, Sequence[str], np.ndarray,
         model.params, lora_tree, torch.from_numpy(prompt_ids).to(dev),
         torch.from_numpy(prompt_mask).to(dev), model.cfg, sampling.max_tokens,
         torch.tensor(sorted(eos_set), dtype=torch.int64, device=dev),
-        sampling).cpu().tolist()
+        sampling, n_fanout=num_return_sequences).cpu().tolist()
 
     ids = [_trim_eos(row, eos_set) for row in out]
     if return_token_ids or tok is None:

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import ACT2GLU, glu_for
-from ..ops.attention import attention
+from ..ops.attention import active_prefix_layout, attention
 from ..ops.cross_entropy import fast_cross_entropy_loss
 from ..ops.fused_ce_linear import fused_ce_loss_mean
 from ..ops.lora import base_matmul, lora_matmul
@@ -160,9 +160,11 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 def attention_block(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
                     layer_idx: int, cos, sin, cos_local, sin_local,
                     segment_ids: Optional[torch.Tensor],
-                    positions: Optional[torch.Tensor]) -> torch.Tensor:
+                    positions: Optional[torch.Tensor],
+                    prefix_layout=None) -> torch.Tensor:
     """q/k/v projections, qk-norm, RoPE, attention (ops/attention.py
-    dispatch) and the o projection."""
+    dispatch, with GRPO's prefix layout where given) and the o
+    projection."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _proj(x, layer_p, lora_p, "q").reshape(b, t, hq, dh)
@@ -180,19 +182,22 @@ def attention_block(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
     out = attention(q, k, v, causal=cfg.causal, segment_ids=segment_ids,
                     window=cfg.sliding_window if kind == "sliding" else None,
                     softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale,
-                    positions=positions, sinks=layer_p.get("sinks"))
+                    positions=positions, sinks=layer_p.get("sinks"),
+                    prefix_layout=prefix_layout)
     return _proj(out.reshape(b, t, hq * dh), layer_p, lora_p, "o")
 
 
 def decoder_layer(x: torch.Tensor, layer_p, lora_p, cfg: ModelConfig,
                   layer_idx: int, cos, sin, cos_local, sin_local,
                   segment_ids: Optional[torch.Tensor],
-                  positions: Optional[torch.Tensor]) -> torch.Tensor:
+                  positions: Optional[torch.Tensor],
+                  prefix_layout=None) -> torch.Tensor:
     """Pre-norm residual block: x + attn(norm(x)), then + mlp(norm(x))
     (with Gemma-2/3's extra post norms where the layer has them)."""
     h = _norm(x, layer_p["input_norm"], cfg)
     attn = attention_block(h, layer_p, lora_p, cfg, layer_idx, cos, sin,
-                           cos_local, sin_local, segment_ids, positions)
+                           cos_local, sin_local, segment_ids, positions,
+                           prefix_layout)
     if cfg.use_post_norms and "post_attn_out_norm" in layer_p:
         attn = _norm(attn, layer_p["post_attn_out_norm"], cfg)
     rm = cfg.residual_multiplier
@@ -229,7 +234,11 @@ def forward(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
                      offload policy and of the reference's "unsloth"
                      gradient checkpointing.
     Everything else the layers read (rope tables, segment ids, weights)
-    is shared and stays where it is."""
+    is shared and stays where it is. The prefix layout active at the call
+    (``ops.attention.prefix_attention``, where its P + G * L is T) is
+    bound to every layer here, so that a recompute in the backward, which
+    runs outside the context, attends with the same mask (JAX bakes it in
+    at trace time)."""
     if remat not in _REMAT:
         raise ValueError(f"forward: remat={remat!r}; expected one of "
                          f"{_REMAT}")
@@ -245,13 +254,14 @@ def forward(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
     cos, sin, cos_local, sin_local = _rope_tables(cfg, positions)
     lora_layers = (lora or {}).get("layers")
+    layout = active_prefix_layout(t)
     for i, layer_p in enumerate(params["layers"]):
         layer = functools.partial(
             decoder_layer, layer_p=layer_p,
             lora_p=lora_layers[i] if lora_layers else None, cfg=cfg,
             layer_idx=i, cos=cos, sin=sin, cos_local=cos_local,
             sin_local=sin_local, segment_ids=segment_ids,
-            positions=positions)
+            positions=positions, prefix_layout=layout)
         if remat == "offload":
             with torch.autograd.graph.save_on_cpu(pin_memory=x.is_cuda):
                 x = checkpoint(layer, x, use_reentrant=False,

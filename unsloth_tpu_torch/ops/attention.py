@@ -11,7 +11,17 @@ carries no value).
 * :func:`banded_window_attention` — exact sliding-window attention over
   bands of 2 x roundup(window, 128) keys, plain PyTorch under
   ``torch.utils.checkpoint`` (sinks and softcap inline); on any device.
-* :func:`attention` — the dispatcher. With sinks it takes JAX's order:
+* :func:`prefix_attention` — the context manager that activates GRPO's
+  shared-prefix layout (P, G, L) for every :func:`attention` call inside
+  it (rows of [P prompt slots | G completion regions of L slots]; mask
+  :func:`prefix_mask_array`).
+* :func:`attention` — the dispatcher. The prefix route comes first, as in
+  JAX: with ``prefix_layout`` given, or an active layout whose P + G * L
+  is the row's T, a CUDA tensor launches K18's prefix form (splash with
+  the layout in place of the window) when there is neither softcap nor
+  sinks and raises ``NotImplementedError`` otherwise (JAX runs its masked
+  reference there), and a CPU tensor takes :func:`attention_ref` with the
+  layout. With sinks it takes JAX's order:
   plain causal rows launch K17 (``ops/flash_sinks.py``, head dim 64) on a
   CUDA tensor; a narrow window (4 bands fit in T) takes the banded form;
   otherwise, on CUDA, the window or softcap kernel (K18, head dim 64, 128
@@ -38,7 +48,7 @@ carries no value).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -51,9 +61,11 @@ from .packed_attention import BLOCK
 from .packed_attention import KERNEL_HEAD_DIM as PACKED_HEAD_DIM
 from .packed_attention import packed_flash_attention
 from .splash_attention import KERNEL_HEAD_DIMS as SPLASH_HEAD_DIMS
-from .splash_attention import splash_attention
+from .splash_attention import (check_prefix_layout, prefix_mask_array,
+                               splash_attention)
 
 _SEGMENT_BOUND: Optional[int] = None
+_PREFIX_LAYOUT: Optional[Tuple[int, int, int]] = None
 
 
 class packed_segment_bound:
@@ -83,6 +95,38 @@ def current_segment_bound() -> Optional[int]:
     return _SEGMENT_BOUND
 
 
+class prefix_attention:
+    """Context manager activating the shared-prefix GRPO layout (P, G, L)
+    for every :func:`attention` call inside it whose row length T is
+    P + G * L: rows of [P prompt slots | G completion regions of L slots],
+    where each completion attends the prompt and itself."""
+
+    def __init__(self, layout):
+        self.layout = tuple(int(x) for x in layout)
+
+    def __enter__(self):
+        global _PREFIX_LAYOUT
+        self._prev = _PREFIX_LAYOUT
+        _PREFIX_LAYOUT = self.layout
+        return self
+
+    def __exit__(self, *exc):
+        global _PREFIX_LAYOUT
+        _PREFIX_LAYOUT = self._prev
+        return False
+
+
+def current_prefix_layout() -> Optional[Tuple[int, int, int]]:
+    return _PREFIX_LAYOUT
+
+
+def active_prefix_layout(t: int) -> Optional[Tuple[int, int, int]]:
+    """The active prefix layout if it fills a row of ``t`` slots (P + G * L
+    == t), else None."""
+    lay = _PREFIX_LAYOUT
+    return lay if lay is not None and lay[0] + lay[1] * lay[2] == t else None
+
+
 def _gqa_expand(k: torch.Tensor, hq: int) -> torch.Tensor:
     hkv = k.shape[2]
     if hq == hkv:
@@ -96,11 +140,15 @@ def attention_ref(q, k, v, *, causal: bool = True,
                   softcap: Optional[float] = None,
                   scale: Optional[float] = None,
                   positions: Optional[torch.Tensor] = None,
-                  sinks: Optional[torch.Tensor] = None):
+                  sinks: Optional[torch.Tensor] = None,
+                  prefix_layout: Optional[Tuple[int, int, int]] = None):
     """Masked SDPA with fp32 scores and softmax; returns [B, T, Hq, Dh] in
     q.dtype. Fully masked rows give zeros (their softmax would be NaN);
     with ``sinks`` the softmax runs over [scores, sink] and the sink column
-    is dropped before the value product (HF GptOssAttention)."""
+    is dropped before the value product (HF GptOssAttention). A
+    ``prefix_layout`` (P, G, L) replaces the causal, window and positions
+    mask with :func:`prefix_mask_array`'s slot mask; segment ids still
+    apply."""
     b, t, hq, dh = q.shape
     s = k.shape[1]
     if scale is None:
@@ -119,6 +167,10 @@ def attention_ref(q, k, v, *, causal: bool = True,
     qpos = positions[:, :, None]
     kpos = kv_positions[:, None, :]
     mask = torch.ones((b, t, s), dtype=torch.bool, device=dev)
+    if prefix_layout is not None:
+        mask = mask & torch.from_numpy(prefix_mask_array(
+            *check_prefix_layout(prefix_layout, t))).to(dev)[None]
+        causal, window = False, None
     if causal:
         mask = mask & (qpos >= kpos)
     if window is not None:
@@ -275,12 +327,20 @@ def attention(q, k, v, *, causal: bool = True,
               softcap: Optional[float] = None,
               scale: Optional[float] = None,
               positions: Optional[torch.Tensor] = None,
-              sinks: Optional[torch.Tensor] = None):
+              sinks: Optional[torch.Tensor] = None,
+              prefix_layout: Optional[Tuple[int, int, int]] = None):
     """Dispatching attention (training path, self-attention)."""
     b, t, hq, dh = q.shape
     if scale is None:
         scale = dh ** -0.5
     self_attn = k.shape[1] == t and hq % k.shape[2] == 0
+    if prefix_layout is None and k.shape[1] == t:
+        prefix_layout = active_prefix_layout(t)
+    if prefix_layout is not None:
+        return _attention_prefix(q, k, v, prefix_layout,
+                                 segment_ids=segment_ids, softcap=softcap,
+                                 scale=scale, sinks=sinks,
+                                 self_attn=self_attn)
     if sinks is not None:
         return _attention_sinks(q, k, v, sinks, causal=causal,
                                 segment_ids=segment_ids, window=window,
@@ -313,6 +373,31 @@ def attention(q, k, v, *, causal: bool = True,
         "form of TPU kernel K16 (bundled flash with causal=False, "
         "unsloth_tpu/ops/attention.py:_tpu_flash); the port covers causal "
         "self-attention")
+
+
+def _attention_prefix(q, k, v, prefix_layout, *, segment_ids, softcap,
+                      scale, sinks, self_attn):
+    """GRPO's shared-prefix layout (JAX ``attention``'s first route): on
+    CUDA, K18's prefix form when there is neither softcap nor sinks; on
+    the CPU the masked reference with the layout."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=True, segment_ids=segment_ids,
+                             softcap=softcap, scale=scale, sinks=sinks,
+                             prefix_layout=prefix_layout)
+    if softcap is not None or sinks is not None:
+        raise NotImplementedError(
+            f"attention on {q.device} with a prefix layout "
+            f"{tuple(prefix_layout)} and a softcap ({softcap}) or sinks: no "
+            "kernel covers it (JAX runs its masked reference there, "
+            "unsloth_tpu/ops/attention.py:619-622); K18's prefix form takes "
+            "neither")
+    if not self_attn:
+        raise NotImplementedError(
+            f"attention on {q.device} with a prefix layout needs self-"
+            f"attention with Hq % Hkv == 0 (q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)})")
+    return splash_attention(q, k, v, segment_ids, scale=scale,
+                            prefix_layout=prefix_layout)
 
 
 def _attention_sinks(q, k, v, sinks, *, causal, segment_ids, window,

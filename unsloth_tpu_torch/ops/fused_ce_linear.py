@@ -7,6 +7,10 @@ logsumexp), and dropped. The backward recomputes each chunk's logits to
 form dhidden (and dW when the head is trainable). Peak memory is O(C·V)
 instead of O(N·V). The per-chunk products are plain ``torch`` matrix
 products with fp32 outputs, as the JAX package leaves them to XLA.
+:func:`fused_linear_ce_per_row` gives the loss of each row, with a
+per-row upstream gradient; :func:`fused_linear_cross_entropy` their sum
+(SFT) and :func:`selective_log_softmax` their negation, the
+log-probability of one token a row (GRPO).
 
 Rounding points: logits = hidden @ w with fp32 accumulation and an fp32
 result (JAX ``preferred_element_type=float32``); in the backward dz is
@@ -44,28 +48,10 @@ def _chunk_logits(h_c, w, bias, softcap, logit_scale):
     return z0, _transform_logits(z0, softcap, logit_scale)
 
 
-def _fwd_impl(hidden, w, bias, labels, softcap, logit_scale, chunk_size):
-    n = hidden.shape[0]
-    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    lse_all = torch.empty((n,), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, n, chunk_size):
-        lb = labels[c0:c0 + chunk_size]
-        _, z = _chunk_logits(hidden[c0:c0 + chunk_size], w, bias, softcap,
-                             logit_scale)
-        lse = torch.logsumexp(z, dim=-1)
-        valid = lb != IGNORE_INDEX
-        safe = torch.where(valid, lb, torch.zeros_like(lb)).long()
-        target = torch.gather(z, 1, safe[:, None])[:, 0]
-        loss_sum = loss_sum + torch.where(valid, lse - target,
-                                          torch.zeros_like(lse)).sum()
-        lse_all[c0:c0 + chunk_size] = lse
-        del z
-    return loss_sum, lse_all
-
-
-def _chunk_dz(h_c, w, bias, lb, lse, softcap, logit_scale, g_loss):
-    """Recompute the chunk's logits and form dz, the gradient of the
-    loss sum with respect to the raw (pre-transform) logits, fp32."""
+def _chunk_dz(h_c, w, bias, lb, lse, softcap, logit_scale, g):
+    """Recompute the chunk's logits and form dz, the gradient of the rows'
+    losses, weighted by their upstream gradients ``g`` ([C, 1]), with
+    respect to the raw (pre-transform) logits, fp32."""
     z0, z = _chunk_logits(h_c, w, bias, softcap, logit_scale)
     th = torch.tanh((z0 * logit_scale if logit_scale is not None else z0)
                     / softcap) if softcap is not None else None
@@ -80,26 +66,37 @@ def _chunk_dz(h_c, w, bias, lb, lse, softcap, logit_scale, g_loss):
         dz.mul_(1.0 - th * th)
     if logit_scale is not None:
         dz.mul_(logit_scale)
-    return dz.mul_(g_loss)
+    return dz.mul_(g)
 
 
-class _FusedLinearCE(torch.autograd.Function):
+class _FusedLinearCEPerRow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, w, bias, labels, softcap, logit_scale,
                 chunk_size, w_trainable):
-        loss_sum, lse = _fwd_impl(hidden, w, bias, labels, softcap,
-                                  logit_scale, chunk_size)
-        n_valid = (labels != IGNORE_INDEX).sum()
-        ctx.mark_non_differentiable(n_valid)
+        n = hidden.shape[0]
+        loss = torch.empty((n,), dtype=torch.float32, device=hidden.device)
+        lse = torch.empty((n,), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, n, chunk_size):
+            lb = labels[c0:c0 + chunk_size]
+            _, z = _chunk_logits(hidden[c0:c0 + chunk_size], w, bias,
+                                 softcap, logit_scale)
+            lse_c = torch.logsumexp(z, dim=-1)
+            valid = lb != IGNORE_INDEX
+            safe = torch.where(valid, lb, torch.zeros_like(lb)).long()
+            target = torch.gather(z, 1, safe[:, None])[:, 0]
+            loss[c0:c0 + chunk_size] = torch.where(
+                valid, lse_c - target, torch.zeros_like(lse_c))
+            lse[c0:c0 + chunk_size] = lse_c
+            del z
         ctx.save_for_backward(hidden, w, bias, labels, lse)
         ctx.cfg = (softcap, logit_scale, chunk_size, w_trainable)
-        return loss_sum, n_valid
+        return loss
 
     @staticmethod
-    def backward(ctx, g_loss, _g_nvalid):
+    def backward(ctx, g):
         hidden, w, bias, labels, lse = ctx.saved_tensors
         softcap, logit_scale, chunk_size, w_trainable = ctx.cfg
-        g_loss = g_loss.to(torch.float32)
+        g = g.to(torch.float32)
         want_w = w_trainable and ctx.needs_input_grad[1]
         want_b = w_trainable and bias is not None and ctx.needs_input_grad[2]
         dh = torch.empty_like(hidden)
@@ -111,7 +108,7 @@ class _FusedLinearCE(torch.autograd.Function):
             h_c = hidden[c0:c0 + chunk_size]
             dz = _chunk_dz(h_c, w, bias, labels[c0:c0 + chunk_size],
                            lse[c0:c0 + chunk_size], softcap, logit_scale,
-                           g_loss)
+                           g[c0:c0 + chunk_size, None])
             dz_h = dz.to(hidden.dtype)
             dh[c0:c0 + chunk_size] = _mm_f32(dz_h, w.t()).to(hidden.dtype)
             if dw is not None:
@@ -125,6 +122,35 @@ class _FusedLinearCE(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+def fused_linear_ce_per_row(hidden: torch.Tensor, w: torch.Tensor,
+                            bias: Optional[torch.Tensor],
+                            labels: torch.Tensor,
+                            softcap: Optional[float] = None,
+                            logit_scale: Optional[float] = None,
+                            chunk_size: int = _DEFAULT_CHUNK,
+                            w_trainable: bool = False) -> torch.Tensor:
+    """Per-row CE loss [N] in fp32 without holding [N, V] logits; rows with
+    label -100 give 0. hidden [N, D]; w [D, V]; labels [N]. The backward
+    takes a per-row upstream gradient and recomputes each chunk's logits
+    (dz rounded to hidden's dtype before dz @ w^T: exact in fp32)."""
+    return _FusedLinearCEPerRow.apply(hidden, w, bias, labels, softcap,
+                                      logit_scale, int(chunk_size),
+                                      bool(w_trainable))
+
+
+def selective_log_softmax(hidden: torch.Tensor, w: torch.Tensor,
+                          token_ids: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          softcap: Optional[float] = None,
+                          logit_scale: Optional[float] = None,
+                          chunk_size: int = _DEFAULT_CHUNK,
+                          w_trainable: bool = False) -> torch.Tensor:
+    """log p(token_ids) of each row [N], fp32, in chunks, the logits never
+    held whole; rows with token id -100 give 0."""
+    return -fused_linear_ce_per_row(hidden, w, bias, token_ids, softcap,
+                                    logit_scale, chunk_size, w_trainable)
+
+
 def fused_linear_cross_entropy(hidden: torch.Tensor, w: torch.Tensor,
                                bias: Optional[torch.Tensor],
                                labels: torch.Tensor,
@@ -136,9 +162,9 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, w: torch.Tensor,
     valid tokens). hidden [N, D]; w [D, V] (a transposed view of the
     [V, D] head is fine); labels [N], already shifted. ``w_trainable=False``
     (a frozen head, as under LoRA) skips the [D, V] weight gradient."""
-    return _FusedLinearCE.apply(hidden, w, bias, labels, softcap,
-                                logit_scale, int(chunk_size),
-                                bool(w_trainable))
+    loss = fused_linear_ce_per_row(hidden, w, bias, labels, softcap,
+                                   logit_scale, chunk_size, w_trainable)
+    return loss.sum(), (labels != IGNORE_INDEX).sum()
 
 
 def fused_ce_loss_mean(hidden: torch.Tensor, w: torch.Tensor,

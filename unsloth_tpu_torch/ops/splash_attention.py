@@ -1,18 +1,23 @@
 """Splash attention: causal self-attention with a sliding window, a logit
-softcap, segment ids and GQA, in PyTorch with hand-written CUDA kernels
-(K18).
+softcap, segment ids, GQA and GRPO's shared-prefix layout, in PyTorch with
+hand-written CUDA kernels (K18).
 
 Counterpart of unsloth_tpu/ops/attention.py:_tpu_splash, which runs the
 bundled ``jax.experimental.pallas.ops.tpu.splash_attention`` kernels
-(built in ``_splash_kernel``) with a ``CausalMask``, or a
-``LocalMask(window_size=(window - 1, 0))`` when a window is given, per kv
-head. What they compute, as ``_tpu_splash`` feeds them:
+(built in ``_splash_kernel``) with a ``CausalMask``, a
+``LocalMask(window_size=(window - 1, 0))`` when a window is given, or a
+``NumpyMask(prefix_mask_array(P, G, L))`` under ``prefix_attention``, per
+kv head. What they compute, as ``_tpu_splash`` feeds them:
 
 * q is multiplied by ``scale`` in its own dtype first (``q * scale``);
 * s = q_scaled . k in fp32; with a softcap c, s' = c * tanh(s / c);
 * token i attends to token j iff j <= i, i - j < window (when given) and
-  their segment ids are equal (no segment ids: one segment); every output
-  is defined, pad positions included;
+  their segment ids are equal (no segment ids: one segment); with a
+  prefix layout (P, G, L) (the row is [P prompt slots | G completion
+  regions of L slots], T = P + G L) the window is unset and j <= i, equal
+  segment ids and (j < P or i and j in the same region) decide
+  (:func:`prefix_mask_array`); every output is defined, pad positions
+  included;
 * the backward: dS' = P * (dP - di), dS = dS' * (1 - tanh^2(s / c)) when
   capped; dq = scale * (dS @ k), dk = dS^T @ q_scaled, dv = P^T @ dout,
   dk and dv summed over each kv head's query heads.
@@ -23,18 +28,22 @@ On CUDA tensors :func:`splash_attention` runs ``csrc/splash_attention.cu``:
 :func:`splash_attention_dkv` (dk, dv), each with its own launch count. On
 CPU tensors it runs the plain versions :func:`splash_attention_fwd_ref`
 and :func:`splash_attention_bwd_ref` in fp32. The device of q is the only
-thing that chooses.
+thing that chooses. Each kernel wrapper takes an optional ``tile_visits``
+counter (an int64 tensor of one element on the card), to which its kernel
+adds one for each (64-query tile, 64-key tile, query head) it visits: what
+the causal, window, segment and prefix-layout skips left.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
 [B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256, any T;
-anything else raises. Not ported: the shared-prefix (GRPO) mask and the non-causal
-``FullMask`` forms of the same kernels.
+anything else raises. Not ported: the non-causal ``FullMask`` form of the
+same kernels.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -43,6 +52,31 @@ from .flash_attention import (_check_kernel_inputs, _mask, _stream,
 
 #: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def prefix_mask_array(P: int, G: int, L: int) -> np.ndarray:
+    """Static [T, T] bool mask of the shared-prefix GRPO layout [P prompt
+    slots | G completion regions of L slots], T = P + G * L (JAX
+    ``prefix_mask_array``): query slot i attends key slot j iff j <= i and
+    (j < P or i and j lie in the same region). Each completion sees the
+    shared prompt and itself, the prompt is causal within itself, and
+    completions never see each other."""
+    T = P + G * L
+    q = np.arange(T)[:, None]
+    k = np.arange(T)[None, :]
+    reg_q = np.where(q >= P, (q - P) // L, -1)
+    reg_k = np.where(k >= P, (k - P) // L, -2)
+    return (q >= k) & ((k < P) | (reg_q == reg_k))
+
+
+def check_prefix_layout(layout, t: int) -> Tuple[int, int, int]:
+    """(P, G, L) as ints; raises unless P >= 0, G >= 1, L >= 1 and
+    P + G * L == t."""
+    P, G, L = (int(x) for x in layout)
+    if P < 0 or G < 1 or L < 1 or P + G * L != t:
+        raise ValueError(f"prefix layout (P, G, L) = {(P, G, L)} does not "
+                         f"fill T = {t} (needs P + G * L == T, G, L >= 1)")
+    return P, G, L
 
 
 def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -68,14 +102,29 @@ def _capped(s: torch.Tensor, softcap: Optional[float]):
 # plain versions (CPU path; the card's kernels are held against them)
 # ---------------------------------------------------------------------------
 
+def _splash_mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
+                 window: Optional[int], prefix_layout) -> torch.Tensor:
+    """[B, T, T] bool: causal, within the window and with equal segment ids;
+    with a prefix layout, :func:`prefix_mask_array` and equal segment
+    ids."""
+    if prefix_layout is None:
+        return _mask(segment_ids, b, t, device, window)
+    pm = torch.from_numpy(prefix_mask_array(
+        *check_prefix_layout(prefix_layout, t))).to(device)
+    if segment_ids is None:
+        return pm[None].expand(b, t, t)
+    return pm[None] & (segment_ids[:, :, None] == segment_ids[:, None, :])
+
+
 def splash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor], *,
                              window: Optional[int], softcap: Optional[float],
-                             scale: float
+                             scale: float, prefix_layout=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward in fp32, one kv head (and its query heads) at a time:
     (out [B, T, Hq, D] in q.dtype, lse [B, Hq, T] fp32)."""
     b, t, hq, d = q.shape
-    mask = _mask(segment_ids, b, t, q.device, window)[:, None]
+    mask = _splash_mask(segment_ids, b, t, q.device, window,
+                        prefix_layout)[:, None]
     qs = _scaled_q(q, scale)
     out = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
@@ -92,12 +141,14 @@ def splash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor], *,
 
 def splash_attention_bwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
                              out, lse, dout, *, window: Optional[int],
-                             softcap: Optional[float], scale: float):
+                             softcap: Optional[float], scale: float,
+                             prefix_layout=None):
     """Plain backward from the saved (out, lse), with the bundled kernels'
     formulas in fp32 (module docstring), one kv head at a time. Returns
     (dq, dk, dv) in the input dtypes."""
     b, t, hq, d = q.shape
-    mask = _mask(segment_ids, b, t, q.device, window)[:, None]
+    mask = _splash_mask(segment_ids, b, t, q.device, window,
+                        prefix_layout)[:, None]
     qs = _scaled_q(q, scale)
     dof = dout.to(torch.float32)
     di = (dof * out.to(torch.float32)).sum(-1).transpose(1, 2)  # [B, H, T]
@@ -130,13 +181,39 @@ def _options(window: Optional[int], softcap: Optional[float]):
             0.0 if softcap is None else float(softcap))
 
 
+def _visits(tile_visits: Optional[torch.Tensor], q: torch.Tensor):
+    """The kernels' counter pointer (None: no count)."""
+    if tile_visits is None:
+        return None
+    if (tile_visits.dtype != torch.int64 or tile_visits.device != q.device
+            or tile_visits.numel() != 1):
+        raise ValueError("splash attention: tile_visits must be one int64 "
+                         f"element on {q.device}; got {tile_visits.dtype} "
+                         f"{tuple(tile_visits.shape)} on "
+                         f"{tile_visits.device}")
+    return tile_visits.data_ptr()
+
+
+def _layout(prefix_layout, t: int, window: Optional[int]):
+    """The kernels' runtime (P, G, L): G = 0 for none."""
+    if prefix_layout is None:
+        return 0, 0, 0
+    if window is not None:
+        raise ValueError("splash attention: a prefix layout replaces the "
+                         f"window; got window={window} with the layout "
+                         f"{tuple(prefix_layout)}")
+    return check_prefix_layout(prefix_layout, t)
+
+
 def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
                          window: Optional[int], softcap: Optional[float],
-                         scale: float):
+                         scale: float, prefix_layout=None,
+                         tile_visits: Optional[torch.Tensor] = None):
     """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32)."""
     _check_kernel_inputs("splash_attention_fwd", q, k, v, segment_ids,
                          KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
+    layout = _layout(prefix_layout, t, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -144,8 +221,8 @@ def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
     rc = kernels.library().unsloth_splash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), _stream(q))
+        lse.data_ptr(), *layout, b, t, hq, k.shape[2], d, float(scale),
+        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
     kernels.check(rc, "splash_attention_fwd")
     splash_attention_fwd.launches += 1
     return out, lse
@@ -157,11 +234,14 @@ splash_attention_fwd.launches = 0
 
 def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
                         dout, *, window: Optional[int],
-                        softcap: Optional[float], scale: float):
+                        softcap: Optional[float], scale: float,
+                        prefix_layout=None,
+                        tile_visits: Optional[torch.Tensor] = None):
     """Kernel dq: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
     _check_kernel_inputs("splash_attention_dq", q, k, v, segment_ids,
                          KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
+    layout = _layout(prefix_layout, t, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -171,9 +251,9 @@ def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
     rc = kernels.library().unsloth_splash_attn_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), *_options(window, softcap),
-        _stream(q))
+        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        *layout, b, t, hq, k.shape[2], d, float(scale),
+        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
     kernels.check(rc, "splash_attention_dq")
     splash_attention_dq.launches += 1
     return dq, di
@@ -185,12 +265,15 @@ splash_attention_dq.launches = 0
 
 def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
                          dout, *, window: Optional[int],
-                         softcap: Optional[float], scale: float):
+                         softcap: Optional[float], scale: float,
+                         prefix_layout=None,
+                         tile_visits: Optional[torch.Tensor] = None):
     """Kernel dk/dv: (dk, dv) [B, T, Hkv, D] bf16, from the dq kernel's
     di."""
     _check_kernel_inputs("splash_attention_dkv", q, k, v, segment_ids,
                          KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
+    layout = _layout(prefix_layout, t, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -200,9 +283,9 @@ def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
     rc = kernels.library().unsloth_splash_attn_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), *_options(window, softcap),
-        _stream(q))
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *layout, b, t, hq, k.shape[2], d, float(scale),
+        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
     kernels.check(rc, "splash_attention_dkv")
     splash_attention_dkv.launches += 1
     return dk, dv
@@ -214,8 +297,10 @@ splash_attention_dkv.launches = 0
 
 class _SplashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, window, softcap, scale):
-        opts = dict(window=window, softcap=softcap, scale=scale)
+    def forward(ctx, q, k, v, segment_ids, window, softcap, scale,
+                prefix_layout):
+        opts = dict(window=window, softcap=softcap, scale=scale,
+                    prefix_layout=prefix_layout)
         if q.device.type == "cpu":
             out, lse = splash_attention_fwd_ref(q, k, v, segment_ids, **opts)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse)
@@ -242,16 +327,17 @@ class _SplashAttention(torch.autograd.Function):
                                          lse, dout, **ctx.opts)
             dk, dv = splash_attention_dkv(q, k, v, segment_ids, *ranges, lse,
                                           di, dout, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def splash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, prefix_layout=None):
     """Causal attention with an optional sliding window (i - j < window),
-    logit softcap and segment ids; differentiable in q, k, v. q [B, T, Hq,
-    D]; k, v [B, T, Hkv, D] with Hq % Hkv == 0."""
+    logit softcap and segment ids, or with a prefix layout (P, G, L) in
+    place of the window; differentiable in q, k, v. q [B, T, Hq, D]; k, v
+    [B, T, Hkv, D] with Hq % Hkv == 0."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"splash_attention: Hq={q.shape[2]} is not a "
                          f"multiple of Hkv={k.shape[2]}")
@@ -259,7 +345,9 @@ def splash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, *,
         raise ValueError(f"splash_attention: window={window} must be > 0")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"splash_attention: softcap={softcap} must be > 0")
+    if prefix_layout is not None:
+        prefix_layout = _layout(prefix_layout, q.shape[1], window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _SplashAttention.apply(q, k, v, segment_ids, window, softcap,
-                                  float(scale))
+                                  float(scale), prefix_layout)

@@ -12,7 +12,9 @@ exits non-zero without printing a result:
   2. build     compile the package's CUDA kernels from csrc/, one nvcc per
                source in parallel (timed);
   3. kernels   each kernel against its plain PyTorch version on the card at
-               the main paths' shapes, with median times: the NF4 matmul
+               the main paths' shapes, with the kernels' median times and
+               the plain versions' time of the one call the check reads
+               (:func:`once_ms`): the NF4 matmul
                (K1) and its backward (K2) at every Llama-3.1-8B projection
                shape, RMSNorm forward (K3) and backward (K4), packed flash
                attention forward and backward (K9-K11) on an 8K row, the
@@ -48,7 +50,11 @@ exits non-zero without printing a result:
                the layout (256, 6, 896) (T = 5,632; a left-padded prompt,
                short completions), with the tile pairs each kernel
                visited, read back from its counter, held to the tile
-               rule's count and printed beside causal's; the
+               rule's count and printed beside causal's; then the
+               Whisper path's LayerNorm forward (K5) and backward (K6) at
+               [3000, 1280] (2 x 1,500 encoder frames) in bf16 and fp32,
+               at [448, 1280] (2 x 224 decoder tokens) in bf16 and with
+               b=None (library call: F.layer_norm and its backward); the
                check must reject injected faults (K16: a dropped kv tile,
                an ignored pad mask, a late-half error; K18 also: the
                window ignored, the softcap's derivative dropped; K14/K15:
@@ -59,20 +65,21 @@ exits non-zero without printing a result:
                kernel, its bound (the least time the card could take) and
                the time of the one PyTorch call that computes the same
                function, where there is one (K18: the compiled
-               flex_attention with the softcap as its score_mod; SDPA with
-               the same mask and no softcap is timed beside it; K14/K15,
+               flex_attention with the softcap as its score_mod at the
+               Gemma-2 path's shape, none at the other softcap shapes,
+               SDPA with the mask at K16's; SDPA with the same mask and no
+               softcap is timed beside each; K14/K15,
                labelled: dequantize + torch._grouped_mm; K17, labelled:
                compiled flex_attention with return_lse and the sink
                rescale; K19, labelled: torch._grouped_mm + a bias gather;
                K18 at head dim 64, labelled: SDPA with the causal, window
                and segment mask, which has no softcap to miss; K18's prefix
-               form: compiled flex_attention with the layout's block mask,
-               SDPA with the dense [T, T] mask beside it);
+               form: SDPA with the layout's dense [T, T] mask);
   3b. CE routes  full logits (cuBLAS + K7/K8) against the chunked fused CE,
                forward + backward time and peak memory, at 4,094 and 8,191
                rows;
   4. parity    Llama-3.1-8B cut to 2 layers, random NF4 weights: prefill 64
-               tokens + 8 decode steps on the card (kernels) and on the CPU
+               tokens + 4 decode steps on the card (kernels) and on the CPU
                (plain versions, same weights), logits compared;
   4b. train parity  the same 2-layer cut with nonzero LoRA: loss and every
                LoRA gradient of one packed 1,024-token row, and of one
@@ -100,6 +107,13 @@ exits non-zero without printing a result:
                reference pass with LoRA off) and every LoRA gradient of one
                fixed rollout batch in the layout (128, 6, 128), the card
                (K18's prefix form) against the CPU in fp32;
+  4g. Whisper train parity  Whisper-large-v3 at full width cut to 2 + 2
+               layers, a random bf16 checkpoint loaded by load_whisper,
+               LoRA r=32 on q/v with a random B: whisper_loss and every
+               LoRA gradient of a [2, 128, 3000] log-mel batch, the card
+               (K5/K6, K7/K8) against the CPU, both fp32, then the card in
+               bf16; greedy ids over 16 tokens in fp32, equal; launches of
+               K5/K6/K7/K8 exactly what the layer count predicts;
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -188,12 +202,35 @@ exits non-zero without printing a result:
                peak memory; then on the last rollouts the grouped loss and
                LoRA gradients against the unpacked ones (K16 on [6, 1024]
                rows), within fixed limits that the region rule dropped
-               must fail.
+               must fail;
+ 13. main path (Whisper-large-v3, bench_extra.py's main_whisper recipe) a
+               random-init bf16 checkpoint of its published config (32 +
+               32 layers, d 1,280, 20 heads, 128 mel bins, vocabulary
+               51,866) loaded by from_pretrained(dtype=bf16):
+               whisper_transcribe of a seeded 2-s waveform (32-id buffer:
+               encoder ms, ms a decode step, the ids), then WhisperTrainer
+               with fp32 LoRA r=32, alpha 64 on q/v, batch 2 of 3,000 mel
+               frames and 224 labels, lr 1e-4, 4 steps on the repeated
+               batch: losses finite and falling, step time, decoder
+               tokens/s, peak memory, launches per step exactly K5 162,
+               K6 160, K7/K8 1;
+ 14. main path (Orpheus-3B TTS QLoRA SFT, main_tts's recipe) a random-init
+               bf16 checkpoint of the Llama-3.2-3B backbone with the
+               156,940-token vocabulary (28 layers, hidden 3,072, 24/8
+               heads of 128, tied): from_pretrained(load_in_4bit=True),
+               get_peft_model(r=64, "unsloth"), SFTTrainer packing
+               prepare_tts_dataset's rows (seeded SNAC codes, byte text)
+               into 2,048-token rows, batch 1, 3 steps: losses finite, the
+               LoRA moved, step time, real tokens/s, peak memory, the CE
+               route fused_ce="auto" took, launches per step exactly K1
+               392, K2 193, K3 113, K4 56, K9 56, K10/K11 28, K7/K8 1
+               (full logits).
 
-Then one JSON line with each kernel's launches on its main path, its
-largest error against its plain version, its time beside the plain
-version's, its bound and the library call's time (the head-dim forms of
-K16 and K18 as entries of their own); the nvidia-smi line;
+Then one JSON line with each kernel's launches on its main path (K5/K6:
+Whisper's training, phase 13), its largest error against its plain
+version, its time beside the plain version's, its bound and the library
+call's time (the head-dim forms of K16 and K18 as entries of their own);
+the nvidia-smi line;
 and last the result line {"ok": true, "device": {...}}. It needs one CUDA
 card and exits non-zero without it.
 
@@ -440,6 +477,7 @@ SINKS_ROWS = 384           # a gpt-oss row where the window of 128 is not
                            # narrow (4 bands do not fit): K18 at head dim 64
 SINKS_DOCS = ((0, 260), (260, 360))   # its documents, then a pad tail
 PARITY_ROWS = 1024         # row length of the card-vs-CPU parity phases 4b-4c
+PARITY_DECODE_STEPS = 4    # decode steps of phase 4 (8 cost ~22 s more)
 DECODE_ROWS = (1, 4, 7)
 PREFILL_ROWS = 4096
 TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
@@ -467,6 +505,9 @@ class ByteTokenizer:
 
     def __call__(self, text, **kw):
         return {"input_ids": list(text.encode("utf-8"))}
+
+    def encode(self, text, add_special_tokens=True):
+        return list(text.encode("utf-8"))
 
     def decode(self, ids, **kw):
         out = bytearray()
@@ -507,6 +548,23 @@ def time_ms(fn, runs: int = 20, warmup: int = 3, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(fn(), ms): one call of a plain version, timed by CUDA events, whose
+    result the check then reads. Phase 3 times the plain versions by this
+    one call only (no warm-up, no L2 flush): a plain version is the
+    kernels' check, no yardstick of speed, and timing it again and again
+    cost the script minutes."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
@@ -822,6 +880,7 @@ def phase_kernels():
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    t_part = time.perf_counter()
     rows = {"nf4_matmul": [], "rms_norm": []}
     for name, n, k, row_counts in (
             [(name, n, k, DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS))
@@ -837,15 +896,13 @@ def phase_kernels():
         for m in row_counts:
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             y = nf4_matmul(x, q)
-            ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
+            ref, plain_ms = once_ms(lambda: torch.matmul(
+                x, dequantize_nf4(q, torch.bfloat16).t()))
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             ok = bool(torch.isfinite(y).all()) and err <= 1e-2 * scale
-            plain = lambda: torch.matmul(  # noqa: E731
-                x, dequantize_nf4(q, torch.bfloat16).t())
             ms = time_ms(lambda: nf4_matmul(x, q), flush=flush)
-            plain_ms = time_ms(plain, flush=flush)
             b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
             rows["nf4_matmul"].append(dict(shape=f"{name} M={m} N={n} K={k}",
                                            err=err, tol=1e-2 * scale,
@@ -867,14 +924,13 @@ def phase_kernels():
                 w = (1.0 + 0.1 * torch.randn((shape[-1],), generator=g,
                                              device=dev)).to(dtype)
                 y = rms_norm(x, w, 1e-5, gemma)
-                ref = rms_norm_ref(x, w, 1e-5, gemma)
+                ref, plain_ms = once_ms(
+                    lambda: rms_norm_ref(x, w, 1e-5, gemma))
                 torch.cuda.synchronize()
                 d = y.float() - ref.float()
                 ulps = ulps_bf16_or_f32(d, ref, dtype)
                 limit = 1 if dtype == torch.bfloat16 else 8
                 ms = time_ms(lambda: rms_norm(x, w, 1e-5, gemma), flush=flush)
-                plain_ms = time_ms(lambda: rms_norm_ref(x, w, 1e-5, gemma),
-                                   flush=flush)
                 # F.rms_norm computes the plain (not Gemma) form
                 lib_ms = None if gemma else time_ms(
                     lambda: F.rms_norm(x, (shape[-1],), w, 1e-5), flush=flush)
@@ -892,14 +948,18 @@ def phase_kernels():
                 if not (bool(torch.isfinite(y).all()) and ulps <= limit):
                     raise RuntimeError(f"rms_norm disagrees at {shape} {dtype}"
                                        f" gemma={gemma}: {ulps} ulp")
-    rows.update(_training_kernels(dev, g, flush))
-    rows.update(_unpacked_kernels(dev, g, flush))
-    rows.update(_splash_kernels(dev, g, flush))
-    for name, extra in _grpo_kernels(dev, g, flush).items():
-        rows[name] += extra
-    rows.update(_gpt_oss_kernels(dev, g, flush))
-    for name, extra in _small_model_kernels(dev, g, flush).items():
-        rows[name] += extra
+    log(f"[time] 3 K1, K3: {time.perf_counter() - t_part:.1f} s")
+    for part, fn in (("K2, K4, K9-K11", _training_kernels),
+                     ("K7/K8, K16", _unpacked_kernels),
+                     ("K18", _splash_kernels),
+                     ("K18 prefix", _grpo_kernels),
+                     ("K14/K15, K17, K19", _gpt_oss_kernels),
+                     ("head dims 64/256", _small_model_kernels),
+                     ("K5/K6", _layer_norm_kernels)):
+        t_part = time.perf_counter()
+        for name, extra in fn(dev, g, flush).items():
+            rows.setdefault(name, []).extend(extra)
+        log(f"[time] 3 {part}: {time.perf_counter() - t_part:.1f} s")
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -969,19 +1029,18 @@ def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None,
 
 
 def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
-             scale, prefix_layout=None):
+             scale):
     """(forward ms, backward ms, row-wise error of its out against
     ``want``) of the one PyTorch call that computes the splash kernels'
     function: ``torch.compile``d ``flex_attention`` in its [B, H, T, D]
     layout, with the softcap c * tanh(s / c) as its ``score_mod``, a block
-    mask of causal, within the window (or, with a prefix layout (P, G, L),
-    key in the prompt or in the query's region: the reference's own
-    PrefixGrouper block mask) and equal segment ids, and
+    mask of causal, within the window and equal segment ids, and
     ``enable_gqa=True``, on q * scale rounded to q's dtype (what the kernels
     and the JAX wrapper score; the timed call includes that product). The
     window and segment ids reach the mask as
-    tensors, so cases of one shape share a compiled kernel. A yardstick
-    only; the port never calls it."""
+    tensors, so cases of one shape share a compiled kernel, and the inputs
+    require a gradient throughout, so that one compiled graph serves the
+    forward and the backward. A yardstick only; the port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask
 
@@ -989,15 +1048,9 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
     b, t = segment_ids.shape
     seg = segment_ids.to(torch.int32)
     win = torch.tensor(window or t, device=q.device)
-    P, _, L = prefix_layout or (t, 1, 1)
 
     def mask_mod(bi, h, qi, ki):
-        if prefix_layout is not None:
-            # ki >= P implies qi >= P: both regions are defined there
-            near = (ki < P) | ((qi - P) // L == (ki - P) // L)
-        else:
-            near = qi - ki < win
-        return (ki <= qi) & near & (seg[bi, qi] == seg[bi, ki])
+        return (ki <= qi) & (qi - ki < win) & (seg[bi, qi] == seg[bi, ki])
 
     def score_mod(s, bi, h, qi, ki):
         return softcap * torch.tanh(s / softcap)
@@ -1010,8 +1063,9 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
                      score_mod=score_mod if softcap else None,
                      block_mask=mask, scale=1.0, enable_gqa=True)
 
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    err = attn_row_err(flex(qt, kt, vt).transpose(1, 2), want)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    err = attn_row_err(flex(qt, kt, vt).detach().transpose(1, 2), want)
     fwd = time_ms(lambda: flex(qt, kt, vt), runs=5, warmup=1, flush=flush)
     bwd = _autograd_ms(flex, (qt, kt, vt), dout.transpose(1, 2), flush,
                        runs=5)
@@ -1082,12 +1136,11 @@ def _training_kernels(dev, g, flush):
         del w
         gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
         dx = nf4_matmul_dx(gy, q)
-        ref = nf4_matmul_dx_ref(gy, q)
+        ref, plain_ms = once_ms(lambda: nf4_matmul_dx_ref(gy, q))
         torch.cuda.synchronize()
         err = (dx.float() - ref.float()).abs().max().item()
         tol = 1e-2 * ref.float().abs().max().item()
         ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush=flush)
-        plain_ms = time_ms(lambda: nf4_matmul_dx_ref(gy, q), flush=flush)
         b_ms, b_by = bound(2 * m * n * k, nbytes(gy) + q.nbytes + m * k * 2)
         rows["nf4_matmul_dx"].append(dict(
             shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
@@ -1110,7 +1163,8 @@ def _training_kernels(dev, g, flush):
              ).to(torch.bfloat16)
         gy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
-        rdx, rdw = rms_norm_bwd_ref(x, w, gy, 1e-5, gemma)
+        (rdx, rdw), plain_ms = once_ms(
+            lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma))
         torch.cuda.synchronize()
         d = (dx.float() - rdx.float()).abs()
         dx_ulps = ulps_bf16_or_f32(d, rdx, torch.bfloat16)
@@ -1119,8 +1173,6 @@ def _training_kernels(dev, g, flush):
         dw_err = (dw.float() - rdw.float()).abs().max().item()
         dw_tol = 2.0 ** -7 * rdw.float().abs().max().item()
         ms = time_ms(lambda: rms_norm_bwd(x, w, gy, 1e-5, gemma), flush=flush)
-        plain_ms = time_ms(lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma),
-                           flush=flush)
         lib_ms = None if gemma else _autograd_ms(
             lambda a, b: F.rms_norm(a, (hidden,), b, 1e-5), (x, w), gy, flush)
         b_ms, b_by = bound(8 * x.numel(), 3 * nbytes(x) + 2 * nbytes(w),
@@ -1155,11 +1207,12 @@ def _training_kernels(dev, g, flush):
     real = seg[0] != 0
     out, lse = tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
                                         n_kv=n_kv)
-    rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
+    (rout, rlse), fwd_plain = once_ms(
+        lambda: tpa.packed_attention_fwd_ref(q, k, v, seg, scale))
     dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out, lse,
                                           dout, scale=scale, n_kv=n_kv)
-    rdq, rdk, rdv = tpa.packed_attention_bwd_ref(q, k, v, seg, out, lse, dout,
-                                                 scale)
+    (rdq, rdk, rdv), bwd_plain = once_ms(lambda: tpa.packed_attention_bwd_ref(
+        q, k, v, seg, out, lse, dout, scale))
     torch.cuda.synchronize()
     n_docs = int(seg.max().item())
     shape = (f"B=1 T={m} Hq={hq} Hkv={hkv} D={d} bf16, {n_docs} segments "
@@ -1176,13 +1229,9 @@ def _training_kernels(dev, g, flush):
     lse_err = (lse - rlse)[..., real].abs().max().item()
     fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(
         q, k, v, seg, kv_lo, scale=scale, n_kv=n_kv), runs=10, flush=flush)
-    fwd_plain = time_ms(lambda: tpa.packed_attention_fwd_ref(
-        q, k, v, seg, scale), runs=5, warmup=1, flush=flush)
     bwd_ms = time_ms(lambda: tpa.packed_attention_bwd(
         q, k, v, seg, kv_lo, q_hi, out, lse, dout, scale=scale, n_kv=n_kv),
         runs=10, flush=flush)
-    bwd_plain = time_ms(lambda: tpa.packed_attention_bwd_ref(
-        q, k, v, seg, out, lse, dout, scale), runs=5, warmup=1, flush=flush)
     # the work the real tokens need: each segment's causal pairs
     seg_np = seg[0].cpu().numpy()
     lens = np.bincount(seg_np[seg_np != 0])
@@ -1255,8 +1304,10 @@ def _unpacked_kernels(dev, g, flush):
         gr = torch.full((n,), 1.0 / n_valid, device=dev)  # d mean / d row
         loss, lse = tce.cross_entropy_fwd(logits, labels, softcap)
         dx = tce.cross_entropy_bwd(logits, labels, lse, gr, softcap)
-        rloss, rlse = tce.cross_entropy_ref(logits, labels, softcap)
-        rdx = tce.cross_entropy_bwd_ref(logits, labels, lse, gr, softcap)
+        (rloss, rlse), fwd_plain = once_ms(
+            lambda: tce.cross_entropy_ref(logits, labels, softcap))
+        rdx, bwd_plain = once_ms(lambda: tce.cross_entropy_bwd_ref(
+            logits, labels, lse, gr, softcap))
         torch.cuda.synchronize()
         fwd_err = max((loss - rloss).abs().max().item(),
                       (lse - rlse).abs().max().item())
@@ -1269,10 +1320,6 @@ def _unpacked_kernels(dev, g, flush):
                          flush=flush)
         bwd_ms = time_ms(lambda: tce.cross_entropy_bwd(logits, labels, lse, gr,
                                                        softcap), flush=flush)
-        fwd_plain = time_ms(lambda: tce.cross_entropy_ref(
-            logits, labels, softcap), runs=5, flush=flush)
-        bwd_plain = time_ms(lambda: tce.cross_entropy_bwd_ref(
-            logits, labels, lse, gr, softcap), runs=5, flush=flush)
         lib_fwd = lib_bwd = None
         if softcap is None:   # F.cross_entropy has no softcap
             lib_fwd = time_ms(lambda: F.cross_entropy(
@@ -1337,9 +1384,10 @@ def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
                                     scale=scale)
     dk, dv = tfa.flash_attention_dkv(q, k, vv, seg, lo, hi, lse, di, dout,
                                      scale=scale)
-    rout, rlse = tfa.flash_attention_fwd_ref(q, k, vv, seg, scale)
-    rdq, rdk, rdv = tfa.flash_attention_bwd_ref(q, k, vv, seg, out, lse,
-                                                dout, scale)
+    (rout, rlse), fwd_plain = once_ms(
+        lambda: tfa.flash_attention_fwd_ref(q, k, vv, seg, scale))
+    (rdq, rdk, rdv), bwd_plain = once_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, vv, seg, out, lse, dout, scale))
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
@@ -1361,10 +1409,6 @@ def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
     dkv_ms = time_ms(lambda: tfa.flash_attention_dkv(
         q, k, vv, seg, lo, hi, lse, di, dout, scale=scale), runs=10,
         flush=flush)
-    fwd_plain = time_ms(lambda: tfa.flash_attention_fwd_ref(
-        q, k, vv, seg, scale), runs=5, warmup=1, flush=flush)
-    bwd_plain = time_ms(lambda: tfa.flash_attention_bwd_ref(
-        q, k, vv, seg, out, lse, dout, scale), runs=5, warmup=1, flush=flush)
     lib_fwd, lib_bwd = _sdpa_ms(q, k, vv, seg, dout, flush)
     # every output is defined, so the work is every valid pair: each
     # segment's causal pairs, the pad tail's among its own
@@ -1437,7 +1481,11 @@ def _splash_kernels(dev, g, flush):
     2048], a row of 1,500 real tokens) with neither window nor softcap,
     K16's function, to time the two kernel families on one function. At (b)
     the check must also reject the faults of :func:`attn_fault_errs`, the
-    window ignored and the softcap's derivative dropped among them."""
+    window ignored and the softcap's derivative dropped among them. The
+    library call: compiled flex_attention at (a), the shape of the kernels
+    line (one compile serves both windows); SDPA with the mask at (e),
+    which has no softcap; none at (b)-(d), whose flex_attention compiles
+    would cost the script 60-80 s and time no path."""
     import numpy as np
     import torch
 
@@ -1455,36 +1503,44 @@ def _splash_kernels(dev, g, flush):
     rows = {name: [] for name in ("splash_attn_fwd", "splash_attn_dq",
                                   "splash_attn_dkv")}
     llama = LLAMA_31_8B_CONFIG
-    for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults in (
-            ("(a) sliding", padded, hq, hkv, hd, scale, window, cap, False),
-            ("(a) global", padded, hq, hkv, hd, scale, None, cap, False),
-            ("(b)", one, hq, hkv, hd, scale, window, cap, True),
+    for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults, lib in (
+            ("(a) sliding", padded, hq, hkv, hd, scale, window, cap, False,
+             "flex"),
+            ("(a) global", padded, hq, hkv, hd, scale, None, cap, False,
+             "flex"),
+            ("(b)", one, hq, hkv, hd, scale, window, cap, True, None),
             ("(c) Gemma-2-27B heads", one, 32, 16, 128, 144 ** -0.5, window,
-             cap, False),
-            ("(d) packed", packed, hq, hkv, hd, scale, window, cap, False),
+             cap, False, None),
+            ("(d) packed", packed, hq, hkv, hd, scale, window, cap, False,
+             None),
             ("(e) K16's shape", padded, llama["num_attention_heads"],
              llama["num_key_value_heads"], llama["head_dim"],
-             llama["head_dim"] ** -0.5, None, None, False)):
+             llama["head_dim"] ** -0.5, None, None, False, "sdpa")):
+        t_case = time.perf_counter()
         res = _splash_case(dev, g, flush, label, seg, h_q, h_kv, dh, sc, win,
-                           sc_cap, faults)
+                           sc_cap, faults, library=lib)
+        log(f"[time] 3 K18 {label}: {time.perf_counter() - t_case:.1f} s")
         for name, row in res.items():
             rows[name].append(row)
     return rows
 
 
 def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
-                 softcap, faults, flex=True, form=None, prefix_layout=None):
+                 softcap, faults, library="flex", form=None,
+                 prefix_layout=None):
     """K18 forward, dq and dk/dv at one shape against the plain versions,
     every position row by row (:func:`attn_row_err`), lse within 1e-3, the
     backward fed the kernel forward's (out, lse) on both sides. q and k
     are N(0, 4^2), so the scores are of the order of the softcap and its
     tanh bites. With ``faults`` the check must also reject each fault of
-    :func:`attn_fault_errs`. Times: the kernels, the plain versions, the
-    library call that computes the same function (:func:`_flex_ms`, whose
-    out must agree with the plain version's as the kernel's does) and,
-    beside it, SDPA with the same boolean mask and no softcap; without
-    ``flex`` (no softcap), that SDPA call is the library call, which
-    computes the same function, and flex_attention is not compiled. With a
+    :func:`attn_fault_errs`. Times: the kernels, the plain versions, SDPA
+    with the same boolean mask and no softcap and, with ``library="flex"``,
+    the library call that computes the same function (:func:`_flex_ms`,
+    whose out must agree with the plain version's as the kernel's does).
+    With ``library="sdpa"`` (no softcap) that SDPA call is the library
+    call, which computes the same function; with None (a softcap, at a
+    shape whose flex_attention compile phase 3 does not spend) there is
+    none. Only "flex" compiles flex_attention. With a
     ``prefix_layout`` the kernels take GRPO's shared-prefix form, the
     faults are :func:`prefix_fault_errs`', and the tile pairs each kernel
     visited, read back from it (:func:`kernel_tile_pairs`) with one
@@ -1510,9 +1566,10 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
                                      **opts)
     dk, dv = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
                                       **opts)
-    rout, rlse = tsa.splash_attention_fwd_ref(q, k, v, seg, **opts)
-    rdq, rdk, rdv = tsa.splash_attention_bwd_ref(q, k, v, seg, out, lse,
-                                                 dout, **opts)
+    (rout, rlse), fwd_plain = once_ms(
+        lambda: tsa.splash_attention_fwd_ref(q, k, v, seg, **opts))
+    (rdq, rdk, rdv), bwd_plain = once_ms(lambda: tsa.splash_attention_bwd_ref(
+        q, k, v, seg, out, lse, dout, **opts))
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
@@ -1533,11 +1590,13 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
         fault_res = attn_fault_errs(q, k, v, seg, dout, scale, want,
                                     window=window, softcap=softcap)
     del rdq, rdk, rdv, want
+    flex = library == "flex"
     flex_fwd = flex_bwd = flex_err = None
     if flex:
-        flex_fwd, flex_bwd, flex_err = _flex_ms(q, k, v, seg, dout, flush,
-                                                rout, **opts)
-    elif softcap is not None:
+        flex_fwd, flex_bwd, flex_err = _flex_ms(
+            q, k, v, seg, dout, flush, rout, window=window, softcap=softcap,
+            scale=scale)
+    elif library == "sdpa" and softcap is not None:
         raise ValueError("SDPA computes K18's function only without a "
                          "softcap")
     del rout
@@ -1547,10 +1606,6 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
         q, k, v, seg, lo, hi, out, lse, dout, **opts), runs=10, flush=flush)
     dkv_ms = time_ms(lambda: tsa.splash_attention_dkv(
         q, k, v, seg, lo, hi, lse, di, dout, **opts), runs=10, flush=flush)
-    fwd_plain = time_ms(lambda: tsa.splash_attention_fwd_ref(
-        q, k, v, seg, **opts), runs=3, warmup=1, flush=flush)
-    bwd_plain = time_ms(lambda: tsa.splash_attention_bwd_ref(
-        q, k, v, seg, out, lse, dout, **opts), runs=3, warmup=1, flush=flush)
     sdpa_fwd, sdpa_bwd = _sdpa_ms(q, k, v, seg, dout, flush, window=window,
                                   prefix_layout=prefix_layout)
     # the valid (query, key) pairs of this data: the work the kernels need
@@ -1594,26 +1649,33 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
         if wrong:
             raise RuntimeError(f"K18's prefix form visits other tile pairs "
                                f"than its rule: {wrong}, {visits}, {rule}")
-    lib = {} if flex else dict(library="SDPA with the causal, window and "
-                               "segment mask (no softcap: the same function)")
+    lib = {"flex": {}, "sdpa": dict(
+        library="SDPA with the dense boolean mask: causal, segments and "
+        "the window or prefix layout (no softcap: the same function)"),
+        None: dict(
+        library="none timed at this shape (only compiled flex_attention "
+        "computes the softcap; SDPA without it beside)")}[library]
+    lib_fwd, lib_bwd = {"flex": (flex_fwd, flex_bwd),
+                        "sdpa": (sdpa_fwd, sdpa_bwd)}.get(library,
+                                                          (None, None))
     res = {
         "splash_attn_fwd": dict(
             common, **{what: n_["fwd"] for what, n_ in visits.items()},
             err=max(errs["out"][0], lse_err), ms=fwd_ms,
             plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
-            library_ms=flex_fwd if flex else sdpa_fwd,
+            library_ms=lib_fwd,
             sdpa_no_softcap_ms=sdpa_fwd, **lib),
         "splash_attn_dq": dict(
             common, **{what: n_["dq"] for what, n_ in visits.items()},
             err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
             bound_ms=qb[0], bound_by=qb[1],
-            library_ms=flex_bwd if flex else sdpa_bwd,
+            library_ms=lib_bwd,
             sdpa_no_softcap_ms=sdpa_bwd, **lib),
         "splash_attn_dkv": dict(
             common, **{what: n_["dkv"] for what, n_ in visits.items()},
             err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
             plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
-            library_ms=flex_bwd if flex else sdpa_bwd,
+            library_ms=lib_bwd,
             sdpa_no_softcap_ms=sdpa_bwd, **lib)}
     log(f"[kernels] splash attention (K18) {shape}, every position: " +
         ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
@@ -1667,15 +1729,18 @@ def _grpo_kernels(dev, g, flush):
     of GRPO_LAYOUT (T = 5,632), a prompt of GRPO_PROMPT_LEN tokens
     right-aligned in its 256 slots and completions of GRPO_COMPLETION_LENS
     tokens, no softcap; the check must reject the region rule dropped and
-    the prefix dropped. Library call: compiled flex_attention with the
-    layout's block mask; SDPA with the dense [T, T] mask beside it."""
+    the prefix dropped. Library call: SDPA with the layout's dense [T, T]
+    mask, which computes the same function (flex_attention's block mask
+    would skip tiles as the kernels do, but its compile costs the script
+    ~20 s and times no path)."""
     c = LLAMA_31_8B_CONFIG
     seg = prefix_segments(GRPO_LAYOUT, GRPO_PROMPT_LEN, GRPO_COMPLETION_LENS,
                           dev)
     res = _splash_case(dev, g, flush, "GRPO prefix layout", seg,
                        c["num_attention_heads"], c["num_key_value_heads"],
                        c["head_dim"], c["head_dim"] ** -0.5, None, None,
-                       True, form="prefix", prefix_layout=GRPO_LAYOUT)
+                       True, library="sdpa", form="prefix",
+                       prefix_layout=GRPO_LAYOUT)
     return {name: [row] for name, row in res.items()}
 
 
@@ -1711,7 +1776,7 @@ def _small_model_kernels(dev, g, flush):
     res = _splash_case(dev, g, flush, "gpt-oss sliding, D=64", packed,
                        c["num_attention_heads"], c["num_key_value_heads"],
                        c["head_dim"], c["head_dim"] ** -0.5,
-                       c["sliding_window"], None, True, flex=False,
+                       c["sliding_window"], None, True, library="sdpa",
                        form="d64")
     for name, row in res.items():
         rows.setdefault(name, []).append(row)
@@ -1820,8 +1885,9 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
     y = tng.nf4_gmm(x, q, sizes, bias)
     dx = tng.nf4_gmm_dx(gy, q, sizes)
-    ref = tng.nf4_gmm_ref(x, q, sizes, bias)
-    rdx = tng.nf4_gmm_ref(gy, q, sizes, transpose=True)
+    ref, ref_ms = once_ms(lambda: tng.nf4_gmm_ref(x, q, sizes, bias))
+    rdx, rdx_ms = once_ms(
+        lambda: tng.nf4_gmm_ref(gy, q, sizes, transpose=True))
     torch.cuda.synchronize()
     errs = {}
     for name, got, want in (("nf4_gmm", y, ref), ("nf4_gmm_dx", dx, rdx)):
@@ -1874,14 +1940,9 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
                 lib_err[name] = f"torch._grouped_mm failed: {exc!r}"[:200]
     times = {
         "nf4_gmm": (time_ms(lambda: tng.nf4_gmm(x, q, sizes, bias),
-                            flush=flush),
-                    time_ms(lambda: tng.nf4_gmm_ref(x, q, sizes, bias),
-                            runs=3, warmup=1, flush=flush)),
+                            flush=flush), ref_ms),
         "nf4_gmm_dx": (time_ms(lambda: tng.nf4_gmm_dx(gy, q, sizes),
-                               flush=flush),
-                       time_ms(lambda: tng.nf4_gmm_ref(
-                           gy, q, sizes, transpose=True), runs=3, warmup=1,
-                           flush=flush))}
+                               flush=flush), rdx_ms)}
     n_live = len(live)
     w_bytes = n_live * (n * k // 2 + n * k // q.block_size * 4)
     b_fwd = bound(2 * m * n * k, m * k * 2 + w_bytes + n_live * n * 2
@@ -1947,8 +2008,9 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
     y = tgmm.gmm(x, w, sizes, bias)
     dx = tgmm.gmm_dx(gy, w, sizes)
-    ref = tgmm.gmm_ref(x, w, sizes, bias)
-    rdx = tgmm.gmm_ref(gy, w, sizes, transpose=True)
+    ref, ref_ms = once_ms(lambda: tgmm.gmm_ref(x, w, sizes, bias))
+    rdx, rdx_ms = once_ms(
+        lambda: tgmm.gmm_ref(gy, w, sizes, transpose=True))
     torch.cuda.synchronize()
     errs = {}
     for name, got, want in (("gmm", y, ref), ("gmm_dx", dx, rdx)):
@@ -1998,11 +2060,9 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
         del w_cm
     times = {
         "gmm": (time_ms(lambda: tgmm.gmm(x, w, sizes, bias), flush=flush),
-                time_ms(lambda: tgmm.gmm_ref(x, w, sizes, bias), runs=3,
-                        warmup=1, flush=flush)),
+                ref_ms),
         "gmm_dx": (time_ms(lambda: tgmm.gmm_dx(gy, w, sizes), flush=flush),
-                   time_ms(lambda: tgmm.gmm_ref(gy, w, sizes, transpose=True),
-                           runs=3, warmup=1, flush=flush))}
+                   rdx_ms)}
     n_live = len(live)
     w_bytes = n_live * n * k * 2
     b_fwd = bound(2 * m * n * k, m * k * 2 + w_bytes + n_live * n * 2
@@ -2046,9 +2106,11 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     dk, dv = tfs.flash_sinks_dkv(q, k, v, seg, lo, hi, lse, di, dout,
                                  scale=scale)
     dsk = tfs.sinks_grad(sinks, lse, di)
-    rout, rlse = tfs.flash_sinks_fwd_ref(q, k, v, seg, sinks, scale)
-    rdq, rdk, rdv, rdsk = tfs.flash_sinks_bwd_ref(q, k, v, seg, out, lse,
-                                                  dout, sinks, scale)
+    (rout, rlse), fwd_plain = once_ms(
+        lambda: tfs.flash_sinks_fwd_ref(q, k, v, seg, sinks, scale))
+    (rdq, rdk, rdv, rdsk), bwd_plain = once_ms(
+        lambda: tfs.flash_sinks_bwd_ref(q, k, v, seg, out, lse, dout, sinks,
+                                        scale))
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
@@ -2077,11 +2139,6 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
         flush=flush)
     dkv_ms = time_ms(lambda: tfs.flash_sinks_dkv(
         q, k, v, seg, lo, hi, lse, di, dout, scale=scale), runs=10,
-        flush=flush)
-    fwd_plain = time_ms(lambda: tfs.flash_sinks_fwd_ref(
-        q, k, v, seg, sinks, scale), runs=3, warmup=1, flush=flush)
-    bwd_plain = time_ms(lambda: tfs.flash_sinks_bwd_ref(
-        q, k, v, seg, out, lse, dout, sinks, scale), runs=3, warmup=1,
         flush=flush)
     flex_fwd = flex_bwd = flex_err = None
     if lib:
@@ -2145,9 +2202,11 @@ def _flex_sinks_ms(q, k, v, segment_ids, sinks, dout, flush, want, scale):
     ``want``) of the library yardstick of K17: ``torch.compile``d
     ``flex_attention`` with ``return_lse`` (block mask of causal and equal
     segment ids, GQA, ``scale``) times sigmoid(lse - sink), in its [B, H, T,
-    D] layout; the backward through both. A yardstick only, never called
-    by the port; where flex refuses (an lse without a gradient), the
-    failure is logged in place of the time."""
+    D] layout; the backward through both. The inputs require a gradient
+    throughout, so that one compiled graph serves the forward and the
+    backward. A yardstick only, never called by the port; where flex
+    refuses (an lse without a gradient), the failure is logged in place of
+    the time."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask
 
@@ -2166,9 +2225,10 @@ def _flex_sinks_ms(q, k, v, segment_ids, sinks, dout, flush, want, scale):
         rescale = torch.sigmoid(lse - sinks.float()[None, :, None])
         return (out.float() * rescale[..., None]).to(a.dtype)
 
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
     try:
-        err = attn_row_err(flex(qt, kt, vt).transpose(1, 2), want)
+        err = attn_row_err(flex(qt, kt, vt).detach().transpose(1, 2), want)
         fwd = time_ms(lambda: flex(qt, kt, vt), runs=5, warmup=1,
                       flush=flush)
         bwd = _autograd_ms(flex, (qt, kt, vt), dout.transpose(1, 2), flush,
@@ -2282,11 +2342,11 @@ def _prefill_decode_logits(params, cfg, ids, mask, steps, feed=None):
 def phase_slice_parity():
     """Llama-3.1-8B at full width cut to 2 layers, random NF4 weights from
     the seed: prefill 64 tokens (two rows, one left-padded to 64 from 50)
-    plus 8 decode steps on the card (kernels) and on the CPU (plain
-    versions), same weights, same fed tokens.
+    plus PARITY_DECODE_STEPS decode steps on the card (kernels) and on the
+    CPU (plain versions), same weights, same fed tokens.
 
     Tolerance: ||d||_2 <= 2e-2 ||ref||_2 and max|d| <= 0.1 max|ref| over
-    all 9 steps' logits. Both run bf16 activations and round them at every
+    all the steps' logits. Both run bf16 activations and round them at every
     op, but in other places (fp32 sums in other orders, the card's kernels
     against the CPU's matmuls) through 2 layers; a wrong kernel gives an
     error of the order of the logits themselves."""
@@ -2309,17 +2369,20 @@ def phase_slice_parity():
     ids[1, :14] = 0
     mask[1, :14] = 0
     t0 = time.perf_counter()
-    card, fed = _prefill_decode_logits(params, cfg, ids.to(DEVICE), mask.to(DEVICE), 8)
+    card, fed = _prefill_decode_logits(params, cfg, ids.to(DEVICE),
+                                       mask.to(DEVICE), PARITY_DECODE_STEPS)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ref, _ = _prefill_decode_logits(cpu_params, cfg, ids, mask, 8, feed=fed)
+    ref, _ = _prefill_decode_logits(cpu_params, cfg, ids, mask,
+                                    PARITY_DECODE_STEPS, feed=fed)
     t_cpu = time.perf_counter() - t0
     d = card - ref
     rel = (d.norm() / ref.norm()).item()
     mx = d.abs().max().item()
     scale = ref.abs().max().item()
     agree = (card.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"[parity] 2-layer Llama-3.1-8B NF4, prefill 64 + 8 steps, B=2: "
+    log(f"[parity] 2-layer Llama-3.1-8B NF4, prefill 64 + "
+        f"{PARITY_DECODE_STEPS} steps, B=2: "
         f"||d||/||ref|| = {rel:.3e} (tol 2e-2), max|d| = {mx:.3e} "
         f"(tol {0.1 * scale:.3e}), argmax agreement {agree:.3f}; "
         f"card {t_card:.1f} s, cpu {t_cpu:.1f} s")
@@ -4538,6 +4601,666 @@ def _device_report(prof, wall_us, top):
             if n.startswith("unsloth.")))
 
 
+# ---------------------------------------------------------------------------
+# Speech: phase 3's K5/K6, phase 4g (Whisper, 2 layers, card against CPU),
+# phase 13 (Whisper-large-v3) and phase 14 (Orpheus-3B)
+# ---------------------------------------------------------------------------
+
+WHISPER_LARGE_V3_CONFIG = {
+    # openai/whisper-large-v3 config.json (published values)
+    "architectures": ["WhisperForConditionalGeneration"],
+    "activation_function": "gelu",
+    "begin_suppress_tokens": [220, 50257],
+    "bos_token_id": 50257,
+    "d_model": 1280,
+    "decoder_attention_heads": 20,
+    "decoder_ffn_dim": 5120,
+    "decoder_layers": 32,
+    "decoder_start_token_id": 50258,
+    "encoder_attention_heads": 20,
+    "encoder_ffn_dim": 5120,
+    "encoder_layers": 32,
+    "eos_token_id": 50257,
+    "max_source_positions": 1500,
+    "max_target_positions": 448,
+    "model_type": "whisper",
+    "num_hidden_layers": 32,
+    "num_mel_bins": 128,
+    "pad_token_id": 50256,
+    "scale_embedding": False,
+    "torch_dtype": "float16",
+    "use_cache": True,
+    "vocab_size": 51866,
+}
+
+ORPHEUS_3B_CONFIG = dict(
+    # meta-llama/Llama-3.2-3B config.json (published values, tied
+    # embedding) with Orpheus-3B's SNAC-extended vocabulary of 156,940
+    LLAMA_32_1B_CONFIG, head_dim=128, hidden_size=3072,
+    intermediate_size=8192, num_attention_heads=24, num_hidden_layers=28,
+    num_key_value_heads=8, vocab_size=156940)
+
+#: the recipe of phase 13 (bench_extra.py's main_whisper): batch, mel
+#: frames, label tokens, optimizer steps on the repeated batch, LoRA
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_LABELS = 2, 3000, 224
+WHISPER_STEPS = 4
+WHISPER_LORA = dict(r=32, alpha=64, targets=("q", "v"))
+WHISPER_MAX_TOKENS = 32    # whisper_transcribe's id buffer in phase 13
+WHISPER_GREEDY = 16        # greedy ids held card against CPU in phase 4g
+ORPHEUS_ROWS = 2048        # packed row of phase 14 (main_tts)
+ORPHEUS_STEPS = 3
+#: phase 4g's limits in bf16 (the card against the CPU's fp32): the loss,
+#: every LoRA gradient leaf together and the worst leaf, relative L2
+WHISPER_BF16_LOSS_TOL, WHISPER_BF16_GRAD_TOL, WHISPER_BF16_LEAF_TOL = \
+    2e-2, 5e-2, 1e-1
+SPEECH_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "cross_entropy_fwd",
+                  "cross_entropy_bwd")
+
+
+def whisper_launches(n_enc, n_dec):
+    """Launches of K5, K6 and K7/K8 that one LoRA training step (loss and
+    backward) of a Whisper with ``n_enc`` + ``n_dec`` layers needs: every
+    layer norm once forward (two an encoder layer, three a decoder layer,
+    and each stack's final one) and once backward, except the first norm
+    of each stack, whose input carries no gradient while the base is
+    frozen; the full-logits CE once each way."""
+    fwd = (2 * n_enc + 1) + (3 * n_dec + 1)
+    return {"layer_norm_fwd": fwd, "layer_norm_bwd": fwd - 2,
+            "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
+
+
+def ln_errs(dtype, got, want):
+    """Phase 3's check of K5/K6 against their plain versions, each part's
+    worst element in units of its limit (<= 1 passes), for (out, dx, dW,
+    dB) and their plain counterparts.
+
+    out: <= 1 ulp of the output dtype for bf16, <= 8 fp32 ulp for fp32 (the
+    fp32 values differ in their last bits, from sums in another order and
+    rsqrtf, then round), plus 2^-20 max|out|: where xhat * w and b cancel
+    to near zero the ulp of the result is far below the fp32 error of the
+    terms. dx: <= 2^-7 |dx| in bf16 (one rounding of values that differ in
+    their last fp32 bits), 2^-20 |dx| in fp32, plus 2^-16 (bf16) or 2^-20
+    (fp32) of max|dx|: its three terms cancel. dW, dB: fp32 sums over the
+    rows in another order (a few rows in each block, then up to 512
+    partials) within 2^-12 of max|ref|; a partial row dropped moves them by
+    ~1e-2."""
+    import torch
+
+    out, dx, dw, db = got
+    rout, rdx, rdw, rdb = want
+    bf16 = dtype == torch.bfloat16
+
+    def scaled(d, lim):
+        return (d / lim).max().item()
+
+    res = {}
+    d = (out.float() - rout.float()).abs()
+    res["out"] = ulps_bf16_or_f32(
+        (d - 2.0 ** -20 * rout.float().abs().max()).clamp(min=0), rout,
+        dtype) / (1 if bf16 else 8)
+    r = rdx.float().abs()
+    res["dx"] = scaled((dx.float() - rdx.float()).abs(),
+                       (2.0 ** -7 if bf16 else 2.0 ** -20) * r
+                       + (2.0 ** -16 if bf16 else 2.0 ** -20) * r.max())
+    for name, a, b in (("dW", dw, rdw), ("dB", db, rdb)):
+        res[name] = ((a - b).abs().max() / (2.0 ** -12 * b.abs().max())
+                     ).item()
+    return res
+
+
+def _layer_norm_kernels(dev, g, flush):
+    """K5 and K6 against their plain versions at Whisper's shapes: [3000,
+    1280] (2 x 1,500 encoder frames) in bf16 and fp32, [448, 1280] (2 x
+    224 decoder tokens) in bf16, and [3000, 1280] bf16 with b=None;
+    tolerances as :func:`ln_errs` states them. Times: the kernels (median,
+    L2 flushed), each plain version once (:func:`once_ms`), and the library
+    call ``F.layer_norm`` (its autograd backward for K6: dx, dW and dB).
+    Bounds: forward 2 x bytes of x + w and b, 8 fp32 operations an
+    element; backward x and g read, dx written, w read, dW and dB written
+    in fp32, 14 operations an element."""
+    import torch
+    import torch.nn.functional as F
+
+    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
+                                                layer_norm_bwd_ref,
+                                                layer_norm_fwd,
+                                                layer_norm_ref)
+
+    rows = {"layer_norm_fwd": [], "layer_norm_bwd": []}
+    d = WHISPER_LARGE_V3_CONFIG["d_model"]
+    enc_rows = WHISPER_BATCH * WHISPER_FRAMES // 2
+    for n, dtype, bias in ((enc_rows, torch.bfloat16, True),
+                           (enc_rows, torch.float32, True),
+                           (WHISPER_BATCH * WHISPER_LABELS, torch.bfloat16,
+                            True),
+                           (enc_rows, torch.bfloat16, False)):
+        x = (torch.randn((n, d), generator=g, device=dev) * 2 + 0.5
+             ).to(dtype)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+             ).to(dtype)
+        b = (0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype) \
+            if bias else None
+        gy = torch.randn((n, d), generator=g, device=dev).to(dtype)
+        out = layer_norm_fwd(x, w, b, 1e-5)
+        dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5)
+        rout, fwd_plain = once_ms(lambda: layer_norm_ref(x, w, b, 1e-5))
+        (rdx, rdw, rdb), bwd_plain = once_ms(
+            lambda: layer_norm_bwd_ref(x, w, gy, 1e-5))
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (out, dx, dw, db)):
+            raise RuntimeError(f"layer norm kernels not finite at {n} {dtype}")
+        errs = ln_errs(dtype, (out, dx, dw, db), (rout, rdx, rdw, rdb))
+        fwd_ms = time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5), flush=flush)
+        bwd_ms = time_ms(lambda: layer_norm_bwd(x, w, gy, 1e-5), flush=flush)
+        lib_fwd = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5),
+                          flush=flush)
+        lib_bwd = _autograd_ms(
+            lambda x_, w_, *b_: F.layer_norm(x_, (d,), w_,
+                                             b_[0] if b_ else None, 1e-5),
+            (x, w) + ((b,) if bias else ()), gy, flush)
+        wb = nbytes(w) + (nbytes(b) if bias else 0)
+        fb = bound(8 * x.numel(), 2 * nbytes(x) + wb, PEAK_FP32)
+        bb = bound(14 * x.numel(), 3 * nbytes(x) + nbytes(w) + 2 * d * 4,
+                   PEAK_FP32)
+        shape = f"[{n}, {d}] {str(dtype)[6:]}" + ("" if bias else " b=None")
+        rows["layer_norm_fwd"].append(dict(
+            shape=shape, err=(out.float() - rout.float()).abs().max().item(),
+            ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+            library_ms=lib_fwd))
+        rows["layer_norm_bwd"].append(dict(
+            shape=shape, err=max((a.float() - r_.float()).abs().max().item()
+                                 for a, r_ in ((dx, rdx), (dw, rdw),
+                                               (db, rdb))),
+            ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
+            library_ms=lib_bwd))
+        log(f"[kernels] layer_norm {shape}: errors in units of their limits "
+            f"{ {k_: round(v_, 4) for k_, v_ in errs.items()} } (<= 1 "
+            f"passes); K5 kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms "
+            f"F.layer_norm {lib_fwd:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); "
+            f"K6 kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms backward "
+            f"{lib_bwd:.4f} ms bound {bb[0]:.4f} ms ({bb[1]})")
+        if not max(errs.values()) <= 1.0:
+            raise RuntimeError(f"layer norm kernels disagree at {shape}: "
+                               f"{errs}")
+        del x, gy, out, dx, rout, rdx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def whisper_checkpoint_entries(config):
+    """(HF tensor name, shape) of every tensor of a Whisper checkpoint of
+    the HF ``config`` as WhisperForConditionalGeneration saves it
+    ("model." names; k_proj without a bias; the output projection tied to
+    the token embedding, so not stored)."""
+    d, f = config["d_model"], config["encoder_ffn_dim"]
+    entries = [("model.encoder.conv1.weight", (d, config["num_mel_bins"], 3)),
+               ("model.encoder.conv1.bias", (d,)),
+               ("model.encoder.conv2.weight", (d, d, 3)),
+               ("model.encoder.conv2.bias", (d,)),
+               ("model.encoder.embed_positions.weight",
+                (config["max_source_positions"], d))]
+
+    def attn(p):
+        return [(p + f"{n}_proj.weight", (d, d)) for n in ("q", "k", "v",
+                                                           "out")] + [
+            (p + f"{n}_proj.bias", (d,)) for n in ("q", "v", "out")]
+
+    def block(p, norms):
+        out = [(p + n + s, (d,)) for n in norms for s in (".weight", ".bias")]
+        return out + [(p + "fc1.weight", (f, d)), (p + "fc1.bias", (f,)),
+                      (p + "fc2.weight", (d, f)), (p + "fc2.bias", (d,))]
+
+    for i in range(config["encoder_layers"]):
+        p = f"model.encoder.layers.{i}."
+        entries += attn(p + "self_attn.") + block(
+            p, ("self_attn_layer_norm", "final_layer_norm"))
+    entries += [("model.encoder.layer_norm.weight", (d,)),
+                ("model.encoder.layer_norm.bias", (d,)),
+                ("model.decoder.embed_tokens.weight",
+                 (config["vocab_size"], d)),
+                ("model.decoder.embed_positions.weight",
+                 (config["max_target_positions"], d))]
+    for i in range(config["decoder_layers"]):
+        p = f"model.decoder.layers.{i}."
+        entries += attn(p + "self_attn.") + attn(p + "encoder_attn.") + block(
+            p, ("self_attn_layer_norm", "encoder_attn_layer_norm",
+                "final_layer_norm"))
+    return entries + [("model.decoder.layer_norm.weight", (d,)),
+                      ("model.decoder.layer_norm.bias", (d,))]
+
+
+def write_whisper_checkpoint(path, config):
+    """Random-init bf16 Whisper checkpoint of ``config`` at its published
+    shapes: config.json plus index-sharded safetensors, one tensor at a
+    time. Each tensor comes from a generator on DEVICE seeded by the seed
+    and its index: N(0, 0.02), layer norm weights 1 + N(0, 0.1) and their
+    biases N(0, 0.1), so that K5's weight and bias matter."""
+    import torch
+
+    from unsloth_tpu_torch.io_safetensors import save_sharded
+
+    entries = whisper_checkpoint_entries(config)
+    index = {n: i for i, (n, _) in enumerate(entries)}
+    shapes = dict(entries)
+
+    def produce(name):
+        g = torch.Generator(device=DEVICE).manual_seed(SEED * 1000
+                                                       + index[name])
+        w = torch.randn(shapes[name], generator=g, device=DEVICE)
+        if "layer_norm" in name:
+            w = w * 0.1 + (1.0 if name.endswith(".weight") else 0.0)
+        else:
+            w = w * 0.02
+        return w.to(torch.bfloat16).cpu()
+
+    os.makedirs(path, exist_ok=True)
+    save_sharded(path, [(n, torch.bfloat16, s) for n, s in entries], produce)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+    return path
+
+
+def _whisper_inputs(cfg, dev, batch, labels, seed):
+    """(features [batch, mel bins, 3000] fp32 from the port's log-mel of
+    seeded 2-s waveforms, decoder ids [batch, labels], label ids shifted
+    by one with the last tenth of row 0 ignored), on ``dev``; the
+    waveforms and ids from numpy."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.models.whisper import log_mel_spectrogram
+
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((batch, 32000)) * 0.1).astype(np.float32)
+    feats = log_mel_spectrogram(torch.from_numpy(audio).to(dev),
+                                n_mels=cfg.num_mel_bins)
+    ids = rng.integers(0, cfg.eos_token_id, (batch, labels + 1))
+    lab = ids[:, 1:].copy()
+    lab[0, -labels // 10:] = -100
+    return (feats, torch.from_numpy(ids[:, :-1].astype(np.int32)).to(dev),
+            torch.from_numpy(lab.astype(np.int32)).to(dev))
+
+
+def _whisper_lora(cfg, dev, seed):
+    """Phase 4g's adapters: init_whisper_lora (r 32, alpha 64, q/v) from a
+    CPU generator, B drawn N(0, 0.02) so that every leaf has a gradient."""
+    import torch
+
+    from unsloth_tpu_torch.models.whisper import (init_whisper_lora,
+                                                  whisper_lora_leaves)
+
+    gen = torch.Generator().manual_seed(seed)
+    lora = init_whisper_lora(cfg, gen, **WHISPER_LORA)
+    for t in whisper_lora_leaves(lora)[1::2]:
+        t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+    return lora
+
+
+def _whisper_loss_grads(params, cfg, lora, feats, ids, labels):
+    """(loss, [each LoRA leaf's gradient]) of whisper_loss, on the
+    params' device; the gradients as fp32 CPU tensors."""
+    from unsloth_tpu_torch.models.whisper import (whisper_lora_leaves,
+                                                  whisper_loss)
+
+    leaves = whisper_lora_leaves(lora)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = whisper_loss(params, feats, ids, labels, cfg, lora=lora)
+    loss.backward()
+    grads = [t.grad.float().cpu() for t in leaves]
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def phase_whisper_parity(tmp, seed=SEED + 21):
+    """Whisper-large-v3 at full width cut to 2 encoder and 2 decoder layers
+    (a random bf16 checkpoint, :func:`write_whisper_checkpoint`, loaded by
+    load_whisper), LoRA r 32 on q/v with a random B: whisper_loss and every
+    LoRA gradient of a [2, 128, 3000] log-mel batch and 32 decoder tokens,
+    on the card (K5/K6 and K7/K8) against the CPU (plain versions), both
+    in fp32 (TF32 off): loss within 1e-4 relative, each leaf within 1e-3
+    relative L2 (fp32 sums in other orders through 2 + 2 layers); then
+    the card in bf16 (weights and activations; fp32 LoRA, softmax and
+    statistics) against the CPU's fp32, within WHISPER_BF16_*_TOL; and
+    whisper_greedy_decode's ids over WHISPER_GREEDY tokens in fp32, equal
+    (argmax ties of random weights flip in bf16, not in fp32). The launches
+    of one loss and backward must be what :func:`whisper_launches`
+    predicts for 2 + 2 layers."""
+    import torch
+
+    from unsloth_tpu_torch.models.params import tree_to
+    from unsloth_tpu_torch.models.whisper import (load_whisper,
+                                                  whisper_greedy_decode)
+
+    hf = dict(WHISPER_LARGE_V3_CONFIG, encoder_layers=2, decoder_layers=2,
+              num_hidden_layers=2)
+    path = write_whisper_checkpoint(os.path.join(tmp, "whisper_2layer"), hf)
+    cpu, cfg = load_whisper(path, dtype=torch.float32, device="cpu")
+    card, _ = load_whisper(path, dtype=torch.float32, device=DEVICE)
+    shutil.rmtree(path)
+    lora = _whisper_lora(cfg, "cpu", seed)
+    lora_card = tree_to(lora, DEVICE)
+    feats, ids, labels = _whisper_inputs(cfg, "cpu", 2, 32, seed)
+    on_card = [t.to(DEVICE) for t in (feats, ids, labels)]
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _whisper_loss_grads(cpu, cfg, lora, feats, ids, labels)
+    t_cpu = time.perf_counter() - t0
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    loss_card, g_card = _whisper_loss_grads(card, cfg, lora_card, *on_card)
+    launches = {n: kernels[n].launches for n in SPEECH_KERNELS}
+    want = whisper_launches(2, 2)
+    rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    leaf = max(_rel(a, b) for a, b in zip(g_card, g_cpu))
+    log(f"[whisper parity] 2 + 2 layers fp32, B=2, 3000 frames, 32 tokens: "
+        f"loss card {loss_card:.6f} cpu {loss_cpu:.6f} (rel {rel_loss:.2e}, "
+        f"tol 1e-4); LoRA grads rel L2 worst leaf {leaf:.2e} (tol 1e-3) of "
+        f"{len(g_cpu)}; launches {launches} (expected {want}); cpu "
+        f"{t_cpu:.1f} s")
+    if launches != want:
+        raise RuntimeError(f"whisper parity launches {launches} != {want}")
+    if not (rel_loss <= 1e-4 and leaf <= 1e-3):
+        raise RuntimeError("whisper fp32 card and CPU disagree")
+    ids_card = whisper_greedy_decode(card, on_card[0], cfg,
+                                     max_tokens=WHISPER_GREEDY + 1,
+                                     lora=lora_card).cpu()
+    ids_cpu = whisper_greedy_decode(cpu, feats, cfg,
+                                    max_tokens=WHISPER_GREEDY + 1, lora=lora)
+    log(f"[whisper parity] greedy ids fp32, {WHISPER_GREEDY} tokens: card "
+        f"{ids_card[:, 1:].tolist()} cpu {ids_cpu[:, 1:].tolist()}")
+    if not torch.equal(ids_card, ids_cpu):
+        raise RuntimeError("whisper greedy ids differ between card and CPU")
+    # bf16 on the card: the same weights rounded, fp32 adapters
+    card_bf16 = _cast_tree(card, torch.bfloat16)
+    del card
+    loss_b, g_b = _whisper_loss_grads(card_bf16, cfg, lora_card, *on_card)
+    rel_b = abs(loss_b - loss_cpu) / abs(loss_cpu)
+    tog_b = _rel(torch.cat([a.ravel() for a in g_b]),
+                 torch.cat([b.ravel() for b in g_cpu]))
+    leaf_b = max(_rel(a, b) for a, b in zip(g_b, g_cpu))
+    log(f"[whisper parity] bf16 on the card against fp32 on the CPU: loss "
+        f"rel {rel_b:.2e} (tol {WHISPER_BF16_LOSS_TOL}); LoRA grads rel L2 "
+        f"together {tog_b:.2e} (tol {WHISPER_BF16_GRAD_TOL}), worst leaf "
+        f"{leaf_b:.2e} (tol {WHISPER_BF16_LEAF_TOL})")
+    if not (rel_b <= WHISPER_BF16_LOSS_TOL and tog_b <= WHISPER_BF16_GRAD_TOL
+            and leaf_b <= WHISPER_BF16_LEAF_TOL):
+        raise RuntimeError("whisper bf16 card and fp32 CPU disagree")
+    del card_bf16, lora_card, on_card
+    torch.cuda.empty_cache()
+    return dict(launches=launches, loss_rel=rel_loss, grad_leaf=leaf,
+                bf16=(rel_b, tog_b, leaf_b))
+
+
+def _cast_tree(tree, dtype):
+    """A Whisper param tree with every tensor in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    return None if tree is None else tree.to(dtype)
+
+
+def phase_whisper(tmp):
+    """Whisper-large-v3 at full width and depth, by the recipe of
+    bench_extra.py's main_whisper: a random bf16 checkpoint of its
+    published config (:func:`write_whisper_checkpoint`, 32 + 32 layers,
+    d 1,280, 20 heads, 128 mel bins, vocabulary 51,866) loaded by
+    from_pretrained(dtype=bf16). First whisper_transcribe of a seeded 2-s
+    waveform with an id buffer of WHISPER_MAX_TOKENS: the encoder's time,
+    the time of a decode step (the whole decoder over the buffer, no KV
+    cache), the ids; launches K5 once for each of the encoder's 65 norms
+    and the decoder's 97 a step, K6-K8 none. Then WhisperTrainer with fp32
+    LoRA r 32, alpha 64 on q/v, batch 2 of {"features": the port's
+    128-bin log-mel of seeded waveforms, "labels": 224 token ids}, lr 1e-4
+    constant, WHISPER_STEPS steps on the repeated batch: losses finite and
+    falling, step time, decoder tokens/s, peak memory, and launches per
+    step exactly :func:`whisper_launches` (K5 162, K6 160, K7/K8 1)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel, SFTConfig
+    from unsloth_tpu_torch.models.whisper import (WhisperConfig,
+                                                  init_whisper_lora,
+                                                  log_mel_spectrogram,
+                                                  whisper_encode,
+                                                  whisper_lora_leaves,
+                                                  whisper_transcribe)
+    from unsloth_tpu_torch.trainer.whisper import WhisperTrainer
+
+    kernels = _kernel_fns()
+    path = os.path.join(tmp, "whisper_large_v3")
+    t0 = time.perf_counter()
+    write_whisper_checkpoint(path, WHISPER_LARGE_V3_CONFIG)
+    size = sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (params, cfg), tok = FastLanguageModel.from_pretrained(
+        path, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[whisper] wrote {size / 1e9:.2f} GB in {t_write:.1f} s; "
+        f"from_pretrained(dtype=bf16) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; tokenizer "
+        f"{tok}")
+    if cfg != WhisperConfig.from_hf(WHISPER_LARGE_V3_CONFIG):
+        raise RuntimeError(f"unexpected config {cfg}")
+    rng = np.random.default_rng(SEED + 22)
+    audio = (rng.standard_normal(32000) * 0.1).astype(np.float32)
+    feats = log_mel_spectrogram(torch.from_numpy(audio).to(DEVICE)[None],
+                                n_mels=cfg.num_mel_bins)
+    with torch.no_grad():
+        whisper_encode(params, feats, cfg)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whisper_encode(params, feats, cfg)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ids = whisper_transcribe(params, cfg, audio, max_tokens=WHISPER_MAX_TOKENS)
+    torch.cuda.synchronize()
+    t_tr = time.perf_counter() - t0
+    tr_launches = {n: kernels[n].launches for n in SPEECH_KERNELS}
+    enc_norms = 2 * cfg.encoder_layers + 1
+    dec_norms = 3 * cfg.decoder_layers + 1
+    steps = (tr_launches["layer_norm_fwd"] - enc_norms) / dec_norms
+    log(f"[whisper] transcribe 2 s: {t_tr:.3f} s; encoder {1e3 * enc_s:.1f} "
+        f"ms; {steps:g} decode steps, {1e3 * (t_tr - enc_s) / steps:.1f} ms a "
+        f"step (the whole decoder over {WHISPER_MAX_TOKENS} slots); ids "
+        f"{ids}; launches {tr_launches}")
+    if (len(ids) != 1 or steps != int(steps) or not 1 <= steps
+            <= WHISPER_MAX_TOKENS - 1 or any(tr_launches[n] for n in
+                                            SPEECH_KERNELS[1:])
+            or not all(0 <= t_ < cfg.vocab_size for t_ in ids[0])):
+        raise RuntimeError(f"whisper_transcribe went wrong: {ids} "
+                           f"{tr_launches}")
+    # training
+    train = []
+    for i in range(WHISPER_BATCH):
+        wav = (rng.standard_normal(32000) * 0.1).astype(np.float32)
+        f = log_mel_spectrogram(torch.from_numpy(wav).to(DEVICE)[None],
+                                n_mels=cfg.num_mel_bins)[0]
+        train.append({"features": f.cpu().numpy(), "labels": rng.integers(
+            0, cfg.eos_token_id, WHISPER_LABELS).tolist()})
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    lora = init_whisper_lora(cfg, gen, **WHISPER_LORA)
+    args = SFTConfig(output_dir=os.path.join(tmp, "whisper_out"),
+                     per_device_train_batch_size=WHISPER_BATCH,
+                     max_steps=WHISPER_STEPS, learning_rate=1e-4,
+                     lr_scheduler_type="constant", warmup_steps=0,
+                     max_seq_length=cfg.max_target_positions, logging_steps=1)
+    trainer = WhisperTrainer((params, cfg), train_dataset=train, args=args,
+                             lora=lora)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    step_s = statistics.median(times[1:])
+    tokens = WHISPER_BATCH * WHISPER_LABELS
+    per_step = whisper_launches(cfg.encoder_layers, cfg.decoder_layers)
+    log(f"[whisper] LoRA r={WHISPER_LORA['r']} on q/v, batch "
+        f"{WHISPER_BATCH} x {WHISPER_FRAMES} frames, {WHISPER_LABELS} "
+        f"labels: losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}; steady step {step_s:.3f} s = "
+        f"{tokens / step_s:.1f} decoder tokens/s; peak memory allocated "
+        f"{peak / 1e9:.2f} GB; launches per step "
+        f"{ {n: launches[n] / len(times) for n in per_step} } (expected "
+        f"{per_step})")
+    if len(losses) != WHISPER_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"whisper losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"whisper loss did not fall: {losses}")
+    _check_launched(launches, SPEECH_KERNELS, "whisper training", per_step,
+                    len(times))
+    if not all(bool(torch.isfinite(t).all())
+               for t in whisper_lora_leaves(trainer.lora)):
+        raise RuntimeError("trained whisper LoRA is not finite")
+    del trainer, lora, params
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    return launches, tr_launches, dict(
+        losses=losses, step_s=step_s, decoder_tokens_per_s=tokens / step_s,
+        peak_bytes=peak, encoder_s=enc_s, transcribe_s=t_tr,
+        decode_steps=steps, ids=ids)
+
+
+def _orpheus_rows(rng, n_tokens):
+    """Orpheus training examples of about ``n_tokens`` tokens: byte text
+    of 20-200 printable characters and seeded SNAC code lists of 40-250
+    frames (4,096 codes a layer; 7 tokens a frame), through the port's
+    prepare_tts_dataset."""
+    from unsloth_tpu_torch.data.tts import prepare_tts_dataset
+
+    ds, total = [], 0
+    while total < n_tokens:
+        n = int(rng.integers(40, 251))
+        text = bytes(rng.integers(32, 127, int(rng.integers(20, 201)))
+                     .astype("uint8")).decode()
+        ds.append({"text": text, "source": "tara", "snac_codes": [
+            rng.integers(0, 4096, k * n).tolist() for k in (1, 2, 4)]})
+        total += 7 * n + len(text) + 16
+    return prepare_tts_dataset(ds, ByteTokenizer())
+
+
+def orpheus_launches(n_layers, full_logits):
+    """Launches of the packed path's kernels that one step of phase 14
+    needs (one packed row, accumulation 1) on a Llama decoder of
+    ``n_layers`` layers: the offloaded remat runs every layer's forward
+    twice (K1 on its seven projections, K3 on its two norms, K9), the
+    final norm once; the backward runs K2 on each projection but the first
+    layer's q/k/v, whose input (the frozen embedding) needs no gradient,
+    K4 on every norm but the first layer's input norm, for the same
+    reason (2 x n_layers), and K10/K11 (one wrapper) once a layer;
+    K7/K8 once each where fused_ce="auto" takes the full logits, never
+    where it takes the chunked CE."""
+    ce = int(full_logits)
+    return {"nf4_matmul": 2 * 7 * n_layers, "nf4_matmul_dx": 7 * n_layers - 3,
+            "rms_norm": 2 * 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers,
+            "packed_attn_fwd": 2 * n_layers, "packed_attn_bwd": n_layers,
+            "cross_entropy_fwd": ce, "cross_entropy_bwd": ce}
+
+
+def phase_orpheus(tmp):
+    """Orpheus-3B QLoRA SFT by the recipe of bench_extra.py's main_tts: a
+    random bf16 checkpoint of the Llama-3.2-3B backbone with the
+    vocabulary of 156,940 (28 layers, hidden 3,072, 24/8 heads of 128,
+    llama3 rope, tied embedding), from_pretrained(load_in_4bit=True),
+    get_peft_model(r=64, alpha 64, seven projections, "unsloth"),
+    SFTTrainer packing prepare_tts_dataset's rows into 2,048-token rows,
+    batch 1, ORPHEUS_STEPS steps: losses finite, the LoRA moved; step
+    time, real tokens/s, peak memory, the CE route fused_ce="auto" took
+    (K7/K8 launched: the full logits), and each kernel of the packed path
+    launched exactly as often a step as :func:`orpheus_launches`
+    predicts."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel, SFTConfig, SFTTrainer
+    from unsloth_tpu_torch.models.decoder import fused_ce_gate, tree_bytes
+
+    kernels = _kernel_fns()
+    path = _write_model(os.path.join(tmp, "orpheus_3b"), ORPHEUS_3B_CONFIG)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        path, max_seq_length=ORPHEUS_ROWS, load_in_4bit=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    model = FastLanguageModel.get_peft_model(
+        model, r=64, lora_alpha=64,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth").for_training()
+    torch.cuda.synchronize()
+    log(f"[orpheus] from_pretrained(load_in_4bit=True) + get_peft_model(r=64)"
+        f" in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rows = _orpheus_rows(np.random.default_rng(SEED + 24),
+                         ORPHEUS_STEPS * ORPHEUS_ROWS - 300)
+    trainer = SFTTrainer(model, tokenizer=ByteTokenizer(), train_dataset=rows,
+                         args=SFTConfig(
+                             output_dir=os.path.join(tmp, "orpheus_out"),
+                             max_seq_length=ORPHEUS_ROWS,
+                             per_device_train_batch_size=1,
+                             gradient_accumulation_steps=1,
+                             max_steps=ORPHEUS_STEPS, learning_rate=2e-4,
+                             warmup_steps=0, logging_steps=1))
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches]
+    full = not fused_ce_gate(ORPHEUS_ROWS - 1, model.cfg.vocab_size,
+                             tree_bytes(model.params), model.cfg.num_layers,
+                             model.cfg.hidden_size,
+                             torch.cuda.get_device_properties(0).total_memory)
+    log(f"[orpheus] {len(rows)} examples of {min(len(r['input_ids']) for r in rows)}"
+        f"-{max(len(r['input_ids']) for r in rows)} tokens packed into "
+        f"{len(batches)} rows of {ORPHEUS_ROWS} (real tokens {real}); "
+        f"fused_ce='auto' takes the {'full logits (K7/K8)' if full else 'chunked fused CE'}")
+    before = [t.clone() for _, t in _lora_leaves(model.lora)][:4]
+    trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    step_s = statistics.median(times[1:])
+    # the trainer's row order for epoch 0 (SFTTrainer.train, accumulation 1)
+    order = list(range(len(batches)))
+    np.random.RandomState(trainer.args.seed).shuffle(order)
+    tok_s = sum(real[i] for i in order[1:len(times)]) / sum(times[1:])
+    moved = max((t - b).abs().max().item() for (_, t), b in
+                zip(_lora_leaves(model.lora)[:4], before))
+    log(f"[orpheus] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}; steady step {step_s:.3f} s; "
+        f"{tok_s:.1f} real tokens/s over steps 2-{len(times)}; peak memory "
+        f"allocated "
+        f"{peak / 1e9:.2f} GB; LoRA moved by up to {moved:.3e}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    if len(losses) != ORPHEUS_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"orpheus losses not finite: {losses}")
+    if not moved > 0:
+        raise RuntimeError("orpheus training did not move the LoRA")
+    expect = orpheus_launches(model.cfg.num_layers, full)
+    log(f"[orpheus] launches per step "
+        f"{ {n: launches[n] / len(times) for n in expect} } (expected "
+        f"{expect})")
+    _check_launched(launches, [n for n, k in expect.items() if k],
+                    "orpheus training", expect, len(times))
+    del trainer, model
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, step_s=step_s, real_tokens_per_s=tok_s,
+                          peak_bytes=peak, full_logits=full)
+
+
 def _kernel_fns():
     """Each kernel's wrapper (its ``launches`` counter) by name."""
     from unsloth_tpu_torch.ops import cross_entropy as tce
@@ -4548,10 +5271,14 @@ def _kernel_fns():
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops import splash_attention as tsa
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
-    from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd
+    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
+                                                layer_norm_fwd, rms_norm,
+                                                rms_norm_bwd)
 
     return {"nf4_matmul": nf4_matmul, "nf4_matmul_dx": nf4_matmul_dx,
             "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
+            "layer_norm_fwd": layer_norm_fwd,
+            "layer_norm_bwd": layer_norm_bwd,
             "cross_entropy_fwd": tce.cross_entropy_fwd,
             "cross_entropy_bwd": tce.cross_entropy_bwd,
             "packed_attn_fwd": tpa.packed_attention_fwd,
@@ -4656,6 +5383,12 @@ def _kernels_line(rows, by_path):
                 "megablox gmm, transpose_rhs=True)", "(a) path"),
         "gmm_dx": ("gmm.cu", "unsloth_tpu/ops/moe.py:249 (megablox gmm's "
                    "VJP: gmm with transpose_rhs flipped)", "(a) path"),
+        "layer_norm_fwd": ("layer_norm.cu", "unsloth_tpu/ops/rms_norm.py:243 "
+                           "(_ln_fwd_kernel, launched by _ln_fwd_pallas "
+                           ":289)", "[3000, 1280] bfloat16"),
+        "layer_norm_bwd": ("layer_norm.cu", "unsloth_tpu/ops/rms_norm.py:253 "
+                           "(_ln_bwd_kernel, launched by _ln_bwd_pallas "
+                           ":313)", "[3000, 1280] bfloat16"),
     }
     # the main path each kernel's "launches" comes from
     main_path = {"packed_attn_fwd": "packed_training",
@@ -4667,7 +5400,9 @@ def _kernels_line(rows, by_path):
                      "nf4_gmm", "nf4_gmm_dx", "flash_sinks_fwd",
                      "flash_sinks_dq", "flash_sinks_dkv")},
                  "gmm": "gpt_oss_bf16_training",
-                 "gmm_dx": "gpt_oss_bf16_training"}
+                 "gmm_dx": "gpt_oss_bf16_training",
+                 "layer_norm_fwd": "whisper_training",
+                 "layer_norm_bwd": "whisper_training"}
     # the head-dim forms of this slice: (kernel, form, shape in phase 3,
     # the path whose launches are all of this form)
     forms = {
@@ -4809,6 +5544,8 @@ def main() -> int:
                       phase_train_parity_small, tmp)
         grpo_parity = timed("4f GRPO train parity", phase_train_parity_grpo,
                             tmp)
+        whisper_parity = timed("4g Whisper train parity",
+                               phase_whisper_parity, tmp)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -4837,6 +5574,10 @@ def main() -> int:
         qwen = timed("11 write Qwen2.5", _write_model,
                      os.path.join(tmp, "qwen25_05b"), QWEN25_05B_CONFIG)
         qwen_launches, _ = timed("11 Qwen2.5 SFT", phase_qwen25_sft, qwen)
+        shutil.rmtree(qwen)
+        whisper_launches_, transcribe_launches, _ = timed(
+            "13 Whisper-large-v3", phase_whisper, tmp)
+        orpheus_launches, _ = timed("14 Orpheus-3B SFT", phase_orpheus, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4852,7 +5593,11 @@ def main() -> int:
                "gemma7b_2layer_parity": small["gemma"],
                "gpt_oss_sinks_row_parity": small["gpt_oss"],
                "grpo_training": grpo_launches,
-               "grpo_2layer_parity": grpo_parity["launches"]}
+               "grpo_2layer_parity": grpo_parity["launches"],
+               "whisper_training": whisper_launches_,
+               "whisper_transcribe": transcribe_launches,
+               "whisper_2layer_parity": whisper_parity["launches"],
+               "orpheus_training": orpheus_launches}
     log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))

@@ -709,3 +709,76 @@ def test_attention_prefix_route_on_cuda(dev):
     with pytest.raises(NotImplementedError, match="masked reference"):
         attention(q, k, k, segment_ids=seg, prefix_layout=layout,
                   sinks=torch.zeros(8, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the speech slice's kernels: LayerNorm forward (K5) and backward (K6)
+# ---------------------------------------------------------------------------
+
+from chip_smoke import ln_errs  # noqa: E402
+from unsloth_tpu_torch.ops.rms_norm import (  # noqa: E402
+    layer_norm, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd,
+    layer_norm_ref)
+
+
+@pytest.mark.parametrize("rows,d", [(3000, 1280), (448, 1280), (70, 384),
+                                    (5, 7000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [True, False])
+def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias):
+    """K5 and K6 against layer_norm_ref / layer_norm_bwd_ref at Whisper's
+    widths, a narrow one and one whose dW/dB accumulators need more than
+    48 KB of shared memory, with and without a bias; the tolerances of
+    chip_smoke.ln_errs (each part <= 1 of its limit)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn(d, generator=g, device=dev)).to(dtype) \
+        if bias else None
+    gy = torch.randn((rows, d), generator=g, device=dev).to(dtype)
+    before = (layer_norm_fwd.launches, layer_norm_bwd.launches)
+    out = layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5)
+    torch.cuda.synchronize()
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == dx.dtype == dtype
+    assert dw.dtype == db.dtype == torch.float32
+    errs = ln_errs(dtype, (out, dx, dw, db),
+                   (layer_norm_ref(x, w, b, 1e-5),)
+                   + layer_norm_bwd_ref(x, w, gy, 1e-5))
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_layer_norm_autograd_launches_kernels(dev):
+    """layer_norm's backward on the card is K6: dx, dW and dB (in the
+    parameters' dtype) equal the wrapper's, and no dB without a bias."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((4, 50, 1280), generator=g, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(1280, generator=g, device=dev)).to(
+        torch.bfloat16)
+    b = torch.zeros(1280, device=dev, dtype=torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = (layer_norm_fwd.launches, layer_norm_bwd.launches)
+    layer_norm(*leaves, 1e-5).backward(gy)
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5)
+    assert torch.equal(leaves[0].grad, dx)
+    assert torch.equal(leaves[1].grad, dw.to(torch.bfloat16))
+    assert torch.equal(leaves[2].grad, db.to(torch.bfloat16))
+    xl = x.clone().requires_grad_(True)
+    layer_norm(xl, w, None, 1e-5).backward(gy)
+    assert torch.equal(xl.grad, dx)
+
+
+def test_layer_norm_refuses_other_dtypes(dev):
+    x = torch.randn((4, 64), device=dev, dtype=torch.float16)
+    w = torch.ones(64, device=dev, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float32/bfloat16"):
+        layer_norm(x, w, None)
+    xb = x.to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="b like w"):
+        layer_norm(xb, wb, torch.zeros(64, device=dev))

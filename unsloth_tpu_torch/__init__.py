@@ -13,7 +13,9 @@ gradient checkpointing and a chunked fused CE), and SFT without packing
 (padded rows through the flash kernels, the full-logits CE, evaluate,
 response-only labels, merged and LoRA saves); GRPO and RLOO (fanned-out
 rollouts, the reference pass on the frozen base, the chunked selective
-log-softmax, and the shared-prefix layout through the splash kernels).
+log-softmax, and the shared-prefix layout through the splash kernels);
+speech: Whisper (``models/whisper.py``, ``trainer/whisper.py``) over the
+LayerNorm kernels, and the Orpheus TTS rows (``data/tts.py``).
 """
 
 __version__ = "0.1.0"

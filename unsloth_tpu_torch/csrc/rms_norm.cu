@@ -16,21 +16,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "norm_common.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
@@ -85,25 +73,12 @@ void launch(const void* x, const void* w, void* out, int rows, int D, float eps,
 // dW is a reduction across every row. The TPU kernel carried it across
 // its sequential grid; here blocks run in parallel, so each block sums its
 // own rows into one fp32 partial row (kept in shared memory, each thread
-// owning the columns it walks) and a second kernel adds the partials up
-// column by column. No atomics, so dW is the same on every run.
+// owning the columns it walks) and column_sum_kernel (norm_common.cuh)
+// adds the partials up column by column. No atomics, so dW is the same on
+// every run.
 // Bounded by device-memory bytes: x and g are read once from device
 // memory (the three passes over a row hit L1/L2) and dx written once.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  __syncthreads();  // `red` may still be read from the previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < kThreads / 32 ? red[lane] : 0.0f;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-  return t;
-}
 
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
@@ -143,37 +118,18 @@ rms_norm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX
   for (int i = threadIdx.x; i < D; i += kThreads) out[i] = dw_acc[i];
 }
 
-// dw[i] = sum over the partial rows of dw_partial[p, i], in fp32.
-__global__ void __launch_bounds__(kThreads)
-rms_norm_dw_reduce_kernel(const float* __restrict__ dw_partial, float* __restrict__ dw,
-                          int n_partial, int D) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= D) return;
-  float acc = 0.0f;
-  for (int p = 0; p < n_partial; ++p) acc += dw_partial[(size_t)p * D + i];
-  dw[i] = acc;
-}
-
 template <typename TX, typename TW>
 int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_partial, void* dw,
                int rows, int D, int n_partial, float eps, int gemma, cudaStream_t s) {
   const int rows_per_block = (rows + n_partial - 1) / n_partial;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
   const size_t smem = static_cast<size_t>(D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(rms_norm_bwd_kernel<TX, TW>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  rms_norm_bwd_kernel<TX, TW><<<blocks, kThreads, smem, s>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TX*>(g),
-      static_cast<TX*>(dx), static_cast<float*>(dw_partial), rows, D, rows_per_block, eps, gemma);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rms_norm_dw_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(dw_partial), static_cast<float*>(dw), blocks, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch_with_column_sum(
+      rms_norm_bwd_kernel<TX, TW>, blocks, smem, s, static_cast<const float*>(dw_partial),
+      static_cast<float*>(dw), static_cast<const float*>(nullptr), static_cast<float*>(nullptr),
+      D, static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TX*>(g),
+      static_cast<TX*>(dx), static_cast<float*>(dw_partial), rows, D, rows_per_block, eps,
+      gemma);
 }
 
 }  // namespace

@@ -29,9 +29,9 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
            "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu",
-           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu")
+           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu", "layer_norm.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("attention_tiles.cuh", "expert_visits.cuh")
+HEADERS = ("attention_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -173,6 +173,12 @@ def library() -> ctypes.CDLL:
         lib.unsloth_gmm_bf16.restype = i
         lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.unsloth_gmm_dx_bf16.restype = i
+        # x, w, b (or null), out, rows, D, eps, x and w dtype codes, stream
+        lib.unsloth_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
+        lib.unsloth_layer_norm.restype = i
+        lib.unsloth_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                               i, f, i, i, p]
+        lib.unsloth_layer_norm_bwd.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

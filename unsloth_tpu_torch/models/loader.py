@@ -14,10 +14,11 @@ quantizing anything (``models/bnb.py``).
 "unsloth" -> "offload", True/"layer" -> True, False -> False).
 
 ``save_pretrained_merged``, ``save_lora`` and ``load_lora`` go through
-``export/save.py``. Not ported yet: vision/audio checkpoints and DoRA
-(both raise ``NotImplementedError``), GGUF files and export, Hub pushes,
-8-bit loading, QAT, LoftQ, ``modules_to_save`` and the decode-time dequant
-cache.
+``export/save.py``. A Whisper checkpoint loads into the functional
+``(params, cfg)`` handle of ``models/whisper.py``. Not ported yet: vision
+and CSM checkpoints and DoRA (all raise ``NotImplementedError``), GGUF
+files and export, Hub pushes, 8-bit loading, QAT, LoftQ,
+``modules_to_save`` and the decode-time dequant cache.
 """
 
 from __future__ import annotations
@@ -109,14 +110,25 @@ class FastLanguageModel:
         """Load a model and tokenizer from a local HF checkpoint directory
         onto ``device``. The projections of a bnb-4bit directory arrive as
         NF4 weights without quantize_nf4, whatever ``load_in_4bit`` says,
-        as in the JAX package."""
+        as in the JAX package. A Whisper directory gives
+        ``((params, WhisperConfig), None)`` (``models/whisper.py``), its
+        weights in ``dtype`` (default fp32), as the JAX package's route
+        gives them."""
         path = _resolve_model_path(model_name)
         hf_config = load_hf_config(path)
-        if "vision_config" in hf_config or hf_config.get("model_type") in (
-                "whisper", "csm"):
+        if "vision_config" in hf_config or hf_config.get("model_type") == \
+                "csm":
             raise NotImplementedError(
                 f"{hf_config.get('model_type')!r} checkpoints (vision/audio)"
                 " are not ported yet")
+        if hf_config.get("model_type") == "whisper":
+            # the JAX package's route: the functional (params, cfg) handle,
+            # fp32 unless asked otherwise, and no tokenizer
+            from .whisper import load_whisper
+
+            if not isinstance(dtype, torch.dtype):
+                dtype = torch.float32 if dtype is None else _DTYPES[dtype]
+            return load_whisper(path, dtype=dtype, device=device), None
         cfg = ModelConfig.from_hf_config(hf_config, name=model_name)
         if not isinstance(dtype, torch.dtype):
             dtype = _DTYPES[dtype]

@@ -1,15 +1,26 @@
-"""RMSNorm forward and backward, in PyTorch with hand-written CUDA kernels.
+"""RMSNorm and LayerNorm forward and backward, in PyTorch with hand-written
+CUDA kernels.
 
 Counterpart of unsloth_tpu/ops/rms_norm.py:rms_norm: fp32 statistics
 whatever the input dtype, and the Gemma variant's ``(1 + w)`` scale in
 fp32. On a CUDA tensor :func:`rms_norm` launches ``csrc/rms_norm.cu``
 (TPU ``_fwd_kernel``) and its backward :func:`rms_norm_bwd` the second
 kernel of that file (TPU ``_bwd_kernel``); on a CPU tensor they run
-:func:`rms_norm_ref` and :func:`rms_norm_bwd_ref`. The device of ``x`` is
-the only thing that chooses.
+:func:`rms_norm_ref` and :func:`rms_norm_bwd_ref`.
+
+LayerNorm, counterpart of the same module's ``layer_norm``: on a CUDA
+tensor :func:`layer_norm_fwd` launches ``csrc/layer_norm.cu`` (TPU
+``_ln_fwd_kernel``, K5) and :func:`layer_norm_bwd` its backward (TPU
+``_ln_bwd_kernel``, K6); on a CPU tensor they run :func:`layer_norm_ref`
+and :func:`layer_norm_bwd_ref`. JAX's ``_use_pallas`` gate (TPU only,
+opt-in, ``d % 128 == 0``) is TPU machinery and is left out: the kernels
+take fp32 and bf16 at any width. The device of ``x`` is the only thing
+that chooses.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -149,3 +160,156 @@ class _RMSNorm(torch.autograd.Function):
         dx, dw = rms_norm_bwd(x, w, g.to(x.dtype), ctx.eps, ctx.gemma)
         return (dx if ctx.needs_input_grad[0] else None,
                 dw if ctx.needs_input_grad[1] else None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm (K5 forward, K6 backward)
+# ---------------------------------------------------------------------------
+
+def layer_norm_ref(x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor], eps: float = 1e-5
+                   ) -> torch.Tensor:
+    """Plain LayerNorm in fp32, output in x.dtype: mean, then
+    var = mean((x - mean)^2), xhat * w (+ b). x: [..., D]; w, b: [D]."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * w.to(torch.float32)
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layer_norm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                       eps: float = 1e-5):
+    """Plain backward of :func:`layer_norm_ref`, the TPU kernel's formula
+    in fp32: (dx in x.dtype, dW fp32, dB fp32) with dxhat = g * w,
+    dx = inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
+    dW = sum_rows(g * xhat), dB = sum_rows(g)."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dxhat = gf * w.to(torch.float32)
+    m1 = torch.mean(dxhat, dim=-1, keepdim=True)
+    m2 = torch.mean(dxhat * xhat, dim=-1, keepdim=True)
+    dx = inv * (dxhat - m1 - xhat * m2)
+    dw = (gf * xhat).reshape(-1, d).sum(dim=0)
+    db = gf.reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dw, db
+
+
+def _check_ln_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> None:
+    _check_cuda(name, x, w)
+    if b is not None and (b.dtype != w.dtype or b.shape != w.shape
+                          or b.device != w.device):
+        raise NotImplementedError(
+            f"{name} CUDA kernel takes b like w ({w.dtype} {tuple(w.shape)} "
+            f"on {w.device}), got {b.dtype} {tuple(b.shape)} on {b.device}")
+
+
+def layer_norm_fwd(x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor], eps: float = 1e-5
+                   ) -> torch.Tensor:
+    """LayerNorm forward (K5), not differentiable: x [..., D] fp32 or bf16,
+    w [D], b [D] in w's dtype or None (zeros); output in x.dtype."""
+    if x.device.type == "cpu":
+        return layer_norm_ref(x, w, b, eps)
+    _check_ln_cuda("layer_norm_fwd", x, w, b)
+    d = x.shape[-1]
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    rows = xc.numel() // d if d else 0
+    if rows == 0:
+        return out
+    rc = kernels.library().unsloth_layer_norm(
+        xc.data_ptr(), w.contiguous().data_ptr(),
+        None if b is None else b.contiguous().data_ptr(), out.data_ptr(),
+        rows, d, float(eps), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, "layer_norm_fwd")
+    layer_norm_fwd.launches += 1
+    return out
+
+
+#: number of kernel launches since the last reset (CPU calls do not count)
+layer_norm_fwd.launches = 0
+
+
+def layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                   eps: float = 1e-5):
+    """LayerNorm gradients (K6): (dx [..., D] in x.dtype, dW [D] fp32,
+    dB [D] fp32). g is the output's gradient, in x.dtype. dW and dB are
+    fp32 sums over all rows, reduced in a fixed order (no atomics)."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_ref(x, w, g, eps)
+    _check_cuda("layer_norm_bwd", x, w)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"layer_norm_bwd: g {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    d = x.shape[-1]
+    xc, gc = x.contiguous(), g.contiguous()
+    dx = torch.empty_like(xc)
+    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    db = torch.zeros_like(dw)
+    rows = xc.numel() // d if d else 0
+    if rows == 0:
+        return dx, dw, db
+    n_partial = min(rows, _BWD_PARTIALS)
+    partial = torch.empty((2, n_partial, d), dtype=torch.float32,
+                          device=x.device)
+    rc = kernels.library().unsloth_layer_norm_bwd(
+        xc.data_ptr(), w.contiguous().data_ptr(), gc.data_ptr(),
+        dx.data_ptr(), partial[0].data_ptr(), partial[1].data_ptr(),
+        dw.data_ptr(), db.data_ptr(), rows, d, n_partial, float(eps),
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    return dx, dw, db
+
+
+#: number of kernel launches since the last reset (CPU calls do not count)
+layer_norm_bwd.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    """LayerNorm with the TPU package's custom backward (JAX
+    ``_ln_vjp_bwd``): saves x and w, recomputes the statistics in the
+    backward; dW and dB come out in w's and b's dtype, and no dB for
+    ``b=None``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        ctx.b_dtype = None if b is None else b.dtype
+        return layer_norm_fwd(x, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, w, g.to(x.dtype), ctx.eps)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None,
+                dw.to(w.dtype) if need[1] else None,
+                db.to(ctx.b_dtype) if ctx.b_dtype is not None and need[2]
+                else None, None)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """LayerNorm over the last axis. x: [..., D] (bf16 or f32), w: [D], b:
+    [D] or None (zeros). Differentiable in x, w and b (the backward is
+    :func:`layer_norm_bwd`)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad
+            or (b is not None and b.requires_grad)):
+        return _LayerNorm.apply(x, w, b, eps)
+    return layer_norm_fwd(x, w, b, eps)

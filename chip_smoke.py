@@ -54,14 +54,22 @@ exits non-zero without printing a result:
                Whisper path's LayerNorm forward (K5) and backward (K6) at
                [3000, 1280] (2 x 1,500 encoder frames) in bf16 and fp32,
                at [448, 1280] (2 x 224 decoder tokens) in bf16 and with
-               b=None (library call: F.layer_norm and its backward); the
+               b=None (library call: F.layer_norm and its backward); then
+               the FP8 path's dequant-inside-matmul K12 (forward) and K13
+               (dx) at block 128 at Llama-3.1-8B's four projection shapes
+               (M = 4,096), K12 at gate/up and down at 1 and 4 decode
+               rows, and both at a ragged shape with block 32 (labelled
+               yardstick: dequantize_fp8 + torch.matmul, two calls); the
                check must reject injected faults (K16: a dropped kv tile,
                an ignored pad mask, a late-half error; K18 also: the
                window ignored, the softcap's derivative dropped; K14/K15:
                one expert's rows through the next expert's weights, the
                bias dropped; K19 the same; K17: the sink ignored, dsinks
                dropped; K18's prefix form: the region rule dropped, the
-               prefix dropped). For each
+               prefix dropped; K12/K13: a contraction block read with its
+               neighbour's scale, the scales ignored, the last contraction
+               block dropped, and for K13 the scale grid read
+               untransposed). For each
                kernel, its bound (the least time the card could take) and
                the time of the one PyTorch call that computes the same
                function, where there is one (K18: the compiled
@@ -114,6 +122,14 @@ exits non-zero without printing a result:
                (K5/K6, K7/K8) against the CPU, both fp32, then the card in
                bf16; greedy ids over 16 tokens in fp32, equal; launches of
                K5/K6/K7/K8 exactly what the layer count predicts;
+  4h. FP8 train parity  Llama-3.1-8B cut to 2 layers at full width, its
+               seven projections quantized by quantize_fp8_block (block
+               128), LoRA r=16 with a random B: the loss and every LoRA
+               gradient of one padded [2, 1024] batch, the card (K12/K13,
+               K3/K4, K16, K7/K8) against the CPU (plain versions, fp32),
+               at 4b's limits; the logits of a 64-token prefill and 4
+               decode steps the same way at phase 4's; K12/K13 launches
+               exactly what 2 layers predict;
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -224,7 +240,20 @@ exits non-zero without printing a result:
                LoRA moved, step time, real tokens/s, peak memory, the CE
                route fused_ce="auto" took, launches per step exactly K1
                392, K2 193, K3 113, K4 56, K9 56, K10/K11 28, K7/K8 1
-               (full logits).
+               (full logits);
+ 15. main path (LoRA SFT and generate over a block-FP8 base; run after
+               phase 12, on its checkpoint) from_pretrained(
+               max_seq_length=2048, load_in_4bit=False) in bf16, the seven
+               projections of all 32 layers quantized by
+               quantize_fp8_block (block 128), get_peft_model(r=16,
+               "unsloth"), the notebook recipe of phase 7 for 3 steps:
+               losses finite and falling, launches a step exactly phase
+               7's K1/K2 counts as K12/K13 (1,792 and 884), K16 and K7/K8
+               as in phase 7, K1/K2 and K9-K11 never; step time,
+               tokens/s, peak memory, MFU; evaluate, the adapter round
+               trip, save_pretrained_merged raising NotImplementedError
+               (no merge over FP8 in either package), a greedy generate of
+               16 tokens for 2 prompts (K12 at decode rows).
 
 Then one JSON line with each kernel's launches on its main path (K5/K6:
 Whisper's training, phase 13), its largest error against its plain
@@ -955,7 +984,8 @@ def phase_kernels():
                      ("K18 prefix", _grpo_kernels),
                      ("K14/K15, K17, K19", _gpt_oss_kernels),
                      ("head dims 64/256", _small_model_kernels),
-                     ("K5/K6", _layer_norm_kernels)):
+                     ("K5/K6", _layer_norm_kernels),
+                     ("K12/K13", _fp8_kernels)):
         t_part = time.perf_counter()
         for name, extra in fn(dev, g, flush).items():
             rows.setdefault(name, []).extend(extra)
@@ -2318,7 +2348,8 @@ def _prefill_decode_logits(params, cfg, ids, mask, steps, feed=None):
 
     dev = ids.device
     b, t = ids.shape
-    cache = init_cache(cfg, b, t + steps, device=dev)
+    cache = init_cache(cfg, b, t + steps, dtype=params["embed"].dtype,
+                       device=dev)
     first = torch.argmax(mask.to(torch.int32), dim=1)
     positions = (torch.arange(t, device=dev)[None] - first[:, None]).clamp(min=0)
     valid = torch.ones((b, t + steps), dtype=torch.bool, device=dev)
@@ -2524,7 +2555,7 @@ def phase_train_parity_padded(hf=LLAMA_31_8B_CONFIG, expect=None,
     through K7/K8) and on the CPU through the plain versions in fp32
     (attention_ref, the plain CE), from the same weights and NF4 codes:
     random ones from the seed, quantized, or ``params`` (a 2-layer tree on
-    the card, as a loader gave it). Tolerance as in phase 4b: loss within
+    the card, as a loader gave it, or with FP8 projections). Tolerance as in phase 4b: loss within
     1e-2 relative, each gradient leaf within 5e-2 relative L2 (the card
     rounds to bf16 at every op; a wrong kernel gives errors of the order of
     the gradient). Every kernel of ``expect`` (default: the Llama path's)
@@ -2539,12 +2570,15 @@ def phase_train_parity_padded(hf=LLAMA_31_8B_CONFIG, expect=None,
     from unsloth_tpu_torch.models.params import (init_lora_tree,
                                                  init_params, quantize_params,
                                                  tree_to)
+    from unsloth_tpu_torch.ops.fp8 import FP8Tensor
 
     cfg = ModelConfig.from_hf_config(dict(hf, num_hidden_layers=2))
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     if params is None:
         params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
                                  cfg, dtype=torch.bfloat16)
+    base = ("FP8" if isinstance(params["layers"][0]["q"], FP8Tensor)
+            else "NF4")
     lora = init_lora_tree(cfg, gen, r=16, alpha=16.0)
     for layer in lora["layers"]:
         for lw in layer.values():
@@ -2582,7 +2616,7 @@ def phase_train_parity_padded(hf=LLAMA_31_8B_CONFIG, expect=None,
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
     worst = max(rels, key=rels.get)
-    log(f"[train parity] 2-layer {label} NF4 + LoRA r=16, padded "
+    log(f"[train parity] 2-layer {label} {base} + LoRA r=16, padded "
         f"[2, {max(lengths)}] ({lengths[0]} and {lengths[1]} real tokens): "
         f"loss "
         f"card {l_card:.6f} cpu (fp32) {l_cpu:.6f} (rel {loss_rel:.2e}, tol "
@@ -3039,12 +3073,15 @@ def _alpaca_texts(rng, n):
 
 
 def _notebook_recipe(tmp, tag, train, steps, out_name,
-                     markers=(INSTRUCTION, RESPONSE), load_in_4bit=True):
+                     markers=(INSTRUCTION, RESPONSE), load_in_4bit=True,
+                     prepare=None):
     """The notebook recipe's training at full width and depth from the
     checkpoint in ``tmp`` (phases 7, 8, 10 and 11), with every kernel's
     launch count and the peak memory reset first: from_pretrained(
     max_seq_length 2048, ``load_in_4bit``), get_peft_model(r=16, seven
-    projections, "unsloth" checkpointing), SFTTrainer(packing=False) on the
+    projections, "unsloth" checkpointing; ``prepare``, where given, is
+    called on the loaded model first and the peak memory is reset after
+    it), SFTTrainer(packing=False) on the
     texts ``train`` with train_on_responses_only on the (instruction,
     response) ``markers``, batch 2 x accumulation 4, ``steps`` steps (one
     epoch: every step sees other rows), warmup 0. The losses must be
@@ -3066,6 +3103,14 @@ def _notebook_recipe(tmp, tag, train, steps, out_name,
     model, _ = FastLanguageModel.from_pretrained(
         tmp, max_seq_length=UNPACKED_ROWS, load_in_4bit=load_in_4bit,
         dtype=torch.bfloat16, device=DEVICE)
+    if prepare is not None:
+        prepare(model)
+        torch.cuda.synchronize()
+        log(f"[{tag}] loaded and prepared in {time.perf_counter() - t0:.1f} "
+            f"s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+            f"resident {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     model = FastLanguageModel.get_peft_model(
         model, r=16, lora_alpha=16,
         target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
@@ -5261,6 +5306,331 @@ def phase_orpheus(tmp):
                           peak_bytes=peak, full_logits=full)
 
 
+# ---------------------------------------------------------------------------
+# FP8: phase 3's K12/K13, phase 4h (2 layers, card against CPU) and phase 15
+# (LoRA SFT and generate over a block-FP8 Llama-3.1-8B)
+# ---------------------------------------------------------------------------
+
+FP8_BLOCK = 128            # quantize_fp8_block's block on the path
+FP8_STEPS = 3              # optimizer steps of phase 15
+FP8_DECODE_ROWS = (1, 4)   # K12 at decode rows in phase 3
+#: phase 3's ragged case: (name, N, K, block, M); K % 16 and K % 8 are not
+#: 0, so every load and store of the kernels takes its masked path
+FP8_RAGGED = ("ragged", 1000, 1404, 32, 333)
+#: K12/K13's check: every element within MM_ULPS bf16 ulps of its plain
+#: value, the ulp taken of max(|ref|, 2^-4 rms(ref)) (see mm_ulps)
+MM_ULPS = 1
+FP8_PROJECTIONS = ("q", "k", "v", "o", "gate", "up", "down")
+#: the kernels the FP8 path must launch, and those it must not
+FP8_KERNELS = ("fp8_matmul_fwd", "fp8_matmul_dx", "rms_norm", "rms_norm_bwd",
+               "cross_entropy_fwd", "cross_entropy_bwd", "flash_attn_fwd",
+               "flash_attn_dq", "flash_attn_dkv")
+FP8_ABSENT = ("nf4_matmul", "nf4_matmul_dx", "packed_attn_fwd",
+              "packed_attn_bwd", "splash_attn_fwd", "splash_attn_dq",
+              "splash_attn_dkv")
+
+
+def mm_ulps(got, ref) -> float:
+    """Worst |got - ref| in bf16 ulps of max(|ref|, 2^-4 rms(ref)). K12/K13
+    and their plain versions round the same bf16 weights, sum the same
+    products in fp32 in other orders (a difference near 1e-6 of the rms at
+    these depths) and round once to bf16: one ulp apart where the fp32
+    sums straddle a rounding point. The floor keeps the outputs that cancel
+    to near zero, whose own ulp is far below that fp32 difference, from
+    deciding the check."""
+    import torch
+
+    r = ref.float()
+    floor = 2.0 ** -4 * r.square().mean().sqrt()
+    return ulps_bf16_or_f32(got.float() - r, torch.maximum(r.abs(), floor),
+                            torch.bfloat16)
+
+
+def fp8_weight(n, k, g, dev, block=FP8_BLOCK):
+    """A bf16 [n, k] weight: randn * 0.02 times 2^u per block x block tile,
+    u uniform in [-2, 2], so that the tiles' scales differ, as a
+    checkpoint's do, and a kernel that reads the wrong scale shows."""
+    import torch
+
+    nb, kb = -(-n // block), -(-k // block)
+    f = torch.exp2(torch.rand((nb, kb), generator=g, device=dev) * 4 - 2)
+    f = f.repeat_interleave(block, 0).repeat_interleave(block, 1)[:n, :k]
+    return (torch.randn((n, k), generator=g, device=dev) * 0.02 * f).to(
+        torch.bfloat16)
+
+
+def fp8_faults(q, dx):
+    """FP8 weights as a wrong K12 (``dx`` False) or K13 would read ``q``:
+    each block of the contraction (in-blocks for K12, out-blocks for K13)
+    with its neighbour's scale, the scales ignored (all 1), the last block
+    of the contraction dropped, and for K13 the scale grid read as if it
+    were stored [in/B, out/B]."""
+    import dataclasses
+
+    import torch
+
+    axis = 0 if dx else 1
+    faults = {"neighbouring k-block's scale": dataclasses.replace(
+        q, scales=torch.roll(q.scales, 1, dims=axis)),
+        "scales ignored": dataclasses.replace(
+            q, scales=torch.ones_like(q.scales))}
+    v = q.values.clone()
+    last = (q.shape[axis] - 1) // q.block * q.block
+    if dx:
+        v.view(torch.uint8)[last:] = 0
+    else:
+        v.view(torch.uint8)[:, last:] = 0
+    faults["last k-block dropped"] = dataclasses.replace(q, values=v)
+    if dx:
+        nb_o, nb_i = q.scales.shape
+        faults["scale grid read untransposed"] = dataclasses.replace(
+            q, scales=q.scales.reshape(nb_i, nb_o).t().contiguous())
+    return faults
+
+
+def _fp8_kernels(dev, g, flush):
+    """K12 and K13 against their plain versions (fp8_matmul_ref,
+    fp8_matmul_dx_ref) at the FP8 path's shapes: Llama-3.1-8B's four
+    projection shapes at M = 4,096 (2 x 2,048: phase 15's micro-batch),
+    K12 at gate/up and down at the decode rows FP8_DECODE_ROWS, and both at
+    FP8_RAGGED (block 32). Weights from :func:`fp8_weight`, quantized at
+    block 128. Tolerance: :func:`mm_ulps` <= MM_ULPS; each fault of
+    :func:`fp8_faults`, run through the plain version, must exceed it.
+    Times: the kernel's median, the plain version's one call (once_ms),
+    the labelled yardstick dequantize_fp8 + torch.matmul (two calls: no
+    single PyTorch call computes the function), the bound."""
+    import torch
+
+    from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
+    from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx,
+                                                  fp8_matmul_dx_ref,
+                                                  fp8_matmul_fwd)
+
+    cases = [(name, n, k, FP8_BLOCK, 2 * UNPACKED_ROWS, True)
+             for name, n, k in PROJ_SHAPES]
+    cases += [(name, n, k, FP8_BLOCK, m, False) for name, n, k in PROJ_SHAPES
+              if name in ("gate/up", "down") for m in FP8_DECODE_ROWS]
+    name, n, k, block, m = FP8_RAGGED
+    cases.append((name, n, k, block, m, True))
+    rows = {"fp8_matmul_fwd": [], "fp8_matmul_dx": []}
+    library = "dequantize_fp8 + torch.matmul (two calls)"
+    for name, n, k, block, m, with_dx in cases:
+        q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+        for kname, dx in [("fp8_matmul_fwd", False)] + (
+                [("fp8_matmul_dx", True)] if with_dx else []):
+            a = torch.randn((m, n if dx else k), generator=g,
+                            device=dev).to(torch.bfloat16)
+            kernel = fp8_matmul_dx if dx else fp8_matmul_fwd
+            plain = fp8_matmul_dx_ref if dx else fp8_matmul_ref
+            got = kernel(a, q)
+            ref, plain_ms = once_ms(lambda: plain(a, q))
+            torch.cuda.synchronize()
+            ulps = mm_ulps(got, ref)
+            err = (got.float() - ref.float()).abs().max().item()
+            faults = {f_: mm_ulps(plain(a, fq), ref)
+                      for f_, fq in fp8_faults(q, dx).items()}
+            ms = time_ms(lambda: kernel(a, q), flush=flush)
+            lib_ms = time_ms(lambda: plain(a, q), runs=10, flush=flush)
+            b_ms, b_by = bound(2 * m * n * k,
+                               nbytes(a) + q.nbytes + m * (k if dx else n) * 2)
+            shape = f"{name} M={m} N={n} K={k} block {block}"
+            rows[kname].append(dict(
+                shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library=library))
+            log(f"[kernels] {kname} {shape}: max|d|={err:.3e} "
+                f"({ulps:.2f} ulp, limit {MM_ULPS}); faults "
+                + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
+                + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms {library} "
+                f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+                f"{100 * b_ms / ms:.1f}% of it)")
+            if not (bool(torch.isfinite(got).all()) and ulps <= MM_ULPS):
+                raise RuntimeError(f"{kname} disagrees at {shape}: {ulps} "
+                                   "ulp")
+            missed = [f_ for f_, u in faults.items() if not u > MM_ULPS]
+            if missed:
+                raise RuntimeError(f"the {kname} check lets faults through "
+                                   f"at {shape}: {missed}")
+            del a, got, ref
+        del q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp8_projections(params):
+    """``params`` with the seven projections of every layer quantized by
+    quantize_fp8_block at FP8_BLOCK, each on its own device, one at a time
+    (the dense weight freed as its FP8 form takes its place), as
+    tests/test_ops_fp8.py quantizes a JAX tree. Returns ``params``."""
+    from unsloth_tpu_torch.ops.fp8 import quantize_fp8_block
+
+    for layer in params["layers"]:
+        for name in FP8_PROJECTIONS:
+            layer[name] = quantize_fp8_block(layer[name], FP8_BLOCK)
+    return params
+
+
+def fp8_launches(n_layers, accum=1, remat=True):
+    """K12 and K13 launches of one loss and backward over ``accum``
+    micro-batches of an ``n_layers`` FP8 Llama with LoRA on all seven
+    projections: K12 once a projection, twice under remat (the recompute);
+    K13 once a projection, less layer 0's q/k/v, whose input (the norm of
+    the frozen embedding) needs no gradient. Phase 7's K1/K2 counts."""
+    per = len(FP8_PROJECTIONS) * n_layers
+    return {"fp8_matmul_fwd": (2 if remat else 1) * per * accum,
+            "fp8_matmul_dx": (per - 3) * accum}
+
+
+def phase_train_parity_fp8(seed=SEED + 23):
+    """Llama-3.1-8B at full width cut to 2 layers, random bf16 weights from
+    the seed with the seven projections in FP8 (:func:`fp8_projections`),
+    LoRA r=16 with a random B: the loss and every LoRA gradient of one
+    padded [2, 1024] batch, the card (K12/K13, K3/K4, K16, K7/K8) against
+    the CPU (plain versions, fp32), at phase 4b's limits
+    (:func:`phase_train_parity_padded`); K12 and K13 launch exactly
+    :func:`fp8_launches` (2 layers, no remat). Then the logits of a prefill
+    of 64 tokens (two rows, one left-padded from 50) and
+    PARITY_DECODE_STEPS decode steps, the card in bf16 against the CPU in
+    fp32 on the same fed tokens, at phase 4's limits (||d||_2 <= 2e-2
+    ||ref||_2, max|d| <= 0.1 max|ref|), K12 launching 14 times a forward.
+    Returns the loss and backward's launches and the distances."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.params import init_params, tree_to
+
+    cfg = ModelConfig.from_hf_config(dict(LLAMA_31_8B_CONFIG,
+                                          num_hidden_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = fp8_projections(init_params(cfg, gen, dtype=torch.bfloat16))
+    train = phase_train_parity_padded(
+        LLAMA_31_8B_CONFIG, params=params, expect=FP8_KERNELS, absent=FP8_ABSENT,
+        label="Llama-3.1-8B", seed=seed)
+    want = fp8_launches(cfg.num_layers, remat=False)
+    got = {n: train["launches"][n] for n in want}
+    if got != want:
+        raise RuntimeError(f"K12/K13 launches on the 2-layer loss and "
+                           f"backward are {got}, not {want}")
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    mask = torch.ones((2, 64), dtype=torch.int32)
+    ids[1, :14] = 0
+    mask[1, :14] = 0
+    kernels = _kernel_fns()
+    before = {n: fn.launches for n, fn in kernels.items()}
+    card, fed = _prefill_decode_logits(params, cfg, ids.to(DEVICE),
+                                       mask.to(DEVICE), PARITY_DECODE_STEPS)
+    torch.cuda.synchronize()
+    logits_launches = {n: fn.launches - before[n]
+                       for n, fn in kernels.items()}
+    ref, _ = _prefill_decode_logits(_tree_f32(tree_to(params, "cpu")), cfg,
+                                    ids, mask, PARITY_DECODE_STEPS, feed=fed)
+    d = card - ref
+    rel = (d.norm() / ref.norm()).item()
+    mx = d.abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (card.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    n_fwd = (1 + PARITY_DECODE_STEPS) * len(FP8_PROJECTIONS) * cfg.num_layers
+    log(f"[parity] 2-layer Llama-3.1-8B FP8, prefill 64 + "
+        f"{PARITY_DECODE_STEPS} steps, B=2, card bf16 against CPU fp32: "
+        f"||d||/||ref|| = {rel:.3e} (tol 2e-2), max|d| = {mx:.3e} (tol "
+        f"{0.1 * scale:.3e}), argmax agreement {agree:.3f}; K12 launches "
+        f"{logits_launches['fp8_matmul_fwd']} (expected {n_fwd})")
+    if not (bool(torch.isfinite(card).all()) and rel <= 2e-2
+            and mx <= 0.1 * scale):
+        raise RuntimeError("FP8 card and CPU logits disagree beyond "
+                           "tolerance")
+    if logits_launches["fp8_matmul_fwd"] != n_fwd or any(
+            logits_launches[n] for n in ("fp8_matmul_dx", "nf4_matmul")):
+        raise RuntimeError(f"FP8 prefill/decode launches {logits_launches}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(train, logits_rel=rel, logits_max=mx)
+
+
+def phase_fp8_sft(tmp, unpacked_launches):
+    """LoRA SFT and generate over a block-FP8 Llama-3.1-8B at full width and
+    depth, from the checkpoint in ``tmp``: from_pretrained(max_seq_length
+    2048, load_in_4bit=False) in bf16, the seven projections of all 32
+    layers quantized by quantize_fp8_block at block 128
+    (:func:`fp8_projections`, the JAX package's way: it has no FP8 loader
+    switch), get_peft_model(r=16, seven projections, "unsloth"), the
+    notebook recipe (:func:`_notebook_recipe`: padded 2,048-token Alpaca
+    rows, train_on_responses_only, batch 2 x accumulation 4) for FP8_STEPS
+    steps. Losses finite and falling; launches a step exactly K12 = phase
+    7's K1 and K13 = phase 7's K2 (``unpacked_launches``, its counts over
+    UNPACKED_STEPS steps; :func:`fp8_launches`), K16 and K7/K8 as phase 7,
+    K1/K2 and K9-K11 never. Then evaluate, the adapter round trip,
+    save_pretrained_merged raising NotImplementedError (no merge over FP8
+    in either package), and a greedy generate of 16 tokens for 2 prompts,
+    K12 launched at its decode rows. Returns the training launches, the
+    generate's and the metrics."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    # the GRPO phase before this one leaves reference cycles that hold its
+    # model (~6 GB) until the collector runs; free them, so that the peak
+    # below is this path's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[fp8] resident before loading: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    n_train = 8 * FP8_STEPS
+    texts = _alpaca_texts(np.random.default_rng(SEED + 24), n_train + 8)
+    held_out = texts[n_train:]
+    run = _notebook_recipe(tmp, "fp8", texts[:n_train], FP8_STEPS, "sft_fp8",
+                           load_in_4bit=False,
+                           prepare=lambda m: fp8_projections(m.params))
+    model, trainer, launches = run["model"], run["trainer"], run["launches"]
+    metrics = _recipe_metrics(run)
+    _recipe_launches(run, "fp8", FP8_KERNELS, FP8_ABSENT)
+    n_layers, accum = model.cfg.num_layers, run["accum"]
+    per_step = fp8_launches(n_layers, accum)
+    phase7 = {"fp8_matmul_fwd": unpacked_launches["nf4_matmul"],
+              "fp8_matmul_dx": unpacked_launches["nf4_matmul_dx"]}
+    if {n: c / UNPACKED_STEPS for n, c in phase7.items()} != per_step:
+        raise RuntimeError(f"phase 7's K1/K2 launches {phase7} over "
+                           f"{UNPACKED_STEPS} steps are not {per_step} a "
+                           "step")
+    log(f"[fp8] K12/K13 launches a step "
+        f"{ {n: launches[n] / FP8_STEPS for n in per_step} } (phase 7's "
+        f"K1/K2: {per_step})")
+    _check_launched(launches, (), "fp8 training", per_step, FP8_STEPS)
+
+    ev = _adapter_round_trip(model, trainer, held_out, tmp, "fp8")
+    merged_dir = os.path.join(tmp, "merged_fp8")
+    try:
+        model.save_pretrained_merged(merged_dir)
+    except NotImplementedError as exc:
+        log(f"[fp8] save_pretrained_merged raised NotImplementedError: {exc}")
+    else:
+        raise RuntimeError("save_pretrained_merged over an FP8 base did not "
+                           "raise")
+    if os.path.exists(merged_dir) and os.listdir(merged_dir):
+        raise RuntimeError(f"the refused merged save wrote "
+                           f"{os.listdir(merged_dir)}")
+    kernels = _kernel_fns()
+    before = {n: fn.launches for n, fn in kernels.items()}
+    prompts = [list(t_["text"].encode())[:64] for t_ in held_out[:2]]
+    t_gen = _greedy_generate(model, prompts, 16, "fp8")
+    gen_launches = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    per_fwd = len(FP8_PROJECTIONS) * n_layers
+    log(f"[fp8] generate launches "
+        f"{ {n: c for n, c in gen_launches.items() if c} } "
+        f"({gen_launches['fp8_matmul_fwd'] / per_fwd:.0f} forwards of "
+        f"{per_fwd} K12 launches)")
+    if gen_launches["fp8_matmul_fwd"] < 2 * per_fwd or \
+            gen_launches["fp8_matmul_fwd"] % per_fwd or any(
+                gen_launches[n] for n in ("nf4_matmul", "fp8_matmul_dx")):
+        raise RuntimeError(f"generate over FP8 launched {gen_launches}")
+    del trainer, model, run
+    torch.cuda.empty_cache()
+    return launches, gen_launches, dict(metrics, eval=ev, generate_s=t_gen)
+
+
 def _kernel_fns():
     """Each kernel's wrapper (its ``launches`` counter) by name."""
     from unsloth_tpu_torch.ops import cross_entropy as tce
@@ -5270,6 +5640,7 @@ def _kernel_fns():
     from unsloth_tpu_torch.ops import nf4_gmm as tng
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops import splash_attention as tsa
+    from unsloth_tpu_torch.ops.fp8_matmul import fp8_matmul_dx, fp8_matmul_fwd
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
     from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
                                                 layer_norm_fwd, rms_norm,
@@ -5293,7 +5664,8 @@ def _kernel_fns():
             "flash_sinks_fwd": tfs.flash_sinks_fwd,
             "flash_sinks_dq": tfs.flash_sinks_dq,
             "flash_sinks_dkv": tfs.flash_sinks_dkv,
-            "gmm": tgmm.gmm, "gmm_dx": tgmm.gmm_dx}
+            "gmm": tgmm.gmm, "gmm_dx": tgmm.gmm_dx,
+            "fp8_matmul_fwd": fp8_matmul_fwd, "fp8_matmul_dx": fp8_matmul_dx}
 
 
 # the kernels each main path must launch
@@ -5389,6 +5761,12 @@ def _kernels_line(rows, by_path):
         "layer_norm_bwd": ("layer_norm.cu", "unsloth_tpu/ops/rms_norm.py:253 "
                            "(_ln_bwd_kernel, launched by _ln_bwd_pallas "
                            ":313)", "[3000, 1280] bfloat16"),
+        "fp8_matmul_fwd": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:85 "
+                           "(_fwd_kernel, launched by _fwd_pallas :138, "
+                           "pallas_call :153)", "gate/up M=4096"),
+        "fp8_matmul_dx": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
+                          "(_bwd_kernel, launched by _bwd_pallas :177, "
+                          "pallas_call :192)", "gate/up M=4096"),
     }
     # the main path each kernel's "launches" comes from
     main_path = {"packed_attn_fwd": "packed_training",
@@ -5402,7 +5780,9 @@ def _kernels_line(rows, by_path):
                  "gmm": "gpt_oss_bf16_training",
                  "gmm_dx": "gpt_oss_bf16_training",
                  "layer_norm_fwd": "whisper_training",
-                 "layer_norm_bwd": "whisper_training"}
+                 "layer_norm_bwd": "whisper_training",
+                 "fp8_matmul_fwd": "fp8_training",
+                 "fp8_matmul_dx": "fp8_training"}
     # the head-dim forms of this slice: (kernel, form, shape in phase 3,
     # the path whose launches are all of this form)
     forms = {
@@ -5546,6 +5926,7 @@ def main() -> int:
                             tmp)
         whisper_parity = timed("4g Whisper train parity",
                                phase_whisper_parity, tmp)
+        fp8_parity = timed("4h FP8 train parity", phase_train_parity_fp8)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -5553,8 +5934,11 @@ def main() -> int:
                                    llama)
         unpacked_launches, _ = timed("7 unpacked SFT", phase_unpacked_sft,
                                      llama)
-        # phase 12 runs on the Llama-3.1-8B checkpoint while it is written
+        # phases 12 and 15 run on the Llama-3.1-8B checkpoint while it is
+        # written
         grpo_launches, _ = timed("12 GRPO", phase_grpo, llama)
+        fp8_launches_, fp8_gen_launches, _ = timed(
+            "15 FP8 SFT", phase_fp8_sft, llama, unpacked_launches)
         shutil.rmtree(llama)   # the disk holds one checkpoint at a time
         gemma2 = timed("8 write Gemma-2", _write_model,
                        os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG)
@@ -5597,7 +5981,10 @@ def main() -> int:
                "whisper_training": whisper_launches_,
                "whisper_transcribe": transcribe_launches,
                "whisper_2layer_parity": whisper_parity["launches"],
-               "orpheus_training": orpheus_launches}
+               "orpheus_training": orpheus_launches,
+               "fp8_training": fp8_launches_,
+               "fp8_generate": fp8_gen_launches,
+               "fp8_2layer_parity": fp8_parity["launches"]}
     log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))

@@ -8,7 +8,11 @@ These need an NVIDIA GPU and nvcc; without one they skip. On the card:
 import pytest
 import torch
 
-from chip_smoke import ATTN_ROW_TOL, attn_row_err
+from chip_smoke import ATTN_ROW_TOL, MM_ULPS, attn_row_err, fp8_weight, mm_ulps
+from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
+from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx, fp8_matmul_dx_ref,
+                                              fp8_matmul_fwd)
+from unsloth_tpu_torch.ops.lora import base_matmul
 from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
 from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
 from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_ref
@@ -782,3 +786,73 @@ def test_layer_norm_refuses_other_dtypes(dev):
     wb = w.to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="b like w"):
         layer_norm(xb, wb, torch.zeros(64, device=dev))
+
+
+@pytest.fixture
+def fp32_reductions():
+    """cuBLAS's bf16 products (the FP8 kernels' plain versions) with fp32
+    reductions only, as chip_smoke.main sets them: the plain versions then
+    compute what they state, one bf16 rounding of an fp32 sum; with bf16
+    split-K reductions allowed they drift from it by several ulps."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    matmul.allow_bf16_reduced_precision_reduction = old
+
+
+@pytest.mark.parametrize("m,n,k,block", [
+    (1, 256, 512, 128),      # one decode row
+    (4, 14336, 4096, 128),   # gate/up at decode rows
+    (1, 200, 300, 32),       # ragged, block 32, one row
+    (333, 1000, 1404, 32),   # ragged: every load and store masked
+    (9, 130, 250, 24),       # a block that is not a multiple of 16
+    (300, 1024, 4096, 128)])
+def test_fp8_matmul_kernels_match_plain(dev, fp32_reductions, m, n, k, block):
+    """K12 and K13 against fp8_matmul_ref / fp8_matmul_dx_ref on the card:
+    every element within MM_ULPS bf16 ulps (chip_smoke.mm_ulps: the same
+    bf16 weights, fp32 sums in another order, one rounding), and the check
+    rejects a wrong scale."""
+    import dataclasses
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    before = (fp8_matmul_fwd.launches, fp8_matmul_dx.launches)
+    y, dx = fp8_matmul_fwd(x, q), fp8_matmul_dx(gy, q)
+    ref, rdx = fp8_matmul_ref(x, q), fp8_matmul_dx_ref(gy, q)
+    torch.cuda.synchronize()
+    assert (fp8_matmul_fwd.launches, fp8_matmul_dx.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.shape == (m, n) and dx.shape == (m, k)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert mm_ulps(y, ref) <= MM_ULPS and mm_ulps(dx, rdx) <= MM_ULPS
+    wrong = dataclasses.replace(q, scales=torch.ones_like(q.scales))
+    assert mm_ulps(fp8_matmul_ref(x, wrong), ref) > MM_ULPS
+
+
+def test_fp8_base_matmul_launches_kernels(dev, fp32_reductions):
+    """base_matmul over an FP8 base on the card runs K12, its backward K13
+    (read from the launch counters), at training and at decode rows."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = quantize_fp8_block(fp8_weight(512, 384, g, dev), 128)
+    for rows in (1, 200):
+        x = torch.randn((2, rows, 384), generator=g, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        gy = torch.randn((2, rows, 512), generator=g, device=dev).to(
+            torch.bfloat16)
+        before = (fp8_matmul_fwd.launches, fp8_matmul_dx.launches)
+        y = base_matmul(x, q)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        assert (fp8_matmul_fwd.launches, fp8_matmul_dx.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert mm_ulps(y, fp8_matmul_ref(x.detach(), q)) <= MM_ULPS
+        assert mm_ulps(x.grad, fp8_matmul_dx_ref(gy, q)) <= MM_ULPS
+
+
+def test_fp8_matmul_refuses_f32(dev):
+    q = quantize_fp8_block(torch.randn((128, 256), device=dev))
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        fp8_matmul_fwd(torch.randn((2, 256), device=dev), q)

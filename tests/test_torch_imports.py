@@ -1,7 +1,7 @@
 """The PyTorch port imports no JAX: importing the package and every one of
 its submodules (the serving and the training slices alike, the MoE ops,
-the MXFP4 and bnb-4bit loaders, the GRPO trainer and the speech modules
-among them) in a fresh interpreter
+the MXFP4 and bnb-4bit loaders, the GRPO trainer, the speech modules and
+the FP8 ops among them) in a fresh interpreter
 leaves "jax" out of sys.modules."""
 
 import os
@@ -27,7 +27,8 @@ TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
             "utils.logging", "export.save", "ops.moe", "ops.nf4_gmm",
             "ops.flash_sinks", "ops.gmm", "models.mxfp4", "models.bnb",
             "trainer.grpo", "inference.generate", "models.whisper",
-            "trainer.whisper", "data.audio", "data.tts")
+            "trainer.whisper", "data.audio", "data.tts", "ops.fp8",
+            "ops.fp8_matmul")
 
 
 def test_port_imports_no_jax():

@@ -15,7 +15,10 @@ response-only labels, merged and LoRA saves); GRPO and RLOO (fanned-out
 rollouts, the reference pass on the frozen base, the chunked selective
 log-softmax, and the shared-prefix layout through the splash kernels);
 speech: Whisper (``models/whisper.py``, ``trainer/whisper.py``) over the
-LayerNorm kernels, and the Orpheus TTS rows (``data/tts.py``).
+LayerNorm kernels, and the Orpheus TTS rows (``data/tts.py``); LoRA over a
+block-FP8 base (``ops/fp8.py``: quantize the projections with
+:func:`quantize_fp8_block`, as in JAX), trained and served through the FP8
+dequant-inside-matmul kernels (``ops/fp8_matmul.py``).
 """
 
 __version__ = "0.1.0"
@@ -28,3 +31,5 @@ from .trainer.sft import (SFTConfig, SFTTrainer,  # noqa: E402,F401
                           train_on_responses_only, unsloth_train)
 from .trainer.grpo import (GRPOConfig, GRPOTrainer,  # noqa: E402,F401
                            PatchFastRL, RLOOConfig, RLOOTrainer)
+from .ops import (FP8Tensor, dequantize_fp8,  # noqa: E402,F401
+                  fp8_matmul, quantize_fp8_block)

@@ -13,7 +13,10 @@ the package's own safetensors reader and writer, so the JAX package and
 peft read what this writes and the other way round.
 
 Not ported: pushes to the Hugging Face Hub (there is no network) and GGUF
-export; they raise ``NotImplementedError``.
+export; they raise ``NotImplementedError``. A merged save over an FP8 base
+raises it too, before any file is written: the JAX package's merge has no
+FP8 branch (``merge_lora`` and the bf16 cast both fail on an
+``FP8Tensor``); its adapter saves as usual.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from ..io_safetensors import SafetensorsFile, save_file
 from ..models.hf_loader import save_params
+from ..ops.fp8 import FP8Tensor
 from ..ops.lora import LoRAWeights, merge_lora
 from ..ops.nf4 import (NF4Stacked, NF4Tensor, dequantize_nf4,
                        dequantize_nf4_stacked)
@@ -93,6 +97,12 @@ def save_pretrained_merged(model, path: str, tokenizer=None,
     if save_method not in ("merged_16bit", "merged_4bit",
                            "merged_4bit_forced"):
         raise ValueError(f"Unknown save_method: {save_method!r}")
+    if any(isinstance(w, FP8Tensor) for layer in model.params["layers"]
+           for w in layer.values()):
+        raise NotImplementedError(
+            "save_pretrained_merged: no merged save over an FP8 base; the "
+            "JAX package cannot merge one either (merge_lora has no FP8 "
+            "branch). Save the adapter with save_lora")
     os.makedirs(path, exist_ok=True)
     # merged projection by projection as each is written, not as a tree
     save_params(model.params, model.cfg, path, dtype=torch.bfloat16,

@@ -21,6 +21,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .ops.fp8 import FP8Tensor
 from .ops.lora import LoRAWeights
 from .ops.nf4 import NF4Stacked, NF4Tensor
 
@@ -29,11 +30,16 @@ _FLOAT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 
 def to_tensor(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """numpy (including ml_dtypes bfloat16, which ``torch.from_numpy``
-    refuses: its bits go across as uint16) -> torch on ``device``."""
+    """numpy (including ml_dtypes bfloat16 and float8_e4m3fn, which
+    ``torch.from_numpy`` refuses: their bits go across as uint16 and uint8)
+    -> torch on ``device``; ``dtype`` casts other floating-point arrays,
+    never FP8 values."""
     a = np.ascontiguousarray(np.asarray(a))
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn).to(device)
     else:
         t = torch.from_numpy(a.copy())
     if dtype is not None and t.is_floating_point():
@@ -67,6 +73,13 @@ def _convert(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
             block_size=int(tree.block_size),
             dtype=dtype or _FLOAT_DTYPES[np.dtype(tree.dtype).name],
             double_block_size=int(tree.double_block_size))
+    if hasattr(tree, "values") and hasattr(tree, "scales"):
+        # dtype sets the dequant dtype only
+        return FP8Tensor(
+            values=to_tensor(tree.values, device),
+            scales=to_tensor(tree.scales, device),
+            shape=tuple(int(s) for s in tree.shape), block=int(tree.block),
+            dtype=dtype or _FLOAT_DTYPES[np.dtype(tree.dtype).name])
     if hasattr(tree, "a") and hasattr(tree, "b") and hasattr(tree, "scale"):
         return LoRAWeights(a=to_tensor(tree.a, device, dtype),
                            b=to_tensor(tree.b, device, dtype),
@@ -77,8 +90,9 @@ def _convert(tree: Any, device, dtype: Optional[torch.dtype]) -> Any:
 def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None
                       ) -> Any:
     """The JAX param tree (numpy leaves) as the port's, on ``device``;
-    ``dtype`` casts the dense floating-point weights (and sets the NF4
-    dequant dtype), leaving NF4 bytes, codes and scales as they are."""
+    ``dtype`` casts the dense floating-point weights (and sets the NF4 and
+    FP8 dequant dtype), leaving NF4 bytes, codes and scales, and FP8 values
+    and scales, as they are."""
     return _convert(tree, device, dtype)
 
 
@@ -88,7 +102,11 @@ def lora_from_numpy(tree: Any, device) -> Any:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """numpy of ``t``: bf16 widened to fp32, FP8 values as their uint8
+    bytes."""
     t = t.detach().cpu()
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()

@@ -29,7 +29,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
            "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu",
-           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu", "layer_norm.cu")
+           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu", "layer_norm.cu",
+           "fp8_matmul.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("attention_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -179,6 +180,11 @@ def library() -> ctypes.CDLL:
         lib.unsloth_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                                i, f, i, i, p]
         lib.unsloth_layer_norm_bwd.restype = i
+        # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, stream
+        lib.unsloth_fp8_matmul_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_fp8_matmul_bf16.restype = i
+        lib.unsloth_fp8_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_fp8_matmul_dx_bf16.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

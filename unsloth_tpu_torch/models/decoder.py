@@ -16,8 +16,8 @@ Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
   params = {
     "embed": [V, D],
     "layers": [{"input_norm": [D], "post_attn_norm": [D],
-                "q": W|NF4, "k": ..., "v": ..., "o": ...,
-                "gate": W|NF4, "up": W|NF4, "down": W|NF4, ...}, ...],
+                "q": W|NF4|FP8, "k": ..., "v": ..., "o": ...,
+                "gate": W|NF4|FP8, "up": ..., "down": ..., ...}, ...],
                 (MoE layers: "router": [E, D], "router_bias": [E],
                  "experts": {"gate"/"up": [E, F, D], "down": [E, D, F]
                  (dense or NF4Stacked), "gate_bias"/"up_bias": [E, F],
@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.activations import ACT2GLU, glu_for
 from ..ops.attention import active_prefix_layout, attention
 from ..ops.cross_entropy import fast_cross_entropy_loss
+from ..ops.fp8 import FP8Tensor
 from ..ops.fused_ce_linear import fused_ce_loss_mean
 from ..ops.lora import base_matmul, lora_matmul
 from ..ops.moe import moe_mlp
@@ -346,8 +347,8 @@ def fused_ce_gate(n_rows: int, vocab: int, param_bytes: int, num_layers: int,
 
 def tree_bytes(tree: Any) -> int:
     """Bytes of every tensor in a param tree (NF4 weights, stacked NF4
-    experts among them, by their packed codes and scales), as the JAX gate
-    sums the tree's leaves."""
+    experts among them, by their packed codes and scales; FP8 weights by
+    their values and scales), as the JAX gate sums the tree's leaves."""
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
@@ -358,6 +359,8 @@ def tree_bytes(tree: Any) -> int:
                                            tree.absmax_offset))
     if isinstance(tree, NF4Stacked):
         return tree_bytes(tree.packed) + tree_bytes(tree.absmax)
+    if isinstance(tree, FP8Tensor):
+        return tree_bytes(tree.values) + tree_bytes(tree.scales)
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0

@@ -1,12 +1,15 @@
-"""LoRA linear ops over dense or NF4-quantized base weights, in PyTorch.
+"""LoRA linear ops over dense, NF4- or FP8-quantized base weights, in
+PyTorch.
 
 Counterpart of unsloth_tpu/ops/lora.py. Conventions (HF/peft): W [out, in];
 lora_A [r, in]; lora_B [out, r]; scale = lora_alpha / r (rslora:
 lora_alpha / sqrt(r)). An NF4 base goes through the fused kernel
-(``qlora_matmul.nf4_matmul``) on every row count; a dense base is one
-``torch.matmul``. The LoRA epilogue is two plain matmuls, as in JAX.
-:func:`merge_lora` folds an adapter into its base weight for a merged
-save. DoRA waits for a later slice.
+(``qlora_matmul.nf4_matmul``) on every row count, an FP8 base through
+``fp8_matmul.fp8_matmul`` likewise; a dense base is one ``torch.matmul``.
+The LoRA epilogue is two plain matmuls, as in JAX. :func:`merge_lora`
+folds an adapter into its base weight for a merged save (not over an FP8
+base, which the JAX package cannot merge either). DoRA waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Optional, Union
 
 import torch
 
+from .fp8 import FP8Tensor
+from .fp8_matmul import fp8_matmul
 from .nf4 import NF4Tensor, dequantize_nf4
 from .qlora_matmul import nf4_matmul
 
@@ -31,13 +36,15 @@ class LoRAWeights:
                                    b=self.b.to(device))
 
 
-BaseWeight = Union[torch.Tensor, NF4Tensor]
+BaseWeight = Union[torch.Tensor, NF4Tensor, FP8Tensor]
 
 
 def base_matmul(x: torch.Tensor, w: BaseWeight) -> torch.Tensor:
-    """x @ W.T for a dense or NF4 base weight; output in x.dtype."""
+    """x @ W.T for a dense, NF4 or FP8 base weight; output in x.dtype."""
     if isinstance(w, NF4Tensor):
         return nf4_matmul(x, w)
+    if isinstance(w, FP8Tensor):
+        return fp8_matmul(x, w)
     return torch.matmul(x, w.to(x.dtype).t())
 
 
@@ -75,7 +82,14 @@ def init_lora(generator: torch.Generator, in_features: int,
 def merge_lora(w: BaseWeight, lora: LoRAWeights,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """W' = W + scale * B @ A, dequantizing an NF4 base first, all in fp32,
-    then cast to ``dtype`` (JAX ``merge_lora``)."""
+    then cast to ``dtype`` (JAX ``merge_lora``). An FP8 base raises: the
+    JAX ``merge_lora`` has no FP8 branch (it fails on ``FP8Tensor.astype``),
+    so there is no merge to port."""
+    if isinstance(w, FP8Tensor):
+        raise NotImplementedError(
+            "merge_lora: no merge over an FP8 base; the JAX package's "
+            "merge_lora has no FP8 branch either (it raises AttributeError "
+            "on FP8Tensor.astype). Save the adapter with save_lora")
     if not isinstance(lora, LoRAWeights):
         raise NotImplementedError(
             f"merge_lora: adapter type {type(lora).__name__} (DoRA) is not "

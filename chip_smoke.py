@@ -284,6 +284,7 @@ result line). Every phase prints its time ("[time]").
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -516,6 +517,9 @@ UNPACKED_ROWS = 2048       # max_seq_length of the notebook recipe
 CE_ROWS = (4094, 8191)     # CE rows: 2 x 2,048 and 1 x 8,192, shifted
 SEED = 0
 DEVICE = "cuda:0"
+#: the NF4 matmuls' yardstick (K1, K2): no single PyTorch call dequantizes
+#: and multiplies
+NF4_LIBRARY = "dequantize_nf4 + torch.matmul (two calls)"
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
 PEAK_BF16 = 989e12         # FLOP/s, tensor cores
@@ -897,8 +901,11 @@ def phase_kernels():
 
     Beside each kernel's time: its bound (:func:`bound`, from the bytes and
     operations these inputs need) and the time of the one PyTorch call that
-    computes the same function (``library_ms``; none for the NF4 matmuls,
-    which no single call dequantizes and multiplies)."""
+    computes the same function (``library_ms``). No single call
+    dequantizes and multiplies, so the NF4 matmuls take the two-call
+    yardstick of K12/K13 instead, at gate/up M = 8,192 (the training
+    path's row count): ``dequantize_nf4`` + ``torch.matmul``, labelled
+    "(two calls)"."""
     import torch
     import torch.nn.functional as F
 
@@ -932,16 +939,24 @@ def phase_kernels():
             scale = ref.float().abs().max().item()
             ok = bool(torch.isfinite(y).all()) and err <= 1e-2 * scale
             ms = time_ms(lambda: nf4_matmul(x, q), flush=flush)
+            lib_ms = None
+            if name == "gate/up" and m == TRAIN_ROWS:
+                lib_ms = time_ms(lambda: torch.matmul(
+                    x, dequantize_nf4(q, torch.bfloat16).t()), runs=10,
+                    flush=flush)
             b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
             rows["nf4_matmul"].append(dict(shape=f"{name} M={m} N={n} K={k}",
                                            err=err, tol=1e-2 * scale,
                                            ms=ms, plain_ms=plain_ms,
                                            bound_ms=b_ms, bound_by=b_by,
-                                           library_ms=None))
+                                           library_ms=lib_ms,
+                                           library=NF4_LIBRARY))
             log(f"[kernels] nf4_matmul {name:15s} M={m:<5d} N={n:<6d} "
                 f"K={k:<6d}"
                 f" max|d|={err:.3e} (tol {1e-2 * scale:.3e})"
-                f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                + ("" if lib_ms is None else
+                   f" {NF4_LIBRARY} {lib_ms:.4f} ms"))
             if not ok:
                 raise RuntimeError(f"nf4_matmul disagrees at {name} M={m}: "
                                    f"max|d| {err} > 1e-2 * {scale}")
@@ -1171,14 +1186,19 @@ def _training_kernels(dev, g, flush):
         err = (dx.float() - ref.float()).abs().max().item()
         tol = 1e-2 * ref.float().abs().max().item()
         ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush=flush)
+        lib_ms = None
+        if name == "gate/up" and m == TRAIN_ROWS:
+            lib_ms = time_ms(lambda: nf4_matmul_dx_ref(gy, q), runs=10,
+                             flush=flush)
         b_ms, b_by = bound(2 * m * n * k, nbytes(gy) + q.nbytes + m * k * 2)
         rows["nf4_matmul_dx"].append(dict(
             shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=lib_ms, library=NF4_LIBRARY))
         log(f"[kernels] nf4_matmul_dx {name:15s} M={m} N={n:<6d} K={k:<6d} "
             f"max|d|={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms" + ("" if lib_ms is None else
+                                   f" {NF4_LIBRARY} {lib_ms:.4f} ms"))
         if not (bool(torch.isfinite(dx).all()) and err <= tol):
             raise RuntimeError(f"nf4_matmul_dx disagrees at {name}: {err}")
         del q, gy, dx, ref
@@ -1821,7 +1841,9 @@ def _gpt_oss_kernels(dev, g, flush):
     over 32 experts by a random router), N = K = 2,880, block 32, with
     bias; (b) a skewed routing of as many rows (one expert half of them,
     three more the rest, 28 none); (c) the 8 rows of a decode step (a
-    top-4 routing of 2 tokens); and K17 (:func:`_sinks_case`) on (a) the
+    top-4 routing of 2 tokens); K19's tgmm (:func:`_tgmm_case`, the expert
+    weight gradient of the gate/up product, [E, F, D]) at (a) and (b) and
+    at (d) TGMM_RAGGED; and K17 (:func:`_sinks_case`) on (a) the
     path's packed 4,096-token row and (b) a padded [2, 2048] batch, 64/8
     heads of 64."""
     import numpy as np
@@ -1851,7 +1873,7 @@ def _gpt_oss_kernels(dev, g, flush):
         return x[order // k], sizes
 
     rows = {name: [] for name in ("nf4_gmm", "nf4_gmm_dx", "gmm", "gmm_dx",
-                                  "flash_sinks_fwd", "flash_sinks_dq",
+                                  "tgmm", "flash_sinks_fwd", "flash_sinks_dq",
                                   "flash_sinks_dkv")}
     m = GPT_OSS_ROWS * k
     skew = torch.zeros(e, dtype=torch.int32)
@@ -1867,10 +1889,18 @@ def _gpt_oss_kernels(dev, g, flush):
             ("(c) decode", x_dec, sizes_dec)):
         res = _gmm_case(dev, g, flush, label, x, q, sizes, bias)
         res.update(_dense_gmm_case(dev, g, flush, label, x, w, sizes, bias))
+        if label != "(c) decode":
+            res["tgmm"] = _tgmm_case(dev, g, flush, label, x, sizes, f)
         for name, row in res.items():
             rows[name].append(row)
     del q, w, x_path, x_dec
     torch.cuda.empty_cache()
+    e_r, n_r, k_r, sizes_r = TGMM_RAGGED
+    sizes_r = torch.tensor(sizes_r, dtype=torch.int32, device=dev)
+    x_r = torch.randn((int(sizes_r.sum()), k_r), generator=g, device=dev
+                      ).to(torch.bfloat16)
+    rows["tgmm"].append(_tgmm_case(dev, g, flush, "(d) ragged", x_r, sizes_r,
+                                   n_r))
 
     hq, hkv, hd = (c["num_attention_heads"], c["num_key_value_heads"],
                    c["head_dim"])
@@ -2105,6 +2135,152 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     return _grouped_rows("grouped dense", shape, errs, faults, times,
                          {"gmm": b_fwd, "gmm_dx": b_dx}, lib, lib_err,
                          "torch._grouped_mm")
+
+
+#: tgmm's row chunk (csrc/gmm.cu kTgRows): the "last partial chunk
+#: dropped" fault drops each group's rows past its last whole chunk
+TGMM_CHUNK = 32
+#: phase 3's small ragged tgmm case: (E, N, K, group sizes): N and K not
+#: multiples of 64, empty experts, groups not multiples of the chunk
+TGMM_RAGGED = (6, 200, 136, (0, 45, 0, 70, 1, 33))
+
+
+def tgmm_faults(lhs, gy, sizes):
+    """dW as a wrong K19 tgmm would write it, each by the plain version
+    and each only where these sizes let it show: each group summing the
+    next group's first row too (where a group is followed by rows); an
+    empty expert left unwritten (its slab NaN, as in memory filled with NaN
+    first; where an expert is empty); each group's rows past its last whole
+    TGMM_CHUNK-row chunk dropped (where a group is not a whole number of
+    chunks); the result written [E, K, N]."""
+    import torch
+
+    from unsloth_tpu_torch.ops.gmm import tgmm_ref
+
+    ref = tgmm_ref(lhs, gy, sizes)
+    sz = [int(s_) for s_ in sizes.tolist()]
+    e, n, k = ref.shape
+    ends = torch.tensor(sz).cumsum(0).tolist()
+    faults = {}
+    over = ref.clone()
+    for gi, end in enumerate(ends):
+        if sz[gi] and end < lhs.shape[0]:
+            r0 = end - sz[gi]
+            over[gi] = (gy[r0:end + 1].float().t()
+                        @ lhs[r0:end + 1].float()).to(ref.dtype)
+    if not torch.equal(over, ref):
+        faults["next group's row counted"] = over
+    if 0 in sz:
+        unwritten = ref.clone()
+        unwritten[sz.index(0)] = float("nan")
+        faults["empty expert unwritten"] = unwritten
+    if any(s_ % TGMM_CHUNK for s_ in sz):
+        dropped = gy.clone()
+        for gi, end in enumerate(ends):
+            keep = end - sz[gi] + sz[gi] // TGMM_CHUNK * TGMM_CHUNK
+            dropped[keep:end] = 0
+        faults["last partial chunk dropped"] = tgmm_ref(lhs, dropped, sizes)
+    faults["written [E, K, N]"] = ref.transpose(1, 2).reshape(e, n, k)
+    return faults
+
+
+def tgmm_library(lhs, gy, sizes):
+    """(fn, label): the one PyTorch call that computes tgmm's function,
+    ``torch._grouped_mm(gy^T, lhs, offs=cumsum(sizes))`` (ragged in the
+    contraction, a 3-D [E, N, K] output), a yardstick only. The layouts it
+    takes are tried in turn: as they come, then gy^T row-major and lhs
+    column-major (copies made here, outside the timing; the label says
+    so). Where it refuses them all, a per-expert torch.matmul loop,
+    labelled as such."""
+    import torch
+
+    offs = sizes.cumsum(0).to(torch.int32)
+    errors = []
+    if hasattr(torch, "_grouped_mm"):
+        gt_rm = gy.t().contiguous()
+        lhs_cm = lhs.t().contiguous().t()
+        for a, b, label in (
+                (gy.t(), lhs, "torch._grouped_mm(gy.t(), lhs, offs)"),
+                (gt_rm, lhs_cm, "torch._grouped_mm(gy.t() row-major, lhs "
+                 "column-major, offs); the two copies outside the timing")):
+            try:
+                torch._grouped_mm(a, b, offs=offs)
+                return (lambda a=a, b=b: torch._grouped_mm(a, b, offs=offs)
+                        ), label
+            except Exception as exc:  # the yardstick only; logged
+                errors.append(repr(exc)[:160])
+    ends = sizes.cumsum(0).tolist()
+
+    def loop():
+        out = torch.empty((len(ends), gy.shape[1], lhs.shape[1]),
+                          dtype=lhs.dtype, device=lhs.device)
+        start = 0
+        for gi, end in enumerate(ends):
+            torch.matmul(gy[start:end].t(), lhs[start:end], out=out[gi])
+            start = end
+        return out
+
+    return loop, ("per-expert torch.matmul loop (torch._grouped_mm refused: "
+                  + "; ".join(errors) + ")")
+
+
+def _tgmm_case(dev, g, flush, label, x, sizes, n):
+    """K19 tgmm at one routing against tgmm_ref (fp32 sums of the same bf16
+    products per expert, one rounding): every element within MM_ULPS
+    (:func:`mm_ulps`), the empty experts' slabs exactly zero with the
+    output's memory filled with NaN first, and each fault of
+    :func:`tgmm_faults` rejected. Times: the kernel, the plain version
+    once, the library yardstick of :func:`tgmm_library`. Bound: 2 m N K
+    operations; bytes of lhs, gy and dW."""
+    import torch
+
+    from unsloth_tpu_torch.ops import gmm as tgmm
+
+    m, k = x.shape
+    e = sizes.shape[0]
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    # the caching allocator hands tgmm's output the NaN block just freed
+    nan = torch.full((e, n, k), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    nan_ptr = nan.data_ptr()
+    del nan
+    got = tgmm.tgmm(x, gy, sizes)
+    reused = got.data_ptr() == nan_ptr
+    ref, plain_ms = once_ms(lambda: tgmm.tgmm_ref(x, gy, sizes))
+    torch.cuda.synchronize()
+    sz = [int(s_) for s_ in sizes.tolist()]
+    empty = [i for i, s_ in enumerate(sz) if not s_]
+    ulps = mm_ulps(got, ref)
+    err = (got.float() - ref.float()).abs().max().item()
+    zeros = all(bool((got[i] == 0).all()) for i in empty)
+    faults = {f_: mm_ulps(fw, ref)
+              for f_, fw in tgmm_faults(x, gy, sizes).items()}
+    ms = time_ms(lambda: tgmm.tgmm(x, gy, sizes), flush=flush)
+    lib_fn, library = tgmm_library(x, gy, sizes)
+    lib_ulps = mm_ulps(lib_fn(), ref)
+    lib_ms = time_ms(lib_fn, runs=10, flush=flush)
+    b_ms, b_by = bound(2 * m * n * k, nbytes(x, gy) + e * n * k * 2)
+    shape = (f"{label}: m={m} E={e} N={n} K={k} bf16, {e - len(empty)} "
+             f"experts with rows (largest {max(sz)})")
+    log(f"[kernels] tgmm {shape}: max|d|={err:.3e} ({ulps:.2f} ulp, limit "
+        f"{MM_ULPS}); empty experts {empty[:4]}{'...' if len(empty) > 4 else ''}"
+        f" zero {zeros} (output on the NaN block: {reused}); faults "
+        + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
+        + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by}, {100 * b_ms / ms:.1f}% of it); {library} {lib_ms:.4f} ms "
+        f"({lib_ulps:.2f} ulp)")
+    if not (bool(torch.isfinite(got).all()) and ulps <= MM_ULPS and zeros):
+        raise RuntimeError(f"tgmm disagrees at {shape}: {ulps} ulp, empty "
+                           f"experts zero: {zeros}")
+    missed = [f_ for f_, u in faults.items() if u <= MM_ULPS]
+    if missed:
+        raise RuntimeError(f"the tgmm check lets faults through at {shape}: "
+                           f"{missed}")
+    del got, ref, gy
+    torch.cuda.empty_cache()
+    return dict(shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library=library)
 
 
 def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
@@ -3616,6 +3792,23 @@ GRPO_ABSENT = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
                "cross_entropy_bwd")
 
 
+@contextlib.contextmanager
+def patched_methods(obj, **fns):
+    """Shadow methods of ``obj`` by the instance attributes ``fns`` for the
+    block; on the way out delete them, so that the class's methods show
+    through again. Assigning the bound methods back instead would leave
+    ``obj.__dict__`` holding methods bound to ``obj``: a reference cycle
+    that keeps ``obj``, and all it holds (a trainer's model), alive until
+    the collector runs."""
+    for name, fn in fns.items():
+        setattr(obj, name, fn)
+    try:
+        yield obj
+    finally:
+        for name in fns:
+            delattr(obj, name)
+
+
 def _grpo_trainer(model, out_dir, reward_funcs=(), **kw):
     """A GRPOTrainer over ``model`` with the byte tokenizer: the recipe's
     arguments, updated by ``kw``."""
@@ -3909,16 +4102,13 @@ def phase_grpo(tmp, profile=False):
     b0 = {n: t.clone() for n, t in _lora_leaves(model.lora) if
           n.endswith(".b")}
     tgen.forward_with_cache = counted
-    trainer._generate_batch, trainer._logps, trainer._loss = (
-        kept, ref_timed, step_started)
-    trainer.metrics_logger.log = step_logged
     try:
-        result = trainer.train()
+        with patched_methods(trainer, _generate_batch=kept, _logps=ref_timed,
+                             _loss=step_started), \
+                patched_methods(trainer.metrics_logger, log=step_logged):
+            result = trainer.train()
     finally:
         tgen.forward_with_cache = cache_fn
-        trainer._generate_batch, trainer._logps, trainer._loss = (
-            generate_batch, logps_fn, loss_fn)
-        trainer.metrics_logger.log = log_fn
     peak = torch.cuda.max_memory_allocated()
     launches = {name: fn.launches for name, fn in kernels.items()}
     losses = [e["loss"] for e in trainer.state_log]
@@ -4200,6 +4390,115 @@ def phase_train_parity_gpt_oss(seed=SEED + 10, t=2048, docs=None,
         raise RuntimeError(f"other attention kernels ran on the gpt-oss "
                            f"row: {stray}")
     del params, lora
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_max=rels[worst],
+                launches=launches)
+
+
+#: K19's kernels on the full-FT path: the forward, dx and the weight
+#: gradient
+FULL_FT_EXPERT_KERNELS = ("gmm", "gmm_dx", "tgmm")
+
+
+def phase_train_parity_gpt_oss_full(seed=SEED + 25, t=SINKS_ROWS):
+    """Phase 4i: full fine-tuning's gradients, card against CPU.
+    gpt-oss-20b at full width cut to 2 layers (one sliding, one global),
+    all 32 experts as dense bf16 stacks (what from_pretrained(
+    full_finetuning=True) loads), random weights from the seed, every leaf
+    requiring a gradient; one packed row of ``t`` tokens (SINKS_DOCS, as in
+    phase 4e): loss_fn(params, None, lm_head_trainable=True), full logits,
+    no remat, on the card in bf16 (K19 forward, dx and tgmm; K17 on the
+    global layer, K18 at head dim 64 on the sliding one; K3/K4; K7/K8) and
+    on the CPU through the plain versions in fp32 from the same weights.
+    The routing is fixed by the router bias (100 on experts 28-31, 0 on
+    the rest: every token takes those four on both sides, weighted by its
+    own logits, so the router and its bias keep a gradient; ROADMAP C3:
+    routing ties otherwise set the distance). Limits: the loss within 1e-2
+    relative, as phase 4b; each leaf's gradient (experts, expert biases,
+    router and its bias, sinks, attention with its biases, norms,
+    embedding and lm_head) within 5e-2 relative L2 of fp32, as phase 4e.
+    Launches exactly: K19 forward, dx and tgmm 3 a layer each."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import pack_sequences
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.decoder import loss_fn
+    from unsloth_tpu_torch.models.params import init_params, tree_to
+    from unsloth_tpu_torch.trainer.checkpoint import named_leaves
+
+    cfg = ModelConfig.from_hf_config(dict(GPT_OSS_20B_CONFIG,
+                                          num_hidden_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    for layer in params["layers"]:
+        bias = torch.zeros(cfg.num_experts, device=DEVICE)
+        bias[-cfg.num_experts_per_tok:] = 100.0
+        layer["router_bias"] = bias.to(layer["router_bias"].dtype)
+    rng = np.random.default_rng(seed)
+    sub = rng.choice(cfg.vocab_size, SUB_VOCAB, replace=False)
+    docs = [{"input_ids": sub[rng.integers(0, SUB_VOCAB, hi - lo)].tolist()}
+            for lo, hi in SINKS_DOCS]
+    row = pack_sequences(docs, t)[0].as_dict()
+    kernels = _kernel_fns()
+    results = {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        p = params if dev == DEVICE else _tree_f32(tree_to(params, "cpu"))
+        leaves = named_leaves(p)
+        for _, t_ in leaves:
+            t_.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in row.items()}
+        before = {n: fn.launches for n, fn in kernels.items()}
+        t0 = time.perf_counter()
+        loss = loss_fn(p, None, batch, cfg, lm_head_trainable=True,
+                       fused_ce=False, remat=False)
+        loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[side] = (float(loss.detach()),
+                         {n: t_.grad.float().cpu() for n, t_ in leaves},
+                         time.perf_counter() - t0,
+                         {n: fn.launches - before[n]
+                          for n, fn in kernels.items()})
+        for _, t_ in leaves:
+            t_.grad = None
+            t_.requires_grad_(False)
+        del p, leaves
+    (l_card, g_card, t_card, launches), (l_cpu, g_cpu, t_cpu, _) = \
+        results["card"], results["cpu"]
+    del results
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(rels, key=rels.get)
+    expect = {n: 3 * cfg.num_layers for n in FULL_FT_EXPERT_KERNELS}
+    by_kind = {}
+    for n, r in rels.items():
+        kind = n.split(".")[-1] if n.startswith("layers") else n
+        by_kind[kind] = max(by_kind.get(kind, 0.0), r)
+    log(f"[full-FT parity] 2-layer gpt-oss-20b (sliding + global, "
+        f"{cfg.num_experts} dense bf16 experts, routing fixed by the router "
+        f"bias), every param "
+        f"trained, one packed row of {t}: loss card {l_card:.6f} cpu (fp32) "
+        f"{l_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-2); {len(rels)} grads "
+        f"against fp32: worst rel L2 {rels[worst]:.3e} ({worst}), median "
+        f"{statistics.median(rels.values()):.3e} (tol 5e-2); worst by leaf "
+        f"{ {k: round(v, 4) for k, v in sorted(by_kind.items())} }; card "
+        f"{t_card:.1f} s, cpu fp32 {t_cpu:.1f} s; card launches "
+        f"{ {n: c for n, c in launches.items() if c} } (expected {expect})")
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise RuntimeError(f"card and CPU full-FT gpt-oss loss/grads "
+                           f"disagree: loss rel {loss_rel}, worst grad "
+                           f"{worst} {rels[worst]}")
+    _check_launched(launches, FULL_FT_GPT_OSS_KERNELS + (
+        "splash_attn_fwd", "splash_attn_dq", "splash_attn_dkv"),
+        "gpt-oss full-FT 2-layer", expect, 1)
+    stray = {n: launches[n] for n in ("nf4_matmul", "nf4_matmul_dx",
+                                      "nf4_gmm", "nf4_gmm_dx") if launches[n]}
+    if stray:
+        raise RuntimeError(f"NF4 kernels ran on a dense full-FT row: {stray}")
+    del params, g_card, g_cpu
     torch.cuda.empty_cache()
     return dict(loss_rel=loss_rel, grad_rel_max=rels[worst],
                 launches=launches)
@@ -4549,6 +4848,391 @@ def phase_gpt_oss_sft(tmp, profile=False):
     torch.cuda.empty_cache()
     return launches, bf16_launches, dict(metrics, eval=ev, generate_s=t_gen,
                                          bf16=bf16_metrics)
+
+
+# ---------------------------------------------------------------------------
+# Full fine-tuning: phase 16 (gpt-oss-20b, a depth cut at full width) and
+# phase 17 (Qwen2.5-0.5B at full depth: resume, GaLore, modules_to_save,
+# the merged save)
+# ---------------------------------------------------------------------------
+
+GPT_OSS_FULL_FT_LAYERS = 4  # phase 16's depth cut: ~37 GB of weights, grads
+                            # and bf16 moments
+GPT_OSS_FULL_FT_STEPS = 3
+QWEN25_FULL_FT_STEPS = 4    # phase 17's uninterrupted run, saving at 2
+QWEN25_FULL_FT_TEXTS = 16   # two steps an epoch: checkpoint-2 ends epoch 0
+
+
+@contextlib.contextmanager
+def first_grads_checked(found):
+    """For the block, the first update of the SFT trainer's AdamW first
+    records in ``found`` each param's gradient: (finite, nonzero), read
+    on the device in one sync."""
+    import torch
+
+    from unsloth_tpu_torch.trainer import sft as tsft
+
+    step = tsft.ClippedAdamW.step
+
+    def checked(self):
+        if not found:
+            flags = torch.stack([
+                torch.stack((torch.isfinite(p.grad).all(), p.grad.ne(0).any()))
+                if p.grad is not None else torch.zeros(2, dtype=torch.bool,
+                                                       device=p.device)
+                for p in self.params]).cpu()
+            found.update({n: tuple(bool(v) for v in f)
+                          for n, f in zip(self.names, flags)})
+        return step(self)
+
+    tsft.ClippedAdamW.step = checked
+    try:
+        yield found
+    finally:
+        tsft.ClippedAdamW.step = step
+
+
+def _depth_cut(src, dst, n_layers):
+    """A checkpoint directory of ``src``'s files by symlink with a
+    config.json cut to ``n_layers`` layers: the loader reads only the
+    tensors of the layers the config names."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        if name != "config.json":
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    config["num_hidden_layers"] = n_layers
+    if "layer_types" in config:
+        config["layer_types"] = config["layer_types"][:n_layers]
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(config, f)
+    return dst
+
+
+def phase_gpt_oss_full_ft(gpt_oss, tmp):
+    """Phase 16: gpt-oss-20b full fine-tuning at full width on a depth cut
+    of GPT_OSS_FULL_FT_LAYERS layers (the full depth's bf16 weights alone
+    are 41.8 GB, and the gradients as much again): phase 9's checkpoint by
+    symlink (:func:`_depth_cut`), from_pretrained(full_finetuning=True,
+    max_seq_length 4096), no get_peft_model, SFTTrainer on phase 9's
+    packed 4,096-token rows (batch 1 x accumulation 2) for
+    GPT_OSS_FULL_FT_STEPS steps: every param trained, the experts through
+    K19's tgmm, AdamW's moments in bf16 as optax keeps them. Losses
+    finite; every param's first gradient finite and nonzero (not "every
+    param moved": bf16 updates of about the learning rate round away on
+    weights near 1); launches a step exactly: K19 forward 3 x layers x 2
+    (the remat runs each forward again) x 2 micro-batches, dx and tgmm
+    3 x layers x 2, K17 forward 2 x global layers x 2, dq and dk/dv
+    global layers x 2, K3 (2 x 2 x layers + 1) x 2 and K4 (2 x layers +
+    1) x 2, K7/K8 2 (the full logits); no NF4, K16 or K18 launch. Reports
+    the step time, real tokens/s, the peak memory and MFU at 6N (three
+    times the forward's FLOPs over active parameters: forward, dx and the
+    weight gradient; bench.py's count, 989 TFLOP/s). Returns (launches,
+    metrics)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel, SFTConfig, SFTTrainer
+    from unsloth_tpu_torch.models.decoder import tree_bytes
+    from unsloth_tpu_torch.trainer.checkpoint import named_leaves
+
+    path = _depth_cut(gpt_oss, os.path.join(tmp, "gpt_oss_full_ft"),
+                      GPT_OSS_FULL_FT_LAYERS)
+    kernels = _kernel_fns()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastLanguageModel.from_pretrained(
+        path, max_seq_length=GPT_OSS_ROWS, full_finetuning=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    loaded = torch.cuda.memory_allocated()
+    log(f"[gpt-oss full FT] from_pretrained(full_finetuning=True) of "
+        f"{cfg.num_layers} layers in {time.perf_counter() - t0:.1f} s: "
+        f"{tree_bytes(model.params) / 1e9:.2f} GB of bf16 params, "
+        f"{loaded / 1e9:.2f} GB allocated; gc_mode {model.gc_mode!r}")
+    rng = np.random.default_rng(SEED + 11)
+    docs = _synthetic_docs(rng, cfg.vocab_size, 2 * GPT_OSS_ROWS - 300)
+    accum = 2
+    trainer = SFTTrainer(model, train_dataset=docs, args=SFTConfig(
+        output_dir=os.path.join(tmp, "sft_gpt_oss_full_ft"),
+        max_seq_length=GPT_OSS_ROWS, packing=True,
+        per_device_train_batch_size=1, gradient_accumulation_steps=accum,
+        max_steps=GPT_OSS_FULL_FT_STEPS, warmup_steps=0, logging_steps=1,
+        report_to="none"))
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches[:accum]]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with first_grads_checked({}) as grads:
+        trainer.train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    steady = statistics.median(times[1:])
+    tokens = sum(real)
+    mfu = 3 * _active_flops_per_token(cfg, GPT_OSS_ROWS) * tokens / steady \
+        / PEAK_BF16
+    n_layers = cfg.num_layers
+    n_global = sum(cfg.layer_kind(i) == "global" for i in range(n_layers))
+    expect = {"gmm": 3 * n_layers * 2 * accum, "gmm_dx": 3 * n_layers * accum,
+              "tgmm": 3 * n_layers * accum,
+              "flash_sinks_fwd": n_global * 2 * accum,
+              "flash_sinks_dq": n_global * accum,
+              "flash_sinks_dkv": n_global * accum,
+              "rms_norm": (2 * 2 * n_layers + 1) * accum,
+              "rms_norm_bwd": (2 * n_layers + 1) * accum,
+              "cross_entropy_fwd": accum, "cross_entropy_bwd": accum}
+    bad = sorted(n for n, (finite, nonzero) in grads.items()
+                 if not (finite and nonzero))
+    log(f"[gpt-oss full FT] {len(docs)} documents in {len(batches)} rows of "
+        f"{GPT_OSS_ROWS} (real tokens {real}); losses "
+        f"{[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}")
+    log(f"[gpt-oss full FT] steady step (median of steps 2-{len(times)}) "
+        f"{steady:.3f} s for {tokens} real tokens = {tokens / steady:.1f} "
+        f"real tokens/s; first step {times[0]:.3f} s; peak memory allocated "
+        f"in training {peak / 1e9:.2f} GB (params, grads and bf16 moments "
+        f"{4 * tree_bytes(model.params) / 1e9:.2f} GB); MFU at 6N over "
+        f"active parameters {100 * mfu:.2f}% (3 x bench.py's forward count: "
+        f"forward, dx and the weight gradient; 989 TFLOP/s); first "
+        f"gradients of {len(grads)} params, not finite or all zero: {bad}")
+    log(f"[gpt-oss full FT] launches on the path: "
+        f"{ {n: c for n, c in launches.items() if c} }; per step "
+        f"{ {n: launches[n] / len(times) for n in expect} } (expected "
+        f"{expect})")
+    if len(losses) != GPT_OSS_FULL_FT_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"gpt-oss full-FT losses not finite: {losses}")
+    n_leaves = len(named_leaves(model.params))
+    if bad or len(grads) != n_leaves:
+        raise RuntimeError(f"gpt-oss full-FT first gradients of "
+                           f"{len(grads)} of {n_leaves} params; not finite "
+                           f"or zero: {bad}")
+    _check_launched(launches, FULL_FT_GPT_OSS_KERNELS, "gpt-oss full-FT",
+                    expect, len(times))
+    stray = {n: launches[n] for n in GPT_OSS_ABSENT + (
+        "nf4_matmul", "nf4_matmul_dx", "nf4_gmm", "nf4_gmm_dx")
+        if launches[n]}
+    if stray:
+        raise RuntimeError(f"kernels off the gpt-oss full-FT path ran: "
+                           f"{stray}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    shutil.rmtree(path)
+    return launches, dict(losses=losses, step_s=steady, first_step_s=times[0],
+                          real_tokens_per_s=tokens / steady, peak_bytes=peak,
+                          mfu_6n=mfu)
+
+
+def _qwen_ft_run(path, tmp, tag, texts, steps, out, resume=None,
+                 peft=None, **args):
+    """One SFT run of phase 17 on the Qwen2.5-0.5B checkpoint ``path``:
+    from_pretrained(max_seq_length 2048, bf16, ``full_finetuning`` unless
+    ``peft`` gives get_peft_model's keywords), SFTTrainer(packing=False)
+    on ``texts`` with train_on_responses_only, batch 2 x accumulation 4
+    (phase 11's recipe), ``steps`` steps, the launch counts set to 0 just
+    before training; ``resume`` goes to train(resume_from_checkpoint=).
+    Returns (model, trainer, launches, seconds)."""
+    import torch
+
+    from unsloth_tpu_torch import (FastLanguageModel, SFTConfig, SFTTrainer,
+                                   train_on_responses_only)
+
+    kernels = _kernel_fns()
+    model, _ = FastLanguageModel.from_pretrained(
+        path, max_seq_length=UNPACKED_ROWS, load_in_4bit=False,
+        full_finetuning=peft is None, dtype=torch.bfloat16, device=DEVICE)
+    if peft is not None:
+        model = FastLanguageModel.get_peft_model(
+            model, r=16, lora_alpha=16,
+            target_modules=["q_proj", "k_proj", "v_proj", "o_proj",
+                            "gate_proj", "up_proj", "down_proj"],
+            use_gradient_checkpointing="unsloth", **peft)
+    trainer = SFTTrainer(model, tokenizer=ByteTokenizer(), train_dataset=texts,
+                         args=SFTConfig(
+                             output_dir=os.path.join(tmp, out),
+                             max_seq_length=UNPACKED_ROWS, packing=False,
+                             per_device_train_batch_size=2,
+                             gradient_accumulation_steps=4, max_steps=steps,
+                             warmup_steps=0, logging_steps=1,
+                             report_to="none", **args))
+    train_on_responses_only(trainer, instruction_part=INSTRUCTION,
+                            response_part=RESPONSE)
+    trainer.prepare_batches()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train(resume_from_checkpoint=resume)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["loss"] for e in trainer.state_log]
+    log(f"[qwen2.5 {tag}] steps {[e['step'] for e in trainer.state_log]} "
+        f"losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in trainer.step_times]}; {seconds:.1f} s in "
+        f"train(); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"qwen2.5 {tag} losses not finite: {losses}")
+    return model, trainer, launches, seconds
+
+
+def phase_qwen25_full_ft(path, tmp):
+    """Phase 17: Qwen2.5-0.5B full fine-tuning at full width and depth on
+    phase 11's checkpoint and recipe (:func:`_qwen_ft_run`), every param
+    trained (the tied embedding through the lookup and the logits):
+    (a) QWEN25_FULL_FT_STEPS steps on QWEN25_FULL_FT_TEXTS texts (two steps
+    an epoch) with save_steps=2; launches a step exactly K16 forward 2 x
+    layers x 4 (the remat), dq and dk/dv layers x 4, K7/K8 4, K3
+    (2 x 2 x layers + 1) x 4 and K4 (2 x layers + 1) x 4; no NF4 kernel.
+    (b) A fresh trainer resumed from checkpoint-2 runs steps 3-4: its
+    losses and final params equal run (a)'s, each leaf within 1e-3
+    relative L2 (the bit-equal leaves counted). (c) optim="galore_adamw",
+    2 steps: the optimizer state's bytes below AdamW's (bf16 moments, 4
+    bytes a param) and equal to state_memory_ratio's count of fp32 floats.
+    (d) A LoRA run of 2 steps with modules_to_save=["embed_tokens",
+    "lm_head"] (the tied head untied into a copy) and
+    embedding_learning_rate: the copies move, the base embedding does not.
+    (e) save_pretrained_merged of run (a)'s model, reloaded: logits on two
+    held-out rows equal the trained model's (within 1e-2 relative L2;
+    whether they are bit-equal is logged). Returns (launches of run (a),
+    metrics)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastLanguageModel
+    from unsloth_tpu_torch.models.decoder import logits_fn, tree_bytes
+    from unsloth_tpu_torch.models.hf_loader import CheckpointReader
+    from unsloth_tpu_torch.optimizers.galore import (state_bytes,
+                                                     state_memory_ratio)
+    from unsloth_tpu_torch.trainer.checkpoint import named_leaves
+    from unsloth_tpu_torch.trainer.sft import build_optimizer
+
+    texts = _alpaca_texts(np.random.default_rng(SEED + 26),
+                          QWEN25_FULL_FT_TEXTS + 2)
+    train, held_out = texts[:QWEN25_FULL_FT_TEXTS], texts[-2:]
+    steps = QWEN25_FULL_FT_STEPS
+    # (a) uninterrupted, saving at 2
+    model, trainer, launches, t_a = _qwen_ft_run(
+        path, tmp, "full FT", train, steps, "qwen_ft_a", save_steps=2)
+    cfg, accum = model.cfg, 4
+    n_layers = cfg.num_layers
+    expect = {"flash_attn_fwd": 2 * n_layers * accum,
+              "flash_attn_dq": n_layers * accum,
+              "flash_attn_dkv": n_layers * accum,
+              "rms_norm": (2 * 2 * n_layers + 1) * accum,
+              "rms_norm_bwd": (2 * n_layers + 1) * accum,
+              "cross_entropy_fwd": accum, "cross_entropy_bwd": accum}
+    times = trainer.step_times
+    log(f"[qwen2.5 full FT] launches "
+        f"{ {n: c for n, c in launches.items() if c} }; per step "
+        f"{ {n: launches[n] / len(times) for n in expect} } (expected "
+        f"{expect})")
+    _check_launched(launches, list(expect), "qwen2.5 full-FT", expect,
+                    len(times))
+    stray = {n: launches[n] for n in ("nf4_matmul", "nf4_matmul_dx",
+                                      "packed_attn_fwd", "splash_attn_fwd")
+             if launches[n]}
+    if stray:
+        raise RuntimeError(f"kernels off the qwen2.5 full-FT path: {stray}")
+    losses_a = [e["loss"] for e in trainer.state_log]
+    ckpt = os.path.join(tmp, "qwen_ft_a", "checkpoint-2")
+    peak_a = torch.cuda.max_memory_allocated()
+    state_a = trainer.model.params
+    optimizer_bytes = 2 * tree_bytes(model.params)
+    del trainer
+    torch.cuda.empty_cache()
+    # (b) resumed from checkpoint-2
+    m_b, tr_b, _, t_b = _qwen_ft_run(path, tmp, "resumed", train, steps,
+                                     "qwen_ft_b", resume=ckpt)
+    if [e["step"] for e in tr_b.state_log] != [3, 4]:
+        raise RuntimeError(f"the resume ran steps {tr_b.state_log}")
+    losses_b = [e["loss"] for e in tr_b.state_log]
+    leaves_a, leaves_b = named_leaves(state_a), named_leaves(m_b.params)
+    rels = {n: _rel(b, a) for (n, a), (_, b) in zip(leaves_a, leaves_b)}
+    equal = sum(torch.equal(a, b) for (_, a), (_, b) in zip(leaves_a,
+                                                            leaves_b))
+    worst = max(rels, key=rels.get)
+    log(f"[qwen2.5 resume] losses {losses_b} against the uninterrupted "
+        f"{losses_a[2:]}; final params: {equal} of {len(rels)} leaves "
+        f"bit-equal, worst rel L2 {rels[worst]:.3e} ({worst}; limit 1e-3)")
+    if rels[worst] > 1e-3 or not np.allclose(losses_b, losses_a[2:],
+                                             rtol=1e-3):
+        raise RuntimeError(f"the resumed run left the uninterrupted one: "
+                           f"{worst} {rels[worst]}, losses {losses_b}")
+    del tr_b, m_b, leaves_b
+    torch.cuda.empty_cache()
+    # (c) GaLore
+    m_c, tr_c, _, t_c = _qwen_ft_run(path, tmp, "GaLore", train, 2,
+                                     "qwen_ft_c", optim="galore_adamw")
+    params_c = [t for _, t in named_leaves(m_c.params)]
+    galore_tx, _ = build_optimizer(tr_c.args, 2, m_c.params)
+    ratio = state_memory_ratio(params_c)
+    g_bytes = state_bytes(galore_tx.state)
+    n_params = sum(t.numel() for t in params_c)
+    log(f"[qwen2.5 GaLore] optimizer state {g_bytes / 1e6:.1f} MB (fp32, "
+        f"state_memory_ratio {ratio:.4f} floats a param: "
+        f"{ratio * n_params * 4 / 1e6:.1f} MB) against AdamW's "
+        f"{optimizer_bytes / 1e6:.1f} MB (bf16 moments) for {n_params} "
+        f"params")
+    if not (g_bytes < optimizer_bytes
+            and abs(g_bytes - ratio * n_params * 4) <= 4 * len(params_c)):
+        raise RuntimeError(f"GaLore state {g_bytes} bytes, ratio {ratio}")
+    del tr_c, m_c, galore_tx, params_c
+    torch.cuda.empty_cache()
+    # (d) LoRA with modules_to_save and a separate embedding learning rate
+    m_d, tr_d, _, t_d = _qwen_ft_run(
+        path, tmp, "LoRA + modules_to_save", train, 2, "qwen_ft_d",
+        peft=dict(modules_to_save=["embed_tokens", "lm_head"]),
+        learning_rate=1e-3, embedding_learning_rate=1e-4)
+    base = m_d.params["embed"]
+    stored = CheckpointReader(path).get("model.embed_tokens.weight").to(
+        base.device, base.dtype)
+    moved = {n: float((m_d.lora[n] - base.float()).abs().max())
+             for n in ("embed", "lm_head")}
+    untouched = bool(torch.equal(base, stored))
+    log(f"[qwen2.5 modules_to_save] fp32 copies moved from the base by "
+        f"(max) {moved}; the bf16 base embedding equal to the checkpoint's: "
+        f"{untouched}")
+    if not (all(v > 0 for v in moved.values()) and untouched
+            and "lm_head" not in m_d.params):
+        raise RuntimeError(f"modules_to_save copies did not train or the "
+                           f"base moved: {moved}, {untouched}")
+    del tr_d, m_d, base
+    torch.cuda.empty_cache()
+    # (e) the merged save of run (a)'s model, reloaded
+    out = os.path.join(tmp, "qwen_ft_merged")
+    t0 = time.perf_counter()
+    model.save_pretrained_merged(out)
+    back, _ = FastLanguageModel.from_pretrained(
+        out, max_seq_length=UNPACKED_ROWS, full_finetuning=True,
+        dtype=torch.bfloat16, device=DEVICE)
+    rows = [list(t_["text"].encode()) for t_ in held_out]
+    n_ids = min(256, *map(len, rows))
+    ids = torch.tensor([r[:n_ids] for r in rows], device=DEVICE)
+    with torch.no_grad():
+        want = logits_fn(model.params, None, ids, cfg, remat=False)
+        got = logits_fn(back.params, None, ids, back.cfg, remat=False)
+    rel = _rel(got, want)
+    log(f"[qwen2.5 merged] saved and reloaded in "
+        f"{time.perf_counter() - t0:.1f} s: logits rel L2 {rel:.3e} (limit "
+        f"1e-2), bit-equal {bool(torch.equal(got, want))}")
+    if not rel <= 1e-2:
+        raise RuntimeError(f"merged reload's logits differ: {rel}")
+    del model, back, state_a, want, got
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses_a, step_s=statistics.median(times[1:]),
+                          peak_bytes=peak_a, resume_worst_rel=rels[worst],
+                          resume_bit_equal=equal, galore_state_bytes=g_bytes,
+                          adamw_state_bytes=optimizer_bytes,
+                          merged_logits_rel=rel,
+                          seconds=dict(a=t_a, b=t_b, c=t_c, d=t_d))
 
 
 def _profile_train_step(trainer, rows, top=25):
@@ -5566,15 +6250,12 @@ def phase_fp8_sft(tmp, unpacked_launches):
     in either package), and a greedy generate of 16 tokens for 2 prompts,
     K12 launched at its decode rows. Returns the training launches, the
     generate's and the metrics."""
-    import gc
-
     import numpy as np
     import torch
 
-    # the GRPO phase before this one leaves reference cycles that hold its
-    # model (~6 GB) until the collector runs; free them, so that the peak
-    # below is this path's own
-    gc.collect()
+    # the GRPO phase before this one frees its model at its return
+    # (patched_methods leaves no reference cycle), so the peak below is
+    # this path's own without a collection
     torch.cuda.empty_cache()
     log(f"[fp8] resident before loading: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -5664,7 +6345,7 @@ def _kernel_fns():
             "flash_sinks_fwd": tfs.flash_sinks_fwd,
             "flash_sinks_dq": tfs.flash_sinks_dq,
             "flash_sinks_dkv": tfs.flash_sinks_dkv,
-            "gmm": tgmm.gmm, "gmm_dx": tgmm.gmm_dx,
+            "gmm": tgmm.gmm, "gmm_dx": tgmm.gmm_dx, "tgmm": tgmm.tgmm,
             "fp8_matmul_fwd": fp8_matmul_fwd, "fp8_matmul_dx": fp8_matmul_dx}
 
 
@@ -5679,6 +6360,12 @@ GEMMA2_KERNELS = TRAIN_KERNELS + ("splash_attn_fwd", "splash_attn_dq",
                                   "splash_attn_dkv")
 GPT_OSS_KERNELS = TRAIN_KERNELS + ("nf4_gmm", "nf4_gmm_dx", "flash_sinks_fwd",
                                    "flash_sinks_dq", "flash_sinks_dkv")
+#: the kernels gpt-oss's full-FT path must launch (dense bf16 weights: no
+#: NF4 kernel; its sliding layers take K18 or the banded form by the row)
+FULL_FT_GPT_OSS_KERNELS = ("rms_norm", "rms_norm_bwd", "cross_entropy_fwd",
+                           "cross_entropy_bwd", "flash_sinks_fwd",
+                           "flash_sinks_dq", "flash_sinks_dkv", "gmm",
+                           "gmm_dx", "tgmm")
 #: attention kernels the gpt-oss path must never launch: its global layers
 #: take K17, its sliding ones the banded form
 GPT_OSS_ABSENT = ("packed_attn_fwd", "packed_attn_bwd", "flash_attn_fwd",
@@ -5755,6 +6442,10 @@ def _kernels_line(rows, by_path):
                 "megablox gmm, transpose_rhs=True)", "(a) path"),
         "gmm_dx": ("gmm.cu", "unsloth_tpu/ops/moe.py:249 (megablox gmm's "
                    "VJP: gmm with transpose_rhs flipped)", "(a) path"),
+        "tgmm": ("gmm.cu", "jax/experimental/pallas/ops/tpu/megablox/"
+                 "gmm.py:573 (tgmm, pallas_call :763; megablox _gmm_bwd "
+                 "ops.py:90, reached from unsloth_tpu/ops/moe.py:249 when "
+                 "the experts train)", "(a) path"),
         "layer_norm_fwd": ("layer_norm.cu", "unsloth_tpu/ops/rms_norm.py:243 "
                            "(_ln_fwd_kernel, launched by _ln_fwd_pallas "
                            ":289)", "[3000, 1280] bfloat16"),
@@ -5779,6 +6470,7 @@ def _kernels_line(rows, by_path):
                      "flash_sinks_dq", "flash_sinks_dkv")},
                  "gmm": "gpt_oss_bf16_training",
                  "gmm_dx": "gpt_oss_bf16_training",
+                 "tgmm": "gpt_oss_full_ft_training",
                  "layer_norm_fwd": "whisper_training",
                  "layer_norm_bwd": "whisper_training",
                  "fp8_matmul_fwd": "fp8_training",
@@ -5817,7 +6509,8 @@ def _kernels_line(rows, by_path):
                      "L)), from attention :600-617 under prefix_attention)"}
     has_forms = {k_ for k_, *_ in forms.values()}
     form_paths = {p_ for *_, p_ in forms.values()} | {
-        "qwen25_training", "llama32_2layer_parity", "grpo_2layer_parity"}
+        "qwen25_training", "llama32_2layer_parity", "grpo_2layer_parity",
+        "qwen25_full_ft_training", "gpt_oss_full_ft_2layer_parity"}
     entries = [(k_, k_, None, shape, main_path.get(k_, "unpacked_training"))
                for k_, (_, _, shape) in picks.items()]
     entries += [(n_, k_, form, shape, path)
@@ -5836,6 +6529,11 @@ def _kernels_line(rows, by_path):
                    if form is None else {path: by_path[path][kname]})
         if form == "d64" and kname.startswith("flash"):
             by_form["qwen25_training"] = by_path["qwen25_training"][kname]
+            by_form["qwen25_full_ft_training"] = \
+                by_path["qwen25_full_ft_training"][kname]
+        if form == "d64" and kname.startswith("splash"):
+            by_form["gpt_oss_full_ft_2layer_parity"] = \
+                by_path["gpt_oss_full_ft_2layer_parity"][kname]
         if form == "prefix":
             by_form["grpo_2layer_parity"] = \
                 by_path["grpo_2layer_parity"][kname]
@@ -5846,6 +6544,7 @@ def _kernels_line(rows, by_path):
             "max_abs_err": max(r["err"] for r in of_form),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "pct_of_bound": 100 * row["bound_ms"] / row["ms"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": by_form,
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
@@ -5927,6 +6626,8 @@ def main() -> int:
         whisper_parity = timed("4g Whisper train parity",
                                phase_whisper_parity, tmp)
         fp8_parity = timed("4h FP8 train parity", phase_train_parity_fp8)
+        full_ft_parity = timed("4i gpt-oss full-FT train parity",
+                               phase_train_parity_gpt_oss_full)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -5948,6 +6649,8 @@ def main() -> int:
                         os.path.join(tmp, "gpt_oss_20b"), GPT_OSS_20B_CONFIG)
         gpt_oss_launches, bf16_launches, _ = timed(
             "9 gpt-oss SFT", phase_gpt_oss_sft, gpt_oss)
+        gpt_oss_ft_launches, _ = timed("16 gpt-oss full FT",
+                                       phase_gpt_oss_full_ft, gpt_oss, tmp)
         shutil.rmtree(gpt_oss)
         llama32 = timed("10 write Llama-3.2 (bnb-4bit)", _write_model,
                         os.path.join(tmp, "llama32_1b_bnb"),
@@ -5958,6 +6661,8 @@ def main() -> int:
         qwen = timed("11 write Qwen2.5", _write_model,
                      os.path.join(tmp, "qwen25_05b"), QWEN25_05B_CONFIG)
         qwen_launches, _ = timed("11 Qwen2.5 SFT", phase_qwen25_sft, qwen)
+        qwen_ft_launches, _ = timed("17 Qwen2.5 full FT",
+                                    phase_qwen25_full_ft, qwen, tmp)
         shutil.rmtree(qwen)
         whisper_launches_, transcribe_launches, _ = timed(
             "13 Whisper-large-v3", phase_whisper, tmp)
@@ -5984,7 +6689,10 @@ def main() -> int:
                "orpheus_training": orpheus_launches,
                "fp8_training": fp8_launches_,
                "fp8_generate": fp8_gen_launches,
-               "fp8_2layer_parity": fp8_parity["launches"]}
+               "fp8_2layer_parity": fp8_parity["launches"],
+               "gpt_oss_full_ft_training": gpt_oss_ft_launches,
+               "gpt_oss_full_ft_2layer_parity": full_ft_parity["launches"],
+               "qwen25_full_ft_training": qwen_ft_launches}
     log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))

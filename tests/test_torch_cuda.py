@@ -603,6 +603,61 @@ def test_gmm_kernels_match_plain(dev, e, n, k, m, kind):
         tgmm.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
 
 
+@pytest.mark.parametrize("e,n,k,m,kind", [
+    (32, 2880, 2880, 2048, "random"),   # gpt-oss widths
+    (8, 768, 2048, 513, "random"),      # qwen3-moe's; m not a chunk multiple
+    (16, 200, 136, 900, "skewed"),      # N, K % 64 != 0; empty experts
+    (4, 136, 72, 300, "one"),           # every row routed to one expert
+])
+def test_tgmm_kernel_matches_plain(dev, fp32_reductions, e, n, k, m, kind):
+    """K19's tgmm against tgmm_ref on the same bf16 inputs: every element
+    within MM_ULPS (chip_smoke.mm_ulps: the same products, fp32 sums in
+    another order, one rounding); empty experts written as zeros over
+    memory filled with NaN first; the check rejects each fault of
+    chip_smoke.tgmm_faults; the backward of gmm with trainable W and bias
+    launches tgmm (and dx) once and gives db = group_sum."""
+    from chip_smoke import tgmm_faults
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    if kind == "one":
+        sizes = torch.zeros(e, dtype=torch.int32, device=dev)
+        sizes[e - 1] = m
+    else:
+        sizes = _group_sizes(kind, e, m, g, dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    nan = torch.full((e, n, k), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    del nan
+    before = tgmm.tgmm.launches
+    got = tgmm.tgmm(x, gy, sizes)
+    ref = tgmm.tgmm_ref(x, gy, sizes)
+    torch.cuda.synchronize()
+    assert tgmm.tgmm.launches == before + 1
+    assert got.shape == (e, n, k) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert mm_ulps(got, ref) <= MM_ULPS
+    for i in (sizes == 0).nonzero().flatten().tolist():
+        assert (got[i] == 0).all()
+    for fault, wrong in tgmm_faults(x, gy, sizes).items():
+        assert not mm_ulps(wrong, ref) <= MM_ULPS, fault
+    w = (torch.randn((e, n, k), generator=g, device=dev) * 0.05
+         ).to(torch.bfloat16).requires_grad_(True)
+    bias = torch.randn((e, n), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    before = (tgmm.gmm_dx.launches, tgmm.tgmm.launches)
+    tgmm.gmm(xr, w, sizes, bias).backward(gy)
+    torch.cuda.synchronize()
+    assert (tgmm.gmm_dx.launches, tgmm.tgmm.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert mm_ulps(w.grad, ref) <= MM_ULPS
+    assert mm_ulps(bias.grad, tgmm.group_sum(gy, sizes, torch.bfloat16)) \
+        <= MM_ULPS
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tgmm.tgmm(x.float(), gy, sizes)
+
+
 # ---------------------------------------------------------------------------
 # GRPO: K18's shared-prefix form
 # ---------------------------------------------------------------------------

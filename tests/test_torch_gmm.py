@@ -201,16 +201,66 @@ def test_gmm_off_cpu_reaches_the_kernel_wrapper(monkeypatch):
                                                          before[1] + 1)
 
 
-def test_gmm_refuses_trainable_experts():
-    """The weight gradient (megablox tgmm) is not ported: W or the bias
-    requiring a gradient raises, naming tgmm."""
-    w = torch.zeros((2, 8, 8), requires_grad=True)
-    x = torch.zeros((3, 8), requires_grad=True)
+def test_gmm_refuses_trainable_experts(monkeypatch):
+    """Trainable experts are no longer refused: W and the bias requiring a
+    gradient get tgmm's and the segment sum's gradients (on the CPU, the
+    plain versions: equal to tgmm_ref and group_sum exactly, the dx to
+    gmm_ref's); off the CPU (meta tensors, standing in for CUDA) the
+    backward calls the dx and the tgmm C entry points once each with
+    (m, E, N, K) and counts one launch of each, and never tgmm_ref."""
+    w = torch.randn((2, 8, 8), requires_grad=True)
+    x = torch.randn((3, 8), requires_grad=True)
+    bias = torch.randn((2, 8), requires_grad=True)
     sizes = torch.tensor([1, 2], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="tgmm"):
-        tgmm.gmm(x, w, sizes)
-    with pytest.raises(NotImplementedError, match="tgmm"):
-        tgmm.gmm(x, w.detach(), sizes,
-                 torch.zeros((2, 8), requires_grad=True))
+    gy = torch.randn((3, 8))
+    tgmm.gmm(x, w, sizes, bias).backward(gy)
+    assert torch.equal(w.grad, tgmm.tgmm_ref(x.detach(), gy, sizes))
+    assert torch.equal(bias.grad, tgmm.group_sum(gy, sizes, torch.float32))
+    assert torch.equal(x.grad, tgmm.gmm_ref(gy, w.detach(), sizes,
+                                            transpose=True))
     with torch.no_grad():
         assert tgmm.gmm(x, w, sizes).shape == (3, 8)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a plain version ran on a tensor off the CPU")
+
+    monkeypatch.setattr(tgmm, "gmm_ref", no_plain)
+    monkeypatch.setattr(tgmm, "tgmm_ref", no_plain)
+    e, n, k, m = 3, 40, 24, 10
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    x = torch.empty((m, k), **meta).requires_grad_(True)
+    w = torch.empty((e, n, k), **meta).requires_grad_(True)
+    sizes = torch.empty((e,), device="meta", dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="meta"):
+        tgmm.tgmm(x.detach(), torch.empty((m, n), **meta), sizes)
+    calls = []
+
+    class FakeLibrary:
+        def unsloth_gmm_bf16(self, *args):
+            calls.append(("fwd", args[5:9]))
+            return 0
+
+        def unsloth_gmm_dx_bf16(self, *args):
+            calls.append(("dx", args[4:8]))
+            return 0
+
+        def unsloth_gmm_tgmm_bf16(self, *args):
+            calls.append(("tgmm", args[4:8]))
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda: FakeLibrary())
+    monkeypatch.setattr(tgmm, "_stream", lambda t: 0)
+    monkeypatch.setattr(tgmm, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(tgmm, "_check_tgmm", lambda *a: None)
+    before = (tgmm.gmm.launches, tgmm.gmm_dx.launches, tgmm.tgmm.launches)
+    y = tgmm.gmm(x, w, sizes)
+    y.backward(torch.empty((m, n), **meta))
+    assert x.grad.shape == (m, k) and w.grad.shape == (e, n, k)
+    assert calls == [("fwd", (m, e, n, k)), ("dx", (m, e, n, k)),
+                     ("tgmm", (m, e, n, k))]
+    assert (tgmm.gmm.launches, tgmm.gmm_dx.launches, tgmm.tgmm.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    # only W trained: no dx launch
+    calls.clear()
+    tgmm.gmm(x.detach(), w, sizes).backward(torch.empty((m, n), **meta))
+    assert calls == [("fwd", (m, e, n, k)), ("tgmm", (m, e, n, k))]

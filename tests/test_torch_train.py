@@ -235,12 +235,30 @@ def test_get_peft_model_sets_gc_mode(model_pair):
 
 
 def test_trainer_refuses_unported_options(model_pair, tmp_path):
-    (_, _, jlora), (tcfg, tparams) = model_pair
-    model = TModel(cfg=tcfg, params=tparams, lora=_torch_lora(jlora),
-                   max_seq_length=T)
-    for kw in (dict(save_steps=2), dict(optim="galore_adamw")):
-        tr = tsft.SFTTrainer(model, train_dataset=_docs(4, 10, 20, 0),
-                             args=tsft.SFTConfig(output_dir=str(tmp_path),
-                                                 max_seq_length=T, **kw))
-        with pytest.raises(NotImplementedError):
-            tr.train()
+    """What is still not ported raises NotImplementedError naming it:
+    full fine-tuning over an NF4 base (no LoRA tree on the NF4 params),
+    ``loftq_config`` and ``qat_scheme`` on get_peft_model, and
+    ``stack_layers`` and ``qat_scheme`` (with full fine-tuning) on
+    from_pretrained; ``save_steps`` and GaLore, refused before, now run
+    (tests/test_torch_full_ft.py)."""
+    from unsloth_tpu_torch.models.loader import FastLanguageModel
+
+    _, (tcfg, tparams) = model_pair
+    model = TModel(cfg=tcfg, params=tparams, max_seq_length=T)
+    tr = tsft.SFTTrainer(model, train_dataset=_docs(4, 10, 20, 0),
+                         args=tsft.SFTConfig(output_dir=str(tmp_path),
+                                             max_seq_length=T))
+    with pytest.raises(NotImplementedError, match="NF4 base"):
+        tr.train()
+    lora_model = TModel(cfg=tcfg, params=tparams, max_seq_length=T)
+    for kw, name in ((dict(loftq_config={"loftq_bits": 4}), "loftq_config"),
+                     (dict(qat_scheme="int4"), "qat_scheme")):
+        with pytest.raises(NotImplementedError, match=name):
+            FastLanguageModel.get_peft_model(lora_model, r=4, **kw)
+    assert lora_model.lora is None
+    for kw, name in ((dict(stack_layers=True), "stack_layers"),
+                     (dict(qat_scheme="int4", full_finetuning=True),
+                      "qat_scheme")):
+        with pytest.raises(NotImplementedError, match=name):
+            FastLanguageModel.from_pretrained(str(tmp_path), device="cpu",
+                                              **kw)

@@ -18,7 +18,13 @@ speech: Whisper (``models/whisper.py``, ``trainer/whisper.py``) over the
 LayerNorm kernels, and the Orpheus TTS rows (``data/tts.py``); LoRA over a
 block-FP8 base (``ops/fp8.py``: quantize the projections with
 :func:`quantize_fp8_block`, as in JAX), trained and served through the FP8
-dequant-inside-matmul kernels (``ops/fp8_matmul.py``).
+dequant-inside-matmul kernels (``ops/fp8_matmul.py``); full fine-tuning
+(``from_pretrained(full_finetuning=True)`` then ``SFTTrainer``: every
+param trained, MoE experts through the expert weight-gradient kernel
+``ops/gmm.py:tgmm``), with GaLore / Q-GaLore (``optimizers/galore.py``),
+``modules_to_save`` with ``embedding_learning_rate``, and checkpoint saves
+and resume (``trainer/checkpoint.py``); hub names resolved through the
+model-name mapper (``models/mapper.py``) and the HF cache.
 """
 
 __version__ = "0.1.0"

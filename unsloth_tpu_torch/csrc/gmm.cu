@@ -8,9 +8,15 @@
 // Replaces the TPU kernel megablox `gmm` (jax.experimental.pallas.ops.tpu.
 // megablox, imported by unsloth_tpu/ops/moe.py:177 and called through
 // tiled_gmm at :249 with transpose_rhs=True), and the transpose_rhs-flipped
-// `gmm` that megablox's VJP runs for the gradient of its lhs. The weight
-// gradient (megablox `tgmm`) is not ported: under QLoRA the experts are
-// frozen.
+// `gmm` that megablox's VJP runs for the gradient of its lhs.
+//
+//   tgmm_kernel                  dW[g] = g[rows of g]^T @ lhs[rows of g]
+//
+// replaces megablox `tgmm` (gmm.py:573, pallas_call :763), the weight
+// gradient that the VJP runs (`_gmm_bwd`, ops.py:90) when the experts are
+// trained (full fine-tuning). It is written straight into W's [E, N, K]
+// layout, which fuses the swapaxes(1, 2) that megablox applies to its
+// [E, K, N] result under transpose_rhs (ops.py:105).
 //
 // Arithmetic: bf16 products summed in fp32, one rounding to bf16; the
 // forward's optional per-expert bf16 bias is then added to the rounded
@@ -269,4 +275,156 @@ extern "C" int unsloth_gmm_dx_bf16(const void* g, const void* w, const void* gro
   if (m <= kSmallM)
     return launch<16, 64, 64, 16, 16, 4, true>(g, w, nullptr, group_sizes, dx, m, E, N, K, s);
   return launch<128, 128, 64, 32, 64, 3, true>(g, w, nullptr, group_sizes, dx, m, E, N, K, s);
+}
+
+// ---------------------------------------------------------------------------
+// K19 tgmm: the expert weight gradient.
+//
+//   dW[g, n, k] = sum over the rows r of group g of g[r, n] * lhs[r, k]
+//
+// g [m, N] and lhs [m, K] bf16 with rows sorted by expert; dW [E, N, K] bf16
+// (W's layout). bf16 products summed in fp32 over the group's rows, one
+// rounding to bf16. Grid (ceil(K / 64), ceil(N / 64), E): one block per
+// (expert, 64 x 64 output tile), four warps of 32 x 32. The block finds its
+// expert's rows [lo, hi) from the device-side group sizes and walks them in
+// chunks of 32: g's and lhs's chunk stream into shared memory through
+// cp.async, three stages deep, rows past hi and columns past N or K read as
+// zeros; nvcuda::wmma multiplies the chunk of g transposed (its [rows, N]
+// tile read column-major) by the chunk of lhs. An expert with no rows runs
+// no chunk and writes its zeros, as megablox visits empty groups
+// (visit_empty_groups=True, gmm.py:633-640). No atomics: each output
+// element is summed by one thread in one order, so the result is
+// deterministic. A skewed routing makes its large experts' blocks long;
+// splitting their rows over blocks is later work.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kTgTile = 64;    // output tile, N and K
+constexpr int kTgRows = 32;    // rows of a chunk
+constexpr int kTgStages = 3;
+constexpr int kTgLd = kTgTile + 8;                 // bf16, padded rows
+constexpr int kTgStage = 2 * kTgRows * kTgLd;      // g's chunk, then lhs's
+constexpr int kTgThreads = 128;
+
+__global__ void __launch_bounds__(kTgThreads)
+tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ gy,
+            const int* __restrict__ group_sizes, bf16* __restrict__ dw, int N, int K) {
+  __shared__ __align__(128) bf16 smem[kTgStages * kTgStage];
+  __shared__ int s_rows[2];
+  const int expert = blockIdx.z;
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int e = 0; e < expert; ++e) off += group_sizes[e];
+    s_rows[0] = off;
+    s_rows[1] = off + group_sizes[expert];
+  }
+  __syncthreads();
+  const int lo = s_rows[0], hi = s_rows[1];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wn = warp / 2;  // the warp's 32 rows of the tile (N)
+  const int wk = warp % 2;  // and 32 columns (K)
+  const int n0 = blockIdx.y * kTgTile;
+  const int k0 = blockIdx.x * kTgTile;
+
+  auto load_stage = [&](int stage, int r0) {
+    bf16* gs = smem + stage * kTgStage;
+    bf16* ls = gs + kTgRows * kTgLd;
+    for (int c = tid; c < kTgRows * (kTgTile / 8); c += kTgThreads) {
+      const int r = c / (kTgTile / 8);
+      const int col = (c % (kTgTile / 8)) * 8;
+      const int row = r0 + r;
+      const bool ok_g = row < hi && n0 + col < N;
+      cp_async16(gs + r * kTgLd + col, ok_g ? gy + (size_t)row * N + n0 + col : gy, ok_g);
+      const bool ok_l = row < hi && k0 + col < K;
+      cp_async16(ls + r * kTgLd + col, ok_l ? lhs + (size_t)row * K + k0 + col : lhs, ok_l);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  const int nchunks = (hi - lo + kTgRows - 1) / kTgRows;
+#pragma unroll
+  for (int s = 0; s < kTgStages - 1; ++s) {
+    if (s < nchunks) load_stage(s, lo + s * kTgRows);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    const int pre = c + kTgStages - 1;
+    if (pre < nchunks) load_stage(pre % kTgStages, lo + pre * kTgRows);
+    cp_async_commit();
+    cp_async_wait<kTgStages - 1>();  // the stage of chunk c has landed
+    __syncthreads();
+    const bf16* gs = smem + (c % kTgStages) * kTgStage;
+    const bf16* ls = gs + kTgRows * kTgLd;
+#pragma unroll
+    for (int rr = 0; rr < kTgRows; rr += 16) {
+      // A(n, r) = g[r, n]: the [rows, N] tile read column-major
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], gs + rr * kTgLd + wn * 32 + i * 16, kTgLd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], ls + rr * kTgLd + wk * 32 + j * 16, kTgLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();  // before chunk c + 1 overwrites this stage
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: one 16 x 16 fragment at a time through the warp's scratch; a
+  // lane rounds and stores 8 columns of one row (16 bytes)
+  float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
+  bf16* out = dw + (size_t)expert * N * K;
+  const int fr = lane / 2;
+  const int fc = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int n = n0 + wn * 32 + i * 16 + fr;
+      const int col = k0 + wk * 32 + j * 16 + fc;
+      if (n < N && col < K) {
+        uint4 o;
+        bf16* ov = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(scratch[fr * 16 + fc + e]);
+        *reinterpret_cast<uint4*>(out + (size_t)n * K + col) = o;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+}  // namespace
+
+// dW = g^T @ lhs per group on `stream`: lhs [m, K] and g [m, N] bf16 rows
+// sorted by expert, group_sizes [E] int32 on the device summing to at most
+// m (rows past the groups are read by no block), dW [E, N, K] bf16, every
+// element written (an empty expert's are zeros). N and K multiples of 8,
+// pointers 16-byte aligned (the wrapper checks). Returns cudaGetLastError()
+// after the launch; allocates nothing.
+extern "C" int unsloth_gmm_tgmm_bf16(const void* lhs, const void* g, const void* group_sizes,
+                                     void* dw, int m, int E, int N, int K, void* stream) {
+  (void)m;
+  static_assert(kTgStages * kTgStage * 2 >= 4 * 256 * 4, "epilogue scratch");
+  const dim3 grid((K + kTgTile - 1) / kTgTile, (N + kTgTile - 1) / kTgTile, E);
+  tgmm_kernel<<<grid, kTgThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(lhs), static_cast<const bf16*>(g),
+      static_cast<const int*>(group_sizes), static_cast<bf16*>(dw), N, K);
+  return static_cast<int>(cudaGetLastError());
 }

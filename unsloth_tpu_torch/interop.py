@@ -9,7 +9,8 @@ double_block_size``, stacked-expert NF4 objects with
 ``packed/absmax/shape/block_size`` (3-D shape) and LoRA objects with
 ``a/b/scale``. They return the
 port's tree with every array on ``device``; NF4 bytes and codes are copied
-unchanged. :func:`lora_to_numpy` goes the other way for trained adapters.
+unchanged. :func:`lora_to_numpy` goes the other way for trained adapters,
+and :func:`params_to_numpy` for a dense param tree trained in full.
 JAX imports nothing here: the trees travel as numpy.
 """
 
@@ -127,3 +128,20 @@ def lora_to_numpy(tree: Any) -> Any:
         return types.SimpleNamespace(a=_to_numpy(tree.a), b=_to_numpy(tree.b),
                                      scale=float(tree.scale))
     return _to_numpy(tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A dense param tree (a fully fine-tuned one) with numpy leaves, bf16
+    widened to fp32, in the layout of ``jax.tree_util.tree_map(np.asarray,
+    params)``, which :func:`params_from_numpy` takes back. Quantized
+    leaves raise: they come out of no full fine-tuning."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return _to_numpy(tree)
+    if tree is None:
+        return None
+    raise TypeError(f"params_to_numpy: {type(tree).__name__} is not a dense "
+                    "tensor")

@@ -174,6 +174,9 @@ def library() -> ctypes.CDLL:
         lib.unsloth_gmm_bf16.restype = i
         lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.unsloth_gmm_dx_bf16.restype = i
+        # lhs, g, group sizes, dW, m, E, N, K, stream
+        lib.unsloth_gmm_tgmm_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_gmm_tgmm_bf16.restype = i
         # x, w, b (or null), out, rows, D, eps, x and w dtype codes, stream
         lib.unsloth_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
         lib.unsloth_layer_norm.restype = i

@@ -10,6 +10,10 @@ rematerialization, optionally offloading the layer boundaries to pinned
 host memory), ``loss_fn`` / ``_loss_from_hidden`` (shifted labels, global
 ``n_items``, the full-logits CE through the K7/K8 kernels or the
 chunked fused CE, chosen by :func:`fused_ce_gate`) and ``logits_fn``.
+Under full fine-tuning (``loss_fn(params, None, ...,
+lm_head_trainable=True)`` with every param requiring a gradient) the same
+code differentiates every leaf, the MoE experts through K19's tgmm; a
+quantized base raises (:func:`check_full_finetune`).
 
 Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
 
@@ -96,6 +100,31 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"({cfg.model_type!r}) is not ported yet; only the "
                 "llama-family decoder is, dense or with softmax-top-k MoE "
                 "layers")
+
+
+def check_full_finetune(params: Dict[str, Any]) -> None:
+    """Raise NotImplementedError, naming the base type, when ``params``
+    holds a quantized weight: full fine-tuning differentiates every param,
+    and neither package differentiates an NF4 (``load_in_4bit=True`` or a
+    bnb-4bit checkpoint) or a block-FP8 weight."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}{k}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}{i}.")
+        elif isinstance(tree, (NF4Tensor, NF4Stacked, FP8Tensor)):
+            kind = ("a block-FP8 base" if isinstance(tree, FP8Tensor) else
+                    "an NF4 base (load_in_4bit=True or a bnb-4bit "
+                    "checkpoint)")
+            raise NotImplementedError(
+                f"full fine-tuning over {kind}: {path[:-1]} is "
+                f"{type(tree).__name__}, which has no gradient; load the "
+                "model with full_finetuning=True (dense weights) or attach "
+                "adapters with get_peft_model")
+
+    walk(params, "")
 
 
 def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -250,7 +279,11 @@ def forward(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
     embed_w = (lora or {}).get("embed")
     if embed_w is None:
         embed_w = params["embed"]
-    x = F.embedding(input_ids, embed_w)
+    # a modules_to_save copy is fp32 over a bf16 base: its rows are cast
+    # to the base's dtype, so the stack runs in that dtype (JAX carries
+    # fp32 activations on, which its TPU kernels take; the CUDA kernels
+    # take bf16)
+    x = F.embedding(input_ids, embed_w).to(params["embed"].dtype)
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
     cos, sin, cos_local, sin_local = _rope_tables(cfg, positions)

@@ -1,27 +1,31 @@
 """Grouped dense matmul over experts (the MoE expert products when the
-experts are dense bf16 stacks), forward and dx.
+experts are dense bf16 stacks), forward, dx and the weight gradient.
 
 Counterpart of megablox ``gmm`` as unsloth_tpu/ops/moe.py:moe_mlp_grouped
-calls it (``tiled_gmm``, with ``transpose_rhs=True``). Rows of the input
-are sorted by expert; ``group_sizes`` [E] (int32, on the input's device)
-says how many rows each expert owns. On a CUDA tensor :func:`gmm` launches
-the hand-written kernel in ``csrc/gmm.cu`` (K19) for the forward, and the
-same kernel with W untransposed for its dx (megablox's VJP with
-``transpose_rhs`` flipped). On a CPU tensor both run the plain version
-:func:`gmm_ref`. The device of the tensor is the only thing that chooses;
-there is no fallback from a kernel to its plain version.
+calls it (``tiled_gmm``, with ``transpose_rhs=True``), and of its VJP
+(megablox ``_gmm_bwd``). Rows of the input are sorted by expert;
+``group_sizes`` [E] (int32, on the input's device) says how many rows each
+expert owns. On a CUDA tensor :func:`gmm` launches the hand-written kernels
+in ``csrc/gmm.cu`` (K19): the forward, the same kernel with W untransposed
+for its dx (megablox's VJP with ``transpose_rhs`` flipped), and
+:func:`tgmm`, the expert weight gradient (megablox ``tgmm``), when W is
+trained (full fine-tuning). On a CPU tensor they run the plain versions
+:func:`gmm_ref` and :func:`tgmm_ref`. The device of the tensor is the only
+thing that chooses; there is no fallback from a kernel to its plain
+version.
 
 The optional per-expert bias is added as the JAX package adds it: the
 product is rounded to the input dtype, then the bias (in that dtype) is
 added and the sum rounded again. The kernel does both in its store
 epilogue (no [m, N] bias gather), so :func:`gmm_ref` and the kernel differ
-only by the order of the fp32 sums.
+only by the order of the fp32 sums. The bias gradient is, in JAX, the
+autodiff of a row gather (a scatter-add, no Pallas kernel); here it is
+:func:`group_sum`, a plain segment sum in fp32 rounded once.
 
-Divergences by design: the kernel masks ragged N and K (gpt-oss's 2,880)
-where JAX pads them in memory to a multiple of 128; and there is no weight
-gradient (megablox ``tgmm``): W and the bias are frozen under QLoRA, as the
-JAX LoRA tree has no expert entries, so :func:`gmm` raises when either
-requires a gradient.
+Divergences by design: the kernels mask ragged N and K (gpt-oss's 2,880)
+where JAX pads them in memory to a multiple of 128, and :func:`tgmm` writes
+W's [E, N, K] layout directly where megablox returns [E, K, N] and swaps
+the axes.
 """
 
 from __future__ import annotations
@@ -140,38 +144,123 @@ def gmm_dx(g: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
 gmm_dx.launches = 0
 
 
+def tgmm_ref(lhs: torch.Tensor, gy: torch.Tensor, group_sizes: torch.Tensor
+             ) -> torch.Tensor:
+    """Plain weight gradient: dW [E, N, K] with dW[g] = gy[rows of g]^T @
+    lhs[rows of g] in fp32, one cast to lhs.dtype; an expert with no rows
+    gets zeros, rows past the groups count for none."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0).tolist()
+    out = torch.zeros((len(ends), gy.shape[1], lhs.shape[1]),
+                      dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for g, end in enumerate(ends):
+        if end > start:
+            out[g] = (gy[start:end].to(torch.float32).t()
+                      @ lhs[start:end].to(torch.float32)).to(lhs.dtype)
+        start = end
+    return out
+
+
+def _check_tgmm(lhs: torch.Tensor, gy: torch.Tensor,
+                group_sizes: torch.Tensor) -> None:
+    if lhs.device.type != "cuda":
+        raise NotImplementedError(f"tgmm: no kernel for device {lhs.device}")
+    if lhs.dtype != torch.bfloat16 or gy.dtype != torch.bfloat16:
+        raise NotImplementedError(f"tgmm CUDA kernel takes bfloat16 input "
+                                  f"and gradient, got {lhs.dtype} and "
+                                  f"{gy.dtype}")
+    if lhs.ndim != 2 or gy.ndim != 2 or gy.shape[0] != lhs.shape[0] \
+            or group_sizes.ndim != 1:
+        raise ValueError(f"tgmm: input {tuple(lhs.shape)}, gradient "
+                         f"{tuple(gy.shape)}, group sizes "
+                         f"{tuple(group_sizes.shape)}")
+    if gy.shape[1] % 8 or lhs.shape[1] % 8:
+        raise NotImplementedError(f"tgmm CUDA kernel needs N and K "
+                                  f"multiples of 8; got N={gy.shape[1]}, "
+                                  f"K={lhs.shape[1]}")
+    if gy.device != lhs.device or group_sizes.device != lhs.device:
+        raise ValueError(f"tgmm: input on {lhs.device}, gradient on "
+                         f"{gy.device}, group sizes on {group_sizes.device}")
+
+
+def tgmm(lhs: torch.Tensor, gy: torch.Tensor, group_sizes: torch.Tensor
+         ) -> torch.Tensor:
+    """dW [E, N, K] = gy[rows of g]^T @ lhs[rows of g] per group, the
+    gradient of :func:`gmm` with respect to W [E, N, K]: the plain version
+    on a CPU tensor, K19's tgmm on a CUDA one (bf16 lhs [m, K] and gy
+    [m, N], N and K multiples of 8; anything else raises)."""
+    if lhs.device.type == "cpu":
+        return tgmm_ref(lhs, gy, group_sizes)
+    _check_tgmm(lhs, gy, group_sizes)
+    e, (m, k), n = group_sizes.shape[0], lhs.shape, gy.shape[1]
+    dw = torch.empty((e, n, k), dtype=torch.bfloat16, device=lhs.device)
+    if m == 0:
+        return dw.zero_()
+    x, g = _aligned(lhs), _aligned(gy)
+    gs = group_sizes.to(torch.int32).contiguous()
+    rc = kernels.library().unsloth_gmm_tgmm_bf16(
+        x.data_ptr(), g.data_ptr(), gs.data_ptr(), dw.data_ptr(), m, e, n, k,
+        _stream(lhs))
+    kernels.check(rc, "tgmm")
+    tgmm.launches += 1
+    return dw
+
+
+#: number of kernel launches since the last reset (CPU calls do not count)
+tgmm.launches = 0
+
+
+def group_sum(gy: torch.Tensor, group_sizes: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """[E, N]: the sum of gy's rows of each group in fp32, one cast to
+    ``dtype`` (the gradient of the per-expert bias; rows past the groups
+    count for none). Plain PyTorch on every device, without a host sync."""
+    e = group_sizes.shape[0]
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(gy.shape[0], device=gy.device)
+    expert = torch.searchsorted(ends, rows, right=True)   # E past the groups
+    out = torch.zeros((e + 1, gy.shape[1]), dtype=torch.float32,
+                      device=gy.device)
+    out.index_add_(0, expert, gy.to(torch.float32))
+    return out[:e].to(dtype)
+
+
 class _Gmm(torch.autograd.Function):
-    """Grouped y = x @ W_g^T + b_g with the gradient to x only (the lhs
-    half of megablox's VJP); W and the group sizes are saved, no
-    activation."""
+    """Grouped y = x @ W_g^T + b_g and megablox's VJP: dx by
+    :func:`gmm_dx`, dW by :func:`tgmm`, db by :func:`group_sum`, each only
+    where its input needs a gradient; x is saved only when W is
+    trained."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes, bias):
-        ctx.save_for_backward(w, group_sizes)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w,
+                              group_sizes)
+        ctx.bias_dtype = None if bias is None else bias.dtype
         return gmm_fwd(x, w, group_sizes, bias)
 
     @staticmethod
     def backward(ctx, gy):
-        w, group_sizes = ctx.saved_tensors
-        return gmm_dx(gy, w, group_sizes), None, None, None
+        x, w, group_sizes = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = gmm_dx(gy, w, group_sizes) if need[0] else None
+        dw = tgmm(x, gy, group_sizes).to(w.dtype) if need[1] else None
+        db = (group_sum(gy, group_sizes, ctx.bias_dtype) if need[3]
+              else None)
+        return dx, dw, None, db
 
 
 def gmm(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped lhs[rows of group g] @ W_g^T (+ bias[g]) with W [E, N, K]
     dense and rows sorted by expert; differentiable in lhs (the backward
-    is :func:`gmm_dx`).
+    is :func:`gmm_dx`), in W (:func:`tgmm`) and in the bias
+    (:func:`group_sum`).
 
     CUDA: bf16 lhs and W, W contiguous, N and K multiples of 8; anything
-    else raises. W or the bias requiring a gradient raises: their gradient
-    is megablox ``tgmm``, which full fine-tuning of the experts needs and
-    the port does not have yet."""
+    else raises."""
     if torch.is_grad_enabled() and (
-            w.requires_grad or (bias is not None and bias.requires_grad)):
-        raise NotImplementedError(
-            "gmm: the gradient of the expert weights or biases (megablox "
-            "tgmm) is not ported; the experts are frozen under QLoRA")
-    if lhs.requires_grad and torch.is_grad_enabled():
+            lhs.requires_grad or w.requires_grad
+            or (bias is not None and bias.requires_grad)):
         return _Gmm.apply(lhs, w, group_sizes, bias)
     return gmm_fwd(lhs, w, group_sizes, bias)
 

@@ -18,7 +18,11 @@ biases gate_bias/up_bias [E, F] and down_bias [E, D] (gpt-oss).
   ``from_pretrained`` loads), and NF4 stacks whose blocks do not align
   (dequantized first, as in JAX), go through
   :func:`~unsloth_tpu_torch.ops.gmm.gmm` (K19, megablox ``gmm``, and its
-  dx). Group sizes stay on the device: no host sync.
+  dx; under full fine-tuning, K19's tgmm for the weight gradient and a
+  plain segment sum for the expert biases). Nothing is detached: the
+  input, the router logits (so the router and its bias), the expert
+  stacks and their biases all take gradients where they require them.
+  Group sizes stay on the device: no host sync.
   The routing and permutation glue and the un-permute run under profiler
   ranges ("unsloth.moe_route_permute", "unsloth.moe_unpermute").
 * :func:`moe_mlp` — chooses by ``impl``.

@@ -12,12 +12,25 @@ real, 0 pad). ``evaluate`` gives the token-weighted loss and perplexity
 over padded batches; :func:`train_on_responses_only` masks the labels
 outside the responses; :func:`unsloth_train` is ``trainer.train()``.
 
+Full fine-tuning: with no LoRA tree (``from_pretrained(full_finetuning=
+True)`` and no ``get_peft_model``), every tensor of ``model.params`` is
+trained, the head included (a tied head trains the embedding through both
+of its uses), with the moments in each param's dtype as optax keeps them
+(no fp32 master copy, as in JAX). ``optim`` naming GaLore chooses
+``optimizers/galore.py`` (Q-GaLore for "qgalore" / "q_galore") behind the
+same clip; ``embedding_learning_rate`` scales the schedule of the
+``embed`` / ``lm_head`` entries of the trainables (the ``modules_to_save``
+copies under LoRA, the params themselves under full fine-tuning), as
+``optax.multi_transform`` does in JAX, with the clip over all of them.
+``save_steps`` writes ``checkpoint-{step}`` (``trainer/checkpoint.py``;
+the adapter beside it under LoRA) and ``train(resume_from_checkpoint=)``
+resumes from one, the epoch's shuffle and the schedule's count restored.
+
 Divergences by design: the loop runs on the host, one micro-batch at a
-time (JAX scans the micro-batches inside one jitted step), and the LoRA
-tensors are updated in place (JAX returns a new tree). Not ported yet,
-and raising when asked for: full fine-tuning, GaLore, a separate
-embedding learning rate, and checkpoint saves and resume.
-Meshes and pipelines are not ported either: the port's model carries
+time (JAX scans the micro-batches inside one jitted step), the trainables
+(the LoRA tensors, or the params under full fine-tuning) are updated in
+place (JAX returns a new tree), and checkpoints are the port's own files,
+not Orbax's. Meshes and pipelines are not ported: the port's model carries
 none.
 """
 
@@ -34,10 +47,12 @@ import torch
 
 from ..data.packing import (PackedBatch, batch_packed_rows, pack_sequences,
                             pad_batch, validate_segment_bound)
+from ..models.decoder import check_full_finetune
 from ..models.decoder import loss_fn as model_loss_fn
 from ..ops.attention import packed_segment_bound
-from ..ops.lora import LoRAWeights
 from ..utils.logging import MetricsLogger
+from .checkpoint import (latest_checkpoint, named_leaves,
+                         restore_train_state, save_train_state)
 
 
 @dataclasses.dataclass
@@ -127,26 +142,49 @@ def build_schedule(args: SFTConfig, total_steps: int) -> Callable[[int], float]:
     return lambda step: ramp(step) if step < warmup else decay(step - warmup)
 
 
+def _clip(grads: List[torch.Tensor], max_grad_norm: float
+          ) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g_norm = sqrt(sum of all g^2), summed in
+    fp32; if g_norm >= max_norm every g becomes g / g_norm * max_norm, with
+    g_norm cast to g's dtype. Decided on the device, without a host
+    sync."""
+    g_norm = torch.sqrt(sum(torch.sum(torch.square(g), dtype=torch.float32)
+                            for g in grads))
+    keep = g_norm < max_grad_norm
+    return [torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_grad_norm)
+            for g in grads]
+
+
+def _grads(params: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params]
+
+
 class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
     eps, weight_decay=wd))`` over a list of tensors, updated in place.
 
-    One update: g_norm = sqrt(sum of all g^2); if g_norm >= max_norm every
-    g becomes g / g_norm * max_norm; mu = (1-b1) g + b1 mu and
-    nu = (1-b2) g^2 + b2 nu; with the count t after the update, u =
-    (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p; p -= lr * u
-    with lr = schedule(count before the update), so with warmup the first
-    step's learning rate is 0. The clip is decided on the device, without
-    a host sync."""
+    One update: the clip (:func:`_clip`); mu = (1-b1) g + b1 mu and
+    nu = (1-b2) g^2 + b2 nu, in each param's dtype; with the count t after
+    the update, u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) +
+    wd * p; p -= lr * u with lr = schedule(count before the update), so
+    with warmup the first step's learning rate is 0. ``lr_scales`` (one
+    per param, default 1) multiplies each param's learning rate: the
+    embedding group of ``optax.multi_transform`` in JAX, whose own adamw
+    counts the same updates."""
 
     def __init__(self, params: List[torch.Tensor],
                  schedule: Callable[[int], float], *, max_grad_norm: float,
-                 b1: float, b2: float, eps: float, weight_decay: float):
+                 b1: float, b2: float, eps: float, weight_decay: float,
+                 lr_scales: Optional[List[float]] = None,
+                 names: Optional[List[str]] = None):
         self.params = params
         self.schedule = schedule
         self.max_grad_norm = float(max_grad_norm)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
+        self.lr_scales = lr_scales or [1.0] * len(params)
+        self.names = names or [str(i) for i in range(len(params))]
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
@@ -154,50 +192,138 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self) -> None:
         """Apply one update from the params' ``.grad``."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.max_grad_norm
+        grads = _clip(_grads(self.params), self.max_grad_norm)
         lr = self.schedule(self.count)
         t = self.count + 1
         c1 = 1.0 - self.b1 ** t
         c2 = 1.0 - self.b2 ** t
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+        for p, g, mu, nu, scale in zip(self.params, grads, self.mu, self.nu,
+                                       self.lr_scales):
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
+            p.add_(u, alpha=-lr * scale)
         self.count = t
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> Dict[str, Any]:
+        """{"count", "tensors": the moments by param name}, the optimizer
+        state of ``trainer/checkpoint.py``."""
+        tensors = {}
+        for name, mu, nu in zip(self.names, self.mu, self.nu):
+            tensors[f"mu.{name}"] = mu
+            tensors[f"nu.{name}"] = nu
+        return {"count": self.count, "tensors": tensors}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for name, mu, nu in zip(self.names, self.mu, self.nu):
+            mu.copy_(state["tensors"][f"mu.{name}"])
+            nu.copy_(state["tensors"][f"nu.{name}"])
+        self.count = int(state["count"])
+
+
+class ClippedGaLore:
+    """``optax.chain(clip_by_global_norm(max_norm), galore(...))`` (or
+    ``q_galore``) over a list of tensors, updated in place: the clip
+    (:func:`_clip`), then the transform's updates added to the params."""
+
+    def __init__(self, params: List[torch.Tensor], transform, *,
+                 max_grad_norm: float, names: Optional[List[str]] = None):
+        self.params = params
+        self.transform = transform
+        self.max_grad_norm = float(max_grad_norm)
+        self.names = names or [str(i) for i in range(len(params))]
+        self.state = transform.init(params)
+
+    @property
+    def count(self) -> int:
+        return self.state.count
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = _clip(_grads(self.params), self.max_grad_norm)
+        updates, self.state = self.transform.update(grads, self.state)
+        for p, u in zip(self.params, updates):
+            p.add_(u)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        tensors = {f"{i}.{name}": t
+                   for name, entry in zip(self.names, self.state.inner)
+                   for i, t in enumerate(entry) if t is not None}
+        return {"count": self.state.count, "tensors": tensors}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for name, entry in zip(self.names, self.state.inner):
+            for i, t in enumerate(entry):
+                if t is not None:
+                    t.copy_(state["tensors"][f"{i}.{name}"])
+        self.state.count = int(state["count"])
+
 
 def lora_leaves(lora: Dict[str, Any]) -> List[torch.Tensor]:
-    """The trainable tensors of a LoRA tree (each adapter's a and b), in
-    tree order."""
-    out = []
-    for layer in lora["layers"]:
-        for name in sorted(layer):
-            w = layer[name]
-            if isinstance(w, LoRAWeights):
-                out += [w.a, w.b]
-    return out
+    """The trainable tensors of a LoRA tree: each adapter's a and b, and
+    the ``modules_to_save`` copies (``embed``, ``lm_head``) where there
+    are any, in tree order."""
+    return [t for _, t in named_leaves(lora)]
 
 
-def build_optimizer(args: SFTConfig, total_steps: int,
-                    params: List[torch.Tensor]):
-    """(ClippedAdamW over ``params``, schedule)."""
-    if "galore" in args.optim:
-        raise NotImplementedError(
-            f"SFTConfig.optim={args.optim!r}: GaLore is not ported yet")
+#: trainables whose learning rate ``embedding_learning_rate`` sets
+EMBED_KEYS = ("embed", "lm_head")
+
+
+def build_optimizer(args: SFTConfig, total_steps: int, trainables):
+    """(optimizer over ``trainables``, schedule), as JAX's build_optimizer
+    chooses it. ``trainables``: a list of tensors (one group), or a tree (a
+    LoRA tree or, under full fine-tuning, the param tree) whose top-level
+    ``embed`` / ``lm_head`` entries take ``embedding_learning_rate`` when it
+    is set (then AdamW over both groups, GaLore or not, as JAX's
+    multi_transform replaces its inner transform). Otherwise ``optim``
+    containing "galore" chooses GaLore ("qgalore" / "q_galore": Q-GaLore)
+    with ``galore_rank``, ``galore_update_proj_gap`` and ``galore_scale``
+    from the config's extra keywords, else AdamW."""
+    if isinstance(trainables, (list, tuple)):
+        named = [(str(i), t) for i, t in enumerate(trainables)]
+        embed_group = False
+    else:
+        named = named_leaves(trainables)
+        embed_group = bool(args.embedding_learning_rate) and any(
+            k in trainables for k in EMBED_KEYS)
+    names = [n for n, _ in named]
+    params = [t for _, t in named]
     schedule = build_schedule(args, total_steps)
+    if "galore" in args.optim and not embed_group:
+        from ..optimizers.galore import galore, q_galore
+
+        make = q_galore if args.optim.lstrip("q_") != args.optim else galore
+        transform = make(
+            learning_rate=schedule,
+            rank=int(args.extra.get("galore_rank", 128)),
+            update_proj_gap=int(args.extra.get("galore_update_proj_gap",
+                                               200)),
+            galore_scale=float(args.extra.get("galore_scale", 0.25)),
+            b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon)
+        return (ClippedGaLore(params, transform,
+                              max_grad_norm=args.max_grad_norm, names=names),
+                schedule)
+    scales = None
+    if embed_group:
+        scale = args.embedding_learning_rate / args.learning_rate
+        scales = [scale if n.split(".")[0] in EMBED_KEYS else 1.0
+                  for n in names]
     tx = ClippedAdamW(params, schedule, max_grad_norm=args.max_grad_norm,
                       b1=args.adam_beta1, b2=args.adam_beta2,
-                      eps=args.adam_epsilon, weight_decay=args.weight_decay)
+                      eps=args.adam_epsilon, weight_decay=args.weight_decay,
+                      lr_scales=scales, names=names)
     return tx, schedule
 
 
@@ -302,25 +428,50 @@ class SFTTrainer:
 
     # -- loop ------------------------------------------------------------
 
-    def _check_supported(self, resume_from_checkpoint) -> None:
-        args = self.args
-        if self.model.lora is None:
-            raise NotImplementedError(
-                "SFTTrainer: full fine-tuning (no LoRA tree) is not ported "
-                "yet; call get_peft_model first")
-        if args.save_steps or resume_from_checkpoint:
-            raise NotImplementedError(
-                "SFTTrainer: checkpoint saves and resume are not ported yet "
-                "(save_steps=0, resume_from_checkpoint=None)")
-        if args.embedding_learning_rate and any(
-                k in self.model.lora for k in ("embed", "lm_head")):
-            raise NotImplementedError(
-                "SFTTrainer: embedding_learning_rate is not ported yet")
+    def _trainables(self):
+        """(trainables tree, full fine-tuning?): the LoRA tree, or every
+        param when the model has none (a quantized base raises)."""
+        model = self.model
+        if model.lora is None:
+            check_full_finetune(model.params)
+            return model.params, True
+        return model.lora, False
+
+    def _save_checkpoint(self, trainables, step: int, tx) -> None:
+        """``{output_dir}/checkpoint-{step}``: the adapter (LoRA) and the
+        training state (``trainer/checkpoint.py``)."""
+        import os
+
+        path = os.path.join(self.args.output_dir, f"checkpoint-{step}")
+        os.makedirs(path, exist_ok=True)
+        if self.model.lora is not None:
+            from ..export.save import save_lora
+
+            save_lora(self.model, path)
+        save_train_state(path, step, trainables, tx.state_dict())
+
+    @torch.no_grad()
+    def _resume(self, resume_from_checkpoint, trainables, tx) -> int:
+        """Load the checkpoint named (or, for True, the newest in
+        ``output_dir``) into the trainables and the optimizer, in place;
+        returns its step (0 when there is none)."""
+        ckpt = (resume_from_checkpoint
+                if isinstance(resume_from_checkpoint, str)
+                else latest_checkpoint(self.args.output_dir))
+        if not ckpt:
+            return 0
+        step, restored, opt_state = restore_train_state(
+            ckpt, trainables, tx.state_dict())
+        for (_, p), (_, r) in zip(named_leaves(trainables),
+                                  named_leaves(restored)):
+            p.copy_(r)
+        tx.load_state_dict(opt_state)
+        return step
 
     def train(self, resume_from_checkpoint=None) -> TrainOutput:
-        self._check_supported(resume_from_checkpoint)
         args = self.args
         model = self.model
+        trainables, full_ft = self._trainables()
         batches = self.prepare_batches()
         accum = max(1, min(args.gradient_accumulation_steps, len(batches)))
         steps_per_epoch = max(len(batches) // accum, 1)
@@ -328,10 +479,10 @@ class SFTTrainer:
             steps_per_epoch * args.num_train_epochs)
         total_steps = max(total_steps, 1)
 
-        params = lora_leaves(model.lora)
+        tx, schedule = build_optimizer(args, total_steps, trainables)
+        params = tx.params
         for p in params:
             p.requires_grad_(True)
-        tx, schedule = build_optimizer(args, total_steps, params)
         seg_ctx = (packed_segment_bound(self._segment_bound)
                    if self._segment_bound else contextlib.nullcontext())
         device = model.device
@@ -339,49 +490,59 @@ class SFTTrainer:
         tokens_seen = 0
         global_step = 0
         epoch = 0
+        if resume_from_checkpoint:
+            global_step = self._resume(resume_from_checkpoint, trainables, tx)
+            epoch = global_step // steps_per_epoch
         t0 = time.time()
-        with seg_ctx:
-            while global_step < total_steps:
-                order = list(range(0, len(batches) - accum + 1, accum))
-                np.random.RandomState(args.seed + epoch).shuffle(order)
-                for start in order:
-                    if global_step >= total_steps:
-                        break
-                    t_step = time.perf_counter()
-                    group = batches[start:start + accum]
-                    tokens_seen += int(sum((b.segment_ids != 0).sum()
-                                           for b in group))
-                    n_items = torch.tensor(float(max(sum(
-                        int((b.labels[..., 1:] != -100).sum())
-                        for b in group), 1)), device=device)
-                    loss_sum = torch.zeros((), device=device)
-                    for b in group:
-                        micro = {k: torch.from_numpy(v).to(device)
-                                 for k, v in b.as_dict().items()}
-                        loss = model_loss_fn(model.params, model.lora, micro,
-                                             model.cfg, n_items=n_items,
-                                             remat=model.gc_mode)
-                        loss.backward()
-                        loss_sum += loss.detach()
-                    tx.step()
-                    tx.zero_grad()
-                    global_step += 1
-                    if global_step % args.logging_steps == 0:
-                        entry = {
-                            "loss": float(loss_sum),
-                            "learning_rate": float(schedule(global_step)),
-                            "step": global_step,
-                            "epoch": round(global_step / steps_per_epoch, 3),
-                        }
-                        losses.append(entry["loss"])
-                        self.state_log.append(entry)
-                        self.metrics_logger.log(entry)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    self.step_times.append(time.perf_counter() - t_step)
-                epoch += 1
-        for p in params:
-            p.requires_grad_(False)
+        try:
+            with seg_ctx:
+                while global_step < total_steps:
+                    order = list(range(0, len(batches) - accum + 1, accum))
+                    np.random.RandomState(args.seed + epoch).shuffle(order)
+                    for start in order:
+                        if global_step >= total_steps:
+                            break
+                        t_step = time.perf_counter()
+                        group = batches[start:start + accum]
+                        tokens_seen += int(sum((b.segment_ids != 0).sum()
+                                               for b in group))
+                        n_items = torch.tensor(float(max(sum(
+                            int((b.labels[..., 1:] != -100).sum())
+                            for b in group), 1)), device=device)
+                        loss_sum = torch.zeros((), device=device)
+                        for b in group:
+                            micro = {k: torch.from_numpy(v).to(device)
+                                     for k, v in b.as_dict().items()}
+                            loss = model_loss_fn(
+                                model.params, model.lora, micro, model.cfg,
+                                n_items=n_items, lm_head_trainable=full_ft,
+                                remat=model.gc_mode)
+                            loss.backward()
+                            loss_sum += loss.detach()
+                        tx.step()
+                        tx.zero_grad()
+                        global_step += 1
+                        if global_step % args.logging_steps == 0:
+                            entry = {
+                                "loss": float(loss_sum),
+                                "learning_rate": float(schedule(global_step)),
+                                "step": global_step,
+                                "epoch": round(global_step / steps_per_epoch,
+                                               3),
+                            }
+                            losses.append(entry["loss"])
+                            self.state_log.append(entry)
+                            self.metrics_logger.log(entry)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        self.step_times.append(time.perf_counter() - t_step)
+                        if args.save_steps and \
+                                global_step % args.save_steps == 0:
+                            self._save_checkpoint(trainables, global_step, tx)
+                    epoch += 1
+        finally:
+            for p in params:
+                p.requires_grad_(False)
         elapsed = time.time() - t0
         metrics = {"train_runtime": elapsed,
                    "train_tokens_per_second": tokens_seen / max(elapsed, 1e-9),

@@ -69,7 +69,16 @@ exits non-zero without printing a result:
                prefix dropped; K12/K13: a contraction block read with its
                neighbour's scale, the scales ignored, the last contraction
                block dropped, and for K13 the scale grid read
-               untransposed). For each
+               untransposed); then the text-diffusion path's non-causal
+               forms: K16 without causality (forward, dq, dk/dv) at (a)
+               LLaDA-8B's 32/32 heads of 128 on the padded [2, 2048]
+               batch, (b) Llama's 32/8, (c) a ragged T of 200, (d) the
+               generate canvas (B = 1, T = 128, one segment), and K18
+               without causality at (e) Gemma-2-9B's 16/8 heads of 256,
+               softcap 50, no window, each also rejecting the causal
+               kernels' results on the same inputs (library call: SDPA
+               with the segment mask for K16, compiled flex_attention
+               for K18). For each
                kernel, its bound (the least time the card could take) and
                the time of the one PyTorch call that computes the same
                function, where there is one (K18: the compiled
@@ -130,6 +139,15 @@ exits non-zero without printing a result:
                at 4b's limits; the logits of a 64-token prefill and 4
                decode steps the same way at phase 4's; K12/K13 launches
                exactly what 2 layers predict;
+  4j. LLaDA-8B diffusion train parity  LLaDA-8B cut to 2 layers at full
+               width, bidirectional, random bf16 weights, LoRA r=16 with a
+               random B: diffusion_loss, the logits of the noised batch and
+               every LoRA gradient of one padded batch with one mask drawn
+               on the CPU, the card (non-causal K16 only, K3/K4) against
+               the CPU in fp32 (loss 1e-2, logits 2e-2, worst leaf 5e-2);
+               the card forced causal must fail those limits;
+  4k. Gemma-2 diffusion train parity  the same at Gemma-2-9B's widths,
+               every layer global, both softcaps (non-causal K18 only);
   5. main path (serving) a random-init bf16 Llama-3.1-8B checkpoint (full
                width, all 32 layers) is written as index-sharded
                safetensors, loaded with FastLanguageModel.from_pretrained(
@@ -253,7 +271,21 @@ exits non-zero without printing a result:
                tokens/s, peak memory, MFU; evaluate, the adapter round
                trip, save_pretrained_merged raising NotImplementedError
                (no merge over FP8 in either package), a greedy generate of
-               16 tokens for 2 prompts (K12 at decode rows).
+               16 tokens for 2 prompts (K12 at decode rows);
+ 18. main path (text diffusion, LLaDA-8B; run after phase 15, once the
+               Llama checkpoint is removed) a random-init bf16 checkpoint of
+               LLaDA-8B's published config under llama keys (32 layers,
+               d 4,096, 32/32 heads of 128, FFN 12,288, vocabulary 126,464,
+               mask id 126,336): FastDiffusionModel.from_pretrained(bf16),
+               get_peft_model(r=16, seven projections, "unsloth"),
+               DiffusionTrainer for 4 steps of 2 x 2,048-token rows of
+               1,500 real tokens and more, lr 2e-4: losses finite, the
+               LoRA B leaves moved, launches a step exactly non-causal K16
+               forward 64, dq 32, dk/dv 32, K3 129, K4 64 and nothing
+               else; step time, real tokens/s, peak memory, MFU; then
+               diffusion_generate (32-token prompt, canvas 128, 16 steps,
+               greedy): the prompt kept, no mask id left, the schedule's
+               commits, 512 non-causal K16 forwards, ms a step.
 
 Then one JSON line with each kernel's launches on its main path (K5/K6:
 Whisper's training, phase 13), its largest error against its plain
@@ -270,10 +302,12 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train-gpt-oss-bf16
     python3 chip_smoke.py --profile-train-llama32
     python3 chip_smoke.py --profile-train-grpo
+    python3 chip_smoke.py --profile-train-diffusion
 
 run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8, or 9's
 NF4 part, or 9's bf16-expert part, or 10, each without evaluate, generate
-and the saves, or 12 without its layout comparison) only, then one more
+and the saves, or 12 without its layout comparison, or 18's training
+without its checks and generate) only, then one more
 training step under torch.profiler (for GRPO: the reference pass, the
 grouped loss, its backward and the update, on the last rollouts), and
 print that step's device time by kernel and by kernel family, the device
@@ -485,6 +519,31 @@ GEMMA_7B_CONFIG = {
     "vocab_size": 256000,
 }
 
+LLADA_8B_CONFIG = {
+    # GSAI-ML/LLaDA-8B-Base config.json and the LLaDA paper's table
+    # (published values: d_model 4096, n_layers 32, n_heads and n_kv_heads
+    # 32, mlp_hidden_size 12288, vocab_size 126464, mask_token_id 126336,
+    # rope_theta 500000, rms_norm_eps 1e-5, untied head) under HF llama
+    # keys: neither package reads LLaDA's OLMo keys and tensor names
+    "architectures": ["LLaDAModelLM"],
+    "attention_bias": False,
+    "head_dim": 128,
+    "hidden_act": "silu",
+    "hidden_size": 4096,
+    "intermediate_size": 12288,
+    "mask_token_id": 126336,
+    "max_position_embeddings": 4096,
+    "model_type": "llada",
+    "num_attention_heads": 32,
+    "num_hidden_layers": 32,
+    "num_key_value_heads": 32,
+    "rms_norm_eps": 1e-05,
+    "rope_theta": 500000.0,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "vocab_size": 126464,
+}
+
 # (name, N = out features, K = in features) of every Llama-3.1-8B projection
 PROJ_SHAPES = [("q/o", 4096, 4096), ("k/v", 1024, 4096),
                ("gate/up", 14336, 4096), ("down", 4096, 14336)]
@@ -502,6 +561,11 @@ GPT_OSS_STEPS = 4          # optimizer steps of gpt-oss-20b training (phase 9)
 GPT_OSS_BF16_STEPS = 3     # and of its default path, bf16 experts (phase 9)
 LLAMA32_STEPS = 4          # optimizer steps of the Llama-3.2 recipe (phase 10)
 QWEN25_STEPS = 4           # and of Qwen2.5-0.5B LoRA SFT (phase 11)
+DIFFUSION_STEPS = 4        # optimizer steps of LLaDA-8B training (phase 18)
+DIFFUSION_PROMPT = 32      # phase 18's generate: prompt tokens,
+DIFFUSION_CANVAS = 128     # canvas slots
+DIFFUSION_GEN_STEPS = 16   # and denoising steps
+DIFFUSION_PARITY = (200, 384)  # real tokens of the two rows of 4j and 4k
 GPT_OSS_ROWS = 4096        # packed row of phase 9 (bench.py's first rung)
 SINKS_ROWS = 384           # a gpt-oss row where the window of 128 is not
                            # narrow (4 bands do not fit): K18 at head dim 64
@@ -647,7 +711,7 @@ def attn_row_err(got, ref) -> float:
 
 
 def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
-                    softcap=None):
+                    softcap=None, causal=True):
     """The power of :func:`attn_row_err`: K16's results (or, with a
     ``window`` or ``softcap``, K18's) under faults a wrong kernel could
     make, held against ``want`` (the right out, dq, dk, dv). Faults: the
@@ -659,10 +723,12 @@ def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
     wrong online-softmax rescale in the late tiles would leave it; with a
     window, the plain versions with the window ignored; with a softcap,
     the plain backward with the softcap's 1 - tanh^2 factor left out of dS
-    (dq and dk only: the forward and dv do not use dS). Returns {fault:
-    {tensor: (row-wise error, whether the old check, max|d| <= 2e-2
-    max|ref|, passes it)}}; every row-wise error must exceed
-    ATTN_ROW_TOL."""
+    (dq and dk only: the forward and dv do not use dS). Without
+    causality (``causal=False``) every plain version takes the full mask,
+    and one more fault is the causal mask in its place: the slip of a
+    kernel that kept causality. Returns {fault: {tensor: (row-wise error,
+    whether the old check, max|d| <= 2e-2 max|ref|, passes it)}}; every
+    row-wise error must exceed ATTN_ROW_TOL."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
@@ -670,12 +736,14 @@ def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
 
     splash = window is not None or softcap is not None
 
-    def plain(fseg, fwindow=window):
+    def plain(fseg, fwindow=window, fcausal=causal):
         if not splash:
-            fout, flse = tfa.flash_attention_fwd_ref(q, k, v, fseg, scale)
+            fout, flse = tfa.flash_attention_fwd_ref(q, k, v, fseg, scale,
+                                                     fcausal)
             return (fout,) + tuple(tfa.flash_attention_bwd_ref(
-                q, k, v, fseg, fout, flse, dout, scale))
-        opts = dict(window=fwindow, softcap=softcap, scale=scale)
+                q, k, v, fseg, fout, flse, dout, scale, fcausal))
+        opts = dict(window=fwindow, softcap=softcap, scale=scale,
+                    causal=fcausal)
         fout, flse = tsa.splash_attention_fwd_ref(q, k, v, fseg, **opts)
         return (fout,) + tuple(tsa.splash_attention_bwd_ref(
             q, k, v, fseg, fout, flse, dout, **opts))
@@ -694,9 +762,11 @@ def attn_fault_errs(q, k, v, seg, dout, scale, want, window=None,
     faults["late half 10% off"] = late
     if window is not None:
         faults["window ignored"] = plain(seg, fwindow=None)
+    if not causal:
+        faults["causal mask"] = plain(seg, fcausal=True)
     if softcap is not None:
         faults["softcap derivative dropped"] = (None,) + _grads_without_dtanh(
-            q, k, v, seg, dout, window, softcap, scale) + (None,)
+            q, k, v, seg, dout, window, softcap, scale, causal) + (None,)
     res = {}
     for fault, gots in faults.items():
         res[fault] = {}
@@ -822,7 +892,8 @@ def prefix_fault_errs(q, k, v, seg, dout, scale, layout, want):
     return res
 
 
-def _grads_without_dtanh(q, k, v, seg, dout, window, softcap, scale):
+def _grads_without_dtanh(q, k, v, seg, dout, window, softcap, scale,
+                         causal=True):
     """(dq, dk) of capped attention as a kernel that leaves the softcap's
     1 - tanh^2 factor out of dS would give them: autograd through the
     capped scores with the cap's derivative taken as 1, one kv head (and
@@ -833,7 +904,7 @@ def _grads_without_dtanh(q, k, v, seg, dout, window, softcap, scale):
 
     b, t, hq, _ = q.shape
     n_rep = hq // k.shape[2]
-    mask = _mask(seg, b, t, q.device, window)[:, None]
+    mask = _mask(seg, b, t, q.device, window, causal)[:, None]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     for h in range(k.shape[2]):
@@ -1000,7 +1071,8 @@ def phase_kernels():
                      ("K14/K15, K17, K19", _gpt_oss_kernels),
                      ("head dims 64/256", _small_model_kernels),
                      ("K5/K6", _layer_norm_kernels),
-                     ("K12/K13", _fp8_kernels)):
+                     ("K12/K13", _fp8_kernels),
+                     ("K16/K18 non-causal", _diffusion_kernels)):
         t_part = time.perf_counter()
         for name, extra in fn(dev, g, flush).items():
             rows.setdefault(name, []).extend(extra)
@@ -1045,20 +1117,20 @@ def _autograd_ms(fn, inputs, grad_out, flush, runs=10):
 
 
 def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None,
-             prefix_layout=None):
+             prefix_layout=None, causal=True):
     """(forward ms, backward ms) of the one PyTorch call that computes the
     attention kernels' function: ``F.scaled_dot_product_attention`` with a
-    boolean mask (causal, equal segment ids and, where given, within the
-    window or the prefix layout's dense [T, T] mask) and
-    ``enable_gqa=True``, in its [B, H, T, D] layout. A yardstick only; the
-    port never calls it."""
+    boolean mask (causal unless ``causal`` is False, equal segment ids
+    and, where given, within the window or the prefix layout's dense
+    [T, T] mask; never ``is_causal``) and ``enable_gqa=True``, in its
+    [B, H, T, D] layout. A yardstick only; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
     from unsloth_tpu_torch.ops.splash_attention import _splash_mask
 
     mask = _splash_mask(segment_ids, q.shape[0], q.shape[1], q.device,
-                        window, prefix_layout)[:, None]
+                        window, prefix_layout, causal)[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa(a, b, c):
@@ -1074,16 +1146,17 @@ def _sdpa_ms(q, k, v, segment_ids, dout, flush, window=None,
 
 
 def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
-             scale):
+             scale, causal=True):
     """(forward ms, backward ms, row-wise error of its out against
     ``want``) of the one PyTorch call that computes the splash kernels'
     function: ``torch.compile``d ``flex_attention`` in its [B, H, T, D]
     layout, with the softcap c * tanh(s / c) as its ``score_mod``, a block
-    mask of causal, within the window and equal segment ids, and
-    ``enable_gqa=True``, on q * scale rounded to q's dtype (what the kernels
-    and the JAX wrapper score; the timed call includes that product). The
-    window and segment ids reach the mask as
-    tensors, so cases of one shape share a compiled kernel, and the inputs
+    mask of causal (unless ``causal`` is False), within the window and
+    equal segment ids, and ``enable_gqa=True``, on q * scale rounded to
+    q's dtype (what the kernels and the JAX wrapper score; the timed call
+    includes that product). The window, causality and segment ids reach
+    the mask as tensors, so cases of one shape share a compiled kernel, and
+    the inputs
     require a gradient throughout, so that one compiled graph serves the
     forward and the backward. A yardstick only; the port never calls it."""
     import torch
@@ -1093,9 +1166,11 @@ def _flex_ms(q, k, v, segment_ids, dout, flush, want, *, window, softcap,
     b, t = segment_ids.shape
     seg = segment_ids.to(torch.int32)
     win = torch.tensor(window or t, device=q.device)
+    every = torch.tensor(not causal, device=q.device)
 
     def mask_mod(bi, h, qi, ki):
-        return (ki <= qi) & (qi - ki < win) & (seg[bi, qi] == seg[bi, ki])
+        return (((ki <= qi) | every) & (qi - ki < win)
+                & (seg[bi, qi] == seg[bi, ki]))
 
     def score_mod(s, bi, h, qi, ki):
         return softcap * torch.tanh(s / softcap)
@@ -1792,6 +1867,220 @@ def _grpo_kernels(dev, g, flush):
                        True, library="sdpa", form="prefix",
                        prefix_layout=GRPO_LAYOUT)
     return {name: [row] for name, row in res.items()}
+
+
+#: the non-causal forms' kernel names (the kernels line's entries)
+FULL_FLASH = ("flash_attn_fwd_full", "flash_attn_dq_full",
+              "flash_attn_dkv_full")
+FULL_SPLASH = ("splash_attn_fwd_full", "splash_attn_dq_full",
+               "splash_attn_dkv_full")
+
+
+def _diffusion_kernels(dev, g, flush):
+    """The non-causal forms of the text-diffusion path (:func:`_noncausal_case`):
+    K16 without causality at (a) LLaDA-8B's 32/32 heads of 128 on the
+    training batch's shape, [2, 2048] with a row of 1,500 real tokens and
+    a pad tail and a full row, (b) Llama's 32/8 (GQA) on the same rows,
+    (c) a ragged T of 200 (a row of 150 real tokens, a full row), (d) the
+    generate canvas, B = 1, T = 128, one segment; and K18 without
+    causality at (e) Gemma-2-9B's 16/8 heads of 256, softcap 50, no
+    window, on the rows of (a). Library calls: SDPA with the segment mask
+    (no ``is_causal``; the same function) for K16, compiled flex_attention
+    with the softcap for K18 (its compiled graph is case (a) of the K18
+    part's, the causality a tensor of its mask)."""
+    import torch
+
+    llada, llama, gemma = LLADA_8B_CONFIG, LLAMA_31_8B_CONFIG, \
+        GEMMA2_9B_CONFIG
+    padded = torch.ones((2, UNPACKED_ROWS), dtype=torch.int32, device=dev)
+    padded[0, 1500:] = 0                      # pad_batch: 1 real, 0 pad
+    ragged = torch.ones((2, 200), dtype=torch.int32, device=dev)
+    ragged[0, 150:] = 0
+    canvas = torch.ones((1, DIFFUSION_CANVAS), dtype=torch.int32, device=dev)
+    rows = {}
+    for label, seg, c, softcap, form in (
+            ("(a) LLaDA-8B", padded, llada, None, None),
+            ("(b) GQA 32/8", padded, llama, None, "gqa"),
+            ("(c) ragged T=200", ragged, llada, None, "ragged"),
+            ("(d) generate canvas", canvas, llada, None, "canvas"),
+            ("(e) Gemma-2-9B", padded, gemma,
+             gemma["attn_logit_softcapping"], None)):
+        t_case = time.perf_counter()
+        hq, hkv = c["num_attention_heads"], c["num_key_value_heads"]
+        d = c["head_dim"]
+        scale = (c.get("query_pre_attn_scalar") or d) ** -0.5
+        res = _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale,
+                              softcap, form=form)
+        log(f"[time] 3 non-causal {label}: "
+            f"{time.perf_counter() - t_case:.1f} s")
+        for name, row in res.items():
+            rows.setdefault(name, []).append(row)
+    return rows
+
+
+def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
+                    form=None):
+    """K16 (``softcap`` None) or K18 (a softcap, no window) without
+    causality, forward, dq and dk/dv at one shape against the plain
+    versions with ``causal=False``: every position row by row
+    (:func:`attn_row_err`), lse within 1e-3, the backward fed the kernel
+    forward's (out, lse) on both sides. q and k are N(0, 4^2) where a
+    softcap bites, else N(0, 1). The check must reject the causal kernels'
+    results on the same inputs (the slip this form guards against: their
+    forward, then their dq and dk/dv from their own out and lse) and the
+    faults of :func:`attn_fault_errs` with ``causal=False``. Times: the
+    kernels (median of 10), the plain versions (once), and the library
+    call: SDPA with the segment mask for K16, compiled flex_attention with
+    the softcap for K18 (its out held to the plain version as the
+    kernel's). Bound: every (query, key) pair of a segment is valid, the
+    pad tail's among its own. Returns a row per kernel, named by
+    FULL_FLASH / FULL_SPLASH, tagged with ``form``."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    b, t = seg.shape
+    std = 4.0 if softcap else 1.0
+    q, k = ((torch.randn((b, t, h, d), generator=g, device=dev) * std)
+            .to(torch.bfloat16) for h in (hq, hkv))
+    v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (hkv, hq))
+    lo, hi = tfa.tile_segment_ranges(seg)
+    if softcap is None:
+        names, kind = FULL_FLASH, "flash attention (K16)"
+        fns = (tfa.flash_attention_fwd_full, tfa.flash_attention_dq_full,
+               tfa.flash_attention_dkv_full)
+        causal_fns = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                      tfa.flash_attention_dkv)
+        opts = copts = dict(scale=scale)
+
+        def plain_fwd():
+            return tfa.flash_attention_fwd_ref(q, k, v, seg, scale, False)
+
+        def plain_bwd():
+            return tfa.flash_attention_bwd_ref(q, k, v, seg, out, lse, dout,
+                                               scale, False)
+    else:
+        names, kind = FULL_SPLASH, "splash attention (K18)"
+        fns = (tsa.splash_attention_fwd_full, tsa.splash_attention_dq_full,
+               tsa.splash_attention_dkv_full)
+        causal_fns = (tsa.splash_attention_fwd, tsa.splash_attention_dq,
+                      tsa.splash_attention_dkv)
+        opts = dict(softcap=softcap, scale=scale)
+        copts = dict(opts, window=None)
+
+        def plain_fwd():
+            return tsa.splash_attention_fwd_ref(q, k, v, seg, causal=False,
+                                                **copts)
+
+        def plain_bwd():
+            return tsa.splash_attention_bwd_ref(q, k, v, seg, out, lse, dout,
+                                                causal=False, **copts)
+    out, lse = fns[0](q, k, v, seg, lo, hi, **opts)
+    dq, di = fns[1](q, k, v, seg, lo, hi, out, lse, dout, **opts)
+    dk, dv = fns[2](q, k, v, seg, lo, hi, lse, di, dout, **opts)
+    (rout, rlse), fwd_plain = once_ms(plain_fwd)
+    (rdq, rdk, rdv), bwd_plain = once_ms(plain_bwd)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"non-causal {kind} {label} {name} is not "
+                               "finite")
+        errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                      attn_row_err(got, ref))
+    lse_err = (lse - rlse).abs().max().item()
+    want = (rout, rdq, rdk, rdv)
+    faults = attn_fault_errs(q, k, v, seg, dout, scale, want,
+                             softcap=softcap, causal=False)
+    cout, clse = causal_fns[0](q, k, v, seg, lo, hi, **copts)
+    cdq, cdi = causal_fns[1](q, k, v, seg, lo, hi, cout, clse, dout, **copts)
+    cdk, cdv = causal_fns[2](q, k, v, seg, lo, hi, clse, cdi, dout, **copts)
+    faults["causal kernels"] = {
+        name: (attn_row_err(got, ref), bool(
+            (got.float() - ref.float()).abs().max()
+            <= 2e-2 * ref.float().abs().max()))
+        for name, got, ref in zip(("out", "dq", "dk", "dv"),
+                                  (cout, cdq, cdk, cdv), want)}
+    del cout, clse, cdq, cdi, cdk, cdv, rdq, rdk, rdv, want
+    if softcap is None:
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, seg, dout, flush, causal=False)
+        lib_err, lib_name = None, ("SDPA with the segment mask, no "
+                                   "is_causal (the same function)")
+    else:
+        lib_fwd, lib_bwd, lib_err = _flex_ms(
+            q, k, v, seg, dout, flush, rout, window=None, softcap=softcap,
+            scale=scale, causal=False)
+        lib_name = ("compiled flex_attention, softcap score_mod, segment "
+                    "block mask (the same function)")
+    del rout
+    fwd_ms = time_ms(lambda: fns[0](q, k, v, seg, lo, hi, **opts), runs=10,
+                     flush=flush)
+    dq_ms = time_ms(lambda: fns[1](q, k, v, seg, lo, hi, out, lse, dout,
+                                   **opts), runs=10, flush=flush)
+    dkv_ms = time_ms(lambda: fns[2](q, k, v, seg, lo, hi, lse, di, dout,
+                                    **opts), runs=10, flush=flush)
+    # every pair of a segment is valid: the work these inputs need
+    counts = [int((seg[i] == s_).sum()) for i in range(b)
+              for s_ in torch.unique(seg[i]).tolist()]
+    pairs = sum(x * x for x in counts)
+    fb = bound(4 * d * hq * pairs, nbytes(q, k, v, seg, out, lse))
+    qb = bound(6 * d * hq * pairs, nbytes(q, k, v, seg, out, dout, lse, q,
+                                          di))
+    kb = bound(8 * d * hq * pairs, nbytes(q, k, v, seg, dout, lse, di, k, v))
+    lens = [int((seg[i] != 0).sum()) for i in range(b)]
+    shape = (f"{label}: B={b} T={t} Hq={hq} Hkv={hkv} D={d} bf16 scale="
+             f"{scale:.5f} softcap={softcap} causal=False, rows of "
+             + " and ".join(f"{n} (+ {t - n} pad)" if n < t else f"{n}"
+                            for n in lens) + " real tokens")
+    common = dict(shape=shape, form=form, library=lib_name)
+    res = {
+        names[0]: dict(common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+                       plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+                       library_ms=lib_fwd),
+        names[1]: dict(common, err=errs["dq"][0], ms=dq_ms,
+                       plain_ms=bwd_plain, bound_ms=qb[0], bound_by=qb[1],
+                       library_ms=lib_bwd),
+        names[2]: dict(common, err=max(errs["dk"][0], errs["dv"][0]),
+                       ms=dkv_ms, plain_ms=bwd_plain, bound_ms=kb[0],
+                       bound_by=kb[1], library_ms=lib_bwd)}
+    log(f"[kernels] non-causal {kind} {shape}, every position: " +
+        ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
+                  for n_, (e, r) in errs.items())
+        + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
+        "(tol 1e-3)")
+    for fault, fres in faults.items():
+        log(f"[kernels] non-causal check against a fault, {fault}: " +
+            ", ".join(f"{n_} row-wise {r:.3e} (old max-scaled check "
+                      f"{'passes' if old else 'fails'})"
+                      for n_, (r, old) in fres.items()))
+    lib_text = "" if lib_err is None else \
+        f", its out row-wise {lib_err:.3e} from the plain version"
+    log(f"[kernels] non-causal {label} fwd kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_plain:.4f} ms library {lib_fwd:.4f} ms bound {fb[0]:.4f} ms "
+        f"({fb[1]}, {100 * fb[0] / fwd_ms:.1f}%); dq kernel {dq_ms:.4f} ms "
+        f"bound {qb[0]:.4f} ms ({100 * qb[0] / dq_ms:.1f}%); dk/dv kernel "
+        f"{dkv_ms:.4f} ms bound {kb[0]:.4f} ms ({100 * kb[0] / dkv_ms:.1f}%)"
+        f"; plain backward {bwd_plain:.4f} ms, library backward (dq, dk, "
+        f"dv) {lib_bwd:.4f} ms ({lib_name}{lib_text}); {pairs} valid pairs "
+        "per head")
+    bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
+    if bad or not lse_err <= 1e-3:
+        raise RuntimeError(f"non-causal {kind} {label} disagrees in {bad}: "
+                           f"{errs}, lse {lse_err}")
+    if lib_err is not None and not lib_err <= ATTN_ROW_TOL:
+        raise RuntimeError(f"flex_attention, the library time of {label}, "
+                           f"computes another function: {lib_err}")
+    missed = [(f, n_) for f, fres in faults.items()
+              for n_, (r, _) in fres.items() if not r > ATTN_ROW_TOL]
+    if missed:
+        raise RuntimeError(f"the non-causal attention check lets faults "
+                           f"through: {missed}")
+    del q, k, v, dout, out, lse, dq, dk, dv, di
+    torch.cuda.empty_cache()
+    return res
 
 
 def _small_model_kernels(dev, g, flush):
@@ -5235,6 +5524,332 @@ def phase_qwen25_full_ft(path, tmp):
                           seconds=dict(a=t_a, b=t_b, c=t_c, d=t_d))
 
 
+# ---------------------------------------------------------------------------
+# text diffusion: phases 4j, 4k (2 layers, card against CPU) and 18 (LLaDA)
+# ---------------------------------------------------------------------------
+
+#: every attention kernel; a path lists those of it that must launch
+ATTENTION_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                     "packed_attn_fwd", "packed_attn_bwd", "splash_attn_fwd",
+                     "splash_attn_dq", "splash_attn_dkv", "flash_sinks_fwd",
+                     "flash_sinks_dq", "flash_sinks_dkv") + FULL_FLASH \
+    + FULL_SPLASH
+
+
+def phase_train_parity_diffusion(hf=LLADA_8B_CONFIG, label="LLaDA-8B",
+                                 names=FULL_FLASH, seed=SEED + 31,
+                                 all_global=False):
+    """Text diffusion on the 2-layer cut of ``hf`` at full width, made
+    bidirectional (``causal=False``, the mask id from the config or the
+    last vocabulary id, as FastDiffusionModel resolves it; with
+    ``all_global`` the sliding window dropped, every layer global), random
+    bf16 weights and LoRA r=16 on the seven projections with a random B:
+    diffusion_loss of one padded batch of two rows of DIFFUSION_PARITY
+    real tokens, its every LoRA gradient, and the logits of the noised
+    batch, on the card in bf16 (the non-causal attention kernels ``names``,
+    K3/K4, the chunked selective log-softmax) and on the CPU through the
+    plain versions in fp32, from the same weights and one mask drawn on
+    the CPU (``noise=``). Limits: loss within 1e-2 relative, logits within
+    2e-2 relative L2, the worst LoRA leaf within 5e-2 relative L2. The
+    same run with the card's config forced causal must fail them (the
+    distances are printed). On the card's non-causal run each kernel of
+    ``names`` launches exactly twice (one a layer; remat off) and no other
+    attention kernel. Returns the distances and the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import pad_batch
+    from unsloth_tpu_torch.models.config import ModelConfig
+    from unsloth_tpu_torch.models.decoder import logits_fn
+    from unsloth_tpu_torch.models.diffusion import (diffusion_loss,
+                                                    diffusion_mask)
+    from unsloth_tpu_torch.models.params import (init_lora_tree,
+                                                 init_params, tree_to)
+
+    cfg = ModelConfig.from_hf_config(dict(hf, num_hidden_layers=2))
+    mid = hf.get("mask_token_id", cfg.vocab_size - 1)
+    cfg = dataclasses.replace(cfg, causal=False, mask_token_id=mid,
+                              **({"sliding_window": None} if all_global
+                                 else {}))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    lora = _random_b(init_lora_tree(cfg, gen, r=16, alpha=16.0), gen)
+    rng = np.random.default_rng(seed)
+    sub = rng.choice(cfg.vocab_size - 1, SUB_VOCAB, replace=False)
+    rows = [{"input_ids": sub[rng.integers(0, SUB_VOCAB, n)].tolist()}
+            for n in DIFFUSION_PARITY]
+    batch_np = {k: v for k, v in pad_batch(
+        rows, max(DIFFUSION_PARITY)).as_dict().items()
+        if k in ("input_ids", "segment_ids", "positions")}
+    ids = torch.from_numpy(batch_np["input_ids"]).long()
+    noise = diffusion_mask(torch.Generator().manual_seed(seed), ids, mid)
+    kernels = _kernel_fns()
+    results = {}
+    for run, dev, c in (("card", DEVICE, cfg), ("cpu", "cpu", cfg),
+                        ("card forced causal", DEVICE,
+                         dataclasses.replace(cfg, causal=True))):
+        p = params if dev == DEVICE else _tree_f32(tree_to(params, "cpu"))
+        lo = lora if dev == DEVICE else tree_to(lora, "cpu")
+        leaves = _lora_leaves(lo)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        nz = tuple(x.to(dev) for x in noise)
+        before = {n: fn.launches for n, fn in kernels.items()}
+        t0 = time.perf_counter()
+        loss = diffusion_loss(p, lo, batch, c, noise=nz, remat=False)
+        loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        launches = {n: fn.launches - before[n] for n, fn in kernels.items()}
+        with torch.no_grad():
+            logits = logits_fn(p, lo, nz[0], c, remat=False).float().cpu()
+        results[run] = (float(loss.detach()), {n: t.grad.float().cpu()
+                                               for n, t in leaves},
+                        logits, time.perf_counter() - t0, launches)
+        for _, t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    l_cpu, g_cpu, z_cpu, t_cpu, _ = results["cpu"]
+    dist = {}
+    for run in ("card", "card forced causal"):
+        l_, g_, z_, t_, launches = results[run]
+        (worst, w_rel), median, _ = _grad_distance(g_, g_cpu)
+        dist[run] = dict(loss_rel=abs(l_ - l_cpu) / abs(l_cpu),
+                         logits_rel=_rel(z_, z_cpu), grad_rel_max=w_rel)
+        log(f"[train parity] 2-layer {label} diffusion, bf16 + LoRA r=16, "
+            f"padded [2, {max(DIFFUSION_PARITY)}] ({DIFFUSION_PARITY[0]} and "
+            f"{DIFFUSION_PARITY[1]} real tokens), {run}: loss {l_:.6f} cpu "
+            f"(fp32) {l_cpu:.6f} (rel {dist[run]['loss_rel']:.2e}, tol "
+            f"1e-2); logits rel L2 {dist[run]['logits_rel']:.3e} (tol 2e-2); "
+            f"{len(g_cpu)} LoRA grads, worst rel L2 {w_rel:.3e} ({worst}), "
+            f"median {median:.3e} (tol 5e-2); card {t_:.1f} s, cpu "
+            f"{t_cpu:.1f} s; launches "
+            f"{ {n: k for n, k in launches.items() if k} }")
+
+    def within(d):
+        return (d["loss_rel"] <= 1e-2 and d["logits_rel"] <= 2e-2
+                and d["grad_rel_max"] <= 5e-2)
+
+    l_card, g_card, _, _, launches = results["card"]
+    finite = np.isfinite(l_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values())
+    if not (finite and within(dist["card"])):
+        raise RuntimeError(f"card and CPU diffusion loss/logits/grads "
+                           f"disagree on {label}: {dist['card']}")
+    if within(dist["card forced causal"]):
+        raise RuntimeError(f"the {label} diffusion limits let the causal "
+                           f"mask through: {dist['card forced causal']}")
+    want = {n: 2 if n in names else 0 for n in ATTENTION_KERNELS}
+    wrong = {n: (launches[n], k) for n, k in want.items() if launches[n] != k}
+    if wrong or not (launches["rms_norm"] and launches["rms_norm_bwd"]):
+        raise RuntimeError(f"{label} diffusion launches (got, want): {wrong}"
+                           f"; {launches}")
+    del params, lora, results
+    torch.cuda.empty_cache()
+    return dict(dist, launches=launches)
+
+
+def _diffusion_texts(rng, n):
+    """Synthetic Alpaca-format texts of 1,500 bytes and more: the
+    instruction marker, 64-448 random printable bytes, a newline, the
+    response marker, 1,420-1,536 random printable bytes. With the byte
+    tokenizer they make rows of 1,518-2,019 tokens (every one real)."""
+    import numpy as np
+
+    def printable(lo, hi):
+        size = int(rng.integers(lo, hi + 1))
+        return bytes(rng.integers(32, 127, size).astype(np.uint8)).decode()
+
+    return [{"text": INSTRUCTION + printable(64, 448) + "\n" + RESPONSE
+             + printable(1420, 1536)} for _ in range(n)]
+
+
+def diffusion_launches(n_layers):
+    """The launches a step of phase 18 needs: under the offloaded remat the
+    non-causal K16 forward twice a layer (the forward and its recompute),
+    dq and dk/dv once; K3 on each layer's two norms twice and the final
+    norm once; K4 on every norm but layer 0's input norm (nothing before
+    it takes a gradient under LoRA)."""
+    return {"flash_attn_fwd_full": 2 * n_layers,
+            "flash_attn_dq_full": n_layers, "flash_attn_dkv_full": n_layers,
+            "rms_norm": 4 * n_layers + 1, "rms_norm_bwd": 2 * n_layers}
+
+
+def phase_llada(path, profile=False):
+    """Text diffusion at full width and depth from the LLaDA-8B checkpoint
+    at ``path`` (:func:`write_checkpoint` of LLADA_8B_CONFIG), every
+    kernel's launch count and the peak memory reset first:
+    FastDiffusionModel.from_pretrained(dtype=bf16) (a bf16 base, JAX's
+    default), get_peft_model(r=16, lora_alpha=16, seven projections,
+    "unsloth" checkpointing), DiffusionTrainer for DIFFUSION_STEPS steps
+    of 2 rows x 2,048 tokens over Alpaca-format texts of 1,500 real tokens
+    and more (:func:`_diffusion_texts`), learning rate 2e-4: losses finite,
+    the LoRA B leaves moved, launches a step exactly
+    :func:`diffusion_launches` and no other attention, NF4 or CE kernel;
+    step time, real tokens/s, peak memory, MFU at 4N per real token (N the
+    matmul weights; the non-causal attention's FLOPs, twice causal's, are
+    not counted). Then diffusion_generate from a 32-token prompt over a
+    128-slot canvas in 16 steps at temperature 0: the prompt kept, no mask
+    id left, at least floor(96 (k + 1) / 16) slots committed after step k
+    (the canvas each step's forward reads, recorded), 16 x 32 launches of
+    the non-causal K16 forward and no other attention kernel; ms a
+    denoising step. With ``profile``, one more training step under
+    torch.profiler instead of the checks after training. Returns (the
+    training launches, the generate launches, the metrics)."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch import FastDiffusionModel, SFTConfig
+    from unsloth_tpu_torch.models import diffusion as tdiff
+    from unsloth_tpu_torch.trainer.diffusion import DiffusionTrainer
+
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = FastDiffusionModel.from_pretrained(
+        path, max_seq_length=UNPACKED_ROWS, dtype=torch.bfloat16,
+        device=DEVICE)
+    model = FastDiffusionModel.get_peft_model(
+        model, r=16, lora_alpha=16,
+        target_modules=["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj"],
+        use_gradient_checkpointing="unsloth")
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    log(f"[llada] FastDiffusionModel.from_pretrained(bf16) + get_peft_model("
+        f"r=16) in {time.perf_counter() - t0:.1f} s, causal={cfg.causal}, "
+        f"mask_token_id={cfg.mask_token_id}, q is "
+        f"{type(model.params['layers'][0]['q']).__name__} "
+        f"{getattr(model.params['layers'][0]['q'], 'dtype', '')}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    if cfg.causal or cfg.mask_token_id != LLADA_8B_CONFIG["mask_token_id"] \
+            or not isinstance(model.params["layers"][0]["q"], torch.Tensor):
+        raise RuntimeError("FastDiffusionModel did not give a bidirectional "
+                           "bf16 LLaDA with its mask id")
+    args = SFTConfig(output_dir=os.path.join(os.path.dirname(path),
+                                             "llada_out"),
+                     max_seq_length=UNPACKED_ROWS,
+                     per_device_train_batch_size=2,
+                     max_steps=DIFFUSION_STEPS, learning_rate=2e-4,
+                     warmup_steps=0, logging_steps=1, report_to="none")
+    trainer = DiffusionTrainer(
+        model, tokenizer=ByteTokenizer(), args=args,
+        train_dataset=_diffusion_texts(np.random.default_rng(SEED + 33),
+                                       2 * DIFFUSION_STEPS))
+    batches = trainer.prepare_batches()
+    real = [int((b.segment_ids != 0).sum()) for b in batches]
+    lengths = [int(n) for b in batches for n in (b.segment_ids != 0).sum(1)]
+    log(f"[llada] {len(batches)} padded batches of [2, {UNPACKED_ROWS}]: "
+        f"rows of {min(lengths)}-{max(lengths)} real tokens")
+    if min(lengths) < 1500 or len(batches) != DIFFUSION_STEPS:
+        raise RuntimeError(f"phase 18's rows are not 2 x 2,048 of 1,500 "
+                           f"real tokens and more: {lengths}")
+    if profile:
+        _profile_train_step(trainer, batches[:1])
+        return None, None, None
+    b_before = [lw.b.detach().clone() for layer in model.lora["layers"]
+                for lw in layer.values()]
+    result = trainer.train()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in trainer.state_log]
+    times = trainer.step_times
+    moved = sum(not torch.equal(b0, lw.b) for b0, lw in zip(
+        b_before, (lw for layer in model.lora["layers"]
+                   for lw in layer.values())))
+    del b_before
+    rate = sum(real[1:]) / sum(times[1:])
+    n_matmul, _ = _matmul_weights(cfg)
+    mfu = 4 * n_matmul * rate / PEAK_BF16
+    expect = diffusion_launches(cfg.num_layers)
+    log(f"[llada] losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}; steady step (median of steps 2-"
+        f"{DIFFUSION_STEPS}) {statistics.median(times[1:]):.3f} s, "
+        f"{rate:.1f} real tokens/s over steps 2-{DIFFUSION_STEPS}; peak "
+        f"memory allocated {peak / 1e9:.2f} GB; MFU {100 * mfu:.2f}% (4N per "
+        f"real token, N = {n_matmul / 1e9:.3f}e9 matmul weights, 989 "
+        f"TFLOP/s; the non-causal attention, twice causal's FLOPs, not "
+        f"counted); {moved} of {7 * cfg.num_layers} LoRA B "
+        f"leaves moved")
+    log(f"[llada] launches on the path: "
+        f"{ {n: c for n, c in launches.items() if c} }; per step "
+        f"{ {n: launches[n] / DIFFUSION_STEPS for n in expect} } (expected "
+        f"{expect})")
+    if len(losses) != DIFFUSION_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"LLaDA diffusion losses not finite: {losses}")
+    if moved != 7 * cfg.num_layers:
+        raise RuntimeError(f"only {moved} LoRA B leaves moved")
+    _check_launched(launches, list(expect), "LLaDA diffusion training",
+                    expect, DIFFUSION_STEPS)
+    stray = {n: c for n, c in launches.items() if c and n not in expect}
+    if stray:
+        raise RuntimeError(f"kernels off the LLaDA diffusion path ran: "
+                           f"{stray}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    prompt = [int(x) for x in np.random.default_rng(SEED + 34).integers(
+        32, 127, DIFFUSION_PROMPT)]
+    seen = []
+    inner = tdiff.logits_fn
+
+    def recorder(params, lora, ids, c, **kw):
+        seen.append(ids[0].clone())
+        return inner(params, lora, ids, c, **kw)
+
+    before = {name: fn.launches for name, fn in kernels.items()}
+    tdiff.logits_fn = recorder
+    try:
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter()
+        out = tdiff.diffusion_generate(
+            model, prompt, canvas_length=DIFFUSION_CANVAS,
+            steps=DIFFUSION_GEN_STEPS)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t_gen
+    finally:
+        tdiff.logits_fn = inner
+    gen_launches = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    mid = cfg.mask_token_id
+    after = [x.tolist() for x in seen[1:]] + [out]
+    n_open = DIFFUSION_CANVAS - DIFFUSION_PROMPT
+    committed = [sum(t_ != mid for t_ in c[DIFFUSION_PROMPT:]) for c in after]
+    floor = [n_open * (k + 1) // DIFFUSION_GEN_STEPS
+             for k in range(DIFFUSION_GEN_STEPS)]
+    gen_ms = 1e3 * t_gen / DIFFUSION_GEN_STEPS
+    log(f"[llada] diffusion_generate: {DIFFUSION_PROMPT}-token prompt, "
+        f"canvas {DIFFUSION_CANVAS}, {DIFFUSION_GEN_STEPS} steps in "
+        f"{t_gen:.2f} s ({gen_ms:.2f} ms a denoising step); committed after "
+        f"each step {committed} (at least {floor}); launches "
+        f"{ {n: c for n, c in gen_launches.items() if c} }")
+    want_gen = DIFFUSION_GEN_STEPS * cfg.num_layers
+    if out[:DIFFUSION_PROMPT] != prompt or mid in out:
+        raise RuntimeError("diffusion_generate lost the prompt or left a "
+                           "mask id")
+    if len(seen) != DIFFUSION_GEN_STEPS or any(
+            c < f for c, f in zip(committed, floor)):
+        raise RuntimeError(f"the unmasking schedule fell behind: "
+                           f"{committed} < {floor}")
+    stray = {n: c for n, c in gen_launches.items()
+             if c and n in ATTENTION_KERNELS and n != "flash_attn_fwd_full"}
+    if gen_launches["flash_attn_fwd_full"] != want_gen or stray:
+        raise RuntimeError(f"diffusion_generate launched "
+                           f"{gen_launches['flash_attn_fwd_full']} non-causal "
+                           f"K16 forwards (want {want_gen}) and {stray}")
+    metrics = dict(losses=losses, step_s=statistics.median(times[1:]),
+                   real_tokens_per_s=rate, peak_bytes=peak, mfu=mfu,
+                   runtime_s=result.metrics["train_runtime"],
+                   generate_ms_per_step=gen_ms)
+    del model
+    torch.cuda.empty_cache()
+    return launches, gen_launches, metrics
+
+
 def _profile_train_step(trainer, rows, top=25):
     """One more optimizer step of ``trainer`` (fresh AdamW state, the same
     ``rows``) under ``torch.profiler``. From the chrome trace's device
@@ -6338,9 +6953,15 @@ def _kernel_fns():
             "flash_attn_fwd": tfa.flash_attention_fwd,
             "flash_attn_dq": tfa.flash_attention_dq,
             "flash_attn_dkv": tfa.flash_attention_dkv,
+            "flash_attn_fwd_full": tfa.flash_attention_fwd_full,
+            "flash_attn_dq_full": tfa.flash_attention_dq_full,
+            "flash_attn_dkv_full": tfa.flash_attention_dkv_full,
             "splash_attn_fwd": tsa.splash_attention_fwd,
             "splash_attn_dq": tsa.splash_attention_dq,
             "splash_attn_dkv": tsa.splash_attention_dkv,
+            "splash_attn_fwd_full": tsa.splash_attention_fwd_full,
+            "splash_attn_dq_full": tsa.splash_attention_dq_full,
+            "splash_attn_dkv_full": tsa.splash_attention_dkv_full,
             "nf4_gmm": tng.nf4_gmm, "nf4_gmm_dx": tng.nf4_gmm_dx,
             "flash_sinks_fwd": tfs.flash_sinks_fwd,
             "flash_sinks_dq": tfs.flash_sinks_dq,
@@ -6394,6 +7015,12 @@ def _kernels_line(rows, by_path):
     small-model paths as entries of their own."""
     k16 = "unsloth_tpu/ops/attention.py:415 (bundled flash_attention "
     k18 = "unsloth_tpu/ops/attention.py:231 (_splash_kernel: bundled splash "
+    k16_full = ("unsloth_tpu/ops/attention.py:415 (_tpu_flash with causal="
+                "False, from attention :689-692 and :697-699: bundled "
+                "flash_attention ")
+    k18_full = ("unsloth_tpu/ops/attention.py:231 (_splash_kernel with "
+                "FullMask :253, through _tpu_splash :260, from attention "
+                ":693-696: bundled splash ")
     picks = {
         "nf4_matmul": ("nf4_matmul.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
@@ -6458,6 +7085,20 @@ def _kernels_line(rows, by_path):
         "fp8_matmul_dx": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
                           "(_bwd_kernel, launched by _bwd_pallas :177, "
                           "pallas_call :192)", "gate/up M=4096"),
+        "flash_attn_fwd_full": ("flash_attention.cu", k16_full + "forward)",
+                                "(a) LLaDA-8B"),
+        "flash_attn_dq_full": ("flash_attention.cu",
+                               k16_full + "_flash_attention_bwd_dq)",
+                               "(a) LLaDA-8B"),
+        "flash_attn_dkv_full": ("flash_attention.cu",
+                                k16_full + "_flash_attention_bwd_dkv)",
+                                "(a) LLaDA-8B"),
+        "splash_attn_fwd_full": ("splash_attention.cu", k18_full + "forward)",
+                                 "(e) Gemma-2-9B"),
+        "splash_attn_dq_full": ("splash_attention.cu", k18_full + "dq)",
+                                "(e) Gemma-2-9B"),
+        "splash_attn_dkv_full": ("splash_attention.cu", k18_full + "dk/dv)",
+                                 "(e) Gemma-2-9B"),
     }
     # the main path each kernel's "launches" comes from
     main_path = {"packed_attn_fwd": "packed_training",
@@ -6474,7 +7115,10 @@ def _kernels_line(rows, by_path):
                  "layer_norm_fwd": "whisper_training",
                  "layer_norm_bwd": "whisper_training",
                  "fp8_matmul_fwd": "fp8_training",
-                 "fp8_matmul_dx": "fp8_training"}
+                 "fp8_matmul_dx": "fp8_training",
+                 **{k_: "diffusion_training" for k_ in FULL_FLASH},
+                 **{k_: "gemma2_diffusion_2layer_parity"
+                    for k_ in FULL_SPLASH}}
     # the head-dim forms of this slice: (kernel, form, shape in phase 3,
     # the path whose launches are all of this form)
     forms = {
@@ -6502,6 +7146,9 @@ def _kernels_line(rows, by_path):
                                   "GRPO prefix layout", "grpo_training"),
         "splash_attn_dkv_prefix": ("splash_attn_dkv", "prefix",
                                    "GRPO prefix layout", "grpo_training"),
+        "flash_attn_fwd_full_canvas": ("flash_attn_fwd_full", "canvas",
+                                       "(d) generate canvas",
+                                       "diffusion_generate"),
     }
     # the TPU kernel a form replaces, where it is not the base form's
     form_replaces = {"prefix": "unsloth_tpu/ops/attention.py:246-247 "
@@ -6578,12 +7225,14 @@ def main() -> int:
             GPT_OSS_20B_CONFIG),
         ("--profile-train-llama32",): (phase_llama32_sft, LLAMA_32_1B_CONFIG,
                                        True),
-        ("--profile-train-grpo",): (phase_grpo, LLAMA_31_8B_CONFIG)}
+        ("--profile-train-grpo",): (phase_grpo, LLAMA_31_8B_CONFIG),
+        ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG)}
     if tuple(sys.argv[1:]) not in profiles:
         print(f"usage: {sys.argv[0]} [--profile-train | "
               "--profile-train-unpacked | --profile-train-gemma2 | "
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
-              "--profile-train-llama32 | --profile-train-grpo]",
+              "--profile-train-llama32 | --profile-train-grpo | "
+              "--profile-train-diffusion]",
               file=sys.stderr)
         return 2
     profile = profiles[tuple(sys.argv[1:])]
@@ -6628,6 +7277,13 @@ def main() -> int:
         fp8_parity = timed("4h FP8 train parity", phase_train_parity_fp8)
         full_ft_parity = timed("4i gpt-oss full-FT train parity",
                                phase_train_parity_gpt_oss_full)
+        diffusion_parity = timed("4j LLaDA-8B diffusion train parity",
+                                 phase_train_parity_diffusion)
+        gemma2_diffusion_parity = timed(
+            "4k Gemma-2 diffusion train parity",
+            phase_train_parity_diffusion, GEMMA2_9B_CONFIG,
+            label="Gemma-2-9B (every layer global)", names=FULL_SPLASH,
+            seed=SEED + 32, all_global=True)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -6641,6 +7297,11 @@ def main() -> int:
         fp8_launches_, fp8_gen_launches, _ = timed(
             "15 FP8 SFT", phase_fp8_sft, llama, unpacked_launches)
         shutil.rmtree(llama)   # the disk holds one checkpoint at a time
+        llada = timed("18 write LLaDA-8B", _write_model,
+                      os.path.join(tmp, "llada_8b"), LLADA_8B_CONFIG)
+        diffusion_launches_, diffusion_gen_launches, _ = timed(
+            "18 LLaDA-8B diffusion", phase_llada, llada)
+        shutil.rmtree(llada)
         gemma2 = timed("8 write Gemma-2", _write_model,
                        os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG)
         gemma2_launches, _ = timed("8 Gemma-2 SFT", phase_gemma2_sft, gemma2)
@@ -6692,7 +7353,12 @@ def main() -> int:
                "fp8_2layer_parity": fp8_parity["launches"],
                "gpt_oss_full_ft_training": gpt_oss_ft_launches,
                "gpt_oss_full_ft_2layer_parity": full_ft_parity["launches"],
-               "qwen25_full_ft_training": qwen_ft_launches}
+               "qwen25_full_ft_training": qwen_ft_launches,
+               "diffusion_training": diffusion_launches_,
+               "diffusion_generate": diffusion_gen_launches,
+               "diffusion_2layer_parity": diffusion_parity["launches"],
+               "gemma2_diffusion_2layer_parity":
+                   gemma2_diffusion_parity["launches"]}
     log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))

@@ -911,3 +911,96 @@ def test_fp8_matmul_refuses_f32(dev):
     q = quantize_fp8_block(torch.randn((128, 256), device=dev))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         fp8_matmul_fwd(torch.randn((2, 256), device=dev), q)
+
+
+# ---------------------------------------------------------------------------
+# text diffusion: the non-causal forms of K16 and K18
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,d,hq,hkv,softcap", [
+    (256, 128, 8, 8, None),     # LLaDA-8B's heads: no GQA
+    (200, 128, 8, 2, None),     # a ragged T, Llama's 4 query heads a kv head
+    (200, 64, 14, 2, None),
+    (256, 256, 4, 4, None),
+    (300, 256, 4, 2, 50.0),     # K18: Gemma-2's head dim and softcap
+    (300, 128, 8, 2, 50.0),
+])
+def test_noncausal_attention_kernels_match_plain(dev, t, d, hq, hkv, softcap):
+    """K16 (no softcap) and K18 (softcap) without causality: forward (out,
+    lse), dq and dk/dv against the plain fp32 versions with causal=False
+    on the same bf16 inputs, a padded and a packed row, every position row
+    by row (``chip_smoke.attn_row_err``), lse within 1e-3, one launch of
+    each non-causal wrapper and none of the causal ones; the causal
+    kernels' out on the same inputs fails the same check."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    seg = _splash_segments(t, dev)
+    lo, hi = tfa.tile_segment_ranges(seg)
+    scale = d ** -0.5
+    if softcap is None:
+        fns = (tfa.flash_attention_fwd_full, tfa.flash_attention_dq_full,
+               tfa.flash_attention_dkv_full)
+        causal_fns = (tfa.flash_attention_fwd, tfa.flash_attention_dq,
+                      tfa.flash_attention_dkv)
+        opts, ref_opts = dict(scale=scale), dict(scale=scale)
+        fwd_ref = lambda c: tfa.flash_attention_fwd_ref(  # noqa: E731
+            q, k, v, seg, scale, c)
+        bwd_ref = lambda o, l_: tfa.flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, seg, o, l_, dout, scale, False)
+        causal_out = lambda: tfa.flash_attention_fwd(  # noqa: E731
+            q, k, v, seg, lo, hi, scale=scale)[0]
+    else:
+        fns = (tsa.splash_attention_fwd_full, tsa.splash_attention_dq_full,
+               tsa.splash_attention_dkv_full)
+        causal_fns = (tsa.splash_attention_fwd, tsa.splash_attention_dq,
+                      tsa.splash_attention_dkv)
+        opts = dict(softcap=softcap, scale=scale)
+        ref_opts = dict(window=None, softcap=softcap, scale=scale)
+        fwd_ref = lambda c: tsa.splash_attention_fwd_ref(  # noqa: E731
+            q, k, v, seg, causal=c, **ref_opts)
+        bwd_ref = lambda o, l_: tsa.splash_attention_bwd_ref(  # noqa: E731
+            q, k, v, seg, o, l_, dout, causal=False, **ref_opts)
+        causal_out = lambda: tsa.splash_attention_fwd(  # noqa: E731
+            q, k, v, seg, lo, hi, window=None, **opts)[0]
+    before = [f.launches for f in fns + causal_fns]
+    out, lse = fns[0](q, k, v, seg, lo, hi, **opts)
+    dq, di = fns[1](q, k, v, seg, lo, hi, out, lse, dout, **opts)
+    dk, dv = fns[2](q, k, v, seg, lo, hi, lse, di, dout, **opts)
+    rout, rlse = fwd_ref(False)
+    rdq, rdk, rdv = bwd_ref(out, lse)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns + causal_fns, before)] == \
+        [1, 1, 1, 0, 0, 0]
+    assert (lse - rlse).abs().max() <= 1e-3
+    for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got).all()
+        assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+    assert attn_row_err(causal_out(), rout) > ATTN_ROW_TOL
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_attention_dispatch_noncausal_on_cuda(dev, softcap):
+    """causal=False self-attention reaches the non-causal K16 (no softcap)
+    or K18 (softcap) wrappers, forward and backward; a window without
+    causality raises."""
+    from unsloth_tpu_torch.ops.attention import attention
+
+    q = torch.randn((2, 128, 4, 128), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn((2, 128, 2, 128), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    mod, names = ((tfa, ("flash_attention_fwd_full", "flash_attention_dq_full",
+                         "flash_attention_dkv_full")) if softcap is None else
+                  (tsa, ("splash_attention_fwd_full",
+                         "splash_attention_dq_full",
+                         "splash_attention_dkv_full")))
+    before = [getattr(mod, n).launches for n in names]
+    out = attention(q, k, k, causal=False, segment_ids=_splash_segments(
+        128, dev), softcap=softcap)
+    out.float().sum().backward()
+    assert [getattr(mod, n).launches - b for n, b in zip(names, before)] == \
+        [1, 1, 1]
+    assert torch.isfinite(q.grad).all() and torch.isfinite(k.grad).all()
+    with pytest.raises(NotImplementedError, match="attention_ref"):
+        attention(q, k, k, causal=False, window=32)

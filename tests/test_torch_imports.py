@@ -1,8 +1,8 @@
 """The PyTorch port imports no JAX: importing the package and every one of
 its submodules (the serving and the training slices alike, the MoE ops,
 the MXFP4 and bnb-4bit loaders, the GRPO trainer, the speech modules and
-the FP8 ops, GaLore, the training checkpoints and the model-name mapper
-among them) in a fresh interpreter
+the FP8 ops, GaLore, the training checkpoints, the model-name mapper and
+the text-diffusion model and trainer among them) in a fresh interpreter
 leaves "jax" out of sys.modules."""
 
 import os
@@ -30,7 +30,8 @@ TRAINING = ("data.packing", "ops.attention", "ops.cross_entropy",
             "trainer.grpo", "inference.generate", "models.whisper",
             "trainer.whisper", "data.audio", "data.tts", "ops.fp8",
             "ops.fp8_matmul", "optimizers.galore", "trainer.checkpoint",
-            "models.mapper", "models.catalog_data")
+            "models.mapper", "models.catalog_data", "models.diffusion",
+            "trainer.diffusion")
 
 
 def test_port_imports_no_jax():

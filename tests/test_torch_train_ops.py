@@ -243,15 +243,17 @@ def test_attention_ref_matches_jax():
 
 @pytest.mark.parametrize("route,kw,kernel", [
     ("window", dict(window=8, causal=False), "K18"),
-    ("softcap", dict(softcap=30.0, causal=False), "K18"),
+    ("softcap", dict(softcap=30.0, window=8, causal=False), "K18"),
     ("sinks", dict(sinks=torch.zeros(4, device="meta")), "K17"),
 ])
 def test_unported_device_routes_raise(route, kw, kernel):
     """Off the CPU every route without a kernel raises and names the TPU
-    kernel it waits for (a meta tensor stands in for a CUDA one): sinks
+    kernel it would take (a meta tensor stands in for a CUDA one): sinks
     at a head dim K17 is not built for (it takes gpt-oss's 64, these
-    tensors have 128), and a window or softcap without causality (K18's
-    non-causal form; the causal one is ported)."""
+    tensors have 128), and a window without causality, softcapped or not,
+    which the JAX package reads two ways (K18's causal LocalMask against
+    attention_ref's i - j < window). A softcap alone without causality
+    reaches K18's non-causal form (tests/test_torch_diffusion.py)."""
     q = torch.empty((1, 128, 4, 128), device="meta")
     k = torch.empty((1, 128, 2, 128), device="meta")
     seg = torch.empty((1, 128), dtype=torch.int32, device="meta")

@@ -24,13 +24,18 @@ param trained, MoE experts through the expert weight-gradient kernel
 ``ops/gmm.py:tgmm``), with GaLore / Q-GaLore (``optimizers/galore.py``),
 ``modules_to_save`` with ``embedding_learning_rate``, and checkpoint saves
 and resume (``trainer/checkpoint.py``); hub names resolved through the
-model-name mapper (``models/mapper.py``) and the HF cache.
+model-name mapper (``models/mapper.py``) and the HF cache; text diffusion
+(:class:`FastDiffusionModel`, ``models/diffusion.py``: LLaDA's masked
+denoising loss and iterative unmasking over the bidirectional decoder;
+``trainer/diffusion.py:DiffusionTrainer``), through the non-causal forms
+of the attention kernels.
 """
 
 __version__ = "0.1.0"
 
 
 from .models.loader import FastLanguageModel, LanguageModel  # noqa: E402,F401
+from .models.diffusion import FastDiffusionModel  # noqa: E402,F401
 from .inference.generate import SamplingParams, generate  # noqa: E402,F401
 from .inference.server import InferenceServer  # noqa: E402,F401
 from .trainer.sft import (SFTConfig, SFTTrainer,  # noqa: E402,F401

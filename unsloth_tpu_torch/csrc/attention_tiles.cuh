@@ -1,21 +1,24 @@
 // Device code shared by the two flash attention sources of this package:
 // packed_attention.cu (segment-block-sparse, packed rows; TPU kernels of
 // unsloth_tpu/ops/packed_attention.py) and flash_attention.cu (the whole
-// causal range, unpacked or padded rows; the bundled Pallas flash kernels
-// that unsloth_tpu/ops/attention.py:_tpu_flash calls).
+// range, causal or not, unpacked or padded rows; the bundled Pallas flash
+// kernels that unsloth_tpu/ops/attention.py:_tpu_flash calls).
 //
 // Each source instantiates the three kernels below with a head dim D and a
 // *range policy*, which alone decides which (query tile, kv tile) pairs a
-// block visits:
+// block visits and whether the mask is causal:
+//   kCausal                           compile-time: the mask holds j <= i;
 //   kv_begin(b, iq) .. kv_end(b, iq)  kv tiles of query tile iq;
-//   q_end(b, j)                       last query tile of kv tile j
-//                                     (the first is j: causality);
+//   q_begin(b, j) .. q_end(b, j)      query tiles of kv tile j (a causal
+//                                     policy begins at j);
 //   skip(b, iq, j)                    a visited pair that provably holds
 //                                     no valid (query, key) pair.
-// Within a visited pair the mask is the same for both: token i attends to
-// token j iff seg[i] == seg[j] and j <= i. So a policy may only narrow the
-// visited pairs to those that can hold a valid one; the results at every
-// position it covers are those of the full mask.
+// Within a visited pair the mask is the same for every policy of one
+// kCausal: token i attends to token j iff seg[i] == seg[j] and, when
+// kCausal, j <= i. So a policy may only narrow the visited pairs to those
+// that can hold a valid one; the results at every position it covers are
+// those of the full mask. With kCausal true the in-tile test compiles to
+// what it was before the flag existed.
 //
 // Rounding points are the caller's, as kernel arguments: q is multiplied
 // by `scale_q` in fp32 and rounded to bf16 when `prescale_q` is set (the
@@ -270,8 +273,8 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int qs = qseg[r];
       const float s0 = Ss[r * kLds + lane] * a.s_scale;
       const float s1 = Ss[r * kLds + lane + 32] * a.s_scale;
-      const bool v0 = kseg[lane] == qs && j * kBlk + lane <= qpos;
-      const bool v1 = kseg[lane + 32] == qs && j * kBlk + lane + 32 <= qpos;
+      const bool v0 = kseg[lane] == qs && (!Range::kCausal || j * kBlk + lane <= qpos);
+      const bool v1 = kseg[lane + 32] == qs && (!Range::kCausal || j * kBlk + lane + 32 <= qpos);
       const float mx = warp_max(fmaxf(v0 ? s0 : kNegInf, v1 ? s1 : kNegInf));
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, mx);
@@ -409,7 +412,7 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = lane + 32 * half;
-        const bool valid = kseg[c] == qseg[r] && j * kBlk + c <= qpos;
+        const bool valid = kseg[c] == qseg[r] && (!Range::kCausal || j * kBlk + c <= qpos);
         const float p = valid ? expf(Ss[r * kLds + c] * a.s_scale - lse_s[r]) : 0.0f;
         dSs[r * kLdp + c] = __float2bfloat16(p * (dPs[r * kLds + c] - di_s[r]) * a.ds_scale);
       }
@@ -434,7 +437,7 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // dk, dv: grid (ceil(T/64), Hkv, B); loops over the Hq/Hkv query heads of
-// the kv head and the query tiles j .. q_end(j).
+// the kv head and the query tiles q_begin(j) .. q_end(j).
 // ---------------------------------------------------------------------------
 template <int D, class Range>
 __global__ void __launch_bounds__(Tiles<D>::kThreads)
@@ -478,7 +481,7 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int last = range.q_end(b, j);
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
-    for (int iq = j; iq <= last; ++iq) {
+    for (int iq = range.q_begin(b, j); iq <= last; ++iq) {
       if (range.skip(b, iq, j)) continue;  // uniform over the block
       __syncthreads();  // the previous tile's readers are done
       load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
@@ -501,7 +504,7 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int c = lane + 32 * half;
-          const bool valid = kseg[c] == qseg[r] && j * kBlk + c <= qpos;
+          const bool valid = kseg[c] == qseg[r] && (!Range::kCausal || j * kBlk + c <= qpos);
           const float p = valid ? expf(Ss[r * kLds + c] * a.s_scale - lse_s[r]) : 0.0f;
           Ps[r * kLdp + c] = __float2bfloat16(p);
           dSs[r * kLdp + c] = __float2bfloat16(p * (dPs[r * kLds + c] - di_s[r]) * a.ds_scale);

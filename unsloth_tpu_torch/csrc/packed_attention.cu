@@ -33,8 +33,10 @@ struct PackedRange {
   const int* kv_lo;  // [B, T/64]
   const int* q_hi;   // [B, T/64]
   int nq, n_kv;
+  static constexpr bool kCausal = true;
   __device__ int kv_begin(int b, int iq) const { return kv_lo[(size_t)b * nq + iq]; }
   __device__ int kv_end(int b, int iq) const { return min(kv_begin(b, iq) + n_kv - 1, iq); }
+  __device__ int q_begin(int, int j) const { return j; }
   __device__ int q_end(int b, int j) const {
     return min(j + n_kv - 1, q_hi[(size_t)b * nq + j]);
   }

@@ -1,22 +1,30 @@
-// Splash attention: causal self-attention with a sliding window, a logit
-// softcap, segment ids, GQA and GRPO's shared-prefix layout, bf16, head
-// dim 64, 128 or 256 (K18).
+// Splash attention: self-attention with a sliding window, a logit softcap,
+// segment ids, GQA and GRPO's shared-prefix layout, causal, or without
+// causality (softcap and segment ids only), bf16, head dim 64, 128 or 256
+// (K18).
 //
 // Replaces the bundled Pallas TPU splash kernels that
 // unsloth_tpu/ops/attention.py:_tpu_splash builds in _splash_kernel
 // (jax.experimental.pallas.ops.tpu.splash_attention, a CausalMask, a
-// LocalMask(window_size=(window - 1, 0)) or, under prefix_attention, a
-// NumpyMask(prefix_mask_array(P, G, L)) per kv head):
-//   splash_fwd_kernel<D>  <- the forward kernel (out and an fp32
-//                            lse = m + log l)
-//   splash_dq_kernel<D>   <- the dq kernel (dq; also di = sum(dout * out),
-//                            which the JAX wrapper forms outside)
-//   splash_dkv_kernel<D>  <- the dk/dv kernel
+// LocalMask(window_size=(window - 1, 0)), under prefix_attention a
+// NumpyMask(prefix_mask_array(P, G, L)), or, for causal=False without a
+// window, a FullMask, per kv head):
+//   splash_fwd_kernel<D, kCausal>  <- the forward kernel (out and an fp32
+//                                     lse = m + log l)
+//   splash_dq_kernel<D, kCausal>   <- the dq kernel (dq; also
+//                                     di = sum(dout * out), which the JAX
+//                                     wrapper forms outside)
+//   splash_dkv_kernel<D, kCausal>  <- the dk/dv kernel
 // Semantics, as _tpu_splash feeds the kernel: q is multiplied by `scale`
 // and rounded to bf16 first; s = q_scaled . k in fp32; with a softcap c,
 // s' = c * tanh(s / c); token i attends to token j iff j <= i,
-// i - j < window (when a window is given) and seg[i] == seg[j]. Every
-// output is defined (a token always sees itself). In the backward
+// i - j < window (when a window is given) and seg[i] == seg[j]; with
+// `causal` off (no window, no layout: the wrapper refuses both) iff
+// seg[i] == seg[j]. `causal` is the entry points' runtime argument, which
+// picks an instantiation compiled for it (kCausal): as a runtime test in
+// the kernels it slowed the causal forms on an H100, and compiled in,
+// the causal kernels are the code they were before the flag existed.
+// Every output is defined (a token always sees itself). In the backward
 // dS' = P * (dP - di), and with a softcap dS = dS' * (1 - tanh^2(s / c));
 // dq = scale * (dS @ K), dk = dS^T @ q_scaled, dv = P^T @ dO. The window
 // (<= 0: none) and the softcap (<= 0: none) are runtime arguments, and so
@@ -37,9 +45,10 @@
 // What bounds it on an H100: tensor-core work over the visited tile pairs
 // (4 D flops per valid (query, key) pair forward, 10 D backward). A query
 // tile visits the kv tiles from the first one its window reaches up to its
-// own (causality); a visited pair is skipped when the segment-id ranges of
-// its two tiles do not overlap. With a prefix layout a query tile visits
-// the kv tiles that overlap the prompt [0, P) and those from the tile that
+// own (causality), or every kv tile when causal is off; a visited pair is
+// skipped when the segment-id ranges of its two tiles do not overlap.
+// With a prefix layout a query tile visits the kv tiles that overlap the
+// prompt [0, P) and those from the tile that
 // holds the start of its first query's region up to its own, and a kv tile
 // of a completion region is visited only by the query tiles up to the end
 // of its last key's region: what PrefixGrouper saves is these skipped
@@ -159,10 +168,27 @@ __device__ __forceinline__ int kv_first(const SplashArgs& a, int iq) {
   return lo <= 0 ? 0 : (int)(lo / kBlk);
 }
 
-// Last query tile that sees kv tile j: the reach of the window of its last
-// key, or the end; with a prefix layout, the end for a tile that overlaps
-// the prompt, else the tile of the end of its last key's region.
+// Last kv tile that query tile iq can see: its own, or the last one when
+// causal is off.
+template <bool kCausal>
+__device__ __forceinline__ int kv_last(const SplashArgs& a, int iq) {
+  return kCausal ? iq : a.nq - 1;
+}
+
+// First query tile that sees kv tile j: j itself, or the first one when
+// causal is off.
+template <bool kCausal>
+__device__ __forceinline__ int q_first(int j) {
+  return kCausal ? j : 0;
+}
+
+// Last query tile that sees kv tile j: the end when causal is off; else
+// the reach of the window of its last key, or the end; with a prefix
+// layout, the end for a tile that overlaps the prompt, else the tile of
+// the end of its last key's region.
+template <bool kCausal>
 __device__ __forceinline__ int q_last(const SplashArgs& a, int j) {
+  if (!kCausal) return a.nq - 1;
   if (a.G > 0 && (long long)j * kBlk >= a.P) {
     const int klast = j * kBlk + kBlk - 1 < a.T - 1 ? j * kBlk + kBlk - 1 : a.T - 1;
     const int end = a.P + (region(a, klast) + 1) * a.L - 1;
@@ -179,8 +205,9 @@ __device__ __forceinline__ bool disjoint(const SplashArgs& a, int b, int iq, int
   return a.seg_max[row + j] < a.seg_min[row + iq] || a.seg_min[row + j] > a.seg_max[row + iq];
 }
 
+template <bool kCausal>
 __device__ __forceinline__ bool attends(const SplashArgs& a, int qs, int ks, int qpos, int kpos) {
-  if (ks != qs || kpos > qpos) return false;
+  if (ks != qs || (kCausal && kpos > qpos)) return false;
   if (a.G > 0) return kpos < a.P || region(a, qpos) == region(a, kpos);
   return a.window <= 0 || qpos - kpos < a.window;
 }
@@ -279,7 +306,7 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, float* stage,
 // ---------------------------------------------------------------------------
 // forward: grid (nq, Hq, B)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ seg,
@@ -311,7 +338,7 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   for (int i = threadIdx.x; i < kBlk * C::kLdo; i += C::kThreads) Os[i] = 0.0f;
 
-  for (int j = kv_first(a, iq); j <= iq; ++j) {
+  for (int j = kv_first(a, iq); j <= kv_last<kCausal>(a, iq); ++j) {
     if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
     count_visit(a);
     __syncthreads();  // the previous tile's readers are done
@@ -333,7 +360,7 @@ splash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float x = Ss[r * kLds + c];
         if (a.softcap > 0.0f) x = a.softcap * tanhf(x * a.inv_softcap);
         s[half] = x;
-        ok[half] = attends(a, qseg[r], kseg[c], qpos, j * kBlk + c);
+        ok[half] = attends<kCausal>(a, qseg[r], kseg[c], qpos, j * kBlk + c);
       }
       const float mx = warp_max(fmaxf(ok[0] ? s[0] : kNegInf, ok[1] ? s[1] : kNegInf));
       const float m_old = m_s[r];
@@ -417,7 +444,7 @@ __device__ __forceinline__ void prob_and_ds(const SplashArgs& a, bool ok, float 
 // ---------------------------------------------------------------------------
 // dq (and di = sum(dout * out)): grid (nq, Hq, B)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
@@ -470,7 +497,7 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int nf = 0; nf < C::kSlice / 16; ++nf) wmma::fill_fragment(acc[nf], 0.0f);
 
-  for (int j = kv_first(a, iq); j <= iq; ++j) {
+  for (int j = kv_first(a, iq); j <= kv_last<kCausal>(a, iq); ++j) {
     if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
     count_visit(a);
     __syncthreads();
@@ -488,7 +515,7 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = lane + 32 * half;
-        const bool ok = attends(a, qseg[r], kseg[c], qpos, j * kBlk + c);
+        const bool ok = attends<kCausal>(a, qseg[r], kseg[c], qpos, j * kBlk + c);
         float p, ds;
         prob_and_ds(a, ok, Ss[r * kLds + c], dPs[r * kLds + c], lse_s[r], di_s[r], &p, &ds);
         dSs[r * kLdp + c] = __float2bfloat16(ds);
@@ -513,9 +540,9 @@ splash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // dk, dv: grid (nq, Hkv, B); loops over the Hq/Hkv query heads of the kv
-// head and the query tiles j .. q_last(j).
+// head and the query tiles q_first(j) .. q_last(j).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ seg,
@@ -554,10 +581,10 @@ splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::fill_fragment(dv_acc[nf], 0.0f);
   }
 
-  const int last = q_last(a, j);
+  const int last = q_last<kCausal>(a, j);
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
-    for (int iq = j; iq <= last; ++iq) {
+    for (int iq = q_first<kCausal>(j); iq <= last; ++iq) {
       if (layout_skips(a, iq, j) || disjoint(a, b, iq, j)) continue;  // uniform over the block
       count_visit(a);
       __syncthreads();  // the previous tile's readers are done
@@ -581,7 +608,7 @@ splash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int c = lane + 32 * half;
-          const bool ok = attends(a, qseg[r], kseg[c], qpos, j * kBlk + c);
+          const bool ok = attends<kCausal>(a, qseg[r], kseg[c], qpos, j * kBlk + c);
           float p, ds;
           prob_and_ds(a, ok, Ss[r * kLds + c], dPs[r * kLds + c], lse_s[r], di_s[r], &p, &ds);
           Ps[r * kLdp + c] = __float2bfloat16(p);
@@ -639,24 +666,28 @@ SplashArgs splash_args(int P, int G, int L, int T, int Hq, int Hkv, float scale,
                     static_cast<unsigned long long*>(visits)};
 }
 
-template <int D>
+template <int D, bool kCausal>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
                void* lse, int B, SplashArgs a, cudaStream_t stream) {
-  int e = set_smem(reinterpret_cast<const void*>(splash_fwd_kernel<D>), Cfg<D>::kFwdSmem);
+  int e = set_smem(reinterpret_cast<const void*>(splash_fwd_kernel<D, kCausal>),
+                   Cfg<D>::kFwdSmem);
   if (e) return e;
-  splash_fwd_kernel<D><<<dim3(a.nq, a.Hq, B), Cfg<D>::kThreads, Cfg<D>::kFwdSmem, stream>>>(
+  splash_fwd_kernel<D, kCausal>
+      <<<dim3(a.nq, a.Hq, B), Cfg<D>::kThreads, Cfg<D>::kFwdSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<bf16*>(out), static_cast<float*>(lse), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kCausal>
 int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* out,
               const void* dout, const void* lse, void* di, void* dq, int B, SplashArgs a,
               cudaStream_t stream) {
-  int e = set_smem(reinterpret_cast<const void*>(splash_dq_kernel<D>), Cfg<D>::kDqSmem);
+  int e = set_smem(reinterpret_cast<const void*>(splash_dq_kernel<D, kCausal>),
+                   Cfg<D>::kDqSmem);
   if (e) return e;
-  splash_dq_kernel<D><<<dim3(a.nq, a.Hq, B), Cfg<D>::kThreads, Cfg<D>::kDqSmem, stream>>>(
+  splash_dq_kernel<D, kCausal>
+      <<<dim3(a.nq, a.Hq, B), Cfg<D>::kThreads, Cfg<D>::kDqSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(out),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<float*>(di),
@@ -664,13 +695,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* seg, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kCausal>
 int launch_dkv(const void* q, const void* k, const void* v, const void* seg, const void* dout,
                const void* lse, const void* di, void* dk, void* dv, int B, SplashArgs a,
                cudaStream_t stream) {
-  int e = set_smem(reinterpret_cast<const void*>(splash_dkv_kernel<D>), Cfg<D>::kDkvSmem);
+  int e = set_smem(reinterpret_cast<const void*>(splash_dkv_kernel<D, kCausal>),
+                   Cfg<D>::kDkvSmem);
   if (e) return e;
-  splash_dkv_kernel<D><<<dim3(a.nq, a.Hkv, B), Cfg<D>::kThreads, Cfg<D>::kDkvSmem, stream>>>(
+  splash_dkv_kernel<D, kCausal>
+      <<<dim3(a.nq, a.Hkv, B), Cfg<D>::kThreads, Cfg<D>::kDkvSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<bf16*>(dk),
@@ -685,20 +718,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* seg, con
 // their per-64-token-tile min / max [B, ceil(T/64)] int32. D is 64, 128 or 256,
 // Hq % Hkv == 0, pointers 16-byte aligned (the wrapper checks); window <= 0
 // and softcap <= 0 mean none; the prefix layout (P, G, L) has T = P + G L,
-// L > 0 and no window, and G = 0 means none. visits is null or a uint64 to
-// which each kernel adds the (query tile, kv tile, query head) triples it
-// visits. Returns the CUDA error code (0 if none).
+// L > 0 and no window, and G = 0 means none; with causal false there is no
+// window and no layout. visits is null or a uint64 to which each kernel
+// adds the (query tile, kv tile, query head) triples it visits. Returns the
+// CUDA error code (0 if none).
 extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* seg, const void* seg_min,
                                        const void* seg_max, void* out, void* lse, int P, int G,
                                        int L, int B, int T, int Hq, int Hkv, int D, float scale,
-                                       int window, float softcap, void* visits, void* stream) {
+                                       int window, float softcap, bool causal, void* visits,
+                                       void* stream) {
   const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
                                    visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_fwd<64>(q, k, v, seg, out, lse, B, a, s);
-  if (D == 128) return launch_fwd<128>(q, k, v, seg, out, lse, B, a, s);
-  if (D == 256) return launch_fwd<256>(q, k, v, seg, out, lse, B, a, s);
+  if (D == 64)
+    return causal ? launch_fwd<64, true>(q, k, v, seg, out, lse, B, a, s)
+                  : launch_fwd<64, false>(q, k, v, seg, out, lse, B, a, s);
+  if (D == 128)
+    return causal ? launch_fwd<128, true>(q, k, v, seg, out, lse, B, a, s)
+                  : launch_fwd<128, false>(q, k, v, seg, out, lse, B, a, s);
+  if (D == 256)
+    return causal ? launch_fwd<256, true>(q, k, v, seg, out, lse, B, a, s)
+                  : launch_fwd<256, false>(q, k, v, seg, out, lse, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -709,13 +750,19 @@ extern "C" int unsloth_splash_attn_dq(const void* q, const void* k, const void* 
                                       const void* out, const void* dout, const void* lse,
                                       void* di, void* dq, int P, int G, int L, int B, int T,
                                       int Hq, int Hkv, int D, float scale, int window,
-                                      float softcap, void* visits, void* stream) {
+                                      float softcap, bool causal, void* visits, void* stream) {
   const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
                                    visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dq<64>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
-  if (D == 128) return launch_dq<128>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
-  if (D == 256) return launch_dq<256>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
+  if (D == 64)
+    return causal ? launch_dq<64, true>(q, k, v, seg, out, dout, lse, di, dq, B, a, s)
+                  : launch_dq<64, false>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
+  if (D == 128)
+    return causal ? launch_dq<128, true>(q, k, v, seg, out, dout, lse, di, dq, B, a, s)
+                  : launch_dq<128, false>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
+  if (D == 256)
+    return causal ? launch_dq<256, true>(q, k, v, seg, out, dout, lse, di, dq, B, a, s)
+                  : launch_dq<256, false>(q, k, v, seg, out, dout, lse, di, dq, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -726,12 +773,19 @@ extern "C" int unsloth_splash_attn_dkv(const void* q, const void* k, const void*
                                        const void* seg_max, const void* dout, const void* lse,
                                        const void* di, void* dk, void* dv, int P, int G, int L,
                                        int B, int T, int Hq, int Hkv, int D, float scale,
-                                       int window, float softcap, void* visits, void* stream) {
+                                       int window, float softcap, bool causal, void* visits,
+                                       void* stream) {
   const SplashArgs a = splash_args(P, G, L, T, Hq, Hkv, scale, window, softcap, seg_min, seg_max,
                                    visits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dkv<64>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
-  if (D == 128) return launch_dkv<128>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
-  if (D == 256) return launch_dkv<256>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
+  if (D == 64)
+    return causal ? launch_dkv<64, true>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s)
+                  : launch_dkv<64, false>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
+  if (D == 128)
+    return causal ? launch_dkv<128, true>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s)
+                  : launch_dkv<128, false>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
+  if (D == 256)
+    return causal ? launch_dkv<256, true>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s)
+                  : launch_dkv<256, false>(q, k, v, seg, dout, lse, di, dk, dv, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

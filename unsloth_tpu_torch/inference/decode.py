@@ -104,6 +104,11 @@ def forward_with_cache(params: Dict[str, Any], lora: Optional[Dict[str, Any]],
     exclude, such as those holding left-pad tokens. Returns the final-norm
     hidden states [B, T, D] and the advanced cache."""
     check_supported(cfg)
+    if not cfg.causal:
+        raise NotImplementedError(
+            "KV-cache decoding is causal; a bidirectional (text-diffusion, "
+            "cfg.causal=False) model generates with models/diffusion.py:"
+            "diffusion_generate, which reruns the whole canvas each step")
     b, t = input_ids.shape
     dev = input_ids.device
     lora_layers = (lora or {}).get("layers")

@@ -128,28 +128,31 @@ def library() -> ctypes.CDLL:
                                                 p, p, p, i, i, i, i, i, f, f,
                                                 p]
         lib.unsloth_packed_attn_bwd.restype = i
+        b = ctypes.c_bool
+        # pointers, B, T, Hq, Hkv, D, scale, causal, stream
         lib.unsloth_flash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                               i, i, i, f, p]
+                                               i, i, i, f, b, p]
         lib.unsloth_flash_attn_fwd.restype = i
         lib.unsloth_flash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                              p, i, i, i, i, i, f, p]
+                                              p, i, i, i, i, i, f, b, p]
         lib.unsloth_flash_attn_dq.restype = i
         lib.unsloth_flash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               p, i, i, i, i, i, f, p]
+                                               p, i, i, i, i, i, f, b, p]
         lib.unsloth_flash_attn_dkv.restype = i
         # pointers, the prefix layout (P, G, L), B, T, Hq, Hkv, D, scale,
-        # window, softcap, the visited tile-pair counter (or null), stream
+        # window, softcap, causal, the visited tile-pair counter (or null),
+        # stream
         lib.unsloth_splash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                                i, i, i, i, i, i, f, i, f, p,
-                                                p]
+                                                i, i, i, i, i, i, f, i, f, b,
+                                                p, p]
         lib.unsloth_splash_attn_fwd.restype = i
         lib.unsloth_splash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                p, i, i, i, i, i, i, i, i, f, i,
-                                               f, p, p]
+                                               f, b, p, p]
         lib.unsloth_splash_attn_dq.restype = i
         lib.unsloth_splash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, i, i, i, i, f, i,
-                                                f, p, p]
+                                                f, b, p, p]
         lib.unsloth_splash_attn_dkv.restype = i
         lib.unsloth_ce_fwd.argtypes = [p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_fwd.restype = i

@@ -31,9 +31,12 @@ Parameter tree schema (the JAX package's, HF-shaped [out, in] weights):
   }
 
 Only the llama-family decoder is ported, dense or with MoE layers routed
-by softmax-top-k without a shared expert; :func:`check_supported` raises
-``NotImplementedError`` naming the first ``ModelConfig`` knob of any other
-architecture.
+by softmax-top-k without a shared expert, causal or, for the
+text-diffusion models (``models/diffusion.py``), bidirectional
+(``cfg.causal=False``: every layer attends over the whole row, through
+the non-causal forms of the attention kernels); :func:`check_supported`
+raises ``NotImplementedError`` naming the first ``ModelConfig`` knob of
+any other architecture.
 """
 
 from __future__ import annotations
@@ -85,7 +88,6 @@ _UNPORTED = (
     ("parallel_residual", lambda c: c.parallel_residual),
     ("post_norm_only", lambda c: c.post_norm_only),
     ("attention_chunk_size", lambda c: c.attention_chunk_size is not None),
-    ("causal", lambda c: not c.causal),
     ("layer_pattern", lambda c: any(
         k not in ("global", "sliding") for k in (c.layer_pattern or ()))),
 )

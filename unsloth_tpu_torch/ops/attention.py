@@ -27,23 +27,27 @@ carries no value).
   otherwise, on CUDA, the window or softcap kernel (K18, head dim 64, 128
   or 256) plus a chunked logsumexp and the exact rescale
   out * sigmoid(lse - sink); on the CPU, :func:`attention_ref`. Without
-  sinks a CPU tensor takes :func:`attention_ref`; a CUDA tensor, causal,
-  with k/v over the same T (``Hq % Hkv == 0``), launches a kernel: with a
-  sliding window or a logit softcap, the splash kernels
+  sinks a CPU tensor takes :func:`attention_ref`; a CUDA tensor with k/v
+  over the same T (``Hq % Hkv == 0``) launches a kernel, in JAX's order:
+  with a sliding window or a logit softcap, the splash kernels
   (``ops/splash_attention.py``, K18), padded and packed rows alike, head
-  dim 64, 128 or 256; otherwise, with a declared segment bound
+  dim 64, 128 or 256, causal, or non-causal (``FullMask``) with a softcap
+  and no window; otherwise, causal, with a declared segment bound
   (:class:`packed_segment_bound`, set by the trainer when it packs),
   segment ids, ``T % 64 == 0`` and head dim 128, the packed flash kernels
   (``ops/packed_attention.py``, K9-K11); otherwise the flash kernels over
-  the whole causal range (``ops/flash_attention.py``, K16: any T, head dim
-  64, 128 or 256): unpacked or padded rows, no segment ids, and packed
-  rows at head dim 64 or 256 (JAX's packed kernel takes ``Dh % 128 ==
-  0``; the port's is built for 128 only, and K16 computes the same
-  function over more tile pairs). Every other CUDA route raises
-  ``NotImplementedError`` naming the TPU kernel it still needs: the
-  non-causal forms of K16 and K18 (no causality, or cross attention); a
-  head dim the kernels are not built for raises in the kernel wrapper.
-  There is no fallback from the card to the plain version.
+  the whole range, causal or not (``ops/flash_attention.py``, K16: any T,
+  head dim 64, 128 or 256): unpacked or padded rows, no segment ids,
+  packed rows at head dim 64 or 256 (JAX's packed kernel takes ``Dh % 128
+  == 0``; the port's is built for 128 only, and K16 computes the same
+  function over more tile pairs), and the text-diffusion models'
+  bidirectional rows. On CUDA, a window without causality raises
+  ``NotImplementedError``: the JAX package reads it two ways (its
+  ``_splash_kernel`` builds the causal ``LocalMask``, its ``attention_ref``
+  masks only i - j < window), and the CPU keeps ``attention_ref``'s
+  reading; cross attention raises too; a head dim the kernels are not
+  built for raises in the kernel wrapper. There is no fallback from the
+  card to the plain version.
 """
 
 from __future__ import annotations
@@ -350,29 +354,28 @@ def attention(q, k, v, *, causal: bool = True,
         return attention_ref(q, k, v, causal=causal, segment_ids=segment_ids,
                              window=window, softcap=softcap, scale=scale,
                              positions=positions)
-    if window is not None or softcap is not None:
-        if causal and self_attn:
-            return splash_attention(q, k, v, segment_ids, window=window,
-                                    softcap=softcap, scale=scale)
+    if not self_attn:
         raise NotImplementedError(
-            f"attention on CUDA with a sliding window or softcap, non-causal "
-            f"(causal={causal}) or cross attention (q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}), needs the non-causal form of TPU kernel K18 "
-            "(splash FullMask, unsloth_tpu/ops/attention.py:_splash_kernel); "
-            "the port covers causal self-attention")
+            f"attention on {q.device}: cross attention (q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}) has no kernel; the port's kernels take "
+            "self-attention with Hq % Hkv == 0")
+    if window is not None and not causal:
+        raise NotImplementedError(
+            f"attention on {q.device} with a sliding window ({window}) and "
+            "causal=False: the JAX package reads it two ways, TPU kernel K18 "
+            "with the causal LocalMask (unsloth_tpu/ops/attention.py:248-249, "
+            "_splash_kernel) and attention_ref with i - j < window alone "
+            "(:177-178), so no kernel is chosen; the CPU keeps "
+            "attention_ref's reading")
+    if window is not None or softcap is not None:
+        return splash_attention(q, k, v, segment_ids, window=window,
+                                softcap=softcap, scale=scale, causal=causal)
     bound = current_segment_bound() if segment_ids is not None else None
     if (bound is not None and causal and t % BLOCK == 0
-            and dh == PACKED_HEAD_DIM and self_attn):
+            and dh == PACKED_HEAD_DIM):
         return packed_flash_attention(q, k, v, segment_ids,
                                       max_segment_len=bound, scale=scale)
-    if causal and self_attn:
-        return flash_attention(q, k, v, segment_ids, scale=scale)
-    raise NotImplementedError(
-        f"attention on CUDA, non-causal (causal={causal}) or cross attention "
-        f"(q {tuple(q.shape)}, k {tuple(k.shape)}), needs the non-causal "
-        "form of TPU kernel K16 (bundled flash with causal=False, "
-        "unsloth_tpu/ops/attention.py:_tpu_flash); the port covers causal "
-        "self-attention")
+    return flash_attention(q, k, v, segment_ids, scale=scale, causal=causal)
 
 
 def _attention_prefix(q, k, v, prefix_layout, *, segment_ids, softcap,

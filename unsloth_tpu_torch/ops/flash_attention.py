@@ -1,23 +1,28 @@
-"""Causal flash attention for unpacked or padded rows, in PyTorch with
-hand-written CUDA kernels (K16).
+"""Flash attention for unpacked or padded rows, causal or not, in PyTorch
+with hand-written CUDA kernels (K16).
 
 Counterpart of the bundled ``jax.experimental.pallas.ops.tpu.
 flash_attention`` that unsloth_tpu/ops/attention.py:_tpu_flash calls: its
 forward kernel and its ``_flash_attention_bwd_dq`` and
-``_flash_attention_bwd_dkv`` kernels. Token i of a row attends to token j
-iff j <= i and their segment ids are equal, over the *whole* causal range
-(no segment ids: one segment). Every output is defined: on a padded row
-(segment 1 = real, 0 = pad) a pad query attends the pad keys at or before
-it. Scale: the scores are formed in fp32 and multiplied by ``sm_scale``
-there, as in the bundled kernel.
+``_flash_attention_bwd_dkv`` kernels, with ``causal=True`` and with
+``causal=False`` (the text-diffusion models' bidirectional attention).
+Token i of a row attends to token j iff their segment ids are equal and,
+causal, j <= i, over the *whole* range (no segment ids: one segment).
+Every output is defined: on a padded row (segment 1 = real, 0 = pad) a pad
+query attends the pad keys (at or before it, when causal). Scale: the
+scores are formed in fp32 and multiplied by ``sm_scale`` there, as in the
+bundled kernel.
 
 On CUDA tensors :func:`flash_attention` runs ``csrc/flash_attention.cu``:
 :func:`flash_attention_fwd` (out and an fp32 logsumexp),
 :func:`flash_attention_dq` (dq, and di = sum(dout * out)) and
 :func:`flash_attention_dkv` (dk, dv summed over the query heads of each
-kv head), each with its own launch count. On CPU tensors it runs the plain
-versions :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`
-in fp32. The device of q is the only thing that chooses.
+kv head), and without causality :func:`flash_attention_fwd_full`,
+:func:`flash_attention_dq_full` and :func:`flash_attention_dkv_full`, each
+with its own launch count, so that a path can show which form it ran. On
+CPU tensors it runs the plain versions :func:`flash_attention_fwd_ref` and
+:func:`flash_attention_bwd_ref` in fp32. The device of q is the only thing
+that chooses.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
 [B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256 (JAX runs the
@@ -40,12 +45,13 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
-          window: Optional[int] = None) -> torch.Tensor:
-    """[B, T, T] bool: causal, within the window (i - j < window) and with
-    equal segment ids, where given."""
+          window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """[B, T, T] bool: causal (where ``causal``), within the window
+    (i - j < window) and with equal segment ids, where given."""
     pos = torch.arange(t, device=device)
     diff = pos[:, None] - pos[None, :]
-    mask = diff >= 0
+    mask = diff >= 0 if causal else torch.ones((t, t), dtype=torch.bool,
+                                                 device=device)
     if window is not None:
         mask = mask & (diff < window)
     if segment_ids is None:
@@ -62,14 +68,14 @@ def _expand_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def flash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
-                            scale: float
+                            scale: float, causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward in fp32: (out [B, T, Hq, D] in q.dtype, lse [B, Hq, T]
     fp32)."""
     b, t, hq, _ = q.shape
     s = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
                      _expand_kv(k, hq)) * scale
-    mask = _mask(segment_ids, b, t, q.device)[:, None]
+    mask = _mask(segment_ids, b, t, q.device, causal=causal)[:, None]
     s = s.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)                       # [B, H, T]
     p = torch.exp(s - lse[..., None])
@@ -78,7 +84,8 @@ def flash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
 
 
 def flash_attention_bwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
-                            out, lse, dout, scale: float):
+                            out, lse, dout, scale: float,
+                            causal: bool = True):
     """Plain backward from the saved (out, lse), with the bundled kernels'
     formulas in fp32: di = sum(dout * out), p = exp(s - lse),
     ds = p * (dp - di) * scale; dq = ds @ k, dk = ds^T @ q, dv = p^T @ dout,
@@ -89,7 +96,7 @@ def flash_attention_bwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
     qf, dof = q.to(torch.float32), dout.to(torch.float32)
     kf, vf = _expand_kv(k, hq), _expand_kv(v, hq)
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
-    mask = _mask(segment_ids, b, t, q.device)[:, None]
+    mask = _mask(segment_ids, b, t, q.device, causal=causal)[:, None]
     p = torch.where(mask, torch.exp(s - lse[..., None]),
                     torch.zeros((), device=q.device))
     dp = torch.einsum("bthd,bshd->bhts", dof, vf)
@@ -149,10 +156,8 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
-                        scale: float):
-    """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32)."""
-    _check_kernel_inputs("flash_attention_fwd", q, k, v, segment_ids)
+def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, scale, causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -161,20 +166,15 @@ def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
     rc = kernels.library().unsloth_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, t, hq, k.shape[2], d, float(scale), _stream(q))
-    kernels.check(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+        lse.data_ptr(), b, t, hq, k.shape[2], d, float(scale), causal,
+        _stream(q))
+    kernels.check(rc, name)
     return out, lse
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-flash_attention_fwd.launches = 0
-
-
-def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
-                       dout, *, scale: float):
-    """Kernel dq: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
-    _check_kernel_inputs("flash_attention_dq", q, k, v, segment_ids)
+def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, scale,
+        causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
@@ -186,21 +186,14 @@ def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), _stream(q))
-    kernels.check(rc, "flash_attention_dq")
-    flash_attention_dq.launches += 1
+        hq, k.shape[2], d, float(scale), causal, _stream(q))
+    kernels.check(rc, name)
     return dq, di
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-flash_attention_dq.launches = 0
-
-
-def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
-                        dout, *, scale: float):
-    """Kernel dk/dv: (dk, dv) [B, T, Hkv, D] bf16, from the dq kernel's
-    di."""
-    _check_kernel_inputs("flash_attention_dkv", q, k, v, segment_ids)
+def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, scale,
+         causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
@@ -212,42 +205,108 @@ def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), _stream(q))
-    kernels.check(rc, "flash_attention_dkv")
-    flash_attention_dkv.launches += 1
+        hq, k.shape[2], d, float(scale), causal, _stream(q))
+    kernels.check(rc, name)
     return dk, dv
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-flash_attention_dkv.launches = 0
+def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
+                        scale: float):
+    """Kernel forward, causal: (out [B, T, Hq, D] bf16, lse [B, Hq, T]
+    fp32)."""
+    res = _fwd("flash_attention_fwd", q, k, v, segment_ids, seg_min,
+               seg_max, scale, True)
+    flash_attention_fwd.launches += 1
+    return res
+
+
+def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
+                       dout, *, scale: float):
+    """Kernel dq, causal: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
+    res = _dq("flash_attention_dq", q, k, v, segment_ids, seg_min, seg_max,
+              out, lse, dout, scale, True)
+    flash_attention_dq.launches += 1
+    return res
+
+
+def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
+                        dout, *, scale: float):
+    """Kernel dk/dv, causal: (dk, dv) [B, T, Hkv, D] bf16, from the dq
+    kernel's di."""
+    res = _dkv("flash_attention_dkv", q, k, v, segment_ids, seg_min, seg_max,
+               lse, di, dout, scale, True)
+    flash_attention_dkv.launches += 1
+    return res
+
+
+def flash_attention_fwd_full(q, k, v, segment_ids, seg_min, seg_max, *,
+                             scale: float):
+    """Kernel forward without causality: as :func:`flash_attention_fwd`,
+    every key of the query's segment attended."""
+    res = _fwd("flash_attention_fwd_full", q, k, v, segment_ids, seg_min,
+               seg_max, scale, False)
+    flash_attention_fwd_full.launches += 1
+    return res
+
+
+def flash_attention_dq_full(q, k, v, segment_ids, seg_min, seg_max, out, lse,
+                            dout, *, scale: float):
+    """Kernel dq without causality (:func:`flash_attention_dq`'s form)."""
+    res = _dq("flash_attention_dq_full", q, k, v, segment_ids, seg_min,
+              seg_max, out, lse, dout, scale, False)
+    flash_attention_dq_full.launches += 1
+    return res
+
+
+def flash_attention_dkv_full(q, k, v, segment_ids, seg_min, seg_max, lse, di,
+                             dout, *, scale: float):
+    """Kernel dk/dv without causality (:func:`flash_attention_dkv`'s
+    form)."""
+    res = _dkv("flash_attention_dkv_full", q, k, v, segment_ids, seg_min,
+               seg_max, lse, di, dout, scale, False)
+    flash_attention_dkv_full.launches += 1
+    return res
+
+
+# number of kernel launches since the last reset (CPU calls do not count)
+for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+            flash_attention_fwd_full, flash_attention_dq_full,
+            flash_attention_dkv_full):
+    _fn.launches = 0
+del _fn
 
 
 def flash_attention_bwd(q, k, v, segment_ids, seg_min, seg_max, out, lse,
-                        dout, *, scale: float):
-    """Kernel backward: the dq kernel, then the dk/dv kernel."""
-    dq, di = flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out,
-                                lse, dout, scale=scale)
-    dk, dv = flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max,
-                                 lse, di, dout, scale=scale)
+                        dout, *, scale: float, causal: bool = True):
+    """Kernel backward: the dq kernel, then the dk/dv kernel, of the form
+    ``causal`` names."""
+    dq_fn, dkv_fn = ((flash_attention_dq, flash_attention_dkv) if causal
+                     else (flash_attention_dq_full, flash_attention_dkv_full))
+    dq, di = dq_fn(q, k, v, segment_ids, seg_min, seg_max, out, lse, dout,
+                   scale=scale)
+    dk, dv = dkv_fn(q, k, v, segment_ids, seg_min, seg_max, lse, di, dout,
+                    scale=scale)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, scale):
+    def forward(ctx, q, k, v, segment_ids, scale, causal):
         if q.device.type == "cpu":
-            out, lse = flash_attention_fwd_ref(q, k, v, segment_ids, scale)
+            out, lse = flash_attention_fwd_ref(q, k, v, segment_ids, scale,
+                                               causal)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse)
         else:
             if segment_ids is None:
                 segment_ids = torch.zeros(q.shape[:2], dtype=torch.int32,
                                           device=q.device)
             seg_min, seg_max = tile_segment_ranges(segment_ids)
-            out, lse = flash_attention_fwd(q, k, v, segment_ids, seg_min,
-                                           seg_max, scale=scale)
+            fwd = flash_attention_fwd if causal else flash_attention_fwd_full
+            out, lse = fwd(q, k, v, segment_ids, seg_min, seg_max,
+                           scale=scale)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse, seg_min,
                                   seg_max)
-        ctx.scale = scale
+        ctx.scale, ctx.causal = scale, causal
         return out
 
     @staticmethod
@@ -255,21 +314,24 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, segment_ids, out, lse, *ranges = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_ref(q, k, v, segment_ids, out,
-                                                 lse, dout, ctx.scale)
+                                                 lse, dout, ctx.scale,
+                                                 ctx.causal)
         else:
             dq, dk, dv = flash_attention_bwd(q, k, v, segment_ids, *ranges,
-                                             out, lse, dout, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                             out, lse, dout, scale=ctx.scale,
+                                             causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, *,
-                    scale: Optional[float] = None):
-    """Causal attention with optional segment ids (equality over the whole
-    causal range); differentiable in q, k, v. q [B, T, Hq, D]; k, v
+                    scale: Optional[float] = None, causal: bool = True):
+    """Attention with optional segment ids (equality over the whole range),
+    causal or not; differentiable in q, k, v. q [B, T, Hq, D]; k, v
     [B, T, Hkv, D] with Hq % Hkv == 0."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: Hq={q.shape[2]} is not a "
                          f"multiple of Hkv={k.shape[2]}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, segment_ids, float(scale))
+    return _FlashAttention.apply(q, k, v, segment_ids, float(scale),
+                                 bool(causal))

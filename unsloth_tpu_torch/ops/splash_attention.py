@@ -1,18 +1,24 @@
-"""Splash attention: causal self-attention with a sliding window, a logit
-softcap, segment ids, GQA and GRPO's shared-prefix layout, in PyTorch with
-hand-written CUDA kernels (K18).
+"""Splash attention: self-attention with a sliding window, a logit
+softcap, segment ids, GQA and GRPO's shared-prefix layout, causal or (with
+a softcap and segment ids only) not, in PyTorch with hand-written CUDA
+kernels (K18).
 
 Counterpart of unsloth_tpu/ops/attention.py:_tpu_splash, which runs the
 bundled ``jax.experimental.pallas.ops.tpu.splash_attention`` kernels
 (built in ``_splash_kernel``) with a ``CausalMask``, a
-``LocalMask(window_size=(window - 1, 0))`` when a window is given, or a
-``NumpyMask(prefix_mask_array(P, G, L))`` under ``prefix_attention``, per
-kv head. What they compute, as ``_tpu_splash`` feeds them:
+``LocalMask(window_size=(window - 1, 0))`` when a window is given, a
+``NumpyMask(prefix_mask_array(P, G, L))`` under ``prefix_attention``, or,
+for ``causal=False`` without a window, a ``FullMask``, per kv head. What
+they compute, as ``_tpu_splash`` feeds them:
 
 * q is multiplied by ``scale`` in its own dtype first (``q * scale``);
 * s = q_scaled . k in fp32; with a softcap c, s' = c * tanh(s / c);
 * token i attends to token j iff j <= i, i - j < window (when given) and
-  their segment ids are equal (no segment ids: one segment); with a
+  their segment ids are equal (no segment ids: one segment); without
+  causality iff their segment ids are equal (no window: JAX's
+  ``_splash_kernel`` builds a causal ``LocalMask`` for a window whatever
+  ``causal`` says, its ``attention_ref`` masks i - j < window alone, and
+  the wrappers refuse the case rather than choose); with a
   prefix layout (P, G, L) (the row is [P prompt slots | G completion
   regions of L slots], T = P + G L) the window is unset and j <= i, equal
   segment ids and (j < P or i and j in the same region) decide
@@ -25,7 +31,9 @@ kv head. What they compute, as ``_tpu_splash`` feeds them:
 On CUDA tensors :func:`splash_attention` runs ``csrc/splash_attention.cu``:
 :func:`splash_attention_fwd` (out and an fp32 logsumexp),
 :func:`splash_attention_dq` (dq, and di = sum(dout * out)) and
-:func:`splash_attention_dkv` (dk, dv), each with its own launch count. On
+:func:`splash_attention_dkv` (dk, dv), and without causality
+:func:`splash_attention_fwd_full`, :func:`splash_attention_dq_full` and
+:func:`splash_attention_dkv_full`, each with its own launch count. On
 CPU tensors it runs the plain versions :func:`splash_attention_fwd_ref`
 and :func:`splash_attention_bwd_ref` in fp32. The device of q is the only
 thing that chooses. Each kernel wrapper takes an optional ``tile_visits``
@@ -35,8 +43,7 @@ the causal, window, segment and prefix-layout skips left.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
 [B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256, any T;
-anything else raises. Not ported: the non-causal ``FullMask`` form of the
-same kernels.
+anything else raises.
 """
 
 from __future__ import annotations
@@ -103,12 +110,13 @@ def _capped(s: torch.Tensor, softcap: Optional[float]):
 # ---------------------------------------------------------------------------
 
 def _splash_mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
-                 window: Optional[int], prefix_layout) -> torch.Tensor:
-    """[B, T, T] bool: causal, within the window and with equal segment ids;
-    with a prefix layout, :func:`prefix_mask_array` and equal segment
-    ids."""
+                 window: Optional[int], prefix_layout,
+                 causal: bool = True) -> torch.Tensor:
+    """[B, T, T] bool: causal (where ``causal``), within the window and with
+    equal segment ids; with a prefix layout, :func:`prefix_mask_array` and
+    equal segment ids."""
     if prefix_layout is None:
-        return _mask(segment_ids, b, t, device, window)
+        return _mask(segment_ids, b, t, device, window, causal)
     pm = torch.from_numpy(prefix_mask_array(
         *check_prefix_layout(prefix_layout, t))).to(device)
     if segment_ids is None:
@@ -118,13 +126,14 @@ def _splash_mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
 
 def splash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor], *,
                              window: Optional[int], softcap: Optional[float],
-                             scale: float, prefix_layout=None
+                             scale: float, prefix_layout=None,
+                             causal: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward in fp32, one kv head (and its query heads) at a time:
     (out [B, T, Hq, D] in q.dtype, lse [B, Hq, T] fp32)."""
     b, t, hq, d = q.shape
     mask = _splash_mask(segment_ids, b, t, q.device, window,
-                        prefix_layout)[:, None]
+                        prefix_layout, causal)[:, None]
     qs = _scaled_q(q, scale)
     out = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
@@ -142,13 +151,13 @@ def splash_attention_fwd_ref(q, k, v, segment_ids: Optional[torch.Tensor], *,
 def splash_attention_bwd_ref(q, k, v, segment_ids: Optional[torch.Tensor],
                              out, lse, dout, *, window: Optional[int],
                              softcap: Optional[float], scale: float,
-                             prefix_layout=None):
+                             prefix_layout=None, causal: bool = True):
     """Plain backward from the saved (out, lse), with the bundled kernels'
     formulas in fp32 (module docstring), one kv head at a time. Returns
     (dq, dk, dv) in the input dtypes."""
     b, t, hq, d = q.shape
     mask = _splash_mask(segment_ids, b, t, q.device, window,
-                        prefix_layout)[:, None]
+                        prefix_layout, causal)[:, None]
     qs = _scaled_q(q, scale)
     dof = dout.to(torch.float32)
     di = (dof * out.to(torch.float32)).sum(-1).transpose(1, 2)  # [B, H, T]
@@ -194,8 +203,18 @@ def _visits(tile_visits: Optional[torch.Tensor], q: torch.Tensor):
     return tile_visits.data_ptr()
 
 
-def _layout(prefix_layout, t: int, window: Optional[int]):
-    """The kernels' runtime (P, G, L): G = 0 for none."""
+def _layout(prefix_layout, t: int, window: Optional[int],
+            causal: bool = True):
+    """The kernels' runtime (P, G, L): G = 0 for none. Refuses a layout
+    with a window, and a window or a layout without causality (where JAX's
+    two readings of a non-causal window disagree, module docstring)."""
+    if not causal and (window is not None or prefix_layout is not None):
+        raise NotImplementedError(
+            f"splash attention without causality takes neither a window "
+            f"(got {window}) nor a prefix layout (got {prefix_layout}): for "
+            "a window JAX's _splash_kernel builds the causal LocalMask "
+            "(unsloth_tpu/ops/attention.py:248-249) while its attention_ref "
+            "masks only i - j < window (:177-178)")
     if prefix_layout is None:
         return 0, 0, 0
     if window is not None:
@@ -205,15 +224,11 @@ def _layout(prefix_layout, t: int, window: Optional[int]):
     return check_prefix_layout(prefix_layout, t)
 
 
-def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
-                         window: Optional[int], softcap: Optional[float],
-                         scale: float, prefix_layout=None,
-                         tile_visits: Optional[torch.Tensor] = None):
-    """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32)."""
-    _check_kernel_inputs("splash_attention_fwd", q, k, v, segment_ids,
-                         KERNEL_HEAD_DIMS)
+def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, window, softcap,
+         scale, prefix_layout, tile_visits, causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
-    layout = _layout(prefix_layout, t, window)
+    layout = _layout(prefix_layout, t, window, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -222,26 +237,17 @@ def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
-    kernels.check(rc, "splash_attention_fwd")
-    splash_attention_fwd.launches += 1
+        *_options(window, softcap), causal, _visits(tile_visits, q),
+        _stream(q))
+    kernels.check(rc, name)
     return out, lse
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-splash_attention_fwd.launches = 0
-
-
-def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
-                        dout, *, window: Optional[int],
-                        softcap: Optional[float], scale: float,
-                        prefix_layout=None,
-                        tile_visits: Optional[torch.Tensor] = None):
-    """Kernel dq: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
-    _check_kernel_inputs("splash_attention_dq", q, k, v, segment_ids,
-                         KERNEL_HEAD_DIMS)
+def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, window,
+        softcap, scale, prefix_layout, tile_visits, causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
-    layout = _layout(prefix_layout, t, window)
+    layout = _layout(prefix_layout, t, window, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -253,27 +259,17 @@ def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
-    kernels.check(rc, "splash_attention_dq")
-    splash_attention_dq.launches += 1
+        *_options(window, softcap), causal, _visits(tile_visits, q),
+        _stream(q))
+    kernels.check(rc, name)
     return dq, di
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-splash_attention_dq.launches = 0
-
-
-def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
-                         dout, *, window: Optional[int],
-                         softcap: Optional[float], scale: float,
-                         prefix_layout=None,
-                         tile_visits: Optional[torch.Tensor] = None):
-    """Kernel dk/dv: (dk, dv) [B, T, Hkv, D] bf16, from the dq kernel's
-    di."""
-    _check_kernel_inputs("splash_attention_dkv", q, k, v, segment_ids,
-                         KERNEL_HEAD_DIMS)
+def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, window,
+         softcap, scale, prefix_layout, tile_visits, causal):
+    _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
-    layout = _layout(prefix_layout, t, window)
+    layout = _layout(prefix_layout, t, window, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
@@ -285,59 +281,156 @@ def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), _visits(tile_visits, q), _stream(q))
-    kernels.check(rc, "splash_attention_dkv")
-    splash_attention_dkv.launches += 1
+        *_options(window, softcap), causal, _visits(tile_visits, q),
+        _stream(q))
+    kernels.check(rc, name)
     return dk, dv
 
 
-#: number of kernel launches since the last reset (CPU calls do not count)
-splash_attention_dkv.launches = 0
+def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
+                         window: Optional[int], softcap: Optional[float],
+                         scale: float, prefix_layout=None,
+                         tile_visits: Optional[torch.Tensor] = None):
+    """Kernel forward, causal: (out [B, T, Hq, D] bf16, lse [B, Hq, T]
+    fp32)."""
+    res = _fwd("splash_attention_fwd", q, k, v, segment_ids, seg_min,
+               seg_max, window, softcap, scale, prefix_layout, tile_visits,
+               True)
+    splash_attention_fwd.launches += 1
+    return res
+
+
+def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
+                        dout, *, window: Optional[int],
+                        softcap: Optional[float], scale: float,
+                        prefix_layout=None,
+                        tile_visits: Optional[torch.Tensor] = None):
+    """Kernel dq, causal: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
+    res = _dq("splash_attention_dq", q, k, v, segment_ids, seg_min, seg_max,
+              out, lse, dout, window, softcap, scale, prefix_layout,
+              tile_visits, True)
+    splash_attention_dq.launches += 1
+    return res
+
+
+def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
+                         dout, *, window: Optional[int],
+                         softcap: Optional[float], scale: float,
+                         prefix_layout=None,
+                         tile_visits: Optional[torch.Tensor] = None):
+    """Kernel dk/dv, causal: (dk, dv) [B, T, Hkv, D] bf16, from the dq
+    kernel's di."""
+    res = _dkv("splash_attention_dkv", q, k, v, segment_ids, seg_min,
+               seg_max, lse, di, dout, window, softcap, scale, prefix_layout,
+               tile_visits, True)
+    splash_attention_dkv.launches += 1
+    return res
+
+
+def splash_attention_fwd_full(q, k, v, segment_ids, seg_min, seg_max, *,
+                              softcap: Optional[float], scale: float,
+                              tile_visits: Optional[torch.Tensor] = None):
+    """Kernel forward without causality (``FullMask``): as
+    :func:`splash_attention_fwd`, with no window or layout."""
+    res = _fwd("splash_attention_fwd_full", q, k, v, segment_ids, seg_min,
+               seg_max, None, softcap, scale, None, tile_visits, False)
+    splash_attention_fwd_full.launches += 1
+    return res
+
+
+def splash_attention_dq_full(q, k, v, segment_ids, seg_min, seg_max, out,
+                             lse, dout, *, softcap: Optional[float],
+                             scale: float,
+                             tile_visits: Optional[torch.Tensor] = None):
+    """Kernel dq without causality (:func:`splash_attention_dq`'s form)."""
+    res = _dq("splash_attention_dq_full", q, k, v, segment_ids, seg_min,
+              seg_max, out, lse, dout, None, softcap, scale, None,
+              tile_visits, False)
+    splash_attention_dq_full.launches += 1
+    return res
+
+
+def splash_attention_dkv_full(q, k, v, segment_ids, seg_min, seg_max, lse,
+                              di, dout, *, softcap: Optional[float],
+                              scale: float,
+                              tile_visits: Optional[torch.Tensor] = None):
+    """Kernel dk/dv without causality (:func:`splash_attention_dkv`'s
+    form)."""
+    res = _dkv("splash_attention_dkv_full", q, k, v, segment_ids, seg_min,
+               seg_max, lse, di, dout, None, softcap, scale, None,
+               tile_visits, False)
+    splash_attention_dkv_full.launches += 1
+    return res
+
+
+# number of kernel launches since the last reset (CPU calls do not count)
+for _fn in (splash_attention_fwd, splash_attention_dq, splash_attention_dkv,
+            splash_attention_fwd_full, splash_attention_dq_full,
+            splash_attention_dkv_full):
+    _fn.launches = 0
+del _fn
 
 
 class _SplashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, window, softcap, scale,
-                prefix_layout):
+                prefix_layout, causal):
         opts = dict(window=window, softcap=softcap, scale=scale,
                     prefix_layout=prefix_layout)
         if q.device.type == "cpu":
-            out, lse = splash_attention_fwd_ref(q, k, v, segment_ids, **opts)
+            out, lse = splash_attention_fwd_ref(q, k, v, segment_ids,
+                                                causal=causal, **opts)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse)
         else:
             if segment_ids is None:
                 segment_ids = torch.zeros(q.shape[:2], dtype=torch.int32,
                                           device=q.device)
             seg_min, seg_max = tile_segment_ranges(segment_ids)
-            out, lse = splash_attention_fwd(q, k, v, segment_ids, seg_min,
-                                            seg_max, **opts)
+            if causal:
+                out, lse = splash_attention_fwd(q, k, v, segment_ids,
+                                                seg_min, seg_max, **opts)
+            else:
+                out, lse = splash_attention_fwd_full(
+                    q, k, v, segment_ids, seg_min, seg_max, softcap=softcap,
+                    scale=scale)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse, seg_min,
                                   seg_max)
-        ctx.opts = opts
+        ctx.opts, ctx.causal = opts, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, segment_ids, out, lse, *ranges = ctx.saved_tensors
+        opts = ctx.opts
         if q.device.type == "cpu":
             dq, dk, dv = splash_attention_bwd_ref(q, k, v, segment_ids, out,
-                                                  lse, dout, **ctx.opts)
-        else:
+                                                  lse, dout,
+                                                  causal=ctx.causal, **opts)
+        elif ctx.causal:
             dq, di = splash_attention_dq(q, k, v, segment_ids, *ranges, out,
-                                         lse, dout, **ctx.opts)
+                                         lse, dout, **opts)
             dk, dv = splash_attention_dkv(q, k, v, segment_ids, *ranges, lse,
-                                          di, dout, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+                                          di, dout, **opts)
+        else:
+            full = dict(softcap=opts["softcap"], scale=opts["scale"])
+            dq, di = splash_attention_dq_full(q, k, v, segment_ids, *ranges,
+                                              out, lse, dout, **full)
+            dk, dv = splash_attention_dkv_full(q, k, v, segment_ids, *ranges,
+                                               lse, di, dout, **full)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def splash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     scale: Optional[float] = None, prefix_layout=None):
-    """Causal attention with an optional sliding window (i - j < window),
-    logit softcap and segment ids, or with a prefix layout (P, G, L) in
-    place of the window; differentiable in q, k, v. q [B, T, Hq, D]; k, v
-    [B, T, Hkv, D] with Hq % Hkv == 0."""
+                     scale: Optional[float] = None, prefix_layout=None,
+                     causal: bool = True):
+    """Attention with an optional sliding window (i - j < window), logit
+    softcap and segment ids, or with a prefix layout (P, G, L) in place of
+    the window, causal; without causality, with a softcap and segment ids
+    only (a window or a layout raises NotImplementedError);
+    differentiable in q, k, v. q [B, T, Hq, D]; k, v [B, T, Hkv, D] with
+    Hq % Hkv == 0."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"splash_attention: Hq={q.shape[2]} is not a "
                          f"multiple of Hkv={k.shape[2]}")
@@ -345,9 +438,10 @@ def splash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, *,
         raise ValueError(f"splash_attention: window={window} must be > 0")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"splash_attention: softcap={softcap} must be > 0")
+    layout = _layout(prefix_layout, q.shape[1], window, causal)
     if prefix_layout is not None:
-        prefix_layout = _layout(prefix_layout, q.shape[1], window)
+        prefix_layout = layout
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _SplashAttention.apply(q, k, v, segment_ids, window, softcap,
-                                  float(scale), prefix_layout)
+                                  float(scale), prefix_layout, bool(causal))

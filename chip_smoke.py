@@ -20,7 +20,12 @@ exits non-zero without printing a result:
                attention forward and backward (K9-K11) on an 8K row, the
                full-logits CE forward (K7) and backward (K8) at 4,094 rows
                of the 128,256 vocabulary, and unpacked flash attention
-               (K16: forward, dq, dk/dv) on a padded [2, 2048] batch; then
+               (K16: forward, dq, dk/dv) on a padded [2, 2048] batch, with
+               the tile pairs each of its kernels classed skip, full and
+               masked read back from its counters and held to the rule
+               (:func:`flash_tile_classes`; also at the non-causal (a)
+               below), and its backward run twice for the same bits at
+               the non-causal (a) and at Qwen2.5-0.5B's heads; then
                the Gemma-2-9B path's: K1/K2 at its five projection shapes
                (M = 4,096), K3/K4 with gemma=True at [4096, 3584], K7/K8
                over 256,000 logits with softcap 30, and splash attention
@@ -61,7 +66,8 @@ exits non-zero without printing a result:
                rows, and both at a ragged shape with block 32 (labelled
                yardstick: dequantize_fp8 + torch.matmul, two calls); the
                check must reject injected faults (K16: a dropped kv tile,
-               an ignored pad mask, a late-half error; K18 also: the
+               an ignored pad mask, a late-half error, a diagonal or a
+               mixed-segment tile called full; K18 also: the
                window ignored, the softcap's derivative dropped; K14/K15:
                one expert's rows through the next expert's weights, the
                bias dropped; K19 the same; K17: the sink ignored, dsinks
@@ -857,6 +863,162 @@ def kernel_tile_pairs(q, k, v, seg, dout, scale, layout):
     return {w: c // heads for w, c in counts.items()}
 
 
+#: K16's tile-pair classes, in the order of its counters
+TILE_CLASSES = ("skip", "full", "masked")
+
+
+def flash_tile_classes(segment_ids, causal, bq, bk):
+    """The rule of ``pair_class`` in csrc/hopper_tiles.cuh, K16's Hopper
+    kernels' tile-pair classes: {(row, query tile, kv tile): class} over
+    the pairs a kernel with ``bq``-token query tiles and ``bk``-token kv
+    tiles visits (every pair, or, causal, those whose kv tile starts at or
+    before the query tile's last token). A pair is "skip" when its tiles'
+    segment-id ranges (each the min of mins and the max of maxes of the
+    64-token ranges it spans, as tile_segment_ranges gives them) are
+    disjoint; "full" when both tiles lie wholly before T, hold one segment
+    id, the same, and, causal, the kv tile ends at or before the query
+    tile's first token; else "masked"."""
+    seg = [[int(x) for x in row] for row in segment_ids.tolist()]
+    t = len(seg[0])
+    n64 = -(-t // 64)
+    res = {}
+    for b, row in enumerate(seg):
+        lo = [min(row[e * 64:(e + 1) * 64]) for e in range(n64)]
+        hi = [max(row[e * 64:(e + 1) * 64]) for e in range(n64)]
+
+        def span(t0, n):
+            first, last = t0 // 64, min((t0 + n - 1) // 64, n64 - 1)
+            return (min(lo[first:last + 1]), max(hi[first:last + 1]))
+
+        for iq in range(-(-t // bq)):
+            q0 = iq * bq
+            for j in range(-(-t // bk)):
+                k0 = j * bk
+                if causal and k0 > q0 + bq - 1:
+                    continue
+                (qlo, qhi), (klo, khi) = span(q0, bq), span(k0, bk)
+                if khi < qlo or klo > qhi:
+                    cls = "skip"
+                elif (q0 + bq <= t and k0 + bk <= t
+                      and qlo == qhi == klo == khi
+                      and (not causal or k0 + bk - 1 <= q0)):
+                    cls = "full"
+                else:
+                    cls = "masked"
+                res[(b, iq, j)] = cls
+    return res
+
+
+def flash_tile_counts(segment_ids, causal, bq, bk):
+    """[skip, full, masked]: the pairs of :func:`flash_tile_classes` by
+    class, over every row."""
+    classes = list(flash_tile_classes(segment_ids, causal, bq, bk).values())
+    return [classes.count(c) for c in TILE_CLASSES]
+
+
+def kernel_tile_classes(q, k, v, seg, dout, scale, causal):
+    """{"fwd", "dq", "dkv": [skip, full, masked] tile pairs that K16's
+    kernel of that name classed, a query head}, read back from the
+    kernels' counters (``tile_classes``) on these inputs."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+
+    lo, hi = tfa.tile_segment_ranges(seg)
+    sfx = "" if causal else "_full"
+    fwd, dq, dkv = (getattr(tfa, f"flash_attention_{w}{sfx}")
+                    for w in ("fwd", "dq", "dkv"))
+    n = {w: torch.zeros(3, dtype=torch.int32, device=q.device)
+         for w in ("fwd", "dq", "dkv")}
+    out, lse = fwd(q, k, v, seg, lo, hi, scale=scale, tile_classes=n["fwd"])
+    _, di = dq(q, k, v, seg, lo, hi, out, lse, dout, scale=scale,
+               tile_classes=n["dq"])
+    dkv(q, k, v, seg, lo, hi, lse, di, dout, scale=scale,
+        tile_classes=n["dkv"])
+    heads = q.shape[2]
+    counts = {w: c.tolist() for w, c in n.items()}
+    if any(x % heads for c in counts.values() for x in c):
+        raise RuntimeError(f"K16's tile-class counts {counts} are not a "
+                           f"whole number a head ({heads} heads)")
+    return {w: [x // heads for x in c] for w, c in counts.items()}
+
+
+def _plain_under_mask(q, k, v, dout, scale, mask):
+    """(out, dq, dk, dv) of K16's plain versions' formulas in fp32 under an
+    explicit [B, T, T] mask (True: attended): a kernel's result under a
+    wrong mask."""
+    import torch
+
+    from unsloth_tpu_torch.ops.flash_attention import _expand_kv
+
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    qf, dof = q.float(), dout.float()
+    kf, vf = _expand_kv(k, hq), _expand_kv(v, hq)
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    s = s.masked_fill(~mask[:, None], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bhts,bshd->bthd", p, vf)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    di = (dof * out.to(q.dtype).float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - di[..., None]) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf).reshape(
+        b, t, hkv, hq // hkv, d).sum(3)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof).reshape(
+        b, t, hkv, hq // hkv, d).sum(3)
+    return (out.to(q.dtype), dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def tile_fault_errs(q, k, v, seg, dout, scale, want, causal, tile=128):
+    """The power of :func:`attn_row_err` over K16's tile classes: its
+    plain versions under the faults of a class rule that calls a
+    ``tile``-token pair full when it is not, so that no element of it is
+    masked, held against ``want`` (the right out, dq, dk, dv). Faults:
+    with causality, a diagonal pair of one segment (the query tile at the
+    middle of the last row with itself: its queries see later keys); and,
+    where a row holds a tile of more than one segment id, that kv tile
+    with the next query tile (the previous one at the row's end), whose
+    queries then see the other segment's keys. Returns {fault: {tensor:
+    (row-wise error, whether the old check, max|d| <= 2e-2 max|ref|,
+    passes it)}}; every row-wise error must exceed ATTN_ROW_TOL."""
+    import torch
+
+    from unsloth_tpu_torch.ops.flash_attention import _mask
+
+    b, t = seg.shape
+    mask = _mask(seg, b, t, seg.device, causal=causal)
+    n = -(-t // tile)
+
+    def widened(row, iq, j):
+        m = mask.clone()
+        m[row, iq * tile:(iq + 1) * tile, j * tile:(j + 1) * tile] = True
+        return _plain_under_mask(q, k, v, dout, scale, m)
+
+    faults = {}
+    if causal:
+        mid = n // 2
+        faults["diagonal tile as full"] = widened(b - 1, mid, mid)
+    for row in range(b):
+        mixed = [j for j in range(n)
+                 if len(set(seg[row, j * tile:(j + 1) * tile].tolist())) > 1]
+        if mixed:
+            j = mixed[0]
+            iq = j + 1 if j + 1 < n else j - 1
+            if iq >= 0:
+                faults["mixed-segment tile as full"] = widened(row, iq, j)
+                break
+    res = {}
+    for fault, gots in faults.items():
+        res[fault] = {}
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
+            old = ((got.float() - ref.float()).abs().max()
+                   <= 2e-2 * ref.float().abs().max())
+            res[fault][name] = (attn_row_err(got, ref), bool(old))
+    return res
+
+
 def prefix_fault_errs(q, k, v, seg, dout, scale, layout, want):
     """The power of :func:`attn_row_err` over K18's prefix form: the plain
     versions under two faults a wrong layout mask would make, held
@@ -1480,21 +1642,73 @@ def _unpacked_kernels(dev, g, flush):
     seg = torch.ones((2, UNPACKED_ROWS), dtype=torch.int32, device=dev)
     seg[0, 1500:] = 0                      # pad_batch: 1 real, 0 pad
     res = _flash_case(dev, g, flush, "", seg, c["num_attention_heads"],
-                      c["num_key_value_heads"], c["head_dim"])
+                      c["num_key_value_heads"], c["head_dim"], classes=True)
     for name, row in res.items():
         rows[name].append(row)
     return rows
 
 
-def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
+def _k16_checks(label, q, k, v, seg, out, lse, dout, scale, causal, first,
+                classes=False, same_bits=False):
+    """K16's design checks at one shape: with ``classes``, the tile pairs
+    each of its three kernels classed skip, full and masked, read back from
+    their counters (:func:`kernel_tile_classes`), against the rule's
+    count at that kernel's tiles (:func:`flash_tile_counts`), a query
+    head; with ``same_bits``, dq and dk/dv run again on the same inputs
+    give the bits of ``first`` (their dq, dk, dv). Raises on a difference;
+    returns the extra keys of the kernels' rows by kernel name."""
+    import torch
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+
+    names = FULL_FLASH if not causal else ("flash_attn_fwd", "flash_attn_dq",
+                                           "flash_attn_dkv")
+    label = label.strip() or "(a)"
+    extra = {n_: {} for n_ in names}
+    if classes:
+        got = kernel_tile_classes(q, k, v, seg, dout, scale, causal)
+        rule = {w: flash_tile_counts(seg, causal,
+                                     *tfa.KERNEL_TILES[w][q.shape[3]])
+                for w in got}
+        pairs = "; ".join(f"{w} {got[w]} / {rule[w]} (tiles "
+                          f"{tfa.KERNEL_TILES[w][q.shape[3]]})" for w in got)
+        log(f"[kernels] flash attention {label}: tile pairs a query "
+            f"head (skip, full, masked), kernels' counters / rule: {pairs}")
+        if got != rule:
+            raise RuntimeError(f"K16's tile classes at {label} differ from "
+                               f"the rule: {got} against {rule}")
+        for n_, w in zip(names, ("fwd", "dq", "dkv")):
+            extra[n_]["tile_classes"] = dict(zip(TILE_CLASSES, got[w]))
+    if same_bits:
+        lo, hi = tfa.tile_segment_ranges(seg)
+        sfx = "" if causal else "_full"
+        dq, di = getattr(tfa, "flash_attention_dq" + sfx)(
+            q, k, v, seg, lo, hi, out, lse, dout, scale=scale)
+        dk, dv = getattr(tfa, "flash_attention_dkv" + sfx)(
+            q, k, v, seg, lo, hi, lse, di, dout, scale=scale)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, (dq, dk, dv))]
+        log(f"[kernels] flash attention {label}: dq, dk, dv run "
+            f"twice, same bits {same}")
+        if not all(same):
+            raise RuntimeError(f"K16's backward at {label} gave other bits "
+                               f"on a second run: {same}")
+        extra[names[1]]["same_bits"] = extra[names[2]]["same_bits"] = True
+    return extra
+
+
+def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None,
+                classes=False, same_bits=False):
     """K16 forward, dq and dk/dv at one shape against the plain versions, at
     every position, pad queries included: out, dq, dk, dv row by row
     (:func:`attn_row_err`), lse within 1e-3, the backward fed the kernel
     forward's (out, lse) on both sides; then the check must reject the
     plain versions under a dropped kv tile and under an ignored pad mask
-    (:func:`attn_fault_errs`). Times: the kernels, the plain versions, and
-    SDPA with the padding mask (the same function). Returns a row per
-    kernel, tagged with ``form`` (the head-dim form of the kernels line)."""
+    (:func:`attn_fault_errs`) and under a diagonal or a mixed-segment tile
+    called full (:func:`tile_fault_errs`); with ``classes`` and
+    ``same_bits``, :func:`_k16_checks`. Times: the kernels, the plain
+    versions, and SDPA with the padding mask (the same function), and the
+    kernels' ratio to it. Returns a row per kernel, tagged with ``form``
+    (the head-dim form of the kernels line)."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
@@ -1525,7 +1739,11 @@ def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
     lse_err = (lse - rlse).abs().max().item()
     faults = attn_fault_errs(q, k, vv, seg, dout, scale,
                              (rout, rdq, rdk, rdv))
+    faults.update(tile_fault_errs(q, k, vv, seg, dout, scale,
+                                  (rout, rdq, rdk, rdv), True))
     del rout, rdq, rdk, rdv
+    extra = _k16_checks(label, q, k, vv, seg, out, lse, dout, scale, True,
+                        (dq, dk, dv), classes, same_bits)
     fwd_ms = time_ms(lambda: tfa.flash_attention_fwd(
         q, k, vv, seg, lo, hi, scale=scale), runs=10, flush=flush)
     dq_ms = time_ms(lambda: tfa.flash_attention_dq(
@@ -1554,14 +1772,15 @@ def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
         "flash_attn_fwd": dict(
             common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
             plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
-            library_ms=lib_fwd),
+            library_ms=lib_fwd, **extra["flash_attn_fwd"]),
         "flash_attn_dq": dict(
             common, err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
-            bound_ms=qb[0], bound_by=qb[1], library_ms=lib_bwd),
+            bound_ms=qb[0], bound_by=qb[1], library_ms=lib_bwd,
+            **extra["flash_attn_dq"]),
         "flash_attn_dkv": dict(
             common, err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
             plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
-            library_ms=lib_bwd)}
+            library_ms=lib_bwd, **extra["flash_attn_dkv"])}
     log(f"[kernels] flash attention (K16) {shape}, every position: " +
         ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
                   for n_, (e, r) in errs.items())
@@ -1577,6 +1796,8 @@ def _flash_case(dev, g, flush, label, seg, hq, hkv, hd, form=None):
         f"({fb[1]}); dq kernel {dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv "
         f"kernel {dkv_ms:.4f} ms bound {kb[0]:.4f} ms; plain backward "
         f"{bwd_plain:.4f} ms, SDPA backward (dq, dk, dv) {lib_bwd:.4f} ms; "
+        f"kernel / SDPA: forward {fwd_ms / lib_fwd:.2f}x, dq + dk/dv "
+        f"{(dq_ms + dkv_ms) / lib_bwd:.2f}x; "
         f"{pairs} valid pairs per head, pad "
         f"{100 * int((seg == 0).sum()) / seg.numel():.1f}% of the batch")
     bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
@@ -1909,8 +2130,10 @@ def _diffusion_kernels(dev, g, flush):
         hq, hkv = c["num_attention_heads"], c["num_key_value_heads"]
         d = c["head_dim"]
         scale = (c.get("query_pre_attn_scalar") or d) ** -0.5
+        first = label.startswith("(a)")
         res = _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale,
-                              softcap, form=form)
+                              softcap, form=form, classes=first,
+                              same_bits=first)
         log(f"[time] 3 non-causal {label}: "
             f"{time.perf_counter() - t_case:.1f} s")
         for name, row in res.items():
@@ -1919,7 +2142,7 @@ def _diffusion_kernels(dev, g, flush):
 
 
 def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
-                    form=None):
+                    form=None, classes=False, same_bits=False):
     """K16 (``softcap`` None) or K18 (a softcap, no window) without
     causality, forward, dq and dk/dv at one shape against the plain
     versions with ``causal=False``: every position row by row
@@ -1995,6 +2218,12 @@ def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
     want = (rout, rdq, rdk, rdv)
     faults = attn_fault_errs(q, k, v, seg, dout, scale, want,
                              softcap=softcap, causal=False)
+    extra = {n_: {} for n_ in names}
+    if softcap is None:
+        faults.update(tile_fault_errs(q, k, v, seg, dout, scale, want,
+                                      False))
+        extra = _k16_checks(label, q, k, v, seg, out, lse, dout, scale,
+                            False, (dq, dk, dv), classes, same_bits)
     cout, clse = causal_fns[0](q, k, v, seg, lo, hi, **copts)
     cdq, cdi = causal_fns[1](q, k, v, seg, lo, hi, cout, clse, dout, **copts)
     cdk, cdv = causal_fns[2](q, k, v, seg, lo, hi, clse, cdi, dout, **copts)
@@ -2039,13 +2268,14 @@ def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
     res = {
         names[0]: dict(common, err=max(errs["out"][0], lse_err), ms=fwd_ms,
                        plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
-                       library_ms=lib_fwd),
+                       library_ms=lib_fwd, **extra[names[0]]),
         names[1]: dict(common, err=errs["dq"][0], ms=dq_ms,
                        plain_ms=bwd_plain, bound_ms=qb[0], bound_by=qb[1],
-                       library_ms=lib_bwd),
+                       library_ms=lib_bwd, **extra[names[1]]),
         names[2]: dict(common, err=max(errs["dk"][0], errs["dv"][0]),
                        ms=dkv_ms, plain_ms=bwd_plain, bound_ms=kb[0],
-                       bound_by=kb[1], library_ms=lib_bwd)}
+                       bound_by=kb[1], library_ms=lib_bwd,
+                       **extra[names[2]])}
     log(f"[kernels] non-causal {kind} {shape}, every position: " +
         ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
                   for n_, (e, r) in errs.items())
@@ -2064,8 +2294,9 @@ def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
         f"bound {qb[0]:.4f} ms ({100 * qb[0] / dq_ms:.1f}%); dk/dv kernel "
         f"{dkv_ms:.4f} ms bound {kb[0]:.4f} ms ({100 * kb[0] / dkv_ms:.1f}%)"
         f"; plain backward {bwd_plain:.4f} ms, library backward (dq, dk, "
-        f"dv) {lib_bwd:.4f} ms ({lib_name}{lib_text}); {pairs} valid pairs "
-        "per head")
+        f"dv) {lib_bwd:.4f} ms ({lib_name}{lib_text}); kernel / library: "
+        f"forward {fwd_ms / lib_fwd:.2f}x, dq + dk/dv "
+        f"{(dq_ms + dkv_ms) / lib_bwd:.2f}x; {pairs} valid pairs per head")
     bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
     if bad or not lse_err <= 1e-3:
         raise RuntimeError(f"non-causal {kind} {label} disagrees in {bad}: "
@@ -2105,7 +2336,8 @@ def _small_model_kernels(dev, g, flush):
             (GEMMA_7B_CONFIG, "Gemma-7B ", "d256")):
         hq, hkv = config["num_attention_heads"], config["num_key_value_heads"]
         d = config.get("head_dim") or config["hidden_size"] // hq
-        res = _flash_case(dev, g, flush, label, seg, hq, hkv, d, form=form)
+        res = _flash_case(dev, g, flush, label, seg, hq, hkv, d, form=form,
+                          same_bits=config is QWEN25_05B_CONFIG)
         for name, row in res.items():
             rows.setdefault(name, []).append(row)
     c = GPT_OSS_20B_CONFIG
@@ -5923,9 +6155,9 @@ def _device_report(prof, wall_us, top):
     families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel",),
                 "K1/K2 nf4_matmul":
                 ("nf4_matmul",), "K17 flash sinks": ("sinks_",),
-                "K18 splash": ("splash_",), "K16 flash": ("attn_fwd_kernel",
-                                                           "attn_dq_kernel",
-                                                           "attn_dkv_kernel"),
+                "K18 splash": ("splash_",),
+                "K16 flash": ("flash_fwd_kernel", "flash_dq_kernel",
+                              "flash_dkv_kernel", "dkv_sum_kernel"),
                 "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
                 ("rms_norm",)}
     fam = {f_: sum(us for name, (us, _) in by_name.items()
@@ -7040,10 +7272,10 @@ def _kernels_line(rows, by_path):
         "packed_attn_bwd": ("packed_attention.cu",
                             "unsloth_tpu/ops/packed_attention.py:224 and "
                             ":316", None),
-        "flash_attn_fwd": ("flash_attention.cu", k16 + "forward)", None),
-        "flash_attn_dq": ("flash_attention.cu",
-                          k16 + "_flash_attention_bwd_dq)", None),
-        "flash_attn_dkv": ("flash_attention.cu",
+        "flash_attn_fwd": ("flash_fwd.cu", k16 + "forward)", None),
+        "flash_attn_dq": ("flash_dq.cu", k16 + "_flash_attention_bwd_dq)",
+                          None),
+        "flash_attn_dkv": ("flash_dkv.cu",
                            k16 + "_flash_attention_bwd_dkv)", None),
         "splash_attn_fwd": ("splash_attention.cu", k18 + "forward)",
                             "(a) sliding"),
@@ -7085,12 +7317,12 @@ def _kernels_line(rows, by_path):
         "fp8_matmul_dx": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
                           "(_bwd_kernel, launched by _bwd_pallas :177, "
                           "pallas_call :192)", "gate/up M=4096"),
-        "flash_attn_fwd_full": ("flash_attention.cu", k16_full + "forward)",
+        "flash_attn_fwd_full": ("flash_fwd.cu", k16_full + "forward)",
                                 "(a) LLaDA-8B"),
-        "flash_attn_dq_full": ("flash_attention.cu",
+        "flash_attn_dq_full": ("flash_dq.cu",
                                k16_full + "_flash_attention_bwd_dq)",
                                "(a) LLaDA-8B"),
-        "flash_attn_dkv_full": ("flash_attention.cu",
+        "flash_attn_dkv_full": ("flash_dkv.cu",
                                 k16_full + "_flash_attention_bwd_dkv)",
                                 "(a) LLaDA-8B"),
         "splash_attn_fwd_full": ("splash_attention.cu", k18_full + "forward)",
@@ -7196,7 +7428,8 @@ def _kernels_line(rows, by_path):
             "launches_by_path": by_form,
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
                                          "tile_pairs", "tile_pairs_segments",
-                                         "causal_tile_pairs")
+                                         "causal_tile_pairs", "tile_classes",
+                                         "same_bits")
                if key in row}})
     return kernels_line
 

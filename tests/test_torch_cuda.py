@@ -8,7 +8,8 @@ These need an NVIDIA GPU and nvcc; without one they skip. On the card:
 import pytest
 import torch
 
-from chip_smoke import ATTN_ROW_TOL, MM_ULPS, attn_row_err, fp8_weight, mm_ulps
+from chip_smoke import (ATTN_ROW_TOL, MM_ULPS, attn_row_err, fp8_weight,
+                        flash_tile_counts, kernel_tile_classes, mm_ulps)
 from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
 from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx, fp8_matmul_dx_ref,
                                               fp8_matmul_fwd)
@@ -238,43 +239,62 @@ def test_cross_entropy_kernels_match_plain(dev, n, v, dtype, softcap, scale):
             + 1e-6 * rdx.float().abs().max()).all()
 
 
+@pytest.mark.parametrize("seg_kind", ["padded", "interleaved"])
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t,d,hq,hkv", [
     (256, 128, 8, 2), (200, 128, 8, 2),
+    (320, 128, 8, 2),     # T past the last 128-token tile
     (200, 64, 14, 2),     # Qwen2.5-0.5B's heads: 7 query heads a kv head
+    (2048, 64, 14, 2),    # ... at T = 2,048: dk/dv splits each group
     (256, 64, 32, 8),     # Llama-3.2-1B's
     (200, 256, 4, 4),     # Gemma-1's head dim, no GQA
     (256, 256, 8, 2),
 ])
-def test_flash_attention_kernels_match_plain(dev, t, d, hq, hkv):
+def test_flash_attention_kernels_match_plain(dev, t, d, hq, hkv, causal,
+                                             seg_kind):
     """K16 forward (out, lse) and backward (dq, dk, dv) against the plain
-    fp32 twins on the same bf16 inputs at head dims 64, 128 and 256, one
-    full row and one padded row (pad queries included), a ragged T among
-    them: every position row by row (``chip_smoke.attn_row_err``: each
-    element within 2^-6 of its value plus 2^-4 of its (token, head) row's
-    rms; the kernels round P and dS to bf16), lse within 1e-3; the
-    backward pair gets the kernel forward's (out, lse)."""
+    fp32 twins on the same bf16 inputs at head dims 64, 128 and 256, causal
+    and not: one full row and one padded row (pad queries included), or
+    interleaved segment ids (an id that recurs after another), ragged Ts
+    among them: every position row by row (``chip_smoke.attn_row_err``:
+    each element within 2^-6 of its value plus 2^-4 of its (token, head)
+    row's rms; the kernels round P and dS to bf16), lse within 1e-3; the
+    backward pair gets the kernel forward's (out, lse), and run again it
+    gives the same bits. The tile pairs each kernel classed (its counters)
+    are the rule's at its tiles (``chip_smoke.flash_tile_counts``)."""
     g = torch.Generator(device=dev).manual_seed(8)
     q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
     seg = torch.ones((2, t), dtype=torch.int32, device=dev)
-    seg[1, t - 70:] = 0
+    if seg_kind == "padded":
+        seg[1, t - 70:] = 0
+    else:
+        seg[0, ::3] = 2
+        seg[1, t // 3:2 * t // 3] = 3
     lo, hi = tfa.tile_segment_ranges(seg)
     scale = d ** -0.5
-    before = (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
-              tfa.flash_attention_dkv.launches)
-    out, lse = tfa.flash_attention_fwd(q, k, v, seg, lo, hi, scale=scale)
+    sfx = "" if causal else "_full"
+    fns = [getattr(tfa, f"flash_attention_{w}{sfx}")
+           for w in ("fwd", "dq", "dkv")]
+    before = [f.launches for f in fns]
+    out, lse = fns[0](q, k, v, seg, lo, hi, scale=scale)
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, seg, lo, hi, out, lse, dout,
-                                         scale=scale)
-    rout, rlse = tfa.flash_attention_fwd_ref(q, k, v, seg, scale)
+                                         scale=scale, causal=causal)
+    rout, rlse = tfa.flash_attention_fwd_ref(q, k, v, seg, scale, causal)
     rdq, rdk, rdv = tfa.flash_attention_bwd_ref(q, k, v, seg, out, lse, dout,
-                                                scale)
+                                                scale, causal)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_dq.launches,
-            tfa.flash_attention_dkv.launches) == tuple(x + 1 for x in before)
+    assert [f.launches for f in fns] == [x + 1 for x in before]
     assert (lse - rlse).abs().max() <= 1e-3
     for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
         assert torch.isfinite(got).all()
         assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+    again = tfa.flash_attention_bwd(q, k, v, seg, lo, hi, out, lse, dout,
+                                    scale=scale, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    got = kernel_tile_classes(q, k, v, seg, dout, scale, causal)
+    assert got == {w: flash_tile_counts(seg, causal, *tfa.KERNEL_TILES[w][d])
+                   for w in got}
 
 
 def test_flash_attention_refuses_other_head_dims(dev):

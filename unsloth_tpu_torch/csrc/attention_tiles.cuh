@@ -1,12 +1,15 @@
-// Device code shared by the two flash attention sources of this package:
-// packed_attention.cu (segment-block-sparse, packed rows; TPU kernels of
-// unsloth_tpu/ops/packed_attention.py) and flash_attention.cu (the whole
-// range, causal or not, unpacked or padded rows; the bundled Pallas flash
-// kernels that unsloth_tpu/ops/attention.py:_tpu_flash calls).
+// Device code of the packed flash attention kernels, packed_attention.cu
+// (segment-block-sparse, packed rows; TPU kernels of
+// unsloth_tpu/ops/packed_attention.py, D = 128). Unpacked flash attention
+// (K16) has its own Hopper kernels: flash_fwd.cu, flash_dq.cu,
+// flash_dkv.cu on hopper_tiles.cuh.
 //
-// Each source instantiates the three kernels below with a head dim D and a
-// *range policy*, which alone decides which (query tile, kv tile) pairs a
-// block visits and whether the mask is causal:
+// packed_attention.cu instantiates the three kernels below at D = 128 with
+// its causal PackedRange alone. The head dims 64 and 256 (Tiles<D>), the
+// non-causal branches of the in-tile masks and the q_begin hook served the
+// old unpacked kernels and no longer compile into anything; cutting them is
+// later work. The *range policy* alone decides which (query tile, kv tile)
+// pairs a block visits and whether the mask is causal:
 //   kCausal                           compile-time: the mask holds j <= i;
 //   kv_begin(b, iq) .. kv_end(b, iq)  kv tiles of query tile iq;
 //   q_begin(b, j) .. q_end(b, j)      query tiles of kv tile j (a causal

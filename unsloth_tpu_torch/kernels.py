@@ -28,11 +28,12 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
-           "flash_attention.cu", "cross_entropy.cu", "splash_attention.cu",
-           "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu", "layer_norm.cu",
-           "fp8_matmul.cu")
+           "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu",
+           "cross_entropy.cu", "splash_attention.cu", "nf4_gmm.cu",
+           "flash_sinks.cu", "gmm.cu", "layer_norm.cu", "fp8_matmul.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("attention_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
+HEADERS = ("attention_tiles.cuh", "hopper_tiles.cuh", "expert_visits.cuh",
+           "norm_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -129,15 +130,18 @@ def library() -> ctypes.CDLL:
                                                 p]
         lib.unsloth_packed_attn_bwd.restype = i
         b = ctypes.c_bool
-        # pointers, B, T, Hq, Hkv, D, scale, causal, stream
+        # pointers, B, T, Hq, Hkv, D, scale, causal, the tile-pair class
+        # counters (or null), stream; dk/dv also its fp32 scratch (or null)
+        # and head-slice count before B
         lib.unsloth_flash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                               i, i, i, f, b, p]
+                                               i, i, i, f, b, p, p]
         lib.unsloth_flash_attn_fwd.restype = i
         lib.unsloth_flash_attn_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                              p, i, i, i, i, i, f, b, p]
+                                              p, i, i, i, i, i, f, b, p, p]
         lib.unsloth_flash_attn_dq.restype = i
         lib.unsloth_flash_attn_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               p, i, i, i, i, i, f, b, p]
+                                               p, p, i, i, i, i, i, i, f, b,
+                                               p, p]
         lib.unsloth_flash_attn_dkv.restype = i
         # pointers, the prefix layout (P, G, L), B, T, Hq, Hkv, D, scale,
         # window, softcap, causal, the visited tile-pair counter (or null),

@@ -13,16 +13,24 @@ query attends the pad keys (at or before it, when causal). Scale: the
 scores are formed in fp32 and multiplied by ``sm_scale`` there, as in the
 bundled kernel.
 
-On CUDA tensors :func:`flash_attention` runs ``csrc/flash_attention.cu``:
-:func:`flash_attention_fwd` (out and an fp32 logsumexp),
-:func:`flash_attention_dq` (dq, and di = sum(dout * out)) and
-:func:`flash_attention_dkv` (dk, dv summed over the query heads of each
-kv head), and without causality :func:`flash_attention_fwd_full`,
+On CUDA tensors :func:`flash_attention` runs the Hopper kernels of
+``csrc/flash_fwd.cu``, ``csrc/flash_dq.cu`` and ``csrc/flash_dkv.cu``
+(entry points in ``csrc/flash_attention.cu``; wgmma products, TMA-fed tile
+rings, the softmax in registers): :func:`flash_attention_fwd` (out and an
+fp32 logsumexp), :func:`flash_attention_dq` (dq, and di = sum(dout *
+out)) and :func:`flash_attention_dkv` (dk, dv summed over the query heads
+of each kv head), and without causality :func:`flash_attention_fwd_full`,
 :func:`flash_attention_dq_full` and :func:`flash_attention_dkv_full`, each
-with its own launch count, so that a path can show which form it ran. On
-CPU tensors it runs the plain versions :func:`flash_attention_fwd_ref` and
-:func:`flash_attention_bwd_ref` in fp32. The device of q is the only thing
-that chooses.
+with its own launch count, so that a path can show which form it ran.
+Under GQA the dk/dv kernel splits each kv head's query heads over
+:func:`dkv_splits` blocks, whose fp32 partials a second kernel adds in a
+fixed order. Each kernel wrapper takes an optional
+``tile_classes`` (int32 [3] on the card) to which the kernel adds the
+(query tile, kv tile) pairs it visited, by class: skipped (disjoint
+segment-id ranges), full (no mask needed) and masked; :data:`KERNEL_TILES`
+gives the tiles. On CPU tensors it runs the plain versions
+:func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` in
+fp32. The device of q is the only thing that chooses.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
 [B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256 (JAX runs the
@@ -38,10 +46,15 @@ import torch
 
 from .. import kernels
 
-#: tokens per kernel tile (query and kv)
+#: tokens per tile of the segment-id ranges (tile_segment_ranges), which
+#: K17 and K18 share
 BLOCK = 64
 #: head dims the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: (query tile, kv tile) tokens of each Hopper kernel, by head dim
+KERNEL_TILES = {"fwd": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
+                "dq": {64: (128, 64), 128: (128, 64), 256: (128, 32)},
+                "dkv": {64: (64, 128), 128: (64, 128), 256: (32, 64)}}
 
 
 def _mask(segment_ids: Optional[torch.Tensor], b: int, t: int, device,
@@ -156,7 +169,46 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, scale, causal):
+def _classes(tile_classes: Optional[torch.Tensor], q: torch.Tensor):
+    """The counters' pointer (None: no counting)."""
+    if tile_classes is None:
+        return None
+    if (tile_classes.dtype != torch.int32 or tile_classes.device != q.device
+            or tile_classes.shape != (3,)):
+        raise ValueError("flash attention: tile_classes must be an int32 [3] "
+                         f"on {q.device}; got {tile_classes.dtype} "
+                         f"{tuple(tile_classes.shape)} on "
+                         f"{tile_classes.device}")
+    return tile_classes.data_ptr()
+
+
+def _multiprocessors(device: torch.device) -> int:
+    """The card's multiprocessor count; an H100's 132 for a device that is
+    no card (the meta tensors that stand in for one in the dispatch
+    tests)."""
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dkv_splits(b: int, t: int, hq: int, hkv: int, d: int,
+               sms: int) -> int:
+    """Blocks that share the Hq / Hkv query heads of a kv head in the dk/dv
+    kernel: the least divisor of the group that gives the grid two blocks
+    for each of the card's ``sms`` multiprocessors, else the whole group
+    (one head a block); 1 without GQA."""
+    group = hq // hkv
+    if group == 1:
+        return 1
+    blocks = -(-t // KERNEL_TILES["dkv"][d][1]) * hkv * b
+    for n in range(1, group + 1):
+        if group % n == 0 and blocks * n >= 2 * sms:
+            return n
+    return group
+
+
+def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, scale, causal,
+         tile_classes=None):
     _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -167,13 +219,13 @@ def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, scale, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, t, hq, k.shape[2], d, float(scale), causal,
-        _stream(q))
+        _classes(tile_classes, q), _stream(q))
     kernels.check(rc, name)
     return out, lse
 
 
 def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, scale,
-        causal):
+        causal, tile_classes=None):
     _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -186,13 +238,14 @@ def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), causal, _stream(q))
+        hq, k.shape[2], d, float(scale), causal, _classes(tile_classes, q),
+        _stream(q))
     kernels.check(rc, name)
     return dq, di
 
 
 def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, scale,
-         causal):
+         causal, tile_classes=None):
     _check_kernel_inputs(name, q, k, v, segment_ids)
     b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -201,69 +254,74 @@ def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, scale,
     lse, di = lse.contiguous(), di.contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    hkv = k.shape[2]
+    splits = dkv_splits(b, t, hq, hkv, d, _multiprocessors(q.device))
+    scratch = None if splits == 1 else torch.empty(
+        (splits, 2) + tuple(k.shape), dtype=torch.float32, device=q.device)
     rc = kernels.library().unsloth_flash_attn_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        hq, k.shape[2], d, float(scale), causal, _stream(q))
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), splits, b, t, hq,
+        hkv, d, float(scale), causal, _classes(tile_classes, q), _stream(q))
     kernels.check(rc, name)
     return dk, dv
 
 
 def flash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
-                        scale: float):
+                        scale: float, tile_classes=None):
     """Kernel forward, causal: (out [B, T, Hq, D] bf16, lse [B, Hq, T]
     fp32)."""
     res = _fwd("flash_attention_fwd", q, k, v, segment_ids, seg_min,
-               seg_max, scale, True)
+               seg_max, scale, True, tile_classes)
     flash_attention_fwd.launches += 1
     return res
 
 
 def flash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
-                       dout, *, scale: float):
+                       dout, *, scale: float, tile_classes=None):
     """Kernel dq, causal: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
     res = _dq("flash_attention_dq", q, k, v, segment_ids, seg_min, seg_max,
-              out, lse, dout, scale, True)
+              out, lse, dout, scale, True, tile_classes)
     flash_attention_dq.launches += 1
     return res
 
 
 def flash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
-                        dout, *, scale: float):
+                        dout, *, scale: float, tile_classes=None):
     """Kernel dk/dv, causal: (dk, dv) [B, T, Hkv, D] bf16, from the dq
     kernel's di."""
     res = _dkv("flash_attention_dkv", q, k, v, segment_ids, seg_min, seg_max,
-               lse, di, dout, scale, True)
+               lse, di, dout, scale, True, tile_classes)
     flash_attention_dkv.launches += 1
     return res
 
 
 def flash_attention_fwd_full(q, k, v, segment_ids, seg_min, seg_max, *,
-                             scale: float):
+                             scale: float, tile_classes=None):
     """Kernel forward without causality: as :func:`flash_attention_fwd`,
     every key of the query's segment attended."""
     res = _fwd("flash_attention_fwd_full", q, k, v, segment_ids, seg_min,
-               seg_max, scale, False)
+               seg_max, scale, False, tile_classes)
     flash_attention_fwd_full.launches += 1
     return res
 
 
 def flash_attention_dq_full(q, k, v, segment_ids, seg_min, seg_max, out, lse,
-                            dout, *, scale: float):
+                            dout, *, scale: float, tile_classes=None):
     """Kernel dq without causality (:func:`flash_attention_dq`'s form)."""
     res = _dq("flash_attention_dq_full", q, k, v, segment_ids, seg_min,
-              seg_max, out, lse, dout, scale, False)
+              seg_max, out, lse, dout, scale, False, tile_classes)
     flash_attention_dq_full.launches += 1
     return res
 
 
 def flash_attention_dkv_full(q, k, v, segment_ids, seg_min, seg_max, lse, di,
-                             dout, *, scale: float):
+                             dout, *, scale: float, tile_classes=None):
     """Kernel dk/dv without causality (:func:`flash_attention_dkv`'s
     form)."""
     res = _dkv("flash_attention_dkv_full", q, k, v, segment_ids, seg_min,
-               seg_max, lse, di, dout, scale, False)
+               seg_max, lse, di, dout, scale, False, tile_classes)
     flash_attention_dkv_full.launches += 1
     return res
 

@@ -70,7 +70,10 @@ exits non-zero without printing a result:
                mixed-segment tile called full; K18 also: the
                window ignored, the softcap's derivative dropped; K14/K15:
                one expert's rows through the next expert's weights, the
-               bias dropped; K19 the same; K17: the sink ignored, dsinks
+               bias dropped; K19 the same and a straddling tile's rows
+               stored by the next expert's visit, with its work-unit
+               counters held to the schedule's twin at (a) and (b) and
+               its (a) rerun for the same bits; K17: the sink ignored, dsinks
                dropped; K18's prefix form: the region rule dropped, the
                prefix dropped; K12/K13: a contraction block read with its
                neighbour's scale, the scales ignored, the last contraction
@@ -2575,11 +2578,15 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     order, the forward then adds the bf16 bias and rounds again), and
     max|d| beside it. The check must reject the rows of one expert
     multiplied by the next expert's weights (forward and dx) and the bias
-    dropped (forward). Times: the kernels, the plain versions, and the
-    library call ``torch._grouped_mm`` (+ the bias gathered by row; where
-    the card's torch has it), fed W in the column-major layout it takes,
-    made once outside the timing. Bound: 2 m N K operations; bytes of the
-    rows, of the experts this routing visits and of the output."""
+    dropped (forward), and a straddling tile's rows stored by the next
+    expert's visit (:func:`gmm_straddle_faults`). Above the decode rows the
+    kernels' work-unit counters must equal :func:`gmm_unit_counts`; at (a)
+    a rerun must give the same bits. Times: the kernels, the plain
+    versions, and the library call ``torch._grouped_mm`` (+ the bias
+    gathered by row; where the card's torch has it), fed W in the
+    column-major layout it takes, made once outside the timing, and the
+    kernel's ratio to it. Bound: 2 m N K operations; bytes of the rows, of
+    the experts this routing visits and of the output."""
     import torch
 
     from unsloth_tpu_torch.ops import gmm as tgmm
@@ -2587,8 +2594,11 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     e, n, k = w.shape
     m = x.shape[0]
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
-    y = tgmm.gmm(x, w, sizes, bias)
-    dx = tgmm.gmm_dx(gy, w, sizes)
+    counted = m > tgmm.KERNEL_TILES["small_m"]
+    counts = {name: torch.zeros(4, dtype=torch.int32, device=dev)
+              for name in ("gmm", "gmm_dx")}
+    y = tgmm.gmm_fwd(x, w, sizes, bias, unit_counts=counts["gmm"])
+    dx = tgmm.gmm_dx(gy, w, sizes, unit_counts=counts["gmm_dx"])
     ref, ref_ms = once_ms(lambda: tgmm.gmm_ref(x, w, sizes, bias))
     rdx, rdx_ms = once_ms(
         lambda: tgmm.gmm_ref(gy, w, sizes, transpose=True))
@@ -2599,6 +2609,29 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
             raise RuntimeError(f"{name} {label} is not finite")
         errs[name] = ((got.float() - want.float()).abs().max().item(),
                       attn_row_err(got, want))
+    extra = {"gmm": {}, "gmm_dx": {}}
+    if counted:
+        # the kernels' work units against the schedule's twin
+        sz = sizes.tolist()
+        for name, n_out in (("gmm", n), ("gmm_dx", k)):
+            got_c = counts[name].tolist()
+            want_c = gmm_unit_counts(sz, m, n_out)
+            log(f"[kernels] {name} {label}: work units (expert, past the "
+                f"groups, TMA halves, masked halves) kernel {got_c} twin "
+                f"{want_c}")
+            if got_c != want_c:
+                raise RuntimeError(f"K19 {name}'s work units at {label} "
+                                   f"differ from the schedule: {got_c} "
+                                   f"against {want_c}")
+            extra[name]["unit_counts"] = got_c
+    if label.startswith("(a)"):
+        same = [bool(torch.equal(y, tgmm.gmm(x, w, sizes, bias))),
+                bool(torch.equal(dx, tgmm.gmm_dx(gy, w, sizes)))]
+        log(f"[kernels] gmm, gmm_dx {label}: run twice, same bits {same}")
+        if not all(same):
+            raise RuntimeError(f"K19 forward / dx at {label} gave other "
+                               f"bits on a second run: {same}")
+        extra["gmm"]["same_bits"] = extra["gmm_dx"]["same_bits"] = True
     # faults: one expert's rows through the next live expert's weights
     sz = sizes.tolist()
     live = [i for i, s_ in enumerate(sz) if s_]
@@ -2615,8 +2648,11 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     del w1
     faults = {"gmm": _row_faults(ref, {
         "next expert's weights": wrong_y,
-        "bias dropped": tgmm.gmm_ref(x, w, sizes)}),
-        "gmm_dx": _row_faults(rdx, {"next expert's weights": wrong_dx})}
+        "bias dropped": tgmm.gmm_ref(x, w, sizes),
+        **gmm_straddle_faults(x, w, sizes, bias)}),
+        "gmm_dx": _row_faults(rdx, {
+            "next expert's weights": wrong_dx,
+            **gmm_straddle_faults(gy, w, sizes, transpose=True)})}
     lib = {"gmm": None, "gmm_dx": None}
     lib_err = {}
     if hasattr(torch, "_grouped_mm"):
@@ -2653,17 +2689,170 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
              f"with rows (largest {max(sz)})")
     del y, dx, ref, rdx, wrong_y, wrong_dx, gy
     torch.cuda.empty_cache()
-    return _grouped_rows("grouped dense", shape, errs, faults, times,
-                         {"gmm": b_fwd, "gmm_dx": b_dx}, lib, lib_err,
-                         "torch._grouped_mm")
+    res = _grouped_rows("grouped dense", shape, errs, faults, times,
+                        {"gmm": b_fwd, "gmm_dx": b_dx}, lib, lib_err,
+                        "torch._grouped_mm")
+    for name, row in res.items():
+        row.update(extra[name])
+        if row["library_ms"]:
+            row["library_ratio"] = row["ms"] / row["library_ms"]
+            log(f"[kernels] {name} {label}: kernel / torch._grouped_mm "
+                f"{row['library_ratio']:.3f}")
+    return res
 
 
-#: tgmm's row chunk (csrc/gmm.cu kTgRows): the "last partial chunk
-#: dropped" fault drops each group's rows past its last whole chunk
-TGMM_CHUNK = 32
+#: tgmm's row chunk (csrc/tgmm.cu kChunk, ops.gmm.KERNEL_TILES
+#: "tgmm_chunk"): the "last partial chunk dropped" fault drops each group's
+#: rows past its last whole chunk
+TGMM_CHUNK = 64
 #: phase 3's small ragged tgmm case: (E, N, K, group sizes): N and K not
 #: multiples of 64, empty experts, groups not multiples of the chunk
 TGMM_RAGGED = (6, 200, 136, (0, 45, 0, 70, 1, 33))
+
+
+def gmm_work_units(sizes, m, n_out, tiles=None):
+    """The work units of K19's forward / dx kernel at more than
+    KERNEL_TILES["small_m"] rows (csrc/gmm.cu: unit_of, build_tables), in
+    the kernel's numbering: a list of dicts (g, row0, lo, hi, col0). Group
+    g (of E = len(sizes)) owns rows [off_g, off_g + size_g), sizes clamped
+    to [0, m]; group E is the rows past the groups, whose units store
+    zeros. A group's units are its visits (the ``rows``-row tiles it
+    touches, its rows [lo, hi) of each) times the ``cols``-column tiles of
+    the output, column tile by column tile with the visits fastest. (The
+    kernel's clusters of two CTAs take the experts' units in pairs, 2 q and
+    2 q + 1; the second CTA of an odd last pair loads a copy of the first's
+    unit and stores nothing.)"""
+    from unsloth_tpu_torch.ops.gmm import KERNEL_TILES
+
+    t = tiles or KERNEL_TILES
+    bm, bn = t["rows"], t["cols"]
+    ncol = -(-n_out // bn)
+    sz = [int(s_) for s_ in sizes]
+    ends, off = [], 0
+    for s_ in sz:
+        off = min(off + max(s_, 0), m)
+        ends.append(off)
+    ends.append(m)
+    units, start = [], 0
+    for g, end in enumerate(ends):
+        if end > start:
+            first, last = start // bm, (end - 1) // bm
+            nv = last - first + 1
+            for c in range(ncol):
+                for v in range(nv):
+                    row0 = (first + v) * bm
+                    units.append(dict(g=g, row0=row0, lo=max(start, row0),
+                                      hi=min(end, row0 + bm), col0=c * bn))
+        start = end
+    return units
+
+
+def gmm_unit_counts(sizes, m, n_out, tiles=None):
+    """[units of an expert, units of the rows past the groups, 64-row
+    halves stored by TMA, halves stored by masked stores]: what K19's
+    forward / dx kernel adds to its ``unit_counts`` (:func:`gmm_work_units`:
+    a half of rows r0 .. r0 + 63 holding none of the unit's rows is skipped,
+    one holding only them goes by TMA, any other by masked stores)."""
+    counts = [0, 0, 0, 0]
+    for u in gmm_work_units(sizes, m, n_out, tiles):
+        counts[0 if u["g"] < len(sizes) else 1] += 1
+        for r0 in (u["row0"], u["row0"] + 64):
+            if r0 < u["hi"] and r0 + 64 > u["lo"]:
+                counts[2 if u["lo"] <= r0 and r0 + 64 <= u["hi"] else 3] += 1
+    return counts
+
+
+def gmm_stored(units, n_out, tiles=None):
+    """[(g, rows range, columns range)] that the units of
+    :func:`gmm_work_units` store: each 64-row half's rows inside [lo, hi),
+    its columns below n_out."""
+    from unsloth_tpu_torch.ops.gmm import KERNEL_TILES
+
+    bn = (tiles or KERNEL_TILES)["cols"]
+    out = []
+    for u in units:
+        for r0 in (u["row0"], u["row0"] + 64):
+            lo, hi = max(u["lo"], r0), min(u["hi"], r0 + 64)
+            if lo < hi:
+                out.append((u["g"], range(lo, hi),
+                            range(u["col0"], min(u["col0"] + bn, n_out))))
+    return out
+
+
+def tgmm_work_units(sizes, n, k, m=None, tiles=None):
+    """The work units of K19's tgmm kernel (csrc/tgmm.cu) in its
+    numbering: dicts (g, n0, k0, chunks), a unit per (expert, ``tgmm_n`` x
+    ``tgmm_k`` tile of [N, K]), expert by expert, the experts by rows, most
+    first (ties by index), N tiles by N tiles with the K tiles fastest;
+    chunks the (first row, rows kept) of each ``tgmm_chunk``-row chunk of
+    the group, from its first row: the rows past the group's end are the
+    ones the kernel zeros. Sizes clamped to [0, m]."""
+    from unsloth_tpu_torch.ops.gmm import KERNEL_TILES
+
+    t = tiles or KERNEL_TILES
+    tn, tk, ch = t["tgmm_n"], t["tgmm_k"], t["tgmm_chunk"]
+    sz = [int(s_) for s_ in sizes]
+    m = sum(max(s_, 0) for s_ in sz) if m is None else m
+    spans, off = [], 0
+    for s_ in sz:
+        end = min(off + max(s_, 0), m)
+        spans.append((off, end))
+        off = end
+    order = sorted(range(len(sz)), key=lambda g: (spans[g][0] - spans[g][1],
+                                                   g))
+    units = []
+    for g in order:
+        lo, end = spans[g]
+        chunks = [(r, min(ch, end - r)) for r in range(lo, end, ch)]
+        for n0 in range(0, n, tn):
+            for k0 in range(0, k, tk):
+                units.append(dict(g=g, n0=n0, k0=k0, chunks=chunks))
+    return units
+
+
+def tgmm_unit_counts(sizes, n, k, m=None, tiles=None):
+    """[units of an expert with rows, units of an empty expert, chunks
+    reduced, chunks zeroed past the group's end]: what K19's tgmm kernel
+    adds to its ``unit_counts`` (:func:`tgmm_work_units`)."""
+    from unsloth_tpu_torch.ops.gmm import KERNEL_TILES
+
+    ch = (tiles or KERNEL_TILES)["tgmm_chunk"]
+    counts = [0, 0, 0, 0]
+    for u in tgmm_work_units(sizes, n, k, m, tiles):
+        counts[0 if u["chunks"] else 1] += 1
+        counts[2] += len(u["chunks"])
+        counts[3] += sum(kept < ch for _, kept in u["chunks"])
+    return counts
+
+
+def gmm_straddle_faults(x, w, sizes, bias=None, transpose=False):
+    """{fault: output} of K19's forward (dx with ``transpose``) as a wrong
+    schedule would write it, by the plain version: the first 128-row tile
+    that straddles two experts with rows has the first expert's rows in it
+    stored by the second expert's visit (through that expert's weights and
+    bias). Empty where no tile straddles."""
+    import torch
+
+    from unsloth_tpu_torch.ops.gmm import KERNEL_TILES, gmm_ref
+
+    bm = KERNEL_TILES["rows"]
+    ref = gmm_ref(x, w, sizes, bias, transpose=transpose)
+    sz = [int(s_) for s_ in sizes.tolist()]
+    ends = torch.tensor(sz).cumsum(0).tolist()
+    live = [i for i, s_ in enumerate(sz) if s_]
+    for g0, g1 in zip(live, live[1:]):
+        b = ends[g0]
+        if b % bm:
+            r0 = max(b // bm * bm, b - sz[g0])
+            wg = w[g1].float()
+            y = (x[r0:b].float() @ (wg if transpose else wg.t())).to(ref.dtype)
+            if bias is not None and not transpose:
+                y = y + bias[g1].to(ref.dtype)
+            wrong = ref.clone()
+            wrong[r0:b] = y
+            return {"straddling rows stored by the next expert's visit":
+                    wrong}
+    return {}
 
 
 def tgmm_faults(lhs, gy, sizes):
@@ -2749,9 +2938,11 @@ def _tgmm_case(dev, g, flush, label, x, sizes, n):
     """K19 tgmm at one routing against tgmm_ref (fp32 sums of the same bf16
     products per expert, one rounding): every element within MM_ULPS
     (:func:`mm_ulps`), the empty experts' slabs exactly zero with the
-    output's memory filled with NaN first, and each fault of
-    :func:`tgmm_faults` rejected. Times: the kernel, the plain version
-    once, the library yardstick of :func:`tgmm_library`. Bound: 2 m N K
+    output's memory filled with NaN first, each fault of
+    :func:`tgmm_faults` rejected, the kernel's work-unit counters equal to
+    :func:`tgmm_unit_counts` and, at (a), a rerun's bits the same. Times:
+    the kernel, the plain version once, the library yardstick of
+    :func:`tgmm_library` and the kernel's ratio to it. Bound: 2 m N K
     operations; bytes of lhs, gy and dW."""
     import torch
 
@@ -2765,11 +2956,25 @@ def _tgmm_case(dev, g, flush, label, x, sizes, n):
                      device=dev)
     nan_ptr = nan.data_ptr()
     del nan
-    got = tgmm.tgmm(x, gy, sizes)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    got = tgmm.tgmm(x, gy, sizes, unit_counts=counts)
     reused = got.data_ptr() == nan_ptr
     ref, plain_ms = once_ms(lambda: tgmm.tgmm_ref(x, gy, sizes))
     torch.cuda.synchronize()
     sz = [int(s_) for s_ in sizes.tolist()]
+    got_c, want_c = counts.tolist(), tgmm_unit_counts(sz, n, k, m)
+    log(f"[kernels] tgmm {label}: work units (expert with rows, empty "
+        f"expert, chunks, chunks zeroed) kernel {got_c} twin {want_c}")
+    if got_c != want_c:
+        raise RuntimeError(f"K19 tgmm's work units at {label} differ from "
+                           f"the schedule: {got_c} against {want_c}")
+    same = None
+    if label.startswith("(a)"):
+        same = bool(torch.equal(got, tgmm.tgmm(x, gy, sizes)))
+        log(f"[kernels] tgmm {label}: run twice, same bits {same}")
+        if not same:
+            raise RuntimeError(f"K19 tgmm at {label} gave other bits on a "
+                               f"second run")
     empty = [i for i, s_ in enumerate(sz) if not s_]
     ulps = mm_ulps(got, ref)
     err = (got.float() - ref.float()).abs().max().item()
@@ -2789,7 +2994,7 @@ def _tgmm_case(dev, g, flush, label, x, sizes, n):
         + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
         + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}, {100 * b_ms / ms:.1f}% of it); {library} {lib_ms:.4f} ms "
-        f"({lib_ulps:.2f} ulp)")
+        f"({lib_ulps:.2f} ulp; kernel / library {ms / lib_ms:.3f})")
     if not (bool(torch.isfinite(got).all()) and ulps <= MM_ULPS and zeros):
         raise RuntimeError(f"tgmm disagrees at {shape}: {ulps} ulp, empty "
                            f"experts zero: {zeros}")
@@ -2801,7 +3006,9 @@ def _tgmm_case(dev, g, flush, label, x, sizes, n):
     torch.cuda.empty_cache()
     return dict(shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library=library)
+                library=library, library_ratio=ms / lib_ms,
+                unit_counts=got_c,
+                **({} if same is None else {"same_bits": same}))
 
 
 def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
@@ -6152,7 +6359,8 @@ def _device_report(prof, wall_us, top):
     # device time by kernel family (wrapper kernel names), and under the
     # port's profiler ranges (record_function: the MoE routing and
     # permutation glue, the banded attention), from their device spans
-    families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel",),
+    families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel", "gmm_wgmma_kernel",
+                                              "tgmm_kernel"),
                 "K1/K2 nf4_matmul":
                 ("nf4_matmul",), "K17 flash sinks": ("sinks_",),
                 "K18 splash": ("splash_",),
@@ -7298,10 +7506,12 @@ def _kernels_line(rows, by_path):
                             "sinks: bundled _flash_attention_bwd_dkv)",
                             "(a) packed row"),
         "gmm": ("gmm.cu", "unsloth_tpu/ops/moe.py:249 (tiled_gmm: bundled "
-                "megablox gmm, transpose_rhs=True)", "(a) path"),
+                "megablox gmm, gmm.py:314, pallas_call :526, "
+                "transpose_rhs=True)", "(a) path"),
         "gmm_dx": ("gmm.cu", "unsloth_tpu/ops/moe.py:249 (megablox gmm's "
-                   "VJP: gmm with transpose_rhs flipped)", "(a) path"),
-        "tgmm": ("gmm.cu", "jax/experimental/pallas/ops/tpu/megablox/"
+                   "VJP, ops.py:80: gmm with transpose_rhs flipped)",
+                   "(a) path"),
+        "tgmm": ("tgmm.cu", "jax/experimental/pallas/ops/tpu/megablox/"
                  "gmm.py:573 (tgmm, pallas_call :763; megablox _gmm_bwd "
                  "ops.py:90, reached from unsloth_tpu/ops/moe.py:249 when "
                  "the experts train)", "(a) path"),
@@ -7429,7 +7639,8 @@ def _kernels_line(rows, by_path):
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
                                          "tile_pairs", "tile_pairs_segments",
                                          "causal_tile_pairs", "tile_classes",
-                                         "same_bits")
+                                         "same_bits", "library_ratio",
+                                         "unit_counts")
                if key in row}})
     return kernels_line
 

@@ -582,6 +582,8 @@ from unsloth_tpu_torch.ops import gmm as tgmm  # noqa: E402
     (16, 320, 200, 900, "skewed"),      # empty experts, K % 64 != 0
     (4, 136, 72, 300, "one"),           # every row routed to one expert
     (32, 2880, 2880, 8, "random"),      # decode rows
+    (32, 2880, 2880, 16384, "random"),  # the gpt-oss path's rows
+    (32, 2880, 2880, 16384, "skewed"),
 ])
 def test_gmm_kernels_match_plain(dev, e, n, k, m, kind):
     """K19 forward (with and without the bias epilogue) and dx against
@@ -628,6 +630,8 @@ def test_gmm_kernels_match_plain(dev, e, n, k, m, kind):
     (8, 768, 2048, 513, "random"),      # qwen3-moe's; m not a chunk multiple
     (16, 200, 136, 900, "skewed"),      # N, K % 64 != 0; empty experts
     (4, 136, 72, 300, "one"),           # every row routed to one expert
+    (32, 2880, 2880, 16384, "random"),  # the gpt-oss path's rows
+    (32, 2880, 2880, 16384, "skewed"),
 ])
 def test_tgmm_kernel_matches_plain(dev, fp32_reductions, e, n, k, m, kind):
     """K19's tgmm against tgmm_ref on the same bf16 inputs: every element
@@ -676,6 +680,65 @@ def test_tgmm_kernel_matches_plain(dev, fp32_reductions, e, n, k, m, kind):
         <= MM_ULPS
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tgmm.tgmm(x.float(), gy, sizes)
+
+
+@pytest.mark.parametrize("e,n,k,m,kind", [
+    (32, 2880, 2880, 16384, "random"),  # the gpt-oss path's rows
+    (32, 2880, 2880, 16384, "skewed"),
+    (16, 320, 200, 900, "skewed"),      # empty experts, ragged N and K
+    (4, 136, 72, 300, "one"),           # one expert, rows past 256
+    (8, 768, 2048, 513, "short"),       # rows past the groups
+])
+def test_gmm_work_units_match_the_schedule(dev, e, n, k, m, kind):
+    """K19's forward, dx and tgmm kernels report, through their
+    ``unit_counts``, the work units of the schedule's twin
+    (chip_smoke.gmm_unit_counts, tgmm_unit_counts); a rerun gives the same
+    bits; rows past the groups come back zero from memory the kernel got
+    uninitialised (filled with NaN first); the row-wise check rejects a
+    straddling tile's rows stored by the next expert's visit."""
+    from chip_smoke import (gmm_straddle_faults, gmm_unit_counts,
+                            tgmm_unit_counts)
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    if kind == "one":
+        sizes = torch.zeros(e, dtype=torch.int32, device=dev)
+        sizes[e - 1] = m
+    elif kind == "short":
+        sizes = _group_sizes("random", e, m - 100, g, dev)
+    else:
+        sizes = _group_sizes(kind, e, m, g, dev)
+    sz = sizes.tolist()
+    w = (torch.randn((e, n, k), generator=g, device=dev) * 0.05
+         ).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((e, n), generator=g, device=dev).to(torch.bfloat16)
+    counts = [torch.zeros(4, dtype=torch.int32, device=dev) for _ in range(3)]
+    torch.full((m, max(n, k)), float("nan"), dtype=torch.bfloat16,
+               device=dev)
+    y = tgmm.gmm_fwd(x, w, sizes, bias, unit_counts=counts[0])
+    dx = tgmm.gmm_dx(gy, w, sizes, unit_counts=counts[1])
+    dw = tgmm.tgmm(x, gy, sizes, unit_counts=counts[2])
+    torch.cuda.synchronize()
+    assert counts[0].tolist() == gmm_unit_counts(sz, m, n)
+    assert counts[1].tolist() == gmm_unit_counts(sz, m, k)
+    assert counts[2].tolist() == tgmm_unit_counts(sz, n, k, m)
+    assert torch.equal(y, tgmm.gmm_fwd(x, w, sizes, bias))
+    assert torch.equal(dx, tgmm.gmm_dx(gy, w, sizes))
+    assert torch.equal(dw, tgmm.tgmm(x, gy, sizes))
+    ref = tgmm.gmm_ref(x, w, sizes, bias)
+    rdx = tgmm.gmm_ref(gy, w, sizes, transpose=True)
+    assert attn_row_err(y, ref) <= ATTN_ROW_TOL
+    assert attn_row_err(dx, rdx) <= ATTN_ROW_TOL
+    end = sum(sz)
+    assert (y[end:] == 0).all() and (dx[end:] == 0).all()
+    faults = {**gmm_straddle_faults(x, w, sizes, bias),
+              **{f"dx: {f_}": (wrong, rdx) for f_, wrong in
+                 gmm_straddle_faults(gy, w, sizes, transpose=True).items()}}
+    assert faults or kind == "one"
+    for fault, wrong in faults.items():
+        wrong, want = wrong if isinstance(wrong, tuple) else (wrong, ref)
+        assert not attn_row_err(wrong, want) <= ATTN_ROW_TOL, fault
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,11 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
            "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu",
            "cross_entropy.cu", "splash_attention.cu", "nf4_gmm.cu",
-           "flash_sinks.cu", "gmm.cu", "layer_norm.cu", "fp8_matmul.cu")
+           "flash_sinks.cu", "gmm.cu", "tgmm.cu", "layer_norm.cu",
+           "fp8_matmul.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("attention_tiles.cuh", "hopper_tiles.cuh", "expert_visits.cuh",
-           "norm_common.cuh")
+HEADERS = ("attention_tiles.cuh", "hopper_common.cuh", "hopper_tiles.cuh",
+           "gmm_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -177,12 +178,15 @@ def library() -> ctypes.CDLL:
         lib.unsloth_flash_sinks_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                 p, i, i, i, i, f, p]
         lib.unsloth_flash_sinks_dkv.restype = i
-        lib.unsloth_gmm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        # lhs (or g), W, bias (or null; the forward only), group sizes,
+        # out, m, E, N, K, the work-unit counters (or null), stream
+        lib.unsloth_gmm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_gmm_bf16.restype = i
-        lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_gmm_dx_bf16.restype = i
-        # lhs, g, group sizes, dW, m, E, N, K, stream
-        lib.unsloth_gmm_tgmm_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        # lhs, g, group sizes, dW, m, E, N, K, the work-unit counters (or
+        # null), stream
+        lib.unsloth_gmm_tgmm_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_gmm_tgmm_bf16.restype = i
         # x, w, b (or null), out, rows, D, eps, x and w dtype codes, stream
         lib.unsloth_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]

@@ -6,11 +6,15 @@ calls it (``tiled_gmm``, with ``transpose_rhs=True``), and of its VJP
 (megablox ``_gmm_bwd``). Rows of the input are sorted by expert;
 ``group_sizes`` [E] (int32, on the input's device) says how many rows each
 expert owns. On a CUDA tensor :func:`gmm` launches the hand-written kernels
-in ``csrc/gmm.cu`` (K19): the forward, the same kernel with W untransposed
-for its dx (megablox's VJP with ``transpose_rhs`` flipped), and
-:func:`tgmm`, the expert weight gradient (megablox ``tgmm``), when W is
-trained (full fine-tuning). On a CPU tensor they run the plain versions
-:func:`gmm_ref` and :func:`tgmm_ref`. The device of the tensor is the only
+of K19: ``csrc/gmm.cu``'s forward, the same kernel with W untransposed for
+its dx (megablox's VJP with ``transpose_rhs`` flipped), and
+``csrc/tgmm.cu``'s :func:`tgmm`, the expert weight gradient (megablox
+``tgmm``), when W is trained (full fine-tuning). At more than
+``KERNEL_TILES["small_m"]`` rows the forward and dx are one persistent
+Hopper kernel (wgmma fed by a TMA ring) over work units of (visit,
+192-column tile), a visit being a 128-row tile's rows of one expert; at
+fewer they are a small-tile wmma kernel. On a CPU tensor they run the
+plain versions :func:`gmm_ref` and :func:`tgmm_ref`. The device of the tensor is the only
 thing that chooses; there is no fallback from a kernel to its plain
 version.
 
@@ -26,6 +30,14 @@ Divergences by design: the kernels mask ragged N and K (gpt-oss's 2,880)
 where JAX pads them in memory to a multiple of 128, and :func:`tgmm` writes
 W's [E, N, K] layout directly where megablox returns [E, K, N] and swaps
 the axes.
+
+The kernels take an optional ``unit_counts`` (int32 [4] on the card) to
+which they add what they did: the forward and dx their work units of an
+expert, their units of the rows past the groups (zeros), and the 64-row
+halves they stored by TMA and by masked stores; :func:`tgmm` its units of
+an expert with rows, its units of an empty expert, the 64-row chunks it
+reduced and those of them it zeroed past the group's end. CPU calls count
+nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +48,15 @@ import torch
 
 from .. import kernels
 from .nf4_gmm import _ALIGN, _aligned
+
+#: the kernels' tiles: the forward and dx at more than ``small_m`` rows
+#: take output tiles of ``rows`` x ``cols``; tgmm tiles [N, K] by
+#: ``tgmm_n`` x ``tgmm_k`` and reduces a group's rows in chunks of
+#: ``tgmm_chunk``
+KERNEL_TILES = {"rows": 128, "cols": 192, "small_m": 64, "tgmm_n": 128,
+                "tgmm_k": 192, "tgmm_chunk": 64}
+#: the most experts the kernels take
+MAX_EXPERTS = 1024
 
 
 def gmm_ref(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -84,14 +105,38 @@ def _check_cuda(name: str, t: torch.Tensor, w: torch.Tensor,
     if group_sizes.shape != (e,):
         raise ValueError(f"{name}: group_sizes {tuple(group_sizes.shape)} "
                          f"for {e} experts")
+    if e > MAX_EXPERTS:
+        raise NotImplementedError(f"{name} CUDA kernel takes at most "
+                                  f"{MAX_EXPERTS} experts, got {e}")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _counts(unit_counts: Optional[torch.Tensor], t: torch.Tensor):
+    """The counters' pointer, or None."""
+    if unit_counts is None:
+        return None
+    if (unit_counts.dtype != torch.int32 or unit_counts.device != t.device
+            or tuple(unit_counts.shape) != (4,)):
+        raise ValueError(f"gmm: unit_counts must be an int32 [4] on "
+                         f"{t.device}; got {unit_counts.dtype} "
+                         f"{tuple(unit_counts.shape)} on {unit_counts.device}")
+    return unit_counts.data_ptr()
+
+
+def _out(m: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """The forward's or dx's output: the training-row kernel writes every
+    row (zeros past the groups), the decode kernel only the groups'."""
+    if m > KERNEL_TILES["small_m"]:
+        return torch.empty((m, n), dtype=like.dtype, device=like.device)
+    return torch.zeros((m, n), dtype=like.dtype, device=like.device)
+
+
 def gmm_fwd(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+            bias: Optional[torch.Tensor] = None, *,
+            unit_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out [m, N] = lhs [m, K] @ W_g^T (+ bias[g]) per group, W [E, N, K];
     the plain version on a CPU tensor, K19 on a CUDA one."""
     if lhs.device.type == "cpu":
@@ -103,22 +148,23 @@ def gmm_fwd(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                              or bias.device != lhs.device):
         raise ValueError(f"gmm: bias {tuple(bias.shape)} on {bias.device} "
                          f"for W {tuple(w.shape)} on {lhs.device}")
-    out = torch.zeros((m, n), dtype=lhs.dtype, device=lhs.device)
-    if m == 0:
-        return out
+    out = _out(m, n, lhs)
+    if m == 0 or e == 0:
+        return out.zero_()
     x = _aligned(lhs)
-    b = None if bias is None else bias.to(lhs.dtype).contiguous()
+    b = None if bias is None else _aligned(bias.to(lhs.dtype))
     gs = group_sizes.to(torch.int32).contiguous()
     rc = kernels.library().unsloth_gmm_bf16(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        gs.data_ptr(), out.data_ptr(), m, e, n, k, _stream(lhs))
+        gs.data_ptr(), out.data_ptr(), m, e, n, k, _counts(unit_counts, lhs),
+        _stream(lhs))
     kernels.check(rc, "gmm")
     gmm.launches += 1
     return out
 
 
-def gmm_dx(g: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
-           ) -> torch.Tensor:
+def gmm_dx(g: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+           *, unit_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx [m, K] = g [m, N] @ W_g per group, the backward of :func:`gmm`
     with respect to its input; the plain version on a CPU tensor, K19's dx
     on a CUDA one."""
@@ -127,14 +173,14 @@ def gmm_dx(g: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
     _check_cuda("gmm_dx", g, w, group_sizes, w.shape[1])
     e, n, k = w.shape
     m = g.shape[0]
-    dx = torch.zeros((m, k), dtype=g.dtype, device=g.device)
-    if m == 0:
-        return dx
+    dx = _out(m, k, g)
+    if m == 0 or e == 0:
+        return dx.zero_()
     gg = _aligned(g)
     gs = group_sizes.to(torch.int32).contiguous()
     rc = kernels.library().unsloth_gmm_dx_bf16(
         gg.data_ptr(), w.data_ptr(), gs.data_ptr(), dx.data_ptr(), m, e, n,
-        k, _stream(g))
+        k, _counts(unit_counts, g), _stream(g))
     kernels.check(rc, "gmm_dx")
     gmm_dx.launches += 1
     return dx
@@ -181,10 +227,14 @@ def _check_tgmm(lhs: torch.Tensor, gy: torch.Tensor,
     if gy.device != lhs.device or group_sizes.device != lhs.device:
         raise ValueError(f"tgmm: input on {lhs.device}, gradient on "
                          f"{gy.device}, group sizes on {group_sizes.device}")
+    if group_sizes.shape[0] > MAX_EXPERTS:
+        raise NotImplementedError(f"tgmm CUDA kernel takes at most "
+                                  f"{MAX_EXPERTS} experts, got "
+                                  f"{group_sizes.shape[0]}")
 
 
-def tgmm(lhs: torch.Tensor, gy: torch.Tensor, group_sizes: torch.Tensor
-         ) -> torch.Tensor:
+def tgmm(lhs: torch.Tensor, gy: torch.Tensor, group_sizes: torch.Tensor,
+         *, unit_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dW [E, N, K] = gy[rows of g]^T @ lhs[rows of g] per group, the
     gradient of :func:`gmm` with respect to W [E, N, K]: the plain version
     on a CPU tensor, K19's tgmm on a CUDA one (bf16 lhs [m, K] and gy
@@ -194,13 +244,13 @@ def tgmm(lhs: torch.Tensor, gy: torch.Tensor, group_sizes: torch.Tensor
     _check_tgmm(lhs, gy, group_sizes)
     e, (m, k), n = group_sizes.shape[0], lhs.shape, gy.shape[1]
     dw = torch.empty((e, n, k), dtype=torch.bfloat16, device=lhs.device)
-    if m == 0:
+    if m == 0 or e == 0:
         return dw.zero_()
     x, g = _aligned(lhs), _aligned(gy)
     gs = group_sizes.to(torch.int32).contiguous()
     rc = kernels.library().unsloth_gmm_tgmm_bf16(
         x.data_ptr(), g.data_ptr(), gs.data_ptr(), dw.data_ptr(), m, e, n, k,
-        _stream(lhs))
+        _counts(unit_counts, lhs), _stream(lhs))
     kernels.check(rc, "tgmm")
     tgmm.launches += 1
     return dw

@@ -34,7 +34,11 @@ exits non-zero without printing a result:
                without the window of 4,096, (b) one 8K row where the window
                bites, (c) Gemma-2-27B's heads (32/16, head dim 128), (d)
                a packed 8K row and (e), without window or softcap, at
-               K16's shape; then the gpt-oss-20b path's: K1/K2 at its
+               K16's shape (K18 runs on K16's Hopper kernels, with the
+               tile pairs each kernel classed held to the rule with the
+               window at (a) sliding, (b) and (d), and the three kernels
+               run twice for the same bits at (a) sliding); then the
+               gpt-oss-20b path's: K1/K2 at its
                three attention projection shapes (M = 4,096; K = 2,880
                for q/k/v, whose K/2 is not a multiple of 64), the grouped
                NF4 expert kernels K14 (with the bias epilogue) and K15 at
@@ -54,8 +58,10 @@ exits non-zero without printing a result:
                dk/dv) at Llama-3.1-8B's 32/8 heads of 128 on one row of
                the layout (256, 6, 896) (T = 5,632; a left-padded prompt,
                short completions), with the tile pairs each kernel
-               visited, read back from its counter, held to the tile
-               rule's count and printed beside causal's; then the
+               classed, read back from its counters, held to the rule
+               with the layout (this row's segments and one segment) and
+               printed beside causal's, and the three kernels run twice
+               for the same bits; then the
                Whisper path's LayerNorm forward (K5) and backward (K6) at
                [3000, 1280] (2 x 1,500 encoder frames) in bf16 and fp32,
                at [448, 1280] (2 x 224 decoder tokens) in bf16 and with
@@ -68,14 +74,16 @@ exits non-zero without printing a result:
                check must reject injected faults (K16: a dropped kv tile,
                an ignored pad mask, a late-half error, a diagonal or a
                mixed-segment tile called full; K18 also: the
-               window ignored, the softcap's derivative dropped; K14/K15:
+               window ignored, the softcap's derivative dropped, a tile
+               pair past the window called full; K14/K15:
                one expert's rows through the next expert's weights, the
                bias dropped; K19 the same and a straddling tile's rows
                stored by the next expert's visit, with its work-unit
                counters held to the schedule's twin at (a) and (b) and
                its (a) rerun for the same bits; K17: the sink ignored, dsinks
                dropped; K18's prefix form: the region rule dropped, the
-               prefix dropped; K12/K13: a contraction block read with its
+               prefix dropped, a tile pair across two completion regions
+               called full; K12/K13: a contraction block read with its
                neighbour's scale, the scales ignored, the last contraction
                block dropped, and for K13 the scale grid read
                untransposed); then the text-diffusion path's non-causal
@@ -84,7 +92,8 @@ exits non-zero without printing a result:
                batch, (b) Llama's 32/8, (c) a ragged T of 200, (d) the
                generate canvas (B = 1, T = 128, one segment), and K18
                without causality at (e) Gemma-2-9B's 16/8 heads of 256,
-               softcap 50, no window, each also rejecting the causal
+               softcap 50, no window (its tile classes held to the rule),
+               each also rejecting the causal
                kernels' results on the same inputs (library call: SDPA
                with the segment mask for K16, compiled flex_attention
                for K18). For each
@@ -803,87 +812,73 @@ def prefix_segments(layout, prompt_len, completion_lens, device="cpu"):
     return seg.to(device)
 
 
-#: tokens per tile of K18's kernels (kBlk in csrc/splash_attention.cu)
-TILE = 64
-
-
-def layout_skips(P, L, iq, j):
-    """The rule of ``layout_skips`` in csrc/splash_attention.cu: the prefix
-    layout (P, G, L) masks the whole (query tile iq, kv tile j <= iq)
-    pair: kv tile j lies past the prompt's last tile and before the tile
-    that holds the start of the region of query tile iq's first query."""
-    if j * TILE < P:
+def layout_skips(P, L, iq, j, bq=64, bk=64):
+    """The prefix layout's skip in ``pair_class<true>`` (csrc/
+    hopper_tiles.cuh): the layout (P, G, L) masks the whole pair of query
+    tile iq (``bq`` tokens) and kv tile j (``bk`` tokens): the kv tile lies
+    wholly past the prompt and before the region of the query tile's first
+    query past the prompt."""
+    q0, k0 = iq * bq, j * bk
+    if k0 < P:
         return False
-    q0 = max(iq * TILE, P)
-    return j < (P + (q0 - P) // L * L) // TILE
+    q = max(q0, P)
+    return k0 + bk - 1 < P + (q - P) // L * L
 
 
-def visited_tile_pairs(t, prefix_layout=None, segment_ids=None):
-    """The (query tile, kv tile) pairs of 64 tokens that K18's kernels must
-    visit at T = ``t``, counted by their rules: every j <= iq, less those
-    a prefix layout masks whole (:func:`layout_skips`) and, given the
-    segment ids of one row, those whose tiles' segment-id ranges do not
-    overlap (the kernels' ``disjoint``)."""
-    nq = -(-t // TILE)
-    pairs = [(iq, j) for iq in range(nq) for j in range(iq + 1)]
-    if prefix_layout is not None:
-        P, _, L = prefix_layout
-        pairs = [(iq, j) for iq, j in pairs if not layout_skips(P, L, iq, j)]
-    if segment_ids is not None:
-        seg = [int(x) for x in segment_ids.reshape(-1).tolist()]
-        lo = [min(seg[i * TILE:(i + 1) * TILE]) for i in range(nq)]
-        hi = [max(seg[i * TILE:(i + 1) * TILE]) for i in range(nq)]
-        pairs = [(iq, j) for iq, j in pairs
-                 if not (hi[j] < lo[iq] or lo[j] > hi[iq])]
-    return len(pairs)
-
-
-def kernel_tile_pairs(q, k, v, seg, dout, scale, layout):
-    """{"fwd", "dq", "dkv": the (query tile, kv tile) pairs of 64 tokens
-    that K18's kernel visited a query head}, read back from the kernels'
-    counters (``tile_visits``) on these inputs, with the prefix ``layout``
-    (None: causal) and no window or softcap."""
-    import torch
-
-    from unsloth_tpu_torch.ops import flash_attention as tfa
-    from unsloth_tpu_torch.ops import splash_attention as tsa
-
-    lo, hi = tfa.tile_segment_ranges(seg)
-    opts = dict(window=None, softcap=None, scale=scale, prefix_layout=layout)
-    n = {w: torch.zeros(1, dtype=torch.int64, device=q.device)
-         for w in ("fwd", "dq", "dkv")}
-    out, lse = tsa.splash_attention_fwd(q, k, v, seg, lo, hi,
-                                        tile_visits=n["fwd"], **opts)
-    _, di = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
-                                    tile_visits=n["dq"], **opts)
-    tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
-                             tile_visits=n["dkv"], **opts)
-    heads = q.shape[0] * q.shape[2]
-    counts = {w: int(c.item()) for w, c in n.items()}
-    if any(c % heads for c in counts.values()):
-        raise RuntimeError(f"K18's visit counts {counts} are not a whole "
-                           f"number a head ({heads} heads)")
-    return {w: c // heads for w, c in counts.items()}
-
-
-#: K16's tile-pair classes, in the order of its counters
+#: K16's (and K18's) tile-pair classes, in the order of its counters
 TILE_CLASSES = ("skip", "full", "masked")
 
 
-def flash_tile_classes(segment_ids, causal, bq, bk):
-    """The rule of ``pair_class`` in csrc/hopper_tiles.cuh, K16's Hopper
-    kernels' tile-pair classes: {(row, query tile, kv tile): class} over
-    the pairs a kernel with ``bq``-token query tiles and ``bk``-token kv
-    tiles visits (every pair, or, causal, those whose kv tile starts at or
-    before the query tile's last token). A pair is "skip" when its tiles'
+def _tile_walk(t, causal, bq, bk, kernel, window, prefix_layout):
+    """The (query tile, kv tile) pairs a kernel visits, in its order: the
+    forward and dq walk the kv tiles of each query tile (with a window from
+    the first one it reaches), dk/dv the query tiles of each kv tile (with
+    a window or a prefix layout up to the last one its keys reach)."""
+    nq, nk = -(-t // bq), -(-t // bk)
+    if kernel == "dkv":
+        for j in range(nk):
+            k0 = j * bk
+            kl = min(k0 + bk - 1, t - 1)
+            end = nq
+            if window:
+                end = min(end, (kl + window - 1) // bq + 1)
+            if prefix_layout is not None and k0 >= prefix_layout[0]:
+                P, _, L = prefix_layout
+                end = min(end, (P + (kl - P) // L * L + L - 1) // bq + 1)
+            for iq in range(k0 // bq if causal else 0, end):
+                yield iq, j
+        return
+    for iq in range(nq):
+        q0 = iq * bq
+        first = max(0, q0 - window + 1) // bk if window else 0
+        last = min(nk - 1, (q0 + bq - 1) // bk) if causal else nk - 1
+        for j in range(first, last + 1):
+            yield iq, j
+
+
+def flash_tile_classes(segment_ids, causal, bq, bk, window=None,
+                       prefix_layout=None, kernel="fwd"):
+    """The rule of ``pair_class`` in csrc/hopper_tiles.cuh, the tile-pair
+    classes of K16's Hopper kernels (and, given a ``window`` or a
+    ``prefix_layout``, K18's, which run on them): {(row, query tile, kv
+    tile): class} over the pairs the kernel named ``kernel`` ("fwd", "dq"
+    or "dkv") visits with ``bq``-token query tiles and ``bk``-token kv
+    tiles (every pair, or, causal, those whose kv tile starts at or before
+    the query tile's last token; with a window, those whose nearest pair
+    is inside it; dk/dv under a prefix layout ends a kv tile past the
+    prompt at its last key's region). A pair is "skip" when its tiles'
     segment-id ranges (each the min of mins and the max of maxes of the
     64-token ranges it spans, as tile_segment_ranges gives them) are
-    disjoint; "full" when both tiles lie wholly before T, hold one segment
-    id, the same, and, causal, the kv tile ends at or before the query
-    tile's first token; else "masked"."""
+    disjoint, or the layout masks it whole (:func:`layout_skips`); "full"
+    when both tiles lie wholly before T, hold one segment id, the same,
+    and, causal, the kv tile ends at or before the query tile's first
+    token, and besides its farthest pair is inside the window and its kv
+    tile lies wholly in the prompt or both tiles in one region; else
+    "masked"."""
     seg = [[int(x) for x in row] for row in segment_ids.tolist()]
     t = len(seg[0])
     n64 = -(-t // 64)
+    P, _, L = prefix_layout or (0, 0, 1)
     res = {}
     for b, row in enumerate(seg):
         lo = [min(row[e * 64:(e + 1) * 64]) for e in range(n64)]
@@ -893,80 +888,121 @@ def flash_tile_classes(segment_ids, causal, bq, bk):
             first, last = t0 // 64, min((t0 + n - 1) // 64, n64 - 1)
             return (min(lo[first:last + 1]), max(hi[first:last + 1]))
 
-        for iq in range(-(-t // bq)):
-            q0 = iq * bq
-            for j in range(-(-t // bk)):
-                k0 = j * bk
-                if causal and k0 > q0 + bq - 1:
-                    continue
-                (qlo, qhi), (klo, khi) = span(q0, bq), span(k0, bk)
-                if khi < qlo or klo > qhi:
-                    cls = "skip"
-                elif (q0 + bq <= t and k0 + bk <= t
-                      and qlo == qhi == klo == khi
-                      and (not causal or k0 + bk - 1 <= q0)):
-                    cls = "full"
-                else:
-                    cls = "masked"
-                res[(b, iq, j)] = cls
+        for iq, j in _tile_walk(t, causal, bq, bk, kernel, window,
+                                prefix_layout):
+            q0, k0 = iq * bq, j * bk
+            (qlo, qhi), (klo, khi) = span(q0, bq), span(k0, bk)
+            if (khi < qlo or klo > qhi
+                    or (window and q0 - (k0 + bk - 1) >= window)
+                    or (prefix_layout is not None
+                        and layout_skips(P, L, iq, j, bq, bk))):
+                cls = "skip"
+            elif (q0 + bq <= t and k0 + bk <= t
+                  and qlo == qhi == klo == khi
+                  and (not causal or k0 + bk - 1 <= q0)
+                  and not (window and q0 + bq - 1 - k0 >= window)
+                  and not (prefix_layout is not None and k0 + bk > P and (
+                      k0 < P or (k0 - P) // L != (q0 + bq - 1 - P) // L))):
+                cls = "full"
+            else:
+                cls = "masked"
+            res[(b, iq, j)] = cls
     return res
 
 
-def flash_tile_counts(segment_ids, causal, bq, bk):
+def flash_tile_counts(segment_ids, causal, bq, bk, window=None,
+                      prefix_layout=None, kernel="fwd"):
     """[skip, full, masked]: the pairs of :func:`flash_tile_classes` by
     class, over every row."""
-    classes = list(flash_tile_classes(segment_ids, causal, bq, bk).values())
+    classes = list(flash_tile_classes(segment_ids, causal, bq, bk, window,
+                                      prefix_layout, kernel).values())
     return [classes.count(c) for c in TILE_CLASSES]
 
 
-def kernel_tile_classes(q, k, v, seg, dout, scale, causal):
+def visited_tile_pairs(t, prefix_layout=None, segment_ids=None, bq=64, bk=64,
+                       kernel="fwd"):
+    """The causal (query tile, kv tile) pairs of a T = ``t`` row that a
+    K18 kernel with ``bq`` x ``bk`` tiles does not skip (full or masked in
+    :func:`flash_tile_classes`), with a ``prefix_layout`` or without, over
+    the segment ids of one row (None: one segment)."""
+    import torch
+
+    seg = (torch.ones((1, t), dtype=torch.int32) if segment_ids is None
+           else segment_ids.reshape(1, -1).cpu())
+    _, full, masked = flash_tile_counts(seg, True, bq, bk,
+                                        prefix_layout=prefix_layout,
+                                        kernel=kernel)
+    return full + masked
+
+
+def kernel_tile_classes(q, k, v, seg, dout, scale, causal, splash=None):
     """{"fwd", "dq", "dkv": [skip, full, masked] tile pairs that K16's
     kernel of that name classed, a query head}, read back from the
-    kernels' counters (``tile_classes``) on these inputs."""
+    kernels' counters (``tile_classes``) on these inputs; with ``splash``
+    (a dict of window, softcap and prefix_layout), K18's kernels
+    (``tile_counts``)."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
 
     lo, hi = tfa.tile_segment_ranges(seg)
     sfx = "" if causal else "_full"
-    fwd, dq, dkv = (getattr(tfa, f"flash_attention_{w}{sfx}")
-                    for w in ("fwd", "dq", "dkv"))
     n = {w: torch.zeros(3, dtype=torch.int32, device=q.device)
          for w in ("fwd", "dq", "dkv")}
-    out, lse = fwd(q, k, v, seg, lo, hi, scale=scale, tile_classes=n["fwd"])
-    _, di = dq(q, k, v, seg, lo, hi, out, lse, dout, scale=scale,
-               tile_classes=n["dq"])
-    dkv(q, k, v, seg, lo, hi, lse, di, dout, scale=scale,
-        tile_classes=n["dkv"])
+    if splash is None:
+        fwd, dq, dkv = (getattr(tfa, f"flash_attention_{w}{sfx}")
+                        for w in ("fwd", "dq", "dkv"))
+        opts = dict(scale=scale)
+        key = "tile_classes"
+    else:
+        fwd, dq, dkv = (getattr(tsa, f"splash_attention_{w}{sfx}")
+                        for w in ("fwd", "dq", "dkv"))
+        opts = dict(splash, scale=scale)
+        if not causal:
+            opts.pop("window")
+            opts.pop("prefix_layout")
+        key = "tile_counts"
+    out, lse = fwd(q, k, v, seg, lo, hi, **opts, **{key: n["fwd"]})
+    _, di = dq(q, k, v, seg, lo, hi, out, lse, dout, **opts,
+               **{key: n["dq"]})
+    dkv(q, k, v, seg, lo, hi, lse, di, dout, **opts, **{key: n["dkv"]})
     heads = q.shape[2]
     counts = {w: c.tolist() for w, c in n.items()}
     if any(x % heads for c in counts.values() for x in c):
-        raise RuntimeError(f"K16's tile-class counts {counts} are not a "
+        name = "K16" if splash is None else "K18"
+        raise RuntimeError(f"{name}'s tile-class counts {counts} are not a "
                            f"whole number a head ({heads} heads)")
     return {w: [x // heads for x in c] for w, c in counts.items()}
 
 
-def _plain_under_mask(q, k, v, dout, scale, mask):
-    """(out, dq, dk, dv) of K16's plain versions' formulas in fp32 under an
+def _plain_under_mask(q, k, v, dout, scale, mask, softcap=None,
+                      splash=False):
+    """(out, dq, dk, dv) of the plain versions' formulas in fp32 under an
     explicit [B, T, T] mask (True: attended): a kernel's result under a
-    wrong mask."""
+    wrong mask. K16's by default; with ``splash``, K18's (q rounded to its
+    dtype after ``scale``, then the ``softcap``)."""
     import torch
 
     from unsloth_tpu_torch.ops.flash_attention import _expand_kv
+    from unsloth_tpu_torch.ops.splash_attention import _capped, _scaled_q
 
     b, t, hq, d = q.shape
     hkv = k.shape[2]
-    qf, dof = q.float(), dout.float()
+    qf = _scaled_q(q, scale) if splash else q.float() * scale
+    dof = dout.float()
     kf, vf = _expand_kv(k, hq), _expand_kv(v, hq)
-    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    s, tanh = _capped(torch.einsum("bthd,bshd->bhts", qf, kf), softcap)
     s = s.masked_fill(~mask[:, None], float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhts,bshd->bthd", p, vf)
     dp = torch.einsum("bthd,bshd->bhts", dof, vf)
     di = (dof * out.to(q.dtype).float()).sum(-1).transpose(1, 2)
-    ds = p * (dp - di[..., None]) * scale
-    dq = torch.einsum("bhts,bshd->bthd", ds, kf)
+    ds = p * (dp - di[..., None])
+    if tanh is not None:
+        ds = ds * (1 - tanh * tanh)
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
     dk = torch.einsum("bhts,bthd->bshd", ds, qf).reshape(
         b, t, hkv, hq // hkv, d).sum(3)
     dv = torch.einsum("bhts,bthd->bshd", p, dof).reshape(
@@ -1014,6 +1050,65 @@ def tile_fault_errs(q, k, v, seg, dout, scale, want, causal, tile=128):
                 break
     res = {}
     for fault, gots in faults.items():
+        res[fault] = {}
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
+            old = ((got.float() - ref.float()).abs().max()
+                   <= 2e-2 * ref.float().abs().max())
+            res[fault][name] = (attn_row_err(got, ref), bool(old))
+    return res
+
+
+def splash_tile_fault_errs(q, k, v, seg, dout, scale, want, *, window=None,
+                           softcap=None, prefix_layout=None, tile=128):
+    """The power of :func:`attn_row_err` over K18's tile rules: its plain
+    versions under the faults of a class rule that calls a ``tile``-token
+    (query tile, earlier kv tile) pair full when it is not, so that no
+    element of it is masked, held against ``want`` (the right out, dq, dk,
+    dv), in the last row. Faults: with a ``window``, the first pair that
+    holds pairs inside the window and past it ("pair past the window as
+    full": its queries see keys past their window); with a
+    ``prefix_layout``, the first pair whose queries and keys lie past the
+    prompt in two regions ("pair across regions as full": a completion
+    sees an earlier one). Returns {fault: {tensor: (row-wise error,
+    whether the old check, max|d| <= 2e-2 max|ref|, passes it)}}; every
+    row-wise error must exceed ATTN_ROW_TOL."""
+    import torch
+
+    from unsloth_tpu_torch.ops.splash_attention import _splash_mask
+
+    b, t = seg.shape
+    mask = _splash_mask(seg, b, t, seg.device, window, prefix_layout)
+    n = -(-t // tile)
+    pos = torch.arange(t, device=seg.device)
+
+    def first_pair(bad):
+        """The first (iq, j < iq) whose block holds a pair ``bad`` marks."""
+        for iq in range(n):
+            for j in range(iq):
+                qs_, ks_ = (slice(x * tile, min(t, (x + 1) * tile))
+                            for x in (iq, j))
+                if bool(bad[qs_, ks_].any()):
+                    return qs_, ks_
+        return None
+
+    faults = {}
+    if window is not None:
+        diff = pos[:, None] - pos[None, :]
+        found = first_pair(diff >= window)
+        if found is not None:
+            faults["pair past the window as full"] = found
+    if prefix_layout is not None:
+        P, _, L = prefix_layout
+        reg = torch.where(pos >= P, (pos - P) // L, -1)
+        found = first_pair((reg[:, None] > reg[None, :]) & (reg[None, :] >= 0))
+        if found is not None:
+            faults["pair across regions as full"] = found
+    res = {}
+    for fault, (qs_, ks_) in faults.items():
+        m = mask.clone()
+        m[b - 1, qs_, ks_] = True
+        gots = _plain_under_mask(q, k, v, dout, scale, m, softcap,
+                                 splash=True)
         res[fault] = {}
         for name, got, ref in zip(("out", "dq", "dk", "dv"), gots, want):
             old = ((got.float() - ref.float()).abs().max()
@@ -1109,7 +1204,43 @@ def phase_device():
     return name, smi
 
 
+def attention_build_report(build_log):
+    """([(kernel, registers, spill-store bytes)] of each instantiation of
+    the Hopper attention kernels (K16's ``flash_*_kernel<D, false>``,
+    K18's ``<D, true>``) in ptxas's ``-v`` output, [the C75xx lines, ptxas
+    serializing their wgmma, that name one])."""
+    import re
+
+    rows, name, spill = [], None, 0
+    lines = build_log.splitlines()
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELb(\d)E",
+                          m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}, "
+                    f"{'K18' if k.group(3) == '1' else 'K16'}>" if k else None)
+            spill = 0
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    serialized = [line.strip() for line in lines
+                  if re.search(r"C75\d\d", line)
+                  and re.search(r"flash_(fwd|dq|dkv)_kernel", line)]
+    return rows, serialized
+
+
 def phase_build():
+    """Build the kernels and print ptxas's registers and spills; the
+    Hopper attention kernels (K16 and K18) must report no spill and no
+    serialized wgmma (:func:`attention_build_report`)."""
     from unsloth_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1120,6 +1251,18 @@ def phase_build():
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("[build]  ", line.strip())
+    if not kernels.build_log.strip():
+        raise RuntimeError(f"no build log beside {path.name}: the "
+                           "attention kernels' registers and spills are "
+                           "unknown")
+    rows, serialized = attention_build_report(kernels.build_log)
+    log("[build] Hopper attention kernels (registers, spill bytes): " +
+        ", ".join(f"{n} {r}/{b}" for n, r, b in rows))
+    for line in serialized:
+        log("[build] ", line)
+    if len(rows) != 18 or any(b for _, _, b in rows) or serialized:
+        raise RuntimeError(f"the Hopper attention kernels spill or serialize "
+                           f"their wgmma: {rows}, {serialized}")
 
 
 def phase_kernels():
@@ -1830,7 +1973,10 @@ def _splash_kernels(dev, g, flush):
     2048], a row of 1,500 real tokens) with neither window nor softcap,
     K16's function, to time the two kernel families on one function. At (b)
     the check must also reject the faults of :func:`attn_fault_errs`, the
-    window ignored and the softcap's derivative dropped among them. The
+    window ignored and the softcap's derivative dropped among them, and a
+    pair past the window called full (:func:`splash_tile_fault_errs`). At
+    (a) sliding, (b) and (d) the kernels' tile-class counters must equal
+    the rule's; at (a) sliding the kernels run again give the same bits. The
     library call: compiled flex_attention at (a), the shape of the kernels
     line (one compile serves both windows); SDPA with the mask at (e),
     which has no softcap; none at (b)-(d), whose flex_attention compiles
@@ -1852,22 +1998,23 @@ def _splash_kernels(dev, g, flush):
     rows = {name: [] for name in ("splash_attn_fwd", "splash_attn_dq",
                                   "splash_attn_dkv")}
     llama = LLAMA_31_8B_CONFIG
-    for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults, lib in (
+    for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults, lib, checks in (
             ("(a) sliding", padded, hq, hkv, hd, scale, window, cap, False,
-             "flex"),
+             "flex", True),
             ("(a) global", padded, hq, hkv, hd, scale, None, cap, False,
-             "flex"),
-            ("(b)", one, hq, hkv, hd, scale, window, cap, True, None),
+             "flex", False),
+            ("(b)", one, hq, hkv, hd, scale, window, cap, True, None, True),
             ("(c) Gemma-2-27B heads", one, 32, 16, 128, 144 ** -0.5, window,
-             cap, False, None),
+             cap, False, None, False),
             ("(d) packed", packed, hq, hkv, hd, scale, window, cap, False,
-             None),
+             None, True),
             ("(e) K16's shape", padded, llama["num_attention_heads"],
              llama["num_key_value_heads"], llama["head_dim"],
-             llama["head_dim"] ** -0.5, None, None, False, "sdpa")):
+             llama["head_dim"] ** -0.5, None, None, False, "sdpa", False)):
         t_case = time.perf_counter()
         res = _splash_case(dev, g, flush, label, seg, h_q, h_kv, dh, sc, win,
-                           sc_cap, faults, library=lib)
+                           sc_cap, faults, library=lib, classes=checks,
+                           same_bits=label == "(a) sliding")
         log(f"[time] 3 K18 {label}: {time.perf_counter() - t_case:.1f} s")
         for name, row in res.items():
             rows[name].append(row)
@@ -1876,27 +2023,31 @@ def _splash_kernels(dev, g, flush):
 
 def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
                  softcap, faults, library="flex", form=None,
-                 prefix_layout=None):
+                 prefix_layout=None, classes=False, same_bits=False):
     """K18 forward, dq and dk/dv at one shape against the plain versions,
     every position row by row (:func:`attn_row_err`), lse within 1e-3, the
     backward fed the kernel forward's (out, lse) on both sides. q and k
     are N(0, 4^2), so the scores are of the order of the softcap and its
     tanh bites. With ``faults`` the check must also reject each fault of
-    :func:`attn_fault_errs`. Times: the kernels, the plain versions, SDPA
-    with the same boolean mask and no softcap and, with ``library="flex"``,
-    the library call that computes the same function (:func:`_flex_ms`,
-    whose out must agree with the plain version's as the kernel's does).
-    With ``library="sdpa"`` (no softcap) that SDPA call is the library
-    call, which computes the same function; with None (a softcap, at a
-    shape whose flex_attention compile phase 3 does not spend) there is
-    none. Only "flex" compiles flex_attention. With a
-    ``prefix_layout`` the kernels take GRPO's shared-prefix form, the
-    faults are :func:`prefix_fault_errs`', and the tile pairs each kernel
-    visited, read back from it (:func:`kernel_tile_pairs`) with one
-    segment, with this row's segments and causal, must be what the tile
-    rules count (:func:`visited_tile_pairs`).
-    Returns a row per kernel, tagged with ``form`` (the kernels line's form
-    of the kernel), with those counts where there are any."""
+    :func:`attn_fault_errs` and, with a window, a pair past the window
+    called full (:func:`splash_tile_fault_errs`). Times: the kernels, the
+    plain versions, SDPA with the same boolean mask and no softcap and,
+    with ``library="flex"``, the library call that computes the same
+    function (:func:`_flex_ms`, whose out must agree with the plain
+    version's as the kernel's does). With ``library="sdpa"`` (no softcap)
+    that SDPA call is the library call, which computes the same function;
+    with None (a softcap, at a shape whose flex_attention compile phase 3
+    does not spend) there is none. Only "flex" compiles flex_attention.
+    With a ``prefix_layout`` the kernels take GRPO's shared-prefix form,
+    the faults are :func:`prefix_fault_errs`' and a pair across two
+    regions called full, and the tile pairs each kernel classed, read back
+    from its counters (:func:`kernel_tile_classes`) with this row's
+    segments, with one segment and causal without the layout, must be the
+    rule's at its tiles (:func:`flash_tile_counts`). With ``classes`` (no
+    layout) the same with this row's segments; with ``same_bits`` the
+    three kernels run again must give the same bits. Returns a row per
+    kernel, tagged with ``form`` (the kernels line's form of the kernel),
+    with those counts where there are any."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
@@ -1938,6 +2089,10 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     else:
         fault_res = attn_fault_errs(q, k, v, seg, dout, scale, want,
                                     window=window, softcap=softcap)
+    if faults and (window is not None or prefix_layout is not None):
+        fault_res.update(splash_tile_fault_errs(
+            q, k, v, seg, dout, scale, want, window=window, softcap=softcap,
+            prefix_layout=prefix_layout))
     del rdq, rdk, rdv, want
     flex = library == "flex"
     flex_fwd = flex_bwd = flex_err = None
@@ -1971,33 +2126,50 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
              f"{scale:.5f} softcap={softcap} window={window}{layout_text}, "
              f"{n_seg} segment(s), {int((seg == 0).sum())} pad")
     common = dict(shape=shape, form=form)
-    visits = {}
-    if prefix_layout is not None:
-        # read back from the kernels: one segment (the layout's skips
-        # alone), this row's segment ids, and causal over one segment
+    names = ("splash_attn_fwd", "splash_attn_dq", "splash_attn_dkv")
+    extra = {n_: {} for n_ in names}
+    if classes or prefix_layout is not None:
+        # read back from the kernels: this row's segment ids, and for the
+        # prefix form also one segment and causal over one segment
         one = torch.ones_like(seg)
-        visits = {what: kernel_tile_pairs(q, k, v, s_, dout, scale, lay)
-                  for what, s_, lay in (
-                      ("tile_pairs", one, prefix_layout),
-                      ("tile_pairs_segments", seg, prefix_layout),
-                      ("causal_tile_pairs", one, None))}
-        rule = {"tile_pairs": visited_tile_pairs(t, prefix_layout),
-                "tile_pairs_segments": visited_tile_pairs(
-                    t, prefix_layout, seg),
-                "causal_tile_pairs": visited_tile_pairs(t)}
-        log(f"[kernels] splash attention {label}: (query, kv) tile pairs of "
-            f"64 tokens a head that the kernels (forward / dq / dk/dv) "
-            f"visited, read back from them: with the layout and one segment "
-            f"{visits['tile_pairs']}, with this row's segment ids "
-            f"{visits['tile_pairs_segments']}, causal with one segment "
-            f"{visits['causal_tile_pairs']}; the tile rules count "
-            f"{rule['tile_pairs']}, {rule['tile_pairs_segments']} and "
-            f"{rule['causal_tile_pairs']}")
-        wrong = [(what, w) for what, want in rule.items()
-                 for w, n_ in visits[what].items() if n_ != want]
-        if wrong:
-            raise RuntimeError(f"K18's prefix form visits other tile pairs "
-                               f"than its rule: {wrong}, {visits}, {rule}")
+        reads = [("tile_classes", seg, prefix_layout)]
+        if prefix_layout is not None:
+            reads += [("tile_classes_one_segment", one, prefix_layout),
+                      ("causal_tile_classes", one, None)]
+        for what, s_, lay in reads:
+            got = kernel_tile_classes(
+                q, k, v, s_, dout, scale, True, splash=dict(
+                    window=window, softcap=softcap, prefix_layout=lay))
+            rule = {w: flash_tile_counts(s_, True, *tfa.KERNEL_TILES[w][d],
+                                         window=window, prefix_layout=lay,
+                                         kernel=w) for w in got}
+            log(f"[kernels] splash attention {label}: tile pairs a query "
+                f"head (skip, full, masked), {what}, kernels' counters / "
+                "rule: " + "; ".join(
+                    f"{w} {got[w]} / {rule[w]} (tiles "
+                    f"{tfa.KERNEL_TILES[w][d]})" for w in got))
+            if got != rule:
+                raise RuntimeError(f"K18's tile classes at {label} ({what}) "
+                                   f"differ from the rule: {got} against "
+                                   f"{rule}")
+            for n_, w in zip(names, ("fwd", "dq", "dkv")):
+                extra[n_][what] = dict(zip(TILE_CLASSES, got[w]))
+    if same_bits:
+        again = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+        again += tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse,
+                                         dout, **opts)
+        again += tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di,
+                                          dout, **opts)
+        same = [bool(torch.equal(a, b_)) for a, b_ in zip(
+            (out, lse, dq, di, dk, dv), again)]
+        log(f"[kernels] splash attention {label}: forward, dq, dk/dv run "
+            f"twice, same bits (out, lse, dq, di, dk, dv) {same}")
+        if not all(same):
+            raise RuntimeError(f"K18 at {label} gave other bits on a second "
+                               f"run: {same}")
+        del again
+        for n_ in names:
+            extra[n_]["same_bits"] = True
     lib = {"flex": {}, "sdpa": dict(
         library="SDPA with the dense boolean mask: causal, segments and "
         "the window or prefix layout (no softcap: the same function)"),
@@ -2007,25 +2179,28 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
     lib_fwd, lib_bwd = {"flex": (flex_fwd, flex_bwd),
                         "sdpa": (sdpa_fwd, sdpa_bwd)}.get(library,
                                                           (None, None))
+    ratio = ({} if lib_fwd is None else dict(
+        library_ratio=dict(forward=fwd_ms / lib_fwd,
+                           backward=(dq_ms + dkv_ms) / lib_bwd)))
     res = {
         "splash_attn_fwd": dict(
-            common, **{what: n_["fwd"] for what, n_ in visits.items()},
+            common, **extra["splash_attn_fwd"],
             err=max(errs["out"][0], lse_err), ms=fwd_ms,
             plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
             library_ms=lib_fwd,
-            sdpa_no_softcap_ms=sdpa_fwd, **lib),
+            sdpa_no_softcap_ms=sdpa_fwd, **lib, **ratio),
         "splash_attn_dq": dict(
-            common, **{what: n_["dq"] for what, n_ in visits.items()},
+            common, **extra["splash_attn_dq"],
             err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain,
             bound_ms=qb[0], bound_by=qb[1],
             library_ms=lib_bwd,
-            sdpa_no_softcap_ms=sdpa_bwd, **lib),
+            sdpa_no_softcap_ms=sdpa_bwd, **lib, **ratio),
         "splash_attn_dkv": dict(
-            common, **{what: n_["dkv"] for what, n_ in visits.items()},
+            common, **extra["splash_attn_dkv"],
             err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
             plain_ms=bwd_plain, bound_ms=kb[0], bound_by=kb[1],
             library_ms=lib_bwd,
-            sdpa_no_softcap_ms=sdpa_bwd, **lib)}
+            sdpa_no_softcap_ms=sdpa_bwd, **lib, **ratio)}
     log(f"[kernels] splash attention (K18) {shape}, every position: " +
         ", ".join(f"{n_} max|d|={e:.3e} row-wise {r:.3e}"
                   for n_, (e, r) in errs.items())
@@ -2040,13 +2215,19 @@ def _splash_case(dev, g, flush, label, seg, hq, hkv, d, scale, window,
                  f"{flex_fwd:.4f} ms, backward (dq, dk, dv) {flex_bwd:.4f} "
                  f"ms, out row-wise {flex_err:.3e} from the plain version; "
                  if flex else "")
+    ratio_text = ("no library call timed" if lib_fwd is None else
+                  f"kernel / library ({library}): forward "
+                  f"{fwd_ms / lib_fwd:.2f}x, dq + dk/dv "
+                  f"{(dq_ms + dkv_ms) / lib_bwd:.2f}x")
     log(f"[kernels] splash attention {label} fwd kernel {fwd_ms:.4f} ms plain "
-        f"{fwd_plain:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); dq kernel "
-        f"{dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv kernel {dkv_ms:.4f} ms "
-        f"bound {kb[0]:.4f} ms; plain backward {bwd_plain:.4f} ms; "
+        f"{fwd_plain:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}, "
+        f"{100 * fb[0] / fwd_ms:.1f}%); dq kernel {dq_ms:.4f} ms bound "
+        f"{qb[0]:.4f} ms ({100 * qb[0] / dq_ms:.1f}%); dk/dv kernel "
+        f"{dkv_ms:.4f} ms bound {kb[0]:.4f} ms ({100 * kb[0] / dkv_ms:.1f}%); "
+        f"plain backward {bwd_plain:.4f} ms; "
         f"{flex_text}SDPA with the same mask and "
         f"no softcap: fwd {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms; "
-        f"{pairs} valid pairs per head")
+        f"{ratio_text}; {pairs} valid pairs per head")
     bad = [n_ for n_, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
     if bad or not lse_err <= 1e-3:
         raise RuntimeError(f"splash attention {label} disagrees in {bad}: "
@@ -2077,11 +2258,13 @@ def _grpo_kernels(dev, g, flush):
     12's shape: Llama-3.1-8B's 32/8 heads of 128, scale 128^-0.5, one row
     of GRPO_LAYOUT (T = 5,632), a prompt of GRPO_PROMPT_LEN tokens
     right-aligned in its 256 slots and completions of GRPO_COMPLETION_LENS
-    tokens, no softcap; the check must reject the region rule dropped and
-    the prefix dropped. Library call: SDPA with the layout's dense [T, T]
-    mask, which computes the same function (flex_attention's block mask
-    would skip tiles as the kernels do, but its compile costs the script
-    ~20 s and times no path)."""
+    tokens, no softcap; the check must reject the region rule dropped, the
+    prefix dropped and a pair across two regions called full; the
+    kernels' tile-class counters must equal the rule's, and the kernels
+    run again give the same bits. Library call: SDPA with the layout's
+    dense [T, T] mask, which computes the same function (flex_attention's
+    block mask would skip tiles as the kernels do, but its compile costs
+    the script ~20 s and times no path)."""
     c = LLAMA_31_8B_CONFIG
     seg = prefix_segments(GRPO_LAYOUT, GRPO_PROMPT_LEN, GRPO_COMPLETION_LENS,
                           dev)
@@ -2089,7 +2272,7 @@ def _grpo_kernels(dev, g, flush):
                        c["num_attention_heads"], c["num_key_value_heads"],
                        c["head_dim"], c["head_dim"] ** -0.5, None, None,
                        True, library="sdpa", form="prefix",
-                       prefix_layout=GRPO_LAYOUT)
+                       prefix_layout=GRPO_LAYOUT, same_bits=True)
     return {name: [row] for name, row in res.items()}
 
 
@@ -2154,7 +2337,8 @@ def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
     softcap bites, else N(0, 1). The check must reject the causal kernels'
     results on the same inputs (the slip this form guards against: their
     forward, then their dq and dk/dv from their own out and lse) and the
-    faults of :func:`attn_fault_errs` with ``causal=False``. Times: the
+    faults of :func:`attn_fault_errs` with ``causal=False``; K18's
+    tile-class counters must equal the rule's. Times: the
     kernels (median of 10), the plain versions (once), and the library
     call: SDPA with the segment mask for K16, compiled flex_attention with
     the softcap for K18 (its out held to the plain version as the
@@ -2227,6 +2411,21 @@ def _noncausal_case(dev, g, flush, label, seg, hq, hkv, d, scale, softcap,
                                       False))
         extra = _k16_checks(label, q, k, v, seg, out, lse, dout, scale,
                             False, (dq, dk, dv), classes, same_bits)
+    else:
+        got = kernel_tile_classes(q, k, v, seg, dout, scale, False,
+                                  splash=dict(window=None, softcap=softcap,
+                                              prefix_layout=None))
+        rule = {w: flash_tile_counts(seg, False, *tfa.KERNEL_TILES[w][d],
+                                     kernel=w) for w in got}
+        log(f"[kernels] non-causal splash attention {label}: tile pairs a "
+            "query head (skip, full, masked), kernels' counters / rule: " +
+            "; ".join(f"{w} {got[w]} / {rule[w]} (tiles "
+                      f"{tfa.KERNEL_TILES[w][d]})" for w in got))
+        if got != rule:
+            raise RuntimeError(f"K18's non-causal tile classes at {label} "
+                               f"differ from the rule: {got} against {rule}")
+        for n_, w in zip(names, ("fwd", "dq", "dkv")):
+            extra[n_]["tile_classes"] = dict(zip(TILE_CLASSES, got[w]))
     cout, clse = causal_fns[0](q, k, v, seg, lo, hi, **copts)
     cdq, cdi = causal_fns[1](q, k, v, seg, lo, hi, cout, clse, dout, **copts)
     cdk, cdv = causal_fns[2](q, k, v, seg, lo, hi, clse, cdi, dout, **copts)
@@ -6363,9 +6562,14 @@ def _device_report(prof, wall_us, top):
                                               "tgmm_kernel"),
                 "K1/K2 nf4_matmul":
                 ("nf4_matmul",), "K17 flash sinks": ("sinks_",),
-                "K18 splash": ("splash_",),
-                "K16 flash": ("flash_fwd_kernel", "flash_dq_kernel",
-                              "flash_dkv_kernel", "dkv_sum_kernel"),
+                # K18 runs on K16's kernels, instantiated with kSplash
+                "K18 splash": tuple(f"flash_{w}_kernel<{d}, true>"
+                                    for w in ("fwd", "dq", "dkv")
+                                    for d in (64, 128, 256)),
+                "K16 flash": tuple(f"flash_{w}_kernel<{d}, false>"
+                                   for w in ("fwd", "dq", "dkv")
+                                   for d in (64, 128, 256))
+                + ("dkv_sum_kernel",),
                 "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
                 ("rms_norm",)}
     fam = {f_: sum(us for name, (us, _) in by_name.items()
@@ -7485,10 +7689,10 @@ def _kernels_line(rows, by_path):
                           None),
         "flash_attn_dkv": ("flash_dkv.cu",
                            k16 + "_flash_attention_bwd_dkv)", None),
-        "splash_attn_fwd": ("splash_attention.cu", k18 + "forward)",
+        "splash_attn_fwd": ("flash_fwd.cu", k18 + "forward)",
                             "(a) sliding"),
-        "splash_attn_dq": ("splash_attention.cu", k18 + "dq)", "(a) sliding"),
-        "splash_attn_dkv": ("splash_attention.cu", k18 + "dk/dv)",
+        "splash_attn_dq": ("flash_dq.cu", k18 + "dq)", "(a) sliding"),
+        "splash_attn_dkv": ("flash_dkv.cu", k18 + "dk/dv)",
                             "(a) sliding"),
         "nf4_gmm": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:86", "(a) path"),
         "nf4_gmm_dx": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:135",
@@ -7535,11 +7739,11 @@ def _kernels_line(rows, by_path):
         "flash_attn_dkv_full": ("flash_dkv.cu",
                                 k16_full + "_flash_attention_bwd_dkv)",
                                 "(a) LLaDA-8B"),
-        "splash_attn_fwd_full": ("splash_attention.cu", k18_full + "forward)",
+        "splash_attn_fwd_full": ("flash_fwd.cu", k18_full + "forward)",
                                  "(e) Gemma-2-9B"),
-        "splash_attn_dq_full": ("splash_attention.cu", k18_full + "dq)",
+        "splash_attn_dq_full": ("flash_dq.cu", k18_full + "dq)",
                                 "(e) Gemma-2-9B"),
-        "splash_attn_dkv_full": ("splash_attention.cu", k18_full + "dk/dv)",
+        "splash_attn_dkv_full": ("flash_dkv.cu", k18_full + "dk/dv)",
                                  "(e) Gemma-2-9B"),
     }
     # the main path each kernel's "launches" comes from
@@ -7637,8 +7841,8 @@ def _kernels_line(rows, by_path):
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": by_form,
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
-                                         "tile_pairs", "tile_pairs_segments",
-                                         "causal_tile_pairs", "tile_classes",
+                                         "tile_classes_one_segment",
+                                         "causal_tile_classes", "tile_classes",
                                          "same_bits", "library_ratio",
                                          "unit_counts")
                if key in row}})

@@ -324,21 +324,26 @@ def _splash_segments(t, dev):
     (256, 4, 2, None, None, 256 ** -0.5),
     (256, 4, 2, 64, 50.0, 256 ** -0.5),
     (256, 8, 4, None, 50.0, 256 ** -0.5),
+    (256, 4, 2, 1000, 50.0, 256 ** -0.5),   # a window past T
     (128, 8, 2, 100, None, 128 ** -0.5),
     (128, 4, 2, 64, 50.0, 144 ** -0.5),
+    (128, 4, 2, 128, 30.0, 144 ** -0.5),    # a window of one kv tile
     (64, 16, 2, 128, None, 0.125),     # gpt-oss's sliding layers' form
     (64, 8, 1, 64, 50.0, 0.125),
     (64, 14, 2, None, 30.0, 0.125),
+    (64, 8, 2, 2, 50.0, 0.125),        # a window of two tokens
 ])
 def test_splash_attention_kernels_match_plain(dev, d, hq, hkv, window,
                                               softcap, scale):
     """K18 forward (out, lse), dq and dk/dv against the plain fp32 versions
     on the same bf16 inputs at head dims 64, 128 and 256, a padded and a
     packed row at a ragged T = 300, with and without a window (64, 100 and
-    128 tokens: it bites) and the softcap:
+    128 tokens: it bites; two tokens, and past T) and the softcap:
     every position row by row (``chip_smoke.attn_row_err``; the kernels
     round P and dS to bf16), lse within 1e-3; the backward pair gets the
-    kernel forward's (out, lse)."""
+    kernel forward's (out, lse), and the three run again give the same
+    bits. The tile pairs each kernel classed (its counters) are the rule's
+    at its tiles (``chip_smoke.flash_tile_counts`` with the window)."""
     t = 300
     g = torch.Generator(device=dev).manual_seed(9)
     q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
@@ -365,6 +370,18 @@ def test_splash_attention_kernels_match_plain(dev, d, hq, hkv, window,
     for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
         assert torch.isfinite(got).all()
         assert attn_row_err(got, ref) <= ATTN_ROW_TOL
+    out2, lse2 = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+    dq2, di2 = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                       **opts)
+    dk2, dv2 = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                        **opts)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (out, lse, dq, di, dk, dv), (out2, lse2, dq2, di2, dk2, dv2)))
+    got = kernel_tile_classes(q, k, v, seg, dout, scale, True,
+                              splash=dict(opts, prefix_layout=None))
+    assert got == {w: flash_tile_counts(seg, True, *tfa.KERNEL_TILES[w][d],
+                                        window=window, kernel=w)
+                   for w in got}
 
 
 def test_attention_dispatch_reaches_splash_on_cuda(dev):
@@ -745,8 +762,8 @@ def test_gmm_work_units_match_the_schedule(dev, e, n, k, m, kind):
 # GRPO: K18's shared-prefix form
 # ---------------------------------------------------------------------------
 
-from chip_smoke import (kernel_tile_pairs, prefix_fault_errs,  # noqa: E402
-                        prefix_segments, visited_tile_pairs)
+from chip_smoke import (prefix_fault_errs, prefix_segments,  # noqa: E402
+                        visited_tile_pairs)
 
 
 @pytest.mark.parametrize("layout,prompt_len,completion_lens,d,hq,hkv", [
@@ -764,9 +781,10 @@ def test_splash_prefix_kernels_match_plain(dev, layout, prompt_len,
     are and are not multiples of the 64-token tile, and regions shorter
     than a tile. The check rejects the region rule dropped and the prefix
     dropped; a window beside the layout raises. The tile pairs each kernel
-    visits, read back from its counter, are the tile rules' count, with
-    one segment and with the row's segment ids (and causal's without the
-    layout)."""
+    classed, read back from its counters, are the rule's at its tiles
+    (``chip_smoke.flash_tile_counts`` with the layout), with one segment
+    and with the row's segment ids (and causal's without the layout); the
+    three run again give the same bits."""
     P, G, L = layout
     t = P + G * L
     g = torch.Generator(device=dev).manual_seed(18)
@@ -805,19 +823,27 @@ def test_splash_prefix_kernels_match_plain(dev, layout, prompt_len,
                                  softcap=None, scale=0.1,
                                  prefix_layout=layout)
     one = torch.ones_like(seg)
-    rule = visited_tile_pairs(t, layout)
-    assert kernel_tile_pairs(q, k, v, one, dout, d ** -0.5, layout) == \
-        dict(fwd=rule, dq=rule, dkv=rule)
-    causal = visited_tile_pairs(t)
-    assert kernel_tile_pairs(q, k, v, one, dout, d ** -0.5, None) == \
-        dict(fwd=causal, dq=causal, dkv=causal)
-    seen = visited_tile_pairs(t, layout, seg)
-    assert seen <= rule
-    assert kernel_tile_pairs(q, k, v, seg, dout, d ** -0.5, layout) == \
-        dict(fwd=seen, dq=seen, dkv=seen)
-    with pytest.raises(ValueError, match="tile_visits"):
+    for s_, lay in ((one, layout), (seg, layout), (one, None)):
+        got = kernel_tile_classes(q, k, v, s_, dout, d ** -0.5, True,
+                                  splash=dict(window=None, softcap=None,
+                                              prefix_layout=lay))
+        assert got == {w: flash_tile_counts(s_, True, *tfa.KERNEL_TILES[w][d],
+                                            prefix_layout=lay, kernel=w)
+                       for w in got}
+    bq, bk = tfa.KERNEL_TILES["fwd"][d]
+    assert visited_tile_pairs(t, layout, seg, bq, bk) <= \
+        visited_tile_pairs(t, layout, None, bq, bk) <= \
+        visited_tile_pairs(t, None, None, bq, bk)
+    out2, lse2 = tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts)
+    dq2, di2 = tsa.splash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                       **opts)
+    dk2, dv2 = tsa.splash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                        **opts)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (out, lse, dq, di, dk, dv), (out2, lse2, dq2, di2, dk2, dv2)))
+    with pytest.raises(ValueError, match="tile_counts"):
         tsa.splash_attention_fwd(q, k, v, seg, lo, hi, **opts,
-                                 tile_visits=torch.zeros(1, device=dev))
+                                 tile_counts=torch.zeros(1, device=dev))
 
 
 def test_attention_prefix_route_on_cuda(dev):
@@ -1007,6 +1033,7 @@ def test_fp8_matmul_refuses_f32(dev):
     (256, 256, 4, 4, None),
     (300, 256, 4, 2, 50.0),     # K18: Gemma-2's head dim and softcap
     (300, 128, 8, 2, 50.0),
+    (300, 64, 8, 2, 30.0),
 ])
 def test_noncausal_attention_kernels_match_plain(dev, t, d, hq, hkv, softcap):
     """K16 (no softcap) and K18 (softcap) without causality: forward (out,
@@ -1014,7 +1041,8 @@ def test_noncausal_attention_kernels_match_plain(dev, t, d, hq, hkv, softcap):
     on the same bf16 inputs, a padded and a packed row, every position row
     by row (``chip_smoke.attn_row_err``), lse within 1e-3, one launch of
     each non-causal wrapper and none of the causal ones; the causal
-    kernels' out on the same inputs fails the same check."""
+    kernels' out on the same inputs fails the same check. K18's tile
+    pairs by class (its counters) are the rule's at its tiles."""
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
@@ -1060,6 +1088,13 @@ def test_noncausal_attention_kernels_match_plain(dev, t, d, hq, hkv, softcap):
         assert torch.isfinite(got).all()
         assert attn_row_err(got, ref) <= ATTN_ROW_TOL
     assert attn_row_err(causal_out(), rout) > ATTN_ROW_TOL
+    if softcap is not None:
+        got = kernel_tile_classes(q, k, v, seg, dout, scale, False,
+                                  splash=dict(window=None, softcap=softcap,
+                                              prefix_layout=None))
+        assert got == {w: flash_tile_counts(seg, False,
+                                            *tfa.KERNEL_TILES[w][d], kernel=w)
+                       for w in got}
 
 
 @pytest.mark.parametrize("softcap", [None, 50.0])

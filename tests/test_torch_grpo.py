@@ -39,6 +39,7 @@ from unsloth_tpu_torch.interop import (lora_from_numpy, lora_to_numpy,
                                        params_from_numpy)
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
 from unsloth_tpu_torch.ops import attention as tatt
+from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.ops import splash_attention as tsa
 from unsloth_tpu_torch.ops.fused_ce_linear import \
     selective_log_softmax as tselective
@@ -79,28 +80,41 @@ def test_prefix_mask_array_matches_jax(layout):
                                   jprefix_mask(*layout))
 
 
+#: (query tile, kv tile): PR 8's 64 x 64 and each Hopper kernel's (K18
+#: runs on K16's kernels, ops/flash_attention.KERNEL_TILES)
+PREFIX_TILES = [(64, 64)] + sorted({
+    tiles for by_d in tfa.KERNEL_TILES.values() for tiles in by_d.values()})
+#: the pairs the prefix rule leaves of causal's at (256, 6, 896), by tiles
+PREFIX_PAIRS = {(64, 64): (976, 3916), (128, 128): (255, 990),
+                (128, 64): (510, 1980), (64, 128): (510, 1980),
+                (128, 32): (1020, 3960), (32, 64): (1952, 7832)}
+
+
+@pytest.mark.parametrize("bq,bk", PREFIX_TILES)
 @pytest.mark.parametrize("layout", [(256, 6, 896), (128, 2, 128),
                                     (100, 3, 70), (37, 4, 20), (5, 5, 5)])
-def test_prefix_tile_skips_are_exact(layout):
-    """The kernels' tile rule (``chip_smoke.layout_skips``, the rule of
-    ``layout_skips`` in csrc/splash_attention.cu, which the card's tile
-    counts are held to): a 64-token (query, kv) tile pair is visited iff
-    the layout's mask holds a valid pair in it, for layouts whose edges do
-    and do not fall on tile edges; at GRPO's (256, 6, 896) that is 976 of
-    causal's 3,916."""
+def test_prefix_tile_skips_are_exact(layout, bq, bk):
+    """The kernels' tile rule (``chip_smoke.layout_skips``, the prefix
+    layout's skip in ``pair_class<true>`` of csrc/hopper_tiles.cuh, which
+    the card's tile counts are held to): a causal (query tile, kv tile)
+    pair of ``bq`` x ``bk`` tokens is skipped iff the layout's mask holds
+    no valid pair in it, for layouts whose edges do and do not fall on
+    tile edges; at GRPO's (256, 6, 896) that leaves 976 of causal's 3,916
+    pairs at 64 x 64 tiles, 255 of 990 at the forward's 128 x 128."""
     P, G, L = layout
     t = P + G * L
     m = tatt.prefix_mask_array(*layout)
-    tile = chip_smoke.TILE
-    nq = -(-t // tile)
-    for iq in range(nq):
-        for j in range(iq + 1):
-            pair = m[iq * tile:(iq + 1) * tile, j * tile:(j + 1) * tile]
+    for iq in range(-(-t // bq)):
+        for j in range(-(-t // bk)):
+            if j * bk > iq * bq + bq - 1:
+                continue                     # past causality: not visited
+            pair = m[iq * bq:(iq + 1) * bq, j * bk:(j + 1) * bk]
             assert bool(pair.any()) == (
-                not chip_smoke.layout_skips(P, L, iq, j))
+                not chip_smoke.layout_skips(P, L, iq, j, bq, bk))
     if layout == (256, 6, 896):
-        assert chip_smoke.visited_tile_pairs(t, layout) == 976
-        assert chip_smoke.visited_tile_pairs(t) == 3916
+        assert (chip_smoke.visited_tile_pairs(t, layout, bq=bq, bk=bk),
+                chip_smoke.visited_tile_pairs(t, bq=bq, bk=bk)) == \
+            PREFIX_PAIRS[(bq, bk)]
 
 
 @pytest.fixture(scope="module")

@@ -59,7 +59,7 @@ extern "C" int unsloth_flash_attn_fwd(const void* q, const void* k, const void* 
       hflash::make_params(seg, seg_min, seg_max, B, T, Hq, Hkv, scale, causal, tile_counts);
   p.o = static_cast<bf16*>(out);
   p.lse_out = static_cast<float*>(lse);
-  return hflash::flash_fwd(D, q, k, v, p, static_cast<cudaStream_t>(stream));
+  return hflash::flash_fwd(D, false, q, k, v, p, static_cast<cudaStream_t>(stream));
 }
 
 // dq on `stream`: dq [B, T, Hq, D] bf16 and di [B, Hq, T] fp32 (for the
@@ -78,7 +78,7 @@ extern "C" int unsloth_flash_attn_dq(const void* q, const void* k, const void* v
   p.lse = static_cast<const float*>(lse);
   p.di_out = static_cast<float*>(di);
   p.dq = static_cast<bf16*>(dq);
-  return hflash::flash_dq(D, q, k, v, dout, p, static_cast<cudaStream_t>(stream));
+  return hflash::flash_dq(D, false, q, k, v, dout, p, static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv on `stream`: [B, T, Hkv, D] bf16 from the forward's inputs, lse,
@@ -101,5 +101,5 @@ extern "C" int unsloth_flash_attn_dkv(const void* q, const void* k, const void* 
   p.dv = static_cast<bf16*>(dv);
   p.part = static_cast<float*>(scratch);
   p.nsplit = nsplit;
-  return hflash::flash_dkv(D, q, k, v, dout, p, static_cast<cudaStream_t>(stream));
+  return hflash::flash_dkv(D, false, q, k, v, dout, p, static_cast<cudaStream_t>(stream));
 }

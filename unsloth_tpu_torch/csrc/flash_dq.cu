@@ -1,13 +1,19 @@
-// Flash attention dq for Hopper (K16 dq), causal or not, GQA, bf16, head dim
-// 64, 128 or 256.
+// Flash attention dq for Hopper (K16 dq; with kSplash, K18's splash dq),
+// causal or not, GQA, bf16, head dim 64, 128 or 256.
 //
 // Replaces the bundled Pallas kernel _flash_attention_bwd_dq that
-// unsloth_tpu/ops/attention.py:_tpu_flash reaches through its VJP; also
-// forms di = sum(dout * out), which the JAX wrapper computes outside the
+// unsloth_tpu/ops/attention.py:_tpu_flash reaches through its VJP (and,
+// kSplash, the bundled splash dq kernel behind _tpu_splash); also forms
+// di = sum(dout * out), which the JAX wrapper computes outside the
 // kernels, for the dk/dv kernel. Rounding points are the bundled kernel's:
 // scores in fp32 times sm_scale (here folded into exp2 as
 // sm_scale * log2(e)), P = exp(s - lse) in fp32, dS = P (dP - di) sm_scale
-// rounded to bf16 before dS K.
+// rounded to bf16 before dS K. K18: the scores come from q_scaled =
+// bf16(q * scale) (rounded in shared memory, as the forward does), the
+// softcap's t = tanh(s / c) is recomputed with P, dS = P (dP - di)
+// (1 - t^2) rounded to bf16, and the epilogue multiplies dQ by `scale`;
+// the window and the prefix layout are the forward's tile rules and element
+// tests.
 //
 // What bounds it on an H100: tensor-core work, 6 D flops per valid pair.
 // Design: one block per (128 query rows, query head, row b), two consumer
@@ -47,7 +53,7 @@ struct DqCfg {
   static constexpr int kThreads = 384;  // 2 consumer warpgroups + the producer's
 };
 
-template <int D>
+template <int D, bool kSplash>
 __global__ void __launch_bounds__(384, 1)
     flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
@@ -96,8 +102,8 @@ __global__ void __launch_bounds__(384, 1)
         tma_load(dOs + c * C::kQSub, &tdo, qbar, c * 64, h, q0, b);
       }
     }
-    produce_kv_ring<C::kBq, C::kBk, C::kStages, C::kSub>(p, b, q0, hk, last, lane, &tk, &tv,
-                                                        Ks, Vs, kseg, info, full, empty);
+    produce_kv_ring<C::kBq, C::kBk, C::kStages, C::kSub, kSplash>(
+        p, b, q0, hk, last, lane, &tk, &tv, Ks, Vs, kseg, info, full, empty);
     return;
   }
 
@@ -135,11 +141,28 @@ __global__ void __launch_bounds__(384, 1)
     di[i] = acc;
     if (in && lane % 4 == 0) p.di_out[row] = acc;
   }
+  // K18: the forward's reach of each row (flash_fwd.cu)
+  int klo[2], kgap[2], kpfx = INT_MAX;
+  if constexpr (kSplash) {
+    if (p.G > 0) kpfx = p.P;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      klo[i] = p.window > 0 ? qpos[i] - p.window + 1 : INT_MIN;
+      kgap[i] = p.G > 0 && qpos[i] >= p.P ? region_start(p, qpos[i]) : 0;
+    }
+  }
   float dq[D / 2];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dq[x] = 0.0f;
 
   mbar_wait(qbar, 0);
+  if constexpr (kSplash) {
+    // q_scaled = bf16(q * scale): this warpgroup's 64 rows of each sub-tile
+    for (int c = 0; c < C::kSub; ++c)
+      scale_bf16(Qs + c * C::kQSub + wg * 8192, 8192, threadIdx.x % 128, 128, p.scale);
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+  }
   for (int it = 0;; ++it) {
     const int s = it % C::kStages;
     mbar_wait(&full[s], (it / C::kStages) & 1);
@@ -175,10 +198,23 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int x = 4 * jj + 2 * i + c;
-          const bool valid =
-              !masked || (sid == qseg[i] && (!p.causal || k0 + col <= qpos[i]));
-          const float e = valid ? fast_exp2(fmaf(sc[x], p.scale_log2, -lse2[i])) : 0.0f;
-          sc[x] = e * (dp[x] - di[i]) * p.scale;
+          bool valid = !masked || (sid == qseg[i] && (!p.causal || k0 + col <= qpos[i]));
+          if constexpr (kSplash) {
+            valid = valid && (!masked || (k0 + col >= klo[i] &&
+                                          (k0 + col < kpfx || k0 + col >= kgap[i])));
+            // P from the capped score, dS = P (dP - di) (1 - t^2)
+            float s2 = sc[x] * p.scale_log2, dt = 1.0f;
+            if (p.cap > 0.0f) {
+              float r;
+              s2 = softcap_log2(p, sc[x], r);
+              dt = 4.0f * r * (1.0f - r);
+            }
+            const float e = valid ? fast_exp2(s2 - lse2[i]) : 0.0f;
+            sc[x] = e * (dp[x] - di[i]) * dt;
+          } else {
+            const float e = valid ? fast_exp2(fmaf(sc[x], p.scale_log2, -lse2[i])) : 0.0f;
+            sc[x] = e * (dp[x] - di[i]) * p.scale;
+          }
         }
       }
 
@@ -201,14 +237,16 @@ __global__ void __launch_bounds__(384, 1)
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= p.T) continue;
     bf16* dst = p.dq + ((size_t)(b * p.T + qpos[i]) * p.Hq + h) * D + 2 * (lane % 4);
+    // K18's dq = scale (dS K); K16's dS carries sm_scale already
+    const float f = kSplash ? p.scale : 1.0f;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
       *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
-          pack_bf16(dq[4 * jj + 2 * i], dq[4 * jj + 2 * i + 1]);
+          pack_bf16(dq[4 * jj + 2 * i] * f, dq[4 * jj + 2 * i + 1] * f);
   }
 }
 
-template <int D>
+template <int D, bool kSplash>
 int launch(const void* q, const void* k, const void* v, const void* dout, const Params& p,
            cudaStream_t s) {
   using C = DqCfg<D>;
@@ -219,20 +257,25 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (e == 0) e = bthd_map(&tv, v, p.B, p.T, p.Hkv, D, C::kBk);
   if (e != 0) return e;
   e = static_cast<int>(cudaFuncSetAttribute(
-      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+      flash_dq_kernel<D, kSplash>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
   if (e != 0) return e;
   const dim3 grid(p.Hq * p.B, (p.T + C::kBq - 1) / C::kBq);
-  flash_dq_kernel<D><<<grid, C::kThreads, C::kSmem, s>>>(tq, tdo, tk, tv, p);
+  flash_dq_kernel<D, kSplash><<<grid, C::kThreads, C::kSmem, s>>>(tq, tdo, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-int flash_dq(int D, const void* q, const void* k, const void* v, const void* dout, Params p,
-             cudaStream_t s) {
-  if (D == 64) return launch<64>(q, k, v, dout, p, s);
-  if (D == 128) return launch<128>(q, k, v, dout, p, s);
-  if (D == 256) return launch<256>(q, k, v, dout, p, s);
+int flash_dq(int D, bool splash, const void* q, const void* k, const void* v, const void* dout,
+             Params p, cudaStream_t s) {
+  if (D == 64)
+    return splash ? launch<64, true>(q, k, v, dout, p, s) : launch<64, false>(q, k, v, dout, p, s);
+  if (D == 128)
+    return splash ? launch<128, true>(q, k, v, dout, p, s)
+                  : launch<128, false>(q, k, v, dout, p, s);
+  if (D == 256)
+    return splash ? launch<256, true>(q, k, v, dout, p, s)
+                  : launch<256, false>(q, k, v, dout, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,12 +1,14 @@
-// Flash attention forward for Hopper (K16 forward), causal or not, GQA,
-// bf16, head dim 64, 128 or 256.
+// Flash attention forward for Hopper (K16 forward; with kSplash, K18's
+// splash forward), causal or not, GQA, bf16, head dim 64, 128 or 256.
 //
 // Replaces the forward kernel of the bundled Pallas flash attention that
 // unsloth_tpu/ops/attention.py:_tpu_flash calls (_flash_attention_kernel:
-// out and an fp32 lse = m + log l), with causal=True and causal=False.
-// Semantics (flash_attention.cu has the whole contract): token i of a row
-// attends to token j iff seg[i] == seg[j] and, causal, j <= i; every output
-// is defined; rows past T load as zeros and are never stored.
+// out and an fp32 lse = m + log l), with causal=True and causal=False, and
+// (kSplash) the bundled splash forward kernel that _tpu_splash runs.
+// Semantics (flash_attention.cu and splash_attention.cu have the whole
+// contracts): token i of a row attends to token j iff seg[i] == seg[j] and,
+// causal, j <= i (K18: and i - j < window, or the prefix layout's rule);
+// every output is defined; rows past T load as zeros and are never stored.
 //
 // What bounds it on an H100: tensor-core work, 4 D flops per valid (query,
 // key) pair, over the visited tile pairs. Design (hopper_tiles.cuh has the
@@ -26,10 +28,18 @@
 //     the end), with exp2 and the scale folded in as scale * log2(e);
 //   - P is rounded to bf16 in registers and is the A operand of
 //     O += P V (wgmma with V the MN-major B operand); O stays in registers
-//     and is rescaled there;
+//     and is rescaled there; K18 adds a second product with P's rounding
+//     remainder, P - bf16(P), as the A operand (a_frag_lo);
 //   - the per-element mask runs only on a masked pair (pair_class): a
 //     padded row's pairs are almost all full;
-//   - causal: the query tiles with the most kv tiles are launched first.
+//   - causal: the query tiles with the most kv tiles are launched first;
+//   - K18 (kSplash): each consumer warpgroup multiplies its 64 rows of Q by
+//     `scale` in shared memory and rounds them to bf16 before its first
+//     product; the softcap maps S to c tanh(S / c) in registers (in log2
+//     units, softcap_log2) before the mask and the softmax; the window
+//     starts the walk at the first kv tile it reaches, and the window's and
+//     the prefix layout's element tests join the segment test on masked
+//     pairs (pair_class<true> classes the pairs).
 // Shared memory: Q 32 KB + 2 stages x (K + V) 128 KB at D = 128, 80 KB at
 // D = 64, 192 KB at D = 256 (64-key stages).
 
@@ -58,7 +68,7 @@ struct FwdCfg {
   static constexpr int kThreads = 384;  // 2 consumer warpgroups + the producer's
 };
 
-template <int D>
+template <int D, bool kSplash>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -102,8 +112,8 @@ __global__ void __launch_bounds__(384, 1)
       mbar_expect_tx(qbar, C::kQBytes);
       for (int c = 0; c < C::kSub; ++c) tma_load(Qs + c * C::kQSub, &tq, qbar, c * 64, h, q0, b);
     }
-    produce_kv_ring<C::kBq, C::kBk, C::kStages, C::kSub>(p, b, q0, hk, last, lane, &tk, &tv,
-                                                        Ks, Vs, kseg, info, full, empty);
+    produce_kv_ring<C::kBq, C::kBk, C::kStages, C::kSub, kSplash>(
+        p, b, q0, hk, last, lane, &tk, &tv, Ks, Vs, kseg, info, full, empty);
     return;
   }
 
@@ -116,12 +126,30 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     qseg[i] = qpos[i] < p.T ? p.seg[(size_t)b * p.T + qpos[i]] : kQueryPastEnd;
+  // K18: a key kpos is out of row i's reach when kpos < klo (the window) or
+  // kpfx <= kpos < kgap (past the prompt, before the row's region)
+  int klo[2], kgap[2], kpfx = INT_MAX;
+  if constexpr (kSplash) {
+    if (p.G > 0) kpfx = p.P;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      klo[i] = p.window > 0 ? qpos[i] - p.window + 1 : INT_MIN;
+      kgap[i] = p.G > 0 && qpos[i] >= p.P ? region_start(p, qpos[i]) : 0;
+    }
+  }
   float o[D / 2];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) o[x] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
   mbar_wait(qbar, 0);
+  if constexpr (kSplash) {
+    // q_scaled = bf16(q * scale): this warpgroup's 64 rows of each sub-tile
+    for (int c = 0; c < C::kSub; ++c)
+      scale_bf16(Qs + c * C::kQSub + wg * 8192, 8192, threadIdx.x % 128, 128, p.scale);
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+  }
   for (int it = 0;; ++it) {
     const int s = it % C::kStages;
     mbar_wait(&full[s], (it / C::kStages) & 1);
@@ -141,6 +169,15 @@ __global__ void __launch_bounds__(384, 1)
     wgmma_wait_all();
     fence_regs(sc);
 
+    if constexpr (kSplash) {
+      if (p.cap > 0.0f) {
+#pragma unroll
+        for (int x = 0; x < C::kBk / 2; ++x) {
+          float r;
+          sc[x] = softcap_log2(p, sc[x], r);
+        }
+      }
+    }
     if (inf.y == kMasked) {
       const int* ks = kseg + s * C::kBk;
 #pragma unroll
@@ -150,9 +187,12 @@ __global__ void __launch_bounds__(384, 1)
           const int col = 8 * jj + 2 * (lane % 4) + c;
           const int sid = ks[col];
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (sid != qseg[i] || (p.causal && k0 + col > qpos[i]))
-              sc[4 * jj + 2 * i + c] = -INFINITY;
+          for (int i = 0; i < 2; ++i) {
+            bool out = sid != qseg[i] || (p.causal && k0 + col > qpos[i]);
+            if constexpr (kSplash)
+              out = out || k0 + col < klo[i] || (k0 + col >= kpfx && k0 + col < kgap[i]);
+            if (out) sc[4 * jj + 2 * i + c] = -INFINITY;
+          }
         }
     }
 
@@ -188,11 +228,23 @@ __global__ void __launch_bounds__(384, 1)
     uint32_t pa[C::kBk / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C::kBk / 16; ++kk) a_frag(pa[kk], sc, kk);
+    // K18: P's rounding remainder is a second A operand, so that P V is
+    // taken with P to ~16 bits (the bundled splash forward's fp32 P)
+    uint32_t pl[kSplash ? C::kBk / 16 : 1][4];
+    if constexpr (kSplash) {
+#pragma unroll
+      for (int kk = 0; kk < C::kBk / 16; ++kk) a_frag_lo(pl[kk], sc, kk);
+    }
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::kBk / 16; ++kk)
       Wgmma<D>::rs(o, pa[kk], mnmajor_desc(Vst, C::kKSub, kk), 1);
+    if constexpr (kSplash) {
+#pragma unroll
+      for (int kk = 0; kk < C::kBk / 16; ++kk)
+        Wgmma<D>::rs(o, pl[kk], mnmajor_desc(Vst, C::kKSub, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -217,7 +269,7 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int D>
+template <int D, bool kSplash>
 int launch(const void* q, const void* k, const void* v, const Params& p, cudaStream_t s) {
   using C = FwdCfg<D>;
   CUtensorMap tq, tk, tv;
@@ -226,19 +278,22 @@ int launch(const void* q, const void* k, const void* v, const Params& p, cudaStr
   if (e == 0) e = bthd_map(&tv, v, p.B, p.T, p.Hkv, D, C::kBk);
   if (e != 0) return e;
   e = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+      flash_fwd_kernel<D, kSplash>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
   if (e != 0) return e;
   const dim3 grid(p.Hq * p.B, (p.T + C::kBq - 1) / C::kBq);
-  flash_fwd_kernel<D><<<grid, C::kThreads, C::kSmem, s>>>(tq, tk, tv, p);
+  flash_fwd_kernel<D, kSplash><<<grid, C::kThreads, C::kSmem, s>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-int flash_fwd(int D, const void* q, const void* k, const void* v, Params p, cudaStream_t s) {
-  if (D == 64) return launch<64>(q, k, v, p, s);
-  if (D == 128) return launch<128>(q, k, v, p, s);
-  if (D == 256) return launch<256>(q, k, v, p, s);
+int flash_fwd(int D, bool splash, const void* q, const void* k, const void* v, Params p,
+              cudaStream_t s) {
+  if (D == 64) return splash ? launch<64, true>(q, k, v, p, s) : launch<64, false>(q, k, v, p, s);
+  if (D == 128)
+    return splash ? launch<128, true>(q, k, v, p, s) : launch<128, false>(q, k, v, p, s);
+  if (D == 256)
+    return splash ? launch<256, true>(q, k, v, p, s) : launch<256, false>(q, k, v, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

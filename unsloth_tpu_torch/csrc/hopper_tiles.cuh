@@ -1,10 +1,19 @@
-// The flash attention kernels' own Hopper parts (K16: flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): their per-call values, the 4-D TMA load of a
-// [B, T, H, D] tensor, the tile-pair classes, the kv ring's producer, the
-// accumulator-to-A-fragment packing and the host-side [B, T, H, D] map. The
-// generic blocks (mbarriers, wgmma, swizzled descriptors, tensor maps) are
-// hopper_common.cuh's; everything here lives in namespace hflash, which
-// sees hopper's names.
+// The flash attention kernels' own Hopper parts (flash_fwd.cu, flash_dq.cu,
+// flash_dkv.cu, which hold K16 and, with kSplash, K18): their per-call
+// values, the 4-D TMA load of a [B, T, H, D] tensor, the tile-pair classes
+// and the walks' bounds, the kv ring's producer, the softcap and q's
+// rounding, the accumulator-to-A-fragment packing and the host-side
+// [B, T, H, D] map. The generic blocks (mbarriers, wgmma, swizzled
+// descriptors, tensor maps) are hopper_common.cuh's; everything here lives
+// in namespace hflash, which sees hopper's names.
+//
+// kSplash (a template parameter of every kernel and of the helpers that
+// differ) adds K18's rules to K16's: q multiplied by `scale` and rounded to
+// bf16 in shared memory after its TMA load, the logit softcap
+// s' = c tanh(s / c) in the consumers' registers, the sliding window
+// (i - j < window) and GRPO's prefix layout (P, G, L) as tile rules and
+// element masks. Every such branch is `if constexpr`, so K16's
+// instantiations (kSplash false) are the code they were before K18 joined.
 //
 // Registers 8 kk .. 8 kk + 7 of a wgmma accumulator (hopper_common.cuh has
 // its layout), packed to bf16 pairs, are the A fragment of a k16 step kk of
@@ -15,6 +24,25 @@
 #include <climits>
 
 #include "hopper_common.cuh"
+
+namespace hopper {
+
+template <>
+struct Wgmma<16> {
+  // d (+)= A * B^T, A [64 x 16] and B [16 x 16] K-major in shared memory
+  // (K18's dk/dv at D = 256: one warpgroup's 16 queries of a stage)
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+}  // namespace hopper
 
 namespace hflash {
 
@@ -53,8 +81,15 @@ struct Params {
   float* part;
   int* counts;         // [3] tile-pair classes visited, or null
   int B, T, Hq, Hkv, n64, nsplit;
-  float scale, scale_log2;  // sm_scale, sm_scale * log2(e)
+  // K16: sm_scale, sm_scale * log2(e). K18: the factor q is rounded by
+  // (and dq multiplied by), and the scores' factor to log2 units: log2(e),
+  // or 1 with a softcap (softcap_log2 returns log2 units)
+  float scale, scale_log2;
   int causal;
+  // K18 only: the window (0: none), the prefix layout (G = 0: none), the
+  // softcap c (0: none) as 2 log2(e) / c and c log2(e)
+  int window, P, G, L;
+  float cap, cap_k, cap_l;
 };
 
 // One [rows][64] box of a 4-D [B, T, H, D] tensor map at (column c0, head h,
@@ -76,11 +111,57 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// 1 / x by the special-function unit (rcp.approx: ~1 ulp; 1 / inf = +0).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K18's softcapped score c tanh(s / c) in log2 units (times log2(e)), and
+// through r the softcap's derivative 1 - tanh^2 = 4 r (1 - r): tanh(x) =
+// 1 - 2 r with r = 1 / (1 + e^(2x)), by ex2 and rcp, whose error is
+// absolute (~1e-7 of c), not relative as tanh.approx's 2^-11 would be.
+__device__ __forceinline__ float softcap_log2(const Params& p, float s, float& r) {
+  r = fast_rcp(1.0f + fast_exp2(s * p.cap_k));
+  return fmaf(-2.0f * p.cap_l, r, p.cap_l);
+}
+
+// `bytes` of bf16 at `base` multiplied by `scale` in fp32 and rounded back
+// (K18's q_scaled = bf16(q * scale)), 16 bytes a thread from thread `t` of
+// `n`; the caller fences (fence_proxy_async) and syncs before wgmma reads
+// them.
+__device__ __forceinline__ void scale_bf16(unsigned char* base, int bytes, int t, int n,
+                                           float scale) {
+  for (int u = t * 16; u < bytes; u += n * 16) {
+    uint4 v = *reinterpret_cast<uint4*>(base + u);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(base + u) = v;
+  }
+}
+
 // The accumulator's columns 16 kk .. 16 kk + 15 as the A fragment of step kk.
 template <int N>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[N], int kk) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) a[r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// What a_frag's rounding leaves of columns 16 kk .. 16 kk + 15, d - bf16(d),
+// as a second A fragment: the two products together carry d to ~16 bits.
+template <int N>
+__device__ __forceinline__ void a_frag_lo(uint32_t (&a)[4], const float (&d)[N], int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
+    a[r] = pack_bf16(x0 - __bfloat162float(__float2bfloat16_rn(x0)),
+                     x1 - __bfloat162float(__float2bfloat16_rn(x1)));
+  }
 }
 
 
@@ -101,22 +182,73 @@ __device__ __forceinline__ int2 seg_span(const Params& p, int b, int t0, int len
   return make_int2(lo, hi);
 }
 
+// First slot of the completion region of slot t >= P (K18's prefix layout).
+__device__ __forceinline__ int region_start(const Params& p, int t) {
+  return p.P + (t - p.P) / p.L * p.L;
+}
+
 // The class of the pair (queries q0 .. q0 + bq - 1, keys k0 .. k0 + bk - 1)
 // of row b: skip when the segment-id ranges are disjoint (no valid pair);
 // full when both tiles lie wholly before T, hold one segment id, the same,
 // and, causal, the keys end at or before the first query; else masked.
+// K18 (causal) adds: skip when the nearest pair is outside the window
+// (q0 - (k0 + bk - 1) >= window) or, under the prefix layout, when the kv
+// tile lies wholly past the prompt and before the region of the query
+// tile's first query past the prompt; full only if, besides, the farthest
+// pair is inside the window and the kv tile lies wholly in the prompt or
+// both tiles in one region. Every skip is exact; a full pair holds only
+// valid pairs.
+template <bool kSplash>
 __device__ __forceinline__ int pair_class(const Params& p, int b, int q0, int bq, int k0,
                                           int bk) {
   const int2 qs = seg_span(p, b, q0, bq), ks = seg_span(p, b, k0, bk);
   if (ks.y < qs.x || ks.x > qs.y) return kSkip;
+  if constexpr (kSplash) {
+    if (p.window > 0 && q0 - (k0 + bk - 1) >= p.window) return kSkip;
+    if (p.G > 0 && k0 >= p.P && k0 + bk - 1 < region_start(p, max(q0, p.P))) return kSkip;
+  }
   if (q0 + bq <= p.T && k0 + bk <= p.T && qs.x == qs.y && ks.x == ks.y && qs.x == ks.x &&
-      (!p.causal || k0 + bk - 1 <= q0))
+      (!p.causal || k0 + bk - 1 <= q0)) {
+    if constexpr (kSplash) {
+      if (p.window > 0 && q0 + bq - 1 - k0 >= p.window) return kMasked;
+      if (p.G > 0 && k0 + bk > p.P &&
+          (k0 < p.P || region_start(p, k0) != region_start(p, q0 + bq - 1)))
+        return kMasked;
+    }
     return kFull;
+  }
   return kMasked;
 }
 
+// First kv tile (bk keys) of the forward's and dq's walk for query tile
+// q0: 0, or with K18's window the first one it reaches.
+template <bool kSplash>
+__device__ __forceinline__ int kv_first(const Params& p, int q0, int bk) {
+  if constexpr (kSplash) {
+    if (p.window > 0) return max(0, q0 - p.window + 1) / bk;
+  }
+  return 0;
+}
+
+// One past the last query tile (bq queries) of the dk/dv walk for kv tile
+// k0 (bk keys): nq, or with K18's window the tile of the last query its
+// last key reaches, and under the prefix layout, for a kv tile wholly past
+// the prompt, the tile of the end of its last key's region (a prompt kv
+// tile is seen by every query after it).
+template <bool kSplash>
+__device__ __forceinline__ int q_end(const Params& p, int k0, int bk, int bq, int nq) {
+  if constexpr (kSplash) {
+    const int kl = min(k0 + bk - 1, p.T - 1);
+    int end = INT_MAX;
+    if (p.window > 0) end = kl + p.window - 1;
+    if (p.G > 0 && k0 >= p.P) end = min(end, region_start(p, kl) + p.L - 1);
+    return min(nq, end / bq + 1);
+  }
+  return nq;
+}
+
 // The kv ring's producer of the forward and dq kernels, run by their
-// loading warp: walks kv tiles 0 .. last (kBk keys each, kSub 64-column
+// loading warp: walks kv tiles kv_first .. last (kBk keys each, kSub 64-column
 // sub-tiles of 128 bytes a row) against query tile q0 (kBq rows) of row b
 // and kv head hk, and classes each pair (pair_class). A skipped pair is
 // never loaded. For every other pair it takes the next stage s of the
@@ -125,7 +257,7 @@ __device__ __forceinline__ int pair_class(const Params& p, int b, int q0, int bq
 // K and V into it by TMA, completing full[s]. The walk ends with the
 // sentinel (-1, 0) in the next stage; the classes are added to p.counts,
 // when given, once a block.
-template <int kBq, int kBk, int kStages, int kSub>
+template <int kBq, int kBk, int kStages, int kSub, bool kSplash>
 __device__ __forceinline__ void produce_kv_ring(const Params& p, int b, int q0, int hk, int last,
                                                 int lane, const CUtensorMap* tk,
                                                 const CUtensorMap* tv, unsigned char* Ks,
@@ -133,8 +265,8 @@ __device__ __forceinline__ void produce_kv_ring(const Params& p, int b, int q0, 
                                                 uint64_t* full, uint64_t* empty) {
   constexpr int kKSub = kBk * 128, kKBytes = kSub * kKSub;
   int n_skip = 0, n_full = 0, n_masked = 0, it = 0;
-  for (int j = 0; j <= last; ++j) {
-    const int cls = pair_class(p, b, q0, kBq, j * kBk, kBk);
+  for (int j = kv_first<kSplash>(p, q0, kBk); j <= last; ++j) {
+    const int cls = pair_class<kSplash>(p, b, q0, kBq, j * kBk, kBk);
     n_skip += cls == kSkip;
     n_full += cls == kFull;
     n_masked += cls == kMasked;
@@ -206,12 +338,31 @@ inline Params make_params(const void* seg, const void* seg_min, const void* seg_
   return p;
 }
 
+// K18's values: K16's, with q rounded by `scale`, the window (<= 0: none),
+// the prefix layout (G = 0: none) and the softcap (<= 0: none).
+inline Params make_splash_params(const void* seg, const void* seg_min, const void* seg_max,
+                                 int B, int T, int Hq, int Hkv, float scale, bool causal,
+                                 void* counts, int window, float softcap, int P, int G, int L) {
+  Params p = make_params(seg, seg_min, seg_max, B, T, Hq, Hkv, scale, causal, counts);
+  p.window = window > 0 ? window : 0;
+  p.G = G > 0 ? G : 0;
+  p.P = P;
+  p.L = L;
+  p.cap = softcap > 0.0f ? softcap : 0.0f;
+  p.cap_k = softcap > 0.0f ? 2.0f * kLog2e / softcap : 0.0f;
+  p.cap_l = softcap > 0.0f ? softcap * kLog2e : 0.0f;
+  p.scale_log2 = softcap > 0.0f ? 1.0f : kLog2e;
+  return p;
+}
+
 // The launchers of flash_fwd.cu, flash_dq.cu and flash_dkv.cu, called by
-// flash_attention.cu's entry points; each returns a CUDA error code.
-int flash_fwd(int D, const void* q, const void* k, const void* v, Params p, cudaStream_t s);
-int flash_dq(int D, const void* q, const void* k, const void* v, const void* dout, Params p,
-             cudaStream_t s);
-int flash_dkv(int D, const void* q, const void* k, const void* v, const void* dout, Params p,
+// flash_attention.cu's entry points (K16) and splash_attention.cu's (K18,
+// `splash`); each returns a CUDA error code.
+int flash_fwd(int D, bool splash, const void* q, const void* k, const void* v, Params p,
               cudaStream_t s);
+int flash_dq(int D, bool splash, const void* q, const void* k, const void* v, const void* dout,
+             Params p, cudaStream_t s);
+int flash_dkv(int D, bool splash, const void* q, const void* k, const void* v,
+              const void* dout, Params p, cudaStream_t s);
 
 }  // namespace hflash

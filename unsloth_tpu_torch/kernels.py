@@ -70,10 +70,15 @@ def _library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if no library with their hash exists yet: one
-    ``nvcc -c`` per source in parallel, then one link."""
+    ``nvcc -c`` per source in parallel, then one link. ``build_log`` holds
+    the compiler's output, read back from beside a library built before
+    (the log is written before the library is published; a library
+    without one is built again)."""
     global build_seconds, build_log
     out = _library_path()
-    if out.exists():
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        build_log = log.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -101,8 +106,10 @@ def build() -> Path:
     if failed:
         cmd, log = failed[0]
         raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
+    log_tmp = log.with_suffix(f".{os.getpid()}.logtmp")
+    log_tmp.write_text(build_log)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)
-    (BUILD_DIR / (out.stem + ".log")).write_text(build_log)
     return out
 
 
@@ -145,7 +152,7 @@ def library() -> ctypes.CDLL:
                                                p, p]
         lib.unsloth_flash_attn_dkv.restype = i
         # pointers, the prefix layout (P, G, L), B, T, Hq, Hkv, D, scale,
-        # window, softcap, causal, the visited tile-pair counter (or null),
+        # window, softcap, causal, the tile-pair class counters (or null),
         # stream
         lib.unsloth_splash_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                                 i, i, i, i, i, i, f, i, f, b,

@@ -28,7 +28,11 @@ they compute, as ``_tpu_splash`` feeds them:
   capped; dq = scale * (dS @ k), dk = dS^T @ q_scaled, dv = P^T @ dout,
   dk and dv summed over each kv head's query heads.
 
-On CUDA tensors :func:`splash_attention` runs ``csrc/splash_attention.cu``:
+On CUDA tensors :func:`splash_attention` runs K16's Hopper kernels
+(``csrc/flash_fwd.cu``, ``flash_dq.cu``, ``flash_dkv.cu``: wgmma products,
+TMA-fed tile rings, the softmax in registers) instantiated with K18's
+rules (the softcap, q's rounding, the window, the prefix layout), through
+the entry points of ``csrc/splash_attention.cu``:
 :func:`splash_attention_fwd` (out and an fp32 logsumexp),
 :func:`splash_attention_dq` (dq, and di = sum(dout * out)) and
 :func:`splash_attention_dkv` (dk, dv), and without causality
@@ -36,10 +40,11 @@ On CUDA tensors :func:`splash_attention` runs ``csrc/splash_attention.cu``:
 :func:`splash_attention_dkv_full`, each with its own launch count. On
 CPU tensors it runs the plain versions :func:`splash_attention_fwd_ref`
 and :func:`splash_attention_bwd_ref` in fp32. The device of q is the only
-thing that chooses. Each kernel wrapper takes an optional ``tile_visits``
-counter (an int64 tensor of one element on the card), to which its kernel
-adds one for each (64-query tile, 64-key tile, query head) it visits: what
-the causal, window, segment and prefix-layout skips left.
+thing that chooses. Each kernel wrapper takes an optional ``tile_counts``
+(an int32 [3] on the card), to which its kernel adds, for each query head,
+the (query tile, kv tile) pairs it visited, by class: skipped (disjoint
+segment-id ranges, or masked whole by the prefix layout), full (no mask
+needed) and masked; the tiles are K16's ``KERNEL_TILES``.
 
 Layout: the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids
 [B, T] int, lse [B, Hq, T]. CUDA: bf16, D = 64, 128 or 256, any T;
@@ -190,17 +195,17 @@ def _options(window: Optional[int], softcap: Optional[float]):
             0.0 if softcap is None else float(softcap))
 
 
-def _visits(tile_visits: Optional[torch.Tensor], q: torch.Tensor):
-    """The kernels' counter pointer (None: no count)."""
-    if tile_visits is None:
+def _counts(tile_counts: Optional[torch.Tensor], q: torch.Tensor):
+    """The kernels' class counters' pointer (None: no count)."""
+    if tile_counts is None:
         return None
-    if (tile_visits.dtype != torch.int64 or tile_visits.device != q.device
-            or tile_visits.numel() != 1):
-        raise ValueError("splash attention: tile_visits must be one int64 "
-                         f"element on {q.device}; got {tile_visits.dtype} "
-                         f"{tuple(tile_visits.shape)} on "
-                         f"{tile_visits.device}")
-    return tile_visits.data_ptr()
+    if (tile_counts.dtype != torch.int32 or tile_counts.device != q.device
+            or tile_counts.shape != (3,)):
+        raise ValueError("splash attention: tile_counts must be an int32 [3] "
+                         f"on {q.device}; got {tile_counts.dtype} "
+                         f"{tuple(tile_counts.shape)} on "
+                         f"{tile_counts.device}")
+    return tile_counts.data_ptr()
 
 
 def _layout(prefix_layout, t: int, window: Optional[int],
@@ -225,7 +230,7 @@ def _layout(prefix_layout, t: int, window: Optional[int],
 
 
 def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, window, softcap,
-         scale, prefix_layout, tile_visits, causal):
+         scale, prefix_layout, tile_counts, causal):
     _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
     layout = _layout(prefix_layout, t, window, causal)
@@ -237,14 +242,14 @@ def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, window, softcap,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), causal, _visits(tile_visits, q),
+        *_options(window, softcap), causal, _counts(tile_counts, q),
         _stream(q))
     kernels.check(rc, name)
     return out, lse
 
 
 def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, window,
-        softcap, scale, prefix_layout, tile_visits, causal):
+        softcap, scale, prefix_layout, tile_counts, causal):
     _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
     layout = _layout(prefix_layout, t, window, causal)
@@ -259,14 +264,14 @@ def _dq(name, q, k, v, segment_ids, seg_min, seg_max, out, lse, dout, window,
         seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), causal, _visits(tile_visits, q),
+        *_options(window, softcap), causal, _counts(tile_counts, q),
         _stream(q))
     kernels.check(rc, name)
     return dq, di
 
 
 def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, window,
-         softcap, scale, prefix_layout, tile_visits, causal):
+         softcap, scale, prefix_layout, tile_counts, causal):
     _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
     b, t, hq, d = q.shape
     layout = _layout(prefix_layout, t, window, causal)
@@ -281,7 +286,7 @@ def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, window,
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *layout, b, t, hq, k.shape[2], d, float(scale),
-        *_options(window, softcap), causal, _visits(tile_visits, q),
+        *_options(window, softcap), causal, _counts(tile_counts, q),
         _stream(q))
     kernels.check(rc, name)
     return dk, dv
@@ -290,11 +295,11 @@ def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, window,
 def splash_attention_fwd(q, k, v, segment_ids, seg_min, seg_max, *,
                          window: Optional[int], softcap: Optional[float],
                          scale: float, prefix_layout=None,
-                         tile_visits: Optional[torch.Tensor] = None):
+                         tile_counts: Optional[torch.Tensor] = None):
     """Kernel forward, causal: (out [B, T, Hq, D] bf16, lse [B, Hq, T]
     fp32)."""
     res = _fwd("splash_attention_fwd", q, k, v, segment_ids, seg_min,
-               seg_max, window, softcap, scale, prefix_layout, tile_visits,
+               seg_max, window, softcap, scale, prefix_layout, tile_counts,
                True)
     splash_attention_fwd.launches += 1
     return res
@@ -304,11 +309,11 @@ def splash_attention_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse,
                         dout, *, window: Optional[int],
                         softcap: Optional[float], scale: float,
                         prefix_layout=None,
-                        tile_visits: Optional[torch.Tensor] = None):
+                        tile_counts: Optional[torch.Tensor] = None):
     """Kernel dq, causal: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
     res = _dq("splash_attention_dq", q, k, v, segment_ids, seg_min, seg_max,
               out, lse, dout, window, softcap, scale, prefix_layout,
-              tile_visits, True)
+              tile_counts, True)
     splash_attention_dq.launches += 1
     return res
 
@@ -317,23 +322,23 @@ def splash_attention_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di,
                          dout, *, window: Optional[int],
                          softcap: Optional[float], scale: float,
                          prefix_layout=None,
-                         tile_visits: Optional[torch.Tensor] = None):
+                         tile_counts: Optional[torch.Tensor] = None):
     """Kernel dk/dv, causal: (dk, dv) [B, T, Hkv, D] bf16, from the dq
     kernel's di."""
     res = _dkv("splash_attention_dkv", q, k, v, segment_ids, seg_min,
                seg_max, lse, di, dout, window, softcap, scale, prefix_layout,
-               tile_visits, True)
+               tile_counts, True)
     splash_attention_dkv.launches += 1
     return res
 
 
 def splash_attention_fwd_full(q, k, v, segment_ids, seg_min, seg_max, *,
                               softcap: Optional[float], scale: float,
-                              tile_visits: Optional[torch.Tensor] = None):
+                              tile_counts: Optional[torch.Tensor] = None):
     """Kernel forward without causality (``FullMask``): as
     :func:`splash_attention_fwd`, with no window or layout."""
     res = _fwd("splash_attention_fwd_full", q, k, v, segment_ids, seg_min,
-               seg_max, None, softcap, scale, None, tile_visits, False)
+               seg_max, None, softcap, scale, None, tile_counts, False)
     splash_attention_fwd_full.launches += 1
     return res
 
@@ -341,11 +346,11 @@ def splash_attention_fwd_full(q, k, v, segment_ids, seg_min, seg_max, *,
 def splash_attention_dq_full(q, k, v, segment_ids, seg_min, seg_max, out,
                              lse, dout, *, softcap: Optional[float],
                              scale: float,
-                             tile_visits: Optional[torch.Tensor] = None):
+                             tile_counts: Optional[torch.Tensor] = None):
     """Kernel dq without causality (:func:`splash_attention_dq`'s form)."""
     res = _dq("splash_attention_dq_full", q, k, v, segment_ids, seg_min,
               seg_max, out, lse, dout, None, softcap, scale, None,
-              tile_visits, False)
+              tile_counts, False)
     splash_attention_dq_full.launches += 1
     return res
 
@@ -353,12 +358,12 @@ def splash_attention_dq_full(q, k, v, segment_ids, seg_min, seg_max, out,
 def splash_attention_dkv_full(q, k, v, segment_ids, seg_min, seg_max, lse,
                               di, dout, *, softcap: Optional[float],
                               scale: float,
-                              tile_visits: Optional[torch.Tensor] = None):
+                              tile_counts: Optional[torch.Tensor] = None):
     """Kernel dk/dv without causality (:func:`splash_attention_dkv`'s
     form)."""
     res = _dkv("splash_attention_dkv_full", q, k, v, segment_ids, seg_min,
                seg_max, lse, di, dout, None, softcap, scale, None,
-               tile_visits, False)
+               tile_counts, False)
     splash_attention_dkv_full.launches += 1
     return res
 

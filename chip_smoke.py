@@ -48,7 +48,10 @@ exits non-zero without printing a result:
                with the bias epilogue, and dx) on the same three
                routings, and flash attention with sinks (K17: forward,
                dq, dk/dv, dsinks; 64/8 heads of 64) on the path's packed
-               4,096-token row and a padded [2, 2048] batch; then the
+               4,096-token row and a padded [2, 2048] batch, and at head
+               dims 128 (32/8 heads) and 256 (16/8) on a padded
+               [1, 1024] row, each also through ``attention`` with
+               sinks, against ``attention_ref``; then the
                small Llama-family paths' head-dim forms: K16 at head dim
                64 on the padded [2, 2048] batch with Llama-3.2-1B's 32/8
                and Qwen2.5-0.5B's 14/2 heads, at head dim 256 with
@@ -336,7 +339,9 @@ result line). Every phase prints its time ("[time]").
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -588,6 +593,9 @@ GPT_OSS_ROWS = 4096        # packed row of phase 9 (bench.py's first rung)
 SINKS_ROWS = 384           # a gpt-oss row where the window of 128 is not
                            # narrow (4 bands do not fit): K18 at head dim 64
 SINKS_DOCS = ((0, 260), (260, 360))   # its documents, then a pad tail
+#: K17's head dims beyond gpt-oss's 64 in phase 3: (head dim, Hq, Hkv) on a
+#: padded [1, 1024] row
+SINKS_WIDE_HEADS = ((128, 32, 8), (256, 16, 8))
 PARITY_ROWS = 1024         # row length of the card-vs-CPU parity phases 4b-4c
 PARITY_DECODE_STEPS = 4    # decode steps of phase 4 (8 cost ~22 s more)
 DECODE_ROWS = (1, 4, 7)
@@ -1206,9 +1214,11 @@ def phase_device():
 
 def attention_build_report(build_log):
     """([(kernel, registers, spill-store bytes)] of each instantiation of
-    the Hopper attention kernels (K16's ``flash_*_kernel<D, false>``,
-    K18's ``<D, true>``) in ptxas's ``-v`` output, [the C75xx lines, ptxas
-    serializing their wgmma, that name one])."""
+    the Hopper attention kernels (K16's ``flash_fwd_kernel<D, false,
+    false>`` and ``flash_{dq,dkv}_kernel<D, false>``, K18's ``<D, true,
+    false>`` and ``<D, true>``, K17's forward ``<D, false, true>``) in
+    ptxas's ``-v`` output, [the C75xx lines, ptxas serializing their
+    wgmma, that name one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1216,10 +1226,12 @@ def attention_build_report(build_log):
     for line in lines:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELb(\d)E",
-                          m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)}, "
-                    f"{'K18' if k.group(3) == '1' else 'K16'}>" if k else None)
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELb(\d)E"
+                          r"(?:Lb(\d)E)?", m.group(1))
+            kind = None if k is None else (
+                "K17" if k.group(4) == "1" else
+                "K18" if k.group(3) == "1" else "K16")
+            name = f"{k.group(1)}<{k.group(2)}, {kind}>" if k else None
             spill = 0
             continue
         if name is None:
@@ -1238,9 +1250,10 @@ def attention_build_report(build_log):
 
 
 def phase_build():
-    """Build the kernels and print ptxas's registers and spills; the
-    Hopper attention kernels (K16 and K18) must report no spill and no
-    serialized wgmma (:func:`attention_build_report`)."""
+    """Build the kernels and print ptxas's registers and spills; the 21
+    Hopper attention kernels (K16's and K18's nine, K17's three forwards)
+    must report no spill and no serialized wgmma
+    (:func:`attention_build_report`)."""
     from unsloth_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1260,7 +1273,7 @@ def phase_build():
         ", ".join(f"{n} {r}/{b}" for n, r, b in rows))
     for line in serialized:
         log("[build] ", line)
-    if len(rows) != 18 or any(b for _, _, b in rows) or serialized:
+    if len(rows) != 21 or any(b for _, _, b in rows) or serialized:
         raise RuntimeError(f"the Hopper attention kernels spill or serialize "
                            f"their wgmma: {rows}, {serialized}")
 
@@ -2568,7 +2581,8 @@ def _gpt_oss_kernels(dev, g, flush):
     weight gradient of the gate/up product, [E, F, D]) at (a) and (b) and
     at (d) TGMM_RAGGED; and K17 (:func:`_sinks_case`) on (a) the
     path's packed 4,096-token row and (b) a padded [2, 2048] batch, 64/8
-    heads of 64."""
+    heads of 64, and (c) at SINKS_WIDE_HEADS on a padded [1, 1024] row,
+    also through ``attention`` with sinks."""
     import numpy as np
     import torch
 
@@ -2635,6 +2649,14 @@ def _gpt_oss_kernels(dev, g, flush):
                             ("(b) padded", padded, False)):
         res = _sinks_case(dev, g, flush, label, seg, hq, hkv, hd, hd ** -0.5,
                           lib)
+        for name, row in res.items():
+            rows[name].append(row)
+    # K17 at the head dims no model of the port runs with sinks
+    wide = torch.ones((1, 1024), dtype=torch.int32, device=dev)
+    wide[0, 800:] = 0
+    for d_, hq_, hkv_ in SINKS_WIDE_HEADS:
+        res = _sinks_case(dev, g, flush, f"(c) Dh {d_}", wide, hq_, hkv_, d_,
+                          d_ ** -0.5, False, form=f"d{d_}")
         for name, row in res.items():
             rows[name].append(row)
     return rows
@@ -3210,7 +3232,8 @@ def _tgmm_case(dev, g, flush, label, x, sizes, n):
                 **({} if same is None else {"same_bits": same}))
 
 
-def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
+def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib,
+                form=None):
     """K17 forward, dq, dk/dv and dsinks at one shape against the plain
     versions: out, dq, dk, dv at every position row by row
     (:func:`attn_row_err`), lse' within 1e-3, dsinks within 1e-2 of its
@@ -3222,7 +3245,9 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     yardstick: ``torch.compile``d ``flex_attention`` (block mask of causal
     and equal segment ids, GQA) with ``return_lse``, rescaled by
     sigmoid(lse - sink), forward and backward (labelled: flex plus the
-    rescale)."""
+    rescale). A head-dim ``form`` no model path runs with sinks is also
+    driven through ``ops.attention.attention`` with sinks, forward and
+    backward (:func:`_sinks_through_attention`)."""
     import torch
 
     from unsloth_tpu_torch.ops import flash_attention as tfa
@@ -3273,11 +3298,23 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     dkv_ms = time_ms(lambda: tfs.flash_sinks_dkv(
         q, k, v, seg, lo, hi, lse, di, dout, scale=scale), runs=10,
         flush=flush)
+    # K16's kernels on the same inputs without the sink: the time K17's
+    # sinks form adds to the kernels it runs on
+    k16_ms = [time_ms(fn, runs=10, flush=flush) for fn in (
+        lambda: tfa.flash_attention_fwd(q, k, v, seg, lo, hi, scale=scale),
+        lambda: tfa.flash_attention_dq(q, k, v, seg, lo, hi, out, lse, dout,
+                                       scale=scale),
+        lambda: tfa.flash_attention_dkv(q, k, v, seg, lo, hi, lse, di, dout,
+                                        scale=scale))]
     flex_fwd = flex_bwd = flex_err = None
     if lib:
         flex_fwd, flex_bwd, flex_err = _flex_sinks_ms(q, k, v, seg, sinks,
                                                       dout, flush, rout,
                                                       scale)
+    path_launches = None
+    if form is not None:
+        path_launches = _sinks_through_attention(q, k, v, seg, sinks, dout,
+                                                 scale, label)
     pairs = int(tfa._mask(seg, b, t, dev).sum())
     fb = bound(4 * d * hq * pairs, nbytes(q, k, v, seg, out, lse, sinks))
     qb = bound(6 * d * hq * pairs, nbytes(q, k, v, seg, out, dout, lse, q,
@@ -3287,20 +3324,24 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     shape = (f"{label}: B={b} T={t} Hq={hq} Hkv={hkv} D={d} bf16, {n_seg} "
              f"segment(s), {int((seg == 0).sum())} pad")
     common = dict(shape=shape, library="compiled flex_attention(return_lse)"
-                  " + sigmoid(lse - sink) rescale")
+                  " + sigmoid(lse - sink) rescale" if lib else None,
+                  **({} if form is None else {
+                      "form": form, "path_launches": path_launches}))
     res = {
         "flash_sinks_fwd": dict(common, err=max(errs["out"][0], lse_err),
                                 ms=fwd_ms, plain_ms=fwd_plain,
+                                k16_ms=k16_ms[0],
                                 bound_ms=fb[0], bound_by=fb[1],
                                 library_ms=flex_fwd),
         "flash_sinks_dq": dict(common, err=max(errs["dq"][0], dsk_err),
-                               ms=dq_ms, plain_ms=bwd_plain, bound_ms=qb[0],
+                               ms=dq_ms, plain_ms=bwd_plain,
+                               k16_ms=k16_ms[1], bound_ms=qb[0],
                                bound_by=qb[1], library_ms=flex_bwd),
         "flash_sinks_dkv": dict(common, err=max(errs["dk"][0],
                                                 errs["dv"][0]),
                                 ms=dkv_ms, plain_ms=bwd_plain,
-                                bound_ms=kb[0], bound_by=kb[1],
-                                library_ms=flex_bwd)}
+                                k16_ms=k16_ms[2], bound_ms=kb[0],
+                                bound_by=kb[1], library_ms=flex_bwd)}
     log(f"[kernels] flash sinks (K17) {shape}, every position: " +
         ", ".join(f"{n_} max|d|={e_:.3e} row-wise {r:.3e}"
                   for n_, (e_, r) in errs.items())
@@ -3312,7 +3353,9 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     log(f"[kernels] flash sinks {label} fwd kernel {fwd_ms:.4f} ms plain "
         f"{fwd_plain:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); dq kernel "
         f"{dq_ms:.4f} ms bound {qb[0]:.4f} ms; dk/dv kernel {dkv_ms:.4f} ms "
-        f"bound {kb[0]:.4f} ms; plain backward {bwd_plain:.4f} ms; compiled "
+        f"bound {kb[0]:.4f} ms; plain backward {bwd_plain:.4f} ms; K16 on "
+        f"the same inputs without the sink {k16_ms[0]:.4f} / "
+        f"{k16_ms[1]:.4f} / {k16_ms[2]:.4f} ms; compiled "
         f"flex_attention(return_lse) + rescale: fwd {flex_fwd} ms, backward "
         f"{flex_bwd} ms, out row-wise {flex_err} from the plain version; "
         f"{pairs} valid pairs per head")
@@ -3328,6 +3371,39 @@ def _sinks_case(dev, g, flush, label, seg, hq, hkv, d, scale, lib):
     del q, k, v, dout, out, lse, dq, dk, dv, di, rout
     torch.cuda.empty_cache()
     return res
+
+
+def _sinks_through_attention(q, k, v, seg, sinks, dout, scale, label):
+    """{K17 kernel: launches} of one forward and backward of
+    ``ops.attention.attention`` with sinks on these inputs, the counters
+    set to 0 just before; each must be 1, the gradients finite, and the
+    output must match ``attention_ref`` with sinks row by row
+    (:func:`attn_row_err`)."""
+    import torch
+
+    from unsloth_tpu_torch.ops.attention import attention, attention_ref
+
+    names = ("flash_sinks_fwd", "flash_sinks_dq", "flash_sinks_dkv")
+    fns = _kernel_fns()
+    for n_ in names:
+        fns[n_].launches = 0
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v, sinks)]
+    got = attention(*xs[:3], segment_ids=seg, scale=scale, sinks=xs[3])
+    got.backward(dout)
+    torch.cuda.synchronize()
+    launches = {n_: fns[n_].launches for n_ in names}
+    want = attention_ref(q, k, v, segment_ids=seg, scale=scale, sinks=sinks)
+    err = attn_row_err(got.detach(), want)
+    finite = all(bool(torch.isfinite(x.grad).all()) for x in xs)
+    log(f"[kernels] flash sinks {label} through attention(sinks=...): "
+        f"launches {launches}, out row-wise {err:.3e} from attention_ref "
+        f"(tol {ATTN_ROW_TOL:.3e}), finite grads {finite}")
+    if any(c != 1 for c in launches.values()) or not err <= ATTN_ROW_TOL \
+            or not finite:
+        raise RuntimeError(f"attention with sinks at {label}: launches "
+                           f"{launches}, row-wise {err}, finite grads "
+                           f"{finite}")
+    return launches
 
 
 def _flex_sinks_ms(q, k, v, segment_ids, sinks, dout, flush, want, scale):
@@ -4958,7 +5034,7 @@ def phase_grpo(tmp, profile=False):
     import torch
 
     from unsloth_tpu_torch import FastLanguageModel
-    from unsloth_tpu_torch.inference import generate as tgen
+    tgen = importlib.import_module("unsloth_tpu_torch.inference.generate")
     from unsloth_tpu_torch.trainer import grpo as tgrpo
 
     kernels = _kernel_fns()
@@ -6558,23 +6634,43 @@ def _device_report(prof, wall_us, top):
     # device time by kernel family (wrapper kernel names), and under the
     # port's profiler ranges (record_function: the MoE routing and
     # permutation glue, the banded attention), from their device spans
+    def instances(form, *fwd_form):
+        return tuple(f"flash_{w}_kernel<{d}, {form}"
+                     + (f", {', '.join(fwd_form)}>" if w == "fwd" else ">")
+                     for w in ("fwd", "dq", "dkv") for d in (64, 128, 256))
+
     families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel", "gmm_wgmma_kernel",
                                               "tgmm_kernel"),
-                "K1/K2 nf4_matmul":
-                ("nf4_matmul",), "K17 flash sinks": ("sinks_",),
+                "K1/K2 nf4_matmul": ("nf4_matmul",),
+                # K17's forward is K16's in its kSinks form; its dq and
+                # dk/dv are K16's kernels, told apart by the device spans
+                # of its profiler range (below)
+                "K17 flash sinks": tuple(f"flash_fwd_kernel<{d}, false, true>"
+                                         for d in (64, 128, 256)),
                 # K18 runs on K16's kernels, instantiated with kSplash
-                "K18 splash": tuple(f"flash_{w}_kernel<{d}, true>"
-                                    for w in ("fwd", "dq", "dkv")
-                                    for d in (64, 128, 256)),
-                "K16 flash": tuple(f"flash_{w}_kernel<{d}, false>"
-                                   for w in ("fwd", "dq", "dkv")
-                                   for d in (64, 128, 256))
+                "K18 splash": instances("true", "false"),
+                "K16 flash": instances("false", "false")
                 + ("dkv_sum_kernel",),
                 "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
                 ("rms_norm",)}
-    fam = {f_: sum(us for name, (us, _) in by_name.items()
-                   if any(key in name for key in keys))
-           for f_, keys in families.items()}
+    sinks_spans = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+        if e.get("cat") == "gpu_user_annotation"
+        and e["name"] == "unsloth.flash_sinks")
+    starts = [a for a, _ in sinks_spans]
+
+    def family(e):
+        i = bisect.bisect_right(starts, float(e["ts"])) - 1
+        if i >= 0 and float(e["ts"]) < sinks_spans[i][1]:
+            return "K17 flash sinks"
+        return next((f_ for f_, keys in families.items()
+                     if any(key in e["name"] for key in keys)), None)
+
+    fam = dict.fromkeys(families, 0.0)
+    for e in dev:
+        f_ = family(e)
+        if f_ is not None:
+            fam[f_] += float(e["dur"])
     log("[profile] by family: " + ", ".join(
         f"{f_} {us / 1e3:.1f} ms ({100 * us / total:.1f}%)"
         for f_, us in fam.items() if us))
@@ -7697,15 +7793,15 @@ def _kernels_line(rows, by_path):
         "nf4_gmm": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:86", "(a) path"),
         "nf4_gmm_dx": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:135",
                        "(a) path"),
-        "flash_sinks_fwd": ("flash_sinks.cu",
+        "flash_sinks_fwd": ("flash_fwd.cu",
                             "unsloth_tpu/ops/attention.py:456 (_tpu_flash_"
                             "sinks: bundled _flash_attention_impl)",
                             "(a) packed row"),
-        "flash_sinks_dq": ("flash_sinks.cu",
+        "flash_sinks_dq": ("flash_dq.cu",
                            "unsloth_tpu/ops/attention.py:487 (_tpu_flash_"
                            "sinks: bundled _flash_attention_bwd_dq)",
                            "(a) packed row"),
-        "flash_sinks_dkv": ("flash_sinks.cu",
+        "flash_sinks_dkv": ("flash_dkv.cu",
                             "unsloth_tpu/ops/attention.py:480 (_tpu_flash_"
                             "sinks: bundled _flash_attention_bwd_dkv)",
                             "(a) packed row"),
@@ -7765,9 +7861,13 @@ def _kernels_line(rows, by_path):
                  **{k_: "diffusion_training" for k_ in FULL_FLASH},
                  **{k_: "gemma2_diffusion_2layer_parity"
                     for k_ in FULL_SPLASH}}
-    # the head-dim forms of this slice: (kernel, form, shape in phase 3,
-    # the path whose launches are all of this form)
+    # the head-dim forms: (kernel, form, shape in phase 3, the path whose
+    # launches are all of this form; None: no model path runs the form, and
+    # its launches are phase 3's run through ops.attention.attention)
     forms = {
+        **{f"{k_}_d{d_}": (k_, f"d{d_}", f"(c) Dh {d_}", None)
+           for k_ in ("flash_sinks_fwd", "flash_sinks_dq", "flash_sinks_dkv")
+           for d_, *_ in SINKS_WIDE_HEADS},
         "flash_attn_fwd_d64": ("flash_attn_fwd", "d64", "Llama-3.2-1B",
                                "llama32_training"),
         "flash_attn_dq_d64": ("flash_attn_dq", "d64", "Llama-3.2-1B",
@@ -7817,9 +7917,14 @@ def _kernels_line(rows, by_path):
                    if shape is None or r["shape"].startswith(shape))
         # a kernel with head-dim forms counts, under each form, only the
         # paths that run that form
-        by_form = ({p_: n[kname] for p_, n in by_path.items() if kname in n
-                    and not (kname in has_forms and p_ in form_paths)}
-                   if form is None else {path: by_path[path][kname]})
+        if form is None:
+            by_form = {p_: n[kname] for p_, n in by_path.items()
+                       if kname in n
+                       and not (kname in has_forms and p_ in form_paths)}
+        elif path is None:
+            by_form = {"attention_with_sinks": row["path_launches"][kname]}
+        else:
+            by_form = {path: by_path[path][kname]}
         if form == "d64" and kname.startswith("flash"):
             by_form["qwen25_training"] = by_path["qwen25_training"][kname]
             by_form["qwen25_full_ft_training"] = \
@@ -7833,7 +7938,8 @@ def _kernels_line(rows, by_path):
         kernels_line.append({
             "name": name_, "route": "cuda",
             "source": f"unsloth_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": by_path[path][kname],
+            "launches": (by_form["attention_with_sinks"] if path is None
+                         else by_path[path][kname]),
             "max_abs_err": max(r["err"] for r in of_form),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -7841,6 +7947,7 @@ def _kernels_line(rows, by_path):
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": by_form,
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
+                                         "k16_ms",
                                          "tile_classes_one_segment",
                                          "causal_tile_classes", "tile_classes",
                                          "same_bits", "library_ratio",

@@ -521,15 +521,17 @@ def test_nf4_gmm_kernels_match_plain(dev, e, n, k, bs, m, kind):
         1e-2 * refs[2].float().abs().max()
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(300, 8, 1), (256, 64, 8)])
-def test_flash_sinks_kernels_match_plain(dev, t, hq, hkv):
-    """K17 forward (out, lse'), dq and dk/dv at head dim 64 with GQA (8
-    query heads a kv head) against the plain fp32 versions on the same
-    bf16 inputs, a padded and a packed row: every position row by row
-    (``chip_smoke.attn_row_err``), lse' within 1e-3, dsinks within 1e-2 of
-    its largest value (a sum over tokens of the kernels' di)."""
+def test_flash_sinks_kernels_match_plain(dev, t, hq, hkv, d):
+    """K17 forward (out, lse'), dq and dk/dv at head dim 64 (gpt-oss), 128
+    and 256 with GQA (8 query heads a kv head) against the plain fp32
+    versions on the same bf16 inputs, a padded and a packed row: every
+    position row by row (``chip_smoke.attn_row_err``), lse' within 1e-3,
+    dsinks within 1e-2 of its largest value (a sum over tokens of the
+    kernels' di)."""
     g = torch.Generator(device=dev).manual_seed(13)
-    q, k, v, dout = (torch.randn((2, t, h, 64), generator=g, device=dev)
+    q, k, v, dout = (torch.randn((2, t, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
     sinks = torch.randn((hq,), generator=g, device=dev) * 2
     seg = _splash_segments(t, dev)
@@ -560,8 +562,9 @@ def test_attention_dispatch_with_sinks_on_cuda(dev):
     """Plain causal rows with sinks launch K17 (its gradient through dq and
     dk/dv); a narrow window takes the banded form, no kernel; a window that
     is not narrow (T = 384) takes K18 at head dim 64, then the chunked lse
-    and the sink rescale, against the reference; head dim 128 with sinks
-    raises naming K17."""
+    and the sink rescale, against the reference; plain causal rows at head
+    dims 128 and 256 launch K17 and match the reference row by row; head
+    dim 192, which no kernel is built for, raises naming K17."""
     from unsloth_tpu_torch.ops.attention import attention
 
     q = torch.randn((1, 512, 8, 64), device=dev, dtype=torch.bfloat16,
@@ -585,9 +588,19 @@ def test_attention_dispatch_with_sinks_on_cuda(dev):
     assert tsa.splash_attention_fwd.launches == n_splash + 1
     want = attention_ref(q3, k3, k3, window=128, sinks=sinks3)
     assert attn_row_err(got, want) <= ATTN_ROW_TOL
-    q128 = torch.zeros((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(17)
+    for d in (128, 256):
+        qd, kd, vd = (torch.randn((1, 200, h, d), generator=g, device=dev)
+                      .to(torch.bfloat16) for h in (4, 2, 2))
+        sd = torch.randn(4, generator=g, device=dev)
+        n_sinks = tfs.flash_sinks_fwd.launches
+        got = attention(qd, kd, vd, sinks=sd)
+        assert tfs.flash_sinks_fwd.launches == n_sinks + 1
+        assert attn_row_err(got, attention_ref(qd, kd, vd, sinks=sd)) <= \
+            ATTN_ROW_TOL
+    q192 = torch.zeros((1, 64, 2, 192), device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="K17"):
-        attention(q128, q128, q128, sinks=torch.zeros(2, device=dev))
+        attention(q192, q192, q192, sinks=torch.zeros(2, device=dev))
 
 
 from unsloth_tpu_torch.ops import gmm as tgmm  # noqa: E402

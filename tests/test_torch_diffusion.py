@@ -13,6 +13,7 @@ unmasking, and DiffusionTrainer's steps."""
 
 import copy
 import dataclasses
+import importlib
 import json
 import os
 
@@ -39,7 +40,6 @@ from unsloth_tpu_torch.models import loader as tloader
 from unsloth_tpu_torch.models.config import ModelConfig as TConfig
 from unsloth_tpu_torch.models.decoder import logits_fn as tlogits_fn
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.ops import splash_attention as tsa
 from unsloth_tpu_torch.trainer.checkpoint import named_leaves
@@ -47,6 +47,8 @@ from unsloth_tpu_torch.trainer.diffusion import DiffusionTrainer
 from unsloth_tpu_torch.trainer.sft import SFTConfig, build_optimizer
 from tests.test_torch_gemma2 import _splash_inputs
 from tests.test_torch_unpacked import _padded_qkv
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 MASK = 250
 

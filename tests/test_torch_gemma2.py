@@ -7,6 +7,7 @@ SFTTrainer on a tiny Gemma-2 (sliding and global layers, both softcaps,
 sandwich norms, tied embedding, NF4 carried byte for byte) with
 response-only labels (batches, losses, adapters, evaluate)."""
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,11 +30,12 @@ from unsloth_tpu_torch.interop import (lora_from_numpy, lora_to_numpy,
 from unsloth_tpu_torch.models import decoder as tdec
 from unsloth_tpu_torch.models.config import ModelConfig as TConfig
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import splash_attention as tsa
 from unsloth_tpu_torch.trainer import sft as tsft
 from tests.test_torch_unpacked import (INSTR, RESP, T, ByteTokenizer,
                                        _alpaca_texts)
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 
 def _t(a):

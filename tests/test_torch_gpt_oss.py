@@ -11,11 +11,13 @@ adapter round trip and a greedy generate; ``merged_params``,
 ``tree_bytes`` and the merged save of MoE trees; plus one tiny
 ``Qwen3MoeForCausalLM``. Each test states its tolerance."""
 
+import importlib
 import os
 
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ from unsloth_tpu.models.loader import FastLanguageModel as JFast
 from unsloth_tpu.models.loader import LanguageModel as JModel
 from unsloth_tpu.models.params import (init_lora_tree, init_params,
                                        quantize_params)
+from unsloth_tpu.ops.attention import _tpu_flash_sinks
 from unsloth_tpu.ops.attention import attention_ref as jattention_ref
 from unsloth_tpu.ops.lora import LoRAWeights
 from unsloth_tpu.trainer import sft as jsft
@@ -39,10 +42,12 @@ from unsloth_tpu_torch.io_safetensors import SafetensorsFile, save_file
 from unsloth_tpu_torch.models import decoder as tdec
 from unsloth_tpu_torch.models.config import ModelConfig as TConfig
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
-from unsloth_tpu_torch.ops import attention as tatt
-from unsloth_tpu_torch.ops.flash_sinks import flash_sinks
+from unsloth_tpu_torch.ops.flash_sinks import (epilogue_ref, flash_sinks,
+                                               flash_sinks_fwd_ref)
 from unsloth_tpu_torch.ops.nf4 import NF4Stacked
 from unsloth_tpu_torch.trainer import sft as tsft
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 transformers = pytest.importorskip("transformers")
 
@@ -205,17 +210,73 @@ def test_attention_sinks_matches_jax(route, t, window):
             np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
 
 
-def test_flash_sinks_plain_twin_matches_jax():
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_sinks_plain_twin_matches_jax(d):
     """K17's plain twin (flash_sinks on CPU tensors: its forward and the
     backward the kernels compute, dsinks a plain reduction) against JAX's
-    attention_ref with sinks: out, dq, dk, dv, dsinks; f32, 1e-5 + 1e-5
-    relative."""
-    q, k, v, dout, sinks, seg = _attn_inputs(200, seed=4)
+    attention_ref with sinks, at each head dim the kernels are built for:
+    out, dq, dk, dv, dsinks; f32, 1e-5 + 1e-5 relative."""
+    q, k, v, dout, sinks, seg = _attn_inputs(200, seed=4, d=d)
     want = _jax_ref(q, k, v, dout, sinks, seg, None)
     got = _torch_grads(lambda q_, k_, v_, s_: flash_sinks(
         q_, k_, v_, s_, _t(seg)), q, k, v, dout, sinks)
     for name, g, w in zip(("out", "dq", "dk", "dv", "dsinks"), got, want):
         np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def _k16_residuals(q, k, v, seg, scale):
+    """What K16's forward holds before its epilogue, in f32: per (row,
+    query, head) the unnormalised output o = sum_j 2^(s_j - m) v_j, the sum
+    l = sum_j 2^(s_j - m) and the max m over the valid keys of the scores
+    in log2 units, s = q . k scale log2(e) (m = -inf, l = 0 where none)."""
+    qt, kt, vt = (_t(a) for a in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    kt, vt = kt.repeat_interleave(g, 2), vt.repeat_interleave(g, 2)
+    s = torch.einsum("bthd,bshd->bhts", qt, kt) * (scale / np.log(2))
+    t = q.shape[1]
+    segt = _t(seg)
+    mask = (torch.ones(t, t).tril().bool()[None]
+            & (segt[:, :, None] == segt[:, None, :]))[:, None]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp2(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    o = torch.einsum("bhts,bshd->bthd", p, vt)
+    return o, p.sum(-1).transpose(1, 2), m.transpose(1, 2)
+
+
+def test_sinks_epilogue_twin_matches_jax():
+    """The forward kernel's sinks epilogue (``epilogue_ref``: K16's (o, l,
+    m) in log2 units to out and lse') against ``flash_sinks_fwd_ref`` and
+    JAX's ``_tpu_flash_sinks`` (the bundled kernel in interpret mode, then
+    its rescale of :465-473) on a padded and a packed row, f32 1e-5; and on
+    a row with l = 0 against those JAX lines written out: out = 0,
+    lse' = s."""
+    q, k, v, _, sinks, seg = _attn_inputs(256, seed=6)
+    scale = 64 ** -0.5
+    o, l, m = _k16_residuals(q, k, v, seg, scale)
+    out, lse = epilogue_ref(o, l, m, _t(sinks))
+    rout, rlse = flash_sinks_fwd_ref(*(_t(a) for a in (q, k, v, seg)),
+                                     _t(sinks), scale)
+    np.testing.assert_allclose(out.numpy(), rout.numpy(), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), rlse.transpose(1, 2).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    with pltpu.force_tpu_interpret_mode():
+        want = _tpu_flash_sinks(*(jnp.asarray(a) for a in (q, k, v, sinks)),
+                                causal=True, segment_ids=jnp.asarray(seg),
+                                scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+    # l = 0: JAX's arithmetic (natural units) on (o, l, m) = (0, 0, -inf)
+    s_ = jnp.asarray(sinks)[None, :]
+    m_ = jnp.full((1, 4), -jnp.inf)
+    m2 = jnp.maximum(m_, s_)
+    scaled_l = 0.0 * jnp.exp(m_ - m2)
+    l2 = scaled_l + jnp.exp(s_ - m2)
+    jout = jnp.ones((1, 4, 64)) * (scaled_l / l2)[..., None]
+    out0, lse0 = epilogue_ref(torch.zeros(1, 4, 64), torch.zeros(1, 4),
+                              torch.full((1, 4), float("-inf")), _t(sinks))
+    np.testing.assert_array_equal(out0.numpy(), np.asarray(jout))
+    np.testing.assert_allclose(lse0.numpy(), np.asarray(m2 + jnp.log(l2)),
+                               rtol=1e-6)
 
 
 def test_apply_sinks_rescale_matches_reference():

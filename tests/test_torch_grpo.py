@@ -8,6 +8,7 @@ checkpoint loaded by both packages, fanned-out generate, and
 GRPOTrainer / RLOOTrainer steps on fixed rollouts."""
 
 import dataclasses
+import importlib
 import json
 import os
 
@@ -38,13 +39,14 @@ from unsloth_tpu_torch.inference.generate import generate as tgenerate
 from unsloth_tpu_torch.interop import (lora_from_numpy, lora_to_numpy,
                                        params_from_numpy)
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.ops import splash_attention as tsa
 from unsloth_tpu_torch.ops.fused_ce_linear import \
     selective_log_softmax as tselective
 from unsloth_tpu_torch.trainer import grpo as tgrpo
 from unsloth_tpu_torch.trainer.sft import lora_leaves
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 
 def _t(a):
@@ -605,7 +607,7 @@ def test_generate_builds_no_graph(pair, monkeypatch):
     """Rollouts run inside GRPO's loop while the LoRA tensors require
     gradients: generate must build no autograd graph (on the card one
     would hold every decode step's activations)."""
-    from unsloth_tpu_torch.inference import generate as tgen
+    tgen = importlib.import_module("unsloth_tpu_torch.inference.generate")
 
     _, tmodel, lora_np = pair
     tm = TModel(cfg=tmodel.cfg, params=tmodel.params,

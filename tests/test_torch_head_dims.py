@@ -9,6 +9,7 @@ rescale) against JAX's same three steps; and the dispatch: a tensor off
 the CPU at these head dims reaches the kernel wrappers, never the plain
 versions."""
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +20,13 @@ from jax.experimental.pallas import tpu as pltpu
 from unsloth_tpu.ops.attention import (_apply_sinks, _chunked_lse, _tpu_flash,
                                       _tpu_splash)
 from unsloth_tpu_torch import kernels
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import flash_attention as tfa
+from unsloth_tpu_torch.ops import flash_sinks as tfs
 from unsloth_tpu_torch.ops import splash_attention as tsa
 from tests.test_torch_gemma2 import _splash_inputs
 from tests.test_torch_unpacked import _padded_qkv
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 
 def _t(a):
@@ -232,7 +235,7 @@ def fake_kernels(monkeypatch):
     def no_plain(*a, **kw):
         raise AssertionError("a plain version ran on a tensor off the CPU")
 
-    for mod in (tfa, tsa):
+    for mod in (tfa, tsa, tfs):
         for name in dir(mod):
             if name.endswith("_ref"):
                 monkeypatch.setattr(mod, name, no_plain)
@@ -246,7 +249,7 @@ def fake_kernels(monkeypatch):
 
     lib = _FakeLibrary()
     monkeypatch.setattr(kernels, "library", lambda: lib)
-    for mod in (tfa, tsa):
+    for mod in (tfa, tsa, tfs):
         monkeypatch.setattr(mod, "_check_kernel_inputs", meta_check)
         monkeypatch.setattr(mod, "_stream", lambda t: 0)
     return lib
@@ -279,6 +282,30 @@ def test_flash_dispatch_off_cpu_reaches_the_kernels(fake_kernels, d, hq,
     assert [f.launches for f in (tfa.flash_attention_fwd,
                                  tfa.flash_attention_dq,
                                  tfa.flash_attention_dkv)] == \
+        [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(64, 64, 8), (128, 32, 8),
+                                      (256, 16, 8)])
+def test_sinks_dispatch_off_cpu_reaches_k17(fake_kernels, d, hq, hkv):
+    """attention() with sinks on plain causal rows at each head dim K17 is
+    built for, off the CPU: the forward launches K17's forward, the
+    backward K16's dq and dk/dv through K17's entry points, each once with
+    this head dim, and no plain version runs."""
+    before = [f.launches for f in (tfs.flash_sinks_fwd, tfs.flash_sinks_dq,
+                                   tfs.flash_sinks_dkv)]
+    q, k, v = _meta(1, 128, hq, d), _meta(1, 128, hkv, d), _meta(1, 128,
+                                                                 hkv, d)
+    seg = torch.empty((1, 128), device="meta", dtype=torch.int32)
+    sinks = torch.empty((hq,), device="meta", requires_grad=True)
+    out = tatt.attention(q, k, v, segment_ids=seg, sinks=sinks)
+    out.backward(torch.empty_like(out))
+    assert sinks.grad.shape == (hq,) and k.grad.shape == k.shape
+    assert fake_kernels.calls == [("unsloth_flash_sinks_fwd", d),
+                                  ("unsloth_flash_sinks_dq", d),
+                                  ("unsloth_flash_sinks_dkv", d)]
+    assert [f.launches for f in (tfs.flash_sinks_fwd, tfs.flash_sinks_dq,
+                                 tfs.flash_sinks_dkv)] == \
         [n + 1 for n in before]
 
 

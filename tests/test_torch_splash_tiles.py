@@ -240,12 +240,15 @@ def test_masked_plain_version_is_the_plain_version():
 def test_build_report_finds_spills_and_serialized_wgmma():
     """``chip_smoke.attention_build_report``, which phase 2 holds every
     build to: each Hopper attention instantiation with its registers and
-    spill, named by kernel, head dim and K16 or K18; ptxas's C75xx lines
-    that name one of them; other kernels ignored."""
+    spill, named by kernel, head dim and K16, K17 (the forward's sinks
+    form) or K18; ptxas's C75xx lines that name one of them; other kernels
+    ignored."""
     fn = ("_ZN6hflash45_GLOBAL__N__1b2810b0_12_flash_dkv_cu_5d9fc7b116"
           "flash_dkv_kernelILi256ELb1EEEv14CUtensorMap_stS2_S2_S2_NS_6ParamsE")
     dq = ("_ZN6hflash44_GLOBAL__N__cad7f7ec_11_flash_dq_cu_b298537015"
           "flash_dq_kernelILi64ELb0EEEv14CUtensorMap_stS2_S2_S2_NS_6ParamsE")
+    fwd = ("_ZN6hflash45_GLOBAL__N__0c2f7a1e_12_flash_fwd_cu_1e43b0aa16"
+           "flash_fwd_kernelILi{}ELb0ELb{}EEEv14CUtensorMap_stS2_S2_NS_6ParamsE")
     log = "\n".join([
         f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
         f"ptxas info    : Function properties for {fn}",
@@ -256,11 +259,21 @@ def test_build_report_finds_spills_and_serialized_wgmma():
         f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{fwd.format(128, 1)}' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{fwd.format(256, 0)}' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_Z10nf4_kernel' for "
         "'sm_90a'",
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 255 registers"])
     rows, serialized = chip_smoke.attention_build_report(log)
     assert rows == [("flash_dkv_kernel<256, K18>", 168, 92),
-                    ("flash_dq_kernel<64, K16>", 168, 0)]
+                    ("flash_dq_kernel<64, K16>", 168, 0),
+                    ("flash_fwd_kernel<128, K17>", 168, 0),
+                    ("flash_fwd_kernel<256, K16>", 168, 0)]
     assert len(serialized) == 1 and "C7515" in serialized[0]

@@ -5,6 +5,7 @@ JAX Pallas kernels in interpret mode, the autograd of each against
 ``jax.grad``, the chunked fused CE, packing, and the CUDA routes: those
 with kernels reach their wrappers, the others raise."""
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +22,6 @@ from unsloth_tpu.ops.rms_norm import _rms_norm_bwd_pallas
 from unsloth_tpu.ops.rms_norm import rms_norm as jrms_norm
 from unsloth_tpu_torch.data import packing as tpack
 from unsloth_tpu_torch.interop import params_from_numpy
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import cross_entropy as tce_full
 from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.ops import fused_ce_linear as tce
@@ -29,6 +29,8 @@ from unsloth_tpu_torch.ops import packed_attention as tpa
 from unsloth_tpu_torch.ops.cross_entropy import fast_cross_entropy_loss
 from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
 from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 
 def _rng(seed=0):
@@ -249,13 +251,15 @@ def test_attention_ref_matches_jax():
 def test_unported_device_routes_raise(route, kw, kernel):
     """Off the CPU every route without a kernel raises and names the TPU
     kernel it would take (a meta tensor stands in for a CUDA one): sinks
-    at a head dim K17 is not built for (it takes gpt-oss's 64, these
-    tensors have 128), and a window without causality, softcapped or not,
+    at a head dim K17 is not built for (it takes 64, 128 and 256; these
+    tensors have 192), and a window without causality, softcapped or not,
     which the JAX package reads two ways (K18's causal LocalMask against
-    attention_ref's i - j < window). A softcap alone without causality
-    reaches K18's non-causal form (tests/test_torch_diffusion.py)."""
-    q = torch.empty((1, 128, 4, 128), device="meta")
-    k = torch.empty((1, 128, 2, 128), device="meta")
+    attention_ref's i - j < window), at head dim 128. A softcap alone
+    without causality reaches K18's non-causal form
+    (tests/test_torch_diffusion.py)."""
+    d = 192 if route == "sinks" else 128
+    q = torch.empty((1, 128, 4, d), device="meta")
+    k = torch.empty((1, 128, 2, d), device="meta")
     seg = torch.empty((1, 128), dtype=torch.int32, device="meta")
     with pytest.raises(NotImplementedError, match=kernel):
         tatt.attention(q, k, k, segment_ids=seg, **kw)

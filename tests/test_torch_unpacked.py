@@ -5,6 +5,7 @@ mode, the fused-CE gate, padded-row SFTTrainer with response-only labels
 (batches, losses, evaluate), the peft adapter format in both directions,
 and the merged 16-bit save."""
 
+import importlib
 import os
 
 import jax
@@ -34,10 +35,11 @@ from unsloth_tpu_torch.models import decoder as tdec
 from unsloth_tpu_torch.models.config import ModelConfig as TConfig
 from unsloth_tpu_torch.models.config import RopeScaling as TRope
 from unsloth_tpu_torch.models.loader import LanguageModel as TModel
-from unsloth_tpu_torch.ops import attention as tatt
 from unsloth_tpu_torch.ops import cross_entropy as tce
 from unsloth_tpu_torch.ops import flash_attention as tfa
 from unsloth_tpu_torch.trainer import sft as tsft
+
+tatt = importlib.import_module("unsloth_tpu_torch.ops.attention")
 
 
 def _t(a):

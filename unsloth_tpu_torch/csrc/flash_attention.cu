@@ -59,7 +59,8 @@ extern "C" int unsloth_flash_attn_fwd(const void* q, const void* k, const void* 
       hflash::make_params(seg, seg_min, seg_max, B, T, Hq, Hkv, scale, causal, tile_counts);
   p.o = static_cast<bf16*>(out);
   p.lse_out = static_cast<float*>(lse);
-  return hflash::flash_fwd(D, false, q, k, v, p, static_cast<cudaStream_t>(stream));
+  return hflash::flash_fwd(D, hflash::FwdForm::kFlash, q, k, v, p,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // dq on `stream`: dq [B, T, Hq, D] bf16 and di [B, Hq, T] fp32 (for the

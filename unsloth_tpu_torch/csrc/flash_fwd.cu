@@ -1,12 +1,15 @@
 // Flash attention forward for Hopper (K16 forward; with kSplash, K18's
-// splash forward), causal or not, GQA, bf16, head dim 64, 128 or 256.
+// splash forward; with kSinks, K17's forward), causal or not, GQA, bf16,
+// head dim 64, 128 or 256.
 //
 // Replaces the forward kernel of the bundled Pallas flash attention that
 // unsloth_tpu/ops/attention.py:_tpu_flash calls (_flash_attention_kernel:
-// out and an fp32 lse = m + log l), with causal=True and causal=False, and
-// (kSplash) the bundled splash forward kernel that _tpu_splash runs.
-// Semantics (flash_attention.cu and splash_attention.cu have the whole
-// contracts): token i of a row attends to token j iff seg[i] == seg[j] and,
+// out and an fp32 lse = m + log l), with causal=True and causal=False,
+// (kSplash) the bundled splash forward kernel that _tpu_splash runs, and
+// (kSinks) _tpu_flash_sinks' _flash_attention_impl with the wrapper's sink
+// rescale folded into the epilogue. Semantics (flash_attention.cu,
+// splash_attention.cu and flash_sinks.cu have the whole contracts): token i
+// of a row attends to token j iff seg[i] == seg[j] and,
 // causal, j <= i (K18: and i - j < window, or the prefix layout's rule);
 // every output is defined; rows past T load as zeros and are never stored.
 //
@@ -33,6 +36,11 @@
 //   - the per-element mask runs only on a masked pair (pair_class): a
 //     padded row's pairs are almost all full;
 //   - causal: the query tiles with the most kv tiles are launched first;
+//   - K17 (kSinks): the epilogue folds the head's sink logit s into the
+//     normaliser in log2 units, s2 = s log2(e), m' = max(m, s2),
+//     l' = l 2^(m - m') + 2^(s2 - m'), out = o 2^(m - m') / l' (rounded to
+//     bf16 once), lse' = (m' + log2 l') ln 2; a row with l = 0 gets out = 0
+//     and lse' = s;
 //   - K18 (kSplash): each consumer warpgroup multiplies its 64 rows of Q by
 //     `scale` in shared memory and rounds them to bf16 before its first
 //     product; the softcap maps S to c tanh(S / c) in registers (in log2
@@ -68,7 +76,7 @@ struct FwdCfg {
   static constexpr int kThreads = 384;  // 2 consumer warpgroups + the producer's
 };
 
-template <int D, bool kSplash>
+template <int D, bool kSplash, bool kSinks>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -257,19 +265,34 @@ __global__ void __launch_bounds__(384, 1)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     if (qpos[i] >= p.T) continue;
-    const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+    float inv;
+    [[maybe_unused]] float lse_sink;
+    if constexpr (kSinks) {
+      const float s2 = p.sinks[h] * kLog2e;
+      const float ms = fmaxf(m[i], s2);
+      const float a = exp2f(m[i] - ms);
+      const float ls = fmaf(l[i], a, exp2f(s2 - ms));
+      inv = a / ls;
+      lse_sink = (ms + log2f(ls)) * kLn2;
+    } else {
+      inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+    }
     bf16* dst = p.o + ((size_t)(b * p.T + qpos[i]) * p.Hq + h) * D + 2 * (lane % 4);
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
       *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
           pack_bf16(o[4 * jj + 2 * i] * inv, o[4 * jj + 2 * i + 1] * inv);
-    if (lane % 4 == 0)
-      p.lse_out[((size_t)b * p.Hq + h) * p.T + qpos[i]] =
-          l[i] > 0.0f ? (m[i] + log2f(l[i])) * kLn2 : kEmptyLse;
+    if (lane % 4 == 0) {
+      if constexpr (kSinks)
+        p.lse_out[((size_t)b * p.Hq + h) * p.T + qpos[i]] = lse_sink;
+      else
+        p.lse_out[((size_t)b * p.Hq + h) * p.T + qpos[i]] =
+            l[i] > 0.0f ? (m[i] + log2f(l[i])) * kLn2 : kEmptyLse;
+    }
   }
 }
 
-template <int D, bool kSplash>
+template <int D, bool kSplash, bool kSinks>
 int launch(const void* q, const void* k, const void* v, const Params& p, cudaStream_t s) {
   using C = FwdCfg<D>;
   CUtensorMap tq, tk, tv;
@@ -278,22 +301,29 @@ int launch(const void* q, const void* k, const void* v, const Params& p, cudaStr
   if (e == 0) e = bthd_map(&tv, v, p.B, p.T, p.Hkv, D, C::kBk);
   if (e != 0) return e;
   e = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kSplash>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+      flash_fwd_kernel<D, kSplash, kSinks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem));
   if (e != 0) return e;
   const dim3 grid(p.Hq * p.B, (p.T + C::kBq - 1) / C::kBq);
-  flash_fwd_kernel<D, kSplash><<<grid, C::kThreads, C::kSmem, s>>>(tq, tk, tv, p);
+  flash_fwd_kernel<D, kSplash, kSinks><<<grid, C::kThreads, C::kSmem, s>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_form(FwdForm form, const void* q, const void* k, const void* v, const Params& p,
+                cudaStream_t s) {
+  if (form == FwdForm::kSplash) return launch<D, true, false>(q, k, v, p, s);
+  if (form == FwdForm::kSinks) return launch<D, false, true>(q, k, v, p, s);
+  return launch<D, false, false>(q, k, v, p, s);
 }
 
 }  // namespace
 
-int flash_fwd(int D, bool splash, const void* q, const void* k, const void* v, Params p,
+int flash_fwd(int D, FwdForm form, const void* q, const void* k, const void* v, Params p,
               cudaStream_t s) {
-  if (D == 64) return splash ? launch<64, true>(q, k, v, p, s) : launch<64, false>(q, k, v, p, s);
-  if (D == 128)
-    return splash ? launch<128, true>(q, k, v, p, s) : launch<128, false>(q, k, v, p, s);
-  if (D == 256)
-    return splash ? launch<256, true>(q, k, v, p, s) : launch<256, false>(q, k, v, p, s);
+  if (D == 64) return launch_form<64>(form, q, k, v, p, s);
+  if (D == 128) return launch_form<128>(form, q, k, v, p, s);
+  if (D == 256) return launch_form<256>(form, q, k, v, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

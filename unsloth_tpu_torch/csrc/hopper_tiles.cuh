@@ -1,5 +1,6 @@
 // The flash attention kernels' own Hopper parts (flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu, which hold K16 and, with kSplash, K18): their per-call
+// flash_dkv.cu, which hold K16, with kSplash K18, and with the forward's
+// kSinks K17's forward, whose backward is K16's): their per-call
 // values, the 4-D TMA load of a [B, T, H, D] tensor, the tile-pair classes
 // and the walks' bounds, the kv ring's producer, the softcap and q's
 // rounding, the accumulator-to-A-fragment packing and the host-side
@@ -14,6 +15,9 @@
 // (i - j < window) and GRPO's prefix layout (P, G, L) as tile rules and
 // element masks. Every such branch is `if constexpr`, so K16's
 // instantiations (kSplash false) are the code they were before K18 joined.
+// kSinks (the forward's third template parameter) adds K17's epilogue alone:
+// the per-head sink logit joins the softmax normaliser; K17's dq and dk/dv
+// are K16's kernels fed the sink-inclusive lse.
 //
 // Registers 8 kk .. 8 kk + 7 of a wgmma accumulator (hopper_common.cuh has
 // its layout), packed to bf16 pairs, are the A fragment of a k16 step kk of
@@ -90,6 +94,9 @@ struct Params {
   // softcap c (0: none) as 2 log2(e) / c and c log2(e)
   int window, P, G, L;
   float cap, cap_k, cap_l;
+  // K17's forward only: the sink logits, fp32 [Hq] (appended last, so that
+  // the fields the other kernels read keep their offsets)
+  const float* sinks;
 };
 
 // One [rows][64] box of a 4-D [B, T, H, D] tensor map at (column c0, head h,
@@ -355,10 +362,14 @@ inline Params make_splash_params(const void* seg, const void* seg_min, const voi
   return p;
 }
 
+// The forward's forms: K16's, K18's (kSplash) and K17's (kSinks).
+enum class FwdForm { kFlash, kSplash, kSinks };
+
 // The launchers of flash_fwd.cu, flash_dq.cu and flash_dkv.cu, called by
-// flash_attention.cu's entry points (K16) and splash_attention.cu's (K18,
-// `splash`); each returns a CUDA error code.
-int flash_fwd(int D, bool splash, const void* q, const void* k, const void* v, Params p,
+// flash_attention.cu's entry points (K16), splash_attention.cu's (K18,
+// `splash`) and flash_sinks.cu's (K17: the forward's kSinks form, K16's dq
+// and dk/dv); each returns a CUDA error code.
+int flash_fwd(int D, FwdForm form, const void* q, const void* k, const void* v, Params p,
               cudaStream_t s);
 int flash_dq(int D, bool splash, const void* q, const void* k, const void* v, const void* dout,
              Params p, cudaStream_t s);

@@ -84,7 +84,8 @@ extern "C" int unsloth_splash_attn_fwd(const void* q, const void* k, const void*
                                                 causal, tile_counts, window, softcap, P, G, L);
   p.o = static_cast<bf16*>(out);
   p.lse_out = static_cast<float*>(lse);
-  return hflash::flash_fwd(D, true, q, k, v, p, static_cast<cudaStream_t>(stream));
+  return hflash::flash_fwd(D, hflash::FwdForm::kSplash, q, k, v, p,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // dq on `stream`: dq [B, T, Hq, D] bf16 and di [B, Hq, T] fp32 (for the

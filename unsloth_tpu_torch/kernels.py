@@ -176,14 +176,17 @@ def library() -> ctypes.CDLL:
         lib.unsloth_nf4_gmm_dx_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                 p]
         lib.unsloth_nf4_gmm_dx_bf16.restype = i
+        # pointers (the forward's sinks after the segment ranges), B, T,
+        # Hq, Hkv, D, scale, stream; dk/dv also its fp32 scratch (or null)
+        # and head-slice count before B
         lib.unsloth_flash_sinks_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
-                                                i, i, i, f, p]
+                                                i, i, i, i, f, p]
         lib.unsloth_flash_sinks_fwd.restype = i
         lib.unsloth_flash_sinks_dq.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                               p, i, i, i, i, f, p]
+                                               p, i, i, i, i, i, f, p]
         lib.unsloth_flash_sinks_dq.restype = i
         lib.unsloth_flash_sinks_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                                p, i, i, i, i, f, p]
+                                                p, p, i, i, i, i, i, i, f, p]
         lib.unsloth_flash_sinks_dkv.restype = i
         # lhs (or g), W, bias (or null; the forward only), group sizes,
         # out, m, E, N, K, the work-unit counters (or null), stream

@@ -49,6 +49,7 @@ import torch
 
 from . import hf_loader
 from .config import ModelConfig, load_hf_config
+from .decoder import forward, logits_fn, loss_fn
 from .mapper import get_model_name
 from .params import DEFAULT_TARGET_MODULES, init_lora_tree
 
@@ -102,6 +103,19 @@ class LanguageModel:
 
     def get_peft_model(self, **kwargs) -> "LanguageModel":
         return FastLanguageModel.get_peft_model(self, **kwargs)
+
+    # -- functional API (the JAX package's) ------------------------------
+    def loss_fn(self, lora, batch, **kw):
+        """``decoder.loss_fn`` on this model's params and config."""
+        return loss_fn(self.params, lora, batch, self.cfg, **kw)
+
+    def forward(self, input_ids, **kw):
+        """``decoder.forward`` with this model's params and LoRA tree."""
+        return forward(self.params, self.lora, input_ids, self.cfg, **kw)
+
+    def logits(self, input_ids, **kw):
+        """``decoder.logits_fn`` with this model's params and LoRA tree."""
+        return logits_fn(self.params, self.lora, input_ids, self.cfg, **kw)
 
     def generate(self, *args, **kw):
         from ..inference.generate import generate

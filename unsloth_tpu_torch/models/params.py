@@ -8,6 +8,7 @@ decoder, dense or with softmax-top-k MoE layers (stacked experts, NF4 as
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -172,6 +173,21 @@ def init_lora_tree(cfg: ModelConfig, generator: torch.Generator, r: int = 16,
                                         dtype, use_rslora, device=device)
         layers.append(layer)
     return {"layers": layers}
+
+
+def count_params(tree: Any) -> int:
+    """Elements of every tensor in a param or LoRA tree: NF4 and FP8
+    weights count their codes and scales, LoRA weights A and B, as the
+    JAX package's count_params sums its pytree's leaves."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return 0
 
 
 def tree_to(tree: Any, device) -> Any:

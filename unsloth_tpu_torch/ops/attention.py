@@ -22,9 +22,9 @@ carries no value).
   sinks and raises ``NotImplementedError`` otherwise (JAX runs its masked
   reference there), and a CPU tensor takes :func:`attention_ref` with the
   layout. With sinks it takes JAX's order:
-  plain causal rows launch K17 (``ops/flash_sinks.py``, head dim 64) on a
-  CUDA tensor; a narrow window (4 bands fit in T) takes the banded form;
-  otherwise, on CUDA, the window or softcap kernel (K18, head dim 64, 128
+  plain causal rows launch K17 (``ops/flash_sinks.py``, head dim 64, 128
+  or 256) on a CUDA tensor; a narrow window (4 bands fit in T) takes the
+  banded form; otherwise, on CUDA, the window or softcap kernel (K18, head dim 64, 128
   or 256) plus a chunked logsumexp and the exact rescale
   out * sigmoid(lse - sink); on the CPU, :func:`attention_ref`. Without
   sinks a CPU tensor takes :func:`attention_ref`; a CUDA tensor with k/v
@@ -59,7 +59,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .flash_attention import flash_attention
-from .flash_sinks import KERNEL_HEAD_DIM as SINKS_HEAD_DIM
+from .flash_sinks import KERNEL_HEAD_DIMS as SINKS_HEAD_DIMS
 from .flash_sinks import flash_sinks
 from .packed_attention import BLOCK
 from .packed_attention import KERNEL_HEAD_DIM as PACKED_HEAD_DIM
@@ -415,12 +415,12 @@ def _attention_sinks(q, k, v, sinks, *, causal, segment_ids, window,
     band = None if window is None else -(-window // 128) * 128
     narrow = band is not None and t % band == 0 and band * 4 <= t
     if on_device and plain and causal and self_attn:
-        if dh != SINKS_HEAD_DIM:
+        if dh not in SINKS_HEAD_DIMS:
             raise NotImplementedError(
                 f"attention with sinks on {q.device}: the K17 kernel "
                 "(ops/flash_sinks.py; TPU unsloth_tpu/ops/attention.py:"
-                f"_tpu_flash_sinks) is built for head dim {SINKS_HEAD_DIM}, "
-                f"got {dh}")
+                f"_tpu_flash_sinks) is built for head dims {SINKS_HEAD_DIMS}"
+                f", got {dh}")
         return flash_sinks(q, k, v, sinks, segment_ids, scale=scale)
     if narrow and causal and self_attn and dh % 64 == 0:
         return banded_window_attention(q, k, v, window=window,

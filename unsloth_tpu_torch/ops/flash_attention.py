@@ -207,6 +207,17 @@ def dkv_splits(b: int, t: int, hq: int, hkv: int, d: int,
     return group
 
 
+def dkv_split_scratch(q: torch.Tensor, k: torch.Tensor):
+    """(:func:`dkv_splits` for q [B, T, Hq, D] and k [B, T, Hkv, D] on q's
+    card, the dk/dv kernel's fp32 [splits, 2, B, T, Hkv, D] scratch for
+    the slices' partial sums, or None with one slice)."""
+    b, t, hq, d = q.shape
+    splits = dkv_splits(b, t, hq, k.shape[2], d, _multiprocessors(q.device))
+    scratch = None if splits == 1 else torch.empty(
+        (splits, 2) + tuple(k.shape), dtype=torch.float32, device=q.device)
+    return splits, scratch
+
+
 def _fwd(name, q, k, v, segment_ids, seg_min, seg_max, scale, causal,
          tile_classes=None):
     _check_kernel_inputs(name, q, k, v, segment_ids)
@@ -254,16 +265,14 @@ def _dkv(name, q, k, v, segment_ids, seg_min, seg_max, lse, di, dout, scale,
     lse, di = lse.contiguous(), di.contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    hkv = k.shape[2]
-    splits = dkv_splits(b, t, hq, hkv, d, _multiprocessors(q.device))
-    scratch = None if splits == 1 else torch.empty(
-        (splits, 2) + tuple(k.shape), dtype=torch.float32, device=q.device)
+    splits, scratch = dkv_split_scratch(q, k)
     rc = kernels.library().unsloth_flash_attn_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if scratch is None else scratch.data_ptr(), splits, b, t, hq,
-        hkv, d, float(scale), causal, _classes(tile_classes, q), _stream(q))
+        k.shape[2], d, float(scale), causal, _classes(tile_classes, q),
+        _stream(q))
     kernels.check(rc, name)
     return dk, dv
 

@@ -16,17 +16,24 @@ per-head logit that joins the softmax denominator and carries no value
 Scores are q . k in fp32 times ``scale``; token i attends to token j iff
 j <= i and their segment ids are equal (no segment ids: one segment).
 
-On CUDA tensors :func:`flash_sinks` runs ``csrc/flash_sinks.cu``:
-:func:`flash_sinks_fwd` (out and lse'), :func:`flash_sinks_dq` (dq and di)
-and :func:`flash_sinks_dkv` (dk, dv), each with its own launch count. On
-CPU tensors it runs the plain versions :func:`flash_sinks_fwd_ref` and
-:func:`flash_sinks_bwd_ref` in fp32 (``attention_ref`` with sinks, as the
-JAX package computes it off the TPU). The device of q is the only thing
-that chooses.
+On CUDA tensors :func:`flash_sinks` runs K16's Hopper kernels through
+the entry points of ``csrc/flash_sinks.cu``: :func:`flash_sinks_fwd` (out
+and lse'; K16's forward in its sinks form, the rescale folded into its
+epilogue), :func:`flash_sinks_dq` (dq and di; K16's causal dq kernel fed
+lse') and :func:`flash_sinks_dkv` (dk, dv; K16's causal dk/dv kernel fed
+lse', each kv head's query heads split over
+:func:`~.flash_attention.dkv_splits` blocks as K16's are), each with its
+own launch count and under the profiler range ``unsloth.flash_sinks``, so
+that a profile tells K17's device time from K16's, whose kernels it
+shares. On CPU tensors it runs the plain versions
+:func:`flash_sinks_fwd_ref` and :func:`flash_sinks_bwd_ref` in fp32
+(``attention_ref`` with sinks, as the JAX package computes it off the
+TPU). The device of q is the only thing that chooses.
 
 Layout: q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids [B, T] int,
-sinks [Hq], lse' [B, Hq, T]. CUDA: bf16 q/k/v, D = 64, any T; anything else
-raises.
+sinks [Hq], lse' [B, Hq, T]. CUDA: bf16 q/k/v, D = 64 (gpt-oss), 128 or
+256 (JAX runs the bundled kernel at any head dim that is a multiple of
+64), any T; anything else raises.
 """
 
 from __future__ import annotations
@@ -34,14 +41,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
-from .flash_attention import (_check_kernel_inputs, _mask, _stream,
+from .flash_attention import (KERNEL_HEAD_DIMS, _check_kernel_inputs, _mask,
+                              _stream, dkv_split_scratch,
                               tile_segment_ranges)
 from .splash_attention import _kv_heads
 
-#: head dim the CUDA kernels are built for (gpt-oss)
-KERNEL_HEAD_DIM = 64
+#: profiler range of every K17 launch
+PROFILE_RANGE = "unsloth.flash_sinks"
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +120,27 @@ def flash_sinks_bwd_ref(q, k, v, segment_ids: Optional[torch.Tensor], out,
 # kernels
 # ---------------------------------------------------------------------------
 
-def _check(name, q, k, v, segment_ids, sinks):
-    _check_kernel_inputs(name, q, k, v, segment_ids, (KERNEL_HEAD_DIM,))
-    if sinks.shape != (q.shape[2],) or sinks.device != q.device:
+def epilogue_ref(o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                 sinks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the forward kernel's sinks epilogue, in fp32: from a
+    row's unnormalised output o [..., H, D], sum l [..., H] and max m
+    [..., H] in log2 units (2^(score log2(e) - m) summed; m = -inf and
+    l = 0 where no key is valid), as K16's forward leaves them, and the
+    sinks [H]: (out, lse') with s2 = s log2(e), m' = max(m, s2),
+    l' = l 2^(m - m') + 2^(s2 - m'), out = o 2^(m - m') / l',
+    lse' = (m' + log2 l') ln 2. A row with l = 0 gets out = 0 and
+    lse' = s."""
+    s2 = sinks.to(torch.float32) * 1.4426950408889634
+    ms = torch.maximum(m, s2)
+    a = torch.exp2(m - ms)
+    ls = l * a + torch.exp2(s2 - ms)
+    return o * (a / ls)[..., None], (ms + torch.log2(ls)) * 0.6931471805599453
+
+
+def _check(name, q, k, v, segment_ids, sinks=None):
+    _check_kernel_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
+    if sinks is not None and (sinks.shape != (q.shape[2],)
+                              or sinks.device != q.device):
         raise ValueError(f"{name}: sinks {tuple(sinks.shape)} on "
                          f"{sinks.device} for {q.shape[2]} heads on "
                          f"{q.device}")
@@ -121,19 +148,20 @@ def _check(name, q, k, v, segment_ids, sinks):
 
 def flash_sinks_fwd(q, k, v, segment_ids, seg_min, seg_max, sinks, *,
                     scale: float):
-    """Kernel forward: (out [B, T, Hq, 64] bf16, lse' [B, Hq, T] fp32)."""
+    """Kernel forward: (out [B, T, Hq, D] bf16, lse' [B, Hq, T] fp32)."""
     _check("flash_sinks_fwd", q, k, v, segment_ids, sinks)
-    b, t, hq, _ = q.shape
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     sk = sinks.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    rc = kernels.library().unsloth_flash_sinks_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        seg_min.data_ptr(), seg_max.data_ptr(), sk.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, t, hq, k.shape[2], float(scale),
-        _stream(q))
+    with record_function(PROFILE_RANGE):
+        rc = kernels.library().unsloth_flash_sinks_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            seg_min.data_ptr(), seg_max.data_ptr(), sk.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, t, hq, k.shape[2], d,
+            float(scale), _stream(q))
     kernels.check(rc, "flash_sinks_fwd")
     flash_sinks_fwd.launches += 1
     return out, lse
@@ -145,21 +173,21 @@ flash_sinks_fwd.launches = 0
 
 def flash_sinks_dq(q, k, v, segment_ids, seg_min, seg_max, out, lse, dout,
                    *, scale: float):
-    """Kernel dq: (dq [B, T, Hq, 64] bf16, di [B, Hq, T] fp32)."""
-    _check_kernel_inputs("flash_sinks_dq", q, k, v, segment_ids,
-                         (KERNEL_HEAD_DIM,))
-    b, t, hq, _ = q.shape
+    """Kernel dq: (dq [B, T, Hq, D] bf16, di [B, Hq, T] fp32)."""
+    _check("flash_sinks_dq", q, k, v, segment_ids)
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     lse = lse.contiguous()
     di = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
-    rc = kernels.library().unsloth_flash_sinks_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, t,
-        hq, k.shape[2], float(scale), _stream(q))
+    with record_function(PROFILE_RANGE):
+        rc = kernels.library().unsloth_flash_sinks_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            seg_min.data_ptr(), seg_max.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            b, t, hq, k.shape[2], d, float(scale), _stream(q))
     kernels.check(rc, "flash_sinks_dq")
     flash_sinks_dq.launches += 1
     return dq, di
@@ -171,22 +199,24 @@ flash_sinks_dq.launches = 0
 
 def flash_sinks_dkv(q, k, v, segment_ids, seg_min, seg_max, lse, di, dout,
                     *, scale: float):
-    """Kernel dk/dv: (dk, dv) [B, T, Hkv, 64] bf16, from the dq kernel's
+    """Kernel dk/dv: (dk, dv) [B, T, Hkv, D] bf16, from the dq kernel's
     di."""
-    _check_kernel_inputs("flash_sinks_dkv", q, k, v, segment_ids,
-                         (KERNEL_HEAD_DIM,))
-    b, t, hq, _ = q.shape
+    _check("flash_sinks_dkv", q, k, v, segment_ids)
+    b, t, hq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = dout.to(q.dtype).contiguous()
     seg = segment_ids.to(torch.int32).contiguous()
     lse, di = lse.contiguous(), di.contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = kernels.library().unsloth_flash_sinks_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        hq, k.shape[2], float(scale), _stream(q))
+    splits, scratch = dkv_split_scratch(q, k)
+    with record_function(PROFILE_RANGE):
+        rc = kernels.library().unsloth_flash_sinks_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            seg_min.data_ptr(), seg_max.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), splits, b, t,
+            hq, k.shape[2], d, float(scale), _stream(q))
     kernels.check(rc, "flash_sinks_dkv")
     flash_sinks_dkv.launches += 1
     return dk, dv

@@ -15,8 +15,12 @@ exits non-zero without printing a result:
                the main paths' shapes, with the kernels' median times and
                the plain versions' time of the one call the check reads
                (:func:`once_ms`): the NF4 matmul
-               (K1) and its backward (K2) at every Llama-3.1-8B projection
-               shape, RMSNorm forward (K3) and backward (K4), packed flash
+               (K1: at 1, 4 and 7 rows the decode tiles, above them the
+               Hopper kernel, whose tile counters are held to its
+               schedule; at 64, 256, 1,500, 4,096 and 8,192 rows, each
+               with its two-call yardstick) and its backward (K2) at every
+               Llama-3.1-8B projection shape, RMSNorm forward (K3) and
+               backward (K4), packed flash
                attention forward and backward (K9-K11) on an 8K row, the
                full-logits CE forward (K7) and backward (K8) at 4,094 rows
                of the 128,256 vocabulary, and unpacked flash attention
@@ -335,6 +339,15 @@ print that step's device time by kernel and by kernel family, the device
 spans of the port's profiler ranges (the MoE routing
 glue, the banded attention), its device busy share and its MFU/HFU (no
 result line). Every phase prints its time ("[time]").
+
+    python3 chip_smoke.py --library-times
+
+runs phases 1 and 2, then phase 3's K18 and gpt-oss parts with the
+library yardsticks the default run leaves out for time (each compiled
+flex_attention shape costs ~20-30 s): flex + the sink rescale at K17's
+(b) and head dims 128 and 256, flex with the softcap and the window at
+K18's (b)-(d), and K19 against torch._grouped_mm as the median of 5
+medians of 20 runs (no result line).
 """
 
 from __future__ import annotations
@@ -599,6 +612,9 @@ SINKS_WIDE_HEADS = ((128, 32, 8), (256, 16, 8))
 PARITY_ROWS = 1024         # row length of the card-vs-CPU parity phases 4b-4c
 PARITY_DECODE_STEPS = 4    # decode steps of phase 4 (8 cost ~22 s more)
 DECODE_ROWS = (1, 4, 7)
+#: K1's rows past the decode tiles below the prefill: the Hopper kernel's
+#: 128- and 256-row tiles and a ragged 1,500 (a serving prefill)
+NF4_CROSSOVER_ROWS = (64, 256, 1500)
 PREFILL_ROWS = 4096
 TRAIN_ROWS = 8192          # one packed 8K row: the training path's M
 DOC_LENGTHS = (64, 1024)   # synthetic document lengths, inclusive
@@ -671,6 +687,18 @@ def time_ms(fn, runs: int = 20, warmup: int = 3, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+#: set by ``--library-times``: phase 3's parts time the library
+#: yardsticks the default run leaves out (:func:`phase_library_times`)
+LIBRARY_TIMES = False
+
+
+def _settled_ms(fn, flush=None, repeats=5, runs=20):
+    """The median of ``repeats`` medians of ``runs`` runs (:func:`time_ms`):
+    a time for ratios within a few percent of 1."""
+    return statistics.median(time_ms(fn, runs=runs, flush=flush)
+                             for _ in range(repeats))
 
 
 def once_ms(fn):
@@ -1216,9 +1244,10 @@ def attention_build_report(build_log):
     """([(kernel, registers, spill-store bytes)] of each instantiation of
     the Hopper attention kernels (K16's ``flash_fwd_kernel<D, false,
     false>`` and ``flash_{dq,dkv}_kernel<D, false>``, K18's ``<D, true,
-    false>`` and ``<D, true>``, K17's forward ``<D, false, true>``) in
-    ptxas's ``-v`` output, [the C75xx lines, ptxas serializing their
-    wgmma, that name one])."""
+    false>`` and ``<D, true>``, K17's forward ``<D, false, true>``) and of
+    K1's Hopper kernel (``nf4_wgmma_kernel<BX>``) in ptxas's ``-v``
+    output, [the C75xx lines, ptxas serializing their wgmma, that name
+    one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1232,6 +1261,9 @@ def attention_build_report(build_log):
                 "K17" if k.group(4) == "1" else
                 "K18" if k.group(3) == "1" else "K16")
             name = f"{k.group(1)}<{k.group(2)}, {kind}>" if k else None
+            n = re.search(r"nf4_wgmma_kernelILi(\d+)E", m.group(1))
+            if n:
+                name = f"nf4_wgmma_kernel<{n.group(1)}, K1>"
             spill = 0
             continue
         if name is None:
@@ -1245,15 +1277,21 @@ def attention_build_report(build_log):
             name = None
     serialized = [line.strip() for line in lines
                   if re.search(r"C75\d\d", line)
-                  and re.search(r"flash_(fwd|dq|dkv)_kernel", line)]
+                  and re.search(r"flash_(fwd|dq|dkv)_kernel|nf4_wgmma_kernel",
+                                line)]
     return rows, serialized
+
+
+#: Hopper instantiations phase 2 holds to 0 spill and no serialized wgmma:
+#: K16's and K18's nine, K17's three forwards, K1's two tile heights
+HOPPER_BUILD_ROWS = 21 + 2
 
 
 def phase_build():
     """Build the kernels and print ptxas's registers and spills; the 21
     Hopper attention kernels (K16's and K18's nine, K17's three forwards)
-    must report no spill and no serialized wgmma
-    (:func:`attention_build_report`)."""
+    and K1's Hopper NF4 kernel (two tile heights) must report no spill and
+    no serialized wgmma (:func:`attention_build_report`)."""
     from unsloth_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1266,16 +1304,19 @@ def phase_build():
             log("[build]  ", line.strip())
     if not kernels.build_log.strip():
         raise RuntimeError(f"no build log beside {path.name}: the "
-                           "attention kernels' registers and spills are "
+                           "Hopper kernels' registers and spills are "
                            "unknown")
     rows, serialized = attention_build_report(kernels.build_log)
-    log("[build] Hopper attention kernels (registers, spill bytes): " +
-        ", ".join(f"{n} {r}/{b}" for n, r, b in rows))
+    log("[build] Hopper attention and NF4 kernels (registers, spill "
+        "bytes): " + ", ".join(f"{n} {r}/{b}" for n, r, b in rows))
     for line in serialized:
         log("[build] ", line)
-    if len(rows) != 21 or any(b for _, _, b in rows) or serialized:
-        raise RuntimeError(f"the Hopper attention kernels spill or serialize "
-                           f"their wgmma: {rows}, {serialized}")
+    if len(rows) != HOPPER_BUILD_ROWS or any(b for _, _, b in rows) \
+            or serialized:
+        raise RuntimeError(f"the Hopper attention kernels or K1's "
+                           f"nf4_wgmma_kernel spill or serialize their "
+                           f"wgmma (or are not all built): {rows}, "
+                           f"{serialized}")
 
 
 def phase_kernels():
@@ -1295,14 +1336,23 @@ def phase_kernels():
     operations these inputs need) and the time of the one PyTorch call that
     computes the same function (``library_ms``). No single call
     dequantizes and multiplies, so the NF4 matmuls take the two-call
-    yardstick of K12/K13 instead, at gate/up M = 8,192 (the training
-    path's row count): ``dequantize_nf4`` + ``torch.matmul``, labelled
-    "(two calls)"."""
+    yardstick of K12/K13 instead: ``dequantize_nf4`` + ``torch.matmul``,
+    labelled "(two calls)", at every K1 row. K1 runs at Llama's rows
+    DECODE_ROWS (``nf4_matmul_kernel<16>``), NF4_CROSSOVER_ROWS (64, 256
+    and a ragged 1,500: the Hopper kernel's 128- and 256-row tiles and a
+    partial one), the prefill's and the training path's; at each row above
+    16 the Hopper kernel's counters (output tiles, stages) must equal its
+    schedule's (:func:`unsloth_tpu_torch.ops.qlora_matmul.
+    nf4_tile_schedule`)."""
     import torch
     import torch.nn.functional as F
 
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
-    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
+    from unsloth_tpu_torch.ops.qlora_matmul import DECODE_ROWS as K1_SMALL
+    from unsloth_tpu_torch.ops.qlora_matmul import (STAGE_BYTES,
+                                                    _nf4_matmul_fwd,
+                                                    nf4_matmul,
+                                                    nf4_tile_schedule)
     from unsloth_tpu_torch.ops.rms_norm import rms_norm, rms_norm_ref
 
     dev = torch.device(DEVICE)
@@ -1310,9 +1360,10 @@ def phase_kernels():
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     t_part = time.perf_counter()
     rows = {"nf4_matmul": [], "rms_norm": []}
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
     for name, n, k, row_counts in (
-            [(name, n, k, DECODE_ROWS + (PREFILL_ROWS, TRAIN_ROWS))
-             for name, n, k in PROJ_SHAPES]
+            [(name, n, k, DECODE_ROWS + NF4_CROSSOVER_ROWS
+              + (PREFILL_ROWS, TRAIN_ROWS)) for name, n, k in PROJ_SHAPES]
             + [("gemma2 " + name, n, k, (2 * UNPACKED_ROWS,))
                for name, n, k in GEMMA2_PROJ_SHAPES]
             + [("gpt-oss " + name, n, k, (GPT_OSS_ROWS,))
@@ -1323,35 +1374,44 @@ def phase_kernels():
         del w
         for m in row_counts:
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            y = nf4_matmul(x, q)
+            counts.zero_()
+            y = _nf4_matmul_fwd(x, q, tile_counts=counts)
             ref, plain_ms = once_ms(lambda: torch.matmul(
                 x, dequantize_nf4(q, torch.bfloat16).t()))
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             ok = bool(torch.isfinite(y).all()) and err <= 1e-2 * scale
+            got_c = counts.tolist()
+            tiles = sum(map(len, nf4_tile_schedule(m, n)))
+            want_c = [tiles, tiles * (k // 2 // STAGE_BYTES)] \
+                if m > K1_SMALL else [0, 0]
             ms = time_ms(lambda: nf4_matmul(x, q), flush=flush)
-            lib_ms = None
-            if name == "gate/up" and m == TRAIN_ROWS:
-                lib_ms = time_ms(lambda: torch.matmul(
-                    x, dequantize_nf4(q, torch.bfloat16).t()), runs=10,
-                    flush=flush)
+            lib_ms = time_ms(lambda: torch.matmul(
+                x, dequantize_nf4(q, torch.bfloat16).t()), runs=10,
+                flush=flush)
             b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
             rows["nf4_matmul"].append(dict(shape=f"{name} M={m} N={n} K={k}",
                                            err=err, tol=1e-2 * scale,
                                            ms=ms, plain_ms=plain_ms,
                                            bound_ms=b_ms, bound_by=b_by,
                                            library_ms=lib_ms,
-                                           library=NF4_LIBRARY))
+                                           library=NF4_LIBRARY,
+                                           tile_counts=got_c))
             log(f"[kernels] nf4_matmul {name:15s} M={m:<5d} N={n:<6d} "
                 f"K={k:<6d}"
                 f" max|d|={err:.3e} (tol {1e-2 * scale:.3e})"
                 f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-                + ("" if lib_ms is None else
-                   f" {NF4_LIBRARY} {lib_ms:.4f} ms"))
+                f" {NF4_LIBRARY} {lib_ms:.4f} ms bound {b_ms:.4f} ms"
+                f" ({100 * b_ms / ms:.1f}%); tiles, stages {got_c}"
+                f" (schedule {want_c})")
             if not ok:
                 raise RuntimeError(f"nf4_matmul disagrees at {name} M={m}: "
                                    f"max|d| {err} > 1e-2 * {scale}")
+            if got_c != want_c:
+                raise RuntimeError(f"nf4_matmul at {name} M={m}: the kernel "
+                                   f"counted {got_c} (tiles, stages), its "
+                                   f"schedule {want_c}")
     for shape in ((TRAIN_ROWS, 4096), (4096, 4096), (4, 4096),
                   (2 * UNPACKED_ROWS, GEMMA2_9B_CONFIG["hidden_size"])):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1400,6 +1460,42 @@ def phase_kernels():
         log(f"[time] 3 {part}: {time.perf_counter() - t_part:.1f} s")
     del flush
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_library_times():
+    """``--library-times``: the library yardsticks that the default run
+    leaves out for time (each flex_attention shape costs ~20-30 s of
+    compile): compiled flex_attention + the sink rescale at K17's (b)
+    padded [2, 2048] and (c) Dh 128 and 256 shapes, compiled
+    flex_attention with the softcap ``score_mod`` and the window at K18's
+    (b)-(d), and ``torch._grouped_mm`` against K19 at every routing with
+    both timed as :func:`_settled_ms`. Runs phase 3's K18 and gpt-oss parts
+    with LIBRARY_TIMES set (their checks too) and logs each row with a
+    library time; returns those rows."""
+    import torch
+
+    global LIBRARY_TIMES
+    LIBRARY_TIMES = True
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for part, fn in (("K18", _splash_kernels),
+                     ("K14/K15, K17, K19", _gpt_oss_kernels)):
+        t_part = time.perf_counter()
+        for name, extra in fn(dev, g, flush).items():
+            rows.setdefault(name, []).extend(extra)
+        log(f"[time] library times, {part}: "
+            f"{time.perf_counter() - t_part:.1f} s")
+    for name, extra in rows.items():
+        for row in extra:
+            if row.get("library_ms"):
+                log(f"[library] {name} {row['shape']}: kernel "
+                    f"{row['ms']:.4f} ms, "
+                    f"{row.get('library') or 'compiled flex_attention'} "
+                    f"{row['library_ms']:.4f} ms (kernel / library "
+                    f"{row['ms'] / row['library_ms']:.3f})")
     return rows
 
 
@@ -1992,8 +2088,9 @@ def _splash_kernels(dev, g, flush):
     the rule's; at (a) sliding the kernels run again give the same bits. The
     library call: compiled flex_attention at (a), the shape of the kernels
     line (one compile serves both windows); SDPA with the mask at (e),
-    which has no softcap; none at (b)-(d), whose flex_attention compiles
-    would cost the script 60-80 s and time no path."""
+    which has no softcap; at (b)-(d) compiled flex_attention only under
+    ``--library-times`` (LIBRARY_TIMES), whose compiles would cost the
+    default run 60-80 s and time no path."""
     import numpy as np
     import torch
 
@@ -2011,16 +2108,18 @@ def _splash_kernels(dev, g, flush):
     rows = {name: [] for name in ("splash_attn_fwd", "splash_attn_dq",
                                   "splash_attn_dkv")}
     llama = LLAMA_31_8B_CONFIG
+    wide_lib = "flex" if LIBRARY_TIMES else None
     for label, seg, h_q, h_kv, dh, sc, win, sc_cap, faults, lib, checks in (
             ("(a) sliding", padded, hq, hkv, hd, scale, window, cap, False,
              "flex", True),
             ("(a) global", padded, hq, hkv, hd, scale, None, cap, False,
              "flex", False),
-            ("(b)", one, hq, hkv, hd, scale, window, cap, True, None, True),
+            ("(b)", one, hq, hkv, hd, scale, window, cap, True, wide_lib,
+             True),
             ("(c) Gemma-2-27B heads", one, 32, 16, 128, 144 ** -0.5, window,
-             cap, False, None, False),
+             cap, False, wide_lib, False),
             ("(d) packed", packed, hq, hkv, hd, scale, window, cap, False,
-             None, True),
+             wide_lib, True),
             ("(e) K16's shape", padded, llama["num_attention_heads"],
              llama["num_key_value_heads"], llama["head_dim"],
              llama["head_dim"] ** -0.5, None, None, False, "sdpa", False)):
@@ -2582,7 +2681,8 @@ def _gpt_oss_kernels(dev, g, flush):
     at (d) TGMM_RAGGED; and K17 (:func:`_sinks_case`) on (a) the
     path's packed 4,096-token row and (b) a padded [2, 2048] batch, 64/8
     heads of 64, and (c) at SINKS_WIDE_HEADS on a padded [1, 1024] row,
-    also through ``attention`` with sinks."""
+    also through ``attention`` with sinks; K17's library yardstick at (a),
+    and at (b) and (c) under ``--library-times`` (LIBRARY_TIMES)."""
     import numpy as np
     import torch
 
@@ -2646,7 +2746,7 @@ def _gpt_oss_kernels(dev, g, flush):
     padded = torch.ones((2, UNPACKED_ROWS), dtype=torch.int32, device=dev)
     padded[0, 1500:] = 0
     for label, seg, lib in (("(a) packed row", packed, True),
-                            ("(b) padded", padded, False)):
+                            ("(b) padded", padded, LIBRARY_TIMES)):
         res = _sinks_case(dev, g, flush, label, seg, hq, hkv, hd, hd ** -0.5,
                           lib)
         for name, row in res.items():
@@ -2656,7 +2756,7 @@ def _gpt_oss_kernels(dev, g, flush):
     wide[0, 800:] = 0
     for d_, hq_, hkv_ in SINKS_WIDE_HEADS:
         res = _sinks_case(dev, g, flush, f"(c) Dh {d_}", wide, hq_, hkv_, d_,
-                          d_ ** -0.5, False, form=f"d{d_}")
+                          d_ ** -0.5, LIBRARY_TIMES, form=f"d{d_}")
         for name, row in res.items():
             rows[name].append(row)
     return rows
@@ -2806,8 +2906,10 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     versions, and the library call ``torch._grouped_mm`` (+ the bias
     gathered by row; where the card's torch has it), fed W in the
     column-major layout it takes, made once outside the timing, and the
-    kernel's ratio to it. Bound: 2 m N K operations; bytes of the rows, of
-    the experts this routing visits and of the output."""
+    kernel's ratio to it; under ``--library-times`` both the kernels and
+    the library call as :func:`_settled_ms`. Bound: 2 m N K operations;
+    bytes of the rows, of the experts this routing visits and of the
+    output."""
     import torch
 
     from unsloth_tpu_torch.ops import gmm as tgmm
@@ -2892,14 +2994,16 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
         for name, fn, want in (("gmm", lib_fwd, ref), ("gmm_dx", lib_dx, rdx)):
             try:
                 lib_err[name] = attn_row_err(fn(), want)
-                lib[name] = time_ms(fn, runs=10, flush=flush)
+                lib[name] = _settled_ms(fn, flush) if LIBRARY_TIMES \
+                    else time_ms(fn, runs=10, flush=flush)
             except Exception as exc:  # the yardstick only; logged
                 lib_err[name] = f"torch._grouped_mm failed: {exc!r}"[:200]
         del w_cm
+    timed = _settled_ms if LIBRARY_TIMES else time_ms
     times = {
-        "gmm": (time_ms(lambda: tgmm.gmm(x, w, sizes, bias), flush=flush),
+        "gmm": (timed(lambda: tgmm.gmm(x, w, sizes, bias), flush=flush),
                 ref_ms),
-        "gmm_dx": (time_ms(lambda: tgmm.gmm_dx(gy, w, sizes), flush=flush),
+        "gmm_dx": (timed(lambda: tgmm.gmm_dx(gy, w, sizes), flush=flush),
                    rdx_ms)}
     n_live = len(live)
     w_bytes = n_live * n * k * 2
@@ -6641,7 +6745,7 @@ def _device_report(prof, wall_us, top):
 
     families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel", "gmm_wgmma_kernel",
                                               "tgmm_kernel"),
-                "K1/K2 nf4_matmul": ("nf4_matmul",),
+                "K1/K2 nf4_matmul": ("nf4_matmul", "nf4_wgmma_kernel"),
                 # K17's forward is K16's in its kSinks form; its dq and
                 # dk/dv are K16's kernels, told apart by the device spans
                 # of its profiler range (below)
@@ -6753,6 +6857,18 @@ def whisper_launches(n_enc, n_dec):
             "cross_entropy_fwd": 1, "cross_entropy_bwd": 1}
 
 
+def ln_out_err(dtype, out, rout):
+    """The forward's part of :func:`ln_errs`: out's worst element in units
+    of its limit, 1 ulp of a bf16 output or 8 fp32 ulp, each plus 2^-20
+    max|out|."""
+    import torch
+
+    d = (out.float() - rout.float()).abs()
+    return ulps_bf16_or_f32(
+        (d - 2.0 ** -20 * rout.float().abs().max()).clamp(min=0), rout,
+        dtype) / (1 if dtype == torch.bfloat16 else 8)
+
+
 def ln_errs(dtype, got, want):
     """Phase 3's check of K5/K6 against their plain versions, each part's
     worst element in units of its limit (<= 1 passes), for (out, dx, dW,
@@ -6777,11 +6893,7 @@ def ln_errs(dtype, got, want):
     def scaled(d, lim):
         return (d / lim).max().item()
 
-    res = {}
-    d = (out.float() - rout.float()).abs()
-    res["out"] = ulps_bf16_or_f32(
-        (d - 2.0 ** -20 * rout.float().abs().max()).clamp(min=0), rout,
-        dtype) / (1 if bf16 else 8)
+    res = {"out": ln_out_err(dtype, out, rout)}
     r = rdx.float().abs()
     res["dx"] = scaled((dx.float() - rdx.float()).abs(),
                        (2.0 ** -7 if bf16 else 2.0 ** -20) * r
@@ -7748,6 +7860,15 @@ def _check_launched(launches, names, path, per_step=None, steps=0):
                            f"are {wrong}, not {per_step} a step")
 
 
+#: the kernel behind a kernels-line entry whose wrapper picks between forms
+KERNEL_FORMS = {
+    "nf4_matmul": "nf4_wgmma_kernel<256> (Hopper: TMA ring, the NF4 decode "
+                  "into wgmma's A fragments, y^T = W x^T; <128> at M <= "
+                  "128; nf4_matmul.cu's nf4_matmul_kernel<16> at M <= 16)",
+    "layer_norm_fwd": "layer_norm_warp_kernel (one warp a row, the row in "
+                      "registers; layer_norm_kernel at other widths)"}
+
+
 def _kernels_line(rows, by_path):
     """The result's "kernels" list: each kernel at a shape of phase 3
     (``rows``) on the path whose launches it reports (``by_path``: the
@@ -7762,7 +7883,7 @@ def _kernels_line(rows, by_path):
                 "FullMask :253, through _tpu_splash :260, from attention "
                 ":693-696: bundled splash ")
     picks = {
-        "nf4_matmul": ("nf4_matmul.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
+        "nf4_matmul": ("nf4_wgmma.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
         "nf4_matmul_dx": ("nf4_matmul.cu",
                           "unsloth_tpu/ops/qlora_matmul.py:267",
@@ -7946,12 +8067,14 @@ def _kernels_line(rows, by_path):
             "pct_of_bound": 100 * row["bound_ms"] / row["ms"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "launches_by_path": by_form,
+            **({"kernel": KERNEL_FORMS[name_]} if name_ in KERNEL_FORMS
+               else {}),
             **{key: row[key] for key in ("sdpa_no_softcap_ms", "library",
                                          "k16_ms",
                                          "tile_classes_one_segment",
                                          "causal_tile_classes", "tile_classes",
                                          "same_bits", "library_ratio",
-                                         "unit_counts")
+                                         "unit_counts", "tile_counts")
                if key in row}})
     return kernels_line
 
@@ -7982,8 +8105,16 @@ def main() -> int:
                                        True),
         ("--profile-train-grpo",): (phase_grpo, LLAMA_31_8B_CONFIG),
         ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG)}
+    if tuple(sys.argv[1:]) == ("--library-times",):
+        # phases 1 and 2, then the library yardsticks; no result line
+        phase_device()
+        phase_build()
+        t0 = time.perf_counter()
+        phase_library_times()
+        log(f"[time] library times: {time.perf_counter() - t0:.1f} s")
+        return 0
     if tuple(sys.argv[1:]) not in profiles:
-        print(f"usage: {sys.argv[0]} [--profile-train | "
+        print(f"usage: {sys.argv[0]} [--library-times | --profile-train | "
               "--profile-train-unpacked | --profile-train-gemma2 | "
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
               "--profile-train-llama32 | --profile-train-grpo | "

@@ -1,13 +1,15 @@
-"""Compare the machine code of the Hopper attention kernels in two builds of
-the port's kernel library, kernel by kernel.
+"""Compare the machine code of kernels in two builds of the port's kernel
+library, kernel by kernel.
 
-    python scripts/compare_sass.py PARENT.so TREE.so
+    python scripts/compare_sass.py PARENT.so TREE.so [PATTERN]
 
 Runs ``cuobjdump -sass`` on both libraries (the CUDA toolkit's, next to
 ``nvcc``), splits the listings into functions, drops the instruction
 addresses, and compares the instructions and their encodings of every
-``flash_{fwd,dq,dkv}_kernel`` instantiation and ``dkv_sum_kernel`` of the
-first library with the same kernel of the second. Names are compared
+kernel of the first library whose mangled name PATTERN (a regular
+expression, searched) finds with the same kernel of the second. The
+default pattern is the Hopper attention set: every
+``flash_{fwd,dq,dkv}_kernel`` instantiation and ``dkv_sum_kernel``. Names are compared
 after two normalisations: the anonymous namespace's per-file tag, and the
 forward's third template value (``flash_fwd_kernel<D, kSplash, false>`` in
 a tree that has the sinks form is ``flash_fwd_kernel<D, kSplash>`` in one
@@ -22,7 +24,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-_KERNEL = re.compile(r"flash_(?:fwd|dq|dkv)_kernel|dkv_sum_kernel")
+ATTENTION = r"flash_(?:fwd|dq|dkv)_kernel|dkv_sum_kernel"
 _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}")
 _FWD3 = re.compile(r"(flash_fwd_kernelILi\d+ELb\dE)Lb0E")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
@@ -41,16 +43,17 @@ def normalise(name: str) -> str:
     return _FWD3.sub(r"\1", _ANON.sub(r"ANON_\1", name))
 
 
-def functions(lib: str) -> dict:
+def functions(lib: str, pattern: str = ATTENTION) -> dict:
     """{normalised name: [instruction lines without addresses]} of the
-    attention kernels in ``lib``."""
+    kernels in ``lib`` whose name ``pattern`` finds."""
+    kernel = re.compile(pattern)
     text = subprocess.run([_cuobjdump(), "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     out, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = normalise(m.group(1)) if _KERNEL.search(m.group(1)) else None
+            name = normalise(m.group(1)) if kernel.search(m.group(1)) else None
             if name is not None:
                 out[name] = []
             continue
@@ -60,10 +63,11 @@ def functions(lib: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) != 3:
+    if len(argv) not in (3, 4):
         print(__doc__, file=sys.stderr)
         return 2
-    a, b = functions(argv[1]), functions(argv[2])
+    pattern = argv[3] if len(argv) == 4 else ATTENTION
+    a, b = functions(argv[1], pattern), functions(argv[2], pattern)
     bad = 0
     for name in sorted(a):
         if name not in b:

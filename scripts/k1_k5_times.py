@@ -1,0 +1,135 @@
+"""Time K1 (the NF4 matmul forward) and K5 (the LayerNorm forward) of one
+tree of the port on the card, at the shapes of ``chip_smoke.py``'s phase 3,
+beside the two-call yardstick of K1 and ``F.layer_norm``.
+
+    python scripts/k1_k5_times.py [--tree DIR] [--label NAME] [--only K1|K5]
+
+Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
+parent commit unpacked with ``git archive`` and this tree can be timed in
+turns in one call on one card; builds DIR's kernels; prints the card's
+name and power limit, then one JSON object a shape: the kernel's time and
+the yardstick's (medians of 20 CUDA-event runs after 3 warm-up runs, a
+256-MB buffer zeroed before each run so that the weights come from device
+memory), the bound (the larger of 2 M N K operations at 989 TFLOP/s and
+the bytes at 3.35 TB/s; K5 bytes only) and max|y - ref| / max|ref|
+against ``x @ dequantize_nf4(W)^T`` or ``layer_norm_ref``. Inputs are made
+on the card from seed 0, as phase 3 makes them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# (name, N, K, rows) of phase 3's K1 rows, and K5's (rows, D, dtype, bias)
+K1_SHAPES = (
+    [(name, n, k, (1, 4, 7, 64, 256, 1500, 4096, 8192)) for name, n, k in
+     (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
+      ("down", 4096, 14336))]
+    + [("gemma2 " + name, n, k, (4096,)) for name, n, k in
+       (("q", 4096, 3584), ("k/v", 2048, 3584), ("o", 3584, 4096),
+        ("gate/up", 14336, 3584), ("down", 3584, 14336))]
+    + [("gpt-oss " + name, n, k, (4096,)) for name, n, k in
+       (("q", 4096, 2880), ("k/v", 512, 2880), ("o", 2880, 4096))])
+K5_SHAPES = ((3000, 1280, "bfloat16", True), (3000, 1280, "float32", True),
+             (448, 1280, "bfloat16", True), (3000, 1280, "bfloat16", False))
+
+
+def time_ms(fn, flush, runs=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--only", choices=("K1", "K5"), default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("k1_k5_times: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from unsloth_tpu_torch import kernels
+    from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
+    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
+    from unsloth_tpu_torch.ops.rms_norm import layer_norm_fwd, layer_norm_ref
+
+    kernels.library()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "tree": args.tree, "card": smi}),
+          flush=True)
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for name, n, k, row_counts in (K1_SHAPES if args.only != "K5" else ()):
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        q = quantize_nf4(w, dtype=torch.bfloat16)
+        del w
+        for m in row_counts:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+
+            def two_calls():
+                return torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
+
+            y, ref = nf4_matmul(x, q), two_calls()
+            err = ((y.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            ms = time_ms(lambda: nf4_matmul(x, q), flush)
+            lib = time_ms(two_calls, flush)
+            nbytes = x.numel() * 2 + q.nbytes + m * n * 2
+            bound = 1e3 * max(2 * m * n * k / 989e12, nbytes / 3.35e12)
+            print(json.dumps({"label": args.label, "kernel": "K1",
+                              "shape": f"{name} M={m} N={n} K={k}",
+                              "ms": ms, "two_calls_ms": lib,
+                              "bound_ms": bound, "rel_err": err}),
+                  flush=True)
+    for rows, d, dt, bias in (K5_SHAPES if args.only != "K1" else ()):
+        dtype = getattr(torch, dt)
+        x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5
+             ).to(dtype)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+        b = (0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype) \
+            if bias else None
+        out, ref = layer_norm_fwd(x, w, b, 1e-5), layer_norm_ref(x, w, b, 1e-5)
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5), flush)
+        lib = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5), flush)
+        nbytes = 2 * x.numel() * x.element_size() + (2 if bias else 1) * \
+            d * w.element_size()
+        print(json.dumps({"label": args.label, "kernel": "K5",
+                          "shape": f"[{rows}, {d}] {dt}"
+                          + ("" if bias else " b=None"),
+                          "ms": ms, "f_layer_norm_ms": lib,
+                          "bound_ms": 1e3 * nbytes / 3.35e12,
+                          "max_abs_err": err}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

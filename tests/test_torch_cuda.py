@@ -29,7 +29,10 @@ def dev():
 
 
 @pytest.mark.parametrize("m,n,k", [(1, 256, 512), (7, 200, 384),
-                                   (70, 1024, 4096), (300, 4096, 4096)])
+                                   (70, 1024, 4096), (300, 4096, 4096),
+                                   (64, 4096, 4096), (256, 4096, 4096),
+                                   (1500, 4096, 4096), (300, 2880, 2880),
+                                   (1500, 512, 2880), (70, 196, 384)])
 def test_nf4_matmul_kernel_matches_plain(dev, m, n, k):
     g = torch.Generator(device=dev).manual_seed(0)
     q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
@@ -41,6 +44,35 @@ def test_nf4_matmul_kernel_matches_plain(dev, m, n, k):
     assert nf4_matmul.launches == before + 1
     assert y.shape == (m, n) and y.dtype == torch.bfloat16
     # same bf16 weights, fp32 sums in another order, one bf16 rounding
+    assert (y.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1024, 4096), (16, 1024, 4096),
+                                   (17, 1024, 4096), (128, 2880, 2880),
+                                   (129, 512, 4096), (1500, 4096, 4096)])
+def test_nf4_matmul_dispatch_by_rows(dev, m, n, k):
+    """At 16 rows or fewer the forward runs nf4_matmul_kernel<16> (the
+    Hopper kernel's counters stay 0); above, the Hopper kernel, which
+    stores each output tile of its schedule once and consumes K/64 stages
+    a tile. Every form counts as one launch of nf4_matmul."""
+    from unsloth_tpu_torch.ops.qlora_matmul import (DECODE_ROWS, STAGE_BYTES,
+                                                    _nf4_matmul_fwd,
+                                                    nf4_tile_schedule)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = nf4_matmul.launches
+    y = _nf4_matmul_fwd(x, q, tile_counts=counts)
+    torch.cuda.synchronize()
+    assert nf4_matmul.launches == before + 1
+    tiles = sum(map(len, nf4_tile_schedule(m, n)))
+    want = [tiles, tiles * (k // 2 // STAGE_BYTES)] if m > DECODE_ROWS \
+        else [0, 0]
+    assert counts.tolist() == want
+    ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
     assert (y.float() - ref.float()).abs().max() <= \
         1e-2 * ref.float().abs().max()
 
@@ -903,7 +935,8 @@ from unsloth_tpu_torch.ops.rms_norm import (  # noqa: E402
 
 
 @pytest.mark.parametrize("rows,d", [(3000, 1280), (448, 1280), (70, 384),
-                                    (5, 7000)])
+                                    (5, 7000), (37, 4096), (37, 2048),
+                                    (9, 1288)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bias", [True, False])
 def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias):
@@ -929,6 +962,26 @@ def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias):
                    (layer_norm_ref(x, w, b, 1e-5),)
                    + layer_norm_bwd_ref(x, w, gy, 1e-5))
     assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("d", [1280, 1282])
+def test_layer_norm_fwd_mixed_dtypes(dev, xdt, wdt, d):
+    """K5 with w and b in the other dtype than x, in the warp form (D =
+    1,280) and the block form (1,282: no whole 16-byte chunks), and on a
+    view of x that is not 16-byte aligned (the block form): within
+    ln_errs' forward limit of layer_norm_ref."""
+    from chip_smoke import ln_out_err
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = (torch.randn((3001, d), generator=g, device=dev) * 2 + 0.5).to(xdt)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(wdt)
+    b = (0.1 * torch.randn(d, generator=g, device=dev)).to(wdt)
+    for xs in (x[:3000], x.reshape(-1)[1:1 + 3000 * d].reshape(3000, d)):
+        out = layer_norm_fwd(xs, w, b, 1e-5)
+        torch.cuda.synchronize()
+        assert ln_out_err(xdt, out, layer_norm_ref(xs, w, b, 1e-5)) <= 1.0
 
 
 def test_layer_norm_autograd_launches_kernels(dev):

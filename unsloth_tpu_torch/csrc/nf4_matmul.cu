@@ -11,26 +11,27 @@
 // 64 consecutive elements of a row; the wrapper decodes double-quantized
 // codes to fp32 before the launch, as the TPU launcher does. K/2 need only
 // be a multiple of 32 (gpt-oss's K = 2,880: K/2 = 1,440 = 22.5 blocks of
-// 64, so a block straddles the split-half boundary): each 16-byte chunk
-// looks up its own absmax, from the element index of its first column, and
-// the last 64-byte step of a row is masked past K/2. The TPU kernel takes
+// 64, so a block straddles the split-half boundary). The TPU kernel takes
 // only K/2 % 64 == 0 (qlora_matmul.py:_shapes_ok) and dequantizes in XLA
-// otherwise; this kernel runs at every such shape.
+// otherwise; these kernels run at every such shape.
 //
-// What bounds it on an H100:
-//   * decode (M <= 8 rows): the bytes of weight read, 0.5 B/param plus
-//     1/16 of that again in fp32 absmax. Every byte is read once per call.
-//   * prefill (M in the thousands): tensor-core throughput. Each decoded
-//     weight tile is reused across a 64-row tile of x.
-// Design: one block computes a BM x 64 tile of y. It walks the packed
-// bytes 64 at a time; each byte load yields two decoded weights, one for
-// column j (high nibble) and one for column j + K/2 (low nibble), so one
-// step pairs one byte tile with two x column tiles. The TPU kernel reads
-// each byte tile twice, once per nibble side. The 16-entry codebook sits
-// in shared memory (a table lookup, not Mosaic's select tree); decoded bf16
-// W and x tiles go to shared memory and the products run on the tensor
-// cores through nvcuda::wmma 16x16x16 bf16 with fp32 accumulators.
-// TMA, wgmma, pipelining and a split-K shape for decode are later work.
+// Two kernels, picked by the row count in unsloth_nf4_matmul_bf16:
+//   * M > 16 (prefill and training rows): nf4_wgmma.cu's persistent Hopper
+//     kernel (TMA ring, the NF4 decode into wgmma's A fragments, wgmma
+//     products, TMA store), bounded by tensor-core throughput.
+//   * M <= 16 (decode): nf4_matmul_kernel<16> below, bounded by the bytes
+//     of weight read, 0.5 B/param plus 1/16 of that again in fp32 absmax;
+//     every byte is read once per call. One block computes a 16 x 64 tile
+//     of y. It walks the packed bytes 64 at a time; each byte load yields
+//     two decoded weights, one for column j (high nibble) and one for
+//     column j + K/2 (low nibble), so one step pairs one byte tile with two
+//     x column tiles; each 16-byte chunk looks up its own absmax, from the
+//     element index of its first column, and the last 64-byte step of a
+//     row is masked past K/2. The 16-entry codebook sits in shared memory;
+//     decoded bf16 W and x tiles go to shared memory and the products run
+//     on the tensor cores through nvcuda::wmma 16x16x16 bf16 with fp32
+//     accumulators. TMA, pipelining and a split-K shape for decode are
+//     later work, as they are for the backward below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -338,25 +339,24 @@ extern "C" int unsloth_nf4_matmul_dx_bf16(const void* g, const void* packed, con
   return static_cast<int>(cudaGetLastError());
 }
 
+int unsloth_nf4_wgmma_launch(const void* x, const void* packed, const void* absmax, void* y,
+                             void* counts, int M, int N, int K, cudaStream_t stream);
+
 // y = x @ dequant(W)^T on `stream`. Shapes: x [M, K] bf16 row-major,
 // packed [N, K/2] u8, absmax [N * K/64] f32, y [M, N] bf16. K/2 must be a
 // multiple of 32 and every pointer 16-byte aligned (the wrapper checks).
-// Returns cudaGetLastError() after the launch; allocates nothing.
+// M <= 16 runs nf4_matmul_kernel<16>, more rows nf4_wgmma.cu's kernel;
+// `counts` (null, or an int32 [2]) is that kernel's: it adds the output
+// tiles it stored and the stages it consumed. Returns cudaGetLastError()
+// after the launch; allocates nothing.
 extern "C" int unsloth_nf4_matmul_bf16(const void* x, const void* packed, const void* absmax,
-                                       void* y, int M, int N, int K, void* stream) {
+                                       void* y, int M, int N, int K, void* counts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* pp = static_cast<const uint8_t*>(packed);
-  const auto* ap = static_cast<const float*>(absmax);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
-  const dim3 block(kThreads);
-  if (M <= 16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16);
-    nf4_matmul_kernel<16><<<grid, block, 0, s>>>(xp, pp, ap, yp, M, N, K);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64);
-    nf4_matmul_kernel<64><<<grid, block, 0, s>>>(xp, pp, ap, yp, M, N, K);
-  }
+  if (M > 16) return unsloth_nf4_wgmma_launch(x, packed, absmax, y, counts, M, N, K, s);
+  const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16);
+  nf4_matmul_kernel<16><<<grid, dim3(kThreads), 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(absmax), static_cast<__nv_bfloat16*>(y), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,504 @@
+// NF4 matmul forward (K1) for Hopper at more than 16 rows:
+// y[M, N] = x[M, K] @ dequant(W)[N, K]^T, bf16 x and y, NF4 W.
+//
+// Replaces the TPU kernel unsloth_tpu/ops/qlora_matmul.py:_fwd_kernel
+// (launched by _fwd_pallas, public entry nf4_matmul) wherever the rows are
+// not a decode batch; nf4_matmul.cu keeps nf4_matmul_kernel<16> for M <= 16
+// and holds the C entry point that picks between the two. Same arithmetic
+// as that kernel: each weight is NF4_CODE[nibble] * absmax in fp32,
+// rounded once to bf16; products summed in fp32; each output rounded once
+// to bf16. Same split-half bytes (unsloth_tpu/ops/nf4.py): byte [n, j]
+// holds W[n, j] in its high nibble and W[n, j + K/2] in its low nibble.
+//
+// What bounds it on an H100: tensor-core work, 2 M N K operations (gate/up
+// at M = 8,192: 0.97 ms against 0.10 ms of bytes), provided the NF4 decode
+// keeps up with the products and the x tiles with both.
+//
+// Design. The product is computed transposed, y^T = W x^T, in the form of
+// Hopper's mixed-input products: W is wgmma's A operand, decoded straight
+// from the packed bytes into registers, and x is the B operand, read from
+// shared memory. The decoded W never touches shared memory, and each
+// decoded weight feeds BX (256) rows of x, so the decode costs one weight
+// per 512 operations.
+//   - Persistent grid, one 384-thread block per SM, in clusters of two. A
+//     tile is BX rows of x by 128 rows of W (128 output columns); a
+//     cluster takes a unit of two tiles side by side, the same BX rows of
+//     x against W tiles 2 p and 2 p + 1 (one per CTA; past N, where the W
+//     tiles are odd in number, the second is computed and not stored).
+//     Units are numbered with the W pairs fastest and dealt to the
+//     clusters in turn, so the clusters in flight share an x tile in L2
+//     and walk W in the same order. The next unit's loads are in flight
+//     during a unit's epilogue.
+//   - Producer warp (warpgroup 2, one thread a CTA): a ring of kStages
+//     stages by TMA. A stage is 32 packed bytes of each of the tile's 128
+//     W rows ([128][32] u8, 32-byte swizzle) and the two x boxes the bytes
+//     pair with: columns 32 st.. (high nibbles) and K/2 + 32 st.. (low
+//     nibbles), [BX][32] bf16 each, 64-byte swizzle. Each CTA loads half
+//     of each x box and multicasts it to both CTAs of the cluster, which
+//     halves the x tiles' share of the L2 traffic (x is 16 of a stage's 18
+//     bytes a row); a consumer warp hands a stage back to both CTAs'
+//     producers, since either writes it next. Rows past M or N arrive as
+//     zeros.
+//   - Two consumer warpgroups, each 64 W rows. A thread decodes its
+//     fragment of the stage (two rows, 16 bytes of each) through the
+//     16-entry fp32 codebook in shared memory, scales by its rows' absmax
+//     (loaded one stage ahead) and packs bf16 pairs in wgmma's A-fragment
+//     order; then four wgmma.m64nBXk16 products per stage (two k steps a
+//     side), fp32 accumulators in registers (BX / 2 a thread). The A
+//     fragments are double-buffered: the next stage is decoded while the
+//     current products run (wgmma.wait_group 1 frees the buffer and hands
+//     the previous stage back to the producer).
+//   - Epilogue: the accumulators (y^T) are rounded once to bf16 and stored
+//     transposed into a [BX][64] staging tile by stmatrix.trans (128-byte
+//     swizzle), then by one TMA store, which clips rows past M and columns
+//     past N; where N is not a multiple of 8 (no TMA map), by masked
+//     element stores.
+// The 32-byte stage keeps the traps of the split-half layout out of the
+// walk: K/2 is a multiple of 32, so no stage crosses K/2 (at gpt-oss's K =
+// 2,880, K/2 = 1,440 = 45 stages): a stage's high-nibble x columns never
+// reach the low side's real columns, no zero-filled byte past K/2 is ever
+// decoded (NF4 code 0 is -1.0, not 0), and each side of a stage lies in one
+// absmax block (a 64-block holds two 32-column stages on either side).
+// Rows past N decode with absmax 0 and are never stored.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper_common.cuh"
+
+namespace nf4w {
+namespace {
+
+using namespace hopper;
+
+__constant__ float kCode[16] = {
+    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
+    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
+    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f,
+    0.33791524171829224f, 0.44070982933044434f, 0.5626170039176941f,
+    0.7229568362236023f, 1.0f};
+
+constexpr int kThreads = 384;  // two consumer warpgroups, then the producer's
+constexpr int kBw = 128;       // W rows (output columns) of a tile
+constexpr int kStep = 32;      // packed bytes of a W row a stage
+constexpr int kStages = 4;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Slots of the optional counters.
+constexpr int kCntTiles = 0;   // output tiles stored
+constexpr int kCntStages = 1;  // their stages
+
+template <int BX>
+struct Cfg {
+  static constexpr int kXBytes = BX * kStep * 2;  // one side's x box, [BX][32] bf16
+  static constexpr int kXHalf = kXBytes / 2;      // the rows one CTA loads
+  static constexpr int kWBytes = kBw * kStep;     // the packed bytes, [128][32] u8
+  static constexpr int kStageBytes = 2 * kXBytes + kWBytes;
+  static constexpr int kOutBytes = BX * 128;      // a warpgroup's [BX][64] bf16 result
+  static constexpr int kOffOut = kStages * kStageBytes;
+  static constexpr int kOffBar = kOffOut + 2 * kOutBytes;
+  static constexpr int kSmem = kOffBar + 2 * kStages * 8 + 1024;  // + alignment
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1,024-byte aligned");
+};
+
+// A 64-byte-swizzled K-major operand (rows of 64 bytes, 8-row groups 512
+// bytes apart) from `saddr`.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// tma_load_2d's box written at the same offset of both CTAs of the
+// cluster, completing the mbarrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_2d_both(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "h"(static_cast<uint16_t>(3))
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int BX>
+struct Rs;
+
+// d += A * B^T: A [64 x 16] bf16 in registers (a0..a3 of wgmma's A
+// fragment), B [BX x 16] K-major in shared memory.
+template <>
+struct Rs<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Rs<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
+  }
+};
+
+// Two bf16 values of a W row from one 16-bit pair of packed bytes (columns
+// 2c and 2c + 1 of a k step, the lower column in the low half): the high
+// nibbles (the first half of the row) or the low ones (the second half),
+// code * absmax in fp32, rounded once.
+__device__ __forceinline__ uint32_t decode_hi(uint32_t u, float a, const float* code) {
+  return pack_bf16(code[(u >> 4) & 15] * a, code[u >> 12] * a);
+}
+__device__ __forceinline__ uint32_t decode_lo(uint32_t u, float a, const float* code) {
+  return pack_bf16(code[u & 15] * a, code[(u >> 8) & 15] * a);
+}
+
+// A thread's A fragments of one stage: a[4 k + ...] the high-nibble side's
+// k step k (k = 0, 1), a[8 + 4 k + ...] the low side's, each {row r,
+// columns 2c..; row r + 8, columns 2c..; row r, columns 2c + 8..; row r +
+// 8, columns 2c + 8..} of wgmma's A layout. `w` is the stage's [128][32]
+// packed bytes (32-byte swizzle: the 16-byte half h of row r sits at half
+// h ^ ((r >> 2) & 1)); s = {absmax high side rows r, r + 8; low side rows
+// r, r + 8}.
+__device__ __forceinline__ void decode_stage(const unsigned char* w, int r, int c,
+                                             const float (&s)[4], const float* code,
+                                             uint32_t (&a)[16]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r, r + 8
+      const int row = r + 8 * h;
+      const unsigned char* p = w + row * kStep + ((16 * k) ^ (((row >> 2) & 1) << 4)) + 2 * c;
+      const uint32_t u0 = *reinterpret_cast<const uint16_t*>(p);
+      const uint32_t u1 = *reinterpret_cast<const uint16_t*>(p + 8);
+      a[4 * k + h] = decode_hi(u0, s[h], code);
+      a[4 * k + 2 + h] = decode_hi(u1, s[h], code);
+      a[8 + 4 * k + h] = decode_lo(u0, s[2 + h], code);
+      a[8 + 4 * k + 2 + h] = decode_lo(u1, s[2 + h], code);
+    }
+  }
+}
+
+// Hand stage `s` back to both CTAs' producers, once per consumer warp.
+__device__ __forceinline__ void release(uint64_t* empty, int s, int lane, int rank) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(&empty[s]);
+    mbar_arrive_cluster(&empty[s], rank ^ 1);
+  }
+}
+
+// The absmax of a thread's rows (pa, pb; null past N) for stage st: the
+// high side's block st / 2, the low side's (K/2 + 32 st) / 64.
+__device__ __forceinline__ void load_scales(float (&s)[4], const float* pa, const float* pb,
+                                            int st, int half) {
+  const int bh = st >> 1, bl = (half + st * kStep) >> 6;
+  s[0] = pa != nullptr ? __ldg(pa + bh) : 0.0f;
+  s[1] = pb != nullptr ? __ldg(pb + bh) : 0.0f;
+  s[2] = pa != nullptr ? __ldg(pa + bl) : 0.0f;
+  s[3] = pb != nullptr ? __ldg(pb + bl) : 0.0f;
+}
+
+template <int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    nf4_wgmma_kernel(const __grid_constant__ CUtensorMap tx,  // x [M, K], box 32 x BX / 2
+                     const __grid_constant__ CUtensorMap tw,  // packed [N, K/2] u8, box 32 x 128
+                     const __grid_constant__ CUtensorMap ty,  // y [M, N], box 64 x BX (tma_store)
+                     const float* __restrict__ absmax, bf16* __restrict__ y,
+                     int* __restrict__ counts, int M, int N, int K, int tma_store) {
+  using C = Cfg<BX>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float code[16];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* empty = full + kStages;
+  const int half = K / 2;
+  const int nst = half / kStep;
+  const int pairs_n = ((N + kBw - 1) / kBw + 1) / 2;  // W tile pairs
+  const int units = ((M + BX - 1) / BX) * pairs_n;
+  const int rank = static_cast<int>(cluster_rank());
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 16);  // one arrival per consumer warp of both CTAs
+    }
+    fence_barrier_init();
+  }
+  cluster_sync();  // both CTAs' barriers and codebooks are initialised
+
+  // warpgroup 2 produces; the index is made warp-uniform (a shuffle from
+  // lane 0) so that the compiler sees each branch taken by whole warpgroups
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int u = cluster; u < units; u += clusters) {
+      // this CTA's half of the x rows and its W tile, both moved inside the
+      // tensors where they lie past them (their rows of y are not stored)
+      const int xr = min((u / pairs_n) * BX + rank * (BX / 2), M - 1);
+      const int n0 = min((2 * (u % pairs_n) + rank) * kBw, N - 1);
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+        unsigned char* slot = smem + s * C::kStageBytes;
+        mbar_expect_tx(&full[s], C::kStageBytes);
+        tma_load_2d_both(slot + rank * C::kXHalf, &tx, &full[s], st * kStep, xr);
+        tma_load_2d_both(slot + C::kXBytes + rank * C::kXHalf, &tx, &full[s],
+                         half + st * kStep, xr);
+        tma_load_2d(slot + 2 * C::kXBytes, &tw, &full[s], st * kStep, n0);
+      }
+    }
+    // stay until both CTAs' consumers have handed back every stage, so no
+    // arrival or multicast from the other CTA finds this one gone
+    for (int i = 0; i < kStages; ++i, ++it)
+      if (it >= kStages) mbar_wait(&empty[it % kStages], ((it / kStages) - 1) & 1);
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int r = 64 * wg + 16 * warp + lane / 4;  // this thread's W rows: r, r + 8
+  const int c = lane % 4;
+  unsigned char* staged = smem + C::kOffOut + wg * C::kOutBytes;
+  const int blocks = K / 64;  // absmax blocks of a W row
+  int it = 0, n_tiles = 0, n_stages = 0;
+  for (int u = cluster; u < units; u += clusters) {
+    // shuffled from lane 0, so that the compiler sees the branch on n0
+    // taken by whole warps
+    const int m0 = __shfl_sync(0xffffffffu, (u / pairs_n) * BX, 0);
+    const int n0 = __shfl_sync(0xffffffffu, (2 * (u % pairs_n) + rank) * kBw, 0);
+    const float* pa = n0 + r < N ? absmax + (size_t)(n0 + r) * blocks : nullptr;
+    const float* pb = n0 + r + 8 < N ? absmax + (size_t)(n0 + r + 8) * blocks : nullptr;
+    float acc[BX / 2];
+    uint32_t fa[16], fb[16];  // the A fragments of two stages
+    float sc[4];
+    load_scales(sc, pa, pb, 0, half);
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    decode_stage(smem + (it % kStages) * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, fa);
+    // One stage: its four products from `cur`, then, while they run, the
+    // next stage decoded into `nxt` once the products that read `nxt` are
+    // done.
+    auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
+      const int s = (it + st) % kStages;
+      const bool more = st + 1 < nst;
+      if (more) load_scales(sc, pa, pb, st + 1, half);
+      const uint32_t xs = smem_u32(smem + s * C::kStageBytes);
+      fence_u32(cur);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        Rs<BX>::mma(acc, cur[4 * k], cur[4 * k + 1], cur[4 * k + 2], cur[4 * k + 3],
+                    sw64_desc(xs + 32 * k), st > 0 || k > 0);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        Rs<BX>::mma(acc, cur[8 + 4 * k], cur[8 + 4 * k + 1], cur[8 + 4 * k + 2],
+                    cur[8 + 4 * k + 3], sw64_desc(xs + C::kXBytes + 32 * k), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (st > 0) release(empty, (it + st - 1) % kStages, lane, rank);
+      if (more) {
+        const int sn = (it + st + 1) % kStages;
+        mbar_wait(&full[sn], ((it + st + 1) / kStages) & 1);
+        decode_stage(smem + sn * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, nxt);
+      }
+    };
+    for (int st = 0; st < nst; st += 2) {
+      step(st, fa, fb);
+      if (st + 1 < nst) step(st + 1, fb, fa);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty, (it + nst - 1) % kStages, lane, rank);
+    it += nst;
+    if (n0 >= N) continue;  // the odd W tile's partner: computed, not stored
+    ++n_tiles;
+    n_stages += nst;
+
+    // epilogue: once the previous tile's TMA store has read the staging
+    // tile, y^T rounded to bf16 and stored transposed into it: matrix q of
+    // stmatrix j2 holds accumulator columns (x rows) 8 (2 j2 + q / 2).. and
+    // rows (W rows) 16 warp + 8 (q % 2)..; lane L gives the address of x
+    // row 8 (2 j2 + L / 16) + L % 8, whose W rows 16 warp + 8 ((L / 8) % 2)
+    // .. form the 16-byte chunk 2 warp + (L / 8) % 2 of its 128-byte row
+    // (swizzled by the row's index mod 8).
+    if (t == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+    {
+      const int q = lane / 8;
+      const int chunk = 2 * warp + (q % 2);
+#pragma unroll
+      for (int j2 = 0; j2 < BX / 16; ++j2) {
+        const int row = 8 * (2 * j2 + q / 2) + lane % 8;
+        const uint32_t addr =
+            smem_u32(staged + row * 128 + ((chunk ^ (row % 8)) * 16));
+        const int j0 = 2 * j2, j1 = 2 * j2 + 1;
+        asm volatile(
+            "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+            "r"(pack_bf16(acc[4 * j0], acc[4 * j0 + 1])),
+            "r"(pack_bf16(acc[4 * j0 + 2], acc[4 * j0 + 3])),
+            "r"(pack_bf16(acc[4 * j1], acc[4 * j1 + 1])),
+            "r"(pack_bf16(acc[4 * j1 + 2], acc[4 * j1 + 3]))
+            : "memory");
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    const int nw = n0 + 64 * wg;  // this warpgroup's first output column
+    if (tma_store) {
+      if (t == 0 && nw < N) {
+        tma_store_2d(&ty, staged, nw, m0);
+        bulk_commit();
+      }
+    } else {
+      for (int q = t; q < BX * 64; q += 128) {
+        const int row = q / 64, col = q % 64;
+        if (m0 + row < M && nw + col < N)
+          y[(size_t)(m0 + row) * N + nw + col] = *reinterpret_cast<const bf16*>(
+              staged + row * 128 + ((((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2));
+      }
+    }
+  }
+  if (t == 0) {
+    bulk_wait<0>();
+    if (counts != nullptr && wg == 0) {
+      atomicAdd(counts + kCntTiles, n_tiles);
+      atomicAdd(counts + kCntStages, n_stages);
+    }
+  }
+}
+
+// The map of a row-major 2-D tensor of `elem` bytes an element (bf16 or
+// u8), dims and box innermost first, with `swizzle`, zeros past the edges.
+int tile_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem, uint64_t d0,
+             uint64_t d1, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0 * elem};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 132;
+  return n;
+}
+
+template <int BX>
+int launch(const void* x, const void* packed, const void* absmax, void* y, void* counts, int M,
+           int N, int K, cudaStream_t stream) {
+  using C = Cfg<BX>;
+  CUtensorMap tx, tw, ty;
+  const bool tma_store = N % 8 == 0;  // y's rows 16-byte multiples
+  int e = tile_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, kStep, BX / 2,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N, kStep, kBw,
+                 CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == 0 && tma_store)
+    e = tile_map(&ty, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, 64, BX,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  if (!tma_store) ty = tx;  // unused
+  auto kernel = nf4_wgmma_kernel<BX>;
+  static bool configured = false;
+  if (!configured) {
+    e = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+    if (e != 0) return e;
+    configured = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // as many clusters as are resident at once, at most one a unit
+  const long units = (long)((M + BX - 1) / BX) * (((N + kBw - 1) / kBw + 1) / 2);
+  int resident = sm_count() / 2;
+  cfg.gridDim = dim3(2 * resident);
+  int fits = 0;
+  if (cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg) == cudaSuccess && fits > 0)
+    resident = fits;
+  const long clusters = units < resident ? units : resident;
+  cfg.gridDim = dim3(2 * (unsigned)clusters);
+  e = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, tx, tw, ty,
+                                          static_cast<const float*>(absmax),
+                                          static_cast<bf16*>(y), static_cast<int*>(counts), M, N,
+                                          K, tma_store ? 1 : 0));
+  if (e != 0) return e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace nf4w
+
+// y = x @ dequant(W)^T on `stream` for M > 16 rows (nf4_matmul.cu's entry
+// point calls it). Shapes as unsloth_nf4_matmul_bf16: x [M, K] bf16, packed
+// [N, K/2] u8, absmax [N * K/64] f32, y [M, N] bf16; K/2 a multiple of 32,
+// x, packed and y 16-byte aligned. `counts`, when not null, is an int32 [2]
+// to which the kernel adds the output tiles it stored and the stages it
+// consumed. Rows of x at or below 128 take 128-row tiles (wgmma n128), the
+// rest 256-row tiles. Returns the launch's CUDA error code.
+int unsloth_nf4_wgmma_launch(const void* x, const void* packed, const void* absmax, void* y,
+                             void* counts, int M, int N, int K, cudaStream_t stream) {
+  if (M <= 128) return nf4w::launch<128>(x, packed, absmax, y, counts, M, N, K, stream);
+  return nf4w::launch<256>(x, packed, absmax, y, counts, M, N, K, stream);
+}

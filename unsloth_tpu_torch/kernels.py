@@ -27,11 +27,11 @@ from typing import Optional
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
-SOURCES = ("nf4_matmul.cu", "rms_norm.cu", "packed_attention.cu",
-           "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu",
-           "cross_entropy.cu", "splash_attention.cu", "nf4_gmm.cu",
-           "flash_sinks.cu", "gmm.cu", "tgmm.cu", "layer_norm.cu",
-           "fp8_matmul.cu")
+SOURCES = ("nf4_matmul.cu", "nf4_wgmma.cu", "rms_norm.cu",
+           "packed_attention.cu", "flash_attention.cu", "flash_fwd.cu",
+           "flash_dq.cu", "flash_dkv.cu", "cross_entropy.cu",
+           "splash_attention.cu", "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu",
+           "tgmm.cu", "layer_norm.cu", "fp8_matmul.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = ("attention_tiles.cuh", "hopper_common.cuh", "hopper_tiles.cuh",
            "gmm_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
@@ -119,7 +119,9 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.unsloth_nf4_matmul_bf16.argtypes = [p, p, p, p, i, i, i, p]
+        # x, packed, absmax, y, M, N, K, the Hopper kernel's tile counters
+        # (or null), stream
+        lib.unsloth_nf4_matmul_bf16.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.unsloth_nf4_matmul_bf16.restype = i
         lib.unsloth_rms_norm.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                          i, p]

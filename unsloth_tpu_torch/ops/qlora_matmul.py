@@ -2,23 +2,30 @@
 backward.
 
 Counterpart of unsloth_tpu/ops/qlora_matmul.py:nf4_matmul. On a CUDA
-tensor the forward launches the hand-written kernel in
-``csrc/nf4_matmul.cu`` (TPU ``_fwd_kernel``): the packed uint8 weight
-streams from device memory and is decoded in shared memory right before
-the tensor cores use it, so the dense weight never exists in device
-memory. The backward, dx = g @ W, is a second kernel in the same file
-(TPU ``_bwd_kernel``); W is frozen, so the gradient goes to x only. On a
-CPU tensor both run their plain versions, :func:`nf4_matmul_ref` and
-:func:`nf4_matmul_dx_ref`. The device of the tensor is the only thing that
-chooses; there is no fallback from a kernel to its plain version.
+tensor the forward launches a hand-written kernel (TPU ``_fwd_kernel``):
+above 16 rows ``csrc/nf4_wgmma.cu``'s persistent Hopper kernel, which
+decodes the packed bytes straight into the tensor cores' A operand (the
+product is computed transposed, y^T = W x^T), at 16 rows or fewer
+``csrc/nf4_matmul.cu``'s decode tiles; either way the packed uint8
+weight streams from device memory and the dense weight never exists
+there. :func:`nf4_matmul_tiles_ref` is the plain twin of the Hopper
+kernel's walk (tiles, stages, bytes, scales, x columns, masks). The
+backward, dx = g @ W, is a second kernel in ``csrc/nf4_matmul.cu`` (TPU
+``_bwd_kernel``); W is frozen, so the gradient goes to x only. On a CPU
+tensor both run their plain versions, :func:`nf4_matmul_ref` and
+:func:`nf4_matmul_dx_ref`. The device of the tensor is the only thing
+that chooses; there is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import torch
 
 from .. import kernels
-from .nf4 import NF4Tensor, _decode_absmax, dequantize_nf4, nf4_matmul_ref
+from .nf4 import (NF4_CODE, NF4Tensor, _decode_absmax, dequantize_nf4,
+                  nf4_matmul_ref)
 
 _ALIGN = 16  # bytes: the kernel reads x and the packed bytes 16 at a time
 
@@ -57,7 +64,13 @@ def _check_cuda(name: str, t: torch.Tensor, q: NF4Tensor, inner: int,
                          f"{q.packed.device}")
 
 
-def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
+def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor,
+                    tile_counts: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The forward; ``tile_counts`` (CUDA only: an int32 [2] on x's
+    device, or None) receives what the Hopper kernel adds to it, the
+    output tiles it stored and the stages it consumed (nothing at 16 rows
+    or fewer)."""
     if x.device.type == "cpu":
         return nf4_matmul_ref(x, q)
     _check_cuda("nf4_matmul", x, q, q.shape[1], "in")
@@ -78,7 +91,9 @@ def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     lib = kernels.library()
     rc = lib.unsloth_nf4_matmul_bf16(
         x2d.data_ptr(), packed.data_ptr(), absmax.data_ptr(), y.data_ptr(),
-        m, out_f, in_f, torch.cuda.current_stream(x.device).cuda_stream)
+        m, out_f, in_f,
+        None if tile_counts is None else tile_counts.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "nf4_matmul")
     nf4_matmul.launches += 1
     return y.reshape(*lead, out_f)
@@ -86,6 +101,104 @@ def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
 
 #: number of kernel launches since the last reset (CPU calls do not count)
 nf4_matmul.launches = 0
+
+#: rows of x at or below which the forward runs the decode tiles
+#: (``nf4_matmul_kernel<16>``); above, the Hopper kernel
+DECODE_ROWS = 16
+#: the Hopper kernel's tiles (csrc/nf4_wgmma.cu): W rows a tile, packed
+#: bytes of a W row a stage, and the SMs of an H100 (its persistent grid,
+#: in clusters of two)
+TILE_W = 128
+STAGE_BYTES = 32
+H100_SMS = 132
+
+
+def tile_rows_x(m: int) -> int:
+    """Rows of x in one of the Hopper kernel's tiles at ``m`` rows."""
+    return 128 if m <= 128 else 256
+
+
+def nf4_tile_schedule(m: int, n: int, sms: int = H100_SMS
+                      ) -> List[List[Tuple[int, int]]]:
+    """The Hopper kernel's persistent schedule at y [m, n]: for each block
+    of its grid, the (first row of x, first W row) of the tiles it stores,
+    in order. The grid is clusters of two blocks, as many as ``sms`` holds
+    (at most one a unit). Unit u is the x tile u // P against the W tiles
+    2 p and 2 p + 1, p = u % P (P pairs of W tiles); cluster c takes units
+    c, c + clusters, ..., its block of rank r the W tile 2 p + r (where
+    the W tiles are odd in number, the last unit's second tile lies past
+    N: that block computes it and stores nothing)."""
+    bx = tile_rows_x(m)
+    tiles_n = -(-n // TILE_W)
+    pairs = -(-tiles_n // 2)
+    units = -(-m // bx) * pairs
+    clusters = min(units, max(1, sms // 2))
+    return [[((u // pairs) * bx, (2 * (u % pairs) + r) * TILE_W)
+             for u in range(c, units, clusters)
+             if 2 * (u % pairs) + r < tiles_n]
+            for c in range(clusters) for r in (0, 1)]
+
+
+def nf4_matmul_tiles_ref(x: torch.Tensor, q: NF4Tensor, *,
+                         stage_bytes: int = STAGE_BYTES, mask: bool = True,
+                         sms: int = H100_SMS):
+    """y = x @ dequant(W)^T rebuilt from the Hopper kernel's walk, in plain
+    PyTorch: (y in x.dtype, visits [tiles of x rows, tiles of W rows], the
+    times the schedule stores each output tile).
+
+    As the kernel: x and the packed bytes come in tiles padded with zeros
+    past M and past N (TMA's fill); the rows past N take absmax 0. Stage st
+    reads bytes [32 st, 32 st + 32) of each W row (``stage_bytes`` 32),
+    their high nibbles against x columns [32 st, ..) and their low nibbles
+    against x columns [K/2 + 32 st, ..); each 16-byte chunk of a side
+    looks up the absmax block of its first element; each weight is
+    code * absmax in fp32, rounded to x.dtype; the sums are fp32 (in
+    another order than the tensor cores'), each output rounded once.
+    ``stage_bytes`` 64 is a walk whose last stage crosses K/2 where K/2 %
+    64 == 32: its bytes past K/2 arrive as zeros, which decode to
+    -absmax, its high side reads x's real low-side columns, and its low
+    side's absmax blocks run into the next row; ``mask`` zeroes those
+    weights, as a kernel with such stages has to (the kernel's 32-byte
+    stage never crosses K/2)."""
+    m, k = x.shape
+    n = q.shape[0]
+    half = k // 2
+    bx = tile_rows_x(m)
+    schedule = nf4_tile_schedule(m, n, sms)
+    mp, np_ = -(-m // bx) * bx, -(-n // TILE_W) * TILE_W
+    nst = -(-half // stage_bytes)
+    xp = torch.zeros((mp, nst * stage_bytes + half), dtype=torch.float32)
+    xp[:m, :k] = x.float()
+    pk = torch.zeros((np_, nst * stage_bytes), dtype=torch.int64)
+    pk[:n, :half] = q.packed.to(torch.int64)
+    blocks = k // 64
+    am = torch.zeros(np_ * blocks + 2 * blocks)  # past the last row: zeros
+    am[:n * blocks] = _decode_absmax(q).float()
+    am = am.reshape(-1, blocks)
+    am[n:] = 0.0
+    code = NF4_CODE.float()
+    rows = torch.arange(np_)
+    acc = torch.zeros((mp, np_), dtype=torch.float32)
+    for st in range(nst):
+        j = st * stage_bytes
+        cols = j + torch.arange(stage_bytes)
+        b = pk[:, cols]
+        for base, nib in ((0, b >> 4), (half, b & 15)):
+            elem = base + j + 16 * (torch.arange(stage_bytes) // 16)
+            blk = elem // 64    # each 16-byte chunk: its first element's
+            scale = am.reshape(-1)[(rows[:, None] * blocks + blk[None, :])]
+            w = (code[nib] * scale).to(x.dtype).float()
+            if mask:
+                w[:, cols >= half] = 0.0
+            acc += xp[:, base + cols] @ w.t()
+    y = torch.empty((m, n), dtype=x.dtype)
+    visits = torch.zeros((mp // bx, np_ // TILE_W), dtype=torch.int64)
+    for tiles in schedule:
+        for m0, n0 in tiles:
+            visits[m0 // bx, n0 // TILE_W] += 1
+            y[m0:m0 + bx, n0:n0 + TILE_W] = \
+                acc[m0:min(m0 + bx, m), n0:min(n0 + TILE_W, n)].to(x.dtype)
+    return y, visits
 
 
 def nf4_matmul_dx_ref(g: torch.Tensor, q: NF4Tensor) -> torch.Tensor:

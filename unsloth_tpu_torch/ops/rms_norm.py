@@ -12,7 +12,10 @@ LayerNorm, counterpart of the same module's ``layer_norm``: on a CUDA
 tensor :func:`layer_norm_fwd` launches ``csrc/layer_norm.cu`` (TPU
 ``_ln_fwd_kernel``, K5) and :func:`layer_norm_bwd` its backward (TPU
 ``_ln_bwd_kernel``, K6); on a CPU tensor they run :func:`layer_norm_ref`
-and :func:`layer_norm_bwd_ref`. JAX's ``_use_pallas`` gate (TPU only,
+and :func:`layer_norm_bwd_ref`. K5 has two forms, one warp a row with
+the row in registers where :func:`layer_norm_warp_form` takes the width,
+else one block a row; :func:`layer_norm_rows_ref` is the plain twin of
+their sum orders. JAX's ``_use_pallas`` gate (TPU only,
 opt-in, ``d % 128 == 0``) is TPU machinery and is left out: the kernels
 take fp32 and bf16 at any width. The device of ``x`` is the only thing
 that chooses.
@@ -178,6 +181,73 @@ def layer_norm_ref(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b.to(torch.float32)
     return out.to(x.dtype)
+
+
+#: chunks of 16 bytes a lane of K5's warp form holds in registers, at most
+#: (csrc/layer_norm.cu: bf16 rows up to 4,096 wide, fp32 up to 2,048)
+LN_WARP_CHUNKS = 16
+
+
+def layer_norm_warp_form(d: int, dtype: torch.dtype) -> bool:
+    """Whether K5 runs a row of ``d`` elements of ``dtype`` one warp a row
+    (16-byte aligned tensors; the wrapper's are unless x is an odd view):
+    ``d`` a multiple of the 16-byte chunk and at most LN_WARP_CHUNKS
+    chunks a lane."""
+    per_chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    return d % per_chunk == 0 and -(-(d // per_chunk) // 32) <= LN_WARP_CHUNKS
+
+
+def _shuffle_tree(p: torch.Tensor) -> torch.Tensor:
+    """A warp's sum of p [..., 32] (lane partials) as its shuffle tree
+    adds them: lane l adds lane l ^ off's value, off = 16, 8, 4, 2, 1."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        p = p + p[..., lanes ^ off]
+    return p[..., 0]
+
+
+def _row_sum(v: torch.Tensor, warp: bool, per_chunk: int) -> torch.Tensor:
+    """The sum over the last axis of v [R, D] (fp32) in the order of K5's
+    form: the warp form's lane l adds its chunks l, l + 32, ... element by
+    element, then the shuffle tree; the block form's thread t adds
+    elements t, t + 256, ..., then each warp's tree, then the tree over
+    the eight warp sums (the other lanes zero)."""
+    r, d = v.shape
+    if warp:
+        chunks = d // per_chunk
+        order = [[c * per_chunk + e for c in range(lane, chunks, 32)
+                  for e in range(per_chunk)] for lane in range(32)]
+    else:
+        order = [list(range(t, d, 256)) for t in range(256)]
+    width = max(len(o) for o in order)
+    idx = torch.tensor([o + [d] * (width - len(o)) for o in order])
+    vp = torch.cat([v, torch.zeros((r, 1))], dim=1)
+    part = torch.zeros((r, idx.shape[0]))
+    for i in range(width):
+        part = part + vp[:, idx[:, i]]
+    if warp:
+        return _shuffle_tree(part)
+    warps = _shuffle_tree(part.reshape(r, 8, 32))
+    return _shuffle_tree(torch.cat([warps, torch.zeros((r, 24))], dim=1))
+
+
+def layer_norm_rows_ref(x: torch.Tensor, w: torch.Tensor,
+                        b: Optional[torch.Tensor], eps: float = 1e-5
+                        ) -> torch.Tensor:
+    """:func:`layer_norm_ref` with K5's sum orders: the two statistics of
+    each row summed in fp32 as the form the kernel takes for x's width
+    and dtype sums them (:func:`_row_sum`), then divided by D; the output
+    ``(x - mean) * rsqrt(var + eps) * w + b`` in fp32, rounded once."""
+    d = x.shape[-1]
+    warp = layer_norm_warp_form(d, x.dtype)
+    per_chunk = 16 // x.element_size()
+    xf = x.reshape(-1, d).to(torch.float32)
+    mean = _row_sum(xf, warp, per_chunk)[:, None] / d
+    var = _row_sum(torch.square(xf - mean), warp, per_chunk)[:, None] / d
+    out = (xf - mean) * torch.rsqrt(var + eps) * w.to(torch.float32)
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out.to(x.dtype).reshape(x.shape)
 
 
 def layer_norm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,

@@ -327,18 +327,23 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train-gpt-oss-bf16
     python3 chip_smoke.py --profile-train-llama32
     python3 chip_smoke.py --profile-train-grpo
+    python3 chip_smoke.py --profile-train-fp8
     python3 chip_smoke.py --profile-train-diffusion
 
 run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8, or 9's
 NF4 part, or 9's bf16-expert part, or 10, each without evaluate, generate
-and the saves, or 12 without its layout comparison, or 18's training
-without its checks and generate) only, then one more
+and the saves, or 12 without its layout comparison, or 15's training
+without evaluate, the saves and generate, or 18's training without its
+checks and generate) only, then one more
 training step under torch.profiler (for GRPO: the reference pass, the
 grouped loss, its backward and the update, on the last rollouts), and
 print that step's device time by kernel and by kernel family, the device
 spans of the port's profiler ranges (the MoE routing
 glue, the banded attention), its device busy share and its MFU/HFU (no
-result line). Every phase prints its time ("[time]").
+result line). Every phase prints its time ("[time]"). After a
+--profile-train flag, ``--tree DIR`` profiles another checkout's package
+(a parent unpacked under build/ with git archive) with this script's
+harness, its Hopper build rows reported but not held to this tree's.
 
     python3 chip_smoke.py --library-times
 
@@ -1244,10 +1249,10 @@ def attention_build_report(build_log):
     """([(kernel, registers, spill-store bytes)] of each instantiation of
     the Hopper attention kernels (K16's ``flash_fwd_kernel<D, false,
     false>`` and ``flash_{dq,dkv}_kernel<D, false>``, K18's ``<D, true,
-    false>`` and ``<D, true>``, K17's forward ``<D, false, true>``) and of
-    K1's Hopper kernel (``nf4_wgmma_kernel<BX>``) in ptxas's ``-v``
-    output, [the C75xx lines, ptxas serializing their wgmma, that name
-    one])."""
+    false>`` and ``<D, true>``, K17's forward ``<D, false, true>``), of
+    K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``) and of
+    K2's (``nf4_dx_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the
+    C75xx lines, ptxas serializing their wgmma, that name one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1261,9 +1266,14 @@ def attention_build_report(build_log):
                 "K17" if k.group(4) == "1" else
                 "K18" if k.group(3) == "1" else "K16")
             name = f"{k.group(1)}<{k.group(2)}, {kind}>" if k else None
-            n = re.search(r"nf4_wgmma_kernelILi(\d+)E", m.group(1))
+            n = re.search(r"nf4_wgmma_kernelILi(\d+)E(?:Lb(\d)E)?",
+                          m.group(1))
             if n:
-                name = f"nf4_wgmma_kernel<{n.group(1)}, K1>"
+                name = (f"nf4_wgmma_kernel<{n.group(1)}, "
+                        f"{'K12' if n.group(2) == '1' else 'K1'}>")
+            n = re.search(r"nf4_dx_wgmma_kernelILi(\d+)E", m.group(1))
+            if n:
+                name = f"nf4_dx_wgmma_kernel<{n.group(1)}, K2>"
             spill = 0
             continue
         if name is None:
@@ -1277,21 +1287,24 @@ def attention_build_report(build_log):
             name = None
     serialized = [line.strip() for line in lines
                   if re.search(r"C75\d\d", line)
-                  and re.search(r"flash_(fwd|dq|dkv)_kernel|nf4_wgmma_kernel",
-                                line)]
+                  and re.search(r"flash_(fwd|dq|dkv)_kernel|"
+                                r"nf4_(?:dx_)?wgmma_kernel", line)]
     return rows, serialized
 
 
 #: Hopper instantiations phase 2 holds to 0 spill and no serialized wgmma:
-#: K16's and K18's nine, K17's three forwards, K1's two tile heights
-HOPPER_BUILD_ROWS = 21 + 2
+#: K16's and K18's nine, K17's three forwards, and two tile heights each of
+#: K1, K12 (K1's kernel in its e4m3 form) and K2
+HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2
 
 
-def phase_build():
+def phase_build(hold=True):
     """Build the kernels and print ptxas's registers and spills; the 21
     Hopper attention kernels (K16's and K18's nine, K17's three forwards)
-    and K1's Hopper NF4 kernel (two tile heights) must report no spill and
-    no serialized wgmma (:func:`attention_build_report`)."""
+    and the Hopper dequant-matmul kernels (K1, K12 and K2, two tile heights
+    each) must report no spill and no serialized wgmma
+    (:func:`attention_build_report`); with ``hold`` False (another
+    checkout's build, profiled by ``--tree``) they are only reported."""
     from unsloth_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1311,10 +1324,10 @@ def phase_build():
         "bytes): " + ", ".join(f"{n} {r}/{b}" for n, r, b in rows))
     for line in serialized:
         log("[build] ", line)
-    if len(rows) != HOPPER_BUILD_ROWS or any(b for _, _, b in rows) \
-            or serialized:
-        raise RuntimeError(f"the Hopper attention kernels or K1's "
-                           f"nf4_wgmma_kernel spill or serialize their "
+    if hold and (len(rows) != HOPPER_BUILD_ROWS
+                 or any(b for _, _, b in rows) or serialized):
+        raise RuntimeError(f"the Hopper attention kernels or the Hopper "
+                           f"K1 / K12 / K2 kernels spill or serialize their "
                            f"wgmma (or are not all built): {rows}, "
                            f"{serialized}")
 
@@ -1631,6 +1644,39 @@ def _compiled_flex():
     return _FLEX
 
 
+def nf4_dx_faults(gy, q, ref):
+    """dx as a wrong K2 would compute it from g ``gy`` and NF4 ``q``
+    (``ref`` the right one), in plain PyTorch: the low side's columns 32-63
+    of each 64-column tile read with the absmax of the block before theirs
+    (one absmax a tile: where K/2 % 64 == 32 the tile straddles two
+    blocks), and, where K/2 % 64 == 32, the high side's last tile stored
+    past K/2: its zero bytes there decode to NF4 code 0 (-absmax) and land
+    on the low side's first 32 columns."""
+    import torch
+
+    from unsloth_tpu_torch.ops.nf4 import NF4_CODE, _decode_absmax
+
+    n, k = q.shape
+    half = k // 2
+    am = _decode_absmax(q).float().reshape(n, k // 64)
+    cols = torch.arange(k, device=gy.device)
+    blk = cols // 64
+    upper = (cols >= half) & ((cols - half) % 64 >= 32)
+    blk = torch.where(upper, (blk - 1).clamp(min=0), blk)
+    code = NF4_CODE.to(gy.device).float()
+    nib = torch.cat([q.packed >> 4, q.packed & 15], dim=1).long()
+    w = (code[nib] * am[:, blk]).to(gy.dtype)
+    faults = {"low side's upper columns with the block before theirs":
+              torch.matmul(gy, w)}
+    if half % 64 == 32:
+        garbage = torch.matmul(gy, (code[0] * am[:, half // 64]).to(
+            gy.dtype)[:, None])
+        bad = ref.clone()
+        bad[:, half:half + 32] = garbage.to(ref.dtype)
+        faults["high side stored past K/2"] = bad
+    return faults
+
+
 def _training_kernels(dev, g, flush):
     """K2 at every Llama-3.1-8B projection shape at M = 8192 and every
     Gemma-2-9B one at M = 4096; K4 at [8192, 4096] bf16, plain and Gemma,
@@ -1638,7 +1684,10 @@ def _training_kernels(dev, g, flush):
     on one 8K row of Llama-3.1-8B attention (32/8 heads, head dim 128).
 
     Tolerances. K2: max|dx - ref| <= 1e-2 max|ref| (as K1: the same bf16
-    weights, fp32 sums in another order, one bf16 rounding). K4: dx
+    weights, fp32 sums in another order, one bf16 rounding); its tile
+    counters (output tiles, stages) equal to its schedule's
+    (:func:`unsloth_tpu_torch.ops.qlora_matmul.nf4_dx_tile_schedule`), and
+    the check must reject each of :func:`nf4_dx_faults`. K4: dx
     within 2 bf16 ulps plus 1e-5 of max|dx| (the fp32 result differs in
     its last bits before rounding; the floor covers values that cancel
     to near zero), dW within one bf16 ulp of max|dW| (an fp32 sum over
@@ -1655,10 +1704,13 @@ def _training_kernels(dev, g, flush):
     from unsloth_tpu_torch.data.packing import max_segment_length
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops.nf4 import quantize_nf4
-    from unsloth_tpu_torch.ops.qlora_matmul import (nf4_matmul_dx,
+    from unsloth_tpu_torch.ops.qlora_matmul import (DX_STAGE_ROWS,
+                                                    nf4_dx_tile_schedule,
+                                                    nf4_matmul_dx,
                                                     nf4_matmul_dx_ref)
     from unsloth_tpu_torch.ops.rms_norm import rms_norm_bwd, rms_norm_bwd_ref
 
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
     rows = {"nf4_matmul_dx": [], "rms_norm_bwd": [], "packed_attn_fwd": [],
             "packed_attn_bwd": []}
     for name, n, k, m in (
@@ -1672,11 +1724,17 @@ def _training_kernels(dev, g, flush):
         q = quantize_nf4(w, dtype=torch.bfloat16)
         del w
         gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
-        dx = nf4_matmul_dx(gy, q)
+        counts.zero_()
+        dx = nf4_matmul_dx(gy, q, tile_counts=counts)
         ref, plain_ms = once_ms(lambda: nf4_matmul_dx_ref(gy, q))
         torch.cuda.synchronize()
         err = (dx.float() - ref.float()).abs().max().item()
         tol = 1e-2 * ref.float().abs().max().item()
+        got_c = counts.tolist()
+        tiles = sum(map(len, nf4_dx_tile_schedule(m, k)))
+        want_c = [tiles, tiles * (n // DX_STAGE_ROWS)]
+        faults = {f_: (fd.float() - ref.float()).abs().max().item()
+                  for f_, fd in nf4_dx_faults(gy, q, ref).items()}
         ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush=flush)
         lib_ms = None
         if name == "gate/up" and m == TRAIN_ROWS:
@@ -1686,13 +1744,24 @@ def _training_kernels(dev, g, flush):
         rows["nf4_matmul_dx"].append(dict(
             shape=f"{name} M={m} N={n} K={k}", err=err, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, library=NF4_LIBRARY))
+            library_ms=lib_ms, library=NF4_LIBRARY, tile_counts=got_c))
         log(f"[kernels] nf4_matmul_dx {name:15s} M={m} N={n:<6d} K={k:<6d} "
             f"max|d|={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms" + ("" if lib_ms is None else
-                                   f" {NF4_LIBRARY} {lib_ms:.4f} ms"))
+                                   f" {NF4_LIBRARY} {lib_ms:.4f} ms")
+            + f" bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}%); tiles, stages "
+            f"{got_c} (schedule {want_c}); faults "
+            + ", ".join(f"{f_} {e_:.3e}" for f_, e_ in faults.items()))
         if not (bool(torch.isfinite(dx).all()) and err <= tol):
             raise RuntimeError(f"nf4_matmul_dx disagrees at {name}: {err}")
+        if got_c != want_c:
+            raise RuntimeError(f"nf4_matmul_dx at {name}: the kernel counted "
+                               f"{got_c} (tiles, stages), its schedule "
+                               f"{want_c}")
+        missed = [f_ for f_, e_ in faults.items() if not e_ > tol]
+        if missed:
+            raise RuntimeError(f"the nf4_matmul_dx check lets faults through "
+                               f"at {name}: {missed}")
         del q, gy, dx, ref
 
     m = TRAIN_ROWS
@@ -6745,7 +6814,14 @@ def _device_report(prof, wall_us, top):
 
     families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel", "gmm_wgmma_kernel",
                                               "tgmm_kernel"),
-                "K1/K2 nf4_matmul": ("nf4_matmul", "nf4_wgmma_kernel"),
+                # K12 is K1's Hopper kernel in its e4m3 form (<BX, true>)
+                "K1 nf4_matmul": ("nf4_matmul_kernel",
+                                  "nf4_wgmma_kernel<128, false>",
+                                  "nf4_wgmma_kernel<256, false>"),
+                "K2 nf4_matmul_dx": ("nf4_dx_wgmma_kernel",),
+                "K12/K13 fp8_matmul": ("fp8_matmul_kernel",
+                                       "nf4_wgmma_kernel<128, true>",
+                                       "nf4_wgmma_kernel<256, true>"),
                 # K17's forward is K16's in its kSinks form; its dq and
                 # dk/dv are K16's kernels, told apart by the device spans
                 # of its profiler range (below)
@@ -7546,17 +7622,25 @@ def _fp8_kernels(dev, g, flush):
     K12 at gate/up and down at the decode rows FP8_DECODE_ROWS, and both at
     FP8_RAGGED (block 32). Weights from :func:`fp8_weight`, quantized at
     block 128. Tolerance: :func:`mm_ulps` <= MM_ULPS; each fault of
-    :func:`fp8_faults`, run through the plain version, must exceed it.
-    Times: the kernel's median, the plain version's one call (once_ms),
+    :func:`fp8_faults` must exceed it, run for K12 through the kernel
+    itself (its Hopper form where ``fp8_wgmma_form`` holds: the faulty
+    scales and bytes are what a kernel reading the wrong ones would see),
+    for K13 through the plain version. Where the Hopper form runs, its tile
+    counters (output tiles, stages) must equal K1's schedule
+    (``fp8_tile_schedule``). Times: the kernel's median, the plain version's one call (once_ms),
     the labelled yardstick dequantize_fp8 + torch.matmul (two calls: no
     single PyTorch call computes the function), the bound."""
     import torch
 
     from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
-    from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx,
+    from unsloth_tpu_torch.ops.fp8_matmul import (STAGE_BYTES,
+                                                  fp8_matmul_dx,
                                                   fp8_matmul_dx_ref,
-                                                  fp8_matmul_fwd)
+                                                  fp8_matmul_fwd,
+                                                  fp8_tile_schedule,
+                                                  fp8_wgmma_form)
 
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
     cases = [(name, n, k, FP8_BLOCK, 2 * UNPACKED_ROWS, True)
              for name, n, k in PROJ_SHAPES]
     cases += [(name, n, k, FP8_BLOCK, m, False) for name, n, k in PROJ_SHAPES
@@ -7573,12 +7657,19 @@ def _fp8_kernels(dev, g, flush):
                             device=dev).to(torch.bfloat16)
             kernel = fp8_matmul_dx if dx else fp8_matmul_fwd
             plain = fp8_matmul_dx_ref if dx else fp8_matmul_ref
-            got = kernel(a, q)
+            counts.zero_()
+            got = fp8_matmul_dx(a, q) if dx else fp8_matmul_fwd(
+                a, q, tile_counts=counts)
             ref, plain_ms = once_ms(lambda: plain(a, q))
             torch.cuda.synchronize()
             ulps = mm_ulps(got, ref)
             err = (got.float() - ref.float()).abs().max().item()
-            faults = {f_: mm_ulps(plain(a, fq), ref)
+            got_c, want_c = counts.tolist(), [0, 0]
+            if not dx and fp8_wgmma_form(m, k, block, a.data_ptr(),
+                                         q.values.data_ptr(), got.data_ptr()):
+                tiles = sum(map(len, fp8_tile_schedule(m, n)))
+                want_c = [tiles, tiles * -(-k // STAGE_BYTES)]
+            faults = {f_: mm_ulps((plain if dx else kernel)(a, fq), ref)
                       for f_, fq in fp8_faults(q, dx).items()}
             ms = time_ms(lambda: kernel(a, q), flush=flush)
             lib_ms = time_ms(lambda: plain(a, q), runs=10, flush=flush)
@@ -7588,16 +7679,22 @@ def _fp8_kernels(dev, g, flush):
             rows[kname].append(dict(
                 shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library=library))
+                library=library, **({} if dx else {"tile_counts": got_c})))
             log(f"[kernels] {kname} {shape}: max|d|={err:.3e} "
                 f"({ulps:.2f} ulp, limit {MM_ULPS}); faults "
                 + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
                 + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms {library} "
                 f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-                f"{100 * b_ms / ms:.1f}% of it)")
+                f"{100 * b_ms / ms:.1f}% of it)"
+                + ("" if dx else f"; tiles, stages {got_c} (schedule "
+                   f"{want_c})"))
             if not (bool(torch.isfinite(got).all()) and ulps <= MM_ULPS):
                 raise RuntimeError(f"{kname} disagrees at {shape}: {ulps} "
                                    "ulp")
+            if got_c != want_c:
+                raise RuntimeError(f"{kname} at {shape}: the kernel counted "
+                                   f"{got_c} (tiles, stages), its schedule "
+                                   f"{want_c}")
             missed = [f_ for f_, u in faults.items() if not u > MM_ULPS]
             if missed:
                 raise RuntimeError(f"the {kname} check lets faults through "
@@ -7700,7 +7797,7 @@ def phase_train_parity_fp8(seed=SEED + 23):
     return dict(train, logits_rel=rel, logits_max=mx)
 
 
-def phase_fp8_sft(tmp, unpacked_launches):
+def phase_fp8_sft(tmp, unpacked_launches, profile=False):
     """LoRA SFT and generate over a block-FP8 Llama-3.1-8B at full width and
     depth, from the checkpoint in ``tmp``: from_pretrained(max_seq_length
     2048, load_in_4bit=False) in bf16, the seven projections of all 32
@@ -7716,7 +7813,10 @@ def phase_fp8_sft(tmp, unpacked_launches):
     save_pretrained_merged raising NotImplementedError (no merge over FP8
     in either package), and a greedy generate of 16 tokens for 2 prompts,
     K12 launched at its decode rows. Returns the training launches, the
-    generate's and the metrics."""
+    generate's and the metrics. With ``profile`` (``unpacked_launches``
+    may then be None), one more step runs under the profiler
+    (:func:`_profile_train_step`) in place of evaluate, the saves and
+    generate."""
     import numpy as np
     import torch
 
@@ -7737,16 +7837,20 @@ def phase_fp8_sft(tmp, unpacked_launches):
     _recipe_launches(run, "fp8", FP8_KERNELS, FP8_ABSENT)
     n_layers, accum = model.cfg.num_layers, run["accum"]
     per_step = fp8_launches(n_layers, accum)
-    phase7 = {"fp8_matmul_fwd": unpacked_launches["nf4_matmul"],
-              "fp8_matmul_dx": unpacked_launches["nf4_matmul_dx"]}
-    if {n: c / UNPACKED_STEPS for n, c in phase7.items()} != per_step:
-        raise RuntimeError(f"phase 7's K1/K2 launches {phase7} over "
-                           f"{UNPACKED_STEPS} steps are not {per_step} a "
-                           "step")
+    phase7 = per_step if unpacked_launches is None else {
+        "fp8_matmul_fwd": unpacked_launches["nf4_matmul"] / UNPACKED_STEPS,
+        "fp8_matmul_dx": unpacked_launches["nf4_matmul_dx"] / UNPACKED_STEPS}
+    if phase7 != per_step:
+        raise RuntimeError(f"phase 7's K1/K2 launches a step {phase7} are "
+                           f"not {per_step}")
     log(f"[fp8] K12/K13 launches a step "
         f"{ {n: launches[n] / FP8_STEPS for n in per_step} } (phase 7's "
         f"K1/K2: {per_step})")
     _check_launched(launches, (), "fp8 training", per_step, FP8_STEPS)
+    if profile:
+        i = run["order"][0]
+        _profile_train_step(trainer, run["batches"][i:i + run["accum"]])
+        return launches, None, None
 
     ev = _adapter_round_trip(model, trainer, held_out, tmp, "fp8")
     merged_dir = os.path.join(tmp, "merged_fp8")
@@ -7865,6 +7969,13 @@ KERNEL_FORMS = {
     "nf4_matmul": "nf4_wgmma_kernel<256> (Hopper: TMA ring, the NF4 decode "
                   "into wgmma's A fragments, y^T = W x^T; <128> at M <= "
                   "128; nf4_matmul.cu's nf4_matmul_kernel<16> at M <= 16)",
+    "nf4_matmul_dx": "nf4_dx_wgmma_kernel<256> (Hopper: dx^T = W^T g^T, TMA "
+                     "ring, the NF4 decode into wgmma's A fragments; <128> "
+                     "at M <= 128)",
+    "fp8_matmul_fwd": "nf4_wgmma_kernel<256, true> (K1's Hopper kernel with "
+                      "the e4m3 decode; <128, true> at M <= 128; "
+                      "fp8_matmul.cu's fp8_matmul_kernel<64, false> outside "
+                      "fp8_wgmma_form, <16, false> at M <= 16)",
     "layer_norm_fwd": "layer_norm_warp_kernel (one warp a row, the row in "
                       "registers; layer_norm_kernel at other widths)"}
 
@@ -7885,7 +7996,7 @@ def _kernels_line(rows, by_path):
     picks = {
         "nf4_matmul": ("nf4_wgmma.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
-        "nf4_matmul_dx": ("nf4_matmul.cu",
+        "nf4_matmul_dx": ("nf4_wgmma.cu",
                           "unsloth_tpu/ops/qlora_matmul.py:267",
                           "gate/up M=8192 N=14336 K=4096"),
         "rms_norm": ("rms_norm.cu", "unsloth_tpu/ops/rms_norm.py:70",
@@ -7942,7 +8053,7 @@ def _kernels_line(rows, by_path):
         "layer_norm_bwd": ("layer_norm.cu", "unsloth_tpu/ops/rms_norm.py:253 "
                            "(_ln_bwd_kernel, launched by _ln_bwd_pallas "
                            ":313)", "[3000, 1280] bfloat16"),
-        "fp8_matmul_fwd": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:85 "
+        "fp8_matmul_fwd": ("nf4_wgmma.cu", "unsloth_tpu/ops/fp8_matmul.py:85 "
                            "(_fwd_kernel, launched by _fwd_pallas :138, "
                            "pallas_call :153)", "gate/up M=4096"),
         "fp8_matmul_dx": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
@@ -8104,8 +8215,22 @@ def main() -> int:
         ("--profile-train-llama32",): (phase_llama32_sft, LLAMA_32_1B_CONFIG,
                                        True),
         ("--profile-train-grpo",): (phase_grpo, LLAMA_31_8B_CONFIG),
+        ("--profile-train-fp8",): (
+            lambda path, profile: phase_fp8_sft(path, None, profile=profile),
+            LLAMA_31_8B_CONFIG),
         ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG)}
-    if tuple(sys.argv[1:]) == ("--library-times",):
+    args = tuple(sys.argv[1:])
+    tree = None
+    if len(args) == 3 and args[:1] in profiles and args[1] == "--tree":
+        # profile another checkout's package (a parent unpacked under
+        # build/ by git archive) with this script's harness; phase 2 then
+        # reports that build's Hopper rows without holding them to this
+        # tree's
+        tree = os.path.abspath(args[2])
+        sys.path.insert(0, tree)
+        args = args[:1]
+        log(f"[tree] unsloth_tpu_torch from {tree}")
+    if args == ("--library-times",):
         # phases 1 and 2, then the library yardsticks; no result line
         phase_device()
         phase_build()
@@ -8113,15 +8238,16 @@ def main() -> int:
         phase_library_times()
         log(f"[time] library times: {time.perf_counter() - t0:.1f} s")
         return 0
-    if tuple(sys.argv[1:]) not in profiles:
+    if args not in profiles:
         print(f"usage: {sys.argv[0]} [--library-times | --profile-train | "
               "--profile-train-unpacked | --profile-train-gemma2 | "
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
               "--profile-train-llama32 | --profile-train-grpo | "
-              "--profile-train-diffusion]",
+              "--profile-train-fp8 | --profile-train-diffusion] "
+              "[--tree DIR, after a --profile-train flag]",
               file=sys.stderr)
         return 2
-    profile = profiles[tuple(sys.argv[1:])]
+    profile = profiles[args]
     t_start = time.perf_counter()
 
     def timed(phase, fn, *args, **kw):
@@ -8132,7 +8258,7 @@ def main() -> int:
         return out
 
     name, smi = timed("1 device", phase_device)
-    timed("2 build", phase_build)
+    timed("2 build", phase_build, hold=tree is None)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if profile:

@@ -10,11 +10,14 @@ kernel of the first library whose mangled name PATTERN (a regular
 expression, searched) finds with the same kernel of the second. The
 default pattern is the Hopper attention set: every
 ``flash_{fwd,dq,dkv}_kernel`` instantiation and ``dkv_sum_kernel``. Names are compared
-after two normalisations: the anonymous namespace's per-file tag, and the
+after three normalisations: the anonymous namespace's per-file tag, the
 forward's third template value (``flash_fwd_kernel<D, kSplash, false>`` in
 a tree that has the sinks form is ``flash_fwd_kernel<D, kSplash>`` in one
-that has not). Prints one line a kernel and exits 1 if any kernel differs
-or is missing from the second library.
+that has not), and the NF4 forward's format value
+(``nf4_wgmma_kernel<BX, false>``, K1's form in a tree where K12 runs the
+same kernel, is ``nf4_wgmma_kernel<BX>`` in one where it does not). Prints
+one line a kernel and exits 1 if any kernel differs or is missing from
+the second library.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 ATTENTION = r"flash_(?:fwd|dq|dkv)_kernel|dkv_sum_kernel"
 _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}")
 _FWD3 = re.compile(r"(flash_fwd_kernelILi\d+ELb\dE)Lb0E")
+_NF4W = re.compile(r"(nf4_wgmma_kernelILi\d+E)Lb0E")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
@@ -38,9 +42,9 @@ def _cuobjdump() -> str:
 
 
 def normalise(name: str) -> str:
-    """The kernel's mangled name with the file tag and a false third
-    forward template value dropped."""
-    return _FWD3.sub(r"\1", _ANON.sub(r"ANON_\1", name))
+    """The kernel's mangled name with the file tag, a false third forward
+    template value and the NF4 forward's false format value dropped."""
+    return _NF4W.sub(r"\1", _FWD3.sub(r"\1", _ANON.sub(r"ANON_\1", name)))
 
 
 def functions(lib: str, pattern: str = ATTENTION) -> dict:

@@ -1,8 +1,11 @@
-"""Time K1 (the NF4 matmul forward) and K5 (the LayerNorm forward) of one
-tree of the port on the card, at the shapes of ``chip_smoke.py``'s phase 3,
-beside the two-call yardstick of K1 and ``F.layer_norm``.
+"""Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K5
+(the LayerNorm forward) and K12 (the FP8 matmul forward) of one tree of
+the port on the card, at the shapes of ``chip_smoke.py``'s phase 3, beside
+the two-call yardsticks of K1, K2 and K12 (dequantize, then
+``torch.matmul``) and ``F.layer_norm``.
 
-    python scripts/k1_k5_times.py [--tree DIR] [--label NAME] [--only K1|K5]
+    python scripts/kernel_times.py [--tree DIR] [--label NAME]
+                                   [--only K1|K2|K5|K12]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -12,8 +15,10 @@ the yardstick's (medians of 20 CUDA-event runs after 3 warm-up runs, a
 256-MB buffer zeroed before each run so that the weights come from device
 memory), the bound (the larger of 2 M N K operations at 989 TFLOP/s and
 the bytes at 3.35 TB/s; K5 bytes only) and max|y - ref| / max|ref|
-against ``x @ dequantize_nf4(W)^T`` or ``layer_norm_ref``. Inputs are made
-on the card from seed 0, as phase 3 makes them.
+against the two calls (``x @ dequantize_nf4(W)^T``, ``g @
+dequantize_nf4(W)``, ``x @ dequantize_fp8(W)^T``) or ``layer_norm_ref``.
+Inputs are made on the card from seed 0 as phase 3 makes them (K12's
+weights with per-block magnitudes, as ``chip_smoke.fp8_weight``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,40 @@ K1_SHAPES = (
        (("q", 4096, 2880), ("k/v", 512, 2880), ("o", 2880, 4096))])
 K5_SHAPES = ((3000, 1280, "bfloat16", True), (3000, 1280, "float32", True),
              (448, 1280, "bfloat16", True), (3000, 1280, "bfloat16", False))
+# (name, N, K, rows) of phase 3's K2 rows: g [rows, N], W [N, K]
+K2_SHAPES = (
+    [(name, n, k, 8192) for name, n, k in
+     (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
+      ("down", 4096, 14336))]
+    + [("gemma2 " + name, n, k, 4096) for name, n, k in
+       (("q", 4096, 3584), ("k/v", 2048, 3584), ("o", 3584, 4096),
+        ("gate/up", 14336, 3584), ("down", 3584, 14336))]
+    + [("gpt-oss " + name, n, k, 4096) for name, n, k in
+       (("q", 4096, 2880), ("k/v", 512, 2880), ("o", 2880, 4096))])
+# (name, N, K, block, rows) of phase 3's K12 rows
+K12_SHAPES = (
+    [(name, n, k, 128, 4096) for name, n, k in
+     (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
+      ("down", 4096, 14336))]
+    + [(name, n, k, 128, m) for name, n, k in
+       (("gate/up", 14336, 4096), ("down", 4096, 14336)) for m in (1, 4)]
+    + [("ragged", 1000, 1404, 32, 333)])
+
+
+def fp8_weight(n, k, g, dev, block):
+    """randn * 0.02 times 2^u per block x block tile, u uniform in [-2,
+    2] (chip_smoke.fp8_weight)."""
+    import torch
+
+    nb, kb = -(-n // block), -(-k // block)
+    f = torch.exp2(torch.rand((nb, kb), generator=g, device=dev) * 4 - 2)
+    f = f.repeat_interleave(block, 0).repeat_interleave(block, 1)[:n, :k]
+    return (torch.randn((n, k), generator=g, device=dev) * 0.02 * f).to(
+        torch.bfloat16)
+
+
+def bound_ms(m, n, k, nbytes):
+    return 1e3 * max(2 * m * n * k / 989e12, nbytes / 3.35e12)
 
 
 def time_ms(fn, flush, runs=20, warmup=3):
@@ -62,19 +101,22 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", choices=("K1", "K5"), default=None)
+    ap.add_argument("--only", choices=("K1", "K2", "K5", "K12"),
+                    default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
     import torch.nn.functional as F
 
     if not torch.cuda.is_available():
-        print("k1_k5_times: needs an NVIDIA GPU", file=sys.stderr)
+        print("kernel_times: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from unsloth_tpu_torch import kernels
+    from unsloth_tpu_torch.ops.fp8 import dequantize_fp8, quantize_fp8_block
+    from unsloth_tpu_torch.ops.fp8_matmul import fp8_matmul_fwd
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
-    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
+    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
     from unsloth_tpu_torch.ops.rms_norm import layer_norm_fwd, layer_norm_ref
 
     kernels.library()
@@ -86,7 +128,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    for name, n, k, row_counts in (K1_SHAPES if args.only != "K5" else ()):
+    for name, n, k, row_counts in (K1_SHAPES if args.only in (None, "K1")
+                                   else ()):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
@@ -102,14 +145,54 @@ def main() -> int:
                    / ref.float().abs().max()).item()
             ms = time_ms(lambda: nf4_matmul(x, q), flush)
             lib = time_ms(two_calls, flush)
-            nbytes = x.numel() * 2 + q.nbytes + m * n * 2
-            bound = 1e3 * max(2 * m * n * k / 989e12, nbytes / 3.35e12)
+            bound = bound_ms(m, n, k, x.numel() * 2 + q.nbytes + m * n * 2)
             print(json.dumps({"label": args.label, "kernel": "K1",
                               "shape": f"{name} M={m} N={n} K={k}",
                               "ms": ms, "two_calls_ms": lib,
                               "bound_ms": bound, "rel_err": err}),
                   flush=True)
-    for rows, d, dt, bias in (K5_SHAPES if args.only != "K1" else ()):
+    for name, n, k, m in (K2_SHAPES if args.only in (None, "K2") else ()):
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        q = quantize_nf4(w, dtype=torch.bfloat16)
+        del w
+        gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+
+        def two_calls_dx():
+            return torch.matmul(gy, dequantize_nf4(q, torch.bfloat16))
+
+        dx, ref = nf4_matmul_dx(gy, q), two_calls_dx()
+        err = ((dx.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        ms = time_ms(lambda: nf4_matmul_dx(gy, q), flush)
+        lib = time_ms(two_calls_dx, flush)
+        bound = bound_ms(m, n, k, gy.numel() * 2 + q.nbytes + m * k * 2)
+        print(json.dumps({"label": args.label, "kernel": "K2",
+                          "shape": f"{name} M={m} N={n} K={k}", "ms": ms,
+                          "two_calls_ms": lib, "bound_ms": bound,
+                          "rel_err": err}), flush=True)
+        del q, gy, dx, ref
+    for name, n, k, block, m in (K12_SHAPES if args.only in (None, "K12")
+                                 else ()):
+        q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+
+        def two_calls_fp8():
+            return torch.matmul(x, dequantize_fp8(q, torch.bfloat16).t())
+
+        y, ref = fp8_matmul_fwd(x, q), two_calls_fp8()
+        err = ((y.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        ms = time_ms(lambda: fp8_matmul_fwd(x, q), flush)
+        lib = time_ms(two_calls_fp8, flush)
+        bound = bound_ms(m, n, k, x.numel() * 2 + q.nbytes + m * n * 2)
+        print(json.dumps({"label": args.label, "kernel": "K12",
+                          "shape": f"{name} M={m} N={n} K={k} block {block}",
+                          "ms": ms, "two_calls_ms": lib, "bound_ms": bound,
+                          "rel_err": err}), flush=True)
+        del q, x, y, ref
+    for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
+                              else ()):
         dtype = getattr(torch, dt)
         x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5
              ).to(dtype)

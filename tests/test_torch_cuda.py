@@ -128,6 +128,36 @@ def test_nf4_matmul_dx_kernel_matches_plain(dev, m, n, k):
         1e-2 * ref.float().abs().max()
 
 
+@pytest.mark.parametrize("m,n,k", [(5, 256, 512), (128, 512, 4096),
+                                   (129, 1024, 4096), (300, 2880, 2880),
+                                   (1500, 512, 2880), (260, 4096, 2880),
+                                   (70, 320, 1024), (2, 64, 64)])
+def test_nf4_dx_tiles_match_the_schedule(dev, m, n, k):
+    """K2's Hopper kernel at every row count: each output tile of its
+    persistent schedule (``nf4_dx_tile_schedule``) stored once, N / 64
+    stages a tile, dx within 1e-2 of max|ref| of the plain version, at M
+    tails, at gpt-oss's K = 2,880 (K/2 % 64 == 32: the last byte tile
+    crosses K/2, the low side straddles two absmax blocks) and at K = 64
+    (one byte tile of 32 bytes)."""
+    from unsloth_tpu_torch.ops.qlora_matmul import (DX_STAGE_ROWS,
+                                                    nf4_dx_tile_schedule)
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
+    gr = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = nf4_matmul_dx.launches
+    dx = nf4_matmul_dx(gr, q, tile_counts=counts)
+    ref = nf4_matmul_dx_ref(gr, q)
+    torch.cuda.synchronize()
+    assert nf4_matmul_dx.launches == before + 1
+    tiles = sum(map(len, nf4_dx_tile_schedule(m, k)))
+    assert counts.tolist() == [tiles, tiles * (n // DX_STAGE_ROWS)]
+    assert torch.isfinite(dx).all()
+    assert (dx.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+
+
 def test_nf4_matmul_backward_launches_dx_kernel(dev):
     q = quantize_nf4(torch.randn((256, 512), device=dev) * 0.05)
     x = torch.randn((4, 512), device=dev, dtype=torch.bfloat16,
@@ -1060,6 +1090,41 @@ def test_fp8_matmul_kernels_match_plain(dev, fp32_reductions, m, n, k, block):
     assert mm_ulps(y, ref) <= MM_ULPS and mm_ulps(dx, rdx) <= MM_ULPS
     wrong = dataclasses.replace(q, scales=torch.ones_like(q.scales))
     assert mm_ulps(fp8_matmul_ref(x, wrong), ref) > MM_ULPS
+
+
+@pytest.mark.parametrize("m,n,k,block", [
+    (300, 1024, 4096, 128),  # the path's block: one scale a stage
+    (17, 200, 384, 32),      # 17 rows: the Hopper form's fewest
+    (40, 96, 400, 32),       # K % 32 == 16: a last stage half past K
+    (129, 130, 256, 64),     # N % 8 != 0: masked element stores
+    (1500, 512, 2880, 128),  # gpt-oss width, K = 2,880 = 90 stages
+    (333, 1000, 1408, 32),   # ragged N, K a multiple of 16 but not of 128
+    (333, 1000, 1404, 32),   # K % 16 != 0: fp8_matmul_kernel<64, false>
+    (300, 256, 512, 48)])    # B % 32 != 0: fp8_matmul_kernel<64, false>
+def test_fp8_wgmma_tiles_match_the_schedule(dev, fp32_reductions, m, n, k,
+                                            block):
+    """K12 on K1's Hopper kernel where ``fp8_wgmma_form`` holds: each output
+    tile of K1's schedule (``fp8_tile_schedule``) stored once, ceil(K/32)
+    stages a tile, y within MM_ULPS of the plain version; elsewhere the
+    wmma tiles, whose counters stay 0."""
+    from unsloth_tpu_torch.ops.fp8_matmul import (STAGE_BYTES,
+                                                  fp8_tile_schedule,
+                                                  fp8_wgmma_form)
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    y = fp8_matmul_fwd(x, q, tile_counts=counts)
+    ref = fp8_matmul_ref(x, q)
+    torch.cuda.synchronize()
+    hopper = fp8_wgmma_form(m, k, block, x.data_ptr(),
+                            q.values.data_ptr(), y.data_ptr())
+    assert hopper == (block % 32 == 0 and k % 16 == 0)
+    tiles = sum(map(len, fp8_tile_schedule(m, n)))
+    want = [tiles, tiles * -(-k // STAGE_BYTES)] if hopper else [0, 0]
+    assert counts.tolist() == want
+    assert mm_ulps(y, ref) <= MM_ULPS
 
 
 def test_fp8_base_matmul_launches_kernels(dev, fp32_reductions):

@@ -33,7 +33,15 @@
 // rows (one n-range, k stepping); K13 walks W down its columns (one
 // k-range, n stepping), so the same scale grid is read with the two
 // indices' roles swapped. TMA, wgmma, pipelining and a split-K decode
-// shape are later work.
+// shape are later work for K13.
+//
+// K12 above 16 rows runs nf4_wgmma.cu's persistent Hopper kernel in its
+// e4m3 form (nf4_wgmma_kernel<BX, true>: TMA ring, the e4m3 bytes decoded
+// into wgmma's A fragments, y^T = W x^T) wherever it can map the shape:
+// B % 32 == 0 (a 32-byte stage in one scale column), K % 16 == 0 (the TMA
+// strides) and x, w and y 16-byte aligned (fp8_wgmma_form below, mirrored
+// by ops/fp8_matmul.py:fp8_wgmma_form). fp8_matmul_kernel<64, false>
+// takes the other shapes, <16, false> decode rows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -245,6 +253,12 @@ fp8_matmul_kernel(const __nv_bfloat16* __restrict__ a, Fp8Weight op,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// The shapes K12's Hopper form takes.
+bool fp8_wgmma_form(const void* x, const void* w, const void* y, int M, int K, int block) {
+  return M > 16 && block % 32 == 0 && K % 16 == 0 && aligned16(x) && aligned16(w) &&
+         aligned16(y);
+}
+
 template <bool DX>
 int launch(const void* a, const void* w, const void* scales, void* out, int M, int N, int K,
            int block, void* stream) {
@@ -276,13 +290,23 @@ int launch(const void* a, const void* w, const void* scales, void* out, int M, i
 
 }  // namespace
 
+int unsloth_fp8_wgmma_launch(const void* x, const void* w, const void* scales, void* y,
+                             void* counts, int M, int N, int K, int block, cudaStream_t stream);
+
 // y = x @ dequant(W)^T on `stream`. x [M, K] bf16 row-major, w e4m3 [N, K]
 // row-major, scales fp32 [ceil(N/B), ceil(K/B)], y [M, N] bf16. Any M, N,
 // K >= 1 and B >= 1; pointers need no alignment (16-byte loads and stores
-// are used where the row lengths and pointers allow them). Returns
-// cudaGetLastError() after the launch; allocates nothing.
+// are used where the row lengths and pointers allow them). Where
+// fp8_wgmma_form holds, nf4_wgmma.cu's Hopper kernel; `counts` (null, or
+// an int32 [2]) is that kernel's: it adds the output tiles it stored and
+// the stages it consumed. Returns cudaGetLastError() after the launch;
+// allocates nothing.
 extern "C" int unsloth_fp8_matmul_bf16(const void* x, const void* w, const void* scales,
-                                       void* y, int M, int N, int K, int block, void* stream) {
+                                       void* y, int M, int N, int K, int block, void* counts,
+                                       void* stream) {
+  if (fp8_wgmma_form(x, w, y, M, K, block))
+    return unsloth_fp8_wgmma_launch(x, w, scales, y, counts, M, N, K, block,
+                                    static_cast<cudaStream_t>(stream));
   return launch<false>(x, w, scales, y, M, N, K, block, stream);
 }
 

@@ -211,7 +211,8 @@ nf4_gmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
 // column stretch j0 of its expert's packed weight and one visit; it reduces
 // over the N weight rows 64 at a time (masked past N) and writes the two
 // 64-column dx tiles that stretch decodes to, dx[:, j0..] (high nibbles) and
-// dx[:, K/2 + j0..] (low nibbles), as nf4_matmul_dx_kernel does.
+// dx[:, K/2 + j0..] (low nibbles), the pairing of K2's Hopper kernel
+// (nf4_wgmma.cu) too.
 // ---------------------------------------------------------------------------
 constexpr int kDxBM = 64;
 constexpr int kDxBK = 64;           // W rows (reduction) per step

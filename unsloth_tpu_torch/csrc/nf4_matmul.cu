@@ -31,7 +31,10 @@
 //     decoded bf16 W and x tiles go to shared memory and the products run
 //     on the tensor cores through nvcuda::wmma 16x16x16 bf16 with fp32
 //     accumulators. TMA, pipelining and a split-K shape for decode are
-//     later work, as they are for the backward below.
+//     later work.
+//
+// The backward dx = g @ dequant(W) (K2) is nf4_wgmma.cu's
+// nf4_dx_wgmma_kernel at every row count; its C entry point is below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,163 +183,23 @@ nf4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward: dx[M, K] = g[M, N] @ dequant(W)[N, K].
-//
-// Replaces unsloth_tpu/ops/qlora_matmul.py:_bwd_kernel (launched by
-// _bwd_pallas): the gradient of y = x @ W^T with respect to x; W is frozen,
-// so there is no dW. Same rounding points as the forward: each weight is
-// code * absmax in fp32, rounded to bf16, products summed in fp32, the sum
-// rounded once to bf16.
-//
-// The reduction runs over W's rows (the N output features of the forward),
-// so the packed bytes are read row by row and each 64-byte stretch of a row
-// feeds two output column tiles: its high nibbles are W[n, j..j+63] and its
-// low nibbles W[n, K/2+j..K/2+j+63]. One block owns the 64-byte column
-// stretch j of the packed weight and a BM-row tile of g, and writes the two
-// 64-column tiles dx[:, j..] and dx[:, K/2+j..]. The absmax scale of a
-// (row, 64-block) pair varies along the reduction, so it is applied per row
-// while the tile is decoded. Bounded, like the forward, by tensor-core
-// throughput at the training shapes (M = 8192).
-// ---------------------------------------------------------------------------
-
-constexpr int kDxBK = 64;           // W rows (reduction) per step
-constexpr int kDxLdg = kDxBK + 8;   // g tile row stride (bf16)
-constexpr int kDxLdw = kStep + 8;   // W tile row stride (bf16)
-constexpr int kDxLdc = 2 * kStep + 4;
-
-__global__ void __launch_bounds__(kThreads)
-nf4_matmul_dx_kernel(const __nv_bfloat16* __restrict__ g,
-                     const uint8_t* __restrict__ packed,
-                     const float* __restrict__ absmax,
-                     __nv_bfloat16* __restrict__ dx, int M, int N, int K) {
-  constexpr int BM = 64;
-  // g tile [BM][kDxLdg]; W tiles [2][kDxBK][kDxLdw] (0: high nibbles =
-  // columns j.., 1: low nibbles = columns K/2 + j..); the fp32 output tile
-  // [BM][kDxLdc] reuses the same bytes after the loop.
-  constexpr int kBytesAB = (BM * kDxLdg + 2 * kDxBK * kDxLdw) * 2;
-  constexpr int kBytesC = BM * kDxLdc * 4;
-  constexpr int kBytes = kBytesAB > kBytesC ? kBytesAB : kBytesC;
-  __shared__ __align__(128) unsigned char smem[kBytes];
-  __shared__ float code[16];
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = gs + BM * kDxLdg;
-  float* cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;    // rows 32*wm .. +32 of the tile
-  const int side = warp % 2;  // which 64-column output tile
-  const int m0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * kStep;  // packed byte column
-  const int half = K / 2;
-  const int blocks_per_row = K / kQuantBlock;
-  if (tid < 16) code[tid] = kNF4Code[tid];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
-  __syncthreads();
-
-  for (int n0 = 0; n0 < N; n0 += kDxBK) {
-    // g[m0.., n0..n0+63]: 16-byte chunks of 8 bf16; rows past M are 0.
-    constexpr int kGChunks = BM * (kDxBK / 8);
-    for (int c = tid; c < kGChunks; c += kThreads) {
-      const int r = c / (kDxBK / 8);
-      const int col = (c % (kDxBK / 8)) * 8;
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) v = *reinterpret_cast<const uint4*>(g + (size_t)m * N + n0 + col);
-      *reinterpret_cast<uint4*>(gs + r * kDxLdg + col) = v;
-    }
-    // W rows n0..n0+63, bytes j0..j0+63: each 16-byte load decodes to 16
-    // weights of each nibble side, scaled by that row's two absmax values.
-    constexpr int kPChunks = kDxBK * (kStep / 16);
-    for (int c = tid; c < kPChunks; c += kThreads) {
-      const int r = c / (kStep / 16);
-      const int col = (c % (kStep / 16)) * 16;
-      const int n = n0 + r;
-      uint4 hi_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-      uint4 lo_out[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-      if (j0 + col < half) {
-        const uint4 v = *reinterpret_cast<const uint4*>(packed + (size_t)n * half + j0 + col);
-        const float a_hi = absmax[(size_t)n * blocks_per_row + (j0 + col) / kQuantBlock];
-        const float a_lo = absmax[(size_t)n * blocks_per_row + (half + j0 + col) / kQuantBlock];
-        const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-        __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(hi_out);
-        __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(lo_out);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint8_t b0 = b[2 * e], b1 = b[2 * e + 1];
-          hi2[e] = __floats2bfloat162_rn(code[b0 >> 4] * a_hi, code[b1 >> 4] * a_hi);
-          lo2[e] = __floats2bfloat162_rn(code[b0 & 15] * a_lo, code[b1 & 15] * a_lo);
-        }
-      }
-      uint4* whi = reinterpret_cast<uint4*>(ws + r * kDxLdw + col);
-      uint4* wlo = reinterpret_cast<uint4*>(ws + (kDxBK + r) * kDxLdw + col);
-      whi[0] = hi_out[0];
-      whi[1] = hi_out[1];
-      wlo[0] = lo_out[0];
-      wlo[1] = lo_out[1];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kDxBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bw[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], gs + (wm * 32 + i * 16) * kDxLdg + kk, kDxLdg);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        wmma::load_matrix_sync(bw[jj], ws + (side * kDxBK + kk) * kDxLdw + jj * 16, kDxLdw);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) wmma::mma_sync(acc[i][jj], a[i], bw[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kDxLdc + side * kStep + jj * 16,
-                              acc[i][jj], kDxLdc, wmma::mem_row_major);
-  __syncthreads();
-  // 8 consecutive columns per thread, one 16-byte store each.
-  for (int c = tid; c < BM * (2 * kStep / 8); c += kThreads) {
-    const int r = c / (2 * kStep / 8);
-    const int col = (c % (2 * kStep / 8)) * 8;
-    const int m = m0 + r;
-    if (m >= M || j0 + col % kStep >= half) continue;
-    const int out_col = col < kStep ? j0 + col : half + j0 + (col - kStep);
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-    const float* src = cs + r * kDxLdc + col;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
-    *reinterpret_cast<uint4*>(dx + (size_t)m * K + out_col) = o;
-  }
-}
-
 }  // namespace
 
-// dx = g @ dequant(W) on `stream`. Shapes: g [M, N] bf16 row-major, packed
-// [N, K/2] u8, absmax [N * K/64] f32, dx [M, K] bf16. N must be a multiple
-// of 64, K/2 a multiple of 32 and every pointer 16-byte aligned (the
-// wrapper checks). Returns cudaGetLastError() after the launch.
-extern "C" int unsloth_nf4_matmul_dx_bf16(const void* g, const void* packed, const void* absmax,
-                                          void* dx, int M, int N, int K, void* stream) {
-  const dim3 grid((K / 2 + kStep - 1) / kStep, (M + 63) / 64);
-  nf4_matmul_dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(g), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(absmax), static_cast<__nv_bfloat16*>(dx), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+int unsloth_nf4_dx_wgmma_launch(const void* g, const void* packed, const void* absmax_t,
+                                void* dx, void* counts, int M, int N, int K, cudaStream_t stream);
+
+// dx = g @ dequant(W) on `stream`: nf4_wgmma.cu's Hopper kernel at every
+// row count. Shapes: g [M, N] bf16 row-major, packed [N, K/2] u8, absmax_t
+// the absmax transposed, fp32 [K/64, N], dx [M, K] bf16. N must be a
+// multiple of 64, K/2 a multiple of 32 and every pointer 16-byte aligned
+// (the wrapper checks). `counts` (null, or an int32 [2]): the kernel adds
+// the output tiles it stored and the stages it consumed. Returns
+// cudaGetLastError() after the launch; allocates nothing.
+extern "C" int unsloth_nf4_matmul_dx_bf16(const void* g, const void* packed,
+                                          const void* absmax_t, void* dx, int M, int N, int K,
+                                          void* counts, void* stream) {
+  return unsloth_nf4_dx_wgmma_launch(g, packed, absmax_t, dx, counts, M, N, K,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int unsloth_nf4_wgmma_launch(const void* x, const void* packed, const void* absmax, void* y,

@@ -60,8 +60,30 @@
 // decoded (NF4 code 0 is -1.0, not 0), and each side of a stage lies in one
 // absmax block (a 64-block holds two 32-column stages on either side).
 // Rows past N decode with absmax 0 and are never stored.
+//
+// The FP8 forward (K12) runs the same kernel, nf4_wgmma_kernel<BX, true>,
+// with the e4m3 weight format as its policy (fp8_matmul.cu's entry point
+// picks it by shape, unsloth_fp8_wgmma_launch). Replaces
+// unsloth_tpu/ops/fp8_matmul.py:_fwd_kernel (launched by _fwd_pallas) above
+// 16 rows: W [N, K] float8_e4m3fn, fp32 scales [ceil(N/B), ceil(K/B)].
+// A stage is 32 bytes of each W row (32 weights, one a byte) against one x
+// box [BX][32], not two nibble sides, so a stage is 20 KB and the ring
+// holds 8. A thread decodes its fragment by the hardware cvt (e4m3x2 ->
+// f16x2, exact), multiplies by the block's scale in fp32 and rounds once
+// to bf16: the TPU kernel's arithmetic. With B a multiple of 32 a warp's
+// 16 rows share a scale row and a stage lies in one scale column, so the
+// scale is one value a stage; rows past N read the last scale row and
+// decode TMA's zero bytes to 0. K % 16 == 0 (the maps' strides); the
+// kernel's parameters are K1's, with B in the flags word (bit 0: TMA
+// store, the rest B), so K1's form keeps its code.
+//
+// The NF4 backward (K2), nf4_dx_wgmma_kernel<BX> below, is this kernel's
+// sibling: dx^T = W^T g^T, the NF4 bytes decoded into the A fragments, g
+// the K-major B operand. See its own note.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,12 +112,14 @@ constexpr int kConsumerRegs = 232;
 constexpr int kCntTiles = 0;   // output tiles stored
 constexpr int kCntStages = 1;  // their stages
 
-template <int BX>
+// kFp8: K12's e4m3 form (one x box a stage, eight stages), else K1's.
+template <int BX, bool kFp8 = false>
 struct Cfg {
+  static constexpr int kStages = kFp8 ? 8 : ::nf4w::kStages;
   static constexpr int kXBytes = BX * kStep * 2;  // one side's x box, [BX][32] bf16
   static constexpr int kXHalf = kXBytes / 2;      // the rows one CTA loads
   static constexpr int kWBytes = kBw * kStep;     // the packed bytes, [128][32] u8
-  static constexpr int kStageBytes = 2 * kXBytes + kWBytes;
+  static constexpr int kStageBytes = (kFp8 ? 1 : 2) * kXBytes + kWBytes;
   static constexpr int kOutBytes = BX * 128;      // a warpgroup's [BX][64] bf16 result
   static constexpr int kOffOut = kStages * kStageBytes;
   static constexpr int kOffBar = kOffOut + 2 * kOutBytes;
@@ -220,6 +244,33 @@ __device__ __forceinline__ void decode_stage(const unsigned char* w, int r, int 
   }
 }
 
+// Two bf16 weights of a W row from one 16-bit pair of e4m3 bytes (the lower
+// column in the low byte): the hardware cvt to f16 (exact), fp32 times the
+// block's scale, rounded once.
+__device__ __forceinline__ uint32_t decode_e4m3(uint32_t u, float s) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(u & 0xFFFFu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// K12's A fragments of one stage: a[4 k + ...] k step k (k = 0, 1) in
+// decode_stage's order, from the stage's [128][32] e4m3 bytes (the same
+// 32-byte swizzle), every weight scaled by `s`.
+__device__ __forceinline__ void decode_stage_e4m3(const unsigned char* w, int r, int c, float s,
+                                                  uint32_t (&a)[16]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r, r + 8
+      const int row = r + 8 * h;
+      const unsigned char* p = w + row * kStep + ((16 * k) ^ (((row >> 2) & 1) << 4)) + 2 * c;
+      a[4 * k + h] = decode_e4m3(*reinterpret_cast<const uint16_t*>(p), s);
+      a[4 * k + 2 + h] = decode_e4m3(*reinterpret_cast<const uint16_t*>(p + 8), s);
+    }
+  }
+}
+
 // Hand stage `s` back to both CTAs' producers, once per consumer warp.
 __device__ __forceinline__ void release(uint64_t* empty, int s, int lane, int rank) {
   __syncwarp();
@@ -240,28 +291,34 @@ __device__ __forceinline__ void load_scales(float (&s)[4], const float* pa, cons
   s[3] = pb != nullptr ? __ldg(pb + bl) : 0.0f;
 }
 
-template <int BX>
+template <int BX, bool kFp8 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     nf4_wgmma_kernel(const __grid_constant__ CUtensorMap tx,  // x [M, K], box 32 x BX / 2
                      const __grid_constant__ CUtensorMap tw,  // packed [N, K/2] u8, box 32 x 128
+                                                              // (K12: e4m3 [N, K])
                      const __grid_constant__ CUtensorMap ty,  // y [M, N], box 64 x BX (tma_store)
                      const float* __restrict__ absmax, bf16* __restrict__ y,
-                     int* __restrict__ counts, int M, int N, int K, int tma_store) {
-  using C = Cfg<BX>;
+                     int* __restrict__ counts, int M, int N, int K, int flags) {
+  using C = Cfg<BX, kFp8>;
+  constexpr int kWOff = (kFp8 ? 1 : 2) * C::kXBytes;  // the W bytes in a stage
+  // K1: `flags` is the TMA-store switch. K12: bit 0 is, the rest is the
+  // scale block B, and `absmax` is the fp32 scales [ceil(N/B), ceil(K/B)].
+  const int tma_store = kFp8 ? flags & 1 : flags;
+  const int block = kFp8 ? flags >> 1 : 64;
   extern __shared__ unsigned char smem_raw[];
   __shared__ float code[16];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + C::kStages;
   const int half = K / 2;
-  const int nst = half / kStep;
+  const int nst = kFp8 ? (K + kStep - 1) / kStep : half / kStep;
   const int pairs_n = ((N + kBw - 1) / kBw + 1) / 2;  // W tile pairs
   const int units = ((M + BX - 1) / BX) * pairs_n;
   const int rank = static_cast<int>(cluster_rank());
   const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
   if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 16);  // one arrival per consumer warp of both CTAs
     }
@@ -281,20 +338,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int xr = min((u / pairs_n) * BX + rank * (BX / 2), M - 1);
       const int n0 = min((2 * (u % pairs_n) + rank) * kBw, N - 1);
       for (int st = 0; st < nst; ++st, ++it) {
-        const int s = it % kStages;
-        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+        const int s = it % C::kStages;
+        if (it >= C::kStages) mbar_wait(&empty[s], ((it / C::kStages) - 1) & 1);
         unsigned char* slot = smem + s * C::kStageBytes;
         mbar_expect_tx(&full[s], C::kStageBytes);
         tma_load_2d_both(slot + rank * C::kXHalf, &tx, &full[s], st * kStep, xr);
-        tma_load_2d_both(slot + C::kXBytes + rank * C::kXHalf, &tx, &full[s],
-                         half + st * kStep, xr);
-        tma_load_2d(slot + 2 * C::kXBytes, &tw, &full[s], st * kStep, n0);
+        if constexpr (!kFp8)
+          tma_load_2d_both(slot + C::kXBytes + rank * C::kXHalf, &tx, &full[s],
+                           half + st * kStep, xr);
+        tma_load_2d(slot + kWOff, &tw, &full[s], st * kStep, n0);
       }
     }
     // stay until both CTAs' consumers have handed back every stage, so no
     // arrival or multicast from the other CTA finds this one gone
-    for (int i = 0; i < kStages; ++i, ++it)
-      if (it >= kStages) mbar_wait(&empty[it % kStages], ((it / kStages) - 1) & 1);
+    for (int i = 0; i < C::kStages; ++i, ++it)
+      if (it >= C::kStages) mbar_wait(&empty[it % C::kStages], ((it / C::kStages) - 1) & 1);
     return;
   }
 
@@ -305,27 +363,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int c = lane % 4;
   unsigned char* staged = smem + C::kOffOut + wg * C::kOutBytes;
   const int blocks = K / 64;  // absmax blocks of a W row
+  const int scale_rows = (N + block - 1) / block, scale_cols = (K + block - 1) / block;  // K12
   int it = 0, n_tiles = 0, n_stages = 0;
   for (int u = cluster; u < units; u += clusters) {
     // shuffled from lane 0, so that the compiler sees the branch on n0
     // taken by whole warps
     const int m0 = __shfl_sync(0xffffffffu, (u / pairs_n) * BX, 0);
     const int n0 = __shfl_sync(0xffffffffu, (2 * (u % pairs_n) + rank) * kBw, 0);
-    const float* pa = n0 + r < N ? absmax + (size_t)(n0 + r) * blocks : nullptr;
-    const float* pb = n0 + r + 8 < N ? absmax + (size_t)(n0 + r + 8) * blocks : nullptr;
+    const float* pa;
+    const float* pb;
+    if constexpr (kFp8) {
+      // K12: the scale row of this warp's 16 W rows (B % 32 == 0); past N
+      // the last one, whose bytes arrive as zeros
+      pa = absmax + (size_t)min((n0 + 64 * wg + 16 * warp) / block, scale_rows - 1) * scale_cols;
+      pb = nullptr;
+    } else {
+      pa = n0 + r < N ? absmax + (size_t)(n0 + r) * blocks : nullptr;
+      pb = n0 + r + 8 < N ? absmax + (size_t)(n0 + r + 8) * blocks : nullptr;
+    }
     float acc[BX / 2];
     uint32_t fa[16], fb[16];  // the A fragments of two stages
     float sc[4];
-    load_scales(sc, pa, pb, 0, half);
-    mbar_wait(&full[it % kStages], (it / kStages) & 1);
-    decode_stage(smem + (it % kStages) * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, fa);
-    // One stage: its four products from `cur`, then, while they run, the
-    // next stage decoded into `nxt` once the products that read `nxt` are
-    // done.
+    if constexpr (kFp8)
+      sc[0] = __ldg(pa);
+    else
+      load_scales(sc, pa, pb, 0, half);
+    mbar_wait(&full[it % C::kStages], (it / C::kStages) & 1);
+    if constexpr (kFp8)
+      decode_stage_e4m3(smem + (it % C::kStages) * C::kStageBytes + kWOff, r, c, sc[0], fa);
+    else
+      decode_stage(smem + (it % C::kStages) * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, fa);
+    // One stage: its four products (K12: two) from `cur`, then, while they
+    // run, the next stage decoded into `nxt` once the products that read
+    // `nxt` are done.
     auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
-      const int s = (it + st) % kStages;
+      const int s = (it + st) % C::kStages;
       const bool more = st + 1 < nst;
-      if (more) load_scales(sc, pa, pb, st + 1, half);
+      if constexpr (kFp8) {
+        if (more) sc[0] = __ldg(pa + (st + 1) * kStep / block);
+      } else {
+        if (more) load_scales(sc, pa, pb, st + 1, half);
+      }
       const uint32_t xs = smem_u32(smem + s * C::kStageBytes);
       fence_u32(cur);
       wgmma_fence();
@@ -333,17 +411,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int k = 0; k < 2; ++k)
         Rs<BX>::mma(acc, cur[4 * k], cur[4 * k + 1], cur[4 * k + 2], cur[4 * k + 3],
                     sw64_desc(xs + 32 * k), st > 0 || k > 0);
+      if constexpr (!kFp8) {
 #pragma unroll
-      for (int k = 0; k < 2; ++k)
-        Rs<BX>::mma(acc, cur[8 + 4 * k], cur[8 + 4 * k + 1], cur[8 + 4 * k + 2],
-                    cur[8 + 4 * k + 3], sw64_desc(xs + C::kXBytes + 32 * k), 1);
+        for (int k = 0; k < 2; ++k)
+          Rs<BX>::mma(acc, cur[8 + 4 * k], cur[8 + 4 * k + 1], cur[8 + 4 * k + 2],
+                      cur[8 + 4 * k + 3], sw64_desc(xs + C::kXBytes + 32 * k), 1);
+      }
       wgmma_commit();
       wgmma_wait<1>();  // the previous stage's products are done
-      if (st > 0) release(empty, (it + st - 1) % kStages, lane, rank);
+      if (st > 0) release(empty, (it + st - 1) % C::kStages, lane, rank);
       if (more) {
-        const int sn = (it + st + 1) % kStages;
-        mbar_wait(&full[sn], ((it + st + 1) / kStages) & 1);
-        decode_stage(smem + sn * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, nxt);
+        const int sn = (it + st + 1) % C::kStages;
+        mbar_wait(&full[sn], ((it + st + 1) / C::kStages) & 1);
+        if constexpr (kFp8)
+          decode_stage_e4m3(smem + sn * C::kStageBytes + kWOff, r, c, sc[0], nxt);
+        else
+          decode_stage(smem + sn * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, nxt);
       }
     };
     for (int st = 0; st < nst; st += 2) {
@@ -352,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    release(empty, (it + nst - 1) % kStages, lane, rank);
+    release(empty, (it + nst - 1) % C::kStages, lane, rank);
     it += nst;
     if (n0 >= N) continue;  // the odd W tile's partner: computed, not stored
     ++n_tiles;
@@ -411,14 +494,269 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The map of a row-major 2-D tensor of `elem` bytes an element (bf16 or
-// u8), dims and box innermost first, with `swizzle`, zeros past the edges.
+// ---------------------------------------------------------------------------
+// K2: dx[M, K] = g[M, N] @ dequant(W)[N, K], computed transposed,
+// dx^T = W^T g^T.
+//
+// Replaces unsloth_tpu/ops/qlora_matmul.py:_bwd_kernel (launched by
+// _bwd_pallas from _nf4_vjp_bwd): the gradient of y = x @ W^T with respect
+// to x; W is frozen. Same arithmetic as K1: code * absmax in fp32, rounded
+// once to bf16; fp32 sums; each output rounded once to bf16.
+//
+// What bounds it on an H100: tensor-core work, 2 M N K operations (gate/up
+// at M = 8,192: 0.97 ms), as K1.
+//
+// Design: K1's machinery with the roles of W's two axes swapped.
+//   - A = W^T, decoded from the packed bytes into registers. A tile's 64
+//     output rows a warpgroup are 64 packed byte columns j0..j0 + 63: the
+//     high-nibble warpgroup's are dx columns j0.., the low one's K/2 +
+//     j0..; the reduction runs over W's rows n. So one byte stream feeds
+//     both warpgroups, each decoding its own nibble. A thread's two A rows
+//     are taken as neighbouring bytes (A row 16 w + l / 4 holds byte 16 w +
+//     2 (l / 4), row 16 w + l / 4 + 8 the next byte), so that one 16-bit
+//     load gives both; the epilogue stores them as one bf16 pair.
+//   - B = g, K-major, from the ring: a [BX][64] bf16 box of g's rows (128-
+//     byte swizzle), the two halves multicast across the cluster as K1's x
+//     boxes. Each decoded weight serves BX (256) rows of g.
+//   - A stage is 64 W rows: g [BX][64], the packed bytes [64][64] u8 by
+//     TMA (64-byte swizzle: the 16-byte chunk h of row n sits at h ^ ((n
+//     >> 1) & 3)), and the absmax the stage needs, read from the transposed
+//     absmax [K/64, N] (one 256-byte row a block, any K) by TMA: the high
+//     side's block j0 / 64 and the low side's (K/2 + j0) / 64 and (K/2 + j0
+//     + 32) / 64. The absmax varies along the reduction, per (n, block), so
+//     each thread scales each weight it decodes.
+//   - Persistent, clusters of two: a unit is BX rows of g against the byte
+//     tiles 2 p and 2 p + 1 (one per CTA), numbered with the tile pairs
+//     fastest; 4 stages; A double-buffered; the epilogue writes bf16 pairs
+//     into a [BX][64] 128-byte-swizzled staging tile and stores it by TMA
+//     through one of two maps, dx[:, :K/2] (high side) and dx[:, K/2:]
+//     (low side), each K/2 wide with dx's row stride.
+// The traps of the split-half layout where K/2 % 64 == 32 (gpt-oss's K =
+// 2,880): the last byte tile crosses K/2, its bytes past K/2 arrive as
+// zeros, which decode to NF4 code 0 = -1.0 x absmax. Its columns past K/2
+// decode with absmax 0 (a zero row in shared memory), and the high side's
+// map ends at K/2, so none of them reaches the low side's real columns
+// K/2..K/2 + 31. The low side's tile straddles two absmax blocks there
+// (columns 0-31 and 32-63): warps 0-1 read the first, warps 2-3 the
+// second. N must be a multiple of 64 (the wrapper checks), so no stage has
+// rows past N.
+// ---------------------------------------------------------------------------
+
+constexpr int kDxCols = 64;    // packed byte columns of a tile (64 output columns a side)
+constexpr int kDxRows = 64;    // W rows (the reduction) a stage
+constexpr int kDxStages = 4;
+
+template <int BX>
+struct DxCfg {
+  static constexpr int kGBytes = BX * kDxRows * 2;     // g box, [BX][64] bf16
+  static constexpr int kGHalf = kGBytes / 2;           // the rows one CTA loads
+  static constexpr int kWBytes = kDxRows * kDxCols;    // packed bytes, [64][64] u8
+  static constexpr int kStageBytes = kGBytes + kWBytes;
+  static constexpr int kScaleBytes = 3 * kDxRows * 4;  // absmax: high, low a, low b
+  static constexpr int kOutBytes = BX * 128;           // a warpgroup's [BX][64] bf16 result
+  static constexpr int kOffOut = kDxStages * kStageBytes;
+  static constexpr int kOffScale = kOffOut + 2 * kOutBytes;
+  static constexpr int kOffZero = kOffScale + kDxStages * kScaleBytes;
+  static constexpr int kOffBar = kOffZero + kDxRows * 4;
+  static constexpr int kSmem = kOffBar + 2 * kDxStages * 8 + 1024;  // + alignment
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1,024-byte aligned");
+};
+
+// A thread's A fragments of one K2 stage: a[4 k + 2 h + i] is k step k (W
+// rows 16 k..), {rows r (i = 0), r + 8 (i = 1)} x {W rows 2c, 2c + 1 (h =
+// 0); 2c + 8, 2c + 9 (h = 1)} of wgmma's A layout, A rows r and r + 8 being
+// the bytes at `off` and `off` + 1 of a row (`off` holds the swizzled chunk
+// of this warp's 16 bytes). `w` is the stage's [64][64] packed bytes, `s`
+// the absmax of its 64 rows for this thread's columns, `sh` the nibble (4:
+// high, 0: low).
+__device__ __forceinline__ void decode_dx_stage(const unsigned char* w, const float* s, int off,
+                                                int sh, const float* code, uint32_t (&a)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 16 * k + 8 * h;  // + 2c, which `off` and `s` carry
+      const uint32_t va = *reinterpret_cast<const uint16_t*>(w + n * kDxCols + off);
+      const uint32_t vb = *reinterpret_cast<const uint16_t*>(w + (n + 1) * kDxCols + off);
+      const float2 sv = *reinterpret_cast<const float2*>(s + n);
+      a[4 * k + 2 * h] = pack_bf16(code[(va >> sh) & 15] * sv.x, code[(vb >> sh) & 15] * sv.y);
+      a[4 * k + 2 * h + 1] =
+          pack_bf16(code[(va >> (sh + 8)) & 15] * sv.x, code[(vb >> (sh + 8)) & 15] * sv.y);
+    }
+  }
+}
+
+template <int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    nf4_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tg,   // g [M, N], box 64 x BX / 2
+                        const __grid_constant__ CUtensorMap tw,   // packed [N, K/2] u8, box 64 x 64
+                        const __grid_constant__ CUtensorMap ts,   // absmax^T [K/64, N] f32, box 64 x 1
+                        const __grid_constant__ CUtensorMap thi,  // dx[:, :K/2], box 64 x BX
+                        const __grid_constant__ CUtensorMap tlo,  // dx[:, K/2:], box 64 x BX
+                        int* __restrict__ counts, int M, int N, int K) {
+  using C = DxCfg<BX>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float code[16];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* empty = full + kDxStages;
+  const int half = K / 2;
+  const int nst = N / kDxRows;
+  const int tiles_j = (half + kDxCols - 1) / kDxCols;
+  const int pairs_j = (tiles_j + 1) / 2;  // byte tile pairs
+  const int units = ((M + BX - 1) / BX) * pairs_j;
+  const int blocks = K / 64;
+  const int rank = static_cast<int>(cluster_rank());
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
+  if (threadIdx.x < kDxRows) reinterpret_cast<float*>(smem + C::kOffZero)[threadIdx.x] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 16);  // one arrival per consumer warp of both CTAs
+    }
+    fence_barrier_init();
+  }
+  cluster_sync();
+
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int u = cluster; u < units; u += clusters) {
+      // this CTA's half of the g rows and its byte tile, moved inside the
+      // tensors where they lie past them (the odd tile's partner: not stored)
+      const int gr = min((u / pairs_j) * BX + rank * (BX / 2), M - 1);
+      const int jc = min(2 * (u % pairs_j) + rank, tiles_j - 1);
+      const int j0 = jc * kDxCols;
+      const int bh = jc, bla = min((half + j0) / 64, blocks - 1),
+                blb = min((half + j0 + 32) / 64, blocks - 1);
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kDxStages;
+        if (it >= kDxStages) mbar_wait(&empty[s], ((it / kDxStages) - 1) & 1);
+        unsigned char* slot = smem + s * C::kStageBytes;
+        unsigned char* sl = smem + C::kOffScale + s * C::kScaleBytes;
+        mbar_expect_tx(&full[s], C::kStageBytes + C::kScaleBytes);
+        tma_load_2d_both(slot + rank * C::kGHalf, &tg, &full[s], st * kDxRows, gr);
+        tma_load_2d(slot + C::kGBytes, &tw, &full[s], j0, st * kDxRows);
+        tma_load_2d(sl, &ts, &full[s], st * kDxRows, bh);
+        tma_load_2d(sl + kDxRows * 4, &ts, &full[s], st * kDxRows, bla);
+        tma_load_2d(sl + 2 * kDxRows * 4, &ts, &full[s], st * kDxRows, blb);
+      }
+    }
+    for (int i = 0; i < kDxStages; ++i, ++it)
+      if (it >= kDxStages) mbar_wait(&empty[it % kDxStages], ((it / kDxStages) - 1) & 1);
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // 0: high side, 1: low
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int q = lane / 4, c = lane % 4;
+  const int sh = wg == 0 ? 4 : 0;
+  // this thread's byte pair 16 warp + 2q.. in row 2c of a k step's 16 rows
+  // (and 2c + 1, 2c + 8, 2c + 9): chunk warp ^ c by the 64-byte swizzle
+  const int off = 2 * c * kDxCols + ((warp ^ c) << 4) + 2 * q;
+  unsigned char* staged = smem + C::kOffOut + wg * C::kOutBytes;
+  const float* zero = reinterpret_cast<const float*>(smem + C::kOffZero);
+  int it = 0, n_tiles = 0, n_stages = 0;
+  for (int u = cluster; u < units; u += clusters) {
+    const int m0 = __shfl_sync(0xffffffffu, (u / pairs_j) * BX, 0);
+    const int j0 = __shfl_sync(0xffffffffu, (2 * (u % pairs_j) + rank) * kDxCols, 0);
+    // the absmax row of this warp's 16 columns: the high side's block, the
+    // low side's first or (from column 32, where K/2 % 64 == 32 it is the
+    // next) second; columns past K/2 take the zero row
+    const int srow = j0 + 16 * warp >= half ? -1 : wg == 0 ? 0 : (warp < 2 ? 1 : 2);
+    auto scales = [&](int s) {
+      return srow < 0 ? zero
+                      : reinterpret_cast<const float*>(smem + C::kOffScale + s * C::kScaleBytes) +
+                            srow * kDxRows + 2 * c;
+    };
+    float acc[BX / 2];
+    uint32_t fa[16], fb[16];  // the A fragments of two stages
+    mbar_wait(&full[it % kDxStages], (it / kDxStages) & 1);
+    decode_dx_stage(smem + (it % kDxStages) * C::kStageBytes + C::kGBytes, scales(it % kDxStages),
+                    off, sh, code, fa);
+    // One stage: its four products from `cur`, then, while they run, the
+    // next stage decoded into `nxt` once the products that read `nxt` are
+    // done.
+    auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
+      const int s = (it + st) % kDxStages;
+      const bool more = st + 1 < nst;
+      const uint32_t gs = smem_u32(smem + s * C::kStageBytes);
+      fence_u32(cur);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        Rs<BX>::mma(acc, cur[4 * k], cur[4 * k + 1], cur[4 * k + 2], cur[4 * k + 3],
+                    sw128_desc(gs + 32 * k, 16, 1024), st > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (st > 0) release(empty, (it + st - 1) % kDxStages, lane, rank);
+      if (more) {
+        const int sn = (it + st + 1) % kDxStages;
+        mbar_wait(&full[sn], ((it + st + 1) / kDxStages) & 1);
+        decode_dx_stage(smem + sn * C::kStageBytes + C::kGBytes, scales(sn), off, sh, code, nxt);
+      }
+    };
+    for (int st = 0; st < nst; st += 2) {
+      step(st, fa, fb);
+      if (st + 1 < nst) step(st + 1, fb, fa);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty, (it + nst - 1) % kDxStages, lane, rank);
+    it += nst;
+    if (j0 >= half) continue;  // the odd byte tile's partner: computed, not stored
+    ++n_tiles;
+    n_stages += nst;
+
+    // epilogue: once the previous tile's TMA store has read the staging
+    // tile, dx^T rounded to bf16 and written transposed into it: the
+    // accumulators of g row 8 jj + 2c + e for A rows r and r + 8 are dx
+    // columns 16 warp + 2q and + 1 of this side, one bf16 pair at 16-byte
+    // chunk 2 warp + q / 4 (swizzled by the row's index mod 8), word q % 4
+    if (t == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int jj = 0; jj < BX / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * jj + 2 * c + e;
+        *reinterpret_cast<uint32_t*>(staged + row * 128 +
+                                     (((2 * warp + (q >> 2)) ^ (row % 8)) << 4) + 4 * (q & 3)) =
+            pack_bf16(acc[4 * jj + e], acc[4 * jj + 2 + e]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (t == 0) {
+      if (wg == 0)
+        tma_store_2d(&thi, staged, j0, m0);
+      else
+        tma_store_2d(&tlo, staged, j0, m0);
+      bulk_commit();
+    }
+  }
+  if (t == 0) {
+    bulk_wait<0>();
+    if (counts != nullptr && wg == 0) {
+      atomicAdd(counts + kCntTiles, n_tiles);
+      atomicAdd(counts + kCntStages, n_stages);
+    }
+  }
+}
+
+// The map of a row-major 2-D tensor of `elem` bytes an element (bf16, u8 or
+// f32), dims and box innermost first, with `swizzle`, zeros past the edges;
+// rows `stride` bytes apart (0: packed, d0 * elem).
 int tile_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem, uint64_t d0,
-             uint64_t d1, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+             uint64_t d1, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle,
+             uint64_t stride = 0) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {d0, d1};
-  const cuuint64_t strides[1] = {d0 * elem};
+  const cuuint64_t strides[1] = {stride != 0 ? stride : d0 * elem};
   const cuuint32_t box[2] = {b0, b1};
   const cuuint32_t one[2] = {1, 1};
   const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, one,
@@ -435,30 +773,10 @@ int sm_count() {
   return n;
 }
 
-template <int BX>
-int launch(const void* x, const void* packed, const void* absmax, void* y, void* counts, int M,
-           int N, int K, cudaStream_t stream) {
-  using C = Cfg<BX>;
-  CUtensorMap tx, tw, ty;
-  const bool tma_store = N % 8 == 0;  // y's rows 16-byte multiples
-  int e = tile_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, kStep, BX / 2,
-                   CU_TENSOR_MAP_SWIZZLE_64B);
-  if (e == 0)
-    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N, kStep, kBw,
-                 CU_TENSOR_MAP_SWIZZLE_32B);
-  if (e == 0 && tma_store)
-    e = tile_map(&ty, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, 64, BX,
-                 CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e != 0) return e;
-  if (!tma_store) ty = tx;  // unused
-  auto kernel = nf4_wgmma_kernel<BX>;
-  static bool configured = false;
-  if (!configured) {
-    e = static_cast<int>(
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
-    if (e != 0) return e;
-    configured = true;
-  }
+// A persistent launch in clusters of two: as many clusters as are resident
+// at once, at most one a unit.
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, int smem, long units, cudaStream_t stream, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 2;
@@ -466,12 +784,10 @@ int launch(const void* x, const void* packed, const void* absmax, void* y, void*
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // as many clusters as are resident at once, at most one a unit
-  const long units = (long)((M + BX - 1) / BX) * (((N + kBw - 1) / kBw + 1) / 2);
   int resident = sm_count() / 2;
   cfg.gridDim = dim3(2 * resident);
   int fits = 0;
@@ -479,12 +795,76 @@ int launch(const void* x, const void* packed, const void* absmax, void* y, void*
     resident = fits;
   const long clusters = units < resident ? units : resident;
   cfg.gridDim = dim3(2 * (unsigned)clusters);
-  e = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, tx, tw, ty,
-                                          static_cast<const float*>(absmax),
-                                          static_cast<bf16*>(y), static_cast<int*>(counts), M, N,
-                                          K, tma_store ? 1 : 0));
+  const int e = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
   if (e != 0) return e;
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 (kFp8 false: `w` the packed NF4 bytes [N, K/2], `scales` the absmax
+// [N * K/64]) or K12 (`w` e4m3 [N, K], `scales` [ceil(N/B), ceil(K/B)]).
+template <int BX, bool kFp8>
+int launch(const void* x, const void* w, const void* scales, void* y, void* counts, int M,
+           int N, int K, int block, cudaStream_t stream) {
+  using C = Cfg<BX, kFp8>;
+  CUtensorMap tx, tw, ty;
+  const bool tma_store = N % 8 == 0;  // y's rows 16-byte multiples
+  int e = tile_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, kStep, BX / 2,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = tile_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kFp8 ? K : K / 2, N, kStep, kBw,
+                 CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == 0 && tma_store)
+    e = tile_map(&ty, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, 64, BX,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  if (!tma_store) ty = tx;  // unused
+  auto kernel = nf4_wgmma_kernel<BX, kFp8>;
+  static bool configured = false;
+  if (!configured) {
+    e = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+    if (e != 0) return e;
+    configured = true;
+  }
+  const long units = (long)((M + BX - 1) / BX) * (((N + kBw - 1) / kBw + 1) / 2);
+  const int flags = (tma_store ? 1 : 0) | (kFp8 ? block << 1 : 0);
+  return launch_clusters(kernel, C::kSmem, units, stream, tx, tw, ty,
+                         static_cast<const float*>(scales), static_cast<bf16*>(y),
+                         static_cast<int*>(counts), M, N, K, flags);
+}
+
+template <int BX>
+int launch_dx(const void* g, const void* packed, const void* absmax_t, void* dx, void* counts,
+              int M, int N, int K, cudaStream_t stream) {
+  using C = DxCfg<BX>;
+  const int half = K / 2;
+  CUtensorMap tg, tw, ts, thi, tlo;
+  int e = tile_map(&tg, g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, kDxRows, BX / 2,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == 0)
+    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, N, kDxCols, kDxRows,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = tile_map(&ts, absmax_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K / 64, kDxRows, 1,
+                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == 0)
+    e = tile_map(&thi, dx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half, M, 64, BX,
+                 CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  if (e == 0)
+    e = tile_map(&tlo, static_cast<bf16*>(dx) + half, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half,
+                 M, 64, BX, CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  if (e != 0) return e;
+  auto kernel = nf4_dx_wgmma_kernel<BX>;
+  static bool configured = false;
+  if (!configured) {
+    e = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem));
+    if (e != 0) return e;
+    configured = true;
+  }
+  const long units = (long)((M + BX - 1) / BX) * (((half + kDxCols - 1) / kDxCols + 1) / 2);
+  return launch_clusters(kernel, C::kSmem, units, stream, tg, tw, ts, thi, tlo,
+                         static_cast<int*>(counts), M, N, K);
 }
 
 }  // namespace
@@ -499,6 +879,31 @@ int launch(const void* x, const void* packed, const void* absmax, void* y, void*
 // rest 256-row tiles. Returns the launch's CUDA error code.
 int unsloth_nf4_wgmma_launch(const void* x, const void* packed, const void* absmax, void* y,
                              void* counts, int M, int N, int K, cudaStream_t stream) {
-  if (M <= 128) return nf4w::launch<128>(x, packed, absmax, y, counts, M, N, K, stream);
-  return nf4w::launch<256>(x, packed, absmax, y, counts, M, N, K, stream);
+  if (M <= 128)
+    return nf4w::launch<128, false>(x, packed, absmax, y, counts, M, N, K, 64, stream);
+  return nf4w::launch<256, false>(x, packed, absmax, y, counts, M, N, K, 64, stream);
+}
+
+// y = x @ dequant(W)^T for the FP8 forward (fp8_matmul.cu's entry point
+// calls it where its shape rule holds: M > 16, B % 32 == 0, K % 16 == 0,
+// x and w 16-byte aligned). x [M, K] bf16, w e4m3 [N, K], scales fp32
+// [ceil(N/B), ceil(K/B)], y [M, N] bf16; `counts` as above.
+int unsloth_fp8_wgmma_launch(const void* x, const void* w, const void* scales, void* y,
+                             void* counts, int M, int N, int K, int block, cudaStream_t stream) {
+  if (M <= 128)
+    return nf4w::launch<128, true>(x, w, scales, y, counts, M, N, K, block, stream);
+  return nf4w::launch<256, true>(x, w, scales, y, counts, M, N, K, block, stream);
+}
+
+// dx = g @ dequant(W) on `stream` (nf4_matmul.cu's entry point calls it).
+// g [M, N] bf16, packed [N, K/2] u8, absmax_t the absmax transposed, fp32
+// [K/64, N], dx [M, K] bf16; N a multiple of 64, K/2 of 32, every pointer
+// 16-byte aligned. `counts`, when not null, is an int32 [2] to which the
+// kernel adds the output tiles (a CTA's pair of 64-column sides) it stored
+// and the stages it consumed. 128-row tiles of g up to 128 rows, else 256.
+int unsloth_nf4_dx_wgmma_launch(const void* g, const void* packed, const void* absmax_t,
+                                void* dx, void* counts, int M, int N, int K,
+                                cudaStream_t stream) {
+  if (M <= 128) return nf4w::launch_dx<128>(g, packed, absmax_t, dx, counts, M, N, K, stream);
+  return nf4w::launch_dx<256>(g, packed, absmax_t, dx, counts, M, N, K, stream);
 }

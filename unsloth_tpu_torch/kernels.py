@@ -126,7 +126,9 @@ def library() -> ctypes.CDLL:
         lib.unsloth_rms_norm.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                          i, p]
         lib.unsloth_rms_norm.restype = i
-        lib.unsloth_nf4_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, p]
+        # g, packed, the absmax transposed, dx, M, N, K, the tile counters
+        # (or null), stream
+        lib.unsloth_nf4_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.unsloth_nf4_matmul_dx_bf16.restype = i
         lib.unsloth_rms_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
                                              ctypes.c_float, i, i, i, p]
@@ -206,8 +208,9 @@ def library() -> ctypes.CDLL:
         lib.unsloth_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                                i, f, i, i, p]
         lib.unsloth_layer_norm_bwd.restype = i
-        # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, stream
-        lib.unsloth_fp8_matmul_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, (the forward:
+        # the Hopper kernel's tile counters or null,) stream
+        lib.unsloth_fp8_matmul_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_fp8_matmul_bf16.restype = i
         lib.unsloth_fp8_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.unsloth_fp8_matmul_dx_bf16.restype = i

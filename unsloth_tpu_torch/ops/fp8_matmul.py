@@ -2,11 +2,15 @@
 forward and backward.
 
 Counterpart of unsloth_tpu/ops/fp8_matmul.py:fp8_matmul. On a CUDA tensor
-the forward launches the hand-written kernel K12 in ``csrc/fp8_matmul.cu``
-(TPU ``_fwd_kernel``): the e4m3 weight streams from device memory at one
-byte a parameter and is scaled and rounded to bf16 in shared memory right
-before the tensor cores use it, so the dense weight never exists in device
-memory. The backward, dx = g @ W, is K13 in the same file (TPU
+the forward launches the hand-written kernel K12 (TPU ``_fwd_kernel``):
+above 16 rows, where :func:`fp8_wgmma_form` holds, ``csrc/nf4_wgmma.cu``'s
+persistent Hopper kernel in its e4m3 form (K1's kernel: the e4m3 bytes
+decoded and scaled straight into the tensor cores' A operand, y^T = W
+x^T), else ``csrc/fp8_matmul.cu``'s tiles, which decode into shared
+memory; the e4m3 weight streams from device memory at one byte a
+parameter, so the dense weight never exists there.
+:func:`fp8_matmul_tiles_ref` is the plain twin of the Hopper form's walk.
+The backward, dx = g @ W, is K13 in ``csrc/fp8_matmul.cu`` (TPU
 ``_bwd_kernel``); W is frozen, so the gradient goes to x only. On a CPU
 tensor both run their plain versions, :func:`~.fp8.fp8_matmul_ref` and
 :func:`fp8_matmul_dx_ref`. The device of the tensor is the only thing that
@@ -17,10 +21,14 @@ kernel to its plain version.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import kernels
 from .fp8 import FP8_DTYPE, FP8Tensor, dequantize_fp8, fp8_matmul_ref
+from .qlora_matmul import (DECODE_ROWS, H100_SMS, STAGE_BYTES, TILE_W,
+                           nf4_tile_schedule, tile_rows_x)
 
 _MAX_ROW_TILES = 65535   # the kernels' grid.y: ceil(M / 64) row tiles
 
@@ -62,9 +70,76 @@ def _check_cuda(name: str, t: torch.Tensor, q: FP8Tensor, inner: int,
                          f"{q.values.device}")
 
 
-def _launch(fn, name: str, a: torch.Tensor, q: FP8Tensor, cols: int
-            ) -> torch.Tensor:
-    """Run ``fn`` (a C entry point) on a's rows; returns [..., cols]."""
+def fp8_wgmma_form(m: int, k: int, block: int, *ptrs: int) -> bool:
+    """Whether K12 runs the Hopper kernel (csrc/fp8_matmul.cu's
+    ``fp8_wgmma_form`` mirrors it): more than 16 rows, the scale block a
+    multiple of the 32-byte stage (a stage then lies in one scale column,
+    a warp's 16 W rows in one scale row), ``in`` a multiple of 16 (the TMA
+    maps' row strides) and the pointers (x, W, y) 16-byte aligned. Other
+    shapes run ``fp8_matmul_kernel<64, false>``, decode rows ``<16,
+    false>``."""
+    return (m > DECODE_ROWS and block % STAGE_BYTES == 0 and k % 16 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+#: the Hopper form's persistent schedule at y [m, n]: K1's, whose kernel
+#: it runs
+fp8_tile_schedule = nf4_tile_schedule
+
+
+def fp8_matmul_tiles_ref(x: torch.Tensor, q: FP8Tensor, *,
+                         scale_shift: int = 0, sms: int = H100_SMS):
+    """y = x @ dequant(W)^T rebuilt from the Hopper form's walk, in plain
+    PyTorch: (y in x.dtype, visits [tiles of x rows, tiles of W rows], the
+    times the schedule stores each output tile).
+
+    As the kernel: x and W come in tiles padded with zeros past M, N and K
+    (TMA's fill; an e4m3 zero byte is 0); stage st reads bytes [32 st, 32
+    st + 32) of the tile's 128 W rows against x columns [32 st, ..); each
+    warp's 16 W rows read one scale row, (their first row) / B, past the
+    grid's last row its last, and each stage one scale column, 32 st / B
+    (``scale_shift`` reads the one that many columns further, the
+    neighbour's); each weight is fp32(e4m3) * scale, rounded to x.dtype;
+    the sums are fp32 (in another order than the tensor cores'), each
+    output rounded once."""
+    m, k = x.shape
+    n = q.shape[0]
+    if q.block % STAGE_BYTES:
+        raise ValueError(f"block {q.block} is not a multiple of the "
+                         f"{STAGE_BYTES}-byte stage")
+    bx = tile_rows_x(m)
+    schedule = fp8_tile_schedule(m, n, sms)
+    mp, np_ = -(-m // bx) * bx, -(-n // TILE_W) * TILE_W
+    nst = -(-k // STAGE_BYTES)
+    kp = nst * STAGE_BYTES
+    xp = torch.zeros((mp, kp), dtype=torch.float32)
+    xp[:m, :k] = x.float()
+    wv = torch.zeros((np_, kp), dtype=torch.float32)
+    wv[:n, :k] = q.values.float()
+    rows = (torch.arange(np_) // 16 * 16 // q.block).clamp(
+        max=q.scales.shape[0] - 1)
+    cols = (torch.arange(nst) * STAGE_BYTES // q.block + scale_shift
+            ).clamp(max=q.scales.shape[1] - 1)
+    sc = q.scales.float()[rows][:, cols].repeat_interleave(STAGE_BYTES, 1)
+    w = (wv * sc).to(x.dtype).float()
+    acc = torch.zeros((mp, np_), dtype=torch.float32)
+    for st in range(nst):
+        c = slice(st * STAGE_BYTES, (st + 1) * STAGE_BYTES)
+        acc += xp[:, c] @ w[:, c].t()
+    y = torch.empty((m, n), dtype=x.dtype)
+    visits = torch.zeros((mp // bx, np_ // TILE_W), dtype=torch.int64)
+    for tiles in schedule:
+        for m0, n0 in tiles:
+            visits[m0 // bx, n0 // TILE_W] += 1
+            y[m0:m0 + bx, n0:n0 + TILE_W] = \
+                acc[m0:min(m0 + bx, m), n0:min(n0 + TILE_W, n)].to(x.dtype)
+    return y, visits
+
+
+def _launch(fn, name: str, a: torch.Tensor, q: FP8Tensor, cols: int,
+            *extra) -> torch.Tensor:
+    """Run ``fn`` (a C entry point) on a's rows, ``extra`` arguments (the
+    forward's tile counters) before the stream; returns [..., cols]."""
     lead = a.shape[:-1]
     a2d = a.reshape(-1, a.shape[-1]).contiguous()
     m = a2d.shape[0]
@@ -77,20 +152,26 @@ def _launch(fn, name: str, a: torch.Tensor, q: FP8Tensor, cols: int
     out_f, in_f = q.shape
     values, scales = q.values.contiguous(), q.scales.contiguous()
     rc = fn(a2d.data_ptr(), values.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), m, out_f, in_f, q.block,
+            out.data_ptr(), m, out_f, in_f, q.block, *extra,
             torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(rc, name)
     return out.reshape(*lead, cols)
 
 
-def fp8_matmul_fwd(x: torch.Tensor, q: FP8Tensor) -> torch.Tensor:
+def fp8_matmul_fwd(x: torch.Tensor, q: FP8Tensor,
+                   tile_counts: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """y = x @ dequant(W)^T without autograd: K12 on a CUDA tensor, the
-    plain :func:`~.fp8.fp8_matmul_ref` on a CPU one."""
+    plain :func:`~.fp8.fp8_matmul_ref` on a CPU one. ``tile_counts`` (CUDA
+    only: an int32 [2] on x's device, or None) receives what the Hopper
+    form adds to it, the output tiles it stored and the stages it consumed
+    (nothing where :func:`fp8_wgmma_form` does not hold)."""
     if x.device.type == "cpu":
         return fp8_matmul_ref(x, q)
     _check_cuda("fp8_matmul", x, q, q.shape[1], "in")
     y = _launch(kernels.library().unsloth_fp8_matmul_bf16, "fp8_matmul", x,
-                q, q.shape[0])
+                q, q.shape[0],
+                None if tile_counts is None else tile_counts.data_ptr())
     fp8_matmul_fwd.launches += 1
     return y
 

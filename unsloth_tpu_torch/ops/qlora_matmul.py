@@ -10,8 +10,11 @@ product is computed transposed, y^T = W x^T), at 16 rows or fewer
 weight streams from device memory and the dense weight never exists
 there. :func:`nf4_matmul_tiles_ref` is the plain twin of the Hopper
 kernel's walk (tiles, stages, bytes, scales, x columns, masks). The
-backward, dx = g @ W, is a second kernel in ``csrc/nf4_matmul.cu`` (TPU
-``_bwd_kernel``); W is frozen, so the gradient goes to x only. On a CPU
+backward, dx = g @ W (TPU ``_bwd_kernel``), is ``csrc/nf4_wgmma.cu``'s
+second Hopper kernel at every row count, computed transposed (dx^T = W^T
+g^T: the bytes decoded into the A operand, g the B operand);
+:func:`nf4_matmul_dx_tiles_ref` and :func:`nf4_dx_tile_schedule` are its
+walk's twins. W is frozen, so the gradient goes to x only. On a CPU
 tensor both run their plain versions, :func:`nf4_matmul_ref` and
 :func:`nf4_matmul_dx_ref`. The device of the tensor is the only thing
 that chooses; there is no fallback from a kernel to its plain version.
@@ -128,14 +131,21 @@ def nf4_tile_schedule(m: int, n: int, sms: int = H100_SMS
     c, c + clusters, ..., its block of rank r the W tile 2 p + r (where
     the W tiles are odd in number, the last unit's second tile lies past
     N: that block computes it and stores nothing)."""
+    return _pair_schedule(m, -(-n // TILE_W), TILE_W, sms)
+
+
+def _pair_schedule(m: int, tiles: int, width: int, sms: int
+                   ) -> List[List[Tuple[int, int]]]:
+    """The Hopper NF4 kernels' schedule over ``tiles`` column tiles of
+    ``width`` against tiles of m rows (:func:`tile_rows_x`), tile pairs
+    fastest (see :func:`nf4_tile_schedule`)."""
     bx = tile_rows_x(m)
-    tiles_n = -(-n // TILE_W)
-    pairs = -(-tiles_n // 2)
+    pairs = -(-tiles // 2)
     units = -(-m // bx) * pairs
     clusters = min(units, max(1, sms // 2))
-    return [[((u // pairs) * bx, (2 * (u % pairs) + r) * TILE_W)
+    return [[((u // pairs) * bx, (2 * (u % pairs) + r) * width)
              for u in range(c, units, clusters)
-             if 2 * (u % pairs) + r < tiles_n]
+             if 2 * (u % pairs) + r < tiles]
             for c in range(clusters) for r in (0, 1)]
 
 
@@ -201,25 +211,124 @@ def nf4_matmul_tiles_ref(x: torch.Tensor, q: NF4Tensor, *,
     return y, visits
 
 
+#: the backward kernel's tiles (csrc/nf4_wgmma.cu, nf4_dx_wgmma_kernel):
+#: packed byte columns a tile (64 output columns on each nibble side) and
+#: W rows a stage
+DX_TILE_BYTES = 64
+DX_STAGE_ROWS = 64
+
+
+def nf4_dx_tile_schedule(m: int, k: int, sms: int = H100_SMS
+                         ) -> List[List[Tuple[int, int]]]:
+    """The backward kernel's persistent schedule at dx [m, k]: for each
+    block of its grid, the (first row of g, first packed byte column j0) of
+    the tiles it stores, in order; a tile is dx[rows, j0..j0 + 63] (the
+    high-nibble side) and dx[rows, k/2 + j0..] (the low side). As the
+    forward's schedule with byte tiles for W tiles: clusters of two, as
+    many as ``sms`` holds (at most one a unit); unit u is the g tile u // P
+    against the byte tiles 2 p and 2 p + 1, p = u % P; cluster c takes
+    units c, c + clusters, ..., its block of rank r the byte tile 2 p + r
+    (past K/2, where the byte tiles are odd in number: computed, not
+    stored)."""
+    return _pair_schedule(m, -(-(k // 2) // DX_TILE_BYTES), DX_TILE_BYTES,
+                          sms)
+
+
+def nf4_matmul_dx_tiles_ref(g: torch.Tensor, q: NF4Tensor, *,
+                            clip: bool = True, split_low: bool = True,
+                            sms: int = H100_SMS):
+    """dx = g @ dequant(W) rebuilt from the backward kernel's walk, in plain
+    PyTorch: (dx in g.dtype, visits [tiles of g rows, byte tiles], the
+    times the schedule stores each output tile).
+
+    As the kernel: g comes in tiles padded with zeros past M; a tile is 64
+    packed byte columns j0.. (zeros past K/2, TMA's fill) read for stages
+    of 64 W rows; its high nibbles are dx columns j0.., its low nibbles
+    K/2 + j0..; each weight is code * absmax in fp32, rounded to g.dtype;
+    the sums are fp32 (in another order than the tensor cores'), each
+    output rounded once. The absmax of a stage's rows: the high side's
+    block j0 / 64; the low side's (K/2 + j0) / 64 for the tile's columns
+    0-31 and (K/2 + j0 + 32) / 64 for 32-63 (``split_low``; where K/2 %
+    64 == 32 the low tile straddles two blocks); columns past K/2 take
+    absmax 0 and the high side's store ends at K/2 (``clip``). A walk
+    without the clip decodes the zero bytes past K/2 to -absmax and stores
+    the high side's columns past K/2 over dx's real low-side columns K/2..
+    (after the low side's, as a high-side map as wide as dx would); one
+    without ``split_low`` reads the low tile's columns 32-63 with the
+    absmax of the block before theirs."""
+    m, n = g.shape
+    k = q.shape[1]
+    half = k // 2
+    if n % DX_STAGE_ROWS:
+        raise ValueError(f"out = {n} is not a multiple of {DX_STAGE_ROWS}")
+    bx = tile_rows_x(m)
+    schedule = nf4_dx_tile_schedule(m, k, sms)
+    tiles_j = -(-half // DX_TILE_BYTES)
+    mp, jp = -(-m // bx) * bx, tiles_j * DX_TILE_BYTES
+    gp = torch.zeros((mp, n), dtype=torch.float32)
+    gp[:m] = g.float()
+    pk = torch.zeros((n, jp), dtype=torch.int64)
+    pk[:, :half] = q.packed.to(torch.int64)
+    blocks = k // 64
+    am = _decode_absmax(q).float().reshape(n, blocks)
+    j = torch.arange(jp)
+    j0 = j - j % DX_TILE_BYTES
+    blk_hi = j0 // 64
+    lo_col = j0 + (32 * ((j % DX_TILE_BYTES) >= 32) if split_low else 0)
+    blk_lo = ((half + lo_col) // 64).clamp(max=blocks - 1)
+    dead = (j0 + 16 * ((j % DX_TILE_BYTES) // 16)) >= half
+    s_hi, s_lo = am[:, blk_hi], am[:, blk_lo]
+    if clip:
+        s_hi[:, dead] = 0.0
+        s_lo[:, dead] = 0.0
+    code = NF4_CODE.float()
+    w_hi = (code[pk >> 4] * s_hi).to(g.dtype).float()
+    w_lo = (code[pk & 15] * s_lo).to(g.dtype).float()
+    acc_hi = torch.zeros((mp, jp), dtype=torch.float32)
+    acc_lo = torch.zeros((mp, jp), dtype=torch.float32)
+    for st in range(n // DX_STAGE_ROWS):
+        rows = slice(st * DX_STAGE_ROWS, (st + 1) * DX_STAGE_ROWS)
+        acc_hi += gp[:, rows] @ w_hi[rows]
+        acc_lo += gp[:, rows] @ w_lo[rows]
+    dx = torch.empty((m, k), dtype=g.dtype)
+    visits = torch.zeros((mp // bx, tiles_j), dtype=torch.int64)
+    stores = [t for tiles in schedule for t in tiles]
+    for m0, c0 in stores:
+        visits[m0 // bx, c0 // DX_TILE_BYTES] += 1
+        r1 = min(m0 + bx, m)
+        c1 = min(c0 + DX_TILE_BYTES, half)
+        dx[m0:r1, half + c0:half + c1] = acc_lo[m0:r1, c0:c1].to(g.dtype)
+    for m0, c0 in stores:
+        r1 = min(m0 + bx, m)
+        c1 = min(c0 + DX_TILE_BYTES, half if clip else k)
+        dx[m0:r1, c0:c1] = acc_hi[m0:r1, c0:c1].to(g.dtype)
+    return dx, visits
+
+
 def nf4_matmul_dx_ref(g: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     """Plain dx = g @ dequant(W): W dequantized to g.dtype, one matmul whose
     output is in g.dtype (the TPU kernel's rounding points)."""
     return torch.matmul(g, dequantize_nf4(q, dtype=g.dtype))
 
 
-def nf4_matmul_dx(g: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
+def nf4_matmul_dx(g: torch.Tensor, q: NF4Tensor,
+                  tile_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx = g @ dequant(W); g [..., out], W [out, in] NF4; dx [..., in] in
     g.dtype. The backward of :func:`nf4_matmul` with respect to x.
 
-    CUDA: bf16 g only, ``out`` a multiple of 64 (the kernel's reduction
-    step), ``in/2`` a multiple of 32 and ``block_size`` 64."""
+    CUDA: bf16 g only, ``out`` a multiple of 64 (the kernel's stage of W
+    rows), ``in/2`` a multiple of 32 and ``block_size`` 64.
+    ``tile_counts`` (CUDA only: an int32 [2] on g's device, or None)
+    receives what the kernel adds to it, the output tiles it stored (a
+    byte tile's two 64-column sides) and the stages it consumed."""
     if g.device.type == "cpu":
         return nf4_matmul_dx_ref(g, q)
     _check_cuda("nf4_matmul_dx", g, q, q.shape[0], "out")
     out_f, in_f = q.shape
-    if out_f % 64:
+    if out_f % DX_STAGE_ROWS:
         raise NotImplementedError(
-            f"nf4_matmul_dx CUDA kernel needs out % 64 == 0, got {out_f}")
+            f"nf4_matmul_dx CUDA kernel needs out % {DX_STAGE_ROWS} == 0, "
+            f"got {out_f}")
     lead = g.shape[:-1]
     g2d = g.reshape(-1, out_f).contiguous()
     m = g2d.shape[0]
@@ -232,10 +341,13 @@ def nf4_matmul_dx(g: torch.Tensor, q: NF4Tensor) -> torch.Tensor:
     if packed.data_ptr() % _ALIGN:
         raise ValueError(f"nf4_matmul_dx: packed weight is not {_ALIGN}-byte "
                          "aligned")
-    absmax = _decode_absmax(q).contiguous()
+    # [in/64, out]: the kernel reads a stage's absmax as one row a block
+    absmax_t = _decode_absmax(q).reshape(out_f, in_f // 64).t().contiguous()
     rc = kernels.library().unsloth_nf4_matmul_dx_bf16(
-        g2d.data_ptr(), packed.data_ptr(), absmax.data_ptr(), dx.data_ptr(),
-        m, out_f, in_f, torch.cuda.current_stream(g.device).cuda_stream)
+        g2d.data_ptr(), packed.data_ptr(), absmax_t.data_ptr(), dx.data_ptr(),
+        m, out_f, in_f,
+        None if tile_counts is None else tile_counts.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream)
     kernels.check(rc, "nf4_matmul_dx")
     nf4_matmul_dx.launches += 1
     return dx.reshape(*lead, in_f)

@@ -1250,9 +1250,10 @@ def attention_build_report(build_log):
     the Hopper attention kernels (K16's ``flash_fwd_kernel<D, false,
     false>`` and ``flash_{dq,dkv}_kernel<D, false>``, K18's ``<D, true,
     false>`` and ``<D, true>``, K17's forward ``<D, false, true>``), of
-    K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``) and of
-    K2's (``nf4_dx_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the
-    C75xx lines, ptxas serializing their wgmma, that name one])."""
+    K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``), of K2's
+    and K13's (``nf4_dx_wgmma_kernel<BX, kFp8>``) and of K14's
+    (``nf4_gmm_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the C75xx
+    lines, ptxas serializing their wgmma, that name one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1271,9 +1272,14 @@ def attention_build_report(build_log):
             if n:
                 name = (f"nf4_wgmma_kernel<{n.group(1)}, "
                         f"{'K12' if n.group(2) == '1' else 'K1'}>")
-            n = re.search(r"nf4_dx_wgmma_kernelILi(\d+)E", m.group(1))
+            n = re.search(r"nf4_dx_wgmma_kernelILi(\d+)E(?:Lb(\d)E)?",
+                          m.group(1))
             if n:
-                name = f"nf4_dx_wgmma_kernel<{n.group(1)}, K2>"
+                name = (f"nf4_dx_wgmma_kernel<{n.group(1)}, "
+                        f"{'K13' if n.group(2) == '1' else 'K2'}>")
+            n = re.search(r"nf4_gmm_wgmma_kernelILi(\d+)E", m.group(1))
+            if n:
+                name = f"nf4_gmm_wgmma_kernel<{n.group(1)}, K14>"
             spill = 0
             continue
         if name is None:
@@ -1288,21 +1294,22 @@ def attention_build_report(build_log):
     serialized = [line.strip() for line in lines
                   if re.search(r"C75\d\d", line)
                   and re.search(r"flash_(fwd|dq|dkv)_kernel|"
-                                r"nf4_(?:dx_)?wgmma_kernel", line)]
+                                r"nf4_(?:dx_|gmm_)?wgmma_kernel", line)]
     return rows, serialized
 
 
 #: Hopper instantiations phase 2 holds to 0 spill and no serialized wgmma:
 #: K16's and K18's nine, K17's three forwards, and two tile heights each of
-#: K1, K12 (K1's kernel in its e4m3 form) and K2
-HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2
+#: K1, K12 (K1's kernel in its e4m3 form), K2, K13 (K2's kernel in its e4m3
+#: form) and K14 (K1's under the grouped schedule)
+HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2
 
 
 def phase_build(hold=True):
     """Build the kernels and print ptxas's registers and spills; the 21
     Hopper attention kernels (K16's and K18's nine, K17's three forwards)
-    and the Hopper dequant-matmul kernels (K1, K12 and K2, two tile heights
-    each) must report no spill and no serialized wgmma
+    and the Hopper dequant-matmul kernels (K1, K12, K2, K13 and K14, two
+    tile heights each) must report no spill and no serialized wgmma
     (:func:`attention_build_report`); with ``hold`` False (another
     checkout's build, profiled by ``--tree``) they are only reported."""
     from unsloth_tpu_torch import kernels
@@ -1327,8 +1334,9 @@ def phase_build(hold=True):
     if hold and (len(rows) != HOPPER_BUILD_ROWS
                  or any(b for _, _, b in rows) or serialized):
         raise RuntimeError(f"the Hopper attention kernels or the Hopper "
-                           f"K1 / K12 / K2 kernels spill or serialize their "
-                           f"wgmma (or are not all built): {rows}, "
+                           f"K1 / K12 / K2 / K13 / K14 kernels spill or "
+                           f"serialize their wgmma (or are not all built): "
+                           f"{rows}, "
                            f"{serialized}")
 
 
@@ -2837,13 +2845,53 @@ def _row_faults(want, faults):
     return {name: attn_row_err(got, want) for name, got in faults.items()}
 
 
+def nf4_gmm_faults(x, q, sizes, bias, ref):
+    """K14 as its Hopper walk's two faults would compute it (the twin's,
+    ``nf4_gmm_tiles_ref(past_end=..., low_with_high=...)``): the low side
+    read with the high side's absmax block (run through the kernel, fed
+    such an absmax), and the first tile that ends short of its row tile
+    storing its rows past its group's end too (over the next group's rows:
+    those rows through the previous group's weights and bias; none where
+    no tile ends short)."""
+    import dataclasses
+
+    import torch
+
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import dequantize_nf4_stacked
+    from unsloth_tpu_torch.ops.qlora_matmul import tile_rows_x
+
+    e, n, k = q.shape
+    m = x.shape[0]
+    am = q.absmax.reshape(e, n, k // q.block_size).clone()
+    hb = k // 2 // q.block_size
+    am[..., hb:] = am[..., :hb]
+    faults = {"low side with the high side's absmax": tng.nf4_gmm_fwd(
+        x, dataclasses.replace(q, absmax=am.reshape(q.absmax.shape)), sizes,
+        bias)}
+    bx = tile_rows_x(m)
+    short = [(g_, hi, min(row0 + bx, m))
+             for block in tng.nf4_gmm_tile_schedule(sizes.tolist(), m, n)
+             for g_, row0, hi, _ in block if min(row0 + bx, m) > hi]
+    if short:
+        g_, hi, stop = short[0]
+        w = dequantize_nf4_stacked(q, torch.float32)[g_]
+        bad = ref.clone()
+        bad[hi:stop] = (x[hi:stop].float() @ w.t()
+                        + bias[g_].float()).to(ref.dtype)
+        faults["stored past the group's end"] = bad
+    return faults
+
+
 def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     """K14 (with the bias epilogue) and K15 at one routing against
     nf4_gmm_ref, row by row (:func:`attn_row_err`: each output row on its
     own rms; the kernels round each weight to bf16, the plain version keeps
     fp32, both sum in fp32), and max|d| beside it. The check must reject
     the rows of one expert multiplied by the next expert's weights (in both
-    kernels) and the bias dropped (K14). Times: the kernels, the plain
+    kernels), the bias dropped (K14) and the two faults of K14's walk
+    (:func:`nf4_gmm_faults`). Above 16 rows K14's tile counters must equal
+    its schedule's (``nf4_gmm_tile_counts``). Times: the kernels, the plain
     versions, and the library yardstick, which dequantizes the whole stack
     to bf16 and runs ``torch._grouped_mm`` (where the card's torch has
     it; labelled: it is dequantize + a grouped product, not one call).
@@ -2853,16 +2901,27 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
 
     from unsloth_tpu_torch.ops import nf4_gmm as tng
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4_stacked
+    from unsloth_tpu_torch.ops.qlora_matmul import DECODE_ROWS
 
     e, n, k = q.shape
     m = x.shape[0]
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
-    y = tng.nf4_gmm(x, q, sizes, bias)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    y = tng.nf4_gmm_fwd(x, q, sizes, bias, tile_counts=counts)
     dx = tng.nf4_gmm_dx(gy, q, sizes)
     ref, ref_ms = once_ms(lambda: tng.nf4_gmm_ref(x, q, sizes, bias))
     rdx, rdx_ms = once_ms(
         lambda: tng.nf4_gmm_ref(gy, q, sizes, transpose=True))
     torch.cuda.synchronize()
+    got_c = counts.tolist()
+    want_c = tng.nf4_gmm_tile_counts(sizes.tolist(), m, n, k) \
+        if m > DECODE_ROWS else [0, 0, 0]
+    log(f"[kernels] nf4_gmm {label}: tiles, stages, masked tiles {got_c} "
+        f"(schedule {want_c})")
+    if got_c != want_c:
+        raise RuntimeError(f"nf4_gmm {label}: the kernel counted {got_c} "
+                           f"(tiles, stages, masked tiles), its schedule "
+                           f"{want_c}")
     errs = {}
     for name, got, want in (("nf4_gmm", y, ref), ("nf4_gmm_dx", dx, rdx)):
         if not bool(torch.isfinite(got).all()):
@@ -2885,7 +2944,8 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     del w1
     faults = {"nf4_gmm": _row_faults(ref, {
         "next expert's weights": wrong_y,
-        "bias dropped": tng.nf4_gmm_ref(x, q, sizes)}),
+        "bias dropped": tng.nf4_gmm_ref(x, q, sizes),
+        **nf4_gmm_faults(x, q, sizes, bias, ref)}),
         "nf4_gmm_dx": _row_faults(rdx, {"next expert's weights": wrong_dx})}
     lib = {"nf4_gmm": None, "nf4_gmm_dx": None}
     lib_err = {}
@@ -2926,9 +2986,11 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
              f"{n_live} experts with rows (largest {max(sz)})")
     del y, dx, ref, rdx, wrong_y, wrong_dx, gy
     torch.cuda.empty_cache()
-    return _grouped_rows("grouped NF4", shape, errs, faults, times,
-                         {"nf4_gmm": b_fwd, "nf4_gmm_dx": b_dx}, lib, lib_err,
-                         "dequantize + torch._grouped_mm")
+    res = _grouped_rows("grouped NF4", shape, errs, faults, times,
+                        {"nf4_gmm": b_fwd, "nf4_gmm_dx": b_dx}, lib, lib_err,
+                        "dequantize + torch._grouped_mm")
+    res["nf4_gmm"]["tile_counts"] = got_c
+    return res
 
 
 def _grouped_rows(what, shape, errs, faults, times, bounds, lib, lib_err,
@@ -6814,14 +6876,23 @@ def _device_report(prof, wall_us, top):
 
     families = {"K14/K15 nf4_gmm": ("nf4_gmm",), "K19 gmm": ("::gmm_kernel", "gmm_wgmma_kernel",
                                               "tgmm_kernel"),
-                # K12 is K1's Hopper kernel in its e4m3 form (<BX, true>)
+                # K12 is K1's Hopper kernel in its e4m3 form (<BX, true>),
+                # K13 K2's (<BX, true>); K14's Hopper kernel is
+                # nf4_gmm_wgmma_kernel<BX>, counted above
                 "K1 nf4_matmul": ("nf4_matmul_kernel",
                                   "nf4_wgmma_kernel<128, false>",
                                   "nf4_wgmma_kernel<256, false>"),
-                "K2 nf4_matmul_dx": ("nf4_dx_wgmma_kernel",),
+                # (a parent's K2, profiled by --tree, may carry no format
+                # value)
+                "K2 nf4_matmul_dx": ("nf4_dx_wgmma_kernel<128>",
+                                     "nf4_dx_wgmma_kernel<256>",
+                                     "nf4_dx_wgmma_kernel<128, false>",
+                                     "nf4_dx_wgmma_kernel<256, false>"),
                 "K12/K13 fp8_matmul": ("fp8_matmul_kernel",
                                        "nf4_wgmma_kernel<128, true>",
-                                       "nf4_wgmma_kernel<256, true>"),
+                                       "nf4_wgmma_kernel<256, true>",
+                                       "nf4_dx_wgmma_kernel<128, true>",
+                                       "nf4_dx_wgmma_kernel<256, true>"),
                 # K17's forward is K16's in its kSinks form; its dq and
                 # dk/dv are K16's kernels, told apart by the device spans
                 # of its profiler range (below)
@@ -7590,8 +7661,11 @@ def fp8_faults(q, dx):
     """FP8 weights as a wrong K12 (``dx`` False) or K13 would read ``q``:
     each block of the contraction (in-blocks for K12, out-blocks for K13)
     with its neighbour's scale, the scales ignored (all 1), the last block
-    of the contraction dropped, and for K13 the scale grid read as if it
-    were stored [in/B, out/B]."""
+    of the contraction dropped, and for K13 each block of its output
+    columns with its neighbour's scale (the two faults of K13's walk's twin,
+    ``fp8_matmul_dx_tiles_ref(scale_shift=...)``, are a neighbouring scale
+    row and column) and the scale grid read as if it were stored [in/B,
+    out/B]."""
     import dataclasses
 
     import torch
@@ -7601,6 +7675,9 @@ def fp8_faults(q, dx):
         q, scales=torch.roll(q.scales, 1, dims=axis)),
         "scales ignored": dataclasses.replace(
             q, scales=torch.ones_like(q.scales))}
+    if dx:
+        faults["neighbouring column block's scale"] = dataclasses.replace(
+            q, scales=torch.roll(q.scales, 1, dims=1))
     v = q.values.clone()
     last = (q.shape[axis] - 1) // q.block * q.block
     if dx:
@@ -7622,18 +7699,20 @@ def _fp8_kernels(dev, g, flush):
     K12 at gate/up and down at the decode rows FP8_DECODE_ROWS, and both at
     FP8_RAGGED (block 32). Weights from :func:`fp8_weight`, quantized at
     block 128. Tolerance: :func:`mm_ulps` <= MM_ULPS; each fault of
-    :func:`fp8_faults` must exceed it, run for K12 through the kernel
-    itself (its Hopper form where ``fp8_wgmma_form`` holds: the faulty
-    scales and bytes are what a kernel reading the wrong ones would see),
-    for K13 through the plain version. Where the Hopper form runs, its tile
-    counters (output tiles, stages) must equal K1's schedule
-    (``fp8_tile_schedule``). Times: the kernel's median, the plain version's one call (once_ms),
+    :func:`fp8_faults` must exceed it, run through the kernel itself (its
+    Hopper form where ``fp8_wgmma_form`` / ``fp8_dx_wgmma_form`` holds: the
+    faulty scales and bytes are what a kernel reading the wrong ones would
+    see). Where a Hopper form runs, its tile counters (output tiles,
+    stages) must equal its schedule: K12's K1's (``fp8_tile_schedule``),
+    K13's K2's with 128-column tiles (``fp8_dx_tile_schedule``). Times: the kernel's median, the plain version's one call (once_ms),
     the labelled yardstick dequantize_fp8 + torch.matmul (two calls: no
     single PyTorch call computes the function), the bound."""
     import torch
 
     from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
-    from unsloth_tpu_torch.ops.fp8_matmul import (STAGE_BYTES,
+    from unsloth_tpu_torch.ops.fp8_matmul import (DX_STAGE_ROWS, STAGE_BYTES,
+                                                  fp8_dx_tile_schedule,
+                                                  fp8_dx_wgmma_form,
                                                   fp8_matmul_dx,
                                                   fp8_matmul_dx_ref,
                                                   fp8_matmul_fwd,
@@ -7658,18 +7737,20 @@ def _fp8_kernels(dev, g, flush):
             kernel = fp8_matmul_dx if dx else fp8_matmul_fwd
             plain = fp8_matmul_dx_ref if dx else fp8_matmul_ref
             counts.zero_()
-            got = fp8_matmul_dx(a, q) if dx else fp8_matmul_fwd(
-                a, q, tile_counts=counts)
+            got = kernel(a, q, tile_counts=counts)
             ref, plain_ms = once_ms(lambda: plain(a, q))
             torch.cuda.synchronize()
             ulps = mm_ulps(got, ref)
             err = (got.float() - ref.float()).abs().max().item()
             got_c, want_c = counts.tolist(), [0, 0]
-            if not dx and fp8_wgmma_form(m, k, block, a.data_ptr(),
-                                         q.values.data_ptr(), got.data_ptr()):
+            ptrs = (a.data_ptr(), q.values.data_ptr(), got.data_ptr())
+            if dx and fp8_dx_wgmma_form(m, n, k, block, *ptrs):
+                tiles = sum(map(len, fp8_dx_tile_schedule(m, k)))
+                want_c = [tiles, tiles * -(-n // DX_STAGE_ROWS)]
+            elif not dx and fp8_wgmma_form(m, k, block, *ptrs):
                 tiles = sum(map(len, fp8_tile_schedule(m, n)))
                 want_c = [tiles, tiles * -(-k // STAGE_BYTES)]
-            faults = {f_: mm_ulps((plain if dx else kernel)(a, fq), ref)
+            faults = {f_: mm_ulps(kernel(a, fq), ref)
                       for f_, fq in fp8_faults(q, dx).items()}
             ms = time_ms(lambda: kernel(a, q), flush=flush)
             lib_ms = time_ms(lambda: plain(a, q), runs=10, flush=flush)
@@ -7679,15 +7760,14 @@ def _fp8_kernels(dev, g, flush):
             rows[kname].append(dict(
                 shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                library=library, **({} if dx else {"tile_counts": got_c})))
+                library=library, tile_counts=got_c))
             log(f"[kernels] {kname} {shape}: max|d|={err:.3e} "
                 f"({ulps:.2f} ulp, limit {MM_ULPS}); faults "
                 + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
                 + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms {library} "
                 f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-                f"{100 * b_ms / ms:.1f}% of it)"
-                + ("" if dx else f"; tiles, stages {got_c} (schedule "
-                   f"{want_c})"))
+                f"{100 * b_ms / ms:.1f}% of it); tiles, stages {got_c} "
+                f"(schedule {want_c})")
             if not (bool(torch.isfinite(got).all()) and ulps <= MM_ULPS):
                 raise RuntimeError(f"{kname} disagrees at {shape}: {ulps} "
                                    "ulp")
@@ -8022,7 +8102,9 @@ def _kernels_line(rows, by_path):
         "splash_attn_dq": ("flash_dq.cu", k18 + "dq)", "(a) sliding"),
         "splash_attn_dkv": ("flash_dkv.cu", k18 + "dk/dv)",
                             "(a) sliding"),
-        "nf4_gmm": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:86", "(a) path"),
+        "nf4_gmm": ("nf4_wgmma.cu", "unsloth_tpu/ops/nf4_gmm.py:86 "
+                    "(_fwd_kernel, pallas_call :243 in _nf4_gmm_fwd_impl "
+                    ":204)", "(a) path"),
         "nf4_gmm_dx": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:135",
                        "(a) path"),
         "flash_sinks_fwd": ("flash_fwd.cu",
@@ -8056,7 +8138,7 @@ def _kernels_line(rows, by_path):
         "fp8_matmul_fwd": ("nf4_wgmma.cu", "unsloth_tpu/ops/fp8_matmul.py:85 "
                            "(_fwd_kernel, launched by _fwd_pallas :138, "
                            "pallas_call :153)", "gate/up M=4096"),
-        "fp8_matmul_dx": ("fp8_matmul.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
+        "fp8_matmul_dx": ("nf4_wgmma.cu", "unsloth_tpu/ops/fp8_matmul.py:113 "
                           "(_bwd_kernel, launched by _bwd_pallas :177, "
                           "pallas_call :192)", "gate/up M=4096"),
         "flash_attn_fwd_full": ("flash_fwd.cu", k16_full + "forward)",

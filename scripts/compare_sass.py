@@ -13,9 +13,10 @@ default pattern is the Hopper attention set: every
 after three normalisations: the anonymous namespace's per-file tag, the
 forward's third template value (``flash_fwd_kernel<D, kSplash, false>`` in
 a tree that has the sinks form is ``flash_fwd_kernel<D, kSplash>`` in one
-that has not), and the NF4 forward's format value
+that has not), and the NF4 kernels' format value
 (``nf4_wgmma_kernel<BX, false>``, K1's form in a tree where K12 runs the
-same kernel, is ``nf4_wgmma_kernel<BX>`` in one where it does not). Prints
+same kernel, is ``nf4_wgmma_kernel<BX>`` in one where it does not; so
+``nf4_dx_wgmma_kernel<BX, false>``, K2's form beside K13's). Prints
 one line a kernel and exits 1 if any kernel differs or is missing from
 the second library.
 """
@@ -30,7 +31,7 @@ from pathlib import Path
 ATTENTION = r"flash_(?:fwd|dq|dkv)_kernel|dkv_sum_kernel"
 _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}")
 _FWD3 = re.compile(r"(flash_fwd_kernelILi\d+ELb\dE)Lb0E")
-_NF4W = re.compile(r"(nf4_wgmma_kernelILi\d+E)Lb0E")
+_NF4W = re.compile(r"(nf4_(?:dx_)?wgmma_kernelILi\d+E)Lb0E")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
@@ -43,7 +44,7 @@ def _cuobjdump() -> str:
 
 def normalise(name: str) -> str:
     """The kernel's mangled name with the file tag, a false third forward
-    template value and the NF4 forward's false format value dropped."""
+    template value and the NF4 kernels' false format value dropped."""
     return _NF4W.sub(r"\1", _FWD3.sub(r"\1", _ANON.sub(r"ANON_\1", name)))
 
 

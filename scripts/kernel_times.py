@@ -1,11 +1,13 @@
 """Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K5
-(the LayerNorm forward) and K12 (the FP8 matmul forward) of one tree of
-the port on the card, at the shapes of ``chip_smoke.py``'s phase 3, beside
-the two-call yardsticks of K1, K2 and K12 (dequantize, then
-``torch.matmul``) and ``F.layer_norm``.
+(the LayerNorm forward), K12 and K13 (the FP8 matmul forward and its dx)
+and K14 (the grouped NF4 expert forward) of one tree of the port on the
+card, at the shapes of ``chip_smoke.py``'s phase 3, beside the two-call
+yardsticks of K1, K2, K12 and K13 (dequantize, then ``torch.matmul``), of
+K14 (dequantize the stack, then ``torch._grouped_mm`` plus the bias
+gathered by row) and ``F.layer_norm``.
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
-                                   [--only K1|K2|K5|K12]
+                                   [--only K1|K2|K5|K12|K13|K14]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -16,9 +18,13 @@ the yardstick's (medians of 20 CUDA-event runs after 3 warm-up runs, a
 memory), the bound (the larger of 2 M N K operations at 989 TFLOP/s and
 the bytes at 3.35 TB/s; K5 bytes only) and max|y - ref| / max|ref|
 against the two calls (``x @ dequantize_nf4(W)^T``, ``g @
-dequantize_nf4(W)``, ``x @ dequantize_fp8(W)^T``) or ``layer_norm_ref``.
-Inputs are made on the card from seed 0 as phase 3 makes them (K12's
-weights with per-block magnitudes, as ``chip_smoke.fp8_weight``).
+dequantize_nf4(W)``, ``x @ dequantize_fp8(W)^T``, ``g @
+dequantize_fp8(W)``, the grouped two calls) or ``layer_norm_ref``.
+Inputs are made on the card from seed 0 as phase 3 makes them (K12's and
+K13's weights with per-block magnitudes, as ``chip_smoke.fp8_weight``;
+K14's routings (a) a top-4 of 4,096 random tokens over 32 experts by a
+random router, (b) one expert half the rows and three the rest, (c) a
+top-4 of 2 tokens).
 """
 
 from __future__ import annotations
@@ -60,6 +66,15 @@ K12_SHAPES = (
     + [(name, n, k, 128, m) for name, n, k in
        (("gate/up", 14336, 4096), ("down", 4096, 14336)) for m in (1, 4)]
     + [("ragged", 1000, 1404, 32, 333)])
+# (name, N, K, block, rows) of phase 3's K13 rows: g [rows, N], W [N, K]
+K13_SHAPES = (
+    [(name, n, k, 128, 4096) for name, n, k in
+     (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
+      ("down", 4096, 14336))]
+    + [("ragged", 1000, 1404, 32, 333)])
+# K14: gpt-oss-20b's experts (E, N = K, block) and the routed rows
+K14_EXPERTS = (32, 2880, 32)
+K14_TOKENS, K14_TOP_K = 4096, 4
 
 
 def fp8_weight(n, k, g, dev, block):
@@ -97,11 +112,76 @@ def time_ms(fn, flush, runs=20, warmup=3):
     return statistics.median(times)
 
 
+def k14_times(dev, g, flush, label):
+    """K14 at phase 3's three routings of gpt-oss-20b's experts (with the
+    bias), beside the grouped two calls."""
+    import torch
+
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import (dequantize_nf4_stacked,
+                                           quantize_nf4_stacked)
+
+    e, d, block = K14_EXPERTS
+    q = quantize_nf4_stacked((torch.randn((e, d, d), generator=g, device=dev)
+                              * 0.02).to(torch.bfloat16), block_size=block)
+    bias = (torch.randn((e, d), generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    router = torch.randn((e, d), generator=g, device=dev) * 0.02
+
+    def routed(tokens):
+        x = torch.randn((tokens, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        sel = torch.topk(x.float() @ router.t(), K14_TOP_K, dim=-1).indices
+        flat = sel.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = torch.bincount(flat, minlength=e).to(torch.int32)
+        return x[order // K14_TOP_K], sizes
+
+    m = K14_TOKENS * K14_TOP_K
+    skew = torch.zeros(e, dtype=torch.int32)
+    skew[3] = m // 2
+    skew[[0, e // 2 + 1, e - 1]] = torch.tensor(
+        [m // 6, m // 6, m - m // 2 - 2 * (m // 6)], dtype=torch.int32)
+    for case, (x, sizes) in (
+            ("(a) path", routed(K14_TOKENS)),
+            ("(b) skewed", (torch.randn((m, d), generator=g, device=dev
+                                        ).to(torch.bfloat16), skew.to(dev))),
+            ("(c) decode", routed(2))):
+        rows = x.shape[0]
+        offs = sizes.cumsum(0).to(torch.int32)
+
+        def two_calls():
+            wd = dequantize_nf4_stacked(q, torch.bfloat16)
+            return torch._grouped_mm(x, wd.transpose(1, 2), offs=offs) \
+                + bias[torch.repeat_interleave(
+                    torch.arange(e, device=dev), sizes.long(),
+                    output_size=rows)]
+
+        ref = tng.nf4_gmm_ref(x, q, sizes, bias)
+        try:
+            lib = time_ms(two_calls, flush)
+        except RuntimeError as exc:  # the yardstick only: reported
+            lib = f"torch._grouped_mm failed: {exc!r}"[:160]
+        live = int((sizes > 0).sum())
+        nbytes = rows * d * 2 + live * (d * d // 2 + d * d // block * 4
+                                        + d * 2) + rows * d * 2
+        y = tng.nf4_gmm_fwd(x, q, sizes, bias)
+        err = ((y.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        ms = time_ms(lambda: tng.nf4_gmm_fwd(x, q, sizes, bias), flush)
+        print(json.dumps({"label": label, "kernel": "K14",
+                          "shape": f"{case}: m={rows} E={e} N=K={d} "
+                                   f"block {block}, {live} experts",
+                          "ms": ms, "two_calls_ms": lib,
+                          "bound_ms": bound_ms(rows, d, d, nbytes),
+                          "rel_err": err}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", choices=("K1", "K2", "K5", "K12"),
+    ap.add_argument("--only", choices=("K1", "K2", "K5", "K12", "K13", "K14"),
                     default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -114,7 +194,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from unsloth_tpu_torch import kernels
     from unsloth_tpu_torch.ops.fp8 import dequantize_fp8, quantize_fp8_block
-    from unsloth_tpu_torch.ops.fp8_matmul import fp8_matmul_fwd
+    from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx,
+                                                  fp8_matmul_fwd)
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
     from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
     from unsloth_tpu_torch.ops.rms_norm import layer_norm_fwd, layer_norm_ref
@@ -191,6 +272,28 @@ def main() -> int:
                           "ms": ms, "two_calls_ms": lib, "bound_ms": bound,
                           "rel_err": err}), flush=True)
         del q, x, y, ref
+    for name, n, k, block, m in (K13_SHAPES if args.only in (None, "K13")
+                                 else ()):
+        q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+        gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+
+        def two_calls_fp8_dx():
+            return torch.matmul(gy, dequantize_fp8(q, torch.bfloat16))
+
+        dx, ref = fp8_matmul_dx(gy, q), two_calls_fp8_dx()
+        err = ((dx.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        ms = time_ms(lambda: fp8_matmul_dx(gy, q), flush)
+        lib = time_ms(two_calls_fp8_dx, flush)
+        bound = bound_ms(m, n, k, gy.numel() * 2 + q.nbytes + m * k * 2)
+        print(json.dumps({"label": args.label, "kernel": "K13",
+                          "shape": f"{name} M={m} N={n} K={k} block {block}",
+                          "ms": ms, "two_calls_ms": lib, "bound_ms": bound,
+                          "rel_err": err, "bitwise": bool(torch.equal(dx, ref))
+                          }), flush=True)
+        del q, gy, dx, ref
+    if args.only in (None, "K14"):
+        k14_times(dev, g, flush, args.label)
     for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
                               else ()):
         dtype = getattr(torch, dt)

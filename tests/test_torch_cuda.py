@@ -583,6 +583,42 @@ def test_nf4_gmm_kernels_match_plain(dev, e, n, k, bs, m, kind):
         1e-2 * refs[2].float().abs().max()
 
 
+@pytest.mark.parametrize("e,n,k,bs,sizes,extra", [
+    (4, 320, 2880, 32, [0, 17, 0, 0], 0),           # 17 rows: one tile
+    (4, 320, 2880, 32, [40, 0, 70, 9], 5),          # 124 rows: 128-row tiles
+    (5, 320, 2880, 32, [150, 0, 400, 37, 90], 40),  # a group over tiles,
+                                                    # an empty group, rows
+                                                    # past N and past groups
+    (4, 768, 2048, 64, [300, 0, 513, 200], 0),      # qwen3-moe's widths, B 64
+    (3, 136, 512, 64, [129, 0, 260], 7)])           # N % 128 == 8
+def test_nf4_gmm_hopper_tiles_match_the_schedule(dev, e, n, k, bs, sizes,
+                                                 extra):
+    """K14 above 16 rows on K1's Hopper kernel under the grouped schedule,
+    at both row tiles (128 up to 128 rows, else 256): y with the bias
+    within ATTN_ROW_TOL of nf4_gmm_ref row by row (each group's rows from
+    its own tiles: a tile that stored past its group's end would leave the
+    next group's rows wrong), the rows past the groups zero over memory
+    the wrapper leaves uninitialised, and the tile counters equal to the
+    schedule's twin (tiles, stages, tiles stored by masked stores)."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    q = quantize_nf4_stacked(
+        torch.randn((e, n, k), generator=g, device=dev) * 0.05, bs)
+    m = sum(sizes) + extra
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((e, n), generator=g, device=dev)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    # NaN in the block the caching allocator hands y next
+    torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    y = tng.nf4_gmm_fwd(x, q, sz, bias, tile_counts=counts)
+    ref = tng.nf4_gmm_ref(x, q, sz, bias)
+    torch.cuda.synchronize()
+    assert counts.tolist() == tng.nf4_gmm_tile_counts(sizes, m, n, k)
+    assert torch.isfinite(y).all()
+    assert attn_row_err(y, ref) <= ATTN_ROW_TOL
+    assert bool((y[sum(sizes):] == 0).all())
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(300, 8, 1), (256, 64, 8)])
 def test_flash_sinks_kernels_match_plain(dev, t, hq, hkv, d):
@@ -1125,6 +1161,43 @@ def test_fp8_wgmma_tiles_match_the_schedule(dev, fp32_reductions, m, n, k,
     want = [tiles, tiles * -(-k // STAGE_BYTES)] if hopper else [0, 0]
     assert counts.tolist() == want
     assert mm_ulps(y, ref) <= MM_ULPS
+
+
+@pytest.mark.parametrize("m,n,k,block", [
+    (300, 1024, 4096, 128),  # the path's block: four scales a stage
+    (17, 200, 384, 32),      # 17 rows: the Hopper form's fewest
+    (40, 96, 400, 32),       # K % 32 == 16 (a last tile 112 columns past
+                             # K); N = 96: a last stage half past N
+    (129, 130, 256, 64),     # N % 8 != 0: fp8_matmul_kernel<64, true>
+    (1500, 512, 2880, 128),  # gpt-oss width: 23 column tiles
+    (333, 1000, 1408, 32),   # ragged N, K a multiple of 16 but not of 128
+    (333, 1000, 1404, 32),   # K % 16 != 0: fp8_matmul_kernel<64, true>
+    (300, 256, 512, 48)])    # B % 32 != 0: fp8_matmul_kernel<64, true>
+def test_fp8_dx_wgmma_tiles_match_the_schedule(dev, fp32_reductions, m, n,
+                                               k, block):
+    """K13 on K2's Hopper kernel in its e4m3 form where
+    ``fp8_dx_wgmma_form`` holds: each 128-column tile of its schedule
+    (``fp8_dx_tile_schedule``) stored once, ceil(N/64) stages a tile, dx
+    within MM_ULPS of the plain version; elsewhere the wmma tiles, whose
+    counters stay 0."""
+    from unsloth_tpu_torch.ops.fp8_matmul import (DX_STAGE_ROWS,
+                                                  fp8_dx_tile_schedule,
+                                                  fp8_dx_wgmma_form)
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    dx = fp8_matmul_dx(gy, q, tile_counts=counts)
+    ref = fp8_matmul_dx_ref(gy, q)
+    torch.cuda.synchronize()
+    hopper = fp8_dx_wgmma_form(m, n, k, block, gy.data_ptr(),
+                               q.values.data_ptr(), dx.data_ptr())
+    assert hopper == (block % 32 == 0 and k % 16 == 0 and n % 8 == 0)
+    tiles = sum(map(len, fp8_dx_tile_schedule(m, k)))
+    want = [tiles, tiles * -(-n // DX_STAGE_ROWS)] if hopper else [0, 0]
+    assert counts.tolist() == want
+    assert mm_ulps(dx, ref) <= MM_ULPS
 
 
 def test_fp8_base_matmul_launches_kernels(dev, fp32_reductions):

@@ -224,3 +224,32 @@ def test_build_report_finds_the_k2_and_k12_kernels():
     rows, serialized = chip_smoke.attention_build_report("\n".join(lines))
     assert rows == [(n, 168, 0) for n in names.values()]
     assert len(serialized) == 1 and "C7514" in serialized[0]
+
+
+def test_build_report_finds_the_k13_and_k14_kernels():
+    """Phase 2 holds K13's form of K2's kernel (``nf4_dx_wgmma_kernel<BX,
+    true>``) and K14's grouped form of K1's (``nf4_gmm_wgmma_kernel<BX>``)
+    to 0 spill and no serialized wgmma as it holds K2's; K2's rows keep
+    their name whether or not the kernel carries the format value."""
+    entry = "_ZN4nf4w54_GLOBAL__N__5c1f0b2a_12_nf4_wgmma_cu_0e3f5a1c{}"
+    names = {"19nf4_dx_wgmma_kernelILi256ELb1EEEv14CUtensorMap_stS2_S2_S2_"
+             "S2_Piiii": "nf4_dx_wgmma_kernel<256, K13>",
+             "19nf4_dx_wgmma_kernelILi128ELb0EEEv14CUtensorMap_stS2_S2_S2_"
+             "S2_Piiii": "nf4_dx_wgmma_kernel<128, K2>",
+             "20nf4_gmm_wgmma_kernelILi128EEEv14CUtensorMap_stS2_S2_PKfS4_"
+             "PKiP13__nv_bfloat16Piiiiii": "nf4_gmm_wgmma_kernel<128, K14>"}
+    lines = []
+    for mangled in names:
+        lines += [f"ptxas info    : Compiling entry function "
+                  f"'{entry.format(mangled)}' for 'sm_90a'",
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads",
+                  "ptxas info    : Used 168 registers, used 1 barriers"]
+    k14 = entry.format(list(names)[2])
+    lines.append("ptxas info    : (C7518) Potential Performance Loss: "
+                 f"wgmma.mma_async instructions are serialized in the "
+                 f"function '{k14}'")
+    rows, serialized = chip_smoke.attention_build_report("\n".join(lines))
+    assert rows == [(n, 168, 0) for n in names.values()]
+    assert len(serialized) == 1 and "C7518" in serialized[0]
+

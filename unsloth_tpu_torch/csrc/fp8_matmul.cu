@@ -32,16 +32,19 @@
 // with fp32 accumulators run on the tensor cores. K12 walks W along its
 // rows (one n-range, k stepping); K13 walks W down its columns (one
 // k-range, n stepping), so the same scale grid is read with the two
-// indices' roles swapped. TMA, wgmma, pipelining and a split-K decode
-// shape are later work for K13.
+// indices' roles swapped.
 //
-// K12 above 16 rows runs nf4_wgmma.cu's persistent Hopper kernel in its
-// e4m3 form (nf4_wgmma_kernel<BX, true>: TMA ring, the e4m3 bytes decoded
-// into wgmma's A fragments, y^T = W x^T) wherever it can map the shape:
-// B % 32 == 0 (a 32-byte stage in one scale column), K % 16 == 0 (the TMA
-// strides) and x, w and y 16-byte aligned (fp8_wgmma_form below, mirrored
-// by ops/fp8_matmul.py:fp8_wgmma_form). fp8_matmul_kernel<64, false>
-// takes the other shapes, <16, false> decode rows.
+// Above 16 rows both run nf4_wgmma.cu's persistent Hopper kernels wherever
+// those can map the shape. K12: K1's kernel in its e4m3 form
+// (nf4_wgmma_kernel<BX, true>: TMA ring, the e4m3 bytes decoded into
+// wgmma's A fragments, y^T = W x^T) where B % 32 == 0 (a 32-byte stage in
+// one scale column), K % 16 == 0 (the TMA strides) and x, w and y are
+// 16-byte aligned (fp8_wgmma_form below). K13: K2's kernel in its e4m3
+// form (nf4_dx_wgmma_kernel<BX, true>: dx^T = W^T g^T, 64 W rows a stage,
+// one scale a k step and warp) where, besides, N % 8 == 0 (g's TMA row
+// stride) and g, w and dx are 16-byte aligned (fp8_dx_wgmma_form). Both
+// rules are mirrored by ops/fp8_matmul.py. fp8_matmul_kernel<64, DX> takes
+// the other shapes, <16, DX> decode rows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -259,6 +262,13 @@ bool fp8_wgmma_form(const void* x, const void* w, const void* y, int M, int K, i
          aligned16(y);
 }
 
+// The shapes K13's Hopper form takes: K12's, and g's rows (N) a multiple of
+// 16 bytes.
+bool fp8_dx_wgmma_form(const void* g, const void* w, const void* dx, int M, int N, int K,
+                       int block) {
+  return fp8_wgmma_form(g, w, dx, M, K, block) && N % 8 == 0;
+}
+
 template <bool DX>
 int launch(const void* a, const void* w, const void* scales, void* out, int M, int N, int K,
            int block, void* stream) {
@@ -292,6 +302,9 @@ int launch(const void* a, const void* w, const void* scales, void* out, int M, i
 
 int unsloth_fp8_wgmma_launch(const void* x, const void* w, const void* scales, void* y,
                              void* counts, int M, int N, int K, int block, cudaStream_t stream);
+int unsloth_fp8_dx_wgmma_launch(const void* g, const void* w, const void* scales, void* dx,
+                                void* counts, int M, int N, int K, int block,
+                                cudaStream_t stream);
 
 // y = x @ dequant(W)^T on `stream`. x [M, K] bf16 row-major, w e4m3 [N, K]
 // row-major, scales fp32 [ceil(N/B), ceil(K/B)], y [M, N] bf16. Any M, N,
@@ -311,9 +324,14 @@ extern "C" int unsloth_fp8_matmul_bf16(const void* x, const void* w, const void*
 }
 
 // dx = g @ dequant(W) on `stream`. g [M, N] bf16, w and scales as above,
-// dx [M, K] bf16.
+// dx [M, K] bf16. Where fp8_dx_wgmma_form holds, nf4_wgmma.cu's Hopper
+// kernel; `counts` (null, or an int32 [2]) is that kernel's: it adds the
+// output tiles (128 columns of dx) it stored and the stages it consumed.
 extern "C" int unsloth_fp8_matmul_dx_bf16(const void* g, const void* w, const void* scales,
                                           void* dx, int M, int N, int K, int block,
-                                          void* stream) {
+                                          void* counts, void* stream) {
+  if (fp8_dx_wgmma_form(g, w, dx, M, N, K, block))
+    return unsloth_fp8_dx_wgmma_launch(g, w, scales, dx, counts, M, N, K, block,
+                                       static_cast<cudaStream_t>(stream));
   return launch<true>(g, w, scales, dx, M, N, K, block, stream);
 }

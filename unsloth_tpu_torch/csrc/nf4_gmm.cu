@@ -1,9 +1,13 @@
 // Grouped NF4 dequant-inside-matmul over experts (the MoE QLoRA base), K14
 // and K15.
 //
-//   nf4_gmm_kernel<BM>   out[r, :] = x[r, :] @ dequant(W_g)^T + bias[g]
-//                        for the rows r of group g (K14)
+//   nf4_gmm_kernel<16>   out[r, :] = x[r, :] @ dequant(W_g)^T + bias[g]
+//                        for the rows r of group g (K14 at decode rows)
 //   nf4_gmm_dx_kernel    dx[r, :] = g[r, :] @ dequant(W_g)              (K15)
+//
+// K14 above 16 rows is nf4_wgmma.cu's nf4_gmm_wgmma_kernel<BX>, K1's Hopper
+// kernel under a grouped persistent schedule (see its note); this file
+// holds the C entry point that picks it.
 //
 // Replaces the TPU kernels unsloth_tpu/ops/nf4_gmm.py:_fwd_kernel (launched
 // by _nf4_gmm_fwd_impl) and _bwd_kernel (launched by _nf4_gmm_bwd_impl).
@@ -40,7 +44,7 @@
 // nf4_matmul.cu's kernels, one block per (64-column tile, visit), the
 // 16-entry codebook in shared memory, decoded bf16 tiles in shared memory,
 // nvcuda::wmma 16x16x16 bf16 MMAs with fp32 accumulators; a visit decodes
-// its expert's weight tile once for all of its rows. wgmma, TMA and
+// its expert's weight tile once for all of its rows. K15's wgmma, TMA and
 // pipelining are later work.
 
 #include <cuda_bf16.h>
@@ -325,29 +329,33 @@ nf4_gmm_dx_kernel(const __nv_bfloat16* __restrict__ g, const uint8_t* __restrict
 
 }  // namespace
 
+int unsloth_nf4_gmm_wgmma_launch(const void* x, const void* packed, const void* absmax,
+                                 const void* bias, const void* group_sizes, void* y,
+                                 void* counts, int M, int E, int N, int K, int bs,
+                                 cudaStream_t stream);
+
 // out = x @ dequant(W_g)^T + bias[g] per group on `stream`. Shapes: x [m, K]
 // bf16 rows sorted by expert, packed [E, N, K/2] u8, absmax [E, N * K / bs]
 // f32, bias [E, N] f32 or null, group_sizes [E] int32 on the device summing
-// to m, out [m, N] bf16. K/2 a multiple of 32 and of bs (32 or 64), N a
-// multiple of 8, pointers 16-byte aligned (the wrapper checks). Returns
-// cudaGetLastError() after the launch; allocates nothing.
+// to at most m, out [m, N] bf16. K/2 a multiple of 32 and of bs (32 or 64),
+// N a multiple of 8, pointers 16-byte aligned, E <= 1,024 (the wrapper
+// checks). Above 16 rows nf4_wgmma.cu's Hopper kernel, which writes every
+// row (zeros past the groups); `counts` (null, or an int32 [3]) is its.
+// At 16 rows or fewer
+// nf4_gmm_kernel<16>, which leaves the rows past the groups as they are.
+// Returns the launch's CUDA error code; allocates nothing.
 extern "C" int unsloth_nf4_gmm_bf16(const void* x, const void* packed, const void* absmax,
                                     const void* bias, const void* group_sizes, void* out, int m,
-                                    int E, int N, int K, int bs, void* stream) {
+                                    int E, int N, int K, int bs, void* counts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* pp = static_cast<const uint8_t*>(packed);
-  const auto* ap = static_cast<const float*>(absmax);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* gp = static_cast<const int*>(group_sizes);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (m <= 16) {
-    const dim3 grid((N + kBN - 1) / kBN, (m + 15) / 16 + E);
-    nf4_gmm_kernel<16><<<grid, kThreads, 0, s>>>(xp, pp, ap, bp, gp, op, E, N, K, bs);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (m + 63) / 64 + E);
-    nf4_gmm_kernel<64><<<grid, kThreads, 0, s>>>(xp, pp, ap, bp, gp, op, E, N, K, bs);
-  }
+  if (m > 16)
+    return unsloth_nf4_gmm_wgmma_launch(x, packed, absmax, bias, group_sizes, out, counts, m, E,
+                                        N, K, bs, s);
+  const dim3 grid((N + kBN - 1) / kBN, (m + 15) / 16 + E);
+  nf4_gmm_kernel<16><<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(absmax), static_cast<const float*>(bias),
+      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out), E, N, K, bs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -79,13 +79,15 @@
 //
 // The NF4 backward (K2), nf4_dx_wgmma_kernel<BX> below, is this kernel's
 // sibling: dx^T = W^T g^T, the NF4 bytes decoded into the A fragments, g
-// the K-major B operand. See its own note.
+// the K-major B operand; the FP8 backward (K13) is K2's kernel in its e4m3
+// form, nf4_dx_wgmma_kernel<BX, true>. See their own note.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper_common.cuh"
 
@@ -244,13 +246,18 @@ __device__ __forceinline__ void decode_stage(const unsigned char* w, int r, int 
   }
 }
 
-// Two bf16 weights of a W row from one 16-bit pair of e4m3 bytes (the lower
-// column in the low byte): the hardware cvt to f16 (exact), fp32 times the
-// block's scale, rounded once.
-__device__ __forceinline__ uint32_t decode_e4m3(uint32_t u, float s) {
+// Two weights of a W row from one 16-bit pair of e4m3 bytes (the lower
+// column in the low byte) as fp32: the hardware cvt to f16 (exact),
+// widened.
+__device__ __forceinline__ float2 e4m3x2_float2(uint32_t u) {
   const __half2_raw h =
       __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(u & 0xFFFFu), __NV_E4M3);
-  const float2 f = __half22float2(__half2(h));
+  return __half22float2(__half2(h));
+}
+
+// The pair as two bf16 weights: fp32 times the block's scale, rounded once.
+__device__ __forceinline__ uint32_t decode_e4m3(uint32_t u, float s) {
+  const float2 f = e4m3x2_float2(u);
   return pack_bf16(f.x * s, f.y * s);
 }
 
@@ -540,27 +547,67 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (columns 0-31 and 32-63): warps 0-1 read the first, warps 2-3 the
 // second. N must be a multiple of 64 (the wrapper checks), so no stage has
 // rows past N.
+//
+// K13: dx = g @ dequant(W) for W e4m3 [N, K] with fp32 scales [ceil(N/B),
+// ceil(K/B)], the FP8 backward, is this kernel in its e4m3 form,
+// nf4_dx_wgmma_kernel<BX, true>. Replaces unsloth_tpu/ops/fp8_matmul.py:
+// _bwd_kernel (launched by _bwd_pallas) above 16 rows wherever
+// fp8_matmul.cu's fp8_dx_wgmma_form holds. Same arithmetic: fp32(e4m3) x
+// scale[n / B][k / B] rounded once to bf16, fp32 sums, one rounding.
+//   - A tile is 128 columns of dx: warpgroup 0 takes k0..k0 + 63,
+//     warpgroup 1 k0 + 64.., one byte a weight, so K2's two nibble sides of
+//     one byte stream become two halves of a 128-byte stream. A stage is 64
+//     W rows: g [BX][64] bf16 and W [64][128] u8 (128-byte swizzle), 40 KB
+//     at BX = 256; four stages and the two staging tiles take 230,464 of
+//     the 232,448 bytes a block may have, which leaves no room to stage the
+//     scales, and they need none:
+//   - a thread's A fragment of a k step covers 16 W rows and its warp's 16
+//     columns, which lie in one block where B % 32 == 0, so each (k step,
+//     warp) reads one fp32 scale, in place, a stage ahead (past the grid
+//     the last row or column: there the bytes are TMA's zeros, or the
+//     columns are not stored);
+//   - the cvt (e4m3x2 -> f16x2, exact) gives two columns of one W row, the
+//     A register wants one column of two rows (K2's remap of A rows onto
+//     neighbouring bytes), so the pairs are re-paired in fp32 after the
+//     scale and rounded once;
+//   - no N % 64 rule: an e4m3 zero byte decodes to +0 (NF4's to -1.0), so
+//     the W rows past N and g's columns past N, both TMA's zeros, add
+//     nothing; one store map, dx [M, K], clips the columns past K.
 // ---------------------------------------------------------------------------
 
 constexpr int kDxCols = 64;    // packed byte columns of a tile (64 output columns a side)
 constexpr int kDxRows = 64;    // W rows (the reduction) a stage
 constexpr int kDxStages = 4;
+constexpr int kDx8Cols = 128;  // K13: e4m3 bytes of a W row a stage (the tile's 128 columns)
 
-template <int BX>
+// kFp8: K13's e4m3 form (no absmax rows, no zero row), else K2's.
+template <int BX, bool kFp8 = false>
 struct DxCfg {
   static constexpr int kGBytes = BX * kDxRows * 2;     // g box, [BX][64] bf16
   static constexpr int kGHalf = kGBytes / 2;           // the rows one CTA loads
-  static constexpr int kWBytes = kDxRows * kDxCols;    // packed bytes, [64][64] u8
+  // packed bytes [64][64] u8 (K13: e4m3 [64][128])
+  static constexpr int kWBytes = kDxRows * (kFp8 ? kDx8Cols : kDxCols);
   static constexpr int kStageBytes = kGBytes + kWBytes;
-  static constexpr int kScaleBytes = 3 * kDxRows * 4;  // absmax: high, low a, low b
+  static constexpr int kScaleBytes = kFp8 ? 0 : 3 * kDxRows * 4;  // absmax: high, low a, low b
   static constexpr int kOutBytes = BX * 128;           // a warpgroup's [BX][64] bf16 result
   static constexpr int kOffOut = kDxStages * kStageBytes;
   static constexpr int kOffScale = kOffOut + 2 * kOutBytes;
   static constexpr int kOffZero = kOffScale + kDxStages * kScaleBytes;
-  static constexpr int kOffBar = kOffZero + kDxRows * 4;
+  static constexpr int kOffBar = kOffZero + (kFp8 ? 0 : kDxRows * 4);
   static constexpr int kSmem = kOffBar + 2 * kDxStages * 8 + 1024;  // + alignment
   static_assert(kStageBytes % 1024 == 0, "stages stay 1,024-byte aligned");
+  static_assert(kSmem + 64 <= 232448, "the opt-in shared memory of an H100 block");
 };
+
+// K13's scale grid. The e4m3 form reads its scales in place, by plain
+// loads, and has no absmax map, so the grid rides in that map's parameter
+// slot: the kernel's parameters, and with them K2's name and code, stay
+// K2's.
+struct Fp8Grid {
+  const float* scales;  // fp32 [rows, cols], one a block x block tile of W
+  int block, rows, cols;
+};
+static_assert(sizeof(Fp8Grid) <= sizeof(CUtensorMap), "fits the map's slot");
 
 // A thread's A fragments of one K2 stage: a[4 k + 2 h + i] is k step k (W
 // rows 16 k..), {rows r (i = 0), r + 8 (i = 1)} x {W rows 2c, 2c + 1 (h =
@@ -586,30 +633,63 @@ __device__ __forceinline__ void decode_dx_stage(const unsigned char* w, const fl
   }
 }
 
-template <int BX>
+// K13's A fragments of one stage in decode_dx_stage's order, from the
+// stage's [64][128] e4m3 bytes (128-byte swizzle: the 16-byte chunk h of
+// row n sits at h ^ (n % 8)). A rows r and r + 8 are the bytes at `off0`
+// and `off0` + 1 of W row 16 k + 8 h + 2c, and at `off1` of the next row
+// (the two rows' swizzles differ). One 16-bit load gives two columns of
+// one W row, wgmma's register wants one column of two rows, so the pairs
+// are re-paired in fp32: each weight fp32(e4m3) x the scale of its k step
+// (`s`: a k step's 16 W rows and this warp's 16 columns lie in one block),
+// rounded once to bf16.
+__device__ __forceinline__ void decode_dx_stage_e4m3(const unsigned char* w, int off0, int off1,
+                                                     const float (&s)[4], uint32_t (&a)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 16 * k + 8 * h;  // + 2c, which the offsets carry
+      const float2 fa = e4m3x2_float2(*reinterpret_cast<const uint16_t*>(w + n * kDx8Cols + off0));
+      const float2 fb =
+          e4m3x2_float2(*reinterpret_cast<const uint16_t*>(w + (n + 1) * kDx8Cols + off1));
+      a[4 * k + 2 * h] = pack_bf16(fa.x * s[k], fb.x * s[k]);
+      a[4 * k + 2 * h + 1] = pack_bf16(fa.y * s[k], fb.y * s[k]);
+    }
+  }
+}
+
+template <int BX, bool kFp8 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     nf4_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tg,   // g [M, N], box 64 x BX / 2
                         const __grid_constant__ CUtensorMap tw,   // packed [N, K/2] u8, box 64 x 64
+                                                                  // (K13: e4m3 [N, K], box 128 x 64)
                         const __grid_constant__ CUtensorMap ts,   // absmax^T [K/64, N] f32, box 64 x 1
+                                                                  // (K13: an Fp8Grid)
                         const __grid_constant__ CUtensorMap thi,  // dx[:, :K/2], box 64 x BX
+                                                                  // (K13: dx [M, K])
                         const __grid_constant__ CUtensorMap tlo,  // dx[:, K/2:], box 64 x BX
+                                                                  // (K13: unused)
                         int* __restrict__ counts, int M, int N, int K) {
-  using C = DxCfg<BX>;
+  using C = DxCfg<BX, kFp8>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ float code[16];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
   uint64_t* empty = full + kDxStages;
   const int half = K / 2;
-  const int nst = N / kDxRows;
-  const int tiles_j = (half + kDxCols - 1) / kDxCols;
+  // K13: rows past N arrive as zeros (an e4m3 zero byte is +0, not NF4's
+  // -1.0), so N needs no multiple of 64; a tile is 128 columns of dx
+  const int nst = kFp8 ? (N + kDxRows - 1) / kDxRows : N / kDxRows;
+  const int tiles_j = kFp8 ? (K + kDx8Cols - 1) / kDx8Cols : (half + kDxCols - 1) / kDxCols;
   const int pairs_j = (tiles_j + 1) / 2;  // byte tile pairs
   const int units = ((M + BX - 1) / BX) * pairs_j;
   const int blocks = K / 64;
   const int rank = static_cast<int>(cluster_rank());
   const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
-  if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
-  if (threadIdx.x < kDxRows) reinterpret_cast<float*>(smem + C::kOffZero)[threadIdx.x] = 0.0f;
+  if constexpr (!kFp8) {
+    if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
+    if (threadIdx.x < kDxRows) reinterpret_cast<float*>(smem + C::kOffZero)[threadIdx.x] = 0.0f;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDxStages; ++s) {
       mbar_init(&full[s], 1);
@@ -628,20 +708,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       // tensors where they lie past them (the odd tile's partner: not stored)
       const int gr = min((u / pairs_j) * BX + rank * (BX / 2), M - 1);
       const int jc = min(2 * (u % pairs_j) + rank, tiles_j - 1);
-      const int j0 = jc * kDxCols;
-      const int bh = jc, bla = min((half + j0) / 64, blocks - 1),
-                blb = min((half + j0 + 32) / 64, blocks - 1);
-      for (int st = 0; st < nst; ++st, ++it) {
-        const int s = it % kDxStages;
-        if (it >= kDxStages) mbar_wait(&empty[s], ((it / kDxStages) - 1) & 1);
-        unsigned char* slot = smem + s * C::kStageBytes;
-        unsigned char* sl = smem + C::kOffScale + s * C::kScaleBytes;
-        mbar_expect_tx(&full[s], C::kStageBytes + C::kScaleBytes);
-        tma_load_2d_both(slot + rank * C::kGHalf, &tg, &full[s], st * kDxRows, gr);
-        tma_load_2d(slot + C::kGBytes, &tw, &full[s], j0, st * kDxRows);
-        tma_load_2d(sl, &ts, &full[s], st * kDxRows, bh);
-        tma_load_2d(sl + kDxRows * 4, &ts, &full[s], st * kDxRows, bla);
-        tma_load_2d(sl + 2 * kDxRows * 4, &ts, &full[s], st * kDxRows, blb);
+      if constexpr (kFp8) {
+        // K13: g's columns and W's rows st * 64.., W's columns 128 jc..
+        for (int st = 0; st < nst; ++st, ++it) {
+          const int s = it % kDxStages;
+          if (it >= kDxStages) mbar_wait(&empty[s], ((it / kDxStages) - 1) & 1);
+          unsigned char* slot = smem + s * C::kStageBytes;
+          mbar_expect_tx(&full[s], C::kStageBytes);
+          tma_load_2d_both(slot + rank * C::kGHalf, &tg, &full[s], st * kDxRows, gr);
+          tma_load_2d(slot + C::kGBytes, &tw, &full[s], jc * kDx8Cols, st * kDxRows);
+        }
+      } else {
+        const int j0 = jc * kDxCols;
+        const int bh = jc, bla = min((half + j0) / 64, blocks - 1),
+                  blb = min((half + j0 + 32) / 64, blocks - 1);
+        for (int st = 0; st < nst; ++st, ++it) {
+          const int s = it % kDxStages;
+          if (it >= kDxStages) mbar_wait(&empty[s], ((it / kDxStages) - 1) & 1);
+          unsigned char* slot = smem + s * C::kStageBytes;
+          unsigned char* sl = smem + C::kOffScale + s * C::kScaleBytes;
+          mbar_expect_tx(&full[s], C::kStageBytes + C::kScaleBytes);
+          tma_load_2d_both(slot + rank * C::kGHalf, &tg, &full[s], st * kDxRows, gr);
+          tma_load_2d(slot + C::kGBytes, &tw, &full[s], j0, st * kDxRows);
+          tma_load_2d(sl, &ts, &full[s], st * kDxRows, bh);
+          tma_load_2d(sl + kDxRows * 4, &ts, &full[s], st * kDxRows, bla);
+          tma_load_2d(sl + 2 * kDxRows * 4, &ts, &full[s], st * kDxRows, blb);
+        }
       }
     }
     for (int i = 0; i < kDxStages; ++i, ++it)
@@ -650,7 +742,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   regs_inc<kConsumerRegs>();
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // 0: high side, 1: low
+  // 0: high side, 1: low (K13: the tile's columns 0-63, 64-127)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int q = lane / 4, c = lane % 4;
   const int sh = wg == 0 ? 4 : 0;
@@ -662,7 +755,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0, n_tiles = 0, n_stages = 0;
   for (int u = cluster; u < units; u += clusters) {
     const int m0 = __shfl_sync(0xffffffffu, (u / pairs_j) * BX, 0);
-    const int j0 = __shfl_sync(0xffffffffu, (2 * (u % pairs_j) + rank) * kDxCols, 0);
+    const int j0 = __shfl_sync(0xffffffffu,
+                               (2 * (u % pairs_j) + rank) * (kFp8 ? kDx8Cols : kDxCols), 0);
     // the absmax row of this warp's 16 columns: the high side's block, the
     // low side's first or (from column 32, where K/2 % 64 == 32 it is the
     // next) second; columns past K/2 take the zero row
@@ -674,15 +768,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     float acc[BX / 2];
     uint32_t fa[16], fb[16];  // the A fragments of two stages
+    // K13: this thread's byte pair 64 wg + 16 warp + 2q.. of W rows 2c and
+    // 2c + 1 of each 8 (chunk 4 wg + warp, swizzled by the row), and the
+    // scales of a stage's four k steps, read a stage ahead from the scale
+    // column of this warp's 16 columns (past K the last; past N the last
+    // row, whose bytes arrive as zeros)
+    const int off0 = 2 * c * kDx8Cols + (((4 * wg + warp) ^ (2 * c)) << 4) + 2 * q;
+    const int off1 = 2 * c * kDx8Cols + (((4 * wg + warp) ^ (2 * c + 1)) << 4) + 2 * q;
+    const Fp8Grid& grid = *reinterpret_cast<const Fp8Grid*>(&ts);
+    float sc[4];
+    auto load_sc = [&](int st) {
+      const float* col = grid.scales + min((j0 + 64 * wg + 16 * warp) / grid.block, grid.cols - 1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        sc[k] = __ldg(col + (size_t)min((st * kDxRows + 16 * k) / grid.block, grid.rows - 1) *
+                                grid.cols);
+    };
+    if constexpr (kFp8) load_sc(0);
     mbar_wait(&full[it % kDxStages], (it / kDxStages) & 1);
-    decode_dx_stage(smem + (it % kDxStages) * C::kStageBytes + C::kGBytes, scales(it % kDxStages),
-                    off, sh, code, fa);
+    if constexpr (kFp8)
+      decode_dx_stage_e4m3(smem + (it % kDxStages) * C::kStageBytes + C::kGBytes, off0, off1, sc,
+                           fa);
+    else
+      decode_dx_stage(smem + (it % kDxStages) * C::kStageBytes + C::kGBytes,
+                      scales(it % kDxStages), off, sh, code, fa);
     // One stage: its four products from `cur`, then, while they run, the
     // next stage decoded into `nxt` once the products that read `nxt` are
     // done.
     auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
       const int s = (it + st) % kDxStages;
       const bool more = st + 1 < nst;
+      if constexpr (kFp8) {
+        if (more) load_sc(st + 1);
+      }
       const uint32_t gs = smem_u32(smem + s * C::kStageBytes);
       fence_u32(cur);
       wgmma_fence();
@@ -696,7 +814,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (more) {
         const int sn = (it + st + 1) % kDxStages;
         mbar_wait(&full[sn], ((it + st + 1) / kDxStages) & 1);
-        decode_dx_stage(smem + sn * C::kStageBytes + C::kGBytes, scales(sn), off, sh, code, nxt);
+        if constexpr (kFp8)
+          decode_dx_stage_e4m3(smem + sn * C::kStageBytes + C::kGBytes, off0, off1, sc, nxt);
+        else
+          decode_dx_stage(smem + sn * C::kStageBytes + C::kGBytes, scales(sn), off, sh, code,
+                          nxt);
       }
     };
     for (int st = 0; st < nst; st += 2) {
@@ -707,7 +829,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(acc);
     release(empty, (it + nst - 1) % kDxStages, lane, rank);
     it += nst;
-    if (j0 >= half) continue;  // the odd byte tile's partner: computed, not stored
+    if (j0 >= (kFp8 ? K : half)) continue;  // the odd byte tile's partner: computed, not stored
     ++n_tiles;
     n_stages += nst;
 
@@ -731,10 +853,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
     if (t == 0) {
-      if (wg == 0)
-        tma_store_2d(&thi, staged, j0, m0);
-      else
-        tma_store_2d(&tlo, staged, j0, m0);
+      if constexpr (kFp8) {
+        // K13: dx columns j0 + 64 wg..; the map clips them at K
+        if (j0 + 64 * wg < K) tma_store_2d(&thi, staged, j0 + 64 * wg, m0);
+      } else {
+        if (wg == 0)
+          tma_store_2d(&thi, staged, j0, m0);
+        else
+          tma_store_2d(&tlo, staged, j0, m0);
+      }
       bulk_commit();
     }
   }
@@ -743,6 +870,336 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (counts != nullptr && wg == 0) {
       atomicAdd(counts + kCntTiles, n_tiles);
       atomicAdd(counts + kCntStages, n_stages);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K14: the grouped NF4 expert forward,
+//   y[r, :] = x[r, :] @ dequant(W_g)^T + bias[g]   for the rows r of group g.
+//
+// Replaces unsloth_tpu/ops/nf4_gmm.py:_fwd_kernel (launched by
+// _nf4_gmm_fwd_impl) above 16 rows; nf4_gmm.cu keeps nf4_gmm_kernel<16> for
+// decode rows and holds the C entry point. Same arithmetic: each weight
+// NF4_CODE[nibble] x absmax in fp32, rounded once to bf16; fp32 sums; the
+// fp32 bias added to the fp32 sum; one rounding.
+//
+// Layout: rows of x sorted by expert; group g owns rows [off_g, off_g +
+// size_g), off the running sum of the int32 group sizes, which stay on the
+// device. W is NF4Stacked: packed [E, N, K/2] u8 in split-half order,
+// absmax fp32 [E, N, K / B] for B 32 or 64, K/2 a multiple of 32 and of B;
+// bias fp32 [E, N] or none.
+//
+// What bounds it on an H100: tensor-core work, 2 m N K operations (the
+// gpt-oss path's 16,384 routed rows at N = K = 2,880: 0.275 ms).
+//
+// Design: K1's kernel (y^T = W_g x^T; the bytes decoded into wgmma's A
+// fragments; x the B operand from a 4-stage TMA ring; clusters of two
+// multicasting the x boxes; persistent) under K19's grouped schedule:
+//   - Row tiles are laid from each group's first row: group g has
+//     ceil(size_g / BX) tiles of BX rows, full but its last, whose rows past
+//     the group's end are computed and never stored (the x box reads the
+//     next group's rows there, or TMA's zeros past m). At the path's 16,384
+//     rows over 32 groups (~512 each) that is ~80 tiles of 256 rows, 1.25x
+//     the rows, where a global grid of 256-row tiles visited once per group
+//     they touch (megablox's visits, the old kernel's) takes ~95 (1.48x).
+//     BX is 256 above 128 rows, else 128 (K1's rule): at the path's rows
+//     128-row tiles multiply 1.13x the rows, not 1.25x, but took 0.74-0.75
+//     ms against 256's 0.57-0.58 (each decoded weight then feeds half the
+//     rows; H100, PERF.md).
+//   - A unit is (row tile, W tile pair): the cluster's two CTAs multiply
+//     the same BX rows of x by W_g's tiles 2 p and 2 p + 1 of 128 rows (past
+//     N, where the tiles are odd in number, the second is computed and not
+//     stored). At N = 2,880: 23 tiles, 12 pairs, ~960 units for the 66
+//     clusters of an H100. Units are numbered group by group and, inside a
+//     group, with its row tiles fastest, so the clusters in flight share
+//     W_g's tiles in L2. Each block builds the running sums of the group
+//     sizes and each group's first unit in shared memory once (after K1's
+//     barriers; E <= 1,024) and maps a unit to its group by binary search
+//     (K19's tables, gmm.cu).
+//   - The stage is K1's: 32 packed bytes of each of the tile's 128 W rows
+//     (row g N + n of the [E N, K/2] bytes) and the two x boxes they pair
+//     with. Each side of a stage lies in one absmax block, the high side's
+//     32 st / B and the low side's (K/2 + 32 st) / B. W rows past N decode
+//     with absmax 0 (their bytes are the next expert's) and are not stored.
+//   - Epilogue: the bias of a thread's two W rows added to the fp32
+//     accumulators, one rounding, stmatrix.trans into the staging tile; a
+//     full tile stores by TMA, a group's last tile by masked 16-byte stores
+//     of its own rows, so no CTA writes another group's rows. The rows past
+//     the groups (where the sizes sum to less than m) are stored as zeros,
+//     so the wrapper allocates y with torch.empty.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxGmmExperts = 1024;
+constexpr int kCntMasked = 2;  // K14: tiles stored by masked stores
+
+// K1's shared memory with the group tables after the barriers: offs[g] the
+// first row of group g (offs[E] the end of the groups), ustart[g] its first
+// unit (ustart[E] all units), E + 1 ints each.
+template <int BX>
+struct GmmCfg {
+  static constexpr int kOffTab = Cfg<BX>::kOffBar + 2 * kStages * 8;
+  static constexpr int smem(int E) { return kOffTab + 8 * (E + 1) + 1024; }  // + alignment
+};
+static_assert(GmmCfg<256>::smem(kMaxGmmExperts) + 64 <= 232448,
+              "the tables fit beside K1's ring and staging tiles");
+
+struct GmmUnit {
+  int g;     // group
+  int row0;  // first row of the row tile
+  int hi;    // the end of the group's rows in it
+  int p;     // W tile pair
+};
+
+// Unit u: its group is the last g with ustart[g] <= u (an empty group
+// starts where the next one does), its row tile and W pair follow from u -
+// ustart[g], row tiles fastest.
+template <int BX>
+__device__ __forceinline__ GmmUnit gmm_unit(int u, const int* offs, const int* ustart, int E) {
+  int a = 0, b = E - 1;
+  while (a < b) {
+    const int mid = (a + b + 1) >> 1;
+    if (ustart[mid] <= u)
+      a = mid;
+    else
+      b = mid - 1;
+  }
+  const int nt = (offs[a + 1] - offs[a] + BX - 1) / BX;
+  const int local = u - ustart[a];
+  GmmUnit w;
+  w.g = a;
+  w.row0 = offs[a] + (local % nt) * BX;
+  w.hi = min(offs[a + 1], w.row0 + BX);
+  w.p = local / nt;
+  return w;
+}
+
+// The unit with every field lane 0's, so that the compiler sees the
+// branches on them taken by whole warps.
+__device__ __forceinline__ GmmUnit warp_uniform(GmmUnit w) {
+  w.g = __shfl_sync(0xffffffffu, w.g, 0);
+  w.row0 = __shfl_sync(0xffffffffu, w.row0, 0);
+  w.hi = __shfl_sync(0xffffffffu, w.hi, 0);
+  w.p = __shfl_sync(0xffffffffu, w.p, 0);
+  return w;
+}
+
+// The absmax of a thread's rows (pa, pb; null past N) for stage st at
+// blocks of 2^shift: the high side's block 32 st >> shift, the low side's
+// (K/2 + 32 st) >> shift.
+__device__ __forceinline__ void load_group_scales(float (&s)[4], const float* pa, const float* pb,
+                                                  int st, int half, int shift) {
+  const int bh = (st * kStep) >> shift, bl = (half + st * kStep) >> shift;
+  s[0] = pa != nullptr ? __ldg(pa + bh) : 0.0f;
+  s[1] = pb != nullptr ? __ldg(pb + bh) : 0.0f;
+  s[2] = pa != nullptr ? __ldg(pa + bl) : 0.0f;
+  s[3] = pb != nullptr ? __ldg(pb + bl) : 0.0f;
+}
+
+// A float from global memory, issued here (volatile) rather than at its use.
+__device__ __forceinline__ float ldg_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+template <int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    nf4_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,  // x [M, K], box 32 x BX / 2
+                         const __grid_constant__ CUtensorMap tw,  // packed [E N, K/2] u8, box 32 x 128
+                         const __grid_constant__ CUtensorMap ty,  // y [M, N], box 64 x BX
+                         const float* __restrict__ absmax, const float* __restrict__ bias,
+                         const int* __restrict__ group_sizes, bf16* __restrict__ y,
+                         int* __restrict__ counts, int M, int E, int N, int K, int shift) {
+  using C = Cfg<BX>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float code[16];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* empty = full + kStages;
+  int* offs = reinterpret_cast<int*>(smem + GmmCfg<BX>::kOffTab);
+  int* ustart = offs + E + 1;
+  const int half = K / 2;
+  const int nst = half / kStep;
+  const int pairs_n = ((N + kBw - 1) / kBw + 1) / 2;  // W tile pairs
+  const int rank = static_cast<int>(cluster_rank());
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
+  for (int g = threadIdx.x; g < E; g += kThreads) offs[g + 1] = group_sizes[g];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 16);  // one arrival per consumer warp of both CTAs
+    }
+    fence_barrier_init();
+    // the tables; sizes clamped to [0, M]
+    int off = 0, u = 0;
+    for (int g = 0; g < E; ++g) {
+      const int end = min(off + max(offs[g + 1], 0), M);
+      offs[g] = off;
+      ustart[g] = u;
+      u += (end - off + BX - 1) / BX * pairs_n;
+      off = end;
+    }
+    offs[E] = off;
+    ustart[E] = u;
+  }
+  cluster_sync();  // both CTAs' barriers, codebooks and tables are made
+  const int units = __shfl_sync(0xffffffffu, ustart[E], 0);
+
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int u = cluster; u < units; u += clusters) {
+      const GmmUnit w = gmm_unit<BX>(u, offs, ustart, E);
+      // this CTA's half of the x rows and W_g's tile, moved inside the
+      // tensors where they lie past them (their rows of y are not stored)
+      const int xr = min(w.row0 + rank * (BX / 2), M - 1);
+      const int wr = w.g * N + min((2 * w.p + rank) * kBw, N - 1);
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+        unsigned char* slot = smem + s * C::kStageBytes;
+        mbar_expect_tx(&full[s], C::kStageBytes);
+        tma_load_2d_both(slot + rank * C::kXHalf, &tx, &full[s], st * kStep, xr);
+        tma_load_2d_both(slot + C::kXBytes + rank * C::kXHalf, &tx, &full[s], half + st * kStep,
+                         xr);
+        tma_load_2d(slot + 2 * C::kXBytes, &tw, &full[s], st * kStep, wr);
+      }
+    }
+    // stay until both CTAs' consumers have handed back every stage
+    for (int i = 0; i < kStages; ++i, ++it)
+      if (it >= kStages) mbar_wait(&empty[it % kStages], ((it / kStages) - 1) & 1);
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int r = 64 * wg + 16 * warp + lane / 4;  // this thread's W rows: r, r + 8
+  const int c = lane % 4;
+  unsigned char* staged = smem + C::kOffOut + wg * C::kOutBytes;
+  const int blocks = K >> shift;  // absmax blocks of a W row
+  // the rows past the groups: zeros, 16 bytes a consumer thread
+  {
+    const int end = offs[E], chunks = N / 8;
+    const long total = (long)(M - end) * chunks;
+    for (long i = blockIdx.x * 256L + threadIdx.x; i < total; i += gridDim.x * 256L)
+      *reinterpret_cast<uint4*>(y + (size_t)(end + i / chunks) * N + 8 * (i % chunks)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  int it = 0, n_tiles = 0, n_stages = 0, n_masked = 0;
+  for (int u = cluster; u < units; u += clusters) {
+    const GmmUnit w = warp_uniform(gmm_unit<BX>(u, offs, ustart, E));
+    const int n0 = (2 * w.p + rank) * kBw;
+    const size_t row_g = (size_t)w.g * N;  // W_g's first row in [E N, K/2]
+    const float* pa = n0 + r < N ? absmax + (row_g + n0 + r) * blocks : nullptr;
+    const float* pb = n0 + r + 8 < N ? absmax + (row_g + n0 + r + 8) * blocks : nullptr;
+    // the bias of this thread's two W rows, read now for the epilogue
+    const float b0 = bias != nullptr && n0 + r < N ? ldg_now(bias + row_g + n0 + r) : 0.0f;
+    const float b1 = bias != nullptr && n0 + r + 8 < N ? ldg_now(bias + row_g + n0 + r + 8) : 0.0f;
+    float acc[BX / 2];
+    uint32_t fa[16], fb[16];  // the A fragments of two stages
+    float sc[4];
+    load_group_scales(sc, pa, pb, 0, half, shift);
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    decode_stage(smem + (it % kStages) * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, fa);
+    // One stage: its four products from `cur`, then, while they run, the
+    // next stage decoded into `nxt` once the products that read `nxt` are
+    // done.
+    auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
+      const int s = (it + st) % kStages;
+      const bool more = st + 1 < nst;
+      if (more) load_group_scales(sc, pa, pb, st + 1, half, shift);
+      const uint32_t xs = smem_u32(smem + s * C::kStageBytes);
+      fence_u32(cur);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        Rs<BX>::mma(acc, cur[4 * k], cur[4 * k + 1], cur[4 * k + 2], cur[4 * k + 3],
+                    sw64_desc(xs + 32 * k), st > 0 || k > 0);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        Rs<BX>::mma(acc, cur[8 + 4 * k], cur[8 + 4 * k + 1], cur[8 + 4 * k + 2],
+                    cur[8 + 4 * k + 3], sw64_desc(xs + C::kXBytes + 32 * k), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (st > 0) release(empty, (it + st - 1) % kStages, lane, rank);
+      if (more) {
+        const int sn = (it + st + 1) % kStages;
+        mbar_wait(&full[sn], ((it + st + 1) / kStages) & 1);
+        decode_stage(smem + sn * C::kStageBytes + 2 * C::kXBytes, r, c, sc, code, nxt);
+      }
+    };
+    for (int st = 0; st < nst; st += 2) {
+      step(st, fa, fb);
+      if (st + 1 < nst) step(st + 1, fb, fa);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty, (it + nst - 1) % kStages, lane, rank);
+    it += nst;
+    if (n0 >= N) continue;  // the odd W tile's partner: computed, not stored
+    const bool whole = w.hi - w.row0 == BX;  // no row past the group's end
+    ++n_tiles;
+    n_stages += nst;
+    n_masked += !whole;
+
+    // epilogue: the bias added in fp32 (accumulator 4 j + e holds W row r,
+    // e < 2, or r + 8), then K1's: rounded once and stored transposed into
+    // the staging tile by stmatrix.trans
+#pragma unroll
+    for (int j = 0; j < BX / 8; ++j) {
+      acc[4 * j] += b0;
+      acc[4 * j + 1] += b0;
+      acc[4 * j + 2] += b1;
+      acc[4 * j + 3] += b1;
+    }
+    if (t == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+    {
+      const int q = lane / 8;
+      const int chunk = 2 * warp + (q % 2);
+#pragma unroll
+      for (int j2 = 0; j2 < BX / 16; ++j2) {
+        const int row = 8 * (2 * j2 + q / 2) + lane % 8;
+        const uint32_t addr = smem_u32(staged + row * 128 + ((chunk ^ (row % 8)) * 16));
+        const int j0 = 2 * j2, j1 = 2 * j2 + 1;
+        asm volatile(
+            "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+            "r"(pack_bf16(acc[4 * j0], acc[4 * j0 + 1])),
+            "r"(pack_bf16(acc[4 * j0 + 2], acc[4 * j0 + 3])),
+            "r"(pack_bf16(acc[4 * j1], acc[4 * j1 + 1])),
+            "r"(pack_bf16(acc[4 * j1 + 2], acc[4 * j1 + 3]))
+            : "memory");
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    const int nw = n0 + 64 * wg;  // this warpgroup's first output column
+    if (whole) {
+      if (t == 0 && nw < N) {
+        tma_store_2d(&ty, staged, nw, w.row0);
+        bulk_commit();
+      }
+    } else {
+      // the group's own rows only, 16 bytes (8 columns; N % 8 == 0) a store
+      for (int i = t; i < (w.hi - w.row0) * 8; i += 128) {
+        const int row = i / 8, ch = i % 8;
+        if (nw + 8 * ch < N)
+          *reinterpret_cast<uint4*>(y + (size_t)(w.row0 + row) * N + nw + 8 * ch) =
+              *reinterpret_cast<const uint4*>(staged + row * 128 + ((ch ^ (row % 8)) * 16));
+      }
+    }
+  }
+  if (t == 0) {
+    bulk_wait<0>();
+    if (counts != nullptr && wg == 0) {
+      atomicAdd(counts + kCntTiles, n_tiles);
+      atomicAdd(counts + kCntStages, n_stages);
+      atomicAdd(counts + kCntMasked, n_masked);
     }
   }
 }
@@ -833,28 +1290,45 @@ int launch(const void* x, const void* w, const void* scales, void* y, void* coun
                          static_cast<int*>(counts), M, N, K, flags);
 }
 
-template <int BX>
-int launch_dx(const void* g, const void* packed, const void* absmax_t, void* dx, void* counts,
-              int M, int N, int K, cudaStream_t stream) {
-  using C = DxCfg<BX>;
+// K2 (kFp8 false: `w` the packed NF4 bytes [N, K/2], `scales` the absmax
+// transposed, [K/64, N]) or K13 (`w` e4m3 [N, K], `scales` [ceil(N/B),
+// ceil(K/B)] read in place).
+template <int BX, bool kFp8>
+int launch_dx(const void* g, const void* w, const void* scales, void* dx, void* counts, int M,
+              int N, int K, int block, cudaStream_t stream) {
+  using C = DxCfg<BX, kFp8>;
   const int half = K / 2;
   CUtensorMap tg, tw, ts, thi, tlo;
   int e = tile_map(&tg, g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, kDxRows, BX / 2,
                    CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == 0)
-    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, N, kDxCols, kDxRows,
-                 CU_TENSOR_MAP_SWIZZLE_64B);
-  if (e == 0)
-    e = tile_map(&ts, absmax_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K / 64, kDxRows, 1,
-                 CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (e == 0)
-    e = tile_map(&thi, dx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half, M, 64, BX,
-                 CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
-  if (e == 0)
-    e = tile_map(&tlo, static_cast<bf16*>(dx) + half, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half,
-                 M, 64, BX, CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  if (kFp8) {
+    if (e == 0)
+      e = tile_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kDx8Cols, kDxRows,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == 0)
+      e = tile_map(&thi, dx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, 64, BX,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+    const Fp8Grid grid = {static_cast<const float*>(scales), block, (N + block - 1) / block,
+                          (K + block - 1) / block};
+    memset(&ts, 0, sizeof ts);
+    memcpy(&ts, &grid, sizeof grid);
+    tlo = thi;  // unused
+  } else {
+    if (e == 0)
+      e = tile_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, N, kDxCols, kDxRows,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+    if (e == 0)
+      e = tile_map(&ts, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K / 64, kDxRows, 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e == 0)
+      e = tile_map(&thi, dx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half, M, 64, BX,
+                   CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+    if (e == 0)
+      e = tile_map(&tlo, static_cast<bf16*>(dx) + half, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                   half, M, 64, BX, CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  }
   if (e != 0) return e;
-  auto kernel = nf4_dx_wgmma_kernel<BX>;
+  auto kernel = nf4_dx_wgmma_kernel<BX, kFp8>;
   static bool configured = false;
   if (!configured) {
     e = static_cast<int>(
@@ -862,9 +1336,43 @@ int launch_dx(const void* g, const void* packed, const void* absmax_t, void* dx,
     if (e != 0) return e;
     configured = true;
   }
-  const long units = (long)((M + BX - 1) / BX) * (((half + kDxCols - 1) / kDxCols + 1) / 2);
+  const int tiles = kFp8 ? (K + kDx8Cols - 1) / kDx8Cols : (half + kDxCols - 1) / kDxCols;
+  const long units = (long)((M + BX - 1) / BX) * ((tiles + 1) / 2);
   return launch_clusters(kernel, C::kSmem, units, stream, tg, tw, ts, thi, tlo,
                          static_cast<int*>(counts), M, N, K);
+}
+
+template <int BX>
+int launch_gmm(const void* x, const void* packed, const void* absmax, const void* bias,
+               const void* group_sizes, void* y, void* counts, int M, int E, int N, int K,
+               int bs, cudaStream_t stream) {
+  if (E < 1 || E > kMaxGmmExperts || (bs != 32 && bs != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tw, ty;
+  int e = tile_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, kStep, BX / 2,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, (uint64_t)E * N, kStep,
+                 kBw, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == 0)
+    e = tile_map(&ty, y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, 64, BX,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  auto kernel = nf4_gmm_wgmma_kernel<BX>;
+  static bool configured = false;
+  if (!configured) {
+    e = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              GmmCfg<BX>::smem(kMaxGmmExperts)));
+    if (e != 0) return e;
+    configured = true;
+  }
+  // the group sizes stay on the device: as many clusters as the units could
+  // need at most (each group adds at most one partial row tile)
+  const long units = ((long)(M + BX - 1) / BX + E) * (((N + kBw - 1) / kBw + 1) / 2);
+  return launch_clusters(kernel, GmmCfg<BX>::smem(E), units, stream, tx, tw, ty,
+                         static_cast<const float*>(absmax), static_cast<const float*>(bias),
+                         static_cast<const int*>(group_sizes), static_cast<bf16*>(y),
+                         static_cast<int*>(counts), M, E, N, K, bs == 32 ? 5 : 6);
 }
 
 }  // namespace
@@ -904,6 +1412,44 @@ int unsloth_fp8_wgmma_launch(const void* x, const void* w, const void* scales, v
 int unsloth_nf4_dx_wgmma_launch(const void* g, const void* packed, const void* absmax_t,
                                 void* dx, void* counts, int M, int N, int K,
                                 cudaStream_t stream) {
-  if (M <= 128) return nf4w::launch_dx<128>(g, packed, absmax_t, dx, counts, M, N, K, stream);
-  return nf4w::launch_dx<256>(g, packed, absmax_t, dx, counts, M, N, K, stream);
+  if (M <= 128)
+    return nf4w::launch_dx<128, false>(g, packed, absmax_t, dx, counts, M, N, K, 64, stream);
+  return nf4w::launch_dx<256, false>(g, packed, absmax_t, dx, counts, M, N, K, 64, stream);
+}
+
+// dx = g @ dequant(W) for the FP8 backward (fp8_matmul.cu's entry point
+// calls it where its shape rule holds: M > 16, B % 32 == 0, K % 16 == 0,
+// N % 8 == 0, g, w and dx 16-byte aligned). g [M, N] bf16, w e4m3 [N, K],
+// scales fp32 [ceil(N/B), ceil(K/B)], dx [M, K] bf16. `counts`, when not
+// null, is an int32 [2] to which the kernel adds the output tiles (128
+// columns of dx) it stored and the stages it consumed. 128-row tiles of g
+// up to 128 rows, else 256.
+int unsloth_fp8_dx_wgmma_launch(const void* g, const void* w, const void* scales, void* dx,
+                                void* counts, int M, int N, int K, int block,
+                                cudaStream_t stream) {
+  if (M <= 128)
+    return nf4w::launch_dx<128, true>(g, w, scales, dx, counts, M, N, K, block, stream);
+  return nf4w::launch_dx<256, true>(g, w, scales, dx, counts, M, N, K, block, stream);
+}
+
+// y = x @ dequant(W_g)^T + bias[g] per group on `stream` for m > 16 rows
+// (nf4_gmm.cu's entry point calls it). Shapes as unsloth_nf4_gmm_bf16: x [M,
+// K] bf16 rows sorted by expert, packed [E, N, K/2] u8, absmax [E, N K / bs]
+// f32, bias [E, N] f32 or null, group_sizes [E] int32 on the device, y [M,
+// N] bf16 (every row written: rows past the groups are zeros); K/2 a
+// multiple of 32 and of bs (32 or 64), N of 8, E <= 1,024, x, packed and y
+// 16-byte aligned. `counts`, when not null, is an int32 [3] to which the
+// kernel adds the output tiles it stored, their stages, and the tiles of
+// those it stored by masked stores (a group's last). Rows of x at or below
+// 128 take 128-row tiles, the rest 256-row tiles (K1's rule). Returns the
+// launch's CUDA error code.
+int unsloth_nf4_gmm_wgmma_launch(const void* x, const void* packed, const void* absmax,
+                                 const void* bias, const void* group_sizes, void* y,
+                                 void* counts, int M, int E, int N, int K, int bs,
+                                 cudaStream_t stream) {
+  if (M <= 128)
+    return nf4w::launch_gmm<128>(x, packed, absmax, bias, group_sizes, y, counts, M, E, N, K, bs,
+                                 stream);
+  return nf4w::launch_gmm<256>(x, packed, absmax, bias, group_sizes, y, counts, M, E, N, K, bs,
+                               stream);
 }

@@ -174,8 +174,10 @@ def library() -> ctypes.CDLL:
         lib.unsloth_ce_fwd.restype = i
         lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_bwd.restype = i
+        # x, packed, absmax, bias, group sizes, out, m, E, N, K, block, the
+        # Hopper kernel's tile counters or null, stream
         lib.unsloth_nf4_gmm_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                             p]
+                                             p, p]
         lib.unsloth_nf4_gmm_bf16.restype = i
         lib.unsloth_nf4_gmm_dx_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                 p]
@@ -208,11 +210,12 @@ def library() -> ctypes.CDLL:
         lib.unsloth_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                                i, f, i, i, p]
         lib.unsloth_layer_norm_bwd.restype = i
-        # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, (the forward:
-        # the Hopper kernel's tile counters or null,) stream
+        # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, the Hopper
+        # kernel's tile counters or null, stream
         lib.unsloth_fp8_matmul_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_fp8_matmul_bf16.restype = i
-        lib.unsloth_fp8_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.unsloth_fp8_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p,
+                                                   p]
         lib.unsloth_fp8_matmul_dx_bf16.restype = i
         lib.unsloth_cuda_error_string.argtypes = [i]
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p

@@ -10,10 +10,14 @@ x^T), else ``csrc/fp8_matmul.cu``'s tiles, which decode into shared
 memory; the e4m3 weight streams from device memory at one byte a
 parameter, so the dense weight never exists there.
 :func:`fp8_matmul_tiles_ref` is the plain twin of the Hopper form's walk.
-The backward, dx = g @ W, is K13 in ``csrc/fp8_matmul.cu`` (TPU
-``_bwd_kernel``); W is frozen, so the gradient goes to x only. On a CPU
-tensor both run their plain versions, :func:`~.fp8.fp8_matmul_ref` and
-:func:`fp8_matmul_dx_ref`. The device of the tensor is the only thing that
+The backward, dx = g @ W, is K13 (TPU ``_bwd_kernel``): above 16 rows,
+where :func:`fp8_dx_wgmma_form` holds, K2's Hopper kernel in its e4m3 form
+(``csrc/nf4_wgmma.cu``: dx^T = W^T g^T, the bytes decoded into the A
+operand, g the B operand), else ``csrc/fp8_matmul.cu``'s tiles;
+:func:`fp8_matmul_dx_tiles_ref` and :func:`fp8_dx_tile_schedule` are the
+Hopper form's walk's twins. W is frozen, so the gradient goes to x only. On
+a CPU tensor both run their plain versions, :func:`~.fp8.fp8_matmul_ref`
+and :func:`fp8_matmul_dx_ref`. The device of the tensor is the only thing that
 chooses: the JAX package's opt-in switch (``UNSLOTH_FUSED_FP8``) and its
 ``% 128`` shape gate have no counterpart, and there is no fallback from a
 kernel to its plain version.
@@ -21,14 +25,15 @@ kernel to its plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import kernels
 from .fp8 import FP8_DTYPE, FP8Tensor, dequantize_fp8, fp8_matmul_ref
-from .qlora_matmul import (DECODE_ROWS, H100_SMS, STAGE_BYTES, TILE_W,
-                           nf4_tile_schedule, tile_rows_x)
+from .qlora_matmul import (DECODE_ROWS, DX_STAGE_ROWS, H100_SMS, STAGE_BYTES,
+                           TILE_W, _pair_schedule, nf4_tile_schedule,
+                           tile_rows_x)
 
 _MAX_ROW_TILES = 65535   # the kernels' grid.y: ceil(M / 64) row tiles
 
@@ -136,10 +141,95 @@ def fp8_matmul_tiles_ref(x: torch.Tensor, q: FP8Tensor, *,
     return y, visits
 
 
+def fp8_dx_wgmma_form(m: int, n: int, k: int, block: int, *ptrs: int
+                      ) -> bool:
+    """Whether K13 runs the Hopper kernel (csrc/fp8_matmul.cu's
+    ``fp8_dx_wgmma_form`` mirrors it): K12's rule (more than 16 rows, the
+    scale block a multiple of 32, so that a k step's 16 W rows and a warp's
+    16 columns lie in one block; ``in`` a multiple of 16) with ``out`` a
+    multiple of 8 (g's TMA row stride) and the pointers (g, W, dx) 16-byte
+    aligned. Other shapes run ``fp8_matmul_kernel<64, true>``, decode rows
+    ``<16, true>``."""
+    return fp8_wgmma_form(m, k, block, *ptrs) and n % 8 == 0
+
+
+#: K13's Hopper form (csrc/nf4_wgmma.cu, nf4_dx_wgmma_kernel<BX, true>): dx
+#: columns a tile (warpgroup 0 the first 64, warpgroup 1 the rest; one
+#: e4m3 byte a weight) and W rows a stage (K2's)
+FP8_DX_TILE = 128
+#: the rows and columns of W that one scale of the walk covers: a k step's
+#: 16 W rows and a warp's 16 dx columns
+FP8_DX_SCALE_TILE = 16
+
+
+def fp8_dx_tile_schedule(m: int, k: int, sms: int = H100_SMS
+                         ) -> List[List[Tuple[int, int]]]:
+    """K13's Hopper form's persistent schedule at dx [m, k]: for each block
+    of its grid, the (first row of g, first dx column) of the 128-column
+    tiles it stores, in order. K2's schedule with 128-column tiles:
+    clusters of two, as many as ``sms`` holds (at most one a unit); unit u
+    is the g tile u // P against the column tiles 2 p and 2 p + 1, p = u %
+    P; the partner of an odd last tile (past K) stores nothing."""
+    return _pair_schedule(m, -(-k // FP8_DX_TILE), FP8_DX_TILE, sms)
+
+
+def fp8_matmul_dx_tiles_ref(g: torch.Tensor, q: FP8Tensor, *,
+                            scale_shift: Tuple[int, int] = (0, 0),
+                            sms: int = H100_SMS):
+    """dx = g @ dequant(W) rebuilt from K13's Hopper walk, in plain
+    PyTorch: (dx in g.dtype, visits [tiles of g rows, 128-column tiles],
+    the times the schedule stores each output tile).
+
+    As the kernel: g comes in tiles padded with zeros past M and past N
+    (TMA's fill), W [N, K] in 128-column tiles of 64-row stages padded with
+    zero bytes past N and K (an e4m3 zero is 0); each 16 x 16 piece of W (a
+    k step's rows, a warp's columns) reads one scale, the grid's entry at
+    (its first row / B, its first column / B), past the grid's last row or
+    column its last (``scale_shift`` (rows, columns) reads the one that
+    many further along, a neighbour's); each weight is fp32(e4m3) * scale,
+    rounded to g.dtype; the sums are fp32 (in another order than the tensor
+    cores'), stage after stage, each output rounded once. Only the tiles
+    the schedule stores are written, clipped at M and K."""
+    m, n = g.shape
+    k = q.shape[1]
+    if q.block % STAGE_BYTES:
+        raise ValueError(f"block {q.block} is not a multiple of the "
+                         f"{STAGE_BYTES}-row and -column scale pieces")
+    bx = tile_rows_x(m)
+    schedule = fp8_dx_tile_schedule(m, k, sms)
+    tiles_k = -(-k // FP8_DX_TILE)
+    mp, kp = -(-m // bx) * bx, tiles_k * FP8_DX_TILE
+    nst = -(-n // DX_STAGE_ROWS)
+    np_ = nst * DX_STAGE_ROWS
+    gp = torch.zeros((mp, np_), dtype=torch.float32)
+    gp[:m, :n] = g.float()
+    wv = torch.zeros((np_, kp), dtype=torch.float32)
+    wv[:n, :k] = q.values.float()
+    t = FP8_DX_SCALE_TILE
+    rows = (torch.arange(np_) // t * t // q.block + scale_shift[0]).clamp(
+        max=q.scales.shape[0] - 1)
+    cols = (torch.arange(kp) // t * t // q.block + scale_shift[1]).clamp(
+        max=q.scales.shape[1] - 1)
+    w = (wv * q.scales.float()[rows][:, cols]).to(g.dtype).float()
+    acc = torch.zeros((mp, kp), dtype=torch.float32)
+    for st in range(nst):
+        r = slice(st * DX_STAGE_ROWS, (st + 1) * DX_STAGE_ROWS)
+        acc += gp[:, r] @ w[r]
+    dx = torch.empty((m, k), dtype=g.dtype)
+    visits = torch.zeros((mp // bx, tiles_k), dtype=torch.int64)
+    for tiles in schedule:
+        for m0, k0 in tiles:
+            visits[m0 // bx, k0 // FP8_DX_TILE] += 1
+            dx[m0:m0 + bx, k0:k0 + FP8_DX_TILE] = \
+                acc[m0:min(m0 + bx, m), k0:min(k0 + FP8_DX_TILE, k)].to(
+                    g.dtype)
+    return dx, visits
+
+
 def _launch(fn, name: str, a: torch.Tensor, q: FP8Tensor, cols: int,
             *extra) -> torch.Tensor:
     """Run ``fn`` (a C entry point) on a's rows, ``extra`` arguments (the
-    forward's tile counters) before the stream; returns [..., cols]."""
+    Hopper kernels' tile counters) before the stream; returns [..., cols]."""
     lead = a.shape[:-1]
     a2d = a.reshape(-1, a.shape[-1]).contiguous()
     m = a2d.shape[0]
@@ -187,15 +277,21 @@ def fp8_matmul_dx_ref(g: torch.Tensor, q: FP8Tensor) -> torch.Tensor:
     return torch.matmul(g, dequantize_fp8(q, g.dtype))
 
 
-def fp8_matmul_dx(g: torch.Tensor, q: FP8Tensor) -> torch.Tensor:
+def fp8_matmul_dx(g: torch.Tensor, q: FP8Tensor,
+                  tile_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx = g @ dequant(W); g [..., out], W [out, in] FP8; dx [..., in] in
     g.dtype. The backward of :func:`fp8_matmul` with respect to x: K13 on a
-    CUDA tensor (bf16 g only), the plain version on a CPU one."""
+    CUDA tensor (bf16 g only), the plain version on a CPU one.
+    ``tile_counts`` (CUDA only: an int32 [2] on g's device, or None)
+    receives what the Hopper form adds to it, the 128-column tiles it
+    stored and the stages it consumed (nothing where
+    :func:`fp8_dx_wgmma_form` does not hold)."""
     if g.device.type == "cpu":
         return fp8_matmul_dx_ref(g, q)
     _check_cuda("fp8_matmul_dx", g, q, q.shape[0], "out")
     dx = _launch(kernels.library().unsloth_fp8_matmul_dx_bf16,
-                 "fp8_matmul_dx", g, q, q.shape[1])
+                 "fp8_matmul_dx", g, q, q.shape[1],
+                 None if tile_counts is None else tile_counts.data_ptr())
     fp8_matmul_dx.launches += 1
     return dx
 

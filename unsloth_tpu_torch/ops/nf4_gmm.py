@@ -3,28 +3,37 @@ path), forward and backward.
 
 Counterpart of unsloth_tpu/ops/nf4_gmm.py. Rows of the input are sorted by
 expert; ``group_sizes`` [E] (int32, on the input's device) says how many
-rows each expert owns. On a CUDA tensor :func:`nf4_gmm` launches the
-hand-written kernel in ``csrc/nf4_gmm.cu`` (TPU ``_fwd_kernel``, K14),
-with the optional per-expert bias [E, N] added in its store epilogue; its
-backward, dx = g @ W_g per group, is the second kernel of that file (TPU
-``_bwd_kernel``, K15). W and the bias are frozen, so the gradient goes to
-the input only. The packed uint8 expert weights stream from device memory
-and are decoded in shared memory, so the dense [E, N, K] stack never
-exists in device memory. On a CPU tensor both run the plain version
-:func:`nf4_gmm_ref`. The device of the tensor is the only thing that
-chooses; there is no fallback from a kernel to its plain version.
+rows each expert owns. On a CUDA tensor :func:`nf4_gmm` launches a
+hand-written kernel (TPU ``_fwd_kernel``, K14), with the optional
+per-expert bias [E, N] added in its epilogue: above 16 rows
+``csrc/nf4_wgmma.cu``'s persistent Hopper kernel (K1's, the packed bytes
+decoded straight into the tensor cores' A operand, under a grouped
+schedule of row tiles laid from each group's first row), at 16 rows or
+fewer ``csrc/nf4_gmm.cu``'s decode tiles. :func:`nf4_gmm_tiles_ref` and
+:func:`nf4_gmm_tile_schedule` are the Hopper kernel's walk's twins. The
+backward, dx = g @ W_g per group, is ``csrc/nf4_gmm.cu``'s second kernel
+(TPU ``_bwd_kernel``, K15). W and the bias are frozen, so the gradient
+goes to the input only. The packed uint8 expert weights stream from device
+memory, so the dense [E, N, K] stack never exists there. On a CPU tensor
+both run the plain version :func:`nf4_gmm_ref`. The device of the tensor is
+the only thing that chooses; there is no fallback from a kernel to its
+plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import kernels
-from .nf4 import NF4Stacked, dequantize_nf4_stacked
+from .nf4 import NF4_CODE, NF4Stacked, dequantize_nf4_stacked
+from .qlora_matmul import (DECODE_ROWS, H100_SMS, STAGE_BYTES, TILE_W,
+                           tile_rows_x)
 
 _ALIGN = 16  # bytes: the kernels read x and the packed bytes 16 at a time
+#: the most experts the Hopper kernel's shared-memory group tables hold
+MAX_EXPERTS = 1024
 
 
 def nf4_gmm_ref(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
@@ -84,25 +93,159 @@ def _check_cuda(name: str, t: torch.Tensor, q: NF4Stacked,
                          f"for {e} experts")
 
 
+def _group_bounds(group_sizes, m: int) -> List[Tuple[int, int]]:
+    """[(first row, end)] of each group, the sizes clamped to [0, m] as the
+    kernel clamps them."""
+    out, off = [], 0
+    for size in [int(v) for v in group_sizes]:
+        end = min(off + max(size, 0), m)
+        out.append((off, end))
+        off = end
+    return out
+
+
+def nf4_gmm_tile_schedule(group_sizes, m: int, n: int, sms: int = H100_SMS
+                          ) -> List[List[Tuple[int, int, int, int]]]:
+    """The Hopper kernel's persistent schedule at y [m, n]: for each block
+    of its grid, the (group, first row, end of the group's rows in the
+    tile, first W row) of the output tiles it stores, in order.
+
+    Group g's row tiles are laid from its first row: ceil(size_g / BX)
+    tiles of BX rows (:func:`tile_rows_x`), the last
+    ending at the group's end. Unit u is (row tile, pair p of W_g's
+    128-row tiles), numbered group by group with the group's row tiles
+    fastest; the grid is clusters of two, as many as ``sms`` holds and at
+    most one for each unit the sizes could need (each group adds at most
+    one partial tile: the launch does not know them); cluster c takes
+    units c, c + clusters, ..., its block of rank r the W tile 2 p + r
+    (past N, where the W tiles are odd in number, nothing is stored)."""
+    bx = tile_rows_x(m)
+    tiles_n = -(-n // TILE_W)
+    pairs = -(-tiles_n // 2)
+    groups = _group_bounds(group_sizes, m)
+    units = []
+    for g, (lo, end) in enumerate(groups):
+        nt = -(-(end - lo) // bx)
+        units += [(g, lo + t * bx, min(end, lo + (t + 1) * bx), p)
+                  for p in range(pairs) for t in range(nt)]
+    bound = (-(-m // bx) + len(groups)) * pairs
+    clusters = min(bound, max(1, sms // 2))
+    return [[(g, row0, hi, (2 * p + r) * TILE_W)
+             for g, row0, hi, p in units[c::clusters]
+             if 2 * p + r < tiles_n]
+            for c in range(clusters) for r in (0, 1)]
+
+
+def nf4_gmm_tile_counts(group_sizes, m: int, n: int, k: int) -> List[int]:
+    """The Hopper kernel's counters at these sizes: [output tiles stored,
+    their stages, tiles stored by masked stores (a group's last where it
+    is short)]."""
+    bx = tile_rows_x(m)
+    tiles = [t for block in nf4_gmm_tile_schedule(group_sizes, m, n)
+             for t in block]
+    return [len(tiles), len(tiles) * (k // 2 // STAGE_BYTES),
+            sum(hi - row0 < bx for _, row0, hi, _ in tiles)]
+
+
+def nf4_gmm_tiles_ref(x: torch.Tensor, q: NF4Stacked, group_sizes,
+                      bias: Optional[torch.Tensor] = None, *,
+                      past_end: bool = False, low_with_high: bool = False,
+                      sms: int = H100_SMS):
+    """y = x @ dequant(W_g)^T + bias[g] rebuilt from the Hopper kernel's
+    walk, in plain PyTorch: (y in x.dtype, stores [m, W tiles], the times
+    the schedule stores each row of each 128-column output tile).
+
+    As the kernel: the tiles of :func:`nf4_gmm_tile_schedule`; a tile reads
+    BX rows of x from its first row on (the next group's rows, or zeros past
+    m, where the group ends sooner); stage st reads bytes [32 st, 32 st +
+    32) of each of W_g's rows, their high nibbles against x columns 32 st..
+    with the absmax block 32 st / B and their low nibbles against x columns
+    K/2 + 32 st.. with the block (K/2 + 32 st) / B; each weight is code *
+    absmax in fp32, rounded to x.dtype; the sums are fp32 (in another order
+    than the tensor cores'), stage after stage; the fp32 bias is added to
+    the sum, which is rounded once; a tile stores its group's rows only, and
+    the rows outside every group are zeros. Two faults: ``past_end`` stores
+    each tile's rows past its group's end too (over the next group's rows,
+    after their own stores), ``low_with_high`` reads the low side with the
+    high side's absmax block."""
+    e, n, k = q.shape
+    m = x.shape[0]
+    half, bs = k // 2, q.block_size
+    bx = tile_rows_x(m)
+    code = NF4_CODE.float()
+    xp = torch.zeros((m + bx, k), dtype=torch.float32)
+    xp[:m] = x.float()
+    absmax = q.absmax.float().reshape(e, n, k // bs)
+    j = torch.arange(half)
+    stage0 = j // STAGE_BYTES * STAGE_BYTES   # each byte's stage's first
+    blk_hi = stage0 // bs
+    blk_lo = blk_hi if low_with_high else (half + stage0) // bs
+    nst = half // STAGE_BYTES
+    y = torch.zeros((m, n), dtype=x.dtype)
+    stores = torch.zeros((m, -(-n // TILE_W)), dtype=torch.int64)
+    late = []
+    weights = {}
+    for tiles in nf4_gmm_tile_schedule(group_sizes, m, n, sms):
+        for g, row0, hi, n0 in tiles:
+            if g not in weights:
+                pk = q.packed[g].to(torch.int64)
+                w_hi = (code[pk >> 4] * absmax[g][:, blk_hi]).to(x.dtype)
+                w_lo = (code[pk & 15] * absmax[g][:, blk_lo]).to(x.dtype)
+                weights[g] = (w_hi.float(), w_lo.float())
+            w_hi, w_lo = weights[g]
+            n1 = min(n0 + TILE_W, n)
+            acc = torch.zeros((bx, n1 - n0), dtype=torch.float32)
+            for st in range(nst):
+                c = slice(st * STAGE_BYTES, (st + 1) * STAGE_BYTES)
+                acc += xp[row0:row0 + bx, c] @ w_hi[n0:n1, c].t()
+                acc += xp[row0:row0 + bx, half + st * STAGE_BYTES:
+                          half + (st + 1) * STAGE_BYTES] @ w_lo[n0:n1, c].t()
+            if bias is not None:
+                acc += bias[g, n0:n1].float()
+            out = acc.to(x.dtype)
+            y[row0:hi, n0:n1] = out[:hi - row0]
+            stores[row0:hi, n0 // TILE_W] += 1
+            end = min(row0 + bx, m)
+            if past_end and end > hi:
+                late.append((out[hi - row0:end - row0], hi, end, n0, n1))
+    for out, hi, end, n0, n1 in late:
+        y[hi:end, n0:n1] = out
+        stores[hi:end, n0 // TILE_W] += 1
+    return y, stores
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % _ALIGN else t
 
 
 def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                tile_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out [m, N] = lhs [m, K] @ dequant(W_g)^T (+ bias[g]) per group; the
-    plain version on a CPU tensor, K14 on a CUDA one."""
+    plain version on a CPU tensor, K14 on a CUDA one. ``tile_counts``
+    (CUDA only: an int32 [3] on lhs's device, or None) receives what the
+    Hopper kernel adds to it (:func:`nf4_gmm_tile_counts`; nothing at 16
+    rows or fewer)."""
     if lhs.device.type == "cpu":
         return nf4_gmm_ref(lhs, q, group_sizes, bias)
     _check_cuda("nf4_gmm", lhs, q, group_sizes, q.shape[2])
     e, n, k = q.shape
     m = lhs.shape[0]
-    out = torch.zeros((m, n), dtype=lhs.dtype, device=lhs.device)
+    if e > MAX_EXPERTS:
+        raise NotImplementedError(f"nf4_gmm CUDA kernel takes at most "
+                                  f"{MAX_EXPERTS} experts, got {e}")
+    # the Hopper kernel writes every row (zeros past the groups), the
+    # decode tiles only their groups' rows
+    out = (torch.empty if m > DECODE_ROWS else torch.zeros)(
+        (m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
         return out
     x = _aligned(lhs)
     packed = q.packed.contiguous()
+    if packed.data_ptr() % _ALIGN:
+        raise ValueError(f"nf4_gmm: packed weight is not {_ALIGN}-byte "
+                         "aligned")
     absmax = q.absmax.to(torch.float32).contiguous()
     b = None if bias is None else bias.to(torch.float32).contiguous()
     gs = group_sizes.to(torch.int32).contiguous()
@@ -110,6 +253,7 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
         x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
         None if b is None else b.data_ptr(), gs.data_ptr(), out.data_ptr(),
         m, e, n, k, q.block_size,
+        None if tile_counts is None else tile_counts.data_ptr(),
         torch.cuda.current_stream(lhs.device).cuda_stream)
     kernels.check(rc, "nf4_gmm")
     nf4_gmm.launches += 1

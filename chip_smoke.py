@@ -21,7 +21,9 @@ exits non-zero without printing a result:
                with its two-call yardstick) and its backward (K2) at every
                Llama-3.1-8B projection shape, RMSNorm forward (K3) and
                backward (K4), packed flash
-               attention forward and backward (K9-K11) on an 8K row, the
+               attention forward (K9, K16's Hopper forward on q *
+               bf16(scale), its tile classes held to the rule) and
+               backward (K10/K11) on an 8K row, the
                full-logits CE forward (K7) and backward (K8) at 4,094 rows
                of the 128,256 vocabulary, and unpacked flash attention
                (K16: forward, dq, dk/dv) on a padded [2, 2048] batch, with
@@ -48,7 +50,10 @@ exits non-zero without printing a result:
                NF4 expert kernels K14 (with the bias epilogue) and K15 at
                the path's 16,384 rows routed top-4 over 32 experts (N = K
                = 2,880, block 32), a skewed routing and the 8 rows of a
-               decode step, the grouped dense bf16 matmul K19 (forward
+               decode step (their tile counters held to their schedules'
+               twins, their walks' faults rejected), K15 also at block
+               64, at N % 64 != 0 and with sizes summing below m, the
+               grouped dense bf16 matmul K19 (forward
                with the bias epilogue, and dx) on the same three
                routings, and flash attention with sinks (K17: forward,
                dq, dk/dv, dsinks; 64/8 heads of 64) on the path's packed
@@ -1251,8 +1256,9 @@ def attention_build_report(build_log):
     false>`` and ``flash_{dq,dkv}_kernel<D, false>``, K18's ``<D, true,
     false>`` and ``<D, true>``, K17's forward ``<D, false, true>``), of
     K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``), of K2's
-    and K13's (``nf4_dx_wgmma_kernel<BX, kFp8>``) and of K14's
-    (``nf4_gmm_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the C75xx
+    and K13's (``nf4_dx_wgmma_kernel<BX, kFp8>``), of K14's
+    (``nf4_gmm_wgmma_kernel<BX>``) and of K15's
+    (``nf4_gmm_dx_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the C75xx
     lines, ptxas serializing their wgmma, that name one])."""
     import re
 
@@ -1280,6 +1286,9 @@ def attention_build_report(build_log):
             n = re.search(r"nf4_gmm_wgmma_kernelILi(\d+)E", m.group(1))
             if n:
                 name = f"nf4_gmm_wgmma_kernel<{n.group(1)}, K14>"
+            n = re.search(r"nf4_gmm_dx_wgmma_kernelILi(\d+)E", m.group(1))
+            if n:
+                name = f"nf4_gmm_dx_wgmma_kernel<{n.group(1)}, K15>"
             spill = 0
             continue
         if name is None:
@@ -1294,22 +1303,23 @@ def attention_build_report(build_log):
     serialized = [line.strip() for line in lines
                   if re.search(r"C75\d\d", line)
                   and re.search(r"flash_(fwd|dq|dkv)_kernel|"
-                                r"nf4_(?:dx_|gmm_)?wgmma_kernel", line)]
+                                r"nf4_(?:dx_|gmm_|gmm_dx_)?wgmma_kernel",
+                                line)]
     return rows, serialized
 
 
 #: Hopper instantiations phase 2 holds to 0 spill and no serialized wgmma:
 #: K16's and K18's nine, K17's three forwards, and two tile heights each of
 #: K1, K12 (K1's kernel in its e4m3 form), K2, K13 (K2's kernel in its e4m3
-#: form) and K14 (K1's under the grouped schedule)
-HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2
+#: form), K14 (K1's under the grouped schedule) and K15 (K2's under it)
+HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2
 
 
 def phase_build(hold=True):
     """Build the kernels and print ptxas's registers and spills; the 21
     Hopper attention kernels (K16's and K18's nine, K17's three forwards)
-    and the Hopper dequant-matmul kernels (K1, K12, K2, K13 and K14, two
-    tile heights each) must report no spill and no serialized wgmma
+    and the Hopper dequant-matmul kernels (K1, K12, K2, K13, K14 and K15,
+    two tile heights each) must report no spill and no serialized wgmma
     (:func:`attention_build_report`); with ``hold`` False (another
     checkout's build, profiled by ``--tree``) they are only reported."""
     from unsloth_tpu_torch import kernels
@@ -1334,7 +1344,7 @@ def phase_build(hold=True):
     if hold and (len(rows) != HOPPER_BUILD_ROWS
                  or any(b for _, _, b in rows) or serialized):
         raise RuntimeError(f"the Hopper attention kernels or the Hopper "
-                           f"K1 / K12 / K2 / K13 / K14 kernels spill or "
+                           f"K1 / K12 / K2 / K13 / K14 / K15 kernels spill or "
                            f"serialize their wgmma (or are not all built): "
                            f"{rows}, "
                            f"{serialized}")
@@ -1703,13 +1713,17 @@ def _training_kernels(dev, g, flush):
     with segment id != 0 (pad outputs are unspecified): out, dq, dk, dv
     row by row (:func:`attn_row_err`; the kernels round P and dS to bf16
     before their products, the plain version keeps fp32), lse within
-    1e-3; the backward pair is fed the kernel forward's (out, lse) on both
-    sides."""
+    1e-3; the backward pair (K10/K11) is fed the kernel forward's (out,
+    lse) on both sides. The forward (K9) is K16's Hopper forward on q *
+    bf16(scale): the tile pairs it classed skip, full and masked, read back
+    from its counters, must be the rule's (:func:`flash_tile_counts` at
+    its tiles), and the pre-scale pass is timed on its own."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from unsloth_tpu_torch.data.packing import max_segment_length
+    from unsloth_tpu_torch.ops import flash_attention as tfa
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops.nf4 import quantize_nf4
     from unsloth_tpu_torch.ops.qlora_matmul import (DX_STAGE_ROWS,
@@ -1824,8 +1838,9 @@ def _training_kernels(dev, g, flush):
     n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
     kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
     real = seg[0] != 0
-    out, lse = tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
-                                        n_kv=n_kv)
+    classes = torch.zeros(3, dtype=torch.int32, device=dev)
+    out, lse = tpa.packed_attention_fwd(q, k, v, seg, scale=scale,
+                                        tile_classes=classes)
     (rout, rlse), fwd_plain = once_ms(
         lambda: tpa.packed_attention_fwd_ref(q, k, v, seg, scale))
     dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out, lse,
@@ -1846,8 +1861,13 @@ def _training_kernels(dev, g, flush):
         errs[name] = ((got - ref).abs().max().item(),
                       attn_row_err(got, ref))
     lse_err = (lse - rlse)[..., real].abs().max().item()
-    fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(
-        q, k, v, seg, kv_lo, scale=scale, n_kv=n_kv), runs=10, flush=flush)
+    got_cls = classes.tolist()
+    want_cls = [hq * c_ for c_ in flash_tile_counts(
+        seg.cpu(), True, *tfa.KERNEL_TILES["fwd"][d])]
+    fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(q, k, v, seg,
+                                                      scale=scale),
+                     runs=10, flush=flush)
+    pre_ms = time_ms(lambda: tpa._prescale(q, scale), runs=10, flush=flush)
     bwd_ms = time_ms(lambda: tpa.packed_attention_bwd(
         q, k, v, seg, kv_lo, q_hi, out, lse, dout, scale=scale, n_kv=n_kv),
         runs=10, flush=flush)
@@ -1862,7 +1882,7 @@ def _training_kernels(dev, g, flush):
     rows["packed_attn_fwd"].append(dict(
         shape=shape, err=max(errs["out"][0], lse_err), ms=fwd_ms,
         plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
-        library_ms=lib_fwd))
+        library_ms=lib_fwd, tile_classes=got_cls, prescale_ms=pre_ms))
     rows["packed_attn_bwd"].append(dict(
         shape=shape, err=max(errs[n][0] for n in ("dq", "dk", "dv")),
         ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
@@ -1871,7 +1891,11 @@ def _training_kernels(dev, g, flush):
         f"{n} max|d|={e:.3e} row-wise {r:.3e}" for n, (e, r) in errs.items())
         + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
         "(tol 1e-3)")
-    log(f"[kernels] packed attention fwd kernel {fwd_ms:.4f} ms plain "
+    log(f"[kernels] packed attention fwd (K16's Hopper forward on q * "
+        f"bf16(scale)) tile pairs skip, full, masked {got_cls} (rule "
+        f"{want_cls})")
+    log(f"[kernels] packed attention fwd kernel {fwd_ms:.4f} ms (of which "
+        f"the pre-scale pass alone {pre_ms:.4f} ms) plain "
         f"{fwd_plain:.4f} ms SDPA {lib_fwd:.4f} ms bound {fb[0]:.4f} ms "
         f"({fb[1]}); bwd (dq + dk/dv) kernel {bwd_ms:.4f} ms plain "
         f"{bwd_plain:.4f} ms SDPA {lib_bwd:.4f} ms bound {bb[0]:.4f} ms "
@@ -1880,6 +1904,10 @@ def _training_kernels(dev, g, flush):
     if bad or not lse_err <= 1e-3:
         raise RuntimeError(f"packed attention disagrees in {bad}: {errs}, "
                            f"lse {lse_err}")
+    if got_cls != want_cls:
+        raise RuntimeError(f"packed attention fwd classed the tile pairs "
+                           f"{got_cls} (skip, full, masked), the rule "
+                           f"{want_cls}")
     return rows
 
 
@@ -2753,7 +2781,9 @@ def _gpt_oss_kernels(dev, g, flush):
     over 32 experts by a random router), N = K = 2,880, block 32, with
     bias; (b) a skewed routing of as many rows (one expert half of them,
     three more the rest, 28 none); (c) the 8 rows of a decode step (a
-    top-4 routing of 2 tokens); K19's tgmm (:func:`_tgmm_case`, the expert
+    top-4 routing of 2 tokens); K15 also at NF4_GMM_DX_SHAPES
+    (:func:`_gmm_dx_shapes`: block 64, N % 64 != 0, sizes summing below
+    m); K19's tgmm (:func:`_tgmm_case`, the expert
     weight gradient of the gate/up product, [E, F, D]) at (a) and (b) and
     at (d) TGMM_RAGGED; and K17 (:func:`_sinks_case`) on (a) the
     path's packed 4,096-token row and (b) a padded [2, 2048] batch, 64/8
@@ -2809,6 +2839,7 @@ def _gpt_oss_kernels(dev, g, flush):
             rows[name].append(row)
     del q, w, x_path, x_dec
     torch.cuda.empty_cache()
+    _gmm_dx_shapes(dev, g, flush)
     e_r, n_r, k_r, sizes_r = TGMM_RAGGED
     sizes_r = torch.tensor(sizes_r, dtype=torch.int32, device=dev)
     x_r = torch.randn((int(sizes_r.sum()), k_r), generator=g, device=dev
@@ -2883,15 +2914,59 @@ def nf4_gmm_faults(x, q, sizes, bias, ref):
     return faults
 
 
+def nf4_gmm_dx_faults(gy, q, sizes, ref):
+    """K15 as its Hopper walk's two faults would compute it (the twin's,
+    ``nf4_gmm_dx_tiles_ref(past_end=..., first_block=...)``): at block 32,
+    each tile's columns 32-63 read with the absmax block of its column 0 on
+    both sides (run through the kernel, fed such an absmax), and the first
+    tile that ends short of its row tile storing its rows past its group's
+    end too (over the next group's rows: those rows through the previous
+    group's weights; none where no tile ends short)."""
+    import dataclasses
+
+    import torch
+
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import dequantize_nf4_stacked
+    from unsloth_tpu_torch.ops.qlora_matmul import tile_rows_x
+
+    e, n, k = q.shape
+    m = gy.shape[0]
+    faults = {}
+    if q.block_size == 32:
+        hb = k // 2 // 32
+        am = q.absmax.reshape(e, n, 2 * hb).clone()
+        odd = torch.arange(1, hb, 2, device=am.device)
+        am[..., odd] = am[..., odd - 1]
+        am[..., hb + odd] = am[..., hb + odd - 1]
+        faults["columns 32-63 with column 0's absmax block"] = tng.nf4_gmm_dx(
+            gy, dataclasses.replace(q, absmax=am.reshape(q.absmax.shape)),
+            sizes)
+    bx = tile_rows_x(m)
+    short = [(g_, hi, min(row0 + bx, m))
+             for block in tng.nf4_gmm_dx_tile_schedule(sizes.tolist(), m, k)
+             for g_, row0, hi, _ in block if min(row0 + bx, m) > hi]
+    if short:
+        g_, hi, stop = short[0]
+        w = dequantize_nf4_stacked(q, torch.float32)[g_]
+        bad = ref.clone()
+        bad[hi:stop] = (gy[hi:stop].float() @ w).to(ref.dtype)
+        faults["stored past the group's end"] = bad
+    return faults
+
+
 def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     """K14 (with the bias epilogue) and K15 at one routing against
     nf4_gmm_ref, row by row (:func:`attn_row_err`: each output row on its
     own rms; the kernels round each weight to bf16, the plain version keeps
     fp32, both sum in fp32), and max|d| beside it. The check must reject
     the rows of one expert multiplied by the next expert's weights (in both
-    kernels), the bias dropped (K14) and the two faults of K14's walk
-    (:func:`nf4_gmm_faults`). Above 16 rows K14's tile counters must equal
-    its schedule's (``nf4_gmm_tile_counts``). Times: the kernels, the plain
+    kernels), the bias dropped (K14) and the two faults of each kernel's
+    walk (:func:`nf4_gmm_faults`, :func:`nf4_gmm_dx_faults`). Above 16
+    rows K14's tile counters must equal its schedule's
+    (``nf4_gmm_tile_counts``), and K15's at every row count its
+    (``nf4_gmm_dx_tile_counts``); K15's per-call absmax transpose is timed
+    on its own. Times: the kernels, the plain
     versions, and the library yardstick, which dequantizes the whole stack
     to bf16 and runs ``torch._grouped_mm`` (where the card's torch has
     it; labelled: it is dequantize + a grouped product, not one call).
@@ -2907,21 +2982,24 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     m = x.shape[0]
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
     counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    dx_counts = torch.zeros(3, dtype=torch.int32, device=dev)
     y = tng.nf4_gmm_fwd(x, q, sizes, bias, tile_counts=counts)
-    dx = tng.nf4_gmm_dx(gy, q, sizes)
+    dx = tng.nf4_gmm_dx(gy, q, sizes, tile_counts=dx_counts)
     ref, ref_ms = once_ms(lambda: tng.nf4_gmm_ref(x, q, sizes, bias))
     rdx, rdx_ms = once_ms(
         lambda: tng.nf4_gmm_ref(gy, q, sizes, transpose=True))
     torch.cuda.synchronize()
-    got_c = counts.tolist()
+    got_c, got_dx_c = counts.tolist(), dx_counts.tolist()
     want_c = tng.nf4_gmm_tile_counts(sizes.tolist(), m, n, k) \
         if m > DECODE_ROWS else [0, 0, 0]
+    want_dx_c = tng.nf4_gmm_dx_tile_counts(sizes.tolist(), m, n, k)
     log(f"[kernels] nf4_gmm {label}: tiles, stages, masked tiles {got_c} "
-        f"(schedule {want_c})")
-    if got_c != want_c:
-        raise RuntimeError(f"nf4_gmm {label}: the kernel counted {got_c} "
-                           f"(tiles, stages, masked tiles), its schedule "
-                           f"{want_c}")
+        f"(schedule {want_c}); nf4_gmm_dx {got_dx_c} (schedule "
+        f"{want_dx_c})")
+    if got_c != want_c or got_dx_c != want_dx_c:
+        raise RuntimeError(f"nf4_gmm {label}: the kernels counted {got_c} "
+                           f"and {got_dx_c} (tiles, stages, masked tiles), "
+                           f"their schedules {want_c} and {want_dx_c}")
     errs = {}
     for name, got, want in (("nf4_gmm", y, ref), ("nf4_gmm_dx", dx, rdx)):
         if not bool(torch.isfinite(got).all()):
@@ -2946,7 +3024,9 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
         "next expert's weights": wrong_y,
         "bias dropped": tng.nf4_gmm_ref(x, q, sizes),
         **nf4_gmm_faults(x, q, sizes, bias, ref)}),
-        "nf4_gmm_dx": _row_faults(rdx, {"next expert's weights": wrong_dx})}
+        "nf4_gmm_dx": _row_faults(rdx, {
+            "next expert's weights": wrong_dx,
+            **nf4_gmm_dx_faults(gy, q, sizes, rdx)})}
     lib = {"nf4_gmm": None, "nf4_gmm_dx": None}
     lib_err = {}
     if hasattr(torch, "_grouped_mm"):
@@ -2977,6 +3057,12 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
                             flush=flush), ref_ms),
         "nf4_gmm_dx": (time_ms(lambda: tng.nf4_gmm_dx(gy, q, sizes),
                                flush=flush), rdx_ms)}
+    # K15's wrapper transposes the absmax each call, inside its time above
+    transpose_ms = time_ms(lambda: q.absmax.reshape(
+        e, n, k // q.block_size).transpose(1, 2).contiguous(), runs=10,
+        flush=flush)
+    log(f"[kernels] nf4_gmm_dx {label}: the absmax transpose alone "
+        f"{transpose_ms:.4f} ms")
     n_live = len(live)
     w_bytes = n_live * (n * k // 2 + n * k // q.block_size * 4)
     b_fwd = bound(2 * m * n * k, m * k * 2 + w_bytes + n_live * n * 2
@@ -2990,7 +3076,72 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
                         {"nf4_gmm": b_fwd, "nf4_gmm_dx": b_dx}, lib, lib_err,
                         "dequantize + torch._grouped_mm")
     res["nf4_gmm"]["tile_counts"] = got_c
+    res["nf4_gmm_dx"]["tile_counts"] = got_dx_c
+    res["nf4_gmm_dx"]["absmax_transpose_ms"] = transpose_ms
     return res
+
+
+#: phase 3's further K15 shapes: (label, E, N, K, block, rows, the group
+#: sizes' sum, or None for every row)
+NF4_GMM_DX_SHAPES = (
+    ("(d) block 64", 8, 768, 2048, 64, 2048, None),
+    ("(e) N % 64 != 0", 8, 1000, 2880, 32, 2048, None),
+    ("(f) sizes below m", 8, 2880, 2880, 32, 2048, 1900))
+
+
+def _gmm_dx_shapes(dev, g, flush):
+    """K15 at NF4_GMM_DX_SHAPES beyond the path's routings: a top-4 routing
+    over E experts of rows/4 random tokens, cut to the sizes' sum where
+    one is given (the rows past the groups must come out zero over memory
+    the wrapper leaves uninitialised). Each against nf4_gmm_ref row by row
+    within ATTN_ROW_TOL, its counters equal to ``nf4_gmm_dx_tile_counts``,
+    and each fault of :func:`nf4_gmm_dx_faults` rejected; its time beside
+    the plain version's."""
+    import torch
+
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import quantize_nf4_stacked
+
+    for label, e, n, k, bs, m, total in NF4_GMM_DX_SHAPES:
+        q = quantize_nf4_stacked(
+            torch.randn((e, n, k), generator=g, device=dev) * 0.02, bs)
+        sel = torch.rand((m // 4, e), generator=g, device=dev).topk(
+            4, dim=-1).indices.reshape(-1)
+        sizes = torch.bincount(sel, minlength=e).to(torch.int32)
+        if total is not None:
+            for i in range(e - 1, -1, -1):
+                cut = min(int(sizes.sum()) - total, int(sizes[i]))
+                sizes[i] -= cut
+        gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+        counts = torch.zeros(3, dtype=torch.int32, device=dev)
+        torch.full((m, k), float("nan"), dtype=torch.bfloat16, device=dev)
+        dx = tng.nf4_gmm_dx(gy, q, sizes, tile_counts=counts)
+        ref, plain_ms = once_ms(
+            lambda: tng.nf4_gmm_ref(gy, q, sizes, transpose=True))
+        torch.cuda.synchronize()
+        got_c = counts.tolist()
+        want_c = tng.nf4_gmm_dx_tile_counts(sizes.tolist(), m, n, k)
+        end = int(sizes.sum())
+        err = attn_row_err(dx, ref)
+        faults = _row_faults(ref, nf4_gmm_dx_faults(gy, q, sizes, ref))
+        ms = time_ms(lambda: tng.nf4_gmm_dx(gy, q, sizes), flush=flush)
+        log(f"[kernels] nf4_gmm_dx {label}: m={m} ({end} in groups) E={e} "
+            f"N={n} K={k} block {bs}: row-wise {err:.3e} (tol "
+            f"{ATTN_ROW_TOL:.3e}); tiles, stages, masked tiles {got_c} "
+            f"(schedule {want_c}); faults "
+            + ", ".join(f"{f_} {r:.3e}" for f_, r in faults.items())
+            + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if not (bool(torch.isfinite(dx).all()) and err <= ATTN_ROW_TOL
+                and bool((dx[end:] == 0).all())):
+            raise RuntimeError(f"nf4_gmm_dx {label} disagrees: {err}")
+        if got_c != want_c:
+            raise RuntimeError(f"nf4_gmm_dx {label}: the kernel counted "
+                               f"{got_c}, its schedule {want_c}")
+        missed = [f_ for f_, r in faults.items() if not r > ATTN_ROW_TOL]
+        if not faults or missed:
+            raise RuntimeError(f"the nf4_gmm_dx check lets faults through "
+                               f"at {label}: {missed or 'none made'}")
+        del q, gy, dx, ref
 
 
 def _grouped_rows(what, shape, errs, faults, times, bounds, lib, lib_err,
@@ -6900,8 +7051,11 @@ def _device_report(prof, wall_us, top):
                                          for d in (64, 128, 256)),
                 # K18 runs on K16's kernels, instantiated with kSplash
                 "K18 splash": instances("true", "false"),
+                # K9 (the packed forward) runs K16's forward: on the packed
+                # path every flash_fwd_kernel<128, false, false> is K9's
                 "K16 flash": instances("false", "false")
                 + ("dkv_sum_kernel",),
+                "K10/K11 packed bwd": ("attn_dq_kernel", "attn_dkv_kernel"),
                 "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
                 ("rms_norm",)}
     sinks_spans = sorted(
@@ -8057,7 +8211,14 @@ KERNEL_FORMS = {
                       "fp8_matmul.cu's fp8_matmul_kernel<64, false> outside "
                       "fp8_wgmma_form, <16, false> at M <= 16)",
     "layer_norm_fwd": "layer_norm_warp_kernel (one warp a row, the row in "
-                      "registers; layer_norm_kernel at other widths)"}
+                      "registers; layer_norm_kernel at other widths)",
+    "nf4_gmm_dx": "nf4_gmm_dx_wgmma_kernel<256> (Hopper: K2's dx^T = W_g^T "
+                  "g^T under K14's grouped schedule, row tiles laid from "
+                  "each group's first row; <128> at m <= 128; every row "
+                  "count)",
+    "packed_attn_fwd": "flash_fwd_kernel<128, false, false> (K16's Hopper "
+                       "forward on q * bf16(scale) at scale 1, the tile "
+                       "pairs the segments rule out skipped)"}
 
 
 def _kernels_line(rows, by_path):
@@ -8087,8 +8248,10 @@ def _kernels_line(rows, by_path):
                               "unsloth_tpu/ops/cross_entropy.py:66", None),
         "cross_entropy_bwd": ("cross_entropy.cu",
                               "unsloth_tpu/ops/cross_entropy.py:111", None),
-        "packed_attn_fwd": ("packed_attention.cu",
-                            "unsloth_tpu/ops/packed_attention.py:109", None),
+        "packed_attn_fwd": ("flash_fwd.cu",
+                            "unsloth_tpu/ops/packed_attention.py:109 "
+                            "(_fwd_kernel, pallas_call :205 in _fwd :161)",
+                            None),
         "packed_attn_bwd": ("packed_attention.cu",
                             "unsloth_tpu/ops/packed_attention.py:224 and "
                             ":316", None),
@@ -8105,8 +8268,9 @@ def _kernels_line(rows, by_path):
         "nf4_gmm": ("nf4_wgmma.cu", "unsloth_tpu/ops/nf4_gmm.py:86 "
                     "(_fwd_kernel, pallas_call :243 in _nf4_gmm_fwd_impl "
                     ":204)", "(a) path"),
-        "nf4_gmm_dx": ("nf4_gmm.cu", "unsloth_tpu/ops/nf4_gmm.py:135",
-                       "(a) path"),
+        "nf4_gmm_dx": ("nf4_wgmma.cu", "unsloth_tpu/ops/nf4_gmm.py:135 "
+                       "(_bwd_kernel, pallas_call :307 in _nf4_gmm_bwd_impl "
+                       ":274)", "(a) path"),
         "flash_sinks_fwd": ("flash_fwd.cu",
                             "unsloth_tpu/ops/attention.py:456 (_tpu_flash_"
                             "sinks: bundled _flash_attention_impl)",
@@ -8267,7 +8431,9 @@ def _kernels_line(rows, by_path):
                                          "tile_classes_one_segment",
                                          "causal_tile_classes", "tile_classes",
                                          "same_bits", "library_ratio",
-                                         "unit_counts", "tile_counts")
+                                         "unit_counts", "tile_counts",
+                                         "prescale_ms",
+                                         "absmax_transpose_ms")
                if key in row}})
     return kernels_line
 

@@ -1,13 +1,15 @@
 """Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K5
-(the LayerNorm forward), K12 and K13 (the FP8 matmul forward and its dx)
-and K14 (the grouped NF4 expert forward) of one tree of the port on the
-card, at the shapes of ``chip_smoke.py``'s phase 3, beside the two-call
-yardsticks of K1, K2, K12 and K13 (dequantize, then ``torch.matmul``), of
-K14 (dequantize the stack, then ``torch._grouped_mm`` plus the bias
-gathered by row) and ``F.layer_norm``.
+(the LayerNorm forward), K12 and K13 (the FP8 matmul forward and its dx),
+K14 and K15 (the grouped NF4 expert forward and its dx) and K9 (the packed
+attention forward) of one tree of the port on the card, at the shapes of
+``chip_smoke.py``'s phase 3, beside the two-call yardsticks of K1, K2, K12
+and K13 (dequantize, then ``torch.matmul``), of K14 and K15 (dequantize
+the stack, then ``torch._grouped_mm``, K14 plus the bias gathered by row),
+``F.layer_norm`` and, for K9, ``F.scaled_dot_product_attention`` with the
+segments' causal mask.
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
-                                   [--only K1|K2|K5|K12|K13|K14]
+                                   [--only K1|K2|K5|K9|K12|K13|K14|K15]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -24,7 +26,12 @@ Inputs are made on the card from seed 0 as phase 3 makes them (K12's and
 K13's weights with per-block magnitudes, as ``chip_smoke.fp8_weight``;
 K14's routings (a) a top-4 of 4,096 random tokens over 32 experts by a
 random router, (b) one expert half the rows and three the rest, (c) a
-top-4 of 2 tokens).
+top-4 of 2 tokens; K15's g the same rows' gradients, and its per-call
+absmax transpose timed on its own; K9's 8K packed row of 15 documents of
+64-1,024 tokens and a pad tail, Llama-3.1-8B's 32/8 heads of 128, with
+the time of the q * bf16(scale) pass that the tree's K9 adds on its own).
+A tree whose ``packed_attention_fwd`` still takes the segment metadata
+(``kv_lo``, ``n_kv``) is called with it.
 """
 
 from __future__ import annotations
@@ -72,9 +79,13 @@ K13_SHAPES = (
      (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
       ("down", 4096, 14336))]
     + [("ragged", 1000, 1404, 32, 333)])
-# K14: gpt-oss-20b's experts (E, N = K, block) and the routed rows
+# K14, K15: gpt-oss-20b's experts (E, N = K, block) and the routed rows
 K14_EXPERTS = (32, 2880, 32)
 K14_TOKENS, K14_TOP_K = 4096, 4
+# K9: one packed row of Llama-3.1-8B attention (T, Hq, Hkv, D) and its
+# documents' lengths (chip_smoke.DOC_LENGTHS)
+K9_SHAPE = (8192, 32, 8, 128)
+K9_DOCS = (64, 1024)
 
 
 def fp8_weight(n, k, g, dev, block):
@@ -112,9 +123,10 @@ def time_ms(fn, flush, runs=20, warmup=3):
     return statistics.median(times)
 
 
-def k14_times(dev, g, flush, label):
-    """K14 at phase 3's three routings of gpt-oss-20b's experts (with the
-    bias), beside the grouped two calls."""
+def k14_times(dev, g, flush, label, dx=False):
+    """K14 (``dx`` False) or K15 at phase 3's three routings of
+    gpt-oss-20b's experts (K14 with the bias), beside the grouped two
+    calls."""
     import torch
 
     from unsloth_tpu_torch.ops import nf4_gmm as tng
@@ -157,32 +169,116 @@ def k14_times(dev, g, flush, label):
                     torch.arange(e, device=dev), sizes.long(),
                     output_size=rows)]
 
-        ref = tng.nf4_gmm_ref(x, q, sizes, bias)
+        gy = torch.randn((rows, d), generator=g, device=dev).to(
+            torch.bfloat16)
+
+        def two_calls_dx():
+            wd = dequantize_nf4_stacked(q, torch.bfloat16)
+            return torch._grouped_mm(
+                gy, wd.transpose(1, 2).contiguous().transpose(1, 2),
+                offs=offs)
+
+        if dx:
+            ref = tng.nf4_gmm_ref(gy, q, sizes, transpose=True)
+            fn, lib_fn = (lambda: tng.nf4_gmm_dx(gy, q, sizes)), two_calls_dx
+        else:
+            ref = tng.nf4_gmm_ref(x, q, sizes, bias)
+            fn, lib_fn = (lambda: tng.nf4_gmm_fwd(x, q, sizes, bias)), \
+                two_calls
         try:
-            lib = time_ms(two_calls, flush)
+            lib = time_ms(lib_fn, flush)
         except RuntimeError as exc:  # the yardstick only: reported
             lib = f"torch._grouped_mm failed: {exc!r}"[:160]
         live = int((sizes > 0).sum())
         nbytes = rows * d * 2 + live * (d * d // 2 + d * d // block * 4
-                                        + d * 2) + rows * d * 2
-        y = tng.nf4_gmm_fwd(x, q, sizes, bias)
+                                        + (0 if dx else d * 2)) + rows * d * 2
+        y = fn()
         err = ((y.float() - ref.float()).abs().max()
                / ref.float().abs().max()).item()
-        ms = time_ms(lambda: tng.nf4_gmm_fwd(x, q, sizes, bias), flush)
-        print(json.dumps({"label": label, "kernel": "K14",
+        ms = time_ms(fn, flush)
+        extra = {}
+        if dx:
+            extra["absmax_transpose_ms"] = time_ms(
+                lambda: q.absmax.reshape(e, d, d // block).transpose(
+                    1, 2).contiguous(), flush)
+        print(json.dumps({"label": label, "kernel": "K15" if dx else "K14",
                           "shape": f"{case}: m={rows} E={e} N=K={d} "
                                    f"block {block}, {live} experts",
                           "ms": ms, "two_calls_ms": lib,
                           "bound_ms": bound_ms(rows, d, d, nbytes),
-                          "rel_err": err}), flush=True)
+                          "rel_err": err, **extra}), flush=True)
+
+
+def k9_times(dev, g, flush, label):
+    """K9 (the packed attention forward) on the 8K packed row beside SDPA
+    with the segments' causal mask, and the pre-scale pass alone."""
+    import inspect
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unsloth_tpu_torch.ops import packed_attention as tpa
+
+    t, hq, hkv, d = K9_SHAPE
+    rng = np.random.default_rng(0)
+    seg = np.zeros((1, t), np.int32)
+    pos, sid = 0, 1
+    while True:
+        n = int(rng.integers(K9_DOCS[0], K9_DOCS[1] + 1))
+        if pos + n > t - 1:
+            break
+        seg[0, pos:pos + n] = sid
+        pos, sid = pos + n, sid + 1
+    seg = torch.from_numpy(seg).to(dev)
+    q, k, v = (torch.randn((1, t, h, d), generator=g, device=dev).to(
+        torch.bfloat16) for h in (hq, hkv, hkv))
+    scale = d ** -0.5
+    real = seg[0] != 0
+    if "n_kv" in inspect.signature(tpa.packed_attention_fwd).parameters:
+        n_kv = tpa.bound_blocks(int(np.bincount(seg[0][real].cpu()).max()),
+                                tpa.BLOCK)
+        kv_lo, _ = tpa.segment_block_metadata(seg, tpa.BLOCK)
+
+        def fwd():
+            return tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
+                                            n_kv=n_kv)
+    else:
+        def fwd():
+            return tpa.packed_attention_fwd(q, k, v, seg, scale=scale)
+
+    pos_ = torch.arange(t, device=dev)
+    mask = ((pos_[:, None] >= pos_[None, :])
+            & (seg[0][:, None] == seg[0][None, :]))[None, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    out, lse = fwd()
+    rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
+    err = (out[:, real].float() - rout[:, real].float()).abs().max().item()
+    lse_err = (lse - rlse)[..., real].abs().max().item()
+    lens = np.bincount(seg[0][real].cpu().numpy())
+    pairs = int((lens * (lens + 1) // 2).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, lse))
+    print(json.dumps({
+        "label": label, "kernel": "K9",
+        "shape": f"B=1 T={t} Hq={hq} Hkv={hkv} D={d}, {int(seg.max())} "
+                 f"segments, pad {int((~real).sum())}",
+        "ms": time_ms(fwd, flush), "sdpa_ms": time_ms(sdpa, flush),
+        "prescale_ms": time_ms(lambda: tpa._prescale(q, scale), flush),
+        "bound_ms": 1e3 * max(4 * d * hq * pairs / 989e12, nbytes / 3.35e12),
+        "max_abs_err": err, "lse_err": lse_err}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", choices=("K1", "K2", "K5", "K12", "K13", "K14"),
-                    default=None)
+    ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K12", "K13",
+                                       "K14", "K15"), default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -294,6 +390,10 @@ def main() -> int:
         del q, gy, dx, ref
     if args.only in (None, "K14"):
         k14_times(dev, g, flush, args.label)
+    if args.only in (None, "K15"):
+        k14_times(dev, g, flush, args.label, dx=True)
+    if args.only in (None, "K9"):
+        k9_times(dev, g, flush, args.label)
     for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
                               else ()):
         dtype = getattr(torch, dt)

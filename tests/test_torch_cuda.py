@@ -5,6 +5,7 @@ These need an NVIDIA GPU and nvcc; without one they skip. On the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -208,12 +209,15 @@ def _segments(t, lo, hi, seed):
 
 
 def test_packed_attention_kernels_match_plain(dev):
-    """Forward (out, lse) and backward (dq, dk, dv) of the kernels against
+    """Forward (out, lse: K16's Hopper forward on q * bf16(scale)) and
+    backward (dq, dk, dv: K10/K11 fed that forward's out and lse) against
     the plain per-segment fp32 versions on the same bf16 inputs and the
     same saved (out, lse), at real positions: out/dq/dk/dv row by row
     (``chip_smoke.attn_row_err``: each element within 2^-6 of its value
     plus 2^-4 of its (token, head) row's rms; bf16 P and dS, bf16
-    outputs), lse within 1e-3."""
+    outputs), lse within 1e-3. The forward counts as K9's launch, not
+    K16's, and its tile-pair classes are the rule's
+    (``chip_smoke.flash_tile_counts`` at the forward's tiles)."""
     t, hq, hkv, d, max_len = 1024, 8, 2, 128, 300
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
@@ -223,9 +227,11 @@ def test_packed_attention_kernels_match_plain(dev):
     n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
     kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
     before = (tpa.packed_attention_fwd.launches,
-              tpa.packed_attention_bwd.launches)
-    out, lse = tpa.packed_attention_fwd(q, k, v, seg, kv_lo, scale=scale,
-                                        n_kv=n_kv)
+              tpa.packed_attention_bwd.launches,
+              tfa.flash_attention_fwd.launches)
+    classes = torch.zeros(3, dtype=torch.int32, device=dev)
+    out, lse = tpa.packed_attention_fwd(q, k, v, seg, scale=scale,
+                                        tile_classes=classes)
     dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out,
                                           lse, dout, scale=scale, n_kv=n_kv)
     rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
@@ -233,8 +239,11 @@ def test_packed_attention_kernels_match_plain(dev):
                                                  dout, scale)
     torch.cuda.synchronize()
     assert (tpa.packed_attention_fwd.launches,
-            tpa.packed_attention_bwd.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+            tpa.packed_attention_bwd.launches,
+            tfa.flash_attention_fwd.launches) == (before[0] + 1,
+                                                   before[1] + 1, before[2])
+    assert [c // hq for c in classes.tolist()] == flash_tile_counts(
+        seg.cpu(), True, *tfa.KERNEL_TILES["fwd"][d])
     real = (seg[0] != 0)
     assert ((lse - rlse)[..., real]).abs().max() <= 1e-3
     for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):
@@ -617,6 +626,50 @@ def test_nf4_gmm_hopper_tiles_match_the_schedule(dev, e, n, k, bs, sizes,
     assert torch.isfinite(y).all()
     assert attn_row_err(y, ref) <= ATTN_ROW_TOL
     assert bool((y[sum(sizes):] == 0).all())
+
+
+@pytest.mark.parametrize("e,n,k,bs,sizes,extra", [
+    (4, 320, 2880, 32, [0, 5, 0, 3], 0),            # 8 decode rows
+    (4, 320, 2880, 32, [40, 0, 70, 9], 5),          # 124 rows: 128-row tiles
+    (5, 320, 2880, 32, [150, 0, 400, 37, 90], 40),  # a group over tiles,
+                                                    # an empty group, rows
+                                                    # past the groups
+    (4, 768, 2048, 64, [300, 0, 513, 200], 0),      # qwen3-moe's widths, B 64
+    (3, 136, 512, 64, [129, 0, 260], 7)])           # N % 64 == 8
+def test_nf4_gmm_dx_hopper_tiles_match_the_twin(dev, e, n, k, bs, sizes,
+                                                extra):
+    """K15 at every row count on K2's Hopper kernel under the grouped
+    schedule, at both row tiles (128 up to 128 rows, else 256): dx within
+    one bf16 ulp (plus 2^-20 of the largest) of its walk's twin
+    nf4_gmm_dx_tiles_ref on the same inputs (the same bf16 weights, fp32
+    sums in another order, one rounding), within ATTN_ROW_TOL of
+    nf4_gmm_ref row by row, the rows past the groups zero over memory the
+    wrapper leaves uninitialised, and the tile counters equal to
+    nf4_gmm_dx_tile_counts (tiles, stages, tiles stored by masked
+    stores)."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    q = quantize_nf4_stacked(
+        torch.randn((e, n, k), generator=g, device=dev) * 0.05, bs)
+    m = sum(sizes) + extra
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    # NaN in the block the caching allocator hands dx next
+    torch.full((m, k), float("nan"), dtype=torch.bfloat16, device=dev)
+    before = tng.nf4_gmm_dx.launches
+    dx = tng.nf4_gmm_dx(gy, q, sz, tile_counts=counts)
+    ref = tng.nf4_gmm_ref(gy, q, sz, transpose=True)
+    torch.cuda.synchronize()
+    assert tng.nf4_gmm_dx.launches == before + 1
+    assert counts.tolist() == tng.nf4_gmm_dx_tile_counts(sizes, m, n, k)
+    assert torch.isfinite(dx).all()
+    twin, _ = tng.nf4_gmm_dx_tiles_ref(gy.cpu(), q.to("cpu"), sizes)
+    got, want = dx.cpu().float(), twin.float()
+    ulp = torch.from_numpy(np.spacing(want.abs().numpy())) * 2.0 ** 16
+    assert bool(((got - want).abs()
+                 <= ulp + 2.0 ** -20 * want.abs().max()).all())
+    assert attn_row_err(dx, ref) <= ATTN_ROW_TOL
+    assert bool((dx[sum(sizes):] == 0).all())
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

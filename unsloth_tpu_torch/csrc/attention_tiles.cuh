@@ -1,10 +1,11 @@
-// Device code of the packed flash attention kernels, packed_attention.cu
-// (segment-block-sparse, packed rows; TPU kernels of
-// unsloth_tpu/ops/packed_attention.py, D = 128). Unpacked flash attention
-// (K16) has its own Hopper kernels: flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu on hopper_tiles.cuh.
+// Device code of the packed flash attention backward, packed_attention.cu
+// (segment-block-sparse, packed rows; the dq and dk/dv TPU kernels of
+// unsloth_tpu/ops/packed_attention.py, D = 128). The packed forward runs on
+// K16's Hopper forward (flash_fwd.cu, on hopper_tiles.cuh), which skips the
+// tile pairs the segments rule out, launched by the port's wrapper on q
+// pre-scaled in bf16.
 //
-// packed_attention.cu instantiates the three kernels below at D = 128 with
+// packed_attention.cu instantiates the two kernels below at D = 128 with
 // its causal PackedRange alone. The head dims 64 and 256 (Tiles<D>), the
 // non-causal branches of the in-tile masks and the q_begin hook served the
 // old unpacked kernels and no longer compile into anything; cutting them is
@@ -39,8 +40,8 @@
 // nothing (a query past T gets one sentinel, a key past T another), and are
 // never stored.
 //
-// Design, kept simple: one block per (64-query tile, head) for the forward
-// and dq, per (64-key tile, kv head) for dk/dv; tiles are staged in shared
+// Design, kept simple: one block per (64-query tile, head) for dq, per
+// (64-key tile, kv head) for dk/dv; tiles are staged in shared
 // memory and multiplied with nvcuda::wmma 16x16x16 bf16 MMAs in fp32. The
 // block has four row groups of 16 rows times D / kSlice column groups of
 // warps (kSlice = min(D, 128)): every warp accumulates a 16 x kSlice slice
@@ -50,8 +51,7 @@
 // warp per row, 2 columns a lane, so the row statistics need only warp
 // shuffles. With one column group a warp reads only the score rows it
 // wrote, and a warp barrier suffices between the products and the softmax
-// (sync_rows). The forward keeps its running output in shared memory
-// (fp32) so a row can be rescaled; dq, dk and dv accumulate in registers.
+// (sync_rows). dq, dk and dv accumulate in registers.
 // The TPU's sequential grid axis becomes a loop inside the block; dq and
 // dk/dv are separate kernels and dk/dv loops over the query heads of its
 // kv head itself, so there are no atomics and the result is the same on
@@ -97,7 +97,6 @@ struct Tiles {
   static constexpr int kTileP = kBlk * kLdp * 2;
   static constexpr int kTileO = kBlk * kLdo * 4;
   static constexpr int kRowVecs = 4 * kBlk * 4;         // four [64] fp32/int32 arrays
-  static constexpr int kFwdSmem = 3 * kTileBf16 + kTileS + kTileP + kTileO + kRowVecs;
   static constexpr int kDqSmem = 4 * kTileBf16 + 2 * kTileS + kTileP + kRowVecs;
   static constexpr int kDkvSmem = 4 * kTileBf16 + 2 * kTileS + 2 * kTileP + kRowVecs;
   static_assert(kDqSmem >= kTileO && kDkvSmem >= kTileO, "the store stage fits");
@@ -221,123 +220,6 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, float* stage,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(s[2 * e] * scale, s[2 * e + 1] * scale);
     *reinterpret_cast<uint4*>(dst + (((size_t)b * T + t0 + r) * H + h) * D + col) = o;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (ceil(T/64), Hq, B)
-// ---------------------------------------------------------------------------
-template <int D, class Range>
-__global__ void __launch_bounds__(Tiles<D>::kThreads)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ seg, Range range,
-                bf16* __restrict__ out, float* __restrict__ lse, AttnArgs a) {
-  using C = Tiles<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBlk * C::kLd;
-  bf16* Vs = Ks + kBlk * C::kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBlk * C::kLd);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + kBlk * kLds);
-  float* Os = reinterpret_cast<float*>(Ps + kBlk * kLdp);
-  float* m_s = Os + kBlk * C::kLdo;
-  float* l_s = m_s + kBlk;
-  int* qseg = reinterpret_cast<int*>(l_s + kBlk);
-  int* kseg = qseg + kBlk;
-
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int T = a.T;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, c0 = (warp / 4) * C::kSlice;
-
-  load_tile<D>(Qs, q, b, T, a.Hq, h, iq * kBlk, a.prescale_q, a.scale_q);
-  load_seg<D>(qseg, seg, b, T, iq * kBlk, kQueryPastEnd);
-  for (int i = threadIdx.x; i < kBlk; i += C::kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < kBlk * C::kLdo; i += C::kThreads) Os[i] = 0.0f;
-
-  const int hi = range.kv_end(b, iq);
-  for (int j = range.kv_begin(b, iq); j <= hi; ++j) {
-    if (range.skip(b, iq, j)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, k, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_tile<D>(Vs, v, b, T, a.Hkv, hk, j * kBlk, false, 1.0f);
-    load_seg<D>(kseg, seg, b, T, j * kBlk, kKeyPastEnd);
-    __syncthreads();
-
-    tile_times_tile_t<D>(Ss, Qs, Ks, warp);
-    sync_rows<D>();
-    for (int rr = 0; rr < C::kRows; ++rr) {
-      const int r = warp * C::kRows + rr;
-      const int qpos = iq * kBlk + r;
-      const int qs = qseg[r];
-      const float s0 = Ss[r * kLds + lane] * a.s_scale;
-      const float s1 = Ss[r * kLds + lane + 32] * a.s_scale;
-      const bool v0 = kseg[lane] == qs && (!Range::kCausal || j * kBlk + lane <= qpos);
-      const bool v1 = kseg[lane + 32] == qs && (!Range::kCausal || j * kBlk + lane + 32 <= qpos);
-      const float mx = warp_max(fmaxf(v0 ? s0 : kNegInf, v1 ? s1 : kNegInf));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      const float p0 = v0 ? expf(s0 - m_new) : 0.0f;
-      const float p1 = v1 ? expf(s1 - m_new) : 0.0f;
-      const float sum = warp_sum(p0 + p1);
-      Ps[r * kLdp + lane] = __float2bfloat16(p0);
-      Ps[r * kLdp + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) Os[r * C::kLdo + d] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-      }
-    }
-    sync_rows<D>();  // P and the rescaled rows are in place
-
-    Frag o[C::kSlice / 16];
-#pragma unroll
-    for (int nf = 0; nf < C::kSlice / 16; ++nf)
-      wmma::load_matrix_sync(o[nf], Os + wr * 16 * C::kLdo + c0 + nf * 16, C::kLdo,
-                             wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBlk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Ps + wr * 16 * kLdp + kk, kLdp);
-#pragma unroll
-      for (int nf = 0; nf < C::kSlice / 16; ++nf) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * C::kLd + c0 + nf * 16, C::kLd);
-        wmma::mma_sync(o[nf], pa, bv, o[nf]);
-      }
-    }
-#pragma unroll
-    for (int nf = 0; nf < C::kSlice / 16; ++nf)
-      wmma::store_matrix_sync(Os + wr * 16 * C::kLdo + c0 + nf * 16, o[nf], C::kLdo,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kBlk * kChunks; c += C::kThreads) {
-    const int r = c / kChunks;
-    if (iq * kBlk + r >= T) continue;
-    const int col = (c % kChunks) * 8;
-    const float l = l_s[r];
-    const float* s = Os + r * C::kLdo + col;
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o2[e] = __floats2bfloat162_rn(l > 0.0f ? s[2 * e] / l : 0.0f,
-                                    l > 0.0f ? s[2 * e + 1] / l : 0.0f);
-    *reinterpret_cast<uint4*>(out + (((size_t)b * T + iq * kBlk + r) * a.Hq + h) * D + col) = o;
-  }
-  for (int r = threadIdx.x; r < kBlk; r += C::kThreads) {
-    if (iq * kBlk + r >= T) continue;
-    const float l = l_s[r];
-    lse[((size_t)b * a.Hq + h) * T + iq * kBlk + r] = l > 0.0f ? m_s[r] + logf(l) : kEmptyLse;
   }
 }
 

@@ -1,20 +1,20 @@
 // Grouped NF4 dequant-inside-matmul over experts (the MoE QLoRA base), K14
-// and K15.
+// and K15: the decode-row kernel and the C entry points.
 //
 //   nf4_gmm_kernel<16>   out[r, :] = x[r, :] @ dequant(W_g)^T + bias[g]
 //                        for the rows r of group g (K14 at decode rows)
-//   nf4_gmm_dx_kernel    dx[r, :] = g[r, :] @ dequant(W_g)              (K15)
 //
 // K14 above 16 rows is nf4_wgmma.cu's nf4_gmm_wgmma_kernel<BX>, K1's Hopper
-// kernel under a grouped persistent schedule (see its note); this file
-// holds the C entry point that picks it.
+// kernel under a grouped persistent schedule, and K15 (dx = g @ dequant(W_g)
+// per group) at every row count its nf4_gmm_dx_wgmma_kernel<BX>, K2's
+// Hopper kernel under the same schedule (see their notes); this file holds
+// the C entry points that pick them.
 //
-// Replaces the TPU kernels unsloth_tpu/ops/nf4_gmm.py:_fwd_kernel (launched
-// by _nf4_gmm_fwd_impl) and _bwd_kernel (launched by _nf4_gmm_bwd_impl).
-// Same arithmetic as those and as the dense NF4 kernels (nf4_matmul.cu):
-// each weight is NF4_CODE[nibble] * absmax (fp32) rounded to bf16, products
-// summed in fp32, the bias (fp32) added to the fp32 sum, one rounding to
-// bf16 at the store.
+// Replaces the TPU kernel unsloth_tpu/ops/nf4_gmm.py:_fwd_kernel (launched
+// by _nf4_gmm_fwd_impl) at decode rows. Same arithmetic as it and as the
+// dense NF4 kernels (nf4_matmul.cu): each weight is NF4_CODE[nibble] *
+// absmax (fp32) rounded to bf16, products summed in fp32, the bias (fp32)
+// added to the fp32 sum, one rounding to bf16 at the store.
 //
 // Layout: rows of x (and of g, dx, out) are sorted by expert; group g owns
 // rows [off_g, off_g + size_g), off the running sum of the int32 group
@@ -36,16 +36,13 @@
 // the E group sizes (thread 0), so the launch needs no metadata from the
 // host.
 //
-// What bounds it on an H100: at training row counts (m = 16,384 sorted
-// rows, N = K = 2,880) tensor-core throughput, 2 m N K operations; each
-// decoded weight tile is reused across a BM-row tile of x. At decode (8
-// rows over at most 8 experts) the bytes of the visited experts' weights,
-// 0.5 B/param plus 4 B per block of absmax. Design: the structure of
-// nf4_matmul.cu's kernels, one block per (64-column tile, visit), the
-// 16-entry codebook in shared memory, decoded bf16 tiles in shared memory,
-// nvcuda::wmma 16x16x16 bf16 MMAs with fp32 accumulators; a visit decodes
-// its expert's weight tile once for all of its rows. K15's wgmma, TMA and
-// pipelining are later work.
+// What bounds it on an H100: at decode (8 rows over at most 8 experts) the
+// bytes of the visited experts' weights, 0.5 B/param plus 4 B per block of
+// absmax. Design: the structure of nf4_matmul.cu's kernels, one block per
+// (64-column tile, visit), the 16-entry codebook in shared memory, decoded
+// bf16 tiles in shared memory, nvcuda::wmma 16x16x16 bf16 MMAs with fp32
+// accumulators; a visit decodes its expert's weight tile once for all of
+// its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -210,129 +207,15 @@ nf4_gmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   }
 }
 
-// ---------------------------------------------------------------------------
-// K15 dx: grid (ceil(K/2 / 64), ceil(m / 64) + E). A block owns the 64-byte
-// column stretch j0 of its expert's packed weight and one visit; it reduces
-// over the N weight rows 64 at a time (masked past N) and writes the two
-// 64-column dx tiles that stretch decodes to, dx[:, j0..] (high nibbles) and
-// dx[:, K/2 + j0..] (low nibbles), the pairing of K2's Hopper kernel
-// (nf4_wgmma.cu) too.
-// ---------------------------------------------------------------------------
-constexpr int kDxBM = 64;
-constexpr int kDxBK = 64;           // W rows (reduction) per step
-constexpr int kDxLdg = kDxBK + 8;
-constexpr int kDxLdw = kStep + 8;
-constexpr int kDxLdc = 2 * kStep + 4;
-
-__global__ void __launch_bounds__(kThreads)
-nf4_gmm_dx_kernel(const __nv_bfloat16* __restrict__ g, const uint8_t* __restrict__ packed,
-                  const float* __restrict__ absmax, const int* __restrict__ group_sizes,
-                  __nv_bfloat16* __restrict__ dx, int E, int N, int K, int bs) {
-  constexpr int BM = kDxBM;
-  constexpr int kBytesAB = (BM * kDxLdg + 2 * kDxBK * kDxLdw) * 2;
-  constexpr int kBytesC = BM * kDxLdc * 4;
-  constexpr int kBytes = kBytesAB > kBytesC ? kBytesAB : kBytesC;
-  __shared__ __align__(128) unsigned char smem[kBytes];
-  __shared__ float code[16];
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = gs + BM * kDxLdg;
-  float* cs = reinterpret_cast<float*>(smem);
-
-  const Visit vis = find_visit<BM>(group_sizes, E, blockIdx.y);
-  if (vis.expert < 0) return;  // uniform over the block
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;    // rows 32 wm .. +32 of the tile
-  const int side = warp % 2;  // which 64-column output tile
-  const int m0 = vis.lo / BM * BM;
-  const int j0 = blockIdx.x * kStep;
-  const int half = K / 2;
-  const size_t blocks_per_row = K / bs;
-  const uint8_t* wp = packed + (size_t)vis.expert * N * half;
-  const float* ap = absmax + (size_t)vis.expert * N * blocks_per_row;
-  if (tid < 16) code[tid] = kGmmCode[tid];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
-  __syncthreads();
-
-  for (int n0 = 0; n0 < N; n0 += kDxBK) {
-    constexpr int kGChunks = BM * (kDxBK / 8);
-    for (int c = tid; c < kGChunks; c += kThreads) {
-      const int r = c / (kDxBK / 8);
-      const int col = (c % (kDxBK / 8)) * 8;
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m >= vis.lo && m < vis.hi && n0 + col < N)
-        v = *reinterpret_cast<const uint4*>(g + (size_t)m * N + n0 + col);
-      *reinterpret_cast<uint4*>(gs + r * kDxLdg + col) = v;
-    }
-    constexpr int kPChunks = kDxBK * (kStep / 16);
-    for (int c = tid; c < kPChunks; c += kThreads) {
-      const int r = c / (kStep / 16);
-      const int col = (c % (kStep / 16)) * 16;
-      const int n = n0 + r;
-      uint4 hi_out[2], lo_out[2];
-      decode16(wp + (size_t)n * half, ap + (size_t)n * blocks_per_row, code, j0 + col, half, bs,
-               n < N && j0 + col < half, hi_out, lo_out);
-      uint4* whi = reinterpret_cast<uint4*>(ws + r * kDxLdw + col);
-      uint4* wlo = reinterpret_cast<uint4*>(ws + (kDxBK + r) * kDxLdw + col);
-      whi[0] = hi_out[0];
-      whi[1] = hi_out[1];
-      wlo[0] = lo_out[0];
-      wlo[1] = lo_out[1];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kDxBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bw[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], gs + (wm * 32 + i * 16) * kDxLdg + kk, kDxLdg);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        wmma::load_matrix_sync(bw[jj], ws + (side * kDxBK + kk) * kDxLdw + jj * 16, kDxLdw);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) wmma::mma_sync(acc[i][jj], a[i], bw[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kDxLdc + side * kStep + jj * 16,
-                              acc[i][jj], kDxLdc, wmma::mem_row_major);
-  __syncthreads();
-  for (int c = tid; c < BM * (2 * kStep / 8); c += kThreads) {
-    const int r = c / (2 * kStep / 8);
-    const int col = (c % (2 * kStep / 8)) * 8;
-    const int m = m0 + r;
-    if (m < vis.lo || m >= vis.hi || j0 + col % kStep >= half) continue;
-    const int out_col = col < kStep ? j0 + col : half + j0 + (col - kStep);
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-    const float* src = cs + r * kDxLdc + col;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
-    *reinterpret_cast<uint4*>(dx + (size_t)m * K + out_col) = o;
-  }
-}
-
 }  // namespace
 
 int unsloth_nf4_gmm_wgmma_launch(const void* x, const void* packed, const void* absmax,
                                  const void* bias, const void* group_sizes, void* y,
                                  void* counts, int M, int E, int N, int K, int bs,
                                  cudaStream_t stream);
+int unsloth_nf4_gmm_dx_wgmma_launch(const void* g, const void* packed, const void* absmax_t,
+                                    const void* group_sizes, void* dx, void* counts, int M, int E,
+                                    int N, int K, int bs, cudaStream_t stream);
 
 // out = x @ dequant(W_g)^T + bias[g] per group on `stream`. Shapes: x [m, K]
 // bf16 rows sorted by expert, packed [E, N, K/2] u8, absmax [E, N * K / bs]
@@ -359,16 +242,15 @@ extern "C" int unsloth_nf4_gmm_bf16(const void* x, const void* packed, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// dx = g @ dequant(W_g) per group on `stream`. Shapes: g [m, N] bf16 rows
-// sorted by expert, packed / absmax / group_sizes as above, dx [m, K] bf16.
-// Same conditions as the forward.
-extern "C" int unsloth_nf4_gmm_dx_bf16(const void* g, const void* packed, const void* absmax,
+// dx = g @ dequant(W_g) per group on `stream` at every row count:
+// nf4_wgmma.cu's Hopper kernel (K15). Shapes: g [m, N] bf16 rows sorted by
+// expert, packed / group_sizes as above, absmax_t the absmax transposed,
+// fp32 [E K / bs, N], dx [m, K] bf16 (every row written: zeros past the
+// groups). Same conditions as the forward; `counts` (null, or an int32
+// [3]) as the forward's Hopper kernel's.
+extern "C" int unsloth_nf4_gmm_dx_bf16(const void* g, const void* packed, const void* absmax_t,
                                        const void* group_sizes, void* dx, int m, int E, int N,
-                                       int K, int bs, void* stream) {
-  const dim3 grid((K / 2 + kStep - 1) / kStep, (m + kDxBM - 1) / kDxBM + E);
-  nf4_gmm_dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(g), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(absmax), static_cast<const int*>(group_sizes),
-      static_cast<__nv_bfloat16*>(dx), E, N, K, bs);
-  return static_cast<int>(cudaGetLastError());
+                                       int K, int bs, void* counts, void* stream) {
+  return unsloth_nf4_gmm_dx_wgmma_launch(g, packed, absmax_t, group_sizes, dx, counts, m, E, N, K,
+                                         bs, static_cast<cudaStream_t>(stream));
 }

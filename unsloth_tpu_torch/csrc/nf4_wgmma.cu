@@ -80,7 +80,9 @@
 // The NF4 backward (K2), nf4_dx_wgmma_kernel<BX> below, is this kernel's
 // sibling: dx^T = W^T g^T, the NF4 bytes decoded into the A fragments, g
 // the K-major B operand; the FP8 backward (K13) is K2's kernel in its e4m3
-// form, nf4_dx_wgmma_kernel<BX, true>. See their own note.
+// form, nf4_dx_wgmma_kernel<BX, true>. See their own note. The grouped
+// expert forward (K14) and backward (K15) are K1's and K2's kernels under a
+// grouped schedule, nf4_gmm_wgmma_kernel<BX> and nf4_gmm_dx_wgmma_kernel<BX>.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -1204,6 +1206,273 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K15: the grouped NF4 expert backward,
+//   dx[r, :] = g[r, :] @ dequant(W_g)   for the rows r of group g.
+//
+// Replaces unsloth_tpu/ops/nf4_gmm.py:_bwd_kernel (launched by
+// _nf4_gmm_bwd_impl) at every row count: the gradient of K14 with respect
+// to x (W and the bias are frozen). Same arithmetic: each weight
+// NF4_CODE[nibble] x absmax in fp32, rounded once to bf16; fp32 sums; one
+// rounding.
+//
+// What bounds it on an H100: tensor-core work, 2 m N K operations (the
+// gpt-oss path's 16,384 routed rows at N = K = 2,880: 0.275 ms).
+//
+// Design: K2's kernel (dx^T = W_g^T g^T; one packed byte stream decoded
+// into both warpgroups' A fragments, the high nibbles dx[:, j0..], the low
+// ones dx[:, K/2 + j0..]; g the K-major B operand, [BX][64] boxes
+// multicast across a cluster of two; a 4-stage ring of 64 W rows; the
+// epilogue through the two maps dx[:, :K/2] and dx[:, K/2:]) under K14's
+// grouped schedule:
+//   - Row tiles laid from each group's first row (ceil(size_g / BX) tiles,
+//     the last ending at the group's end); a unit is (row tile, pair p of
+//     64-byte tiles), units numbered group by group with the row tiles
+//     fastest, found by K14's tables and binary search (gmm_unit). Empty
+//     groups have no unit. BX is 256 above 128 rows, else 128 (K2's rule).
+//   - Stage st of group g reads W rows g N + 64 st.. of the [E N, K/2]
+//     bytes. Where N % 64 != 0 the last stage's rows past N are the next
+//     expert's bytes (or TMA's zeros past E N): they add nothing, since
+//     the transposed absmax's columns past N and g's columns past N both
+//     arrive as TMA's zeros.
+//   - The absmax is transposed per call to [E K/B, N] (row g K/B + b is
+//     block b of W_g's rows), B 32 or 64. A stage carries four of its rows
+//     by TMA, each side's block of the tile's columns 0-31 (warps 0-1) and
+//     32-63 (warps 2-3): at B = 32 every 64-byte tile spans two blocks a
+//     side (K2's straddle of the low side, on both); at B = 64 (K/2 a
+//     multiple of 64) each side's two rows are one block. Where K/2 % 64
+//     == 32 (B = 32: gpt-oss's K = 2,880) the last tile crosses K/2: its
+//     bytes past K/2 are TMA's zeros, which would decode to -1.0 x absmax;
+//     its columns past K/2 decode with a zero row in shared memory (never
+//     with the low side's first block, which the high side's block of
+//     columns 32-63 names there), and the high side's map ends at K/2.
+//   - Epilogue: a full tile stores by TMA, a group's short last tile by
+//     masked 16-byte stores of its own rows (K14's), so no CTA writes
+//     another group's rows; rows past the groups are stored as zeros, so
+//     the wrapper allocates dx with torch.empty.
+// ---------------------------------------------------------------------------
+
+// K2's ring and staging tiles, then four absmax rows a stage (high a, high
+// b, low a, low b), the zero row, the barriers and K14's group tables.
+template <int BX>
+struct GmmDxCfg {
+  using D = DxCfg<BX>;
+  static constexpr int kScaleBytes = 4 * kDxRows * 4;
+  static constexpr int kOffScale = D::kOffScale;
+  static constexpr int kOffZero = kOffScale + kDxStages * kScaleBytes;
+  static constexpr int kOffBar = kOffZero + kDxRows * 4;
+  static constexpr int kOffTab = kOffBar + 2 * kDxStages * 8;
+  static constexpr int smem(int E) { return kOffTab + 8 * (E + 1) + 1024; }  // + alignment
+};
+static_assert(GmmDxCfg<256>::smem(kMaxGmmExperts) + 64 <= 232448,
+              "the tables fit beside K2's ring and staging tiles");
+
+template <int BX>
+__global__ void __launch_bounds__(kThreads, 1)
+    nf4_gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tg,   // g [M, N], box 64 x BX / 2
+                            const __grid_constant__ CUtensorMap tw,   // packed [E N, K/2] u8, box 64 x 64
+                            const __grid_constant__ CUtensorMap ts,   // absmax^T [E K/B, N] f32, box 64 x 1
+                            const __grid_constant__ CUtensorMap thi,  // dx[:, :K/2], box 64 x BX
+                            const __grid_constant__ CUtensorMap tlo,  // dx[:, K/2:], box 64 x BX
+                            const int* __restrict__ group_sizes, bf16* __restrict__ dx,
+                            int* __restrict__ counts, int M, int E, int N, int K, int shift) {
+  using D = DxCfg<BX>;
+  using C = GmmDxCfg<BX>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float code[16];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* empty = full + kDxStages;
+  int* offs = reinterpret_cast<int*>(smem + C::kOffTab);
+  int* ustart = offs + E + 1;
+  const int half = K / 2;
+  const int nst = (N + kDxRows - 1) / kDxRows;
+  const int tiles_j = (half + kDxCols - 1) / kDxCols;
+  const int pairs_j = (tiles_j + 1) / 2;  // byte tile pairs
+  const int blocks = K >> shift;          // absmax blocks of a W row
+  const int rank = static_cast<int>(cluster_rank());
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  if (threadIdx.x < 16) code[threadIdx.x] = kCode[threadIdx.x];
+  if (threadIdx.x < kDxRows) reinterpret_cast<float*>(smem + C::kOffZero)[threadIdx.x] = 0.0f;
+  for (int g = threadIdx.x; g < E; g += kThreads) offs[g + 1] = group_sizes[g];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 16);  // one arrival per consumer warp of both CTAs
+    }
+    fence_barrier_init();
+    // the tables; sizes clamped to [0, M]
+    int off = 0, u = 0;
+    for (int g = 0; g < E; ++g) {
+      const int end = min(off + max(offs[g + 1], 0), M);
+      offs[g] = off;
+      ustart[g] = u;
+      u += (end - off + BX - 1) / BX * pairs_j;
+      off = end;
+    }
+    offs[E] = off;
+    ustart[E] = u;
+  }
+  cluster_sync();  // both CTAs' barriers, codebooks, zero rows and tables are made
+  const int units = __shfl_sync(0xffffffffu, ustart[E], 0);
+
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int u = cluster; u < units; u += clusters) {
+      const GmmUnit w = gmm_unit<BX>(u, offs, ustart, E);
+      // this CTA's half of the g rows and its byte tile, moved inside the
+      // tensors where they lie past them (their rows and columns of dx are
+      // not stored)
+      const int gr = min(w.row0 + rank * (BX / 2), M - 1);
+      const int j0 = min(2 * w.p + rank, tiles_j - 1) * kDxCols;
+      // W_g's absmax rows of the tile's columns 0-31 and 32-63, each side
+      const int b0 = w.g * blocks;
+      const int ha = b0 + min(j0 >> shift, blocks - 1);
+      const int hb = b0 + min((j0 + 32) >> shift, blocks - 1);
+      const int la = b0 + min((half + j0) >> shift, blocks - 1);
+      const int lb = b0 + min((half + j0 + 32) >> shift, blocks - 1);
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kDxStages;
+        if (it >= kDxStages) mbar_wait(&empty[s], ((it / kDxStages) - 1) & 1);
+        unsigned char* slot = smem + s * D::kStageBytes;
+        unsigned char* sl = smem + C::kOffScale + s * C::kScaleBytes;
+        mbar_expect_tx(&full[s], D::kStageBytes + C::kScaleBytes);
+        tma_load_2d_both(slot + rank * D::kGHalf, &tg, &full[s], st * kDxRows, gr);
+        tma_load_2d(slot + D::kGBytes, &tw, &full[s], j0, w.g * N + st * kDxRows);
+        tma_load_2d(sl, &ts, &full[s], st * kDxRows, ha);
+        tma_load_2d(sl + kDxRows * 4, &ts, &full[s], st * kDxRows, hb);
+        tma_load_2d(sl + 2 * kDxRows * 4, &ts, &full[s], st * kDxRows, la);
+        tma_load_2d(sl + 3 * kDxRows * 4, &ts, &full[s], st * kDxRows, lb);
+      }
+    }
+    // stay until both CTAs' consumers have handed back every stage
+    for (int i = 0; i < kDxStages; ++i, ++it)
+      if (it >= kDxStages) mbar_wait(&empty[it % kDxStages], ((it / kDxStages) - 1) & 1);
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // 0: high side, 1: low
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int q = lane / 4, c = lane % 4;
+  const int sh = wg == 0 ? 4 : 0;
+  // K2's byte pair 16 warp + 2q.. of row 2c of a k step's 16 rows
+  const int off = 2 * c * kDxCols + ((warp ^ c) << 4) + 2 * q;
+  unsigned char* staged = smem + D::kOffOut + wg * D::kOutBytes;
+  const float* zero = reinterpret_cast<const float*>(smem + C::kOffZero);
+  // the rows past the groups: zeros, 16 bytes a consumer thread
+  {
+    const int end = offs[E], chunks = K / 8;
+    const long total = (long)(M - end) * chunks;
+    for (long i = blockIdx.x * 256L + threadIdx.x; i < total; i += gridDim.x * 256L)
+      *reinterpret_cast<uint4*>(dx + (size_t)(end + i / chunks) * K + 8 * (i % chunks)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  int it = 0, n_tiles = 0, n_stages = 0, n_masked = 0;
+  for (int u = cluster; u < units; u += clusters) {
+    const GmmUnit w = warp_uniform(gmm_unit<BX>(u, offs, ustart, E));
+    const int j0 = (2 * w.p + rank) * kDxCols;
+    // the absmax row of this warp's 16 columns: its side's block of the
+    // tile's columns 0-31 (warps 0-1) or 32-63 (warps 2-3); columns past
+    // K/2 take the zero row
+    const int srow = j0 + 16 * warp >= half ? -1 : 2 * wg + (warp >> 1);
+    auto scales = [&](int s) {
+      return srow < 0 ? zero
+                      : reinterpret_cast<const float*>(smem + C::kOffScale + s * C::kScaleBytes) +
+                            srow * kDxRows + 2 * c;
+    };
+    float acc[BX / 2];
+    uint32_t fa[16], fb[16];  // the A fragments of two stages
+    mbar_wait(&full[it % kDxStages], (it / kDxStages) & 1);
+    decode_dx_stage(smem + (it % kDxStages) * D::kStageBytes + D::kGBytes,
+                    scales(it % kDxStages), off, sh, code, fa);
+    // One stage: its four products from `cur`, then, while they run, the
+    // next stage decoded into `nxt` once the products that read `nxt` are
+    // done.
+    auto step = [&](int st, uint32_t(&cur)[16], uint32_t(&nxt)[16]) {
+      const int s = (it + st) % kDxStages;
+      const bool more = st + 1 < nst;
+      const uint32_t gs = smem_u32(smem + s * D::kStageBytes);
+      fence_u32(cur);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        Rs<BX>::mma(acc, cur[4 * k], cur[4 * k + 1], cur[4 * k + 2], cur[4 * k + 3],
+                    sw128_desc(gs + 32 * k, 16, 1024), st > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (st > 0) release(empty, (it + st - 1) % kDxStages, lane, rank);
+      if (more) {
+        const int sn = (it + st + 1) % kDxStages;
+        mbar_wait(&full[sn], ((it + st + 1) / kDxStages) & 1);
+        decode_dx_stage(smem + sn * D::kStageBytes + D::kGBytes, scales(sn), off, sh, code, nxt);
+      }
+    };
+    for (int st = 0; st < nst; st += 2) {
+      step(st, fa, fb);
+      if (st + 1 < nst) step(st + 1, fb, fa);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty, (it + nst - 1) % kDxStages, lane, rank);
+    it += nst;
+    if (j0 >= half) continue;  // the odd byte tile's partner: computed, not stored
+    const bool whole = w.hi - w.row0 == BX;  // no row past the group's end
+    ++n_tiles;
+    n_stages += nst;
+    n_masked += !whole;
+
+    // epilogue (K2's): once the previous tile's TMA store has read the
+    // staging tile, dx^T rounded to bf16 and written transposed into it,
+    // g row 8 jj + 2c + e of A rows r, r + 8 as dx columns 16 warp + 2q
+    // and + 1 of this side
+    if (t == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int jj = 0; jj < BX / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * jj + 2 * c + e;
+        *reinterpret_cast<uint32_t*>(staged + row * 128 +
+                                     (((2 * warp + (q >> 2)) ^ (row % 8)) << 4) + 4 * (q & 3)) =
+            pack_bf16(acc[4 * jj + e], acc[4 * jj + 2 + e]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (whole) {
+      if (t == 0) {
+        if (wg == 0)
+          tma_store_2d(&thi, staged, j0, w.row0);
+        else
+          tma_store_2d(&tlo, staged, j0, w.row0);
+        bulk_commit();
+      }
+    } else {
+      // the group's own rows only, 16 bytes (8 columns; K/2 % 32 == 0) a
+      // store, none past K/2 on either side
+      bf16* side = dx + (wg == 0 ? 0 : half) + j0;
+      for (int i = t; i < (w.hi - w.row0) * 8; i += 128) {
+        const int row = i / 8, ch = i % 8;
+        if (j0 + 8 * ch < half)
+          *reinterpret_cast<uint4*>(side + (size_t)(w.row0 + row) * K + 8 * ch) =
+              *reinterpret_cast<const uint4*>(staged + row * 128 + ((ch ^ (row % 8)) * 16));
+      }
+    }
+  }
+  if (t == 0) {
+    bulk_wait<0>();
+    if (counts != nullptr && wg == 0) {
+      atomicAdd(counts + kCntTiles, n_tiles);
+      atomicAdd(counts + kCntStages, n_stages);
+      atomicAdd(counts + kCntMasked, n_masked);
+    }
+  }
+}
+
 // The map of a row-major 2-D tensor of `elem` bytes an element (bf16, u8 or
 // f32), dims and box innermost first, with `swizzle`, zeros past the edges;
 // rows `stride` bytes apart (0: packed, d0 * elem).
@@ -1375,6 +1644,46 @@ int launch_gmm(const void* x, const void* packed, const void* absmax, const void
                          static_cast<int*>(counts), M, E, N, K, bs == 32 ? 5 : 6);
 }
 
+template <int BX>
+int launch_gmm_dx(const void* g, const void* packed, const void* absmax_t,
+                  const void* group_sizes, void* dx, void* counts, int M, int E, int N, int K,
+                  int bs, cudaStream_t stream) {
+  if (E < 1 || E > kMaxGmmExperts || (bs != 32 && bs != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int half = K / 2;
+  CUtensorMap tg, tw, ts, thi, tlo;
+  int e = tile_map(&tg, g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, kDxRows, BX / 2,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == 0)
+    e = tile_map(&tw, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, (uint64_t)E * N, kDxCols,
+                 kDxRows, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = tile_map(&ts, absmax_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, (uint64_t)E * (K / bs),
+                 kDxRows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == 0)
+    e = tile_map(&thi, dx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half, M, 64, BX,
+                 CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  if (e == 0)
+    e = tile_map(&tlo, static_cast<bf16*>(dx) + half, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, half,
+                 M, 64, BX, CU_TENSOR_MAP_SWIZZLE_128B, (uint64_t)K * 2);
+  if (e != 0) return e;
+  auto kernel = nf4_gmm_dx_wgmma_kernel<BX>;
+  static bool configured = false;
+  if (!configured) {
+    e = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              GmmDxCfg<BX>::smem(kMaxGmmExperts)));
+    if (e != 0) return e;
+    configured = true;
+  }
+  // as many clusters as the units could need at most (each group adds at
+  // most one partial row tile)
+  const long units =
+      ((long)(M + BX - 1) / BX + E) * ((((half + kDxCols - 1) / kDxCols) + 1) / 2);
+  return launch_clusters(kernel, GmmDxCfg<BX>::smem(E), units, stream, tg, tw, ts, thi, tlo,
+                         static_cast<const int*>(group_sizes), static_cast<bf16*>(dx),
+                         static_cast<int*>(counts), M, E, N, K, bs == 32 ? 5 : 6);
+}
+
 }  // namespace
 }  // namespace nf4w
 
@@ -1452,4 +1761,25 @@ int unsloth_nf4_gmm_wgmma_launch(const void* x, const void* packed, const void* 
                                  stream);
   return nf4w::launch_gmm<256>(x, packed, absmax, bias, group_sizes, y, counts, M, E, N, K, bs,
                                stream);
+}
+
+// dx = g @ dequant(W_g) per group on `stream`, at every row count
+// (nf4_gmm.cu's entry point calls it). g [M, N] bf16 rows sorted by expert,
+// packed [E, N, K/2] u8, absmax_t the absmax transposed, fp32 [E K/bs, N]
+// (row g K/bs + b: block b of W_g's rows), group_sizes [E] int32 on the
+// device, dx [M, K] bf16 (every row written: rows past the groups are
+// zeros); K/2 a multiple of 32 and of bs (32 or 64), N of 8, E <= 1,024,
+// every pointer 16-byte aligned. `counts`, when not null, is an int32 [3]
+// to which the kernel adds the output tiles it stored (a CTA's pair of
+// 64-column sides), their stages, and the tiles of those it stored by
+// masked stores (a group's last). 128-row tiles of g up to 128 rows, else
+// 256. Returns the launch's CUDA error code.
+int unsloth_nf4_gmm_dx_wgmma_launch(const void* g, const void* packed, const void* absmax_t,
+                                    const void* group_sizes, void* dx, void* counts, int M, int E,
+                                    int N, int K, int bs, cudaStream_t stream) {
+  if (M <= 128)
+    return nf4w::launch_gmm_dx<128>(g, packed, absmax_t, group_sizes, dx, counts, M, E, N, K, bs,
+                                    stream);
+  return nf4w::launch_gmm_dx<256>(g, packed, absmax_t, group_sizes, dx, counts, M, E, N, K, bs,
+                                  stream);
 }

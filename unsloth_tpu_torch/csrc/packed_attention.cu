@@ -1,25 +1,28 @@
-// Segment-block-sparse causal flash attention for packed rows, GQA, bf16.
+// Segment-block-sparse causal flash attention for packed rows, GQA, bf16:
+// the backward (K10, K11).
 //
 // Replaces the TPU kernels of unsloth_tpu/ops/packed_attention.py:
-//   attn_fwd_kernel<128, PackedRange>  <- _fwd_kernel  (forward: out and an
-//                                                       fp32 lse)
 //   attn_dq_kernel<128, PackedRange>   <- _dq_kernel   (dq; also
 //                                                       di = sum(dout * out))
 //   attn_dkv_kernel<128, PackedRange>  <- _dkv_kernel  (dk, dv summed over
 //                                                       the query heads that
 //                                                       share a kv head)
-// The kernel bodies live in attention_tiles.cuh, shared with the unpacked
-// flash kernels of flash_attention.cu; this file supplies the packed range.
-// Same semantics as the TPU kernels: token i of a row attends to token j
-// iff both carry the same segment id and j <= i. Query block iq (64
-// tokens) visits kv blocks [kv_lo, min(kv_lo + n_kv - 1, iq)], kv block j
-// visits query blocks [j, min(j + n_kv - 1, q_hi)], where kv_lo / q_hi come
-// from segment_block_metadata and n_kv is the packer's segment-length bound
-// in blocks. That skip assumes contiguous segments; outputs at pad
-// positions are then unspecified. q is pre-scaled in bf16 inside the
-// kernels (q * bf16(scale), the rounding point of the JAX wrapper) and dq
-// gets the factor `scale` back. T is a multiple of 64; D is 128, as in the
-// JAX package, which takes this kernel at dh % 128 == 0 only.
+// The kernel bodies live in attention_tiles.cuh; this file supplies the
+// packed range. The forward (K9, TPU _fwd_kernel) runs on K16's Hopper
+// forward (flash_fwd.cu, entry point unsloth_flash_attn_fwd), which the
+// port's wrapper launches on q * bf16(scale) at scale 1: its out and its
+// lse [B, Hq, T] = m + ln l, in the layout and the natural log these
+// kernels read. Same semantics as the TPU kernels: token i of a row
+// attends to token j iff both carry the same segment id and j <= i. Query
+// block iq (64 tokens) visits kv blocks [kv_lo, min(kv_lo + n_kv - 1,
+// iq)], kv block j visits query blocks [j, min(j + n_kv - 1, q_hi)], where
+// kv_lo / q_hi come from segment_block_metadata and n_kv is the packer's
+// segment-length bound in blocks. That skip assumes contiguous segments;
+// outputs at pad positions are then unspecified. q is pre-scaled in bf16
+// inside the kernels (q * bf16(scale), the rounding point of the JAX
+// wrapper) and dq gets the factor `scale` back. T is a multiple of 64; D
+// is 128, as in the JAX package, which takes this kernel at dh % 128 == 0
+// only.
 //
 // What bounds it on an H100: tensor-core work over the visited tiles,
 // O(sum of segment lengths squared) rather than O(T^2); see the header
@@ -51,25 +54,6 @@ AttnArgs packed_args(int T, int Hq, int Hkv, float scale_q, float scale) {
 }
 
 }  // namespace
-
-// Forward on `stream`: out [B, T, Hq, 128] bf16 and lse [B, Hq, T] fp32
-// from q [B, T, Hq, 128], k, v [B, T, Hkv, 128] bf16, segment ids [B, T]
-// and kv_lo [B, T/64] int32. T % 64 == 0, Hq % Hkv == 0, pointers 16-byte
-// aligned (the wrapper checks). Returns the CUDA error code (0 if none).
-extern "C" int unsloth_packed_attn_fwd(const void* q, const void* k, const void* v,
-                                       const void* seg, const void* kv_lo, void* out, void* lse,
-                                       int B, int T, int Hq, int Hkv, int n_kv, float scale_q,
-                                       void* stream) {
-  int e = set_smem(reinterpret_cast<const void*>(attn_fwd_kernel<kD, PackedRange>), C::kFwdSmem);
-  if (e) return e;
-  const PackedRange range{static_cast<const int*>(kv_lo), nullptr, T / kBlk, n_kv};
-  attn_fwd_kernel<kD, PackedRange><<<dim3(T / kBlk, Hq, B), C::kThreads, C::kFwdSmem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), range, static_cast<bf16*>(out), static_cast<float*>(lse),
-      packed_args(T, Hq, Hkv, scale_q, 1.0f));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Backward on `stream`: the dq kernel (which also writes di [B, Hq, T]
 // fp32 scratch), then the dk/dv kernel. dq [B, T, Hq, 128], dk, dv

@@ -134,9 +134,6 @@ def library() -> ctypes.CDLL:
                                              ctypes.c_float, i, i, i, p]
         lib.unsloth_rms_norm_bwd.restype = i
         f = ctypes.c_float
-        lib.unsloth_packed_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i,
-                                                i, i, f, p]
-        lib.unsloth_packed_attn_fwd.restype = i
         lib.unsloth_packed_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                                 p, p, p, i, i, i, i, i, f, f,
                                                 p]
@@ -175,12 +172,13 @@ def library() -> ctypes.CDLL:
         lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_bwd.restype = i
         # x, packed, absmax, bias, group sizes, out, m, E, N, K, block, the
-        # Hopper kernel's tile counters or null, stream
+        # Hopper kernel's tile counters or null, stream; the dx: g, packed,
+        # the absmax transposed, group sizes, dx, then as the forward
         lib.unsloth_nf4_gmm_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                              p, p]
         lib.unsloth_nf4_gmm_bf16.restype = i
         lib.unsloth_nf4_gmm_dx_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                                p]
+                                                p, p]
         lib.unsloth_nf4_gmm_dx_bf16.restype = i
         # pointers (the forward's sinks after the segment ranges), B, T,
         # Hq, Hkv, D, scale, stream; dk/dv also its fp32 scratch (or null)

@@ -11,13 +11,16 @@ decoded straight into the tensor cores' A operand, under a grouped
 schedule of row tiles laid from each group's first row), at 16 rows or
 fewer ``csrc/nf4_gmm.cu``'s decode tiles. :func:`nf4_gmm_tiles_ref` and
 :func:`nf4_gmm_tile_schedule` are the Hopper kernel's walk's twins. The
-backward, dx = g @ W_g per group, is ``csrc/nf4_gmm.cu``'s second kernel
-(TPU ``_bwd_kernel``, K15). W and the bias are frozen, so the gradient
-goes to the input only. The packed uint8 expert weights stream from device
-memory, so the dense [E, N, K] stack never exists there. On a CPU tensor
-both run the plain version :func:`nf4_gmm_ref`. The device of the tensor is
-the only thing that chooses; there is no fallback from a kernel to its
-plain version.
+backward, dx = g @ W_g per group (TPU ``_bwd_kernel``, K15), is
+``csrc/nf4_wgmma.cu``'s grouped Hopper dx kernel at every row count (K2's
+kernel, dx^T = W_g^T g^T with the bytes decoded into the A operand, under
+the forward's grouped schedule); :func:`nf4_gmm_dx_tiles_ref` and
+:func:`nf4_gmm_dx_tile_schedule` are its walk's twins. W and the bias are
+frozen, so the gradient goes to the input only. The packed uint8 expert
+weights stream from device memory, so the dense [E, N, K] stack never
+exists there. On a CPU tensor both run the plain version
+:func:`nf4_gmm_ref`. The device of the tensor is the only thing that
+chooses; there is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 
 from .. import kernels
 from .nf4 import NF4_CODE, NF4Stacked, dequantize_nf4_stacked
-from .qlora_matmul import (DECODE_ROWS, H100_SMS, STAGE_BYTES, TILE_W,
-                           tile_rows_x)
+from .qlora_matmul import (DECODE_ROWS, DX_STAGE_ROWS, DX_TILE_BYTES,
+                           H100_SMS, STAGE_BYTES, TILE_W, tile_rows_x)
 
 _ALIGN = 16  # bytes: the kernels read x and the packed bytes 16 at a time
 #: the most experts the Hopper kernel's shared-memory group tables hold
@@ -119,9 +122,15 @@ def nf4_gmm_tile_schedule(group_sizes, m: int, n: int, sms: int = H100_SMS
     one partial tile: the launch does not know them); cluster c takes
     units c, c + clusters, ..., its block of rank r the W tile 2 p + r
     (past N, where the W tiles are odd in number, nothing is stored)."""
+    return _grouped_schedule(group_sizes, m, -(-n // TILE_W), TILE_W, sms)
+
+
+def _grouped_schedule(group_sizes, m: int, tiles: int, width: int, sms: int
+                      ) -> List[List[Tuple[int, int, int, int]]]:
+    """The grouped Hopper kernels' schedule over ``tiles`` column tiles of
+    ``width`` (see :func:`nf4_gmm_tile_schedule`)."""
     bx = tile_rows_x(m)
-    tiles_n = -(-n // TILE_W)
-    pairs = -(-tiles_n // 2)
+    pairs = -(-tiles // 2)
     groups = _group_bounds(group_sizes, m)
     units = []
     for g, (lo, end) in enumerate(groups):
@@ -130,9 +139,9 @@ def nf4_gmm_tile_schedule(group_sizes, m: int, n: int, sms: int = H100_SMS
                   for p in range(pairs) for t in range(nt)]
     bound = (-(-m // bx) + len(groups)) * pairs
     clusters = min(bound, max(1, sms // 2))
-    return [[(g, row0, hi, (2 * p + r) * TILE_W)
+    return [[(g, row0, hi, (2 * p + r) * width)
              for g, row0, hi, p in units[c::clusters]
-             if 2 * p + r < tiles_n]
+             if 2 * p + r < tiles]
             for c in range(clusters) for r in (0, 1)]
 
 
@@ -214,6 +223,104 @@ def nf4_gmm_tiles_ref(x: torch.Tensor, q: NF4Stacked, group_sizes,
     return y, stores
 
 
+def nf4_gmm_dx_tile_schedule(group_sizes, m: int, k: int,
+                             sms: int = H100_SMS
+                             ) -> List[List[Tuple[int, int, int, int]]]:
+    """The grouped Hopper dx kernel's persistent schedule at dx [m, k]: for
+    each block of its grid, the (group, first row, end of the group's rows
+    in the tile, first packed byte column j0) of the tiles it stores, in
+    order; a tile is dx[rows, j0..j0 + 63] (the high-nibble side) and
+    dx[rows, k/2 + j0..] (the low side). The forward's schedule
+    (:func:`nf4_gmm_tile_schedule`) with K/2's 64-byte tiles for W_g's
+    128-row tiles: row tiles laid from each group's first row, units (row
+    tile, byte tile pair) group by group with the row tiles fastest, the
+    block of rank r taking the byte tile 2 p + r (past K/2, where the byte
+    tiles are odd in number: computed, not stored)."""
+    return _grouped_schedule(group_sizes, m, -(-(k // 2) // DX_TILE_BYTES),
+                             DX_TILE_BYTES, sms)
+
+
+def nf4_gmm_dx_tile_counts(group_sizes, m: int, n: int, k: int) -> List[int]:
+    """The grouped Hopper dx kernel's counters at these sizes: [output
+    tiles stored, their stages (ceil(N / 64) each), tiles stored by masked
+    stores (a group's last where it is short)]."""
+    bx = tile_rows_x(m)
+    tiles = [t for block in nf4_gmm_dx_tile_schedule(group_sizes, m, k)
+             for t in block]
+    return [len(tiles), len(tiles) * -(-n // DX_STAGE_ROWS),
+            sum(hi - row0 < bx for _, row0, hi, _ in tiles)]
+
+
+def nf4_gmm_dx_tiles_ref(g: torch.Tensor, q: NF4Stacked, group_sizes, *,
+                         past_end: bool = False, first_block: bool = False,
+                         sms: int = H100_SMS):
+    """dx = g @ dequant(W_g) per group rebuilt from the grouped Hopper dx
+    kernel's walk, in plain PyTorch: (dx in g.dtype, stores [m, byte
+    tiles], the times the schedule stores each row of each tile).
+
+    As the kernel: the tiles of :func:`nf4_gmm_dx_tile_schedule`; a tile
+    reads BX rows of g from its first row on (the next group's rows, or
+    zeros past m, where the group ends sooner) against 64 packed byte
+    columns j0.. of W_g, in stages of 64 of W_g's rows (the rows past N
+    add nothing: their absmax and g's columns there are zeros); its high
+    nibbles are dx columns j0.., its low nibbles K/2 + j0..; the absmax of
+    the tile's columns 0-31 on each side is the block of its column 0 (j0
+    / B, (K/2 + j0) / B), of its columns 32-63 the block of its column 32
+    (at B = 32 every 64-byte tile spans two blocks a side); each weight is
+    code * absmax in fp32, rounded to g.dtype; the sums are fp32 (in
+    another order than the tensor cores'), stage after stage, rounded
+    once; a tile stores its group's rows only, and neither side past K/2;
+    the rows outside every group are zeros. Two faults: ``past_end``
+    stores each tile's rows past its group's end too (over the next
+    group's rows, after their own stores), ``first_block`` reads a tile's
+    columns 32-63 with the block of its column 0."""
+    e, n, k = q.shape
+    m = g.shape[0]
+    half, bs = k // 2, q.block_size
+    bx = tile_rows_x(m)
+    code = NF4_CODE.float()
+    gp = torch.zeros((m + bx, n), dtype=torch.float32)
+    gp[:m] = g.float()
+    absmax = q.absmax.float().reshape(e, n, k // bs)
+    j = torch.arange(half)
+    j0 = j - j % DX_TILE_BYTES
+    part = j0 if first_block else j0 + 32 * (j % DX_TILE_BYTES >= 32)
+    blk_hi, blk_lo = part // bs, (half + part) // bs
+    nst = -(-n // DX_STAGE_ROWS)
+    dx = torch.zeros((m, k), dtype=g.dtype)
+    stores = torch.zeros((m, -(-half // DX_TILE_BYTES)), dtype=torch.int64)
+    late = []
+    weights = {}
+    for tiles in nf4_gmm_dx_tile_schedule(group_sizes, m, k, sms):
+        for grp, row0, hi, c0 in tiles:
+            if grp not in weights:
+                pk = q.packed[grp].to(torch.int64)
+                w_hi = (code[pk >> 4] * absmax[grp][:, blk_hi]).to(g.dtype)
+                w_lo = (code[pk & 15] * absmax[grp][:, blk_lo]).to(g.dtype)
+                weights[grp] = (w_hi.float(), w_lo.float())
+            w_hi, w_lo = weights[grp]
+            c1 = min(c0 + DX_TILE_BYTES, half)
+            rows = gp[row0:row0 + bx]
+            acc_hi = torch.zeros((bx, c1 - c0), dtype=torch.float32)
+            acc_lo = torch.zeros((bx, c1 - c0), dtype=torch.float32)
+            for st in range(nst):
+                r = slice(st * DX_STAGE_ROWS, min((st + 1) * DX_STAGE_ROWS, n))
+                acc_hi += rows[:, r] @ w_hi[r, c0:c1]
+                acc_lo += rows[:, r] @ w_lo[r, c0:c1]
+            out = torch.cat([acc_hi, acc_lo], 1).to(g.dtype)
+            cols = torch.cat([torch.arange(c0, c1),
+                              half + torch.arange(c0, c1)])
+            dx[row0:hi, cols] = out[:hi - row0]
+            stores[row0:hi, c0 // DX_TILE_BYTES] += 1
+            end = min(row0 + bx, m)
+            if past_end and end > hi:
+                late.append((out[hi - row0:end - row0], hi, end, cols, c0))
+    for out, hi, end, cols, c0 in late:
+        dx[hi:end, cols] = out
+        stores[hi:end, c0 // DX_TILE_BYTES] += 1
+    return dx, stores
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % _ALIGN else t
@@ -260,26 +367,38 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
     return out
 
 
-def nf4_gmm_dx(g: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor
-               ) -> torch.Tensor:
+def nf4_gmm_dx(g: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
+               tile_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx [m, K] = g [m, N] @ dequant(W_g) per group, the backward of
     :func:`nf4_gmm` with respect to its input; the plain version on a CPU
-    tensor, K15 on a CUDA one."""
+    tensor, K15 on a CUDA one. ``tile_counts`` (CUDA only: an int32 [3] on
+    g's device, or None) receives what the kernel adds to it
+    (:func:`nf4_gmm_dx_tile_counts`)."""
     if g.device.type == "cpu":
         return nf4_gmm_ref(g, q, group_sizes, transpose=True)
     _check_cuda("nf4_gmm_dx", g, q, group_sizes, q.shape[1])
     e, n, k = q.shape
     m = g.shape[0]
-    dx = torch.zeros((m, k), dtype=g.dtype, device=g.device)
+    if e > MAX_EXPERTS:
+        raise NotImplementedError(f"nf4_gmm_dx CUDA kernel takes at most "
+                                  f"{MAX_EXPERTS} experts, got {e}")
+    # the kernel writes every row (zeros past the groups)
+    dx = torch.empty((m, k), dtype=g.dtype, device=g.device)
     if m == 0:
         return dx
     gg = _aligned(g)
     packed = q.packed.contiguous()
-    absmax = q.absmax.to(torch.float32).contiguous()
+    if packed.data_ptr() % _ALIGN:
+        raise ValueError(f"nf4_gmm_dx: packed weight is not {_ALIGN}-byte "
+                         "aligned")
+    # [E K / bs, N]: the kernel reads a stage's absmax as one row a block
+    absmax_t = q.absmax.to(torch.float32).reshape(
+        e, n, k // q.block_size).transpose(1, 2).contiguous()
     gs = group_sizes.to(torch.int32).contiguous()
     rc = kernels.library().unsloth_nf4_gmm_dx_bf16(
-        gg.data_ptr(), packed.data_ptr(), absmax.data_ptr(), gs.data_ptr(),
+        gg.data_ptr(), packed.data_ptr(), absmax_t.data_ptr(), gs.data_ptr(),
         dx.data_ptr(), m, e, n, k, q.block_size,
+        None if tile_counts is None else tile_counts.data_ptr(),
         torch.cuda.current_stream(g.device).cuda_stream)
     kernels.check(rc, "nf4_gmm_dx")
     nf4_gmm_dx.launches += 1

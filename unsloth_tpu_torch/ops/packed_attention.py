@@ -8,20 +8,23 @@ segment start up to the diagonal, and the kv range is also capped by the
 packer's declared longest segment (``max_segment_len``). The work is
 O(sum of segment lengths squared) instead of O(T^2).
 
-On CUDA tensors :func:`packed_flash_attention` runs ``csrc/
-packed_attention.cu``: a forward kernel that writes the output and an fp32
-logsumexp (TPU ``_fwd_kernel``), and a backward pair, dq (TPU
-``_dq_kernel``) then dk/dv (TPU ``_dkv_kernel``). On CPU tensors it runs
-the plain versions :func:`packed_attention_fwd_ref` and
+On CUDA tensors :func:`packed_flash_attention` runs the forward (TPU
+``_fwd_kernel``: the output and an fp32 logsumexp) on K16's Hopper
+forward (``csrc/flash_fwd.cu``, through ``ops/flash_attention.py``) with q
+pre-scaled in bf16, as the JAX wrapper pre-scales it, and the backward
+pair of ``csrc/packed_attention.cu``, dq (TPU ``_dq_kernel``) then dk/dv
+(TPU ``_dkv_kernel``), which read that forward's out and lse. On CPU
+tensors it runs the plain versions :func:`packed_attention_fwd_ref` and
 :func:`packed_attention_bwd_ref`: causal attention within each segment, in
 fp32. The device of q is the only thing that chooses.
 
 Contract (as in the JAX package): every *real* segment fits in
 ``max_segment_len`` tokens. The padding tail (segment id 0) may be longer;
-outputs at pad positions are then finite but unspecified (the kernel
-visits a bounded subset of the pad tokens, the plain version all of them),
-and nothing downstream reads them. Layout: the model's, q [B, T, Hq, D],
-k, v [B, T, Hkv, D], segment ids [B, T] int with equal ids contiguous.
+outputs at pad positions are then finite but unspecified (the backward
+kernels visit a bounded subset of the pad tokens, the forward and the
+plain versions all of them), and nothing downstream reads them. Layout:
+the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids [B, T] int
+with equal ids contiguous.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import torch
 
 from .. import kernels
 from ..data.packing import max_segment_length
+from .flash_attention import _fwd as _flash_fwd
+from .flash_attention import tile_segment_ranges
 
 #: lse of a row with no valid key (cannot happen for a real token, which
 #: always sees itself; keeps exp(s - lse) at 0 instead of inf if it does)
@@ -202,25 +207,23 @@ def _check_kernel_inputs(name, q, k, v, segment_ids):
                          f"on {segment_ids.device}, q on {q.device}")
 
 
-def packed_attention_fwd(q, k, v, segment_ids, kv_lo, *, scale: float,
-                         n_kv: int):
-    """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32)."""
+def packed_attention_fwd(q, k, v, segment_ids, *, scale: float,
+                         tile_classes=None):
+    """Kernel forward: (out [B, T, Hq, D] bf16, lse [B, Hq, T] fp32 = m +
+    ln l). K16's Hopper forward on q * bf16(scale) in bf16 (the JAX
+    wrapper's product, :func:`_prescale`) at scale 1, over the per-tile
+    segment-id ranges of ``tile_segment_ranges``: causal within segments,
+    every tile pair whose ranges are disjoint skipped, P rounded to bf16
+    before P V, as the TPU kernel. Pad queries attend the pad keys before
+    them (their outputs stay unspecified). ``tile_classes`` (an int32 [3]
+    on q's card, or None) receives the pairs it classed skip, full and
+    masked."""
     _check_kernel_inputs("packed_attention_fwd", q, k, v, segment_ids)
-    b, t, hq, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    seg = segment_ids.to(torch.int32).contiguous()
-    kv_lo = kv_lo.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    rc = kernels.library().unsloth_packed_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        kv_lo.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, hq,
-        k.shape[2], int(n_kv), scale_q,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(rc, "packed_attention_fwd")
+    seg_min, seg_max = tile_segment_ranges(segment_ids)
+    res = _flash_fwd("packed_attention_fwd", _prescale(q, scale), k, v,
+                     segment_ids, seg_min, seg_max, 1.0, True, tile_classes)
     packed_attention_fwd.launches += 1
-    return out, lse
+    return res
 
 
 packed_attention_fwd.launches = 0
@@ -268,8 +271,8 @@ class _PackedAttention(torch.autograd.Function):
             n_kv = min(bound_blocks(max_segment_len, BLOCK),
                        q.shape[1] // BLOCK)
             kv_lo, q_hi = segment_block_metadata(segment_ids, BLOCK)
-            out, lse = packed_attention_fwd(q, k, v, segment_ids, kv_lo,
-                                            scale=scale, n_kv=n_kv)
+            out, lse = packed_attention_fwd(q, k, v, segment_ids,
+                                            scale=scale)
             ctx.n_kv = n_kv
             ctx.save_for_backward(q, k, v, segment_ids, out, lse, kv_lo,
                                   q_hi)

@@ -22,8 +22,10 @@ exits non-zero without printing a result:
                Llama-3.1-8B projection shape, RMSNorm forward (K3) and
                backward (K4), packed flash
                attention forward (K9, K16's Hopper forward on q *
-               bf16(scale), its tile classes held to the rule) and
-               backward (K10/K11) on an 8K row, the
+               bf16(scale)) and backward (K10/K11, K18's Hopper dq and
+               dk/dv at bf16(scale)), their tile classes held to the
+               rule, beside K16's pair, on an 8K row at Llama-3.1-8B's
+               heads and at Gemma-7B's (through attention() as well), the
                full-logits CE forward (K7) and backward (K8) at 4,094 rows
                of the 128,256 vocabulary, and unpacked flash attention
                (K16: forward, dq, dk/dv) on a padded [2, 2048] batch, with
@@ -187,7 +189,9 @@ exits non-zero without printing a result:
                all seven projections, use_gradient_checkpointing="unsloth"),
                SFTTrainer on synthetic documents packed into 8,192-token
                rows: batch 1, accumulation 2, 4 steps; losses finite and
-               falling; step time, real tokens/s and peak memory;
+               falling; step time, real tokens/s and peak memory; K10/K11
+               once a layer for each row, and no flash or splash
+               attention kernel;
   7. main path (SFT without packing, the Llama-3.1 Alpaca notebook's
                recipe) the same checkpoint at max_seq_length 2048, r=16 on
                seven projections, "unsloth" checkpointing, synthetic
@@ -288,7 +292,7 @@ exits non-zero without printing a result:
                LoRA moved, step time, real tokens/s, peak memory, the CE
                route fused_ce="auto" took, launches per step exactly K1
                392, K2 193, K3 113, K4 56, K9 56, K10/K11 28, K7/K8 1
-               (full logits);
+               (full logits), and no flash or splash attention kernel;
  15. main path (LoRA SFT and generate over a block-FP8 base; run after
                phase 12, on its checkpoint) from_pretrained(
                max_seq_length=2048, load_in_4bit=False) in bf16, the seven
@@ -316,6 +320,16 @@ exits non-zero without printing a result:
                diffusion_generate (32-token prompt, canvas 128, 16 steps,
                greedy): the prompt kept, no mask id left, the schedule's
                commits, 512 non-causal K16 forwards, ms a step.
+
+Phases 4-4k run in a second process (``--parity-phases DIR``, with
+PARITY_THREADS CPU threads), started after phase 3b and run beside
+phases 5-8 and 10-18, and waited for before phase 9 writes the largest
+checkpoint (phases 9 and 16, gpt-oss-20b, run last): their time is mostly
+the fp32 references on the CPU, which would otherwise hold up the card.
+Their lines are printed when that process has ended; any failure of it
+fails the script. The step times of the main path's phases are read
+beside it, so they are no measurement of the port's speed: the
+``--profile-train`` runs are.
 
 Then one JSON line with each kernel's launches on its main path (K5/K6:
 Whisper's training, phase 13), its largest error against its plain
@@ -1699,7 +1713,8 @@ def _training_kernels(dev, g, flush):
     """K2 at every Llama-3.1-8B projection shape at M = 8192 and every
     Gemma-2-9B one at M = 4096; K4 at [8192, 4096] bf16, plain and Gemma,
     and at Gemma-2-9B's [4096, 3584]; packed attention forward and backward
-    on one 8K row of Llama-3.1-8B attention (32/8 heads, head dim 128).
+    (:func:`_packed_case`) on one 8K row of Llama-3.1-8B attention (32/8
+    heads, head dim 128) and of Gemma-7B's (16/16 heads of 256).
 
     Tolerances. K2: max|dx - ref| <= 1e-2 max|ref| (as K1: the same bf16
     weights, fp32 sums in another order, one bf16 rounding); its tile
@@ -1713,18 +1728,13 @@ def _training_kernels(dev, g, flush):
     with segment id != 0 (pad outputs are unspecified): out, dq, dk, dv
     row by row (:func:`attn_row_err`; the kernels round P and dS to bf16
     before their products, the plain version keeps fp32), lse within
-    1e-3; the backward pair (K10/K11) is fed the kernel forward's (out,
-    lse) on both sides. The forward (K9) is K16's Hopper forward on q *
-    bf16(scale): the tile pairs it classed skip, full and masked, read back
-    from its counters, must be the rule's (:func:`flash_tile_counts` at
-    its tiles), and the pre-scale pass is timed on its own."""
+    1e-3; the backward pair (K10/K11, K18's dq and dk/dv) is fed the
+    kernel forward's (out, lse) on both sides; each kernel's tile-pair
+    classes, read back from its counters, must be the rule's."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from unsloth_tpu_torch.data.packing import max_segment_length
-    from unsloth_tpu_torch.ops import flash_attention as tfa
-    from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops.nf4 import quantize_nf4
     from unsloth_tpu_torch.ops.qlora_matmul import (DX_STAGE_ROWS,
                                                     nf4_dx_tile_schedule,
@@ -1826,51 +1836,120 @@ def _training_kernels(dev, g, flush):
                                f"(gemma={gemma})")
         del x, gy, dx, rdx, d
 
-    c = LLAMA_31_8B_CONFIG
-    hq, hkv, d = (c["num_attention_heads"], c["num_key_value_heads"],
-                  c["head_dim"])
     seg = torch.from_numpy(_packed_segments(np.random.default_rng(SEED), m)
                            ).to(dev)
-    max_len = int(max_segment_length(seg.cpu().numpy()))
+    for config, label, form in ((LLAMA_31_8B_CONFIG, "Llama-3.1-8B", None),
+                                (GEMMA_7B_CONFIG, "Gemma-7B", "d256")):
+        t_case = time.perf_counter()
+        for name, row in _packed_case(dev, g, flush, label, seg, config,
+                                      form).items():
+            rows[name].append(row)
+        log(f"[time] 3 K9-K11 {label}: {time.perf_counter() - t_case:.1f} s")
+    return rows
+
+
+def _packed_case(dev, g, flush, label, seg, config, form=None):
+    """K9 (the packed forward: K16's Hopper forward on q * bf16(scale)) and
+    K10/K11 (the packed backward: K18's Hopper dq and dk/dv at
+    bf16(scale)) on one packed row ``seg`` at ``config``'s heads, against
+    the plain versions at the real tokens: out, dq, dk, dv row by row
+    (:func:`attn_row_err`), lse within 1e-3, the backward fed the kernel
+    forward's (out, lse) on both sides. The tile pairs each kernel classed
+    skip, full and masked, read back from its counters, must be the
+    rule's (:func:`flash_tile_counts` at that kernel's tiles, times the
+    query heads). Times: the forward (and its pre-scale pass alone), the
+    backward pair (and K18's dq and dk/dv alone), K16's pair on the same
+    inputs (its dq and dk/dv at scale 1 on the pre-scaled q, then dq *
+    scale in one bf16 pass, which rounds dq twice: the route the backward
+    did not take), the plain versions, SDPA with the segments' causal mask
+    and the bound. With ``form`` (a head dim no model path of this script
+    packs), one forward and backward of ``ops.attention.attention`` under
+    the row's segment bound must launch K9 and K10/K11 once each and no
+    other attention kernel (:func:`_packed_through_attention`). Returns a
+    row each for "packed_attn_fwd" and "packed_attn_bwd"."""
+    import numpy as np
+    import torch
+
+    from unsloth_tpu_torch.data.packing import max_segment_length
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import packed_attention as tpa
+    from unsloth_tpu_torch.ops import splash_attention as tsa
+
+    m = seg.shape[1]
+    hq, hkv, d = (config["num_attention_heads"],
+                  config["num_key_value_heads"], config["head_dim"])
     q, k, v, dout = (torch.randn((1, m, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
     scale = d ** -0.5
-    n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
-    kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
+    lo, hi = tfa.tile_segment_ranges(seg)
     real = seg[0] != 0
-    classes = torch.zeros(3, dtype=torch.int32, device=dev)
+    classes = {w: torch.zeros(3, dtype=torch.int32, device=dev)
+               for w in ("fwd", "dq", "dkv")}
     out, lse = tpa.packed_attention_fwd(q, k, v, seg, scale=scale,
-                                        tile_classes=classes)
+                                        tile_classes=classes["fwd"])
     (rout, rlse), fwd_plain = once_ms(
         lambda: tpa.packed_attention_fwd_ref(q, k, v, seg, scale))
-    dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out, lse,
-                                          dout, scale=scale, n_kv=n_kv)
+    dq, dk, dv = tpa.packed_attention_bwd(
+        q, k, v, seg, lo, hi, out, lse, dout, scale=scale,
+        tile_classes=(classes["dq"], classes["dkv"]))
     (rdq, rdk, rdv), bwd_plain = once_ms(lambda: tpa.packed_attention_bwd_ref(
         q, k, v, seg, out, lse, dout, scale))
+    # K16's pair: dq and dk/dv at scale 1 on the pre-scaled q, then the pass
+    qs = tpa._prescale(q, scale)
+
+    def k16_pair():
+        dq16, di16 = tfa.flash_attention_dq(qs, k, v, seg, lo, hi, out, lse,
+                                            dout, scale=1.0)
+        dk16, dv16 = tfa.flash_attention_dkv(qs, k, v, seg, lo, hi, lse,
+                                             di16, dout, scale=1.0)
+        return dq16 * scale, dk16, dv16
+
+    k16_grads = k16_pair()
     torch.cuda.synchronize()
     n_docs = int(seg.max().item())
-    shape = (f"B=1 T={m} Hq={hq} Hkv={hkv} D={d} bf16, {n_docs} segments "
-             f"of {DOC_LENGTHS[0]}-{DOC_LENGTHS[1]} + pad tail "
+    shape = (f"{label} B=1 T={m} Hq={hq} Hkv={hkv} D={d} bf16, {n_docs} "
+             f"segments of {DOC_LENGTHS[0]}-{DOC_LENGTHS[1]} + pad tail "
              f"{int((~real).sum())}")
-    errs = {}
+    errs, k16_errs = {}, {}
     for name, got, ref in (("out", out, rout), ("dq", dq, rdq),
                            ("dk", dk, rdk), ("dv", dv, rdv)):
         got, ref = got[:, real].float(), ref[:, real].float()
         if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"packed attention {name} is not finite")
+            raise RuntimeError(f"packed attention {label} {name} is not "
+                               "finite")
         errs[name] = ((got - ref).abs().max().item(),
                       attn_row_err(got, ref))
+    for name, got, ref in zip(("dq", "dk", "dv"), k16_grads,
+                              (rdq, rdk, rdv)):
+        k16_errs[name] = attn_row_err(got[:, real], ref[:, real])
+    del rout, rdq, rdk, rdv, k16_grads
     lse_err = (lse - rlse)[..., real].abs().max().item()
-    got_cls = classes.tolist()
-    want_cls = [hq * c_ for c_ in flash_tile_counts(
-        seg.cpu(), True, *tfa.KERNEL_TILES["fwd"][d])]
+    got_cls = {w: c_.tolist() for w, c_ in classes.items()}
+    want_cls = {w: [hq * c_ for c_ in flash_tile_counts(
+        seg.cpu(), True, *tfa.KERNEL_TILES[w][d], kernel=w)]
+        for w in classes}
+    path_launches = None
+    if form is not None:
+        path_launches = _packed_through_attention(
+            q, k, v, seg, dout, scale, int(max_segment_length(
+                seg.cpu().numpy())), (out, dq, dk, dv), label)
     fwd_ms = time_ms(lambda: tpa.packed_attention_fwd(q, k, v, seg,
                                                       scale=scale),
                      runs=10, flush=flush)
     pre_ms = time_ms(lambda: tpa._prescale(q, scale), runs=10, flush=flush)
     bwd_ms = time_ms(lambda: tpa.packed_attention_bwd(
-        q, k, v, seg, kv_lo, q_hi, out, lse, dout, scale=scale, n_kv=n_kv),
+        q, k, v, seg, lo, hi, out, lse, dout, scale=scale),
         runs=10, flush=flush)
+    scale_q = tpa._rounded_scale(scale, q.dtype)
+    _, di = tsa._dq("K10", q, k, v, seg, lo, hi, out, lse, dout, None, None,
+                    scale_q, None, None, True)
+    dq_ms = time_ms(lambda: tsa._dq(
+        "K10", q, k, v, seg, lo, hi, out, lse, dout, None, None, scale_q,
+        None, None, True), runs=10, flush=flush)
+    dkv_ms = time_ms(lambda: tsa._dkv(
+        "K11", q, k, v, seg, lo, hi, lse, di, dout, None, None, scale_q,
+        None, None, True), runs=10, flush=flush)
+    k16_ms = time_ms(k16_pair, runs=10, flush=flush)
     # the work the real tokens need: each segment's causal pairs
     seg_np = seg[0].cpu().numpy()
     lens = np.bincount(seg_np[seg_np != 0])
@@ -1879,36 +1958,85 @@ def _training_kernels(dev, g, flush):
     fb = bound(4 * d * hq * pairs, nbytes(q, k, v, out, lse))
     bb = bound(10 * d * hq * pairs,
                nbytes(q, k, v, out, dout, lse, q, k, v))
-    rows["packed_attn_fwd"].append(dict(
-        shape=shape, err=max(errs["out"][0], lse_err), ms=fwd_ms,
+    common = {} if form is None else dict(form=form,
+                                          path_launches=path_launches)
+    res = {"packed_attn_fwd": dict(
+        common, shape=shape, err=max(errs["out"][0], lse_err), ms=fwd_ms,
         plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
-        library_ms=lib_fwd, tile_classes=got_cls, prescale_ms=pre_ms))
-    rows["packed_attn_bwd"].append(dict(
-        shape=shape, err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+        library_ms=lib_fwd, tile_classes=got_cls["fwd"], prescale_ms=pre_ms),
+        "packed_attn_bwd": dict(
+        common, shape=shape, err=max(errs[n][0] for n in ("dq", "dk", "dv")),
         ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
-        library_ms=lib_bwd))
+        library_ms=lib_bwd, k16_ms=k16_ms,
+        tile_classes={w: got_cls[w] for w in ("dq", "dkv")})}
+    card = _smi_name_power()
     log(f"[kernels] packed attention {shape}: " + ", ".join(
         f"{n} max|d|={e:.3e} row-wise {r:.3e}" for n, (e, r) in errs.items())
         + f" (row-wise tol {ATTN_ROW_TOL:.3e}); lse max|d|={lse_err:.3e} "
         "(tol 1e-3)")
-    log(f"[kernels] packed attention fwd (K16's Hopper forward on q * "
-        f"bf16(scale)) tile pairs skip, full, masked {got_cls} (rule "
-        f"{want_cls})")
-    log(f"[kernels] packed attention fwd kernel {fwd_ms:.4f} ms (of which "
-        f"the pre-scale pass alone {pre_ms:.4f} ms) plain "
-        f"{fwd_plain:.4f} ms SDPA {lib_fwd:.4f} ms bound {fb[0]:.4f} ms "
-        f"({fb[1]}); bwd (dq + dk/dv) kernel {bwd_ms:.4f} ms plain "
+    log(f"[kernels] packed attention {label}: tile pairs (skip, full, "
+        "masked), kernels' counters / rule: " + "; ".join(
+            f"{w} {got_cls[w]} / {want_cls[w]} (tiles "
+            f"{tfa.KERNEL_TILES[w][d]})" for w in classes))
+    log(f"[kernels] packed attention {label} on {card}: fwd (K16's Hopper "
+        f"forward on q * bf16(scale)) kernel {fwd_ms:.4f} ms (of which the "
+        f"pre-scale pass alone {pre_ms:.4f} ms) plain {fwd_plain:.4f} ms "
+        f"SDPA {lib_fwd:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}, "
+        f"{100 * fb[0] / fwd_ms:.1f}%); bwd (K18's dq + dk/dv) kernel "
+        f"{bwd_ms:.4f} ms (dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms) plain "
         f"{bwd_plain:.4f} ms SDPA {lib_bwd:.4f} ms bound {bb[0]:.4f} ms "
-        f"({bb[1]}); {pairs} causal pairs per head")
+        f"({bb[1]}, {100 * bb[0] / bwd_ms:.1f}%); K16's pair with its dq "
+        f"pass {k16_ms:.4f} ms (K16 / K18 {k16_ms / bwd_ms:.3f}; row-wise "
+        + ", ".join(f"{n} {e:.3e}" for n, e in k16_errs.items())
+        + f"); {pairs} causal pairs per head")
     bad = [n for n, (e, r) in errs.items() if not r <= ATTN_ROW_TOL]
     if bad or not lse_err <= 1e-3:
-        raise RuntimeError(f"packed attention disagrees in {bad}: {errs}, "
-                           f"lse {lse_err}")
+        raise RuntimeError(f"packed attention {label} disagrees in {bad}: "
+                           f"{errs}, lse {lse_err}")
     if got_cls != want_cls:
-        raise RuntimeError(f"packed attention fwd classed the tile pairs "
-                           f"{got_cls} (skip, full, masked), the rule "
+        raise RuntimeError(f"packed attention {label} classed the tile "
+                           f"pairs {got_cls} (skip, full, masked), the rule "
                            f"{want_cls}")
-    return rows
+    return res
+
+
+def _packed_through_attention(q, k, v, seg, dout, scale, bound, want, label):
+    """{kernel: launches} of one forward and backward of
+    ``ops.attention.attention`` on this packed row under
+    ``packed_segment_bound(bound)``, the counters set to 0 just before:
+    K9 and K10/K11 once each, no other attention kernel (the packed route
+    takes this head dim, as JAX's at ``Dh % 128 == 0``), and the output
+    and gradients at the real tokens row by row (:func:`attn_row_err`)
+    those of the kernel wrappers' own run (``want``: out, dq, dk, dv)."""
+    import torch
+
+    from unsloth_tpu_torch.ops.attention import attention, packed_segment_bound
+
+    names = ("packed_attn_fwd", "packed_attn_bwd") + PACKED_ABSENT
+    fns = _kernel_fns()
+    for n_ in names:
+        fns[n_].launches = 0
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    with packed_segment_bound(bound):
+        got = attention(*xs, segment_ids=seg, scale=scale)
+    got.backward(dout)
+    torch.cuda.synchronize()
+    launches = {n_: fns[n_].launches for n_ in names}
+    real = seg[0] != 0
+    errs = {n_: attn_row_err(a[:, real], b[:, real]) for n_, a, b in zip(
+        ("out", "dq", "dk", "dv"), (got.detach(), *(x.grad for x in xs)),
+        want)}
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        (got.detach(), *(x.grad for x in xs)), want)]
+    log(f"[kernels] packed attention {label} through attention() under "
+        f"packed_segment_bound({bound}): launches {launches}; row-wise from "
+        f"the wrappers' run {errs} (same bits {same})")
+    wrong = {n_: c for n_, c in launches.items()
+             if c != (1 if n_.startswith("packed") else 0)}
+    if wrong or any(not e <= ATTN_ROW_TOL for e in errs.values()):
+        raise RuntimeError(f"packed attention {label} through attention(): "
+                           f"launches {wrong}, row-wise {errs}")
+    return launches
 
 
 def _unpacked_kernels(dev, g, flush):
@@ -4605,7 +4733,11 @@ def phase_train_main(tmp, profile=False):
         raise RuntimeError(f"training losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"training loss did not fall: {losses}")
-    _check_launched(launches, PACKED_KERNELS, "packed training")
+    # K10/K11 once a layer for each of a step's two rows
+    _check_launched(launches, PACKED_KERNELS, "packed training",
+                    {"packed_attn_bwd": 2 * model.cfg.num_layers},
+                    PACKED_STEPS)
+    _check_absent(launches, PACKED_ABSENT, "packed training")
     for lname, t in _lora_leaves(model.lora):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"trained LoRA {lname} is not finite")
@@ -7055,19 +7187,26 @@ def _device_report(prof, wall_us, top):
                 # path every flash_fwd_kernel<128, false, false> is K9's
                 "K16 flash": instances("false", "false")
                 + ("dkv_sum_kernel",),
+                # K10/K11 run K18's dq and dk/dv, told apart from K18's by
+                # the device spans of their profiler range (below); a
+                # parent's wmma kernels by name
                 "K10/K11 packed bwd": ("attn_dq_kernel", "attn_dkv_kernel"),
                 "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
                 ("rms_norm",)}
-    sinks_spans = sorted(
-        (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-        if e.get("cat") == "gpu_user_annotation"
-        and e["name"] == "unsloth.flash_sinks")
-    starts = [a for a, _ in sinks_spans]
+    # the profiler ranges whose device spans name the family of every
+    # kernel inside them: K17's and K10/K11's, which run K16's and K18's
+    ranged = {"unsloth.flash_sinks": "K17 flash sinks",
+              "unsloth.packed_attention_bwd": "K10/K11 packed bwd"}
+    range_spans = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e["dur"]), ranged[e["name"]])
+        for e in events if e.get("cat") == "gpu_user_annotation"
+        and e["name"] in ranged)
+    starts = [a for a, _, _ in range_spans]
 
     def family(e):
         i = bisect.bisect_right(starts, float(e["ts"])) - 1
-        if i >= 0 and float(e["ts"]) < sinks_spans[i][1]:
-            return "K17 flash sinks"
+        if i >= 0 and float(e["ts"]) < range_spans[i][1]:
+            return range_spans[i][2]
         return next((f_ for f_, keys in families.items()
                      if any(key in e["name"] for key in keys)), None)
 
@@ -7751,6 +7890,7 @@ def phase_orpheus(tmp):
         f"{expect})")
     _check_launched(launches, [n for n, k in expect.items() if k],
                     "orpheus training", expect, len(times))
+    _check_absent(launches, PACKED_ABSENT, "orpheus training")
     del trainer, model
     shutil.rmtree(path)
     torch.cuda.empty_cache()
@@ -8117,6 +8257,117 @@ def phase_fp8_sft(tmp, unpacked_launches, profile=False):
     return launches, gen_launches, dict(metrics, eval=ev, generate_s=t_gen)
 
 
+#: CPU threads of the parity process (phases 4-4k): its fp32 references
+#: take most of its time, and the main process keeps the other cores of
+#: the card's 8 to launch the main path's phases
+PARITY_THREADS = 6
+
+
+def phase_parity(tmp):
+    """Phases 4-4k in order, the 2-layer models at full width on the card
+    against the CPU, each timed; returns the launches of each part that
+    the kernels line reads (the ``by_path`` entries of :func:`main`)."""
+    t_start = time.perf_counter()
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[time] {phase}: {time.perf_counter() - t0:.1f} s (parity "
+            f"process {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    timed("4 parity", phase_slice_parity)
+    timed("4b train parity", phase_train_parity)
+    timed("4b train parity padded", phase_train_parity_padded)
+    timed("4c Gemma-2 train parity", phase_train_parity_padded,
+          GEMMA2_9B_CONFIG, expect=GEMMA2_KERNELS,
+          absent=("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                  "packed_attn_fwd", "packed_attn_bwd"),
+          label="Gemma-2-9B (a sliding and a global layer)", seed=SEED + 8)
+    timed("4d gpt-oss train parity", phase_train_parity_gpt_oss)
+    small = timed("4e small-model train parity", phase_train_parity_small,
+                  tmp)
+    grpo = timed("4f GRPO train parity", phase_train_parity_grpo, tmp)
+    whisper = timed("4g Whisper train parity", phase_whisper_parity, tmp)
+    fp8 = timed("4h FP8 train parity", phase_train_parity_fp8)
+    full_ft = timed("4i gpt-oss full-FT train parity",
+                    phase_train_parity_gpt_oss_full)
+    diffusion = timed("4j LLaDA-8B diffusion train parity",
+                      phase_train_parity_diffusion)
+    gemma2_diffusion = timed(
+        "4k Gemma-2 diffusion train parity", phase_train_parity_diffusion,
+        GEMMA2_9B_CONFIG, label="Gemma-2-9B (every layer global)",
+        names=FULL_SPLASH, seed=SEED + 32, all_global=True)
+    return {"llama32_2layer_parity": small["llama32"],
+            "gemma7b_2layer_parity": small["gemma"],
+            "gpt_oss_sinks_row_parity": small["gpt_oss"],
+            "grpo_2layer_parity": grpo["launches"],
+            "whisper_2layer_parity": whisper["launches"],
+            "fp8_2layer_parity": fp8["launches"],
+            "gpt_oss_full_ft_2layer_parity": full_ft["launches"],
+            "diffusion_2layer_parity": diffusion["launches"],
+            "gemma2_diffusion_2layer_parity": gemma2_diffusion["launches"]}
+
+
+class ParityProcess:
+    """:func:`phase_parity` in a process of its own (this script with
+    ``--parity-phases DIR``), its output kept in ``DIR/parity.log`` and its
+    result in ``DIR/parity.json``; :meth:`join` prints the log and returns
+    the result, :meth:`stop` ends the process if it still runs."""
+
+    def __init__(self, tmp):
+        self.dir = os.path.join(tmp, "parity")
+        os.makedirs(self.dir)
+        self.log_path = os.path.join(self.dir, "parity.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parity-phases",
+                 self.dir], stdout=out, stderr=subprocess.STDOUT)
+        self.printed = False
+
+    def _print_log(self):
+        if not self.printed:
+            self.printed = True
+            with open(self.log_path) as f:
+                for line in f:
+                    log(line.rstrip("\n"))
+
+    def join(self):
+        rc = self.proc.wait()
+        self._print_log()
+        import resource
+
+        rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+        log(f"[time] 4-4k parity process: joined "
+            f"{time.perf_counter() - self.t0:.1f} s after its start, exit "
+            f"code {rc}, the largest child process's peak host memory "
+            f"{rss:.1f} GiB")
+        if rc:
+            raise RuntimeError(f"the parity phases 4-4k failed (exit code "
+                               f"{rc})")
+        with open(os.path.join(self.dir, "parity.json")) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._print_log()
+
+
+def _parity_main(out_dir) -> int:
+    """``--parity-phases DIR``: :func:`phase_parity` with DIR as its
+    scratch, its result written to ``DIR/parity.json``."""
+    import torch
+
+    torch.set_num_threads(PARITY_THREADS)
+    result = phase_parity(out_dir)
+    with open(os.path.join(out_dir, "parity.json"), "w") as f:
+        json.dump(result, f, default=int)
+    return 0
+
+
 def _kernel_fns():
     """Each kernel's wrapper (its ``launches`` counter) by name."""
     from unsloth_tpu_torch.ops import cross_entropy as tce
@@ -8165,6 +8416,11 @@ SERVING_KERNELS = ("nf4_matmul", "rms_norm")
 TRAIN_KERNELS = ("nf4_matmul", "nf4_matmul_dx", "rms_norm", "rms_norm_bwd",
                  "cross_entropy_fwd", "cross_entropy_bwd")
 PACKED_KERNELS = TRAIN_KERNELS + ("packed_attn_fwd", "packed_attn_bwd")
+#: attention kernels the packed paths must never launch: K9 and K10/K11
+#: (whose backward runs K18's dq and dk/dv, counted as K10/K11's alone)
+#: take every layer
+PACKED_ABSENT = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                 "splash_attn_fwd", "splash_attn_dq", "splash_attn_dkv")
 UNPACKED_KERNELS = TRAIN_KERNELS + ("flash_attn_fwd", "flash_attn_dq",
                                     "flash_attn_dkv")
 GEMMA2_KERNELS = TRAIN_KERNELS + ("splash_attn_fwd", "splash_attn_dq",
@@ -8198,6 +8454,13 @@ def _check_launched(launches, names, path, per_step=None, steps=0):
                            f"are {wrong}, not {per_step} a step")
 
 
+def _check_absent(launches, names, path):
+    """None of the kernels ``names`` launched on the path."""
+    stray = {n: launches[n] for n in names if launches[n]}
+    if stray:
+        raise RuntimeError(f"kernels off the {path} path ran: {stray}")
+
+
 #: the kernel behind a kernels-line entry whose wrapper picks between forms
 KERNEL_FORMS = {
     "nf4_matmul": "nf4_wgmma_kernel<256> (Hopper: TMA ring, the NF4 decode "
@@ -8218,7 +8481,16 @@ KERNEL_FORMS = {
                   "count)",
     "packed_attn_fwd": "flash_fwd_kernel<128, false, false> (K16's Hopper "
                        "forward on q * bf16(scale) at scale 1, the tile "
-                       "pairs the segments rule out skipped)"}
+                       "pairs the segments rule out skipped)",
+    "packed_attn_bwd": "flash_dq_kernel<128, true> (csrc/flash_dq.cu) then "
+                       "flash_dkv_kernel<128, true> (csrc/flash_dkv.cu): "
+                       "K18's Hopper dq and dk/dv at bf16(scale), no window, "
+                       "softcap or layout, the tile pairs the segments rule "
+                       "out skipped",
+    "packed_attn_fwd_d256": "flash_fwd_kernel<256, false, false>",
+    "packed_attn_bwd_d256": "flash_dq_kernel<256, true> (csrc/flash_dq.cu) "
+                            "then flash_dkv_kernel<256, true> "
+                            "(csrc/flash_dkv.cu)"}
 
 
 def _kernels_line(rows, by_path):
@@ -8252,9 +8524,11 @@ def _kernels_line(rows, by_path):
                             "unsloth_tpu/ops/packed_attention.py:109 "
                             "(_fwd_kernel, pallas_call :205 in _fwd :161)",
                             None),
-        "packed_attn_bwd": ("packed_attention.cu",
-                            "unsloth_tpu/ops/packed_attention.py:224 and "
-                            ":316", None),
+        "packed_attn_bwd": ("flash_dq.cu",
+                            "unsloth_tpu/ops/packed_attention.py:224 "
+                            "(_dq_kernel, pallas_call :301 in _dq :265) and "
+                            ":316 (_dkv_kernel, pallas_call :409 in _dkv "
+                            ":366)", None),
         "flash_attn_fwd": ("flash_fwd.cu", k16 + "forward)", None),
         "flash_attn_dq": ("flash_dq.cu", k16 + "_flash_attention_bwd_dq)",
                           None),
@@ -8373,12 +8647,23 @@ def _kernels_line(rows, by_path):
         "flash_attn_fwd_full_canvas": ("flash_attn_fwd_full", "canvas",
                                        "(d) generate canvas",
                                        "diffusion_generate"),
+        "packed_attn_fwd_d256": ("packed_attn_fwd", "d256", "Gemma-7B",
+                                 None),
+        "packed_attn_bwd_d256": ("packed_attn_bwd", "d256", "Gemma-7B",
+                                 None),
     }
     # the TPU kernel a form replaces, where it is not the base form's
     form_replaces = {"prefix": "unsloth_tpu/ops/attention.py:246-247 "
                      "(_splash_kernel with NumpyMask(prefix_mask_array(P, G, "
                      "L)), from attention :600-617 under prefix_attention)"}
     has_forms = {k_ for k_, *_ in forms.values()}
+
+    def attention_call(kname):
+        """The phase-3 call of ops.attention.attention whose launches a
+        form no model path runs reports."""
+        return ("attention_packed" if kname.startswith("packed")
+                else "attention_with_sinks")
+
     form_paths = {p_ for *_, p_ in forms.values()} | {
         "qwen25_training", "llama32_2layer_parity", "grpo_2layer_parity",
         "qwen25_full_ft_training", "gpt_oss_full_ft_2layer_parity"}
@@ -8400,7 +8685,7 @@ def _kernels_line(rows, by_path):
                        if kname in n
                        and not (kname in has_forms and p_ in form_paths)}
         elif path is None:
-            by_form = {"attention_with_sinks": row["path_launches"][kname]}
+            by_form = {attention_call(kname): row["path_launches"][kname]}
         else:
             by_form = {path: by_path[path][kname]}
         if form == "d64" and kname.startswith("flash"):
@@ -8416,7 +8701,7 @@ def _kernels_line(rows, by_path):
         kernels_line.append({
             "name": name_, "route": "cuda",
             "source": f"unsloth_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": (by_form["attention_with_sinks"] if path is None
+            "launches": (by_form[attention_call(kname)] if path is None
                          else by_path[path][kname]),
             "max_abs_err": max(r["err"] for r in of_form),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -8468,6 +8753,8 @@ def main() -> int:
             LLAMA_31_8B_CONFIG),
         ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG)}
     args = tuple(sys.argv[1:])
+    if len(args) == 2 and args[0] == "--parity-phases":
+        return _parity_main(args[1])
     tree = None
     if len(args) == 3 and args[:1] in profiles and args[1] == "--tree":
         # profile another checkout's package (a parent unpacked under
@@ -8508,6 +8795,7 @@ def main() -> int:
     name, smi = timed("1 device", phase_device)
     timed("2 build", phase_build, hold=tree is None)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    parity = None
     try:
         if profile:
             # phases 1, 2 and 6, 7, 8, 9, 10 or 12 only, then a profiled
@@ -8518,32 +8806,7 @@ def main() -> int:
             return 0
         rows = timed("3 kernels", phase_kernels)
         timed("3b CE routes", phase_ce_routes)
-        timed("4 parity", phase_slice_parity)
-        timed("4b train parity", phase_train_parity)
-        timed("4b train parity padded", phase_train_parity_padded)
-        timed("4c Gemma-2 train parity", phase_train_parity_padded,
-              GEMMA2_9B_CONFIG, expect=GEMMA2_KERNELS,
-              absent=("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
-                      "packed_attn_fwd", "packed_attn_bwd"),
-              label="Gemma-2-9B (a sliding and a global layer)",
-              seed=SEED + 8)
-        timed("4d gpt-oss train parity", phase_train_parity_gpt_oss)
-        small = timed("4e small-model train parity",
-                      phase_train_parity_small, tmp)
-        grpo_parity = timed("4f GRPO train parity", phase_train_parity_grpo,
-                            tmp)
-        whisper_parity = timed("4g Whisper train parity",
-                               phase_whisper_parity, tmp)
-        fp8_parity = timed("4h FP8 train parity", phase_train_parity_fp8)
-        full_ft_parity = timed("4i gpt-oss full-FT train parity",
-                               phase_train_parity_gpt_oss_full)
-        diffusion_parity = timed("4j LLaDA-8B diffusion train parity",
-                                 phase_train_parity_diffusion)
-        gemma2_diffusion_parity = timed(
-            "4k Gemma-2 diffusion train parity",
-            phase_train_parity_diffusion, GEMMA2_9B_CONFIG,
-            label="Gemma-2-9B (every layer global)", names=FULL_SPLASH,
-            seed=SEED + 32, all_global=True)
+        parity = ParityProcess(tmp)
         llama = timed("5 write Llama", _write_model,
                       os.path.join(tmp, "llama31_8b"), LLAMA_31_8B_CONFIG)
         serve_launches, _ = timed("5 serving", phase_main_path, llama)
@@ -8566,13 +8829,6 @@ def main() -> int:
                        os.path.join(tmp, "gemma2_9b"), GEMMA2_9B_CONFIG)
         gemma2_launches, _ = timed("8 Gemma-2 SFT", phase_gemma2_sft, gemma2)
         shutil.rmtree(gemma2)
-        gpt_oss = timed("9 write gpt-oss", _write_model,
-                        os.path.join(tmp, "gpt_oss_20b"), GPT_OSS_20B_CONFIG)
-        gpt_oss_launches, bf16_launches, _ = timed(
-            "9 gpt-oss SFT", phase_gpt_oss_sft, gpt_oss)
-        gpt_oss_ft_launches, _ = timed("16 gpt-oss full FT",
-                                       phase_gpt_oss_full_ft, gpt_oss, tmp)
-        shutil.rmtree(gpt_oss)
         llama32 = timed("10 write Llama-3.2 (bnb-4bit)", _write_model,
                         os.path.join(tmp, "llama32_1b_bnb"),
                         LLAMA_32_1B_CONFIG, True)
@@ -8588,7 +8844,19 @@ def main() -> int:
         whisper_launches_, transcribe_launches, _ = timed(
             "13 Whisper-large-v3", phase_whisper, tmp)
         orpheus_launches, _ = timed("14 Orpheus-3B SFT", phase_orpheus, tmp)
+        # the largest checkpoint and the largest device footprint wait
+        # for the parity process to end
+        parity_launches = timed("4-4k parity (joined)", parity.join)
+        gpt_oss = timed("9 write gpt-oss", _write_model,
+                        os.path.join(tmp, "gpt_oss_20b"), GPT_OSS_20B_CONFIG)
+        gpt_oss_launches, bf16_launches, _ = timed(
+            "9 gpt-oss SFT", phase_gpt_oss_sft, gpt_oss)
+        gpt_oss_ft_launches, _ = timed("16 gpt-oss full FT",
+                                       phase_gpt_oss_full_ft, gpt_oss, tmp)
+        shutil.rmtree(gpt_oss)
     finally:
+        if parity is not None:
+            parity.stop()
         shutil.rmtree(tmp, ignore_errors=True)
 
     # the launch counts of each main path's run
@@ -8599,27 +8867,22 @@ def main() -> int:
                "gpt_oss_bf16_training": bf16_launches,
                "llama32_training": llama32_launches,
                "qwen25_training": qwen_launches,
-               "llama32_2layer_parity": small["llama32"],
-               "gemma7b_2layer_parity": small["gemma"],
-               "gpt_oss_sinks_row_parity": small["gpt_oss"],
                "grpo_training": grpo_launches,
-               "grpo_2layer_parity": grpo_parity["launches"],
                "whisper_training": whisper_launches_,
                "whisper_transcribe": transcribe_launches,
-               "whisper_2layer_parity": whisper_parity["launches"],
                "orpheus_training": orpheus_launches,
                "fp8_training": fp8_launches_,
                "fp8_generate": fp8_gen_launches,
-               "fp8_2layer_parity": fp8_parity["launches"],
                "gpt_oss_full_ft_training": gpt_oss_ft_launches,
-               "gpt_oss_full_ft_2layer_parity": full_ft_parity["launches"],
                "qwen25_full_ft_training": qwen_ft_launches,
                "diffusion_training": diffusion_launches_,
                "diffusion_generate": diffusion_gen_launches,
-               "diffusion_2layer_parity": diffusion_parity["launches"],
-               "gemma2_diffusion_2layer_parity":
-                   gemma2_diffusion_parity["launches"]}
-    log(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
+               **parity_launches}
+    import resource
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"[time] whole script {time.perf_counter() - t_start:.1f} s, its "
+        f"own process's peak host memory {rss:.1f} GiB")
     kernels_line = _kernels_line(rows, by_path)
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

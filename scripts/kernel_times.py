@@ -1,15 +1,16 @@
 """Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K5
 (the LayerNorm forward), K12 and K13 (the FP8 matmul forward and its dx),
-K14 and K15 (the grouped NF4 expert forward and its dx) and K9 (the packed
-attention forward) of one tree of the port on the card, at the shapes of
-``chip_smoke.py``'s phase 3, beside the two-call yardsticks of K1, K2, K12
-and K13 (dequantize, then ``torch.matmul``), of K14 and K15 (dequantize
-the stack, then ``torch._grouped_mm``, K14 plus the bias gathered by row),
-``F.layer_norm`` and, for K9, ``F.scaled_dot_product_attention`` with the
-segments' causal mask.
+K14 and K15 (the grouped NF4 expert forward and its dx), K9 (the packed
+attention forward) and K10/K11 (its backward) of one tree of the port on
+the card, at the shapes of ``chip_smoke.py``'s phase 3, beside the
+two-call yardsticks of K1, K2, K12 and K13 (dequantize, then
+``torch.matmul``), of K14 and K15 (dequantize the stack, then
+``torch._grouped_mm``, K14 plus the bias gathered by row),
+``F.layer_norm`` and, for K9 and K10/K11, ``F.scaled_dot_product_attention``
+with the segments' causal mask (forward; backward by autograd).
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
-                                   [--only K1|K2|K5|K9|K12|K13|K14|K15]
+                                   [--only K1|K2|K5|K9|K10|K12|K13|K14|K15]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -29,9 +30,14 @@ random router, (b) one expert half the rows and three the rest, (c) a
 top-4 of 2 tokens; K15's g the same rows' gradients, and its per-call
 absmax transpose timed on its own; K9's 8K packed row of 15 documents of
 64-1,024 tokens and a pad tail, Llama-3.1-8B's 32/8 heads of 128, with
-the time of the q * bf16(scale) pass that the tree's K9 adds on its own).
-A tree whose ``packed_attention_fwd`` still takes the segment metadata
-(``kv_lo``, ``n_kv``) is called with it.
+the time of the q * bf16(scale) pass that the tree's K9 adds on its own;
+K10/K11 on that row and on a 2,048-token row of Orpheus-3B's 24/8 heads of
+128 with documents of 316-1,966 tokens, the lengths of phase 14's TTS
+examples, fed the tree's K9 out and lse, beside K16's dq and dk/dv at
+scale 1 on the pre-scaled q with dq * scale in one bf16 pass, and the
+bound of 10 D operations a valid pair and head). A tree whose
+``packed_attention_fwd`` or ``packed_attention_bwd`` still takes the
+segment metadata (``kv_lo``, ``q_hi``, ``n_kv``) is called with it.
 """
 
 from __future__ import annotations
@@ -86,6 +92,11 @@ K14_TOKENS, K14_TOP_K = 4096, 4
 # documents' lengths (chip_smoke.DOC_LENGTHS)
 K9_SHAPE = (8192, 32, 8, 128)
 K9_DOCS = (64, 1024)
+# K10/K11: (name, (T, Hq, Hkv, D), documents' lengths): the K9 row, and a
+# packed row of phase 14 (Orpheus-3B: 7 SNAC codes a frame for 40-250
+# frames, 20-200 text bytes and 16 more tokens an example)
+K10_ROWS = (("Llama-3.1-8B 8K row", K9_SHAPE, K9_DOCS),
+            ("Orpheus-3B 2K row", (2048, 24, 8, 128), (316, 1966)))
 
 
 def fp8_weight(n, k, g, dev, block):
@@ -209,6 +220,105 @@ def k14_times(dev, g, flush, label, dx=False):
                           "rel_err": err, **extra}), flush=True)
 
 
+def packed_row(t, docs, seed=0):
+    """Segment ids [1, t] (numpy): documents of ``docs`` tokens laid end to
+    end while they fit, then a pad tail (id 0); chip_smoke's
+    ``_packed_segments``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((1, t), np.int32)
+    pos, sid = 0, 1
+    while True:
+        n = int(rng.integers(docs[0], docs[1] + 1))
+        if pos + n > t - 1:
+            break
+        seg[0, pos:pos + n] = sid
+        pos, sid = pos + n, sid + 1
+    return seg
+
+
+def k10_times(dev, g, flush, label):
+    """K10/K11 (the packed attention backward) at K10_ROWS, fed the tree's
+    K9 out and lse, beside K16's pair with its dq pass, SDPA's backward
+    with the segments' causal mask, and the bound."""
+    import inspect
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unsloth_tpu_torch.ops import flash_attention as tfa
+    from unsloth_tpu_torch.ops import packed_attention as tpa
+
+    for name, (t, hq, hkv, d), docs in K10_ROWS:
+        seg = torch.from_numpy(packed_row(t, docs)).to(dev)
+        q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
+                         .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+        scale = d ** -0.5
+        real = seg[0] != 0
+        lens = np.bincount(seg[0][real].cpu().numpy())
+        out, lse = tpa.packed_attention_fwd(q, k, v, seg, scale=scale)
+        lo, hi = tfa.tile_segment_ranges(seg)
+        if "n_kv" in inspect.signature(tpa.packed_attention_bwd).parameters:
+            n_kv = min(tpa.bound_blocks(int(lens.max()), tpa.BLOCK),
+                       t // tpa.BLOCK)
+            kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
+
+            def bwd():
+                return tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi,
+                                                out, lse, dout, scale=scale,
+                                                n_kv=n_kv)
+        else:
+            def bwd():
+                return tpa.packed_attention_bwd(q, k, v, seg, lo, hi, out,
+                                                lse, dout, scale=scale)
+        qs = tpa._prescale(q, scale)
+
+        def k16_pair():
+            dq, di = tfa.flash_attention_dq(qs, k, v, seg, lo, hi, out, lse,
+                                            dout, scale=1.0)
+            dk, dv = tfa.flash_attention_dkv(qs, k, v, seg, lo, hi, lse, di,
+                                             dout, scale=1.0)
+            return dq * scale, dk, dv
+
+        pos_ = torch.arange(t, device=dev)
+        mask = ((pos_[:, None] >= pos_[None, :])
+                & (seg[0][:, None] == seg[0][None, :]))[None, None]
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           enable_gqa=True)
+        gy = dout.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+        refs = tpa.packed_attention_bwd_ref(q, k, v, seg, out, lse, dout,
+                                            scale)
+        errs = {}
+        for route, fn in (("kernel", bwd), ("k16_pair", k16_pair)):
+            errs[route] = max(
+                ((a[:, real].float() - r[:, real].float()).abs().max()
+                 / r[:, real].float().abs().max()).item()
+                for a, r in zip(fn(), refs))
+        del refs
+        pairs = int((lens * (lens + 1) // 2).sum())
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (q, k, v, out, dout, lse, q, k, v))
+        print(json.dumps({
+            "label": label, "kernel": "K10/K11",
+            "shape": f"{name}: B=1 T={t} Hq={hq} Hkv={hkv} D={d}, "
+                     f"{int(seg.max())} segments, pad {int((~real).sum())}",
+            "ms": time_ms(bwd, flush), "k16_pair_ms": time_ms(k16_pair, flush),
+            "sdpa_bwd_ms": time_ms(sdpa_bwd, flush),
+            "bound_ms": 1e3 * max(10 * d * hq * pairs / 989e12,
+                                  nbytes / 3.35e12),
+            "rel_err": errs["kernel"], "k16_pair_rel_err": errs["k16_pair"]}),
+            flush=True)
+        del y, leaves, mask
+
+
 def k9_times(dev, g, flush, label):
     """K9 (the packed attention forward) on the 8K packed row beside SDPA
     with the segments' causal mask, and the pre-scale pass alone."""
@@ -221,16 +331,7 @@ def k9_times(dev, g, flush, label):
     from unsloth_tpu_torch.ops import packed_attention as tpa
 
     t, hq, hkv, d = K9_SHAPE
-    rng = np.random.default_rng(0)
-    seg = np.zeros((1, t), np.int32)
-    pos, sid = 0, 1
-    while True:
-        n = int(rng.integers(K9_DOCS[0], K9_DOCS[1] + 1))
-        if pos + n > t - 1:
-            break
-        seg[0, pos:pos + n] = sid
-        pos, sid = pos + n, sid + 1
-    seg = torch.from_numpy(seg).to(dev)
+    seg = torch.from_numpy(packed_row(t, K9_DOCS)).to(dev)
     q, k, v = (torch.randn((1, t, h, d), generator=g, device=dev).to(
         torch.bfloat16) for h in (hq, hkv, hkv))
     scale = d ** -0.5
@@ -277,8 +378,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K12", "K13",
-                                       "K14", "K15"), default=None)
+    ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K10", "K12",
+                                       "K13", "K14", "K15"), default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -394,6 +495,8 @@ def main() -> int:
         k14_times(dev, g, flush, args.label, dx=True)
     if args.only in (None, "K9"):
         k9_times(dev, g, flush, args.label)
+    if args.only in (None, "K10"):
+        k10_times(dev, g, flush, args.label)
     for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
                               else ()):
         dtype = getattr(torch, dt)

@@ -208,42 +208,44 @@ def _segments(t, lo, hi, seed):
     return seg   # the last 100 tokens are a pad tail (id 0)
 
 
-def test_packed_attention_kernels_match_plain(dev):
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (4, 4, 256)])
+def test_packed_attention_kernels_match_plain(dev, hq, hkv, d):
     """Forward (out, lse: K16's Hopper forward on q * bf16(scale)) and
-    backward (dq, dk, dv: K10/K11 fed that forward's out and lse) against
-    the plain per-segment fp32 versions on the same bf16 inputs and the
-    same saved (out, lse), at real positions: out/dq/dk/dv row by row
-    (``chip_smoke.attn_row_err``: each element within 2^-6 of its value
-    plus 2^-4 of its (token, head) row's rms; bf16 P and dS, bf16
-    outputs), lse within 1e-3. The forward counts as K9's launch, not
-    K16's, and its tile-pair classes are the rule's
-    (``chip_smoke.flash_tile_counts`` at the forward's tiles)."""
-    t, hq, hkv, d, max_len = 1024, 8, 2, 128, 300
+    backward (dq, dk, dv: K18's dq and dk/dv at bf16(scale), fed that
+    forward's out and lse) against the plain per-segment fp32 versions on
+    the same bf16 inputs and the same saved (out, lse), at real positions:
+    out/dq/dk/dv row by row (``chip_smoke.attn_row_err``: each element
+    within 2^-6 of its value plus 2^-4 of its (token, head) row's rms;
+    bf16 P and dS, bf16 outputs), lse within 1e-3. The forward counts as
+    K9's launch, not K16's, the backward as K10/K11's, not splash's; the
+    tile-pair classes of each kernel are the rule's
+    (``chip_smoke.flash_tile_counts`` at that kernel's tiles)."""
+    t, max_len = 1024, 300
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v, dout = (torch.randn((1, t, h, d), generator=g, device=dev)
                      .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
     seg = _segments(t, 40, max_len, seed=5).to(dev)
     scale = d ** -0.5
-    n_kv = tpa.bound_blocks(max_len, tpa.BLOCK)
-    kv_lo, q_hi = tpa.segment_block_metadata(seg, tpa.BLOCK)
-    before = (tpa.packed_attention_fwd.launches,
-              tpa.packed_attention_bwd.launches,
-              tfa.flash_attention_fwd.launches)
-    classes = torch.zeros(3, dtype=torch.int32, device=dev)
+    lo, hi = tfa.tile_segment_ranges(seg)
+    fns = (tpa.packed_attention_fwd, tpa.packed_attention_bwd,
+           tfa.flash_attention_fwd, tsa.splash_attention_dq,
+           tsa.splash_attention_dkv)
+    before = [f.launches for f in fns]
+    classes = {w: torch.zeros(3, dtype=torch.int32, device=dev)
+               for w in ("fwd", "dq", "dkv")}
     out, lse = tpa.packed_attention_fwd(q, k, v, seg, scale=scale,
-                                        tile_classes=classes)
-    dq, dk, dv = tpa.packed_attention_bwd(q, k, v, seg, kv_lo, q_hi, out,
-                                          lse, dout, scale=scale, n_kv=n_kv)
+                                        tile_classes=classes["fwd"])
+    dq, dk, dv = tpa.packed_attention_bwd(
+        q, k, v, seg, lo, hi, out, lse, dout, scale=scale,
+        tile_classes=(classes["dq"], classes["dkv"]))
     rout, rlse = tpa.packed_attention_fwd_ref(q, k, v, seg, scale)
     rdq, rdk, rdv = tpa.packed_attention_bwd_ref(q, k, v, seg, out, lse,
                                                  dout, scale)
     torch.cuda.synchronize()
-    assert (tpa.packed_attention_fwd.launches,
-            tpa.packed_attention_bwd.launches,
-            tfa.flash_attention_fwd.launches) == (before[0] + 1,
-                                                   before[1] + 1, before[2])
-    assert [c // hq for c in classes.tolist()] == flash_tile_counts(
-        seg.cpu(), True, *tfa.KERNEL_TILES["fwd"][d])
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 0, 0, 0]
+    for w, c in classes.items():
+        assert [x // hq for x in c.tolist()] == flash_tile_counts(
+            seg.cpu(), True, *tfa.KERNEL_TILES[w][d], kernel=w), w
     real = (seg[0] != 0)
     assert ((lse - rlse)[..., real]).abs().max() <= 1e-3
     for got, ref in ((out, rout), (dq, rdq), (dk, rdk), (dv, rdv)):

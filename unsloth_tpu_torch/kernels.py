@@ -28,13 +28,13 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
 SOURCES = ("nf4_matmul.cu", "nf4_wgmma.cu", "rms_norm.cu",
-           "packed_attention.cu", "flash_attention.cu", "flash_fwd.cu",
-           "flash_dq.cu", "flash_dkv.cu", "cross_entropy.cu",
+           "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu",
+           "flash_dkv.cu", "cross_entropy.cu",
            "splash_attention.cu", "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu",
            "tgmm.cu", "layer_norm.cu", "fp8_matmul.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = ("attention_tiles.cuh", "hopper_common.cuh", "hopper_tiles.cuh",
-           "gmm_tiles.cuh", "expert_visits.cuh", "norm_common.cuh")
+HEADERS = ("hopper_common.cuh", "hopper_tiles.cuh", "gmm_tiles.cuh",
+           "expert_visits.cuh", "norm_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -134,10 +134,6 @@ def library() -> ctypes.CDLL:
                                              ctypes.c_float, i, i, i, p]
         lib.unsloth_rms_norm_bwd.restype = i
         f = ctypes.c_float
-        lib.unsloth_packed_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                                p, p, p, i, i, i, i, i, f, f,
-                                                p]
-        lib.unsloth_packed_attn_bwd.restype = i
         b = ctypes.c_bool
         # pointers, B, T, Hq, Hkv, D, scale, causal, the tile-pair class
         # counters (or null), stream; dk/dv also its fp32 scratch (or null)

@@ -34,13 +34,12 @@ carries no value).
   dim 64, 128 or 256, causal, or non-causal (``FullMask``) with a softcap
   and no window; otherwise, causal, with a declared segment bound
   (:class:`packed_segment_bound`, set by the trainer when it packs),
-  segment ids, ``T % 64 == 0`` and head dim 128, the packed flash kernels
+  segment ids, ``T % 64 == 0`` and a head dim that is a multiple of 128
+  (JAX's rule; the kernels are built for 128 and 256), the packed kernels
   (``ops/packed_attention.py``, K9-K11); otherwise the flash kernels over
   the whole range, causal or not (``ops/flash_attention.py``, K16: any T,
   head dim 64, 128 or 256): unpacked or padded rows, no segment ids,
-  packed rows at head dim 64 or 256 (JAX's packed kernel takes ``Dh % 128
-  == 0``; the port's is built for 128 only, and K16 computes the same
-  function over more tile pairs), and the text-diffusion models'
+  packed rows at head dim 64, and the text-diffusion models'
   bidirectional rows. On CUDA, a window without causality raises
   ``NotImplementedError``: the JAX package reads it two ways (its
   ``_splash_kernel`` builds the causal ``LocalMask``, its ``attention_ref``
@@ -61,9 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from .flash_attention import flash_attention
 from .flash_sinks import KERNEL_HEAD_DIMS as SINKS_HEAD_DIMS
 from .flash_sinks import flash_sinks
-from .packed_attention import BLOCK
-from .packed_attention import KERNEL_HEAD_DIM as PACKED_HEAD_DIM
-from .packed_attention import packed_flash_attention
+from .packed_attention import BLOCK, packed_flash_attention
 from .splash_attention import KERNEL_HEAD_DIMS as SPLASH_HEAD_DIMS
 from .splash_attention import (check_prefix_layout, prefix_mask_array,
                                splash_attention)
@@ -372,7 +369,7 @@ def attention(q, k, v, *, causal: bool = True,
                                 softcap=softcap, scale=scale, causal=causal)
     bound = current_segment_bound() if segment_ids is not None else None
     if (bound is not None and causal and t % BLOCK == 0
-            and dh == PACKED_HEAD_DIM):
+            and dh % 128 == 0):
         return packed_flash_attention(q, k, v, segment_ids,
                                       max_segment_len=bound, scale=scale)
     return flash_attention(q, k, v, segment_ids, scale=scale, causal=causal)

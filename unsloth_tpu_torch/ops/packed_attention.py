@@ -3,28 +3,30 @@ hand-written CUDA kernels.
 
 Counterpart of unsloth_tpu/ops/packed_attention.py. A packed SFT row
 holds many short documents; tokens attend only within their segment, so
-each 64-token query block visits only the kv blocks from its first token's
-segment start up to the diagonal, and the kv range is also capped by the
-packer's declared longest segment (``max_segment_len``). The work is
-O(sum of segment lengths squared) instead of O(T^2).
+the work is O(sum of segment lengths squared) instead of O(T^2). The TPU
+kernels bound each 64-token query block's kv range by its first token's
+segment start and the packer's declared longest segment
+(``max_segment_len``); the card's kernels visit the causal tile pairs and
+skip every pair whose tiles' segment-id ranges are disjoint.
 
-On CUDA tensors :func:`packed_flash_attention` runs the forward (TPU
+On CUDA tensors :func:`packed_flash_attention` runs the forward (K9, TPU
 ``_fwd_kernel``: the output and an fp32 logsumexp) on K16's Hopper
 forward (``csrc/flash_fwd.cu``, through ``ops/flash_attention.py``) with q
 pre-scaled in bf16, as the JAX wrapper pre-scales it, and the backward
-pair of ``csrc/packed_attention.cu``, dq (TPU ``_dq_kernel``) then dk/dv
-(TPU ``_dkv_kernel``), which read that forward's out and lse. On CPU
-tensors it runs the plain versions :func:`packed_attention_fwd_ref` and
-:func:`packed_attention_bwd_ref`: causal attention within each segment, in
-fp32. The device of q is the only thing that chooses.
+(K10, TPU ``_dq_kernel``, then K11, TPU ``_dkv_kernel``) on K18's Hopper
+dq and dk/dv (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu`` in their splash
+form, through ``ops/splash_attention.py``), which read that forward's out
+and lse. On CPU tensors it runs the plain versions
+:func:`packed_attention_fwd_ref` and :func:`packed_attention_bwd_ref`:
+causal attention within each segment, in fp32. The device of q is the
+only thing that chooses.
 
 Contract (as in the JAX package): every *real* segment fits in
-``max_segment_len`` tokens. The padding tail (segment id 0) may be longer;
-outputs at pad positions are then finite but unspecified (the backward
-kernels visit a bounded subset of the pad tokens, the forward and the
-plain versions all of them), and nothing downstream reads them. Layout:
-the model's, q [B, T, Hq, D], k, v [B, T, Hkv, D], segment ids [B, T] int
-with equal ids contiguous.
+``max_segment_len`` tokens; a longer one raises. The padding tail (segment
+id 0) may be longer; outputs at pad positions are then finite but
+unspecified, and nothing downstream reads them. Layout: the model's, q
+[B, T, Hq, D], k, v [B, T, Hkv, D], segment ids [B, T] int with equal ids
+contiguous. CUDA: bf16, D = 128 or 256, T % 64 == 0.
 """
 
 from __future__ import annotations
@@ -34,20 +36,26 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from .. import kernels
 from ..data.packing import max_segment_length
+from .flash_attention import _check_kernel_inputs as _check_attn_inputs
 from .flash_attention import _fwd as _flash_fwd
 from .flash_attention import tile_segment_ranges
+from .splash_attention import _dkv as _splash_dkv
+from .splash_attention import _dq as _splash_dq
 
 #: lse of a row with no valid key (cannot happen for a real token, which
 #: always sees itself; keeps exp(s - lse) at 0 instead of inf if it does)
 EMPTY_LSE = 1e30
-#: tokens per kernel tile (query and kv blocks); the card's choice, not the
-#: TPU's 512
+#: tokens per tile of the segment-id ranges (``tile_segment_ranges``); the
+#: packed route takes rows of T % BLOCK == 0
 BLOCK = 64
-#: head dim the CUDA kernels are built for
-KERNEL_HEAD_DIM = 128
+#: head dims the CUDA kernels are built for (JAX's packed kernel takes any
+#: multiple of 128)
+KERNEL_HEAD_DIMS = (128, 256)
+#: the profiler range of the backward's launches (K18's kernels)
+PROFILE_RANGE = "unsloth.packed_attention_bwd"
 
 
 def segment_block_metadata(segment_ids: torch.Tensor, block: int
@@ -71,12 +79,6 @@ def segment_block_metadata(segment_ids: torch.Tensor, block: int
     kv_lo = (start[:, ::block] // block).to(torch.int32)
     q_hi = (end[:, block - 1::block] // block).to(torch.int32)
     return kv_lo, q_hi
-
-
-def bound_blocks(max_segment_len: int, block: int) -> int:
-    """kv blocks a query block can need: the segment of its first token
-    starts at most max_segment_len - 1 tokens earlier, plus the diagonal."""
-    return min(-(-max_segment_len // block) + 1, 1 << 30)
 
 
 def check_segment_bound(segment_ids: torch.Tensor,
@@ -187,24 +189,15 @@ def packed_attention_bwd_ref(q, k, v, segment_ids, out, lse, dout,
 # ---------------------------------------------------------------------------
 
 def _check_kernel_inputs(name, q, k, v, segment_ids):
-    if q.device.type != "cuda":
-        raise NotImplementedError(f"{name}: no kernel for device {q.device}")
-    b, t, hq, d = q.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(
-            f"{name} CUDA kernel takes bfloat16 q/k/v, got {q.dtype}, "
-            f"{k.dtype}, {v.dtype}")
-    if d != KERNEL_HEAD_DIM or k.shape[3] != d or v.shape != k.shape:
-        raise NotImplementedError(
-            f"{name} CUDA kernel is built for head_dim {KERNEL_HEAD_DIM}; "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if t % BLOCK or k.shape[:2] != (b, t) or hq % k.shape[2]:
-        raise ValueError(f"{name}: needs T % {BLOCK} == 0, k/v over the "
-                         f"same [B, T] and Hq % Hkv == 0; got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    if segment_ids.shape != (b, t) or segment_ids.device != q.device:
-        raise ValueError(f"{name}: segment_ids {tuple(segment_ids.shape)} "
-                         f"on {segment_ids.device}, q on {q.device}")
+    _check_attn_inputs(name, q, k, v, segment_ids, KERNEL_HEAD_DIMS)
+    if q.shape[1] % BLOCK:
+        raise ValueError(f"{name}: needs T % {BLOCK} == 0; got q "
+                         f"{tuple(q.shape)}")
+
+
+def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
+    """``scale`` rounded to ``dtype`` (the factor :func:`_prescale` takes)."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
 def packed_attention_fwd(q, k, v, segment_ids, *, scale: float,
@@ -218,8 +211,14 @@ def packed_attention_fwd(q, k, v, segment_ids, *, scale: float,
     them (their outputs stay unspecified). ``tile_classes`` (an int32 [3]
     on q's card, or None) receives the pairs it classed skip, full and
     masked."""
-    _check_kernel_inputs("packed_attention_fwd", q, k, v, segment_ids)
     seg_min, seg_max = tile_segment_ranges(segment_ids)
+    return _packed_fwd(q, k, v, segment_ids, seg_min, seg_max, scale,
+                       tile_classes)
+
+
+def _packed_fwd(q, k, v, segment_ids, seg_min, seg_max, scale,
+                tile_classes=None):
+    _check_kernel_inputs("packed_attention_fwd", q, k, v, segment_ids)
     res = _flash_fwd("packed_attention_fwd", _prescale(q, scale), k, v,
                      segment_ids, seg_min, seg_max, 1.0, True, tile_classes)
     packed_attention_fwd.launches += 1
@@ -229,31 +228,37 @@ def packed_attention_fwd(q, k, v, segment_ids, *, scale: float,
 packed_attention_fwd.launches = 0
 
 
-def packed_attention_bwd(q, k, v, segment_ids, kv_lo, q_hi, out, lse, dout,
-                         *, scale: float, n_kv: int):
-    """Kernel backward: (dq [B, T, Hq, D], dk, dv [B, T, Hkv, D]) in bf16.
-    One launch of the dq kernel (which also forms di = sum(dout * out))
-    and one of the dk/dv kernel; counted as one backward launch."""
+def packed_attention_bwd(q, k, v, segment_ids, seg_min, seg_max, out, lse,
+                         dout, *, scale: float, tile_classes=None):
+    """Kernel backward: (dq [B, T, Hq, D], dk, dv [B, T, Hkv, D]) in bf16,
+    from the forward's inputs (q unscaled), its out and lse, and the
+    per-tile segment-id ranges (``tile_segment_ranges``). K18's Hopper dq
+    (``flash_dq_kernel<D, true>``, which also forms di = sum(dout * out))
+    then K18's dk/dv (``flash_dkv_kernel<D, true>``), causal, with no
+    window, softcap or prefix layout, at ``scale`` rounded to bf16: the
+    kernels round q * bf16(scale) to bf16 in shared memory, the q that
+    the forward scored (:func:`_prescale`), so P = exp(s - lse) reads the
+    forward's lse. Rounding points are the TPU kernels': P and dS = P (dP
+    - di) rounded to bf16 unscaled before their products, dk = dS^T
+    q_scaled, dv = P^T dout, summed in fp32 over each kv head's query
+    heads, dq = scale (dS k) rounded once. One divergence by design: the
+    TPU multiplies dq's fp32 sum by the fp32 ``scale``, K18 by bf16(scale)
+    (relative 1.07e-4 at D = 128, far below a bf16 ulp; equal at D = 256,
+    where the scale is 1/16). ``tile_classes`` (None, or a pair of int32
+    [3] on q's card: dq's, then dk/dv's) receives the tile pairs each
+    kernel classed skip, full and masked, for each query head. Counted as
+    one backward launch, and launched under the profiler range
+    :data:`PROFILE_RANGE`, by which a profile tells K10/K11 from K18."""
     _check_kernel_inputs("packed_attention_bwd", q, k, v, segment_ids)
-    b, t, hq, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
-    lse = lse.contiguous()
-    seg = segment_ids.to(torch.int32).contiguous()
-    kv_lo = kv_lo.to(torch.int32).contiguous()
-    q_hi = q_hi.to(torch.int32).contiguous()
-    di = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    rc = kernels.library().unsloth_packed_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        kv_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, t, hq, k.shape[2], int(n_kv), scale_q,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(rc, "packed_attention_bwd")
+    scale_q = _rounded_scale(scale, q.dtype)
+    dq_classes, dkv_classes = tile_classes or (None, None)
+    with record_function(PROFILE_RANGE):
+        dq, di = _splash_dq("packed_attention_bwd", q, k, v, segment_ids,
+                            seg_min, seg_max, out, lse, dout, None, None,
+                            scale_q, None, dq_classes, True)
+        dk, dv = _splash_dkv("packed_attention_bwd", q, k, v, segment_ids,
+                             seg_min, seg_max, lse, di, dout, None, None,
+                             scale_q, None, dkv_classes, True)
     packed_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -263,34 +268,30 @@ packed_attention_bwd.launches = 0
 
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, scale, max_segment_len):
+    def forward(ctx, q, k, v, segment_ids, scale):
         if q.device.type == "cpu":
             out, lse = packed_attention_fwd_ref(q, k, v, segment_ids, scale)
             ctx.save_for_backward(q, k, v, segment_ids, out, lse)
         else:
-            n_kv = min(bound_blocks(max_segment_len, BLOCK),
-                       q.shape[1] // BLOCK)
-            kv_lo, q_hi = segment_block_metadata(segment_ids, BLOCK)
-            out, lse = packed_attention_fwd(q, k, v, segment_ids,
-                                            scale=scale)
-            ctx.n_kv = n_kv
-            ctx.save_for_backward(q, k, v, segment_ids, out, lse, kv_lo,
-                                  q_hi)
+            seg_min, seg_max = tile_segment_ranges(segment_ids)
+            out, lse = _packed_fwd(q, k, v, segment_ids, seg_min, seg_max,
+                                   scale)
+            ctx.save_for_backward(q, k, v, segment_ids, out, lse, seg_min,
+                                  seg_max)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, segment_ids, out, lse, *meta = ctx.saved_tensors
+        q, k, v, segment_ids, out, lse, *ranges = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = packed_attention_bwd_ref(q, k, v, segment_ids, out,
                                                   lse, dout, ctx.scale)
         else:
-            kv_lo, q_hi = meta
-            dq, dk, dv = packed_attention_bwd(
-                q, k, v, segment_ids, kv_lo, q_hi, out, lse, dout,
-                scale=ctx.scale, n_kv=ctx.n_kv)
-        return dq, dk, dv, None, None, None
+            dq, dk, dv = packed_attention_bwd(q, k, v, segment_ids, *ranges,
+                                              out, lse, dout,
+                                              scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def packed_flash_attention(q, k, v, segment_ids: torch.Tensor, *,
@@ -302,7 +303,7 @@ def packed_flash_attention(q, k, v, segment_ids: torch.Tensor, *,
     q [B, T, Hq, D]; k, v [B, T, Hkv, D]; segment_ids [B, T] int with equal
     ids contiguous (pad tail = id 0). max_segment_len: the packer's
     per-document cap; a real segment above it raises ValueError.
-    CUDA: bf16, D = 128, T % 64 == 0; anything else raises."""
+    CUDA: bf16, D = 128 or 256, T % 64 == 0; anything else raises."""
     b, t, hq, d = q.shape
     if hq % k.shape[2]:
         raise ValueError(f"packed_flash_attention: Hq={hq} is not a "
@@ -310,5 +311,4 @@ def packed_flash_attention(q, k, v, segment_ids: torch.Tensor, *,
     check_segment_bound(segment_ids, max_segment_len)
     if scale is None:
         scale = d ** -0.5
-    return _PackedAttention.apply(q, k, v, segment_ids, float(scale),
-                                  int(max_segment_len))
+    return _PackedAttention.apply(q, k, v, segment_ids, float(scale))

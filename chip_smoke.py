@@ -15,10 +15,13 @@ exits non-zero without printing a result:
                the main paths' shapes, with the kernels' median times and
                the plain versions' time of the one call the check reads
                (:func:`once_ms`): the NF4 matmul
-               (K1: at 1, 4 and 7 rows the decode tiles, above them the
-               Hopper kernel, whose tile counters are held to its
-               schedule; at 64, 256, 1,500, 4,096 and 8,192 rows, each
-               with its two-call yardstick) and its backward (K2) at every
+               (K1: at 1, 4, 7 and 16 rows the split-K decode kernel,
+               also at gpt-oss's and Gemma-2's k/v shapes, its counters
+               held to its schedule, its bits to a second run and to the
+               fp32-absmax form, its faults rejected, one launch a call;
+               above them the Hopper kernel, whose tile counters are held
+               to its schedule, at 64, 256, 1,500, 4,096 and 8,192 rows;
+               each with its two-call yardstick) and its backward (K2) at every
                Llama-3.1-8B projection shape, RMSNorm forward (K3) and
                backward (K4), packed flash
                attention forward (K9, K16's Hopper forward on q *
@@ -82,8 +85,9 @@ exits non-zero without printing a result:
                b=None (library call: F.layer_norm and its backward); then
                the FP8 path's dequant-inside-matmul K12 (forward) and K13
                (dx) at block 128 at Llama-3.1-8B's four projection shapes
-               (M = 4,096), K12 at gate/up and down at 1 and 4 decode
-               rows, and both at a ragged shape with block 32 (labelled
+               (M = 4,096), K12's decode kernel at 1, 4 and 16 rows at
+               all four and at a ragged shape, and both at a ragged
+               shape with block 32 (labelled
                yardstick: dequantize_fp8 + torch.matmul, two calls); the
                check must reject injected faults (K16: a dropped kv tile,
                an ignored pad mask, a late-half error, a diagonal or a
@@ -348,6 +352,7 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train-grpo
     python3 chip_smoke.py --profile-train-fp8
     python3 chip_smoke.py --profile-train-diffusion
+    python3 chip_smoke.py --profile-serve
 
 run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8, or 9's
 NF4 part, or 9's bf16-expert part, or 10, each without evaluate, generate
@@ -359,8 +364,11 @@ grouped loss, its backward and the update, on the last rollouts), and
 print that step's device time by kernel and by kernel family, the device
 spans of the port's profiler ranges (the MoE routing
 glue, the banded attention), its device busy share and its MFU/HFU (no
-result line). Every phase prints its time ("[time]"). After a
---profile-train flag, ``--tree DIR`` profiles another checkout's package
+result line). ``--profile-serve`` runs phases 1 and 2, then loads phase
+5's model and profiles one batch-4 decode step after its 1,000-token
+prompts (:func:`phase_profile_serve`). Every phase prints its time
+("[time]"). After a --profile flag, ``--tree DIR`` profiles another
+checkout's package
 (a parent unpacked under build/ with git archive) with this script's
 harness, its Hopper build rows reported but not held to this tree's.
 
@@ -636,7 +644,15 @@ SINKS_WIDE_HEADS = ((128, 32, 8), (256, 16, 8))
 PARITY_ROWS = 1024         # row length of the card-vs-CPU parity phases 4b-4c
 PARITY_DECODE_STEPS = 4    # decode steps of phase 4 (8 cost ~22 s more)
 DECODE_ROWS = (1, 4, 7)
-#: K1's rows past the decode tiles below the prefill: the Hopper kernel's
+#: K1's decode kernel in phase 3: DECODE_ROWS and its edge, 16 rows, at
+#: Llama's four shapes; 1 and 16 rows at gpt-oss's q, k/v and o (K =
+#: 2,880: an absmax block straddles K/2; N = 512) and Gemma-2's k/v
+K1_DECODE_CASES = (
+    [(name, n, k, DECODE_ROWS + (16,)) for name, n, k in PROJ_SHAPES]
+    + [("gpt-oss " + name, n, k, (1, 16)) for name, n, k in
+       GPT_OSS_PROJ_SHAPES]
+    + [("gemma2 k/v", 2048, 3584, (1, 16))])
+#: K1's rows past the decode kernel below the prefill: the Hopper kernel's
 #: 128- and 256-row tiles and a ragged 1,500 (a serving prefill)
 NF4_CROSSOVER_ROWS = (64, 256, 1500)
 PREFILL_ROWS = 4096
@@ -1271,9 +1287,10 @@ def attention_build_report(build_log):
     false>`` and ``<D, true>``, K17's forward ``<D, false, true>``), of
     K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``), of K2's
     and K13's (``nf4_dx_wgmma_kernel<BX, kFp8>``), of K14's
-    (``nf4_gmm_wgmma_kernel<BX>``) and of K15's
-    (``nf4_gmm_dx_wgmma_kernel<BX>``) in ptxas's ``-v`` output, [the C75xx
-    lines, ptxas serializing their wgmma, that name one])."""
+    (``nf4_gmm_wgmma_kernel<BX>``), of K15's
+    (``nf4_gmm_dx_wgmma_kernel<BX>``) and of K1's and K12's decode kernel
+    (``decode_matmul_kernel<policy, NT>``) in ptxas's ``-v`` output, [the
+    C75xx lines, ptxas serializing their wgmma, that name one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1303,6 +1320,11 @@ def attention_build_report(build_log):
             n = re.search(r"nf4_gmm_dx_wgmma_kernelILi(\d+)E", m.group(1))
             if n:
                 name = f"nf4_gmm_dx_wgmma_kernel<{n.group(1)}, K15>"
+            n = re.search(r"decode_matmul_kernelILi(\d)ELi(\d)E", m.group(1))
+            if n:
+                name = (f"decode_matmul_kernel<"
+                        f"{DECODE_POLICIES[int(n.group(1))]}, "
+                        f"NT {n.group(2)}>")
             spill = 0
             continue
         if name is None:
@@ -1317,23 +1339,27 @@ def attention_build_report(build_log):
     serialized = [line.strip() for line in lines
                   if re.search(r"C75\d\d", line)
                   and re.search(r"flash_(fwd|dq|dkv)_kernel|"
-                                r"nf4_(?:dx_|gmm_|gmm_dx_)?wgmma_kernel",
-                                line)]
+                                r"nf4_(?:dx_|gmm_|gmm_dx_)?wgmma_kernel|"
+                                r"decode_matmul_kernel", line)]
     return rows, serialized
 
 
 #: Hopper instantiations phase 2 holds to 0 spill and no serialized wgmma:
-#: K16's and K18's nine, K17's three forwards, and two tile heights each of
+#: K16's and K18's nine, K17's three forwards, two tile heights each of
 #: K1, K12 (K1's kernel in its e4m3 form), K2, K13 (K2's kernel in its e4m3
-#: form), K14 (K1's under the grouped schedule) and K15 (K2's under it)
-HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2
+#: form), K14 (K1's under the grouped schedule) and K15 (K2's under it),
+#: and the decode kernel's three weight policies at one and two n-tiles
+HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2 + 6
+#: the decode kernel's weight policies (csrc/decode_matmul.cu, Policy)
+DECODE_POLICIES = ("K1", "K12", "K12 any shape")
 
 
 def phase_build(hold=True):
     """Build the kernels and print ptxas's registers and spills; the 21
-    Hopper attention kernels (K16's and K18's nine, K17's three forwards)
-    and the Hopper dequant-matmul kernels (K1, K12, K2, K13, K14 and K15,
-    two tile heights each) must report no spill and no serialized wgmma
+    Hopper attention kernels (K16's and K18's nine, K17's three forwards),
+    the Hopper dequant-matmul kernels (K1, K12, K2, K13, K14 and K15, two
+    tile heights each) and the decode kernel (three policies, two n-tile
+    counts) must report no spill and no serialized wgmma
     (:func:`attention_build_report`); with ``hold`` False (another
     checkout's build, profiled by ``--tree``) they are only reported."""
     from unsloth_tpu_torch import kernels
@@ -1357,9 +1383,10 @@ def phase_build(hold=True):
         log("[build] ", line)
     if hold and (len(rows) != HOPPER_BUILD_ROWS
                  or any(b for _, _, b in rows) or serialized):
-        raise RuntimeError(f"the Hopper attention kernels or the Hopper "
-                           f"K1 / K12 / K2 / K13 / K14 / K15 kernels spill or "
-                           f"serialize their wgmma (or are not all built): "
+        raise RuntimeError(f"the Hopper attention kernels, the Hopper "
+                           f"K1 / K12 / K2 / K13 / K14 / K15 kernels or the "
+                           f"decode kernel spill or serialize their wgmma "
+                           f"(or are not all built): "
                            f"{rows}, "
                            f"{serialized}")
 
@@ -1383,17 +1410,16 @@ def phase_kernels():
     dequantizes and multiplies, so the NF4 matmuls take the two-call
     yardstick of K12/K13 instead: ``dequantize_nf4`` + ``torch.matmul``,
     labelled "(two calls)", at every K1 row. K1 runs at Llama's rows
-    DECODE_ROWS (``nf4_matmul_kernel<16>``), NF4_CROSSOVER_ROWS (64, 256
-    and a ragged 1,500: the Hopper kernel's 128- and 256-row tiles and a
-    partial one), the prefill's and the training path's; at each row above
-    16 the Hopper kernel's counters (output tiles, stages) must equal its
-    schedule's (:func:`unsloth_tpu_torch.ops.qlora_matmul.
-    nf4_tile_schedule`)."""
+    NF4_CROSSOVER_ROWS (64, 256 and a ragged 1,500: the Hopper kernel's
+    128- and 256-row tiles and a partial one), the prefill's and the
+    training path's; the Hopper kernel's counters (output tiles, stages)
+    must equal its schedule's (:func:`unsloth_tpu_torch.ops.qlora_matmul.
+    nf4_tile_schedule`). K1's and K12's decode rows are
+    :func:`_decode_kernels`'."""
     import torch
     import torch.nn.functional as F
 
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
-    from unsloth_tpu_torch.ops.qlora_matmul import DECODE_ROWS as K1_SMALL
     from unsloth_tpu_torch.ops.qlora_matmul import (STAGE_BYTES,
                                                     _nf4_matmul_fwd,
                                                     nf4_matmul,
@@ -1407,8 +1433,8 @@ def phase_kernels():
     rows = {"nf4_matmul": [], "rms_norm": []}
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     for name, n, k, row_counts in (
-            [(name, n, k, DECODE_ROWS + NF4_CROSSOVER_ROWS
-              + (PREFILL_ROWS, TRAIN_ROWS)) for name, n, k in PROJ_SHAPES]
+            [(name, n, k, NF4_CROSSOVER_ROWS + (PREFILL_ROWS, TRAIN_ROWS))
+             for name, n, k in PROJ_SHAPES]
             + [("gemma2 " + name, n, k, (2 * UNPACKED_ROWS,))
                for name, n, k in GEMMA2_PROJ_SHAPES]
             + [("gpt-oss " + name, n, k, (GPT_OSS_ROWS,))
@@ -1429,8 +1455,7 @@ def phase_kernels():
             ok = bool(torch.isfinite(y).all()) and err <= 1e-2 * scale
             got_c = counts.tolist()
             tiles = sum(map(len, nf4_tile_schedule(m, n)))
-            want_c = [tiles, tiles * (k // 2 // STAGE_BYTES)] \
-                if m > K1_SMALL else [0, 0]
+            want_c = [tiles, tiles * (k // 2 // STAGE_BYTES)]
             ms = time_ms(lambda: nf4_matmul(x, q), flush=flush)
             lib_ms = time_ms(lambda: torch.matmul(
                 x, dequantize_nf4(q, torch.bfloat16).t()), runs=10,
@@ -1490,7 +1515,8 @@ def phase_kernels():
                     raise RuntimeError(f"rms_norm disagrees at {shape} {dtype}"
                                        f" gemma={gemma}: {ulps} ulp")
     log(f"[time] 3 K1, K3: {time.perf_counter() - t_part:.1f} s")
-    for part, fn in (("K2, K4, K9-K11", _training_kernels),
+    for part, fn in (("K1/K12 decode rows", _decode_kernels),
+                     ("K2, K4, K9-K11", _training_kernels),
                      ("K7/K8, K16", _unpacked_kernels),
                      ("K18", _splash_kernels),
                      ("K18 prefix", _grpo_kernels),
@@ -4563,10 +4589,12 @@ def phase_main_path(tmp):
     import torch
 
     from unsloth_tpu_torch import FastLanguageModel, InferenceServer
-    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul
+    from unsloth_tpu_torch.ops.qlora_matmul import (nf4_matmul,
+                                                    nf4_matmul_decode)
     from unsloth_tpu_torch.ops.rms_norm import rms_norm
 
     nf4_matmul.launches = 0
+    nf4_matmul_decode.launches = 0
     rms_norm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4644,6 +4672,7 @@ def phase_main_path(tmp):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = {"nf4_matmul": nf4_matmul.launches,
+                "nf4_matmul_decode": nf4_matmul_decode.launches,
                 "rms_norm": rms_norm.launches}
     peak = torch.cuda.max_memory_allocated()
     n_new = sum(len(r) for r in out)
@@ -4651,7 +4680,8 @@ def phase_main_path(tmp):
     log(f"[main] generate B=4, prompt 1000 tokens (bucketed to 1024), 64 "
         f"new: prefill {t_prefill:.3f} s (M = 4096 rows), total "
         f"{t_gen:.3f} s, {n_new} new tokens, decode {decode_tps:.1f} "
-        f"tokens/s ({decode_tps / 4:.1f} per row)")
+        f"tokens/s ({decode_tps / 4:.1f} per row), "
+        f"{1e3 * (t_gen - t_prefill) / 63:.1f} ms a decode step")
     log(f"[main] peak memory allocated {peak / 1e9:.2f} GB; launches on "
         f"the main path: {launches}")
     if any(len(r) == 0 or not all(0 <= t < model.cfg.vocab_size for t in r)
@@ -4668,6 +4698,77 @@ def phase_main_path(tmp):
         raise RuntimeError(f"bad logits {tuple(logits.shape)}")
     return launches, dict(load_s=t_load, prefill_s=t_prefill,
                           decode_tps=decode_tps, peak_bytes=peak)
+
+
+#: --profile-serve: the batch-4 decode step of phase 5's generate, after
+#: its 1,000-token prompts, this many steps warm first and this many timed
+SERVE_PROFILE_WARM, SERVE_PROFILE_TIMED = 3, 10
+
+
+def phase_profile_serve(tmp, profile=True):
+    """``--profile-serve``: phase 5's model from the checkpoint in ``tmp``
+    (Llama-3.1-8B, load_in_4bit), its batch-4 prompts of 1,000 tokens
+    prefilled through the KV cache, then decode steps as ``generate``
+    takes them (the 4 new tokens through the cache, the logits, greedy):
+    SERVE_PROFILE_WARM warm, SERVE_PROFILE_TIMED timed (ms a step, the
+    host's clock around a sync), one under ``torch.profiler``: the device
+    time by kernel and by family (K1's share among them), the busy share
+    (:func:`_device_report`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from unsloth_tpu_torch import FastLanguageModel
+    from unsloth_tpu_torch.inference.decode import (forward_with_cache,
+                                                    init_cache,
+                                                    logits_from_hidden)
+
+    model, _ = FastLanguageModel.from_pretrained(
+        tmp, load_in_4bit=True, dtype=torch.bfloat16, device=DEVICE)
+    model = model.for_inference()
+    cfg, params = model.cfg, model.params
+    rng = np.random.default_rng(SEED)
+    b, t = 4, 1000
+    n_steps = SERVE_PROFILE_WARM + SERVE_PROFILE_TIMED + 1
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (b, t)),
+                       device=DEVICE)
+    cache = init_cache(cfg, b, t + n_steps, dtype=torch.bfloat16,
+                       device=DEVICE)
+    valid = torch.ones((b, t + n_steps), dtype=torch.bool, device=DEVICE)
+    pos = torch.arange(t, device=DEVICE)[None].expand(b, -1)
+
+    def step(tok, cache, pos):
+        h, cache = forward_with_cache(params, None, tok[:, None], cfg, cache,
+                                      positions=pos[:, None],
+                                      kv_valid_extra=valid)
+        return (logits_from_hidden(params, h, cfg, None)[:, 0].argmax(-1),
+                cache)
+
+    with torch.no_grad():
+        h, cache = forward_with_cache(params, None, ids, cfg, cache,
+                                      positions=pos, kv_valid_extra=valid)
+        tok = logits_from_hidden(params, h[:, -1, :], cfg, None).argmax(-1)
+        pos = torch.full((b,), t, device=DEVICE)
+        for _ in range(SERVE_PROFILE_WARM):
+            tok, cache = step(tok, cache, pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_TIMED):
+            tok, cache = step(tok, cache, pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SERVE_PROFILE_TIMED
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tok, cache = step(tok, cache, pos)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    log(f"[profile] serving decode step, batch {b} after {t}-token prompts: "
+        f"{ms:.2f} ms a step over {SERVE_PROFILE_TIMED} (no profiler); the "
+        f"profiled step {wall_us / 1e3:.2f} ms")
+    _device_report(prof, wall_us, 25)
 
 
 def phase_train_main(tmp, profile=False):
@@ -5037,13 +5138,22 @@ def _greedy_generate(model, prompts, n_new, tag):
 
     model.for_inference()
     t0 = time.perf_counter()
+    model.generate(prompts, max_new_tokens=1, temperature=0.0,
+                   return_token_ids=True)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out = model.generate(prompts, max_new_tokens=n_new, temperature=0.0,
                          return_token_ids=True)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
+    steps = max(len(r) for r in out) - 1
     log(f"[{tag}] generate {len(prompts)} prompts of "
         f"{[len(p_) for p_ in prompts]} tokens, {n_new} new: "
-        f"{[len(r) for r in out]} tokens in {t_gen:.2f} s")
+        f"{[len(r) for r in out]} tokens in {t_gen:.2f} s (a prefill alone "
+        f"{t_prefill:.3f} s; "
+        f"{1e3 * (t_gen - t_prefill) / max(steps, 1):.1f} ms a decode step "
+        f"over {steps})")
     if len(out) != len(prompts) or any(
             not 0 < len(r) <= n_new
             or not all(0 <= t_ < model.cfg.vocab_size for t_ in r)
@@ -7162,9 +7272,12 @@ def _device_report(prof, wall_us, top):
                 # K12 is K1's Hopper kernel in its e4m3 form (<BX, true>),
                 # K13 K2's (<BX, true>); K14's Hopper kernel is
                 # nf4_gmm_wgmma_kernel<BX>, counted above
+                # (the decode kernel's NF4 policy is 0, its e4m3 ones 1
+                # and 2; a parent's K1 decode tiles are nf4_matmul_kernel)
                 "K1 nf4_matmul": ("nf4_matmul_kernel",
                                   "nf4_wgmma_kernel<128, false>",
-                                  "nf4_wgmma_kernel<256, false>"),
+                                  "nf4_wgmma_kernel<256, false>",
+                                  "decode_matmul_kernel<0,"),
                 # (a parent's K2, profiled by --tree, may carry no format
                 # value)
                 "K2 nf4_matmul_dx": ("nf4_dx_wgmma_kernel<128>",
@@ -7172,6 +7285,8 @@ def _device_report(prof, wall_us, top):
                                      "nf4_dx_wgmma_kernel<128, false>",
                                      "nf4_dx_wgmma_kernel<256, false>"),
                 "K12/K13 fp8_matmul": ("fp8_matmul_kernel",
+                                       "decode_matmul_kernel<1,",
+                                       "decode_matmul_kernel<2,",
                                        "nf4_wgmma_kernel<128, true>",
                                        "nf4_wgmma_kernel<256, true>",
                                        "nf4_dx_wgmma_kernel<128, true>",
@@ -7905,7 +8020,9 @@ def phase_orpheus(tmp):
 
 FP8_BLOCK = 128            # quantize_fp8_block's block on the path
 FP8_STEPS = 3              # optimizer steps of phase 15
-FP8_DECODE_ROWS = (1, 4)   # K12 at decode rows in phase 3
+FP8_DECODE_ROWS = (1, 4, 16)  # K12's decode kernel in phase 3
+#: and its ragged case: (name, N, K, block, M)
+FP8_DECODE_RAGGED = ("ragged", 1000, 1404, 32, 4)
 #: phase 3's ragged case: (name, N, K, block, M); K % 16 and K % 8 are not
 #: 0, so every load and store of the kernels takes its masked path
 FP8_RAGGED = ("ragged", 1000, 1404, 32, 333)
@@ -7989,9 +8106,9 @@ def fp8_faults(q, dx):
 def _fp8_kernels(dev, g, flush):
     """K12 and K13 against their plain versions (fp8_matmul_ref,
     fp8_matmul_dx_ref) at the FP8 path's shapes: Llama-3.1-8B's four
-    projection shapes at M = 4,096 (2 x 2,048: phase 15's micro-batch),
-    K12 at gate/up and down at the decode rows FP8_DECODE_ROWS, and both at
-    FP8_RAGGED (block 32). Weights from :func:`fp8_weight`, quantized at
+    projection shapes at M = 4,096 (2 x 2,048: phase 15's micro-batch) and
+    both at FP8_RAGGED (block 32); K12's decode rows are
+    :func:`_decode_kernels`'. Weights from :func:`fp8_weight`, quantized at
     block 128. Tolerance: :func:`mm_ulps` <= MM_ULPS; each fault of
     :func:`fp8_faults` must exceed it, run through the kernel itself (its
     Hopper form where ``fp8_wgmma_form`` / ``fp8_dx_wgmma_form`` holds: the
@@ -8016,8 +8133,6 @@ def _fp8_kernels(dev, g, flush):
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     cases = [(name, n, k, FP8_BLOCK, 2 * UNPACKED_ROWS, True)
              for name, n, k in PROJ_SHAPES]
-    cases += [(name, n, k, FP8_BLOCK, m, False) for name, n, k in PROJ_SHAPES
-              if name in ("gate/up", "down") for m in FP8_DECODE_ROWS]
     name, n, k, block, m = FP8_RAGGED
     cases.append((name, n, k, block, m, True))
     rows = {"fp8_matmul_fwd": [], "fp8_matmul_dx": []}
@@ -8075,6 +8190,213 @@ def _fp8_kernels(dev, g, flush):
                                    f"at {shape}: {missed}")
             del a, got, ref
         del q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nf4_decode_faults(q, plan):
+    """NF4 weights as a wrong decode kernel would read ``q`` (each run
+    through the kernel itself, with the absmax passed as plain fp32 where
+    the fault is in the absmax): (a) every low-side chunk with the absmax
+    of its high-side chunk; (b) the middle K slice of ``plan``
+    (``decode_schedule``) dropped, its blocks' absmax zero; (c) each
+    double-quant group's codes with the next group's scale."""
+    import dataclasses
+
+    import torch
+
+    from unsloth_tpu_torch.ops.nf4 import _decode_absmax
+
+    n, k = q.shape
+    half, per_row = k // 2, k // 64
+    am = _decode_absmax(q).float().reshape(n, per_row)
+
+    def plain(a):
+        return dataclasses.replace(q, absmax=a.reshape(-1).contiguous(),
+                                   absmax_scale=None, absmax_offset=None)
+
+    low_high = am.clone()
+    j0 = torch.arange(0, half, 16, device=am.device)
+    low_high[:, (half + j0) // 64] = am[:, j0 // 64]
+    dropped = am.clone()
+    sl = plan.slices // 2
+    st0 = sl * plan.slice_steps
+    st1 = min(st0 + plan.slice_steps, plan.steps)
+    dropped[:, st0:st1] = 0.0
+    dropped[:, half // 64 + st0:min(half // 64 + st1 + 1, per_row)] = 0.0
+    return {"low side with the high side's absmax": plain(low_high),
+            f"K slice {sl} of {plan.slices} dropped": plain(dropped),
+            "the next double-quant group's scale": dataclasses.replace(
+                q, absmax_scale=torch.roll(q.absmax_scale, -1))}
+
+
+def _bf16_ulps(got, ref) -> float:
+    """Worst |got - ref| in bf16 ulps of |ref| (the ulp of 2^-126 and up)."""
+    import torch
+
+    r = ref.float()
+    return ulps_bf16_or_f32(got.float() - r, r.abs(), torch.bfloat16)
+
+
+def _decode_kernels(dev, g, flush):
+    """K1's and K12's decode forms (csrc/decode_matmul.cu) against their
+    plain versions. K1 at K1_DECODE_CASES, weights double-quantized as the
+    loader stores them: the gate max|y - two calls| <= 1e-2 max|ref|, the
+    worst output's distance in bf16 ulps (:func:`mm_ulps`, and of |ref|
+    alone), the counters (units stored, 16-byte chunks read) equal to
+    ``decode_schedule``'s, the same bits from the same tensor with its
+    absmax decoded to fp32 (the bnb-4bit form) and from a second run, and
+    each fault of :func:`nf4_decode_faults` above the gate; one M = 4 call
+    launches exactly one kernel (``torch.profiler``). K12 at Llama's four
+    shapes at FP8_DECODE_ROWS (block 128) and FP8_DECODE_RAGGED:
+    :func:`mm_ulps` <= MM_ULPS, the counters, the same bits from a second
+    run, each fault of :func:`fp8_faults` above the limit. Times: the
+    wrapper's median (the L2 flushed), the two calls', the bound (the
+    bytes: x, the stored weight and its scales, y)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
+    from unsloth_tpu_torch.ops.fp8_matmul import (dequantize_fp8,
+                                                  fp8_matmul_decode)
+    from unsloth_tpu_torch.ops.nf4 import (_decode_absmax, dequantize_nf4,
+                                           quantize_nf4)
+    from unsloth_tpu_torch.ops.qlora_matmul import (decode_schedule,
+                                                    nf4_matmul_decode)
+
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    rows = {"nf4_matmul_decode": [], "fp8_matmul_decode": []}
+    profiled = False
+    for name, n, k, row_counts in K1_DECODE_CASES:
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        q = quantize_nf4(w, dtype=torch.bfloat16)
+        del w
+        q_f32 = dataclasses.replace(q, absmax=_decode_absmax(q).contiguous(),
+                                    absmax_scale=None, absmax_offset=None)
+        for m in row_counts:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            plan = decode_schedule(m, n, k, "nf4")
+
+            def two_calls():
+                return torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
+
+            counts.zero_()
+            y = nf4_matmul_decode(x, q, tile_counts=counts)
+            again = nf4_matmul_decode(x, q)
+            from_f32 = nf4_matmul_decode(x, q_f32)
+            ref, plain_ms = once_ms(two_calls)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 1e-2 * ref.float().abs().max().item()
+            ulps, ulps_abs = mm_ulps(y, ref), _bf16_ulps(y, ref)
+            got_c, want_c = counts.tolist(), plan.counts(n)
+            same = [bool(torch.equal(y, again)),
+                    bool(torch.equal(y, from_f32))]
+            faults = {f_: (nf4_matmul_decode(x, fq).float() - ref.float()
+                           ).abs().max().item()
+                      for f_, fq in nf4_decode_faults(q, plan).items()}
+            ms = time_ms(lambda: nf4_matmul_decode(x, q), flush=flush)
+            lib_ms = time_ms(two_calls, runs=10, flush=flush)
+            b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
+            shape = f"{name} M={m} N={n} K={k}"
+            rows["nf4_matmul_decode"].append(dict(
+                shape=shape, err=err, tol=tol, ulps=ulps, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library=NF4_LIBRARY, tile_counts=got_c,
+                same_bits=same, schedule=plan[:3]))
+            log(f"[kernels] nf4_matmul decode {shape}: max|d|={err:.3e} "
+                f"(tol {tol:.3e}; {ulps:.2f} ulp of max(|ref|, rms/16), "
+                f"{ulps_abs:.1f} of |ref|); units, chunks {got_c} (schedule "
+                f"{want_c}, row warps/slices/steps {tuple(plan[:3])}); same "
+                f"bits run twice {same[0]}, from fp32 absmax {same[1]}; "
+                "faults " + ", ".join(f"{f_} {e:.3e}"
+                                      for f_, e in faults.items())
+                + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"{NF4_LIBRARY} {lib_ms:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by}, {100 * b_ms / ms:.1f}% of it)")
+            if not (bool(torch.isfinite(y).all()) and err <= tol):
+                raise RuntimeError(f"nf4_matmul decode disagrees at {shape}: "
+                                   f"max|d| {err} > {tol}")
+            if got_c != want_c:
+                raise RuntimeError(f"nf4_matmul decode at {shape}: the "
+                                   f"kernel counted {got_c}, its schedule "
+                                   f"{want_c}")
+            if not all(same):
+                raise RuntimeError(f"nf4_matmul decode at {shape}: not the "
+                                   "same bits (run twice, from fp32 absmax): "
+                                   f"{same}")
+            missed = [f_ for f_, e in faults.items() if not e > tol]
+            if missed:
+                raise RuntimeError(f"the nf4_matmul decode check lets faults "
+                                   f"through at {shape}: {missed}")
+            if m == 4 and not profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    nf4_matmul_decode(x, q)
+                    torch.cuda.synchronize()
+                launched = [e.name for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA]
+                log(f"[kernels] nf4_matmul decode {shape}: one call launched "
+                    f"{len(launched)} kernel(s): {launched}")
+                if len(launched) != 1:
+                    raise RuntimeError(f"one nf4_matmul decode call launched "
+                                       f"{launched}, not one kernel")
+                profiled = True
+            del x, y, again, from_f32, ref
+        del q, q_f32
+        torch.cuda.empty_cache()
+    library = "dequantize_fp8 + torch.matmul (two calls)"
+    fp8_cases = [(name, n, k, FP8_BLOCK, m) for name, n, k in PROJ_SHAPES
+                 for m in FP8_DECODE_ROWS] + [FP8_DECODE_RAGGED]
+    for name, n, k, block, m in fp8_cases:
+        q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        plan = decode_schedule(m, n, k, "fp8")
+
+        def two_calls_fp8():
+            return torch.matmul(x, dequantize_fp8(q, torch.bfloat16).t())
+
+        counts.zero_()
+        y = fp8_matmul_decode(x, q, tile_counts=counts)
+        again = fp8_matmul_decode(x, q)
+        ref, plain_ms = once_ms(lambda: fp8_matmul_ref(x, q))
+        torch.cuda.synchronize()
+        ulps = mm_ulps(y, ref)
+        err = (y.float() - ref.float()).abs().max().item()
+        got_c, want_c = counts.tolist(), plan.counts(n)
+        same = bool(torch.equal(y, again))
+        faults = {f_: mm_ulps(fp8_matmul_decode(x, fq), ref)
+                  for f_, fq in fp8_faults(q, False).items()}
+        ms = time_ms(lambda: fp8_matmul_decode(x, q), flush=flush)
+        lib_ms = time_ms(two_calls_fp8, runs=10, flush=flush)
+        b_ms, b_by = bound(2 * m * n * k, nbytes(x) + q.nbytes + m * n * 2)
+        shape = f"{name} M={m} N={n} K={k} block {block}"
+        rows["fp8_matmul_decode"].append(dict(
+            shape=shape, err=err, ulps=ulps, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=library,
+            tile_counts=got_c, same_bits=same, schedule=plan[:3]))
+        log(f"[kernels] fp8_matmul decode {shape}: max|d|={err:.3e} "
+            f"({ulps:.2f} ulp, limit {MM_ULPS}); units, chunks {got_c} "
+            f"(schedule {want_c}, row warps/slices/steps {tuple(plan[:3])}); "
+            f"same bits run twice {same}; faults "
+            + ", ".join(f"{f_} {u:.1f} ulp" for f_, u in faults.items())
+            + f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms {library} "
+            f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it)")
+        if not (bool(torch.isfinite(y).all()) and ulps <= MM_ULPS):
+            raise RuntimeError(f"fp8_matmul decode disagrees at {shape}: "
+                               f"{ulps} ulp")
+        if got_c != want_c or not same:
+            raise RuntimeError(f"fp8_matmul decode at {shape}: counted "
+                               f"{got_c} (schedule {want_c}), same bits "
+                               f"{same}")
+        missed = [f_ for f_, u in faults.items() if not u > MM_ULPS]
+        if missed:
+            raise RuntimeError(f"the fp8_matmul decode check lets faults "
+                               f"through at {shape}: {missed}")
+        del q, x, y, again, ref
         torch.cuda.empty_cache()
     return rows
 
@@ -8250,7 +8572,8 @@ def phase_fp8_sft(tmp, unpacked_launches, profile=False):
         f"{per_fwd} K12 launches)")
     if gen_launches["fp8_matmul_fwd"] < 2 * per_fwd or \
             gen_launches["fp8_matmul_fwd"] % per_fwd or any(
-                gen_launches[n] for n in ("nf4_matmul", "fp8_matmul_dx")):
+                gen_launches[n] for n in ("nf4_matmul", "fp8_matmul_dx")) \
+            or gen_launches["fp8_matmul_decode"] <= 0:
         raise RuntimeError(f"generate over FP8 launched {gen_launches}")
     del trainer, model, run
     torch.cuda.empty_cache()
@@ -8377,8 +8700,12 @@ def _kernel_fns():
     from unsloth_tpu_torch.ops import nf4_gmm as tng
     from unsloth_tpu_torch.ops import packed_attention as tpa
     from unsloth_tpu_torch.ops import splash_attention as tsa
-    from unsloth_tpu_torch.ops.fp8_matmul import fp8_matmul_dx, fp8_matmul_fwd
-    from unsloth_tpu_torch.ops.qlora_matmul import nf4_matmul, nf4_matmul_dx
+    from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_decode,
+                                                  fp8_matmul_dx,
+                                                  fp8_matmul_fwd)
+    from unsloth_tpu_torch.ops.qlora_matmul import (nf4_matmul,
+                                                    nf4_matmul_decode,
+                                                    nf4_matmul_dx)
     from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
                                                 layer_norm_fwd, rms_norm,
                                                 rms_norm_bwd)
@@ -8408,11 +8735,14 @@ def _kernel_fns():
             "flash_sinks_dq": tfs.flash_sinks_dq,
             "flash_sinks_dkv": tfs.flash_sinks_dkv,
             "gmm": tgmm.gmm, "gmm_dx": tgmm.gmm_dx, "tgmm": tgmm.tgmm,
-            "fp8_matmul_fwd": fp8_matmul_fwd, "fp8_matmul_dx": fp8_matmul_dx}
+            "fp8_matmul_fwd": fp8_matmul_fwd, "fp8_matmul_dx": fp8_matmul_dx,
+            # the decode forms, also counted under their kernel's name
+            "nf4_matmul_decode": nf4_matmul_decode,
+            "fp8_matmul_decode": fp8_matmul_decode}
 
 
 # the kernels each main path must launch
-SERVING_KERNELS = ("nf4_matmul", "rms_norm")
+SERVING_KERNELS = ("nf4_matmul", "nf4_matmul_decode", "rms_norm")
 TRAIN_KERNELS = ("nf4_matmul", "nf4_matmul_dx", "rms_norm", "rms_norm_bwd",
                  "cross_entropy_fwd", "cross_entropy_bwd")
 PACKED_KERNELS = TRAIN_KERNELS + ("packed_attn_fwd", "packed_attn_bwd")
@@ -8465,14 +8795,23 @@ def _check_absent(launches, names, path):
 KERNEL_FORMS = {
     "nf4_matmul": "nf4_wgmma_kernel<256> (Hopper: TMA ring, the NF4 decode "
                   "into wgmma's A fragments, y^T = W x^T; <128> at M <= "
-                  "128; nf4_matmul.cu's nf4_matmul_kernel<16> at M <= 16)",
+                  "128; decode_matmul.cu's split-K kernel at M <= 16)",
+    "nf4_matmul_decode": "decode_matmul_kernel<K1, NT> (split K over 128-, "
+                         "64- or 32-row groups, 16-byte loads four steps "
+                         "ahead, the NF4 decode and the stored int8 absmax "
+                         "into mma.sync A fragments, y^T = W x^T, the "
+                         "slices summed in order by the last block)",
+    "fp8_matmul_decode": "decode_matmul_kernel<K12, NT> (the decode kernel "
+                         "with the e4m3 cvt and the block's scale; <K12 any "
+                         "shape, NT> where K % 16, the pointers or B % 16 "
+                         "do not allow 16-byte chunks)",
     "nf4_matmul_dx": "nf4_dx_wgmma_kernel<256> (Hopper: dx^T = W^T g^T, TMA "
                      "ring, the NF4 decode into wgmma's A fragments; <128> "
                      "at M <= 128)",
     "fp8_matmul_fwd": "nf4_wgmma_kernel<256, true> (K1's Hopper kernel with "
                       "the e4m3 decode; <128, true> at M <= 128; "
                       "fp8_matmul.cu's fp8_matmul_kernel<64, false> outside "
-                      "fp8_wgmma_form, <16, false> at M <= 16)",
+                      "fp8_wgmma_form; decode_matmul.cu at M <= 16)",
     "layer_norm_fwd": "layer_norm_warp_kernel (one warp a row, the row in "
                       "registers; layer_norm_kernel at other widths)",
     "nf4_gmm_dx": "nf4_gmm_dx_wgmma_kernel<256> (Hopper: K2's dx^T = W_g^T "
@@ -8509,6 +8848,14 @@ def _kernels_line(rows, by_path):
     picks = {
         "nf4_matmul": ("nf4_wgmma.cu", "unsloth_tpu/ops/qlora_matmul.py:155",
                        "gate/up M=8192 N=14336 K=4096"),
+        "nf4_matmul_decode": ("decode_matmul.cu",
+                              "unsloth_tpu/ops/qlora_matmul.py:155 "
+                              "(_fwd_kernel, pallas_call :236; here at M "
+                              "<= 16)", "gate/up M=1 "),
+        "fp8_matmul_decode": ("decode_matmul.cu",
+                              "unsloth_tpu/ops/fp8_matmul.py:85 "
+                              "(_fwd_kernel, pallas_call :153; here at M "
+                              "<= 16)", "gate/up M=1 "),
         "nf4_matmul_dx": ("nf4_wgmma.cu",
                           "unsloth_tpu/ops/qlora_matmul.py:267",
                           "gate/up M=8192 N=14336 K=4096"),
@@ -8610,6 +8957,8 @@ def _kernels_line(rows, by_path):
                  "layer_norm_bwd": "whisper_training",
                  "fp8_matmul_fwd": "fp8_training",
                  "fp8_matmul_dx": "fp8_training",
+                 "nf4_matmul_decode": "serving",
+                 "fp8_matmul_decode": "fp8_generate",
                  **{k_: "diffusion_training" for k_ in FULL_FLASH},
                  **{k_: "gemma2_diffusion_2layer_parity"
                     for k_ in FULL_SPLASH}}
@@ -8718,7 +9067,7 @@ def _kernels_line(rows, by_path):
                                          "same_bits", "library_ratio",
                                          "unit_counts", "tile_counts",
                                          "prescale_ms",
-                                         "absmax_transpose_ms")
+                                         "absmax_transpose_ms", "schedule")
                if key in row}})
     return kernels_line
 
@@ -8751,7 +9100,8 @@ def main() -> int:
         ("--profile-train-fp8",): (
             lambda path, profile: phase_fp8_sft(path, None, profile=profile),
             LLAMA_31_8B_CONFIG),
-        ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG)}
+        ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG),
+        ("--profile-serve",): (phase_profile_serve, LLAMA_31_8B_CONFIG)}
     args = tuple(sys.argv[1:])
     if len(args) == 2 and args[0] == "--parity-phases":
         return _parity_main(args[1])
@@ -8778,8 +9128,8 @@ def main() -> int:
               "--profile-train-unpacked | --profile-train-gemma2 | "
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
               "--profile-train-llama32 | --profile-train-grpo | "
-              "--profile-train-fp8 | --profile-train-diffusion] "
-              "[--tree DIR, after a --profile-train flag]",
+              "--profile-train-fp8 | --profile-train-diffusion | "
+              "--profile-serve] [--tree DIR, after a --profile flag]",
               file=sys.stderr)
         return 2
     profile = profiles[args]
@@ -8799,7 +9149,8 @@ def main() -> int:
     try:
         if profile:
             # phases 1, 2 and 6, 7, 8, 9, 10 or 12 only, then a profiled
-            # step; no result line
+            # step (--profile-serve: phase 5's model, a decode step); no
+            # result line
             fn, config, *bnb4 = profile
             fn(_write_model(os.path.join(tmp, "model"), config, *bnb4),
                profile=True)

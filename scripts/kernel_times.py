@@ -11,6 +11,7 @@ with the segments' causal mask (forward; backward by autograd).
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
                                    [--only K1|K2|K5|K9|K10|K12|K13|K14|K15]
+                                   [--repeats R] [--decode]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -38,20 +39,36 @@ scale 1 on the pre-scaled q with dq * scale in one bf16 pass, and the
 bound of 10 D operations a valid pair and head). A tree whose
 ``packed_attention_fwd`` or ``packed_attention_bwd`` still takes the
 segment metadata (``kv_lo``, ``q_hi``, ``n_kv``) is called with it.
+
+K1 and K12 also run at the decode rows M = 1, 4, 7 and 16 at all four
+Llama-3.1-8B shapes (block 128 for K12); there the line adds the device
+time of one call (``device_ms``: CUDA events around the call, recorded
+behind the 256-MB zeroing and a 50-us ``torch.cuda._sleep``, so that the
+host has queued the call before the card reaches it and the time is the
+card's alone; median of 20) and ``kernels_per_call`` (the kernels one
+call launches, from ``torch.profiler``'s trace over 10 calls, the
+zeroing's own kernel left out).
+``--repeats R`` reports every time as the median of R medians;
+``--decode`` runs those decode rows of K1 and K12 alone.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+# rows of x at which K1 and K12 run their decode form
+DECODE_M = (1, 4, 7, 16)
 # (name, N, K, rows) of phase 3's K1 rows, and K5's (rows, D, dtype, bias)
 K1_SHAPES = (
-    [(name, n, k, (1, 4, 7, 64, 256, 1500, 4096, 8192)) for name, n, k in
+    [(name, n, k, (1, 4, 7, 16, 64, 256, 1500, 4096, 8192))
+     for name, n, k in
      (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
       ("down", 4096, 14336))]
     + [("gemma2 " + name, n, k, (4096,)) for name, n, k in
@@ -77,8 +94,9 @@ K12_SHAPES = (
      (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
       ("down", 4096, 14336))]
     + [(name, n, k, 128, m) for name, n, k in
-       (("gate/up", 14336, 4096), ("down", 4096, 14336)) for m in (1, 4)]
-    + [("ragged", 1000, 1404, 32, 333)])
+       (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
+        ("down", 4096, 14336)) for m in DECODE_M]
+    + [("ragged", 1000, 1404, 32, 333), ("ragged", 1000, 1404, 32, 4)])
 # (name, N, K, block, rows) of phase 3's K13 rows: g [rows, N], W [N, K]
 K13_SHAPES = (
     [(name, n, k, 128, 4096) for name, n, k in
@@ -115,7 +133,82 @@ def bound_ms(m, n, k, nbytes):
     return 1e3 * max(2 * m * n * k / 989e12, nbytes / 3.35e12)
 
 
+REPEATS = 1
+
+
 def time_ms(fn, flush, runs=20, warmup=3):
+    """The median of REPEATS medians of ``runs`` CUDA-event-timed runs."""
+    return statistics.median(_time_once(fn, flush, runs, warmup)
+                             for _ in range(REPEATS))
+
+
+def device_ms(fn, flush, runs=20):
+    """(the median of REPEATS medians of the card's time of one call, the
+    kernels a call launches). Each call is timed by CUDA events recorded
+    after ``flush`` is zeroed and the card has slept ~50 us, time in which
+    the host queues the call: the events then bracket the card's work
+    alone, not the host's launch overhead."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(REPEATS):
+        one = []
+        for _ in range(runs):
+            flush.zero_()
+            torch.cuda._sleep(100_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            one.append(start.elapsed_time(end))
+        times.append(statistics.median(one))
+    return statistics.median(times), kernels_per_call(fn, flush)
+
+
+def kernels_per_call(fn, flush, runs=10):
+    """The kernels one call of ``fn`` launches, from ``torch.profiler``'s
+    chrome trace over ``runs`` calls, each after ``flush`` is zeroed; the
+    zeroing's kernels (their names profiled alone first) are left out."""
+    return _device_once(fn, flush, runs)[1]
+
+
+def _kernel_events(body):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        body()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def _device_once(fn, flush, runs):
+    fn()
+    flush_names = {e["name"] for e in _kernel_events(flush.zero_)}
+
+    def body():
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+
+    ks = [e for e in _kernel_events(body) if e["name"] not in flush_names]
+    return (sum(float(e["dur"]) for e in ks) / runs / 1e3,
+            len(ks) / runs)
+
+
+def _time_once(fn, flush, runs, warmup):
     import torch
 
     for _ in range(warmup):
@@ -380,7 +473,13 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K10", "K12",
                                        "K13", "K14", "K15"), default=None)
+    ap.add_argument("--repeats", type=int, default=1)
+    ap.add_argument("--decode", action="store_true")
     args = ap.parse_args()
+    if args.decode and args.only not in (None, "K1", "K12"):
+        ap.error("--decode times K1's and K12's decode rows only")
+    global REPEATS
+    REPEATS = args.repeats
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
     import torch.nn.functional as F
@@ -406,7 +505,10 @@ def main() -> int:
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    for name, n, k, row_counts in (K1_SHAPES if args.only in (None, "K1")
+    decode = args.decode
+    k1_shapes = [(name, n, k, [m for m in rows if m in DECODE_M or not decode])
+                 for name, n, k, rows in K1_SHAPES]
+    for name, n, k, row_counts in (k1_shapes if args.only in (None, "K1")
                                    else ()):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
@@ -424,12 +526,17 @@ def main() -> int:
             ms = time_ms(lambda: nf4_matmul(x, q), flush)
             lib = time_ms(two_calls, flush)
             bound = bound_ms(m, n, k, x.numel() * 2 + q.nbytes + m * n * 2)
+            dev_ms, per_call = device_ms(lambda: nf4_matmul(x, q), flush) \
+                if m in DECODE_M else (None, None)
             print(json.dumps({"label": args.label, "kernel": "K1",
                               "shape": f"{name} M={m} N={n} K={k}",
                               "ms": ms, "two_calls_ms": lib,
-                              "bound_ms": bound, "rel_err": err}),
+                              "bound_ms": bound, "rel_err": err,
+                              "device_ms": dev_ms,
+                              "kernels_per_call": per_call}),
                   flush=True)
-    for name, n, k, m in (K2_SHAPES if args.only in (None, "K2") else ()):
+    for name, n, k, m in (K2_SHAPES if args.only in (None, "K2")
+                          and not decode else ()):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
         q = quantize_nf4(w, dtype=torch.bfloat16)
@@ -450,8 +557,9 @@ def main() -> int:
                           "two_calls_ms": lib, "bound_ms": bound,
                           "rel_err": err}), flush=True)
         del q, gy, dx, ref
-    for name, n, k, block, m in (K12_SHAPES if args.only in (None, "K12")
-                                 else ()):
+    for name, n, k, block, m in (
+            [c for c in K12_SHAPES if c[4] in DECODE_M or not decode]
+            if args.only in (None, "K12") else ()):
         q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
 
@@ -464,13 +572,16 @@ def main() -> int:
         ms = time_ms(lambda: fp8_matmul_fwd(x, q), flush)
         lib = time_ms(two_calls_fp8, flush)
         bound = bound_ms(m, n, k, x.numel() * 2 + q.nbytes + m * n * 2)
+        dev_ms, per_call = device_ms(lambda: fp8_matmul_fwd(x, q), flush) \
+            if m in DECODE_M else (None, None)
         print(json.dumps({"label": args.label, "kernel": "K12",
                           "shape": f"{name} M={m} N={n} K={k} block {block}",
                           "ms": ms, "two_calls_ms": lib, "bound_ms": bound,
-                          "rel_err": err}), flush=True)
+                          "rel_err": err, "device_ms": dev_ms,
+                          "kernels_per_call": per_call}), flush=True)
         del q, x, y, ref
     for name, n, k, block, m in (K13_SHAPES if args.only in (None, "K13")
-                                 else ()):
+                                 and not decode else ()):
         q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
         gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
 
@@ -489,16 +600,16 @@ def main() -> int:
                           "rel_err": err, "bitwise": bool(torch.equal(dx, ref))
                           }), flush=True)
         del q, gy, dx, ref
-    if args.only in (None, "K14"):
+    if args.only in (None, "K14") and not decode:
         k14_times(dev, g, flush, args.label)
-    if args.only in (None, "K15"):
+    if args.only in (None, "K15") and not decode:
         k14_times(dev, g, flush, args.label, dx=True)
-    if args.only in (None, "K9"):
+    if args.only in (None, "K9") and not decode:
         k9_times(dev, g, flush, args.label)
-    if args.only in (None, "K10"):
+    if args.only in (None, "K10") and not decode:
         k10_times(dev, g, flush, args.label)
     for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
-                              else ()):
+                              and not decode else ()):
         dtype = getattr(torch, dt)
         x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5
              ).to(dtype)

@@ -53,29 +53,117 @@ def test_nf4_matmul_kernel_matches_plain(dev, m, n, k):
                                    (17, 1024, 4096), (128, 2880, 2880),
                                    (129, 512, 4096), (1500, 4096, 4096)])
 def test_nf4_matmul_dispatch_by_rows(dev, m, n, k):
-    """At 16 rows or fewer the forward runs nf4_matmul_kernel<16> (the
-    Hopper kernel's counters stay 0); above, the Hopper kernel, which
-    stores each output tile of its schedule once and consumes K/64 stages
-    a tile. Every form counts as one launch of nf4_matmul."""
+    """At 16 rows or fewer the forward runs the decode kernel
+    (csrc/decode_matmul.cu), whose counters (units stored, 16-byte chunks
+    read) equal ``decode_schedule``'s and which counts under
+    ``nf4_matmul_decode`` too; above, the Hopper kernel, which stores each
+    output tile of its schedule once and consumes K/64 stages a tile.
+    Every form counts as one launch of nf4_matmul."""
     from unsloth_tpu_torch.ops.qlora_matmul import (DECODE_ROWS, STAGE_BYTES,
                                                     _nf4_matmul_fwd,
+                                                    decode_schedule,
+                                                    nf4_matmul_decode,
                                                     nf4_tile_schedule)
 
     g = torch.Generator(device=dev).manual_seed(3)
     q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
-    before = nf4_matmul.launches
+    before = (nf4_matmul.launches, nf4_matmul_decode.launches)
     y = _nf4_matmul_fwd(x, q, tile_counts=counts)
     torch.cuda.synchronize()
-    assert nf4_matmul.launches == before + 1
-    tiles = sum(map(len, nf4_tile_schedule(m, n)))
-    want = [tiles, tiles * (k // 2 // STAGE_BYTES)] if m > DECODE_ROWS \
-        else [0, 0]
+    decode = m <= DECODE_ROWS
+    assert (nf4_matmul.launches, nf4_matmul_decode.launches) == \
+        (before[0] + 1, before[1] + decode)
+    if decode:
+        want = decode_schedule(m, n, k, "nf4").counts(n)
+    else:
+        tiles = sum(map(len, nf4_tile_schedule(m, n)))
+        want = [tiles, tiles * (k // 2 // STAGE_BYTES)]
     assert counts.tolist() == want
     ref = torch.matmul(x, dequantize_nf4(q, torch.bfloat16).t())
     assert (y.float() - ref.float()).abs().max() <= \
         1e-2 * ref.float().abs().max()
+
+
+def _within_one_ulp(got, want):
+    """The tiles tests' tolerance: one bf16 ulp of each output plus 2^-20
+    of the largest (both round the same bf16 weights and sum in fp32 in
+    other orders, then round once)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    ulp = torch.from_numpy(np.spacing(want.abs().numpy())) * 2.0 ** 16
+    return bool(((got - want).abs()
+                 <= ulp + 2.0 ** -20 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1000, 4096), (4, 4096, 4096),
+                                   (7, 512, 2880), (16, 1024, 2880),
+                                   (9, 200, 384), (16, 14336, 4096)])
+def test_nf4_decode_kernel_matches_its_twin(dev, m, n, k):
+    """The decode kernel against ``nf4_decode_tiles_ref`` (its walk in plain
+    PyTorch on the CPU) within one ulp, the double-quantized absmax and
+    the same tensor with it decoded to plain fp32 giving the same bits, two
+    runs the same bits, and one kernel launched a call (no absmax decode
+    pass, no memset)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from unsloth_tpu_torch.ops.nf4 import _decode_absmax
+    from unsloth_tpu_torch.ops.qlora_matmul import (nf4_decode_tiles_ref,
+                                                    nf4_matmul_decode)
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = quantize_nf4(torch.randn((n, k), generator=g, device=dev) * 0.05)
+    q32 = dataclasses.replace(q, absmax=_decode_absmax(q).contiguous(),
+                              absmax_scale=None, absmax_offset=None)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    y = nf4_matmul_decode(x, q)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = nf4_matmul_decode(x, q)
+        torch.cuda.synchronize()
+    from_f32 = nf4_matmul_decode(x, q32)
+    twin, _ = nf4_decode_tiles_ref(x.cpu(), q.to("cpu"))
+    torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_matmul_kernel" in kernels[0]
+    assert torch.equal(y, again) and torch.equal(y, from_f32)
+    assert _within_one_ulp(y, twin)
+
+
+@pytest.mark.parametrize("m,n,k,block", [
+    (1, 4096, 4096, 128),    # q/o, the FP8 path's block
+    (16, 1024, 4096, 128),   # k/v, two n-tiles
+    (4, 1000, 1404, 32),     # ragged: byte loads, a last column cut short
+    (9, 130, 250, 24),       # B % 16 != 0: a scale per element
+    (1, 200, 300, 7)])
+def test_fp8_decode_kernel_matches_its_twin(dev, fp32_reductions, m, n, k,
+                                            block):
+    """K12's decode form against ``fp8_decode_tiles_ref`` within one ulp,
+    its counters equal ``decode_schedule(m, n, k, "fp8")``'s, two runs the
+    same bits, one launch counted under ``fp8_matmul_decode``."""
+    import dataclasses
+
+    from unsloth_tpu_torch.ops.fp8_matmul import (fp8_decode_tiles_ref,
+                                                  fp8_matmul_decode)
+    from unsloth_tpu_torch.ops.qlora_matmul import decode_schedule
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = (fp8_matmul_fwd.launches, fp8_matmul_decode.launches)
+    y = fp8_matmul_decode(x, q, tile_counts=counts)
+    again = fp8_matmul_decode(x, q)
+    twin, _ = fp8_decode_tiles_ref(x.cpu(), dataclasses.replace(
+        q, values=q.values.cpu(), scales=q.scales.cpu()))
+    torch.cuda.synchronize()
+    assert (fp8_matmul_fwd.launches, fp8_matmul_decode.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert counts.tolist() == decode_schedule(m, n, k, "fp8").counts(n)
+    assert torch.equal(y, again)
+    assert _within_one_ulp(y, twin)
 
 
 def test_nf4_matmul_kernel_refuses_f32(dev):

@@ -189,19 +189,27 @@ def test_layer_norm_warp_form_rule(d, dtype, warp):
 
 
 def test_build_report_finds_the_nf4_kernel():
-    """Phase 2 holds K1's Hopper kernel to 0 spill and no serialized wgmma
-    as it holds the attention kernels (33 rows: the attention kernels'
-    21, two tile heights each of K1, K12, K2, K13, K14 and K15)."""
+    """Phase 2 holds K1's Hopper kernel and the decode kernel to 0 spill
+    and no serialized wgmma as it holds the attention kernels (39 rows:
+    the attention kernels' 21, two tile heights each of K1, K12, K2, K13,
+    K14 and K15, and the decode kernel's three weight policies at one and
+    two n-tiles)."""
     fn = ("_ZN4nf4w54_GLOBAL__N__5c1f0b2a_12_nf4_wgmma_cu_0e3f5a1c16"
           "nf4_wgmma_kernelILi256EEEv14CUtensorMap_stS2_S2_PKfP13"
           "__nv_bfloat16Piiiii")
+    dec = ("_ZN49_GLOBAL__N__03a29351_16_decode_matmul_cu_1152633920"
+           "decode_matmul_kernelILi2ELi1EEEvNS_6ParamsE")
     log = "\n".join([
         f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
         "ptxas info    : (C7517) Potential Performance Loss: wgmma.mma_async "
-        f"instructions are serialized in the function '{fn}'"])
+        f"instructions are serialized in the function '{fn}'",
+        f"ptxas info    : Compiling entry function '{dec}' for 'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem"])
     rows, serialized = chip_smoke.attention_build_report(log)
-    assert rows == [("nf4_wgmma_kernel<256, K1>", 168, 0)]
+    assert rows == [("nf4_wgmma_kernel<256, K1>", 168, 0),
+                    ("decode_matmul_kernel<K12 any shape, NT 1>", 128, 8)]
     assert len(serialized) == 1 and "C7517" in serialized[0]
-    assert chip_smoke.HOPPER_BUILD_ROWS == 33
+    assert chip_smoke.HOPPER_BUILD_ROWS == 39

@@ -20,7 +20,9 @@
 //
 // What bounds them on an H100:
 //   * decode (M <= 16 rows): the weight's bytes, 1 B/param plus 4 / B^2 of
-//     that in scales, each read once a call;
+//     that in scales, each read once a call; K12 at these rows is
+//     decode_matmul.cu's split-K kernel (its own entry point), K13 the
+//     <16, true> tiles below;
 //   * training (M in the thousands): tensor-core throughput; each decoded
 //     weight tile serves a 64-row tile of x or g.
 // Design, after csrc/nf4_matmul.cu (K1): one block of four warps computes a
@@ -44,7 +46,7 @@
 // one scale a k step and warp) where, besides, N % 8 == 0 (g's TMA row
 // stride) and g, w and dx are 16-byte aligned (fp8_dx_wgmma_form). Both
 // rules are mirrored by ops/fp8_matmul.py. fp8_matmul_kernel<64, DX> takes
-// the other shapes, <16, DX> decode rows.
+// the other shapes, <16, true> K13's decode rows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -289,8 +291,12 @@ int launch(const void* a, const void* w, const void* scales, void* out, int M, i
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block_dim(kThreads);
   if (M <= 16) {
-    const dim3 grid((out_cols + kBN - 1) / kBN, (M + 15) / 16);
-    fp8_matmul_kernel<16, DX><<<grid, block_dim, 0, s>>>(ap, op, op_out, M, a_vec, out_vec);
+    // K12's decode rows are decode_matmul.cu's (unsloth_decode_matmul_fp8)
+    if constexpr (!DX) return static_cast<int>(cudaErrorInvalidValue);
+    else {
+      const dim3 grid((out_cols + kBN - 1) / kBN, (M + 15) / 16);
+      fp8_matmul_kernel<16, DX><<<grid, block_dim, 0, s>>>(ap, op, op_out, M, a_vec, out_vec);
+    }
   } else {
     const dim3 grid((out_cols + kBN - 1) / kBN, (M + 63) / 64);
     fp8_matmul_kernel<64, DX><<<grid, block_dim, 0, s>>>(ap, op, op_out, M, a_vec, out_vec);
@@ -306,9 +312,10 @@ int unsloth_fp8_dx_wgmma_launch(const void* g, const void* w, const void* scales
                                 void* counts, int M, int N, int K, int block,
                                 cudaStream_t stream);
 
-// y = x @ dequant(W)^T on `stream`. x [M, K] bf16 row-major, w e4m3 [N, K]
-// row-major, scales fp32 [ceil(N/B), ceil(K/B)], y [M, N] bf16. Any M, N,
-// K >= 1 and B >= 1; pointers need no alignment (16-byte loads and stores
+// y = x @ dequant(W)^T on `stream` at M > 16 (decode rows take
+// unsloth_decode_matmul_fp8; M <= 16 here is refused). x [M, K] bf16
+// row-major, w e4m3 [N, K] row-major, scales fp32 [ceil(N/B), ceil(K/B)],
+// y [M, N] bf16. Any N, K >= 1 and B >= 1; pointers need no alignment (16-byte loads and stores
 // are used where the row lengths and pointers allow them). Where
 // fp8_wgmma_form holds, nf4_wgmma.cu's Hopper kernel; `counts` (null, or
 // an int32 [2]) is that kernel's: it adds the output tiles it stored and

@@ -27,8 +27,8 @@ from typing import Optional
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "unsloth_tpu_torch"
-SOURCES = ("nf4_matmul.cu", "nf4_wgmma.cu", "rms_norm.cu",
-           "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu",
+SOURCES = ("nf4_matmul.cu", "nf4_wgmma.cu", "decode_matmul.cu",
+           "rms_norm.cu", "flash_attention.cu", "flash_fwd.cu", "flash_dq.cu",
            "flash_dkv.cu", "cross_entropy.cu",
            "splash_attention.cu", "nf4_gmm.cu", "flash_sinks.cu", "gmm.cu",
            "tgmm.cu", "layer_norm.cu", "fp8_matmul.cu")
@@ -123,6 +123,17 @@ def library() -> ctypes.CDLL:
         # (or null), stream
         lib.unsloth_nf4_matmul_bf16.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.unsloth_nf4_matmul_bf16.restype = i
+        # the decode kernel (M <= 16): x, packed, fp32 absmax (or null),
+        # int8 codes, their group scales and offset (or nulls), the
+        # double-quant group, y, partials, arrivals, M, N, K, row warps,
+        # slices, steps a slice, counters (or null), stream
+        lib.unsloth_decode_matmul_nf4.argtypes = [p, p, p, p, p, p, i, p, p,
+                                                  p, i, i, i, i, i, i, p, p]
+        lib.unsloth_decode_matmul_nf4.restype = i
+        # x, e4m3 W, fp32 scales, block, then as the NF4 form from y
+        lib.unsloth_decode_matmul_fp8.argtypes = [p, p, p, i, p, p, p, i, i,
+                                                  i, i, i, i, p, p]
+        lib.unsloth_decode_matmul_fp8.restype = i
         lib.unsloth_rms_norm.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                          i, p]
         lib.unsloth_rms_norm.restype = i

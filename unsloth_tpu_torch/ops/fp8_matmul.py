@@ -3,13 +3,16 @@ forward and backward.
 
 Counterpart of unsloth_tpu/ops/fp8_matmul.py:fp8_matmul. On a CUDA tensor
 the forward launches the hand-written kernel K12 (TPU ``_fwd_kernel``):
-above 16 rows, where :func:`fp8_wgmma_form` holds, ``csrc/nf4_wgmma.cu``'s
-persistent Hopper kernel in its e4m3 form (K1's kernel: the e4m3 bytes
-decoded and scaled straight into the tensor cores' A operand, y^T = W
-x^T), else ``csrc/fp8_matmul.cu``'s tiles, which decode into shared
-memory; the e4m3 weight streams from device memory at one byte a
-parameter, so the dense weight never exists there.
-:func:`fp8_matmul_tiles_ref` is the plain twin of the Hopper form's walk.
+at 16 rows or fewer ``csrc/decode_matmul.cu``'s split-K decode kernel in
+its e4m3 form (K1's decode kernel), above 16 rows, where
+:func:`fp8_wgmma_form` holds, ``csrc/nf4_wgmma.cu``'s persistent Hopper
+kernel in its e4m3 form (K1's kernel: the e4m3 bytes decoded and scaled
+straight into the tensor cores' A operand, y^T = W x^T), else
+``csrc/fp8_matmul.cu``'s tiles, which decode into shared memory; the e4m3
+weight streams from device memory at one byte a parameter, so the dense
+weight never exists there. :func:`fp8_matmul_tiles_ref` is the plain twin
+of the Hopper form's walk, :func:`fp8_decode_tiles_ref` the decode
+kernel's.
 The backward, dx = g @ W, is K13 (TPU ``_bwd_kernel``): above 16 rows,
 where :func:`fp8_dx_wgmma_form` holds, K2's Hopper kernel in its e4m3 form
 (``csrc/nf4_wgmma.cu``: dx^T = W^T g^T, the bytes decoded into the A
@@ -31,9 +34,10 @@ import torch
 
 from .. import kernels
 from .fp8 import FP8_DTYPE, FP8Tensor, dequantize_fp8, fp8_matmul_ref
-from .qlora_matmul import (DECODE_ROWS, DX_STAGE_ROWS, H100_SMS, STAGE_BYTES,
-                           TILE_W, _pair_schedule, nf4_tile_schedule,
-                           tile_rows_x)
+from .qlora_matmul import (DECODE_ROWS, DECODE_STEP, DX_STAGE_ROWS, H100_SMS,
+                           STAGE_BYTES, TILE_W, _decode_scratch,
+                           _pair_schedule, _slice_sums, decode_schedule,
+                           nf4_tile_schedule, tile_rows_x)
 
 _MAX_ROW_TILES = 65535   # the kernels' grid.y: ceil(M / 64) row tiles
 
@@ -81,8 +85,8 @@ def fp8_wgmma_form(m: int, k: int, block: int, *ptrs: int) -> bool:
     multiple of the 32-byte stage (a stage then lies in one scale column,
     a warp's 16 W rows in one scale row), ``in`` a multiple of 16 (the TMA
     maps' row strides) and the pointers (x, W, y) 16-byte aligned. Other
-    shapes run ``fp8_matmul_kernel<64, false>``, decode rows ``<16,
-    false>``."""
+    shapes above 16 rows run ``fp8_matmul_kernel<64, false>``; decode rows
+    run ``csrc/decode_matmul.cu`` at every shape and block."""
     return (m > DECODE_ROWS and block % STAGE_BYTES == 0 and k % 16 == 0
             and all(p % 16 == 0 for p in ptrs))
 
@@ -139,6 +143,38 @@ def fp8_matmul_tiles_ref(x: torch.Tensor, q: FP8Tensor, *,
             y[m0:m0 + bx, n0:n0 + TILE_W] = \
                 acc[m0:min(m0 + bx, m), n0:min(n0 + TILE_W, n)].to(x.dtype)
     return y, visits
+
+
+def fp8_decode_tiles_ref(x: torch.Tensor, q: FP8Tensor, *,
+                         scale_shift: int = 0,
+                         drop_slice: Optional[int] = None,
+                         sms: int = H100_SMS):
+    """y = x @ dequant(W)^T rebuilt from the decode kernel's e4m3 walk, in
+    plain PyTorch: (y in x.dtype, visits [row groups, K slices]: the times
+    the schedule runs each unit).
+
+    As the kernel (``decode_schedule(m, n, k, "fp8")``): unit (group,
+    slice) reads bytes [64 st, 64 st + 64) of its W rows for its steps st,
+    zero past K; each weight is fp32(e4m3) * scale[n / B][k / B] (one scale
+    a 16-byte chunk where B % 16 == 0, the same value), rounded to
+    x.dtype (``scale_shift`` reads the scale that many columns further
+    along, the last past the grid's end: a neighbour's); a unit's products
+    are summed in fp32 (in another order than the tensor cores'), the units
+    of a group in slice order, each output rounded once. ``drop_slice``
+    leaves that slice out of every group's sum."""
+    m, k = x.shape
+    n = q.shape[0]
+    plan = decode_schedule(m, n, k, "fp8", sms)
+    rows = torch.arange(n) // q.block
+    cols = (torch.arange(k) // q.block + scale_shift).clamp(
+        max=q.scales.shape[1] - 1)
+    w32 = (q.values.float() * q.scales.float()[rows][:, cols]).to(
+        x.dtype).float()
+
+    def cols_of(st):
+        return torch.arange(DECODE_STEP * st, min(DECODE_STEP * (st + 1), k))
+
+    return _slice_sums(x.float(), w32, plan, cols_of, drop_slice, x.dtype)
 
 
 def fp8_dx_wgmma_form(m: int, n: int, k: int, block: int, *ptrs: int
@@ -253,17 +289,63 @@ def fp8_matmul_fwd(x: torch.Tensor, q: FP8Tensor,
                    ) -> torch.Tensor:
     """y = x @ dequant(W)^T without autograd: K12 on a CUDA tensor, the
     plain :func:`~.fp8.fp8_matmul_ref` on a CPU one. ``tile_counts`` (CUDA
-    only: an int32 [2] on x's device, or None) receives what the Hopper
-    form adds to it, the output tiles it stored and the stages it consumed
-    (nothing where :func:`fp8_wgmma_form` does not hold)."""
+    only: an int32 [2] on x's device, or None) receives what the kernel
+    adds to it: at 16 rows or fewer the decode kernel's units stored and
+    16-byte chunks of W read (``decode_schedule(..., "fp8").counts``),
+    above where :func:`fp8_wgmma_form` holds the Hopper form's output
+    tiles stored and stages consumed, else nothing."""
     if x.device.type == "cpu":
         return fp8_matmul_ref(x, q)
     _check_cuda("fp8_matmul", x, q, q.shape[1], "in")
-    y = _launch(kernels.library().unsloth_fp8_matmul_bf16, "fp8_matmul", x,
-                q, q.shape[0],
-                None if tile_counts is None else tile_counts.data_ptr())
+    counts = None if tile_counts is None else tile_counts.data_ptr()
+    m = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if 0 < m <= DECODE_ROWS:
+        y = _launch_decode(x, q, counts)
+    else:
+        y = _launch(kernels.library().unsloth_fp8_matmul_bf16, "fp8_matmul",
+                    x, q, q.shape[0], counts)
     fp8_matmul_fwd.launches += 1
     return y
+
+
+def _launch_decode(x: torch.Tensor, q: FP8Tensor, counts) -> torch.Tensor:
+    """K12 at 16 rows or fewer: csrc/decode_matmul.cu's e4m3 form under
+    ``decode_schedule(m, out, in, "fp8")``. Counted under
+    ``fp8_matmul_decode.launches``."""
+    out_f, in_f = q.shape
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, in_f).contiguous()
+    m = x2d.shape[0]
+    y = torch.empty((m, out_f), dtype=x.dtype, device=x.device)
+    plan = decode_schedule(m, out_f, in_f, "fp8")
+    partials, arrivals = _decode_scratch(plan, x.device)
+    values, scales = q.values.contiguous(), q.scales.contiguous()
+    rc = kernels.library().unsloth_decode_matmul_fp8(
+        x2d.data_ptr(), values.data_ptr(), scales.data_ptr(), q.block,
+        y.data_ptr(), partials, arrivals, m, out_f, in_f, plan.row_warps,
+        plan.slices, plan.slice_steps, counts,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, "fp8_matmul (decode rows)")
+    fp8_matmul_decode.launches += 1
+    return y.reshape(*lead, out_f)
+
+
+def fp8_matmul_decode(x: torch.Tensor, q: FP8Tensor,
+                      tile_counts: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The forward at 16 rows of x or fewer: what :func:`fp8_matmul_fwd`
+    runs there (the decode kernel on a CUDA tensor, the plain version on a
+    CPU one); more rows raise."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if rows > DECODE_ROWS:
+        raise ValueError(f"fp8_matmul_decode: {rows} rows of x, at most "
+                         f"{DECODE_ROWS}")
+    return fp8_matmul_fwd(x, q, tile_counts)
+
+
+#: launches of the decode kernel (K12 at 16 rows or fewer), also counted
+#: in ``fp8_matmul_fwd.launches``
+fp8_matmul_decode.launches = 0
 
 
 #: number of kernel launches since the last reset (CPU calls do not count)

@@ -6,10 +6,13 @@ tensor the forward launches a hand-written kernel (TPU ``_fwd_kernel``):
 above 16 rows ``csrc/nf4_wgmma.cu``'s persistent Hopper kernel, which
 decodes the packed bytes straight into the tensor cores' A operand (the
 product is computed transposed, y^T = W x^T), at 16 rows or fewer
-``csrc/nf4_matmul.cu``'s decode tiles; either way the packed uint8
-weight streams from device memory and the dense weight never exists
-there. :func:`nf4_matmul_tiles_ref` is the plain twin of the Hopper
-kernel's walk (tiles, stages, bytes, scales, x columns, masks). The
+``csrc/decode_matmul.cu``'s split-K decode kernel, which reads the absmax
+as stored (int8 codes, group scales and offset, or fp32) and decodes it
+itself; either way the packed uint8 weight streams from device memory
+and the dense weight never exists there. :func:`nf4_matmul_tiles_ref` is
+the plain twin of the Hopper kernel's walk (tiles, stages, bytes, scales,
+x columns, masks), :func:`nf4_decode_tiles_ref` and
+:func:`decode_schedule` those of the decode kernel's. The
 backward, dx = g @ W (TPU ``_bwd_kernel``), is ``csrc/nf4_wgmma.cu``'s
 second Hopper kernel at every row count, computed transposed (dx^T = W^T
 g^T: the bytes decoded into the A operand, g the B operand);
@@ -22,7 +25,8 @@ that chooses; there is no fallback from a kernel to its plain version.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,9 +75,10 @@ def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor,
                     tile_counts: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """The forward; ``tile_counts`` (CUDA only: an int32 [2] on x's
-    device, or None) receives what the Hopper kernel adds to it, the
-    output tiles it stored and the stages it consumed (nothing at 16 rows
-    or fewer)."""
+    device, or None) receives what the kernel adds to it: above 16 rows
+    the Hopper kernel's output tiles stored and stages consumed, at 16 or
+    fewer the decode kernel's units stored and 16-byte chunks of W read
+    (:func:`decode_schedule`'s ``counts``)."""
     if x.device.type == "cpu":
         return nf4_matmul_ref(x, q)
     _check_cuda("nf4_matmul", x, q, q.shape[1], "in")
@@ -90,14 +95,16 @@ def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor,
     if packed.data_ptr() % _ALIGN:
         raise ValueError(f"nf4_matmul: packed weight is not {_ALIGN}-byte "
                          "aligned")
-    absmax = _decode_absmax(q).contiguous()
-    lib = kernels.library()
-    rc = lib.unsloth_nf4_matmul_bf16(
-        x2d.data_ptr(), packed.data_ptr(), absmax.data_ptr(), y.data_ptr(),
-        m, out_f, in_f,
-        None if tile_counts is None else tile_counts.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(rc, "nf4_matmul")
+    if m <= DECODE_ROWS:
+        _nf4_decode_launch(x2d, packed, q, y, tile_counts)
+    else:
+        absmax = _decode_absmax(q).contiguous()
+        rc = kernels.library().unsloth_nf4_matmul_bf16(
+            x2d.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+            y.data_ptr(), m, out_f, in_f,
+            None if tile_counts is None else tile_counts.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(rc, "nf4_matmul")
     nf4_matmul.launches += 1
     return y.reshape(*lead, out_f)
 
@@ -105,15 +112,246 @@ def _nf4_matmul_fwd(x: torch.Tensor, q: NF4Tensor,
 #: number of kernel launches since the last reset (CPU calls do not count)
 nf4_matmul.launches = 0
 
-#: rows of x at or below which the forward runs the decode tiles
-#: (``nf4_matmul_kernel<16>``); above, the Hopper kernel
-DECODE_ROWS = 16
+
+def _nf4_decode_launch(x2d: torch.Tensor, packed: torch.Tensor, q: NF4Tensor,
+                       y: torch.Tensor, tile_counts: Optional[torch.Tensor]
+                       ) -> None:
+    """K1 at 16 rows or fewer: ``csrc/decode_matmul.cu``'s NF4 form under
+    :func:`decode_schedule`, the absmax passed as stored (no decode pass:
+    one launch a call). Counted under ``nf4_matmul_decode.launches``."""
+    m, (out_f, in_f) = x2d.shape[0], q.shape
+    plan = decode_schedule(m, out_f, in_f, "nf4")
+    partials, arrivals = _decode_scratch(plan, x2d.device)
+    if q.is_double_quant:
+        absmax = (None, q.absmax.contiguous().data_ptr(),
+                  q.absmax_scale.contiguous().data_ptr(),
+                  q.absmax_offset.data_ptr())
+    else:
+        absmax = (q.absmax.float().contiguous().data_ptr(), None, None, None)
+    rc = kernels.library().unsloth_decode_matmul_nf4(
+        x2d.data_ptr(), packed.data_ptr(), *absmax, q.double_block_size,
+        y.data_ptr(), partials, arrivals, m, out_f, in_f, plan.row_warps,
+        plan.slices, plan.slice_steps,
+        None if tile_counts is None else tile_counts.data_ptr(),
+        torch.cuda.current_stream(x2d.device).cuda_stream)
+    kernels.check(rc, "nf4_matmul (decode rows)")
+    nf4_matmul_decode.launches += 1
+
+
+def nf4_matmul_decode(x: torch.Tensor, q: NF4Tensor,
+                      tile_counts: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The forward at 16 rows of x or fewer, no autograd: what
+    :func:`nf4_matmul` runs there (the decode kernel on a CUDA tensor, the
+    plain version on a CPU one); more rows raise. ``tile_counts`` as
+    :func:`_nf4_matmul_fwd`'s."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if rows > DECODE_ROWS:
+        raise ValueError(f"nf4_matmul_decode: {rows} rows of x, at most "
+                         f"{DECODE_ROWS}")
+    return _nf4_matmul_fwd(x, q, tile_counts)
+
+
+#: launches of the decode kernel (K1 at 16 rows or fewer), also counted in
+#: ``nf4_matmul.launches``
+nf4_matmul_decode.launches = 0
+
 #: the Hopper kernel's tiles (csrc/nf4_wgmma.cu): W rows a tile, packed
 #: bytes of a W row a stage, and the SMs of an H100 (its persistent grid,
 #: in clusters of two)
 TILE_W = 128
 STAGE_BYTES = 32
 H100_SMS = 132
+
+#: rows of x at or below which the forward runs the decode kernel
+#: (``csrc/decode_matmul.cu``); above, the Hopper kernel
+DECODE_ROWS = 16
+#: the decode kernel's block (csrc/decode_matmul.cu): warps, bytes of a W
+#: row a step, and the dynamic shared memory a block may take (two blocks
+#: an SM)
+DECODE_WARPS = 8
+DECODE_STEP = 64
+DECODE_MAX_SMEM = 100 * 1024
+
+
+class DecodeSchedule(NamedTuple):
+    """The decode kernel's schedule at y [m, n] over W rows of ``row_bytes``
+    (K/2 for NF4, K for e4m3): units (row group, K slice), one 256-thread
+    block each; a group is 16 * ``row_warps`` W rows, a slice
+    ``slice_steps`` 64-byte steps of each row (the last slice fewer)."""
+    row_warps: int
+    slices: int
+    slice_steps: int
+    steps: int
+    groups: int
+    row_bytes: int
+    n_tiles: int          # n-tiles of 8 x rows: 1 at m <= 8, else 2
+
+    @property
+    def rows(self) -> int:
+        return 16 * self.row_warps
+
+    @property
+    def units(self) -> List[Tuple[int, int, int]]:
+        """(first W row, first step, end step) of each unit, in block
+        order: unit u is group u // slices, slice u % slices."""
+        return [(gi * self.rows, si * self.slice_steps,
+                 min((si + 1) * self.slice_steps, self.steps))
+                for gi in range(self.groups) for si in range(self.slices)]
+
+    def counts(self, n: int) -> List[int]:
+        """What the kernel's counters must read after one call: [units
+        stored, 16-byte chunks of W read]; every W row below ``n`` reads
+        each of its chunks once, whichever unit holds it."""
+        return [self.groups * self.slices,
+                n * -(-self.row_bytes // 16)]
+
+
+def decode_smem_bytes(fp8: bool, n_tiles: int, slice_steps: int,
+                      row_warps: int) -> int:
+    """The decode kernel's dynamic shared memory a block (its
+    ``smem_bytes``): the x slice, or the warps' partials if larger."""
+    cols = (1 if fp8 else 2) * DECODE_STEP * slice_steps
+    xs = 8 * n_tiles * (cols + 8) * 2
+    red = (DECODE_WARPS - row_warps) * 32 * n_tiles * 16
+    return max(xs, red)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan(n: int, row_bytes: int, fp8: bool, n_tiles: int,
+                 sms: int) -> DecodeSchedule:
+    steps = -(-row_bytes // DECODE_STEP)
+    target = 2 * sms                 # one wave of two blocks an SM
+    for row_warps in (8, 4, 2):      # the tallest row group that fills
+        groups = -(-n // (16 * row_warps))
+        slices = min(steps, max(1, target // groups))
+        if groups * slices >= sms:
+            break
+    slice_steps = -(-steps // slices)
+    while slice_steps > 1 and decode_smem_bytes(
+            fp8, n_tiles, slice_steps, row_warps) > DECODE_MAX_SMEM:
+        slice_steps -= 1
+    return DecodeSchedule(row_warps, -(-steps // slice_steps), slice_steps,
+                          steps, groups, row_bytes, n_tiles)
+
+
+def decode_schedule(m: int, n: int, k: int, policy: str = "nf4",
+                    sms: int = H100_SMS) -> DecodeSchedule:
+    """The decode kernel's schedule at y [m, n] = x [m, k] @ W^T (``policy``
+    "nf4": W packed [n, k/2]; "fp8": W e4m3 [n, k]). The rows of a group
+    are the most (128, 64, then 32) that still give ``sms`` units, with as
+    many slices as make at most two blocks an SM (at most one a step);
+    the slices then take equal steps, fewer where the x slice would not
+    fit the shared memory. The wrapper passes it to the kernel; the
+    kernel's counters must equal ``counts(n)``."""
+    if policy not in ("nf4", "fp8"):
+        raise ValueError(f"policy {policy!r} is not 'nf4' or 'fp8'")
+    fp8 = policy == "fp8"
+    return _decode_plan(n, k if fp8 else k // 2, fp8, 1 if m <= 8 else 2,
+                        sms)
+
+
+#: per device: the decode kernel's fp32 partials (every unit's tile) and
+#: int32 arrival counters (one per row group, 0 between calls: each
+#: group's last block sets its own back), made once and grown where a call
+#: needs more. Calls on one stream run one after another, so each reuses
+#: them; the port launches its kernels on the current stream.
+_DECODE_SCRATCH = {}
+
+
+def _decode_scratch(plan: DecodeSchedule, device: torch.device):
+    """(partials, arrivals) pointers for a decode launch: None and None at
+    one slice, else the device's scratch, grown to the call's size (no
+    launch once it is large enough)."""
+    if plan.slices == 1:
+        return None, None
+    floats = plan.groups * plan.slices * plan.rows * 8 * plan.n_tiles
+    partials, arrivals = _DECODE_SCRATCH.get(device, (None, None))
+    if partials is None or partials.numel() < floats:
+        partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                               device=device)
+    if arrivals is None or arrivals.numel() < plan.groups:
+        arrivals = torch.zeros(max(plan.groups, 4096), dtype=torch.int32,
+                               device=device)
+    _DECODE_SCRATCH[device] = partials, arrivals
+    return partials.data_ptr(), arrivals.data_ptr()
+
+
+def decode_absmax_ref(q: NF4Tensor) -> torch.Tensor:
+    """The absmax as the decode kernel decodes it from what is stored:
+    fp32 as it is, or each int8 code times its group's fp32 scale, then
+    plus the offset (two fp32 roundings, no fused multiply-add)."""
+    if not q.is_double_quant:
+        return q.absmax.to(torch.float32)
+    idx = torch.arange(q.absmax.shape[0], device=q.absmax.device)
+    scale = q.absmax_scale[idx // q.double_block_size]
+    return q.absmax.to(torch.float32) * scale + q.absmax_offset
+
+
+def _slice_sums(x32: torch.Tensor, w32: torch.Tensor, plan: DecodeSchedule,
+                cols_of, drop_slice: Optional[int], dtype: torch.dtype):
+    """y from the decode walk's per-unit fp32 partials (``cols_of(step)``:
+    the x and W columns a step reads) summed in slice order, one rounding;
+    visits [groups, slices]: the times the walk runs each unit."""
+    m, n = x32.shape[0], w32.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32)
+    visits = torch.zeros((plan.groups, plan.slices), dtype=torch.int64)
+    for gi in range(plan.groups):
+        rows = slice(gi * plan.rows, min((gi + 1) * plan.rows, n))
+        total = None
+        for si in range(plan.slices):
+            visits[gi, si] += 1
+            st0 = si * plan.slice_steps
+            st1 = min(st0 + plan.slice_steps, plan.steps)
+            cols = torch.cat([cols_of(st) for st in range(st0, st1)])
+            part = x32[:, cols] @ w32[rows][:, cols].t()
+            if si == drop_slice:
+                continue
+            total = part if total is None else total + part
+        y[:, rows] = total
+    return y.to(dtype), visits
+
+
+def nf4_decode_tiles_ref(x: torch.Tensor, q: NF4Tensor, *,
+                         low_reads_high: bool = False,
+                         drop_slice: Optional[int] = None,
+                         sms: int = H100_SMS):
+    """y = x @ dequant(W)^T rebuilt from the decode kernel's walk, in plain
+    PyTorch: (y in x.dtype, visits [row groups, K slices]: the times the
+    schedule runs each unit).
+
+    As the kernel (:func:`decode_schedule`): unit (group, slice) reads
+    bytes [64 st, 64 st + 64) of its W rows for its steps st, zero past
+    K/2; their high nibbles are columns 64 st.. of W, their low nibbles
+    K/2 + 64 st..; each 16-byte chunk of a side looks up the absmax block
+    of its first element, decoded from what is stored
+    (:func:`decode_absmax_ref`: the code times its group's scale, then
+    plus the offset); each weight is code * absmax in fp32, rounded to
+    x.dtype; a unit's products are summed in fp32 (in another order than
+    the tensor cores'), the units of a group in slice order, each output
+    rounded once. Faults: ``low_reads_high`` gives each low-side chunk the
+    absmax of its high-side chunk; ``drop_slice`` leaves that slice out of
+    every group's sum."""
+    m, k = x.shape
+    n = q.shape[0]
+    half = k // 2
+    plan = decode_schedule(m, n, k, "nf4", sms)
+    am = decode_absmax_ref(q).float().reshape(n, k // 64)
+    j = torch.arange(half)
+    first = j - j % 16                  # each chunk's first byte
+    blk_hi = first // 64
+    blk_lo = blk_hi if low_reads_high else (half + first) // 64
+    code = NF4_CODE.float()
+    pk = q.packed.to(torch.int64)
+    w_hi = (code[pk >> 4] * am[:, blk_hi]).to(x.dtype).float()
+    w_lo = (code[pk & 15] * am[:, blk_lo]).to(x.dtype).float()
+    w32 = torch.cat([w_hi, w_lo], dim=1)            # [n, k]: j, then K/2 + j
+
+    def cols_of(st):
+        c = torch.arange(DECODE_STEP * st, min(DECODE_STEP * (st + 1), half))
+        return torch.cat([c, half + c])
+
+    return _slice_sums(x.float(), w32, plan, cols_of, drop_slice, x.dtype)
 
 
 def tile_rows_x(m: int) -> int:

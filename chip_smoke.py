@@ -60,9 +60,15 @@ exits non-zero without printing a result:
                64, at N % 64 != 0 and with sizes summing below m, the
                grouped dense bf16 matmul K19 (forward
                with the bias epilogue, and dx) on the same three
-               routings, and flash attention with sinks (K17: forward,
-               dq, dk/dv, dsinks; 64/8 heads of 64) on the path's packed
-               4,096-token row and a padded [2, 2048] batch, and at head
+               routings, K14's and K19's forwards at decode rows (the
+               grouped decode kernel: top-4 routings of 1, 2 and 4
+               tokens and 16 rows skewed over 4 experts; counters held
+               to grouped_decode_schedule, the same bits twice, one
+               kernel a call, one expert's rows through the next one's
+               weights, the bias dropped and a K slice or the last step
+               dropped rejected), and flash attention with sinks (K17:
+               forward, dq, dk/dv, dsinks; 64/8 heads of 64) on the path's
+               packed 4,096-token row and a padded [2, 2048] batch, and at head
                dims 128 (32/8 heads) and 256 (16/8) on a padded
                [1, 1024] row, each also through ``attention`` with
                sinks, against ``attention_ref``; then the
@@ -229,8 +235,10 @@ exits non-zero without printing a result:
                batch 1 x accumulation 2, 3 steps (losses finite and
                falling, step time, tokens/s, training peak, MFU, launches
                per step exactly K19 forward 288, dx 144, K14/K15 none) and
-               a greedy generate of 8 tokens for 1 prompt (K19 at decode
-               rows); the trainer, its AdamW state and the adapter freed;
+               a greedy generate of 8 tokens for 1 prompt, a prefill alone
+               timed first (ms a decode step; K19's decode form exactly 72
+               launches a decode step, none in a prefill); the trainer,
+               its AdamW state and the adapter freed;
                then quantize_params (stacked NF4 at block 32),
                get_peft_model(r=16, "unsloth"),
                SFTTrainer with packing into 4,096-token rows, batch 1 x
@@ -238,7 +246,9 @@ exits non-zero without printing a result:
                time, tokens/s, peak memory, MFU over active parameters,
                launches per step exactly K14 288, K15 144, K17 48/24/24 and
                K19/K9-K11/K16/K18 never; evaluate, the adapter round trip,
-               and a greedy generate of 16 tokens for 2 prompts;
+               and a greedy generate of 16 tokens for 2 prompts, timed as
+               the bf16 one (K14's decode form exactly 72 launches a
+               decode step);
  10. main path (the Llama 3.2 conversational notebook) a random-init
                Llama-3.2-1B checkpoint (its published config: 16 layers,
                hidden 2,048, 32/8 heads of 64, vocabulary 128,256, tied
@@ -1288,9 +1298,11 @@ def attention_build_report(build_log):
     K1's and K12's Hopper kernel (``nf4_wgmma_kernel<BX, kFp8>``), of K2's
     and K13's (``nf4_dx_wgmma_kernel<BX, kFp8>``), of K14's
     (``nf4_gmm_wgmma_kernel<BX>``), of K15's
-    (``nf4_gmm_dx_wgmma_kernel<BX>``) and of K1's and K12's decode kernel
-    (``decode_matmul_kernel<policy, NT>``) in ptxas's ``-v`` output, [the
-    C75xx lines, ptxas serializing their wgmma, that name one])."""
+    (``nf4_gmm_dx_wgmma_kernel<BX>``), of K1's and K12's decode kernel
+    (``decode_matmul_kernel<policy, NT>``) and of its grouped form, K14's
+    and K19's at decode rows (``grouped_decode_kernel<policy, NT>``) in
+    ptxas's ``-v`` output, [the C75xx lines, ptxas serializing their
+    wgmma, that name one])."""
     import re
 
     rows, name, spill = [], None, 0
@@ -1325,6 +1337,12 @@ def attention_build_report(build_log):
                 name = (f"decode_matmul_kernel<"
                         f"{DECODE_POLICIES[int(n.group(1))]}, "
                         f"NT {n.group(2)}>")
+            n = re.search(r"grouped_decode_kernelILi(\d)ELi(\d)E",
+                          m.group(1))
+            if n:
+                name = (f"grouped_decode_kernel<"
+                        f"{GROUPED_POLICIES[int(n.group(1))]}, "
+                        f"NT {n.group(2)}>")
             spill = 0
             continue
         if name is None:
@@ -1340,7 +1358,8 @@ def attention_build_report(build_log):
                   if re.search(r"C75\d\d", line)
                   and re.search(r"flash_(fwd|dq|dkv)_kernel|"
                                 r"nf4_(?:dx_|gmm_|gmm_dx_)?wgmma_kernel|"
-                                r"decode_matmul_kernel", line)]
+                                r"(?:grouped_)?decode(?:_matmul)?_kernel",
+                                line)]
     return rows, serialized
 
 
@@ -1348,18 +1367,23 @@ def attention_build_report(build_log):
 #: K16's and K18's nine, K17's three forwards, two tile heights each of
 #: K1, K12 (K1's kernel in its e4m3 form), K2, K13 (K2's kernel in its e4m3
 #: form), K14 (K1's under the grouped schedule) and K15 (K2's under it),
-#: and the decode kernel's three weight policies at one and two n-tiles
-HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2 + 6
+#: the decode kernel's three weight policies at one and two n-tiles, and
+#: its grouped form's two (K14's NF4 experts, K19's bf16 ones) at one and
+#: two
+HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2 + 6 + 4
 #: the decode kernel's weight policies (csrc/decode_matmul.cu, Policy)
 DECODE_POLICIES = ("K1", "K12", "K12 any shape")
+#: its grouped form's (csrc/decode_matmul.cu, GroupedPolicy)
+GROUPED_POLICIES = ("K14", "K19")
 
 
 def phase_build(hold=True):
     """Build the kernels and print ptxas's registers and spills; the 21
     Hopper attention kernels (K16's and K18's nine, K17's three forwards),
     the Hopper dequant-matmul kernels (K1, K12, K2, K13, K14 and K15, two
-    tile heights each) and the decode kernel (three policies, two n-tile
-    counts) must report no spill and no serialized wgmma
+    tile heights each), the decode kernel (three policies, two n-tile
+    counts) and its grouped form (K14's and K19's decode rows, two n-tile
+    counts each) must report no spill and no serialized wgmma
     (:func:`attention_build_report`); with ``hold`` False (another
     checkout's build, profiled by ``--tree``) they are only reported."""
     from unsloth_tpu_torch import kernels
@@ -1516,6 +1540,7 @@ def phase_kernels():
                                        f" gemma={gemma}: {ulps} ulp")
     log(f"[time] 3 K1, K3: {time.perf_counter() - t_part:.1f} s")
     for part, fn in (("K1/K12 decode rows", _decode_kernels),
+                     ("K14/K19 decode rows", _gmm_decode_kernels),
                      ("K2, K4, K9-K11", _training_kernels),
                      ("K7/K8, K16", _unpacked_kernels),
                      ("K18", _splash_kernels),
@@ -3118,7 +3143,9 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     kernels), the bias dropped (K14) and the two faults of each kernel's
     walk (:func:`nf4_gmm_faults`, :func:`nf4_gmm_dx_faults`). Above 16
     rows K14's tile counters must equal its schedule's
-    (``nf4_gmm_tile_counts``), and K15's at every row count its
+    (``nf4_gmm_tile_counts``), at 16 or fewer its decode form's
+    (``grouped_decode_schedule(...).grouped_counts``), and K15's at every
+    row count its
     (``nf4_gmm_dx_tile_counts``); K15's per-call absmax transpose is timed
     on its own. Times: the kernels, the plain
     versions, and the library yardstick, which dequantizes the whole stack
@@ -3130,7 +3157,8 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
 
     from unsloth_tpu_torch.ops import nf4_gmm as tng
     from unsloth_tpu_torch.ops.nf4 import dequantize_nf4_stacked
-    from unsloth_tpu_torch.ops.qlora_matmul import DECODE_ROWS
+    from unsloth_tpu_torch.ops.qlora_matmul import (DECODE_ROWS,
+                                                    grouped_decode_schedule)
 
     e, n, k = q.shape
     m = x.shape[0]
@@ -3145,9 +3173,11 @@ def _gmm_case(dev, g, flush, label, x, q, sizes, bias):
     torch.cuda.synchronize()
     got_c, got_dx_c = counts.tolist(), dx_counts.tolist()
     want_c = tng.nf4_gmm_tile_counts(sizes.tolist(), m, n, k) \
-        if m > DECODE_ROWS else [0, 0, 0]
+        if m > DECODE_ROWS else grouped_decode_schedule(
+            m, e, n, k, "nf4").grouped_counts(n, int((sizes > 0).sum()))
     want_dx_c = tng.nf4_gmm_dx_tile_counts(sizes.tolist(), m, n, k)
-    log(f"[kernels] nf4_gmm {label}: tiles, stages, masked tiles {got_c} "
+    log(f"[kernels] nf4_gmm {label}: tiles, stages, masked tiles (decode "
+        f"rows: units, chunks, empty slots) {got_c} "
         f"(schedule {want_c}); nf4_gmm_dx {got_dx_c} (schedule "
         f"{want_dx_c})")
     if got_c != want_c or got_dx_c != want_dx_c:
@@ -3336,8 +3366,10 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     max|d| beside it. The check must reject the rows of one expert
     multiplied by the next expert's weights (forward and dx) and the bias
     dropped (forward), and a straddling tile's rows stored by the next
-    expert's visit (:func:`gmm_straddle_faults`). Above the decode rows the
-    kernels' work-unit counters must equal :func:`gmm_unit_counts`; at (a)
+    expert's visit (:func:`gmm_straddle_faults`). Above 64 rows the
+    kernels' work-unit counters must equal :func:`gmm_unit_counts`, at 16
+    or fewer the forward's decode form's (``grouped_decode_schedule(...).
+    grouped_counts``); at (a)
     a rerun must give the same bits. Times: the kernels, the plain
     versions, and the library call ``torch._grouped_mm`` (+ the bias
     gathered by row; where the card's torch has it), fed W in the
@@ -3349,12 +3381,16 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
     import torch
 
     from unsloth_tpu_torch.ops import gmm as tgmm
+    from unsloth_tpu_torch.ops.qlora_matmul import (DECODE_ROWS,
+                                                    grouped_decode_schedule)
 
     e, n, k = w.shape
     m = x.shape[0]
     gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
     counted = m > tgmm.KERNEL_TILES["small_m"]
-    counts = {name: torch.zeros(4, dtype=torch.int32, device=dev)
+    decode = m <= DECODE_ROWS
+    counts = {name: torch.zeros(3 if decode and name == "gmm" else 4,
+                                dtype=torch.int32, device=dev)
               for name in ("gmm", "gmm_dx")}
     y = tgmm.gmm_fwd(x, w, sizes, bias, unit_counts=counts["gmm"])
     dx = tgmm.gmm_dx(gy, w, sizes, unit_counts=counts["gmm_dx"])
@@ -3383,6 +3419,17 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
                                    f"differ from the schedule: {got_c} "
                                    f"against {want_c}")
             extra[name]["unit_counts"] = got_c
+    if decode:
+        # the decode form's units, chunks and empty slots
+        got_c = counts["gmm"].tolist()
+        want_c = grouped_decode_schedule(m, e, n, k, "bf16").grouped_counts(
+            n, int((sizes > 0).sum()))
+        log(f"[kernels] gmm {label}: decode units, chunks, empty slots "
+            f"kernel {got_c} schedule {want_c}")
+        if got_c != want_c:
+            raise RuntimeError(f"K19's decode form at {label} counted "
+                               f"{got_c}, its schedule {want_c}")
+        extra["gmm"]["unit_counts"] = got_c
     if label.startswith("(a)"):
         same = [bool(torch.equal(y, tgmm.gmm(x, w, sizes, bias))),
                 bool(torch.equal(dx, tgmm.gmm_dx(gy, w, sizes)))]
@@ -3460,6 +3507,184 @@ def _dense_gmm_case(dev, g, flush, label, x, w, sizes, bias):
             log(f"[kernels] {name} {label}: kernel / torch._grouped_mm "
                 f"{row['library_ratio']:.3f}")
     return res
+
+
+def grouped_decode_faults(q, w, policy, plan):
+    """The expert weights as a grouped decode walk that drops steps would
+    read them (run through the kernel itself): where the schedule has
+    several K slices, the middle slice's steps; at one slice, the last
+    step of each row (gpt-oss's straddles K/2: 32 bytes of it are real).
+    NF4 (``q``): those columns' absmax blocks zero on both sides; bf16
+    (``w``): those columns zero. Returns (label, weights)."""
+    import dataclasses
+
+    if plan.slices > 1:
+        st0 = plan.slices // 2 * plan.slice_steps
+        st1 = min(st0 + plan.slice_steps, plan.steps)
+        label = f"K slice {plan.slices // 2} of {plan.slices} dropped"
+    else:
+        st0, st1 = plan.steps - 1, plan.steps
+        label = "the last step of each row dropped"
+    if policy == "bf16":
+        bad = w.clone()
+        bad[..., 32 * st0:32 * st1] = 0
+        return label, bad
+    e, n, k = q.shape
+    half, bs = k // 2, q.block_size
+    am = q.absmax.reshape(e, n, k // bs).clone()
+    for side in (0, half):
+        am[..., (side + 64 * st0) // bs:
+           -(-(side + min(64 * st1, half)) // bs)] = 0.0
+    return label, dataclasses.replace(q, absmax=am.reshape(q.absmax.shape))
+
+
+def _gmm_decode_kernels(dev, g, flush):
+    """K14's and K19's forwards at decode rows, the grouped form of the
+    decode kernel (csrc/decode_matmul.cu), on gpt-oss-20b's experts (E =
+    32, N = K = 2,880, K14 at block 32, the bf16 bias), routed as
+    :func:`_gpt_oss_kernels` routes them, top-4 from 1, 2 and 4 random
+    tokens (m = 4, 8, 16), and 16 rows skewed 7/5/3/1 over 4 experts;
+    inputs from a generator of its own (``g`` is left as it is, so the
+    later parts keep their inputs); run before the parts that compile
+    flex_attention (on the card, every trace taken after them in the same
+    process came back without a device event). Each row by row within
+    ATTN_ROW_TOL of its plain version (:func:`_grouped_rows`), its
+    counters (units, 16-byte chunks, empty slots) equal to
+    ``grouped_decode_schedule``'s, a second run the same bits, one kernel
+    a call (:func:`launched_kernels`), and the faults
+    rejected: one expert's rows through the next live expert's weights,
+    the bias dropped, and steps dropped (:func:`grouped_decode_faults`,
+    through the kernel). Times: the wrapper, the plain version, the
+    library yardstick (K14: dequantize + ``torch._grouped_mm``; K19:
+    ``torch._grouped_mm``; each + the bias gathered by row) and the bound
+    (the bytes of the rows, of the experts with rows and their bias rows,
+    of the output)."""
+    import torch
+
+    from unsloth_tpu_torch.ops import gmm as tgmm
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.moe import _route
+    from unsloth_tpu_torch.ops.nf4 import (dequantize_nf4_stacked,
+                                           quantize_nf4_stacked)
+    from unsloth_tpu_torch.ops.qlora_matmul import grouped_decode_schedule
+
+    c = GPT_OSS_20B_CONFIG
+    d, e, top = (c["hidden_size"], c["num_local_experts"],
+                 c["num_experts_per_tok"])
+    n = k = d
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    router = torch.randn((e, d), generator=g, device=dev) * 0.02
+    w = (torch.randn((e, n, k), generator=g, device=dev) * 0.02
+         ).to(torch.bfloat16)
+    q = quantize_nf4_stacked(w, block_size=32)
+    bias = (torch.randn((e, n), generator=g, device=dev) * 0.5
+            ).to(torch.bfloat16)
+
+    def routed(tokens):
+        x = torch.randn((tokens, d), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        _, sel = _route(x.float() @ router.t(), top, True)
+        flat = sel.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = torch.zeros(e, dtype=torch.int32, device=dev).index_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.int32))
+        return x[order // top], sizes
+
+    skew = torch.zeros(e, dtype=torch.int32, device=dev)
+    skew[[3, 9, 17, 30]] = torch.tensor([7, 5, 3, 1], dtype=torch.int32,
+                                        device=dev)
+    cases = [("m=4", *routed(1)), ("m=8", *routed(2)), ("m=16", *routed(4)),
+             ("m=16 skewed", torch.randn((16, d), generator=g, device=dev
+                                         ).to(torch.bfloat16), skew)]
+    rows = {"nf4_gmm_decode": [], "gmm_decode": []}
+    forms = {"nf4_gmm_decode": ("nf4", q, tng.nf4_gmm_ref,
+                                "dequantize + torch._grouped_mm"),
+             "gmm_decode": ("bf16", w, tgmm.gmm_ref, "torch._grouped_mm")}
+    for label, x, sizes in cases:
+        m = x.shape[0]
+        sz = sizes.tolist()
+        live = [i for i, s_ in enumerate(sz) if s_]
+        ends = torch.tensor(sz).cumsum(0).tolist()
+        g0, g1 = live[0], live[1] if len(live) > 1 else (live[0] + 1) % e
+        r0, r1 = ends[g0] - sz[g0], ends[g0]
+        offs = sizes.cumsum(0).to(torch.int32)
+        bias_rows = bias[torch.repeat_interleave(
+            torch.arange(e, device=dev), sizes.long(), output_size=m)]
+        for name, (policy, wt, plain, library) in forms.items():
+            plan = grouped_decode_schedule(m, e, n, k, policy)
+
+            def fn(weights, counts=None):
+                if policy == "nf4":
+                    return tng.nf4_gmm_decode(x, weights, sizes, bias,
+                                              tile_counts=counts)
+                return tgmm.gmm_decode(x, weights, sizes, bias,
+                                       unit_counts=counts)
+
+            counts = torch.zeros(3, dtype=torch.int32, device=dev)
+            y = fn(wt, counts)
+            again = fn(wt)
+            ref, plain_ms = once_ms(lambda: plain(x, wt, sizes, bias))
+            torch.cuda.synchronize()
+            got_c, want_c = counts.tolist(), plan.grouped_counts(n, len(live))
+            same = bool(torch.equal(y, again))
+            if not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"{name} {label} is not finite")
+            errs = {name: ((y.float() - ref.float()).abs().max().item(),
+                           attn_row_err(y, ref))}
+            if policy == "nf4":
+                w1 = dequantize_nf4_stacked(q, torch.float32)[g1]
+                wrong_rows = (x[r0:r1].float() @ w1.t()
+                              + bias[g0].float()).to(ref.dtype)
+            else:
+                wrong_rows = ((x[r0:r1].float() @ w[g1].float().t()
+                               ).to(ref.dtype) + bias[g0].to(ref.dtype))
+            wrong = ref.clone()
+            wrong[r0:r1] = wrong_rows
+            drop_label, dropped = grouped_decode_faults(q, w, policy, plan)
+            faults = {name: _row_faults(ref, {
+                "next expert's weights": wrong,
+                "bias dropped": plain(x, wt, sizes),
+                drop_label: fn(dropped)})}
+            del dropped
+            launched = launched_kernels(lambda: fn(wt))
+            lib, lib_err = {name: None}, {}
+            if hasattr(torch, "_grouped_mm"):
+                def lib_fn():
+                    wd = w if policy == "bf16" else \
+                        dequantize_nf4_stacked(q, torch.bfloat16)
+                    return torch._grouped_mm(x, wd.transpose(1, 2),
+                                             offs=offs) + bias_rows
+                try:
+                    lib_err[name] = attn_row_err(lib_fn(), ref)
+                    lib[name] = time_ms(lib_fn, runs=10, flush=flush)
+                except Exception as exc:  # the yardstick only; logged
+                    lib_err[name] = f"torch._grouped_mm failed: {exc!r}"[:200]
+            times = {name: (time_ms(lambda: fn(wt), flush=flush), plain_ms)}
+            w_bytes = len(live) * (n * k // 2 + n * k // q.block_size * 4
+                                   if policy == "nf4" else n * k * 2)
+            b = bound(2 * m * n * k, m * k * 2 + w_bytes + len(live) * n * 2
+                      + m * n * 2 + 4 * e)
+            shape = (f"decode {label}: m={m} E={e} N={n} K={k} "
+                     f"{'NF4 block ' + str(q.block_size) if policy == 'nf4' else 'bf16'}, "
+                     f"{len(live)} experts with rows (largest {max(sz)})")
+            log(f"[kernels] {name} {label}: units, chunks, empty slots "
+                f"{got_c} (schedule {want_c}, row warps/slices/steps "
+                f"{tuple(plan[:3])}); same bits run twice {same}; one call "
+                f"launched {launched}")
+            if got_c != want_c or not same or len(launched) != 1 \
+                    or "grouped_decode_kernel" not in launched[0]:
+                raise RuntimeError(f"{name} {label}: counted {got_c} "
+                                   f"(schedule {want_c}), same bits {same}, "
+                                   f"one call launched {launched}")
+            res = _grouped_rows(f"{name} decode", shape, errs, faults, times,
+                                {name: b}, lib, lib_err, library)
+            res[name].update(tile_counts=got_c, same_bits=same,
+                             schedule=tuple(plan[:3]))
+            rows[name].append(res[name])
+            del y, again, ref, wrong
+    del w, q
+    torch.cuda.empty_cache()
+    return rows
 
 
 #: tgmm's row chunk (csrc/tgmm.cu kChunk, ops.gmm.KERNEL_TILES
@@ -6283,9 +6508,9 @@ def _gpt_oss_bf16_sft(model, tmp, kernels, profile=False):
     "unsloth" checkpointing), :func:`_gpt_oss_train` on the same packed
     rows as the NF4 part for GPT_OSS_BF16_STEPS steps (K19; K7/K8 where
     the fused_ce="auto" gate takes the full logits, none where it takes
-    the chunked CE). Then a greedy generate of 8 tokens for one prompt,
-    which must launch K19 at decode rows (more launches than its prefill's
-    3 x 24), and the trainer, its AdamW state and the adapter are freed.
+    the chunked CE). Then a greedy generate of 8 tokens for one prompt
+    (:func:`_expert_generate`: K19's decode form 72 launches a decode
+    step), and the trainer, its AdamW state and the adapter are freed.
     With ``profile``, one more step runs under the profiler
     (:func:`_profile_train_step`) in place of the generate. Returns
     (launches, metrics)."""
@@ -6332,29 +6557,68 @@ def _gpt_oss_bf16_sft(model, tmp, kernels, profile=False):
         _profile_train_step(trainer, batches[:2])
         return launches, metrics
     prompt = [docs[-1]["input_ids"][:64]]
-    before = kernels["gmm"].launches
-    model.for_inference()
-    t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=8, temperature=0.0,
-                         return_token_ids=True)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    gen_k19 = kernels["gmm"].launches - before
-    log(f"[gpt-oss bf16] generate 1 prompt of {len(prompt[0])} tokens, 8 "
-        f"new: {out} in {t_gen:.2f} s; K19 launches {gen_k19} (prefill "
-        f"{3 * cfg.num_layers})")
-    if len(out) != 1 or len(out[0]) != 8 or not all(
-            0 <= t_ < cfg.vocab_size for t_ in out[0]):
-        raise RuntimeError(f"generate did not return 1 x 8 tokens: {out}")
-    if gen_k19 <= 3 * cfg.num_layers:
-        raise RuntimeError(f"generate launched K19 {gen_k19} times: not at "
-                           f"decode rows")
+    _, t_gen, gen = _expert_generate(model, prompt, 8, "gpt-oss bf16",
+                                     kernels, "gmm", "gmm_decode")
     # free the trainer, its AdamW state and the adapter before quantizing
     del trainer
     model.lora = None
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(metrics, generate_s=t_gen, generate_k19=gen_k19)
+    return launches, dict(metrics, generate_s=t_gen,
+                          generate_launches=gen)
+
+
+def _expert_generate(model, prompts, n_new, tag, kernels, kernel,
+                     decode_kernel):
+    """Phase 9's greedy generate of ``n_new`` tokens for ``prompts`` over
+    MoE experts, timed as :func:`_greedy_generate` times one (a prefill
+    alone first: ms a decode step); every row must come back with
+    ``n_new`` ids of the vocabulary, ``kernel`` (the expert products) must
+    launch three times a layer each forward and ``decode_kernel`` (their
+    grouped decode form) three times a layer each decode step and never in
+    a prefill. Returns (the ids, the seconds, the launches of the full
+    generate)."""
+    import torch
+
+    per_step = 3 * model.cfg.num_layers
+    model.for_inference()
+    before = {n_: fn.launches for n_, fn in kernels.items()}
+    t0 = time.perf_counter()
+    model.generate(prompts, max_new_tokens=1, temperature=0.0,
+                   return_token_ids=True)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    mid = {n_: fn.launches for n_, fn in kernels.items()}
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=n_new, temperature=0.0,
+                         return_token_ids=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    gen = {n_: fn.launches - mid[n_] for n_, fn in kernels.items()}
+    prefill_decode = mid[decode_kernel] - before[decode_kernel]
+    steps = max(len(r) for r in out) - 1
+    log(f"[{tag}] generate {len(prompts)} prompts of "
+        f"{[len(p_) for p_ in prompts]} tokens, {n_new} new: "
+        f"{[len(r) for r in out]} tokens in {t_gen:.2f} s (a prefill alone "
+        f"{t_prefill:.3f} s; "
+        f"{1e3 * (t_gen - t_prefill) / max(steps, 1):.1f} ms a decode step "
+        f"over {steps}); launches "
+        f"{ {n_: c for n_, c in gen.items() if c} } ({decode_kernel} "
+        f"{per_step} a decode step; {prefill_decode} in the prefill alone)")
+    if len(out) != len(prompts) or any(
+            len(r) != n_new or not all(0 <= t_ < model.cfg.vocab_size
+                                       for t_ in r) for r in out):
+        raise RuntimeError(f"generate did not return {len(prompts)} x "
+                           f"{n_new} tokens: {out}")
+    if gen[kernel] != per_step * n_new:
+        raise RuntimeError(f"generate launched {kernel} {gen[kernel]} times "
+                           f"in {n_new} forwards, not {per_step} a forward")
+    if gen[decode_kernel] != per_step * steps or prefill_decode:
+        raise RuntimeError(f"generate launched {decode_kernel} "
+                           f"{gen[decode_kernel]} times over {steps} decode "
+                           f"steps and {prefill_decode} in a prefill, not "
+                           f"{per_step} a decode step and none in a prefill")
+    return out, t_gen, gen
 
 
 def phase_gpt_oss_sft(tmp, profile=False):
@@ -6369,8 +6633,9 @@ def phase_gpt_oss_sft(tmp, profile=False):
     64-1,024 tokens for GPT_OSS_STEPS steps (K14/K15, K7/K8 2 a step).
     Then evaluate on held-out documents, save_lora -> a fresh adapter ->
     load_lora -> evaluate (equal losses), and a greedy generate of 16
-    tokens for 2 prompts (K14 at decode row counts, the cached attention
-    with sinks and the window). With ``profile`` True, the bf16-expert
+    tokens for 2 prompts (:func:`_expert_generate`: K14's decode form 72
+    launches a decode step, the cached attention with sinks and the
+    window). With ``profile`` True, the bf16-expert
     part is left out and one more NF4 step runs under the profiler
     (:func:`_profile_train_step`) in place of evaluate and generate; with
     "bf16", one more bf16-expert step runs under it and the NF4 part is
@@ -6458,26 +6723,12 @@ def phase_gpt_oss_sft(tmp, profile=False):
         raise RuntimeError(f"eval loss changed across the adapter round "
                            f"trip: {ev['eval_loss']} -> {ev2['eval_loss']}")
     prompts = [d_["input_ids"][:64] for d_ in held_out[:2]]
-    before = {n: fn.launches for n, fn in kernels.items()}
-    model.for_inference()
-    t0 = time.perf_counter()
-    out = model.generate(prompts, max_new_tokens=16, temperature=0.0,
-                         return_token_ids=True)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    gen_k14 = kernels["nf4_gmm"].launches - before["nf4_gmm"]
-    log(f"[gpt-oss] generate 2 prompts of {[len(p_) for p_ in prompts]} "
-        f"tokens, 16 new: {[len(r) for r in out]} tokens in {t_gen:.2f} s; "
-        f"K14 launches {gen_k14}")
-    if len(out) != 2 or any(
-            len(r) != 16 or not all(0 <= t_ < model.cfg.vocab_size for t_ in r)
-            for r in out):
-        raise RuntimeError(f"generate did not return 2 x 16 tokens: {out}")
-    if gen_k14 <= 0:
-        raise RuntimeError("generate ran the experts without K14")
+    _, t_gen, gen = _expert_generate(model, prompts, 16, "gpt-oss", kernels,
+                                     "nf4_gmm", "nf4_gmm_decode")
     del trainer, model
     torch.cuda.empty_cache()
     return launches, bf16_launches, dict(metrics, eval=ev, generate_s=t_gen,
+                                         generate_launches=gen,
                                          bf16=bf16_metrics)
 
 
@@ -8230,6 +8481,55 @@ def nf4_decode_faults(q, plan):
                 q, absmax_scale=torch.roll(q.absmax_scale, -1))}
 
 
+def launched_kernels(fn, tries=3):
+    """The names of the CUDA kernels one call of ``fn`` launches, from
+    ``torch.profiler``. A trace that recorded no device event at all is
+    not a reading (the card's CUPTI tracing drops one now and then: a call
+    whose output was right came back with none) and is taken again, up
+    to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def decode_twin_within(got, want, product=None, rare=1e-3) -> bool:
+    """The grouped decode kernel's tolerance against its walk's twin (or
+    the twin's against JAX): every output within one bf16 ulp of ``want``
+    plus 2^-20 of its largest (the same bf16 weights summed in fp32 in
+    other orders, one rounding). Where a bias is added to a ``product``
+    rounded first (K19: ``want`` without its bias), one ulp of that product
+    more (two sums in other orders may round it an ulp apart, which the
+    bias carries whole into an output it cancels to a fraction of the
+    product), and at most a ``rare`` share of the outputs past two ulps of
+    their own: such a flip needs a product within a rounding error of a
+    bf16 midpoint, while the bias added before the rounding misses that far
+    wherever it cancels much of the product."""
+    import numpy as np
+
+    def arr(t):
+        return t.float().cpu().numpy() if hasattr(t, "float") else \
+            np.asarray(t, dtype=np.float32)
+
+    got, want = arr(got), arr(want)
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2.0 ** 16
+    d = np.abs(got - want) - 2.0 ** -20 * np.abs(want).max()
+    if product is None:
+        return bool(np.all(d <= ulp))
+    p = arr(product)
+    ulp_p = np.spacing(np.abs(p).astype(np.float32)) * 2.0 ** 16
+    return bool(np.all(d <= ulp + ulp_p)) and \
+        float(np.mean(d > 2 * ulp)) <= rare
+
+
 def _bf16_ulps(got, ref) -> float:
     """Worst |got - ref| in bf16 ulps of |ref| (the ulp of 2^-126 and up)."""
     import torch
@@ -8256,7 +8556,6 @@ def _decode_kernels(dev, g, flush):
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
     from unsloth_tpu_torch.ops.fp8_matmul import (dequantize_fp8,
@@ -8333,11 +8632,7 @@ def _decode_kernels(dev, g, flush):
                 raise RuntimeError(f"the nf4_matmul decode check lets faults "
                                    f"through at {shape}: {missed}")
             if m == 4 and not profiled:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    nf4_matmul_decode(x, q)
-                    torch.cuda.synchronize()
-                launched = [e.name for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA]
+                launched = launched_kernels(lambda: nf4_matmul_decode(x, q))
                 log(f"[kernels] nf4_matmul decode {shape}: one call launched "
                     f"{len(launched)} kernel(s): {launched}")
                 if len(launched) != 1:
@@ -8738,7 +9033,9 @@ def _kernel_fns():
             "fp8_matmul_fwd": fp8_matmul_fwd, "fp8_matmul_dx": fp8_matmul_dx,
             # the decode forms, also counted under their kernel's name
             "nf4_matmul_decode": nf4_matmul_decode,
-            "fp8_matmul_decode": fp8_matmul_decode}
+            "fp8_matmul_decode": fp8_matmul_decode,
+            "nf4_gmm_decode": tng.nf4_gmm_decode,
+            "gmm_decode": tgmm.gmm_decode}
 
 
 # the kernels each main path must launch
@@ -8801,6 +9098,15 @@ KERNEL_FORMS = {
                          "ahead, the NF4 decode and the stored int8 absmax "
                          "into mma.sync A fragments, y^T = W x^T, the "
                          "slices summed in order by the last block)",
+    "nf4_gmm_decode": "grouped_decode_kernel<K14, NT> (decode_matmul.cu's "
+                      "split-K loop under a grouped schedule: (slot, row "
+                      "group, K slice) units for min(m, E) slots, each slot "
+                      "an expert with rows found on the card, the NF4 decode "
+                      "of the stacked fp32 absmax, the fp32 bias before the "
+                      "one rounding; one launch a call)",
+    "gmm_decode": "grouped_decode_kernel<K19, NT> (the grouped decode "
+                  "kernel with dense bf16 rows, eight steps in flight, the "
+                  "bf16 bias after the first rounding; one launch a call)",
     "fp8_matmul_decode": "decode_matmul_kernel<K12, NT> (the decode kernel "
                          "with the e4m3 cvt and the block's scale; <K12 any "
                          "shape, NT> where K % 16, the pointers or B % 16 "
@@ -8889,6 +9195,14 @@ def _kernels_line(rows, by_path):
         "nf4_gmm": ("nf4_wgmma.cu", "unsloth_tpu/ops/nf4_gmm.py:86 "
                     "(_fwd_kernel, pallas_call :243 in _nf4_gmm_fwd_impl "
                     ":204)", "(a) path"),
+        "nf4_gmm_decode": ("decode_matmul.cu",
+                           "unsloth_tpu/ops/nf4_gmm.py:86 (_fwd_kernel, "
+                           "pallas_call :243 in _nf4_gmm_fwd_impl :204; here "
+                           "at m <= 16)", "decode m=8"),
+        "gmm_decode": ("decode_matmul.cu", "unsloth_tpu/ops/moe.py:249 "
+                       "(tiled_gmm: bundled megablox gmm, gmm.py:314, "
+                       "pallas_call :526, transpose_rhs=True; the bias "
+                       ":258-276; here at m <= 16)", "decode m=8"),
         "nf4_gmm_dx": ("nf4_wgmma.cu", "unsloth_tpu/ops/nf4_gmm.py:135 "
                        "(_bwd_kernel, pallas_call :307 in _nf4_gmm_bwd_impl "
                        ":274)", "(a) path"),
@@ -8958,6 +9272,8 @@ def _kernels_line(rows, by_path):
                  "fp8_matmul_fwd": "fp8_training",
                  "fp8_matmul_dx": "fp8_training",
                  "nf4_matmul_decode": "serving",
+                 "nf4_gmm_decode": "gpt_oss_generate",
+                 "gmm_decode": "gpt_oss_bf16_generate",
                  "fp8_matmul_decode": "fp8_generate",
                  **{k_: "diffusion_training" for k_ in FULL_FLASH},
                  **{k_: "gemma2_diffusion_2layer_parity"
@@ -9200,7 +9516,7 @@ def main() -> int:
         parity_launches = timed("4-4k parity (joined)", parity.join)
         gpt_oss = timed("9 write gpt-oss", _write_model,
                         os.path.join(tmp, "gpt_oss_20b"), GPT_OSS_20B_CONFIG)
-        gpt_oss_launches, bf16_launches, _ = timed(
+        gpt_oss_launches, bf16_launches, gpt_oss_metrics = timed(
             "9 gpt-oss SFT", phase_gpt_oss_sft, gpt_oss)
         gpt_oss_ft_launches, _ = timed("16 gpt-oss full FT",
                                        phase_gpt_oss_full_ft, gpt_oss, tmp)
@@ -9224,6 +9540,9 @@ def main() -> int:
                "orpheus_training": orpheus_launches,
                "fp8_training": fp8_launches_,
                "fp8_generate": fp8_gen_launches,
+               "gpt_oss_generate": gpt_oss_metrics["generate_launches"],
+               "gpt_oss_bf16_generate":
+                   gpt_oss_metrics["bf16"]["generate_launches"],
                "gpt_oss_full_ft_training": gpt_oss_ft_launches,
                "qwen25_full_ft_training": qwen_ft_launches,
                "diffusion_training": diffusion_launches_,

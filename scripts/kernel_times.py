@@ -10,8 +10,8 @@ two-call yardsticks of K1, K2, K12 and K13 (dequantize, then
 with the segments' causal mask (forward; backward by autograd).
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
-                                   [--only K1|K2|K5|K9|K10|K12|K13|K14|K15]
-                                   [--repeats R] [--decode]
+                                   [--only K1|K2|K5|K9|K10|K12|K13|K14|K15|K19]
+                                   [--repeats R] [--decode] [--sweep]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
 parent commit unpacked with ``git archive`` and this tree can be timed in
@@ -48,8 +48,19 @@ host has queued the call before the card reaches it and the time is the
 card's alone; median of 20) and ``kernels_per_call`` (the kernels one
 call launches, from ``torch.profiler``'s trace over 10 calls, the
 zeroing's own kernel left out).
+K14 and K19's forward also run at decode rows (``--only K14`` or
+``K19``, or ``--decode``): gpt-oss-20b's experts (E = 32, N = K = 2,880,
+K14 at block 32; the bf16 bias), routed top-4 from 1, 2 and 4 random
+tokens by a random router (m = 4, 8, 16) and 16 rows skewed over 4
+experts, with ``device_ms`` and ``kernels_per_call`` as above, beside
+K14's grouped two calls and K19's ``torch._grouped_mm`` (each + the bias
+gathered by row) and the bound (the bytes of the rows, of the experts with
+rows and their bias rows, and of the output), and for K19 the card's time of a plain
+``torch.sum`` read of the experts with rows; ``--sweep`` adds the card's
+time of each under every row group (128, 64, 32 W rows) and slice count
+(1, 2, 4) the x slice allows (the tree's grouped schedule patched).
 ``--repeats R`` reports every time as the median of R medians;
-``--decode`` runs those decode rows of K1 and K12 alone.
+``--decode`` runs those decode rows of K1, K12, K14 and K19 alone.
 """
 
 from __future__ import annotations
@@ -144,10 +155,16 @@ def time_ms(fn, flush, runs=20, warmup=3):
 
 def device_ms(fn, flush, runs=20):
     """(the median of REPEATS medians of the card's time of one call, the
-    kernels a call launches). Each call is timed by CUDA events recorded
-    after ``flush`` is zeroed and the card has slept ~50 us, time in which
-    the host queues the call: the events then bracket the card's work
-    alone, not the host's launch overhead."""
+    kernels a call launches): :func:`card_ms` and :func:`kernels_per_call`."""
+    return card_ms(fn, flush, runs), kernels_per_call(fn, flush)
+
+
+def card_ms(fn, flush, runs=20):
+    """The median of REPEATS medians of the card's time of one call. Each
+    call is timed by CUDA events recorded after ``flush`` is zeroed and the
+    card has slept ~50 us, time in which the host queues the call: the
+    events then bracket the card's work alone, not the host's launch
+    overhead."""
     import torch
 
     fn()
@@ -165,7 +182,7 @@ def device_ms(fn, flush, runs=20):
             end.synchronize()
             one.append(start.elapsed_time(end))
         times.append(statistics.median(one))
-    return statistics.median(times), kernels_per_call(fn, flush)
+    return statistics.median(times)
 
 
 def kernels_per_call(fn, flush, runs=10):
@@ -311,6 +328,131 @@ def k14_times(dev, g, flush, label, dx=False):
                           "ms": ms, "two_calls_ms": lib,
                           "bound_ms": bound_ms(rows, d, d, nbytes),
                           "rel_err": err, **extra}), flush=True)
+
+
+def schedule_sweep(fn, module, policy, m, e, d, flush):
+    """{"R rows x S": card ms} of ``fn`` (a call of ``module``'s decode
+    form) under each row group R (128, 64, 32) and slice count S (1, 2, 4)
+    whose x slice fits the shared memory, ``module.grouped_decode_schedule``
+    patched for the sweep."""
+    from unsloth_tpu_torch.ops import qlora_matmul as qm
+
+    base = module.grouped_decode_schedule
+    plan0 = base(m, e, d, d, policy)
+    out = {}
+    try:
+        for rw in (8, 4, 2):
+            for slices in (1, 2, 4):
+                steps = -(-plan0.steps // slices)
+                if qm._smem_bytes(policy, plan0.n_tiles, steps,
+                                  rw) > qm.DECODE_MAX_SMEM:
+                    continue
+                plan = plan0._replace(
+                    row_warps=rw, slices=-(-plan0.steps // steps),
+                    slice_steps=steps, groups=-(-d // (16 * rw)))
+                module.grouped_decode_schedule = \
+                    lambda *a, plan=plan, **k: plan
+                out[f"{16 * rw} rows x {plan.slices}"] = card_ms(fn, flush)
+    finally:
+        module.grouped_decode_schedule = base
+    return out
+
+
+def grouped_decode_times(dev, g, flush, label, which, sweep=False):
+    """K14's and K19's forwards (``which``: "K14", "K19") at phase 3's
+    decode routings of gpt-oss-20b's experts: the wrapper's time, the
+    card's (:func:`device_ms`), the kernels a call launches, the
+    yardstick's time and the bound; for K19 also the card's time of a
+    plain read (``torch.sum``) of the experts with rows; with ``sweep``,
+    the card's time under every row group and slice count
+    (:func:`schedule_sweep`; the tree's decode forms only)."""
+    import torch
+
+    from unsloth_tpu_torch.ops import gmm as tgmm
+    from unsloth_tpu_torch.ops import nf4_gmm as tng
+    from unsloth_tpu_torch.ops.nf4 import (dequantize_nf4_stacked,
+                                           quantize_nf4_stacked)
+
+    e, d, block = K14_EXPERTS
+    w = (torch.randn((e, d, d), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    q = quantize_nf4_stacked(w, block_size=block)
+    bias = (torch.randn((e, d), generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+    router = torch.randn((e, d), generator=g, device=dev) * 0.02
+
+    def routed(tokens):
+        x = torch.randn((tokens, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        sel = torch.topk(x.float() @ router.t(), K14_TOP_K, dim=-1).indices
+        flat = sel.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = torch.bincount(flat, minlength=e).to(torch.int32)
+        return x[order // K14_TOP_K], sizes
+
+    skew = torch.zeros(e, dtype=torch.int32, device=dev)
+    skew[[3, 9, 17, 30]] = torch.tensor([7, 5, 3, 1], dtype=torch.int32,
+                                        device=dev)
+    cases = [("m=4", routed(1)), ("m=8", routed(2)), ("m=16", routed(4)),
+             ("m=16 skewed", (torch.randn((16, d), generator=g, device=dev
+                                          ).to(torch.bfloat16), skew))]
+    for case, (x, sizes) in cases:
+        rows = x.shape[0]
+        offs = sizes.cumsum(0).to(torch.int32)
+        bias_rows = bias[torch.repeat_interleave(
+            torch.arange(e, device=dev), sizes.long(), output_size=rows)]
+        live = int((sizes > 0).sum())
+        for kernel in which:
+            if kernel == "K14":
+                def fn():
+                    return tng.nf4_gmm_fwd(x, q, sizes, bias)
+
+                def lib_fn():
+                    wd = dequantize_nf4_stacked(q, torch.bfloat16)
+                    return torch._grouped_mm(x, wd.transpose(1, 2),
+                                             offs=offs) + bias_rows
+
+                ref = tng.nf4_gmm_ref(x, q, sizes, bias)
+                w_bytes = d * d // 2 + d * d // block * 4
+                module, policy = tng, "nf4"
+            else:
+                def fn():
+                    return tgmm.gmm_fwd(x, w, sizes, bias)
+
+                def lib_fn():
+                    return torch._grouped_mm(x, w.transpose(1, 2),
+                                             offs=offs) + bias_rows
+
+                ref = tgmm.gmm_ref(x, w, sizes, bias)
+                w_bytes = d * d * 2
+                module, policy = tgmm, "bf16"
+            extra = {}
+            if kernel == "K19":
+                live_w = w[sizes > 0]
+                extra["read_ms"] = card_ms(
+                    lambda: live_w.sum(dtype=torch.float32), flush)
+                del live_w
+            if sweep:
+                extra["sweep"] = schedule_sweep(fn, module, policy, rows, e,
+                                                d, flush)
+            y = fn()
+            err = ((y.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            ms = time_ms(fn, flush)
+            dev_ms, per_call = device_ms(fn, flush)
+            try:
+                lib = time_ms(lib_fn, flush)
+            except RuntimeError as exc:  # the yardstick only: reported
+                lib = f"torch._grouped_mm failed: {exc!r}"[:160]
+            nbytes = rows * d * 2 + live * (w_bytes + d * 2) + rows * d * 2
+            print(json.dumps({"label": label, "kernel": kernel,
+                              "shape": f"decode {case}: m={rows} E={e} "
+                                       f"N=K={d}, {live} experts",
+                              "ms": ms, "library_ms": lib,
+                              "bound_ms": bound_ms(rows, d, d, nbytes),
+                              "rel_err": err, "device_ms": dev_ms,
+                              "kernels_per_call": per_call, **extra}),
+                  flush=True)
 
 
 def packed_row(t, docs, seed=0):
@@ -472,12 +614,15 @@ def main() -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K10", "K12",
-                                       "K13", "K14", "K15"), default=None)
+                                       "K13", "K14", "K15", "K19"),
+                    default=None)
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
-    if args.decode and args.only not in (None, "K1", "K12"):
-        ap.error("--decode times K1's and K12's decode rows only")
+    if args.decode and args.only not in (None, "K1", "K12", "K14", "K19"):
+        ap.error("--decode times K1's, K12's, K14's and K19's decode rows "
+                 "only")
     global REPEATS
     REPEATS = args.repeats
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -602,6 +747,9 @@ def main() -> int:
         del q, gy, dx, ref
     if args.only in (None, "K14") and not decode:
         k14_times(dev, g, flush, args.label)
+    grouped = [k_ for k_ in ("K14", "K19") if args.only in (None, k_)]
+    if grouped:
+        grouped_decode_times(dev, g, flush, args.label, grouped, args.sweep)
     if args.only in (None, "K15") and not decode:
         k14_times(dev, g, flush, args.label, dx=True)
     if args.only in (None, "K9") and not decode:

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ATTN_ROW_TOL, MM_ULPS, attn_row_err, fp8_weight,
-                        flash_tile_counts, kernel_tile_classes, mm_ulps)
+from chip_smoke import (ATTN_ROW_TOL, MM_ULPS, attn_row_err,
+                        decode_twin_within, fp8_weight, flash_tile_counts,
+                        kernel_tile_classes, launched_kernels, mm_ulps)
 from unsloth_tpu_torch.ops.fp8 import fp8_matmul_ref, quantize_fp8_block
 from unsloth_tpu_torch.ops.fp8_matmul import (fp8_matmul_dx, fp8_matmul_dx_ref,
                                               fp8_matmul_fwd)
@@ -107,8 +108,6 @@ def test_nf4_decode_kernel_matches_its_twin(dev, m, n, k):
     pass, no memset)."""
     import dataclasses
 
-    from torch.profiler import ProfilerActivity, profile
-
     from unsloth_tpu_torch.ops.nf4 import _decode_absmax
     from unsloth_tpu_torch.ops.qlora_matmul import (nf4_decode_tiles_ref,
                                                     nf4_matmul_decode)
@@ -119,14 +118,11 @@ def test_nf4_decode_kernel_matches_its_twin(dev, m, n, k):
                               absmax_scale=None, absmax_offset=None)
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     y = nf4_matmul_decode(x, q)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = nf4_matmul_decode(x, q)
-        torch.cuda.synchronize()
+    again = nf4_matmul_decode(x, q)
+    kernels = launched_kernels(lambda: nf4_matmul_decode(x, q))
     from_f32 = nf4_matmul_decode(x, q32)
     twin, _ = nf4_decode_tiles_ref(x.cpu(), q.to("cpu"))
     torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "decode_matmul_kernel" in kernels[0]
     assert torch.equal(y, again) and torch.equal(y, from_f32)
     assert _within_one_ulp(y, twin)
@@ -760,6 +756,77 @@ def test_nf4_gmm_dx_hopper_tiles_match_the_twin(dev, e, n, k, bs, sizes,
                  <= ulp + 2.0 ** -20 * want.abs().max()).all())
     assert attn_row_err(dx, ref) <= ATTN_ROW_TOL
     assert bool((dx[sum(sizes):] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", ["nf4", "bf16"])
+@pytest.mark.parametrize("e,n,k,bs,sizes,extra", [
+    (8, 200, 2880, 32, [0, 0, 1, 0, 0, 0, 0, 0], 0),        # one row: S > 1
+    (8, 200, 2880, 32, [0, 3, 0, 0, 0, 0, 1, 0], 0),        # 4 rows, 2 experts
+    (32, 2880, 2880, 32, [0] * 5 + [1, 2] + [0] * 20 + [1, 1, 1, 1, 1],
+     0),                                                    # gpt-oss, 8 rows
+    (32, 2880, 2880, 32, [3, 0, 0, 5] + [0] * 12 + [4] + [0] * 14 + [4],
+     0),                                                    # skewed, 16 rows
+    (8, 136, 512, 64, [2, 0, 9, 0, 0, 1, 0, 1], 3)])        # B 64, rows past
+def test_grouped_decode_kernels_match_their_twins(dev, fp32_reductions,
+                                                   kernel, e, n, k, bs,
+                                                   sizes, extra):
+    """K14's and K19's forwards at 16 rows or fewer (csrc/decode_matmul.cu's
+    grouped form): within ``chip_smoke.decode_twin_within`` of their
+    walk's twin on the CPU (one bf16 ulp plus 2^-20 of the largest; K19 an
+    ulp of its product more, for its second rounding), within
+    ATTN_ROW_TOL of the plain version row by row, the rows past the groups
+    zero over NaN-filled memory, the counters equal to the schedule's
+    (units, 16-byte chunks, empty slots), a second run the same bits, one
+    kernel a call (``chip_smoke.launched_kernels``), one launch counted
+    under the decode form's name and the kernel's."""
+    from unsloth_tpu_torch.ops import gmm as tgmm_
+    from unsloth_tpu_torch.ops.qlora_matmul import grouped_decode_schedule
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    m = sum(sizes) + extra
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((e, n), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, n, k), generator=g, device=dev) * 0.05
+         ).to(torch.bfloat16)
+    if kernel == "nf4":
+        q = quantize_nf4_stacked(w, bs)
+        fwd, dec, whole = tng.nf4_gmm_fwd, tng.nf4_gmm_decode, tng.nf4_gmm
+
+        def call(counts=None):
+            return fwd(x, q, sz, bias, tile_counts=counts)
+
+        ref = tng.nf4_gmm_ref(x, q, sz, bias)
+        twin, _ = tng.nf4_gmm_decode_tiles_ref(x.cpu(), q.to("cpu"), sizes,
+                                               bias.cpu())
+        product = None
+    else:
+        fwd, dec, whole = tgmm_.gmm_fwd, tgmm_.gmm_decode, tgmm_.gmm
+
+        def call(counts=None):
+            return fwd(x, w, sz, bias, unit_counts=counts)
+
+        ref = tgmm_.gmm_ref(x, w, sz, bias)
+        twin, _ = tgmm_.gmm_decode_tiles_ref(x.cpu(), w.cpu(), sizes,
+                                             bias.cpu())
+        product, _ = tgmm_.gmm_decode_tiles_ref(x.cpu(), w.cpu(), sizes)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    # NaN in the block the caching allocator hands y next
+    torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    before = (whole.launches, dec.launches)
+    y = call(counts)
+    again = call()
+    assert (whole.launches, dec.launches) == (before[0] + 2, before[1] + 2)
+    launched = launched_kernels(call)
+    assert len(launched) == 1 and "grouped_decode_kernel" in launched[0]
+    plan = grouped_decode_schedule(m, e, n, k, kernel)
+    live = sum(1 for s_ in sizes if s_)
+    assert counts.tolist() == plan.grouped_counts(n, live)
+    assert torch.equal(y, again)
+    assert torch.isfinite(y).all()
+    assert bool((y[sum(sizes):] == 0).all())
+    assert attn_row_err(y[:sum(sizes)], ref[:sum(sizes)]) <= ATTN_ROW_TOL
+    assert decode_twin_within(y, twin, product)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

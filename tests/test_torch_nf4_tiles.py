@@ -189,16 +189,19 @@ def test_layer_norm_warp_form_rule(d, dtype, warp):
 
 
 def test_build_report_finds_the_nf4_kernel():
-    """Phase 2 holds K1's Hopper kernel and the decode kernel to 0 spill
-    and no serialized wgmma as it holds the attention kernels (39 rows:
-    the attention kernels' 21, two tile heights each of K1, K12, K2, K13,
-    K14 and K15, and the decode kernel's three weight policies at one and
-    two n-tiles)."""
+    """Phase 2 holds K1's Hopper kernel, the decode kernel and its grouped
+    form to 0 spill and no serialized wgmma as it holds the attention
+    kernels (43 rows: the attention kernels' 21, two tile heights each of
+    K1, K12, K2, K13, K14 and K15, the decode kernel's three weight
+    policies at one and two n-tiles, and its grouped form's two, K14's and
+    K19's decode rows, at one and two)."""
     fn = ("_ZN4nf4w54_GLOBAL__N__5c1f0b2a_12_nf4_wgmma_cu_0e3f5a1c16"
           "nf4_wgmma_kernelILi256EEEv14CUtensorMap_stS2_S2_PKfP13"
           "__nv_bfloat16Piiiii")
     dec = ("_ZN49_GLOBAL__N__03a29351_16_decode_matmul_cu_1152633920"
            "decode_matmul_kernelILi2ELi1EEEvNS_6ParamsE")
+    grouped = ("_ZN49_GLOBAL__N__03a29351_16_decode_matmul_cu_1152633921"
+               "grouped_decode_kernelILi1ELi2EEEvNS_13GroupedParamsE")
     log = "\n".join([
         f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -207,9 +210,13 @@ def test_build_report_finds_the_nf4_kernel():
         f"instructions are serialized in the function '{fn}'",
         f"ptxas info    : Compiling entry function '{dec}' for 'sm_90a'",
         "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
-        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem"])
+        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem",
+        f"ptxas info    : Compiling entry function '{grouped}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 126 registers, used 1 barriers, 80 bytes smem"])
     rows, serialized = chip_smoke.attention_build_report(log)
     assert rows == [("nf4_wgmma_kernel<256, K1>", 168, 0),
-                    ("decode_matmul_kernel<K12 any shape, NT 1>", 128, 8)]
+                    ("decode_matmul_kernel<K12 any shape, NT 1>", 128, 8),
+                    ("grouped_decode_kernel<K19, NT 2>", 126, 0)]
     assert len(serialized) == 1 and "C7517" in serialized[0]
-    assert chip_smoke.HOPPER_BUILD_ROWS == 39
+    assert chip_smoke.HOPPER_BUILD_ROWS == 43

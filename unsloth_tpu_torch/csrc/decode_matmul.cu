@@ -1,11 +1,16 @@
 // Decode-row dequant-inside-matmul forward, at M <= 16 rows of x:
 //   y[M, N] = x[M, K] @ dequant(W)[N, K]^T
-// for an NF4 W (K1's decode form) and for a block-scaled e4m3 W (K12's).
+// for an NF4 W (K1's decode form) and for a block-scaled e4m3 W (K12's);
+// and its grouped form over experts (below: K14's and K19's forwards at
+// m <= 16 routed rows).
 //
 // Replaces, at M <= 16, the TPU kernels unsloth_tpu/ops/qlora_matmul.py:
 // _fwd_kernel (K1, launched by _fwd_pallas) and unsloth_tpu/ops/
-// fp8_matmul.py:_fwd_kernel (K12, launched by _fwd_pallas). Above 16 rows
-// both run nf4_wgmma.cu's persistent Hopper kernel.
+// fp8_matmul.py:_fwd_kernel (K12, launched by _fwd_pallas), and, at m <=
+// 16, unsloth_tpu/ops/nf4_gmm.py:_fwd_kernel (K14, pallas_call in
+// _nf4_gmm_fwd_impl) and megablox `gmm` as unsloth_tpu/ops/moe.py:
+// tiled_gmm calls it with its bias epilogue (K19). Above 16 rows K1, K12
+// and K14 run nf4_wgmma.cu's persistent Hopper kernels, K19 gmm.cu's.
 //
 // Rounding points (the TPU kernels' and the plain versions'):
 //   * NF4: each weight is bf16(NF4_CODE[nibble] * absmax), the product in
@@ -588,6 +593,447 @@ int launch(Params& p, cudaStream_t stream) {
                   : launch_one<kPolicy, 2>(p, (int)units, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The grouped form: K14's and K19's forwards at m <= 16 routed rows
+//
+//   y[r, :] = x[r, :] @ W_g^T (+ bias[g])   for the rows r of group g
+//
+// Rows of x are sorted by expert; group g owns rows [off_g, off_g +
+// size_g), off the running sum of the int32 sizes (clamped to m), which
+// stay on the device. The loop above, with two more weight policies:
+//   * NF4Stacked: packed [E, N, K/2] in split-half order, fp32 absmax [E,
+//     N K / B] at B = 32 or 64. Each 16-byte chunk of a side takes one
+//     absmax (K/2 % 32 == 0: a chunk never straddles a block, even where
+//     a block straddles K/2). Lane t of a row quad reads, for both its
+//     rows, the absmax of element (t >> 1) K/2 + 64 st + 32 (t & 1) of the
+//     step (a 32-element half of a side lies in one block at either B) and
+//     hands it on by shuffle. The bias (fp32, or bf16 read exactly) is
+//     added to the fp32 sum, which is rounded once (K14's store).
+//   * Dense bf16 [E, N, K]: no decode. A lane's 16 bytes of a row are 8
+//     weights, the A fragments of two mmas as they are; a step (64 bytes)
+//     is 32 columns of x, and the B fragments of lane t are x columns 8 t
+//     .. 8 t + 7 of it (x rows 64 bytes apart mod 128). The sum is rounded
+//     to bf16, the bf16 bias added and the sum rounded again (K19's
+//     epilogue). Four steps in flight, as NF4's (eight spill; six were no
+//     faster on an H100).
+// The schedule: units (slot, row group of 16 WR W rows, K slice), slot
+// outermost, for min(m, E) slots; slot s takes the s-th expert that owns
+// rows, which every warp finds from the sizes by ballots over 32 experts
+// at a time; the blocks of a slot that no expert fills exit at once. WR
+// and the slices are ops/qlora_matmul.py:grouped_decode_schedule's, laid
+// from (m, E, N, K) alone (no call reads the sizes on the host): one
+// slice wherever the slots' row groups fill the SMs, the row groups whose
+// waves stream the fewest rows each; K split as above where they do not
+// (m = 1). Only
+// the slot's rows of x are staged. The blocks of slot 0's first slice also
+// store zeros in the rows past the groups (their row group's columns), so
+// y needs no memset: one launch a call. At S > 1 the last block of each
+// (slot, row group) sums the slices' fp32 partials in slice order, as
+// above. Counters (null, or int32 [3]): the units stored, the 16-byte
+// chunks of W consumed, the slots that found no expert.
+// ---------------------------------------------------------------------------
+
+enum GroupedPolicy { kNF4Stacked = 0, kDense = 1 };
+
+struct GroupedParams {
+  const __nv_bfloat16* x;  // [M, K], rows sorted by expert
+  const uint8_t* w;        // NF4: packed [E, N, K/2]; dense: bf16 [E, N, K]
+  const float* absmax;     // NF4: fp32 [E, N K / B]
+  int block_shift;         // NF4: log2 B
+  const void* bias;        // [E, N] or null: fp32 or bf16 (NF4), bf16 (dense)
+  bool bias_f32;
+  const int* group_sizes;  // [E] int32
+  int E;
+  __nv_bfloat16* y;        // [M, N]
+  float* partials;         // [units][WR][32][NT * 4] fp32, at S > 1
+  int* arrivals;           // [slots * groups], 0 between calls, at S > 1
+  int* counts;             // null or int32 [3]
+  int M, N, K;
+  int L;                   // bytes of a W row: K/2 or 2K
+  int steps;               // ceil(L / 64)
+  int row_warps, slices, slice_steps;
+  int slots, groups;       // min(M, E); ceil(N / (16 WR))
+};
+
+// x columns of a side a step covers
+__host__ __device__ constexpr int grouped_step_cols(int policy) {
+  return policy == kNF4Stacked ? kStep : kStep / 2;
+}
+
+// The x slice's row stride in elements: rows 16 bytes apart mod 128 for
+// NF4 (its lanes read 32 bytes apart), 64 for dense (16 apart).
+__host__ __device__ inline int grouped_x_ld(int policy, int slice_steps) {
+  const int xc = (policy == kNF4Stacked ? 2 : 1) * grouped_step_cols(policy) * slice_steps;
+  return policy == kNF4Stacked ? xc + 8 : xc + (xc % 64 == 0 ? 32 : 0);
+}
+
+__host__ __device__ inline int grouped_smem_bytes(int policy, int nt, int slice_steps,
+                                                  int row_warps) {
+  const int xs = 8 * nt * grouped_x_ld(policy, slice_steps) * 2;
+  const int red = (kWarps - row_warps) * 32 * nt * 4 * 4;
+  return xs > red ? xs : red;
+}
+
+// The expert of a slot and its rows [lo, hi), expert -1 where fewer
+// experts own rows; `total`, the rows in groups, where the walk ran to the
+// end (`to_end`). Warp-uniform: each warp walks the sizes itself.
+struct SlotRows {
+  int expert, lo, hi, total;
+};
+
+__device__ __forceinline__ SlotRows find_slot(const int* __restrict__ sizes, int E, int M,
+                                              int slot, bool to_end) {
+  const int lane = threadIdx.x & 31;
+  SlotRows r{-1, 0, 0, 0};
+  int off = 0, seen = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    const int s = e < E ? min(max(__ldg(sizes + e), 0), M) : 0;
+    int inc = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    const int lo = min(off + inc - s, M), hi = min(off + inc, M);
+    const unsigned live = __ballot_sync(0xffffffffu, hi > lo);
+    if (r.expert < 0 && slot - seen < __popc(live)) {
+      unsigned b = live;
+      for (int i = seen; i < slot; ++i) b &= b - 1;  // the live experts before the slot's
+      const int src = __ffs(b) - 1;
+      r.expert = base + src;
+      r.lo = __shfl_sync(0xffffffffu, lo, src);
+      r.hi = __shfl_sync(0xffffffffu, hi, src);
+    }
+    seen += __popc(live);
+    off = min(off + __shfl_sync(0xffffffffu, inc, 31), M);
+    if (r.expert >= 0 && !to_end) break;
+  }
+  r.total = off;
+  return r;
+}
+
+template <int kPolicy, int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+grouped_decode_kernel(const GroupedParams p) {
+  constexpr bool kNF4 = kPolicy == kNF4Stacked;
+  // (NF4 at m > 8 holds one step fewer: its second n-tile's registers)
+  constexpr int kDepth = kNF4 && NT == 2 ? kRing - 1 : kRing;
+  constexpr int kCols = grouped_step_cols(kPolicy);
+  constexpr int kSides = kNF4 ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float code[16];
+  __shared__ int last;
+  __shared__ __align__(8) uint64_t x_bar;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int WR = p.row_warps, KP = kWarps / WR;
+  const int rw = warp % WR, kp = warp / WR;
+  const int slot = blockIdx.x / (p.groups * p.slices);
+  const int gid = blockIdx.x / p.slices;  // (slot, row group): slot * groups + group
+  const int group = gid - slot * p.groups, slice = blockIdx.x % p.slices;
+  const int n0 = group * 16 * WR;
+  const bool zeroes = slot == 0 && slice == 0;  // stores the rows past the groups
+  const SlotRows sr = find_slot(p.group_sizes, p.E, p.M, slot, zeroes);
+  if (zeroes && sr.total < p.M) {
+    const int cols = min(16 * WR, p.N - n0);
+    for (int c = tid; c < (p.M - sr.total) * cols; c += kThreads)
+      p.y[(size_t)(sr.total + c / cols) * p.N + n0 + c % cols] = __float2bfloat16(0.0f);
+  }
+  if (sr.expert < 0) {
+    if (p.counts != nullptr && tid == 0 && group == 0 && slice == 0) atomicAdd(p.counts + 2, 1);
+    return;
+  }
+  const int rows = sr.hi - sr.lo;  // x rows of the slot
+  const int sps = p.slice_steps;
+  const int s0 = slice * sps;
+  const int s1 = min(s0 + sps, p.steps);
+  const size_t wrow = (size_t)sr.expert * p.N;  // the expert's first W row
+  const int r0 = n0 + 16 * rw + g, r1 = r0 + 8;
+  const bool v0 = r0 < p.N, v1 = r1 < p.N;
+  // this warp's steps: s0 + kp, s0 + kp + KP, ...
+  const int nst = s1 - s0 > kp ? (s1 - s0 - kp + KP - 1) / KP : 0;
+  const uint8_t* row0 = p.w + (wrow + r0) * p.L;
+  const uint8_t* row1 = p.w + (wrow + r1) * p.L;
+
+  // x: the slot's rows, the slice's columns of each side (NF4: the high
+  // side at 0, the low side at kCols * sps), zeros past the row; one bulk
+  // copy a row and side by warp 0's lanes, completing x_bar
+  const int side_cols = kCols * sps;
+  const int xld = grouped_x_ld(kPolicy, sps);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int x_valid = min(kCols * (s1 - s0), (kNF4 ? p.K / 2 : p.K) - kCols * s0);
+  if (warp == 0) {
+    if (lane == 0) {
+      hopper::mbar_init(&x_bar, 1);
+      hopper::fence_barrier_init();
+      hopper::mbar_expect_tx(&x_bar, (uint32_t)(rows * kSides * x_valid * 2));
+    }
+    __syncwarp();
+    for (int c = lane; c < rows * kSides; c += 32) {
+      const int m = c / kSides, side = c - m * kSides;
+      bulk_load(xs + m * xld + side * side_cols,
+                p.x + (size_t)(sr.lo + m) * p.K + side * (p.K / 2) + kCols * s0, x_valid * 2,
+                &x_bar);
+    }
+  }
+  const int tail = side_cols - x_valid;
+  if (tail)  // the last slice: zeros past the row
+    for (int c = tid; c < rows * kSides * tail; c += kThreads) {
+      const int ms = c / tail, j = x_valid + c - ms * tail;
+      xs[(ms / kSides) * xld + (ms % kSides) * side_cols + j] = __float2bfloat16(0.0f);
+    }
+  if (kNF4 && tid < 16) code[tid] = kNF4Code[tid];
+
+  // Each step's loads, kDepth steps ahead: 16 bytes of each of the lane's
+  // two W rows, and for NF4 the absmax of both rows at element (t >> 1)
+  // K/2 + 64 st + 32 (t & 1) (0 past the row).
+  const int per_row = kNF4 ? p.K >> p.block_shift : 0;
+  const float* am0 = kNF4 ? p.absmax + (wrow + r0) * per_row : nullptr;
+  const float* am1 = kNF4 ? am0 + 8 * per_row : nullptr;
+  uint4 ring[kDepth][2];
+  float aux[kNF4 ? kDepth : 1][2];
+  auto fetch = [&](int d, int i) {
+    const int st = s0 + kp + i * KP;
+    const int kb = kStep * st + 16 * t;
+    const bool in = i < nst && kb < p.L;
+    ring[d][0] = in && v0 ? ld_stream(row0 + kb) : make_uint4(0u, 0u, 0u, 0u);
+    ring[d][1] = in && v1 ? ld_stream(row1 + kb) : make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kNF4) {
+      const int c = kStep * st + 32 * (t & 1);
+      aux[d][0] = aux[d][1] = 0.0f;
+      if (i < nst && c < p.L) {
+        const int blk = ((t >> 1) * p.L + c) >> p.block_shift;
+        if (v0) aux[d][0] = __ldg(am0 + blk);
+        if (v1) aux[d][1] = __ldg(am1 + blk);
+      }
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) fetch(d, d);
+  __syncthreads();  // x_bar's init, the zeros and the code table
+  hopper::mbar_wait(&x_bar, 0);
+
+  const int quad = lane & ~3;
+  const int hi_src = quad | (t >> 1), lo_src = quad | 2 | (t >> 1);
+  float acc[2][NT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][n][e] = 0.0f;
+
+  for (int i0 = 0; i0 < nst; i0 += kDepth) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const int i = i0 + d;
+      if (i >= nst) break;
+      const uint4 w0 = ring[d][0], w1 = ring[d][1];
+      float m0 = 0.0f, m1 = 0.0f;
+      if constexpr (kNF4) {
+        m0 = aux[d][0];
+        m1 = aux[d][1];
+      }
+      fetch(d, i + kDepth);
+      const int ls = kp + i * KP;  // the step within the slice
+      if constexpr (kNF4) {
+        const int xo = kStep * ls + 16 * t;
+        const float ah0 = __shfl_sync(0xffffffffu, m0, hi_src);
+        const float ah1 = __shfl_sync(0xffffffffu, m1, hi_src);
+        const float al0 = __shfl_sync(0xffffffffu, m0, lo_src);
+        const float al1 = __shfl_sync(0xffffffffu, m1, lo_src);
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const __nv_bfloat16* xrow = xs + g * xld + side * side_cols + xo;
+          const float a0s = side ? al0 : ah0, a1s = side ? al1 : ah1;
+          uint4 bq[NT];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const uint32_t q0 = word(w0, s), q1 = word(w1, s);
+            const uint32_t o0 = side ? (q0 << 2) & 0x3C3C3C3Cu : (q0 >> 2) & 0x3C3C3C3Cu;
+            const uint32_t o1 = side ? (q1 << 2) & 0x3C3C3C3Cu : (q1 >> 2) & 0x3C3C3C3Cu;
+            const uint32_t a0 = nf4_pair(code, o0, 0, a0s);
+            const uint32_t a1 = nf4_pair(code, o1, 0, a1s);
+            const uint32_t a2 = nf4_pair(code, o0, 1, a0s);
+            const uint32_t a3 = nf4_pair(code, o1, 1, a1s);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              if (s % 2 == 0) bq[n] = xfrag(xrow + 8 * n * xld, s);
+              mma_bf16(acc[side][n], a0, a1, a2, a3, s % 2 ? bq[n].z : bq[n].x,
+                       s % 2 ? bq[n].w : bq[n].y);
+            }
+          }
+        }
+      } else {
+        // bytes 16 t .. 16 t + 15 of each row: weights 8 t .. 8 t + 7 of the
+        // step, k columns {2t, 2t+1, 2t+8, 2t+9} of two mmas
+        const __nv_bfloat16* xrow = xs + g * xld + (kStep / 2) * ls + 8 * t;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint4 b = *reinterpret_cast<const uint4*>(xrow + 8 * n * xld);
+          mma_bf16(acc[0][n], w0.x, w1.x, w0.y, w1.y, b.x, b.y);
+          mma_bf16(acc[1][n], w0.z, w1.z, w0.w, w1.w, b.z, b.w);
+        }
+      }
+    }
+  }
+
+  // The warp's partial: its two chains, then the slice's warps in order.
+  float c[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = __fadd_rn(acc[0][n][e], acc[1][n][e]);
+  __syncthreads();  // the x slice is no longer read
+  float4* red = reinterpret_cast<float4*>(smem);
+  if (kp > 0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      red[(((kp - 1) * WR + rw) * 32 + lane) * NT + n] = make_float4(c[n][0], c[n][1], c[n][2], c[n][3]);
+  }
+  __syncthreads();
+  if (kp == 0) {
+    for (int q = 1; q < KP; ++q) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float4 v = red[(((q - 1) * WR + rw) * 32 + lane) * NT + n];
+        c[n][0] = __fadd_rn(c[n][0], v.x);
+        c[n][1] = __fadd_rn(c[n][1], v.y);
+        c[n][2] = __fadd_rn(c[n][2], v.z);
+        c[n][3] = __fadd_rn(c[n][3], v.w);
+      }
+    }
+  }
+
+  if (p.counts != nullptr) {
+    // 16-byte chunks this lane read: its valid rows times its steps' chunks
+    int chunks = 0;
+    for (int i = 0; i < nst; ++i)
+      if (kStep * (s0 + kp + i * KP) + 16 * t < p.L) chunks += (int)v0 + (int)v1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) chunks += __shfl_xor_sync(0xffffffffu, chunks, o);
+    if (lane == 0 && chunks) atomicAdd(p.counts + 1, chunks);
+    if (tid == 0) atomicAdd(p.counts, 1);
+  }
+
+  // Adds the bias, rounds and stores this lane's outputs: (the slot's x
+  // row 8n + 2t + {0, 1}, W rows r0 and r1).
+  const float* bias_f = static_cast<const float*>(p.bias);
+  const __nv_bfloat16* bias_h = static_cast<const __nv_bfloat16*>(p.bias);
+  auto store = [&](float (&v)[NT][4]) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int mm = 8 * n + 2 * t + (e & 1);
+        const int r = e < 2 ? r0 : r1;
+        if (mm < rows && r < p.N) {
+          __nv_bfloat16 out;
+          if constexpr (kNF4) {
+            float o = v[n][e];
+            if (p.bias != nullptr)
+              o = __fadd_rn(o, p.bias_f32 ? bias_f[wrow + r] : __bfloat162float(bias_h[wrow + r]));
+            out = __float2bfloat16_rn(o);
+          } else {
+            out = __float2bfloat16_rn(v[n][e]);
+            if (p.bias != nullptr)
+              out = __float2bfloat16_rn(
+                  __fadd_rn(__bfloat162float(out), __bfloat162float(bias_h[wrow + r])));
+          }
+          p.y[(size_t)(sr.lo + mm) * p.N + r] = out;
+        }
+      }
+    }
+  };
+  if (p.slices == 1) {
+    if (kp == 0) store(c);
+    return;
+  }
+  if (kp == 0) {
+    float4* mine = reinterpret_cast<float4*>(p.partials) +
+                   (((size_t)blockIdx.x * WR + rw) * 32 + lane) * NT;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) __stcg(mine + n, make_float4(c[n][0], c[n][1], c[n][2], c[n][3]));
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(p.arrivals + gid, 1) == p.slices - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (kp == 0) {
+    // the slices' partials in slice order, one rounding
+    const float4* base = reinterpret_cast<const float4*>(p.partials) +
+                         (((size_t)gid * p.slices * WR + rw) * 32 + lane) * NT;
+    const size_t per_unit = (size_t)WR * 32 * NT;
+    float sum[NT][4];
+    for (int q0 = 0; q0 < p.slices; q0 += 8) {
+      float4 v[8][NT];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (q0 + u < p.slices) v[u][n] = __ldcg(base + (q0 + u) * per_unit + n);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (q0 + u >= p.slices) break;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (q0 + u == 0) {
+            sum[n][0] = v[u][n].x; sum[n][1] = v[u][n].y;
+            sum[n][2] = v[u][n].z; sum[n][3] = v[u][n].w;
+          } else {
+            sum[n][0] = __fadd_rn(sum[n][0], v[u][n].x);
+            sum[n][1] = __fadd_rn(sum[n][1], v[u][n].y);
+            sum[n][2] = __fadd_rn(sum[n][2], v[u][n].z);
+            sum[n][3] = __fadd_rn(sum[n][3], v[u][n].w);
+          }
+        }
+      }
+    }
+    store(sum);
+  }
+  if (tid == 0) p.arrivals[gid] = 0;
+}
+
+template <int kPolicy, int NT>
+int launch_grouped_one(const GroupedParams& p, int units, cudaStream_t stream) {
+  const int smem = grouped_smem_bytes(kPolicy, NT, p.slice_steps, p.row_warps);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(grouped_decode_kernel<kPolicy, NT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  grouped_decode_kernel<kPolicy, NT><<<units, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the schedule the wrapper passes (ops/qlora_matmul.py:
+// grouped_decode_schedule) and launches one block a unit.
+template <int kPolicy>
+int launch_grouped(GroupedParams& p, cudaStream_t stream) {
+  p.steps = (p.L + kStep - 1) / kStep;
+  const int WR = p.row_warps;
+  if (p.M < 1 || p.M > 16 || p.N < 1 || p.K < 1 || p.E < 1 ||
+      (WR != 2 && WR != 4 && WR != 8) || p.slice_steps < 1 || p.slices < 1 ||
+      (p.slices - 1) * p.slice_steps >= p.steps || p.slices * p.slice_steps < p.steps ||
+      (p.slices > 1 && (p.partials == nullptr || p.arrivals == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.slots = p.M < p.E ? p.M : p.E;
+  p.groups = (p.N + 16 * WR - 1) / (16 * WR);
+  const long long units = (long long)p.slots * p.groups * p.slices;
+  if (units > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  return p.M <= 8 ? launch_grouped_one<kPolicy, 1>(p, (int)units, stream)
+                  : launch_grouped_one<kPolicy, 2>(p, (int)units, stream);
+}
+
 }  // namespace
 
 // y = x @ dequant(W)^T at M <= 16 for an NF4 W on `stream`. x [M, K] bf16
@@ -674,4 +1120,74 @@ extern "C" int unsloth_decode_matmul_fp8(const void* x, const void* w, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return p.w_vec && p.x_vec && p.chunk_scale ? launch<kE4m3>(p, s) : launch<kE4m3Any>(p, s);
+}
+
+// K14 at m <= 16 routed rows (nf4_gmm.cu's entry point sends them here):
+// y = x @ dequant(W_g)^T + bias[g] per group on `stream`. x [m, K] bf16
+// rows sorted by expert, packed [E, N, K/2] u8, absmax fp32 [E, N K /
+// block] (block 32 or 64, K/2 a multiple of it and of 32), bias [E, N]
+// fp32 (`bias_f32`) or bf16, or null, group_sizes [E] int32 on the device,
+// y [m, N] bf16, every row written (zeros past the groups); x and packed
+// 16-byte aligned. The schedule and scratch are grouped_decode_schedule's
+// and the decode kernel's; `counts` (null, or an int32 [3]): units
+// stored, 16-byte chunks of W read, slots that found no expert.
+int unsloth_decode_gmm_nf4(const void* x, const void* packed, const void* absmax, int block,
+                           const void* bias, bool bias_f32, const void* group_sizes, void* y,
+                           void* partials, void* arrivals, int M, int E, int N, int K,
+                           int row_warps, int slices, int slice_steps, void* counts,
+                           cudaStream_t stream) {
+  GroupedParams p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const uint8_t*>(packed);
+  p.absmax = static_cast<const float*>(absmax);
+  p.block_shift = block == 32 ? 5 : 6;
+  p.bias = bias;
+  p.bias_f32 = bias_f32;
+  p.group_sizes = static_cast<const int*>(group_sizes);
+  p.E = E;
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.partials = static_cast<float*>(partials);
+  p.arrivals = static_cast<int*>(arrivals);
+  p.counts = static_cast<int*>(counts);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.L = K / 2;
+  p.row_warps = row_warps;
+  p.slices = slices;
+  p.slice_steps = slice_steps;
+  if ((block != 32 && block != 64) || (K / 2) % 32 || (K / 2) % block || absmax == nullptr ||
+      !aligned16(x) || !aligned16(packed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_grouped<kNF4Stacked>(p, stream);
+}
+
+// K19's forward at m <= 16 routed rows (gmm.cu's entry point sends them
+// here): y = x @ W_g^T (+ bias[g]) per group on `stream`. x [m, K] bf16
+// rows sorted by expert, w [E, N, K] bf16, bias [E, N] bf16 or null,
+// group_sizes, y, schedule, scratch and counts as the NF4 form's; K a
+// multiple of 8, x and w 16-byte aligned.
+int unsloth_decode_gmm_bf16(const void* x, const void* w, const void* bias,
+                            const void* group_sizes, void* y, void* partials, void* arrivals,
+                            int M, int E, int N, int K, int row_warps, int slices,
+                            int slice_steps, void* counts, cudaStream_t stream) {
+  GroupedParams p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const uint8_t*>(w);
+  p.bias = bias;
+  p.group_sizes = static_cast<const int*>(group_sizes);
+  p.E = E;
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.partials = static_cast<float*>(partials);
+  p.arrivals = static_cast<int*>(arrivals);
+  p.counts = static_cast<int*>(counts);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.L = 2 * K;
+  p.row_warps = row_warps;
+  p.slices = slices;
+  p.slice_steps = slice_steps;
+  if (K % 8 || !aligned16(x) || !aligned16(w)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_grouped<kDense>(p, stream);
 }

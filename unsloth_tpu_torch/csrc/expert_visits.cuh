@@ -1,6 +1,6 @@
-// The tile-visit schedule of the grouped expert kernels' decode-row tiles
-// (nf4_gmm.cu, K14; gmm.cu, K19): megablox's group metadata, made inside
-// the block.
+// The tile-visit schedule of the grouped expert kernel's small-row tiles
+// (gmm.cu, K19's forward at 17-64 rows and its dx at 64 or fewer):
+// megablox's group metadata, made inside the block.
 //
 // Rows are sorted by expert; group g owns rows [off_g, off_g + size_g),
 // off the running sum of the int32 group sizes, which stay on the device.

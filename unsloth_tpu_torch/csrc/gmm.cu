@@ -62,10 +62,12 @@
 // and stores it by TMA where the visit owns all 64 rows, else by masked
 // 16-byte stores.
 //
-// Decode rows (m <= 64): the wmma kernel below (16 x 64 tiles of four
-// warps, cp.async 4 stages deep, one block per (column tile, visit); the
-// visit found by expert_visits.cuh), which reads the visited experts'
-// weights at about half the byte bound.
+// Small row counts (m <= 64): the wmma kernel below (16 x 64 tiles of
+// four warps, cp.async 4 stages deep, one block per (column tile, visit);
+// the visit found by expert_visits.cuh), for dx and for the forward at
+// 17-64 rows. The forward at decode rows (m <= 16) runs decode_matmul.cu's
+// grouped_decode_kernel<Dense, NT> instead (split K, each expert that owns
+// rows read once, one launch a call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -601,20 +603,34 @@ int launch_wgmma(const void* a, const void* w, const void* bias, const void* gro
 }  // namespace
 }  // namespace gmm
 
+int unsloth_decode_gmm_bf16(const void* x, const void* w, const void* bias,
+                            const void* group_sizes, void* y, void* partials, void* arrivals,
+                            int M, int E, int N, int K, int row_warps, int slices,
+                            int slice_steps, void* counts, cudaStream_t stream);
+
 // out = lhs @ W_g^T (+ bias[g]) per group on `stream`. Shapes: lhs [m, K]
 // bf16 rows sorted by expert, w [E, N, K] bf16, bias [E, N] bf16 or null,
 // group_sizes [E] int32 on the device summing to at most m, out [m, N]
-// bf16: for m > 64 every row is written (rows past the groups are zeros),
-// for m <= 64 rows past the groups are left as they are. N and K multiples
-// of 8, pointers 16-byte aligned, E <= 1,024 (the wrapper checks).
-// `unit_counts`, when not null, is an int32 [4] to which the m > 64 kernel
-// adds its work units of an expert, its units of the rows past the groups,
-// and the 64-row halves it stored by TMA and by masked stores. Returns
+// bf16: for m > 64 and m <= 16 every row is written (rows past the groups
+// are zeros), for 17-64 rows past the groups are left as they are. N and K
+// multiples of 8, pointers 16-byte aligned, E <= 1,024 (the wrapper
+// checks). At m <= 16 decode_matmul.cu's grouped decode kernel under the
+// schedule (row_warps, slices, slice_steps) and scratch (partials,
+// arrivals) the wrapper passes (ops/qlora_matmul.py:
+// grouped_decode_schedule), its `unit_counts` (null, or an int32 [3]) the
+// units, 16-byte chunks of W and empty slots; for m > 64, `unit_counts`,
+// when not null, is an int32 [4] to which the kernel adds its work units
+// of an expert, its units of the rows past the groups, and the 64-row
+// halves it stored by TMA and by masked stores. Returns
 // cudaGetLastError() after the launch; allocates nothing.
 extern "C" int unsloth_gmm_bf16(const void* lhs, const void* w, const void* bias,
                                 const void* group_sizes, void* out, int m, int E, int N, int K,
-                                void* unit_counts, void* stream) {
+                                int row_warps, int slices, int slice_steps, void* partials,
+                                void* arrivals, void* unit_counts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 16)
+    return unsloth_decode_gmm_bf16(lhs, w, bias, group_sizes, out, partials, arrivals, m, E, N, K,
+                                   row_warps, slices, slice_steps, unit_counts, s);
   if (m <= kSmallM)
     return launch<16, 64, 64, 16, 16, 4, false>(lhs, w, bias, group_sizes, out, m, E, K, N, s);
   return gmm::launch_wgmma<false>(lhs, w, bias, group_sizes, out, unit_counts, m, E, K, N, s);

@@ -178,11 +178,14 @@ def library() -> ctypes.CDLL:
         lib.unsloth_ce_fwd.restype = i
         lib.unsloth_ce_bwd.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
         lib.unsloth_ce_bwd.restype = i
-        # x, packed, absmax, bias, group sizes, out, m, E, N, K, block, the
-        # Hopper kernel's tile counters or null, stream; the dx: g, packed,
-        # the absmax transposed, group sizes, dx, then as the forward
-        lib.unsloth_nf4_gmm_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                             p, p]
+        # x, packed, absmax, bias (or null), the bias is fp32 (else bf16),
+        # group sizes, out, m, E, N, K, block, the decode kernel's row
+        # warps, slices, steps a slice, partials and arrivals (m <= 16),
+        # the kernel's counters or null, stream; the dx: g, packed, the
+        # absmax transposed, group sizes, dx, m, E, N, K, block, counters,
+        # stream
+        lib.unsloth_nf4_gmm_bf16.argtypes = [p, p, p, p, i, p, p, i, i, i, i,
+                                             i, i, i, i, p, p, p, p]
         lib.unsloth_nf4_gmm_bf16.restype = i
         lib.unsloth_nf4_gmm_dx_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                 p, p]
@@ -200,8 +203,11 @@ def library() -> ctypes.CDLL:
                                                 p, p, i, i, i, i, i, i, f, p]
         lib.unsloth_flash_sinks_dkv.restype = i
         # lhs (or g), W, bias (or null; the forward only), group sizes,
-        # out, m, E, N, K, the work-unit counters (or null), stream
-        lib.unsloth_gmm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
+        # out, m, E, N, K, (the forward only) the decode kernel's row
+        # warps, slices, steps a slice, partials and arrivals (m <= 16),
+        # the work-unit counters (or null), stream
+        lib.unsloth_gmm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                         p, p, p, p]
         lib.unsloth_gmm_bf16.restype = i
         lib.unsloth_gmm_dx_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.unsloth_gmm_dx_bf16.restype = i

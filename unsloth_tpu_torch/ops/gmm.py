@@ -13,7 +13,12 @@ its dx (megablox's VJP with ``transpose_rhs`` flipped), and
 ``KERNEL_TILES["small_m"]`` rows the forward and dx are one persistent
 Hopper kernel (wgmma fed by a TMA ring) over work units of (visit,
 192-column tile), a visit being a 128-row tile's rows of one expert; at
-fewer they are a small-tile wmma kernel. On a CPU tensor they run the
+fewer they are a small-tile wmma kernel, except the forward at 16 rows or
+fewer (decode), which runs ``csrc/decode_matmul.cu``'s split-K kernel
+under a grouped schedule (:func:`gmm_decode`; one launch a call, each
+expert that owns rows read once; :func:`gmm_decode_tiles_ref` and
+``qlora_matmul.grouped_decode_schedule`` are its walk's twins). On a CPU
+tensor they run the
 plain versions :func:`gmm_ref` and :func:`tgmm_ref`. The device of the tensor is the only
 thing that chooses; there is no fallback from a kernel to its plain
 version.
@@ -36,8 +41,9 @@ which they add what they did: the forward and dx their work units of an
 expert, their units of the rows past the groups (zeros), and the 64-row
 halves they stored by TMA and by masked stores; :func:`tgmm` its units of
 an expert with rows, its units of an empty expert, the 64-row chunks it
-reduced and those of them it zeroed past the group's end. CPU calls count
-nothing.
+reduced and those of them it zeroed past the group's end; the decode
+forward (an int32 [3]) its units, the 16-byte chunks of W it read and its
+slots that found no expert. CPU calls count nothing.
 """
 
 from __future__ import annotations
@@ -47,7 +53,9 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .nf4_gmm import _ALIGN, _aligned
+from .nf4_gmm import _ALIGN, _aligned, grouped_decode_walk
+from .qlora_matmul import (DECODE_ROWS, DECODE_STEP, H100_SMS,
+                           _decode_scratch, grouped_decode_schedule)
 
 #: the kernels' tiles: the forward and dx at more than ``small_m`` rows
 #: take output tiles of ``rows`` x ``cols``; tgmm tiles [N, K] by
@@ -114,22 +122,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _counts(unit_counts: Optional[torch.Tensor], t: torch.Tensor):
+def _counts(unit_counts: Optional[torch.Tensor], t: torch.Tensor,
+            size: int = 4):
     """The counters' pointer, or None."""
     if unit_counts is None:
         return None
     if (unit_counts.dtype != torch.int32 or unit_counts.device != t.device
-            or tuple(unit_counts.shape) != (4,)):
-        raise ValueError(f"gmm: unit_counts must be an int32 [4] on "
+            or tuple(unit_counts.shape) != (size,)):
+        raise ValueError(f"gmm: unit_counts must be an int32 [{size}] on "
                          f"{t.device}; got {unit_counts.dtype} "
                          f"{tuple(unit_counts.shape)} on {unit_counts.device}")
     return unit_counts.data_ptr()
 
 
-def _out(m: int, n: int, like: torch.Tensor) -> torch.Tensor:
-    """The forward's or dx's output: the training-row kernel writes every
-    row (zeros past the groups), the decode kernel only the groups'."""
-    if m > KERNEL_TILES["small_m"]:
+def _out(m: int, n: int, like: torch.Tensor, decode: bool = False
+         ) -> torch.Tensor:
+    """The forward's or dx's output: the training-row kernel and the
+    grouped decode kernel (``decode``) write every row (zeros past the
+    groups), the small-tile kernel only the groups'."""
+    if decode or m > KERNEL_TILES["small_m"]:
         return torch.empty((m, n), dtype=like.dtype, device=like.device)
     return torch.zeros((m, n), dtype=like.dtype, device=like.device)
 
@@ -138,7 +149,9 @@ def gmm_fwd(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
             bias: Optional[torch.Tensor] = None, *,
             unit_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out [m, N] = lhs [m, K] @ W_g^T (+ bias[g]) per group, W [E, N, K];
-    the plain version on a CPU tensor, K19 on a CUDA one."""
+    the plain version on a CPU tensor, K19 on a CUDA one. ``unit_counts``
+    (CUDA only): an int32 [4] above 16 rows, an int32 [3] at 16 or fewer
+    (``grouped_decode_schedule(...).grouped_counts``)."""
     if lhs.device.type == "cpu":
         return gmm_ref(lhs, w, group_sizes, bias)
     _check_cuda("gmm", lhs, w, group_sizes, w.shape[2])
@@ -148,19 +161,85 @@ def gmm_fwd(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                              or bias.device != lhs.device):
         raise ValueError(f"gmm: bias {tuple(bias.shape)} on {bias.device} "
                          f"for W {tuple(w.shape)} on {lhs.device}")
-    out = _out(m, n, lhs)
+    decode = m <= DECODE_ROWS
+    out = _out(m, n, lhs, decode)
     if m == 0 or e == 0:
         return out.zero_()
     x = _aligned(lhs)
     b = None if bias is None else _aligned(bias.to(lhs.dtype))
     gs = group_sizes.to(torch.int32).contiguous()
+    plan = (0, 0, 0)
+    partials = arrivals = None
+    if decode:
+        # the schedule from the shapes, the sizes left on the device
+        schedule = grouped_decode_schedule(m, e, n, k, "bf16")
+        plan = schedule[:3]
+        partials, arrivals = _decode_scratch(schedule, lhs.device)
     rc = kernels.library().unsloth_gmm_bf16(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        gs.data_ptr(), out.data_ptr(), m, e, n, k, _counts(unit_counts, lhs),
-        _stream(lhs))
+        gs.data_ptr(), out.data_ptr(), m, e, n, k, *plan, partials, arrivals,
+        _counts(unit_counts, lhs, 3 if decode else 4), _stream(lhs))
     kernels.check(rc, "gmm")
     gmm.launches += 1
+    if decode:
+        gmm_decode.launches += 1
     return out
+
+
+def gmm_decode(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, *,
+               unit_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward at 16 routed rows or fewer, no autograd: what
+    :func:`gmm` runs there (the grouped decode kernel on a CUDA tensor,
+    the plain version on a CPU one); more rows raise. ``unit_counts`` as
+    :func:`gmm_fwd`'s."""
+    if lhs.shape[0] > DECODE_ROWS:
+        raise ValueError(f"gmm_decode: {lhs.shape[0]} rows, at most "
+                         f"{DECODE_ROWS}")
+    return gmm_fwd(lhs, w, group_sizes, bias, unit_counts=unit_counts)
+
+
+#: launches of the grouped decode kernel (K19's forward at 16 rows or
+#: fewer), also counted in ``gmm.launches``
+gmm_decode.launches = 0
+
+
+def gmm_decode_tiles_ref(x: torch.Tensor, w: torch.Tensor, group_sizes,
+                         bias: Optional[torch.Tensor] = None, *,
+                         next_expert: bool = False,
+                         drop_slice: Optional[int] = None,
+                         bias_first: bool = False, sms: int = H100_SMS):
+    """y = x @ W_g^T (+ bias[g]) at 16 rows or fewer, rebuilt from the
+    grouped decode kernel's walk in plain PyTorch: (y in x.dtype, visits
+    [slots, row groups, slices]).
+
+    As the kernel (``grouped_decode_schedule(m, E, N, K, "bf16")``,
+    :func:`~unsloth_tpu_torch.ops.nf4_gmm.grouped_decode_walk`): a step
+    reads 64 bytes (32 weights) of each W row against x columns 32 st..;
+    the sums are fp32 (in another order than the tensor cores'), rounded
+    to x.dtype, then the bias (in x.dtype) added and the sum rounded
+    again, as the JAX package adds its gathered bias rows to gmm's
+    output. Faults as the walk's, and ``bias_first``: the bias added to
+    the fp32 sum before the one rounding (K14's epilogue, not K19's)."""
+    e, n, k = w.shape
+    m = x.shape[0]
+    plan = grouped_decode_schedule(m, e, n, k, "bf16", sms)
+    step = DECODE_STEP // 2
+
+    def cols_of(st):
+        return torch.arange(step * st, min(step * (st + 1), k))
+
+    def finish(total, g, rows):
+        if bias is None:
+            return total.to(x.dtype)
+        if bias_first:
+            return (total + bias[g, rows].float()).to(x.dtype)
+        return total.to(x.dtype) + bias[g, rows].to(x.dtype)
+
+    return grouped_decode_walk(x, group_sizes, plan, n,
+                               lambda g: w[g].float(), cols_of, finish,
+                               next_expert=next_expert,
+                               drop_slice=drop_slice)
 
 
 def gmm_dx(g: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,

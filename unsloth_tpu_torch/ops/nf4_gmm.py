@@ -9,8 +9,12 @@ per-expert bias [E, N] added in its epilogue: above 16 rows
 ``csrc/nf4_wgmma.cu``'s persistent Hopper kernel (K1's, the packed bytes
 decoded straight into the tensor cores' A operand, under a grouped
 schedule of row tiles laid from each group's first row), at 16 rows or
-fewer ``csrc/nf4_gmm.cu``'s decode tiles. :func:`nf4_gmm_tiles_ref` and
-:func:`nf4_gmm_tile_schedule` are the Hopper kernel's walk's twins. The
+fewer ``csrc/decode_matmul.cu``'s split-K decode kernel under a grouped
+schedule (one launch a call, each expert that owns rows read once:
+:func:`nf4_gmm_decode`). :func:`nf4_gmm_tiles_ref` and
+:func:`nf4_gmm_tile_schedule` are the Hopper kernel's walk's twins,
+:func:`nf4_gmm_decode_tiles_ref` and ``qlora_matmul.grouped_decode_schedule``
+the decode kernel's. The
 backward, dx = g @ W_g per group (TPU ``_bwd_kernel``, K15), is
 ``csrc/nf4_wgmma.cu``'s grouped Hopper dx kernel at every row count (K2's
 kernel, dx^T = W_g^T g^T with the bytes decoded into the A operand, under
@@ -31,8 +35,10 @@ import torch
 
 from .. import kernels
 from .nf4 import NF4_CODE, NF4Stacked, dequantize_nf4_stacked
-from .qlora_matmul import (DECODE_ROWS, DX_STAGE_ROWS, DX_TILE_BYTES,
-                           H100_SMS, STAGE_BYTES, TILE_W, tile_rows_x)
+from .qlora_matmul import (DECODE_ROWS, DECODE_STEP, DX_STAGE_ROWS,
+                           DX_TILE_BYTES, H100_SMS, STAGE_BYTES, TILE_W,
+                           DecodeSchedule, _decode_scratch,
+                           grouped_decode_schedule, tile_rows_x)
 
 _ALIGN = 16  # bytes: the kernels read x and the packed bytes 16 at a time
 #: the most experts the Hopper kernel's shared-memory group tables hold
@@ -321,6 +327,90 @@ def nf4_gmm_dx_tiles_ref(g: torch.Tensor, q: NF4Stacked, group_sizes, *,
     return dx, stores
 
 
+def grouped_decode_walk(x: torch.Tensor, group_sizes, plan: DecodeSchedule,
+                        n: int, weights, cols_of, finish, *,
+                        next_expert: bool = False,
+                        drop_slice: Optional[int] = None):
+    """y [m, n] rebuilt from the grouped decode kernel's walk: (y in
+    x.dtype, visits [slots, row groups, slices], the times the walk runs
+    each unit). Slot s takes the s-th expert that owns rows (the sizes
+    clamped as :func:`_group_bounds`; a slot past them does nothing); its
+    unit (group, slice) multiplies the expert's x rows by
+    ``weights(expert)`` ([n, K] fp32, the kernel's weights) at the columns
+    ``cols_of(step)`` of its steps, in fp32; a row group's slices are
+    summed in slice order and ``finish(sum, expert, rows)`` rounds the
+    result; the rows past the groups are zeros. Faults: ``next_expert``
+    reads each slot's weights from the next expert that owns rows;
+    ``drop_slice`` leaves that slice out of every sum."""
+    m = x.shape[0]
+    x32 = x.float()
+    live = [(g, lo, hi) for g, (lo, hi) in
+            enumerate(_group_bounds(group_sizes, m)) if hi > lo]
+    y = torch.zeros((m, n), dtype=x.dtype)
+    visits = torch.zeros((plan.slots, plan.groups, plan.slices),
+                         dtype=torch.int64)
+    for slot, (g, lo, hi) in enumerate(live[:plan.slots]):
+        w = weights(live[(slot + 1) % len(live)][0] if next_expert else g)
+        for gi in range(plan.groups):
+            rows = slice(gi * plan.rows, min((gi + 1) * plan.rows, n))
+            total = torch.zeros((hi - lo, rows.stop - rows.start))
+            for si in range(plan.slices):
+                visits[slot, gi, si] += 1
+                st0 = si * plan.slice_steps
+                st1 = min(st0 + plan.slice_steps, plan.steps)
+                cols = torch.cat([cols_of(st) for st in range(st0, st1)])
+                if si != drop_slice:
+                    total = total + x32[lo:hi, cols] @ w[rows][:, cols].t()
+            y[lo:hi, rows] = finish(total, g, rows)
+    return y, visits
+
+
+def nf4_gmm_decode_tiles_ref(x: torch.Tensor, q: NF4Stacked, group_sizes,
+                             bias: Optional[torch.Tensor] = None, *,
+                             next_expert: bool = False,
+                             drop_slice: Optional[int] = None,
+                             sms: int = H100_SMS):
+    """y = x @ dequant(W_g)^T + bias[g] at 16 rows or fewer, rebuilt from
+    the grouped decode kernel's walk in plain PyTorch: (y in x.dtype,
+    visits [slots, row groups, slices]).
+
+    As the kernel (``grouped_decode_schedule(m, E, N, K, "nf4")``,
+    :func:`grouped_decode_walk`): a step reads 64 bytes of a W row, their
+    high nibbles against x columns 64 st.., their low nibbles against
+    K/2 + 64 st..; each 16-byte chunk of a side takes the absmax block of
+    its first element (K/2 % 32 == 0: one block a chunk at B = 32 and
+    64); each weight is code * absmax in fp32, rounded to x.dtype; the
+    sums are fp32 (in another order than the tensor cores'); the fp32
+    bias is added to the sum, which is rounded once."""
+    e, n, k = q.shape
+    m = x.shape[0]
+    half, bs = k // 2, q.block_size
+    plan = grouped_decode_schedule(m, e, n, k, "nf4", sms)
+    code = NF4_CODE.float()
+    absmax = q.absmax.float().reshape(e, n, k // bs)
+    first = torch.arange(half) // 16 * 16     # each chunk's first byte
+    blk_hi, blk_lo = first // bs, (half + first) // bs
+
+    def weights(g):
+        pk = q.packed[g].to(torch.int64)
+        w_hi = (code[pk >> 4] * absmax[g][:, blk_hi]).to(x.dtype)
+        w_lo = (code[pk & 15] * absmax[g][:, blk_lo]).to(x.dtype)
+        return torch.cat([w_hi, w_lo], 1).float()
+
+    def cols_of(st):
+        c = torch.arange(DECODE_STEP * st, min(DECODE_STEP * (st + 1), half))
+        return torch.cat([c, half + c])
+
+    def finish(total, g, rows):
+        if bias is not None:
+            total = total + bias[g, rows].float()
+        return total.to(x.dtype)
+
+    return grouped_decode_walk(x, group_sizes, plan, n, weights, cols_of,
+                               finish, next_expert=next_expert,
+                               drop_slice=drop_slice)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % _ALIGN else t
@@ -332,8 +422,10 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
     """out [m, N] = lhs [m, K] @ dequant(W_g)^T (+ bias[g]) per group; the
     plain version on a CPU tensor, K14 on a CUDA one. ``tile_counts``
     (CUDA only: an int32 [3] on lhs's device, or None) receives what the
-    Hopper kernel adds to it (:func:`nf4_gmm_tile_counts`; nothing at 16
-    rows or fewer)."""
+    kernel adds to it: above 16 rows the Hopper kernel's tiles
+    (:func:`nf4_gmm_tile_counts`), at 16 or fewer the decode kernel's
+    units, 16-byte chunks and empty slots
+    (``grouped_decode_schedule(...).grouped_counts``)."""
     if lhs.device.type == "cpu":
         return nf4_gmm_ref(lhs, q, group_sizes, bias)
     _check_cuda("nf4_gmm", lhs, q, group_sizes, q.shape[2])
@@ -342,10 +434,8 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
     if e > MAX_EXPERTS:
         raise NotImplementedError(f"nf4_gmm CUDA kernel takes at most "
                                   f"{MAX_EXPERTS} experts, got {e}")
-    # the Hopper kernel writes every row (zeros past the groups), the
-    # decode tiles only their groups' rows
-    out = (torch.empty if m > DECODE_ROWS else torch.zeros)(
-        (m, n), dtype=lhs.dtype, device=lhs.device)
+    # both kernels write every row (zeros past the groups)
+    out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
         return out
     x = _aligned(lhs)
@@ -354,17 +444,53 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
         raise ValueError(f"nf4_gmm: packed weight is not {_ALIGN}-byte "
                          "aligned")
     absmax = q.absmax.to(torch.float32).contiguous()
-    b = None if bias is None else bias.to(torch.float32).contiguous()
     gs = group_sizes.to(torch.int32).contiguous()
+    plan = (0, 0, 0)
+    partials = arrivals = None
+    if m <= DECODE_ROWS:
+        # the bias as stored (bf16 or fp32: no cast pass); the schedule
+        # from the shapes, the sizes left on the device
+        b = None if bias is None else (
+            bias if bias.dtype in (torch.bfloat16, torch.float32)
+            else bias.to(torch.float32)).contiguous()
+        schedule = grouped_decode_schedule(m, e, n, k, "nf4")
+        plan = schedule[:3]
+        partials, arrivals = _decode_scratch(schedule, lhs.device)
+    else:
+        b = None if bias is None else bias.to(torch.float32).contiguous()
     rc = kernels.library().unsloth_nf4_gmm_bf16(
         x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
-        None if b is None else b.data_ptr(), gs.data_ptr(), out.data_ptr(),
-        m, e, n, k, q.block_size,
+        None if b is None else b.data_ptr(),
+        int(b is None or b.dtype == torch.float32), gs.data_ptr(),
+        out.data_ptr(),
+        m, e, n, k, q.block_size, *plan, partials, arrivals,
         None if tile_counts is None else tile_counts.data_ptr(),
         torch.cuda.current_stream(lhs.device).cuda_stream)
     kernels.check(rc, "nf4_gmm")
     nf4_gmm.launches += 1
+    if m <= DECODE_ROWS:
+        nf4_gmm_decode.launches += 1
     return out
+
+
+def nf4_gmm_decode(lhs: torch.Tensor, q: NF4Stacked,
+                   group_sizes: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None,
+                   tile_counts: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The forward at 16 routed rows or fewer, no autograd: what
+    :func:`nf4_gmm` runs there (the grouped decode kernel on a CUDA
+    tensor, the plain version on a CPU one); more rows raise.
+    ``tile_counts`` as :func:`nf4_gmm_fwd`'s."""
+    if lhs.shape[0] > DECODE_ROWS:
+        raise ValueError(f"nf4_gmm_decode: {lhs.shape[0]} rows, at most "
+                         f"{DECODE_ROWS}")
+    return nf4_gmm_fwd(lhs, q, group_sizes, bias, tile_counts)
+
+
+#: launches of the grouped decode kernel (K14 at 16 rows or fewer), also
+#: counted in ``nf4_gmm.launches``
+nf4_gmm_decode.launches = 0
 
 
 def nf4_gmm_dx(g: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,

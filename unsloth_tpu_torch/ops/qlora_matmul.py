@@ -176,8 +176,10 @@ DECODE_MAX_SMEM = 100 * 1024
 
 class DecodeSchedule(NamedTuple):
     """The decode kernel's schedule at y [m, n] over W rows of ``row_bytes``
-    (K/2 for NF4, K for e4m3): units (row group, K slice), one 256-thread
-    block each; a group is 16 * ``row_warps`` W rows, a slice
+    (K/2 for NF4, K for e4m3, 2K for bf16): units (row group, K slice),
+    one 256-thread block each, for each of ``slots`` experts (1 for the
+    plain form; min(m, E) for the grouped one, slot s taking the s-th
+    expert that owns rows); a group is 16 * ``row_warps`` W rows, a slice
     ``slice_steps`` 64-byte steps of each row (the last slice fewer)."""
     row_warps: int
     slices: int
@@ -186,6 +188,7 @@ class DecodeSchedule(NamedTuple):
     groups: int
     row_bytes: int
     n_tiles: int          # n-tiles of 8 x rows: 1 at m <= 8, else 2
+    slots: int = 1
 
     @property
     def rows(self) -> int:
@@ -193,8 +196,8 @@ class DecodeSchedule(NamedTuple):
 
     @property
     def units(self) -> List[Tuple[int, int, int]]:
-        """(first W row, first step, end step) of each unit, in block
-        order: unit u is group u // slices, slice u % slices."""
+        """(first W row, first step, end step) of each unit of one slot,
+        in block order: unit u is group u // slices, slice u % slices."""
         return [(gi * self.rows, si * self.slice_steps,
                  min((si + 1) * self.slice_steps, self.steps))
                 for gi in range(self.groups) for si in range(self.slices)]
@@ -206,33 +209,70 @@ class DecodeSchedule(NamedTuple):
         return [self.groups * self.slices,
                 n * -(-self.row_bytes // 16)]
 
+    def grouped_counts(self, n: int, live: int) -> List[int]:
+        """What the grouped kernel's counters must read after one call in
+        which ``live`` experts own rows: [units stored, 16-byte chunks of W
+        read, slots that found no expert]; each live expert's W rows read
+        each of their chunks once."""
+        return [live * self.groups * self.slices,
+                live * n * -(-self.row_bytes // 16), self.slots - live]
+
+    @property
+    def scratch(self) -> Tuple[int, int]:
+        """(fp32 partials, arrival counters) of a launch at S > 1: a tile
+        of 16 WR x 8 NT floats a unit, a counter a (slot, row group)."""
+        units = self.slots * self.groups * self.slices
+        return (units * self.rows * 8 * self.n_tiles,
+                self.slots * self.groups)
+
+
+#: x columns one 64-byte step of a W row covers, both NF4 sides, by weight
+#: policy
+_STEP_COLS = {"nf4": 2 * DECODE_STEP, "fp8": DECODE_STEP,
+              "bf16": DECODE_STEP // 2}
+
+
+def _x_ld(policy: str, slice_steps: int) -> int:
+    """The x slice's row stride in elements (the kernels' ``x_ld``): rows
+    16 bytes apart modulo 128, or 64 for bf16, whose lanes read 16 bytes
+    apart (no bank conflicts)."""
+    cols = _STEP_COLS[policy] * slice_steps
+    if policy == "bf16":
+        return cols + (32 if cols % 64 == 0 else 0)
+    return cols + 8
+
+
+def _smem_bytes(policy: str, n_tiles: int, slice_steps: int,
+                row_warps: int) -> int:
+    xs = 8 * n_tiles * _x_ld(policy, slice_steps) * 2
+    red = (DECODE_WARPS - row_warps) * 32 * n_tiles * 16
+    return max(xs, red)
+
 
 def decode_smem_bytes(fp8: bool, n_tiles: int, slice_steps: int,
                       row_warps: int) -> int:
     """The decode kernel's dynamic shared memory a block (its
     ``smem_bytes``): the x slice, or the warps' partials if larger."""
-    cols = (1 if fp8 else 2) * DECODE_STEP * slice_steps
-    xs = 8 * n_tiles * (cols + 8) * 2
-    red = (DECODE_WARPS - row_warps) * 32 * n_tiles * 16
-    return max(xs, red)
+    return _smem_bytes("fp8" if fp8 else "nf4", n_tiles, slice_steps,
+                       row_warps)
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_plan(n: int, row_bytes: int, fp8: bool, n_tiles: int,
-                 sms: int) -> DecodeSchedule:
+def _decode_plan(n: int, row_bytes: int, policy: str, n_tiles: int,
+                 sms: int, slots: int = 1) -> DecodeSchedule:
     steps = -(-row_bytes // DECODE_STEP)
     target = 2 * sms                 # one wave of two blocks an SM
     for row_warps in (8, 4, 2):      # the tallest row group that fills
         groups = -(-n // (16 * row_warps))
-        slices = min(steps, max(1, target // groups))
-        if groups * slices >= sms:
+        slices = min(steps, max(1, target // (slots * groups)))
+        if slots * groups * slices >= sms:
             break
     slice_steps = -(-steps // slices)
-    while slice_steps > 1 and decode_smem_bytes(
-            fp8, n_tiles, slice_steps, row_warps) > DECODE_MAX_SMEM:
+    while slice_steps > 1 and _smem_bytes(
+            policy, n_tiles, slice_steps, row_warps) > DECODE_MAX_SMEM:
         slice_steps -= 1
     return DecodeSchedule(row_warps, -(-steps // slice_steps), slice_steps,
-                          steps, groups, row_bytes, n_tiles)
+                          steps, groups, row_bytes, n_tiles, slots)
 
 
 def decode_schedule(m: int, n: int, k: int, policy: str = "nf4",
@@ -247,11 +287,58 @@ def decode_schedule(m: int, n: int, k: int, policy: str = "nf4",
     if policy not in ("nf4", "fp8"):
         raise ValueError(f"policy {policy!r} is not 'nf4' or 'fp8'")
     fp8 = policy == "fp8"
-    return _decode_plan(n, k if fp8 else k // 2, fp8, 1 if m <= 8 else 2,
+    return _decode_plan(n, k if fp8 else k // 2, policy, 1 if m <= 8 else 2,
                         sms)
 
 
-#: per device: the decode kernel's fp32 partials (every unit's tile) and
+def grouped_decode_schedule(m: int, e: int, n: int, k: int,
+                            policy: str = "nf4", sms: int = H100_SMS
+                            ) -> DecodeSchedule:
+    """The grouped decode kernel's schedule at y [m, n] = x [m, k] @ W_g^T
+    over E = ``e`` experts (``policy`` "nf4": NF4Stacked, packed [e, n,
+    k/2]; "bf16": W [e, n, k]), from the shapes alone: min(m, e) slots (at
+    most that many experts own rows). Where the slots' row groups give
+    ``sms`` units without splitting K, one slice (a split adds partials and
+    their sum and stages x again: slower at every gpt-oss decode shape),
+    and the rows of a group (128, 64 or 32) whose waves of two blocks an SM
+    stream the fewest rows each; on a tie the one that fits one wave, else
+    the shorter (a shorter last wave); else the slices as
+    :func:`decode_schedule` picks them with every
+    slot's units counted. Fewer steps a slice where the x slice would not
+    fit the shared memory. The wrappers pass it to the kernel; its
+    counters must equal ``grouped_counts(n, live)`` for ``live`` experts
+    with rows."""
+    if policy not in ("nf4", "bf16"):
+        raise ValueError(f"policy {policy!r} is not 'nf4' or 'bf16'")
+    row_bytes = k // 2 if policy == "nf4" else 2 * k
+    return _grouped_plan(n, row_bytes, policy, 1 if m <= 8 else 2, sms,
+                         max(1, min(m, e)))
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_plan(n: int, row_bytes: int, policy: str, n_tiles: int,
+                  sms: int, slots: int) -> DecodeSchedule:
+    fits = []
+    for rw in (8, 4, 2):
+        units = slots * -(-n // (16 * rw))
+        waves = -(-units // (2 * sms))
+        if units >= sms:             # rows a block streams in all waves;
+            # on a tie one wave (no tail), else the shorter last wave
+            fits.append((waves * rw, -rw if waves == 1 else rw, rw))
+    if not fits:                     # too few row groups: split K
+        return _decode_plan(n, row_bytes, policy, n_tiles, sms, slots)
+    row_warps = min(fits)[2]
+    steps = -(-row_bytes // DECODE_STEP)
+    slice_steps = steps
+    while slice_steps > 1 and _smem_bytes(
+            policy, n_tiles, slice_steps, row_warps) > DECODE_MAX_SMEM:
+        slice_steps -= 1
+    return DecodeSchedule(row_warps, -(-steps // slice_steps), slice_steps,
+                          steps, -(-n // (16 * row_warps)), row_bytes,
+                          n_tiles, slots)
+
+
+#: per device: the decode kernels' fp32 partials (every unit's tile) and
 #: int32 arrival counters (one per row group, 0 between calls: each
 #: group's last block sets its own back), made once and grown where a call
 #: needs more. Calls on one stream run one after another, so each reuses
@@ -265,13 +352,13 @@ def _decode_scratch(plan: DecodeSchedule, device: torch.device):
     launch once it is large enough)."""
     if plan.slices == 1:
         return None, None
-    floats = plan.groups * plan.slices * plan.rows * 8 * plan.n_tiles
+    floats, counters = plan.scratch
     partials, arrivals = _DECODE_SCRATCH.get(device, (None, None))
     if partials is None or partials.numel() < floats:
         partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
                                device=device)
-    if arrivals is None or arrivals.numel() < plan.groups:
-        arrivals = torch.zeros(max(plan.groups, 4096), dtype=torch.int32,
+    if arrivals is None or arrivals.numel() < counters:
+        arrivals = torch.zeros(max(counters, 4096), dtype=torch.int32,
                                device=device)
     _DECODE_SCRATCH[device] = partials, arrivals
     return partials.data_ptr(), arrivals.data_ptr()

@@ -362,13 +362,15 @@ card and exits non-zero without it.
     python3 chip_smoke.py --profile-train-grpo
     python3 chip_smoke.py --profile-train-fp8
     python3 chip_smoke.py --profile-train-diffusion
+    python3 chip_smoke.py --profile-train-whisper
     python3 chip_smoke.py --profile-serve
 
 run phases 1, 2 and 6 (or 7 without evaluate and the saves, or 8, or 9's
 NF4 part, or 9's bf16-expert part, or 10, each without evaluate, generate
 and the saves, or 12 without its layout comparison, or 15's training
 without evaluate, the saves and generate, or 18's training without its
-checks and generate) only, then one more
+checks and generate, or 13's transcription and LoRA training) only, then
+one more
 training step under torch.profiler (for GRPO: the reference pass, the
 grouped loss, its backward and the update, on the last rollouts), and
 print that step's device time by kernel and by kernel family, the device
@@ -1371,6 +1373,51 @@ def attention_build_report(build_log):
 #: its grouped form's two (K14's NF4 experts, K19's bf16 ones) at one and
 #: two
 HOPPER_BUILD_ROWS = 21 + 2 + 2 + 2 + 2 + 2 + 2 + 6 + 4
+#: K4's and K6's backward instantiations phase 2 holds to 0 spill
+#: (csrc/norm_common.cuh): for each of the four (x, w) dtype pairs the row
+#: form at 2 and 4 chunks a lane, dx alone and with dW (and dB), and the
+#: strided form; K6 with bf16 x has no 4-chunk row form (its lane budget)
+NORM_BUILD_ROWS = 4 * 5 + 2 * 5 + 2 * 3
+
+
+def norm_build_report(build_log):
+    """[(kernel, registers, spill-store bytes)] of each instantiation of
+    K4's and K6's backward kernels (``rms_norm_bwd_kernel<TX, TW, C, kDw>``,
+    ``layer_norm_bwd_kernel<...>``) in ptxas's ``-v`` output."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(rms|layer)_norm_bwd_kernelI(\w*?)Li(\d)ELb(\d)E",
+                          m.group(1))
+            name = None
+            if k:
+                tx = "bf16" if k.group(2).startswith("13__nv_bfloat16") \
+                    else "f32"
+                rest = k.group(2)[len("13__nv_bfloat16") if tx == "bf16"
+                                  else 1:]
+                tw = "bf16" if "bfloat16" in rest or rest.startswith("S") \
+                    else "f32"
+                form = ("strided" if k.group(3) == "0" else
+                        f"C {k.group(3)}" + (", dW" if k.group(4) == "1"
+                                             else ", dx"))
+                name = f"{k.group(1)}_norm_bwd_kernel<{tx}, {tw}, {form}>"
+            spill = 0
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 #: the decode kernel's weight policies (csrc/decode_matmul.cu, Policy)
 DECODE_POLICIES = ("K1", "K12", "K12 any shape")
 #: its grouped form's (csrc/decode_matmul.cu, GroupedPolicy)
@@ -1384,8 +1431,10 @@ def phase_build(hold=True):
     tile heights each), the decode kernel (three policies, two n-tile
     counts) and its grouped form (K14's and K19's decode rows, two n-tile
     counts each) must report no spill and no serialized wgmma
-    (:func:`attention_build_report`); with ``hold`` False (another
-    checkout's build, profiled by ``--tree``) they are only reported."""
+    (:func:`attention_build_report`), and K4's and K6's backward
+    instantiations no spill (:func:`norm_build_report`); with ``hold``
+    False (another checkout's build, profiled by ``--tree``) they are only
+    reported."""
     from unsloth_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -1413,6 +1462,13 @@ def phase_build(hold=True):
                            f"(or are not all built): "
                            f"{rows}, "
                            f"{serialized}")
+    norm_rows = norm_build_report(kernels.build_log)
+    log("[build] K4 / K6 backward kernels (registers, spill bytes): "
+        + ", ".join(f"{n} {r}/{b}" for n, r, b in norm_rows))
+    if hold and (len(norm_rows) != NORM_BUILD_ROWS
+                 or any(b for _, _, b in norm_rows)):
+        raise RuntimeError(f"the K4 / K6 backward kernels spill (or are not "
+                           f"all built): {norm_rows}")
 
 
 def phase_kernels():
@@ -1541,6 +1597,7 @@ def phase_kernels():
     log(f"[time] 3 K1, K3: {time.perf_counter() - t_part:.1f} s")
     for part, fn in (("K1/K12 decode rows", _decode_kernels),
                      ("K14/K19 decode rows", _gmm_decode_kernels),
+                     ("K6 one launch", _layer_norm_launches),
                      ("K2, K4, K9-K11", _training_kernels),
                      ("K7/K8, K16", _unpacked_kernels),
                      ("K18", _splash_kernels),
@@ -1760,6 +1817,210 @@ def nf4_dx_faults(gy, q, ref):
     return faults
 
 
+def rms_bwd_errs(dtype, got, want):
+    """Phase 3's check of K4 against its plain version, each part's worst
+    element in units of its limit (<= 1 passes), for (dx, dW) and their
+    plain counterparts; dW None (the dx-only form): dx alone. dx: 2 ulps
+    of its dtype (2^-7 |dx| in bf16, 2^-21 in fp32: the fp32 result
+    differs in its last bits, then rounds) plus 1e-5 max|dx| (its terms
+    cancel to near zero); dW: an fp32 sum over the rows in another order,
+    rounded to w's dtype, within one bf16 ulp of max|dW| (2^-7) in bf16 and
+    1e-3 of it in fp32."""
+    import torch
+
+    (dx, dw), (rdx, rdw) = got, want
+    bf16 = dtype == torch.bfloat16
+    r = rdx.float().abs()
+    res = {"dx": ((dx.float() - rdx.float()).abs()
+                  / ((2.0 ** -7 if bf16 else 2.0 ** -21) * r
+                     + 1e-5 * r.max())).max().item()}
+    if dw is not None:
+        res["dW"] = ((dw.float() - rdw.float()).abs().max()
+                     / ((2.0 ** -7 if bf16 else 1e-3)
+                        * rdw.float().abs().max())).item()
+    return res
+
+
+def norm_bwd_faults(x, w, gy, eps, form, gemma=False, layer=False):
+    """The backward of K4 (``layer`` False; ``gemma``: the scale 1 + w) or
+    K6 as a wrong kernel would leave it, in plain PyTorch, for the
+    check to reject: "dW without a block's partial row" (the rows that
+    ``form``, :func:`unsloth_tpu_torch.ops.rms_norm.norm_bwd_form`'s, gives
+    block blocks // 2 left out of dW, and of K6's dB) and "dx without its
+    mean term" (the xhat * mean(g s xhat) term dropped: K4's dx = inv g s,
+    K6's inv (g w - mean(g w))), each beside the right other parts."""
+    import torch
+
+    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd_ref,
+                                                rms_norm_bwd_ref)
+
+    keep = (form.block_of_rows(x.shape[0]) != form.blocks // 2).to(x.device)
+    xf, gf, wf = x.float(), gy.float(), w.float()
+    if layer:
+        full = layer_norm_bwd_ref(x, w, gy, eps)
+        part = layer_norm_bwd_ref(x[keep], w, gy[keep], eps)
+        c = xf - xf.mean(-1, keepdim=True)
+        inv = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+        gs = gf * wf
+        no_mean = (inv * (gs - gs.mean(-1, keepdim=True))).to(x.dtype)
+        return {"dW without a block's partial row":
+                (full[0], part[1], part[2]),
+                "dx without its mean term": (no_mean, full[1], full[2])}
+    full = rms_norm_bwd_ref(x, w, gy, eps, gemma)
+    part = rms_norm_bwd_ref(x[keep], w, gy[keep], eps, gemma)
+    inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    no_mean = (inv * gf * ((1.0 + wf) if gemma else wf)).to(x.dtype)
+    return {"dW without a block's partial row": (full[0], part[1]),
+            "dx without its mean term": (no_mean, full[1])}
+
+
+#: K4 in phase 3: (rows, hidden, gemma, dtype) at every main path's width:
+#: Llama-3.1-8B's packed 8K row (plain and Gemma's scale; fp32 too),
+#: Gemma-2-9B's 2 x 2,048 rows, gpt-oss-20b's 4,096, Orpheus-3B's 2,048,
+#: Llama-3.2-1B's and Qwen2.5-0.5B's 2 x 2,048
+def k4_cases():
+    return ([(TRAIN_ROWS, 4096, False, "bfloat16"),
+             (TRAIN_ROWS, 4096, True, "bfloat16"),
+             (2 * UNPACKED_ROWS, GEMMA2_9B_CONFIG["hidden_size"], True,
+              "bfloat16"),
+             (GPT_OSS_ROWS, GPT_OSS_20B_CONFIG["hidden_size"], False,
+              "bfloat16"),
+             (ORPHEUS_ROWS, ORPHEUS_3B_CONFIG["hidden_size"], False,
+              "bfloat16"),
+             (2 * UNPACKED_ROWS, LLAMA_32_1B_CONFIG["hidden_size"], False,
+              "bfloat16"),
+             (2 * UNPACKED_ROWS, QWEN25_05B_CONFIG["hidden_size"], False,
+              "bfloat16"),
+             (2 * UNPACKED_ROWS, 4096, False, "float32")])
+
+
+def _norm_bwd_case(kind, x, w, gy, eps, plain, flush, gemma=False,
+                   lib_call=None, count_ops=True):
+    """Both forms of K4 (``kind`` "rms_norm_bwd") or K6 ("layer_norm_bwd")
+    on one input against the plain version's ``plain`` (its (result, ms)):
+    each form's errors (:func:`rms_bwd_errs`, :func:`ln_bwd_errs`), the
+    same bits from a second call, dx the same bits
+    in both forms, one device operation a dx-only call (torch.profiler),
+    (unless ``count_ops`` is False: K6's count runs in
+    :func:`_layer_norm_launches`), the faults of :func:`norm_bwd_faults`
+    above their limits, the times,
+    the library's backward (``lib_call(x, w)`` under autograd, with w a
+    leaf in the dW form) and the bound (x and g read, dx written, w read,
+    dW (and dB) written; 8 or 14 fp32 operations an element). Returns
+    ({form: row}, log line); raises on a failed check."""
+    import torch
+
+    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
+                                                norm_bwd_form_for,
+                                                rms_norm_bwd)
+
+    layer = kind == "layer_norm_bwd"
+    dtype = x.dtype
+    (ref, plain_ms) = plain
+
+    def call(need):
+        if layer:
+            return layer_norm_bwd(x, w, gy, eps, need_dw=need)
+        return rms_norm_bwd(x, w, gy, eps, gemma, need_dw=need)
+
+    def errs(got):
+        return (ln_bwd_errs if layer else rms_bwd_errs)(dtype, got, ref)
+
+    out, lines = {}, []
+    dx_of = {}
+    for need in (False, True):
+        got, again = call(need), call(need)
+        torch.cuda.synchronize()
+        e = errs(got)
+        same = all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None)
+        dx_of[need] = got[0]
+        ops = None
+        if not need and count_ops:
+            ops = launched_kernels(lambda: call(False), tries=6)
+            if len(ops) != 1 or any(t is not None for t in got[1:]):
+                raise RuntimeError(f"{kind} dx only at {list(x.shape)}: "
+                                   f"launched {ops}, dW {got[1:]}")
+        ms = time_ms(lambda: call(need), flush=flush)
+        leaves = (x, w) if need else (x,)
+        lib_ms = None if lib_call is None else _autograd_ms(
+            (lambda a, b: lib_call(a, b)) if need
+            else (lambda a: lib_call(a, w)), leaves, gy, flush)
+        sums = (2 if layer else 1) if need else 0
+        b_ms, b_by = bound((14 if layer else 8) * x.numel(),
+                           3 * nbytes(x) + nbytes(w)
+                           + sums * x.shape[-1] * (4 if layer else
+                                                   w.element_size()),
+                           PEAK_FP32)
+        form = "dx + dW" if need else "dx only"
+        out[need] = dict(err=max((a.float() - r_.float()).abs().max().item()
+                                 for a, r_ in zip(got, ref)
+                                 if a is not None),
+                         errs=e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, same_bits=same)
+        lines.append(f"{form}: errors in units of their limits "
+                     f"{ {k_: round(v_, 4) for k_, v_ in e.items()} }, same "
+                     f"bits run twice {same}"
+                     + (f", one call {len(ops)} device op(s)" if ops else "")
+                     + f"; kernel {ms:.4f} ms"
+                     + ("" if lib_ms is None else f" library {lib_ms:.4f} ms")
+                     + f" bound {b_ms:.4f} ms ({b_by}, "
+                     f"{100 * b_ms / ms:.1f}%)")
+        if not (max(e.values()) <= 1.0 and same and all(
+                bool(torch.isfinite(t).all()) for t in got if t is not None)):
+            raise RuntimeError(f"{kind} disagrees at {list(x.shape)} "
+                               f"({form}): {e}, same bits {same}")
+    if not torch.equal(dx_of[False], dx_of[True]):
+        raise RuntimeError(f"{kind} at {list(x.shape)}: dx differs between "
+                           "the dx-only form and the dW form")
+    faults = {f_: max(errs(fg).values()) for f_, fg in norm_bwd_faults(
+        x, w, gy, eps, norm_bwd_form_for(x, w, True, layer), gemma,
+        layer).items()}
+    lines.append("faults " + ", ".join(f"{f_} {e_:.2f}"
+                                       for f_, e_ in faults.items()))
+    missed = [f_ for f_, e_ in faults.items() if not e_ > 1.0]
+    if missed:
+        raise RuntimeError(f"the {kind} check lets faults through at "
+                           f"{list(x.shape)}: {missed}")
+    return out, "; ".join(lines)
+
+
+def _rms_norm_bwd_kernels(dev, g, flush):
+    """K4 at :func:`k4_cases` in both forms (:func:`_norm_bwd_case`):
+    the rows of phase 3's kernels line, dx only first. Library: the
+    autograd backward of ``F.rms_norm`` (with Gemma's scale w + 1), with w
+    a leaf in the dW form."""
+    import torch
+    import torch.nn.functional as F
+
+    from unsloth_tpu_torch.ops.rms_norm import rms_norm_bwd_ref
+
+    rows = []
+    for n_rows, hidden, gemma, dt in k4_cases():
+        dtype = getattr(torch, dt)
+        shape = (n_rows, hidden)
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        w = (1.0 + 0.1 * torch.randn((hidden,), generator=g, device=dev)
+             ).to(dtype)
+        gy = torch.randn(shape, generator=g, device=dev).to(dtype)
+        plain = once_ms(lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma))
+
+        def lib_call(a, b, gemma=gemma, hidden=hidden):
+            return F.rms_norm(a, (hidden,), b + 1.0 if gemma else b, 1e-5)
+
+        forms, line = _norm_bwd_case("rms_norm_bwd", x, w, gy, 1e-5, plain,
+                                     flush, gemma=gemma, lib_call=lib_call)
+        for need, row in forms.items():
+            rows.append(dict(
+                row, shape=f"{list(shape)} {dt} gemma={gemma} "
+                + ("dx + dW" if need else "dx only")))
+        log(f"[kernels] rms_norm_bwd {list(shape)} {dt} gemma={gemma!s:5s} "
+            + line)
+        del x, gy, plain
+
+    return rows
+
+
 def _training_kernels(dev, g, flush):
     """K2 at every Llama-3.1-8B projection shape at M = 8192 and every
     Gemma-2-9B one at M = 4096; K4 at [8192, 4096] bf16, plain and Gemma,
@@ -1791,8 +2052,6 @@ def _training_kernels(dev, g, flush):
                                                     nf4_dx_tile_schedule,
                                                     nf4_matmul_dx,
                                                     nf4_matmul_dx_ref)
-    from unsloth_tpu_torch.ops.rms_norm import rms_norm_bwd, rms_norm_bwd_ref
-
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     rows = {"nf4_matmul_dx": [], "rms_norm_bwd": [], "packed_attn_fwd": [],
             "packed_attn_bwd": []}
@@ -1848,44 +2107,7 @@ def _training_kernels(dev, g, flush):
         del q, gy, dx, ref
 
     m = TRAIN_ROWS
-    for n_rows, hidden, gemma in (
-            (m, 4096, False), (m, 4096, True),
-            (2 * UNPACKED_ROWS, GEMMA2_9B_CONFIG["hidden_size"], True)):
-        shape = (n_rows, hidden)
-        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-        w = (1.0 + 0.1 * torch.randn((hidden,), generator=g, device=dev)
-             ).to(torch.bfloat16)
-        gy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-        dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
-        (rdx, rdw), plain_ms = once_ms(
-            lambda: rms_norm_bwd_ref(x, w, gy, 1e-5, gemma))
-        torch.cuda.synchronize()
-        d = (dx.float() - rdx.float()).abs()
-        dx_ulps = ulps_bf16_or_f32(d, rdx, torch.bfloat16)
-        dx_ok = bool((d <= 2.0 ** -7 * rdx.float().abs()
-                      + 1e-5 * rdx.float().abs().max()).all())
-        dw_err = (dw.float() - rdw.float()).abs().max().item()
-        dw_tol = 2.0 ** -7 * rdw.float().abs().max().item()
-        ms = time_ms(lambda: rms_norm_bwd(x, w, gy, 1e-5, gemma), flush=flush)
-        lib_ms = None if gemma else _autograd_ms(
-            lambda a, b: F.rms_norm(a, (hidden,), b, 1e-5), (x, w), gy, flush)
-        b_ms, b_by = bound(8 * x.numel(), 3 * nbytes(x) + 2 * nbytes(w),
-                           PEAK_FP32)
-        rows["rms_norm_bwd"].append(dict(
-            shape=f"{list(shape)} bfloat16 gemma={gemma}",
-            err=max(d.max().item(), dw_err),
-            ulps=dx_ulps, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms))
-        log(f"[kernels] rms_norm_bwd {list(shape)} bfloat16 "
-            f"gemma={gemma!s:5s} "
-            f"dx max {dx_ulps:.2f} ulp (limit 2 + 1e-5 max|dx|: "
-            f"{'ok' if dx_ok else 'FAIL'}), max|d dW|={dw_err:.3e} (tol "
-            f"{dw_tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not (bool(torch.isfinite(dx).all()) and dx_ok
-                and dw_err <= dw_tol):
-            raise RuntimeError(f"rms_norm_bwd disagrees at {shape} "
-                               f"(gemma={gemma})")
-        del x, gy, dx, rdx, d
+    rows["rms_norm_bwd"] = _rms_norm_bwd_kernels(dev, g, flush)
 
     seg = torch.from_numpy(_packed_segments(np.random.default_rng(SEED), m)
                            ).to(dev)
@@ -7557,8 +7779,14 @@ def _device_report(prof, wall_us, top):
                 # the device spans of their profiler range (below); a
                 # parent's wmma kernels by name
                 "K10/K11 packed bwd": ("attn_dq_kernel", "attn_dkv_kernel"),
-                "K7/K8 CE": ("ce_fwd", "ce_bwd"), "K3/K4 RMSNorm":
-                ("rms_norm",)}
+                "K7/K8 CE": ("ce_fwd", "ce_bwd"),
+                # the backwards apart (a parent's K4 and K6 shared
+                # column_sum_kernel, counted with K4)
+                "K4 RMSNorm bwd": ("rms_norm_bwd", "column_sum_kernel"),
+                "K3 RMSNorm": ("rms_norm_kernel",),
+                "K6 LayerNorm bwd": ("layer_norm_bwd",),
+                "K5 LayerNorm": ("layer_norm_kernel",
+                                 "layer_norm_warp_kernel")}
     # the profiler ranges whose device spans name the family of every
     # kernel inside them: K17's and K10/K11's, which run K16's and K18's
     ranged = {"unsloth.flash_sinks": "K17 flash sinks",
@@ -7678,53 +7906,99 @@ def ln_out_err(dtype, out, rout):
 def ln_errs(dtype, got, want):
     """Phase 3's check of K5/K6 against their plain versions, each part's
     worst element in units of its limit (<= 1 passes), for (out, dx, dW,
-    dB) and their plain counterparts.
+    dB) and their plain counterparts (dW and dB None: the dx-only form,
+    dx alone; :func:`ln_bwd_errs`).
 
     out: <= 1 ulp of the output dtype for bf16, <= 8 fp32 ulp for fp32 (the
     fp32 values differ in their last bits, from sums in another order and
     rsqrtf, then round), plus 2^-20 max|out|: where xhat * w and b cancel
     to near zero the ulp of the result is far below the fp32 error of the
-    terms. dx: <= 2^-7 |dx| in bf16 (one rounding of values that differ in
-    their last fp32 bits), 2^-20 |dx| in fp32, plus 2^-16 (bf16) or 2^-20
-    (fp32) of max|dx|: its three terms cancel. dW, dB: fp32 sums over the
-    rows in another order (a few rows in each block, then up to 512
-    partials) within 2^-12 of max|ref|; a partial row dropped moves them by
-    ~1e-2."""
+    terms."""
+    res = {"out": ln_out_err(dtype, got[0], want[0])}
+    res.update(ln_bwd_errs(dtype, got[1:], want[1:]))
+    return res
+
+
+def ln_bwd_errs(dtype, got, want):
+    """K6's part of :func:`ln_errs`, for (dx, dW, dB); dW and dB None
+    (the dx-only form): dx alone. dx: <= 2^-7 |dx| in bf16 (one rounding
+    of values that differ in their last fp32 bits), 2^-20 |dx| in fp32,
+    plus 2^-16 (bf16) or 2^-20 (fp32) of max|dx|: its three terms cancel.
+    dW, dB: fp32 sums over the rows in another order (a lane's rows, then
+    a block's row groups, then the blocks' partial rows in groups) within
+    2^-12 of max|ref|; a block's partial row dropped moves them by far
+    more (:func:`norm_bwd_faults`)."""
     import torch
 
-    out, dx, dw, db = got
-    rout, rdx, rdw, rdb = want
+    dx, dw, db = got
+    rdx, rdw, rdb = want
     bf16 = dtype == torch.bfloat16
 
     def scaled(d, lim):
         return (d / lim).max().item()
 
-    res = {"out": ln_out_err(dtype, out, rout)}
     r = rdx.float().abs()
-    res["dx"] = scaled((dx.float() - rdx.float()).abs(),
-                       (2.0 ** -7 if bf16 else 2.0 ** -20) * r
-                       + (2.0 ** -16 if bf16 else 2.0 ** -20) * r.max())
+    res = {"dx": scaled((dx.float() - rdx.float()).abs(),
+                        (2.0 ** -7 if bf16 else 2.0 ** -20) * r
+                        + (2.0 ** -16 if bf16 else 2.0 ** -20) * r.max())}
     for name, a, b in (("dW", dw, rdw), ("dB", db, rdb)):
-        res[name] = ((a - b).abs().max() / (2.0 ** -12 * b.abs().max())
-                     ).item()
+        if a is not None:
+            res[name] = ((a - b).abs().max()
+                         / (2.0 ** -12 * b.abs().max())).item()
     return res
+
+
+def _layer_norm_launches(dev, g, flush):
+    """K6's dx-only form at the shapes of :func:`_layer_norm_kernels` (b
+    does not enter K6: three inputs; from a generator of its own, so the
+    later parts keep theirs):
+    one call launches exactly one device operation (:func:`launched_kernels`;
+    run before the parts that compile flex_attention, after which every
+    trace in the process came back empty on the card). No rows."""
+    import torch
+
+    from unsloth_tpu_torch.ops.rms_norm import layer_norm_bwd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    d = WHISPER_LARGE_V3_CONFIG["d_model"]
+    enc_rows = WHISPER_BATCH * WHISPER_FRAMES // 2
+    for n, dtype in ((enc_rows, torch.bfloat16), (enc_rows, torch.float32),
+                     (WHISPER_BATCH * WHISPER_LABELS, torch.bfloat16)):
+        x, gy = (torch.randn((n, d), generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+             ).to(dtype)
+        ops = launched_kernels(lambda: layer_norm_bwd(
+            x, w, gy, 1e-5, need_dw=False), tries=6)
+        log(f"[kernels] layer_norm_bwd dx only [{n}, {d}] "
+            f"{str(dtype)[6:]}: one call {len(ops)} device op(s): {ops}")
+        if len(ops) != 1:
+            raise RuntimeError(f"one layer_norm_bwd dx-only call at [{n}, "
+                               f"{d}] launched {ops}, not one kernel")
+    return {}
 
 
 def _layer_norm_kernels(dev, g, flush):
     """K5 and K6 against their plain versions at Whisper's shapes: [3000,
     1280] (2 x 1,500 encoder frames) in bf16 and fp32, [448, 1280] (2 x
     224 decoder tokens) in bf16, and [3000, 1280] bf16 with b=None;
-    tolerances as :func:`ln_errs` states them. Times: the kernels (median,
-    L2 flushed), each plain version once (:func:`once_ms`), and the library
-    call ``F.layer_norm`` (its autograd backward for K6: dx, dW and dB).
-    Bounds: forward 2 x bytes of x + w and b, 8 fp32 operations an
-    element; backward x and g read, dx written, w read, dW and dB written
-    in fp32, 14 operations an element."""
+    tolerances as :func:`ln_errs` states them; K6 in both forms, dx alone
+    (the LoRA path's) and dx with dW and dB, each as
+    :func:`_norm_bwd_case` holds it (the same bits twice, dx the same in
+    both, the faults rejected; one device operation a dx-only call is
+    read by :func:`_layer_norm_launches`, which runs before the parts
+    that compile flex_attention: traces taken after them come back
+    without a device event).
+    Times: the kernels (median, L2 flushed), each plain version once
+    (:func:`once_ms`), and the library call ``F.layer_norm`` (its autograd
+    backward for K6: dx, or dx, dW and dB). Bounds: forward 2 x bytes of x
+    + w and b, 8 fp32 operations an element; backward x and g read, dx
+    written, w read, dW and dB written in fp32, 14 operations an
+    element."""
     import torch
     import torch.nn.functional as F
 
-    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd,
-                                                layer_norm_bwd_ref,
+    from unsloth_tpu_torch.ops.rms_norm import (layer_norm_bwd_ref,
                                                 layer_norm_fwd,
                                                 layer_norm_ref)
 
@@ -7744,47 +8018,41 @@ def _layer_norm_kernels(dev, g, flush):
             if bias else None
         gy = torch.randn((n, d), generator=g, device=dev).to(dtype)
         out = layer_norm_fwd(x, w, b, 1e-5)
-        dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5)
         rout, fwd_plain = once_ms(lambda: layer_norm_ref(x, w, b, 1e-5))
-        (rdx, rdw, rdb), bwd_plain = once_ms(
-            lambda: layer_norm_bwd_ref(x, w, gy, 1e-5))
+        plain = once_ms(lambda: layer_norm_bwd_ref(x, w, gy, 1e-5))
         torch.cuda.synchronize()
-        if not all(bool(torch.isfinite(t).all()) for t in (out, dx, dw, db)):
-            raise RuntimeError(f"layer norm kernels not finite at {n} {dtype}")
-        errs = ln_errs(dtype, (out, dx, dw, db), (rout, rdx, rdw, rdb))
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"layer norm forward not finite at {n} "
+                               f"{dtype}")
+        out_err = ln_out_err(dtype, out, rout)
         fwd_ms = time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5), flush=flush)
-        bwd_ms = time_ms(lambda: layer_norm_bwd(x, w, gy, 1e-5), flush=flush)
         lib_fwd = time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5),
                           flush=flush)
-        lib_bwd = _autograd_ms(
-            lambda x_, w_, *b_: F.layer_norm(x_, (d,), w_,
-                                             b_[0] if b_ else None, 1e-5),
-            (x, w) + ((b,) if bias else ()), gy, flush)
+
+        def lib_call(x_, w_, b=b):
+            return F.layer_norm(x_, (d,), w_, b, 1e-5)
+
+        forms, line = _norm_bwd_case("layer_norm_bwd", x, w, gy, 1e-5, plain,
+                                     flush, lib_call=lib_call,
+                                     count_ops=False)
         wb = nbytes(w) + (nbytes(b) if bias else 0)
         fb = bound(8 * x.numel(), 2 * nbytes(x) + wb, PEAK_FP32)
-        bb = bound(14 * x.numel(), 3 * nbytes(x) + nbytes(w) + 2 * d * 4,
-                   PEAK_FP32)
         shape = f"[{n}, {d}] {str(dtype)[6:]}" + ("" if bias else " b=None")
         rows["layer_norm_fwd"].append(dict(
             shape=shape, err=(out.float() - rout.float()).abs().max().item(),
             ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
             library_ms=lib_fwd))
-        rows["layer_norm_bwd"].append(dict(
-            shape=shape, err=max((a.float() - r_.float()).abs().max().item()
-                                 for a, r_ in ((dx, rdx), (dw, rdw),
-                                               (db, rdb))),
-            ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
-            library_ms=lib_bwd))
-        log(f"[kernels] layer_norm {shape}: errors in units of their limits "
-            f"{ {k_: round(v_, 4) for k_, v_ in errs.items()} } (<= 1 "
-            f"passes); K5 kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms "
+        for need, row in forms.items():
+            rows["layer_norm_bwd"].append(dict(
+                row, shape=shape + (" dx + dW" if need else " dx only")))
+        log(f"[kernels] layer_norm {shape}: K5 out error {out_err:.4f} of "
+            f"its limit; kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms "
             f"F.layer_norm {lib_fwd:.4f} ms bound {fb[0]:.4f} ms ({fb[1]}); "
-            f"K6 kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms backward "
-            f"{lib_bwd:.4f} ms bound {bb[0]:.4f} ms ({bb[1]})")
-        if not max(errs.values()) <= 1.0:
-            raise RuntimeError(f"layer norm kernels disagree at {shape}: "
-                               f"{errs}")
-        del x, gy, out, dx, rout, rdx
+            f"K6 {line}")
+        if not out_err <= 1.0:
+            raise RuntimeError(f"layer norm forward disagrees at {shape}: "
+                               f"{out_err}")
+        del x, gy, out, rout, plain
     torch.cuda.empty_cache()
     return rows
 
@@ -8005,7 +8273,7 @@ def _cast_tree(tree, dtype):
     return None if tree is None else tree.to(dtype)
 
 
-def phase_whisper(tmp):
+def phase_whisper(tmp, profile=False):
     """Whisper-large-v3 at full width and depth, by the recipe of
     bench_extra.py's main_whisper: a random bf16 checkpoint of its
     published config (:func:`write_whisper_checkpoint`, 32 + 32 layers,
@@ -8019,7 +8287,9 @@ def phase_whisper(tmp):
     128-bin log-mel of seeded waveforms, "labels": 224 token ids}, lr 1e-4
     constant, WHISPER_STEPS steps on the repeated batch: losses finite and
     falling, step time, decoder tokens/s, peak memory, and launches per
-    step exactly :func:`whisper_launches` (K5 162, K6 160, K7/K8 1)."""
+    step exactly :func:`whisper_launches` (K5 162, K6 160, K7/K8 1). With ``profile``, one more
+    step runs under the profiler (:func:`_profile_whisper_step`) and the
+    phase ends there."""
     import numpy as np
     import torch
 
@@ -8123,6 +8393,9 @@ def phase_whisper(tmp):
         raise RuntimeError(f"whisper loss did not fall: {losses}")
     _check_launched(launches, SPEECH_KERNELS, "whisper training", per_step,
                     len(times))
+    if profile:
+        _profile_whisper_step(trainer)
+        return launches, tr_launches, None
     if not all(bool(torch.isfinite(t).all())
                for t in whisper_lora_leaves(trainer.lora)):
         raise RuntimeError("trained whisper LoRA is not finite")
@@ -8133,6 +8406,21 @@ def phase_whisper(tmp):
         losses=losses, step_s=step_s, decoder_tokens_per_s=tokens / step_s,
         peak_bytes=peak, encoder_s=enc_s, transcribe_s=t_tr,
         decode_steps=steps, ids=ids)
+
+
+def _profile_whisper_step(trainer, top=25):
+    """One more WhisperTrainer step (a fresh optimizer, the same batch)
+    under ``torch.profiler``: the device time by kernel and by family, the
+    busy share (:func:`_device_report`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.args.max_steps = 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train()
+    log(f"[profile] one Whisper LoRA step, batch {WHISPER_BATCH} x "
+        f"{WHISPER_FRAMES} frames, {WHISPER_LABELS} labels:")
+    _device_report(prof, trainer.step_times[-1] * 1e6, top)
 
 
 def _orpheus_rows(rng, n_tokens):
@@ -9417,6 +9705,7 @@ def main() -> int:
             lambda path, profile: phase_fp8_sft(path, None, profile=profile),
             LLAMA_31_8B_CONFIG),
         ("--profile-train-diffusion",): (phase_llada, LLADA_8B_CONFIG),
+        ("--profile-train-whisper",): (phase_whisper, None),
         ("--profile-serve",): (phase_profile_serve, LLAMA_31_8B_CONFIG)}
     args = tuple(sys.argv[1:])
     if len(args) == 2 and args[0] == "--parity-phases":
@@ -9445,7 +9734,8 @@ def main() -> int:
               "--profile-train-gpt-oss | --profile-train-gpt-oss-bf16 | "
               "--profile-train-llama32 | --profile-train-grpo | "
               "--profile-train-fp8 | --profile-train-diffusion | "
-              "--profile-serve] [--tree DIR, after a --profile flag]",
+              "--profile-train-whisper | --profile-serve] [--tree DIR, "
+              "after a --profile flag]",
               file=sys.stderr)
         return 2
     profile = profiles[args]
@@ -9468,7 +9758,8 @@ def main() -> int:
             # step (--profile-serve: phase 5's model, a decode step); no
             # result line
             fn, config, *bnb4 = profile
-            fn(_write_model(os.path.join(tmp, "model"), config, *bnb4),
+            fn(tmp if config is None else
+               _write_model(os.path.join(tmp, "model"), config, *bnb4),
                profile=True)
             return 0
         rows = timed("3 kernels", phase_kernels)

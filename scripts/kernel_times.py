@@ -1,5 +1,6 @@
-"""Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K5
-(the LayerNorm forward), K12 and K13 (the FP8 matmul forward and its dx),
+"""Time K1 (the NF4 matmul forward), K2 (its backward, dx = g @ W), K4
+(the RMSNorm backward), K5 and K6 (the LayerNorm forward and backward),
+K12 and K13 (the FP8 matmul forward and its dx),
 K14 and K15 (the grouped NF4 expert forward and its dx), K9 (the packed
 attention forward) and K10/K11 (its backward) of one tree of the port on
 the card, at the shapes of ``chip_smoke.py``'s phase 3, beside the
@@ -10,7 +11,7 @@ two-call yardsticks of K1, K2, K12 and K13 (dequantize, then
 with the segments' causal mask (forward; backward by autograd).
 
     python scripts/kernel_times.py [--tree DIR] [--label NAME]
-                                   [--only K1|K2|K5|K9|K10|K12|K13|K14|K15|K19]
+                                   [--only K1|K2|K4|K5|K6|K9|K10|K12|K13|K14|K15|K19[,...]]
                                    [--repeats R] [--decode] [--sweep]
 
 Imports ``unsloth_tpu_torch`` from DIR (default: this checkout), so that a
@@ -48,6 +49,19 @@ host has queued the call before the card reaches it and the time is the
 card's alone; median of 20) and ``kernels_per_call`` (the kernels one
 call launches, from ``torch.profiler``'s trace over 10 calls, the
 zeroing's own kernel left out).
+K4 (the RMSNorm backward) and K6 (the LayerNorm backward) run at
+NORM_SHAPES (``--only K4`` or ``K6``), in both forms where the tree has
+them (``need_dw`` False: dx alone, as every LoRA path asks; True: dx with
+dW, and dB for K6; a parent without the flag computes dW always and is
+timed once): the wrapper's time, the card's, the host's time to queue
+a call (``host_ms``: 50 calls back to back on the host's clock), the
+device operations of one call by name (``split``: ms a call of each kernel, memset and copy in
+``torch.profiler``'s trace, L2 flushed before each call; ``device_ms``
+their sum), the library's backward (``F.rms_norm`` with
+the scale ``w`` or ``1 + w``, ``F.layer_norm``, under autograd with the
+same leaves; its wrapper, card, host and device times), the bound (x and g read, dx written, w read, dW and dB
+written; bytes at 3.35 TB/s against 8 (K4) or 14 (K6) fp32 operations an
+element at 67 TFLOP/s) and the largest errors against the plain versions.
 K14 and K19's forward also run at decode rows (``--only K14`` or
 ``K19``, or ``--decode``): gpt-oss-20b's experts (E = 32, N = K = 2,880,
 K14 at block 32; the bf16 bias), routed top-4 from 1, 2 and 4 random
@@ -72,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 # rows of x at which K1 and K12 run their decode form
@@ -114,6 +129,20 @@ K13_SHAPES = (
      (("q/o", 4096, 4096), ("k/v", 1024, 4096), ("gate/up", 14336, 4096),
       ("down", 4096, 14336))]
     + [("ragged", 1000, 1404, 32, 333)])
+# (kernel, rows, D, dtype, gemma) of K4 at every main path's width (Llama-
+# 3.1-8B's packed 8K row, Gemma-2-9B's 2 x 2,048 rows, gpt-oss-20b's 4,096,
+# Orpheus-3B's 2,048, Llama-3.2-1B's and Qwen2.5-0.5B's 2 x 2,048) and of
+# K6 at Whisper-large-v3's (2 x 1,500 encoder frames, 2 x 224 decoder
+# tokens; the fp32 form of phase 4g)
+NORM_SHAPES = (("K4", 8192, 4096, "bfloat16", False),
+               ("K4", 4096, 3584, "bfloat16", True),
+               ("K4", 4096, 2880, "bfloat16", False),
+               ("K4", 2048, 3072, "bfloat16", False),
+               ("K4", 4096, 2048, "bfloat16", False),
+               ("K4", 4096, 896, "bfloat16", False),
+               ("K6", 3000, 1280, "bfloat16", False),
+               ("K6", 448, 1280, "bfloat16", False),
+               ("K6", 3000, 1280, "float32", False))
 # K14, K15: gpt-oss-20b's experts (E, N = K, block) and the routed rows
 K14_EXPERTS = (32, 2880, 32)
 K14_TOKENS, K14_TOP_K = 4096, 4
@@ -185,6 +214,25 @@ def card_ms(fn, flush, runs=20):
     return statistics.median(times)
 
 
+def host_ms(fn, runs=50):
+    """The median of five host times to queue one call of ``fn``: ``runs``
+    calls back to back (no flush, nothing synchronized between them) on
+    the host's clock, the card synchronized before: what a call costs the
+    host, however short its kernels."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / runs)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def kernels_per_call(fn, flush, runs=10):
     """The kernels one call of ``fn`` launches, from ``torch.profiler``'s
     chrome trace over ``runs`` calls, each after ``flush`` is zeroed; the
@@ -192,7 +240,7 @@ def kernels_per_call(fn, flush, runs=10):
     return _device_once(fn, flush, runs)[1]
 
 
-def _kernel_events(body):
+def _kernel_events(body, cats=("kernel",)):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,7 +256,33 @@ def _kernel_events(body):
             events = json.load(fh)["traceEvents"]
     finally:
         os.unlink(path)
-    return [e for e in events if e.get("cat") == "kernel"]
+    return [e for e in events if e.get("cat") in cats]
+
+
+def op_split(fn, flush, runs=10):
+    """{name: ms a call} of every device operation (kernel, memset, copy)
+    one call of ``fn`` runs, from ``torch.profiler``'s chrome trace over
+    ``runs`` calls, each after ``flush``'s bits are flipped (a kernel that
+    no call runs, where a zeroing could share its name with a zero fill or
+    a memset of the call), that kernel (profiled alone first) left out;
+    and the operations a call."""
+    fn()
+    cats = ("kernel", "gpu_memset", "gpu_memcpy")
+    flush_names = {e["name"] for e in _kernel_events(flush.bitwise_not_,
+                                                     cats)}
+
+    def body():
+        for _ in range(runs):
+            flush.bitwise_not_()
+            fn()
+
+    split = {}
+    ops = [e for e in _kernel_events(body, cats)
+           if e["name"] not in flush_names]
+    for e in ops:
+        split[e["name"]] = split.get(e["name"], 0.0) + float(e["dur"]) \
+            / runs / 1e3
+    return split, len(ops) / runs
 
 
 def _device_once(fn, flush, runs):
@@ -455,6 +529,90 @@ def grouped_decode_times(dev, g, flush, label, which, sweep=False):
                   flush=True)
 
 
+def norm_times(dev, g, flush, label, which):
+    """K4 and K6 (``which``) at NORM_SHAPES, each form the tree has, beside
+    the library's backward and the bound (the module's docstring)."""
+    import importlib
+    import inspect
+
+    import torch
+    import torch.nn.functional as F
+
+    # the ops package's exports shadow the module's name
+    trn = importlib.import_module("unsloth_tpu_torch.ops.rms_norm")
+
+    for kernel, rows, d, dt, gemma in NORM_SHAPES:
+        if kernel not in which:
+            continue
+        dtype = getattr(torch, dt)
+        x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5
+             ).to(dtype)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
+             ).to(dtype)
+        gy = torch.randn((rows, d), generator=g, device=dev).to(dtype)
+        eps = 1e-5 if kernel == "K6" else 1e-6
+        bwd = trn.layer_norm_bwd if kernel == "K6" else trn.rms_norm_bwd
+        forms = (False, True) if "need_dw" in inspect.signature(
+            bwd).parameters else (None,)
+        if kernel == "K4":
+            ref = trn.rms_norm_bwd_ref(x, w, gy, eps, gemma)
+            scale = (1.0 + w.float()).to(dtype) if gemma else w
+
+            def lib_out(xl, wl):
+                return F.rms_norm(xl, (d,), wl, eps)
+        else:
+            ref = trn.layer_norm_bwd_ref(x, w, gy, eps)
+            scale = w
+
+            def lib_out(xl, wl):
+                return F.layer_norm(xl, (d,), wl, None, eps)
+        for need_dw in forms:
+            kw = {} if need_dw is None else {"need_dw": need_dw}
+            if kernel == "K4":
+                def fn():
+                    return bwd(x, w, gy, eps, gemma, **kw)
+            else:
+                def fn():
+                    return bwd(x, w, gy, eps, **kw)
+            got = fn()
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, ref) if a is not None]
+            leaves = [x.detach().clone().requires_grad_(True)]
+            if need_dw is not False:
+                leaves.append(scale.detach().clone().requires_grad_(True))
+            y = lib_out(leaves[0], leaves[1] if len(leaves) > 1 else scale)
+
+            def lib_fn():
+                return torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+            split, per_call = op_split(fn, flush)
+            lib_split, lib_per_call = op_split(lib_fn, flush)
+            with_dw = need_dw is not False
+            nbytes = (3 * x.numel() * x.element_size()
+                      + d * w.element_size()
+                      + (d * (w.element_size() if kernel == "K4" else 8)
+                         if with_dw else 0))
+            ops = (8 if kernel == "K4" else 14) * x.numel()
+            print(json.dumps({
+                "label": label, "kernel": kernel,
+                "shape": f"[{rows}, {d}] {dt}" + (" gemma" if gemma else ""),
+                "form": {None: "dx + dW (parent)", False: "dx only",
+                         True: "dx + dW"}[need_dw],
+                "ms": time_ms(fn, flush), "card_ms": card_ms(fn, flush),
+                "host_ms": host_ms(fn),
+                "device_ms": sum(split.values()), "split": split,
+                "ops_per_call": per_call,
+                "library_ms": time_ms(lib_fn, flush),
+                "library_card_ms": card_ms(lib_fn, flush),
+                "library_device_ms": sum(lib_split.values()),
+                "library_ops_per_call": lib_per_call,
+                "library_host_ms": host_ms(lib_fn),
+                "bound_ms": 1e3 * max(nbytes / 3.35e12, ops / 67e12),
+                "max_abs_errs": errs}), flush=True)
+            del y, leaves
+        del x, w, gy, ref
+
+
 def packed_row(t, docs, seed=0):
     """Segment ids [1, t] (numpy): documents of ``docs`` tokens laid end to
     end while they fit, then a pad tail (id 0); chip_smoke's
@@ -613,14 +771,22 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", choices=("K1", "K2", "K5", "K9", "K10", "K12",
-                                       "K13", "K14", "K15", "K19"),
-                    default=None)
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help="a kernel, or several joined by commas")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
-    if args.decode and args.only not in (None, "K1", "K12", "K14", "K19"):
+    names = ("K1", "K2", "K4", "K5", "K6", "K9", "K10", "K12", "K13", "K14",
+             "K15", "K19")
+    if args.only and not set(args.only) <= set(names):
+        ap.error(f"--only takes {', '.join(names)}")
+
+    def want(kernel):
+        return args.only is None or kernel in args.only
+
+    if args.decode and args.only and not set(args.only) <= {"K1", "K12",
+                                                              "K14", "K19"}:
         ap.error("--decode times K1's, K12's, K14's and K19's decode rows "
                  "only")
     global REPEATS
@@ -653,7 +819,7 @@ def main() -> int:
     decode = args.decode
     k1_shapes = [(name, n, k, [m for m in rows if m in DECODE_M or not decode])
                  for name, n, k, rows in K1_SHAPES]
-    for name, n, k, row_counts in (k1_shapes if args.only in (None, "K1")
+    for name, n, k, row_counts in (k1_shapes if want("K1")
                                    else ()):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
@@ -680,7 +846,7 @@ def main() -> int:
                               "device_ms": dev_ms,
                               "kernels_per_call": per_call}),
                   flush=True)
-    for name, n, k, m in (K2_SHAPES if args.only in (None, "K2")
+    for name, n, k, m in (K2_SHAPES if want("K2")
                           and not decode else ()):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02
              ).to(torch.bfloat16)
@@ -704,7 +870,7 @@ def main() -> int:
         del q, gy, dx, ref
     for name, n, k, block, m in (
             [c for c in K12_SHAPES if c[4] in DECODE_M or not decode]
-            if args.only in (None, "K12") else ()):
+            if want("K12") else ()):
         q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
 
@@ -725,7 +891,7 @@ def main() -> int:
                           "rel_err": err, "device_ms": dev_ms,
                           "kernels_per_call": per_call}), flush=True)
         del q, x, y, ref
-    for name, n, k, block, m in (K13_SHAPES if args.only in (None, "K13")
+    for name, n, k, block, m in (K13_SHAPES if want("K13")
                                  and not decode else ()):
         q = quantize_fp8_block(fp8_weight(n, k, g, dev, block), block)
         gy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
@@ -745,18 +911,21 @@ def main() -> int:
                           "rel_err": err, "bitwise": bool(torch.equal(dx, ref))
                           }), flush=True)
         del q, gy, dx, ref
-    if args.only in (None, "K14") and not decode:
+    if want("K14") and not decode:
         k14_times(dev, g, flush, args.label)
-    grouped = [k_ for k_ in ("K14", "K19") if args.only in (None, k_)]
+    grouped = [k_ for k_ in ("K14", "K19") if want(k_)]
     if grouped:
         grouped_decode_times(dev, g, flush, args.label, grouped, args.sweep)
-    if args.only in (None, "K15") and not decode:
+    if want("K15") and not decode:
         k14_times(dev, g, flush, args.label, dx=True)
-    if args.only in (None, "K9") and not decode:
+    if want("K9") and not decode:
         k9_times(dev, g, flush, args.label)
-    if args.only in (None, "K10") and not decode:
+    if want("K10") and not decode:
         k10_times(dev, g, flush, args.label)
-    for rows, d, dt, bias in (K5_SHAPES if args.only in (None, "K5")
+    norms = [k_ for k_ in ("K4", "K6") if want(k_)]
+    if norms and not decode:
+        norm_times(dev, g, flush, args.label, norms)
+    for rows, d, dt, bias in (K5_SHAPES if want("K5")
                               and not decode else ()):
         dtype = getattr(torch, dt)
         x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5

@@ -256,27 +256,43 @@ def test_nf4_matmul_backward_launches_dx_kernel(dev):
         1e-2 * ref.float().abs().max()
 
 
+@pytest.mark.parametrize("need_dw", [True, False])
+@pytest.mark.parametrize("d", [896, 1280, 3584, 4096])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("gemma", [False, True])
-def test_rms_norm_bwd_kernel_matches_plain(dev, dtype, gemma):
-    """dx within 2 output ulps (the fp32 result differs in its last bits,
-    then rounds); dW, an fp32 sum over 700 rows in another order, within
-    1e-3 of max|dW| (bf16: one bf16 ulp, 2^-7, of max|dW|)."""
+def test_rms_norm_bwd_kernel_matches_plain(dev, dtype, gemma, d, need_dw):
+    """K4 in both forms (dx alone, as the LoRA paths ask; dx with dW) at
+    the main paths' widths (Qwen2.5-0.5B's 896, 1,280, Gemma-2's 3,584,
+    Llama's 4,096): dx within 2 output ulps (the fp32 result differs in
+    its last bits, then rounds); dW, an fp32 sum over 700 rows in another
+    order, within 1e-3 of max|dW| (bf16: one bf16 ulp, 2^-7, of max|dW|);
+    the same bits from a second call; one launch a call, and in the
+    dx-only form no dW and one device operation (torch.profiler)."""
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((7, 100, 4096), generator=g, device=dev).to(dtype)
-    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
-    gy = torch.randn((7, 100, 4096), generator=g, device=dev).to(dtype)
+    x = torch.randn((7, 100, d), generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+    gy = torch.randn((7, 100, d), generator=g, device=dev).to(dtype)
     before = rms_norm_bwd.launches
-    dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma)
+    dx, dw = rms_norm_bwd(x, w, gy, 1e-5, gemma, need_dw=need_dw)
+    dx2, dw2 = rms_norm_bwd(x, w, gy, 1e-5, gemma, need_dw=need_dw)
     rdx, rdw = rms_norm_bwd_ref(x, w, gy, 1e-5, gemma)
     torch.cuda.synchronize()
-    assert rms_norm_bwd.launches == before + 1
+    assert rms_norm_bwd.launches == before + 2
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     assert ((dx.float() - rdx.float()).abs()
             <= 2 * ulp * rdx.float().abs() + 1e-5).all()
-    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-3
-    assert (dw.float() - rdw.float()).abs().max() <= \
-        tol * rdw.float().abs().max()
+    assert torch.equal(dx, dx2)
+    if need_dw:
+        assert dw.dtype == w.dtype and torch.equal(dw, dw2)
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-3
+        assert (dw.float() - rdw.float()).abs().max() <= \
+            tol * rdw.float().abs().max()
+    else:
+        assert dw is None and dw2 is None
+        ops = launched_kernels(
+            lambda: rms_norm_bwd(x, w, gy, 1e-5, gemma, need_dw=False),
+            tries=6)
+        assert len(ops) == 1, ops
 
 
 def _segments(t, lo, hi, seed):
@@ -1212,14 +1228,19 @@ from unsloth_tpu_torch.ops.rms_norm import (  # noqa: E402
 
 @pytest.mark.parametrize("rows,d", [(3000, 1280), (448, 1280), (70, 384),
                                     (5, 7000), (37, 4096), (37, 2048),
-                                    (9, 1288)])
+                                    (9, 1288), (100, 896), (64, 3584)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bias", [True, False])
-def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias):
+@pytest.mark.parametrize("need_dw", [True, False])
+def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias, need_dw):
     """K5 and K6 against layer_norm_ref / layer_norm_bwd_ref at Whisper's
-    widths, a narrow one and one whose dW/dB accumulators need more than
-    48 KB of shared memory, with and without a bias; the tolerances of
-    chip_smoke.ln_errs (each part <= 1 of its limit)."""
+    widths, a narrow one, one whose dW/dB sums need more than 48 KB of
+    shared memory (the strided form) and the other main paths' 896 and
+    3,584, with and without a bias, K6 in both forms (dx alone, as the
+    Whisper LoRA path asks; dx with dW and dB); the tolerances of
+    chip_smoke.ln_errs (each part <= 1 of its limit); the same bits from a
+    second backward; one launch a call, and in the dx-only form no dW or
+    dB and one device operation (torch.profiler)."""
     g = torch.Generator(device=dev).manual_seed(12)
     x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5).to(dtype)
     w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
@@ -1228,15 +1249,24 @@ def test_layer_norm_kernels_match_plain(dev, rows, d, dtype, bias):
     gy = torch.randn((rows, d), generator=g, device=dev).to(dtype)
     before = (layer_norm_fwd.launches, layer_norm_bwd.launches)
     out = layer_norm_fwd(x, w, b, 1e-5)
-    dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5)
+    dx, dw, db = layer_norm_bwd(x, w, gy, 1e-5, need_dw=need_dw)
+    again = layer_norm_bwd(x, w, gy, 1e-5, need_dw=need_dw)
     torch.cuda.synchronize()
     assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 1, before[1] + 2)
     assert out.dtype == dx.dtype == dtype
-    assert dw.dtype == db.dtype == torch.float32
-    errs = ln_errs(dtype, (out, dx, dw, db),
-                   (layer_norm_ref(x, w, b, 1e-5),)
-                   + layer_norm_bwd_ref(x, w, gy, 1e-5))
+    want = (layer_norm_ref(x, w, b, 1e-5),) + layer_norm_bwd_ref(x, w, gy,
+                                                                 1e-5)
+    assert torch.equal(dx, again[0])
+    if need_dw:
+        assert dw.dtype == db.dtype == torch.float32
+        assert torch.equal(dw, again[1]) and torch.equal(db, again[2])
+    else:
+        assert dw is db is again[1] is again[2] is None
+        ops = launched_kernels(lambda: layer_norm_bwd(
+            x, w, gy, 1e-5, need_dw=False), tries=6)
+        assert len(ops) == 1, ops
+    errs = ln_errs(dtype, (out, dx, dw, db), want)
     assert max(errs.values()) <= 1.0, errs
 
 

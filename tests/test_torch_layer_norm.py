@@ -13,6 +13,8 @@ element is within one bf16 ulp of the other's (plus 2^-20 of the largest
 value, the fp32 error of terms that cancel to near zero).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,16 +32,16 @@ EPS = 1e-5
 D = 384
 
 
-def _inputs(dtype, seed=0):
-    """x [2, 7, D] with a per-row offset and scale, w near 1, b small, g:
+def _inputs(dtype, seed=0, d=D):
+    """x [2, 7, d] with a per-row offset and scale, w near 1, b small, g:
     numpy from a seed, as JAX arrays of ``dtype`` and the port's tensors of
     the same values."""
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((2, 7, D)) * rng.uniform(0.5, 3.0, (2, 7, 1))
+    x = (rng.standard_normal((2, 7, d)) * rng.uniform(0.5, 3.0, (2, 7, 1))
          + rng.standard_normal((2, 7, 1))).astype(np.float32)
-    w = (1.0 + 0.2 * rng.standard_normal(D)).astype(np.float32)
-    b = (0.1 * rng.standard_normal(D)).astype(np.float32)
-    g = rng.standard_normal((2, 7, D)).astype(np.float32)
+    w = (1.0 + 0.2 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((2, 7, d)).astype(np.float32)
     js = [jnp.asarray(a).astype(dtype) for a in (x, w, b, g)]
     ts = [to_tensor(np.asarray(a), "cpu") for a in js]
     return js, ts
@@ -75,9 +77,8 @@ def test_layer_norm_fwd_matches_jax_kernel(dtype, bias):
                                   _np(layer_norm_ref(xt, wt, bt, EPS)))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_layer_norm_bwd_matches_jax_kernel(dtype):
-    (xj, wj, _, gj), (xt, wt, _, gt) = _inputs(getattr(jnp, dtype), seed=1)
+def _ln_bwd_against_pallas(dtype, seed, d=D):
+    (xj, wj, _, gj), (xt, wt, _, gt) = _inputs(getattr(jnp, dtype), seed, d)
     jdx, jdw, jdb = _ln_bwd_pallas(xj, wj, gj, EPS)
     dx, dw, db = layer_norm_bwd(xt, wt, gt, EPS)
     assert dx.dtype == xt.dtype and dw.dtype == db.dtype == torch.float32
@@ -88,6 +89,17 @@ def test_layer_norm_bwd_matches_jax_kernel(dtype):
                                    atol=1e-5 * np.abs(_np(want)).max())
     for got, want in zip((dx, dw, db), layer_norm_bwd_ref(xt, wt, gt, EPS)):
         np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_bwd_matches_jax_kernel(dtype):
+    _ln_bwd_against_pallas(dtype, 1)
+
+
+def test_layer_norm_bwd_matches_jax_kernel_at_whisper_width():
+    """The same at Whisper-large-v3's d_model, 1,280 (160 chunks of bf16:
+    K6's lanes hold one or two), in bf16."""
+    _ln_bwd_against_pallas("bfloat16", 4, d=1280)
 
 
 @pytest.mark.parametrize("bias", [True, False])
@@ -122,6 +134,37 @@ def test_layer_norm_frozen_weights_give_dx_only():
         layer_norm_bwd_ref(xt, wt, gt, EPS)[0].float().numpy())
     assert wt.grad is None and bt.grad is None
     assert layer_norm(xt, wt, bt, EPS).grad_fn is None
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_layer_norm_frozen_weights_skip_the_weight_gradients(bias,
+                                                            monkeypatch):
+    """w and b frozen (the Whisper LoRA path): the autograd Function asks
+    layer_norm_bwd for neither dW nor dB (K6's dx-only form on the card),
+    whose dx equals the full form's bit for bit and jax.vjp's (fp32), and
+    which returns None for both."""
+    (xj, wj, bj, gj), (xt, wt, bt, gt) = _inputs(jnp.float32, seed=5)
+    if not bias:
+        bj, bt = jnp.zeros_like(wj), None
+    _, vjp = jax.vjp(lambda x_: jax_layer_norm_ref(x_, wj, bj, EPS), xj)
+    (rdx,) = vjp(gj)
+    tln = importlib.import_module("unsloth_tpu_torch.ops.rms_norm")
+    asked = []
+
+    def spy(*args, **kw):
+        asked.append(kw.get("need_dw", True))
+        return layer_norm_bwd(*args, **kw)
+
+    monkeypatch.setattr(tln, "layer_norm_bwd", spy)
+    x = xt.clone().requires_grad_(True)
+    layer_norm(x, wt, bt, EPS).backward(gt)
+    assert asked == [False]
+    dx, dw, db = layer_norm_bwd(xt, wt, gt, EPS, need_dw=False)
+    assert dw is None and db is None
+    assert torch.equal(dx, layer_norm_bwd(xt, wt, gt, EPS)[0])
+    assert torch.equal(x.grad, dx)
+    np.testing.assert_allclose(_np(x.grad), _np(rdx), rtol=0,
+                               atol=1e-5 * np.abs(_np(rdx)).max())
 
 
 def test_launch_counters_stay_zero_on_cpu():

@@ -220,3 +220,33 @@ def test_build_report_finds_the_nf4_kernel():
                     ("grouped_decode_kernel<K19, NT 2>", 126, 0)]
     assert len(serialized) == 1 and "C7517" in serialized[0]
     assert chip_smoke.HOPPER_BUILD_ROWS == 43
+
+
+def test_build_report_finds_the_norm_backwards():
+    """Phase 2 holds K4's and K6's backward instantiations to 0 spill (36
+    rows: for each (x, w) dtype pair the row form at 2 and 4 chunks a lane,
+    dx alone and with dW, and the strided form; K6 with bf16 x has no
+    4-chunk row form), named by their dtypes and form."""
+    tag = "_ZN44_GLOBAL__N__85108ee7_11_rms_norm_cu_f565634d19"
+    names = [tag + "rms_norm_bwd_kernelIf13__nv_bfloat16Li4ELb1EEEvNS_11"
+             "NormBwdArgsE",
+             tag + "rms_norm_bwd_kernelI13__nv_bfloat16S1_Li2ELb0EEEvNS_11"
+             "NormBwdArgsE",
+             "_ZN46_GLOBAL__N__bd966dab_13_layer_norm_cu_4cb206c321layer_norm"
+             "_bwd_kernelIffLi0ELb0EEEvNS_11NormBwdArgsE",
+             "_ZN46_GLOBAL__N__bd966dab_13_layer_norm_cu_4cb206c321layer_norm"
+             "_bwd_kernelI13__nv_bfloat16fLi2ELb1EEEvNS_11NormBwdArgsE"]
+    lines = []
+    for i, fn in enumerate(names):
+        lines += [f"ptxas info    : Compiling entry function '{fn}' for "
+                  "'sm_90a'",
+                  f"    0 bytes stack frame, {8 * (i == 3)} bytes spill "
+                  "stores, 0 bytes spill loads",
+                  f"ptxas info    : Used {90 + i} registers, used 16 "
+                  "barriers, 208 bytes smem"]
+    assert chip_smoke.norm_build_report("\n".join(lines)) == [
+        ("rms_norm_bwd_kernel<f32, bf16, C 4, dW>", 90, 0),
+        ("rms_norm_bwd_kernel<bf16, bf16, C 2, dx>", 91, 0),
+        ("layer_norm_bwd_kernel<f32, f32, strided>", 92, 0),
+        ("layer_norm_bwd_kernel<bf16, f32, C 2, dW>", 93, 8)]
+    assert chip_smoke.NORM_BUILD_ROWS == 36

@@ -96,17 +96,14 @@ def test_nf4_matmul_autograd_matches_jax_grad(carried_nf4):
 # (b) RMSNorm backward
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("gemma", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rms_norm_bwd_plain_matches_pallas(gemma, dtype):
+def _rms_bwd_against_pallas(rows, d, gemma, dtype, seed=3):
     """dx and dW of the plain twin against _rms_norm_bwd_pallas (interpret
-    mode). f32: 1e-5 relative to the largest value (fp32 sums in another
-    order). bf16 inputs: dx rounds to bf16 in both (2^-8 relative), dW is
-    summed in fp32 and cast to bf16: 1e-2 of the largest value."""
-    rng = _rng(3)
-    x = rng.standard_normal((200, 256)).astype(np.float32)
-    w = (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
-    g = rng.standard_normal((200, 256)).astype(np.float32)
+    mode) on [rows, d] from ``seed``, within the tolerances that
+    test_rms_norm_bwd_plain_matches_pallas states."""
+    rng = _rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
     jd = getattr(jnp, dtype)
     jdx, jdw = _rms_norm_bwd_pallas(jnp.asarray(x, jd), jnp.asarray(w, jd),
                                     jnp.asarray(g, jd), 1e-5, gemma)
@@ -118,6 +115,27 @@ def test_rms_norm_bwd_plain_matches_pallas(gemma, dtype):
     for got, want in ((tdx, _np(jdx)), (tdw, _np(jdw))):
         assert np.abs(got.float().numpy() - want).max() <= \
             tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("gemma", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_bwd_plain_matches_pallas(gemma, dtype):
+    """dx and dW of the plain twin against _rms_norm_bwd_pallas (interpret
+    mode). f32: 1e-5 relative to the largest value (fp32 sums in another
+    order). bf16 inputs: dx rounds to bf16 in both (2^-8 relative), dW is
+    summed in fp32 and cast to bf16: 1e-2 of the largest value."""
+    _rms_bwd_against_pallas(200, 256, gemma, dtype)
+
+
+@pytest.mark.parametrize("d,gemma,dtype", [(896, False, "bfloat16"),
+                                           (1280, False, "float32"),
+                                           (3584, True, "bfloat16")])
+def test_rms_norm_bwd_plain_matches_pallas_at_path_widths(d, gemma, dtype):
+    """The same at the widths of the main paths whose rows K4's kernel lays
+    out most differently (norm_bwd_form): Qwen2.5-0.5B's 896 (112 chunks
+    of bf16, not a multiple of the lanes), 1,280 and Gemma-2-9B's 3,584
+    with the scale 1 + w; 16 rows."""
+    _rms_bwd_against_pallas(16, d, gemma, dtype, seed=d)
 
 
 @pytest.mark.parametrize("gemma", [False, True])
@@ -133,6 +151,38 @@ def test_rms_norm_autograd_matches_jax_grad(gemma):
     torch.sin(rms_norm(xt, wt, 1e-5, gemma)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), atol=1e-5)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("gemma", [False, True])
+def test_rms_norm_frozen_weight_gives_dx_only(gemma, monkeypatch):
+    """x trainable, w frozen (every LoRA path): the autograd Function asks
+    rms_norm_bwd for no dW (the dx-only form of K4 on the card), w gets no
+    gradient, and dx equals the full form's bit for bit and jax.vjp's
+    (fp32, 1e-5)."""
+    rng = _rng(5)
+    x = rng.standard_normal((2, 7, 128)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    g = rng.standard_normal((2, 7, 128)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jrms_norm(a, jnp.asarray(w), 1e-5, gemma),
+                     jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(g))
+    trn = importlib.import_module("unsloth_tpu_torch.ops.rms_norm")
+    asked = []
+
+    def spy(*args, **kw):
+        asked.append(kw.get("need_dw", True))
+        return rms_norm_bwd(*args, **kw)
+
+    monkeypatch.setattr(trn, "rms_norm_bwd", spy)
+    xt, wt = _t(x).requires_grad_(True), _t(w)
+    rms_norm(xt, wt, 1e-5, gemma).backward(_t(g))
+    assert asked == [False] and wt.grad is None
+    full_dx, _ = rms_norm_bwd(_t(x), wt, _t(g), 1e-5, gemma)
+    dx, dw = rms_norm_bwd(_t(x), wt, _t(g), 1e-5, gemma, need_dw=False)
+    assert dw is None
+    assert torch.equal(dx, full_dx) and torch.equal(xt.grad, full_dx)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), atol=1e-5,
                                rtol=1e-5)
 
 

@@ -26,6 +26,8 @@
 //     D, a warp-shuffle reduction and then one across the eight warps in
 //     shared memory, three passes over the row (sum, centred sum of
 //     squares, output; the later passes hit L1/L2).
+//
+// The backward (K6) below instantiates norm_common.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,80 +79,6 @@ int launch(const void* x, const void* w, const void* b, void* out, int rows, int
 }
 
 constexpr int kRowsPerBlock = kThreads / 32;  // the warp form: one warp a row
-
-// The sum of v over the warp, returned to every lane (a shuffle tree).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// E elements of T from `p` (8, 16 or 32 bytes, as aligned) as fp32.
-template <typename T, int E>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&f)[E]) {
-  constexpr int kBytes = E * static_cast<int>(sizeof(T));
-  static_assert(kBytes == 8 || kBytes == 16 || kBytes == 32, "vector width");
-  uint32_t raw[kBytes / 4];
-  if constexpr (kBytes == 8) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    raw[0] = v.x;
-    raw[1] = v.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      raw[4 * i] = v.x;
-      raw[4 * i + 1] = v.y;
-      raw[4 * i + 2] = v.z;
-      raw[4 * i + 3] = v.w;
-    }
-  }
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int i = 0; i < E / 2; ++i) {
-      const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[i]));
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) f[i] = __uint_as_float(raw[i]);
-  }
-}
-
-// The 16 bytes of a chunk of T as fp32 (E = 16 / sizeof(T) values).
-template <typename T, int E>
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[E]) {
-  const uint32_t raw[4] = {v.x, v.y, v.z, v.w};
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[i]));
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(raw[i]);
-  }
-}
-
-// E fp32 values rounded once to T, as one 16-byte chunk.
-template <typename T, int E>
-__device__ __forceinline__ uint4 pack(const float (&f)[E]) {
-  uint32_t raw[4];
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      raw[i] = *reinterpret_cast<const uint32_t*>(&t);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) raw[i] = __float_as_uint(f[i]);
-  }
-  return make_uint4(raw[0], raw[1], raw[2], raw[3]);
-}
 
 // One warp a row (rows blockIdx.x * warps + warp); lane l holds the row's
 // 16-byte chunks l, l + 32, ... (at most kMaxChunks) in registers. The sums
@@ -253,80 +181,43 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out, int rows,
 }
 
 // ---------------------------------------------------------------------------
-// Backward. Replaces unsloth_tpu/ops/rms_norm.py:_ln_bwd_kernel (launched by
-// _ln_bwd_pallas). All in fp32, with the statistics recomputed as above:
-//   xhat = (x - mean) * inv, dxhat = g * w,
-//   dx   = inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))  (x's dtype)
-//   dW   = sum over rows of g * xhat,  dB = sum over rows of g      (fp32)
-// dW and dB are reductions across every row. The TPU kernel carried them
-// across its sequential grid; here blocks run in parallel, so each block
-// sums its own rows into one fp32 partial row of each (kept in shared
-// memory, each thread owning the columns it walks) and column_sum_kernel
-// (norm_common.cuh) adds the partials up column by column. No atomics, so
-// dW and dB are the same on every run. Both are computed whether or not the weights are
-// trained, as the TPU kernel computes them.
-// Bounded by device-memory bytes: x and g are read once from device memory
-// (the later passes over a row hit L1/L2) and dx written once.
+// Backward (K6). Replaces unsloth_tpu/ops/rms_norm.py:_ln_bwd_kernel
+// (launched by _ln_bwd_pallas); the design, what bounds it and the two
+// forms are at the top of norm_common.cuh. C: the 16-byte chunks a lane
+// of the row form holds (2 or 4), 0 for the strided form; kDw: dW and
+// dB beside dx (the strided form reads it from the arguments).
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kThreads)
-layer_norm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                      const TX* __restrict__ g, TX* __restrict__ dx,
-                      float* __restrict__ dw_partial, float* __restrict__ db_partial, int rows,
-                      int D, int rows_per_block, float eps) {
-  extern __shared__ float acc[];  // [2 * D]: dW's columns, then dB's
-  float* dw_acc = acc;
-  float* db_acc = acc + D;
-  __shared__ float red[kThreads / 32];
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    dw_acc[i] = 0.0f;
-    db_acc[i] = 0.0f;
-  }
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const TX* xr = x + (size_t)r * D;
-    const TX* gr = g + (size_t)r * D;
-    const float2 st = row_stats(xr, D, eps, red);
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float dxhat = to_f32(gr[i]) * to_f32(w[i]);
-      s1 += dxhat;
-      s2 += dxhat * ((to_f32(xr[i]) - st.x) * st.y);
-    }
-    const float m1 = block_sum(s1, red) / static_cast<float>(D);
-    const float m2 = block_sum(s2, red) / static_cast<float>(D);
-    TX* dxr = dx + (size_t)r * D;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float gv = to_f32(gr[i]);
-      const float xhat = (to_f32(xr[i]) - st.x) * st.y;
-      dxr[i] = from_f32<TX>(st.y * (gv * to_f32(w[i]) - m1 - xhat * m2));
-      dw_acc[i] += gv * xhat;
-      db_acc[i] += gv;
-    }
-  }
-  float* dw_out = dw_partial + (size_t)blockIdx.x * D;
-  float* db_out = db_partial + (size_t)blockIdx.x * D;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    dw_out[i] = dw_acc[i];
-    db_out[i] = db_acc[i];
-  }
+template <typename TX, typename TW, int C, bool kDw>
+__global__ void __launch_bounds__(kThreads, 2) layer_norm_bwd_kernel(const NormBwdArgs p) {
+  if constexpr (C == 0)
+    norm_bwd_strided<true, TX, TW>(p);
+  else
+    norm_bwd_vec<true, TX, TW, C, kDw>(p);
 }
 
+// The instantiation of the form (chunks, dW or not) for x and w of TX
+// and TW; null where the lane budget leaves it out.
 template <typename TX, typename TW>
-int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_partial,
-               void* db_partial, void* dw, void* db, int rows, int D, int n_partial, float eps,
-               cudaStream_t s) {
-  const int rows_per_block = (rows + n_partial - 1) / n_partial;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
-  return launch_with_column_sum(
-      layer_norm_bwd_kernel<TX, TW>, blocks, smem, s, static_cast<const float*>(dw_partial),
-      static_cast<float*>(dw), static_cast<const float*>(db_partial), static_cast<float*>(db),
-      D, static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TX*>(g),
-      static_cast<TX*>(dx), static_cast<float*>(dw_partial), static_cast<float*>(db_partial),
-      rows, D, rows_per_block, eps);
+NormBwdKernel bwd_kernel(int chunks, bool dw) {
+  if (chunks == 0) return layer_norm_bwd_kernel<TX, TW, 0, false>;
+  if (chunks == 2)
+    return dw ? layer_norm_bwd_kernel<TX, TW, 2, true>
+              : layer_norm_bwd_kernel<TX, TW, 2, false>;
+  if constexpr (norm_lane_fits<TX>(4, 2))
+    if (chunks == 4)
+      return dw ? layer_norm_bwd_kernel<TX, TW, 4, true> : layer_norm_bwd_kernel<TX, TW, 4, false>;
+  return nullptr;
+}
+
+// bwd_kernel by dtype codes (0 float32, 1 bfloat16; null for others).
+NormBwdKernel pick_bwd(int x_dtype, int w_dtype, int chunks, bool dw) {
+  if (x_dtype == 1 && w_dtype == 1)
+    return bwd_kernel<__nv_bfloat16, __nv_bfloat16>(chunks, dw);
+  if (x_dtype == 1 && w_dtype == 0) return bwd_kernel<__nv_bfloat16, float>(chunks, dw);
+  if (x_dtype == 0 && w_dtype == 0) return bwd_kernel<float, float>(chunks, dw);
+  if (x_dtype == 0 && w_dtype == 1) return bwd_kernel<float, __nv_bfloat16>(chunks, dw);
+  return nullptr;
 }
 
 }  // namespace
@@ -351,28 +242,36 @@ extern "C" int unsloth_layer_norm(const void* x, const void* w, const void* b, v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// LayerNorm backward on `stream`: dx [rows, D] in x's dtype, and dw, db [D]
-// fp32, from x, g [rows, D] (g in x's dtype) and w [D]. dw_partial and
-// db_partial are fp32 scratch of at least n_partial * D floats each (the
-// wrapper allocates them); n_partial bounds the number of row blocks.
-// dtype codes as for unsloth_layer_norm. Returns the first CUDA error of
-// the two launches (0 if none).
+// LayerNorm backward on `stream`: dx [rows, D] in x's dtype from x, g
+// [rows, D] (g in x's dtype) and w [D]; with dw and db (fp32 [D], both or
+// neither) also dW and dB, summed through `partials` (fp32 scratch of
+// (blocks + ceil(blocks / group_blocks)) * 2 * round4(D) floats) and
+// `arrivals` (ceil(blocks / group_blocks) + 1 int32 counters, zero before
+// the first launch; the kernel leaves them zero). chunks, warps_per_row,
+// blocks and group_blocks are ops/rms_norm.py:norm_bwd_form's. dtype codes
+// as for unsloth_layer_norm. Returns the launch's CUDA error
+// (cudaErrorInvalidValue for arguments the kernels do not take).
 extern "C" int unsloth_layer_norm_bwd(const void* x, const void* w, const void* g, void* dx,
-                                      void* dw_partial, void* db_partial, void* dw, void* db,
-                                      int rows, int D, int n_partial, float eps, int x_dtype,
-                                      int w_dtype, void* stream) {
+                                      void* dw, void* db, void* partials, void* arrivals,
+                                      int rows, int D, int chunks, int warps_per_row, int blocks,
+                                      int group_blocks, float eps, int x_dtype, int w_dtype,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && w_dtype == 1)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, g, dx, dw_partial, db_partial, dw, db,
-                                                    rows, D, n_partial, eps, s);
-  if (x_dtype == 1 && w_dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(x, w, g, dx, dw_partial, db_partial, dw, db, rows, D,
-                                            n_partial, eps, s);
-  if (x_dtype == 0 && w_dtype == 0)
-    return launch_bwd<float, float>(x, w, g, dx, dw_partial, db_partial, dw, db, rows, D,
-                                    n_partial, eps, s);
-  if (x_dtype == 0 && w_dtype == 1)
-    return launch_bwd<float, __nv_bfloat16>(x, w, g, dx, dw_partial, db_partial, dw, db, rows, D,
-                                            n_partial, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const NormBwdArgs a{x, w, g, dx, dw, static_cast<float*>(db), static_cast<float*>(partials),
+                      static_cast<int*>(arrivals), rows, D, warps_per_row, group_blocks, eps, 0};
+  const bool ok = x_dtype == 1 ? norm_bwd_args_ok<__nv_bfloat16>(a, chunks, blocks, 2)
+                               : norm_bwd_args_ok<float>(a, chunks, blocks, 2);
+  if (!ok || (dw == nullptr) != (db == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_norm_bwd(pick_bwd(x_dtype, w_dtype, chunks, dw != nullptr), blocks,
+                         norm_bwd_smem(dw != nullptr, chunks, D, warps_per_row, 2), s, a);
+}
+
+// The blocks of the backward form (chunks, warps_per_row, dW or not) an SM
+// holds at width D (ops/rms_norm.py sizes the grid by it), or a negative
+// CUDA error. dtype codes as for unsloth_layer_norm.
+extern "C" int unsloth_layer_norm_bwd_blocks_per_sm(int chunks, int warps_per_row, int dw,
+                                                    int D, int x_dtype, int w_dtype) {
+  return norm_bwd_blocks_per_sm(pick_bwd(x_dtype, w_dtype, chunks, dw != 0),
+                                norm_bwd_smem(dw != 0, chunks, D, warps_per_row, 2));
 }

@@ -12,6 +12,8 @@
 // Design: one block of 256 threads per row, a strided loop over D, a
 // warp-shuffle reduction and then one across the eight warps in shared
 // memory. Rows are independent, so the grid is simply the row count.
+//
+// The backward (K4) below instantiates norm_common.cuh's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,98 +67,71 @@ void launch(const void* x, const void* w, void* out, int rows, int D, float eps,
 }
 
 // ---------------------------------------------------------------------------
-// Backward. Replaces unsloth_tpu/ops/rms_norm.py:_bwd_kernel (launched by
-// _rms_norm_bwd_pallas). With s = w (or 1 + w for Gemma), all in fp32:
-//   inv = rsqrt(mean(x^2) + eps), xhat = x * inv, wg = g * s,
-//   dx  = inv * (wg - xhat * mean(wg * xhat))          (cast to x's dtype)
-//   dW  = sum over rows of g * xhat                      (fp32)
-// dW is a reduction across every row. The TPU kernel carried it across
-// its sequential grid; here blocks run in parallel, so each block sums its
-// own rows into one fp32 partial row (kept in shared memory, each thread
-// owning the columns it walks) and column_sum_kernel (norm_common.cuh)
-// adds the partials up column by column. No atomics, so dW is the same on
-// every run.
-// Bounded by device-memory bytes: x and g are read once from device
-// memory (the three passes over a row hit L1/L2) and dx written once.
+// Backward (K4). Replaces unsloth_tpu/ops/rms_norm.py:_bwd_kernel (launched
+// by _rms_norm_bwd_pallas); the design, what bounds it and the two forms
+// are at the top of norm_common.cuh. C: the 16-byte chunks a lane of the
+// row form holds (2 or 4), 0 for the strided form; kDw: dW beside dx
+// (the strided form reads it from the arguments).
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kThreads)
-rms_norm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restrict__ g,
-                    TX* __restrict__ dx, float* __restrict__ dw_partial, int rows, int D,
-                    int rows_per_block, float eps, int gemma) {
-  extern __shared__ float dw_acc[];  // [D]
-  __shared__ float red[kThreads / 32];
-  for (int i = threadIdx.x; i < D; i += kThreads) dw_acc[i] = 0.0f;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const TX* xr = x + (size_t)r * D;
-    const TX* gr = g + (size_t)r * D;
-    float ss = 0.0f;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float v = to_f32(xr[i]);
-      ss += v * v;
-    }
-    const float inv = rsqrtf(block_sum(ss, red) / static_cast<float>(D) + eps);
-    float dot = 0.0f;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float s = gemma ? 1.0f + to_f32(w[i]) : to_f32(w[i]);
-      dot += to_f32(gr[i]) * s * (to_f32(xr[i]) * inv);
-    }
-    const float mean_term = block_sum(dot, red) / static_cast<float>(D);
-    TX* dxr = dx + (size_t)r * D;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float s = gemma ? 1.0f + to_f32(w[i]) : to_f32(w[i]);
-      const float gv = to_f32(gr[i]);
-      const float xhat = to_f32(xr[i]) * inv;
-      dxr[i] = from_f32<TX>(inv * (gv * s - xhat * mean_term));
-      dw_acc[i] += gv * xhat;
-    }
-  }
-  float* out = dw_partial + (size_t)blockIdx.x * D;
-  for (int i = threadIdx.x; i < D; i += kThreads) out[i] = dw_acc[i];
+template <typename TX, typename TW, int C, bool kDw>
+__global__ void __launch_bounds__(kThreads, 2) rms_norm_bwd_kernel(const NormBwdArgs p) {
+  if constexpr (C == 0)
+    norm_bwd_strided<false, TX, TW>(p);
+  else
+    norm_bwd_vec<false, TX, TW, C, kDw>(p);
 }
 
+// The instantiation of the form (chunks, dW or not) for x and w of TX
+// and TW; null where the lane budget leaves it out.
 template <typename TX, typename TW>
-int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_partial, void* dw,
-               int rows, int D, int n_partial, float eps, int gemma, cudaStream_t s) {
-  const int rows_per_block = (rows + n_partial - 1) / n_partial;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = static_cast<size_t>(D) * sizeof(float);
-  return launch_with_column_sum(
-      rms_norm_bwd_kernel<TX, TW>, blocks, smem, s, static_cast<const float*>(dw_partial),
-      static_cast<float*>(dw), static_cast<const float*>(nullptr), static_cast<float*>(nullptr),
-      D, static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TX*>(g),
-      static_cast<TX*>(dx), static_cast<float*>(dw_partial), rows, D, rows_per_block, eps,
-      gemma);
+NormBwdKernel bwd_kernel(int chunks, bool dw) {
+  if (chunks == 0) return rms_norm_bwd_kernel<TX, TW, 0, false>;
+  if (chunks == 2)
+    return dw ? rms_norm_bwd_kernel<TX, TW, 2, true>
+              : rms_norm_bwd_kernel<TX, TW, 2, false>;
+  if constexpr (norm_lane_fits<TX>(4, 1))
+    if (chunks == 4)
+      return dw ? rms_norm_bwd_kernel<TX, TW, 4, true> : rms_norm_bwd_kernel<TX, TW, 4, false>;
+  return nullptr;
+}
+
+// bwd_kernel by dtype codes (0 float32, 1 bfloat16; null for others).
+NormBwdKernel pick_bwd(int x_dtype, int w_dtype, int chunks, bool dw) {
+  if (x_dtype == 1 && w_dtype == 1)
+    return bwd_kernel<__nv_bfloat16, __nv_bfloat16>(chunks, dw);
+  if (x_dtype == 1 && w_dtype == 0) return bwd_kernel<__nv_bfloat16, float>(chunks, dw);
+  if (x_dtype == 0 && w_dtype == 0) return bwd_kernel<float, float>(chunks, dw);
+  if (x_dtype == 0 && w_dtype == 1) return bwd_kernel<float, __nv_bfloat16>(chunks, dw);
+  return nullptr;
 }
 
 }  // namespace
 
-// RMSNorm backward on `stream`: dx [rows, D] in x's dtype and dw [D] fp32
-// from x, g [rows, D] and w [D]. dw_partial is fp32 scratch of at least
-// n_partial * D floats (the wrapper allocates it); n_partial bounds the
-// number of row blocks. dtype codes as for unsloth_rms_norm; g has x's
-// dtype. Returns the first CUDA error of the two launches (0 if none).
+// RMSNorm backward on `stream`: dx [rows, D] in x's dtype from x, g
+// [rows, D] (g in x's dtype) and w [D]; with dw ([D] in w's dtype) also
+// dW, summed in fp32 through `partials` (fp32 scratch of (blocks +
+// ceil(blocks / group_blocks)) * round4(D) floats) and `arrivals`
+// (ceil(blocks / group_blocks) + 1 int32 counters, zero before the first
+// launch; the kernel leaves them zero), rounded once. chunks,
+// warps_per_row, blocks and group_blocks are ops/rms_norm.py:
+// norm_bwd_form's. dtype codes as for unsloth_rms_norm. Returns the
+// launch's CUDA error (cudaErrorInvalidValue for arguments the kernels do
+// not take).
 extern "C" int unsloth_rms_norm_bwd(const void* x, const void* w, const void* g, void* dx,
-                                    void* dw_partial, void* dw, int rows, int D, int n_partial,
+                                    void* dw, void* partials, void* arrivals, int rows, int D,
+                                    int chunks, int warps_per_row, int blocks, int group_blocks,
                                     float eps, int gemma, int x_dtype, int w_dtype,
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && w_dtype == 1)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, g, dx, dw_partial, dw, rows, D,
-                                                    n_partial, eps, gemma, s);
-  if (x_dtype == 1 && w_dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(x, w, g, dx, dw_partial, dw, rows, D, n_partial,
-                                            eps, gemma, s);
-  if (x_dtype == 0 && w_dtype == 0)
-    return launch_bwd<float, float>(x, w, g, dx, dw_partial, dw, rows, D, n_partial, eps,
-                                    gemma, s);
-  if (x_dtype == 0 && w_dtype == 1)
-    return launch_bwd<float, __nv_bfloat16>(x, w, g, dx, dw_partial, dw, rows, D, n_partial,
-                                            eps, gemma, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const NormBwdArgs a{x, w, g, dx, dw, nullptr, static_cast<float*>(partials),
+                      static_cast<int*>(arrivals), rows, D, warps_per_row, group_blocks, eps,
+                      gemma};
+  const bool ok = x_dtype == 1 ? norm_bwd_args_ok<__nv_bfloat16>(a, chunks, blocks, 1)
+                               : norm_bwd_args_ok<float>(a, chunks, blocks, 1);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_norm_bwd(pick_bwd(x_dtype, w_dtype, chunks, dw != nullptr), blocks,
+                         norm_bwd_smem(dw != nullptr, chunks, D, warps_per_row, 1), s, a);
 }
 
 // RMSNorm over the last axis of x [rows, D] on `stream`. dtype codes:
@@ -178,4 +153,13 @@ extern "C" int unsloth_rms_norm(const void* x, const void* w, void* out, int row
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the backward form (chunks, warps_per_row, dW or not) an SM
+// holds at width D (ops/rms_norm.py sizes the grid by it), or a negative
+// CUDA error. dtype codes as for unsloth_rms_norm.
+extern "C" int unsloth_rms_norm_bwd_blocks_per_sm(int chunks, int warps_per_row, int dw,
+                                                  int D, int x_dtype, int w_dtype) {
+  return norm_bwd_blocks_per_sm(pick_bwd(x_dtype, w_dtype, chunks, dw != 0),
+                                norm_bwd_smem(dw != 0, chunks, D, warps_per_row, 1));
 }

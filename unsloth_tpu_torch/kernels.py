@@ -141,9 +141,15 @@ def library() -> ctypes.CDLL:
         # (or null), stream
         lib.unsloth_nf4_matmul_dx_bf16.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.unsloth_nf4_matmul_dx_bf16.restype = i
-        lib.unsloth_rms_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
-                                             ctypes.c_float, i, i, i, p]
+        # x, w, g, dx, dW (or null), the fp32 scratch and its arrival
+        # counters (or null), rows, D, chunks a lane, warps a row, blocks,
+        # blocks a group, eps, gemma, x and w dtype codes, stream
+        lib.unsloth_rms_norm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                             i, i, ctypes.c_float, i, i, i, p]
         lib.unsloth_rms_norm_bwd.restype = i
+        # chunks a lane, warps a row, dW, D, x and w dtype codes
+        lib.unsloth_rms_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i, i]
+        lib.unsloth_rms_norm_bwd_blocks_per_sm.restype = i
         f = ctypes.c_float
         b = ctypes.c_bool
         # pointers, B, T, Hq, Hkv, D, scale, causal, the tile-pair class
@@ -218,9 +224,15 @@ def library() -> ctypes.CDLL:
         # x, w, b (or null), out, rows, D, eps, x and w dtype codes, stream
         lib.unsloth_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
         lib.unsloth_layer_norm.restype = i
+        # x, w, g, dx, dW and dB (or null), the scratch and counters (or
+        # null), rows, D, chunks a lane, warps a row, blocks, blocks a
+        # group, eps, x and w dtype codes, stream
         lib.unsloth_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                               i, f, i, i, p]
+                                               i, i, i, i, f, i, i, p]
         lib.unsloth_layer_norm_bwd.restype = i
+        lib.unsloth_layer_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i,
+                                                             i]
+        lib.unsloth_layer_norm_bwd_blocks_per_sm.restype = i
         # x (or g), e4m3 W, fp32 scales, out, M, N, K, block, the Hopper
         # kernel's tile counters or null, stream
         lib.unsloth_fp8_matmul_bf16.argtypes = [p, p, p, p, i, i, i, i, p, p]
@@ -232,6 +244,34 @@ def library() -> ctypes.CDLL:
         lib.unsloth_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+#: per (device, stream): the fp32 partials and int32 arrival counters of
+#: the kernels that sum their blocks' partials in the launch itself (the
+#: decode matmuls, the norm backwards). Each such kernel leaves the
+#: counters it used back at 0, and launches on one stream run one after
+#: another, so every launch on that stream reuses them; a launch on
+#: another stream gets its own.
+_SCRATCH = {}
+
+
+def device_scratch(floats: int, counters: int, device, stream: int):
+    """(partials, arrivals) pointers for a launch on ``stream`` (a CUDA
+    stream handle) of ``device``: at least ``floats`` fp32 and
+    ``counters`` zeroed int32, made once and grown where a call needs more
+    (no launch once they are large enough)."""
+    import torch
+
+    key = device, stream
+    partials, arrivals = _SCRATCH.get(key, (None, None))
+    if partials is None or partials.numel() < floats:
+        partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                               device=device)
+    if arrivals is None or arrivals.numel() < counters:
+        arrivals = torch.zeros(max(counters, 4096), dtype=torch.int32,
+                               device=device)
+    _SCRATCH[key] = partials, arrivals
+    return partials.data_ptr(), arrivals.data_ptr()
 
 
 def check(code: int, kernel: str) -> None:

@@ -318,13 +318,13 @@ def _launch_decode(x: torch.Tensor, q: FP8Tensor, counts) -> torch.Tensor:
     m = x2d.shape[0]
     y = torch.empty((m, out_f), dtype=x.dtype, device=x.device)
     plan = decode_schedule(m, out_f, in_f, "fp8")
-    partials, arrivals = _decode_scratch(plan, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partials, arrivals = _decode_scratch(plan, x.device, stream)
     values, scales = q.values.contiguous(), q.scales.contiguous()
     rc = kernels.library().unsloth_decode_matmul_fp8(
         x2d.data_ptr(), values.data_ptr(), scales.data_ptr(), q.block,
         y.data_ptr(), partials, arrivals, m, out_f, in_f, plan.row_warps,
-        plan.slices, plan.slice_steps, counts,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        plan.slices, plan.slice_steps, counts, stream)
     kernels.check(rc, "fp8_matmul (decode rows)")
     fp8_matmul_decode.launches += 1
     return y.reshape(*lead, out_f)

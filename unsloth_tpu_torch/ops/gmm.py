@@ -174,7 +174,8 @@ def gmm_fwd(lhs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         # the schedule from the shapes, the sizes left on the device
         schedule = grouped_decode_schedule(m, e, n, k, "bf16")
         plan = schedule[:3]
-        partials, arrivals = _decode_scratch(schedule, lhs.device)
+        partials, arrivals = _decode_scratch(schedule, lhs.device,
+                                             _stream(lhs))
     rc = kernels.library().unsloth_gmm_bf16(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         gs.data_ptr(), out.data_ptr(), m, e, n, k, *plan, partials, arrivals,

@@ -447,6 +447,7 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
     gs = group_sizes.to(torch.int32).contiguous()
     plan = (0, 0, 0)
     partials = arrivals = None
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
     if m <= DECODE_ROWS:
         # the bias as stored (bf16 or fp32: no cast pass); the schedule
         # from the shapes, the sizes left on the device
@@ -455,7 +456,8 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
             else bias.to(torch.float32)).contiguous()
         schedule = grouped_decode_schedule(m, e, n, k, "nf4")
         plan = schedule[:3]
-        partials, arrivals = _decode_scratch(schedule, lhs.device)
+        partials, arrivals = _decode_scratch(schedule, lhs.device,
+                                             stream)
     else:
         b = None if bias is None else bias.to(torch.float32).contiguous()
     rc = kernels.library().unsloth_nf4_gmm_bf16(
@@ -464,8 +466,7 @@ def nf4_gmm_fwd(lhs: torch.Tensor, q: NF4Stacked, group_sizes: torch.Tensor,
         int(b is None or b.dtype == torch.float32), gs.data_ptr(),
         out.data_ptr(),
         m, e, n, k, q.block_size, *plan, partials, arrivals,
-        None if tile_counts is None else tile_counts.data_ptr(),
-        torch.cuda.current_stream(lhs.device).cuda_stream)
+        None if tile_counts is None else tile_counts.data_ptr(), stream)
     kernels.check(rc, "nf4_gmm")
     nf4_gmm.launches += 1
     if m <= DECODE_ROWS:

@@ -121,7 +121,8 @@ def _nf4_decode_launch(x2d: torch.Tensor, packed: torch.Tensor, q: NF4Tensor,
     one launch a call). Counted under ``nf4_matmul_decode.launches``."""
     m, (out_f, in_f) = x2d.shape[0], q.shape
     plan = decode_schedule(m, out_f, in_f, "nf4")
-    partials, arrivals = _decode_scratch(plan, x2d.device)
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    partials, arrivals = _decode_scratch(plan, x2d.device, stream)
     if q.is_double_quant:
         absmax = (None, q.absmax.contiguous().data_ptr(),
                   q.absmax_scale.contiguous().data_ptr(),
@@ -132,8 +133,7 @@ def _nf4_decode_launch(x2d: torch.Tensor, packed: torch.Tensor, q: NF4Tensor,
         x2d.data_ptr(), packed.data_ptr(), *absmax, q.double_block_size,
         y.data_ptr(), partials, arrivals, m, out_f, in_f, plan.row_warps,
         plan.slices, plan.slice_steps,
-        None if tile_counts is None else tile_counts.data_ptr(),
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        None if tile_counts is None else tile_counts.data_ptr(), stream)
     kernels.check(rc, "nf4_matmul (decode rows)")
     nf4_matmul_decode.launches += 1
 
@@ -338,30 +338,13 @@ def _grouped_plan(n: int, row_bytes: int, policy: str, n_tiles: int,
                           n_tiles, slots)
 
 
-#: per device: the decode kernels' fp32 partials (every unit's tile) and
-#: int32 arrival counters (one per row group, 0 between calls: each
-#: group's last block sets its own back), made once and grown where a call
-#: needs more. Calls on one stream run one after another, so each reuses
-#: them; the port launches its kernels on the current stream.
-_DECODE_SCRATCH = {}
-
-
-def _decode_scratch(plan: DecodeSchedule, device: torch.device):
-    """(partials, arrivals) pointers for a decode launch: None and None at
-    one slice, else the device's scratch, grown to the call's size (no
-    launch once it is large enough)."""
+def _decode_scratch(plan: DecodeSchedule, device: torch.device,
+                    stream: int):
+    """(partials, arrivals) pointers for a decode launch on ``stream``:
+    None and None at one slice, else :func:`kernels.device_scratch`."""
     if plan.slices == 1:
         return None, None
-    floats, counters = plan.scratch
-    partials, arrivals = _DECODE_SCRATCH.get(device, (None, None))
-    if partials is None or partials.numel() < floats:
-        partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
-                               device=device)
-    if arrivals is None or arrivals.numel() < counters:
-        arrivals = torch.zeros(max(counters, 4096), dtype=torch.int32,
-                               device=device)
-    _DECODE_SCRATCH[device] = partials, arrivals
-    return partials.data_ptr(), arrivals.data_ptr()
+    return kernels.device_scratch(*plan.scratch, device, stream)
 
 
 def decode_absmax_ref(q: NF4Tensor) -> torch.Tensor:

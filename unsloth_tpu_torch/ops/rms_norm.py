@@ -8,6 +8,13 @@ fp32. On a CUDA tensor :func:`rms_norm` launches ``csrc/rms_norm.cu``
 kernel of that file (TPU ``_bwd_kernel``); on a CPU tensor they run
 :func:`rms_norm_ref` and :func:`rms_norm_bwd_ref`.
 
+The backwards (K4, K6; ``csrc/norm_common.cuh``) take a form from
+:func:`norm_bwd_form`: a row in registers over 1-8 warps, or strided;
+dx alone where no weight gradient is asked for (``need_dw=False``, what
+the autograd Functions pass for frozen weights: every LoRA path), one
+launch a call either way. The TPU kernels always return dW; the port's
+dx is the same with or without it.
+
 LayerNorm, counterpart of the same module's ``layer_norm``: on a CUDA
 tensor :func:`layer_norm_fwd` launches ``csrc/layer_norm.cu`` (TPU
 ``_ln_fwd_kernel``, K5) and :func:`layer_norm_bwd` its backward (TPU
@@ -23,7 +30,9 @@ that chooses.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -91,8 +100,156 @@ def _rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float,
 #: number of kernel launches since the last reset (CPU calls do not count)
 rms_norm.launches = 0
 
-#: most row blocks (fp32 partial rows of dW) the backward kernel uses
-_BWD_PARTIALS = 512
+# ---------------------------------------------------------------------------
+# The backward kernels' form (K4, K6)
+# ---------------------------------------------------------------------------
+
+#: 32-bit registers a lane of the backward's row form may give to its
+#: chunks of x and g (four each a chunk) and its fp32 dW (and dB) columns,
+#: of the 128 a thread that __launch_bounds__(256, 2) leaves (the other
+#: half holds w, the sums, addresses and temporaries)
+NORM_LANE_REGS = 64
+#: 16-byte chunks of a row a lane of the row form holds (the kernels'
+#: instantiations)
+NORM_CHUNKS = (2, 4)
+#: warps of a backward block (256 threads), and the blocks an SM holds at
+#: least (__launch_bounds__(256, 2)): the wave that decides whether a row
+#: takes more warps (the grid itself takes the kernel's occupancy)
+NORM_WARPS, NORM_BLOCKS_PER_SM = 8, 2
+
+
+class NormBwdForm(NamedTuple):
+    """How K4's and K6's kernels run a backward (:func:`norm_bwd_form`)."""
+    #: 16-byte chunks of x (and of g) a lane holds in registers (the
+    #: template C), 0 for the strided form
+    chunks: int
+    #: warps of a row group (the strided form: the block's eight)
+    warps_per_row: int
+    #: the grid: about one wave, each block walking rows in a grid-stride
+    #: loop; with dW each leaves one fp32 partial row
+    blocks: int
+    #: blocks whose partial rows the last of them to arrive sums (Q); 0 in
+    #: the dx-only form
+    group_blocks: int
+
+    @property
+    def rows_per_block(self) -> int:
+        """Row groups a block runs at a time, 8 / W."""
+        return NORM_WARPS // self.warps_per_row
+
+    @property
+    def groups(self) -> int:
+        """Groups of partial rows (0 in the dx-only form)."""
+        return -(-self.blocks // self.group_blocks) if self.group_blocks \
+            else 0
+
+    def block_of_rows(self, rows: int) -> torch.Tensor:
+        """The block whose partial row takes each of ``rows`` rows: row r is
+        row group r % G of the block's (r // G) // blocks-th visit."""
+        return (torch.arange(rows) // self.rows_per_block) % self.blocks
+
+    def scratch(self, d: int, sums: int):
+        """(fp32 floats, int32 counters) of the dW form's scratch: a
+        partial row a block and a row a group, each ``sums`` rows (dW, and
+        dB) of d rounded up to 4; a counter a group and one more."""
+        groups = self.groups
+        return ((self.blocks + groups) * sums * (-(-d // 4) * 4), groups + 1)
+
+
+def norm_lane_registers(chunks: int, per_chunk: int, sums: int) -> int:
+    """32-bit registers a lane of the row form gives its data: ``chunks``
+    16-byte chunks of x and of g, and ``sums`` fp32 columns (dW; and dB)
+    for each of their ``per_chunk`` elements."""
+    return 8 * chunks + sums * per_chunk * chunks
+
+
+@functools.lru_cache(maxsize=4096)
+def norm_bwd_form(rows: int, d: int, dtype: torch.dtype, need_dw: bool,
+                  layer: bool = False, aligned: bool = True, sms: int = 132,
+                  blocks_per_sm: int = NORM_BLOCKS_PER_SM) -> NormBwdForm:
+    """K4's (``layer`` False) or K6's form for ``rows`` rows of ``d``
+    elements of ``dtype`` (x's) on a card of ``sms`` SMs that holds
+    ``blocks_per_sm`` blocks of the form's kernel; ``need_dw``: dW (and
+    K6's dB) too. The row form where ``d`` is a whole number of 16-byte
+    chunks and the tensors are 16-byte aligned: the fewest warps a row (1,
+    2, 4, 8) whose lanes hold the row in NORM_CHUNKS chunks each within
+    NORM_LANE_REGS with the dW (and dB) columns
+    (:func:`norm_lane_registers`), then, while the rows make less than a
+    wave of NORM_BLOCKS_PER_SM blocks an SM and every lane keeps a chunk,
+    twice the warps; else the strided form. The layout does not depend on
+    ``need_dw``, so that dx is the same bits in both forms. The grid: the
+    row groups in the fewest rounds of at most ``blocks_per_sm * sms``
+    blocks, spread evenly over the blocks; with dW, groups of
+    ceil(sqrt(blocks)) blocks."""
+    chunks, warps = norm_bwd_layout(rows, d, dtype, layer, aligned, sms)
+    units = -(-rows // (NORM_WARPS // warps))
+    rounds = max(1, -(-units // (max(1, blocks_per_sm) * sms)))
+    blocks = max(1, -(-units // rounds))
+    return NormBwdForm(chunks, warps, blocks,
+                       math.isqrt(blocks - 1) + 1 if need_dw else 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def norm_bwd_layout(rows: int, d: int, dtype: torch.dtype, layer: bool,
+                    aligned: bool = True, sms: int = 132):
+    """(chunks a lane, warps a row) of :func:`norm_bwd_form`: the row's
+    layout, which neither ``need_dw`` nor the occupancy moves."""
+    per_chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    n = d // per_chunk
+    wave = NORM_BLOCKS_PER_SM * sms
+
+    def fit(warps):
+        return next((c for c in NORM_CHUNKS if c * 32 * warps >= n), None)
+
+    chunks, warps = 0, NORM_WARPS
+    if aligned and d % per_chunk == 0:
+        for w in (1, 2, 4, 8):
+            c = fit(w)
+            if c is not None and norm_lane_registers(
+                    c, per_chunk, 2 if layer else 1) <= NORM_LANE_REGS:
+                chunks, warps = c, w
+                break
+        while (chunks and warps < NORM_WARPS
+               and -(-rows // (NORM_WARPS // warps)) < wave
+               and n >= 64 * warps):
+            warps *= 2
+            chunks = fit(warps)
+    return chunks, warps
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_form(rows: int, d: int, x_dtype: torch.dtype,
+                 w_dtype: torch.dtype, need_dw: bool, layer: bool,
+                 aligned: bool, device: torch.device):
+    """(:func:`norm_bwd_form` on ``device``'s card at the occupancy of the
+    kernel the form takes (the CUDA occupancy query; at least
+    NORM_BLOCKS_PER_SM by its launch bounds), the dW form's scratch size
+    or None): what a wrapper launches, one lookup a call."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks, warps = norm_bwd_layout(rows, d, x_dtype, layer, aligned, sms)
+    lib = kernels.library()
+    fn = (lib.unsloth_layer_norm_bwd_blocks_per_sm if layer
+          else lib.unsloth_rms_norm_bwd_blocks_per_sm)
+    n = fn(chunks, warps, int(need_dw), d, _DTYPE_CODE[x_dtype],
+           _DTYPE_CODE[w_dtype])
+    if n < 0:
+        kernels.check(-n, "layer_norm_bwd" if layer else "rms_norm_bwd")
+    form = norm_bwd_form(rows, d, x_dtype, need_dw, layer, aligned, sms,
+                         max(n, 1))
+    return form, form.scratch(d, 2 if layer else 1) if need_dw else None
+
+
+def norm_bwd_form_for(x: torch.Tensor, w: torch.Tensor, need_dw: bool,
+                      layer: bool, aligned: bool = True) -> NormBwdForm:
+    """:func:`norm_bwd_form` for x [..., D] and w on x's card, with the
+    occupancy of the kernel the form takes (what the wrappers launch)."""
+    d = x.shape[-1]
+    return _launch_form(x.numel() // d, d, x.dtype, w.dtype, need_dw, layer,
+                        aligned, x.device)[0]
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def rms_norm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -112,12 +269,15 @@ def rms_norm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                 eps: float = 1e-6, gemma: bool = False):
-    """Gradients of RMSNorm: (dx [..., D] in x.dtype, dW [D] in w.dtype).
-    g is the output's gradient, in x.dtype. dW is an fp32 sum over all
-    rows, cast once."""
+                 eps: float = 1e-6, gemma: bool = False,
+                 need_dw: bool = True):
+    """Gradients of RMSNorm: (dx [..., D] in x.dtype, dW [D] in w.dtype, or
+    None where ``need_dw`` is False). g is the output's gradient, in
+    x.dtype. dW is an fp32 sum over all rows in a fixed order, rounded
+    once. On the card one launch a call (K4, :func:`norm_bwd_form`)."""
     if x.device.type == "cpu":
-        return rms_norm_bwd_ref(x, w, g, eps, gemma)
+        dx, dw = rms_norm_bwd_ref(x, w, g, eps, gemma)
+        return dx, dw if need_dw else None
     _check_cuda("rms_norm_bwd", x, w)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"rms_norm_bwd: g {tuple(g.shape)} {g.dtype} on "
@@ -126,21 +286,26 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     d = x.shape[-1]
     xc, gc, wc = x.contiguous(), g.contiguous(), w.contiguous()
     dx = torch.empty_like(xc)
-    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
     rows = xc.numel() // d if d else 0
     if rows == 0:
-        return dx, dw.to(w.dtype)
-    n_partial = min(rows, _BWD_PARTIALS)
-    partial = torch.empty((n_partial, d), dtype=torch.float32,
-                          device=x.device)
+        return dx, (torch.zeros((d,), dtype=w.dtype, device=x.device)
+                    if need_dw else None)
+    form, scratch = _launch_form(rows, d, x.dtype, w.dtype, need_dw, False,
+                                 _aligned16(xc, gc, wc, dx), x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dw, partials, arrivals = None, None, None
+    if need_dw:
+        dw = torch.empty((d,), dtype=w.dtype, device=x.device)
+        partials, arrivals = kernels.device_scratch(*scratch, x.device,
+                                                    stream)
     rc = kernels.library().unsloth_rms_norm_bwd(
         xc.data_ptr(), wc.data_ptr(), gc.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), rows, d, n_partial, float(eps),
-        int(bool(gemma)), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        None if dw is None else dw.data_ptr(), partials, arrivals, rows, d,
+        *form, float(eps), int(bool(gemma)), _DTYPE_CODE[x.dtype],
+        _DTYPE_CODE[w.dtype], stream)
     kernels.check(rc, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
-    return dx, dw.to(w.dtype)
+    return dx, dw
 
 
 #: number of kernel launches since the last reset (CPU calls do not count)
@@ -160,9 +325,10 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x, w, g.to(x.dtype), ctx.eps, ctx.gemma)
-        return (dx if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None, None, None)
+        need = ctx.needs_input_grad
+        dx, dw = rms_norm_bwd(x, w, g.to(x.dtype), ctx.eps, ctx.gemma,
+                              need_dw=need[1])
+        return dx if need[0] else None, dw, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -311,34 +477,42 @@ layer_norm_fwd.launches = 0
 
 
 def layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                   eps: float = 1e-5):
+                   eps: float = 1e-5, need_dw: bool = True):
     """LayerNorm gradients (K6): (dx [..., D] in x.dtype, dW [D] fp32,
-    dB [D] fp32). g is the output's gradient, in x.dtype. dW and dB are
-    fp32 sums over all rows, reduced in a fixed order (no atomics)."""
+    dB [D] fp32), dW and dB None where ``need_dw`` (the weight gradients)
+    is False. g is the output's gradient, in x.dtype. dW and dB are fp32
+    sums over all rows in a fixed order (no atomics). On the card one
+    launch a call (K6, :func:`norm_bwd_form`)."""
     if x.device.type == "cpu":
-        return layer_norm_bwd_ref(x, w, g, eps)
+        dx, dw, db = layer_norm_bwd_ref(x, w, g, eps)
+        return (dx, dw, db) if need_dw else (dx, None, None)
     _check_cuda("layer_norm_bwd", x, w)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"layer_norm_bwd: g {tuple(g.shape)} {g.dtype} on "
                          f"{g.device} does not match x {tuple(x.shape)} "
                          f"{x.dtype} on {x.device}")
     d = x.shape[-1]
-    xc, gc = x.contiguous(), g.contiguous()
+    xc, gc, wc = x.contiguous(), g.contiguous(), w.contiguous()
     dx = torch.empty_like(xc)
-    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
-    db = torch.zeros_like(dw)
     rows = xc.numel() // d if d else 0
     if rows == 0:
-        return dx, dw, db
-    n_partial = min(rows, _BWD_PARTIALS)
-    partial = torch.empty((2, n_partial, d), dtype=torch.float32,
-                          device=x.device)
+        return dx, *(torch.zeros((2, d), dtype=torch.float32,
+                                 device=x.device).unbind()
+                     if need_dw else (None, None))
+    form, scratch = _launch_form(rows, d, x.dtype, w.dtype, need_dw, True,
+                                 _aligned16(xc, gc, wc, dx), x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dw = db = partials = arrivals = None
+    if need_dw:
+        dw, db = torch.empty((2, d), dtype=torch.float32,
+                             device=x.device).unbind()
+        partials, arrivals = kernels.device_scratch(*scratch, x.device,
+                                                    stream)
     rc = kernels.library().unsloth_layer_norm_bwd(
-        xc.data_ptr(), w.contiguous().data_ptr(), gc.data_ptr(),
-        dx.data_ptr(), partial[0].data_ptr(), partial[1].data_ptr(),
-        dw.data_ptr(), db.data_ptr(), rows, d, n_partial, float(eps),
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        xc.data_ptr(), wc.data_ptr(), gc.data_ptr(), dx.data_ptr(),
+        None if dw is None else dw.data_ptr(),
+        None if db is None else db.data_ptr(), partials, arrivals, rows, d,
+        *form, float(eps), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], stream)
     kernels.check(rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dw, db
@@ -364,12 +538,13 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(x, w, g.to(x.dtype), ctx.eps)
         need = ctx.needs_input_grad
+        need_db = ctx.b_dtype is not None and need[2]
+        dx, dw, db = layer_norm_bwd(x, w, g.to(x.dtype), ctx.eps,
+                                    need_dw=need[1] or need_db)
         return (dx if need[0] else None,
                 dw.to(w.dtype) if need[1] else None,
-                db.to(ctx.b_dtype) if ctx.b_dtype is not None and need[2]
-                else None, None)
+                db.to(ctx.b_dtype) if need_db else None, None)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor,
